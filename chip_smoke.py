@@ -5,27 +5,38 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port from csrc/, then runs these phases in
-order, printing one JSON line per phase; any failure ends the run with a
-nonzero exit code:
+It builds every kernel of the port from csrc/ (one nvcc per source, all
+started together), then runs these phases in order, printing one JSON line
+per phase; any failure ends the run with a nonzero exit code:
 
-1. env      the card's name and power limit (nvidia-smi), torch and CUDA
-            versions;
-2. kernels  each kernel against its plain PyTorch twin on the card at the
-            shapes of the `ref` configuration, with its time, its bound,
-            the twin's time and one library call's time (CUDA events,
-            median of 20 runs after warm-up);
-3. build    the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
-            make_corpus, copied into the port) indexed into 10 shards on
-            the card;
-4. serve    Scorer.load on the card, search_batch under TF-IDF and BM25,
-            then topk over 10,000 two-term queries with k = 10, checked
-            against an exhaustive numpy oracle (recall@10 on 64 queries)
-            and against the kernels' launch counts.
+1. env       the card's name and power limit (nvidia-smi), torch and CUDA
+             versions;
+2. kernels   dense_score against its plain PyTorch twin on the card at the
+             shapes of the `ref` configuration, with its time, its bound,
+             the twin's time and one library call's time (CUDA events,
+             median of 20 runs after warm-up);
+3. build     the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
+             make_corpus, copied into the port) indexed into 10 shards on
+             the card;
+4. serve     Scorer.load on the card (dense layout), search_batch under
+             TF-IDF and BM25, then topk over 10,000 two-term queries with
+             k = 10, checked against an exhaustive numpy oracle (recall@10
+             on 64 queries, both scorings) and the kernels' launch counts;
+5. sparse    the same index and queries on the tiered sparse layout,
+             held against the dense layout's top-10 row by row;
+6. build     the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
+             word shapes) indexed into 10 shards on the card;
+7. serve     as 4, on wiki100k, where layout "auto" picks the tiered
+             sparse layout;
+8. kernels   cold_tier against its plain twin over the whole cold stage
+             of one 2,499-query block of the wiki100k traffic, TF-IDF and
+             BM25, with the same timings.
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
-repository, the script exits nonzero before printing any result.
+repository, the script exits nonzero before printing any result. On an
+H100 the run takes about five minutes, most of it the wiki100k build's
+pure-Python analysis on the host.
 """
 
 from __future__ import annotations
@@ -49,6 +60,11 @@ REF_QUERIES = 10_000           # bench.py's ref query load: B x 2 terms
 REF_QUERY_TERMS = 2
 ORACLE_QUERIES = 64            # queries held against the numpy oracle
 REF_CORPUS: dict = {}          # make_corpus arguments; {} is the ref size
+# bench.py's wiki100k configuration: make_corpus arguments
+WIKI_CORPUS = dict(n_docs=100_000, target_bytes=270_000_000,
+                   vocab_size=200_000)
+LAYOUTS = {"ref": "dense", "wiki100k": "sparse"}   # what "auto" must pick
+K1, BM25_B = 0.9, 0.4          # the port's BM25 constants
 TIMED_RUNS = 20
 
 
@@ -90,6 +106,7 @@ def phase_env(card: str) -> dict:
             "device_name": torch.cuda.get_device_name(0),
             "device_count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "python": sys.version.split()[0]}
 
 
@@ -174,17 +191,21 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
             "launches_while_comparing": fused_scoring.dense_score_launches()}
 
 
-def phase_build(card: str, work: str, *, device: str) -> tuple[dict, str]:
-    """The ref corpus, generated from seed 0, indexed into 10 shards. The
-    CPU test shrinks the corpus through REF_CORPUS, a test hook only."""
+def phase_build(card: str, work: str, *, device: str,
+                config: str = "ref") -> tuple[dict, str]:
+    """A configuration's corpus, generated from seed 0, indexed into 10
+    shards. The CPU test shrinks the corpora through REF_CORPUS and
+    WIKI_CORPUS, test hooks only. At ref the host analysis is timed once
+    more on its own; at wiki100k that would add some 90 s, so it is not."""
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.index import build_index
 
-    corpus = os.path.join(work, "ref.trec")
+    corpus = os.path.join(work, f"{config}.trec")
     t0 = time.perf_counter()
-    corpus_bytes = make_corpus(corpus, seed=0, **REF_CORPUS)
+    corpus_bytes = make_corpus(
+        corpus, seed=0, **(REF_CORPUS if config == "ref" else WIKI_CORPUS))
     gen_s = time.perf_counter() - t0
-    idx = os.path.join(work, "idx")
+    idx = os.path.join(work, f"{config}-idx")
     t0 = time.perf_counter()
     meta = build_index(corpus, idx, num_shards=10, device=device)
     if device == "cuda":
@@ -194,19 +215,22 @@ def phase_build(card: str, work: str, *, device: str) -> tuple[dict, str]:
     wall = time.perf_counter() - t0
     part_bytes = sum(os.path.getsize(os.path.join(idx, f))
                      for f in os.listdir(idx) if f.startswith("part-"))
-    # the host analysis alone, timed apart: the rest of build_s is the
-    # vocab sort, the device group-by and the artifact writes
-    from tpu_ir_torch.index.builder import analyze_corpus
+    out = {"phase": "build", "card": card, "config": config,
+           "corpus_bytes": corpus_bytes, "corpus_gen_s": gen_s,
+           "build_s": wall, "docs_per_s": meta.num_docs / wall,
+           "num_docs": meta.num_docs, "vocab_size": meta.vocab_size,
+           "num_pairs": meta.num_pairs, "num_shards": meta.num_shards,
+           "part_bytes": part_bytes}
+    if config == "ref":
+        # the host analysis alone, timed apart: the rest of build_s is the
+        # vocab sort, the device group-by and the artifact writes
+        from tpu_ir_torch.index.builder import analyze_corpus
 
-    t0 = time.perf_counter()
-    analyze_corpus([corpus])
-    analyze_s = time.perf_counter() - t0
-    return {"phase": "build", "card": card, "corpus_bytes": corpus_bytes,
-            "corpus_gen_s": gen_s, "build_s": wall,
-            "analyze_alone_s": analyze_s,
-            "docs_per_s": meta.num_docs / wall, "num_docs": meta.num_docs,
-            "vocab_size": meta.vocab_size, "num_pairs": meta.num_pairs,
-            "num_shards": meta.num_shards, "part_bytes": part_bytes}, idx
+        t0 = time.perf_counter()
+        analyze_corpus([corpus])
+        out["analyze_alone_s"] = time.perf_counter() - t0
+    os.unlink(corpus)
+    return out, idx
 
 
 def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
@@ -232,43 +256,101 @@ def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
             rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # the port's own kernels, wherever they rank
+    port = {name: {"ms": ms, "calls": c} for n, ms, c in rows
+            for name in ("dense_score", "cold_tier")
+            if f"{name}_kernel" in n}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": (1 - device_ms / wall_ms) if wall_ms > 0 else None,
+            "port_kernels": port,
             "top": [{"kernel": n[:90], "ms": ms, "calls": c}
                     for n, ms, c in rows[:8]]}
 
 
 def oracle_topk(q: np.ndarray, df: np.ndarray, pair_doc: np.ndarray,
-                pair_tf: np.ndarray, num_docs: int, k: int):
-    """Exhaustive TF-IDF over the host postings columns, float64 sums of
-    float32 weights: (docnos [k'], scores [num_docs+1]) of one query."""
+                pair_tf: np.ndarray, num_docs: int, k: int, *,
+                scoring: str = "tfidf", doc_len: np.ndarray | None = None):
+    """Exhaustive TF-IDF or BM25 over the host postings columns, float64
+    sums of float32 per-posting weights: (docnos [k'], scores
+    [num_docs+1]) of one query. BM25 needs doc_len [num_docs+1]."""
+    f32 = np.float32
     indptr = np.concatenate([[0], np.cumsum(df, dtype=np.int64)])
-    idf = np.where(df > 0, np.log10(np.float32(num_docs)
-                                    / np.maximum(df, 1).astype(np.float32)),
-                   0).astype(np.float32)
+    dff = np.maximum(df, 1).astype(f32)
+    if scoring == "bm25":
+        n = f32(num_docs)
+        idf = np.log(f32(1) + (n - df.astype(f32) + f32(0.5))
+                     / (df.astype(f32) + f32(0.5)))
+        dl = doc_len.astype(f32)
+        avg_dl = dl.sum(dtype=f32) / max(n, f32(1))
+        dl_norm = f32(1 - BM25_B) + f32(BM25_B) * dl / max(avg_dl, f32(1e-9))
+    else:
+        idf = np.log10(f32(num_docs) / dff)
+    idf = np.where(df > 0, idf, 0).astype(f32)
     scores = np.zeros(num_docs + 1, np.float64)
     for t in q:
         if t < 0 or t >= len(df):
             continue
         lo, hi = indptr[t], indptr[t + 1]
-        w = (1.0 + np.log(pair_tf[lo:hi].astype(np.float32))) * idf[t]
-        np.add.at(scores, pair_doc[lo:hi], w.astype(np.float64))
+        tf = pair_tf[lo:hi].astype(f32)
+        docs = pair_doc[lo:hi]
+        if scoring == "bm25":
+            cell = tf * f32(K1 + 1) / np.maximum(
+                tf + f32(K1) * dl_norm[docs], f32(1e-9))
+        else:
+            cell = f32(1) + np.log(tf)
+        np.add.at(scores, docs, (cell * idf[t]).astype(np.float64))
     scores[0] = 0.0
     order = np.lexsort((np.arange(num_docs + 1), -scores))
     top = [int(d) for d in order[:k] if scores[d] > 0]
     return top, scores
 
 
-def phase_serve(card: str, idx: str, *, device: str, k: int = 10) -> dict:
-    """Load the index on the device and serve it; counts kernel launches
-    from the load to the end of the timed topk. The CPU test shrinks the
-    query load through REF_QUERIES and ORACLE_QUERIES, test hooks only."""
+def oracle_check(scorer, q_ids: np.ndarray, scores: np.ndarray,
+                 docnos: np.ndarray, *, scoring: str, k: int) -> dict:
+    """recall@k and the worst relative score error of ORACLE_QUERIES
+    sampled rows against the exhaustive oracle; documents tied with the
+    oracle's k-th score (within ORACLE_RTOL) are interchangeable."""
+    _, pair_doc, pair_tf = scorer._pairs
+    df = scorer.df.cpu().numpy()
+    doc_len = scorer.doc_len.cpu().numpy()
+    sample = np.random.default_rng(2).choice(len(q_ids), ORACLE_QUERIES,
+                                             replace=False)
+    recalls, worst_rel = [], 0.0
+    for qi in sample:
+        top, oscores = oracle_topk(q_ids[qi], df, pair_doc, pair_tf,
+                                   scorer.meta.num_docs, k, scoring=scoring,
+                                   doc_len=doc_len)
+        got = [int(d) for d in docnos[qi] if d > 0]
+        if not top:
+            recalls.append(1.0 if not got else 0.0)
+            continue
+        cut = oscores[top[-1]] * (1 - ORACLE_RTOL)
+        hits = sum(1 for d in got if oscores[d] >= cut)
+        recalls.append(min(hits, len(top)) / len(top))
+        for sc, d in zip(scores[qi], docnos[qi]):
+            if d > 0:
+                worst_rel = max(worst_rel, abs(sc - oscores[d])
+                                / max(oscores[d], 1e-30))
+    recall = float(np.mean(recalls))
+    if recall < 1.0 or worst_rel > ORACLE_RTOL:
+        raise AssertionError(f"{scoring} oracle check failed: recall@{k} "
+                             f"{recall}, max rel score error {worst_rel}")
+    return {"recall_at_10": recall, "max_rel_err": worst_rel}
+
+
+def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
+                k: int = 10):
+    """Load the index with layout "auto" and serve it. Counts kernel
+    launches from the load to the end of the timed topk calls, the main
+    path's window. Returns (report, scorer, query ids, {scoring: (scores,
+    docnos)}). The CPU test shrinks the query load through REF_QUERIES
+    and ORACLE_QUERIES, test hooks only."""
     import torch
 
     import tpu_ir_torch
     from tpu_ir_torch.search import Scorer
 
-    n_queries, n_oracle = REF_QUERIES, ORACLE_QUERIES
+    n_queries = REF_QUERIES
     on_cuda = device == "cuda"
 
     def sync():
@@ -280,7 +362,12 @@ def phase_serve(card: str, idx: str, *, device: str, k: int = 10) -> dict:
     scorer = Scorer.load(idx, device=device)
     sync()
     load_s = time.perf_counter() - t0
+    if scorer.layout != LAYOUTS[config]:
+        raise AssertionError(f"{config}: layout {scorer.layout!r}, "
+                             f"expected {LAYOUTS[config]!r}")
     resident = torch.cuda.memory_allocated() if on_cuda else None
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
 
     terms = scorer.vocab.terms
     texts = [f"{terms[7]} {terms[len(terms) // 2]}",
@@ -302,62 +389,231 @@ def phase_serve(card: str, idx: str, *, device: str, k: int = 10) -> dict:
     v = scorer.meta.vocab_size
     q_ids = rng.integers(0, v, size=(n_queries, REF_QUERY_TERMS)).astype(
         np.int32)
-    scorer.topk(q_ids, k=k)                          # warm-up
-    t0 = time.perf_counter()
-    scores, docnos = scorer.topk(q_ids, k=k)         # host arrays: synced
-    tfidf_s = time.perf_counter() - t0
-    scorer.topk(q_ids, k=k, scoring="bm25")
-    t0 = time.perf_counter()
-    bm25_scores, _ = scorer.topk(q_ids, k=k, scoring="bm25")
-    bm25_s = time.perf_counter() - t0
+    results, walls, per_topk = {}, {}, {}
+    for scoring in ("tfidf", "bm25"):
+        scorer.topk(q_ids, k=k, scoring=scoring)     # warm-up
+        before = tpu_ir_torch.kernel_launches()
+        t0 = time.perf_counter()
+        results[scoring] = scorer.topk(q_ids, k=k, scoring=scoring)
+        walls[scoring] = time.perf_counter() - t0    # host arrays: synced
+        after = tpu_ir_torch.kernel_launches()
+        per_topk[scoring] = {n: after[n] - before[n] for n in after}
     launches = tpu_ir_torch.kernel_launches()
     peak = torch.cuda.max_memory_allocated() if on_cuda else None
     profiles = ({s: profile_topk(scorer, q_ids, k, s)
                  for s in ("tfidf", "bm25")} if on_cuda else None)
 
-    if scores.shape != (n_queries, k) or not np.isfinite(scores).all() \
-            or not np.isfinite(bm25_scores).all():
-        raise AssertionError("topk returned malformed scores")
-    if on_cuda and launches["dense_score"] == 0:
-        raise AssertionError("the serve phase never launched dense_score")
+    for scoring, (sc, dn) in results.items():
+        if sc.shape != (n_queries, k) or dn.shape != (n_queries, k) \
+                or not np.isfinite(sc).all():
+            raise AssertionError(f"{scoring} topk returned malformed scores")
+    kernel = "dense_score" if scorer.layout == "dense" else "cold_tier"
+    if on_cuda and launches[kernel] == 0:
+        raise AssertionError(f"the serve phase never launched {kernel}")
     if on_cuda and resident < 1e9:
         raise AssertionError(f"only {resident} bytes resident on the card; "
-                             "the dense doc matrix should hold > 1 GB")
+                             "the index should hold > 1 GB")
+    oracle = {s: oracle_check(scorer, q_ids, *results[s], scoring=s, k=k)
+              for s in ("tfidf", "bm25")}
 
-    # recall@10 against the exhaustive oracle; documents tied with the
-    # oracle's 10th score (within ORACLE_RTOL) are interchangeable
-    _, pair_doc, pair_tf = scorer._pairs
-    df = scorer.df.cpu().numpy()
-    sample = np.random.default_rng(2).choice(n_queries, n_oracle,
-                                             replace=False)
-    recalls, worst_rel = [], 0.0
-    for qi in sample:
-        top, oscores = oracle_topk(q_ids[qi], df, pair_doc, pair_tf,
-                                   scorer.meta.num_docs, k)
-        got = [int(d) for d in docnos[qi] if d > 0]
-        if not top:
-            recalls.append(1.0 if not got else 0.0)
-            continue
-        cut = oscores[top[-1]] * (1 - ORACLE_RTOL)
-        hits = sum(1 for d in got if oscores[d] >= cut)
-        recalls.append(min(hits, len(top)) / len(top))
-        for s, d in zip(scores[qi], docnos[qi]):
-            if d > 0:
-                worst_rel = max(worst_rel, abs(s - oscores[d])
-                                / max(oscores[d], 1e-30))
-    recall = float(np.mean(recalls))
-    if recall < 1.0 or worst_rel > ORACLE_RTOL:
-        raise AssertionError(f"oracle check failed: recall@10 {recall}, "
-                             f"max rel score error {worst_rel}")
-    return {"phase": "serve", "card": card, "load_s": load_s,
-            "layout": scorer.layout, "block": scorer._block_size(),
-            "resident_bytes": resident, "peak_bytes": peak,
-            "text_hits": text_hits, "queries": n_queries, "k": k,
-            "tfidf_s": tfidf_s, "tfidf_qps": n_queries / tfidf_s,
-            "bm25_s": bm25_s, "bm25_qps": n_queries / bm25_s,
-            "launches": launches, "oracle_queries": n_oracle,
-            "recall_at_10": recall, "oracle_max_rel_err": worst_rel,
-            "profile": profiles}
+    out = {"phase": "serve", "card": card, "config": config,
+           "load_s": load_s, "layout": scorer.layout,
+           "block": scorer._block_size(), "resident_bytes": resident,
+           "peak_bytes": peak, "text_hits": text_hits,
+           "queries": n_queries, "k": k,
+           "tfidf_s": walls["tfidf"], "tfidf_qps": n_queries / walls["tfidf"],
+           "bm25_s": walls["bm25"], "bm25_qps": n_queries / walls["bm25"],
+           "launches": launches, "launches_per_topk": per_topk,
+           "oracle_queries": ORACLE_QUERIES,
+           "recall_at_10": min(o["recall_at_10"] for o in oracle.values()),
+           "oracle_max_rel_err": max(o["max_rel_err"]
+                                     for o in oracle.values()),
+           "oracle": oracle, "profile": profiles}
+    if scorer.layout == "sparse":
+        out["tiers"] = {
+            "hot_rows": int(scorer.hot_tfs.shape[0]),
+            "strip_bytes": scorer.hot_tfs.numel() * 4,
+            "caps_rows": [[int(t.shape[1]), int(t.shape[0])]
+                          for t in scorer.tier_docs],
+            "tier_bytes": sum(t.numel() * 4 for t in scorer.tier_docs
+                              + scorer.tier_tfs),
+            "weighted_strip_cached": sorted(scorer._wstrip_cache)}
+    return out, scorer, q_ids, results
+
+
+def same_ranking(want: tuple, got: tuple, rtol: float = ORACLE_RTOL
+                 ) -> tuple[float, int]:
+    """(max relative score difference, rows whose ids differ) of two
+    [B, k] top-k results. Ids may differ only inside a run of adjacent
+    reference scores within `rtol`; a run that reaches the k-th slot may
+    continue past it, so there only its length counts."""
+    ws, wd = want
+    gs, gd = got
+    rel = np.abs(gs.astype(np.float64) - ws) / np.maximum(np.abs(ws), 1e-30)
+    bad = 0
+    for i in np.nonzero((wd != gd).any(axis=1))[0]:
+        j0 = 0
+        while j0 < ws.shape[1]:
+            j = j0 + 1
+            while j < ws.shape[1] and abs(ws[i, j] - ws[i, j - 1]) <= \
+                    rtol * max(abs(ws[i, j - 1]), 1e-30):
+                j += 1
+            if (j < ws.shape[1] or j - j0 == 1) and \
+                    set(wd[i, j0:j]) != set(gd[i, j0:j]):
+                bad += 1
+                break
+            j0 = j
+    return float(rel.max(initial=0.0)), bad
+
+
+def phase_sparse_check(card: str, idx: str, q_ids: np.ndarray,
+                       dense: dict, *, device: str, k: int = 10) -> dict:
+    """The ref index on the tiered sparse layout against the dense
+    layout's top-k on the same queries, row by row."""
+    import tpu_ir_torch
+    from tpu_ir_torch.search import Scorer
+
+    tpu_ir_torch.reset_kernel_launches()
+    scorer = Scorer.load(idx, layout="sparse", device=device)
+    out = {"phase": "sparse_check", "card": card, "config": "ref",
+           "hot_rows": int(scorer.hot_tfs.shape[0]),
+           "tiers": len(scorer.tier_docs)}
+    for scoring in ("tfidf", "bm25"):
+        rel, bad = same_ranking(dense[scoring],
+                                scorer.topk(q_ids, k=k, scoring=scoring))
+        if rel > ORACLE_RTOL or bad:
+            raise AssertionError(f"ref {scoring}: the sparse layout "
+                                 f"disagrees with the dense one (max rel "
+                                 f"{rel}, {bad} rows with other ids)")
+        out[scoring] = {"max_rel_diff": rel, "rows_with_other_ids": bad}
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    if device == "cuda" and out["launches"]["cold_tier"] == 0:
+        raise AssertionError("the sparse check never launched cold_tier")
+    return out
+
+
+def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
+    """Kernel 3 (cold_tier) against its plain twin over the whole cold
+    stage (every tier, in order) of one query block, TF-IDF and BM25."""
+    import torch
+
+    from tpu_ir_torch.ops import cold_tier, scoring
+
+    dev = scorer.device
+    n = scorer.meta.num_docs
+    width = n + 1
+    launches_before = cold_tier.cold_tier_launches()
+    q = torch.from_numpy(q_block).to(dev)
+    b, num_terms = q_block.shape
+    out = {"phase": "kernels", "card": card, "name": "cold_tier",
+           "shape": {"B": b, "L": num_terms, "D+1": width,
+                     "caps_rows": [[int(t.shape[1]), int(t.shape[0])]
+                                   for t in scorer.tier_docs]},
+           "tolerance": KERNEL_TOL}
+    for name in ("tfidf", "bm25"):
+        if name == "bm25":
+            weights = scoring.bm25_idf_weights(scorer.df, n)
+            dl_norm = scoring.bm25_dl_norm(scorer.doc_len, n, BM25_B)
+        else:
+            weights = scoring.idf_weights(scorer.df, n, scorer.compat_int_idf)
+            dl_norm = None
+        terms = scoring.tiered_terms(q, scorer.hot_rank, scorer.tier_of,
+                                     scorer.row_of, weights)
+
+        def stage(acc, fn):
+            scoring.cold_stage(acc, terms, scorer.tier_docs,
+                               scorer.tier_tfs, dl_norm=dl_norm, k1=K1,
+                               tier_fn=fn)
+
+        got = torch.zeros((b, width), device=dev)
+        stage(got, cold_tier.cold_tier)
+        want = torch.zeros((b, width), device=dev)
+        stage(want, cold_tier.cold_tier_plain)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or max_abs > KERNEL_TOL \
+                or not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+            raise AssertionError(f"cold_tier ({name}) disagrees with its "
+                                 f"plain twin: max_abs_diff {max_abs}")
+        if not got.any():
+            raise AssertionError("the cold stage scored nothing")
+        acc = torch.zeros_like(got)
+        ms = cuda_ms(lambda: stage(acc, cold_tier.cold_tier))
+        plain_ms = cuda_ms(lambda: stage(acc, cold_tier.cold_tier_plain))
+
+        # yardstick only (the port never calls it): one scatter_add_ per
+        # tier over precomputed [B, L*P_t] slots and cell weights
+        slots, vals = [], []
+        bytes_moved, ops, postings = 0, 0, 0
+        for i, (tdocs, ttfs) in enumerate(zip(scorer.tier_docs,
+                                              scorer.tier_tfs)):
+            in_tier = (terms.tier == i) & terms.cold
+            rows, w = cold_tier.tier_rows_and_weights(
+                terms.row, in_tier, terms.q_w, tdocs.shape[0])
+            docs = tdocs[rows.long()].long()              # [B, L, P_t]
+            tfs = ttfs[rows.long()]
+            cell = (scoring._lntf(tfs) if dl_norm is None else
+                    scoring.bm25_saturation(tfs, dl_norm[docs], k1=K1))
+            cell = torch.where(tfs > 0, cell, 0.0) * w[..., None]
+            slots.append(torch.where(tfs > 0, docs, width).reshape(b, -1))
+            vals.append(cell.reshape(b, -1))
+            # least bytes: each needed row read once, each posting's score
+            # read and written once (and its dl_norm read, for BM25), the
+            # rows and weights read once
+            need = in_tier & (terms.q_w != 0)
+            nnz = int((ttfs[terms.row[need].long()] > 0).sum())
+            postings += nnz
+            bytes_moved += (int(need.sum()) * tdocs.shape[1] * 8
+                            + nnz * (8 if dl_norm is None else 12)
+                            + b * num_terms * 8)
+            ops += nnz * (3 if dl_norm is None else 6)
+        del docs, tfs, cell
+        buf = torch.zeros((b, width + 1), device=dev)
+        for sl, va in zip(slots, vals):
+            buf.scatter_add_(1, sl, va)
+        lib_diff = float((buf[:, :width] - want).abs().max())
+        library_ms = cuda_ms(lambda: [buf.scatter_add_(1, sl, va)
+                                      for sl, va in zip(slots, vals)])
+        del slots, vals, buf, acc, got, want
+        bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = ops / FP32_FLOP_PER_S * 1e3
+        out[name] = {
+            "max_abs_diff": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch.Tensor.scatter_add_ per tier over "
+                       "precomputed [B, L*P_t] slots",
+            "library_max_abs_diff": lib_diff,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+            "bound_bytes": bytes_moved, "postings": postings}
+        torch.cuda.empty_cache()
+    out["launches_while_comparing"] = (cold_tier.cold_tier_launches()
+                                       - launches_before)
+    return out
+
+
+def build_kernels() -> dict:
+    """Build every kernel source at once: one nvcc per source, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_ir_torch.ops import _build
+
+    names = _build.kernel_sources()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        list(ex.map(_build.load, names))
+    return {"phase": "build_kernels", "seconds": time.perf_counter() - t0,
+            "libraries": {n: _build.lib_path(n).name for n in names}}
+
+
+def kernel_row(name: str, kern: dict, launches: int, **fields) -> dict:
+    return {"name": name, "route": "cuda", **fields, "launches": launches,
+            "max_abs_err": kern["max_abs_diff"], "ms": kern["ms"],
+            "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+            "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
 
 
 def main() -> int:
@@ -372,21 +628,13 @@ def main() -> int:
         return 2
     try:
         import tpu_ir_torch  # noqa: F401
-        from tpu_ir_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: cannot import tpu_ir_torch ({e}); run from the "
               "repository root", file=sys.stderr)
         return 2
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    t0 = time.perf_counter()
-    for name in _build.kernel_sources():
-        _build.load(name)
-    emit({"phase": "build_kernels", "seconds": time.perf_counter() - t0,
-          "libraries": {n: _build.lib_path(n).name
-                        for n in _build.kernel_sources()}})
+    emit(build_kernels())
     emit(phase_env(card))
     kern = phase_kernels(card, vocab_rows=REF_VOCAB_ROWS,
                          width=8_761 + 1, batch=REF_QUERIES,
@@ -401,19 +649,37 @@ def main() -> int:
     try:
         build, idx = phase_build(card, work, device="cuda")
         emit(build)
-        serve = phase_serve(card, idx, device="cuda")
+        serve, scorer, q_ids, dense = phase_serve(card, idx, device="cuda")
         emit(serve)
+        del scorer
+        torch.cuda.empty_cache()
+        emit(phase_sparse_check(card, idx, q_ids, dense, device="cuda"))
+        torch.cuda.empty_cache()
+
+        wbuild, widx = phase_build(card, work, device="cuda",
+                                   config="wiki100k")
+        emit(wbuild)
+        wserve, scorer, q_ids, _ = phase_serve(card, widx, device="cuda",
+                                               config="wiki100k")
+        emit(wserve)
+        cold = phase_cold_tier(card, scorer, q_ids[:scorer._block_size()])
+        cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
+        emit(cold)
+        del scorer
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    emit({"kernels": [{
-        "name": "dense_score", "route": "cuda",
-        "source": "tpu_ir_torch/csrc/dense_score.cu",
-        "replaces": "tpu_ir/ops/pallas_scoring.py:52",
-        "launches": serve["launches"]["dense_score"],
-        "max_abs_err": kern["max_abs_diff"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}]})
+    # cold_tier's times are the TF-IDF stage's (the default scoring); its
+    # error is the larger of the two scorings'
+    cold_row = dict(cold["tfidf"], max_abs_diff=max(
+        cold[s]["max_abs_diff"] for s in ("tfidf", "bm25")))
+    emit({"kernels": [
+        kernel_row("dense_score", kern, serve["launches"]["dense_score"],
+                   source="tpu_ir_torch/csrc/dense_score.cu",
+                   replaces="tpu_ir/ops/pallas_scoring.py:52"),
+        kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
+                   source="tpu_ir_torch/csrc/cold_tier.cu",
+                   replaces="experiments/cold_tier_bench.py:42")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

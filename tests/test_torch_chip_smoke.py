@@ -47,12 +47,69 @@ def test_build_and_serve_phases_on_cpu(tmp_path, monkeypatch):
     build, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu")
     assert build["num_docs"] == 200 and build["num_shards"] == 10
     assert build["part_bytes"] > 0 and build["num_pairs"] > 0
-    serve = chip_smoke.phase_serve("cpu", idx, device="cpu")
+    assert build["analyze_alone_s"] > 0
+    serve, _, q_ids, dense = chip_smoke.phase_serve("cpu", idx,
+                                                    device="cpu")
     assert serve["recall_at_10"] == 1.0
     assert serve["oracle_max_rel_err"] <= chip_smoke.ORACLE_RTOL
+    assert set(serve["oracle"]) == {"tfidf", "bm25"}
     assert serve["layout"] == "dense"
-    assert serve["launches"] == {"dense_score": 0}  # CPU: the plain twin
+    # CPU: the plain twins, no launch
+    assert serve["launches"] == {"dense_score": 0, "cold_tier": 0}
     json.dumps(serve)
+    check = chip_smoke.phase_sparse_check("cpu", idx, q_ids, dense,
+                                          device="cpu")
+    assert check["tfidf"]["rows_with_other_ids"] == 0
+    assert check["bm25"]["max_rel_diff"] <= chip_smoke.ORACLE_RTOL
+    assert check["launches"] == {"dense_score": 0, "cold_tier": 0}
+    json.dumps(check)
+
+
+def test_wiki100k_phases_on_cpu(tmp_path, monkeypatch):
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=300, target_bytes=300_000, vocab_size=3_000))
+    monkeypatch.setattr(chip_smoke, "REF_QUERIES", 300)
+    monkeypatch.setattr(chip_smoke, "ORACLE_QUERIES", 32)
+    # at this size only a smaller budget sends "auto" to the tiered layout
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10_000)
+    build, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                        config="wiki100k")
+    assert build["num_docs"] == 300 and "analyze_alone_s" not in build
+    assert not os.path.exists(os.path.join(str(tmp_path), "wiki100k.trec"))
+    serve, scorer, _, _ = chip_smoke.phase_serve(
+        "cpu", idx, device="cpu", config="wiki100k")
+    assert serve["layout"] == "sparse" and scorer.layout == "sparse"
+    assert serve["launches"] == {"dense_score": 0, "cold_tier": 0}
+    assert serve["recall_at_10"] == 1.0
+    assert serve["oracle_max_rel_err"] <= chip_smoke.ORACLE_RTOL
+    tiers = serve["tiers"]
+    assert tiers["hot_rows"] > 1 and len(tiers["caps_rows"]) >= 3
+    assert tiers["weighted_strip_cached"] == ["bm25", "tfidf"]
+    json.dumps(serve)
+
+
+def test_serve_phase_refuses_the_wrong_layout(tmp_path, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=60, target_bytes=60_000, vocab_size=600))
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    with pytest.raises(AssertionError, match="expected 'sparse'"):
+        chip_smoke.phase_serve("cpu", idx, device="cpu", config="wiki100k")
+
+
+def test_same_ranking_allows_ties_only():
+    import numpy as np
+
+    ws = np.array([[3.0, 2.0, 2.0, 1.0]], np.float32)
+    wd = np.array([[4, 5, 6, 7]], np.int32)
+    assert chip_smoke.same_ranking((ws, wd), (ws, wd[:, [0, 2, 1, 3]])) \
+        == (0.0, 0)
+    assert chip_smoke.same_ranking((ws, wd), (ws, wd[:, [1, 0, 2, 3]]))[1] \
+        == 1
+    rel, _ = chip_smoke.same_ranking((ws, wd), (ws * 1.001, wd))
+    assert rel == pytest.approx(1e-3, rel=1e-3)
 
 
 def test_oracle_topk_orders_ties_by_docno():
@@ -64,3 +121,24 @@ def test_oracle_topk_orders_ties_by_docno():
     top, scores = chip_smoke.oracle_topk(np.array([0, -1], np.int32), df,
                                          pair_doc, pair_tf, num_docs=4, k=10)
     assert top == [1, 3] and scores[1] == scores[3] > 0
+
+
+def test_oracle_bm25_matches_the_formula():
+    import numpy as np
+
+    df = np.array([2, 1], np.int32)
+    pair_doc = np.array([1, 2, 2], np.int32)
+    pair_tf = np.array([3, 1, 2], np.int32)
+    doc_len = np.array([0, 3, 5], np.int32)
+    top, scores = chip_smoke.oracle_topk(
+        np.array([0, 1], np.int32), df, pair_doc, pair_tf, num_docs=2,
+        k=10, scoring="bm25", doc_len=doc_len)
+    k1, b, n, avg = 0.9, 0.4, 2, 4.0
+
+    def w(tf, dfv, dl):
+        idf = np.log(1 + (n - dfv + 0.5) / (dfv + 0.5))
+        return idf * tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl / avg))
+
+    assert scores[1] == pytest.approx(w(3, 2, 3), rel=1e-6)
+    assert scores[2] == pytest.approx(w(1, 2, 5) + w(2, 1, 5), rel=1e-6)
+    assert top == sorted([1, 2], key=lambda d: -scores[d])

@@ -1,5 +1,6 @@
-"""The port's CUDA paths on the card: the hand-written kernel against its
-plain twin (bitwise), and the device pipeline against its own CPU run.
+"""The port's CUDA paths on the card: the hand-written kernels against
+their plain twins (bitwise), and the device pipeline against its own CPU
+run, on the dense and the tiered layout.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 JAX nor the JAX package, so they also run on a host without JAX; there,
@@ -17,7 +18,7 @@ import torch
 import tpu_ir_torch
 from tpu_ir_torch.corpus import make_corpus
 from tpu_ir_torch.index import build_index
-from tpu_ir_torch.ops import fused_scoring, postings, scoring
+from tpu_ir_torch.ops import cold_tier, fused_scoring, postings, scoring
 from tpu_ir_torch.search import Scorer
 
 pytestmark = pytest.mark.cuda
@@ -52,7 +53,8 @@ def test_kernel_bitwise_equals_twin(cuda, shape):
                                   cuda)
     tpu_ir_torch.reset_kernel_launches()
     got = fused_scoring.dense_scores(q, idf, matrix)
-    assert tpu_ir_torch.kernel_launches() == {"dense_score": 1}
+    assert tpu_ir_torch.kernel_launches() == {"dense_score": 1,
+                                              "cold_tier": 0}
     want = fused_scoring.dense_scores_plain(q, idf, matrix)
     torch.cuda.synchronize()
     assert got.shape == (batch, width) and got.dtype == torch.float32
@@ -124,3 +126,109 @@ def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
         cs, cd = c.topk(q, scoring=scoring_name)
         np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
         assert (gd == cd).mean() > 0.99
+
+
+def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
+    """One tier ([V_t, cap] docs/tfs with distinct docs per row, pads at
+    the end) and a query block with duplicated terms and empty rows."""
+    gen = torch.Generator().manual_seed(seed)
+    fill = torch.randint(0, min(cap, width - 1) + 1, (vocab_rows,),
+                         generator=gen)
+    fill[0] = 0                                     # an all-zero row
+    docs = torch.zeros((vocab_rows, cap), dtype=torch.int32)
+    tfs = torch.zeros((vocab_rows, cap), dtype=torch.int32)
+    for r in range(vocab_rows):
+        n = int(fill[r])
+        docs[r, :n] = torch.randperm(width - 1, generator=gen)[:n].sort(
+        ).values.to(torch.int32) + 1
+        tfs[r, :n] = torch.randint(1, 40, (n,), generator=gen,
+                                   dtype=torch.int32)
+    rows = torch.randint(0, vocab_rows, (batch, terms), generator=gen,
+                         dtype=torch.int32)
+    rows[:, -1] = rows[:, 0]                        # a duplicated term
+    in_tier = torch.rand((batch, terms), generator=gen) < 0.8
+    in_tier[1] = False                              # a query not in the tier
+    q_w = torch.rand((batch, terms), generator=gen) + 0.05
+    dl_norm = torch.rand((width,), generator=gen) + 0.3
+    return [t.to(dev) for t in (rows, in_tier, q_w, docs, tfs, dl_norm)]
+
+
+@pytest.mark.parametrize("bm25", [False, True])
+@pytest.mark.parametrize("shape", [(40, 2, 300, 2, 1001),
+                                   (9, 2048, 64, 3, 100_001),
+                                   (30, 128, 2_499, 2, 5_001),
+                                   (5, 300, 70, 5, 257)])
+def test_cold_tier_bitwise_equals_twin(cuda, shape, bm25):
+    vocab_rows, cap, batch, terms, width = shape
+    rows, in_tier, q_w, docs, tfs, dl_norm = _tier(
+        sum(shape), vocab_rows, cap, batch, terms, width, cuda)
+    kw = {"dl_norm": dl_norm, "k1": 0.9} if bm25 else {}
+    start = torch.rand((batch, width), device=cuda)
+    got, want = start.clone(), start.clone()
+    tpu_ir_torch.reset_kernel_launches()
+    cold_tier.cold_tier(got, rows, in_tier, q_w, docs, tfs, **kw)
+    assert tpu_ir_torch.kernel_launches()["cold_tier"] == 1
+    cold_tier.cold_tier_plain(want, rows, in_tier, q_w, docs, tfs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[1], start[1]) and not torch.equal(got, start)
+
+
+def test_cold_tier_matches_cpu_twin(cuda):
+    args = _tier(11, 20, 32, 50, 3, 400, torch.device("cpu"))
+    want = torch.zeros((50, 400))
+    cold_tier.cold_tier(want, *args[:5], dl_norm=args[5])
+    got = torch.zeros((50, 400), device=cuda)
+    cold_tier.cold_tier(got, *(a.to(cuda) for a in args[:5]),
+                        dl_norm=args[5].to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-7)
+
+
+def test_cold_tier_rejects_mixed_devices(cuda):
+    rows, in_tier, q_w, docs, tfs, _ = _tier(12, 5, 8, 4, 2, 30, cuda)
+    with pytest.raises(ValueError, match="must be on"):
+        cold_tier.cold_tier(torch.zeros((4, 30), device=cuda), rows.cpu(),
+                            in_tier, q_w, docs, tfs)
+
+
+def test_tiered_scorer_on_cuda_equals_cpu(cuda, tmp_path):
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=3, n_docs=300, target_bytes=300_000,
+                vocab_size=3_000)
+    idx = str(tmp_path / "idx")
+    build_index(corpus, idx, num_shards=3, device=cuda)
+    g = Scorer.load(idx, layout="sparse")
+    c = Scorer.load(idx, layout="sparse", device="cpu")
+    assert len(g.tier_docs) >= 3 and g.hot_tfs.shape[0] > 1
+    q = np.random.default_rng(4).integers(
+        0, c.meta.vocab_size, (500, 3)).astype(np.int32)
+    for scoring_name in ("tfidf", "bm25"):
+        tpu_ir_torch.reset_kernel_launches()
+        gs, gd = g.topk(q, scoring=scoring_name)
+        assert tpu_ir_torch.kernel_launches()["cold_tier"] == \
+            len(g.tier_docs)
+        cs, cd = c.topk(q, scoring=scoring_name)
+        np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
+        assert (gd == cd).mean() > 0.99
+
+
+def test_hot_stage_refuses_tf32(cuda):
+    terms = scoring.TieredTerms(
+        q_w=torch.ones((2, 1), device=cuda),
+        rank=torch.zeros((2, 1), dtype=torch.int32, device=cuda),
+        is_hot=torch.ones((2, 1), dtype=torch.bool, device=cuda),
+        tier=torch.full((2, 1), -1, dtype=torch.int32, device=cuda),
+        row=torch.zeros((2, 1), dtype=torch.int32, device=cuda),
+        cold=torch.zeros((2, 1), dtype=torch.bool, device=cuda))
+    scores = torch.zeros((2, 5), device=cuda)
+    strip = torch.rand((3, 5), device=cuda)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="full float32"):
+            scoring.hot_stage(scores, terms, strip)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    scoring.hot_stage(scores, terms, strip)
+    torch.testing.assert_close(scores, strip[0].expand(2, 5), rtol=0,
+                               atol=0)

@@ -231,9 +231,16 @@ def test_later_slices_raise(built, tmp_path, case):
         with pytest.raises(ValueError, match="later slice"):
             Scorer.load(d, device="cpu")
         return
-    if case in ("sparse", "sharded"):
+    if case == "sharded":
         with pytest.raises(ValueError, match="later slice"):
             Scorer.load(port_dir, layout=case, device="cpu")
+        return
+    if case == "sparse":
+        # the tiered layout serves; its serving knobs are later slices
+        s = Scorer.load(port_dir, layout="sparse", device="cpu")
+        assert s.layout == "sparse" and s.search_batch(["a"]) is not None
+        with pytest.raises(ValueError, match="later slice"):
+            s.search_batch(["a"], hot_only=True)
         return
     if case in ("k2", "chargrams", "positions"):
         kw = {"k2": {"k": 2}, "chargrams": {"compute_chargrams": True},
@@ -252,12 +259,15 @@ def test_later_slices_raise(built, tmp_path, case):
 
 
 def test_auto_layout_above_dense_budget_raises(built, monkeypatch):
+    """Above DENSE_BUDGET "auto" picks the tiered sparse layout; there the
+    sharded layout still raises (a later slice)."""
     from tpu_ir_torch.search import scorer as scorer_mod
 
     _, port_dir = built
     monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10)
-    with pytest.raises(ValueError, match="tiered"):
-        Scorer.load(port_dir, device="cpu")
+    assert Scorer.load(port_dir, device="cpu").layout == "sparse"
+    with pytest.raises(ValueError, match="later slice"):
+        Scorer.load(port_dir, layout="sharded", device="cpu")
 
 
 def test_cli_index_and_search(tmp_path, capsys):

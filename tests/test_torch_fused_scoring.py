@@ -185,7 +185,8 @@ def test_cpu_wrapper_runs_the_twin_without_counting(index_data):
     got = fused_scoring.dense_scores(q, idf, tmat)
     want = fused_scoring.dense_scores_plain(q, idf, tmat)
     assert torch.equal(got, want)
-    assert tpu_ir_torch.kernel_launches() == {"dense_score": 0}
+    assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
+                                              "cold_tier": 0}
     safe_q, q_w = fused_scoring.query_weights(q, idf)
     assert int(safe_q.min()) >= 0 and int(safe_q.max()) < VOCAB
     assert float(q_w[7].abs().sum()) == 0.0     # empty query weighs 0

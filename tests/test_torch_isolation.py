@@ -27,7 +27,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, tpu_ir_torch, tpu_ir_torch.search.scorer, "
             "tpu_ir_torch.index.builder, tpu_ir_torch.cli, "
             "tpu_ir_torch.convert, tpu_ir_torch.corpus, "
-            "tpu_ir_torch.ops._build, chip_smoke\n"
+            "tpu_ir_torch.ops._build, tpu_ir_torch.ops.cold_tier, "
+            "tpu_ir_torch.search.layout, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench'))\n"
             "assert not bad, bad\n"
@@ -48,7 +49,7 @@ def test_no_jax_or_tpu_ir_import_in_source(path):
 def test_kernel_sources_are_listed():
     from tpu_ir_torch.ops import _build
 
-    assert _build.kernel_sources() == ["dense_score"]
+    assert _build.kernel_sources() == ["cold_tier", "dense_score"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tpu_ir_torch")
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored

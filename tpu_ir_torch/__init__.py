@@ -35,12 +35,14 @@ def kernel_launches() -> dict[str, int]:
     """Launch counts of every hand-written kernel since the last reset.
     A wrapper counts a launch only where it launches its CUDA kernel,
     never when it runs the plain version on a CPU tensor."""
-    from .ops import fused_scoring
+    from .ops import cold_tier, fused_scoring
 
-    return {"dense_score": fused_scoring.dense_score_launches()}
+    return {"dense_score": fused_scoring.dense_score_launches(),
+            "cold_tier": cold_tier.cold_tier_launches()}
 
 
 def reset_kernel_launches() -> None:
-    from .ops import fused_scoring
+    from .ops import cold_tier, fused_scoring
 
     fused_scoring.reset_dense_score_launches()
+    cold_tier.reset_cold_tier_launches()

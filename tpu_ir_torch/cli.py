@@ -2,6 +2,7 @@
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--device cuda|cpu]
     python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
+        [--layout auto|dense|sparse|sharded]
 
 Both run on CUDA unless `--device cpu` is given.
 """
@@ -31,7 +32,12 @@ def cmd_index(args) -> int:
 def cmd_search(args) -> int:
     from .search import Scorer
 
-    scorer = Scorer.load(args.index_dir, device=args.device)
+    try:
+        scorer = Scorer.load(args.index_dir, layout=args.layout,
+                             device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     (res,) = scorer.search_batch([args.query], k=args.k,
                                  scoring=args.scoring)
     print(f"query: {args.query}")
@@ -61,6 +67,12 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--k", "-k", type=int, default=10,
                     help="results per query")
     ps.add_argument("--scoring", choices=["tfidf", "bm25"], default="tfidf")
+    ps.add_argument("--layout",
+                    choices=["auto", "dense", "sparse", "sharded"],
+                    default="auto",
+                    help="'auto' serves the dense matrix up to "
+                         "DENSE_BUDGET elements and the tiered sparse "
+                         "layout above it; 'sharded' is a later slice")
     ps.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ps.set_defaults(fn=cmd_search)
 

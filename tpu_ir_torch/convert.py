@@ -2,19 +2,22 @@
 
 `scorer_from_numpy` takes the state a `tpu_ir.search.Scorer` holds, as
 numpy arrays and plain values, and builds the port's Scorer from it, so
-the two packages can score identical state. Nothing here imports the JAX
+the two packages can score identical state; `tiered_scorer_from_numpy`
+does the same for the tiered sparse layout, from the fields of a
+`tpu_ir.search.layout.TieredPostings`. Nothing here imports the JAX
 package: the caller hands the arrays over.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from .collection import DocnoMapping, Vocab
 from .index.format import IndexMetadata
+from .search.layout import TieredPostings
 from .search.scorer import Scorer
 
 
@@ -34,3 +37,27 @@ def scorer_from_numpy(vocab_terms: Sequence[str], docids: Sequence[str],
                   df=np.asarray(df, np.int32),
                   doc_len=np.asarray(doc_len, np.int32),
                   meta=IndexMetadata(**meta_dict), device=device)
+
+
+def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
+                             docids: Sequence[str], df: np.ndarray,
+                             doc_len: np.ndarray, tiers: Mapping,
+                             meta_dict: dict, *,
+                             compat_int_idf: bool = False,
+                             device: str | torch.device | None = None
+                             ) -> Scorer:
+    """A tiered-layout Scorer on `device` from host state: the sorted
+    vocabulary and docids, df [V], doc_len [D+1], the layout's fields as
+    a mapping (a JAX `TieredPostings._asdict()`; its block-max fields are
+    not read) and the index metadata as a dict."""
+    layout = TieredPostings(**{f: tiers[f] for f in TieredPostings._fields
+                               if f not in ("hot_blk_max",
+                                            "blockmax_width")})
+    return Scorer(vocab=Vocab(list(vocab_terms)),
+                  mapping=DocnoMapping(list(docids)),
+                  pair_term=None, pair_doc=None, pair_tf=None,
+                  df=np.asarray(df, np.int32),
+                  doc_len=np.asarray(doc_len, np.int32),
+                  meta=IndexMetadata(**meta_dict), layout="sparse",
+                  compat_int_idf=compat_int_idf, device=device,
+                  tiers=layout)

@@ -1,5 +1,6 @@
-"""Device ops of the port: the postings group-by, dense scoring and the
-fused dense-score kernel (see each module)."""
+"""Device ops of the port: the postings group-by, dense and tiered
+scoring, the fused dense-score kernel and the cold-tier kernel (see each
+module)."""
 
 from .fused_scoring import dense_scores, dense_scores_plain, tfidf_scores
 from .postings import (
@@ -15,10 +16,12 @@ from .scoring import (
     bm25_idf_weights,
     bm25_saturation,
     bm25_topk_dense,
+    bm25_topk_tiered,
     dense_doc_matrix,
     dense_tf_matrix,
     idf_weights,
     tfidf_topk_dense,
+    tfidf_topk_tiered,
 )
 
 __all__ = [
@@ -28,6 +31,7 @@ __all__ = [
     "bm25_idf_weights",
     "bm25_saturation",
     "bm25_topk_dense",
+    "bm25_topk_tiered",
     "build_postings",
     "build_postings_packed",
     "dense_doc_matrix",
@@ -39,4 +43,5 @@ __all__ = [
     "reduce_weighted_postings",
     "tfidf_scores",
     "tfidf_topk_dense",
+    "tfidf_topk_tiered",
 ]

@@ -1,14 +1,18 @@
-"""Batched ranked retrieval on the dense layout: TF-IDF / BM25 + top-k.
+"""Batched ranked retrieval: TF-IDF / BM25 + top-k, dense and tiered.
 
-The counterpart of `tpu_ir/ops/scoring.py` for the dense layout only:
-score(d) = sum over query terms of (1 + ln tf) * log10(N / df) for TF-IDF,
-Okapi BM25 otherwise, truncated to the top k. A [V, D+1] term-by-doc
-matrix holds the weights; column 0 (docno 0) is dead padding.
+The counterpart of `tpu_ir/ops/scoring.py` for the dense layout and the
+exact (unpruned) tiered layout: score(d) = sum over query terms of
+(1 + ln tf) * log10(N / df) for TF-IDF, Okapi BM25 otherwise, truncated
+to the top k. Everything runs in float32.
 
-Dense TF-IDF goes through the fused CUDA kernel (ops/fused_scoring.py).
-Dense BM25 stays plain torch, as it is plain XLA in the JAX package: a
-row gather, the saturation curve, then a multiply and a sum over the term
-axis. Everything runs in float32.
+- dense: a [V, D+1] term-by-doc matrix holds the weights; column 0
+  (docno 0) is dead padding. Dense TF-IDF goes through the fused CUDA
+  kernel (ops/fused_scoring.py); dense BM25 stays plain torch, as it is
+  plain XLA in the JAX package.
+- tiered (search/layout.py): the cold df tiers go through the cold-tier
+  CUDA kernel (ops/cold_tier.py), tier by tier; the hot strip is one
+  [B, H] @ [H, D+1] float32 product, last, as in the JAX package's
+  cold-first accumulation order.
 
 Quirk policy as in the JAX package: `compat_int_idf=True` reproduces the
 reference's Java int division N/df; documents whose total score is
@@ -16,6 +20,8 @@ exactly 0 are not returned.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -81,6 +87,16 @@ def bm25_saturation(tf: torch.Tensor, dl_norm: torch.Tensor, *,
     return tf * (k1 + 1.0) / torch.clamp(tf + k1 * dl_norm, min=1e-9)
 
 
+def bm25_dl_norm(doc_len: torch.Tensor, num_docs: int, b: float
+                 ) -> torch.Tensor:
+    """float32 [D+1] doc-length norm 1 - b + b * dl / avg_dl."""
+    dl = doc_len.to(torch.float32)
+    n_f = torch.tensor(float(num_docs), dtype=torch.float32,
+                       device=dl.device)
+    avg_dl = torch.sum(dl) / torch.clamp(n_f, min=1.0)
+    return 1.0 - b + b * dl / torch.clamp(avg_dl, min=1e-9)
+
+
 def _dense_scatter(pair_term: torch.Tensor, pair_doc: torch.Tensor,
                    values: torch.Tensor, *, vocab_size: int,
                    num_docs: int) -> torch.Tensor:
@@ -131,11 +147,7 @@ def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
     package's is plain XLA: mul + reduce over the term axis)."""
     vocab_size = tf_matrix.shape[0]
     idf = bm25_idf_weights(df, num_docs)
-    dl = doc_len.to(torch.float32)
-    n_f = torch.tensor(float(num_docs), dtype=torch.float32,
-                       device=dl.device)
-    avg_dl = torch.sum(dl) / torch.clamp(n_f, min=1.0)
-    dl_norm = 1.0 - b + b * dl / torch.clamp(avg_dl, min=1e-9)
+    dl_norm = bm25_dl_norm(doc_len, num_docs, b)
 
     q_valid = (q_terms >= 0) & (q_terms < vocab_size)
     safe_q = torch.where(q_valid, q_terms, 0).long()
@@ -185,3 +197,175 @@ def _topk_from_scores(scores: torch.Tensor, k: int
     zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
     return (torch.where(matched, top_scores, zero),
             torch.where(matched, top_idx, 0).to(torch.int32))
+
+
+# -- tiered sparse layout ---------------------------------------------------
+
+
+class TieredTerms(NamedTuple):
+    """Per-(b, l) state of a query block on the tiered layout. Every
+    gather index is clamped first: torch gathers, unlike JAX's, do not
+    clamp an out-of-range id (-1 pads, ids >= V)."""
+
+    q_w: torch.Tensor      # float32 [B, L]: term weight, 0 where invalid
+    rank: torch.Tensor     # [B, L]: hot-strip row, -1 for cold terms
+    is_hot: torch.Tensor   # bool [B, L]
+    tier: torch.Tensor     # [B, L]: tier index, -1 for hot / df == 0 terms
+    row: torch.Tensor      # [B, L]: row within the tier
+    cold: torch.Tensor     # bool [B, L]: a valid term outside the strip
+
+
+def tiered_terms(q_terms: torch.Tensor, hot_rank: torch.Tensor,
+                 tier_of: torch.Tensor, row_of: torch.Tensor,
+                 q_weight: torch.Tensor) -> TieredTerms:
+    """The per-term lookups of `_tiered_scores` (ops/scoring.py:283-287,
+    :333-334 of the JAX package) for an int [B, L] id block (-1 pads)."""
+    vocab_size = hot_rank.shape[0]
+    q_valid = (q_terms >= 0) & (q_terms < vocab_size)
+    safe_q = torch.where(q_valid, q_terms, 0).long()
+    q_w = torch.where(q_valid, q_weight[safe_q],
+                      torch.zeros((), dtype=torch.float32,
+                                  device=q_weight.device))
+    rank = hot_rank[safe_q]
+    is_hot = (rank >= 0) & q_valid
+    return TieredTerms(q_w, rank, is_hot, tier_of[safe_q], row_of[safe_q],
+                       q_valid & ~is_hot)
+
+
+def cold_stage(scores: torch.Tensor, terms: TieredTerms,
+               tier_docs: Sequence[torch.Tensor],
+               tier_tfs: Sequence[torch.Tensor], *,
+               dl_norm: torch.Tensor | None = None, k1: float = 0.9,
+               tier_fn=None) -> None:
+    """Add every cold tier's contributions into `scores` in place, in
+    tier order: one `tier_fn` call (the cold-tier kernel's wrapper unless
+    another function of its signature is given) per tier."""
+    if tier_fn is None:
+        from .cold_tier import cold_tier as tier_fn
+    for i, (tdocs, ttfs) in enumerate(zip(tier_docs, tier_tfs)):
+        tier_fn(scores, terms.row, (terms.tier == i) & terms.cold,
+                terms.q_w, tdocs, ttfs, dl_norm=dl_norm, k1=k1)
+
+
+def _require_fp32_matmul(t: torch.Tensor) -> None:
+    """The hot-strip product is exact float32 in the JAX package; TF32
+    would round its inputs to 10 mantissa bits and move rankings."""
+    if t.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the tiered hot-strip product must run in full float32, but "
+            "torch.backends.cuda.matmul.allow_tf32 is on")
+
+
+def hot_stage(scores: torch.Tensor, terms: TieredTerms,
+              weighted_strip: torch.Tensor) -> None:
+    """scores += w_hot @ weighted_strip, in place: each query's hot term
+    weights scattered into a [B, H] row (duplicate terms sum; other
+    slots go to a dropped column H), then one float32 product."""
+    b = scores.shape[0]
+    h = weighted_strip.shape[0]
+    w_hot = torch.zeros((b, h + 1), dtype=torch.float32,
+                        device=scores.device)
+    cols = torch.where(terms.is_hot, terms.rank, h).long()
+    qb = torch.arange(b, device=scores.device)[:, None].expand_as(cols)
+    w_hot.index_put_((qb, cols),
+                     torch.where(terms.is_hot, terms.q_w,
+                                 torch.zeros((), dtype=torch.float32,
+                                             device=scores.device)),
+                     accumulate=True)
+    _require_fp32_matmul(scores)
+    scores.add_(torch.matmul(w_hot[:, :h], weighted_strip))
+
+
+def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs,
+                   tier_tfs, q_weight, *, num_docs: int, hot_weight_fn,
+                   dl_norm: torch.Tensor | None = None,
+                   k1: float = 0.9) -> torch.Tensor:
+    """[B, D+1] exact tiered accumulation (JAX `_tiered_scores` without
+    pruning): a zero accumulator, the cold tiers in tier order through
+    the kernel, then the hot strip last. `hot_weight_fn` maps the raw-tf
+    strip to its per-cell weights; `dl_norm` selects BM25 cold cells."""
+    terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
+    scores = torch.zeros((q_terms.shape[0], num_docs + 1),
+                         dtype=torch.float32, device=hot_tfs.device)
+    cold_stage(scores, terms, tier_docs, tier_tfs, dl_norm=dl_norm, k1=k1)
+    hot_stage(scores, terms, hot_weight_fn(hot_tfs))
+    return scores
+
+
+def _identity_weight(strip: torch.Tensor) -> torch.Tensor:
+    return strip
+
+
+def lntf_strip(hot_tfs: torch.Tensor) -> torch.Tensor:
+    """(1 + ln tf) over the raw-tf hot strip: the TF-IDF hot weighting,
+    materialized."""
+    return _lntf(hot_tfs)
+
+
+def bm25_strip(hot_tfs: torch.Tensor, doc_len: torch.Tensor,
+               num_docs: int, *, k1: float = 0.9,
+               b: float = 0.4) -> torch.Tensor:
+    """BM25 saturation over the raw-tf hot strip with the doc-length norm
+    broadcast: the tiered BM25 hot weighting, materialized."""
+    dl_norm = bm25_dl_norm(doc_len, num_docs, b)
+    return bm25_saturation(hot_tfs, dl_norm[None, :], k1=k1)
+
+
+def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                         tier_docs, tier_tfs, df, num_docs: int, *,
+                         compat_int_idf: bool = False,
+                         hot_preweighted: bool = False) -> torch.Tensor:
+    """[B, D+1] tiered TF-IDF scores. `hot_preweighted` declares
+    `hot_tfs` already weighted (lntf_strip): bitwise the same scores."""
+    idf = idf_weights(df, num_docs, compat_int_idf)
+    return _tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        idf, num_docs=num_docs,
+        hot_weight_fn=_identity_weight if hot_preweighted else _lntf)
+
+
+def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                      tier_docs, tier_tfs, df, num_docs: int, *,
+                      k: int = 10, compat_int_idf: bool = False,
+                      hot_preweighted: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """TF-IDF top-k on the tiered sparse layout. q_terms int [B, L] (-1
+    pads); hot_rank, tier_of, row_of int32 [V]; hot_tfs float32 [H, D+1]
+    raw tf (or weighted, with `hot_preweighted`); tier_docs/tier_tfs int32
+    [V_t, P_t] each. Returns (scores [B, k], docnos [B, k] int32)."""
+    scores = _tfidf_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        df, num_docs, compat_int_idf=compat_int_idf,
+        hot_preweighted=hot_preweighted)
+    return _topk_from_scores(scores, k)
+
+
+def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                        tier_docs, tier_tfs, df, doc_len, num_docs: int, *,
+                        k1: float, b: float,
+                        hot_preweighted: bool = False) -> torch.Tensor:
+    """[B, D+1] tiered BM25 scores: saturation over the strip with the
+    length norm broadcast (or `hot_preweighted`, bm25_strip), and per
+    posting with the same norm gathered at its doc."""
+    idf = bm25_idf_weights(df, num_docs)
+    dl_norm = bm25_dl_norm(doc_len, num_docs, b)
+    return _tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        idf, num_docs=num_docs,
+        hot_weight_fn=(_identity_weight if hot_preweighted else
+                       lambda tf: bm25_saturation(tf, dl_norm[None, :],
+                                                  k1=k1)),
+        dl_norm=dl_norm, k1=k1)
+
+
+def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                     tier_docs, tier_tfs, df, doc_len, num_docs: int, *,
+                     k: int = 10, k1: float = 0.9, b: float = 0.4,
+                     hot_preweighted: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Okapi BM25 top-k on the tiered sparse layout (arguments as
+    tfidf_topk_tiered, plus doc_len int32 [D+1])."""
+    scores = _bm25_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted)
+    return _topk_from_scores(scores, k)

@@ -1,4 +1,4 @@
-"""Query serving on the dense layout."""
+"""Query serving on the dense and the tiered sparse layout."""
 
 from .scorer import DENSE_BUDGET, Scorer, SearchResult
 

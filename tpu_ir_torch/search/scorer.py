@@ -1,18 +1,26 @@
 """The Scorer: load an index to the device once, answer query batches.
 
-The counterpart of `tpu_ir/search/scorer.py` for the dense layout: the
-whole index lives on the device as a [V, D+1] (1 + ln tf) doc matrix
-(plus a raw-tf matrix built on the first BM25 call); a query batch is
-analyzed on the host into an int32 [B, L] term-id array and scored in
-query blocks whose [block, D+1] score accumulator stays within
-SCORE_BUDGET elements. Dense TF-IDF runs the fused CUDA kernel
-(ops/fused_scoring.py); BM25 runs plain torch.
+The counterpart of `tpu_ir/search/scorer.py` for two layouts:
+
+- dense (V*(D+1) <= DENSE_BUDGET under layout="auto"): the whole index
+  lives on the device as a [V, D+1] (1 + ln tf) doc matrix (plus a raw-tf
+  matrix built on the first BM25 call). Dense TF-IDF runs the fused CUDA
+  kernel (ops/fused_scoring.py); BM25 runs plain torch.
+- sparse (above DENSE_BUDGET): the tiered layout of search/layout.py, a
+  budget-capped dense hot strip plus padded df tiers, scored exactly as
+  the JAX package's unpruned tiered path: the cold tiers through the
+  cold-tier CUDA kernel (ops/cold_tier.py), then the hot strip as one
+  float32 product.
+
+A query batch is analyzed on the host into an int32 [B, L] term-id array
+and scored in query blocks whose [block, D+1] score accumulator stays
+within SCORE_BUDGET elements.
 
 Not in this slice (each raises ValueError naming a later slice): the
-tiered sparse layout that `layout="auto"` picks above DENSE_BUDGET, the
-sharded layout, rerank and the proximity boost, phrase queries, wildcard
-and fuzzy expansion over char-gram indexes, explain, the serving knobs
-(deadline, force_host, hot_only) and the query log.
+sharded layout, MaxScore and block-max pruning, rerank and the proximity
+boost, phrase queries, wildcard and fuzzy expansion over char-gram
+indexes, explain, the serving knobs (deadline, force_host, hot_only) and
+the query log.
 """
 
 from __future__ import annotations
@@ -30,10 +38,20 @@ from ..collection import DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
 from ..ops.postings import pair_term_from_df
 from ..ops.scoring import (
+    bm25_strip,
     bm25_topk_dense,
+    bm25_topk_tiered,
     dense_doc_matrix,
     dense_tf_matrix,
+    lntf_strip,
     tfidf_topk_dense,
+    tfidf_topk_tiered,
+)
+from .layout import (
+    HOT_BUDGET,
+    TieredPostings,
+    build_tiered_layout,
+    upload_index,
 )
 
 # dense [V, D+1] matrix budget in elements (f32); above it the JAX package
@@ -66,18 +84,20 @@ class Scorer:
         *,
         vocab: Vocab,
         mapping: DocnoMapping,
-        pair_term: np.ndarray,
-        pair_doc: np.ndarray,
-        pair_tf: np.ndarray,
+        pair_term: np.ndarray | None,
+        pair_doc: np.ndarray | None,
+        pair_tf: np.ndarray | None,
         df: np.ndarray,
         doc_len: np.ndarray,
         meta: fmt.IndexMetadata,
         layout: str = "auto",
         compat_int_idf: bool = False,
         device: str | torch.device | None = None,
+        tiers: TieredPostings | None = None,
     ):
-        """Build the dense layout on `device` from the host postings
-        columns (global CSR order)."""
+        """Build the layout on `device` from the host postings columns
+        (global CSR order). The sparse layout may come prebuilt as
+        `tiers` instead, with the columns None."""
         self.device = resolve_device(device)
         self.vocab = vocab
         self.mapping = mapping
@@ -85,21 +105,42 @@ class Scorer:
         self.compat_int_idf = compat_int_idf
         self.layout = _resolve_layout(layout, meta)
         self._analyzer = Analyzer()
-        self._pairs = (np.asarray(pair_term), np.asarray(pair_doc),
-                       np.asarray(pair_tf))
-        self.df = self._upload(df)
-        self.doc_len = self._upload(doc_len)
-        pt, pd, ptf = (self._upload(a) for a in self._pairs)
-        self.doc_matrix = dense_doc_matrix(
-            pt, pd, ptf, vocab_size=meta.vocab_size, num_docs=meta.num_docs)
-        self._tf_matrix: torch.Tensor | None = None  # first BM25 call
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """An int32 host array on the device (copied on the host first
-        only where it is read-only or not contiguous, as loaded arena
-        views are)."""
-        a = np.require(a, np.int32, ["C_CONTIGUOUS", "WRITEABLE"])
-        return torch.from_numpy(a).to(self.device)
+        # host postings columns (pair_term is needed by the dense layout
+        # only); the tiered layout may come prebuilt without them
+        self._pairs = (None if pair_doc is None else
+                       (pair_term, np.asarray(pair_doc), np.asarray(pair_tf)))
+        if (self.layout == "dense" and pair_term is None) or (
+                self._pairs is None and tiers is None):
+            raise ValueError(f"layout {self.layout!r} needs the postings "
+                             "columns or a prebuilt tiered layout")
+        self.df = upload_index(df, self.device)
+        self.doc_len = upload_index(doc_len, self.device)
+        if self.layout == "dense":
+            pt, pd, ptf = (upload_index(a, self.device)
+                           for a in self._pairs)
+            self.doc_matrix = dense_doc_matrix(
+                pt, pd, ptf, vocab_size=meta.vocab_size,
+                num_docs=meta.num_docs)
+            self._tf_matrix: torch.Tensor | None = None  # first BM25 call
+            return
+        # tiered sparse: a budget-capped dense strip for the hottest terms
+        # plus geometric-capacity padded tiers for the rest, raw tf
+        # everywhere so the same arrays serve TF-IDF and BM25
+        if tiers is None:
+            tiers = build_tiered_layout(self._pairs[1], self._pairs[2],
+                                        np.asarray(df),
+                                        num_docs=meta.num_docs)
+        self.hot_rank = upload_index(tiers.hot_rank, self.device)
+        # densified on the device: only the COO postings cross the link
+        self.hot_tfs = tiers.hot_device(self.device)
+        self.tier_of = upload_index(tiers.tier_of, self.device)
+        self.row_of = upload_index(tiers.row_of, self.device)
+        # slim uint16 host columns are widened to int32 at upload
+        self.tier_docs = tuple(upload_index(a, self.device)
+                               for a in tiers.tier_docs)
+        self.tier_tfs = tuple(upload_index(a, self.device)
+                              for a in tiers.tier_tfs)
+        self._wstrip_cache: dict[str, torch.Tensor] = {}
 
     # -- loading -----------------------------------------------------------
 
@@ -113,7 +154,7 @@ class Scorer:
         it."""
         dev = resolve_device(device)
         meta = fmt.IndexMetadata.load(index_dir)
-        _resolve_layout(layout, meta)  # fail before reading the parts
+        resolved = _resolve_layout(layout, meta)  # fail before any reads
         fmt.require_arena_format(meta.format_version)
         fmt.verify_checksums(index_dir, meta,
                              names=[fmt.DOCLEN, fmt.DOCNOS, fmt.VOCAB])
@@ -121,8 +162,10 @@ class Scorer:
         mapping = DocnoMapping.load(os.path.join(index_dir, fmt.DOCNOS))
         doc_len = np.load(os.path.join(index_dir, fmt.DOCLEN))
         df, pair_doc, pair_tf = _assemble_csr(index_dir, meta)
+        # the term column is read by the dense scatter only
+        pair_term = pair_term_from_df(df) if resolved == "dense" else None
         return cls(vocab=vocab, mapping=mapping,
-                   pair_term=pair_term_from_df(df), pair_doc=pair_doc,
+                   pair_term=pair_term, pair_doc=pair_doc,
                    pair_tf=pair_tf, df=df, doc_len=doc_len, meta=meta,
                    layout=layout, compat_int_idf=compat_int_idf, device=dev)
 
@@ -192,16 +235,47 @@ class Scorer:
         """One query block on the device; returns device tensors."""
         q = torch.from_numpy(q_terms).to(self.device)
         n = self.meta.num_docs
+        if self.layout == "sparse":
+            ws = self._hot_wstrip(scoring)
+            strip = self.hot_tfs if ws is None else ws
+            if scoring == "bm25":
+                return bm25_topk_tiered(
+                    q, self.hot_rank, strip, self.tier_of, self.row_of,
+                    self.tier_docs, self.tier_tfs, self.df, self.doc_len, n,
+                    k=k, k1=K1, b=B, hot_preweighted=ws is not None)
+            return tfidf_topk_tiered(
+                q, self.hot_rank, strip, self.tier_of, self.row_of,
+                self.tier_docs, self.tier_tfs, self.df, n, k=k,
+                compat_int_idf=self.compat_int_idf,
+                hot_preweighted=ws is not None)
         if scoring == "bm25":
             return bm25_topk_dense(q, self._ensure_tf_matrix(), self.df,
                                    self.doc_len, n, k=k, k1=K1, b=B)
         return tfidf_topk_dense(q, self.doc_matrix, self.df, n, k=k,
                                 compat_int_idf=self.compat_int_idf)
 
+    def _hot_wstrip(self, scoring: str) -> torch.Tensor | None:
+        """The device-cached pre-weighted hot strip of a scoring mode
+        (lntf_strip / bm25_strip), or None when one more strip-sized
+        buffer would pass half the hot budget (the JAX package's auto
+        rule). The weighting is query-independent; cached, the hot stage
+        is the product alone, with bitwise the same scores."""
+        h, d1 = self.hot_tfs.shape
+        if h * d1 > HOT_BUDGET // 2:
+            return None
+        key = "bm25" if scoring == "bm25" else "tfidf"
+        if key not in self._wstrip_cache:
+            self._wstrip_cache[key] = (
+                bm25_strip(self.hot_tfs, self.doc_len, self.meta.num_docs,
+                           k1=K1, b=B) if key == "bm25"
+                else lntf_strip(self.hot_tfs))
+        return self._wstrip_cache[key]
+
     def _ensure_tf_matrix(self) -> torch.Tensor:
         """The dense [V, D+1] raw-tf matrix, built on the first BM25 call."""
         if self._tf_matrix is None:
-            pt, pd, ptf = (self._upload(a) for a in self._pairs)
+            pt, pd, ptf = (upload_index(a, self.device)
+                           for a in self._pairs)
             self._tf_matrix = dense_tf_matrix(
                 pt, pd, ptf, vocab_size=self.meta.vocab_size,
                 num_docs=self.meta.num_docs)
@@ -248,13 +322,10 @@ def _resolve_layout(layout: str, meta: fmt.IndexMetadata) -> str:
                          "'dense', 'sparse' or 'sharded'")
     if layout == "auto":
         v, d = meta.vocab_size, meta.num_docs
-        if v * (d + 1) > DENSE_BUDGET:
-            raise ValueError(
-                f"V*(D+1) = {v * (d + 1):,} exceeds DENSE_BUDGET; the tiered "
-                f"sparse layout {_LATER}")
-        return "dense"
-    if layout != "dense":
-        raise ValueError(f"layout {layout!r} {_LATER}")
+        return "dense" if v * (d + 1) <= DENSE_BUDGET else "sparse"
+    if layout == "sharded":
+        raise ValueError(f"layout 'sharded' (the tiered layout's doc axis "
+                         f"over several GPUs) {_LATER}")
     return layout
 
 
