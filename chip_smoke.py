@@ -594,7 +594,7 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
     return out
 
 
-def build_kernels() -> dict:
+def build_kernels(card: str) -> dict:
     """Build every kernel source at once: one nvcc per source, all
     started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -605,7 +605,8 @@ def build_kernels() -> dict:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(names)) as ex:
         list(ex.map(_build.load, names))
-    return {"phase": "build_kernels", "seconds": time.perf_counter() - t0,
+    return {"phase": "build_kernels", "card": card,
+            "seconds": time.perf_counter() - t0,
             "libraries": {n: _build.lib_path(n).name for n in names}}
 
 
@@ -634,7 +635,7 @@ def main() -> int:
         return 2
 
     card = card_line()
-    emit(build_kernels())
+    emit(build_kernels(card))
     emit(phase_env(card))
     kern = phase_kernels(card, vocab_rows=REF_VOCAB_ROWS,
                          width=8_761 + 1, batch=REF_QUERIES,
