@@ -35,8 +35,8 @@ per phase; any failure ends the run with a nonzero exit code:
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
 repository, the script exits nonzero before printing any result. On an
-H100 the run takes about five minutes, most of it the wiki100k build's
-pure-Python analysis on the host.
+H100 the run takes about six to seven minutes, most of it the wiki100k
+build's pure-Python analysis on the host.
 """
 
 from __future__ import annotations
@@ -305,13 +305,14 @@ def oracle_topk(q: np.ndarray, df: np.ndarray, pair_doc: np.ndarray,
     return top, scores
 
 
-def oracle_check(scorer, q_ids: np.ndarray, scores: np.ndarray,
-                 docnos: np.ndarray, *, scoring: str, k: int) -> dict:
+def oracle_check(scorer, postings: tuple, q_ids: np.ndarray,
+                 scores: np.ndarray, docnos: np.ndarray, *, scoring: str,
+                 k: int) -> dict:
     """recall@k and the worst relative score error of ORACLE_QUERIES
-    sampled rows against the exhaustive oracle; documents tied with the
-    oracle's k-th score (within ORACLE_RTOL) are interchangeable."""
-    _, pair_doc, pair_tf = scorer._pairs
-    df = scorer.df.cpu().numpy()
+    sampled rows against the exhaustive oracle over the index's host
+    postings (df, pair_doc, pair_tf); documents tied with the oracle's
+    k-th score (within ORACLE_RTOL) are interchangeable."""
+    df, pair_doc, pair_tf = postings
     doc_len = scorer.doc_len.cpu().numpy()
     sample = np.random.default_rng(2).choice(len(q_ids), ORACLE_QUERIES,
                                              replace=False)
@@ -413,8 +414,15 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
     if on_cuda and resident < 1e9:
         raise AssertionError(f"only {resident} bytes resident on the card; "
                              "the index should hold > 1 GB")
-    oracle = {s: oracle_check(scorer, q_ids, *results[s], scoring=s, k=k)
+    # the oracle reads the postings from the part files itself: the
+    # scorer keeps none on the host
+    from tpu_ir_torch.search.scorer import _assemble_csr
+
+    postings = _assemble_csr(idx, scorer.meta)
+    oracle = {s: oracle_check(scorer, postings, q_ids, *results[s],
+                              scoring=s, k=k)
               for s in ("tfidf", "bm25")}
+    del postings
 
     out = {"phase": "serve", "card": card, "config": config,
            "load_s": load_s, "layout": scorer.layout,
@@ -548,9 +556,9 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
         bytes_moved, ops, postings = 0, 0, 0
         for i, (tdocs, ttfs) in enumerate(zip(scorer.tier_docs,
                                               scorer.tier_tfs)):
-            in_tier = (terms.tier == i) & terms.cold
+            in_tier = terms.tier == i
             rows, w = cold_tier.tier_rows_and_weights(
-                terms.row, in_tier, terms.q_w, tdocs.shape[0])
+                terms.tier, terms.row, terms.q_w, i, tdocs.shape[0])
             docs = tdocs[rows.long()].long()              # [B, L, P_t]
             tfs = ttfs[rows.long()]
             cell = (scoring._lntf(tfs) if dl_norm is None else
@@ -595,16 +603,15 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
 
 
 def build_kernels(card: str) -> dict:
-    """Build every kernel source at once: one nvcc per source, all
-    started together."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """Build every kernel source at once (one nvcc per source, all
+    started together), then load each library."""
     from tpu_ir_torch.ops import _build
 
     names = _build.kernel_sources()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as ex:
-        list(ex.map(_build.load, names))
+    _build.build(names)
+    for name in names:
+        _build.load(name)
     return {"phase": "build_kernels", "card": card,
             "seconds": time.perf_counter() - t0,
             "libraries": {n: _build.lib_path(n).name for n in names}}

@@ -96,12 +96,25 @@ def jax_tier_scores(tmp_path_factory):
                 for s in SEEDS}
 
 
+TIER = 2    # the tier under test; other terms sit in tiers -1, 0 and 3
+
+
+def _q_tier(in_tier, seed=0):
+    """Per-term tier ids: TIER where `in_tier`, another tier elsewhere."""
+    other = np.random.default_rng(seed).choice([-1, 0, 3], in_tier.shape)
+    return torch.from_numpy(np.where(in_tier, TIER, other).astype(np.int32))
+
+
+def _wrapper(scores, rows, in_tier, q_w, tdocs, ttfs, **kw):
+    cold_tier.cold_tier(scores, _q_tier(in_tier), torch.from_numpy(rows),
+                        torch.from_numpy(q_w), TIER, torch.from_numpy(tdocs),
+                        torch.from_numpy(ttfs), **kw)
+
+
 def _twin(rows, in_tier, q_w, tdocs, ttfs, **kw):
     scores = torch.zeros((rows.shape[0], NUM_DOCS + 1))
     tpu_ir_torch.reset_kernel_launches()
-    cold_tier.cold_tier(scores, torch.from_numpy(rows),
-                        torch.from_numpy(in_tier), torch.from_numpy(q_w),
-                        torch.from_numpy(tdocs), torch.from_numpy(ttfs), **kw)
+    _wrapper(scores, rows, in_tier, q_w, tdocs, ttfs, **kw)
     assert tpu_ir_torch.kernel_launches()["cold_tier"] == 0  # CPU: twin
     return scores.numpy()
 
@@ -122,9 +135,7 @@ def test_twin_accumulates_into_scores():
     once = _twin(rows, in_tier, q_w, tdocs, ttfs)
     start = np.random.default_rng(3).random(once.shape, np.float32)
     scores = torch.from_numpy(start.copy())
-    cold_tier.cold_tier(scores, torch.from_numpy(rows),
-                        torch.from_numpy(in_tier), torch.from_numpy(q_w),
-                        torch.from_numpy(tdocs), torch.from_numpy(ttfs))
+    _wrapper(scores, rows, in_tier, q_w, tdocs, ttfs)
     np.testing.assert_allclose(scores.numpy(), start + once, rtol=RTOL,
                                atol=ATOL)
     untouched = once == 0
@@ -143,21 +154,28 @@ def test_out_of_range_rows_are_clamped_into_the_tier():
 
 
 def test_wrapper_rejects_bad_inputs():
-    rows, in_tier, q_w, tdocs, ttfs = (torch.from_numpy(a) for a in
-                                       _tier_inputs(4))
+    rows, in_tier, q_w, tdocs, ttfs = _tier_inputs(4)
+    q_tier = _q_tier(in_tier)
+    rows, q_w, tdocs, ttfs = (torch.from_numpy(a)
+                              for a in (rows, q_w, tdocs, ttfs))
     scores = torch.zeros((rows.shape[0], NUM_DOCS + 1))
     with pytest.raises(ValueError, match="int32 tier arrays"):
-        cold_tier.cold_tier(scores, rows, in_tier, q_w, tdocs.long(), ttfs)
+        cold_tier.cold_tier(scores, q_tier, rows, q_w, TIER, tdocs.long(),
+                            ttfs)
+    with pytest.raises(ValueError, match="int32 term tiers"):
+        cold_tier.cold_tier(scores, q_tier.long(), rows, q_w, TIER, tdocs,
+                            ttfs)
     with pytest.raises(ValueError, match="float32"):
-        cold_tier.cold_tier(scores.double(), rows, in_tier, q_w, tdocs,
+        cold_tier.cold_tier(scores.double(), q_tier, rows, q_w, TIER, tdocs,
                             ttfs)
     with pytest.raises(ValueError, match=r"\[B, L\]"):
-        cold_tier.cold_tier(scores, rows[:, :2], in_tier, q_w, tdocs, ttfs)
+        cold_tier.cold_tier(scores, q_tier, rows[:, :2], q_w, TIER, tdocs,
+                            ttfs)
     with pytest.raises(ValueError, match="contiguous"):
-        cold_tier.cold_tier(scores.t().contiguous().t(), rows, in_tier, q_w,
-                            tdocs, ttfs)
+        cold_tier.cold_tier(scores.t().contiguous().t(), q_tier, rows, q_w,
+                            TIER, tdocs, ttfs)
     with pytest.raises(ValueError, match="dl_norm"):
-        cold_tier.cold_tier(scores, rows, in_tier, q_w, tdocs, ttfs,
+        cold_tier.cold_tier(scores, q_tier, rows, q_w, TIER, tdocs, ttfs,
                             dl_norm=torch.ones(NUM_DOCS))
 
 

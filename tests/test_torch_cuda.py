@@ -128,6 +128,9 @@ def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
         assert (gd == cd).mean() > 0.99
 
 
+TIER = 2
+
+
 def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
     """One tier ([V_t, cap] docs/tfs with distinct docs per row, pads at
     the end) and a query block with duplicated terms and empty rows."""
@@ -146,11 +149,14 @@ def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
     rows = torch.randint(0, vocab_rows, (batch, terms), generator=gen,
                          dtype=torch.int32)
     rows[:, -1] = rows[:, 0]                        # a duplicated term
-    in_tier = torch.rand((batch, terms), generator=gen) < 0.8
-    in_tier[1] = False                              # a query not in the tier
+    # tier TIER is scored; the other terms sit in tiers -1, 0 and 3
+    q_tier = torch.randint(-1, 4, (batch, terms), generator=gen,
+                           dtype=torch.int32)
+    q_tier[torch.rand((batch, terms), generator=gen) < 0.8] = TIER
+    q_tier[1] = 0                                   # a query not in the tier
     q_w = torch.rand((batch, terms), generator=gen) + 0.05
     dl_norm = torch.rand((width,), generator=gen) + 0.3
-    return [t.to(dev) for t in (rows, in_tier, q_w, docs, tfs, dl_norm)]
+    return [t.to(dev) for t in (q_tier, rows, q_w, docs, tfs, dl_norm)]
 
 
 @pytest.mark.parametrize("bm25", [False, True])
@@ -160,15 +166,15 @@ def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
                                    (5, 300, 70, 5, 257)])
 def test_cold_tier_bitwise_equals_twin(cuda, shape, bm25):
     vocab_rows, cap, batch, terms, width = shape
-    rows, in_tier, q_w, docs, tfs, dl_norm = _tier(
+    q_tier, rows, q_w, docs, tfs, dl_norm = _tier(
         sum(shape), vocab_rows, cap, batch, terms, width, cuda)
     kw = {"dl_norm": dl_norm, "k1": 0.9} if bm25 else {}
     start = torch.rand((batch, width), device=cuda)
     got, want = start.clone(), start.clone()
     tpu_ir_torch.reset_kernel_launches()
-    cold_tier.cold_tier(got, rows, in_tier, q_w, docs, tfs, **kw)
+    cold_tier.cold_tier(got, q_tier, rows, q_w, TIER, docs, tfs, **kw)
     assert tpu_ir_torch.kernel_launches()["cold_tier"] == 1
-    cold_tier.cold_tier_plain(want, rows, in_tier, q_w, docs, tfs, **kw)
+    cold_tier.cold_tier_plain(want, q_tier, rows, q_w, TIER, docs, tfs, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got[1], start[1]) and not torch.equal(got, start)
@@ -177,18 +183,19 @@ def test_cold_tier_bitwise_equals_twin(cuda, shape, bm25):
 def test_cold_tier_matches_cpu_twin(cuda):
     args = _tier(11, 20, 32, 50, 3, 400, torch.device("cpu"))
     want = torch.zeros((50, 400))
-    cold_tier.cold_tier(want, *args[:5], dl_norm=args[5])
+    cold_tier.cold_tier(want, *args[:3], TIER, *args[3:5], dl_norm=args[5])
     got = torch.zeros((50, 400), device=cuda)
-    cold_tier.cold_tier(got, *(a.to(cuda) for a in args[:5]),
-                        dl_norm=args[5].to(cuda))
+    q_tier, rows, q_w, docs, tfs, dl_norm = (a.to(cuda) for a in args)
+    cold_tier.cold_tier(got, q_tier, rows, q_w, TIER, docs, tfs,
+                        dl_norm=dl_norm)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-7)
 
 
 def test_cold_tier_rejects_mixed_devices(cuda):
-    rows, in_tier, q_w, docs, tfs, _ = _tier(12, 5, 8, 4, 2, 30, cuda)
+    q_tier, rows, q_w, docs, tfs, _ = _tier(12, 5, 8, 4, 2, 30, cuda)
     with pytest.raises(ValueError, match="must be on"):
-        cold_tier.cold_tier(torch.zeros((4, 30), device=cuda), rows.cpu(),
-                            in_tier, q_w, docs, tfs)
+        cold_tier.cold_tier(torch.zeros((4, 30), device=cuda), q_tier,
+                            rows.cpu(), q_w, TIER, docs, tfs)
 
 
 def test_tiered_scorer_on_cuda_equals_cpu(cuda, tmp_path):
@@ -218,8 +225,7 @@ def test_hot_stage_refuses_tf32(cuda):
         rank=torch.zeros((2, 1), dtype=torch.int32, device=cuda),
         is_hot=torch.ones((2, 1), dtype=torch.bool, device=cuda),
         tier=torch.full((2, 1), -1, dtype=torch.int32, device=cuda),
-        row=torch.zeros((2, 1), dtype=torch.int32, device=cuda),
-        cold=torch.zeros((2, 1), dtype=torch.bool, device=cuda))
+        row=torch.zeros((2, 1), dtype=torch.int32, device=cuda))
     scores = torch.zeros((2, 5), device=cuda)
     strip = torch.rand((3, 5), device=cuda)
     before = torch.backends.cuda.matmul.allow_tf32

@@ -182,7 +182,7 @@ def test_auto_picks_sparse_above_dense_budget(index_dir, monkeypatch):
 
     monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10)
     s = Scorer.load(index_dir, device="cpu")
-    assert s.layout == "sparse" and s._pairs[0] is None
+    assert s.layout == "sparse" and s._pairs is None
     assert not hasattr(s, "doc_matrix")
 
 

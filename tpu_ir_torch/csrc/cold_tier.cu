@@ -6,14 +6,16 @@
 // For one df tier of the tiered sparse layout (tdocs/ttfs [V_t, P_t]) it
 // computes, in place on a float32 [B, D+1] score accumulator,
 //
-//     for b, for l = 0..L-1 with w[b, l] != 0, r = row[b, l]:
+//     for b, for l = 0..L-1 with q_tier[b, l] == tier and w[b, l] != 0,
+//       r = row[b, l] clamped into 0..V_t-1:
 //       for every slot p with tf = ttfs[r, p] > 0 and doc = tdocs[r, p] <= D:
 //         scores[b, doc] += cell(tf, doc) * w[b, l]
 //
 // where cell is 1 + ln tf (TF-IDF) or the BM25 saturation
-// tf*(k1+1) / max(tf + k1*dl_norm[doc], 1e-9). The wrapper sets row[b, l]
-// to 0 and w[b, l] to 0 where (b, l) is not in this tier, and clamps every
-// row into 0..V_t-1. The doc <= D test is the JAX scatter's mode="drop".
+// tf*(k1+1) / max(tf + k1*dl_norm[doc], 1e-9). q_tier, row and w are a
+// query block's per-term arrays, shared by every tier's launch; a term
+// outside this tier weighs 0, as in the Pallas kernel, and the clamp is
+// the JAX gather's. The doc <= D test is the JAX scatter's mode="drop".
 //
 // Bound on an H100: memory. Each in-tier (b, l) with w != 0 reads its row,
 // P_t * 8 bytes of docs and tfs; each posting with tf > 0 reads and writes
@@ -50,21 +52,24 @@ constexpr int kMaxThreads = 256;
 
 template <bool kBm25>
 __global__ void __launch_bounds__(kMaxThreads)
-cold_tier_kernel(const int32_t* __restrict__ rows,
+cold_tier_kernel(const int32_t* __restrict__ q_tier,
+                 const int32_t* __restrict__ rows,
                  const float* __restrict__ weights,
                  const int32_t* __restrict__ tdocs,
                  const int32_t* __restrict__ ttfs,
                  const float* __restrict__ dl_norm,
-                 float* __restrict__ scores,
-                 int64_t num_terms, int64_t cap, int64_t width,
-                 float k1, float k1_plus_1) {
+                 float* __restrict__ scores, int32_t tier,
+                 int64_t num_terms, int64_t num_rows, int64_t cap,
+                 int64_t width, float k1, float k1_plus_1) {
   const int64_t b = blockIdx.x;
   const int64_t num_docs = width - 1;
   float* q_scores = scores + b * width;
   for (int64_t l = 0; l < num_terms; ++l) {
-    const float w = weights[b * num_terms + l];
+    const int64_t i = b * num_terms + l;
+    const float w = q_tier[i] == tier ? weights[i] : 0.0f;
     if (w != 0.0f) {                       // uniform across the block
-      const int64_t r = rows[b * num_terms + l];
+      const int64_t row = rows[i];
+      const int64_t r = row < 0 ? 0 : (row < num_rows ? row : num_rows - 1);
       const int32_t* row_docs = tdocs + r * cap;
       const int32_t* row_tfs = ttfs + r * cap;
       for (int64_t p = threadIdx.x; p < cap; p += blockDim.x) {
@@ -90,21 +95,25 @@ cold_tier_kernel(const int32_t* __restrict__ rows,
 
 }  // namespace
 
-// rows int32 [B, L] (clamped to a valid tier row); weights float32 [B, L]
-// (0 outside the tier); tdocs, ttfs int32 [V_t, cap]; dl_norm float32
-// [width] or null for TF-IDF; scores float32 [B, width], accumulated in
-// place. All contiguous on the current device. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
-extern "C" int tpu_ir_cold_tier(const void* rows, const void* weights,
-                                const void* tdocs, const void* ttfs,
-                                const void* dl_norm, void* scores,
-                                int64_t batch, int64_t num_terms,
+// q_tier, rows int32 [B, L] (each term's tier, -1 for none, and its row
+// there); weights float32 [B, L]; tdocs, ttfs int32 [V_t, cap]; dl_norm
+// float32 [width] or null for TF-IDF; scores float32 [B, width],
+// accumulated in place. All contiguous on the current device. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int tpu_ir_cold_tier(const void* q_tier, const void* rows,
+                                const void* weights, const void* tdocs,
+                                const void* ttfs, const void* dl_norm,
+                                void* scores, int32_t tier, int64_t batch,
+                                int64_t num_terms, int64_t num_rows,
                                 int64_t cap, int64_t width, float k1,
                                 float k1_plus_1, void* stream) {
-  if (batch <= 0 || num_terms <= 0 || cap <= 0 || width <= 0) return 0;
+  if (batch <= 0 || num_terms <= 0 || num_rows <= 0 || cap <= 0 ||
+      width <= 0)
+    return 0;
   // one warp at least, one thread per slot up to kMaxThreads
   int64_t threads = (cap + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
+  const auto* qt = static_cast<const int32_t*>(q_tier);
   const auto* r = static_cast<const int32_t*>(rows);
   const auto* w = static_cast<const float*>(weights);
   const auto* td = static_cast<const int32_t*>(tdocs);
@@ -116,10 +125,12 @@ extern "C" int tpu_ir_cold_tier(const void* rows, const void* weights,
   const dim3 block(static_cast<unsigned>(threads));
   if (dl != nullptr) {
     cold_tier_kernel<true><<<grid, block, 0, st>>>(
-        r, w, td, tt, dl, s, num_terms, cap, width, k1, k1_plus_1);
+        qt, r, w, td, tt, dl, s, tier, num_terms, num_rows, cap, width, k1,
+        k1_plus_1);
   } else {
     cold_tier_kernel<false><<<grid, block, 0, st>>>(
-        r, w, td, tt, dl, s, num_terms, cap, width, k1, k1_plus_1);
+        qt, r, w, td, tt, dl, s, tier, num_terms, num_rows, cap, width, k1,
+        k1_plus_1);
   }
   return static_cast<int>(cudaGetLastError());
 }

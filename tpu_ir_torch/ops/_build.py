@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -52,22 +53,54 @@ def kernel_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def build(names: list[str]) -> None:
+    """Compile the libraries of `names` that are not built yet: one nvcc
+    per source, all started together, then each awaited in turn."""
+    started = []
+    try:
+        for name in names:
+            out = lib_path(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started.append((name, out, tmp, proc))
+        for name, out, tmp, proc in started:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+    finally:
+        for _, _, tmp, proc in started:              # only after a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    out = lib_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                            str(CSRC / f"{name}.cu")],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                               f"(exit {r.returncode}):\n{r.stdout}{r.stderr}")
-        os.replace(tmp, out)
-    lib = _libs[name] = ctypes.CDLL(str(out))
+    if lib is None:
+        build([name])
+        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of csrc/<name>.cu with its argument
+    types, set once. Every entry point returns an int CUDA error code."""
+    key = (name, symbol)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return fn

@@ -102,11 +102,9 @@ def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
                          f"{doc_matrix.device}")
     from . import _build
 
-    lib = _build.load("dense_score")
-    fn = lib.tpu_ir_dense_score
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("dense_score", "tpu_ir_dense_score",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+                      + [ctypes.c_void_p])
     safe_q, q_w = query_weights(q_terms, idf)
     b, num_terms = safe_q.shape
     width = doc_matrix.shape[1]

@@ -210,9 +210,9 @@ class TieredTerms(NamedTuple):
     q_w: torch.Tensor      # float32 [B, L]: term weight, 0 where invalid
     rank: torch.Tensor     # [B, L]: hot-strip row, -1 for cold terms
     is_hot: torch.Tensor   # bool [B, L]
-    tier: torch.Tensor     # [B, L]: tier index, -1 for hot / df == 0 terms
-    row: torch.Tensor      # [B, L]: row within the tier
-    cold: torch.Tensor     # bool [B, L]: a valid term outside the strip
+    tier: torch.Tensor     # int32 [B, L]: tier index, -1 unless a valid
+                           # term outside the strip with df > 0
+    row: torch.Tensor      # int32 [B, L]: row within the tier (0 likewise)
 
 
 def tiered_terms(q_terms: torch.Tensor, hot_rank: torch.Tensor,
@@ -228,8 +228,10 @@ def tiered_terms(q_terms: torch.Tensor, hot_rank: torch.Tensor,
                                   device=q_weight.device))
     rank = hot_rank[safe_q]
     is_hot = (rank >= 0) & q_valid
-    return TieredTerms(q_w, rank, is_hot, tier_of[safe_q], row_of[safe_q],
-                       q_valid & ~is_hot)
+    cold = q_valid & ~is_hot
+    tier = torch.where(cold, tier_of[safe_q], -1).to(torch.int32)
+    row = torch.where(cold, row_of[safe_q], 0).to(torch.int32)
+    return TieredTerms(q_w, rank, is_hot, tier, row)
 
 
 def cold_stage(scores: torch.Tensor, terms: TieredTerms,
@@ -239,12 +241,13 @@ def cold_stage(scores: torch.Tensor, terms: TieredTerms,
                tier_fn=None) -> None:
     """Add every cold tier's contributions into `scores` in place, in
     tier order: one `tier_fn` call (the cold-tier kernel's wrapper unless
-    another function of its signature is given) per tier."""
+    another function of its signature is given) per tier, each on the
+    block's shared per-term arrays."""
     if tier_fn is None:
         from .cold_tier import cold_tier as tier_fn
     for i, (tdocs, ttfs) in enumerate(zip(tier_docs, tier_tfs)):
-        tier_fn(scores, terms.row, (terms.tier == i) & terms.cold,
-                terms.q_w, tdocs, ttfs, dl_norm=dl_norm, k1=k1)
+        tier_fn(scores, terms.tier, terms.row, terms.q_w, i, tdocs, ttfs,
+                dl_norm=dl_norm, k1=k1)
 
 
 def _require_fp32_matmul(t: torch.Tensor) -> None:

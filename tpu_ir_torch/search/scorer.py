@@ -106,7 +106,8 @@ class Scorer:
         self.layout = _resolve_layout(layout, meta)
         self._analyzer = Analyzer()
         # host postings columns (pair_term is needed by the dense layout
-        # only); the tiered layout may come prebuilt without them
+        # only, which keeps them for its BM25 matrix); the tiered layout
+        # may come prebuilt without them and drops them once built
         self._pairs = (None if pair_doc is None else
                        (pair_term, np.asarray(pair_doc), np.asarray(pair_tf)))
         if (self.layout == "dense" and pair_term is None) or (
@@ -130,6 +131,7 @@ class Scorer:
             tiers = build_tiered_layout(self._pairs[1], self._pairs[2],
                                         np.asarray(df),
                                         num_docs=meta.num_docs)
+        self._pairs = None               # the tiers hold every posting
         self.hot_rank = upload_index(tiers.hot_rank, self.device)
         # densified on the device: only the COO postings cross the link
         self.hot_tfs = tiers.hot_device(self.device)
