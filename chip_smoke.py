@@ -9,33 +9,43 @@ It builds every kernel of the port from csrc/ (one nvcc per source, all
 started together), then runs these phases in order, printing one JSON line
 per phase; any failure ends the run with a nonzero exit code:
 
-1. env       the card's name and power limit (nvidia-smi), torch and CUDA
-             versions;
-2. kernels   dense_score against its plain PyTorch twin on the card at the
-             shapes of the `ref` configuration, with its time, its bound,
-             the twin's time and one library call's time (CUDA events,
-             median of 20 runs after warm-up);
-3. build     the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
-             make_corpus, copied into the port) indexed into 10 shards on
-             the card;
-4. serve     Scorer.load on the card (dense layout), search_batch under
-             TF-IDF and BM25, then topk over 10,000 two-term queries with
-             k = 10, checked against an exhaustive numpy oracle (recall@10
-             on 64 queries, both scorings) and the kernels' launch counts;
-5. sparse    the same index and queries on the tiered sparse layout,
-             held against the dense layout's top-10 row by row;
-6. build     the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
-             word shapes) indexed into 10 shards on the card;
-7. serve     as 4, on wiki100k, where layout "auto" picks the tiered
-             sparse layout;
-8. kernels   cold_tier against its plain twin over the whole cold stage
-             of one 2,499-query block of the wiki100k traffic, TF-IDF and
-             BM25, with the same timings.
+1. env        the card's name and power limit (nvidia-smi), torch and CUDA
+              versions;
+2. kernels    dense_score against its plain PyTorch twin on the card at the
+              shapes of the `ref` configuration, with its time, its bound,
+              the twin's time and one library call's time (CUDA events,
+              median of 20 runs after warm-up);
+3. kernels    dequant_score likewise, on a bf16 raw-tf matrix of the same
+              synthetic tfs, and bitwise against dense_score over their
+              float32 (1 + ln tf) matrix;
+4. build      the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
+              make_corpus, copied into the port) indexed into 10 shards on
+              the card;
+5. serve      Scorer.load on the card (dense layout), search_batch under
+              TF-IDF and BM25, then topk over 10,000 two-term queries with
+              k = 10, checked against an exhaustive numpy oracle (recall@10
+              on 64 queries, both scorings) and the kernels' launch counts;
+6. sparse     the same index and queries on the tiered sparse layout,
+              held against the dense layout's top-10 row by row;
+7. compress   `migrate_index(to_version=3)` on a copy of the ref index
+              (format v3, tf_dtype "auto");
+8. serve      as 5, on the compressed copy (`ref-v3`): a bf16 raw-tf
+              matrix, TF-IDF through dequant_score, and top-10 bitwise
+              equal to the raw index's for both scorings;
+9. build      the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
+              word shapes) indexed into 10 shards on the card;
+10. serve     as 5, on wiki100k, where layout "auto" picks the tiered
+              sparse layout;
+11. kernels   cold_tier against its plain twin over the whole cold stage
+              of one 2,499-query block of the wiki100k traffic, TF-IDF and
+              BM25, with the same timings;
+12. compress  and serve `wiki100k-v3` as 7 and 8: a bf16 hot strip, top-10
+              bitwise equal to the raw wiki100k index's.
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
 repository, the script exits nonzero before printing any result. On an
-H100 the run takes about six to seven minutes, most of it the wiki100k
+H100 the run takes about seven minutes, most of it the wiki100k
 build's pure-Python analysis on the host.
 """
 
@@ -63,7 +73,12 @@ REF_CORPUS: dict = {}          # make_corpus arguments; {} is the ref size
 # bench.py's wiki100k configuration: make_corpus arguments
 WIKI_CORPUS = dict(n_docs=100_000, target_bytes=270_000_000,
                    vocab_size=200_000)
-LAYOUTS = {"ref": "dense", "wiki100k": "sparse"}   # what "auto" must pick
+# what layout "auto" must pick, and the least resident bytes, per config:
+# a compressed (v3) index holds its raw tfs in bf16, half the float32 bytes
+LAYOUTS = {"ref": "dense", "wiki100k": "sparse", "ref-v3": "dense",
+           "wiki100k-v3": "sparse"}
+MIN_RESIDENT = {"ref": 1e9, "wiki100k": 1e9, "ref-v3": 0.5e9,
+                "wiki100k-v3": 0.5e9}
 K1, BM25_B = 0.9, 0.4          # the port's BM25 constants
 TIMED_RUNS = 20
 
@@ -110,24 +125,25 @@ def phase_env(card: str) -> dict:
             "python": sys.version.split()[0]}
 
 
-def phase_kernels(card: str, *, vocab_rows: int, width: int,
-                  batch: int, terms: int, seed: int = 0) -> dict:
-    """Kernel 1 (dense_score) against its plain twin at the ref shapes."""
+def ref_kernel_inputs(*, vocab_rows: int, width: int, batch: int,
+                      terms: int, seed: int = 0):
+    """The dense kernels' synthetic inputs at the ref shapes, on the card:
+    (tf int32 [V, D+1], integer tfs 1..7 in ~1.8% of the cells like the ref
+    corpus's matrix and 0 elsewhere; q int32 [B, L] with the edge cases; idf
+    float32 [V]). The same seed gives the same inputs."""
     import torch
 
-    from tpu_ir_torch.ops import fused_scoring
     from tpu_ir_torch.ops.scoring import idf_weights
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
-    # (1 + ln tf) cells: ~1.8% nonzero, like the ref corpus's matrix
     tf = torch.randint(1, 8, (vocab_rows, width), generator=gen,
                        device=dev, dtype=torch.int32)
     keep = torch.rand((vocab_rows, width), generator=gen, device=dev) < 0.018
-    matrix = torch.where(keep, 1.0 + torch.log(tf.float()), 0.0)
-    matrix[:, 0] = 0.0
-    del tf, keep
+    tf.mul_(keep)
+    del keep
+    tf[:, 0] = 0
     df = torch.from_numpy(rng.integers(0, width, vocab_rows, dtype=np.int32))
     df[:5] = 0                                     # empty vocabulary rows
     q = rng.integers(0, vocab_rows, (batch, terms)).astype(np.int32)
@@ -136,8 +152,70 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
     q[5, :] = q[5, 0]                              # a duplicated term
     q[9, 0] = vocab_rows + 3                       # out of vocabulary
     q[11, 0] = 0                                   # a row with df == 0
-    q_d = torch.from_numpy(q).to(dev)
-    idf = idf_weights(df.to(dev), width - 1)
+    return tf, torch.from_numpy(q).to(dev), idf_weights(df.to(dev),
+                                                         width - 1)
+
+
+def dense_bound(q_d, idf, width: int, cell_bytes: int,
+                ops_per_cell: int) -> dict:
+    """The least time of a dense score kernel on these inputs: the distinct
+    rows the queries reference read once (`cell_bytes` a cell), ids and
+    weights read once, the scores written once; `ops_per_cell` operations
+    for each cell of each weighted (b, l)."""
+    import torch
+
+    from tpu_ir_torch.ops import fused_scoring
+
+    batch, terms = q_d.shape
+    safe_q, q_w = fused_scoring.query_weights(q_d, idf)
+    nz = q_w != 0
+    n_rows = int(torch.unique(safe_q[nz]).numel())
+    bytes_moved = (n_rows * width * cell_bytes + batch * terms * 8
+                   + batch * width * 4)
+    ops = ops_per_cell * int(nz.sum()) * width
+    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+            "bound_bytes": bytes_moved, "distinct_rows": n_rows,
+            "bound_ms_every_row_read": (batch * terms * width * cell_bytes
+                                        + batch * width * 4)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def sparse_mm_yardstick(q_d, idf, matrix) -> tuple:
+    """(the scores, the median ms) of one torch.sparse.mm of a sparse
+    [B, V] idf weight matrix and the float32 doc matrix: the one PyTorch
+    call that computes kernel 1's scores. A yardstick only; the port never
+    calls it."""
+    import torch
+
+    from tpu_ir_torch.ops import fused_scoring
+
+    batch = q_d.shape[0]
+    safe_q, q_w = fused_scoring.query_weights(q_d, idf)
+    nz = q_w != 0
+    rows = torch.arange(batch, device=q_d.device)[:, None].expand_as(q_w)[nz]
+    sq = torch.sparse_coo_tensor(
+        torch.stack([rows, safe_q[nz].long()]), q_w[nz],
+        (batch, matrix.shape[0])).coalesce()
+    return torch.sparse.mm(sq, matrix), cuda_ms(lambda: torch.sparse.mm(
+        sq, matrix))
+
+
+def phase_kernels(card: str, *, vocab_rows: int, width: int,
+                  batch: int, terms: int, seed: int = 0) -> dict:
+    """Kernel 1 (dense_score) against its plain twin at the ref shapes."""
+    import torch
+
+    from tpu_ir_torch.ops import fused_scoring
+    from tpu_ir_torch.ops.scoring import _lntf
+
+    tf, q_d, idf = ref_kernel_inputs(vocab_rows=vocab_rows, width=width,
+                                     batch=batch, terms=terms, seed=seed)
+    matrix = _lntf(tf)                            # float32 (1 + ln tf)
+    del tf
 
     got = fused_scoring.dense_scores(q_d, idf, matrix)
     want = fused_scoring.dense_scores_plain(q_d, idf, matrix)
@@ -152,28 +230,8 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
     ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
     plain_ms = cuda_ms(
         lambda: fused_scoring.dense_scores_plain(q_d, idf, matrix))
-
-    # yardstick only (the port never calls it): one sparse [B, V] idf
-    # weight matrix times the dense doc matrix
-    safe_q, q_w = fused_scoring.query_weights(q_d, idf)
-    nz = q_w != 0
-    rows = torch.arange(batch, device=dev)[:, None].expand_as(q_w)[nz]
-    sq = torch.sparse_coo_tensor(
-        torch.stack([rows, safe_q[nz].long()]), q_w[nz],
-        (batch, vocab_rows)).coalesce()
-    lib = torch.sparse.mm(sq, matrix)
+    lib, library_ms = sparse_mm_yardstick(q_d, idf, matrix)
     lib_diff = float((lib - got).abs().max())
-    library_ms = cuda_ms(lambda: torch.sparse.mm(sq, matrix))
-
-    # least time for this work: the distinct rows the queries reference
-    # read once, the ids and weights read once, the scores written once
-    n_rows = int(torch.unique(safe_q[nz]).numel())
-    bytes_moved = (n_rows * width * 4 + batch * terms * 8
-                   + batch * width * 4)
-    flops = 2 * int(nz.sum()) * width
-    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
     return {"phase": "kernels", "card": card, "name": "dense_score",
             "shape": {"V": vocab_rows, "D+1": width, "B": batch,
                       "L": terms},
@@ -181,14 +239,70 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse.mm(Q[B,V] sparse, M[V,D+1])",
             "library_max_abs_diff": lib_diff,
-            "bound_ms": bound_ms,
-            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                         else "operations"),
-            "bound_bytes": bytes_moved, "distinct_rows": n_rows,
-            "bound_ms_every_row_read": (batch * terms * width * 4
-                                        + batch * width * 4)
-            / HBM_BYTES_PER_S * 1e3,
+            **dense_bound(q_d, idf, width, cell_bytes=4, ops_per_cell=2),
             "launches_while_comparing": fused_scoring.dense_score_launches()}
+
+
+def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
+                        batch: int, terms: int, seed: int = 0) -> dict:
+    """Kernel 2 (dequant_score) against its plain twin, and bitwise against
+    kernel 1 over the float32 (1 + ln tf) matrix of the same tfs, at the
+    ref shapes on kernel 1's synthetic tfs held as a bf16 raw-tf matrix."""
+    import torch
+
+    from tpu_ir_torch.ops import fused_scoring
+    from tpu_ir_torch.ops.scoring import _lntf
+
+    tf, q_d, idf = ref_kernel_inputs(vocab_rows=vocab_rows, width=width,
+                                     batch=batch, terms=terms, seed=seed)
+    tf16 = tf.to(torch.bfloat16)
+    matrix = _lntf(tf)
+    del tf
+    before = (fused_scoring.dequant_score_launches(),
+              fused_scoring.dense_score_launches())
+
+    got = fused_scoring.dense_scores_quantized(q_d, idf, tf16)
+    want = fused_scoring.dense_scores_quantized_plain(q_d, idf, tf16)
+    k1 = fused_scoring.dense_scores(q_d, idf, matrix)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    vs_k1 = float((got - k1).abs().max())
+    if not torch.isfinite(got).all() or max_abs > KERNEL_TOL \
+            or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"dequant_score kernel disagrees with its "
+                             f"plain twin: max_abs_diff {max_abs}")
+    if vs_k1 > KERNEL_TOL or not torch.equal(got.view(torch.int32),
+                                             k1.view(torch.int32)):
+        raise AssertionError(f"dequant_score kernel disagrees with "
+                             f"dense_score on the same tfs: max_abs_diff "
+                             f"{vs_k1}")
+    if not bool((got[3] == 0).all()):
+        raise AssertionError("an empty query must score 0 everywhere")
+    del want, k1
+
+    ms = cuda_ms(lambda: fused_scoring.dense_scores_quantized(q_d, idf,
+                                                              tf16))
+    plain_ms = cuda_ms(
+        lambda: fused_scoring.dense_scores_quantized_plain(q_d, idf, tf16))
+    k1_ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
+    # no single PyTorch call weights a bf16 raw-tf matrix; kernel 1's
+    # yardstick gives the same scores from the uncompressed matrix
+    _, k1_library_ms = sparse_mm_yardstick(q_d, idf, matrix)
+    # per cell: compare, max, log, add (the weight), multiply, add
+    return {"phase": "kernels", "card": card, "name": "dequant_score",
+            "shape": {"V": vocab_rows, "D+1": width, "B": batch,
+                      "L": terms},
+            "max_abs_diff": max_abs, "tolerance": KERNEL_TOL,
+            "max_abs_diff_vs_dense_score": vs_k1,
+            "ms": ms, "plain_ms": plain_ms, "dense_score_ms": k1_ms,
+            "library_ms": None, "library": "none",
+            "dense_score_library_ms": k1_library_ms,
+            "dense_score_library": "torch.sparse.mm(Q[B,V] sparse, "
+                                   "M[V,D+1] float32 (1 + ln tf))",
+            **dense_bound(q_d, idf, width, cell_bytes=2, ops_per_cell=6),
+            "launches_while_comparing": (
+                fused_scoring.dequant_score_launches() - before[0],
+                fused_scoring.dense_score_launches() - before[1])}
 
 
 def phase_build(card: str, work: str, *, device: str,
@@ -258,7 +372,7 @@ def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
     device_ms = sum(r[1] for r in rows)
     # the port's own kernels, wherever they rank
     port = {name: {"ms": ms, "calls": c} for n, ms, c in rows
-            for name in ("dense_score", "cold_tier")
+            for name in ("dense_score", "dequant_score", "cold_tier")
             if f"{name}_kernel" in n}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": (1 - device_ms / wall_ms) if wall_ms > 0 else None,
@@ -359,6 +473,8 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
             torch.cuda.synchronize()
 
     tpu_ir_torch.reset_kernel_launches()
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scorer = Scorer.load(idx, device=device)
     sync()
@@ -367,6 +483,7 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
         raise AssertionError(f"{config}: layout {scorer.layout!r}, "
                              f"expected {LAYOUTS[config]!r}")
     resident = torch.cuda.memory_allocated() if on_cuda else None
+    load_peak = torch.cuda.max_memory_allocated() if on_cuda else None
     if on_cuda:
         torch.cuda.reset_peak_memory_stats()
 
@@ -408,12 +525,15 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
         if sc.shape != (n_queries, k) or dn.shape != (n_queries, k) \
                 or not np.isfinite(sc).all():
             raise AssertionError(f"{scoring} topk returned malformed scores")
-    kernel = "dense_score" if scorer.layout == "dense" else "cold_tier"
+    kernel = ("cold_tier" if scorer.layout == "sparse" else
+              "dense_score" if scorer.doc_matrix is not None
+              else "dequant_score")
     if on_cuda and launches[kernel] == 0:
         raise AssertionError(f"the serve phase never launched {kernel}")
-    if on_cuda and resident < 1e9:
+    if on_cuda and resident < MIN_RESIDENT[config]:
         raise AssertionError(f"only {resident} bytes resident on the card; "
-                             "the index should hold > 1 GB")
+                             f"{config} should hold > "
+                             f"{MIN_RESIDENT[config]:.0f}")
     # the oracle reads the postings from the part files itself: the
     # scorer keeps none on the host
     from tpu_ir_torch.search.scorer import _assemble_csr
@@ -426,8 +546,10 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
 
     out = {"phase": "serve", "card": card, "config": config,
            "load_s": load_s, "layout": scorer.layout,
+           "tf_dtype": str(scorer.tf_dtype),
            "block": scorer._block_size(), "resident_bytes": resident,
-           "peak_bytes": peak, "text_hits": text_hits,
+           "load_peak_bytes": load_peak, "peak_bytes": peak,
+           "text_hits": text_hits,
            "queries": n_queries, "k": k,
            "tfidf_s": walls["tfidf"], "tfidf_qps": n_queries / walls["tfidf"],
            "bm25_s": walls["bm25"], "bm25_qps": n_queries / walls["bm25"],
@@ -440,7 +562,8 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
     if scorer.layout == "sparse":
         out["tiers"] = {
             "hot_rows": int(scorer.hot_tfs.shape[0]),
-            "strip_bytes": scorer.hot_tfs.numel() * 4,
+            "strip_bytes": (scorer.hot_tfs.numel()
+                            * scorer.hot_tfs.element_size()),
             "caps_rows": [[int(t.shape[1]), int(t.shape[0])]
                           for t in scorer.tier_docs],
             "tier_bytes": sum(t.numel() * 4 for t in scorer.tier_docs
@@ -498,6 +621,73 @@ def phase_sparse_check(card: str, idx: str, q_ids: np.ndarray,
     if device == "cuda" and out["launches"]["cold_tier"] == 0:
         raise AssertionError("the sparse check never launched cold_tier")
     return out
+
+
+def part_bytes(idx: str) -> int:
+    return sum(os.path.getsize(os.path.join(idx, f))
+               for f in os.listdir(idx) if f.startswith("part-"))
+
+
+def phase_compress(card: str, idx: str, work: str, *, config: str
+                   ) -> tuple[dict, str]:
+    """A copy of a built index compressed in place by migrate_index
+    (format v3, tf_dtype "auto"). Returns (report, the copy's dir)."""
+    from tpu_ir_torch.index.migrate import migrate_index
+
+    v3 = os.path.join(work, f"{config}-v3-idx")
+    shutil.copytree(idx, v3)
+    before = part_bytes(v3)
+    t0 = time.perf_counter()
+    info = migrate_index(v3, to_version=3, tf_dtype="auto")
+    seconds = time.perf_counter() - t0
+    after = part_bytes(v3)
+    return {"phase": "compress", "card": card, "config": config,
+            "tf_dtype": info["tf_dtype"], "tf_lossy": info["tf_lossy"],
+            "migrated": info["migrated"], "seconds": seconds,
+            "part_bytes_before": before, "part_bytes_after": after,
+            "ratio": before / after}, v3
+
+
+def phase_serve_v3(card: str, idx: str, raw: dict, *, device: str,
+                   config: str, k: int = 10):
+    """phase_serve on a compressed copy, held to the raw index's serve:
+    the raw tfs resident in bf16, the layout's kernel launched (on the
+    dense layout TF-IDF through dequant_score and never dense_score), and
+    the top-k bitwise equal to `raw`'s ({scoring: (scores, docnos)}) for
+    both scorings. Returns (report, scorer)."""
+    import torch
+
+    out, scorer, _, results = phase_serve(card, idx, device=device,
+                                          config=config, k=k)
+    if scorer.tf_dtype != torch.bfloat16:
+        raise AssertionError(f"{config}: tfs resident as {scorer.tf_dtype}, "
+                             "expected torch.bfloat16")
+    if scorer.layout == "dense":
+        if scorer.doc_matrix is not None or \
+                scorer._tf_matrix.dtype != torch.bfloat16:
+            raise AssertionError(f"{config}: the dense layout must hold one "
+                                 "bf16 raw-tf matrix and nothing else")
+        out["matrix_bytes"] = (scorer._tf_matrix.numel()
+                               * scorer._tf_matrix.element_size())
+        if device == "cuda" and (
+                out["launches_per_topk"]["tfidf"]["dequant_score"] < 1
+                or out["launches"]["dense_score"] != 0):
+            raise AssertionError(f"{config}: TF-IDF must run dequant_score "
+                                 f"and never dense_score: "
+                                 f"{out['launches']}")
+    elif scorer.hot_tfs.dtype != torch.bfloat16:
+        raise AssertionError(f"{config}: the hot strip must be bf16")
+    out["bitwise_equal_to_raw"] = {}
+    for scoring, (sc, dn) in results.items():
+        rs, rd = raw[scoring]
+        same = np.array_equal(dn, rd) and sc.tobytes() == rs.tobytes()
+        if not same:
+            rows = int(((dn != rd) | (sc.view(np.int32)
+                                      != rs.view(np.int32))).any(1).sum())
+            raise AssertionError(f"{config} {scoring}: top-{k} differs from "
+                                 f"the raw index's in {rows} rows")
+        out["bitwise_equal_to_raw"][scoring] = same
+    return out, scorer
 
 
 def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
@@ -644,10 +834,13 @@ def main() -> int:
     card = card_line()
     emit(build_kernels(card))
     emit(phase_env(card))
-    kern = phase_kernels(card, vocab_rows=REF_VOCAB_ROWS,
-                         width=8_761 + 1, batch=REF_QUERIES,
-                         terms=REF_QUERY_TERMS)
+    shapes = dict(vocab_rows=REF_VOCAB_ROWS, width=8_761 + 1,
+                  batch=REF_QUERIES, terms=REF_QUERY_TERMS)
+    kern = phase_kernels(card, **shapes)
     emit(kern)
+    torch.cuda.empty_cache()
+    dequant = phase_dequant_score(card, **shapes)
+    emit(dequant)
     torch.cuda.empty_cache()
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -663,16 +856,31 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(phase_sparse_check(card, idx, q_ids, dense, device="cuda"))
         torch.cuda.empty_cache()
+        comp, v3 = phase_compress(card, idx, work, config="ref")
+        emit(comp)
+        serve_v3, scorer = phase_serve_v3(card, v3, dense, device="cuda",
+                                          config="ref-v3")
+        emit(serve_v3)
+        del scorer
+        shutil.rmtree(v3)
+        torch.cuda.empty_cache()
 
         wbuild, widx = phase_build(card, work, device="cuda",
                                    config="wiki100k")
         emit(wbuild)
-        wserve, scorer, q_ids, _ = phase_serve(card, widx, device="cuda",
-                                               config="wiki100k")
+        wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
+                                                  config="wiki100k")
         emit(wserve)
         cold = phase_cold_tier(card, scorer, q_ids[:scorer._block_size()])
         cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
         emit(cold)
+        del scorer
+        torch.cuda.empty_cache()
+        wcomp, wv3 = phase_compress(card, widx, work, config="wiki100k")
+        emit(wcomp)
+        wserve_v3, scorer = phase_serve_v3(card, wv3, wraw, device="cuda",
+                                           config="wiki100k-v3")
+        emit(wserve_v3)
         del scorer
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -685,6 +893,10 @@ def main() -> int:
         kernel_row("dense_score", kern, serve["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
+        kernel_row("dequant_score", dequant,
+                   serve_v3["launches"]["dequant_score"],
+                   source="tpu_ir_torch/csrc/dequant_score.cu",
+                   replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42")]})

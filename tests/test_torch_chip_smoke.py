@@ -55,13 +55,15 @@ def test_build_and_serve_phases_on_cpu(tmp_path, monkeypatch):
     assert set(serve["oracle"]) == {"tfidf", "bm25"}
     assert serve["layout"] == "dense"
     # CPU: the plain twins, no launch
-    assert serve["launches"] == {"dense_score": 0, "cold_tier": 0}
+    assert serve["launches"] == {"dense_score": 0, "dequant_score": 0,
+                                 "cold_tier": 0}
     json.dumps(serve)
     check = chip_smoke.phase_sparse_check("cpu", idx, q_ids, dense,
                                           device="cpu")
     assert check["tfidf"]["rows_with_other_ids"] == 0
     assert check["bm25"]["max_rel_diff"] <= chip_smoke.ORACLE_RTOL
-    assert check["launches"] == {"dense_score": 0, "cold_tier": 0}
+    assert check["launches"] == {"dense_score": 0, "dequant_score": 0,
+                                 "cold_tier": 0}
     json.dumps(check)
 
 
@@ -81,13 +83,64 @@ def test_wiki100k_phases_on_cpu(tmp_path, monkeypatch):
     serve, scorer, _, _ = chip_smoke.phase_serve(
         "cpu", idx, device="cpu", config="wiki100k")
     assert serve["layout"] == "sparse" and scorer.layout == "sparse"
-    assert serve["launches"] == {"dense_score": 0, "cold_tier": 0}
+    assert serve["launches"] == {"dense_score": 0, "dequant_score": 0,
+                                 "cold_tier": 0}
     assert serve["recall_at_10"] == 1.0
     assert serve["oracle_max_rel_err"] <= chip_smoke.ORACLE_RTOL
     tiers = serve["tiers"]
     assert tiers["hot_rows"] > 1 and len(tiers["caps_rows"]) >= 3
     assert tiers["weighted_strip_cached"] == ["bm25", "tfidf"]
     json.dumps(serve)
+
+
+def test_compress_and_v3_serve_phases_on_cpu(tmp_path, monkeypatch):
+    """The compress phase and the v3 serve on both layouts: a bf16 raw-tf
+    matrix (ref-v3) and a bf16 hot strip (wiki100k-v3), each bitwise equal
+    to its raw index's serve."""
+    import torch
+
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    small = dict(n_docs=200, target_bytes=200_000, vocab_size=2_000)
+    monkeypatch.setattr(chip_smoke, "REF_CORPUS", small)
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", small)
+    monkeypatch.setattr(chip_smoke, "REF_QUERIES", 200)
+    monkeypatch.setattr(chip_smoke, "ORACLE_QUERIES", 16)
+    work = str(tmp_path)
+    _, idx = chip_smoke.phase_build("cpu", work, device="cpu")
+    _, _, _, raw = chip_smoke.phase_serve("cpu", idx, device="cpu")
+    comp, v3 = chip_smoke.phase_compress("cpu", idx, work, config="ref")
+    assert comp["tf_dtype"] == "int8" and not comp["tf_lossy"]
+    # (at this size the arenas' 4 KB section alignment outweighs the codec)
+    assert comp["migrated"] == 10
+    assert comp["part_bytes_before"] == chip_smoke.part_bytes(idx)
+    assert comp["part_bytes_after"] == chip_smoke.part_bytes(v3)
+    serve, scorer = chip_smoke.phase_serve_v3("cpu", v3, raw, device="cpu",
+                                              config="ref-v3")
+    assert serve["layout"] == "dense" and serve["tf_dtype"] == str(
+        torch.bfloat16)
+    assert serve["matrix_bytes"] == scorer._tf_matrix.numel() * 2
+    assert serve["bitwise_equal_to_raw"] == {"tfidf": True, "bm25": True}
+    assert serve["recall_at_10"] == 1.0
+    json.dumps(comp), json.dumps(serve)
+
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10_000)
+    _, widx = chip_smoke.phase_build("cpu", work, device="cpu",
+                                     config="wiki100k")
+    _, _, _, wraw = chip_smoke.phase_serve("cpu", widx, device="cpu",
+                                           config="wiki100k")
+    _, wv3 = chip_smoke.phase_compress("cpu", widx, work, config="wiki100k")
+    wserve, scorer = chip_smoke.phase_serve_v3(
+        "cpu", wv3, wraw, device="cpu", config="wiki100k-v3")
+    assert wserve["layout"] == "sparse"
+    assert scorer.hot_tfs.dtype == torch.bfloat16
+    assert wserve["tiers"]["strip_bytes"] == scorer.hot_tfs.numel() * 2
+    assert wserve["bitwise_equal_to_raw"] == {"tfidf": True, "bm25": True}
+    # a v3 serve that differs from the raw one fails the phase
+    wraw["bm25"][0][0, 0] += 1.0
+    with pytest.raises(AssertionError, match="differs from the raw"):
+        chip_smoke.phase_serve_v3("cpu", wv3, wraw, device="cpu",
+                                  config="wiki100k-v3")
 
 
 def test_serve_phase_refuses_the_wrong_layout(tmp_path, monkeypatch):

@@ -1,6 +1,6 @@
 """The port's CUDA paths on the card: the hand-written kernels against
 their plain twins (bitwise), and the device pipeline against its own CPU
-run, on the dense and the tiered layout.
+run, on the dense and the tiered layout, raw and compressed.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 JAX nor the JAX package, so they also run on a host without JAX; there,
@@ -18,6 +18,7 @@ import torch
 import tpu_ir_torch
 from tpu_ir_torch.corpus import make_corpus
 from tpu_ir_torch.index import build_index
+from tpu_ir_torch.index.migrate import migrate_index
 from tpu_ir_torch.ops import cold_tier, fused_scoring, postings, scoring
 from tpu_ir_torch.search import Scorer
 
@@ -54,6 +55,7 @@ def test_kernel_bitwise_equals_twin(cuda, shape):
     tpu_ir_torch.reset_kernel_launches()
     got = fused_scoring.dense_scores(q, idf, matrix)
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 1,
+                                              "dequant_score": 0,
                                               "cold_tier": 0}
     want = fused_scoring.dense_scores_plain(q, idf, matrix)
     torch.cuda.synchronize()
@@ -80,6 +82,89 @@ def test_empty_batch(cuda):
     q, idf, matrix = _inputs(5, 20, 30, 8, 2, cuda)
     out = fused_scoring.dense_scores(q[:0], idf, matrix)
     assert out.shape == (0, 30)
+
+
+def _tf_inputs(seed, vocab, width, batch, terms, dev):
+    """A bf16 raw-tf matrix (integer tfs 1..256, bf16-exact, in ~30% of the
+    cells) with the float32 (1 + ln tf) matrix torch computes from it, and
+    _inputs' queries and idf."""
+    gen = torch.Generator().manual_seed(seed + 1000)
+    tf = torch.randint(1, 257, (vocab, width), generator=gen)
+    tf[torch.rand((vocab, width), generator=gen) < 0.7] = 0
+    q, idf, _ = _inputs(seed, vocab, width, batch, terms, dev)
+    tf16 = tf.to(torch.bfloat16).to(dev)
+    return q, idf, tf16, scoring._lntf(tf16)
+
+
+@pytest.mark.parametrize("shape", [(50, 33, 17, 3), (300, 1025, 64, 2),
+                                   (40, 7, 70_000, 1), (9, 258, 5, 9),
+                                   (120, 8_763, 300, 3)])
+def test_dequant_kernel_bitwise_equals_twin_and_kernel1(cuda, shape):
+    vocab, width, batch, terms = shape
+    q, idf, tf16, matrix = _tf_inputs(sum(shape), vocab, width, batch,
+                                      terms, cuda)
+    tpu_ir_torch.reset_kernel_launches()
+    got = fused_scoring.dense_scores_quantized(q, idf, tf16)
+    assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
+                                              "dequant_score": 1,
+                                              "cold_tier": 0}
+    want = fused_scoring.dense_scores_quantized_plain(q, idf, tf16)
+    k1 = fused_scoring.dense_scores(q, idf, matrix)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, width) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), k1.view(torch.int32))
+    assert bool((got[0] == 0).all())
+
+
+def test_dequant_kernel_matches_cpu_twin(cuda):
+    q, idf, tf16, _ = _tf_inputs(3, 64, 130, 40, 3, torch.device("cpu"))
+    want = fused_scoring.dense_scores_quantized(q, idf, tf16)
+    got = fused_scoring.dense_scores_quantized(
+        q.to(cuda), idf.to(cuda), tf16.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_dequant_kernel_rejects_mixed_devices_and_empty_batch(cuda):
+    q, idf, tf16, matrix = _tf_inputs(4, 20, 30, 8, 2, cuda)
+    with pytest.raises(ValueError, match="must be on"):
+        fused_scoring.dense_scores_quantized(q.cpu(), idf, tf16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_scoring.dense_scores_quantized(q, idf, matrix)
+    tpu_ir_torch.reset_kernel_launches()
+    out = fused_scoring.dense_scores_quantized(q[:0], idf, tf16)
+    assert out.shape == (0, 30)
+    assert tpu_ir_torch.kernel_launches()["dequant_score"] == 0
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_compressed_scorer_on_cuda_equals_cpu(cuda, tmp_path, layout):
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=5, n_docs=300, target_bytes=300_000,
+                vocab_size=3_000)
+    raw, v3 = str(tmp_path / "raw"), str(tmp_path / "v3")
+    build_index(corpus, raw, num_shards=3, device=cuda)
+    build_index(corpus, v3, num_shards=3, device=cuda)
+    migrate_index(v3, to_version=3)
+    g = Scorer.load(v3, layout=layout)
+    c = Scorer.load(v3, layout=layout, device="cpu")
+    r = Scorer.load(raw, layout=layout)
+    assert g.tf_dtype == torch.bfloat16
+    q = np.random.default_rng(6).integers(
+        0, c.meta.vocab_size, (500, 3)).astype(np.int32)
+    for scoring_name in ("tfidf", "bm25"):
+        tpu_ir_torch.reset_kernel_launches()
+        gs, gd = g.topk(q, scoring=scoring_name)
+        launches = tpu_ir_torch.kernel_launches()
+        if layout == "dense" and scoring_name == "tfidf":
+            assert launches["dequant_score"] == 1
+            assert launches["dense_score"] == 0
+        cs, cd = c.topk(q, scoring=scoring_name)
+        np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
+        assert (gd == cd).mean() > 0.99
+        # on the card, too, compressed == raw bitwise
+        rs, rd = r.topk(q, scoring=scoring_name)
+        assert np.array_equal(gd, rd) and gs.tobytes() == rs.tobytes()
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,6 +1,10 @@
-"""The fused dense-score kernel's plain twin (what the wrapper runs on a
-CPU tensor) against the JAX package's Pallas kernel, run here in
-interpret mode, and against its XLA dense path.
+"""The fused dense-score kernels' plain twins (what the wrappers run on a
+CPU tensor) against the JAX package's Pallas kernels, run here in
+interpret mode, and against its XLA dense path: `dense_scores` over the
+float32 (1 + ln tf) matrix against `pallas_tfidf_scores`, and
+`dense_scores_quantized` over a bf16 raw-tf matrix against
+`pallas_tfidf_scores_quantized`. The quantized twin is also held bitwise
+against the float32 one on the same tfs.
 
 Tolerance: rtol 1e-5, atol 1e-6. XLA and torch may sum in another order
 and round log10 and ln differently in the last place; the kernel itself is
@@ -31,17 +35,24 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 # this suite's conftest keeps only JAX's CPU backend, and without the TPU
 # platform registered the Pallas import itself fails here (the reason
 # tests/test_pallas.py skips in this suite).
+# Both kernels run in one child: "s<seed>" are pallas_tfidf_scores's
+# scores, "u<seed>" pallas_tfidf_scores_quantized's over the bf16 raw tfs.
 _PALLAS_CHILD = """
 import sys
 import jax.numpy as jnp, numpy as np
-from tpu_ir.ops.pallas_scoring import pallas_tfidf_scores
+from tpu_ir.ops.pallas_scoring import (pallas_tfidf_scores,
+                                       pallas_tfidf_scores_quantized)
 z = np.load(sys.argv[1])
+df, n = jnp.asarray(z["df"]), jnp.int32(int(z["n"]))
+tf16 = jnp.asarray(z["tf"]).astype(jnp.bfloat16)
 out = {}
 for key in z.files:
     if key.startswith("q"):
+        q = jnp.asarray(z[key])
         out["s" + key[1:]] = np.asarray(pallas_tfidf_scores(
-            jnp.asarray(z[key]), jnp.asarray(z["matrix"]),
-            jnp.asarray(z["df"]), jnp.int32(int(z["n"])), interpret=True))
+            q, jnp.asarray(z["matrix"]), df, n, interpret=True))
+        out["u" + key[1:]] = np.asarray(pallas_tfidf_scores_quantized(
+            q, tf16, df, n, interpret=True))
 np.savez(sys.argv[2], **out)
 """
 
@@ -90,19 +101,38 @@ def test_dense_matrices_match(index_data):
 
 
 @pytest.fixture(scope="module")
-def pallas_scores(index_data, tmp_path_factory):
-    """{seed: Pallas kernel scores} from one interpreted child run."""
+def tf_matrices(index_data):
+    """The raw-tf matrices: the JAX package's float32 one, and the port's
+    bf16 one (the dense layout of a compressed index)."""
+    cols, _, _, _ = index_data
+    jtf = jscoring.dense_tf_matrix(*(jnp.asarray(c) for c in cols),
+                                   vocab_size=VOCAB, num_docs=NDOCS)
+    ttf = scoring.dense_tf_matrix(*(torch.from_numpy(c) for c in cols),
+                                  vocab_size=VOCAB, num_docs=NDOCS,
+                                  dtype=torch.bfloat16)
+    return np.asarray(jtf), ttf
+
+
+@pytest.fixture(scope="module")
+def pallas_outputs(index_data, tf_matrices, tmp_path_factory):
+    """Both Pallas kernels' scores from one interpreted child run."""
     _, df, jmat, _ = index_data
     d = tmp_path_factory.mktemp("pallas")
-    np.savez(d / "in.npz", matrix=np.asarray(jmat), df=df, n=NDOCS,
-             **{f"q{s}": _queries(s) for s in PALLAS_SEEDS})
+    np.savez(d / "in.npz", matrix=np.asarray(jmat), tf=tf_matrices[0],
+             df=df, n=NDOCS, **{f"q{s}": _queries(s) for s in PALLAS_SEEDS})
     r = subprocess.run([sys.executable, "-c", _PALLAS_CHILD,
                         str(d / "in.npz"), str(d / "out.npz")],
                        cwd=ROOT, capture_output=True, text=True,
                        timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     with np.load(d / "out.npz") as z:
-        return {s: z[f"s{s}"] for s in PALLAS_SEEDS}
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def pallas_scores(pallas_outputs):
+    """{seed: pallas_tfidf_scores scores}."""
+    return {s: pallas_outputs[f"s{s}"] for s in PALLAS_SEEDS}
 
 
 @pytest.mark.parametrize("seed", PALLAS_SEEDS)
@@ -113,6 +143,47 @@ def test_twin_matches_pallas_interpret(index_data, pallas_scores, seed):
     np.testing.assert_allclose(got.numpy(), pallas_scores[seed], rtol=RTOL,
                                atol=ATOL)
     assert (got[7] == 0).all()
+
+
+def test_bf16_tf_matrix_matches_jax(tf_matrices):
+    jtf, ttf = tf_matrices
+    assert ttf.dtype == torch.bfloat16 and ttf.is_contiguous()
+    want = jnp.asarray(jtf).astype(jnp.bfloat16).astype(jnp.float32)
+    assert np.array_equal(ttf.float().numpy(), np.asarray(want))
+    assert np.array_equal(ttf.float().numpy(), jtf)     # tfs are bf16-exact
+
+
+@pytest.mark.parametrize("seed", PALLAS_SEEDS)
+def test_quantized_twin_matches_pallas_interpret(index_data, tf_matrices,
+                                                 pallas_outputs, seed):
+    _, df, _, _ = index_data
+    got = fused_scoring.tfidf_scores_quantized(
+        torch.from_numpy(_queries(seed)), tf_matrices[1],
+        torch.from_numpy(df), NDOCS)
+    assert got.dtype == torch.float32 and got.shape == (16, NDOCS + 1)
+    np.testing.assert_allclose(got.numpy(), pallas_outputs[f"u{seed}"],
+                               rtol=RTOL, atol=ATOL)
+    assert (got[7] == 0).all()
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("seed", [6, 14])
+def test_quantized_twin_equals_float32_twin_bitwise(index_data, tf_matrices,
+                                                    seed, compat):
+    """On bf16-exact tfs the quantized twin gives the float32 twin's bits
+    (the compressed == raw contract of the dense layout)."""
+    _, df, _, tmat = index_data
+    q = torch.from_numpy(_queries(seed, b=32, l=4))
+    idf = scoring.idf_weights(torch.from_numpy(df), NDOCS, compat)
+    got = fused_scoring.dense_scores_quantized(q, idf, tf_matrices[1])
+    want = fused_scoring.dense_scores(q, idf, tmat)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    gs, gd = scoring.tfidf_topk_dense_quantized(
+        q, tf_matrices[1], torch.from_numpy(df), NDOCS, k=10,
+        compat_int_idf=compat)
+    ws, wd = scoring.tfidf_topk_dense(q, tmat, torch.from_numpy(df), NDOCS,
+                                      k=10, compat_int_idf=compat)
+    assert torch.equal(gd, wd) and torch.equal(gs, ws)
 
 
 @pytest.mark.parametrize("compat", [False, True])
@@ -185,7 +256,12 @@ def test_cpu_wrapper_runs_the_twin_without_counting(index_data):
     got = fused_scoring.dense_scores(q, idf, tmat)
     want = fused_scoring.dense_scores_plain(q, idf, tmat)
     assert torch.equal(got, want)
+    tf16 = tmat.to(torch.bfloat16)
+    assert torch.equal(fused_scoring.dense_scores_quantized(q, idf, tf16),
+                       fused_scoring.dense_scores_quantized_plain(q, idf,
+                                                                  tf16))
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
+                                              "dequant_score": 0,
                                               "cold_tier": 0}
     safe_q, q_w = fused_scoring.query_weights(q, idf)
     assert int(safe_q.min()) >= 0 and int(safe_q.max()) < VOCAB
@@ -206,6 +282,25 @@ def test_wrapper_rejects_bad_inputs(index_data, bad):
             "matrix_rank": (q, idf, tmat.reshape(-1))}[bad]
     with pytest.raises(ValueError):
         fused_scoring.dense_scores(*args)
+
+
+@pytest.mark.parametrize("bad", ["float32_matrix", "dtype_ids", "dtype_w",
+                                 "shape", "contiguous", "matrix_rank"])
+def test_quantized_wrapper_rejects_bad_inputs(index_data, tf_matrices, bad):
+    _, df, _, tmat = index_data
+    ttf = tf_matrices[1]
+    q = torch.from_numpy(_queries(13))
+    idf = scoring.idf_weights(torch.from_numpy(df), NDOCS)
+    args = {"float32_matrix": (q, idf, tmat),
+            "dtype_ids": (q.float(), idf, ttf),
+            "dtype_w": (q, idf.double(), ttf),
+            "shape": (q, idf[:-1], ttf),
+            "contiguous": (q, idf, ttf.t().contiguous().t()),
+            "matrix_rank": (q, idf, ttf.reshape(-1))}[bad]
+    with pytest.raises(ValueError, match="dense_scores_quantized"):
+        fused_scoring.dense_scores_quantized(*args)
+    with pytest.raises(ValueError):
+        fused_scoring.dense_scores_quantized_plain(*args)
 
 
 def test_cuda_default_raises_without_cuda(tmp_path):

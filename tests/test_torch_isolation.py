@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no file of it (nor chip_smoke.py) imports either — the card's
-host has no JAX."""
+package (nor ml_dtypes), and no file of it (nor chip_smoke.py) imports
+any of them — the card's host has none."""
 
 import os
 import re
@@ -13,7 +13,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 PKG = os.path.join(ROOT, "tpu_ir_torch")
 
 _IMPORT_RE = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|tpu_ir|bench)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|tpu_ir|bench|ml_dtypes)"
+    r"(?:\.|\s|$)", re.M)
 
 
 def _port_files():
@@ -28,9 +29,10 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.index.builder, tpu_ir_torch.cli, "
             "tpu_ir_torch.convert, tpu_ir_torch.corpus, "
             "tpu_ir_torch.ops._build, tpu_ir_torch.ops.cold_tier, "
-            "tpu_ir_torch.search.layout, chip_smoke\n"
+            "tpu_ir_torch.search.layout, tpu_ir_torch.index.compress, "
+            "tpu_ir_torch.index.migrate, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'tpu_ir', 'bench'))\n"
+            "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
             "assert not bad, bad\n"
             "print('clean')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -49,7 +51,8 @@ def test_no_jax_or_tpu_ir_import_in_source(path):
 def test_kernel_sources_are_listed():
     from tpu_ir_torch.ops import _build
 
-    assert _build.kernel_sources() == ["cold_tier", "dense_score"]
+    assert _build.kernel_sources() == ["cold_tier", "dense_score",
+                                       "dequant_score"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tpu_ir_torch")
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored

@@ -120,6 +120,7 @@ def test_topk_id_batch_matches_jax(scorers, scoring):
     ws, wd = js.topk(q, k=10, scoring=scoring)
     gs, gd = ts.topk(q, k=10, scoring=scoring)
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
+                                              "dequant_score": 0,
                                               "cold_tier": 0}
     assert gs.shape == (len(q), 10) and gd.dtype == np.int32
     assert (gd[6] == 0).all()

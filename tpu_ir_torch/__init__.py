@@ -38,6 +38,7 @@ def kernel_launches() -> dict[str, int]:
     from .ops import cold_tier, fused_scoring
 
     return {"dense_score": fused_scoring.dense_score_launches(),
+            "dequant_score": fused_scoring.dequant_score_launches(),
             "cold_tier": cold_tier.cold_tier_launches()}
 
 
@@ -45,4 +46,5 @@ def reset_kernel_launches() -> None:
     from .ops import cold_tier, fused_scoring
 
     fused_scoring.reset_dense_score_launches()
+    fused_scoring.reset_dequant_score_launches()
     cold_tier.reset_cold_tier_launches()

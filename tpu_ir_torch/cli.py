@@ -1,10 +1,14 @@
-"""Command line of the port: `index` and `search`, with tpu_ir's flag names.
+"""Command line of the port: `index`, `search` and `migrate-index`, with
+tpu_ir's flag names.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--device cuda|cpu]
     python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
         [--layout auto|dense|sparse|sharded]
+    python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
+        [--tf-dtype auto|int8|bf16]
 
-Both run on CUDA unless `--device cpu` is given.
+`index` and `search` run on CUDA unless `--device cpu` is given;
+`migrate-index` runs on the host and prints its JSON summary last.
 """
 
 from __future__ import annotations
@@ -48,6 +52,19 @@ def cmd_search(args) -> int:
     return 0
 
 
+def cmd_migrate_index(args) -> int:
+    from .index.migrate import migrate_index
+
+    if args.compress and args.decompress:
+        print(json.dumps({"error": "--compress and --decompress are "
+                                   "mutually exclusive"}))
+        return 2
+    to = 3 if args.compress else 2
+    print(json.dumps(migrate_index(args.index_dir, to_version=to,
+                                   tf_dtype=args.tf_dtype)))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tpu-ir-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -75,6 +92,22 @@ def main(argv: list[str] | None = None) -> int:
                          "layout above it; 'sharded' is a later slice")
     ps.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ps.set_defaults(fn=cmd_search)
+
+    pm = sub.add_parser(
+        "migrate-index",
+        help="convert part shards between raw (v2) and compressed (v3) "
+             "arenas in place (atomic per shard, checksums re-recorded)")
+    pm.add_argument("index_dir")
+    pm.add_argument("--compress", action="store_true",
+                    help="rewrite the parts as compressed arenas (v3)")
+    pm.add_argument("--decompress", action="store_true",
+                    help="walk a compressed index back to raw arenas (v2; "
+                         "byte-identical when the tf mode was lossless)")
+    pm.add_argument("--tf-dtype", choices=["auto", "int8", "bf16"],
+                    default="auto",
+                    help="tf encoding for --compress: auto = int8 when "
+                         "lossless in every shard, else bf16")
+    pm.set_defaults(fn=cmd_migrate_index)
 
     args = p.parse_args(argv)
     return args.fn(args)

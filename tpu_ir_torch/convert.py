@@ -4,8 +4,10 @@
 numpy arrays and plain values, and builds the port's Scorer from it, so
 the two packages can score identical state; `tiered_scorer_from_numpy`
 does the same for the tiered sparse layout, from the fields of a
-`tpu_ir.search.layout.TieredPostings`. Nothing here imports the JAX
-package: the caller hands the arrays over.
+`tpu_ir.search.layout.TieredPostings`. A compressed index's state (its
+metadata with format_version 3, its postings decoded to numpy) builds the
+same bf16 layouts that `Scorer.load` builds from the compressed dir.
+Nothing here imports the JAX package: the caller hands the arrays over.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ def scorer_from_numpy(vocab_terms: Sequence[str], docids: Sequence[str],
                       device: str | torch.device | None = None) -> Scorer:
     """A dense-layout Scorer on `device` from host state: the sorted
     vocabulary and docids, df [V], doc_len [D+1], the postings columns in
-    global CSR order, and the index metadata as a dict."""
+    global CSR order, and the index metadata as a dict (format_version 3
+    selects the bf16 raw-tf matrix of a compressed index)."""
     return Scorer(vocab=Vocab(list(vocab_terms)),
                   mapping=DocnoMapping(list(docids)),
                   pair_term=np.asarray(pair_term, np.int32),
@@ -49,7 +52,8 @@ def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
     """A tiered-layout Scorer on `device` from host state: the sorted
     vocabulary and docids, df [V], doc_len [D+1], the layout's fields as
     a mapping (a JAX `TieredPostings._asdict()`; its block-max fields are
-    not read) and the index metadata as a dict."""
+    not read) and the index metadata as a dict (format_version 3 selects
+    the bf16 hot strip of a compressed index)."""
     layout = TieredPostings(**{f: tiers[f] for f in TieredPostings._fields
                                if f not in ("hot_blk_max",
                                             "blockmax_width")})

@@ -1,6 +1,6 @@
-"""On-disk index format: the subset the dense path writes and reads.
+"""On-disk index format: the subset the port writes and reads.
 
-A copy of the parts of `tpu_ir/index/format.py` this slice needs, byte
+A copy of the parts of `tpu_ir/index/format.py` the port needs, byte
 compatible with it:
 
     index_dir/
@@ -8,12 +8,13 @@ compatible with it:
       docnos.txt        docid list, sorted; docno = 1-based position
       vocab.txt         term list, sorted; term id = 0-based position
       doclen.npy        int32 [N+1] total occurrences per docno (BM25)
-      part-00000.arena  per term-shard CSR postings (format v2 arenas)
+      part-00000.arena  per term-shard CSR postings (format v2 arenas), or
+      part-00000.carena the same shard compressed (format v3, compress.py)
       dictionary.tsv    term -> (shard, offset) forward index
 
-Term shard assignment is term_id % num_shards. Only format v2 (raw
-page-aligned arenas) is read and written here. v1 npz parts, v3
-compressed arenas (.carena) and the block-max bounds artifact belong to
+Term shard assignment is term_id % num_shards. Formats v2 (raw
+page-aligned arenas) and v3 (compressed arenas, decoded on load) are read
+and written here. v1 npz parts and the block-max bounds artifact belong to
 later slices of the port and raise ValueError.
 """
 
@@ -27,6 +28,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from . import compress
+
 FORMAT_VERSION = 1
 ARENA_FORMAT_VERSION = 2
 COMPRESSED_FORMAT_VERSION = 3
@@ -35,9 +38,11 @@ DOCNOS = "docnos.txt"
 VOCAB = "vocab.txt"
 DOCLEN = "doclen.npy"
 DICTIONARY = "dictionary.tsv"
+ARENA_SUFFIX = ".arena"
+COMPRESSED_SUFFIX = ".carena"
 
 _LATER = ("is not supported by tpu_ir_torch yet (a later slice of the "
-          "port); only format v2 raw arenas are")
+          "port); only format v2 raw and v3 compressed arenas are")
 
 
 class IntegrityError(RuntimeError):
@@ -50,15 +55,35 @@ class IntegrityError(RuntimeError):
 
 
 def require_arena_format(format_version: int) -> None:
-    """Raise ValueError unless the index is format v2 (raw arenas)."""
-    if format_version != ARENA_FORMAT_VERSION:
+    """Raise ValueError unless the index is format v2 (raw arenas) or v3
+    (compressed arenas)."""
+    if format_version not in (ARENA_FORMAT_VERSION,
+                              COMPRESSED_FORMAT_VERSION):
         kind = ("v1 npz parts" if format_version < ARENA_FORMAT_VERSION
-                else "v3 compressed arenas (.carena)")
+                else "an unknown format")
         raise ValueError(f"index format {format_version} ({kind}) {_LATER}")
 
 
-def part_name(shard: int) -> str:
-    return f"part-{shard:05d}.arena"
+def part_name(shard: int, format_version: int = ARENA_FORMAT_VERSION) -> str:
+    """A shard's part file name; the extension carries the format (npz
+    v1, arena v2, compressed arena v3)."""
+    if format_version >= COMPRESSED_FORMAT_VERSION:
+        return f"part-{shard:05d}{COMPRESSED_SUFFIX}"
+    if format_version >= ARENA_FORMAT_VERSION:
+        return f"part-{shard:05d}{ARENA_SUFFIX}"
+    return f"part-{shard:05d}.npz"
+
+
+def part_path(index_dir: str, shard: int) -> str:
+    """The shard's part file, whichever format is present, newest first
+    (a mid-migration dir holds two copies and the newer ones are the
+    complete set); the v2 name when none exists."""
+    for fv in (COMPRESSED_FORMAT_VERSION, ARENA_FORMAT_VERSION,
+               FORMAT_VERSION):
+        p = os.path.join(index_dir, part_name(shard, fv))
+        if os.path.exists(p):
+            return p
+    return os.path.join(index_dir, part_name(shard))
 
 
 @dataclass
@@ -75,6 +100,10 @@ class IndexMetadata:
     format_version: int = FORMAT_VERSION
     tf_dtype: str = "int32"
     tf_lossy: bool = False
+
+    @property
+    def compressed(self) -> bool:
+        return self.format_version >= COMPRESSED_FORMAT_VERSION
 
     def save(self, index_dir: str) -> None:
         with open(os.path.join(index_dir, METADATA), "w") as f:
@@ -271,17 +300,36 @@ def verify_checksums(index_dir: str, meta: IndexMetadata,
 def save_shard(index_dir: str, shard: int, *, term_ids: np.ndarray,
                indptr: np.ndarray, pair_doc: np.ndarray,
                pair_tf: np.ndarray, df: np.ndarray,
-               format_version: int = ARENA_FORMAT_VERSION) -> str:
-    """Write one v2 part file; returns its CRC."""
+               format_version: int = ARENA_FORMAT_VERSION,
+               num_docs: int | None = None,
+               tf_dtype: str = "auto") -> str:
+    """Write one part file (v2, or v3 encoded by compress.encode_shard)
+    and unlink the same shard's part of any other format. Returns the
+    new file's CRC. num_docs sizes v3's block-index column; without it
+    the shard's own max doc is used."""
     require_arena_format(format_version)
-    return write_arena_atomic(
-        os.path.join(index_dir, part_name(shard)),
+    arrays = dict(
         term_ids=term_ids.astype(np.int32),
         indptr=indptr.astype(np.int64),
         pair_doc=pair_doc.astype(np.int32),
         pair_tf=pair_tf.astype(np.int32),
         df=df.astype(np.int32),
     )
+    if format_version == COMPRESSED_FORMAT_VERSION:
+        if num_docs is None:
+            num_docs = int(arrays["pair_doc"].max()) + 1 \
+                if len(arrays["pair_doc"]) else 1
+        arrays = compress.encode_shard(arrays, num_docs=num_docs,
+                                       tf_dtype=tf_dtype)
+    crc = write_arena_atomic(
+        os.path.join(index_dir, part_name(shard, format_version)), **arrays)
+    # a stale part of another format would be read and checksummed too
+    for other in (FORMAT_VERSION, ARENA_FORMAT_VERSION,
+                  COMPRESSED_FORMAT_VERSION):
+        stale = os.path.join(index_dir, part_name(shard, other))
+        if other != format_version and os.path.exists(stale):
+            os.unlink(stale)
+    return crc
 
 
 def write_pair_shards(index_dir: str, df: np.ndarray, pair_doc: np.ndarray,
@@ -302,18 +350,49 @@ def write_pair_shards(index_dir: str, df: np.ndarray, pair_doc: np.ndarray,
     return shard_of, offset_of
 
 
+def _shard_arrays(buf, path: str, *, verify: bool,
+                  decode: bool) -> dict[str, np.ndarray]:
+    """The arrays of an in-memory part: a v2 arena's sections, or a v3
+    arena's decoded into the same five arrays (unless decode=False)."""
+    if not path.endswith((ARENA_SUFFIX, COMPRESSED_SUFFIX)):
+        raise ValueError(f"{path}: v1 npz parts {_LATER}")
+    header, data_start = read_arena_header(buf)
+    z = _arena_views(buf, header, data_start, path, verify=verify)
+    if decode and compress.is_compressed(z):
+        return compress.decode_shard(z)
+    return z
+
+
+def load_shard(index_dir: str, shard: int, *,
+               decode: bool = True) -> dict[str, np.ndarray]:
+    """Map one part, whichever format is on disk, without verifying it;
+    decode=False returns a compressed part's sections as they are."""
+    path = part_path(index_dir, shard)
+    return _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
+                         verify=False, decode=decode)
+
+
 def load_shard_verified(index_dir: str, shard: int,
                         meta: IndexMetadata) -> dict[str, np.ndarray]:
     """Verify-while-read shard load: one streamed pass folds the file's
     CRC32 and compares it with the metadata digest, then the arrays are
-    viewed from the in-memory buffer. Raises IntegrityError on a
-    mismatch or a missing part."""
+    viewed from the in-memory buffer (a compressed part's decoded).
+    Raises IntegrityError on a mismatch or a missing part.
+
+    In a mid-migration dir the part metadata names may be gone, already
+    rewritten in the other format; that twin is read instead, with its
+    recorded digest if metadata has one, else its section CRCs."""
     require_arena_format(meta.format_version)
-    name = part_name(shard)
+    name = part_name(shard, meta.format_version)
     path = os.path.join(index_dir, name)
     want = meta.checksums.get(name) if meta.checksums else None
     if not os.path.exists(path):
-        raise IntegrityError(path, "part file missing")
+        other = part_path(index_dir, shard)
+        if not os.path.exists(other):
+            raise IntegrityError(path, "part file missing")
+        path = other
+        want = (meta.checksums.get(os.path.basename(path))
+                if meta.checksums else None)
     buf, crc = _read_file_verified(path)
     got = f"crc32:{crc:08x}"
     if want is not None and got != want:
@@ -321,10 +400,9 @@ def load_shard_verified(index_dir: str, shard: int,
             path, f"checksum mismatch (recorded {want}, found {got}); "
             "the artifact is corrupt — rebuild the index (or restore "
             "from a good copy)")
-    header, data_start = read_arena_header(buf)
     # the whole-file digest matched, so section CRCs only need checking
     # when metadata recorded nothing to pin the bytes
-    return _arena_views(buf, header, data_start, path, verify=want is None)
+    return _shard_arrays(buf, path, verify=want is None, decode=True)
 
 
 def shard_local_offsets(df: np.ndarray, num_shards: int

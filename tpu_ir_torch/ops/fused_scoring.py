@@ -1,17 +1,27 @@
-"""Fused dense TF-IDF scoring: the hand-written CUDA kernel and its plain twin.
+"""Fused dense TF-IDF scoring: the hand-written CUDA kernels and their
+plain twins.
 
-This module takes the place of `tpu_ir/ops/pallas_scoring.py`. Its kernel,
-`csrc/dense_score.cu`, ports the Pallas kernel `pallas_tfidf_scores`
-(pallas_scoring.py:52): it streams one doc-matrix row per (query, term)
-into a per-query score row, with no [B, L, D+1] intermediate. The TPU
-package retired that kernel from serving in favour of XLA; here it is the
-dense TF-IDF path of `Scorer.topk`.
+This module takes the place of `tpu_ir/ops/pallas_scoring.py` and holds
+the counterparts of its two Pallas kernels:
 
-`dense_scores` is the wrapper. On a CUDA tensor it launches the kernel (or
-raises); on a CPU tensor it runs `dense_scores_plain`, the same arithmetic
-in the same term order, which the CPU tests hold against the JAX package.
-The two are bitwise equal on the card: each term is one rounded multiply
-and one rounded add, in l order, in both.
+- `csrc/dense_score.cu` ports `pallas_tfidf_scores` (pallas_scoring.py:52):
+  it streams one row of the float32 (1 + ln tf) doc matrix per (query,
+  term) into a per-query score row, with no [B, L, D+1] intermediate.
+- `csrc/dequant_score.cu` ports `pallas_tfidf_scores_quantized`
+  (pallas_scoring.py:129): the same schedule over a bf16 raw-tf matrix
+  (a compressed index's dense layout), widening each cell and applying
+  1 + ln tf in the kernel, so no float32 matrix exists in device memory.
+
+The TPU package retired the first from serving in favour of XLA and never
+served the second; here they are the dense TF-IDF paths of `Scorer.topk`
+for a float32 and a bf16 index.
+
+`dense_scores` and `dense_scores_quantized` are the wrappers. On a CUDA
+tensor each launches its kernel (or raises); on a CPU tensor it runs its
+plain twin, the same arithmetic in the same term order, which the CPU
+tests hold against the JAX package. Kernel and twin are bitwise equal on
+the card: each term is one rounded multiply and one rounded add, in l
+order, in both. On bf16-exact tfs the two kernels give the same bits.
 """
 
 from __future__ import annotations
@@ -20,9 +30,10 @@ import ctypes
 
 import torch
 
-from .scoring import idf_weights
+from .scoring import _lntf, idf_weights
 
 _launches = 0
+_dequant_launches = 0
 
 
 def dense_score_launches() -> int:
@@ -32,6 +43,15 @@ def dense_score_launches() -> int:
 def reset_dense_score_launches() -> None:
     global _launches
     _launches = 0
+
+
+def dequant_score_launches() -> int:
+    return _dequant_launches
+
+
+def reset_dequant_score_launches() -> None:
+    global _dequant_launches
+    _dequant_launches = 0
 
 
 def query_weights(q_terms: torch.Tensor, idf: torch.Tensor
@@ -62,25 +82,67 @@ def dense_scores_plain(q_terms: torch.Tensor, idf: torch.Tensor,
     return acc
 
 
-def _check(q_terms: torch.Tensor, idf: torch.Tensor,
-           doc_matrix: torch.Tensor) -> None:
-    dev = doc_matrix.device
+def dense_scores_quantized_plain(q_terms: torch.Tensor, idf: torch.Tensor,
+                                 tf_matrix: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the quantized kernel: [B, D+1] float32
+    scores from a bf16 raw-tf matrix, each gathered row widened and
+    weighted (1 + ln tf) before its term's multiply and add."""
+    _check(q_terms, idf, tf_matrix, torch.bfloat16)
+    safe_q, q_w = query_weights(q_terms, idf)
+    b, num_terms = safe_q.shape
+    acc = torch.zeros((b, tf_matrix.shape[1]), dtype=torch.float32,
+                      device=tf_matrix.device)
+    for l in range(num_terms):
+        rows = tf_matrix.index_select(0, safe_q[:, l].long())
+        acc = acc + _lntf(rows) * q_w[:, l, None]
+    return acc
+
+
+def _check(q_terms: torch.Tensor, idf: torch.Tensor, matrix: torch.Tensor,
+           matrix_dtype: torch.dtype = torch.float32) -> None:
+    name = ("dense_scores" if matrix_dtype == torch.float32
+            else "dense_scores_quantized")
+    dev = matrix.device
     if q_terms.device != dev or idf.device != dev:
-        raise ValueError("dense_scores: every tensor must be on "
+        raise ValueError(f"{name}: every tensor must be on "
                          f"{dev} (got {q_terms.device}, {idf.device})")
     if q_terms.dtype not in (torch.int32, torch.int64) \
-            or idf.dtype != torch.float32 \
-            or doc_matrix.dtype != torch.float32:
-        raise ValueError("dense_scores: expected integer ids, float32 idf "
-                         f"and matrix (got {q_terms.dtype}, {idf.dtype}, "
-                         f"{doc_matrix.dtype})")
-    if q_terms.dim() != 2 or doc_matrix.dim() != 2 \
-            or idf.shape != doc_matrix.shape[:1]:
-        raise ValueError("dense_scores: expected ids [B, L], idf [V] and a "
+            or idf.dtype != torch.float32 or matrix.dtype != matrix_dtype:
+        raise ValueError(f"{name}: expected integer ids, float32 idf and a "
+                         f"{matrix_dtype} matrix (got {q_terms.dtype}, "
+                         f"{idf.dtype}, {matrix.dtype})")
+    if q_terms.dim() != 2 or matrix.dim() != 2 \
+            or idf.shape != matrix.shape[:1]:
+        raise ValueError(f"{name}: expected ids [B, L], idf [V] and a "
                          f"[V, D+1] matrix (got {tuple(q_terms.shape)}, "
-                         f"{tuple(idf.shape)}, {tuple(doc_matrix.shape)})")
-    if not doc_matrix.is_contiguous():
-        raise ValueError("dense_scores: the matrix must be contiguous")
+                         f"{tuple(idf.shape)}, {tuple(matrix.shape)})")
+    if not matrix.is_contiguous():
+        raise ValueError(f"{name}: the matrix must be contiguous")
+
+
+def _launch(symbol: str, q_terms: torch.Tensor, idf: torch.Tensor,
+            matrix: torch.Tensor) -> torch.Tensor:
+    """Clamp the ids, allocate the scores and launch csrc/<symbol>.cu's
+    kernel on the current stream; both kernels take the same arguments."""
+    from . import _build
+
+    fn = _build.entry(symbol, f"tpu_ir_{symbol}",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+                      + [ctypes.c_void_p])
+    safe_q, q_w = query_weights(q_terms, idf)
+    b, num_terms = safe_q.shape
+    width = matrix.shape[1]
+    out = torch.empty((b, width), dtype=torch.float32, device=matrix.device)
+    if out.numel() == 0:
+        return out                                   # nothing to launch
+    with torch.cuda.device(matrix.device):
+        stream = torch.cuda.current_stream(matrix.device).cuda_stream
+        err = fn(safe_q.data_ptr(), q_w.data_ptr(), matrix.data_ptr(),
+                 out.data_ptr(), b, num_terms, width, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
 
 
 def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
@@ -100,26 +162,31 @@ def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
     if doc_matrix.device.type != "cuda":
         raise ValueError(f"dense_scores: unsupported device "
                          f"{doc_matrix.device}")
-    from . import _build
+    out = _launch("dense_score", q_terms, idf, doc_matrix)
+    if out.numel():
+        _launches += 1
+    return out
 
-    fn = _build.entry("dense_score", "tpu_ir_dense_score",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
-                      + [ctypes.c_void_p])
-    safe_q, q_w = query_weights(q_terms, idf)
-    b, num_terms = safe_q.shape
-    width = doc_matrix.shape[1]
-    out = torch.empty((b, width), dtype=torch.float32,
-                      device=doc_matrix.device)
-    if out.numel() == 0:
-        return out                                   # nothing to launch
-    with torch.cuda.device(doc_matrix.device):
-        stream = torch.cuda.current_stream(doc_matrix.device).cuda_stream
-        err = fn(safe_q.data_ptr(), q_w.data_ptr(), doc_matrix.data_ptr(),
-                 out.data_ptr(), b, num_terms, width, stream)
-    if err != 0:
-        raise RuntimeError(f"dense_score kernel launch failed: CUDA error "
-                           f"{err}")
-    _launches += 1
+
+def dense_scores_quantized(q_terms: torch.Tensor, idf: torch.Tensor,
+                           tf_matrix: torch.Tensor) -> torch.Tensor:
+    """dense_scores over a bf16 raw-tf matrix: scores[b, d] = sum_l
+    idf[q[b, l]] * w(tf[q[b, l], d]) with w(tf) = 1 + ln tf for tf > 0,
+    else 0; pads and out-of-vocabulary ids weigh 0.
+
+    q_terms int32/int64 [B, L]; idf float32 [V]; tf_matrix bfloat16
+    [V, D+1]. A CUDA input launches csrc/dequant_score.cu on the current
+    stream; a CPU input runs the plain twin."""
+    global _dequant_launches
+    _check(q_terms, idf, tf_matrix, torch.bfloat16)
+    if tf_matrix.device.type == "cpu":
+        return dense_scores_quantized_plain(q_terms, idf, tf_matrix)
+    if tf_matrix.device.type != "cuda":
+        raise ValueError(f"dense_scores_quantized: unsupported device "
+                         f"{tf_matrix.device}")
+    out = _launch("dequant_score", q_terms, idf, tf_matrix)
+    if out.numel():
+        _dequant_launches += 1
     return out
 
 
@@ -131,3 +198,12 @@ def tfidf_scores(q_terms: torch.Tensor, doc_matrix: torch.Tensor,
     `_tfidf_dense_scores`, through the fused kernel."""
     return dense_scores(q_terms, idf_weights(df, num_docs, compat_int_idf),
                         doc_matrix)
+
+
+def tfidf_scores_quantized(q_terms: torch.Tensor, tf_matrix: torch.Tensor,
+                           df: torch.Tensor, num_docs: int, *,
+                           compat_int_idf: bool = False) -> torch.Tensor:
+    """[B, D+1] TF-IDF scores over a bf16 raw-tf matrix: the counterpart
+    of `pallas_tfidf_scores_quantized`, through the quantized kernel."""
+    return dense_scores_quantized(
+        q_terms, idf_weights(df, num_docs, compat_int_idf), tf_matrix)

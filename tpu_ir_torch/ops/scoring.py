@@ -6,9 +6,11 @@ exact (unpruned) tiered layout: score(d) = sum over query terms of
 to the top k. Everything runs in float32.
 
 - dense: a [V, D+1] term-by-doc matrix holds the weights; column 0
-  (docno 0) is dead padding. Dense TF-IDF goes through the fused CUDA
-  kernel (ops/fused_scoring.py); dense BM25 stays plain torch, as it is
-  plain XLA in the JAX package.
+  (docno 0) is dead padding. Dense TF-IDF goes through a fused CUDA
+  kernel (ops/fused_scoring.py): over the float32 (1 + ln tf) matrix, or,
+  for a compressed index, over a bf16 raw-tf matrix that the kernel
+  weights itself. Dense BM25 stays plain torch, as it is plain XLA in the
+  JAX package, over a raw-tf matrix of either type.
 - tiered (search/layout.py): the cold df tiers go through the cold-tier
   CUDA kernel (ops/cold_tier.py), tier by tier; the hot strip is one
   [B, H] @ [H, D+1] float32 product, last, as in the JAX package's
@@ -99,17 +101,19 @@ def bm25_dl_norm(doc_len: torch.Tensor, num_docs: int, b: float
 
 def _dense_scatter(pair_term: torch.Tensor, pair_doc: torch.Tensor,
                    values: torch.Tensor, *, vocab_size: int,
-                   num_docs: int) -> torch.Tensor:
-    """[V, D+1] float32 matrix with `values` at (term, doc). The keys are
-    unique after the postings group-by, so the accumulate is a plain
-    store of each value into a zero cell and the result is deterministic."""
+                   num_docs: int, dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """[V, D+1] matrix of `dtype` with `values` at (term, doc). The keys
+    are unique after the postings group-by, so the accumulate is a plain
+    store of each value into a zero cell and the result is deterministic;
+    the values are cast to `dtype` before the store, so no matrix-sized
+    temporary of another type is made."""
     width = num_docs + 1
-    flat = torch.zeros(vocab_size * width, dtype=torch.float32,
-                       device=values.device)
+    flat = torch.zeros(vocab_size * width, dtype=dtype, device=values.device)
     term = pair_term.to(torch.int64)
     keep = (term >= 0) & (term < vocab_size)
     idx = term * width + pair_doc.to(torch.int64)
-    flat.index_put_((idx[keep],), values[keep], accumulate=True)
+    flat.index_put_((idx[keep],), values[keep].to(dtype), accumulate=True)
     return flat.view(vocab_size, width)
 
 
@@ -121,10 +125,14 @@ def dense_doc_matrix(pair_term, pair_doc, pair_tf, *, vocab_size: int,
 
 
 def dense_tf_matrix(pair_term, pair_doc, pair_tf, *, vocab_size: int,
-                    num_docs: int) -> torch.Tensor:
-    """[V, D+1] matrix of raw tf (float32), for BM25 saturation."""
-    return _dense_scatter(pair_term, pair_doc, pair_tf.to(torch.float32),
-                          vocab_size=vocab_size, num_docs=num_docs)
+                    num_docs: int, dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """[V, D+1] matrix of raw tf, for BM25 saturation: float32, or bf16
+    for a compressed index whose tfs bf16 holds exactly (the bf16 matrix
+    is then also what the quantized TF-IDF kernel reads)."""
+    return _dense_scatter(pair_term, pair_doc, pair_tf,
+                          vocab_size=vocab_size, num_docs=num_docs,
+                          dtype=dtype)
 
 
 def tfidf_topk_dense(q_terms: torch.Tensor, doc_matrix: torch.Tensor,
@@ -141,10 +149,26 @@ def tfidf_topk_dense(q_terms: torch.Tensor, doc_matrix: torch.Tensor,
     return _topk_from_scores(scores, k)
 
 
+def tfidf_topk_dense_quantized(q_terms: torch.Tensor,
+                               tf_matrix: torch.Tensor, df: torch.Tensor,
+                               num_docs: int, *, k: int = 10,
+                               compat_int_idf: bool = False
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tfidf_topk_dense over a bf16 raw-tf matrix, through the quantized
+    kernel: on bf16-exact tfs, bitwise the same result."""
+    from .fused_scoring import tfidf_scores_quantized
+
+    scores = tfidf_scores_quantized(q_terms, tf_matrix, df, num_docs,
+                                    compat_int_idf=compat_int_idf)
+    return _topk_from_scores(scores, k)
+
+
 def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
                        k1: float, b: float) -> torch.Tensor:
     """[B, D+1] BM25 scores on the dense layout (plain torch, as the JAX
-    package's is plain XLA: mul + reduce over the term axis)."""
+    package's is plain XLA: mul + reduce over the term axis). A bf16
+    tf_matrix is widened at the saturation's entry, so bf16-exact tfs
+    give the float32 matrix's bits."""
     vocab_size = tf_matrix.shape[0]
     idf = bm25_idf_weights(df, num_docs)
     dl_norm = bm25_dl_norm(doc_len, num_docs, b)

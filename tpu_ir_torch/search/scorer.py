@@ -12,6 +12,14 @@ The counterpart of `tpu_ir/search/scorer.py` for two layouts:
   cold-tier CUDA kernel (ops/cold_tier.py), then the hot strip as one
   float32 product.
 
+A compressed (format v3) index is decoded on load and served from the same
+layouts with the raw tfs held in bf16 when every tf round-trips bf16
+exactly (the JAX package's `_strip_dtype` rule; otherwise float32, with a
+warning): the dense layout keeps one bf16 raw-tf matrix, which the
+quantized CUDA kernel reads for TF-IDF and BM25 widens, and the tiered
+layout's hot strip is bf16. The weights are computed in float32 from the
+widened tfs, so the results are bitwise those of the raw index.
+
 A query batch is analyzed on the host into an int32 [B, L] term-id array
 and scored in query blocks whose [block, D+1] score accumulator stays
 within SCORE_BUDGET elements.
@@ -25,6 +33,7 @@ the query log.
 
 from __future__ import annotations
 
+import logging
 import os
 import re
 from typing import Sequence
@@ -36,6 +45,7 @@ from .. import resolve_device
 from ..analysis import Analyzer
 from ..collection import DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
+from ..index.compress import bf16_exact
 from ..ops.postings import pair_term_from_df
 from ..ops.scoring import (
     bm25_strip,
@@ -45,6 +55,7 @@ from ..ops.scoring import (
     dense_tf_matrix,
     lntf_strip,
     tfidf_topk_dense,
+    tfidf_topk_dense_quantized,
     tfidf_topk_tiered,
 )
 from .layout import (
@@ -53,6 +64,8 @@ from .layout import (
     build_tiered_layout,
     upload_index,
 )
+
+logger = logging.getLogger(__name__)
 
 # dense [V, D+1] matrix budget in elements (f32); above it the JAX package
 # serves the tiered sparse layout
@@ -117,12 +130,22 @@ class Scorer:
         self.df = upload_index(df, self.device)
         self.doc_len = upload_index(doc_len, self.device)
         if self.layout == "dense":
+            self.tf_dtype = _strip_dtype(meta, self._pairs[2])
             pt, pd, ptf = (upload_index(a, self.device)
                            for a in self._pairs)
+            self._tf_matrix: torch.Tensor | None = None  # first BM25 call
+            if self.tf_dtype == torch.bfloat16:
+                # the only resident matrix: raw tf in bf16, weighted by
+                # the quantized kernel (TF-IDF) or widened (BM25)
+                self.doc_matrix = None
+                self._tf_matrix = dense_tf_matrix(
+                    pt, pd, ptf, vocab_size=meta.vocab_size,
+                    num_docs=meta.num_docs, dtype=torch.bfloat16)
+                self._pairs = None
+                return
             self.doc_matrix = dense_doc_matrix(
                 pt, pd, ptf, vocab_size=meta.vocab_size,
                 num_docs=meta.num_docs)
-            self._tf_matrix: torch.Tensor | None = None  # first BM25 call
             return
         # tiered sparse: a budget-capped dense strip for the hottest terms
         # plus geometric-capacity padded tiers for the rest, raw tf
@@ -134,7 +157,8 @@ class Scorer:
         self._pairs = None               # the tiers hold every posting
         self.hot_rank = upload_index(tiers.hot_rank, self.device)
         # densified on the device: only the COO postings cross the link
-        self.hot_tfs = tiers.hot_device(self.device)
+        self.tf_dtype = _strip_dtype(meta, tiers.hot_vals)
+        self.hot_tfs = tiers.hot_device(self.device, dtype=self.tf_dtype)
         self.tier_of = upload_index(tiers.tier_of, self.device)
         self.row_of = upload_index(tiers.row_of, self.device)
         # slim uint16 host columns are widened to int32 at upload
@@ -150,10 +174,10 @@ class Scorer:
     def load(cls, index_dir: str, *, layout: str = "auto",
              compat_int_idf: bool = False,
              device: str | torch.device | None = None) -> "Scorer":
-        """Load an index dir (built by either package) onto the device.
-        Side files are verified against their recorded checksums, and
-        each part file is verified by the one streamed read that loads
-        it."""
+        """Load an index dir (built by either package, raw or compressed)
+        onto the device. Side files are verified against their recorded
+        checksums, and each part file is verified by the one streamed
+        read that loads it (a compressed part is then decoded)."""
         dev = resolve_device(device)
         meta = fmt.IndexMetadata.load(index_dir)
         resolved = _resolve_layout(layout, meta)  # fail before any reads
@@ -253,6 +277,10 @@ class Scorer:
         if scoring == "bm25":
             return bm25_topk_dense(q, self._ensure_tf_matrix(), self.df,
                                    self.doc_len, n, k=k, k1=K1, b=B)
+        if self.doc_matrix is None:                  # bf16 raw-tf matrix
+            return tfidf_topk_dense_quantized(
+                q, self._tf_matrix, self.df, n, k=k,
+                compat_int_idf=self.compat_int_idf)
         return tfidf_topk_dense(q, self.doc_matrix, self.df, n, k=k,
                                 compat_int_idf=self.compat_int_idf)
 
@@ -261,20 +289,24 @@ class Scorer:
         (lntf_strip / bm25_strip), or None when one more strip-sized
         buffer would pass half the hot budget (the JAX package's auto
         rule). The weighting is query-independent; cached, the hot stage
-        is the product alone, with bitwise the same scores."""
+        is the product alone, with bitwise the same scores. The test is on
+        elements, not bytes, so a bf16 strip makes the same decision as a
+        float32 one; a bf16 strip is widened first, exactly."""
         h, d1 = self.hot_tfs.shape
         if h * d1 > HOT_BUDGET // 2:
             return None
         key = "bm25" if scoring == "bm25" else "tfidf"
         if key not in self._wstrip_cache:
+            hot = self.hot_tfs.to(torch.float32)
             self._wstrip_cache[key] = (
-                bm25_strip(self.hot_tfs, self.doc_len, self.meta.num_docs,
+                bm25_strip(hot, self.doc_len, self.meta.num_docs,
                            k1=K1, b=B) if key == "bm25"
-                else lntf_strip(self.hot_tfs))
+                else lntf_strip(hot))
         return self._wstrip_cache[key]
 
     def _ensure_tf_matrix(self) -> torch.Tensor:
-        """The dense [V, D+1] raw-tf matrix, built on the first BM25 call."""
+        """The dense [V, D+1] raw-tf matrix: built on the first BM25 call
+        (float32), or the resident bf16 one."""
         if self._tf_matrix is None:
             pt, pd, ptf = (upload_index(a, self.device)
                            for a in self._pairs)
@@ -316,6 +348,24 @@ class Scorer:
                 res.append((key, float(s)))
             out.append(res)
         return out
+
+
+def _strip_dtype(meta: fmt.IndexMetadata, tfs: np.ndarray) -> torch.dtype:
+    """The dtype of the resident raw-tf matrix or hot strip: bf16 when the
+    index is compressed and every tf it holds round-trips bf16 exactly
+    (integers up to 256 do), so the widened values are the raw index's;
+    otherwise float32, with a warning for a compressed index, since a
+    silent narrowing would change rankings."""
+    if not meta.compressed:
+        return torch.float32
+    exact = bf16_exact(tfs)
+    if exact.all():
+        return torch.bfloat16
+    logger.warning(
+        "compressed index requested a bf16 tf matrix but %d tfs do not "
+        "round-trip bf16 exactly; serving it in float32 (exact, no memory "
+        "saving)", int((~exact).sum()))
+    return torch.float32
 
 
 def _resolve_layout(layout: str, meta: fmt.IndexMetadata) -> str:
