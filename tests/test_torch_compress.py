@@ -259,6 +259,18 @@ def test_port_reads_a_mid_migration_dir(raw_indexes, tmp_path):
     assert migrate_index(d, to_version=3)["skipped"] == 1
 
 
+def test_v3_part_needs_num_docs(raw_indexes, tmp_path):
+    """num_docs sizes a v3 part's block column, so save_shard refuses to
+    guess it and leaves the raw part in place."""
+    d = _copy(raw_indexes["small"], tmp_path / "nd")
+    z = fmt.load_shard(d, 0)
+    with pytest.raises(ValueError, match="num_docs"):
+        fmt.save_shard(d, 0, term_ids=z["term_ids"], indptr=z["indptr"],
+                       pair_doc=z["pair_doc"], pair_tf=z["pair_tf"],
+                       df=z["df"], format_version=3)
+    assert fmt.part_path(d, 0).endswith(".arena")
+
+
 # -- serving ----------------------------------------------------------------
 
 

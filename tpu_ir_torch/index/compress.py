@@ -411,7 +411,7 @@ def resolve_tf_dtype(index_dir: str, meta, tf_dtype: str = "auto") -> str:
     from . import format as fmt
 
     for s in range(meta.num_shards):
-        z = fmt.load_shard(index_dir, s, decode=False)
+        z = fmt.load_shard(index_dir, s)
         if is_compressed(z):
             if shard_info(z)["tf_dtype"] == "bf16":
                 return "bf16"
@@ -436,7 +436,7 @@ def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto") -> dict:
     migrated = skipped = 0
     lossy = False
     for s in range(meta.num_shards):
-        raw = fmt.load_shard(index_dir, s, decode=False)
+        raw = fmt.load_shard(index_dir, s)
         if is_compressed(raw):
             lossy = lossy or shard_info(raw)["tf_lossy"]
             skipped += 1
@@ -447,8 +447,10 @@ def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto") -> dict:
                        pair_tf=raw["pair_tf"], df=raw["df"],
                        format_version=fmt.COMPRESSED_FORMAT_VERSION,
                        num_docs=meta.num_docs, tf_dtype=mode)
-        lossy = lossy or shard_info(
-            fmt.load_shard(index_dir, s, decode=False))["tf_lossy"]
+        # auto picks int8 only when every shard is lossless; an int8
+        # asked for is lossy where the shard has more than 256 tfs
+        lossy = lossy or (tf_dtype == "int8" and len(
+            np.unique(np.asarray(raw["pair_tf"]))) > 256)
         migrated += 1
     meta.format_version = fmt.COMPRESSED_FORMAT_VERSION
     meta.tf_dtype = mode

@@ -305,8 +305,8 @@ def save_shard(index_dir: str, shard: int, *, term_ids: np.ndarray,
                tf_dtype: str = "auto") -> str:
     """Write one part file (v2, or v3 encoded by compress.encode_shard)
     and unlink the same shard's part of any other format. Returns the
-    new file's CRC. num_docs sizes v3's block-index column; without it
-    the shard's own max doc is used."""
+    new file's CRC. v3 needs the index's num_docs: it sizes the
+    block-index column, as in the JAX package's parts."""
     require_arena_format(format_version)
     arrays = dict(
         term_ids=term_ids.astype(np.int32),
@@ -317,8 +317,7 @@ def save_shard(index_dir: str, shard: int, *, term_ids: np.ndarray,
     )
     if format_version == COMPRESSED_FORMAT_VERSION:
         if num_docs is None:
-            num_docs = int(arrays["pair_doc"].max()) + 1 \
-                if len(arrays["pair_doc"]) else 1
+            raise ValueError("a v3 part needs the index's num_docs")
         arrays = compress.encode_shard(arrays, num_docs=num_docs,
                                        tf_dtype=tf_dtype)
     crc = write_arena_atomic(
@@ -350,26 +349,20 @@ def write_pair_shards(index_dir: str, df: np.ndarray, pair_doc: np.ndarray,
     return shard_of, offset_of
 
 
-def _shard_arrays(buf, path: str, *, verify: bool,
-                  decode: bool) -> dict[str, np.ndarray]:
-    """The arrays of an in-memory part: a v2 arena's sections, or a v3
-    arena's decoded into the same five arrays (unless decode=False)."""
+def _shard_arrays(buf, path: str, *, verify: bool) -> dict[str, np.ndarray]:
+    """The sections of an in-memory part, as they are on disk."""
     if not path.endswith((ARENA_SUFFIX, COMPRESSED_SUFFIX)):
         raise ValueError(f"{path}: v1 npz parts {_LATER}")
     header, data_start = read_arena_header(buf)
-    z = _arena_views(buf, header, data_start, path, verify=verify)
-    if decode and compress.is_compressed(z):
-        return compress.decode_shard(z)
-    return z
+    return _arena_views(buf, header, data_start, path, verify=verify)
 
 
-def load_shard(index_dir: str, shard: int, *,
-               decode: bool = True) -> dict[str, np.ndarray]:
-    """Map one part, whichever format is on disk, without verifying it;
-    decode=False returns a compressed part's sections as they are."""
+def load_shard(index_dir: str, shard: int) -> dict[str, np.ndarray]:
+    """Map one part, whichever format is on disk, without verifying or
+    decoding it: a compressed part's sections come back as they are."""
     path = part_path(index_dir, shard)
     return _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
-                         verify=False, decode=decode)
+                         verify=False)
 
 
 def load_shard_verified(index_dir: str, shard: int,
@@ -402,7 +395,8 @@ def load_shard_verified(index_dir: str, shard: int,
             "from a good copy)")
     # the whole-file digest matched, so section CRCs only need checking
     # when metadata recorded nothing to pin the bytes
-    return _shard_arrays(buf, path, verify=want is None, decode=True)
+    z = _shard_arrays(buf, path, verify=want is None)
+    return compress.decode_shard(z) if compress.is_compressed(z) else z
 
 
 def shard_local_offsets(df: np.ndarray, num_shards: int
