@@ -12,12 +12,15 @@ per phase; any failure ends the run with a nonzero exit code:
 1. env        the card's name and power limit (nvidia-smi), torch and CUDA
               versions;
 2. kernels    dense_score against its plain PyTorch twin on the card at the
-              shapes of the `ref` configuration, with its time, its bound,
-              the twin's time and one library call's time (CUDA events,
-              median of 20 runs after warm-up);
+              shapes of the `ref` configuration, with its wrapper's time,
+              the kernel's time alone (torch.profiler), the rate and share
+              of its bytes bound that reaches, the twin's time and one
+              library call's time (CUDA events, median of 20 runs after
+              warm-up); then bitwise against the twin at edge shapes (odd
+              and tiny widths, B = 1, L = 1 to 9, ids V-1, int64 ids);
 3. kernels    dequant_score likewise, on a bf16 raw-tf matrix of the same
               synthetic tfs, and bitwise against dense_score over their
-              float32 (1 + ln tf) matrix;
+              float32 (1 + ln tf) matrix, there and at the edge shapes;
 4. build      the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
               make_corpus, copied into the port) indexed into 10 shards on
               the card;
@@ -112,6 +115,91 @@ def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_alone_ms(fn, kernel: str, runs: int = TIMED_RUNS) -> float:
+    """Mean device milliseconds per launch of the kernel named
+    `<kernel>_kernel` over `runs` calls of `fn`, from torch.profiler: the
+    kernel alone, without its wrapper's host time or other launches. The
+    mean is over the launches the trace holds (a later profiler session in
+    one process may drop some); it fails if it holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and f"{kernel}_kernel" in evt.key:
+            us += getattr(evt, "self_device_time_total", None) \
+                or getattr(evt, "self_cuda_time_total", 0)
+            count += evt.count
+    if count == 0:
+        raise AssertionError(f"the profiler saw no {kernel} launch in "
+                             f"{runs} calls")
+    return us / count / 1e3
+
+
+def bandwidth(bound: dict, kernel_ms: float) -> dict:
+    """What a kernel's time reaches of its bytes bound."""
+    return {"kernel_ms": kernel_ms,
+            "achieved_tb_s": bound["bound_bytes"] / kernel_ms / 1e9,
+            "bound_share": bound["bound_ms"] / kernel_ms}
+
+
+def edge_checks(name: str) -> dict:
+    """The dense kernel `name` (dense_score or dequant_score) bitwise
+    against its plain twin at edge shapes on the card: odd and tiny widths,
+    B = 1, L = 1, 3 and 9, ids V-1 (the allocation's last row), -1 and past
+    V, an int64 batch; dequant_score also against dense_score on the same
+    tfs. Its launches here are comparisons, not the main path's."""
+    import torch
+
+    from tpu_ir_torch.ops import fused_scoring
+    from tpu_ir_torch.ops.scoring import _lntf
+
+    dev = torch.device("cuda")
+    cases = 0
+    for width in (1, 7, 8_761, 8_763, 8_769):
+        for batch, terms in ((1, 2), (257, 1), (257, 3), (64, 9)):
+            rng = np.random.default_rng(width * 100 + terms)
+            vocab = 40
+            q = rng.integers(-1, vocab + 2, (batch, terms))
+            q[::3, 0] = vocab - 1
+            idf = rng.uniform(0.05, 3.0, vocab).astype(np.float32)
+            idf[rng.random(vocab) < 0.2] = 0.0
+            tf = rng.integers(1, 257, (vocab, width))
+            tf[rng.random((vocab, width)) < 0.7] = 0
+            tf16 = torch.from_numpy(tf).to(torch.bfloat16).to(dev)
+            matrix = _lntf(tf16)
+            idf_d = torch.from_numpy(idf).to(dev)
+            for dtype in (np.int32, np.int64):
+                q_d = torch.from_numpy(q.astype(dtype)).to(dev)
+                if name == "dense_score":
+                    got = fused_scoring.dense_scores(q_d, idf_d, matrix)
+                    want = [fused_scoring.dense_scores_plain(q_d, idf_d,
+                                                             matrix)]
+                else:
+                    got = fused_scoring.dense_scores_quantized(q_d, idf_d,
+                                                               tf16)
+                    want = [fused_scoring.dense_scores_quantized_plain(
+                        q_d, idf_d, tf16),
+                        fused_scoring.dense_scores(q_d, idf_d, matrix)]
+                for w in want:
+                    if not torch.equal(got.view(torch.int32),
+                                       w.view(torch.int32)):
+                        raise AssertionError(
+                            f"{name} disagrees at width {width}, B "
+                            f"{batch}, L {terms}, {dtype.__name__} ids: "
+                            f"max_abs_diff {float((got - w).abs().max())}")
+                cases += 1
+    return {"cases": cases, "max_abs_diff": 0.0}
 
 
 def phase_env(card: str) -> dict:
@@ -228,18 +316,23 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
         raise AssertionError("an empty query must score 0 everywhere")
 
     ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
+    kernel_ms = kernel_alone_ms(
+        lambda: fused_scoring.dense_scores(q_d, idf, matrix), "dense_score")
     plain_ms = cuda_ms(
         lambda: fused_scoring.dense_scores_plain(q_d, idf, matrix))
     lib, library_ms = sparse_mm_yardstick(q_d, idf, matrix)
     lib_diff = float((lib - got).abs().max())
+    del lib, got, want
+    bound = dense_bound(q_d, idf, width, cell_bytes=4, ops_per_cell=2)
     return {"phase": "kernels", "card": card, "name": "dense_score",
             "shape": {"V": vocab_rows, "D+1": width, "B": batch,
                       "L": terms},
             "max_abs_diff": max_abs, "tolerance": KERNEL_TOL,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, **bandwidth(bound, kernel_ms),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse.mm(Q[B,V] sparse, M[V,D+1])",
-            "library_max_abs_diff": lib_diff,
-            **dense_bound(q_d, idf, width, cell_bytes=4, ops_per_cell=2),
+            "library_max_abs_diff": lib_diff, **bound,
+            "edge_checks": edge_checks("dense_score"),
             "launches_while_comparing": fused_scoring.dense_score_launches()}
 
 
@@ -282,24 +375,32 @@ def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
 
     ms = cuda_ms(lambda: fused_scoring.dense_scores_quantized(q_d, idf,
                                                               tf16))
+    kernel_ms = kernel_alone_ms(
+        lambda: fused_scoring.dense_scores_quantized(q_d, idf, tf16),
+        "dequant_score")
     plain_ms = cuda_ms(
         lambda: fused_scoring.dense_scores_quantized_plain(q_d, idf, tf16))
     k1_ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
+    k1_kernel_ms = kernel_alone_ms(
+        lambda: fused_scoring.dense_scores(q_d, idf, matrix), "dense_score")
     # no single PyTorch call weights a bf16 raw-tf matrix; kernel 1's
     # yardstick gives the same scores from the uncompressed matrix
     _, k1_library_ms = sparse_mm_yardstick(q_d, idf, matrix)
     # per cell: compare, max, log, add (the weight), multiply, add
+    bound = dense_bound(q_d, idf, width, cell_bytes=2, ops_per_cell=6)
+    edges = edge_checks("dequant_score")
     return {"phase": "kernels", "card": card, "name": "dequant_score",
             "shape": {"V": vocab_rows, "D+1": width, "B": batch,
                       "L": terms},
             "max_abs_diff": max_abs, "tolerance": KERNEL_TOL,
             "max_abs_diff_vs_dense_score": vs_k1,
-            "ms": ms, "plain_ms": plain_ms, "dense_score_ms": k1_ms,
+            "ms": ms, **bandwidth(bound, kernel_ms), "plain_ms": plain_ms,
+            "dense_score_ms": k1_ms, "dense_score_kernel_ms": k1_kernel_ms,
             "library_ms": None, "library": "none",
             "dense_score_library_ms": k1_library_ms,
             "dense_score_library": "torch.sparse.mm(Q[B,V] sparse, "
                                    "M[V,D+1] float32 (1 + ln tf))",
-            **dense_bound(q_d, idf, width, cell_bytes=2, ops_per_cell=6),
+            **bound, "edge_checks": edges,
             "launches_while_comparing": (
                 fused_scoring.dequant_score_launches() - before[0],
                 fused_scoring.dense_score_launches() - before[1])}

@@ -137,6 +137,96 @@ def test_dequant_kernel_rejects_mixed_devices_and_empty_batch(cuda):
     assert tpu_ir_torch.kernel_launches()["dequant_score"] == 0
 
 
+def _edge_inputs(seed, vocab, width, batch, terms, dev, dtype=np.int32):
+    """Both dense kernels' inputs with the id edge cases: ids V-1 (the last
+    row of the allocation), -1 pads, an empty query and ids past V; idf
+    with zeros (df == 0 terms); a bf16 raw-tf matrix of integer tfs and
+    the float32 (1 + ln tf) matrix torch computes from it."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-1, vocab + 2, (batch, terms)).astype(dtype)
+    q[::3, 0] = vocab - 1
+    if terms > 1:
+        q[1::2, 1] = vocab + 5
+    if batch > 1:
+        q[1] = -1
+    idf = rng.uniform(0.05, 3.0, vocab).astype(np.float32)
+    idf[rng.random(vocab) < 0.2] = 0.0
+    idf[vocab - 1] = 1.5
+    tf = rng.integers(1, 257, (vocab, width))
+    tf[rng.random((vocab, width)) < 0.7] = 0
+    tf16 = torch.from_numpy(tf).to(torch.bfloat16).to(dev)
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(idf).to(dev),
+            tf16, scoring._lntf(tf16))
+
+
+def _both_kernels_bitwise(q, idf, tf16, matrix):
+    """Both kernels, one launch each, bitwise against their twins and
+    against each other."""
+    tpu_ir_torch.reset_kernel_launches()
+    got1 = fused_scoring.dense_scores(q, idf, matrix)
+    got2 = fused_scoring.dense_scores_quantized(q, idf, tf16)
+    assert tpu_ir_torch.kernel_launches() == {"dense_score": 1,
+                                              "dequant_score": 1,
+                                              "cold_tier": 0}
+    want1 = fused_scoring.dense_scores_plain(q, idf, matrix)
+    want2 = fused_scoring.dense_scores_quantized_plain(q, idf, tf16)
+    torch.cuda.synchronize()
+    assert got1.shape == (q.shape[0], matrix.shape[1])
+    assert torch.equal(got1.view(torch.int32), want1.view(torch.int32))
+    assert torch.equal(got2.view(torch.int32), want2.view(torch.int32))
+    assert torch.equal(got2.view(torch.int32), got1.view(torch.int32))
+    return got1
+
+
+EDGE_WIDTHS = [1, 2, 3, 5] + list(range(8_761, 8_770))
+
+
+@pytest.mark.parametrize("terms", [1, 2, 3, 9])
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+def test_dense_kernels_bitwise_at_edge_shapes(cuda, width, terms):
+    """Every width residue mod 8 near the ref width and tiny widths, every
+    group size of the kernels (L = 1, 2, 3, 9), B = 1 and a small batch."""
+    for batch in (1, 37):
+        got = _both_kernels_bitwise(*_edge_inputs(
+            width * 10 + terms + batch, 50, width, batch, terms, cuda))
+        if batch > 1:
+            assert bool((got[1] == 0).all())         # the empty query
+
+
+def test_dense_kernels_bitwise_at_a_huge_batch(cuda):
+    q, idf, tf16, matrix = _edge_inputs(70, 300, 8_763, 70_000, 2, cuda)
+    tiles, _, grid = fused_scoring.launch_plan(
+        70_000, 8_763, torch.cuda.get_device_properties(
+            cuda).multi_processor_count)
+    assert 70_000 * tiles > 10 * grid       # each block walks many items
+    _both_kernels_bitwise(q, idf, tf16, matrix)
+
+
+def test_dense_kernels_walk_several_items_per_block(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles, _, grid = fused_scoring.launch_plan(3_000, 4_097, sms)
+    assert 3_000 * tiles > grid
+    _both_kernels_bitwise(*_edge_inputs(8, 120, 4_097, 3_000, 3, cuda))
+
+
+def test_dense_kernels_take_int64_ids(cuda):
+    q, idf, tf16, matrix = _edge_inputs(9, 60, 1_031, 200, 3, cuda,
+                                        dtype=np.int64)
+    q[0, 0] = 2 ** 32 + 3              # an int32 cast alone would make it 3
+    q[2, 2] = -(2 ** 33)
+    got = _both_kernels_bitwise(q, idf, tf16, matrix)
+    q32 = q.clone()
+    q32[0, 0], q32[2, 2] = -1, -1
+    want = fused_scoring.dense_scores(q32.to(torch.int32), idf, matrix)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_dense_kernels_resolve_long_queries_in_stages(cuda):
+    """A query longer than the kernels' shared-memory stage of terms
+    (kStage = 256 in csrc/dense_rows.cuh) is resolved a stage at a time."""
+    _both_kernels_bitwise(*_edge_inputs(10, 90, 8_763, 5, 300, cuda))
+
+
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_compressed_scorer_on_cuda_equals_cpu(cuda, tmp_path, layout):
     corpus = str(tmp_path / "c.trec")

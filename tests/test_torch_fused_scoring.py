@@ -11,7 +11,9 @@ and round log10 and ln differently in the last place; the kernel itself is
 held bitwise against the twin on the card (chip_smoke.py and
 tests/test_torch_cuda.py)."""
 
+import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -344,3 +346,117 @@ def test_first_cpu_log_of_a_process_is_exact():
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
         assert out.split() == ["0", "0"], out
+
+
+# What the CPU can check of the CUDA kernels: their sources keep the
+# bitwise rules, each C entry point's parameters match the ctypes types its
+# wrapper sets, and the dense kernels' launch plan covers every (query,
+# column) exactly once.
+
+CSRC = os.path.join(ROOT, "tpu_ir_torch", "csrc")
+DENSE_SOURCES = ["dense_rows.cuh", "dense_score.cu", "dequant_score.cu"]
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name), encoding="utf-8") as f:
+        return f.read()
+
+
+def _code(src):
+    """A CUDA source without its comments."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
+
+
+@pytest.mark.parametrize("name", DENSE_SOURCES)
+def test_dense_kernel_sources_keep_the_bitwise_rules(name):
+    code = _code(_source(name))
+    for banned in ("fmaf", "__fma", "__logf", "__fdividef", "__expf",
+                   "__powf"):
+        assert banned not in code, f"{name} uses {banned}"
+    if name != "dense_rows.cuh":
+        assert '#include "dense_rows.cuh"' in code
+    else:         # each term: one rounded multiply, then one rounded add
+        assert re.search(r"__fadd_rn\(\s*acc\[j\],\s*__fmul_rn\(", code)
+    if name == "dequant_score.cu":
+        assert "logf(" in code
+
+
+def test_nvcc_flags_have_no_fast_math():
+    from tpu_ir_torch.ops import _build
+
+    flags = " ".join(_build.NVCC_FLAGS)
+    for banned in ("fast_math", "fast-math", "ftz=true", "prec-div=false",
+                   "prec-sqrt=false"):
+        assert banned not in flags
+    assert "arch=compute_90a,code=sm_90a" in flags
+
+
+def _c_params(src, symbol):
+    """The ctypes kind of each parameter of `extern "C" int symbol(...)`."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + symbol + r"\s*\(([^)]*)\)",
+                  _code(src))
+    assert m, symbol
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        if "*" in words:
+            kinds.append(ctypes.c_void_p)
+        else:
+            kinds.append({"int64_t": ctypes.c_int64,
+                          "int32_t": ctypes.c_int32, "int": ctypes.c_int,
+                          "float": ctypes.c_float}[words[-2]])
+    return kinds
+
+
+@pytest.mark.parametrize("name", ["dense_score", "dequant_score",
+                                  "cold_tier"])
+def test_c_entry_parameters_match_ctypes_argtypes(name):
+    from tpu_ir_torch.ops import cold_tier
+
+    argtypes = (cold_tier.ARGTYPES if name == "cold_tier"
+                else fused_scoring.ARGTYPES)
+    assert _c_params(_source(f"{name}.cu"), f"tpu_ir_{name}") == argtypes
+
+
+def _header_constant(name):
+    m = re.search(r"constexpr int " + name + r" = (\d+);",
+                  _source("dense_rows.cuh"))
+    return int(m.group(1))
+
+
+def _plan_cover_counts(batch, width, plan, num_terms):
+    """How often the kernel's loops (dense_rows.cuh: grid-stride over work
+    items, passes of kThreads * kCols columns, thread t's columns
+    p0 + t + j * kThreads) visit each column of a row, and each work item."""
+    tiles, tile_width, grid = plan
+    threads = _header_constant("kThreads")
+    group = 1 if num_terms == 1 else 2 if num_terms == 2 else 4
+    cols = min(_header_constant("kValues") // group,
+               _header_constant("kMaxCols"))
+    items = np.zeros(batch * tiles, np.int64)
+    for block in range(grid):
+        items[block::grid] += 1
+    cover = np.zeros(width, np.int64)
+    t = np.arange(threads)
+    for tile in range(tiles):
+        lo = tile * tile_width
+        hi = min(lo + tile_width, width)
+        for p0 in range(lo, hi, threads * cols):
+            c = (p0 + t[None, :] + np.arange(cols)[:, None] * threads).ravel()
+            np.add.at(cover, c[c < hi], 1)
+    return items, cover
+
+
+@pytest.mark.parametrize("sms", [132, 1, 7])
+@pytest.mark.parametrize("batch", [1, 2, 7, 131, 529, 10_000, 70_000])
+def test_launch_plan_covers_every_cell_once(batch, sms):
+    assert fused_scoring.BLOCKS_PER_SM == _header_constant("kMinBlocks")
+    for width in list(range(1, 41)) + list(range(8_761, 8_771)):
+        plan = fused_scoring.launch_plan(batch, width, sms)
+        tiles, tile_width, grid = plan
+        assert 1 <= grid <= min(batch * tiles,
+                                sms * fused_scoring.BLOCKS_PER_SM)
+        assert (tiles - 1) * tile_width < width <= tiles * tile_width
+        for num_terms in (1, 2, 9):
+            items, cover = _plan_cover_counts(batch, width, plan, num_terms)
+            assert (items == 1).all() and (cover == 1).all(), (width, plan)

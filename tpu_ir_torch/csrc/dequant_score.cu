@@ -4,99 +4,75 @@
 // (tpu_ir/ops/pallas_scoring.py:129, kernel `_dequant_score_kernel` :107).
 // It computes
 //
-//     out[b, d] = sum_l w[b, l] * lntf(T[row[b, l], d])
+//     out[b, d] = sum_l w[b, l] * lntf(T[q[b, l], d])
 //     lntf(tf)  = tf > 0 ? 1 + ln(max(tf, 1)) : 0
 //
 // over a dense [V, D+1] bf16 matrix T of raw term frequencies: the dense
-// layout of a compressed (format v3) index. row[b, l] is query b's l-th term
-// id, already clamped to a valid row by the wrapper, and w[b, l] its idf
-// weight (0 for padding and out-of-vocabulary ids). Like the Pallas kernel it
-// reads the narrow row, widens and weights it on the fly, and writes no
-// float32 form of the matrix and no [B, L, D+1] intermediate.
+// layout of a compressed (format v3) index. q[b, l] is query b's l-th raw
+// term id and w[b, l] = idf[q[b, l]] for a valid id, else 0, resolved
+// inside the kernel. Like the Pallas kernel it reads the narrow row, widens
+// and weights it in registers, and writes no float32 form of the matrix and
+// no [B, L, D+1] intermediate.
 //
-// Bound on an H100: memory. Each (b, l) reads one (D+1)-cell row of 2-byte
-// bf16 values, half what the float32 kernel (dense_score.cu) reads, and
-// each query writes one (D+1)-float score row. The arithmetic per cell is a
-// compare, a max, a logf, an add, a multiply and an add: still far below the
-// card's ridge point. At the reference query load (B = 10,000, L = 2,
-// D+1 = 8,762, ~13,800 distinct rows) the least traffic is 0.24 GB of rows
-// and 0.35 GB of scores: 0.18 ms at 3.35 TB/s, against the float32 kernel's
-// 0.25 ms.
+// Bound on an H100: memory, 2 bytes of row per cell and 4 of scores; the
+// arithmetic per cell (a compare, a max, a logf, an add, a multiply and an
+// add) is still far below the card's ridge point. At the reference query
+// load (B = 10,000, L = 2, D+1 = 8,762, ~13,800 distinct rows) the least
+// traffic is 0.24 GB of rows and 0.35 GB of scores: 0.18 ms at 3.35 TB/s,
+// against the float32 kernel's 0.25 ms.
 //
-// Design: kernel 1's schedule. The TPU kernel walks a sequential (B, L)
-// grid and carries the sum in VMEM; here the grid is (doc tiles of
-// blockDim.x columns, queries), each thread owns one doc column of one
-// query and accumulates its L terms in a register, in l order. Neighbouring
-// threads read neighbouring bf16 cells of one row (64 bytes a warp). Loads
-// are scalar; bf16 pairs, wider loads or TMA rows are later work.
-//
-// Rounding: __bfloat162float is exact; logf (never __logf, never
-// --use_fast_math) rounds as torch.log does on the card; the round-to-nearest
-// intrinsics keep nvcc from contracting a multiply and an add into an FMA.
-// The kernel is then bitwise equal to its plain PyTorch twin
-// (ops/fused_scoring.py) and, on tfs that bf16 holds exactly, to
-// dense_score.cu over the float32 (1 + ln tf) matrix torch computes from the
-// same tfs. Offsets are 64-bit: row * (D+1) reaches 5e8 at the dense-layout
-// budget.
+// The schedule, the term resolution, the skipped zero-weight terms and the
+// rounding rules are dense_rows.cuh's, shared with dense_score.cu. Cells
+// are read as raw 16-bit patterns and widened by a shift, which is exact
+// (a bf16 value is the upper half of the float32 one). logf (never __logf,
+// never --use_fast_math) rounds as torch.log does on the card, and
+// __fadd_rn/__fmul_rn keep nvcc from contracting to an FMA: the kernel is
+// bitwise equal to its plain PyTorch twin (ops/fused_scoring.py) and, on
+// tfs that bf16 holds exactly, to dense_score.cu over the float32
+// (1 + ln tf) matrix torch computes from the same tfs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "dense_rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxGridY = 65535;
-
-__global__ void __launch_bounds__(kThreads)
-dequant_score_kernel(const int32_t* __restrict__ rows,
-                     const float* __restrict__ weights,
-                     const __nv_bfloat16* __restrict__ matrix,
-                     float* __restrict__ out, int64_t num_terms,
-                     int64_t width) {
-  const int64_t d = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (d >= width) return;
-  const int64_t b = blockIdx.y;
-  const int32_t* q_rows = rows + b * num_terms;
-  const float* q_w = weights + b * num_terms;
-  float acc = 0.0f;
-  for (int64_t l = 0; l < num_terms; ++l) {
-    const int64_t r = q_rows[l];
-    const float tf = __bfloat162float(matrix[r * width + d]);
-    const float wtf = tf > 0.0f ? __fadd_rn(1.0f, logf(fmaxf(tf, 1.0f)))
-                                : 0.0f;
-    acc = __fadd_rn(acc, __fmul_rn(wtf, q_w[l]));
+struct RawTfBf16Cell {
+  using T = uint16_t;
+  __device__ static float weight(uint16_t bits) {
+    const float tf = __uint_as_float(static_cast<uint32_t>(bits) << 16);
+    float w = 0.0f;
+    if (tf > 0.0f) w = __fadd_rn(1.0f, logf(fmaxf(tf, 1.0f)));
+    return w;
   }
-  out[b * width + d] = acc;
+};
+
+template <int G>
+__global__ void __launch_bounds__(dense_rows::kThreads, dense_rows::kMinBlocks)
+dequant_score_kernel(const int32_t* __restrict__ q,
+                     const float* __restrict__ idf,
+                     const uint16_t* __restrict__ matrix,
+                     float* __restrict__ out, int64_t batch,
+                     int64_t num_terms, int64_t vocab, int64_t width,
+                     int64_t tiles, int64_t tile_width) {
+  dense_rows::score_items<RawTfBf16Cell, G>(q, idf, matrix, out, batch,
+                                            num_terms, vocab, width, tiles,
+                                            tile_width);
 }
 
 }  // namespace
 
-// rows: int32 [B, L]; weights: float32 [B, L]; matrix: bf16 [V, width];
-// out: float32 [B, width]. All contiguous on the current device. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int tpu_ir_dequant_score(const void* rows, const void* weights,
+// q: int32 [B, L] raw ids; idf: float32 [V]; matrix: bf16 [V, width];
+// out: float32 [B, width]. All contiguous on the current device. The plan
+// (tiles per row, tile width, grid) comes from
+// ops/fused_scoring.launch_plan. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int tpu_ir_dequant_score(const void* q, const void* idf,
                                     const void* matrix, void* out,
                                     int64_t batch, int64_t num_terms,
-                                    int64_t width, void* stream) {
-  if (batch <= 0 || width <= 0) return 0;
-  const auto* r = static_cast<const int32_t*>(rows);
-  const auto* w = static_cast<const float*>(weights);
-  const auto* m = static_cast<const __nv_bfloat16*>(matrix);
-  auto* o = static_cast<float*>(out);
-  const unsigned grid_x =
-      static_cast<unsigned>((width + kThreads - 1) / kThreads);
-  // gridDim.y is capped at 65,535: larger batches go in slices
-  for (int64_t b0 = 0; b0 < batch; b0 += kMaxGridY) {
-    const int64_t nb = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
-    dim3 grid(grid_x, static_cast<unsigned>(nb));
-    dequant_score_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        r + b0 * num_terms, w + b0 * num_terms, m, o + b0 * width,
-        num_terms, width);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    int64_t vocab, int64_t width,
+                                    int64_t tiles, int64_t tile_width,
+                                    int64_t grid, void* stream) {
+  return dense_rows::launch<uint16_t>(
+      dequant_score_kernel<1>, dequant_score_kernel<2>,
+      dequant_score_kernel<4>, q, idf, matrix, out, batch, num_terms, vocab,
+      width, tiles, tile_width, grid, stream);
 }

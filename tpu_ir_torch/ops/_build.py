@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled on first use
-by `nvcc` into its own shared library, which `ctypes` loads. The libraries
+by `nvcc` into its own shared library, which `ctypes` loads; `csrc/*.cuh`
+holds code that several of them include. The libraries
 go into `build/tpu_ir_torch/` beside the package (listed in .gitignore),
 named by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused. Nothing here runs at import: the
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library of csrc/<name>.cu goes, named by content hash."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library of csrc/<name>.cu goes, named by a hash of the
+    source, the shared headers (csrc/*.cuh) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -29,6 +29,11 @@ import torch
 from .scoring import _lntf, bm25_saturation
 
 _launches = 0
+# the C entry point's parameters: q_tier, rows, weights, tdocs, ttfs,
+# dl_norm, scores; tier; batch, num_terms, v_t, cap, width; k1, k1 + 1;
+# stream
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int32] + [ctypes.c_int64] * 5
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
 def cold_tier_launches() -> int:
@@ -140,10 +145,7 @@ def cold_tier(scores: torch.Tensor, q_tier: torch.Tensor,
         raise ValueError(f"cold_tier: unsupported device {scores.device}")
     from . import _build
 
-    fn = _build.entry("cold_tier", "tpu_ir_cold_tier",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int32]
-                      + [ctypes.c_int64] * 5 + [ctypes.c_float] * 2
-                      + [ctypes.c_void_p])
+    fn = _build.entry("cold_tier", "tpu_ir_cold_tier", ARGTYPES)
     b, num_terms = q_rows.shape
     v_t, cap = tdocs.shape
     if b == 0 or num_terms == 0 or v_t == 0 or cap == 0:

@@ -16,8 +16,14 @@ The TPU package retired the first from serving in favour of XLA and never
 served the second; here they are the dense TF-IDF paths of `Scorer.topk`
 for a float32 and a bf16 index.
 
+Both kernels share one schedule, `csrc/dense_rows.cuh`: a grid of about
+(SMs x resident blocks) walking (query, column tile) work items, with the
+raw ids and the idf vector resolved inside the kernel. `launch_plan` picks
+the tiles and the grid.
+
 `dense_scores` and `dense_scores_quantized` are the wrappers. On a CUDA
-tensor each launches its kernel (or raises); on a CPU tensor it runs its
+tensor each allocates the scores and launches its kernel (or raises),
+with no other device work for an int32 batch; on a CPU tensor it runs its
 plain twin, the same arithmetic in the same term order, which the CPU
 tests hold against the JAX package. Kernel and twin are bitwise equal on
 the card: each term is one rounded multiply and one rounded add, in l
@@ -59,7 +65,8 @@ def query_weights(q_terms: torch.Tensor, idf: torch.Tensor
     """(safe_q, q_w): term ids clamped to a valid row (0 where invalid)
     and the per-(b, l) idf weight, 0 for -1 padding and ids outside the
     vocabulary — what the JAX wrapper computes outside `pallas_call`
-    (pallas_scoring.py:65-72)."""
+    (pallas_scoring.py:65-72). The plain twins use it; the kernels do the
+    same inside (csrc/dense_rows.cuh)."""
     vocab_size = idf.shape[0]
     q_valid = (q_terms >= 0) & (q_terms < vocab_size)
     safe_q = torch.where(q_valid, q_terms, 0).to(torch.int32)
@@ -120,25 +127,51 @@ def _check(q_terms: torch.Tensor, idf: torch.Tensor, matrix: torch.Tensor,
         raise ValueError(f"{name}: the matrix must be contiguous")
 
 
+BLOCKS_PER_SM = 4      # the grid's blocks per SM (dense_rows.cuh kMinBlocks)
+MIN_TILE = 2048        # the narrowest column tile a row is cut into
+# the C entry points' parameters: q, idf, matrix, out; batch, num_terms,
+# vocab, width, tiles, tile_width, grid; stream
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+
+
+def launch_plan(batch: int, width: int, sms: int) -> tuple[int, int, int]:
+    """(tiles per row, tile width, grid) of a dense score launch: a grid of
+    about `sms` * BLOCKS_PER_SM blocks, each walking (query, column tile)
+    work items. A row is cut into tiles only when the batch alone cannot
+    fill the grid, and never below MIN_TILE columns; every (query, column)
+    is in exactly one item, and no tile is empty."""
+    target = sms * BLOCKS_PER_SM
+    tiles = min(-(-width // MIN_TILE), max(1, -(-target // batch)))
+    tile_width = -(-width // tiles)
+    tiles = -(-width // tile_width)
+    return tiles, tile_width, min(batch * tiles, target)
+
+
 def _launch(symbol: str, q_terms: torch.Tensor, idf: torch.Tensor,
             matrix: torch.Tensor) -> torch.Tensor:
-    """Clamp the ids, allocate the scores and launch csrc/<symbol>.cu's
-    kernel on the current stream; both kernels take the same arguments."""
+    """Allocate the scores and launch csrc/<symbol>.cu's kernel on the
+    current stream; both kernels take the same arguments. The kernel
+    resolves the raw ids and their idf weights itself."""
     from . import _build
 
-    fn = _build.entry(symbol, f"tpu_ir_{symbol}",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
-                      + [ctypes.c_void_p])
-    safe_q, q_w = query_weights(q_terms, idf)
-    b, num_terms = safe_q.shape
-    width = matrix.shape[1]
+    fn = _build.entry(symbol, f"tpu_ir_{symbol}", ARGTYPES)
+    vocab, width = matrix.shape
+    b, num_terms = q_terms.shape
+    if q_terms.dtype == torch.int64:
+        # one cast to the kernel's int32; ids outside 0..V-1 stay outside
+        q_terms = q_terms.clamp(-1, vocab).to(torch.int32)
+    q_terms, idf = q_terms.contiguous(), idf.contiguous()
     out = torch.empty((b, width), dtype=torch.float32, device=matrix.device)
     if out.numel() == 0:
         return out                                   # nothing to launch
+    tiles, tile_width, grid = launch_plan(
+        b, width,
+        torch.cuda.get_device_properties(matrix.device).multi_processor_count)
     with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream(matrix.device).cuda_stream
-        err = fn(safe_q.data_ptr(), q_w.data_ptr(), matrix.data_ptr(),
-                 out.data_ptr(), b, num_terms, width, stream)
+        err = fn(q_terms.data_ptr(), idf.data_ptr(), matrix.data_ptr(),
+                 out.data_ptr(), b, num_terms, vocab, width, tiles,
+                 tile_width, grid, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")
@@ -151,10 +184,10 @@ def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
     pads and ids outside 0..V-1 weighing 0.
 
     q_terms int32/int64 [B, L]; idf float32 [V]; doc_matrix float32
-    [V, D+1]. The ids are clamped to valid rows here, before the launch, so
-    the kernel never reads outside the matrix. A CUDA input launches
-    csrc/dense_score.cu on the current stream; a CPU input runs the plain
-    twin."""
+    [V, D+1]. A CUDA input launches csrc/dense_score.cu on the current
+    stream, which checks each id against V and gathers its idf weight
+    itself, so the kernel never reads outside the matrix; a CPU input runs
+    the plain twin."""
     global _launches
     _check(q_terms, idf, doc_matrix)
     if doc_matrix.device.type == "cpu":
