@@ -6,14 +6,17 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the port from csrc/ (one nvcc per source, all
-started together), then runs these phases in order, printing one JSON line
-per phase; any failure ends the run with a nonzero exit code:
+started together; the build line reports each kernel's registers, spills
+and shared memory from ptxas), then runs these phases in order, printing
+one JSON line per phase; any failure ends the run with a nonzero exit
+code:
 
 1. env        the card's name and power limit (nvidia-smi), torch and CUDA
               versions;
 2. kernels    dense_score against its plain PyTorch twin on the card at the
               shapes of the `ref` configuration, with its wrapper's time,
-              the kernel's time alone (torch.profiler), the rate and share
+              the kernel's time alone (torch.profiler, with the launches
+              its trace holds, at least 90%), the rate and share
               of its bytes bound that reaches, the twin's time and one
               library call's time (CUDA events, median of 20 runs after
               warm-up); then bitwise against the twin at edge shapes (odd
@@ -84,6 +87,8 @@ MIN_RESIDENT = {"ref": 1e9, "wiki100k": 1e9, "ref-v3": 0.5e9,
                 "wiki100k-v3": 0.5e9}
 K1, BM25_B = 0.9, 0.4          # the port's BM25 constants
 TIMED_RUNS = 20
+PROFILER_SETTLE_S = 0.05       # idle time at each end of a profiler session
+MIN_TRACED = 0.9               # least share of the launches a trace must hold
 
 
 def emit(obj: dict) -> None:
@@ -117,39 +122,39 @@ def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_alone_ms(fn, kernel: str, runs: int = TIMED_RUNS) -> float:
-    """Mean device milliseconds per launch of the kernel named
-    `<kernel>_kernel` over `runs` calls of `fn`, from torch.profiler: the
-    kernel alone, without its wrapper's host time or other launches. The
-    mean is over the launches the trace holds (a later profiler session in
-    one process may drop some); it fails if it holds none."""
+def kernel_alone(fn, kernel: str, runs: int = TIMED_RUNS) -> dict:
+    """The kernel named `<kernel>_kernel` alone over `runs` calls of `fn`,
+    from its own torch.profiler session: the mean device milliseconds per
+    launch the trace holds, without the wrapper's host time or other
+    launches, and how many launches the trace holds. The session waits
+    PROFILER_SETTLE_S after it starts and after the last launch ends, so
+    that no launch falls outside its capture window; it fails if the trace
+    holds fewer than MIN_TRACED of the `runs` launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_SETTLE_S)
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA \
-                and f"{kernel}_kernel" in evt.key:
-            us += getattr(evt, "self_device_time_total", None) \
-                or getattr(evt, "self_cuda_time_total", 0)
-            count += evt.count
-    if count == 0:
-        raise AssertionError(f"the profiler saw no {kernel} launch in "
-                             f"{runs} calls")
-    return us / count / 1e3
+        time.sleep(PROFILER_SETTLE_S)
+    us = [evt.time_range.elapsed_us() for evt in prof.events()
+          if evt.device_type == torch.autograd.DeviceType.CUDA
+          and f"{kernel}_kernel" in evt.name]
+    if len(us) < MIN_TRACED * runs:
+        raise AssertionError(f"the profiler saw {len(us)} {kernel} launches "
+                             f"in {runs} calls")
+    return {"kernel_ms": float(np.mean(us)) / 1e3,
+            "traced_launches": len(us), "traced_of": runs}
 
 
-def bandwidth(bound: dict, kernel_ms: float) -> dict:
-    """What a kernel's time reaches of its bytes bound."""
-    return {"kernel_ms": kernel_ms,
-            "achieved_tb_s": bound["bound_bytes"] / kernel_ms / 1e9,
+def bandwidth(bound: dict, alone: dict) -> dict:
+    """What a kernel's time alone reaches of its bytes bound."""
+    kernel_ms = alone["kernel_ms"]
+    return {**alone, "achieved_tb_s": bound["bound_bytes"] / kernel_ms / 1e9,
             "bound_share": bound["bound_ms"] / kernel_ms}
 
 
@@ -316,7 +321,7 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
         raise AssertionError("an empty query must score 0 everywhere")
 
     ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
-    kernel_ms = kernel_alone_ms(
+    alone = kernel_alone(
         lambda: fused_scoring.dense_scores(q_d, idf, matrix), "dense_score")
     plain_ms = cuda_ms(
         lambda: fused_scoring.dense_scores_plain(q_d, idf, matrix))
@@ -328,7 +333,7 @@ def phase_kernels(card: str, *, vocab_rows: int, width: int,
             "shape": {"V": vocab_rows, "D+1": width, "B": batch,
                       "L": terms},
             "max_abs_diff": max_abs, "tolerance": KERNEL_TOL,
-            "ms": ms, **bandwidth(bound, kernel_ms),
+            "ms": ms, **bandwidth(bound, alone),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.sparse.mm(Q[B,V] sparse, M[V,D+1])",
             "library_max_abs_diff": lib_diff, **bound,
@@ -375,13 +380,13 @@ def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
 
     ms = cuda_ms(lambda: fused_scoring.dense_scores_quantized(q_d, idf,
                                                               tf16))
-    kernel_ms = kernel_alone_ms(
+    alone = kernel_alone(
         lambda: fused_scoring.dense_scores_quantized(q_d, idf, tf16),
         "dequant_score")
     plain_ms = cuda_ms(
         lambda: fused_scoring.dense_scores_quantized_plain(q_d, idf, tf16))
     k1_ms = cuda_ms(lambda: fused_scoring.dense_scores(q_d, idf, matrix))
-    k1_kernel_ms = kernel_alone_ms(
+    k1_alone = kernel_alone(
         lambda: fused_scoring.dense_scores(q_d, idf, matrix), "dense_score")
     # no single PyTorch call weights a bf16 raw-tf matrix; kernel 1's
     # yardstick gives the same scores from the uncompressed matrix
@@ -394,8 +399,10 @@ def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
                       "L": terms},
             "max_abs_diff": max_abs, "tolerance": KERNEL_TOL,
             "max_abs_diff_vs_dense_score": vs_k1,
-            "ms": ms, **bandwidth(bound, kernel_ms), "plain_ms": plain_ms,
-            "dense_score_ms": k1_ms, "dense_score_kernel_ms": k1_kernel_ms,
+            "ms": ms, **bandwidth(bound, alone), "plain_ms": plain_ms,
+            "dense_score_ms": k1_ms,
+            "dense_score_kernel_ms": k1_alone["kernel_ms"],
+            "dense_score_traced_launches": k1_alone["traced_launches"],
             "library_ms": None, "library": "none",
             "dense_score_library_ms": k1_library_ms,
             "dense_score_library": "torch.sparse.mm(Q[B,V] sparse, "
@@ -893,19 +900,50 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
     return out
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers, spills and shared memory of each kernel in nvcc's
+    `-Xptxas -v` output."""
+    import re
+
+    kernels = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            short = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?",
+                              m.group(1))
+            kernels.append({"kernel": (
+                short.group(1) + (f"<{short.group(2)}>" if short.group(2)
+                                  else "")) if short else m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernels:
+            kernels[-1].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernels:
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[-1].update(registers=int(m.group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+    return kernels
+
+
 def build_kernels(card: str) -> dict:
     """Build every kernel source at once (one nvcc per source, all
-    started together), then load each library."""
+    started together), then load each library; with ptxas's resource
+    report of each kernel built here."""
     from tpu_ir_torch.ops import _build
 
     names = _build.kernel_sources()
     t0 = time.perf_counter()
-    _build.build(names)
+    logs = _build.build(names)
     for name in names:
         _build.load(name)
     return {"phase": "build_kernels", "card": card,
             "seconds": time.perf_counter() - t0,
-            "libraries": {n: _build.lib_path(n).name for n in names}}
+            "libraries": {n: _build.lib_path(n).name for n in names},
+            "ptxas": {n: ptxas_report(log) for n, log in logs.items()}}
 
 
 def kernel_row(name: str, kern: dict, launches: int, **fields) -> dict:

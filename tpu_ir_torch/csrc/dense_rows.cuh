@@ -18,10 +18,12 @@
 // dependent scalar loads in flight and the block prologue paid 350,000
 // times: latency, not bytes, would set the time. Here:
 //
-// - Work items are (query b, column tile). The wrapper picks the tile
-//   width and a grid of about (SMs x resident blocks); each block walks
-//   items blockIdx.x, blockIdx.x + gridDim.x, ... At the reference load a
-//   tile is the whole row, so a block pays its prologue once per query.
+// - Work items are (query b, column tile). launch() picks the tile width
+//   and a grid of about (SMs x kMinBlocks) blocks; each block walks items
+//   blockIdx.x, blockIdx.x + gridDim.x, ... A row is cut into tiles of at
+//   least kMinTile columns only when the batch alone cannot fill the grid,
+//   so at the reference load a tile is the whole row and a block pays its
+//   prologue once per query.
 // - The block resolves its query's ids into shared memory: threads check
 //   0 <= id < V and gather idf[id] (0 otherwise). The wrapper passes the
 //   raw ids and the idf vector and launches nothing else. Terms are
@@ -31,9 +33,10 @@
 //   p0 + t + j * kThreads, j < kCols, so every warp load is one coalesced
 //   line and no access needs any alignment (rows of 8,762 cells start on
 //   8- or 4-byte boundaries). Terms go in groups of G: all G * kCols loads
-//   of a group are issued before the first add, up to kValues = 32 cells
-//   in flight per thread (G = 1, 2 or 4 by L; kCols = kValues / G, at
-//   most kMaxCols, which keeps L = 1 within 64 registers).
+//   of a group are issued before the first add, kValues = 32 cells in
+//   flight per thread: G = 2 terms of 16 columns for L <= 2 (at L = 1 the
+//   dead second term weighs 0 and loads nothing), G = 4 terms of 8
+//   columns otherwise.
 // - Scores are written with streaming stores (__stcs): they are written
 //   once and read once by the top-k, and should not push rows out of L2.
 //
@@ -58,8 +61,8 @@ namespace dense_rows {
 constexpr int kThreads = 256;   // threads per block
 constexpr int kMinBlocks = 4;   // resident blocks per SM the registers allow
 constexpr int kValues = 32;     // cells a thread holds in flight per group
-constexpr int kMaxCols = 16;    // columns a thread owns per pass, at most
 constexpr int kStage = 256;     // terms resolved into shared memory at once
+constexpr int kMinTile = 2048;  // the narrowest column tile a row is cut into
 
 // Resolves terms [s0, s0 + n) of one query into (row, weight) pairs.
 __device__ inline void resolve(const int32_t* __restrict__ q,
@@ -83,7 +86,7 @@ __device__ __forceinline__ void score_items(
     int64_t batch, int64_t num_terms, int64_t vocab, int64_t width,
     int64_t tiles, int64_t tile_width) {
   using T = typename Cell::T;
-  constexpr int kCols = kValues / G < kMaxCols ? kValues / G : kMaxCols;
+  constexpr int kCols = kValues / G;
   constexpr int kChunk = kThreads * kCols;
   __shared__ int32_t s_row[kStage];
   __shared__ float s_w[kStage];
@@ -157,20 +160,44 @@ using Kernel = void (*)(const int32_t*, const float*, const T*, float*,
                         int64_t, int64_t, int64_t, int64_t, int64_t,
                         int64_t);
 
-// Checks the launch plan and launches the kernel of the query width's
-// group size on `stream`; returns a CUDA error code (0 on success).
+// The current device's SM count, read once per device.
+inline int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    counts[dev] = n;
+  }
+  return counts[dev];
+}
+
+// Plans the grid (tiles per row, tile width, blocks) and launches the
+// kernel of the query width's group size on `stream`: g2 for L <= 2, g4
+// otherwise. Every (query, column) is in exactly one work item and no tile
+// is empty. Returns a CUDA error code (0 on success).
 template <class T>
-int launch(Kernel<T> g1, Kernel<T> g2, Kernel<T> g4, const void* q,
-           const void* idf, const void* matrix, void* out, int64_t batch,
-           int64_t num_terms, int64_t vocab, int64_t width, int64_t tiles,
-           int64_t tile_width, int64_t grid, void* stream) {
+int launch(Kernel<T> g2, Kernel<T> g4, const void* q, const void* idf,
+           const void* matrix, void* out, int64_t batch, int64_t num_terms,
+           int64_t vocab, int64_t width, void* stream) {
   if (batch <= 0 || width <= 0) return 0;
-  if (width > 0x7fff0000 || num_terms < 0 || vocab <= 0 || tiles <= 0 ||
-      tile_width <= 0 || tiles * tile_width < width ||
-      (tiles - 1) * tile_width >= width || grid <= 0 ||
-      grid > batch * tiles || grid > 0x7fffffff)
+  if (width > 0x7fff0000 || num_terms < 0 || vocab < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Kernel<T> kernel = num_terms == 1 ? g1 : num_terms == 2 ? g2 : g4;
+  const int64_t target = static_cast<int64_t>(sm_count()) * kMinBlocks;
+  if (target <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int64_t most_tiles = width > kMinTile ? width / kMinTile : 1;
+  const int64_t want_tiles = (target + batch - 1) / batch;
+  int64_t tiles = want_tiles < most_tiles ? want_tiles : most_tiles;
+  const int64_t tile_width = (width + tiles - 1) / tiles;
+  tiles = (width + tile_width - 1) / tile_width;   // no empty last tile
+  const int64_t items = batch * tiles;
+  const int64_t grid = items < target ? items : target;
+  const Kernel<T> kernel = num_terms <= 2 ? g2 : g4;
   kernel<<<static_cast<unsigned>(grid), kThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(q), static_cast<const float*>(idf),

@@ -45,18 +45,16 @@ dense_score_kernel(const int32_t* __restrict__ q,
 }  // namespace
 
 // q: int32 [B, L] raw ids; idf: float32 [V]; matrix: float32 [V, width];
-// out: float32 [B, width]. All contiguous on the current device. The plan
-// (tiles per row, tile width, grid) comes from
-// ops/fused_scoring.launch_plan. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// out: float32 [B, width]. All contiguous on the current device. Plans the
+// grid for the current device (dense_rows::launch), launches on `stream`
+// and returns a CUDA error code (0 on success).
 extern "C" int tpu_ir_dense_score(const void* q, const void* idf,
                                   const void* matrix, void* out,
                                   int64_t batch, int64_t num_terms,
-                                  int64_t vocab, int64_t width, int64_t tiles,
-                                  int64_t tile_width, int64_t grid,
+                                  int64_t vocab, int64_t width,
                                   void* stream) {
-  return dense_rows::launch<float>(
-      dense_score_kernel<1>, dense_score_kernel<2>, dense_score_kernel<4>, q,
-      idf, matrix, out, batch, num_terms, vocab, width, tiles, tile_width,
-      grid, stream);
+  return dense_rows::launch<float>(dense_score_kernel<2>,
+                                   dense_score_kernel<4>, q, idf, matrix,
+                                   out, batch, num_terms, vocab, width,
+                                   stream);
 }

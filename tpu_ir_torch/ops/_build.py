@@ -22,8 +22,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu_ir_torch"
 
+# -Xptxas -v only reports each kernel's registers, spills and shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -56,10 +57,11 @@ def kernel_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build(names: list[str]) -> None:
+def build(names: list[str]) -> dict[str, str]:
     """Compile the libraries of `names` that are not built yet: one nvcc
-    per source, all started together, then each awaited in turn."""
-    started = []
+    per source, all started together, then each awaited in turn. Returns
+    the compiler's output (ptxas's resource report) of each one built."""
+    started, logs = [], {}
     try:
         for name in names:
             out = lib_path(name)
@@ -79,12 +81,14 @@ def build(names: list[str]) -> None:
                 raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                                    f"(exit {proc.returncode}):\n{log}")
             os.replace(tmp, out)
+            logs[name] = log
     finally:
         for _, _, tmp, proc in started:              # only after a failure
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
                 tmp.unlink(missing_ok=True)
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,8 +18,8 @@ for a float32 and a bf16 index.
 
 Both kernels share one schedule, `csrc/dense_rows.cuh`: a grid of about
 (SMs x resident blocks) walking (query, column tile) work items, with the
-raw ids and the idf vector resolved inside the kernel. `launch_plan` picks
-the tiles and the grid.
+raw ids and the idf vector resolved inside the kernel. The C entry point
+plans the grid for the device it runs on.
 
 `dense_scores` and `dense_scores_quantized` are the wrappers. On a CUDA
 tensor each allocates the scores and launches its kernel (or raises),
@@ -127,24 +127,9 @@ def _check(q_terms: torch.Tensor, idf: torch.Tensor, matrix: torch.Tensor,
         raise ValueError(f"{name}: the matrix must be contiguous")
 
 
-BLOCKS_PER_SM = 4      # the grid's blocks per SM (dense_rows.cuh kMinBlocks)
-MIN_TILE = 2048        # the narrowest column tile a row is cut into
 # the C entry points' parameters: q, idf, matrix, out; batch, num_terms,
-# vocab, width, tiles, tile_width, grid; stream
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
-
-
-def launch_plan(batch: int, width: int, sms: int) -> tuple[int, int, int]:
-    """(tiles per row, tile width, grid) of a dense score launch: a grid of
-    about `sms` * BLOCKS_PER_SM blocks, each walking (query, column tile)
-    work items. A row is cut into tiles only when the batch alone cannot
-    fill the grid, and never below MIN_TILE columns; every (query, column)
-    is in exactly one item, and no tile is empty."""
-    target = sms * BLOCKS_PER_SM
-    tiles = min(-(-width // MIN_TILE), max(1, -(-target // batch)))
-    tile_width = -(-width // tiles)
-    tiles = -(-width // tile_width)
-    return tiles, tile_width, min(batch * tiles, target)
+# vocab, width; stream
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 
 
 def _launch(symbol: str, q_terms: torch.Tensor, idf: torch.Tensor,
@@ -164,14 +149,10 @@ def _launch(symbol: str, q_terms: torch.Tensor, idf: torch.Tensor,
     out = torch.empty((b, width), dtype=torch.float32, device=matrix.device)
     if out.numel() == 0:
         return out                                   # nothing to launch
-    tiles, tile_width, grid = launch_plan(
-        b, width,
-        torch.cuda.get_device_properties(matrix.device).multi_processor_count)
     with torch.cuda.device(matrix.device):
         stream = torch.cuda.current_stream(matrix.device).cuda_stream
         err = fn(q_terms.data_ptr(), idf.data_ptr(), matrix.data_ptr(),
-                 out.data_ptr(), b, num_terms, vocab, width, tiles,
-                 tile_width, grid, stream)
+                 out.data_ptr(), b, num_terms, vocab, width, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")
