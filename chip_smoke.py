@@ -41,10 +41,14 @@ code:
 9. build      the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
               word shapes) indexed into 10 shards on the card;
 10. serve     as 5, on wiki100k, where layout "auto" picks the tiered
-              sparse layout;
+              sparse layout, with one cold_tier launch per query block;
 11. kernels   cold_tier against its plain twin over the whole cold stage
-              of one 2,499-query block of the wiki100k traffic, TF-IDF and
-              BM25, with the same timings;
+              of one 2,499-query block of the wiki100k traffic (one
+              launch for every tier), TF-IDF and BM25, with the same
+              timings and the score cells' 32-byte sectors beside the
+              bound; then bitwise against the twin at edge cases (B = 1,
+              2,499 and 70,000 by L = 1, 2, 3 and 9; caps 1 to 4,096, empty
+              tiers, wide tiers before narrow ones, zero and 16 tiers);
 12. compress  and serve `wiki100k-v3` as 7 and 8: a bf16 hot strip, top-10
               bitwise equal to the raw wiki100k index's.
 
@@ -638,6 +642,11 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
               else "dequant_score")
     if on_cuda and launches[kernel] == 0:
         raise AssertionError(f"the serve phase never launched {kernel}")
+    blocks = -(-n_queries // scorer._block_size())
+    if on_cuda and scorer.layout == "sparse" and any(
+            c["cold_tier"] != blocks for c in per_topk.values()):
+        raise AssertionError(f"the cold stage must launch once per query "
+                             f"block ({blocks} a topk): {per_topk}")
     if on_cuda and resident < MIN_RESIDENT[config]:
         raise AssertionError(f"only {resident} bytes resident on the card; "
                              f"{config} should hold > "
@@ -673,9 +682,9 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
             "strip_bytes": (scorer.hot_tfs.numel()
                             * scorer.hot_tfs.element_size()),
             "caps_rows": [[int(t.shape[1]), int(t.shape[0])]
-                          for t in scorer.tier_docs],
-            "tier_bytes": sum(t.numel() * 4 for t in scorer.tier_docs
-                              + scorer.tier_tfs),
+                          for t in scorer.cold_tiers.docs],
+            "tier_bytes": sum(t.numel() * 4 for t in scorer.cold_tiers.docs
+                              + scorer.cold_tiers.tfs),
             "weighted_strip_cached": sorted(scorer._wstrip_cache)}
     return out, scorer, q_ids, results
 
@@ -716,7 +725,7 @@ def phase_sparse_check(card: str, idx: str, q_ids: np.ndarray,
     scorer = Scorer.load(idx, layout="sparse", device=device)
     out = {"phase": "sparse_check", "card": card, "config": "ref",
            "hot_rows": int(scorer.hot_tfs.shape[0]),
-           "tiers": len(scorer.tier_docs)}
+           "tiers": len(scorer.cold_tiers)}
     for scoring in ("tfidf", "bm25"):
         rel, bad = same_ranking(dense[scoring],
                                 scorer.topk(q_ids, k=k, scoring=scoring))
@@ -798,9 +807,121 @@ def phase_serve_v3(card: str, idx: str, raw: dict, *, device: str,
     return out, scorer
 
 
+COLD_EDGE_WIDTH = 5_001        # D+1 of the cold-tier edge cases
+# tier caps of the edge cases, in tier order (0: an empty tier): caps 1 and
+# 4,096, narrow tiers before wide ones (cap >= 512) as in a real layout;
+# then a wide tier before a narrow one, and an empty tier among wide ones
+COLD_EDGE_CAPS = (1, 2, 8, 0, 32, 512, 4096)
+COLD_EDGE_ORDERS = ((4096, 1, 512, 2), (2, 512, 0, 4096))
+COLD_SHARED_DOC = 7            # the doc the (tier, l)-order query hits
+
+
+def cold_edge_case(seed: int, batch: int, terms: int, device, *,
+                   caps=COLD_EDGE_CAPS, width: int = COLD_EDGE_WIDTH):
+    """One cold-stage edge case on `device`: (start scores float32
+    [B, width] uniform in [0, 1), q_tier, rows int32 [B, L], q_w float32
+    [B, L], a TierTable of `caps`, dl_norm float32 [width]). Rows hold
+    distinct docs, some past D (dropped), and tf = 0 slots anywhere in the
+    row. Query 0 puts its terms in the non-empty tiers from the last one
+    down, each row holding COLD_SHARED_DOC, so that the (tier, l) order
+    decides the bits; query 1 puts all its terms in one tier; other terms
+    are random, with tier -1, past the table or in an empty tier, rows
+    past V_t and negative, and zero weights. The same arguments give the
+    same case."""
+    import torch
+
+    from tpu_ir_torch.ops.cold_tier import TierTable
+
+    rng = np.random.default_rng(seed)
+    docs, tfs = [], []
+    for cap in caps:
+        v_t = int(rng.integers(3, 9)) if cap else 0
+        d = np.zeros((v_t, cap), np.int32)
+        f = np.zeros((v_t, cap), np.int32)
+        for r in range(v_t):
+            d[r] = rng.choice(np.arange(1, width + 40), cap, replace=False)
+            f[r] = rng.integers(1, 300, cap)
+            f[r, rng.random(cap) < 0.2] = 0
+        if v_t:                  # row 0 holds the shared doc, first slot
+            d[0, d[0] == COLD_SHARED_DOC] = width + 40
+            d[0, 0], f[0, 0] = COLD_SHARED_DOC, 3
+        docs.append(d)
+        tfs.append(f)
+    full = [t for t, cap in enumerate(caps) if cap]
+    n_t = len(caps)
+    q_tier = rng.choice([-1, n_t + 1] + list(range(n_t)),
+                        (batch, terms)).astype(np.int32)
+    rows = rng.integers(-2, 12, (batch, terms)).astype(np.int32)
+    q_w = rng.uniform(0.05, 2.0, (batch, terms)).astype(np.float32)
+    q_w[rng.random((batch, terms)) < 0.1] = 0.0
+    order = full[::-1]
+    for l in range(min(terms, len(order))):
+        q_tier[0, l], rows[0, l], q_w[0, l] = order[l], 0, 0.5 + l
+    if batch > 1 and full:
+        q_tier[1] = full[len(full) // 2]
+        q_w[1] = 1.25
+    dl_norm = rng.uniform(0.3, 1.3, width).astype(np.float32)
+    start = rng.random((batch, width), np.float32)
+    dev = torch.device(device)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (up(start), up(q_tier), up(rows), up(q_w),
+            TierTable([up(a) for a in docs], [up(a) for a in tfs]),
+            up(dl_norm))
+
+
+def cold_edge_checks() -> dict:
+    """The cold-tier kernel bitwise against its whole-stage plain twin on
+    the card from random starting scores, TF-IDF and BM25: B = 1, 2,499
+    and 70,000 by L = 1, 2, 3 and 9 over COLD_EDGE_CAPS, the
+    COLD_EDGE_ORDERS, a layout of zero tiers and one of MAX_TIERS tiers;
+    one tier more must raise. Its launches here are comparisons, not the
+    main path's."""
+    import torch
+
+    from tpu_ir_torch.ops import cold_tier
+
+    dev = torch.device("cuda")
+    cases = [dict(batch=b, terms=l) for b in (1, 2_499, 70_000)
+             for l in (1, 2, 3, 9)]
+    cases += [dict(batch=2_499, terms=3, caps=c) for c in COLD_EDGE_ORDERS]
+    cases += [dict(batch=2_499, terms=3, caps=()),
+              dict(batch=2_499, terms=9,
+                   caps=tuple(range(1, cold_tier.MAX_TIERS + 1)))]
+    n = 0
+    for i, case in enumerate(cases):
+        start, q_tier, rows, q_w, tiers, dl_norm = cold_edge_case(
+            i, device=dev, **case)
+        for bm25 in (False, True):
+            kw = {"dl_norm": dl_norm, "k1": K1} if bm25 else {}
+            got, want = start.clone(), start.clone()
+            cold_tier.cold_stage(got, q_tier, rows, q_w, tiers, **kw)
+            cold_tier.cold_stage_plain(want, q_tier, rows, q_w, tiers, **kw)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(
+                    f"cold_tier disagrees with its twin at {case}, "
+                    f"bm25={bm25}: max_abs_diff "
+                    f"{float((got - want).abs().max())}")
+            if case.get("caps", COLD_EDGE_CAPS) and torch.equal(got, start):
+                raise AssertionError(f"cold_tier added nothing at {case}")
+            n += 1
+        del start, got, want
+    over = cold_tier.MAX_TIERS + 1
+    try:
+        cold_tier.TierTable([tiers.docs[0]] * over, [tiers.tfs[0]] * over)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"a table of {over} tiers must raise")
+    torch.cuda.empty_cache()
+    return {"cases": n, "max_abs_diff": 0.0}
+
+
 def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
     """Kernel 3 (cold_tier) against its plain twin over the whole cold
-    stage (every tier, in order) of one query block, TF-IDF and BM25."""
+    stage (every tier, in order, one launch) of one query block, TF-IDF and
+    BM25, with the wrapper's time, the kernel's time alone (its own
+    profiler session), the twin's and one library yardstick's; then at the
+    edge cases (cold_edge_checks)."""
     import torch
 
     from tpu_ir_torch.ops import cold_tier, scoring
@@ -808,13 +929,14 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
     dev = scorer.device
     n = scorer.meta.num_docs
     width = n + 1
+    tiers = scorer.cold_tiers
     launches_before = cold_tier.cold_tier_launches()
     q = torch.from_numpy(q_block).to(dev)
     b, num_terms = q_block.shape
     out = {"phase": "kernels", "card": card, "name": "cold_tier",
            "shape": {"B": b, "L": num_terms, "D+1": width,
                      "caps_rows": [[int(t.shape[1]), int(t.shape[0])]
-                                   for t in scorer.tier_docs]},
+                                   for t in tiers.docs]},
            "tolerance": KERNEL_TOL}
     for name in ("tfidf", "bm25"):
         if name == "bm25":
@@ -827,14 +949,13 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
                                      scorer.row_of, weights)
 
         def stage(acc, fn):
-            scoring.cold_stage(acc, terms, scorer.tier_docs,
-                               scorer.tier_tfs, dl_norm=dl_norm, k1=K1,
-                               tier_fn=fn)
+            fn(acc, terms.tier, terms.row, terms.q_w, tiers,
+               dl_norm=dl_norm, k1=K1)
 
         got = torch.zeros((b, width), device=dev)
-        stage(got, cold_tier.cold_tier)
+        stage(got, cold_tier.cold_stage)
         want = torch.zeros((b, width), device=dev)
-        stage(want, cold_tier.cold_tier_plain)
+        stage(want, cold_tier.cold_stage_plain)
         torch.cuda.synchronize()
         max_abs = float((got - want).abs().max())
         if not torch.isfinite(got).all() or max_abs > KERNEL_TOL \
@@ -845,15 +966,16 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
         if not got.any():
             raise AssertionError("the cold stage scored nothing")
         acc = torch.zeros_like(got)
-        ms = cuda_ms(lambda: stage(acc, cold_tier.cold_tier))
-        plain_ms = cuda_ms(lambda: stage(acc, cold_tier.cold_tier_plain))
+        ms = cuda_ms(lambda: stage(acc, cold_tier.cold_stage))
+        alone = kernel_alone(lambda: stage(acc, cold_tier.cold_stage),
+                             "cold_tier")
+        plain_ms = cuda_ms(lambda: stage(acc, cold_tier.cold_stage_plain))
 
         # yardstick only (the port never calls it): one scatter_add_ per
         # tier over precomputed [B, L*P_t] slots and cell weights
         slots, vals = [], []
         bytes_moved, ops, postings = 0, 0, 0
-        for i, (tdocs, ttfs) in enumerate(zip(scorer.tier_docs,
-                                              scorer.tier_tfs)):
+        for i, (tdocs, ttfs) in enumerate(zip(tiers.docs, tiers.tfs)):
             in_tier = terms.tier == i
             rows, w = cold_tier.tier_rows_and_weights(
                 terms.tier, terms.row, terms.q_w, i, tdocs.shape[0])
@@ -884,17 +1006,22 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
         del slots, vals, buf, acc, got, want
         bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = ops / FP32_FLOP_PER_S * 1e3
+        bound = {"bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                 "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                              else "operations"),
+                 "bound_bytes": bytes_moved}
+        # a scattered score cell moves a 32-byte sector to be read and one
+        # to be written, and BM25's dl_norm one more: not in the bound
+        sectors = postings * 32 * (2 if dl_norm is None else 3)
         out[name] = {
-            "max_abs_diff": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "max_abs_diff": max_abs, "ms": ms, **bandwidth(bound, alone),
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.Tensor.scatter_add_ per tier over "
                        "precomputed [B, L*P_t] slots",
-            "library_max_abs_diff": lib_diff,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                         else "operations"),
-            "bound_bytes": bytes_moved, "postings": postings}
+            "library_max_abs_diff": lib_diff, **bound,
+            "postings": postings, "sector_bytes": sectors}
         torch.cuda.empty_cache()
+    out["edge_checks"] = cold_edge_checks()
     out["launches_while_comparing"] = (cold_tier.cold_tier_launches()
                                        - launches_before)
     return out
@@ -909,7 +1036,7 @@ def ptxas_report(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            short = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?",
+            short = re.search(r"\d([a-z_]+_kernel)(?:IL[bi](\d+)E)?",
                               m.group(1))
             kernels.append({"kernel": (
                 short.group(1) + (f"<{short.group(2)}>" if short.group(2)
@@ -1012,6 +1139,10 @@ def main() -> int:
         emit(wserve)
         cold = phase_cold_tier(card, scorer, q_ids[:scorer._block_size()])
         cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
+        # the kernel's device time in one profiled 10k topk (serve phase)
+        cold["kernel_per_10k_topk"] = {
+            s: wserve["profile"][s]["port_kernels"]["cold_tier"]
+            for s in ("tfidf", "bm25")}
         emit(cold)
         del scorer
         torch.cuda.empty_cache()

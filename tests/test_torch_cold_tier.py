@@ -1,8 +1,9 @@
 """The cold-tier kernel's plain twin (what the wrapper runs on a CPU tensor)
 against the JAX package: against `xla_cold_tier` and
 `pallas_cold_tier(interpret=True)` of experiments/cold_tier_bench.py for
-one tier, and against the cold stage of `_tiered_scores` (every tier,
-TF-IDF and BM25) on a real tiered layout.
+a one-tier table, and against the cold stage of `_tiered_scores` (every
+tier, TF-IDF and BM25) on a real tiered layout; and bitwise against a
+numpy float32 sum in (tier, l) order at the card's edge cases.
 
 Tolerance: rtol 1e-5, atol 1e-6. XLA and torch may round ln and the BM25
 quotient differently in the last place; the kernel itself is held bitwise
@@ -25,6 +26,10 @@ from tpu_ir_torch.search import layout
 
 RTOL, ATOL = 1e-5, 1e-6
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
 NUM_DOCS = 60
 SEEDS = [0, 1, 2]
 
@@ -96,19 +101,20 @@ def jax_tier_scores(tmp_path_factory):
                 for s in SEEDS}
 
 
-TIER = 2    # the tier under test; other terms sit in tiers -1, 0 and 3
+TIER = 0    # a one-tier table; other terms sit in tier -1 or past it
 
 
 def _q_tier(in_tier, seed=0):
     """Per-term tier ids: TIER where `in_tier`, another tier elsewhere."""
-    other = np.random.default_rng(seed).choice([-1, 0, 3], in_tier.shape)
+    other = np.random.default_rng(seed).choice([-1, 1, 3], in_tier.shape)
     return torch.from_numpy(np.where(in_tier, TIER, other).astype(np.int32))
 
 
 def _wrapper(scores, rows, in_tier, q_w, tdocs, ttfs, **kw):
-    cold_tier.cold_tier(scores, _q_tier(in_tier), torch.from_numpy(rows),
-                        torch.from_numpy(q_w), TIER, torch.from_numpy(tdocs),
-                        torch.from_numpy(ttfs), **kw)
+    cold_tier.cold_stage(scores, _q_tier(in_tier), torch.from_numpy(rows),
+                         torch.from_numpy(q_w),
+                         cold_tier.TierTable([torch.from_numpy(tdocs)],
+                                             [torch.from_numpy(ttfs)]), **kw)
 
 
 def _twin(rows, in_tier, q_w, tdocs, ttfs, **kw):
@@ -158,25 +164,32 @@ def test_wrapper_rejects_bad_inputs():
     q_tier = _q_tier(in_tier)
     rows, q_w, tdocs, ttfs = (torch.from_numpy(a)
                               for a in (rows, q_w, tdocs, ttfs))
+    tiers = cold_tier.TierTable([tdocs], [ttfs])
     scores = torch.zeros((rows.shape[0], NUM_DOCS + 1))
     with pytest.raises(ValueError, match="int32 tier arrays"):
-        cold_tier.cold_tier(scores, q_tier, rows, q_w, TIER, tdocs.long(),
-                            ttfs)
+        cold_tier.cold_stage(scores, q_tier, rows, q_w,
+                             cold_tier.TierTable([tdocs.long()], [ttfs]))
     with pytest.raises(ValueError, match="int32 term tiers"):
-        cold_tier.cold_tier(scores, q_tier.long(), rows, q_w, TIER, tdocs,
-                            ttfs)
+        cold_tier.cold_stage(scores, q_tier.long(), rows, q_w, tiers)
     with pytest.raises(ValueError, match="float32"):
-        cold_tier.cold_tier(scores.double(), q_tier, rows, q_w, TIER, tdocs,
-                            ttfs)
+        cold_tier.cold_stage(scores.double(), q_tier, rows, q_w, tiers)
     with pytest.raises(ValueError, match=r"\[B, L\]"):
-        cold_tier.cold_tier(scores, q_tier, rows[:, :2], q_w, TIER, tdocs,
-                            ttfs)
+        cold_tier.cold_stage(scores, q_tier, rows[:, :2], q_w, tiers)
     with pytest.raises(ValueError, match="contiguous"):
-        cold_tier.cold_tier(scores.t().contiguous().t(), q_tier, rows, q_w,
-                            TIER, tdocs, ttfs)
+        cold_tier.cold_stage(scores.t().contiguous().t(), q_tier, rows, q_w,
+                             tiers)
     with pytest.raises(ValueError, match="dl_norm"):
-        cold_tier.cold_tier(scores, q_tier, rows, q_w, TIER, tdocs, ttfs,
-                            dl_norm=torch.ones(NUM_DOCS))
+        cold_tier.cold_stage(scores, q_tier, rows, q_w, tiers,
+                             dl_norm=torch.ones(NUM_DOCS))
+    with pytest.raises(ValueError, match=r"\[V_t, P_t\]"):
+        cold_tier.TierTable([tdocs], [ttfs[:, :3].contiguous()])
+    with pytest.raises(ValueError, match="tfs arrays"):
+        cold_tier.TierTable([tdocs, tdocs], [ttfs])
+    over = cold_tier.MAX_TIERS + 1
+    with pytest.raises(ValueError, match=f"at most {cold_tier.MAX_TIERS}"):
+        cold_tier.TierTable([tdocs] * over, [ttfs] * over)
+    assert len(cold_tier.TierTable([tdocs] * (over - 1),
+                                   [ttfs] * (over - 1))) == over - 1
 
 
 def _layout(seed, num_docs=120, vocab=300, n_tok=6000):
@@ -236,11 +249,78 @@ def test_cold_stage_matches_jax_tiered(scoring_name, seed):
         torch.from_numpy(q), layout.upload_index(tiers.hot_rank, dev),
         layout.upload_index(tiers.tier_of, dev),
         layout.upload_index(tiers.row_of, dev), q_weight)
+    table = cold_tier.TierTable(
+        [layout.upload_index(a, dev) for a in tiers.tier_docs],
+        [layout.upload_index(a, dev) for a in tiers.tier_tfs])
     got = torch.zeros((q.shape[0], n + 1))
-    scoring.cold_stage(got, terms,
-                       [layout.upload_index(a, dev) for a in tiers.tier_docs],
-                       [layout.upload_index(a, dev) for a in tiers.tier_tfs],
-                       dl_norm=dl_norm, k1=k1)
+    scoring.cold_stage(got, terms, table, dl_norm=dl_norm, k1=k1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     assert (got[3] == 0).all() and got.numpy().any()
+    # the whole-stage twin is the per-tier loop, bitwise
+    loop = torch.zeros_like(got)
+    for t, (tdocs, ttfs) in enumerate(zip(table.docs, table.tfs)):
+        cold_tier.cold_tier_plain(loop, terms.tier, terms.row, terms.q_w, t,
+                                  tdocs, ttfs, dl_norm=dl_norm, k1=k1)
+    assert torch.equal(got.view(torch.int32), loop.view(torch.int32))
+
+
+def _stage_reference(start, q_tier, rows, q_w, tiers, dl_norm, k1, *,
+                     l_first=False):
+    """numpy float32 sum of the cold stage, one rounded multiply and one
+    rounded add a cell, in (tier, l) order (or (l, tier) with `l_first`),
+    over cells from the port's weight functions."""
+    out = start.numpy().copy()
+    q_tier, rows, q_w = q_tier.numpy(), rows.numpy(), q_w.numpy()
+    width = out.shape[1]
+    cells = []
+    for tdocs, ttfs in zip(tiers.docs, tiers.tfs):
+        dl = None if dl_norm is None else dl_norm[tdocs.clamp(0, width - 1)]
+        cells.append((scoring._lntf(ttfs) if dl is None else
+                      scoring.bm25_saturation(ttfs, dl, k1=k1)).numpy())
+    pairs = [(t, l) for t in range(len(tiers)) for l in range(q_w.shape[1])]
+    if l_first:
+        pairs.sort(key=lambda p: (p[1], p[0]))
+    for t, l in pairs:
+        docs, tfs = tiers.docs[t].numpy(), tiers.tfs[t].numpy()
+        if docs.size == 0:
+            continue
+        for b in np.nonzero((q_tier[:, l] == t) & (q_w[:, l] != 0))[0]:
+            r = min(max(int(rows[b, l]), 0), len(docs) - 1)
+            keep = (tfs[r] > 0) & (docs[r] >= 0) & (docs[r] < width)
+            d = docs[r, keep]                 # distinct within a row
+            out[b, d] = out[b, d] + cells[t][r, keep] * q_w[b, l]
+    return out
+
+
+@pytest.mark.parametrize("bm25", [False, True])
+@pytest.mark.parametrize("terms", [1, 2, 3, 9])
+def test_twin_at_the_card_edge_cases(terms, bm25):
+    """At chip_smoke's cold-tier edge cases (the cases the card holds the
+    kernel against the twin at), the CPU wrapper (the twin) equals a numpy
+    float32 sum in (tier, l) order, bitwise; query 0's shared doc shows
+    that the order decides the bits."""
+    order_matters = 0
+    cases = [dict(batch=b) for b in (1, 37)]
+    cases += [dict(batch=5, caps=c) for c in chip_smoke.COLD_EDGE_ORDERS]
+    cases += [dict(batch=5, caps=()),
+              dict(batch=5, caps=tuple(range(1, cold_tier.MAX_TIERS + 1)))]
+    for i, case in enumerate(cases):
+        start, q_tier, rows, q_w, tiers, dl_norm = chip_smoke.cold_edge_case(
+            100 * terms + i, terms=terms, device="cpu", **case)
+        kw = {"dl_norm": dl_norm, "k1": 0.9} if bm25 else {}
+        got = start.clone()
+        cold_tier.cold_stage(got, q_tier, rows, q_w, tiers, **kw)
+        want = _stage_reference(start, q_tier, rows, q_w, tiers,
+                                kw.get("dl_norm"), 0.9)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+        assert len(tiers) == 0 or not torch.equal(got, start)
+        if terms >= 3 and len(tiers) == len(chip_smoke.COLD_EDGE_CAPS):
+            other = _stage_reference(start, q_tier, rows, q_w, tiers,
+                                     kw.get("dl_norm"), 0.9, l_first=True)
+            order_matters += int(other[0].view(np.int32)[
+                chip_smoke.COLD_SHARED_DOC] != want[0].view(np.int32)[
+                chip_smoke.COLD_SHARED_DOC])
+    if terms >= 3:
+        assert order_matters >= 1

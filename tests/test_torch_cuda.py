@@ -10,6 +10,7 @@ skip this suite's conftest (which sets JAX up):
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +22,10 @@ from tpu_ir_torch.index import build_index
 from tpu_ir_torch.index.migrate import migrate_index
 from tpu_ir_torch.ops import cold_tier, fused_scoring, postings, scoring
 from tpu_ir_torch.search import Scorer
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -303,7 +308,7 @@ def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
         assert (gd == cd).mean() > 0.99
 
 
-TIER = 2
+TIER = 0    # a one-tier table
 
 
 def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
@@ -324,14 +329,15 @@ def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
     rows = torch.randint(0, vocab_rows, (batch, terms), generator=gen,
                          dtype=torch.int32)
     rows[:, -1] = rows[:, 0]                        # a duplicated term
-    # tier TIER is scored; the other terms sit in tiers -1, 0 and 3
+    # tier TIER is scored; the other terms sit in tier -1 or past the table
     q_tier = torch.randint(-1, 4, (batch, terms), generator=gen,
                            dtype=torch.int32)
     q_tier[torch.rand((batch, terms), generator=gen) < 0.8] = TIER
-    q_tier[1] = 0                                   # a query not in the tier
+    q_tier[1] = 1                                   # a query not in the tier
     q_w = torch.rand((batch, terms), generator=gen) + 0.05
     dl_norm = torch.rand((width,), generator=gen) + 0.3
-    return [t.to(dev) for t in (q_tier, rows, q_w, docs, tfs, dl_norm)]
+    return [t.to(dev) for t in (q_tier, rows, q_w)] + [
+        cold_tier.TierTable([docs.to(dev)], [tfs.to(dev)]), dl_norm.to(dev)]
 
 
 @pytest.mark.parametrize("bm25", [False, True])
@@ -341,36 +347,84 @@ def _tier(seed, vocab_rows, cap, batch, terms, width, dev):
                                    (5, 300, 70, 5, 257)])
 def test_cold_tier_bitwise_equals_twin(cuda, shape, bm25):
     vocab_rows, cap, batch, terms, width = shape
-    q_tier, rows, q_w, docs, tfs, dl_norm = _tier(
+    q_tier, rows, q_w, tiers, dl_norm = _tier(
         sum(shape), vocab_rows, cap, batch, terms, width, cuda)
     kw = {"dl_norm": dl_norm, "k1": 0.9} if bm25 else {}
     start = torch.rand((batch, width), device=cuda)
     got, want = start.clone(), start.clone()
     tpu_ir_torch.reset_kernel_launches()
-    cold_tier.cold_tier(got, q_tier, rows, q_w, TIER, docs, tfs, **kw)
+    cold_tier.cold_stage(got, q_tier, rows, q_w, tiers, **kw)
     assert tpu_ir_torch.kernel_launches()["cold_tier"] == 1
-    cold_tier.cold_tier_plain(want, q_tier, rows, q_w, TIER, docs, tfs, **kw)
+    cold_tier.cold_stage_plain(want, q_tier, rows, q_w, tiers, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got[1], start[1]) and not torch.equal(got, start)
 
 
+def _cold_edge(cuda, seed, bm25, **case):
+    """One of chip_smoke's cold-stage edge cases: the kernel (one launch,
+    none for a table of zero tiers) bitwise against the whole-stage twin
+    from random starting scores."""
+    start, q_tier, rows, q_w, tiers, dl_norm = chip_smoke.cold_edge_case(
+        seed, device=cuda, **case)
+    kw = {"dl_norm": dl_norm, "k1": 0.9} if bm25 else {}
+    got, want = start.clone(), start.clone()
+    tpu_ir_torch.reset_kernel_launches()
+    cold_tier.cold_stage(got, q_tier, rows, q_w, tiers, **kw)
+    assert tpu_ir_torch.kernel_launches()["cold_tier"] == int(len(tiers) > 0)
+    cold_tier.cold_stage_plain(want, q_tier, rows, q_w, tiers, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, start) == (len(tiers) == 0)
+
+
+@pytest.mark.parametrize("bm25", [False, True])
+@pytest.mark.parametrize("terms", [1, 2, 3, 9, 40])
+@pytest.mark.parametrize("batch", [1, 2_499, 70_000])
+def test_cold_tier_edge_shapes(cuda, batch, terms, bm25):
+    """B = 1, 2,499 and 70,000 by L = 1, 2, 3, 9 and 40 (more than a warp
+    of terms) over caps 1 to 4,096 with an empty tier: terms in three
+    tiers on one doc, all terms in one tier, rows past V_t and negative,
+    docs past D, tf = 0 slots."""
+    _cold_edge(cuda, batch + terms, bm25, batch=batch, terms=terms)
+
+
+@pytest.mark.parametrize("bm25", [False, True])
+@pytest.mark.parametrize("caps", list(chip_smoke.COLD_EDGE_ORDERS)
+                         + [(), tuple(range(1, cold_tier.MAX_TIERS + 1))])
+def test_cold_tier_edge_tables(cuda, caps, bm25):
+    """A wide tier before a narrow one, an empty tier among the wide ones,
+    a table of zero tiers and one of MAX_TIERS tiers; one more raises."""
+    _cold_edge(cuda, len(caps), bm25, batch=2_499, terms=9, caps=caps)
+    docs = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    over = cold_tier.MAX_TIERS + 1
+    with pytest.raises(ValueError, match="at most"):
+        cold_tier.TierTable([docs] * over, [docs] * over)
+
+
 def test_cold_tier_matches_cpu_twin(cuda):
     args = _tier(11, 20, 32, 50, 3, 400, torch.device("cpu"))
     want = torch.zeros((50, 400))
-    cold_tier.cold_tier(want, *args[:3], TIER, *args[3:5], dl_norm=args[5])
+    cold_tier.cold_stage(want, *args[:4], dl_norm=args[4])
     got = torch.zeros((50, 400), device=cuda)
-    q_tier, rows, q_w, docs, tfs, dl_norm = (a.to(cuda) for a in args)
-    cold_tier.cold_tier(got, q_tier, rows, q_w, TIER, docs, tfs,
-                        dl_norm=dl_norm)
+    q_tier, rows, q_w = (a.to(cuda) for a in args[:3])
+    tiers = cold_tier.TierTable([args[3].docs[0].to(cuda)],
+                                [args[3].tfs[0].to(cuda)])
+    cold_tier.cold_stage(got, q_tier, rows, q_w, tiers,
+                         dl_norm=args[4].to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-7)
 
 
 def test_cold_tier_rejects_mixed_devices(cuda):
-    q_tier, rows, q_w, docs, tfs, _ = _tier(12, 5, 8, 4, 2, 30, cuda)
+    q_tier, rows, q_w, tiers, _ = _tier(12, 5, 8, 4, 2, 30, cuda)
     with pytest.raises(ValueError, match="must be on"):
-        cold_tier.cold_tier(torch.zeros((4, 30), device=cuda), q_tier,
-                            rows.cpu(), q_w, TIER, docs, tfs)
+        cold_tier.cold_stage(torch.zeros((4, 30), device=cuda), q_tier,
+                             rows.cpu(), q_w, tiers)
+    cpu_tiers = cold_tier.TierTable([tiers.docs[0].cpu()],
+                                    [tiers.tfs[0].cpu()])
+    with pytest.raises(ValueError, match="must be on"):
+        cold_tier.cold_stage(torch.zeros((4, 30), device=cuda), q_tier,
+                             rows, q_w, cpu_tiers)
 
 
 def test_tiered_scorer_on_cuda_equals_cpu(cuda, tmp_path):
@@ -381,14 +435,15 @@ def test_tiered_scorer_on_cuda_equals_cpu(cuda, tmp_path):
     build_index(corpus, idx, num_shards=3, device=cuda)
     g = Scorer.load(idx, layout="sparse")
     c = Scorer.load(idx, layout="sparse", device="cpu")
-    assert len(g.tier_docs) >= 3 and g.hot_tfs.shape[0] > 1
+    assert len(g.cold_tiers) >= 3 and g.hot_tfs.shape[0] > 1
     q = np.random.default_rng(4).integers(
         0, c.meta.vocab_size, (500, 3)).astype(np.int32)
     for scoring_name in ("tfidf", "bm25"):
         tpu_ir_torch.reset_kernel_launches()
         gs, gd = g.topk(q, scoring=scoring_name)
-        assert tpu_ir_torch.kernel_launches()["cold_tier"] == \
-            len(g.tier_docs)
+        # one launch per query block: 500 queries fit one block
+        assert g._block_size() >= 500
+        assert tpu_ir_torch.kernel_launches()["cold_tier"] == 1
         cs, cd = c.topk(q, scoring=scoring_name)
         np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
         assert (gd == cd).mean() > 0.99

@@ -367,13 +367,25 @@ def _code(src):
     return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
 
 
-@pytest.mark.parametrize("name", DENSE_SOURCES)
+@pytest.mark.parametrize("name", DENSE_SOURCES + ["cold_tier.cu"])
 def test_dense_kernel_sources_keep_the_bitwise_rules(name):
     code = _code(_source(name))
     for banned in ("fmaf", "__fma", "__logf", "__fdividef", "__expf",
-                   "__powf"):
+                   "__powf", "atomic"):
         assert banned not in code, f"{name} uses {banned}"
-    if name != "dense_rows.cuh":
+    if name == "cold_tier.cu":
+        from tpu_ir_torch.ops import cold_tier
+
+        # each posting: one rounded multiply, then one rounded add, onto
+        # the score read before; BM25 divides rounded; TF-IDF's ln is logf
+        assert re.search(r"__fadd_rn\(\s*s\[j\],\s*__fmul_rn\(cell, w\)\)",
+                         code)
+        assert "__fdiv_rn(" in code and "logf(tff)" in code
+        # the profiler filter finds the kernel by this name
+        assert re.search(r"\bcold_tier_kernel\(", code)
+        assert int(re.search(r"kMaxTiers = (\d+);", code).group(1)) == \
+            cold_tier.MAX_TIERS
+    elif name != "dense_rows.cuh":
         assert '#include "dense_rows.cuh"' in code
     else:         # each term: one rounded multiply, then one rounded add
         assert re.search(r"__fadd_rn\(\s*acc\[j\],\s*__fmul_rn\(", code)

@@ -98,10 +98,43 @@ def test_layout_is_tiered_with_hot_terms(scorers):
     js, ts = scorers
     assert ts.layout == "sparse"
     assert ts.hot_tfs.shape == tuple(js.hot_tfs.shape)
-    assert ts.hot_tfs.shape[0] > 1 and len(ts.tier_docs) >= 3
+    assert ts.hot_tfs.shape[0] > 1 and len(ts.cold_tiers) >= 3
     np.testing.assert_array_equal(ts.hot_tfs.numpy(), np.asarray(js.hot_tfs))
-    for a, b in zip(ts.tier_docs, js.tier_docs):
+    assert len(ts.cold_tiers) == len(js.tier_docs)
+    for a, b in zip(ts.cold_tiers.docs, js.tier_docs):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_scorer_builds_the_tier_table_once(index_dir, monkeypatch):
+    """The kernel's tier table is built when the Scorer loads, and every
+    query block's cold stage is one call with that same table."""
+    from tpu_ir_torch.ops import cold_tier
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    built, seen = [], []
+
+    class Counted(cold_tier.TierTable):
+        def __init__(self, *args):
+            super().__init__(*args)
+            built.append(self)
+
+    stage = cold_tier.cold_stage
+
+    def spy(scores, q_tier, q_rows, q_w, tiers, **kw):
+        seen.append((scores.shape[0], tiers))
+        stage(scores, q_tier, q_rows, q_w, tiers, **kw)
+
+    monkeypatch.setattr(scorer_mod, "TierTable", Counted)
+    monkeypatch.setattr(cold_tier, "cold_stage", spy)
+    ts = Scorer.load(index_dir, layout="sparse", device="cpu")
+    assert len(built) == 1 and ts.cold_tiers is built[0]
+    ts.SCORE_BUDGET = 40 * (ts.meta.num_docs + 1)   # blocks of 40 queries
+    q = _id_queries(ts.meta.vocab_size, b=100)
+    for scoring in ("tfidf", "bm25"):
+        ts.topk(q, scoring=scoring)
+    assert len(built) == 1
+    assert [n for n, _ in seen] == [40, 40, 20] * 2
+    assert all(t is built[0] for _, t in seen)
 
 
 @pytest.mark.parametrize("scoring", ["tfidf", "bm25"])

@@ -12,9 +12,9 @@ to the top k. Everything runs in float32.
   weights itself. Dense BM25 stays plain torch, as it is plain XLA in the
   JAX package, over a raw-tf matrix of either type.
 - tiered (search/layout.py): the cold df tiers go through the cold-tier
-  CUDA kernel (ops/cold_tier.py), tier by tier; the hot strip is one
-  [B, H] @ [H, D+1] float32 product, last, as in the JAX package's
-  cold-first accumulation order.
+  CUDA kernel (ops/cold_tier.py), one launch for all the tiers of a query
+  block; the hot strip is one [B, H] @ [H, D+1] float32 product, last, as
+  in the JAX package's cold-first accumulation order.
 
 Quirk policy as in the JAX package: `compat_int_idf=True` reproduces the
 reference's Java int division N/df; documents whose total score is
@@ -23,7 +23,7 @@ exactly 0 are not returned.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple
 
 import torch
 
@@ -258,20 +258,16 @@ def tiered_terms(q_terms: torch.Tensor, hot_rank: torch.Tensor,
     return TieredTerms(q_w, rank, is_hot, tier, row)
 
 
-def cold_stage(scores: torch.Tensor, terms: TieredTerms,
-               tier_docs: Sequence[torch.Tensor],
-               tier_tfs: Sequence[torch.Tensor], *,
-               dl_norm: torch.Tensor | None = None, k1: float = 0.9,
-               tier_fn=None) -> None:
-    """Add every cold tier's contributions into `scores` in place, in
-    tier order: one `tier_fn` call (the cold-tier kernel's wrapper unless
-    another function of its signature is given) per tier, each on the
-    block's shared per-term arrays."""
-    if tier_fn is None:
-        from .cold_tier import cold_tier as tier_fn
-    for i, (tdocs, ttfs) in enumerate(zip(tier_docs, tier_tfs)):
-        tier_fn(scores, terms.tier, terms.row, terms.q_w, i, tdocs, ttfs,
-                dl_norm=dl_norm, k1=k1)
+def cold_stage(scores: torch.Tensor, terms: TieredTerms, tiers, *,
+               dl_norm: torch.Tensor | None = None, k1: float = 0.9) -> None:
+    """Add every cold tier's contributions into `scores` in place, in tier
+    order: one call of the cold-tier kernel's wrapper (ops/cold_tier.py)
+    for all the tiers of `tiers` (a TierTable), on the block's per-term
+    arrays."""
+    from .cold_tier import cold_stage as stage
+
+    stage(scores, terms.tier, terms.row, terms.q_w, tiers, dl_norm=dl_norm,
+          k1=k1)
 
 
 def _require_fp32_matmul(t: torch.Tensor) -> None:
@@ -303,18 +299,18 @@ def hot_stage(scores: torch.Tensor, terms: TieredTerms,
     scores.add_(torch.matmul(w_hot[:, :h], weighted_strip))
 
 
-def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs,
-                   tier_tfs, q_weight, *, num_docs: int, hot_weight_fn,
+def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+                   q_weight, *, num_docs: int, hot_weight_fn,
                    dl_norm: torch.Tensor | None = None,
                    k1: float = 0.9) -> torch.Tensor:
     """[B, D+1] exact tiered accumulation (JAX `_tiered_scores` without
     pruning): a zero accumulator, the cold tiers in tier order through
-    the kernel, then the hot strip last. `hot_weight_fn` maps the raw-tf
+    one kernel launch, then the hot strip last. `hot_weight_fn` maps the raw-tf
     strip to its per-cell weights; `dl_norm` selects BM25 cold cells."""
     terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
     scores = torch.zeros((q_terms.shape[0], num_docs + 1),
                          dtype=torch.float32, device=hot_tfs.device)
-    cold_stage(scores, terms, tier_docs, tier_tfs, dl_norm=dl_norm, k1=k1)
+    cold_stage(scores, terms, tiers, dl_norm=dl_norm, k1=k1)
     hot_stage(scores, terms, hot_weight_fn(hot_tfs))
     return scores
 
@@ -339,36 +335,37 @@ def bm25_strip(hot_tfs: torch.Tensor, doc_len: torch.Tensor,
 
 
 def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
-                         tier_docs, tier_tfs, df, num_docs: int, *,
+                         tiers, df, num_docs: int, *,
                          compat_int_idf: bool = False,
                          hot_preweighted: bool = False) -> torch.Tensor:
     """[B, D+1] tiered TF-IDF scores. `hot_preweighted` declares
     `hot_tfs` already weighted (lntf_strip): bitwise the same scores."""
     idf = idf_weights(df, num_docs, compat_int_idf)
     return _tiered_scores(
-        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
         hot_weight_fn=_identity_weight if hot_preweighted else _lntf)
 
 
 def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
-                      tier_docs, tier_tfs, df, num_docs: int, *,
+                      tiers, df, num_docs: int, *,
                       k: int = 10, compat_int_idf: bool = False,
                       hot_preweighted: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """TF-IDF top-k on the tiered sparse layout. q_terms int [B, L] (-1
     pads); hot_rank, tier_of, row_of int32 [V]; hot_tfs float32 [H, D+1]
-    raw tf (or weighted, with `hot_preweighted`); tier_docs/tier_tfs int32
-    [V_t, P_t] each. Returns (scores [B, k], docnos [B, k] int32)."""
+    raw tf (or weighted, with `hot_preweighted`); tiers: the cold tiers'
+    TierTable (ops/cold_tier.py), int32 [V_t, P_t] docs and tfs each.
+    Returns (scores [B, k], docnos [B, k] int32)."""
     scores = _tfidf_tiered_scores(
-        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         df, num_docs, compat_int_idf=compat_int_idf,
         hot_preweighted=hot_preweighted)
     return _topk_from_scores(scores, k)
 
 
 def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
-                        tier_docs, tier_tfs, df, doc_len, num_docs: int, *,
+                        tiers, df, doc_len, num_docs: int, *,
                         k1: float, b: float,
                         hot_preweighted: bool = False) -> torch.Tensor:
     """[B, D+1] tiered BM25 scores: saturation over the strip with the
@@ -377,7 +374,7 @@ def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     idf = bm25_idf_weights(df, num_docs)
     dl_norm = bm25_dl_norm(doc_len, num_docs, b)
     return _tiered_scores(
-        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
         hot_weight_fn=(_identity_weight if hot_preweighted else
                        lambda tf: bm25_saturation(tf, dl_norm[None, :],
@@ -386,13 +383,13 @@ def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
 
 
 def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
-                     tier_docs, tier_tfs, df, doc_len, num_docs: int, *,
+                     tiers, df, doc_len, num_docs: int, *,
                      k: int = 10, k1: float = 0.9, b: float = 0.4,
                      hot_preweighted: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Okapi BM25 top-k on the tiered sparse layout (arguments as
     tfidf_topk_tiered, plus doc_len int32 [D+1])."""
     scores = _bm25_tiered_scores(
-        q_terms, hot_rank, hot_tfs, tier_of, row_of, tier_docs, tier_tfs,
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted)
     return _topk_from_scores(scores, k)

@@ -9,8 +9,8 @@ The counterpart of `tpu_ir/search/scorer.py` for two layouts:
 - sparse (above DENSE_BUDGET): the tiered layout of search/layout.py, a
   budget-capped dense hot strip plus padded df tiers, scored exactly as
   the JAX package's unpruned tiered path: the cold tiers through the
-  cold-tier CUDA kernel (ops/cold_tier.py), then the hot strip as one
-  float32 product.
+  cold-tier CUDA kernel (ops/cold_tier.py), one launch per query block,
+  then the hot strip as one float32 product.
 
 A compressed (format v3) index is decoded on load and served from the same
 layouts with the raw tfs held in bf16 when every tf round-trips bf16
@@ -46,6 +46,7 @@ from ..analysis import Analyzer
 from ..collection import DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
 from ..index.compress import bf16_exact
+from ..ops.cold_tier import TierTable
 from ..ops.postings import pair_term_from_df
 from ..ops.scoring import (
     bm25_strip,
@@ -161,11 +162,11 @@ class Scorer:
         self.hot_tfs = tiers.hot_device(self.device, dtype=self.tf_dtype)
         self.tier_of = upload_index(tiers.tier_of, self.device)
         self.row_of = upload_index(tiers.row_of, self.device)
-        # slim uint16 host columns are widened to int32 at upload
-        self.tier_docs = tuple(upload_index(a, self.device)
-                               for a in tiers.tier_docs)
-        self.tier_tfs = tuple(upload_index(a, self.device)
-                              for a in tiers.tier_tfs)
+        # slim uint16 host columns are widened to int32 at upload; the
+        # kernel's tier table is built once here, not per query block
+        self.cold_tiers = TierTable(
+            [upload_index(a, self.device) for a in tiers.tier_docs],
+            [upload_index(a, self.device) for a in tiers.tier_tfs])
         self._wstrip_cache: dict[str, torch.Tensor] = {}
 
     # -- loading -----------------------------------------------------------
@@ -267,11 +268,11 @@ class Scorer:
             if scoring == "bm25":
                 return bm25_topk_tiered(
                     q, self.hot_rank, strip, self.tier_of, self.row_of,
-                    self.tier_docs, self.tier_tfs, self.df, self.doc_len, n,
+                    self.cold_tiers, self.df, self.doc_len, n,
                     k=k, k1=K1, b=B, hot_preweighted=ws is not None)
             return tfidf_topk_tiered(
                 q, self.hot_rank, strip, self.tier_of, self.row_of,
-                self.tier_docs, self.tier_tfs, self.df, n, k=k,
+                self.cold_tiers, self.df, n, k=k,
                 compat_int_idf=self.compat_int_idf,
                 hot_preweighted=ws is not None)
         if scoring == "bm25":
