@@ -139,18 +139,24 @@ def kernel_alone(fn, kernel: str, runs: int = TIMED_RUNS) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU activity too: a CUDA-only session late in this script once held
+    # no kernel event at all, where profile_topk's sessions never failed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_SETTLE_S)
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILER_SETTLE_S)
-    us = [evt.time_range.elapsed_us() for evt in prof.events()
-          if evt.device_type == torch.autograd.DeviceType.CUDA
-          and f"{kernel}_kernel" in evt.name]
+    device = [evt for evt in prof.events()
+              if evt.device_type == torch.autograd.DeviceType.CUDA]
+    us = [evt.time_range.elapsed_us() for evt in device
+          if f"{kernel}_kernel" in evt.name]
     if len(us) < MIN_TRACED * runs:
-        raise AssertionError(f"the profiler saw {len(us)} {kernel} launches "
-                             f"in {runs} calls")
+        raise AssertionError(
+            f"the profiler saw {len(us)} {kernel} launches in {runs} calls "
+            f"({len(device)} device events: "
+            f"{sorted({e.name[:60] for e in device})[:5]})")
     return {"kernel_ms": float(np.mean(us)) / 1e3,
             "traced_launches": len(us), "traced_of": runs}
 

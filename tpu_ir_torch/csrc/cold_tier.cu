@@ -19,14 +19,16 @@
 // is the JAX gather's; the doc <= D test is the JAX scatter's mode="drop".
 // Empty tiers (V_t = 0 or P_t = 0) stay in the table and add nothing.
 //
-// Bound on an H100: bytes, and below them the fixed cost of a launch. Each
-// in-tier term with w != 0 reads its row (P_t * 8 bytes of docs and tfs);
-// each posting reads and writes one 4-byte score, and BM25 reads 4 bytes of
-// dl_norm. At wiki100k a 2,499-query block needs 5.5 MB, 1.65 us at
-// 3.35 TB/s: less than the device's fixed cost of one launch, so the stage
-// is one launch, not one per tier. The score cells are scattered (random
-// docs): each touch moves a 32-byte sector, not 4 bytes, and waits a full
-// round trip to device memory; the byte bound does not count either.
+// Bound on an H100: bytes; what holds it far above that bound is the fixed
+// cost of a launch and the latency of dependent round trips. Each in-tier term with w != 0 reads
+// its row (P_t * 8 bytes of docs and tfs); each posting reads and writes one
+// 4-byte score, and BM25 reads 4 bytes of dl_norm. At wiki100k a 2,499-query
+// block needs 5.5 MB, 1.65 us at 3.35 TB/s: less than the device's fixed
+// cost of one launch, so the stage is one launch, not one per tier. The
+// score cells are scattered (random docs): each touch moves a 32-byte
+// sector, not 4 bytes, and the byte bound counts neither that nor the
+// chain each query makes: its term ids, then per term its row, then that
+// row's score cells, each a round trip to device memory.
 //
 // Design. The TPU kernel walks a sequential (B, L) grid and keeps query b's
 // score row in VMEM; the row is 400 KB at 100,000 docs, so here it stays in
@@ -35,16 +37,18 @@
 // it finds its terms of each tier with one ballot, skips every other term
 // with no barrier, and its lanes stride a term's slots with kInFlight slots
 // each in flight (all their tf/doc loads, then all their score loads, then
-// the writes), so a row of cap <= 256 takes one round trip of each. Tiers
-// of cap >= kWideCap (512 and 2048 at wiki100k) would take a warp 2 to 8
-// such rounds for one term; they come last in tier order, so after a block
-// barrier the whole block takes each of its queries' terms there in turn,
-// 256 threads a row: one round again. Within one term the docs of a tier
+// the writes), so a row of cap <= 256 (192 for BM25) is one round of round
+// trips. A cap-2048 row would take a warp 8 rounds for one term; tiers of
+// cap >= kWideCap come last in tier order, so after a block barrier the
+// whole block takes each of its queries' terms there in turn, 256 threads a
+// row: one round again (two for BM25). Within one term the docs of a tier
 // row are distinct, so no two threads write one cell; __syncwarp (or
 // __syncthreads in the wide phase) between terms orders the adds when a
 // later term hits the same doc. There is no atomicAdd: every cell is summed
 // in tier order, then l order, the same order on every run, so the kernel
-// is bitwise equal to its plain PyTorch twin (ops/cold_tier.py).
+// is bitwise equal to its plain PyTorch twin (ops/cold_tier.py). The
+// schedules tried and dropped (every tier on the warps, the block-wide
+// phase from cap 512) are in PERF.md.
 //
 // The tier table (pointers, rows and caps) is passed by value as a kernel
 // parameter: no device allocation and no copy per call.
@@ -65,8 +69,11 @@ constexpr int kWarps = 8;            // queries per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 3;        // per SM: 80 registers a thread,
                                      // 396 blocks (3,168 queries) a wave
-constexpr int kInFlight = 8;         // slots a thread has in flight
-constexpr int64_t kWideCap = 512;    // tiers from here on: block-wide
+// slots a thread has in flight: BM25 keeps a dl_norm value a slot too, and
+// at 8 slots its 80 registers spill
+template <bool kBm25>
+constexpr int kInFlight = kBm25 ? 6 : 8;
+constexpr int64_t kWideCap = 2048;   // tiers from here on: block-wide
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Tier {
@@ -102,28 +109,31 @@ __device__ __forceinline__ void add_row(const Args& a, const Tier& t,
                                         int64_t row, float w,
                                         float* q_scores, int first,
                                         int stride) {
+  constexpr int kIn = kInFlight<kBm25>;
   const int64_t r = row < 0 ? 0 : (row < t.rows ? row : t.rows - 1);
   const int32_t* __restrict__ docs = t.docs + r * t.cap;
   const int32_t* __restrict__ tfs = t.tfs + r * t.cap;
-  const int64_t num_docs = a.width - 1;
-  for (int64_t p0 = first; p0 < t.cap;
-       p0 += static_cast<int64_t>(stride) * kInFlight) {
-    int32_t tf[kInFlight], doc[kInFlight];
+  // 32-bit offsets within a row and a score row (the entry point checks
+  // that caps and widths fit): fewer registers for the slots' addresses
+  const int cap = static_cast<int>(t.cap);
+  const int num_docs = static_cast<int>(a.width - 1);
+  for (int p0 = first; p0 < cap; p0 += stride * kIn) {
+    int32_t tf[kIn], doc[kIn];
 #pragma unroll
-    for (int j = 0; j < kInFlight; ++j) {
-      const int64_t p = p0 + static_cast<int64_t>(j) * stride;
-      tf[j] = p < t.cap ? __ldg(tfs + p) : 0;
-      doc[j] = p < t.cap ? __ldg(docs + p) : 0;
+    for (int j = 0; j < kIn; ++j) {
+      const int p = p0 + j * stride;
+      tf[j] = p < cap ? __ldg(tfs + p) : 0;
+      doc[j] = p < cap ? __ldg(docs + p) : 0;
     }
-    float s[kInFlight], dl[kInFlight];
+    float s[kIn], dl[kIn];
 #pragma unroll
-    for (int j = 0; j < kInFlight; ++j) {
+    for (int j = 0; j < kIn; ++j) {
       if (tf[j] <= 0 || doc[j] > num_docs) doc[j] = -1;   // not added
       s[j] = doc[j] >= 0 ? q_scores[doc[j]] : 0.0f;
       dl[j] = kBm25 && doc[j] >= 0 ? __ldg(a.dl_norm + doc[j]) : 0.0f;
     }
 #pragma unroll
-    for (int j = 0; j < kInFlight; ++j) {
+    for (int j = 0; j < kIn; ++j) {
       if (doc[j] >= 0) {
         const float tff = static_cast<float>(tf[j]);
         float cell;
@@ -218,13 +228,14 @@ extern "C" int tpu_ir_cold_tier(const void* q_tier, const void* rows,
                                 void* scores, int64_t batch,
                                 int64_t num_terms, int64_t width, float k1,
                                 float k1_plus_1, void* stream) {
+  constexpr int64_t kMaxInt = INT32_MAX / 2;   // p0 + stride * kInFlight
   if (num_tiers < 0 || num_tiers > kMaxTiers || batch < 0 ||
-      num_terms < 0 || width < 0)
+      num_terms < 0 || width < 0 || width > kMaxInt)
     return static_cast<int>(cudaErrorInvalidValue);
   Tiers table{};
   const auto* t = static_cast<const int64_t*>(tiers);
   for (int i = 0; i < num_tiers; ++i) {
-    if (t[4 * i + 2] < 0 || t[4 * i + 3] < 0)
+    if (t[4 * i + 2] < 0 || t[4 * i + 3] < 0 || t[4 * i + 3] > kMaxInt)
       return static_cast<int>(cudaErrorInvalidValue);
     table.tier[i] = {reinterpret_cast<const int32_t*>(t[4 * i]),
                      reinterpret_cast<const int32_t*>(t[4 * i + 1]),
