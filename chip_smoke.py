@@ -139,10 +139,7 @@ def kernel_alone(fn, kernel: str, runs: int = TIMED_RUNS) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    # CPU activity too: a CUDA-only session late in this script once held
-    # no kernel event at all, where profile_topk's sessions never failed
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_SETTLE_S)
         for _ in range(runs):
             fn()
@@ -815,8 +812,9 @@ def phase_serve_v3(card: str, idx: str, raw: dict, *, device: str,
 
 COLD_EDGE_WIDTH = 5_001        # D+1 of the cold-tier edge cases
 # tier caps of the edge cases, in tier order (0: an empty tier): caps 1 and
-# 4,096, narrow tiers before wide ones (cap >= 512) as in a real layout;
-# then a wide tier before a narrow one, and an empty tier among wide ones
+# 4,096, warp tiers before block-wide ones (cap >= 2048) as in a real
+# layout; then a wide tier before narrow ones, and an empty tier among the
+# block-wide ones
 COLD_EDGE_CAPS = (1, 2, 8, 0, 32, 512, 4096)
 COLD_EDGE_ORDERS = ((4096, 1, 512, 2), (2, 512, 0, 4096))
 COLD_SHARED_DOC = 7            # the doc the (tier, l)-order query hits
@@ -922,16 +920,67 @@ def cold_edge_checks() -> dict:
     return {"cases": n, "max_abs_diff": 0.0}
 
 
-def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
+def cold_inputs(scorer, q, scoring_name: str):
+    """A query block's per-term arrays (TieredTerms) and BM25's dl_norm
+    (None for TF-IDF) for the cold stage on `scorer`'s layout."""
+    from tpu_ir_torch.ops import scoring
+
+    n = scorer.meta.num_docs
+    if scoring_name == "bm25":
+        weights = scoring.bm25_idf_weights(scorer.df, n)
+        dl_norm = scoring.bm25_dl_norm(scorer.doc_len, n, BM25_B)
+    else:
+        weights = scoring.idf_weights(scorer.df, n, scorer.compat_int_idf)
+        dl_norm = None
+    return scoring.tiered_terms(q, scorer.hot_rank, scorer.tier_of,
+                                scorer.row_of, weights), dl_norm
+
+
+def cold_tier_alone(idx: str, q_block: np.ndarray) -> dict:
+    """Kernel 3 alone (kernel_alone) over the cold stage of `q_block` on
+    the index `idx`, TF-IDF and BM25, each launch one whole stage. Run in a
+    fresh process: late in this script's own process (some ten minutes
+    and nine profiler sessions in) a session holding only these launches
+    twice traced no device event at all, with or without CPU activity,
+    while a fresh process's sessions traced every launch."""
+    import torch
+
+    from tpu_ir_torch.ops import cold_tier
+    from tpu_ir_torch.search import Scorer
+
+    scorer = Scorer.load(idx, device="cuda")
+    q = torch.from_numpy(q_block).to(scorer.device)
+    out = {}
+    for name in ("tfidf", "bm25"):
+        terms, dl_norm = cold_inputs(scorer, q, name)
+        acc = torch.zeros((q.shape[0], scorer.meta.num_docs + 1),
+                          device=scorer.device)
+        out[name] = kernel_alone(
+            lambda: cold_tier.cold_stage(acc, terms.tier, terms.row,
+                                         terms.q_w, scorer.cold_tiers,
+                                         dl_norm=dl_norm, k1=K1),
+            "cold_tier")
+    return out
+
+
+def phase_cold_tier(card: str, scorer, idx: str, q_block: np.ndarray
+                    ) -> dict:
     """Kernel 3 (cold_tier) against its plain twin over the whole cold
-    stage (every tier, in order, one launch) of one query block, TF-IDF and
-    BM25, with the wrapper's time, the kernel's time alone (its own
-    profiler session), the twin's and one library yardstick's; then at the
-    edge cases (cold_edge_checks)."""
+    stage (every tier, in order, one launch) of one query block of the
+    index `idx` loaded as `scorer`, TF-IDF and BM25, with the wrapper's
+    time, the kernel's time alone (cold_tier_alone, in a child process),
+    the twin's and one library yardstick's; then at the edge cases
+    (cold_edge_checks)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from tpu_ir_torch.ops import cold_tier, scoring
 
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        alone_by_scoring = ex.submit(cold_tier_alone, idx, q_block).result()
     dev = scorer.device
     n = scorer.meta.num_docs
     width = n + 1
@@ -945,14 +994,7 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
                                    for t in tiers.docs]},
            "tolerance": KERNEL_TOL}
     for name in ("tfidf", "bm25"):
-        if name == "bm25":
-            weights = scoring.bm25_idf_weights(scorer.df, n)
-            dl_norm = scoring.bm25_dl_norm(scorer.doc_len, n, BM25_B)
-        else:
-            weights = scoring.idf_weights(scorer.df, n, scorer.compat_int_idf)
-            dl_norm = None
-        terms = scoring.tiered_terms(q, scorer.hot_rank, scorer.tier_of,
-                                     scorer.row_of, weights)
+        terms, dl_norm = cold_inputs(scorer, q, name)
 
         def stage(acc, fn):
             fn(acc, terms.tier, terms.row, terms.q_w, tiers,
@@ -973,8 +1015,7 @@ def phase_cold_tier(card: str, scorer, q_block: np.ndarray) -> dict:
             raise AssertionError("the cold stage scored nothing")
         acc = torch.zeros_like(got)
         ms = cuda_ms(lambda: stage(acc, cold_tier.cold_stage))
-        alone = kernel_alone(lambda: stage(acc, cold_tier.cold_stage),
-                             "cold_tier")
+        alone = alone_by_scoring[name]
         plain_ms = cuda_ms(lambda: stage(acc, cold_tier.cold_stage_plain))
 
         # yardstick only (the port never calls it): one scatter_add_ per
@@ -1143,7 +1184,8 @@ def main() -> int:
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")
         emit(wserve)
-        cold = phase_cold_tier(card, scorer, q_ids[:scorer._block_size()])
+        cold = phase_cold_tier(card, scorer, widx,
+                               q_ids[:scorer._block_size()])
         cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
         # the kernel's device time in one profiled 10k topk (serve phase)
         cold["kernel_per_10k_topk"] = {

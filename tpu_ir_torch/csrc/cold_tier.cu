@@ -10,7 +10,8 @@
 //
 //     for b, for t in tier order, for l = 0..L-1 with q_tier[b, l] == t and
 //       w[b, l] != 0, r = row[b, l] clamped into 0..V_t-1:
-//       for every slot p with tf = tfs_t[r, p] > 0 and doc = docs_t[r, p] <= D:
+//       for every slot p with tf = tfs_t[r, p] > 0 and
+//                                 doc = docs_t[r, p] <= D:
 //         scores[b, doc] += cell(tf, doc) * w[b, l]
 //
 // where cell is 1 + ln tf (TF-IDF) or the BM25 saturation
@@ -20,11 +21,12 @@
 // Empty tiers (V_t = 0 or P_t = 0) stay in the table and add nothing.
 //
 // Bound on an H100: bytes; what holds it far above that bound is the fixed
-// cost of a launch and the latency of dependent round trips. Each in-tier term with w != 0 reads
-// its row (P_t * 8 bytes of docs and tfs); each posting reads and writes one
-// 4-byte score, and BM25 reads 4 bytes of dl_norm. At wiki100k a 2,499-query
-// block needs 5.5 MB, 1.65 us at 3.35 TB/s: less than the device's fixed
-// cost of one launch, so the stage is one launch, not one per tier. The
+// cost of a launch and the latency of dependent round trips. Each in-tier
+// term with w != 0 reads its row (P_t * 8 bytes of docs and tfs); each
+// posting reads and writes one 4-byte score, and BM25 reads 4 bytes of
+// dl_norm. At wiki100k a 2,499-query block needs 5.5 MB, 1.65 us at
+// 3.35 TB/s: less than the device's fixed cost of one launch, so the stage
+// is one launch, not one per tier. The
 // score cells are scattered (random docs): each touch moves a 32-byte
 // sector, not 4 bytes, and the byte bound counts neither that nor the
 // chain each query makes: its term ids, then per term its row, then that
@@ -55,8 +57,9 @@
 //
 // Rounding: the round-to-nearest intrinsics keep nvcc from contracting a
 // multiply and an add into an FMA, and logf (never __logf, never
-// --use_fast_math) rounds as torch.log does on the card. Offsets are 64-bit:
-// b * (D+1) reaches 2.5e8 within a block of queries at 100,000 docs.
+// --use_fast_math) rounds as torch.log does on the card. The offsets of
+// rows are 64-bit: b * (D+1) reaches 2.5e8 within a block of queries at
+// 100,000 docs; offsets within a row are 32-bit.
 
 #include <cuda_runtime.h>
 

@@ -32,7 +32,9 @@ import torch
 
 from .scoring import _lntf, bm25_saturation
 
-MAX_TIERS = 16          # csrc/cold_tier.cu kMaxTiers: log4 of 2^32 docs
+# csrc/cold_tier.cu kMaxTiers: 16 tiers of cap 2 * 4^t (search/layout.py)
+# reach 2^31, past any int32 df
+MAX_TIERS = 16
 
 _launches = 0
 # the C entry point's parameters: q_tier, rows, weights, tier table;

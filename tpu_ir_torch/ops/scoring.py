@@ -305,8 +305,9 @@ def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
                    k1: float = 0.9) -> torch.Tensor:
     """[B, D+1] exact tiered accumulation (JAX `_tiered_scores` without
     pruning): a zero accumulator, the cold tiers in tier order through
-    one kernel launch, then the hot strip last. `hot_weight_fn` maps the raw-tf
-    strip to its per-cell weights; `dl_norm` selects BM25 cold cells."""
+    one kernel launch, then the hot strip last. `hot_weight_fn` maps the
+    raw-tf strip to its per-cell weights; `dl_norm` selects BM25 cold
+    cells."""
     terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
     scores = torch.zeros((q_terms.shape[0], num_docs + 1),
                          dtype=torch.float32, device=hot_tfs.device)
