@@ -45,8 +45,9 @@ code:
 11. kernels   cold_tier against its plain twin over the whole cold stage
               of one 2,499-query block of the wiki100k traffic (one
               launch for every tier), TF-IDF and BM25, with the same
-              timings and the score cells' 32-byte sectors beside the
-              bound; then bitwise against the twin at edge cases (B = 1,
+              timings (the kernel alone in a child process, each launch
+              on a freshly zeroed accumulator as in serving) and the
+              score cells' 32-byte sectors beside the bound; then bitwise against the twin at edge cases (B = 1,
               2,499 and 70,000 by L = 1, 2, 3 and 9; caps 1 to 4,096, empty
               tiers, wide tiers before narrow ones, zero and 16 tiers);
 12. compress  and serve `wiki100k-v3` as 7 and 8: a bf16 hot strip, top-10
@@ -938,11 +939,14 @@ def cold_inputs(scorer, q, scoring_name: str):
 
 def cold_tier_alone(idx: str, q_block: np.ndarray) -> dict:
     """Kernel 3 alone (kernel_alone) over the cold stage of `q_block` on
-    the index `idx`, TF-IDF and BM25, each launch one whole stage. Run in a
-    fresh process: late in this script's own process (some ten minutes
-    and nine profiler sessions in) a session holding only these launches
-    twice traced no device event at all, with or without CPU activity,
-    while a fresh process's sessions traced every launch."""
+    the index `idx`, TF-IDF and BM25, each launch one whole stage onto a
+    freshly zeroed [B, D+1] accumulator, as serving launches it: the 1 GB
+    memset leaves no row or score sector of the last launch in L2 (the
+    memset is another kernel, not counted). Run in a fresh process: late
+    in this script's own process (some ten minutes and nine profiler
+    sessions in) a session holding only these launches twice traced no
+    device event at all, with or without CPU activity, while a fresh
+    process's sessions traced every launch."""
     import torch
 
     from tpu_ir_torch.ops import cold_tier
@@ -955,11 +959,13 @@ def cold_tier_alone(idx: str, q_block: np.ndarray) -> dict:
         terms, dl_norm = cold_inputs(scorer, q, name)
         acc = torch.zeros((q.shape[0], scorer.meta.num_docs + 1),
                           device=scorer.device)
-        out[name] = kernel_alone(
-            lambda: cold_tier.cold_stage(acc, terms.tier, terms.row,
-                                         terms.q_w, scorer.cold_tiers,
-                                         dl_norm=dl_norm, k1=K1),
-            "cold_tier")
+
+        def stage():
+            acc.zero_()
+            cold_tier.cold_stage(acc, terms.tier, terms.row, terms.q_w,
+                                 scorer.cold_tiers, dl_norm=dl_norm, k1=K1)
+
+        out[name] = kernel_alone(stage, "cold_tier")
     return out
 
 
