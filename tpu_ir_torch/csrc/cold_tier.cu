@@ -224,14 +224,16 @@ cold_tier_kernel(const __grid_constant__ Args a,
 // TF-IDF; scores float32 [B, width], accumulated in place. Device arrays are
 // contiguous on the current device. Launches once on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a table
-// of more than kMaxTiers tiers or a negative size.
+// of more than kMaxTiers tiers, a negative size, or a cap or width past
+// 2^30 (in-row offsets are 32-bit).
 extern "C" int tpu_ir_cold_tier(const void* q_tier, const void* rows,
                                 const void* weights, const void* tiers,
                                 int32_t num_tiers, const void* dl_norm,
                                 void* scores, int64_t batch,
                                 int64_t num_terms, int64_t width, float k1,
                                 float k1_plus_1, void* stream) {
-  constexpr int64_t kMaxInt = INT32_MAX / 2;   // p0 + stride * kInFlight
+  // p0 + stride * kInFlight must stay an int within a row
+  constexpr int64_t kMaxInt = INT32_MAX / 2;
   if (num_tiers < 0 || num_tiers > kMaxTiers || batch < 0 ||
       num_terms < 0 || width < 0 || width > kMaxInt)
     return static_cast<int>(cudaErrorInvalidValue);
