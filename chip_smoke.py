@@ -31,18 +31,39 @@ code:
               TF-IDF and BM25, then topk over 10,000 two-term queries with
               k = 10, checked against an exhaustive numpy oracle (recall@10
               on 64 queries, both scorings) and the kernels' launch counts;
-6. sparse     the same index and queries on the tiered sparse layout,
-              held against the dense layout's top-10 row by row;
-7. compress   `migrate_index(to_version=3)` on a copy of the ref index
+6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
+              over the same queries: q/s, device time, launches;
+7. sparse     the same index and queries on the tiered sparse layout,
+              held against the dense layout's top-10 row by row; then its
+              rerank against the dense layout's (same docs, rtol 1e-6);
+8. compress   `migrate_index(to_version=3)` on a copy of the ref index
               (format v3, tf_dtype "auto");
-8. serve      as 5, on the compressed copy (`ref-v3`): a bf16 raw-tf
+9. serve      as 5, on the compressed copy (`ref-v3`): a bf16 raw-tf
               matrix, TF-IDF through dequant_score, and top-10 bitwise
-              equal to the raw index's for both scorings;
-9. build      the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
+              equal to the raw index's for both scorings; its rerank
+              bitwise the raw index's;
+10. build     the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
               word shapes) indexed into 10 shards on the card;
-10. serve     as 5, on wiki100k, where layout "auto" picks the tiered
-              sparse layout, with one cold_tier launch per query block;
-11. kernels   cold_tier against its plain twin over the whole cold stage
+11. serve     as 5, on wiki100k, where layout "auto" picks the tiered
+              sparse layout and topk runs the MaxScore schedule and
+              block-max (prune, the default): cold_tier launched once per
+              query block and hot_stage once per block holding hot terms;
+12. prune     the same 10,000 queries with prune on and off: q/s, device
+              time, idle share, launches, prune_diag, block-max's stats;
+              on == off bitwise, recall@10 = 1.0; then hot-term traffic
+              (10,000 queries of one hot term and one cold term of df
+              30-300) likewise, and its first 640 queries in batches of
+              64;
+13. rerank    as 6, on wiki100k;
+14. kernels   hot_stage against its plain twin over one 2,499-query block
+              of hot-term traffic, on the whole (1 + ln tf) strip and on
+              a block-max column set (which must give the whole strip's
+              bits), with the same timings (the kernel alone in a child
+              process) beside torch.matmul(w_hot, strip); then bitwise at
+              edge cases (B = 1, 2,499 and 70,000 by L = 1, 2, 3, 9 and
+              40; N = 1, 4,097 and 100,001; repeated terms, slots outside
+              the strip, a query with no hot slot);
+15. kernels   cold_tier against its plain twin over the whole cold stage
               of one 2,499-query block of the wiki100k traffic (one
               launch for every tier), TF-IDF and BM25, with the same
               timings (the kernel alone in a child process, each launch
@@ -50,14 +71,14 @@ code:
               score cells' 32-byte sectors beside the bound; then bitwise against the twin at edge cases (B = 1,
               2,499 and 70,000 by L = 1, 2, 3 and 9; caps 1 to 4,096, empty
               tiers, wide tiers before narrow ones, zero and 16 tiers);
-12. compress  and serve `wiki100k-v3` as 7 and 8: a bf16 hot strip, top-10
+16. compress  and serve `wiki100k-v3` as 8 and 9: a bf16 hot strip, top-10
               bitwise equal to the raw wiki100k index's.
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
 repository, the script exits nonzero before printing any result. On an
-H100 the run takes about seven minutes, most of it the wiki100k
-build's pure-Python analysis on the host.
+H100 the run takes about ten minutes, most of it the wiki100k build's
+pure-Python analysis on the host.
 """
 
 from __future__ import annotations
@@ -91,6 +112,8 @@ LAYOUTS = {"ref": "dense", "wiki100k": "sparse", "ref-v3": "dense",
 MIN_RESIDENT = {"ref": 1e9, "wiki100k": 1e9, "ref-v3": 0.5e9,
                 "wiki100k-v3": 0.5e9}
 K1, BM25_B = 0.9, 0.4          # the port's BM25 constants
+HOT_SMALL_QUERIES = 640         # hot-term traffic served 64 queries a batch
+HOT_SMALL_BATCH = 64
 TIMED_RUNS = 20
 PROFILER_SETTLE_S = 0.05       # idle time at each end of a profiler session
 MIN_TRACED = 0.9               # least share of the launches a trace must hold
@@ -463,9 +486,12 @@ def phase_build(card: str, work: str, *, device: str,
     return out, idx
 
 
-def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
-    """One topk call under torch.profiler: device time by kernel name and
-    the device's idle share of the call's wall time."""
+PORT_KERNELS = ("dense_score", "dequant_score", "cold_tier", "hot_stage")
+
+
+def profile_call(fn) -> dict:
+    """One call of `fn` under torch.profiler: device time by kernel name
+    and the device's idle share of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -473,7 +499,8 @@ def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        scorer.topk(q_ids, k=k, scoring=scoring)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
@@ -488,13 +515,33 @@ def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
     device_ms = sum(r[1] for r in rows)
     # the port's own kernels, wherever they rank
     port = {name: {"ms": ms, "calls": c} for n, ms, c in rows
-            for name in ("dense_score", "dequant_score", "cold_tier")
-            if f"{name}_kernel" in n}
+            for name in PORT_KERNELS if f"{name}_kernel" in n}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": (1 - device_ms / wall_ms) if wall_ms > 0 else None,
             "port_kernels": port,
             "top": [{"kernel": n[:90], "ms": ms, "calls": c}
                     for n, ms, c in rows[:8]]}
+
+
+def profile_topk(scorer, q_ids: np.ndarray, k: int, scoring: str) -> dict:
+    """One topk call under torch.profiler (profile_call)."""
+    return profile_call(lambda: scorer.topk(q_ids, k=k, scoring=scoring))
+
+
+def scheduled_blocks(scorer, q: np.ndarray) -> tuple[int, int]:
+    """(query blocks that skip the hot stage, blocks that run it) of one
+    topk of `q`: the MaxScore schedule on the tiered layout with prune,
+    every block otherwise."""
+    block = scorer._block_size()
+    ceil = lambda n: -(-n // block)  # noqa: E731
+    if scorer.layout != "sparse" or not scorer.prune:
+        return 0, ceil(len(q))
+    _, n_free, mode = scorer._skip_plan(q)
+    if mode == "all_skip":
+        return ceil(len(q)), 0
+    if mode == "all_full":
+        return 0, ceil(len(q))
+    return ceil(n_free), ceil(len(q) - n_free)
 
 
 def oracle_topk(q: np.ndarray, df: np.ndarray, pair_doc: np.ndarray,
@@ -623,15 +670,18 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
     v = scorer.meta.vocab_size
     q_ids = rng.integers(0, v, size=(n_queries, REF_QUERY_TERMS)).astype(
         np.int32)
-    results, walls, per_topk = {}, {}, {}
+    results, walls, per_topk, blockmax = {}, {}, {}, {}
     for scoring in ("tfidf", "bm25"):
         scorer.topk(q_ids, k=k, scoring=scoring)     # warm-up
         before = tpu_ir_torch.kernel_launches()
+        stats = dict(scorer.blockmax_stats)
         t0 = time.perf_counter()
         results[scoring] = scorer.topk(q_ids, k=k, scoring=scoring)
         walls[scoring] = time.perf_counter() - t0    # host arrays: synced
         after = tpu_ir_torch.kernel_launches()
         per_topk[scoring] = {n: after[n] - before[n] for n in after}
+        blockmax[scoring] = {n: v - stats[n]
+                             for n, v in scorer.blockmax_stats.items()}
     launches = tpu_ir_torch.kernel_launches()
     peak = torch.cuda.max_memory_allocated() if on_cuda else None
     profiles = ({s: profile_topk(scorer, q_ids, k, s)
@@ -641,16 +691,21 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
         if sc.shape != (n_queries, k) or dn.shape != (n_queries, k) \
                 or not np.isfinite(sc).all():
             raise AssertionError(f"{scoring} topk returned malformed scores")
-    kernel = ("cold_tier" if scorer.layout == "sparse" else
-              "dense_score" if scorer.doc_matrix is not None
-              else "dequant_score")
-    if on_cuda and launches[kernel] == 0:
-        raise AssertionError(f"the serve phase never launched {kernel}")
-    blocks = -(-n_queries // scorer._block_size())
+    kernels = (("cold_tier", "hot_stage") if scorer.layout == "sparse" else
+               ("dense_score",) if scorer.doc_matrix is not None
+               else ("dequant_score",))
+    for kernel in kernels:
+        if on_cuda and launches[kernel] == 0:
+            raise AssertionError(f"the serve phase never launched {kernel}")
+    skip_blocks, full_blocks = scheduled_blocks(scorer, q_ids)
     if on_cuda and scorer.layout == "sparse" and any(
-            c["cold_tier"] != blocks for c in per_topk.values()):
-        raise AssertionError(f"the cold stage must launch once per query "
-                             f"block ({blocks} a topk): {per_topk}")
+            (c["cold_tier"], c["hot_stage"])
+            != (skip_blocks + full_blocks, full_blocks)
+            for c in per_topk.values()):
+        raise AssertionError(
+            f"the cold stage must launch once per query block and the hot "
+            f"stage once per block that holds hot terms ({skip_blocks} + "
+            f"{full_blocks} a topk): {per_topk}")
     if on_cuda and resident < MIN_RESIDENT[config]:
         raise AssertionError(f"only {resident} bytes resident on the card; "
                              f"{config} should hold > "
@@ -675,6 +730,9 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
            "tfidf_s": walls["tfidf"], "tfidf_qps": n_queries / walls["tfidf"],
            "bm25_s": walls["bm25"], "bm25_qps": n_queries / walls["bm25"],
            "launches": launches, "launches_per_topk": per_topk,
+           "blocks_skip_hot_full": [skip_blocks, full_blocks],
+           "prune_diag": scorer.prune_diag(q_ids),
+           "blockmax_per_topk": blockmax,
            "oracle_queries": ORACLE_QUERIES,
            "recall_at_10": min(o["recall_at_10"] for o in oracle.values()),
            "oracle_max_rel_err": max(o["max_rel_err"]
@@ -921,6 +979,47 @@ def cold_edge_checks() -> dict:
     return {"cases": n, "max_abs_diff": 0.0}
 
 
+HOT_EDGE_ROWS = 37             # H of the hot-stage edge cases
+
+
+def hot_edge_case(seed: int, batch: int, terms: int, width: int, device,
+                  *, strip_rows: int = HOT_EDGE_ROWS):
+    """One hot-stage edge case on `device`: (start scores float32 [B,
+    width] in [0, 1), slot rows int32 [B, L], weights float32 [B, L], a
+    weighted strip float32 [H, width] with 30% zero cells). The slots come
+    from hot_slots over random terms (60% hot, 10% zero weights), so
+    repeated terms are folded as in serving; then some slots get rows
+    past H, which add nothing. Query 0 holds no hot slot and starts at
+    -0.0 everywhere, which must stay; query 1 repeats one hot row, with
+    no zero cell, in every slot. The same arguments give the same
+    case."""
+    import torch
+
+    from tpu_ir_torch.ops.hot_stage import hot_slots
+
+    rng = np.random.default_rng(seed)
+    rank = rng.integers(0, strip_rows, (batch, terms)).astype(np.int32)
+    is_hot = rng.random((batch, terms)) < 0.6
+    q_w = rng.uniform(0.05, 2.0, (batch, terms)).astype(np.float32)
+    q_w[rng.random((batch, terms)) < 0.1] = 0.0
+    is_hot[0] = False
+    if batch > 1:
+        rank[1], is_hot[1], q_w[1] = rank[1, 0], True, 1.25
+    rows, w = hot_slots(*(torch.from_numpy(a) for a in (rank, is_hot, q_w)))
+    rows = rows.numpy()
+    past = (rng.random((batch, terms)) < 0.05) & (rows >= 0)
+    past[1:2] = False
+    rows[past] = strip_rows + 3
+    strip = rng.uniform(0.0, 4.0, (strip_rows, width)).astype(np.float32)
+    strip[rng.random((strip_rows, width)) < 0.3] = 0.0
+    strip[rank[min(batch - 1, 1), 0]] += 0.5
+    start = rng.random((batch, width), np.float32)
+    start[0] = -0.0
+    dev = torch.device(device)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return up(start), up(rows), w.to(dev), up(strip)
+
+
 def cold_inputs(scorer, q, scoring_name: str):
     """A query block's per-term arrays (TieredTerms) and BM25's dl_norm
     (None for TF-IDF) for the cold stage on `scorer`'s layout."""
@@ -1080,6 +1179,340 @@ def phase_cold_tier(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
+def same_bits(a: tuple, b: tuple) -> bool:
+    """Whether two (scores, docnos) host results are bitwise equal."""
+    return (np.array_equal(a[1], b[1])
+            and np.asarray(a[0]).tobytes() == np.asarray(b[0]).tobytes())
+
+
+def hot_traffic(scorer, n: int, seed: int = 3) -> np.ndarray:
+    """int32 [n, 2] queries of one hot term and one cold term of df
+    30-300 (the `mixed` regime of tests/test_blockmax.py, where
+    block-max is meant to engage), both uniform over their sets."""
+    rng = np.random.default_rng(seed)
+    hot_rank = scorer._hot_rank_host
+    df = scorer._df_host
+    hot = np.nonzero(hot_rank >= 0)[0]
+    mid = np.nonzero((hot_rank < 0) & (df >= 30) & (df <= 300))[0]
+    if not len(mid):                 # a small test index: any cold term
+        mid = np.nonzero((hot_rank < 0) & (df > 0))[0]
+    return np.stack([rng.choice(hot, n), rng.choice(mid, n)],
+                    axis=1).astype(np.int32)
+
+
+def phase_prune(card: str, scorer, idx: str, q_ids: np.ndarray, *,
+                traffic: str, device: str, batch: int | None = None,
+                k: int = 10) -> dict:
+    """The tiered layout's batch `q_ids` served with prune on (the
+    MaxScore schedule and block-max, the default) and off, on one scorer
+    with the flag toggled, TF-IDF and BM25: q/s, launches by kernel,
+    block-max's stats, prune_diag and (whole batches on the card) device
+    time and idle share of one profiled topk. `batch` serves the queries
+    in batches of that size. Fails unless on == off bitwise and, for the
+    prune-on results, recall@10 = 1.0 against the float64 oracle."""
+    import tpu_ir_torch
+    from tpu_ir_torch.search.scorer import _assemble_csr
+
+    size = batch or len(q_ids)
+
+    def run(scoring):
+        parts = [scorer.topk(q_ids[lo:lo + size], k=k, scoring=scoring)
+                 for lo in range(0, len(q_ids), size)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    out = {"phase": "prune", "card": card, "config": "wiki100k",
+           "traffic": traffic, "queries": len(q_ids), "batch": size, "k": k}
+    results = {}
+    for prune in (True, False):
+        scorer.prune = prune
+        row = {"prune_diag": scorer.prune_diag(q_ids[:size]),
+               "blocks_skip_hot_full": scheduled_blocks(scorer,
+                                                        q_ids[:size])}
+        for scoring in ("tfidf", "bm25"):
+            run(scoring)                                  # warm-up
+            before = tpu_ir_torch.kernel_launches()
+            stats = dict(scorer.blockmax_stats)
+            t0 = time.perf_counter()
+            results[prune, scoring] = run(scoring)
+            wall = time.perf_counter() - t0
+            after = tpu_ir_torch.kernel_launches()
+            bm = {n: v - stats[n] for n, v in scorer.blockmax_stats.items()}
+            row[scoring] = {
+                "s": wall, "qps": len(q_ids) / wall,
+                "launches": {n: after[n] - before[n] for n in after},
+                "blockmax": bm,
+                "masked_share": (bm["blocks_masked"]
+                                 / bm["blocks_considered"]
+                                 if bm["blocks_considered"] else None)}
+            if device == "cuda" and batch is None:
+                row[scoring]["profile"] = profile_topk(scorer, q_ids, k,
+                                                       scoring)
+        out["on" if prune else "off"] = row
+    scorer.prune = True
+    out["bitwise_on_equals_off"] = {}
+    for scoring in ("tfidf", "bm25"):
+        on, off = results[True, scoring], results[False, scoring]
+        if not same_bits(on, off):
+            rows = int(((on[1] != off[1]) | (on[0].view(np.int32)
+                                             != off[0].view(np.int32))
+                        ).any(1).sum())
+            raise AssertionError(f"{traffic} {scoring}: prune on differs "
+                                 f"from prune off in {rows} rows")
+        out["bitwise_on_equals_off"][scoring] = True
+    if batch is None:
+        postings = _assemble_csr(idx, scorer.meta)
+        oracle = {s: oracle_check(scorer, postings, q_ids,
+                                  *results[True, s], scoring=s, k=k)
+                  for s in ("tfidf", "bm25")}
+        del postings
+        out["recall_at_10"] = min(o["recall_at_10"] for o in oracle.values())
+        out["oracle"] = oracle
+    return out
+
+
+def phase_rerank(card: str, scorer, q_ids: np.ndarray, *, config: str,
+                 device: str, want: tuple | None = None,
+                 bitwise: bool = False, k: int = 10,
+                 candidates: int = 1000) -> tuple[dict, tuple]:
+    """rerank_topk (BM25 top-`candidates`, then cosine TF-IDF, k = 10) over
+    `q_ids` on a loaded scorer: q/s, launches by kernel, and on the card
+    device time and idle share of one profiled rerank. The doc norms are
+    computed in a first, untimed call. With `want`, the result must equal
+    it bitwise (`bitwise`) or rank alike with scores within rtol 1e-6.
+    Returns (report, (scores, docnos))."""
+    import tpu_ir_torch
+
+    t0 = time.perf_counter()
+    scorer.rerank_topk(q_ids[:64], k=k, candidates=candidates)
+    setup_s = time.perf_counter() - t0
+    before = tpu_ir_torch.kernel_launches()
+    t0 = time.perf_counter()
+    result = scorer.rerank_topk(q_ids, k=k, candidates=candidates)
+    wall = time.perf_counter() - t0
+    after = tpu_ir_torch.kernel_launches()
+    sc, dn = result
+    if sc.shape != (len(q_ids), k) or not np.isfinite(sc).all() \
+            or not (dn > 0).any():
+        raise AssertionError(f"{config}: the rerank returned malformed "
+                             "results")
+    out = {"phase": "rerank", "card": card, "config": config,
+           "layout": scorer.layout, "queries": len(q_ids), "k": k,
+           "candidates": candidates, "norms_and_warmup_s": setup_s,
+           "s": wall, "qps": len(q_ids) / wall,
+           "launches": {n: after[n] - before[n] for n in after}}
+    if device == "cuda":
+        out["profile"] = profile_call(lambda: scorer.rerank_topk(
+            q_ids, k=k, candidates=candidates))
+    if want is not None:
+        if bitwise:
+            if not same_bits(want, result):
+                raise AssertionError(f"{config}: the rerank differs from "
+                                     "the reference bitwise")
+            out["bitwise_equal"] = True
+        else:
+            rel, bad = same_ranking(want, result, rtol=1e-6)
+            if rel > 1e-6 or bad:
+                raise AssertionError(f"{config}: the rerank disagrees (max "
+                                     f"rel {rel}, {bad} rows with other "
+                                     "ids)")
+            out["max_rel_diff"], out["rows_with_other_ids"] = rel, bad
+    return out, result
+
+
+def hot_inputs(scorer, q_block: np.ndarray):
+    """A TF-IDF query block's hot-stage inputs on `scorer`'s tiered
+    layout: (base float32 [B, D+1], the block's cold partial; slot rows
+    and weights [B, L]; the float32 (1 + ln tf) strip [H, D+1])."""
+    import torch
+
+    from tpu_ir_torch.ops import scoring
+    from tpu_ir_torch.ops.hot_stage import hot_slots
+
+    q = torch.from_numpy(q_block).to(scorer.device)
+    terms, _ = cold_inputs(scorer, q, "tfidf")
+    base = torch.zeros((q.shape[0], scorer.meta.num_docs + 1),
+                       device=scorer.device)
+    scoring.cold_stage(base, terms, scorer.cold_tiers)
+    rows, w = hot_slots(terms.rank, terms.is_hot, terms.q_w)
+    return base, rows, w, scoring._lntf(scorer.hot_tfs)
+
+
+def hot_stage_alone(idx: str, q_block: np.ndarray) -> dict:
+    """The hot-stage kernel alone (kernel_alone) on `q_block`'s inputs
+    (hot_inputs) over the whole strip, each launch onto a fresh copy of
+    the cold partial, as serving adds to a partial the cold stage just
+    wrote; run in a fresh process, as cold_tier_alone is."""
+    from tpu_ir_torch.ops import hot_stage
+    from tpu_ir_torch.search import Scorer
+
+    scorer = Scorer.load(idx, device="cuda")
+    base, rows, w, strip = hot_inputs(scorer, q_block)
+    acc = base.clone()
+
+    def stage():
+        acc.copy_(base)
+        hot_stage.hot_stage(acc, rows, w, strip)
+
+    return kernel_alone(stage, "hot_stage")
+
+
+def hot_edge_checks() -> dict:
+    """The hot-stage kernel bitwise against its twin on the card at the
+    edge cases (hot_edge_case): B = 1, 2,499 and 70,000 by L = 1, 2, 3, 9
+    and 40 at N = 1 and 4,097, and B = 1 and 2,499 at the wiki100k width
+    N = 100,001. Its launches here are comparisons, not the main
+    path's."""
+    import torch
+
+    from tpu_ir_torch.ops import hot_stage
+
+    dev = torch.device("cuda")
+    cases = [(b, l, n) for b in (1, 2_499, 70_000) for l in (1, 2, 3, 9, 40)
+             for n in (1, 4_097)]
+    cases += [(b, l, 100_001) for b in (1, 2_499) for l in (1, 2, 3, 9, 40)]
+    for i, (b, l, n) in enumerate(cases):
+        start, rows, w, strip = hot_edge_case(i, b, l, n, dev)
+        got, want = start.clone(), start.clone()
+        hot_stage.hot_stage(got, rows, w, strip)
+        hot_stage.hot_stage_plain(want, rows, w, strip)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(
+                f"hot_stage disagrees with its twin at B {b}, L {l}, N {n}:"
+                f" max_abs_diff {float((got - want).abs().max())}")
+        if not torch.equal(got[0].view(torch.int32),
+                           start[0].view(torch.int32)):
+            raise AssertionError(f"hot_stage changed a query with no hot "
+                                 f"slot at B {b}, L {l}, N {n}")
+        if b > 1 and torch.equal(got[1], start[1]):
+            raise AssertionError(f"hot_stage added nothing at B {b}, L {l},"
+                                 f" N {n}")
+        del start, got, want, rows, w, strip
+    torch.cuda.empty_cache()
+    return {"cases": len(cases), "max_abs_diff": 0.0}
+
+
+def hot_bound(rows, strip, width: int) -> dict:
+    """The least time of the hot stage on these inputs: each distinct
+    strip row the slots reference read once over the `width` columns, the
+    score rows of queries with a hot slot read and written once, slots
+    read once; a multiply and an add per live slot and column, and one
+    add per active score cell."""
+    import torch
+
+    live = (rows >= 0) & (rows < strip.shape[0])
+    active = int(live.any(dim=1).sum())
+    n_rows = int(torch.unique(rows[live]).numel())
+    bytes_moved = (n_rows * width * 4 + active * width * 8
+                   + rows.numel() * 8)
+    ops = (2 * int(live.sum()) + active) * width
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": bytes_moved, "distinct_rows": n_rows,
+            "active_queries": active}
+
+
+def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
+                    ) -> dict:
+    """The hot-stage kernel against its plain twin at wiki100k shapes: one
+    block of hot-term queries (every query holds a hot term) over the
+    whole (1 + ln tf) strip, N = D+1, and over a block-max column set
+    (the budget's blocks, every fourth), where it must also give the
+    whole strip's bits at those columns; with the wrapper's time, the
+    kernel's time alone (hot_stage_alone, in a child process), the twin's,
+    the yardstick torch.matmul(w_hot, strip) at the same shapes, and the
+    bound (hot_bound); then the edge cases (hot_edge_checks)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from tpu_ir_torch.ops import hot_stage
+    from tpu_ir_torch.ops.scoring import blockmax_cand_blocks
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        alone = ex.submit(hot_stage_alone, idx, q_block).result()
+    launches_before = hot_stage.hot_stage_launches()
+    base, rows, w, strip = hot_inputs(scorer, q_block)
+    b, width = base.shape
+    h = strip.shape[0]
+    out = {"phase": "kernels", "card": card, "name": "hot_stage",
+           "shape": {"B": b, "L": rows.shape[1], "H": h, "N": width},
+           "tolerance": KERNEL_TOL}
+    if not bool(((rows >= 0).any(dim=1)).all()):
+        raise AssertionError("every query of the block must hold a hot term")
+
+    got, want = base.clone(), base.clone()
+    hot_stage.hot_stage(got, rows, w, strip)
+    hot_stage.hot_stage_plain(want, rows, w, strip)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not torch.equal(
+            got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"hot_stage disagrees with its plain twin: "
+                             f"max_abs_diff {max_abs}")
+    # timed in place on one accumulator: each call adds the same work
+    acc = base.clone()
+    ms = cuda_ms(lambda: hot_stage.hot_stage(acc, rows, w, strip))
+    plain_ms = cuda_ms(lambda: hot_stage.hot_stage_plain(acc, rows, w,
+                                                         strip))
+    # yardstick only (the port never calls it): the JAX package's hot
+    # product, a [B, H] weight row times the strip
+    w_hot = torch.zeros((b, h + 1), device=base.device)
+    w_hot.scatter_add_(1, torch.where(rows >= 0, rows, h).long(), w)
+    w_hot = w_hot[:, :h].contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(w_hot, strip))
+    lib_diff = float((base + torch.matmul(w_hot, strip) - got).abs().max())
+    bound = hot_bound(rows, strip, width)
+    out["full"] = {"max_abs_diff": max_abs, "ms": ms,
+                   **bandwidth(bound, alone), "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "library": "torch.matmul(w_hot [B, H], strip [H, D+1])",
+                   "library_max_abs_diff": lib_diff, **bound}
+
+    # a block-max column set: the default budget's blocks, every fourth
+    bw = scorer._blockmax_width
+    cand = blockmax_cand_blocks(10, scorer.meta.num_docs, bw)
+    nblk = -(-width // bw)
+    sel = torch.arange(0, nblk, max(nblk // cand, 1),
+                       device=base.device)[:cand]
+    cols = (sel[:, None] * bw + torch.arange(bw, device=base.device)
+            ).reshape(-1)
+    cols = cols[cols < width]
+    sub_strip = strip.index_select(1, cols).contiguous()
+    sub_base = base.index_select(1, cols).contiguous()
+    sub_got, sub_want = sub_base.clone(), sub_base.clone()
+    hot_stage.hot_stage(sub_got, rows, w, sub_strip)
+    hot_stage.hot_stage_plain(sub_want, rows, w, sub_strip)
+    torch.cuda.synchronize()
+    if not (torch.equal(sub_got.view(torch.int32),
+                        sub_want.view(torch.int32))
+            and torch.equal(sub_got.view(torch.int32),
+                            got.index_select(1, cols).view(torch.int32))):
+        raise AssertionError("hot_stage over a block-max column set "
+                             "disagrees with its twin or the whole strip")
+    sub_acc = sub_base.clone()
+    sub_bound = hot_bound(rows, sub_strip, len(cols))
+    out["blockmax_columns"] = {
+        "N": len(cols), "blocks": int(len(sel)), "width": bw,
+        "bitwise_equal_to_whole_strip": True,
+        "ms": cuda_ms(lambda: hot_stage.hot_stage(sub_acc, rows, w,
+                                                  sub_strip)),
+        "plain_ms": cuda_ms(lambda: hot_stage.hot_stage_plain(
+            sub_acc, rows, w, sub_strip)),
+        "library_ms": cuda_ms(lambda: torch.matmul(w_hot, sub_strip)),
+        **sub_bound}
+    del got, want, acc, sub_got, sub_want, sub_acc, sub_strip, strip
+    torch.cuda.empty_cache()
+    out["edge_checks"] = hot_edge_checks()
+    out["launches_while_comparing"] = (hot_stage.hot_stage_launches()
+                                       - launches_before)
+    return out
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel in nvcc's
     `-Xptxas -v` output."""
@@ -1150,6 +1583,8 @@ def main() -> int:
               "repository root", file=sys.stderr)
         return 2
 
+    from tpu_ir_torch.search import Scorer
+
     card = card_line()
     emit(build_kernels(card))
     emit(phase_env(card))
@@ -1171,15 +1606,24 @@ def main() -> int:
         emit(build)
         serve, scorer, q_ids, dense = phase_serve(card, idx, device="cuda")
         emit(serve)
+        rerank, ref_rerank = phase_rerank(card, scorer, q_ids, config="ref",
+                                          device="cuda")
+        emit(rerank)
         del scorer
         torch.cuda.empty_cache()
         emit(phase_sparse_check(card, idx, q_ids, dense, device="cuda"))
+        tiered = Scorer.load(idx, layout="sparse", device="cuda")
+        emit(phase_rerank(card, tiered, q_ids, config="ref-tiered",
+                          device="cuda", want=ref_rerank)[0])
+        del tiered
         torch.cuda.empty_cache()
         comp, v3 = phase_compress(card, idx, work, config="ref")
         emit(comp)
         serve_v3, scorer = phase_serve_v3(card, v3, dense, device="cuda",
                                           config="ref-v3")
         emit(serve_v3)
+        emit(phase_rerank(card, scorer, q_ids, config="ref-v3",
+                          device="cuda", want=ref_rerank, bitwise=True)[0])
         del scorer
         shutil.rmtree(v3)
         torch.cuda.empty_cache()
@@ -1190,6 +1634,24 @@ def main() -> int:
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")
         emit(wserve)
+        emit(phase_prune(card, scorer, widx, q_ids, traffic="uniform",
+                         device="cuda"))
+        hot_q = hot_traffic(scorer, REF_QUERIES)
+        emit(phase_prune(card, scorer, widx, hot_q, traffic="hot",
+                         device="cuda"))
+        emit(phase_prune(card, scorer, widx, hot_q[:HOT_SMALL_QUERIES],
+                         traffic="hot", device="cuda",
+                         batch=HOT_SMALL_BATCH))
+        emit(phase_rerank(card, scorer, q_ids, config="wiki100k",
+                          device="cuda")[0])
+        torch.cuda.empty_cache()
+        hot = phase_hot_stage(card, scorer, widx,
+                              hot_q[:scorer._block_size()])
+        hot["kernel_per_10k_topk"] = {
+            s: wserve["profile"][s]["port_kernels"].get("hot_stage")
+            for s in ("tfidf", "bm25")}
+        emit(hot)
+        torch.cuda.empty_cache()
         cold = phase_cold_tier(card, scorer, widx,
                                q_ids[:scorer._block_size()])
         cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
@@ -1223,7 +1685,10 @@ def main() -> int:
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
-                   replaces="experiments/cold_tier_bench.py:42")]})
+                   replaces="experiments/cold_tier_bench.py:42"),
+        kernel_row("hot_stage", hot["full"], wserve["launches"]["hot_stage"],
+                   source="tpu_ir_torch/csrc/hot_stage.cu",
+                   replaces="tpu_ir/ops/scoring.py:290")]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

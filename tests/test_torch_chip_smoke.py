@@ -56,14 +56,16 @@ def test_build_and_serve_phases_on_cpu(tmp_path, monkeypatch):
     assert serve["layout"] == "dense"
     # CPU: the plain twins, no launch
     assert serve["launches"] == {"dense_score": 0, "dequant_score": 0,
-                                 "cold_tier": 0}
+                                 "cold_tier": 0,
+                                 "hot_stage": 0}
     json.dumps(serve)
     check = chip_smoke.phase_sparse_check("cpu", idx, q_ids, dense,
                                           device="cpu")
     assert check["tfidf"]["rows_with_other_ids"] == 0
     assert check["bm25"]["max_rel_diff"] <= chip_smoke.ORACLE_RTOL
     assert check["launches"] == {"dense_score": 0, "dequant_score": 0,
-                                 "cold_tier": 0}
+                                 "cold_tier": 0,
+                                 "hot_stage": 0}
     json.dumps(check)
 
 
@@ -84,7 +86,8 @@ def test_wiki100k_phases_on_cpu(tmp_path, monkeypatch):
         "cpu", idx, device="cpu", config="wiki100k")
     assert serve["layout"] == "sparse" and scorer.layout == "sparse"
     assert serve["launches"] == {"dense_score": 0, "dequant_score": 0,
-                                 "cold_tier": 0}
+                                 "cold_tier": 0,
+                                 "hot_stage": 0}
     assert serve["recall_at_10"] == 1.0
     assert serve["oracle_max_rel_err"] <= chip_smoke.ORACLE_RTOL
     tiers = serve["tiers"]
@@ -195,3 +198,79 @@ def test_oracle_bm25_matches_the_formula():
     assert scores[1] == pytest.approx(w(3, 2, 3), rel=1e-6)
     assert scores[2] == pytest.approx(w(1, 2, 5) + w(2, 1, 5), rel=1e-6)
     assert top == sorted([1, 2], key=lambda d: -scores[d])
+
+
+def test_prune_and_rerank_phases_on_cpu(tmp_path, monkeypatch):
+    """The prune phase (on == off bitwise, the oracle's recall) on uniform
+    and hot-term traffic, whole and in small batches, and the rerank phase
+    on the dense and the tiered layout, at a small size on the CPU."""
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=300, target_bytes=300_000, vocab_size=3_000))
+    monkeypatch.setattr(chip_smoke, "REF_QUERIES", 300)
+    monkeypatch.setattr(chip_smoke, "ORACLE_QUERIES", 32)
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10_000)
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    serve, scorer, q_ids, _ = chip_smoke.phase_serve(
+        "cpu", idx, device="cpu", config="wiki100k")
+    assert serve["prune_diag"] == scorer.prune_diag(q_ids)
+    assert set(serve["blockmax_per_topk"]) == {"tfidf", "bm25"}
+    uniform = chip_smoke.phase_prune("cpu", scorer, idx, q_ids,
+                                     traffic="uniform", device="cpu")
+    assert uniform["bitwise_on_equals_off"] == {"tfidf": True, "bm25": True}
+    assert uniform["recall_at_10"] == 1.0
+    assert uniform["off"]["prune_diag"] == {"prune_applicable": False}
+    assert scorer.prune
+    hot_q = chip_smoke.hot_traffic(scorer, 200)
+    assert (scorer._hot_rank_host[hot_q[:, 0]] >= 0).all()
+    assert (scorer._hot_rank_host[hot_q[:, 1]] < 0).all()
+    hot = chip_smoke.phase_prune("cpu", scorer, idx, hot_q, traffic="hot",
+                                 device="cpu")
+    assert hot["on"]["prune_diag"]["prune_hot_free_query_fraction"] == 0.0
+    small = chip_smoke.phase_prune("cpu", scorer, idx, hot_q[:70],
+                                   traffic="hot", device="cpu", batch=16)
+    assert small["batch"] == 16 and "recall_at_10" not in small
+    json.dumps([serve, uniform, hot, small])
+
+    dense = Scorer.load(idx, layout="dense", device="cpu")
+    rr, want = chip_smoke.phase_rerank("cpu", dense, q_ids, config="x",
+                                       device="cpu", candidates=50)
+    assert rr["layout"] == "dense" and rr["qps"] > 0
+    rt, _ = chip_smoke.phase_rerank("cpu", scorer, q_ids, config="y",
+                                    device="cpu", want=want, candidates=50)
+    assert rt["rows_with_other_ids"] == 0
+    with pytest.raises(AssertionError, match="bitwise"):
+        chip_smoke.phase_rerank("cpu", scorer, q_ids, config="z",
+                                device="cpu", want=(want[0] + 1, want[1]),
+                                bitwise=True, candidates=50)
+    json.dumps([rr, rt])
+
+
+def test_hot_stage_inputs_and_bound_on_cpu(tmp_path, monkeypatch):
+    """hot_inputs and hot_bound on a small tiered index: every query of
+    hot-term traffic holds one hot slot; the bound counts the distinct
+    rows, the active score rows and the slots."""
+    from tpu_ir_torch.ops import hot_stage
+    from tpu_ir_torch.search import Scorer
+
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    scorer = Scorer.load(idx, layout="sparse", device="cpu")
+    q = chip_smoke.hot_traffic(scorer, 40)
+    base, rows, w, strip = chip_smoke.hot_inputs(scorer, q)
+    assert base.shape == (40, 201) and strip.shape[1] == 201
+    assert ((rows >= 0).sum(dim=1) == 1).all()
+    got = base.clone()
+    hot_stage.hot_stage(got, rows, w, strip)
+    want = scorer.topk(q, k=5)
+    assert want[1].any()
+    bound = chip_smoke.hot_bound(rows, strip, 201)
+    n_rows = len(set(rows[rows >= 0].tolist()))
+    assert bound["distinct_rows"] == n_rows and bound["active_queries"] == 40
+    assert bound["bound_bytes"] == n_rows * 201 * 4 + 40 * 201 * 8 + 40 * 2 * 8
+    assert bound["bound_by"] == "bytes"

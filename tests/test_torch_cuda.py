@@ -20,7 +20,13 @@ import tpu_ir_torch
 from tpu_ir_torch.corpus import make_corpus
 from tpu_ir_torch.index import build_index
 from tpu_ir_torch.index.migrate import migrate_index
-from tpu_ir_torch.ops import cold_tier, fused_scoring, postings, scoring
+from tpu_ir_torch.ops import (
+    cold_tier,
+    fused_scoring,
+    hot_stage,
+    postings,
+    scoring,
+)
 from tpu_ir_torch.search import Scorer
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -61,7 +67,8 @@ def test_kernel_bitwise_equals_twin(cuda, shape):
     got = fused_scoring.dense_scores(q, idf, matrix)
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 1,
                                               "dequant_score": 0,
-                                              "cold_tier": 0}
+                                              "cold_tier": 0,
+                                              "hot_stage": 0}
     want = fused_scoring.dense_scores_plain(q, idf, matrix)
     torch.cuda.synchronize()
     assert got.shape == (batch, width) and got.dtype == torch.float32
@@ -112,7 +119,8 @@ def test_dequant_kernel_bitwise_equals_twin_and_kernel1(cuda, shape):
     got = fused_scoring.dense_scores_quantized(q, idf, tf16)
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
                                               "dequant_score": 1,
-                                              "cold_tier": 0}
+                                              "cold_tier": 0,
+                                              "hot_stage": 0}
     want = fused_scoring.dense_scores_quantized_plain(q, idf, tf16)
     k1 = fused_scoring.dense_scores(q, idf, matrix)
     torch.cuda.synchronize()
@@ -172,7 +180,8 @@ def _both_kernels_bitwise(q, idf, tf16, matrix):
     got2 = fused_scoring.dense_scores_quantized(q, idf, tf16)
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 1,
                                               "dequant_score": 1,
-                                              "cold_tier": 0}
+                                              "cold_tier": 0,
+                                              "hot_stage": 0}
     want1 = fused_scoring.dense_scores_plain(q, idf, matrix)
     want2 = fused_scoring.dense_scores_quantized_plain(q, idf, tf16)
     torch.cuda.synchronize()
@@ -438,18 +447,24 @@ def test_tiered_scorer_on_cuda_equals_cpu(cuda, tmp_path):
     assert len(g.cold_tiers) >= 3 and g.hot_tfs.shape[0] > 1
     q = np.random.default_rng(4).integers(
         0, c.meta.vocab_size, (500, 3)).astype(np.int32)
+    # the MaxScore schedule: the hot-free queries' block, then the rest
+    _, _, mode = g._skip_plan(q)
+    blocks = 2 if mode == "split" else 1
     for scoring_name in ("tfidf", "bm25"):
         tpu_ir_torch.reset_kernel_launches()
         gs, gd = g.topk(q, scoring=scoring_name)
-        # one launch per query block: 500 queries fit one block
+        # one launch per query block: each group fits one block
         assert g._block_size() >= 500
-        assert tpu_ir_torch.kernel_launches()["cold_tier"] == 1
+        assert tpu_ir_torch.kernel_launches()["cold_tier"] == blocks
         cs, cd = c.topk(q, scoring=scoring_name)
         np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
         assert (gd == cd).mean() > 0.99
 
 
 def test_hot_stage_refuses_tf32(cuda):
+    """The hot stage is no matrix product: with TF32 allowed for float32
+    products it still adds in full float32, bitwise its twin (the name
+    dates from the torch.matmul hot stage, which refused TF32)."""
     terms = scoring.TieredTerms(
         q_w=torch.ones((2, 1), device=cuda),
         rank=torch.zeros((2, 1), dtype=torch.int32, device=cuda),
@@ -457,14 +472,154 @@ def test_hot_stage_refuses_tf32(cuda):
         tier=torch.full((2, 1), -1, dtype=torch.int32, device=cuda),
         row=torch.zeros((2, 1), dtype=torch.int32, device=cuda))
     scores = torch.zeros((2, 5), device=cuda)
-    strip = torch.rand((3, 5), device=cuda)
+    strip = torch.rand((3, 5), device=cuda) + 1.0 / 3.0
     before = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
-        with pytest.raises(RuntimeError, match="full float32"):
-            scoring.hot_stage(scores, terms, strip)
+        scoring.hot_stage(scores, terms, strip)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
-    scoring.hot_stage(scores, terms, strip)
     torch.testing.assert_close(scores, strip[0].expand(2, 5), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("width", [1, 4_097])
+@pytest.mark.parametrize("terms", [1, 2, 3, 9, 40])
+@pytest.mark.parametrize("batch", [1, 2_499, 70_000])
+def test_hot_stage_edge_shapes(cuda, batch, terms, width):
+    start, rows, w, strip = chip_smoke.hot_edge_case(
+        batch * 100 + terms, batch, terms, width, cuda)
+    got, want = start.clone(), start.clone()
+    tpu_ir_torch.reset_kernel_launches()
+    hot_stage.hot_stage(got, rows, w, strip)
+    assert tpu_ir_torch.kernel_launches()["hot_stage"] == 1
+    hot_stage.hot_stage_plain(want, rows, w, strip)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # a query with no hot slot keeps its bits, -0.0 included
+    assert torch.equal(got[0].view(torch.int32), start[0].view(torch.int32))
+    if batch > 1:
+        assert not torch.equal(got[1], start[1])
+
+
+@pytest.mark.parametrize("shape", [(2_499, 3, 100_001), (5, 300, 5_001),
+                                   (600, 2, 257)])
+def test_hot_stage_wide_and_long(cuda, shape):
+    """The full wiki100k width, queries longer than the kernel's stage of
+    256 slots, and a batch that needs column tiles."""
+    batch, terms, width = shape
+    start, rows, w, strip = chip_smoke.hot_edge_case(sum(shape), batch,
+                                                     terms, width, cuda)
+    got, want = start.clone(), start.clone()
+    hot_stage.hot_stage(got, rows, w, strip)
+    hot_stage.hot_stage_plain(want, rows, w, strip)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_hot_stage_matches_cpu_twin(cuda):
+    start, rows, w, strip = chip_smoke.hot_edge_case(5, 64, 4, 300, "cpu")
+    want = start.clone()
+    hot_stage.hot_stage(want, rows, w, strip)
+    got = start.to(cuda)
+    hot_stage.hot_stage(got, rows.to(cuda), w.to(cuda), strip.to(cuda))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_hot_stage_rejects_bad_inputs(cuda):
+    start, rows, w, strip = chip_smoke.hot_edge_case(6, 8, 2, 30, cuda)
+    before = tpu_ir_torch.kernel_launches()["hot_stage"]
+    bad = [(start, rows.cpu(), w, strip),                    # device
+           (start, rows, w, strip.cpu()),
+           (start, rows.long(), w, strip),                   # dtype
+           (start, rows, w, strip.double()),
+           (start.half(), rows, w, strip),
+           (start, rows, w, strip[:, :29].contiguous()),     # shape
+           (start, rows, w[:, :1].contiguous(), strip),
+           (start[:7], rows, w, strip),
+           (start, rows.t(), w.t(), strip),                  # layout
+           (start, rows, w, strip.t().contiguous().t())]
+    for args in bad:
+        with pytest.raises(ValueError, match="hot_stage"):
+            hot_stage.hot_stage(*args)
+    assert tpu_ir_torch.kernel_launches()["hot_stage"] == before
+
+
+def _blockmax_index(tmp_path, cuda):
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=8, n_docs=3_000, target_bytes=1_500_000,
+                vocab_size=8_000)
+    idx = str(tmp_path / "idx")
+    build_index(corpus, idx, num_shards=3, device=cuda)
+    return idx
+
+
+def _hot_traffic(scorer, n, seed):
+    """One hot term and one cold term of df 30-300 per query (the mixed
+    regime of tests/test_blockmax.py), then as many uniform queries."""
+    rng = np.random.default_rng(seed)
+    hot_rank = scorer._hot_rank_host
+    df = scorer.df.cpu().numpy()
+    hot = np.nonzero(hot_rank >= 0)[0]
+    mid = np.nonzero((hot_rank < 0) & (df >= 30) & (df <= 300))[0]
+    q = np.stack([rng.choice(hot, n), rng.choice(mid, n)], 1)
+    uniform = rng.integers(0, len(df), (n, 2))
+    return np.concatenate([q, uniform]).astype(np.int32)
+
+
+def test_blockmax_and_schedule_on_cuda_equal_cpu(cuda, tmp_path,
+                                                  monkeypatch):
+    """The MaxScore schedule and block-max on the card: bitwise equal to
+    prune=False there, and to the CPU run within rtol 1e-5."""
+    monkeypatch.setenv("TPU_IR_BLOCKMAX_WIDTH", "128")
+    idx = _blockmax_index(tmp_path, cuda)
+    g = Scorer.load(idx, layout="sparse")
+    off = Scorer.load(idx, layout="sparse", prune=False)
+    c = Scorer.load(idx, layout="sparse", device="cpu")
+    assert g._blockmax_width == 128
+    q = _hot_traffic(g, 300, 9)
+    for scoring_name in ("tfidf", "bm25"):
+        for k in (10, 100):
+            tpu_ir_torch.reset_kernel_launches()
+            gs, gd = g.topk(q, k=k, scoring=scoring_name)
+            assert tpu_ir_torch.kernel_launches()["hot_stage"] >= 1
+            os_, od = off.topk(q, k=k, scoring=scoring_name)
+            assert np.array_equal(gd, od) and gs.tobytes() == os_.tobytes()
+            cs, cd = c.topk(q, k=k, scoring=scoring_name)
+            np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
+            assert (gd == cd).mean() > 0.99
+    assert g.blockmax_stats["blocks_considered"] > 0
+    assert off.blockmax_stats["blocks_considered"] == 0
+
+
+def test_rerank_on_cuda_equals_cpu(cuda, tmp_path):
+    """The two-stage rerank on the card: dense == tiered (docnos, scores
+    rtol 1e-6), == the CPU run (rtol 1e-5), compressed == raw bitwise."""
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=9, n_docs=300, target_bytes=300_000,
+                vocab_size=3_000)
+    raw, v3 = str(tmp_path / "raw"), str(tmp_path / "v3")
+    build_index(corpus, raw, num_shards=3, device=cuda)
+    build_index(corpus, v3, num_shards=3, device=cuda)
+    migrate_index(v3, to_version=3)
+    q = np.random.default_rng(10).integers(
+        0, Scorer.load(raw, device="cpu").meta.vocab_size,
+        (200, 3)).astype(np.int32)
+    runs = {}
+    for name, d, layout, dev in (("dense", raw, "dense", None),
+                                 ("tiered", raw, "sparse", None),
+                                 ("cpu", raw, "dense", "cpu"),
+                                 ("dense-v3", v3, "dense", None),
+                                 ("tiered-v3", v3, "sparse", None)):
+        s = Scorer.load(d, layout=layout, device=dev)
+        runs[name] = s.rerank_topk(q, k=10, candidates=100)
+    ds, dd = runs["dense"]
+    for name in ("tiered", "cpu"):
+        s, d = runs[name]
+        np.testing.assert_allclose(s, ds, rtol=1e-6 if name == "tiered"
+                                   else 1e-5, atol=1e-7)
+        assert (d == dd).mean() > 0.99
+    for name in ("dense", "tiered"):
+        s, d = runs[f"{name}-v3"]
+        rs, rd = runs[name]
+        assert np.array_equal(d, rd) and s.tobytes() == rs.tobytes()

@@ -264,7 +264,8 @@ def test_cpu_wrapper_runs_the_twin_without_counting(index_data):
                                                                   tf16))
     assert tpu_ir_torch.kernel_launches() == {"dense_score": 0,
                                               "dequant_score": 0,
-                                              "cold_tier": 0}
+                                              "cold_tier": 0,
+                                              "hot_stage": 0}
     safe_q, q_w = fused_scoring.query_weights(q, idf)
     assert int(safe_q.min()) >= 0 and int(safe_q.max()) < VOCAB
     assert float(q_w[7].abs().sum()) == 0.0     # empty query weighs 0
@@ -367,7 +368,8 @@ def _code(src):
     return re.sub(r"//[^\n]*|/\*.*?\*/", "", src, flags=re.S)
 
 
-@pytest.mark.parametrize("name", DENSE_SOURCES + ["cold_tier.cu"])
+@pytest.mark.parametrize("name", DENSE_SOURCES + ["cold_tier.cu",
+                                                  "hot_stage.cu"])
 def test_dense_kernel_sources_keep_the_bitwise_rules(name):
     code = _code(_source(name))
     for banned in ("fmaf", "__fma", "__logf", "__fdividef", "__expf",
@@ -385,6 +387,13 @@ def test_dense_kernel_sources_keep_the_bitwise_rules(name):
         assert re.search(r"\bcold_tier_kernel\(", code)
         assert int(re.search(r"kMaxTiers = (\d+);", code).group(1)) == \
             cold_tier.MAX_TIERS
+    elif name == "hot_stage.cu":
+        # each live slot: one rounded multiply, then one rounded add, in
+        # slot order; then one rounded add onto the score
+        assert re.search(r"__fadd_rn\(\s*acc\[j\],\s*__fmul_rn\(v\[j\],"
+                         r"\s*w\)\)", code)
+        assert re.search(r"sb\[c\] = __fadd_rn\(sb\[c\], acc\[j\]\)", code)
+        assert re.search(r"\bhot_stage_kernel\(", code)
     elif name != "dense_rows.cuh":
         assert '#include "dense_rows.cuh"' in code
     else:         # each term: one rounded multiply, then one rounded add
@@ -421,12 +430,13 @@ def _c_params(src, symbol):
 
 
 @pytest.mark.parametrize("name", ["dense_score", "dequant_score",
-                                  "cold_tier"])
+                                  "cold_tier", "hot_stage"])
 def test_c_entry_parameters_match_ctypes_argtypes(name):
-    from tpu_ir_torch.ops import cold_tier
+    from tpu_ir_torch.ops import cold_tier, hot_stage
 
-    argtypes = (cold_tier.ARGTYPES if name == "cold_tier"
-                else fused_scoring.ARGTYPES)
+    argtypes = {"cold_tier": cold_tier.ARGTYPES,
+                "hot_stage": hot_stage.ARGTYPES}.get(name,
+                                                     fused_scoring.ARGTYPES)
     assert _c_params(_source(f"{name}.cu"), f"tpu_ir_{name}") == argtypes
 
 

@@ -29,7 +29,9 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.index.builder, tpu_ir_torch.cli, "
             "tpu_ir_torch.convert, tpu_ir_torch.corpus, "
             "tpu_ir_torch.ops._build, tpu_ir_torch.ops.cold_tier, "
+            "tpu_ir_torch.ops.hot_stage, tpu_ir_torch.envvars, "
             "tpu_ir_torch.search.layout, tpu_ir_torch.index.compress, "
+            "tpu_ir_torch.index.blockmax, "
             "tpu_ir_torch.index.migrate, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
@@ -52,7 +54,7 @@ def test_kernel_sources_are_listed():
     from tpu_ir_torch.ops import _build
 
     assert _build.kernel_sources() == ["cold_tier", "dense_score",
-                                       "dequant_score"]
+                                       "dequant_score", "hot_stage"]
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tpu_ir_torch")
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored

@@ -1,8 +1,7 @@
 """The port's tiered-layout builder against the JAX package's: every field
-of `TieredPostings` element- and dtype-exact (slim uint16 columns and the
-dummy tier included), except the block-max bounds, which the port does not
-build yet; and the hot strip densified on the device equal to the host
-densification."""
+of `TieredPostings` element- and dtype-exact (slim uint16 columns, the
+dummy tier and the block-max bounds included); and the hot strip
+densified on the device equal to the host densification."""
 
 import numpy as np
 import pytest
@@ -48,7 +47,9 @@ def _assert_same(got, want):
                                        getattr(want, name))):
             assert g.dtype == w.dtype and g.shape == w.shape, (name, i)
             np.testing.assert_array_equal(g, w, err_msg=f"{name}[{i}]")
-    assert got.hot_blk_max is None and got.blockmax_width == 0
+    assert got.blockmax_width == want.blockmax_width
+    assert got.hot_blk_max.dtype == want.hot_blk_max.dtype
+    np.testing.assert_array_equal(got.hot_blk_max, want.hot_blk_max)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -35,16 +35,18 @@ def kernel_launches() -> dict[str, int]:
     """Launch counts of every hand-written kernel since the last reset.
     A wrapper counts a launch only where it launches its CUDA kernel,
     never when it runs the plain version on a CPU tensor."""
-    from .ops import cold_tier, fused_scoring
+    from .ops import cold_tier, fused_scoring, hot_stage
 
     return {"dense_score": fused_scoring.dense_score_launches(),
             "dequant_score": fused_scoring.dequant_score_launches(),
-            "cold_tier": cold_tier.cold_tier_launches()}
+            "cold_tier": cold_tier.cold_tier_launches(),
+            "hot_stage": hot_stage.hot_stage_launches()}
 
 
 def reset_kernel_launches() -> None:
-    from .ops import cold_tier, fused_scoring
+    from .ops import cold_tier, fused_scoring, hot_stage
 
     fused_scoring.reset_dense_score_launches()
     fused_scoring.reset_dequant_score_launches()
     cold_tier.reset_cold_tier_launches()
+    hot_stage.reset_hot_stage_launches()

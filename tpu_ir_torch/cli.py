@@ -3,9 +3,9 @@ tpu_ir's flag names.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--device cuda|cpu]
     python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
-        [--layout auto|dense|sparse|sharded]
+        [--rerank N] [--layout auto|dense|sparse|sharded]
     python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
-        [--tf-dtype auto|int8|bf16]
+        [--tf-dtype auto|int8|bf16] [--add-bounds]
 
 `index` and `search` run on CUDA unless `--device cpu` is given;
 `migrate-index` runs on the host and prints its JSON summary last.
@@ -43,7 +43,7 @@ def cmd_search(args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     (res,) = scorer.search_batch([args.query], k=args.k,
-                                 scoring=args.scoring)
+                                 scoring=args.scoring, rerank=args.rerank)
     print(f"query: {args.query}")
     if not res:
         print("  (no matching documents)")
@@ -61,7 +61,8 @@ def cmd_migrate_index(args) -> int:
         return 2
     to = 3 if args.compress else 2
     print(json.dumps(migrate_index(args.index_dir, to_version=to,
-                                   tf_dtype=args.tf_dtype)))
+                                   tf_dtype=args.tf_dtype,
+                                   add_bounds=args.add_bounds)))
     return 0
 
 
@@ -84,6 +85,9 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--k", "-k", type=int, default=10,
                     help="results per query")
     ps.add_argument("--scoring", choices=["tfidf", "bm25"], default="tfidf")
+    ps.add_argument("--rerank", type=int, default=None, metavar="N",
+                    help="two-stage retrieval: BM25 top-N candidates, then "
+                         "cosine TF-IDF rerank")
     ps.add_argument("--layout",
                     choices=["auto", "dense", "sparse", "sharded"],
                     default="auto",
@@ -107,6 +111,10 @@ def main(argv: list[str] | None = None) -> int:
                     default="auto",
                     help="tf encoding for --compress: auto = int8 when "
                          "lossless in every shard, else bf16")
+    pm.add_argument("--add-bounds", action="store_true",
+                    help="backfill the block-max bounds artifact "
+                         "(blockmax.arena) from the postings in place — "
+                         "no part rewrite, idempotent, verify-clean")
     pm.set_defaults(fn=cmd_migrate_index)
 
     args = p.parse_args(argv)

@@ -47,16 +47,19 @@ def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
                              doc_len: np.ndarray, tiers: Mapping,
                              meta_dict: dict, *,
                              compat_int_idf: bool = False,
+                             prune: bool = True,
+                             doc_norms: np.ndarray | None = None,
                              device: str | torch.device | None = None
                              ) -> Scorer:
     """A tiered-layout Scorer on `device` from host state: the sorted
     vocabulary and docids, df [V], doc_len [D+1], the layout's fields as
-    a mapping (a JAX `TieredPostings._asdict()`; its block-max fields are
-    not read) and the index metadata as a dict (format_version 3 selects
-    the bf16 hot strip of a compressed index)."""
+    a mapping (a JAX `TieredPostings._asdict()`, block-max bounds
+    included) and the index metadata as a dict (format_version 3 selects
+    the bf16 hot strip of a compressed index). The rerank needs
+    `doc_norms` (a JAX Scorer's `_doc_norms_host()`): no postings columns
+    come with a prebuilt layout."""
     layout = TieredPostings(**{f: tiers[f] for f in TieredPostings._fields
-                               if f not in ("hot_blk_max",
-                                            "blockmax_width")})
+                               if f in tiers})
     return Scorer(vocab=Vocab(list(vocab_terms)),
                   mapping=DocnoMapping(list(docids)),
                   pair_term=None, pair_doc=None, pair_tf=None,
@@ -64,4 +67,4 @@ def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
                   doc_len=np.asarray(doc_len, np.int32),
                   meta=IndexMetadata(**meta_dict), layout="sparse",
                   compat_int_idf=compat_int_idf, device=device,
-                  tiers=layout)
+                  tiers=layout, prune=prune, doc_norms=doc_norms)

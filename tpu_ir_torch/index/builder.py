@@ -6,8 +6,7 @@ docno mapping, the postings group-by on the device
 (ops/postings.py::build_postings_packed), then the part files, the
 dictionary and the metadata with its checksums. The artifacts are
 byte-identical to the JAX package's for the same corpus and shard count,
-apart from `metadata.json`, whose checksum set lacks the block-max bounds
-artifact that this slice does not write.
+the block-max bounds artifact and `metadata.json` included.
 
 Only the one-shot k = 1 build is ported: char-gram indexes, positions,
 k > 1, the SPMD mesh build and the streaming build raise ValueError.

@@ -11,11 +11,12 @@ compatible with it:
       part-00000.arena  per term-shard CSR postings (format v2 arenas), or
       part-00000.carena the same shard compressed (format v3, compress.py)
       dictionary.tsv    term -> (shard, offset) forward index
+      blockmax.arena    per-(hot term, doc block) max tf (index/blockmax.py)
 
 Term shard assignment is term_id % num_shards. Formats v2 (raw
 page-aligned arenas) and v3 (compressed arenas, decoded on load) are read
-and written here. v1 npz parts and the block-max bounds artifact belong to
-later slices of the port and raise ValueError.
+and written here; v1 npz parts belong to a later slice of the port and
+raise ValueError.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ DOCNOS = "docnos.txt"
 VOCAB = "vocab.txt"
 DOCLEN = "doclen.npy"
 DICTIONARY = "dictionary.tsv"
+QUARANTINE_DIR = ".quarantine"
 ARENA_SUFFIX = ".arena"
 COMPRESSED_SUFFIX = ".carena"
 
@@ -109,12 +111,19 @@ class IndexMetadata:
         with open(os.path.join(index_dir, METADATA), "w") as f:
             json.dump(self.__dict__, f, indent=2, sort_keys=True)
 
-    def save_with_checksums(self, index_dir: str) -> None:
+    def save_with_checksums(self, index_dir: str,
+                            block_bounds: bool = True) -> None:
         """Checksum every integrity-covered artifact on disk, record the
         digests, then save: metadata existence certifies the index and
-        pins its bytes. Unlike the JAX package this writes no block-max
-        bounds artifact (a later slice), so the checksum set lacks
-        `blockmax.arena`."""
+        pins its bytes. Every build and migration ends here, so this is
+        also where the block-max bounds artifact (index/blockmax.py) is
+        written, before the checksum pass records it;
+        `block_bounds=False` skips that (migrate --add-bounds writes the
+        bounds itself first)."""
+        if block_bounds:
+            from .blockmax import ensure_block_bounds
+
+            ensure_block_bounds(index_dir, self)
         self.checksums = {name: file_checksum(os.path.join(index_dir, name))
                           for name in integrity_names(index_dir, self)}
         self.save(index_dir)
@@ -197,6 +206,14 @@ def _arena_header(arrays: dict[str, np.ndarray]) -> tuple[bytes, list]:
     return header, contig
 
 
+def load_arena(path: str) -> dict[str, np.ndarray]:
+    """Read one arena whole and check every section's CRC: {name: array},
+    read-only views of the buffer. A damaged file raises ValueError."""
+    buf, _ = _read_file_verified(path)
+    header, data_start = read_arena_header(buf)
+    return _arena_views(buf, header, data_start, path, verify=True)
+
+
 def write_arena(path: str, arrays: dict[str, np.ndarray]) -> None:
     header, contig = _arena_header(arrays)
     with open(path, "wb") as f:
@@ -272,6 +289,31 @@ def integrity_names(index_dir: str, meta: IndexMetadata) -> list[str]:
     names += [DOCLEN, DICTIONARY, DOCNOS, VOCAB, "tokens.txt",
               "blockmax.arena"]
     return [n for n in names if os.path.exists(os.path.join(index_dir, n))]
+
+
+def quarantine(index_dir: str, name: str, *, keep: int | None = None) -> str:
+    """Move a corrupt artifact into index_dir/.quarantine/ (replacing an
+    earlier quarantined copy of the same name), out of every reader's way
+    but kept for a post-mortem; returns its new path. Only the `keep`
+    most recently quarantined files stay (default TPU_IR_QUARANTINE_KEEP,
+    8); older ones are deleted."""
+    if keep is None:
+        from .. import envvars
+
+        keep = envvars.get_int("TPU_IR_QUARANTINE_KEEP")
+    qdir = os.path.join(index_dir, QUARANTINE_DIR)
+    os.makedirs(qdir, exist_ok=True)
+    dest = os.path.join(qdir, name)
+    os.replace(os.path.join(index_dir, name), dest)
+    os.utime(dest)      # the quarantine time orders retention, not the mtime
+    entries = sorted((e for e in os.scandir(qdir) if e.is_file()),
+                     key=lambda e: e.stat().st_mtime, reverse=True)
+    for stale in entries[max(keep, 1):]:
+        try:
+            os.remove(stale.path)
+        except OSError:
+            continue            # another process evicted it first
+    return dest
 
 
 def verify_checksums(index_dir: str, meta: IndexMetadata,
@@ -357,12 +399,16 @@ def _shard_arrays(buf, path: str, *, verify: bool) -> dict[str, np.ndarray]:
     return _arena_views(buf, header, data_start, path, verify=verify)
 
 
-def load_shard(index_dir: str, shard: int) -> dict[str, np.ndarray]:
-    """Map one part, whichever format is on disk, without verifying or
-    decoding it: a compressed part's sections come back as they are."""
+def load_shard(index_dir: str, shard: int, *,
+               decode: bool = False) -> dict[str, np.ndarray]:
+    """Map one part, whichever format is on disk, without verifying it. A
+    compressed part's sections come back as they are, or decoded to the
+    five raw arrays with `decode`."""
     path = part_path(index_dir, shard)
-    return _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
-                         verify=False)
+    z = _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
+                      verify=False)
+    return compress.decode_shard(z) if decode and compress.is_compressed(
+        z) else z
 
 
 def load_shard_verified(index_dir: str, shard: int,

@@ -8,11 +8,15 @@ for byte the original whenever the tf mode was lossless (the encoder
 proves the restoration when it compresses). Each part is read
 verify-while-read, written atomically (temp file + rename) and its other
 format's twin unlinked; the checksums and the format stamp are recorded
-in one final metadata write. An interrupted run leaves a mixed dir that
-every reader tolerates, and running it again completes it.
+in one final metadata write, which also writes the block-max bounds
+artifact anew from the postings serving will decode. An interrupted run
+leaves a mixed dir that every reader tolerates, and running it again
+completes it.
 
-Unlike the JAX package this writes no block-max bounds artifact, so the
-checksum set lacks `blockmax.arena`. The v1 npz walk is a later slice.
+`add_bounds=True` (`migrate-index --add-bounds`) rewrites no part: it
+computes `blockmax.arena` from the parts on disk, each read
+verify-while-read, and records the checksums again. The v1 npz walk is a
+later slice.
 """
 
 from __future__ import annotations
@@ -25,13 +29,22 @@ from . import format as fmt
 
 def migrate_index(index_dir: str,
                   to_version: int = fmt.ARENA_FORMAT_VERSION,
-                  tf_dtype: str = "auto") -> dict:
+                  tf_dtype: str = "auto", add_bounds: bool = False) -> dict:
     """Convert every part of the index at `index_dir` to `to_version` (2 =
     raw arenas, 3 = compressed arenas with `tf_dtype` auto|int8|bf16).
     Returns a summary; parts already in the target format count as
-    skipped."""
+    skipped. With `add_bounds` only the block-max bounds artifact is
+    (re)written, the same bytes on every run for the same postings."""
     fmt.require_arena_format(to_version)
     meta = fmt.IndexMetadata.load(index_dir)
+    if add_bounds:
+        from .blockmax import BLOCKMAX_ARENA, write_block_bounds
+
+        info = write_block_bounds(index_dir, meta, verify=True)
+        meta.save_with_checksums(index_dir, block_bounds=False)
+        return {"index_dir": index_dir, "add_bounds": True,
+                "bounds_artifact": BLOCKMAX_ARENA, **info,
+                "checksums_recorded": len(meta.checksums), "ok": True}
     if to_version == fmt.COMPRESSED_FORMAT_VERSION:
         info = compress.compress_index(index_dir, meta, tf_dtype=tf_dtype)
         meta.save_with_checksums(index_dir)

@@ -1,9 +1,11 @@
-"""Batched ranked retrieval: TF-IDF / BM25 + top-k, dense and tiered.
+"""Batched ranked retrieval: TF-IDF / BM25 + top-k, dense and tiered,
+block-max pruning and the cosine rerank.
 
-The counterpart of `tpu_ir/ops/scoring.py` for the dense layout and the
-exact (unpruned) tiered layout: score(d) = sum over query terms of
-(1 + ln tf) * log10(N / df) for TF-IDF, Okapi BM25 otherwise, truncated
-to the top k. Everything runs in float32.
+The counterpart of `tpu_ir/ops/scoring.py` for the dense layout, the
+tiered layout (exact, MaxScore's hot-free blocks and block-max pruned) and
+the two-stage rerank: score(d) = sum over query terms of (1 + ln tf) *
+log10(N / df) for TF-IDF, Okapi BM25 otherwise, truncated to the top k.
+Everything runs in float32.
 
 - dense: a [V, D+1] term-by-doc matrix holds the weights; column 0
   (docno 0) is dead padding. Dense TF-IDF goes through a fused CUDA
@@ -13,8 +15,13 @@ to the top k. Everything runs in float32.
   JAX package, over a raw-tf matrix of either type.
 - tiered (search/layout.py): the cold df tiers go through the cold-tier
   CUDA kernel (ops/cold_tier.py), one launch for all the tiers of a query
-  block; the hot strip is one [B, H] @ [H, D+1] float32 product, last, as
-  in the JAX package's cold-first accumulation order.
+  block; the hot strip goes last, as in the JAX package's cold-first
+  order, through the hot-stage CUDA kernel (ops/hot_stage.py), a gather
+  of each query's hot rows with a fixed order per cell. `skip_hot` leaves
+  the hot stage out for blocks with no hot term; block-max pruning runs
+  it over the surviving doc blocks' columns only, bitwise the same.
+- rerank: cosine-normalised TF-IDF over BM25's candidates, on either
+  layout.
 
 Quirk policy as in the JAX package: `compat_int_idf=True` reproduces the
 reference's Java int division N/df; documents whose total score is
@@ -201,26 +208,62 @@ def _order_key(scores: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
 
 
-def _topk_from_scores(scores: torch.Tensor, k: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k with `lax.top_k`'s order: higher score first, and on ties
-    the lower doc index first. torch.topk promises no tie order, so the
-    selection runs on unique int64 keys (score key << 32 | ~index); the
-    dead column 0 and the `score > 0` mask follow `_topk_from_scores` of
-    the JAX package. The scores are not copied: the dead column is masked
-    in the keys, below every real score."""
+def _topk_keys(scores: torch.Tensor, k: int, *, dead_column: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(column indices [B, k'], their scores) of the top k per row, in
+    `lax.top_k`'s order: higher score first, and on ties the lower column
+    first. torch.topk promises no tie order, so the selection runs on
+    unique int64 keys (score key << 32 | ~index). With `dead_column`,
+    column 0 sorts below every real score, without a copy of the scores."""
     width = scores.shape[-1]
-    kk = min(k, width)
     idx = torch.arange(width, dtype=torch.int64, device=scores.device)
     key = (_order_key(scores).to(torch.int64) << 32) | (0xFFFFFFFF - idx)
-    key[:, 0] = (torch.iinfo(torch.int32).min << 32) | 0xFFFFFFFF
-    top_key, _ = torch.topk(key, kk, dim=-1, largest=True, sorted=True)
+    if dead_column:
+        key[:, 0] = (torch.iinfo(torch.int32).min << 32) | 0xFFFFFFFF
+    top_key, _ = torch.topk(key, min(k, width), dim=-1, largest=True,
+                            sorted=True)
     top_idx = 0xFFFFFFFF - (top_key & 0xFFFFFFFF)
-    top_scores = torch.gather(scores, 1, top_idx)
-    matched = (top_scores > 0.0) & (top_idx != 0)
-    zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
+    return top_idx, torch.gather(scores, 1, top_idx)
+
+
+def _matched(top_scores: torch.Tensor, docnos: torch.Tensor,
+             matched: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    zero = torch.zeros((), dtype=top_scores.dtype, device=top_scores.device)
     return (torch.where(matched, top_scores, zero),
-            torch.where(matched, top_idx, 0).to(torch.int32))
+            torch.where(matched, docnos, 0).to(torch.int32))
+
+
+def _topk_from_scores(scores: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over [B, D+1] doc scores as `_topk_from_scores` of the JAX
+    package: the dead column 0 excluded, ties to the lower doc, and only
+    scores > 0 returned (docno 0 and score 0 mark an empty slot)."""
+    top_idx, top_scores = _topk_keys(scores, k, dead_column=True)
+    return _matched(top_scores, top_idx,
+                    (top_scores > 0.0) & (top_idx != 0))
+
+
+def _topk_over_columns(cand: torch.Tensor, cols: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over [B, C] scores of the doc columns `cols` [C] (ascending,
+    so ties still go to the lower doc); the dead and pad columns hold
+    -inf already, so no column is masked here."""
+    top_idx, top_scores = _topk_keys(cand, k, dead_column=False)
+    return _matched(top_scores, cols[top_idx], top_scores > 0.0)
+
+
+def _topk_over_candidates(cand_scores: torch.Tensor,
+                          cand_docnos: torch.Tensor, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over per-candidate scores [B, C] (`tpu_ir/ops/scoring.py::
+    _topk_over_candidates`): docno 0 marks an empty candidate, ties go to
+    the earlier candidate."""
+    cand = torch.where(cand_docnos > 0, cand_scores,
+                       torch.full((), float("-inf"),
+                                  device=cand_scores.device))
+    top_idx, top_scores = _topk_keys(cand, k, dead_column=False)
+    return _matched(top_scores, torch.gather(cand_docnos, 1, top_idx),
+                    top_scores > 0.0)
 
 
 # -- tiered sparse layout ---------------------------------------------------
@@ -270,49 +313,37 @@ def cold_stage(scores: torch.Tensor, terms: TieredTerms, tiers, *,
           k1=k1)
 
 
-def _require_fp32_matmul(t: torch.Tensor) -> None:
-    """The hot-strip product is exact float32 in the JAX package; TF32
-    would round its inputs to 10 mantissa bits and move rankings."""
-    if t.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the tiered hot-strip product must run in full float32, but "
-            "torch.backends.cuda.matmul.allow_tf32 is on")
-
-
 def hot_stage(scores: torch.Tensor, terms: TieredTerms,
               weighted_strip: torch.Tensor) -> None:
-    """scores += w_hot @ weighted_strip, in place: each query's hot term
-    weights scattered into a [B, H] row (duplicate terms sum; other
-    slots go to a dropped column H), then one float32 product."""
-    b = scores.shape[0]
-    h = weighted_strip.shape[0]
-    w_hot = torch.zeros((b, h + 1), dtype=torch.float32,
-                        device=scores.device)
-    cols = torch.where(terms.is_hot, terms.rank, h).long()
-    qb = torch.arange(b, device=scores.device)[:, None].expand_as(cols)
-    w_hot.index_put_((qb, cols),
-                     torch.where(terms.is_hot, terms.q_w,
-                                 torch.zeros((), dtype=torch.float32,
-                                             device=scores.device)),
-                     accumulate=True)
-    _require_fp32_matmul(scores)
-    scores.add_(torch.matmul(w_hot[:, :h], weighted_strip))
+    """scores += the hot strip's contributions, in place: each query's hot
+    slots (duplicate terms folded into their first slot, weights summed)
+    through the hot-stage kernel's wrapper (ops/hot_stage.py), over the
+    float32 weighted strip [H, N]; a query with no hot term is left as it
+    is."""
+    from . import hot_stage as stage
+
+    rows, w = stage.hot_slots(terms.rank, terms.is_hot, terms.q_w)
+    stage.hot_stage(scores, rows, w, weighted_strip.contiguous())
 
 
 def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
                    q_weight, *, num_docs: int, hot_weight_fn,
-                   dl_norm: torch.Tensor | None = None,
-                   k1: float = 0.9) -> torch.Tensor:
+                   dl_norm: torch.Tensor | None = None, k1: float = 0.9,
+                   skip_hot: bool = False) -> torch.Tensor:
     """[B, D+1] exact tiered accumulation (JAX `_tiered_scores` without
-    pruning): a zero accumulator, the cold tiers in tier order through
-    one kernel launch, then the hot strip last. `hot_weight_fn` maps the
-    raw-tf strip to its per-cell weights; `dl_norm` selects BM25 cold
-    cells."""
+    the runtime-bounded prune): a zero accumulator, the cold tiers in tier
+    order through one kernel launch, then the hot strip last through the
+    hot-stage kernel. `hot_weight_fn` maps the raw-tf strip to its
+    float32 per-cell weights; `dl_norm` selects BM25 cold cells.
+    `skip_hot` leaves the hot stage out entirely (no weighting, no
+    launch): exact when no query of the block holds a hot term, which the
+    Scorer's MaxScore schedule certifies."""
     terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
     scores = torch.zeros((q_terms.shape[0], num_docs + 1),
                          dtype=torch.float32, device=hot_tfs.device)
     cold_stage(scores, terms, tiers, dl_norm=dl_norm, k1=k1)
-    hot_stage(scores, terms, hot_weight_fn(hot_tfs))
+    if not skip_hot:
+        hot_stage(scores, terms, hot_weight_fn(hot_tfs))
     return scores
 
 
@@ -321,8 +352,8 @@ def _identity_weight(strip: torch.Tensor) -> torch.Tensor:
 
 
 def lntf_strip(hot_tfs: torch.Tensor) -> torch.Tensor:
-    """(1 + ln tf) over the raw-tf hot strip: the TF-IDF hot weighting,
-    materialized."""
+    """(1 + ln tf) over the raw-tf hot strip: the TF-IDF (and cosine
+    rerank) hot weighting, materialized."""
     return _lntf(hot_tfs)
 
 
@@ -335,40 +366,63 @@ def bm25_strip(hot_tfs: torch.Tensor, doc_len: torch.Tensor,
     return bm25_saturation(hot_tfs, dl_norm[None, :], k1=k1)
 
 
+def _tfidf_weights(hot_preweighted: bool):
+    """(hot_weight_fn, hot_cell_fn) of TF-IDF: the whole strip's weights,
+    and the weights of strip columns `cols` (the same elementwise curve,
+    so a column's weights are bitwise the whole strip's)."""
+    if hot_preweighted:
+        return _identity_weight, lambda tfs, cols: tfs
+    return _lntf, lambda tfs, cols: _lntf(tfs)
+
+
+def _bm25_weights(dl_norm: torch.Tensor, k1: float, hot_preweighted: bool):
+    """(hot_weight_fn, hot_cell_fn) of BM25, as _tfidf_weights: the
+    saturation with the length norm broadcast over the strip, or gathered
+    at the columns."""
+    if hot_preweighted:
+        return _identity_weight, lambda tfs, cols: tfs
+    return (lambda tf: bm25_saturation(tf, dl_norm[None, :], k1=k1),
+            lambda tfs, cols: bm25_saturation(tfs, dl_norm[cols][None, :],
+                                              k1=k1))
+
+
 def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                          tiers, df, num_docs: int, *,
                          compat_int_idf: bool = False,
-                         hot_preweighted: bool = False) -> torch.Tensor:
+                         hot_preweighted: bool = False,
+                         skip_hot: bool = False) -> torch.Tensor:
     """[B, D+1] tiered TF-IDF scores. `hot_preweighted` declares
     `hot_tfs` already weighted (lntf_strip): bitwise the same scores."""
     idf = idf_weights(df, num_docs, compat_int_idf)
     return _tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
-        hot_weight_fn=_identity_weight if hot_preweighted else _lntf)
+        hot_weight_fn=_tfidf_weights(hot_preweighted)[0],
+        skip_hot=skip_hot)
 
 
 def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                       tiers, df, num_docs: int, *,
                       k: int = 10, compat_int_idf: bool = False,
-                      hot_preweighted: bool = False
+                      hot_preweighted: bool = False, skip_hot: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """TF-IDF top-k on the tiered sparse layout. q_terms int [B, L] (-1
-    pads); hot_rank, tier_of, row_of int32 [V]; hot_tfs float32 [H, D+1]
-    raw tf (or weighted, with `hot_preweighted`); tiers: the cold tiers'
-    TierTable (ops/cold_tier.py), int32 [V_t, P_t] docs and tfs each.
-    Returns (scores [B, k], docnos [B, k] int32)."""
+    pads); hot_rank, tier_of, row_of int32 [V]; hot_tfs [H, D+1] raw tf
+    (float32 or bf16), or float32 weights with `hot_preweighted`; tiers:
+    the cold tiers' TierTable (ops/cold_tier.py). `skip_hot` omits the
+    hot stage (exact only for a block with no hot term). Returns (scores
+    [B, k], docnos [B, k] int32)."""
     scores = _tfidf_tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         df, num_docs, compat_int_idf=compat_int_idf,
-        hot_preweighted=hot_preweighted)
+        hot_preweighted=hot_preweighted, skip_hot=skip_hot)
     return _topk_from_scores(scores, k)
 
 
 def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                         tiers, df, doc_len, num_docs: int, *,
-                        k1: float, b: float,
-                        hot_preweighted: bool = False) -> torch.Tensor:
+                        k1: float, b: float, hot_preweighted: bool = False,
+                        skip_hot: bool = False) -> torch.Tensor:
     """[B, D+1] tiered BM25 scores: saturation over the strip with the
     length norm broadcast (or `hot_preweighted`, bm25_strip), and per
     posting with the same norm gathered at its doc."""
@@ -377,20 +431,240 @@ def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     return _tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
-        hot_weight_fn=(_identity_weight if hot_preweighted else
-                       lambda tf: bm25_saturation(tf, dl_norm[None, :],
-                                                  k1=k1)),
-        dl_norm=dl_norm, k1=k1)
+        hot_weight_fn=_bm25_weights(dl_norm, k1, hot_preweighted)[0],
+        dl_norm=dl_norm, k1=k1, skip_hot=skip_hot)
 
 
 def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                      tiers, df, doc_len, num_docs: int, *,
                      k: int = 10, k1: float = 0.9, b: float = 0.4,
-                     hot_preweighted: bool = False
+                     hot_preweighted: bool = False, skip_hot: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Okapi BM25 top-k on the tiered sparse layout (arguments as
     tfidf_topk_tiered, plus doc_len int32 [D+1])."""
     scores = _bm25_tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
-        df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted)
+        df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted,
+        skip_hot=skip_hot)
     return _topk_from_scores(scores, k)
+
+
+# -- block-max pruning -------------------------------------------------------
+# The deep top-k path on the tiered layout (`tpu_ir/ops/scoring.py:432-
+# 680`). The doc axis is cut into blocks of a fixed width; blockmax.arena
+# (index/blockmax.py) bounds each (hot term, block)'s score. The cold tiers
+# are scored exactly first; the k-th best partial score is a threshold, and
+# every doc block whose best partial plus its summed hot bounds cannot
+# reach it is masked. The hot stage then runs over the surviving blocks'
+# columns only. The hot-stage kernel gives each column the bits the
+# full-width stage gives it, masked docs cannot reach the top-k, and the
+# kept columns stay doc-ascending, so the result is bitwise the exact
+# path's. When the batch's surviving blocks overflow the budget, the exact
+# full-width stage runs instead.
+
+# the bound and the hot contributions are sums in different orders, so the
+# mask compares a padded bound, as the JAX package does
+BLOCKMAX_REL_MARGIN = 1.0001
+BLOCKMAX_ABS_MARGIN = 1e-6
+
+
+def blockmax_cand_blocks(k: int, num_docs: int, width: int) -> int:
+    """The selected-block budget of one block-max dispatch: a quarter of
+    the doc axis, at least enough blocks for 2k docs and at least 4.
+    TPU_IR_BLOCKMAX_BLOCKS (when not 0) overrides it."""
+    from .. import envvars
+
+    nblk = -(-(num_docs + 1) // width)
+    override = envvars.get_int("TPU_IR_BLOCKMAX_BLOCKS")
+    if override:
+        return min(nblk, override)
+    need_k = -(-2 * k // width) + 1
+    return min(nblk, max(nblk // 4, need_k, 4))
+
+
+class BlockmaxStats(NamedTuple):
+    """One block-max dispatch: block lanes ([query, block] pairs)
+    considered and masked (0 when it fell back), and whether it fell back
+    to the exact full-width stage."""
+
+    considered: int
+    masked: int
+    fallback: int
+
+
+def _blockmax_topk(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+                   q_weight, hot_blk_bound, *, num_docs: int, k: int,
+                   width: int, cand_blocks: int, hot_weight_fn, hot_cell_fn,
+                   dl_norm: torch.Tensor | None = None, k1: float = 0.9):
+    """Block-max top-k (the section comment; JAX `_blockmax_topk`).
+    `hot_blk_bound` float32 [H, nblk] bounds each hot row's weight in each
+    block (the Scorer builds it). Returns (scores [B, k], docnos [B, k],
+    BlockmaxStats). One value is read back to choose the branch."""
+    from . import hot_stage as stage
+
+    b = q_terms.shape[0]
+    d1 = num_docs + 1
+    nblk = hot_blk_bound.shape[1]
+    if k > cand_blocks * width or k > d1:
+        raise ValueError(f"k={k} exceeds the block-max candidate budget "
+                         f"({cand_blocks} blocks x {width}, doc axis "
+                         f"{d1}); widen TPU_IR_BLOCKMAX_BLOCKS or "
+                         "disable blockmax")
+    dev = hot_tfs.device
+    terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
+    partial = torch.zeros((b, d1), dtype=torch.float32, device=dev)
+    cold_stage(partial, terms, tiers, dl_norm=dl_norm, k1=k1)
+    # the dead slot, excluded as _topk_from_scores excludes it (in place:
+    # the fallback's top-k masks column 0 whatever it holds)
+    partial[:, 0] = float("-inf")
+    tau = torch.topk(partial, k, dim=1).values.amin(dim=1)          # [B]
+
+    # per-(query, block) hot bound: each hot slot's weighted block bound
+    rows, w = stage.hot_slots(terms.rank, terms.is_hot, terms.q_w)
+    safe_rows = torch.where(rows >= 0, rows, 0).long()
+    ub = torch.zeros((b, nblk), dtype=torch.float32, device=dev)
+    for l in range(rows.shape[1]):
+        ub = ub + hot_blk_bound.index_select(0, safe_rows[:, l]) * w[:, l,
+                                                                    None]
+    full = d1 // width
+    blk_pmax = torch.empty((b, nblk), dtype=torch.float32, device=dev)
+    if full:
+        blk_pmax[:, :full] = partial[:, : full * width].view(
+            b, full, width).amax(dim=2)
+    if full < nblk:
+        blk_pmax[:, full] = partial[:, full * width:].amax(dim=1)
+    # a lane survives iff a doc in it could still reach the top k; rows
+    # with no valid term score nothing and must not force the fallback
+    need = (blk_pmax + ub * BLOCKMAX_REL_MARGIN + BLOCKMAX_ABS_MARGIN
+            >= tau[:, None])
+    vocab_size = hot_rank.shape[0]
+    has_terms = ((q_terms >= 0) & (q_terms < vocab_size)).any(dim=1)
+    need &= has_terms[:, None]
+    needed_any = need.any(dim=0)                                    # [nblk]
+    n_needed, n_need = torch.stack([needed_any.sum(),
+                                    need.sum()]).tolist()
+    considered = b * nblk
+    if n_needed > cand_blocks:
+        # overflow: the exact kernel's hot stage over the full strip
+        stage.hot_stage(partial, rows, w,
+                        hot_weight_fn(hot_tfs).contiguous())
+        s, d = _topk_from_scores(partial, k)
+        return s, d, BlockmaxStats(considered, 0, 1)
+    # the needed blocks, then the lowest others up to the budget, in
+    # block order: the candidate columns stay doc-ascending
+    sel = torch.argsort((~needed_any).to(torch.int8), stable=True)
+    sel = sel[:cand_blocks].sort().values
+    cols = (sel[:, None] * width + torch.arange(width, device=dev)
+            ).reshape(-1)
+    cols_c = cols.clamp(max=d1 - 1)
+    cells = hot_cell_fn(hot_tfs.index_select(1, cols_c), cols_c)
+    cand = torch.where((cols < d1)[None, :], partial.index_select(1, cols_c),
+                       torch.full((), float("-inf"), device=dev))
+    stage.hot_stage(cand, rows, w, cells.contiguous())
+    s, d = _topk_over_columns(cand, cols, k)
+    return s, d, BlockmaxStats(considered, considered - n_need, 0)
+
+
+def tfidf_topk_blockmax(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+                        df, num_docs: int, hot_blk_bound, *, width: int,
+                        cand_blocks: int, k: int = 10,
+                        compat_int_idf: bool = False,
+                        hot_preweighted: bool = False):
+    """Block-max TF-IDF top-k on the tiered layout (arguments as
+    tfidf_topk_tiered, plus the [H, nblk] bound table, the block width and
+    the selected-block budget). Returns (scores [B, k], docnos [B, k],
+    BlockmaxStats); bitwise the scores and docnos of tfidf_topk_tiered."""
+    weight_fn, cell_fn = _tfidf_weights(hot_preweighted)
+    return _blockmax_topk(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+        idf_weights(df, num_docs, compat_int_idf), hot_blk_bound,
+        num_docs=num_docs, k=k, width=width, cand_blocks=cand_blocks,
+        hot_weight_fn=weight_fn, hot_cell_fn=cell_fn)
+
+
+def bm25_topk_blockmax(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+                       df, doc_len, num_docs: int, hot_blk_bound, *,
+                       width: int, cand_blocks: int, k: int = 10,
+                       k1: float = 0.9, b: float = 0.4,
+                       hot_preweighted: bool = False):
+    """Block-max BM25 top-k (as tfidf_topk_blockmax). The bound table must
+    dominate the saturation weights: the Scorer folds each block's least
+    doc-length norm into it."""
+    dl_norm = bm25_dl_norm(doc_len, num_docs, b)
+    weight_fn, cell_fn = _bm25_weights(dl_norm, k1, hot_preweighted)
+    return _blockmax_topk(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
+        bm25_idf_weights(df, num_docs), hot_blk_bound, num_docs=num_docs,
+        k=k, width=width, cand_blocks=cand_blocks, hot_weight_fn=weight_fn,
+        hot_cell_fn=cell_fn, dl_norm=dl_norm, k1=k1)
+
+
+# -- cosine rerank -----------------------------------------------------------
+
+
+def _cosine_dense_scores(q_terms, matrix, df, doc_norm, cand_docnos,
+                         num_docs: int) -> torch.Tensor:
+    """[B, C] cosine scores of the candidates on the dense layout: per
+    query-term slot idf^2 * (1 + ln tf) at the candidates' cells, summed
+    in slot order, over ||d||. `matrix` is the float32 (1 + ln tf) doc
+    matrix, or a compressed index's bf16 raw-tf matrix, whose gathered
+    cells are widened and weighted (bitwise the float32 matrix's)."""
+    vocab_size = matrix.shape[0]
+    idf = idf_weights(df, num_docs)
+    q_valid = (q_terms >= 0) & (q_terms < vocab_size)
+    safe_q = torch.where(q_valid, q_terms, 0).long()
+    q_idf = torch.where(q_valid, idf[safe_q],
+                        torch.zeros((), dtype=torch.float32,
+                                    device=idf.device))
+    w2 = q_idf * q_idf                                          # [B, L]
+    cand = cand_docnos.long()
+    scores = torch.zeros(cand.shape, dtype=torch.float32,
+                         device=matrix.device)
+    for l in range(q_terms.shape[1]):
+        cells = matrix[safe_q[:, l, None], cand]                # [B, C]
+        if cells.dtype != torch.float32:
+            cells = _lntf(cells)
+        scores = scores + cells * w2[:, l, None]
+    return scores / torch.clamp(doc_norm[cand], min=1e-30)
+
+
+def cosine_rerank_dense(q_terms, matrix, df, doc_norm, cand_docnos,
+                        num_docs: int, *, k: int = 10
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 of the two-stage rerank (`tpu_ir/ops/scoring.py::
+    cosine_rerank_dense`): cosine-normalised TF-IDF over the stage-1
+    candidates cand_docnos int [B, C] (0 = empty), with doc_norm float32
+    [D+1] the doc vectors' norms under (1 + ln tf) * idf. A repeated
+    query term counts once per slot. Work is B*L*C cells, not B*L*D."""
+    scores = _cosine_dense_scores(q_terms, matrix, df, doc_norm,
+                                  cand_docnos, num_docs)
+    return _topk_over_candidates(scores, cand_docnos, k)
+
+
+def _cosine_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                          tiers, df, doc_norm, num_docs: int, cand_docnos,
+                          *, hot_preweighted: bool = False) -> torch.Tensor:
+    """[B, C] cosine scores of the candidates on the tiered layout: the
+    exact tiered accumulation with idf^2 weights over the whole doc axis
+    (cold tiers, then the hot stage with the (1 + ln tf) strip), gathered
+    at the candidates, then divided by their norms."""
+    idf = idf_weights(df, num_docs)
+    scores = _tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, idf * idf,
+        num_docs=num_docs,
+        hot_weight_fn=_tfidf_weights(hot_preweighted)[0])
+    cand = cand_docnos.long()
+    return (torch.gather(scores, 1, cand)
+            / torch.clamp(doc_norm[cand], min=1e-30))
+
+
+def cosine_rerank_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                         tiers, df, doc_norm, num_docs: int, cand_docnos,
+                         *, k: int = 10, hot_preweighted: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cosine_rerank_dense on the tiered layout. `hot_preweighted` takes
+    the cached (1 + ln tf) strip (lntf_strip), the TF-IDF top-k's."""
+    scores = _cosine_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, df, doc_norm,
+        num_docs, cand_docnos, hot_preweighted=hot_preweighted)
+    return _topk_over_candidates(scores, cand_docnos, k)

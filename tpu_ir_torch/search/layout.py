@@ -10,9 +10,9 @@ the index is served from two parts:
   at most GROWTH x and there are log_GROWTH(max df) tiers.
 
 The host arrays are element- and dtype-exact against the JAX package's
-(slim uint16 columns included). What the JAX layout adds for block-max
-pruning is not built here: `hot_blk_max` stays None and `blockmax_width`
-0 (the pruning slice of the port adds them).
+(slim uint16 columns included), the block-max bounds of the hot rows
+(`hot_blk_max`, the largest tf per doc block of width `blockmax_width`)
+with them.
 """
 
 from __future__ import annotations
@@ -62,8 +62,8 @@ class TieredPostings(NamedTuple):
     row_of: np.ndarray     # int32 [V]: row within the tier (0 likewise)
     tier_docs: tuple       # each [V_t, P_t] docnos, 0 = empty slot
     tier_tfs: tuple        # each [V_t, P_t] tfs, 0 = empty slot
-    hot_blk_max: np.ndarray | None = None   # block-max bounds: not built
-    blockmax_width: int = 0
+    hot_blk_max: np.ndarray | None = None   # int32 [H, nblk] largest tf
+    blockmax_width: int = 0                 # per doc block of this width
 
     def hot_dense(self) -> np.ndarray:
         """The dense float32 [H, D+1] raw-tf strip on the host (tests)."""
@@ -151,9 +151,18 @@ def build_tiered_layout(
     hot_budget: int = HOT_BUDGET,
     base_cap: int = BASE_CAP,
     growth: int = GROWTH,
+    block_bounds: tuple | None = None,
 ) -> TieredPostings:
     """Build the layout from postings columns in global CSR order
-    (sorted by term id, runs of length df[tid]: the Scorer.load order)."""
+    (sorted by term id, runs of length df[tid]: the Scorer.load order).
+
+    `block_bounds` = (tids, max_tf, width) from blockmax.arena
+    (index/blockmax.py). When it covers this layout's hot terms, their
+    rows are sliced from it at its width; otherwise the bounds are
+    computed from the postings at TPU_IR_BLOCKMAX_WIDTH, with the same
+    values."""
+    from ..index import blockmax as bmx
+
     v = len(df)
     d = num_docs
     indptr = np.concatenate([[0], np.cumsum(df, dtype=np.int64)])
@@ -202,6 +211,24 @@ def build_tiered_layout(
         tier_docs.append(np.zeros((1, 1), np.int32))
         tier_tfs.append(np.zeros((1, 1), np.int32))
 
+    width = bmx.block_width()
+    hot_blk_max = None
+    if block_bounds is not None and len(hot_tids):
+        btids, bmax, bwidth = block_bounds
+        pos = np.searchsorted(btids, hot_tids)
+        if (len(btids) and pos.max(initial=0) < len(btids)
+                and np.array_equal(np.asarray(btids)[pos], hot_tids)):
+            hot_blk_max = np.asarray(bmax)[pos].astype(np.int32)
+            width = int(bwidth)
+    if hot_blk_max is None:
+        if len(hot_tids):
+            hot_blk_max = bmx.compute_block_max(
+                hot_tids, pair_doc, pair_tf, indptr, num_docs=d,
+                width=width)
+        else:
+            hot_blk_max = np.zeros((1, bmx.num_blocks(d, width)), np.int32)
+
     return TieredPostings(hot_rank, hot_rows, hot_docs, hot_vals,
                           num_hot, d + 1, tier_of, row_of,
-                          tuple(tier_docs), tuple(tier_tfs))
+                          tuple(tier_docs), tuple(tier_tfs),
+                          hot_blk_max, width)

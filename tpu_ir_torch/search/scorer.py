@@ -7,10 +7,20 @@ The counterpart of `tpu_ir/search/scorer.py` for two layouts:
   matrix built on the first BM25 call). Dense TF-IDF runs the fused CUDA
   kernel (ops/fused_scoring.py); BM25 runs plain torch.
 - sparse (above DENSE_BUDGET): the tiered layout of search/layout.py, a
-  budget-capped dense hot strip plus padded df tiers, scored exactly as
-  the JAX package's unpruned tiered path: the cold tiers through the
-  cold-tier CUDA kernel (ops/cold_tier.py), one launch per query block,
-  then the hot strip as one float32 product.
+  budget-capped dense hot strip plus padded df tiers, served as the JAX
+  package's production tiered path: the cold tiers through the cold-tier
+  CUDA kernel (ops/cold_tier.py), one launch per query block, then the
+  hot strip through the hot-stage CUDA kernel (ops/hot_stage.py). With
+  `prune` (the default) a batch runs the MaxScore schedule: queries with
+  no hot term go first, in blocks that skip the hot stage, and blocks
+  that hold hot terms go through block-max pruning where it engages
+  (the bounds from blockmax.arena, or computed at load). Results are
+  bitwise those of `prune=False`.
+
+`rerank_topk` and `search_batch(rerank=N)` are the two-stage retrieval
+of the JAX package on both layouts: BM25 top-N, then cosine TF-IDF over
+those candidates, with the doc norms computed from the postings on first
+use.
 
 A compressed (format v3) index is decoded on load and served from the same
 layouts with the raw tfs held in bf16 when every tf round-trips bf16
@@ -25,10 +35,9 @@ and scored in query blocks whose [block, D+1] score accumulator stays
 within SCORE_BUDGET elements.
 
 Not in this slice (each raises ValueError naming a later slice): the
-sharded layout, MaxScore and block-max pruning, rerank and the proximity
-boost, phrase queries, wildcard and fuzzy expansion over char-gram
-indexes, explain, the serving knobs (deadline, force_host, hot_only) and
-the query log.
+sharded layout, the proximity boost, phrase queries, wildcard and fuzzy
+expansion over char-gram indexes, explain, the serving knobs (deadline,
+force_host, hot_only) and the query log.
 """
 
 from __future__ import annotations
@@ -44,17 +53,25 @@ import torch
 from .. import resolve_device
 from ..analysis import Analyzer
 from ..collection import DocnoMapping, Vocab, kgram_terms
+from .. import envvars
 from ..index import format as fmt
+from ..index.blockmax import load_block_bounds
 from ..index.compress import bf16_exact
 from ..ops.cold_tier import TierTable
 from ..ops.postings import pair_term_from_df
 from ..ops.scoring import (
+    blockmax_cand_blocks,
     bm25_strip,
+    bm25_topk_blockmax,
     bm25_topk_dense,
     bm25_topk_tiered,
+    cosine_rerank_dense,
+    cosine_rerank_tiered,
     dense_doc_matrix,
     dense_tf_matrix,
+    idf_weights,
     lntf_strip,
+    tfidf_topk_blockmax,
     tfidf_topk_dense,
     tfidf_topk_dense_quantized,
     tfidf_topk_tiered,
@@ -83,6 +100,38 @@ _WILDCARD_RE = re.compile(r"\S*[*?]\S*")
 _FUZZY_RE = re.compile(r"(\S+?)~(\d?)(?=[\s.,;:!)\]}]|$)")
 
 
+def compute_doc_norms(pair_term, pair_doc, pair_tf, df,
+                      num_docs: int) -> np.ndarray:
+    """float32 [D+1] doc-vector norms under (1 + ln tf) * idf weights (the
+    cosine rerank's denominator) from the host CSR columns, as
+    `tpu_ir/search/scorer.py::compute_doc_norms`: float32 weights squared
+    and summed per doc in float64, 2^24 pairs at a time. The idf is the
+    port's float idf on the CPU, whatever compat mode serves. With
+    `pair_term=None` each pair's term is its df run (the columns are in
+    global CSR order)."""
+    idf = idf_weights(torch.from_numpy(np.asarray(df, np.int32)),
+                      num_docs).numpy()
+    indptr = (None if pair_term is not None
+              else np.cumsum(np.asarray(df, np.int64)))
+    sq = np.zeros(num_docs + 1, np.float64)
+    step = 1 << 24
+    for lo in range(0, len(pair_doc), step):
+        sl = slice(lo, min(lo + step, len(pair_doc)))
+        if pair_term is not None:
+            terms = pair_term[sl]
+        else:
+            # pair i's term: the first run start strictly above i
+            terms = np.searchsorted(indptr,
+                                    np.arange(sl.start, sl.stop,
+                                              dtype=np.int64),
+                                    side="right").astype(np.int64)
+        w = (1.0 + np.log(np.maximum(pair_tf[sl], 1)
+                          .astype(np.float32))) * idf[terms]
+        sq += np.bincount(pair_doc[sl], weights=w * w,
+                          minlength=num_docs + 1)
+    return np.sqrt(sq[: num_docs + 1]).astype(np.float32)
+
+
 class SearchResult(list):
     """List of (docid, score) or (docno, score) tuples for one query,
     best first. (The JAX package's serving tags — degraded, level,
@@ -92,6 +141,9 @@ class SearchResult(list):
 class Scorer:
     # max elements of the [B_block, D+1] score accumulator per dispatch
     SCORE_BUDGET = 250_000_000
+    # least number of hot-free queries worth a block of their own (that
+    # skips the hot stage) when a batch also holds hot queries
+    MIN_SKIP_GROUP = 32
 
     def __init__(
         self,
@@ -108,17 +160,34 @@ class Scorer:
         compat_int_idf: bool = False,
         device: str | torch.device | None = None,
         tiers: TieredPostings | None = None,
+        prune: bool = True,
+        doc_norms: np.ndarray | None = None,
+        pairs_loader=None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
-        `tiers` instead, with the columns None."""
+        `tiers` instead, with the columns None. `prune` runs the tiered
+        layout's MaxScore schedule and block-max pruning (bitwise the
+        same results). The rerank's doc norms come from `doc_norms`, else
+        from the postings columns, else from `pairs_loader()` (which
+        returns df, pair_doc, pair_tf), on first use."""
         self.device = resolve_device(device)
         self.vocab = vocab
         self.mapping = mapping
         self.meta = meta
         self.compat_int_idf = compat_int_idf
         self.layout = _resolve_layout(layout, meta)
+        self.prune = prune
         self._analyzer = Analyzer()
+        self._norms_np = (None if doc_norms is None
+                          else np.asarray(doc_norms, np.float32))
+        self._norms: torch.Tensor | None = None
+        self._pairs_loader = pairs_loader
+        # what block-max did, summed over dispatches (the JAX package's
+        # blockmax.* registry counters)
+        self.blockmax_stats = {"blocks_considered": 0, "blocks_masked": 0,
+                               "fallback_dispatches": 0,
+                               "saved_dispatches": 0}
         # host postings columns (pair_term is needed by the dense layout
         # only, which keeps them for its BM25 matrix); the tiered layout
         # may come prebuilt without them and drops them once built
@@ -128,6 +197,12 @@ class Scorer:
                 self._pairs is None and tiers is None):
             raise ValueError(f"layout {self.layout!r} needs the postings "
                              "columns or a prebuilt tiered layout")
+        self._df_host = np.asarray(df)
+        if self._pairs is not None and self._pairs_loader is None:
+            # the rerank's norms come from these columns when first asked,
+            # also after a layout that drops them is built
+            cols = (self._df_host,) + self._pairs[1:]
+            self._pairs_loader = lambda: cols
         self.df = upload_index(df, self.device)
         self.doc_len = upload_index(doc_len, self.device)
         if self.layout == "dense":
@@ -153,9 +228,10 @@ class Scorer:
         # everywhere so the same arrays serve TF-IDF and BM25
         if tiers is None:
             tiers = build_tiered_layout(self._pairs[1], self._pairs[2],
-                                        np.asarray(df),
+                                        self._df_host,
                                         num_docs=meta.num_docs)
         self._pairs = None               # the tiers hold every posting
+        self._hot_rank_host = np.asarray(tiers.hot_rank)
         self.hot_rank = upload_index(tiers.hot_rank, self.device)
         # densified on the device: only the COO postings cross the link
         self.tf_dtype = _strip_dtype(meta, tiers.hot_vals)
@@ -168,17 +244,25 @@ class Scorer:
             [upload_index(a, self.device) for a in tiers.tier_docs],
             [upload_index(a, self.device) for a in tiers.tier_tfs])
         self._wstrip_cache: dict[str, torch.Tensor] = {}
+        # block-max bounds: the hot rows' largest tf per doc block
+        self._hot_blk_max = tiers.hot_blk_max
+        self._blockmax_width = int(tiers.blockmax_width or 0)
+        self._blockmax_tables: dict[str, torch.Tensor] = {}
 
     # -- loading -----------------------------------------------------------
 
     @classmethod
     def load(cls, index_dir: str, *, layout: str = "auto",
              compat_int_idf: bool = False,
-             device: str | torch.device | None = None) -> "Scorer":
+             device: str | torch.device | None = None,
+             prune: bool = True) -> "Scorer":
         """Load an index dir (built by either package, raw or compressed)
         onto the device. Side files are verified against their recorded
         checksums, and each part file is verified by the one streamed
-        read that loads it (a compressed part is then decoded)."""
+        read that loads it (a compressed part is then decoded). The
+        tiered layout takes its block-max bounds from blockmax.arena; a
+        corrupt artifact is quarantined and the bounds are computed from
+        the postings instead."""
         dev = resolve_device(device)
         meta = fmt.IndexMetadata.load(index_dir)
         resolved = _resolve_layout(layout, meta)  # fail before any reads
@@ -189,12 +273,26 @@ class Scorer:
         mapping = DocnoMapping.load(os.path.join(index_dir, fmt.DOCNOS))
         doc_len = np.load(os.path.join(index_dir, fmt.DOCLEN))
         df, pair_doc, pair_tf = _assemble_csr(index_dir, meta)
+        # the rerank's norms re-read the postings on first use: the
+        # tiered layout keeps no host copy of them
+        loader = lambda: _assemble_csr(index_dir, meta)  # noqa: E731
+        if resolved == "sparse":
+            bounds = load_block_bounds(index_dir, meta,
+                                       quarantine_corrupt=True)
+            tiers = build_tiered_layout(pair_doc, pair_tf, df,
+                                        num_docs=meta.num_docs,
+                                        block_bounds=bounds)
+            return cls(vocab=vocab, mapping=mapping, pair_term=None,
+                       pair_doc=None, pair_tf=None, df=df, doc_len=doc_len,
+                       meta=meta, layout=layout,
+                       compat_int_idf=compat_int_idf, device=dev,
+                       tiers=tiers, prune=prune, pairs_loader=loader)
         # the term column is read by the dense scatter only
-        pair_term = pair_term_from_df(df) if resolved == "dense" else None
         return cls(vocab=vocab, mapping=mapping,
-                   pair_term=pair_term, pair_doc=pair_doc,
+                   pair_term=pair_term_from_df(df), pair_doc=pair_doc,
                    pair_tf=pair_tf, df=df, doc_len=doc_len, meta=meta,
-                   layout=layout, compat_int_idf=compat_int_idf, device=dev)
+                   layout=layout, compat_int_idf=compat_int_idf, device=dev,
+                   prune=prune, pairs_loader=loader)
 
     # -- query pipeline ----------------------------------------------------
 
@@ -249,32 +347,138 @@ class Scorer:
     def topk(self, q_terms: np.ndarray, k: int = 10,
              scoring: str = "tfidf") -> tuple[np.ndarray, np.ndarray]:
         """Score an id batch. Returns host arrays (scores [B, k] float32,
-        docnos [B, k] int32, docno 0 = empty slot)."""
+        docnos [B, k] int32, docno 0 = empty slot), in the batch's order."""
         if scoring not in ("tfidf", "bm25"):
             raise ValueError(f"unknown scoring {scoring!r}; expected "
                              "'tfidf' or 'bm25'")
         q = np.ascontiguousarray(q_terms, dtype=np.int32)
-        return self._blocked_dispatch(
-            self._block_size(), lambda qb: self._topk_device(qb, k, scoring),
-            q)
+        return self._topk_primary(q, k, scoring)
 
-    def _topk_device(self, q_terms: np.ndarray, k: int, scoring: str):
-        """One query block on the device; returns device tensors."""
+    def _topk_primary(self, q: np.ndarray, k: int, scoring: str):
+        """The MaxScore schedule on the tiered layout with `prune`
+        (`tpu_ir/search/scorer.py::_topk_primary`): hot-free queries go
+        first, in blocks that skip the hot stage, then the rest; results
+        come back in the caller's order. Groups run at their own size:
+        nothing is compiled per shape, so nothing is padded."""
+        block = self._block_size()
+
+        def full(qb):
+            return self._topk_device(qb, k, scoring)
+
+        def skip(qb):
+            return self._topk_device(qb, k, scoring, skip_hot=True)
+
+        if self.layout != "sparse" or not self.prune:
+            return self._blocked_dispatch(block, full, q)
+        has_hot, n_free, mode = self._skip_plan(q)
+        if mode == "all_skip":
+            return self._blocked_dispatch(block, skip, q)
+        if mode == "all_full":
+            return self._blocked_dispatch(block, full, q)
+        order = self._schedule_order(has_hot)
+        inv = np.argsort(order, kind="stable")
+        qs = q[order]
+        s1, d1 = self._blocked_dispatch(block, skip, qs[:n_free])
+        s2, d2 = self._blocked_dispatch(block, full, qs[n_free:])
+        return (np.concatenate([s1, s2])[inv],
+                np.concatenate([d1, d2])[inv])
+
+    def _has_hot(self, q: np.ndarray) -> np.ndarray:
+        """Bool [B]: does the query hold a hot-strip term? (The MaxScore
+        partition, on the host: a hot-free query's hot stage adds 0.)"""
+        hot_rank = self._hot_rank_host
+        valid = (q >= 0) & (q < len(hot_rank))
+        return ((hot_rank[np.where(valid, q, 0)] >= 0) & valid).any(axis=1)
+
+    @staticmethod
+    def _schedule_order(has_hot: np.ndarray) -> np.ndarray:
+        """The schedule: a stable order with the hot-free queries first."""
+        return np.argsort(has_hot, kind="stable")
+
+    def _skip_plan(self, q: np.ndarray):
+        """(has_hot [B], n_free, mode), mode one of 'all_skip' (every
+        query hot-free), 'all_full' (fewer than MIN_SKIP_GROUP hot-free
+        queries: not worth a block of their own) and 'split'; the one
+        decision topk() and prune_diag() share."""
+        has_hot = self._has_hot(q)
+        n_free = int((~has_hot).sum())
+        if n_free == len(q):
+            mode = "all_skip"
+        elif n_free < self.MIN_SKIP_GROUP:
+            mode = "all_full"
+        else:
+            mode = "split"
+        return has_hot, n_free, mode
+
+    def prune_diag(self, q_terms: np.ndarray) -> dict:
+        """The MaxScore schedule of a query batch on the tiered layout, as
+        topk() dispatches it: the share of hot-free queries and of blocks
+        that skip the hot stage (`tpu_ir/search/scorer.py::prune_diag`)."""
+        if self.layout != "sparse":
+            return {"prune_layout": self.layout}
+        if not self.prune:
+            return {"prune_applicable": False}
+        q = np.asarray(q_terms, np.int32)
+        block = self._block_size()
+        _, n_free, mode = self._skip_plan(q)
+        if mode == "all_skip":
+            skip_blocks, full_blocks = -(-len(q) // block), 0
+        elif mode == "all_full":
+            skip_blocks, full_blocks = 0, -(-len(q) // block)
+        else:
+            skip_blocks = -(-n_free // block)
+            full_blocks = -(-(len(q) - n_free) // block)
+        total = max(skip_blocks + full_blocks, 1)
+        return {
+            "prune_hot_free_query_fraction": round(
+                n_free / max(len(q), 1), 4),
+            "prune_skip_block_fraction": round(skip_blocks / total, 4),
+            "prune_block_queries": block,
+        }
+
+    def _topk_device(self, q_terms: np.ndarray, k: int, scoring: str,
+                     skip_hot: bool = False):
+        """One query block on the device; returns device tensors.
+        `skip_hot` leaves the tiered hot stage out (exact only for a
+        block the schedule certified hot-free); otherwise a block on the
+        tiered layout goes through block-max where _blockmax_plan
+        engages."""
         q = torch.from_numpy(q_terms).to(self.device)
         n = self.meta.num_docs
         if self.layout == "sparse":
-            ws = self._hot_wstrip(scoring)
+            plan = None if skip_hot else self._blockmax_plan(k, scoring)
+            # the cached weighted strip serves every path that runs the
+            # hot stage; the skip path never reads the strip
+            ws = None if skip_hot else self._hot_wstrip(scoring)
             strip = self.hot_tfs if ws is None else ws
+            if plan is not None:
+                bound, width, cand = plan
+                if scoring == "bm25":
+                    s, d, stats = bm25_topk_blockmax(
+                        q, self.hot_rank, strip, self.tier_of, self.row_of,
+                        self.cold_tiers, self.df, self.doc_len, n, bound,
+                        width=width, cand_blocks=cand, k=k, k1=K1, b=B,
+                        hot_preweighted=ws is not None)
+                else:
+                    s, d, stats = tfidf_topk_blockmax(
+                        q, self.hot_rank, strip, self.tier_of, self.row_of,
+                        self.cold_tiers, self.df, n, bound, width=width,
+                        cand_blocks=cand, k=k,
+                        compat_int_idf=self.compat_int_idf,
+                        hot_preweighted=ws is not None)
+                self._note_blockmax_stats(stats)
+                return s, d
             if scoring == "bm25":
                 return bm25_topk_tiered(
                     q, self.hot_rank, strip, self.tier_of, self.row_of,
                     self.cold_tiers, self.df, self.doc_len, n,
-                    k=k, k1=K1, b=B, hot_preweighted=ws is not None)
+                    k=k, k1=K1, b=B, hot_preweighted=ws is not None,
+                    skip_hot=skip_hot)
             return tfidf_topk_tiered(
                 q, self.hot_rank, strip, self.tier_of, self.row_of,
                 self.cold_tiers, self.df, n, k=k,
                 compat_int_idf=self.compat_int_idf,
-                hot_preweighted=ws is not None)
+                hot_preweighted=ws is not None, skip_hot=skip_hot)
         if scoring == "bm25":
             return bm25_topk_dense(q, self._ensure_tf_matrix(), self.df,
                                    self.doc_len, n, k=k, k1=K1, b=B)
@@ -285,14 +489,75 @@ class Scorer:
         return tfidf_topk_dense(q, self.doc_matrix, self.df, n, k=k,
                                 compat_int_idf=self.compat_int_idf)
 
+    # -- block-max pruning -------------------------------------------------
+
+    def _blockmax_plan(self, k: int, scoring: str):
+        """(bound table, width, cand_blocks) for a block-max dispatch, or
+        None: with `prune`, on the tiered layout, unless TPU_IR_BLOCKMAX
+        is 0, and only where the mask can skip work (the budget leaves
+        at least two blocks out) and the candidate columns hold the top
+        k. Results are bitwise the same either way."""
+        if (self.layout != "sparse" or not self.prune
+                or self._hot_blk_max is None or not self._blockmax_width
+                or scoring not in ("tfidf", "bm25")
+                or envvars.get_choice("TPU_IR_BLOCKMAX") == "0"):
+            return None
+        width = self._blockmax_width
+        nblk = self._hot_blk_max.shape[1]
+        cand = blockmax_cand_blocks(k, self.meta.num_docs, width)
+        if (cand + 2 > nblk or k > cand * width
+                or k > self.meta.num_docs + 1):
+            return None
+        return self._blockmax_bound_table(scoring), width, cand
+
+    def _blockmax_bound_table(self, scoring: str) -> torch.Tensor:
+        """float32 [H, nblk] on the device, built once per scoring: each
+        hot row's weight curve at its block's largest tf, (1 + ln tf) for
+        TF-IDF; for BM25 the saturation at the block's least doc-length
+        norm (it grows with tf and falls with the norm, so it bounds every
+        posting of the block)."""
+        if scoring in self._blockmax_tables:
+            return self._blockmax_tables[scoring]
+        max_tf = np.asarray(self._hot_blk_max, np.float32)
+        if scoring == "tfidf":
+            bound = np.where(max_tf > 0,
+                             1.0 + np.log(np.maximum(max_tf, 1.0)), 0.0)
+        else:
+            width = self._blockmax_width
+            d = self.meta.num_docs
+            nblk = max_tf.shape[1]
+            dlf = self.doc_len.cpu().numpy().astype(np.float32)
+            avg = float(dlf.sum()) / max(d, 1)
+            dl_norm = 1.0 - B + B * dlf / max(avg, 1e-9)
+            # the dead slot 0 and the pad tail leave the block minimum be
+            padded = np.full(nblk * width, np.inf, np.float32)
+            padded[1: d + 1] = dl_norm[1: d + 1]
+            dl_min = padded.reshape(nblk, width).min(axis=1)
+            dl_min = np.where(np.isfinite(dl_min), dl_min, 0.0)
+            sat = max_tf * (K1 + 1.0) / np.maximum(
+                max_tf + K1 * dl_min[None, :], 1e-9)
+            bound = np.where(max_tf > 0, sat, 0.0)
+        table = torch.from_numpy(
+            np.ascontiguousarray(bound, np.float32)).to(self.device)
+        self._blockmax_tables[scoring] = table
+        return table
+
+    def _note_blockmax_stats(self, stats) -> None:
+        considered, masked, fallback = stats
+        self.blockmax_stats["blocks_considered"] += considered
+        self.blockmax_stats["blocks_masked"] += masked
+        key = "fallback_dispatches" if fallback else "saved_dispatches"
+        self.blockmax_stats[key] += 1
+
     def _hot_wstrip(self, scoring: str) -> torch.Tensor | None:
         """The device-cached pre-weighted hot strip of a scoring mode
         (lntf_strip / bm25_strip), or None when one more strip-sized
         buffer would pass half the hot budget (the JAX package's auto
         rule). The weighting is query-independent; cached, the hot stage
-        is the product alone, with bitwise the same scores. The test is on
-        elements, not bytes, so a bf16 strip makes the same decision as a
-        float32 one; a bf16 strip is widened first, exactly."""
+        reads the weights directly, with bitwise the same scores. The
+        test is on elements, not bytes, so a bf16 strip makes the same
+        decision as a float32 one; a bf16 strip is widened first,
+        exactly."""
         h, d1 = self.hot_tfs.shape
         if h * d1 > HOT_BUDGET // 2:
             return None
@@ -316,6 +581,60 @@ class Scorer:
                 num_docs=self.meta.num_docs)
         return self._tf_matrix
 
+    # -- two-stage rerank --------------------------------------------------
+
+    def _doc_norms_host(self) -> np.ndarray:
+        """The rerank's float32 [D+1] doc norms on the host, computed from
+        the postings on first use."""
+        if self._norms_np is None:
+            if self._pairs is not None:
+                df, pair_doc, pair_tf = (self._df_host,) + self._pairs[1:]
+            elif self._pairs_loader is not None:
+                df, pair_doc, pair_tf = self._pairs_loader()
+            else:
+                raise ValueError("the rerank needs the doc norms: pass "
+                                 "doc_norms= or the postings columns")
+            self._norms_np = compute_doc_norms(None, pair_doc, pair_tf, df,
+                                               self.meta.num_docs)
+        return self._norms_np
+
+    def _doc_norms(self) -> torch.Tensor:
+        """The rerank's doc norms on the device."""
+        if self._norms is None:
+            self._norms = torch.from_numpy(
+                np.ascontiguousarray(self._doc_norms_host())).to(self.device)
+        return self._norms
+
+    def rerank_topk(self, q_terms: np.ndarray, k: int = 10,
+                    candidates: int = 1000) -> tuple[np.ndarray, np.ndarray]:
+        """Two-stage retrieval (`tpu_ir/search/scorer.py::rerank_topk`):
+        BM25 top-`candidates`, then cosine TF-IDF (ops/scoring.py::
+        cosine_rerank_dense) over those candidates. Both stages run
+        inside one query block, so the candidates stay on the device;
+        stage 1 goes through block-max where it engages. Returns host
+        arrays (scores [B, k], docnos [B, k])."""
+        q = np.ascontiguousarray(q_terms, dtype=np.int32)
+        norms = self._doc_norms()
+        n = self.meta.num_docs
+
+        def dispatch(qb):
+            qd = torch.from_numpy(qb).to(self.device)
+            _, cand = self._topk_device(qb, candidates, "bm25")
+            if self.layout == "dense":
+                matrix = (self.doc_matrix if self.doc_matrix is not None
+                          else self._tf_matrix)
+                return cosine_rerank_dense(qd, matrix, self.df, norms, cand,
+                                           n, k=k)
+            # the cosine stage weights the strip as TF-IDF does, so it
+            # takes the cached TF-IDF strip
+            ws = self._hot_wstrip("tfidf")
+            return cosine_rerank_tiered(
+                qd, self.hot_rank, self.hot_tfs if ws is None else ws,
+                self.tier_of, self.row_of, self.cold_tiers, self.df, norms,
+                n, cand, k=k, hot_preweighted=ws is not None)
+
+        return self._blocked_dispatch(self._block_size(), dispatch, q)
+
     def search_batch(
         self, texts: Sequence[str], k: int = 10, scoring: str = "tfidf",
         return_docids: bool = True, rerank: int | None = None,
@@ -324,11 +643,12 @@ class Scorer:
         hot_only: bool = False, explain_k: int = 0,
     ) -> list[SearchResult]:
         """Ranked retrieval for plain query texts: one SearchResult of
-        (docid or docno, score) per text, best first."""
-        unsupported = {"rerank": rerank, "prox": prox,
-                       "phrase_slop": phrase_slop, "deadline_s": deadline_s,
-                       "force_host": force_host, "hot_only": hot_only,
-                       "explain_k": explain_k}
+        (docid or docno, score) per text, best first. `rerank=N` is the
+        two-stage rerank over BM25's top N (`scoring` then does not
+        apply)."""
+        unsupported = {"prox": prox, "phrase_slop": phrase_slop,
+                       "deadline_s": deadline_s, "force_host": force_host,
+                       "hot_only": hot_only, "explain_k": explain_k}
         for name, value in unsupported.items():
             if value:
                 raise ValueError(f"search_batch({name}=...) {_LATER}")
@@ -337,7 +657,10 @@ class Scorer:
             if '"' in t:
                 raise ValueError(f"phrase queries {_LATER}: {t!r}")
         q = self.analyze_queries(texts)
-        scores, docnos = self.topk(q, k=k, scoring=scoring)
+        if rerank:
+            scores, docnos = self.rerank_topk(q, k=k, candidates=rerank)
+        else:
+            scores, docnos = self.topk(q, k=k, scoring=scoring)
         out = []
         for qi in range(len(texts)):
             res = SearchResult()
