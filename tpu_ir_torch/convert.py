@@ -47,17 +47,14 @@ def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
                              doc_len: np.ndarray, tiers: Mapping,
                              meta_dict: dict, *,
                              compat_int_idf: bool = False,
-                             prune: bool = True,
-                             doc_norms: np.ndarray | None = None,
                              device: str | torch.device | None = None
                              ) -> Scorer:
     """A tiered-layout Scorer on `device` from host state: the sorted
     vocabulary and docids, df [V], doc_len [D+1], the layout's fields as
     a mapping (a JAX `TieredPostings._asdict()`, block-max bounds
     included) and the index metadata as a dict (format_version 3 selects
-    the bf16 hot strip of a compressed index). The rerank needs
-    `doc_norms` (a JAX Scorer's `_doc_norms_host()`): no postings columns
-    come with a prebuilt layout."""
+    the bf16 hot strip of a compressed index). No postings columns come
+    with a prebuilt layout, so its rerank raises."""
     layout = TieredPostings(**{f: tiers[f] for f in TieredPostings._fields
                                if f in tiers})
     return Scorer(vocab=Vocab(list(vocab_terms)),
@@ -67,4 +64,4 @@ def tiered_scorer_from_numpy(vocab_terms: Sequence[str],
                   doc_len=np.asarray(doc_len, np.int32),
                   meta=IndexMetadata(**meta_dict), layout="sparse",
                   compat_int_idf=compat_int_idf, device=device,
-                  tiers=layout, prune=prune, doc_norms=doc_norms)
+                  tiers=layout)

@@ -161,16 +161,15 @@ class Scorer:
         device: str | torch.device | None = None,
         tiers: TieredPostings | None = None,
         prune: bool = True,
-        doc_norms: np.ndarray | None = None,
         pairs_loader=None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
         `tiers` instead, with the columns None. `prune` runs the tiered
         layout's MaxScore schedule and block-max pruning (bitwise the
-        same results). The rerank's doc norms come from `doc_norms`, else
-        from the postings columns, else from `pairs_loader()` (which
-        returns df, pair_doc, pair_tf), on first use."""
+        same results). The rerank's doc norms come from the postings
+        columns, or from `pairs_loader()` (which returns df, pair_doc,
+        pair_tf), on first use."""
         self.device = resolve_device(device)
         self.vocab = vocab
         self.mapping = mapping
@@ -179,8 +178,7 @@ class Scorer:
         self.layout = _resolve_layout(layout, meta)
         self.prune = prune
         self._analyzer = Analyzer()
-        self._norms_np = (None if doc_norms is None
-                          else np.asarray(doc_norms, np.float32))
+        self._norms_np: np.ndarray | None = None
         self._norms: torch.Tensor | None = None
         self._pairs_loader = pairs_loader
         # what block-max did, summed over dispatches (the JAX package's
@@ -371,10 +369,9 @@ class Scorer:
         if self.layout != "sparse" or not self.prune:
             return self._blocked_dispatch(block, full, q)
         has_hot, n_free, mode = self._skip_plan(q)
-        if mode == "all_skip":
-            return self._blocked_dispatch(block, skip, q)
-        if mode == "all_full":
-            return self._blocked_dispatch(block, full, q)
+        if mode != "split":
+            return self._blocked_dispatch(
+                block, skip if mode == "all_skip" else full, q)
         order = self._schedule_order(has_hot)
         inv = np.argsort(order, kind="stable")
         qs = q[order]
@@ -592,8 +589,9 @@ class Scorer:
             elif self._pairs_loader is not None:
                 df, pair_doc, pair_tf = self._pairs_loader()
             else:
-                raise ValueError("the rerank needs the doc norms: pass "
-                                 "doc_norms= or the postings columns")
+                raise ValueError("the rerank needs the doc norms, computed "
+                                 "from the postings columns, which this "
+                                 "Scorer was built without")
             self._norms_np = compute_doc_norms(None, pair_doc, pair_tf, df,
                                                self.meta.num_docs)
         return self._norms_np
