@@ -169,7 +169,7 @@ def test_quarantine_keeps_the_newest(tmp_path, monkeypatch):
 
 def test_migrate_add_bounds_round_trips(stdlib_dirs, tmp_path, capsys):
     """`migrate-index --add-bounds` on an index without bounds writes the
-    builders' bytes and the JAX package's metadata; again, the same."""
+    bytes the build wrote and the JAX package's metadata; again, the same."""
     jax_dir, port_dir = stdlib_dirs
     want = open(os.path.join(port_dir, bmx.BLOCKMAX_ARENA), "rb").read()
     idx = str(tmp_path / "idx")
