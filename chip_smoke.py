@@ -74,6 +74,30 @@ code:
 16. compress  and serve `wiki100k-v3` as 8 and 9: a bf16 hot strip, top-10
               bitwise equal to the raw wiki100k index's.
 
+Then the serving tier (tpu_ir_torch.serving) over `ref` and `wiki100k`,
+loaded again, with the kernels' launches counted from phase 17 to the end
+of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
+
+17. frontend  on each: a ServingFrontend search at level full bitwise
+              search_batch's; 16 texts of 1 to 8 terms in rung-padded
+              batches (1, 3 and 16 texts at width floor 8, the
+              coalescer's dispatch) bitwise their solo dispatch, for
+              TF-IDF, BM25 and the rerank, and on wiki100k also hot_only
+              and prune off; on wiki100k hot_only through the frontend
+              (its ladder stepped down), which launches hot_stage and
+              never cold_tier and gives the bits of hot_stage's plain
+              twin on the same path;
+18. soak      wiki100k, 8 threads x 480 requests of make_queries through a
+              coalescing frontend: a clean run (served + shed ==
+              submitted, no error, deadlock, untagged mismatch or
+              degraded response, no forced host batch, kernels launched),
+              then the same under DEFAULT_CHAOS_PLAN (every invariant but
+              `degraded`, and one degraded verdict in each shared batch);
+19. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
+              BM25 and TF-IDF: solo round trip, p50/p95/p99 ms, q/s, mean
+              occupancy and `unwarmed` (must be 0); then one request's
+              latency past a 0.25 s deadline beside the open breaker's.
+
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
 repository, the script exits nonzero before printing any result. On an
@@ -1513,6 +1537,323 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
+COALESCE_LADDER = (1, 4, 16)     # the default ladder's rungs on the card
+COALESCE_WIDTH = 8               # TPU_IR_BATCH_WIDTH's default
+FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
+SOAK_THREADS = 8
+SOAK_QUERIES = 480
+SWEEP_LEVELS = (1, 4, 16)
+SWEEP_QUERIES = 192              # per level
+BREAKER_PROBES = 10              # breaker-open requests timed
+
+
+def launch_delta(before: dict) -> dict:
+    """Kernel launches since the `kernel_launches()` snapshot `before`."""
+    import tpu_ir_torch
+
+    after = tpu_ir_torch.kernel_launches()
+    return {n: after[n] - before[n] for n in after}
+
+
+def serving_texts(scorer, n: int, seed: int = 5) -> list[str]:
+    """`n` query texts of 1 to 8 vocabulary terms (analyzed widths 1, 2,
+    4 and 8), every fourth one led by a hot-strip term where the layout
+    has one, and one unknown term."""
+    rng = np.random.default_rng(seed)
+    terms = scorer.vocab.terms
+    hot = (np.nonzero(scorer._hot_rank_host >= 0)[0]
+           if scorer.layout == "sparse" else np.zeros(0, np.int64))
+    out = []
+    for i in range(n - 1):
+        ids = list(rng.integers(0, len(terms), 1 + i % 8))
+        if i % 4 == 0 and len(hot):
+            ids[0] = int(rng.choice(hot))
+        out.append(" ".join(terms[int(t)] for t in ids))
+    return out + ["zzzzzzzzq"]
+
+
+def result_bits(res) -> list:
+    """A SearchResult as (docid, float32 bits) pairs."""
+    return [(d, int(np.float32(s).view(np.int32))) for d, s in res]
+
+
+def coalesced_equals_solo(scorer, texts: list[str], **kw) -> int:
+    """Hold each text's results in rung-padded batches (1, 3 and all of
+    `texts`, padded to rungs 1, 4 and 16 at width floor 8, the MaxScore
+    groups padded to rungs: the coalescer's dispatch) against its solo
+    `search_batch`, bitwise. Returns the number of results compared."""
+    solo = [result_bits(scorer.search_batch([t], **kw)[0]) for t in texts]
+    n = 0
+    for size in (1, 3, len(texts)):
+        rung = next(r for r in COALESCE_LADDER if r >= size)
+        batched = scorer.search_batch(
+            texts[:size], pad_to=rung, width_floor=COALESCE_WIDTH,
+            rung_ladder=COALESCE_LADDER, **kw)
+        for text, got, want in zip(texts, batched, solo):
+            if result_bits(got) != want:
+                raise AssertionError(f"coalesced != solo for {text!r} in a "
+                                     f"batch of {size} ({kw})")
+            n += 1
+    return n
+
+
+def phase_frontend(card: str, scorer, *, config: str, device: str,
+                   k: int = 10) -> dict:
+    """The serving frontend on a loaded scorer: a search at level full
+    bitwise `search_batch`'s; coalesced == solo bitwise (TF-IDF and BM25,
+    the rerank, and on the tiered layout hot_only and prune off); and on
+    the tiered layout hot_only through the frontend, which must launch
+    hot_stage and never cold_tier and give the bits of the same path with
+    hot_stage's plain twin."""
+    import tpu_ir_torch
+    from tpu_ir_torch.ops import hot_stage as hot_mod
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    texts = serving_texts(scorer, FRONTEND_TEXTS)
+    fe = ServingFrontend(scorer, ServingConfig(deadline_s=None))
+    for scoring in ("tfidf", "bm25"):
+        for text in texts:
+            res = fe.search(text, k=k, scoring=scoring)
+            want = scorer.search_batch([text], k=k, scoring=scoring)[0]
+            if res.level != "full" or res.degraded or \
+                    result_bits(res) != result_bits(want):
+                raise AssertionError(f"{config}: the frontend at level full "
+                                     f"differs from search_batch for "
+                                     f"{text!r}")
+    cases = {f"{s}": {"scoring": s} for s in ("tfidf", "bm25")}
+    cases["rerank"] = {"rerank": 100}
+    if scorer.layout == "sparse":
+        cases.update({f"hot_only_{s}": {"scoring": s, "hot_only": True}
+                      for s in ("tfidf", "bm25")})
+    compared = {name: coalesced_equals_solo(scorer, texts, k=k, **kw)
+                for name, kw in cases.items()}
+    if scorer.layout == "sparse":
+        scorer.prune = False
+        try:
+            for s in ("tfidf", "bm25"):
+                compared[f"prune_off_{s}"] = coalesced_equals_solo(
+                    scorer, texts, k=k, scoring=s)
+        finally:
+            scorer.prune = True
+    out = {"phase": "frontend", "card": card, "config": config,
+           "layout": scorer.layout, "texts": len(texts),
+           "frontend_equals_search_batch": True,
+           "coalesced_equals_solo": compared}
+    if scorer.layout != "sparse":
+        return out
+    # hot_only through the frontend: its ladder stepped down twice
+    hot_texts = [" ".join(scorer.vocab.terms[int(t)] for t in row)
+                 for row in hot_traffic(scorer, FRONTEND_TEXTS)]
+    fe = ServingFrontend(scorer, ServingConfig(
+        down_cooldown_s=0.0, recover_successes=1 << 30))
+    for _ in range(2):
+        fe.ladder.observe(pressure=1.0, failed=False)
+    if fe.ladder.level() != "hot_only":
+        raise AssertionError(f"the ladder is at {fe.ladder.level()!r}")
+    before = tpu_ir_torch.kernel_launches()
+    got = {s: [fe.search(t, k=k, scoring=s) for t in hot_texts]
+           for s in ("tfidf", "bm25")}
+    launches = launch_delta(before)
+    if device == "cuda" and (launches["hot_stage"] == 0
+                             or launches["cold_tier"] != 0):
+        raise AssertionError(f"hot_only must launch hot_stage and never "
+                             f"cold_tier: {launches}")
+    kernel = hot_mod.hot_stage
+    hot_mod.hot_stage = hot_mod.hot_stage_plain
+    try:
+        plain = {s: [scorer.search_batch([t], k=k, scoring=s,
+                                         hot_only=True)[0]
+                     for t in hot_texts] for s in ("tfidf", "bm25")}
+    finally:
+        hot_mod.hot_stage = kernel
+    for s in ("tfidf", "bm25"):
+        for text, g, w in zip(hot_texts, got[s], plain[s]):
+            if g.level != "hot_only" or result_bits(g) != result_bits(w):
+                raise AssertionError(f"hot_only {s} {text!r}: the kernel's "
+                                     "bits differ from the plain twin's")
+    if not any(len(r) for r in got["bm25"]):
+        raise AssertionError("hot_only found nothing on hot-term traffic")
+    out["hot_only"] = {"requests": 2 * len(hot_texts),
+                       "launches": launches,
+                       "bitwise_equal_to_plain": True}
+    return out
+
+
+def phase_soak(card: str, scorer, *, config: str, device: str) -> dict:
+    """run_soak through a coalescing frontend: a clean run (every
+    response full and bitwise the serial reference, nothing degraded, no
+    forced host batch, the layout's kernels launched), then the same
+    under DEFAULT_CHAOS_PLAN, where every invariant but `degraded` holds
+    and the slots of every shared batch carry one degraded verdict
+    (recorded by wrapping the scheduler's batch execution)."""
+    import tpu_ir_torch
+    from tpu_ir_torch import faults
+    from tpu_ir_torch.serving import (
+        DEFAULT_CHAOS_PLAN,
+        CoalescingScheduler,
+        ServingConfig,
+        run_soak,
+    )
+
+    def invariants(rep: dict, name: str) -> None:
+        if rep["errors"] or rep["deadlocked"] or rep["untagged_mismatches"] \
+                or rep["served"] + rep["shed"] != rep["submitted"]:
+            counts = {n: rep[n] for n in (
+                "submitted", "served", "shed", "errors", "deadlocked",
+                "untagged_mismatches", "error_samples")}
+            raise AssertionError(f"{name} soak broke an invariant: {counts}")
+
+    summary = ("submitted", "served", "shed", "errors", "deadlocked",
+               "degraded", "levels", "full_bitidentical",
+               "tagged_divergent", "untagged_mismatches", "wall_s",
+               "recovery_delta", "latency", "batching")
+    out = {"phase": "soak", "card": card, "config": config,
+           "threads": SOAK_THREADS, "queries": SOAK_QUERIES}
+    cfg = dict(max_concurrency=4, max_queue=8, breaker_threshold=4,
+               breaker_cooldown_s=0.2, coalesce=True)
+    before = tpu_ir_torch.kernel_launches()
+    clean = run_soak(scorer, threads=SOAK_THREADS, queries=SOAK_QUERIES,
+                     seed=0, fault_spec=None,
+                     config=ServingConfig(deadline_s=1.0, **cfg))
+    launches = launch_delta(before)
+    invariants(clean, "clean")
+    if clean["degraded"] or "forced_host_batches" in clean["recovery_delta"]:
+        raise AssertionError(f"clean soak degraded: {clean['degraded']}, "
+                             f"{clean['recovery_delta']}")
+    kernels = (("cold_tier", "hot_stage") if scorer.layout == "sparse"
+               else ("dense_score",))
+    if device == "cuda" and not all(launches[n] for n in kernels):
+        raise AssertionError(f"the soak launched {launches}")
+    out["clean"] = {n: clean.get(n) for n in summary}
+    out["clean"]["launches"] = launches
+
+    shared = []
+    execute = CoalescingScheduler._execute
+
+    def recording(self, slots):
+        execute(self, slots)
+        if len(slots) > 1:
+            shared.append({sl.result.degraded for sl in slots
+                           if sl.state == "done"})
+
+    CoalescingScheduler._execute = recording
+    try:
+        chaos = run_soak(scorer, threads=SOAK_THREADS, queries=SOAK_QUERIES,
+                         seed=1, fault_spec=DEFAULT_CHAOS_PLAN,
+                         config=ServingConfig(deadline_s=0.25, **cfg))
+    finally:
+        CoalescingScheduler._execute = execute
+        faults.clear()
+    invariants(chaos, "chaos")
+    if not chaos["degraded"]:
+        raise AssertionError("the chaos plan never bit")
+    mixed = sum(1 for flags in shared if len(flags) > 1)
+    if mixed:
+        raise AssertionError(f"{mixed} shared batches mixed degraded and "
+                             "clean slots")
+    out["chaos"] = {n: chaos.get(n) for n in summary}
+    out["chaos"]["shared_batches"] = len(shared)
+    out["chaos"]["batch_mixed_degraded"] = mixed
+    return out
+
+
+def closed_loop(fe, texts: list[str], clients: int, *, scoring: str,
+                k: int) -> None:
+    """`clients` threads sending `texts` through the frontend `fe`, each
+    thread its share one request after the other (a sweep level's
+    traffic, for the profiler)."""
+    import threading
+
+    errors = []
+
+    def client(ci):
+        try:
+            for text in texts[ci::clients]:
+                fe.search(text, k=k, scoring=scoring)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def phase_sweep(card: str, scorer, *, config: str, device: str,
+                k: int = 10) -> dict:
+    """run_concurrency_sweep at SWEEP_LEVELS through a coalescing frontend,
+    BM25 and TF-IDF: solo round trip, p50/p95/p99 ms, q/s, mean occupancy
+    and `unwarmed` (must be 0) per level; on the card the device time and
+    idle share of the top level's BM25 traffic (closed_loop, profiled);
+    then one request's latency when its dispatch hangs past a 0.25 s
+    deadline beside the median latency of BREAKER_PROBES requests once
+    the breaker is open (the host answers without a dispatch)."""
+    from tpu_ir_torch import faults
+    from tpu_ir_torch.serving import (
+        ServingConfig,
+        ServingFrontend,
+        run_concurrency_sweep,
+    )
+    from tpu_ir_torch.serving.soak import _sweep_queries
+
+    out = {"phase": "sweep", "card": card, "config": config,
+           "layout": scorer.layout, "levels": list(SWEEP_LEVELS),
+           "queries_per_level": SWEEP_QUERIES}
+    for scoring in ("bm25", "tfidf"):
+        rep = run_concurrency_sweep(scorer, levels=SWEEP_LEVELS,
+                                    queries_per_level=SWEEP_QUERIES,
+                                    scoring=scoring, k=k)
+        for lv in rep["levels"]:
+            if lv["errors"] or lv["unwarmed"] or lv["served"] == 0:
+                raise AssertionError(f"{config} {scoring} sweep level "
+                                     f"{lv['concurrency']}: {lv}")
+        out[scoring] = {
+            "solo_rtt_ms": rep["solo_rtt_ms"],
+            "levels": [{n: lv[n] for n in (
+                "concurrency", "served", "shed", "qps", "p50_ms", "p95_ms",
+                "p99_ms", "occupancy_mean", "unwarmed", "coalesced",
+                "solo_flush")} for lv in rep["levels"]]}
+    if device == "cuda":
+        top = max(SWEEP_LEVELS)
+        fe = ServingFrontend(scorer, ServingConfig(
+            max_concurrency=top, max_queue=2 * top, coalesce=True))
+        texts = _sweep_queries(scorer, SWEEP_QUERIES, seed=0)
+        out["profile_top_level"] = profile_call(
+            lambda: closed_loop(fe, texts, top, scoring="bm25", k=k))
+    deadline = 0.25
+    fe = ServingFrontend(scorer, ServingConfig(
+        deadline_s=deadline, breaker_threshold=1, breaker_cooldown_s=300.0,
+        fail_threshold=1 << 30))
+    texts = serving_texts(scorer, BREAKER_PROBES + 1, seed=9)
+    faults.install(faults.FaultPlan().add("score.hang", "always",
+                                          sleep_s=1.0))
+    try:
+        t0 = time.perf_counter()
+        first = fe.search(texts[0], k=k)
+        expiry_ms = (time.perf_counter() - t0) * 1e3
+        if not first.degraded or fe.breaker.state != "open":
+            raise AssertionError("a hung dispatch must expire its deadline "
+                                 "and open the breaker")
+        lat = []
+        for text in texts[1:]:
+            t0 = time.perf_counter()
+            res = fe.search(text, k=k)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if not res.degraded:
+                raise AssertionError("breaker-open answers must be tagged")
+    finally:
+        faults.clear()
+        faults.drain_abandoned(timeout_s=10.0)
+    out["deadline_expiry_ms"] = expiry_ms
+    out["breaker_open_ms"] = float(np.median(lat))
+    out["breaker_open_requests"] = len(lat)
+    return out
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel in nvcc's
     `-Xptxas -v` output."""
@@ -1559,8 +1900,12 @@ def build_kernels(card: str) -> dict:
             "ptxas": {n: ptxas_report(log) for n, log in logs.items()}}
 
 
-def kernel_row(name: str, kern: dict, launches: int, **fields) -> dict:
+def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
+               **fields) -> dict:
+    """One kernel's entry of the summary line: `launches` in its serve
+    window, `serving_launches` in the serving tier's phases (17-19)."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
+            "serving_launches": serving_launches,
             "max_abs_err": kern["max_abs_diff"], "ms": kern["ms"],
             "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
             "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
@@ -1577,12 +1922,13 @@ def main() -> int:
               "on a GPU and has nothing to do here", file=sys.stderr)
         return 2
     try:
-        import tpu_ir_torch  # noqa: F401
+        import tpu_ir_torch
     except ImportError as e:
         print(f"chip_smoke: cannot import tpu_ir_torch ({e}); run from the "
               "repository root", file=sys.stderr)
         return 2
 
+    from tpu_ir_torch import faults
     from tpu_ir_torch.search import Scorer
 
     card = card_line()
@@ -1668,7 +2014,29 @@ def main() -> int:
                                            config="wiki100k-v3")
         emit(wserve_v3)
         del scorer
+        shutil.rmtree(wv3)
+        torch.cuda.empty_cache()
+
+        # the serving tier over both layouts, its launches counted from
+        # here to the end of the sweep
+        serving = {"ref": Scorer.load(idx, device="cuda"),
+                   "wiki100k": Scorer.load(widx, device="cuda")}
+        tpu_ir_torch.reset_kernel_launches()
+        for config, scorer in serving.items():
+            emit(phase_frontend(card, scorer, config=config,
+                                device="cuda"))
+        emit(phase_soak(card, serving["wiki100k"], config="wiki100k",
+                        device="cuda"))
+        for config, scorer in serving.items():
+            emit(phase_sweep(card, scorer, config=config, device="cuda"))
+        serving_launches = tpu_ir_torch.kernel_launches()
+        for kernel in ("dense_score", "cold_tier", "hot_stage"):
+            if serving_launches[kernel] == 0:
+                raise AssertionError(f"the serving phases never launched "
+                                     f"{kernel}: {serving_launches}")
+        del serving, scorer
     finally:
+        faults.drain_abandoned(timeout_s=10.0)
         shutil.rmtree(work, ignore_errors=True)
 
     # cold_tier's times are the TF-IDF stage's (the default scoring); its
@@ -1677,16 +2045,20 @@ def main() -> int:
         cold[s]["max_abs_diff"] for s in ("tfidf", "bm25")))
     emit({"kernels": [
         kernel_row("dense_score", kern, serve["launches"]["dense_score"],
+                   serving_launches["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
         kernel_row("dequant_score", dequant,
                    serve_v3["launches"]["dequant_score"],
+                   serving_launches["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
+                   serving_launches["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
         kernel_row("hot_stage", hot["full"], wserve["launches"]["hot_stage"],
+                   serving_launches["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})
     print(card, flush=True)

@@ -274,3 +274,56 @@ def test_hot_stage_inputs_and_bound_on_cpu(tmp_path, monkeypatch):
     assert bound["distinct_rows"] == n_rows and bound["active_queries"] == 40
     assert bound["bound_bytes"] == n_rows * 201 * 4 + 40 * 201 * 8 + 40 * 2 * 8
     assert bound["bound_by"] == "bytes"
+
+
+def test_serving_phases_on_cpu(tmp_path, monkeypatch):
+    """The serving phases (frontend, soak, sweep) end to end at a small
+    size on the CPU, on the dense and the tiered layout: coalesced ==
+    solo bitwise, hot_only == its plain twin, the clean and the chaos
+    soak's invariants, the sweep's rows with nothing unwarmed."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.search import Scorer
+
+    obs.reset_all()
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    monkeypatch.setattr(chip_smoke, "SOAK_THREADS", 4)
+    monkeypatch.setattr(chip_smoke, "SOAK_QUERIES", 64)
+    monkeypatch.setattr(chip_smoke, "SWEEP_LEVELS", (1, 4))
+    monkeypatch.setattr(chip_smoke, "SWEEP_QUERIES", 16)
+    monkeypatch.setattr(chip_smoke, "BREAKER_PROBES", 3)
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    tiered = Scorer.load(idx, layout="sparse", device="cpu")
+    dense = Scorer.load(idx, layout="dense", device="cpu")
+    fr = chip_smoke.phase_frontend("cpu", tiered, config="wiki100k",
+                                   device="cpu")
+    assert set(fr["coalesced_equals_solo"]) == {
+        "tfidf", "bm25", "rerank", "hot_only_tfidf", "hot_only_bm25",
+        "prune_off_tfidf", "prune_off_bm25"}
+    assert fr["hot_only"]["bitwise_equal_to_plain"] and tiered.prune
+    fd = chip_smoke.phase_frontend("cpu", dense, config="ref",
+                                   device="cpu")
+    assert "hot_only" not in fd and set(fd["coalesced_equals_solo"]) == {
+        "tfidf", "bm25", "rerank"}
+    soak = chip_smoke.phase_soak("cpu", tiered, config="wiki100k",
+                                 device="cpu")
+    assert soak["clean"]["degraded"] == 0
+    assert soak["clean"]["served"] + soak["clean"]["shed"] == 64
+    assert soak["chaos"]["degraded"] > 0
+    assert soak["chaos"]["batch_mixed_degraded"] == 0
+    sweep = chip_smoke.phase_sweep("cpu", dense, config="ref", device="cpu")
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    fe = ServingFrontend(tiered, ServingConfig(coalesce=True))
+    chip_smoke.closed_loop(fe, ["salmon"] * 8 + [""] * 8, 4, scoring="bm25",
+                           k=10)
+    assert fe.stats()["served_full"] == 16
+    for scoring in ("bm25", "tfidf"):
+        assert [lv["concurrency"] for lv in sweep[scoring]["levels"]] == \
+            [1, 4]
+        assert all(lv["unwarmed"] == 0 for lv in sweep[scoring]["levels"])
+    assert sweep["deadline_expiry_ms"] >= 200.0
+    assert sweep["breaker_open_ms"] < sweep["deadline_expiry_ms"]
+    json.dumps([fr, fd, soak, sweep])
+    obs.reset_all()

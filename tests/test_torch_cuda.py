@@ -623,3 +623,62 @@ def test_rerank_on_cuda_equals_cpu(cuda, tmp_path):
         s, d = runs[f"{name}-v3"]
         rs, rd = runs[name]
         assert np.array_equal(d, rd) and s.tobytes() == rs.tobytes()
+
+
+@pytest.fixture
+def serving_index(cuda, tmp_path):
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=11, n_docs=400, target_bytes=300_000,
+                vocab_size=3_000)
+    idx = str(tmp_path / "idx")
+    build_index(corpus, idx, num_shards=3, device=cuda)
+    return idx
+
+
+def _texts(scorer, n_terms, n, seed):
+    rng = np.random.default_rng(seed)
+    terms = scorer.vocab.terms
+    return [" ".join(terms[int(t)] for t in rng.integers(0, len(terms),
+                                                         n_terms))
+            for _ in range(n)]
+
+
+def _bits(res):
+    return [(d, int(np.float32(s).view(np.int32))) for d, s in res]
+
+
+@pytest.mark.parametrize("width", [2, 4, 8])
+@pytest.mark.parametrize("rung", [1, 4, 16])
+def test_coalesced_dense_bm25_equals_solo(serving_index, width, rung):
+    """Dense BM25 on the card: a query in a batch padded to `rung` rows at
+    width floor 8 has the bits of its solo dispatch at its own width."""
+    s = Scorer.load(serving_index, layout="dense")
+    texts = _texts(s, width, max(rung - 1, 1), seed=width * 100 + rung)
+    solo = [_bits(s.search_batch([t], k=10, scoring="bm25")[0])
+            for t in texts]
+    got = s.search_batch(texts, k=10, scoring="bm25", pad_to=rung,
+                         width_floor=8, rung_ladder=(1, 4, 16))
+    assert [_bits(r) for r in got] == solo
+    assert any(solo)
+
+
+@pytest.mark.parametrize("scoring_name", ["tfidf", "bm25"])
+def test_hot_only_equals_plain_twin(serving_index, scoring_name,
+                                    monkeypatch):
+    """hot_only on the tiered layout launches hot_stage alone and gives
+    the bits of the same path with hot_stage's plain twin."""
+    g = Scorer.load(serving_index, layout="sparse")
+    hot = np.nonzero(g._hot_rank_host >= 0)[0]
+    rng = np.random.default_rng(12)
+    q = np.stack([rng.choice(hot, 64),
+                  rng.integers(0, g.meta.vocab_size, 64)], 1).astype(
+        np.int32)
+    tpu_ir_torch.reset_kernel_launches()
+    got = g.topk(q, k=10, scoring=scoring_name, hot_only=True)
+    launches = tpu_ir_torch.kernel_launches()
+    assert launches["hot_stage"] >= 1 and launches["cold_tier"] == 0
+    monkeypatch.setattr(hot_stage, "hot_stage", hot_stage.hot_stage_plain)
+    want = g.topk(q, k=10, scoring=scoring_name, hot_only=True)
+    assert np.array_equal(got[1], want[1])
+    assert got[0].tobytes() == want[0].tobytes()
+    assert (got[1] > 0).any()

@@ -249,11 +249,13 @@ def test_later_slices_raise(built, tmp_path, case):
             Scorer.load(port_dir, layout=case, device="cpu")
         return
     if case == "sparse":
-        # the tiered layout serves; its serving knobs are later slices
+        # the tiered layout serves, its hot_only knob too (the serving
+        # tier); explain is still a later slice
         s = Scorer.load(port_dir, layout="sparse", device="cpu")
         assert s.layout == "sparse" and s.search_batch(["a"]) is not None
+        assert s.search_batch(["a"], hot_only=True) is not None
         with pytest.raises(ValueError, match="later slice"):
-            s.search_batch(["a"], hot_only=True)
+            s.search_batch(["a"], hot_only=True, explain_k=1)
         return
     if case in ("k2", "chargrams", "positions"):
         kw = {"k2": {"k": 2}, "chargrams": {"compute_chargrams": True},
@@ -274,9 +276,16 @@ def test_later_slices_raise(built, tmp_path, case):
                                  [x for _, x in g], [d for d, _ in g])
         assert any(got)
         return
+    if case == "deadline":
+        # the per-batch deadline answers now (the serving tier): within
+        # it, the same results, not degraded
+        qs = _queries(s, seed=14)
+        got = s.search_batch(qs, deadline_s=30.0)
+        assert got == s.search_batch(qs)
+        assert not any(r.degraded for r in got)
+        return
     call = {"phrase": lambda: s.search_batch(['"a b"']),
-            "explain": lambda: s.search_batch(["a"], explain_k=3),
-            "deadline": lambda: s.search_batch(["a"], deadline_s=1.0)}[case]
+            "explain": lambda: s.search_batch(["a"], explain_k=3)}[case]
     with pytest.raises(ValueError, match="later slice"):
         call()
 

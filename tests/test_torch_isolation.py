@@ -32,7 +32,14 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.ops.hot_stage, tpu_ir_torch.envvars, "
             "tpu_ir_torch.search.layout, tpu_ir_torch.index.compress, "
             "tpu_ir_torch.index.blockmax, "
-            "tpu_ir_torch.index.migrate, chip_smoke\n"
+            "tpu_ir_torch.index.migrate, tpu_ir_torch.faults, "
+            "tpu_ir_torch.obs, tpu_ir_torch.obs.histogram, "
+            "tpu_ir_torch.obs.registry, tpu_ir_torch.obs.trace, "
+            "tpu_ir_torch.utils.report, tpu_ir_torch.serving, "
+            "tpu_ir_torch.serving.admission, tpu_ir_torch.serving.breaker, "
+            "tpu_ir_torch.serving.batching, tpu_ir_torch.serving.frontend, "
+            "tpu_ir_torch.serving.result_cache, tpu_ir_torch.serving.soak, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
             "assert not bad, bad\n"

@@ -245,10 +245,16 @@ def test_tiered_scorer_from_numpy_matches(scorers, scoring):
 
 
 def test_serving_knobs_raise_on_sparse(scorers):
-    _, ts = scorers
-    for kw in ({"hot_only": True}, {"explain_k": 2}):
-        with pytest.raises(ValueError, match="later slice"):
-            ts.search_batch(["a"], **kw)
+    """explain still raises (a later slice); hot_only, ported with the
+    serving tier, answers as `tpu_ir`'s hot-only path does."""
+    js, ts = scorers
+    with pytest.raises(ValueError, match="later slice"):
+        ts.search_batch(["a"], explain_k=2)
+    qs = _queries(js, seed=9)
+    for scoring in ("tfidf", "bm25"):
+        _assert_same_results(
+            js.search_batch(qs, scoring=scoring, hot_only=True),
+            ts.search_batch(qs, scoring=scoring, hot_only=True))
 
 
 def test_cli_search_layout_sparse(index_dir, scorers, capsys):

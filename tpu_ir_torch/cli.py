@@ -1,14 +1,21 @@
-"""Command line of the port: `index`, `search` and `migrate-index`, with
-tpu_ir's flag names.
+"""Command line of the port: `index`, `search`, `migrate-index` and
+`serve-bench`, with tpu_ir's flag names.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--device cuda|cpu]
     python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
         [--rerank N] [--layout auto|dense|sparse|sharded]
     python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
         [--tf-dtype auto|int8|bf16] [--add-bounds]
+    python -m tpu_ir_torch.cli serve-bench IDX [--threads N] [--queries N]
+        [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
+        [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
+        [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
 
-`index` and `search` run on CUDA unless `--device cpu` is given;
-`migrate-index` runs on the host and prints its JSON summary last.
+`index`, `search` and `serve-bench` run on CUDA unless `--device cpu` is
+given; `migrate-index` runs on the host. Each prints its JSON report last.
+`serve-bench` runs the soak through the serving frontend (one
+`--concurrency` value), or the concurrency sweep (a comma list), and
+exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
 """
 
 from __future__ import annotations
@@ -66,6 +73,71 @@ def cmd_migrate_index(args) -> int:
     return 0
 
 
+def cmd_serve_bench(args) -> int:
+    """The soak (`serving/soak.py::run_soak`) through a ServingFrontend,
+    optionally under the chaos plan, or with `--concurrency N,N,...` the
+    concurrency sweep; prints the JSON report."""
+    from . import faults
+    from .search import Scorer
+    from .serving import (
+        DEFAULT_CHAOS_PLAN,
+        ServingConfig,
+        run_concurrency_sweep,
+        run_soak,
+    )
+
+    try:
+        levels = [int(p) for p in str(args.concurrency).split(",")
+                  if p.strip()]
+        if any(n < 1 for n in levels):
+            raise ValueError
+    except ValueError:
+        print(f"--concurrency {args.concurrency!r}: expected a positive "
+              "integer or a comma list like 1,4,16", file=sys.stderr)
+        return 2
+    if not levels:
+        levels = [4]
+    try:
+        scorer = Scorer.load(args.index_dir, layout=args.layout,
+                             device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if len(levels) > 1:
+        report = run_concurrency_sweep(
+            scorer, levels=tuple(levels), queries_per_level=args.queries,
+            seed=args.seed, coalesce=args.coalesce != "off",
+            deadline_s=args.deadline)
+        print(json.dumps(report, sort_keys=True, default=repr))
+        return 0 if all(lv["errors"] == 0
+                        for lv in report["levels"]) else 1
+    spec = DEFAULT_CHAOS_PLAN if args.chaos else None
+    # a TPU_IR_FAULTS plan drives the chaos phase; run_soak installs it
+    # itself, after its clean reference run. install(None), not clear():
+    # clear() would read the variable again inside run_soak
+    if faults.active() is not None:
+        from . import envvars
+
+        spec = envvars.get_str("TPU_IR_FAULTS")
+        faults.install(None)
+    report = run_soak(
+        scorer, threads=args.threads, queries=args.queries,
+        seed=args.seed, fault_spec=spec,
+        config=ServingConfig(
+            max_concurrency=levels[0], max_queue=args.queue_depth,
+            # the soak's 0.25 s default; the sweep defaults to none
+            deadline_s=0.25 if args.deadline is None else args.deadline,
+            breaker_threshold=args.breaker_threshold,
+            coalesce=(args.coalesce == "on"),
+            cache_entries=args.cache),
+        timeout_s=args.timeout)
+    print(json.dumps(report, sort_keys=True, default=repr))
+    ok = (report["errors"] == 0 and report["deadlocked"] == 0
+          and report["untagged_mismatches"] == 0
+          and report["served"] + report["shed"] == report["submitted"])
+    return 0 if ok else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tpu-ir-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -116,6 +188,52 @@ def main(argv: list[str] | None = None) -> int:
                          "(blockmax.arena) from the postings in place — "
                          "no part rewrite, idempotent, verify-clean")
     pm.set_defaults(fn=cmd_migrate_index)
+
+    pb = sub.add_parser(
+        "serve-bench",
+        help="soak: mixed multi-threaded traffic through the serving "
+             "frontend (admission control, degradation ladder, circuit "
+             "breaker), optionally under the chaos plan; or, with a comma "
+             "list of --concurrency levels, the concurrency sweep")
+    pb.add_argument("index_dir")
+    pb.add_argument("--threads", type=int, default=8,
+                    help="concurrent client threads of the soak")
+    pb.add_argument("--queries", type=int, default=240,
+                    help="queries across all threads (the sweep: per "
+                         "level)")
+    pb.add_argument("--seed", type=int, default=0,
+                    help="workload and chaos seed")
+    pb.add_argument("--concurrency", default="4",
+                    help="admission: requests executing at once; a comma "
+                         "list (e.g. 1,4,16) runs the concurrency sweep, "
+                         "one closed-loop pass per level")
+    pb.add_argument("--queue-depth", type=int, default=8,
+                    help="admission: requests waiting for a slot before "
+                         "arrivals shed")
+    pb.add_argument("--deadline", type=float, default=None,
+                    help="per-request device dispatch deadline (s); "
+                         "default 0.25 for the soak, none for the sweep")
+    pb.add_argument("--coalesce", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the coalescer: auto = off for the soak, on for "
+                         "the sweep")
+    pb.add_argument("--breaker-threshold", type=int, default=4,
+                    help="consecutive device failures that open the "
+                         "circuit breaker")
+    pb.add_argument("--cache", type=int, default=None, metavar="N",
+                    help="exact-hit result cache entries (0 disables; "
+                         "default: TPU_IR_CACHE_RESULTS)")
+    pb.add_argument("--timeout", type=float, default=300.0,
+                    help="the soak's wall-clock bound (s); requests still "
+                         "pending past it count as deadlocked")
+    pb.add_argument("--chaos", action="store_true",
+                    help="inject the default chaos plan (hangs and device "
+                         "losses at the score dispatch); TPU_IR_FAULTS "
+                         "overrides it")
+    pb.add_argument("--layout", choices=["auto", "dense", "sparse"],
+                    default="auto")
+    pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pb.set_defaults(fn=cmd_serve_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

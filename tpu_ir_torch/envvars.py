@@ -1,6 +1,6 @@
 """The environment knobs the port reads, with the JAX package's names,
 defaults and rules (`tpu_ir/utils/envvars.py`): an unset or empty variable
-means its default, an integer below its minimum reads as the minimum, and
+means its default, a number below its minimum reads as the minimum, and
 a choice outside its set raises.
 
     TPU_IR_BLOCKMAX          auto | 0 | 1: block-max pruning of the tiered
@@ -14,6 +14,20 @@ a choice outside its set raises.
                              doc axis)
     TPU_IR_QUARANTINE_KEEP   corrupt artifacts kept in .quarantine/
                              (default 8)
+    TPU_IR_FAULTS            fault-injection plan (faults.py grammar:
+                             site[@match]:rule entries, seed=N); unset
+                             injects nothing
+    TPU_IR_TRACE             0 turns spans and every latency histogram off
+                             (default 1; counters stay on)
+    TPU_IR_BATCH_LADDER      the coalescer's batch-size rungs (default
+                             1,4,16,64; when unset, rungs above 16 are
+                             dropped, see serving/batching.py)
+    TPU_IR_BATCH_WAIT_MS     how long a promoted batch leader may wait for
+                             its batch to fill (default 0)
+    TPU_IR_BATCH_WIDTH       the query-width floor of a coalesced batch
+                             (default 8, at least 1)
+    TPU_IR_CACHE_RESULTS     entries of the serving frontend's exact-hit
+                             result cache (default 0: off)
 """
 
 from __future__ import annotations
@@ -23,15 +37,27 @@ import os
 # name: (default, minimum)
 _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_BLOCKMAX_BLOCKS": (0, 0),
-         "TPU_IR_QUARANTINE_KEEP": (8, 0)}
+         "TPU_IR_QUARANTINE_KEEP": (8, 0),
+         "TPU_IR_BATCH_WIDTH": (8, 1),
+         "TPU_IR_CACHE_RESULTS": (0, 0)}
+_FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0)}
+# name: default (None: unset)
+_STRS = {"TPU_IR_FAULTS": None,
+         "TPU_IR_BATCH_LADDER": "1,4,16,64"}
+_BOOLS = {"TPU_IR_TRACE": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1"))}
 
 
+def _raw(name: str) -> str | None:
+    """The variable's value; unset and empty both mean the default."""
+    return os.environ.get(name) or None
+
+
 def get_int(name: str) -> int:
     default, minimum = _INTS[name]
-    v = os.environ.get(name)
-    if not v:
+    v = _raw(name)
+    if v is None:
         return default
     try:
         out = int(v)
@@ -40,11 +66,51 @@ def get_int(name: str) -> int:
     return max(out, minimum)
 
 
+def get_float(name: str) -> float:
+    default, minimum = _FLOATS[name]
+    v = _raw(name)
+    if v is None:
+        return default
+    try:
+        out = float(v)
+    except ValueError:
+        raise ValueError(f"{name}={v!r}: expected a number") from None
+    return max(out, minimum)
+
+
+def get_str(name: str) -> str | None:
+    default = _STRS[name]
+    v = _raw(name)
+    return default if v is None else v
+
+
+def get_bool(name: str) -> bool:
+    """The JAX package's 0/1 convention: for a flag that defaults on,
+    exactly "0" turns it off; for one that defaults off, any value but
+    0/false turns it on."""
+    default = _BOOLS[name]
+    v = _raw(name)
+    if v is None:
+        return default
+    if default:
+        return v != "0"
+    return v not in ("0", "false", "False")
+
+
 def get_choice(name: str) -> str:
     default, choices = _CHOICES[name]
-    v = (os.environ.get(name) or "").strip().lower()
+    v = (_raw(name) or "").strip().lower()
     if not v:
         return default
     if v not in choices:
         raise ValueError(f"{name}={v!r}: expected one of {choices}")
     return v
+
+
+def is_set(name: str) -> bool:
+    """Whether the variable is set to a non-empty value: an adaptive
+    default yields to an explicit setting."""
+    if not any(name in d for d in (_INTS, _FLOATS, _STRS, _BOOLS,
+                                   _CHOICES)):
+        raise KeyError(f"undeclared environment variable {name!r}")
+    return _raw(name) is not None

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -92,11 +94,15 @@ def build(names: list[str]) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+    """The loaded library of csrc/<name>.cu, built on first use (under a
+    lock: concurrent first callers of one process share one build)."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
 
 
@@ -111,3 +117,25 @@ def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return fn
+
+
+class LaunchCounter:
+    """A kernel's launch count, incremented by its wrapper where it
+    launches the kernel; a lock keeps concurrent callers' launches."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0

@@ -30,13 +30,15 @@ from typing import Sequence
 
 import torch
 
+from . import _build
+
 from .scoring import _lntf, bm25_saturation
 
 # csrc/cold_tier.cu kMaxTiers: 16 tiers of cap 2 * 4^t (search/layout.py)
 # reach 2^31, past any int32 df
 MAX_TIERS = 16
 
-_launches = 0
+_launches = _build.LaunchCounter()
 # the C entry point's parameters: q_tier, rows, weights, tier table;
 # num_tiers; dl_norm, scores; batch, num_terms, width; k1, k1 + 1; stream
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int32]
@@ -45,12 +47,11 @@ ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int32]
 
 
 def cold_tier_launches() -> int:
-    return _launches
+    return _launches.value
 
 
 def reset_cold_tier_launches() -> None:
-    global _launches
-    _launches = 0
+    _launches.reset()
 
 
 class TierTable:
@@ -189,7 +190,6 @@ def cold_stage(scores: torch.Tensor, q_tier: torch.Tensor,
     layout's TierTable; dl_norm float32 [D+1] selects BM25 (None: TF-IDF).
     CUDA inputs launch csrc/cold_tier.cu once on the current stream; CPU
     inputs run the plain twin."""
-    global _launches
     _check(scores, q_tier, q_rows, q_w, tiers, dl_norm)
     if scores.device.type == "cpu":
         cold_stage_plain(scores, q_tier, q_rows, q_w, tiers,
@@ -200,8 +200,6 @@ def cold_stage(scores: torch.Tensor, q_tier: torch.Tensor,
     b, num_terms = q_rows.shape
     if b == 0 or num_terms == 0 or len(tiers) == 0:
         return                                       # nothing to launch
-    from . import _build
-
     fn = _build.entry("cold_tier", "tpu_ir_cold_tier", ARGTYPES)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
@@ -213,4 +211,4 @@ def cold_stage(scores: torch.Tensor, q_tier: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"cold_tier kernel launch failed: CUDA error "
                            f"{err}")
-    _launches += 1
+    _launches.add()

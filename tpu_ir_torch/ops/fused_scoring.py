@@ -36,28 +36,27 @@ import ctypes
 
 import torch
 
+from . import _build
 from .scoring import _lntf, idf_weights
 
-_launches = 0
-_dequant_launches = 0
+_launches = _build.LaunchCounter()
+_dequant_launches = _build.LaunchCounter()
 
 
 def dense_score_launches() -> int:
-    return _launches
+    return _launches.value
 
 
 def reset_dense_score_launches() -> None:
-    global _launches
-    _launches = 0
+    _launches.reset()
 
 
 def dequant_score_launches() -> int:
-    return _dequant_launches
+    return _dequant_launches.value
 
 
 def reset_dequant_score_launches() -> None:
-    global _dequant_launches
-    _dequant_launches = 0
+    _dequant_launches.reset()
 
 
 def query_weights(q_terms: torch.Tensor, idf: torch.Tensor
@@ -137,8 +136,6 @@ def _launch(symbol: str, q_terms: torch.Tensor, idf: torch.Tensor,
     """Allocate the scores and launch csrc/<symbol>.cu's kernel on the
     current stream; both kernels take the same arguments. The kernel
     resolves the raw ids and their idf weights itself."""
-    from . import _build
-
     fn = _build.entry(symbol, f"tpu_ir_{symbol}", ARGTYPES)
     vocab, width = matrix.shape
     b, num_terms = q_terms.shape
@@ -169,7 +166,6 @@ def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
     stream, which checks each id against V and gathers its idf weight
     itself, so the kernel never reads outside the matrix; a CPU input runs
     the plain twin."""
-    global _launches
     _check(q_terms, idf, doc_matrix)
     if doc_matrix.device.type == "cpu":
         return dense_scores_plain(q_terms, idf, doc_matrix)
@@ -178,7 +174,7 @@ def dense_scores(q_terms: torch.Tensor, idf: torch.Tensor,
                          f"{doc_matrix.device}")
     out = _launch("dense_score", q_terms, idf, doc_matrix)
     if out.numel():
-        _launches += 1
+        _launches.add()
     return out
 
 
@@ -191,7 +187,6 @@ def dense_scores_quantized(q_terms: torch.Tensor, idf: torch.Tensor,
     q_terms int32/int64 [B, L]; idf float32 [V]; tf_matrix bfloat16
     [V, D+1]. A CUDA input launches csrc/dequant_score.cu on the current
     stream; a CPU input runs the plain twin."""
-    global _dequant_launches
     _check(q_terms, idf, tf_matrix, torch.bfloat16)
     if tf_matrix.device.type == "cpu":
         return dense_scores_quantized_plain(q_terms, idf, tf_matrix)
@@ -200,7 +195,7 @@ def dense_scores_quantized(q_terms: torch.Tensor, idf: torch.Tensor,
                          f"{tf_matrix.device}")
     out = _launch("dequant_score", q_terms, idf, tf_matrix)
     if out.numel():
-        _dequant_launches += 1
+        _dequant_launches.add()
     return out
 
 

@@ -29,19 +29,20 @@ import ctypes
 
 import torch
 
-_launches = 0
+from . import _build
+
+_launches = _build.LaunchCounter()
 # the C entry point's parameters: rows, weights, strip, scores; batch,
 # num_slots, num_rows, width; stream
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 
 
 def hot_stage_launches() -> int:
-    return _launches
+    return _launches.value
 
 
 def reset_hot_stage_launches() -> None:
-    global _launches
-    _launches = 0
+    _launches.reset()
 
 
 def hot_slots(rank: torch.Tensor, is_hot: torch.Tensor, q_w: torch.Tensor
@@ -122,7 +123,6 @@ def hot_stage(scores: torch.Tensor, rows: torch.Tensor,
     folded); weights float32 [B, L]; strip float32 [H, N] with finite
     cells. CUDA inputs launch csrc/hot_stage.cu once on the current
     stream; CPU inputs run the plain twin."""
-    global _launches
     _check(scores, rows, weights, strip)
     if scores.device.type == "cpu":
         hot_stage_plain(scores, rows, weights, strip)
@@ -133,8 +133,6 @@ def hot_stage(scores: torch.Tensor, rows: torch.Tensor,
     width = scores.shape[1]
     if b == 0 or num_slots == 0 or width == 0:
         return                                       # nothing to launch
-    from . import _build
-
     fn = _build.entry("hot_stage", "tpu_ir_hot_stage", ARGTYPES)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
@@ -144,4 +142,4 @@ def hot_stage(scores: torch.Tensor, rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hot_stage kernel launch failed: CUDA error "
                            f"{err}")
-    _launches += 1
+    _launches.add()

@@ -173,7 +173,7 @@ def tfidf_topk_dense_quantized(q_terms: torch.Tensor,
 def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
                        k1: float, b: float) -> torch.Tensor:
     """[B, D+1] BM25 scores on the dense layout (plain torch, as the JAX
-    package's is plain XLA: mul + reduce over the term axis). A bf16
+    package's is plain XLA), summed over the term slots in order. A bf16
     tf_matrix is widened at the saturation's entry, so bf16-exact tfs
     give the float32 matrix's bits."""
     vocab_size = tf_matrix.shape[0]
@@ -185,9 +185,16 @@ def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
     q_idf = torch.where(q_valid, idf[safe_q],
                         torch.zeros((), dtype=torch.float32,
                                     device=idf.device))        # [B, L]
-    tf = tf_matrix[safe_q]                                      # [B, L, D+1]
-    sat = bm25_saturation(tf, dl_norm[None, None, :], k1=k1)
-    return torch.sum(sat * q_idf[:, :, None], dim=1)
+    # one rounded add a slot, in slot order from +0: a reduction over the
+    # term axis could change its order with L or B, and a query must keep
+    # its bits in a rung-padded batch at any width (a pad slot adds +0)
+    scores = torch.zeros((q_terms.shape[0], tf_matrix.shape[1]),
+                         dtype=torch.float32, device=tf_matrix.device)
+    for slot in range(q_terms.shape[1]):
+        sat = bm25_saturation(tf_matrix[safe_q[:, slot]], dl_norm[None, :],
+                              k1=k1)                            # [B, D+1]
+        scores = scores + sat * q_idf[:, slot, None]
+    return scores
 
 
 def bm25_topk_dense(q_terms: torch.Tensor, tf_matrix: torch.Tensor,
@@ -329,7 +336,8 @@ def hot_stage(scores: torch.Tensor, terms: TieredTerms,
 def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
                    q_weight, *, num_docs: int, hot_weight_fn,
                    dl_norm: torch.Tensor | None = None, k1: float = 0.9,
-                   skip_hot: bool = False) -> torch.Tensor:
+                   skip_hot: bool = False,
+                   hot_only: bool = False) -> torch.Tensor:
     """[B, D+1] exact tiered accumulation (JAX `_tiered_scores` without
     the runtime-bounded prune): a zero accumulator, the cold tiers in tier
     order through one kernel launch, then the hot strip last through the
@@ -337,11 +345,17 @@ def _tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
     float32 per-cell weights; `dl_norm` selects BM25 cold cells.
     `skip_hot` leaves the hot stage out entirely (no weighting, no
     launch): exact when no query of the block holds a hot term, which the
-    Scorer's MaxScore schedule certifies."""
+    Scorer's MaxScore schedule certifies. `hot_only` (JAX `skip_cold`,
+    the overloaded frontend's cheapest level) leaves the cold stage out
+    instead: the hot stage alone on the zero accumulator, a lower bound
+    of the full scores that the caller must tag."""
+    if skip_hot and hot_only:
+        raise ValueError("hot_only and skip_hot together score nothing")
     terms = tiered_terms(q_terms, hot_rank, tier_of, row_of, q_weight)
     scores = torch.zeros((q_terms.shape[0], num_docs + 1),
                          dtype=torch.float32, device=hot_tfs.device)
-    cold_stage(scores, terms, tiers, dl_norm=dl_norm, k1=k1)
+    if not hot_only:
+        cold_stage(scores, terms, tiers, dl_norm=dl_norm, k1=k1)
     if not skip_hot:
         hot_stage(scores, terms, hot_weight_fn(hot_tfs))
     return scores
@@ -390,7 +404,8 @@ def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                          tiers, df, num_docs: int, *,
                          compat_int_idf: bool = False,
                          hot_preweighted: bool = False,
-                         skip_hot: bool = False) -> torch.Tensor:
+                         skip_hot: bool = False,
+                         hot_only: bool = False) -> torch.Tensor:
     """[B, D+1] tiered TF-IDF scores. `hot_preweighted` declares
     `hot_tfs` already weighted (lntf_strip): bitwise the same scores."""
     idf = idf_weights(df, num_docs, compat_int_idf)
@@ -398,31 +413,35 @@ def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
         hot_weight_fn=_tfidf_weights(hot_preweighted)[0],
-        skip_hot=skip_hot)
+        skip_hot=skip_hot, hot_only=hot_only)
 
 
 def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                       tiers, df, num_docs: int, *,
                       k: int = 10, compat_int_idf: bool = False,
-                      hot_preweighted: bool = False, skip_hot: bool = False
+                      hot_preweighted: bool = False, skip_hot: bool = False,
+                      hot_only: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """TF-IDF top-k on the tiered sparse layout. q_terms int [B, L] (-1
     pads); hot_rank, tier_of, row_of int32 [V]; hot_tfs [H, D+1] raw tf
     (float32 or bf16), or float32 weights with `hot_preweighted`; tiers:
     the cold tiers' TierTable (ops/cold_tier.py). `skip_hot` omits the
-    hot stage (exact only for a block with no hot term). Returns (scores
-    [B, k], docnos [B, k] int32)."""
+    hot stage (exact only for a block with no hot term); `hot_only` omits
+    the cold stage (partial scores, the hot strip's alone). Returns
+    (scores [B, k], docnos [B, k] int32)."""
     scores = _tfidf_tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         df, num_docs, compat_int_idf=compat_int_idf,
-        hot_preweighted=hot_preweighted, skip_hot=skip_hot)
+        hot_preweighted=hot_preweighted, skip_hot=skip_hot,
+        hot_only=hot_only)
     return _topk_from_scores(scores, k)
 
 
 def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                         tiers, df, doc_len, num_docs: int, *,
                         k1: float, b: float, hot_preweighted: bool = False,
-                        skip_hot: bool = False) -> torch.Tensor:
+                        skip_hot: bool = False,
+                        hot_only: bool = False) -> torch.Tensor:
     """[B, D+1] tiered BM25 scores: saturation over the strip with the
     length norm broadcast (or `hot_preweighted`, bm25_strip), and per
     posting with the same norm gathered at its doc."""
@@ -432,20 +451,21 @@ def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         idf, num_docs=num_docs,
         hot_weight_fn=_bm25_weights(dl_norm, k1, hot_preweighted)[0],
-        dl_norm=dl_norm, k1=k1, skip_hot=skip_hot)
+        dl_norm=dl_norm, k1=k1, skip_hot=skip_hot, hot_only=hot_only)
 
 
 def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                      tiers, df, doc_len, num_docs: int, *,
                      k: int = 10, k1: float = 0.9, b: float = 0.4,
-                     hot_preweighted: bool = False, skip_hot: bool = False
+                     hot_preweighted: bool = False, skip_hot: bool = False,
+                     hot_only: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Okapi BM25 top-k on the tiered sparse layout (arguments as
     tfidf_topk_tiered, plus doc_len int32 [D+1])."""
     scores = _bm25_tiered_scores(
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted,
-        skip_hot=skip_hot)
+        skip_hot=skip_hot, hot_only=hot_only)
     return _topk_from_scores(scores, k)
 
 

@@ -34,10 +34,25 @@ A query batch is analyzed on the host into an int32 [B, L] term-id array
 and scored in query blocks whose [block, D+1] score accumulator stays
 within SCORE_BUDGET elements.
 
+The serving surface of the JAX Scorer (`tpu_ir.serving`'s caller):
+`topk_tagged` / `rerank_topk_tagged` return the per-request `degraded`
+flag. With a deadline (per call or `Scorer(deadline_s=)`) or a fault plan
+installed, a dispatch runs under `faults.run_with_deadline`; a deadline
+expiry or a device loss that `faults.is_device_loss` recognises answers
+from `_topk_host` (numpy float32 over the host postings, the JAX
+package's code) and is tagged and counted. `force_host` (an open circuit
+breaker) goes to the host directly. Any other error raises: nothing falls
+back when a kernel fails to build or launch. `hot_only` scores the tiered
+hot strip alone (the ladder's cheapest level; a no-op on the dense
+layout). `pad_to`, `width_floor` and `rung_ladder` are the coalescer's
+closed set of batch shapes; a query keeps its bits in any padded batch.
+
 Not in this slice (each raises ValueError naming a later slice): the
 sharded layout, the proximity boost, phrase queries, wildcard and fuzzy
-expansion over char-gram indexes, explain, the serving knobs (deadline,
-force_host, hot_only) and the query log.
+expansion over char-gram indexes, explain, and the query log. The JAX
+package's donated-query twins (`donate`, `TPU_IR_BATCH_DONATE`) have no
+counterpart: torch frees a batch's query tensor when its last reference
+goes, so there is nothing to donate.
 """
 
 from __future__ import annotations
@@ -45,18 +60,20 @@ from __future__ import annotations
 import logging
 import os
 import re
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import envvars, faults, resolve_device
 from ..analysis import Analyzer
 from ..collection import DocnoMapping, Vocab, kgram_terms
-from .. import envvars
 from ..index import format as fmt
 from ..index.blockmax import load_block_bounds
 from ..index.compress import bf16_exact
+from ..obs import get_registry, kernel_annotation
+from ..obs import trace as obs_trace
 from ..ops.cold_tier import TierTable
 from ..ops.postings import pair_term_from_df
 from ..ops.scoring import (
@@ -76,6 +93,7 @@ from ..ops.scoring import (
     tfidf_topk_dense_quantized,
     tfidf_topk_tiered,
 )
+from ..utils.report import recovery_counters
 from .layout import (
     HOT_BUDGET,
     TieredPostings,
@@ -132,10 +150,38 @@ def compute_doc_norms(pair_term, pair_doc, pair_tf, df,
     return np.sqrt(sq[: num_docs + 1]).astype(np.float32)
 
 
+def _rtt_dominated_backend() -> bool:
+    """Whether a fixed per-dispatch round trip dominates the per-row cost
+    of a dispatch (the JAX package's TPU regime, where a padded row rides
+    free on the MXU). Not on CUDA, as not on the CPU: a padded row costs
+    a full top-k row over D+1 columns on the card, and the top-k is most
+    of the tiered path's device time. So the coalescer's default ladder
+    drops rungs above 16 and `_topk_uniform` never folds a small hot-free
+    group into the full dispatch. Results are bitwise the same either
+    way."""
+    return False
+
+
 class SearchResult(list):
     """List of (docid, score) or (docno, score) tuples for one query,
-    best first. (The JAX package's serving tags — degraded, level,
-    partial, explain — belong to paths this slice does not have.)"""
+    best first, with the JAX package's serving tags:
+
+    `degraded`: the results came from the host fallback (deadline expiry,
+    device loss, or an open circuit breaker), a correct ranking by the
+    host's float32 scoring but not the device path's. `level`: the
+    service level that answered ("full" unless a ServingFrontend stepped
+    its ladder down). `breaker_vote`: in a coalesced batch exactly one
+    result carries True, so the breaker gets one verdict per dispatch.
+    `generation`: the index generation that answered (0: a batch-built
+    index). `partial` and `trace_id` belong to the scatter-gather tier
+    and distributed tracing, not ported: always False and None."""
+
+    degraded: bool = False
+    level: str = "full"
+    breaker_vote: bool = True
+    generation: int = 0
+    partial: bool = False
+    trace_id: str | None = None
 
 
 class Scorer:
@@ -162,14 +208,21 @@ class Scorer:
         tiers: TieredPostings | None = None,
         prune: bool = True,
         pairs_loader=None,
+        deadline_s: float | None = None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
         `tiers` instead, with the columns None. `prune` runs the tiered
         layout's MaxScore schedule and block-max pruning (bitwise the
-        same results). The rerank's doc norms come from the postings
-        columns, or from `pairs_loader()` (which returns df, pair_doc,
-        pair_tf), on first use."""
+        same results). The rerank's doc norms and the host fallback read
+        the postings columns, or `pairs_loader()` (which returns df,
+        pair_doc, pair_tf) once, on first use. `deadline_s` bounds every
+        score dispatch that names no deadline of its own.
+
+        Lazy state (the weighted strips, block-max's bound tables, the
+        BM25 tf matrix, the doc norms, the host postings) is built outside
+        any lock and published by one assignment: two racing threads may
+        both build it, and one copy is dropped."""
         self.device = resolve_device(device)
         self.vocab = vocab
         self.mapping = mapping
@@ -177,15 +230,25 @@ class Scorer:
         self.compat_int_idf = compat_int_idf
         self.layout = _resolve_layout(layout, meta)
         self.prune = prune
-        self._analyzer = Analyzer()
+        self.deadline_s = deadline_s
+        # the index generation (a batch-built index is generation 0)
+        self.generation = 0
+        # one analyzer a thread: the tag tokenizer keeps each call's
+        # state on the instance, so concurrent callers must not share one
+        self._analyzers = threading.local()
         self._norms_np: np.ndarray | None = None
         self._norms: torch.Tensor | None = None
+        self._host_pairs: tuple | None = None
         self._pairs_loader = pairs_loader
         # what block-max did, summed over dispatches (the JAX package's
-        # blockmax.* registry counters)
+        # blockmax.* registry counters), counted under a lock
         self.blockmax_stats = {"blocks_considered": 0, "blocks_masked": 0,
                                "fallback_dispatches": 0,
                                "saved_dispatches": 0}
+        self._stats_lock = threading.Lock()
+        # (rows, width, variant, scoring, k) of the dispatches the
+        # coalescer warmed (serving/batching.py::precompile)
+        self.warmed_shapes: set = set()
         # host postings columns (pair_term is needed by the dense layout
         # only, which keeps them for its BM25 matrix); the tiered layout
         # may come prebuilt without them and drops them once built
@@ -201,6 +264,8 @@ class Scorer:
             # also after a layout that drops them is built
             cols = (self._df_host,) + self._pairs[1:]
             self._pairs_loader = lambda: cols
+        # the host fallback reads these, never the device
+        self._doc_len_host = np.asarray(doc_len)
         self.df = upload_index(df, self.device)
         self.doc_len = upload_index(doc_len, self.device)
         if self.layout == "dense":
@@ -253,9 +318,11 @@ class Scorer:
     def load(cls, index_dir: str, *, layout: str = "auto",
              compat_int_idf: bool = False,
              device: str | torch.device | None = None,
-             prune: bool = True) -> "Scorer":
+             prune: bool = True,
+             deadline_s: float | None = None) -> "Scorer":
         """Load an index dir (built by either package, raw or compressed)
-        onto the device. Side files are verified against their recorded
+        onto the device (`deadline_s`: as the constructor's). Side files
+        are verified against their recorded
         checksums, and each part file is verified by the one streamed
         read that loads it (a compressed part is then decoded). The
         tiered layout takes its block-max bounds from blockmax.arena; a
@@ -284,22 +351,29 @@ class Scorer:
                        pair_doc=None, pair_tf=None, df=df, doc_len=doc_len,
                        meta=meta, layout=layout,
                        compat_int_idf=compat_int_idf, device=dev,
-                       tiers=tiers, prune=prune, pairs_loader=loader)
+                       tiers=tiers, prune=prune, pairs_loader=loader,
+                       deadline_s=deadline_s)
         # the term column is read by the dense scatter only
         return cls(vocab=vocab, mapping=mapping,
                    pair_term=pair_term_from_df(df), pair_doc=pair_doc,
                    pair_tf=pair_tf, df=df, doc_len=doc_len, meta=meta,
                    layout=layout, compat_int_idf=compat_int_idf, device=dev,
-                   prune=prune, pairs_loader=loader)
+                   prune=prune, pairs_loader=loader, deadline_s=deadline_s)
 
     # -- query pipeline ----------------------------------------------------
 
-    def analyze_queries(self, texts: Sequence[str]) -> np.ndarray:
+    def analyze_queries(self, texts: Sequence[str],
+                        width_floor: int | None = None) -> np.ndarray:
         """Analyze query texts into an int32 [B, L] id array (pad -1).
 
         Unknown terms are dropped (the reference's dictionary-miss path).
-        L is the longest row bucketed up to a power of two, as in the JAX
+        L is the longest row, raised to `width_floor` when one is given
+        (the coalescer pins every batch to one width; a -1 slot adds an
+        exact 0), then bucketed up to a power of two, as in the JAX
         package."""
+        analyzer = getattr(self._analyzers, "analyzer", None)
+        if analyzer is None:
+            analyzer = self._analyzers.analyzer = Analyzer()
         rows = []
         for text in texts:
             # without char-gram artifacts the JAX package, too, reads glob
@@ -308,10 +382,12 @@ class Scorer:
                     "~" in text and _FUZZY_RE.search(text))):
                 raise ValueError(f"wildcard and fuzzy expansion {_LATER}:"
                                  f" {text!r}")
-            grams = kgram_terms(self._analyzer.analyze(text), self.meta.k)
+            grams = kgram_terms(analyzer.analyze(text), self.meta.k)
             rows.append([i for i in (self.vocab.id_or(g) for g in grams)
                          if i >= 0])
         cap = max(max((len(r) for r in rows), default=1), 1)
+        if width_floor:
+            cap = max(cap, int(width_floor))
         cap = 1 << (cap - 1).bit_length()
         out = np.full((len(rows), cap), -1, np.int32)
         for i, r in enumerate(rows):
@@ -343,29 +419,114 @@ class Scorer:
                 np.concatenate([p[1] for p in parts]))
 
     def topk(self, q_terms: np.ndarray, k: int = 10,
-             scoring: str = "tfidf") -> tuple[np.ndarray, np.ndarray]:
+             scoring: str = "tfidf", deadline_s: float | None = None, *,
+             hot_only: bool = False, force_host: bool = False
+             ) -> tuple[np.ndarray, np.ndarray]:
         """Score an id batch. Returns host arrays (scores [B, k] float32,
-        docnos [B, k] int32, docno 0 = empty slot), in the batch's order."""
+        docnos [B, k] int32, docno 0 = empty slot), in the batch's order.
+        `deadline_s`, `hot_only` and `force_host` as in topk_tagged."""
+        s, d, _ = self.topk_tagged(q_terms, k=k, scoring=scoring,
+                                   deadline_s=deadline_s, hot_only=hot_only,
+                                   force_host=force_host)
+        return s, d
+
+    def topk_tagged(self, q_terms: np.ndarray, k: int = 10,
+                    scoring: str = "tfidf", deadline_s: float | None = None,
+                    *, hot_only: bool = False, force_host: bool = False,
+                    uniform: tuple | None = None
+                    ) -> tuple[np.ndarray, np.ndarray, bool]:
+        """topk() with this request's degraded flag: (scores, docnos,
+        degraded), the thread-safe surface (`tpu_ir/search/scorer.py::
+        topk_tagged`). A dispatch past its deadline (`deadline_s`, else
+        the Scorer's) or on a lost device answers from the host and is
+        tagged; `force_host` goes to the host without a dispatch (an open
+        circuit breaker). `hot_only` scores the tiered hot strip alone.
+        `uniform=(rungs...)` (the coalescer) pads each scheduled group to
+        a ladder rung, so batch content picks no shape outside the warmed
+        set; results are the same bits."""
         if scoring not in ("tfidf", "bm25"):
             raise ValueError(f"unknown scoring {scoring!r}; expected "
                              "'tfidf' or 'bm25'")
         q = np.ascontiguousarray(q_terms, dtype=np.int32)
-        return self._topk_primary(q, k, scoring)
+        return self._dispatch_degradable(
+            lambda: self._topk_primary(q, k, scoring, hot_only=hot_only,
+                                       uniform=uniform),
+            lambda: self._topk_host(q, k, scoring),
+            deadline_s, "score dispatch",
+            "answering from the host CPU backend", force_host=force_host)
 
-    def _topk_primary(self, q: np.ndarray, k: int, scoring: str):
-        """The MaxScore schedule on the tiered layout with `prune`
-        (`tpu_ir/search/scorer.py::_topk_primary`): hot-free queries go
-        first, in blocks that skip the hot stage, then the rest; results
-        come back in the caller's order. Groups run at their own size:
-        nothing is compiled per shape, so nothing is padded."""
+    def _dispatch_degradable(self, primary, fallback, deadline_s,
+                             label, consequence, force_host=False):
+        """Run `primary` under the per-batch deadline; on expiry or a
+        device loss, count and log it and answer with `fallback`, tagged.
+        Any other error raises: a program or shape bug never degrades.
+        With no deadline and no fault plan this is a plain call.
+        `force_host` runs `fallback` directly, with no dispatch and no
+        deadline thread (an open circuit breaker). Returns the result
+        tuple with the degraded flag appended."""
+        if force_host:
+            recovery_counters().incr("forced_host_batches")
+            with obs_trace("fallback", label=label, forced=True):
+                return fallback() + (True,)
+        deadline = self.deadline_s if deadline_s is None else deadline_s
+        if deadline is None and faults.active() is None:
+            with obs_trace("dispatch", label=label):
+                return primary() + (False,)
+        reason = None
+        try:
+            with obs_trace("dispatch", label=label, deadline_s=deadline):
+                return (faults.run_with_deadline(primary, deadline)
+                        + (False,))
+        except faults.ScoreDeadlineExceeded as e:
+            recovery_counters().incr("deadline_expired")
+            reason = str(e)
+        except Exception as e:
+            if not faults.is_device_loss(e):
+                raise
+            recovery_counters().incr("device_loss")
+            reason = f"device loss: {e}"
+        recovery_counters().incr("degraded_batches")
+        logger.warning("%s degraded (%s); %s", label, reason, consequence)
+        with obs_trace("fallback", label=label, reason=reason):
+            return fallback() + (True,)
+
+    def _block_fn(self, k: int, scoring: str, variant: str,
+                  warm_check: bool):
+        """The dispatch of one query block, one of the variants "full",
+        "skip" (no hot stage) and "hot_only" (no cold stage). With
+        `warm_check` (a coalesced call) a block outside the coalescer's
+        warmed shapes counts `dispatch.unwarmed`."""
+        kw = {"full": {}, "skip": {"skip_hot": True},
+              "hot_only": {"hot_only": True}}[variant]
+
+        def run(qb):
+            if warm_check and (len(qb), qb.shape[1], variant, scoring,
+                               k) not in self.warmed_shapes:
+                get_registry().incr("dispatch.unwarmed")
+            return self._topk_device(qb, k, scoring, **kw)
+
+        return run
+
+    def _topk_primary(self, q: np.ndarray, k: int, scoring: str,
+                      hot_only: bool = False, uniform: tuple | None = None):
+        """The device path (`tpu_ir/search/scorer.py::_topk_primary`):
+        the MaxScore schedule on the tiered layout with `prune`, hot-free
+        queries first, in blocks that skip the hot stage, then the rest;
+        results come back in the caller's order. Outside the coalescer
+        groups run at their own size: nothing is compiled per shape, so
+        nothing is padded. `hot_only` runs no schedule (there is no cold
+        stage to schedule around) and is a no-op on the dense layout."""
         block = self._block_size()
-
-        def full(qb):
-            return self._topk_device(qb, k, scoring)
-
-        def skip(qb):
-            return self._topk_device(qb, k, scoring, skip_hot=True)
-
+        hot_only = hot_only and self.layout == "sparse"
+        checked = uniform is not None
+        full = self._block_fn(k, scoring, "full", checked)
+        skip = self._block_fn(k, scoring, "skip", checked)
+        if uniform and not hot_only and self.layout == "sparse" \
+                and self.prune:
+            return self._topk_uniform(q, uniform, full, skip)
+        if hot_only:
+            return self._blocked_dispatch(
+                block, self._block_fn(k, scoring, "hot_only", checked), q)
         if self.layout != "sparse" or not self.prune:
             return self._blocked_dispatch(block, full, q)
         has_hot, n_free, mode = self._skip_plan(q)
@@ -379,6 +540,95 @@ class Scorer:
         s2, d2 = self._blocked_dispatch(block, full, qs[n_free:])
         return (np.concatenate([s1, s2])[inv],
                 np.concatenate([d1, d2])[inv])
+
+    def _topk_uniform(self, q: np.ndarray, rungs: tuple, full, skip):
+        """The coalesced dispatch (`tpu_ir/search/scorer.py::
+        _topk_uniform`): the exact MaxScore partition (hot-free rows,
+        the rung's -1 pad rows among them, skip the hot stage), each
+        group padded to the smallest ladder rung that holds it, so the
+        shapes are rungs x {skip, full} per scoring and k, the set the
+        coalescer warms. A batch whose only hot-free rows are all -1
+        goes whole through one full dispatch."""
+        block = self._block_size()
+        has_hot = self._has_hot(q)
+        n_free = int((~has_hot).sum())
+        if n_free == len(q):
+            return self._rung_dispatch(q, block, rungs, skip)
+        real_free = int((~has_hot & ~(q < 0).all(axis=1)).sum())
+        if real_free == 0 or (real_free < self.MIN_SKIP_GROUP
+                              and _rtt_dominated_backend()):
+            return self._rung_dispatch(q, block, rungs, full)
+        order = self._schedule_order(has_hot)
+        inv = np.argsort(order, kind="stable")
+        qs = q[order]
+        s1, d1 = self._rung_dispatch(qs[:n_free], block, rungs, skip)
+        s2, d2 = self._rung_dispatch(qs[n_free:], block, rungs, full)
+        return (np.concatenate([s1, s2])[inv],
+                np.concatenate([d1, d2])[inv])
+
+    def _rung_dispatch(self, qg: np.ndarray, block: int, rungs: tuple,
+                       dispatch):
+        """Dispatch one scheduled group padded with -1 rows to the
+        smallest ladder rung that holds it (a larger group runs as it
+        is); the pad rows' results are dropped."""
+        b = len(qg)
+        pad_to = next((r for r in rungs if r >= b), b)
+        if pad_to <= b:
+            return self._blocked_dispatch(block, dispatch, qg)
+        qp = np.full((pad_to, qg.shape[1]), -1, np.int32)
+        qp[:b] = qg
+        s, d = self._blocked_dispatch(block, dispatch, qp)
+        return s[:b], d[:b]
+
+    def _topk_host(self, q: np.ndarray, k: int, scoring: str):
+        """The degraded path's host scoring (`tpu_ir/search/scorer.py::
+        _topk_host`, the same numpy float32 code): each query's postings
+        slices accumulated in float32 on the host, no device touched, with
+        the device's tie order (score desc, docno asc). It reads the
+        postings columns once, on first use."""
+        df_i, pd, ptf = self._host_postings()
+        df = df_i.astype(np.int64)
+        indptr = np.concatenate([[0], np.cumsum(df, dtype=np.int64)])
+        n = self.meta.num_docs
+        doc_len = self._doc_len_host.astype(np.float32)
+        if scoring == "bm25":
+            dff = df.astype(np.float32)
+            idf = np.where(df > 0,
+                           np.log(1.0 + (n - dff + 0.5) / (dff + 0.5)),
+                           0.0).astype(np.float32)
+            avg = float(doc_len.sum()) / max(n, 1)
+            dl_norm = 1.0 - B + B * doc_len / max(avg, 1e-9)
+        else:
+            if self.compat_int_idf:
+                ratio = (n // np.maximum(df, 1)).astype(np.float32)
+            else:
+                ratio = (n / np.maximum(df, 1)).astype(np.float32)
+            idf = np.where(df > 0, np.log10(np.maximum(ratio, 1e-30)),
+                           0.0).astype(np.float32)
+        out_s = np.zeros((len(q), k), np.float32)
+        out_d = np.zeros((len(q), k), np.int32)
+        scores = np.zeros(n + 1, np.float32)
+        for qi, row in enumerate(q):
+            scores[:] = 0.0
+            for tid in row:
+                if tid < 0 or tid >= len(df) or df[tid] == 0:
+                    continue
+                sl = slice(int(indptr[tid]), int(indptr[tid + 1]))
+                tf = ptf[sl].astype(np.float32)
+                if scoring == "bm25":
+                    w = idf[tid] * tf * (K1 + 1.0) / np.maximum(
+                        tf + K1 * dl_norm[pd[sl]], 1e-9)
+                else:
+                    w = (1.0 + np.log(np.maximum(tf, 1.0))) * idf[tid]
+                # docnos are unique within one term's run, so fancy-index
+                # += accumulates correctly across terms
+                scores[pd[sl]] += w
+            top = np.argsort(-scores[1:], kind="stable")[:k] + 1
+            keep = scores[top] > 0.0
+            m = int(keep.sum())  # desc order => positives are a prefix
+            out_s[qi, :m] = scores[top[:m]]
+            out_d[qi, :m] = top[:m]
+        return out_s, out_d
 
     def _has_hot(self, q: np.ndarray) -> np.ndarray:
         """Bool [B]: does the query hold a hot-strip term? (The MaxScore
@@ -434,16 +684,34 @@ class Scorer:
         }
 
     def _topk_device(self, q_terms: np.ndarray, k: int, scoring: str,
-                     skip_hot: bool = False):
+                     skip_hot: bool = False, hot_only: bool = False):
         """One query block on the device; returns device tensors.
         `skip_hot` leaves the tiered hot stage out (exact only for a
-        block the schedule certified hot-free); otherwise a block on the
-        tiered layout goes through block-max where _blockmax_plan
-        engages."""
+        block the schedule certified hot-free); `hot_only` leaves the
+        cold stage out (partial scores; a no-op on the dense layout);
+        otherwise a block on the tiered layout goes through block-max
+        where _blockmax_plan engages. The fault sites `score.hang` and
+        `score.device_loss` fire here, once a block. The "kernel" span
+        times the block's dispatch (the device runs on; its completion
+        lands in the enclosing "dispatch" span)."""
+        with obs_trace("kernel", layout=self.layout, scoring=scoring,
+                       rows=int(len(q_terms))), \
+                kernel_annotation(f"tpu_ir_torch.topk.{self.layout}."
+                                  f"{scoring}"):
+            faults.maybe_hang("score.hang")
+            if faults.should_fire("score.device_loss") is not None:
+                raise faults.DeviceLoss("injected device loss")
+            return self._topk_device_raw(q_terms, k, scoring,
+                                         skip_hot=skip_hot,
+                                         hot_only=hot_only)
+
+    def _topk_device_raw(self, q_terms: np.ndarray, k: int, scoring: str,
+                         skip_hot: bool, hot_only: bool):
         q = torch.from_numpy(q_terms).to(self.device)
         n = self.meta.num_docs
         if self.layout == "sparse":
-            plan = None if skip_hot else self._blockmax_plan(k, scoring)
+            plan = (None if skip_hot or hot_only
+                    else self._blockmax_plan(k, scoring))
             # the cached weighted strip serves every path that runs the
             # hot stage; the skip path never reads the strip
             ws = None if skip_hot else self._hot_wstrip(scoring)
@@ -470,12 +738,13 @@ class Scorer:
                     q, self.hot_rank, strip, self.tier_of, self.row_of,
                     self.cold_tiers, self.df, self.doc_len, n,
                     k=k, k1=K1, b=B, hot_preweighted=ws is not None,
-                    skip_hot=skip_hot)
+                    skip_hot=skip_hot, hot_only=hot_only)
             return tfidf_topk_tiered(
                 q, self.hot_rank, strip, self.tier_of, self.row_of,
                 self.cold_tiers, self.df, n, k=k,
                 compat_int_idf=self.compat_int_idf,
-                hot_preweighted=ws is not None, skip_hot=skip_hot)
+                hot_preweighted=ws is not None, skip_hot=skip_hot,
+                hot_only=hot_only)
         if scoring == "bm25":
             return bm25_topk_dense(q, self._ensure_tf_matrix(), self.df,
                                    self.doc_len, n, k=k, k1=K1, b=B)
@@ -513,8 +782,9 @@ class Scorer:
         TF-IDF; for BM25 the saturation at the block's least doc-length
         norm (it grows with tf and falls with the norm, so it bounds every
         posting of the block)."""
-        if scoring in self._blockmax_tables:
-            return self._blockmax_tables[scoring]
+        table = self._blockmax_tables.get(scoring)
+        if table is not None:
+            return table
         max_tf = np.asarray(self._hot_blk_max, np.float32)
         if scoring == "tfidf":
             bound = np.where(max_tf > 0,
@@ -541,10 +811,11 @@ class Scorer:
 
     def _note_blockmax_stats(self, stats) -> None:
         considered, masked, fallback = stats
-        self.blockmax_stats["blocks_considered"] += considered
-        self.blockmax_stats["blocks_masked"] += masked
         key = "fallback_dispatches" if fallback else "saved_dispatches"
-        self.blockmax_stats[key] += 1
+        with self._stats_lock:
+            self.blockmax_stats["blocks_considered"] += considered
+            self.blockmax_stats["blocks_masked"] += masked
+            self.blockmax_stats[key] += 1
 
     def _hot_wstrip(self, scoring: str) -> torch.Tensor | None:
         """The device-cached pre-weighted hot strip of a scoring mode
@@ -559,59 +830,99 @@ class Scorer:
         if h * d1 > HOT_BUDGET // 2:
             return None
         key = "bm25" if scoring == "bm25" else "tfidf"
-        if key not in self._wstrip_cache:
+        strip = self._wstrip_cache.get(key)
+        if strip is None:
             hot = self.hot_tfs.to(torch.float32)
-            self._wstrip_cache[key] = (
-                bm25_strip(hot, self.doc_len, self.meta.num_docs,
-                           k1=K1, b=B) if key == "bm25"
-                else lntf_strip(hot))
-        return self._wstrip_cache[key]
+            strip = (bm25_strip(hot, self.doc_len, self.meta.num_docs,
+                                k1=K1, b=B) if key == "bm25"
+                     else lntf_strip(hot))
+            self._wstrip_cache[key] = strip
+        return strip
 
     def _ensure_tf_matrix(self) -> torch.Tensor:
         """The dense [V, D+1] raw-tf matrix: built on the first BM25 call
         (float32), or the resident bf16 one."""
-        if self._tf_matrix is None:
+        matrix = self._tf_matrix
+        if matrix is None:
             pt, pd, ptf = (upload_index(a, self.device)
                            for a in self._pairs)
-            self._tf_matrix = dense_tf_matrix(
+            matrix = dense_tf_matrix(
                 pt, pd, ptf, vocab_size=self.meta.vocab_size,
                 num_docs=self.meta.num_docs)
-        return self._tf_matrix
+            self._tf_matrix = matrix
+        return matrix
 
     # -- two-stage rerank --------------------------------------------------
+
+    def _host_postings(self) -> tuple:
+        """(df, pair_doc, pair_tf) on the host in global CSR order: the
+        dense layout's own columns, or `pairs_loader()`'s, read once."""
+        cols = self._host_pairs
+        if cols is None:
+            if self._pairs is not None:
+                cols = (self._df_host,) + tuple(self._pairs[1:])
+            elif self._pairs_loader is not None:
+                cols = tuple(self._pairs_loader())
+            else:
+                raise ValueError("the rerank's doc norms and the host "
+                                 "fallback need the postings columns, "
+                                 "which this Scorer was built without")
+            self._host_pairs = cols
+        return cols
 
     def _doc_norms_host(self) -> np.ndarray:
         """The rerank's float32 [D+1] doc norms on the host, computed from
         the postings on first use."""
-        if self._norms_np is None:
-            if self._pairs is not None:
-                df, pair_doc, pair_tf = (self._df_host,) + self._pairs[1:]
-            elif self._pairs_loader is not None:
-                df, pair_doc, pair_tf = self._pairs_loader()
-            else:
-                raise ValueError("the rerank needs the doc norms, computed "
-                                 "from the postings columns, which this "
-                                 "Scorer was built without")
-            self._norms_np = compute_doc_norms(None, pair_doc, pair_tf, df,
-                                               self.meta.num_docs)
-        return self._norms_np
+        norms = self._norms_np
+        if norms is None:
+            df, pair_doc, pair_tf = self._host_postings()
+            norms = compute_doc_norms(None, pair_doc, pair_tf, df,
+                                      self.meta.num_docs)
+            self._norms_np = norms
+        return norms
 
     def _doc_norms(self) -> torch.Tensor:
         """The rerank's doc norms on the device."""
-        if self._norms is None:
-            self._norms = torch.from_numpy(
+        norms = self._norms
+        if norms is None:
+            norms = torch.from_numpy(
                 np.ascontiguousarray(self._doc_norms_host())).to(self.device)
-        return self._norms
+            self._norms = norms
+        return norms
 
     def rerank_topk(self, q_terms: np.ndarray, k: int = 10,
-                    candidates: int = 1000) -> tuple[np.ndarray, np.ndarray]:
+                    candidates: int = 1000, deadline_s: float | None = None,
+                    *, force_host: bool = False
+                    ) -> tuple[np.ndarray, np.ndarray]:
         """Two-stage retrieval (`tpu_ir/search/scorer.py::rerank_topk`):
         BM25 top-`candidates`, then cosine TF-IDF (ops/scoring.py::
         cosine_rerank_dense) over those candidates. Both stages run
         inside one query block, so the candidates stay on the device;
         stage 1 goes through block-max where it engages. Returns host
-        arrays (scores [B, k], docnos [B, k])."""
+        arrays (scores [B, k], docnos [B, k]). Under a deadline expiry or
+        a device loss it degrades to host BM25, the rerank dropped."""
+        s, d, _ = self.rerank_topk_tagged(q_terms, k=k,
+                                          candidates=candidates,
+                                          deadline_s=deadline_s,
+                                          force_host=force_host)
+        return s, d
+
+    def rerank_topk_tagged(self, q_terms: np.ndarray, k: int = 10,
+                           candidates: int = 1000,
+                           deadline_s: float | None = None, *,
+                           force_host: bool = False
+                           ) -> tuple[np.ndarray, np.ndarray, bool]:
+        """rerank_topk() with this request's degraded flag (see
+        topk_tagged)."""
         q = np.ascontiguousarray(q_terms, dtype=np.int32)
+        return self._dispatch_degradable(
+            lambda: self._rerank_primary(q, k, candidates),
+            lambda: self._topk_host(q, k, "bm25"),
+            deadline_s, "rerank dispatch",
+            "answering with host BM25, rerank stage dropped",
+            force_host=force_host)
+
+    def _rerank_primary(self, q: np.ndarray, k: int, candidates: int):
         norms = self._doc_norms()
         n = self.meta.num_docs
 
@@ -639,14 +950,30 @@ class Scorer:
         prox: bool = False, phrase_slop: int = 0, *,
         deadline_s: float | None = None, force_host: bool = False,
         hot_only: bool = False, explain_k: int = 0,
+        explain_ks: Sequence[int] | None = None,
+        pad_to: int | None = None, width_floor: int | None = None,
+        rung_ladder: tuple | None = None,
+        slot_meta: Sequence[dict] | None = None,
     ) -> list[SearchResult]:
         """Ranked retrieval for plain query texts: one SearchResult of
-        (docid or docno, score) per text, best first. `rerank=N` is the
-        two-stage rerank over BM25's top N (`scoring` then does not
-        apply)."""
+        (docid or docno, score) per text, best first, each tagged with
+        this request's `degraded` flag. `rerank=N` is the two-stage
+        rerank over BM25's top N (`scoring` then does not apply).
+
+        Serving knobs (`tpu_ir/search/scorer.py::search_batch`; the
+        ServingFrontend is the intended caller): `deadline_s` bounds this
+        batch's dispatch, `force_host` answers from the host with no
+        dispatch, `hot_only` scores the tiered hot strip alone. The
+        coalescer's: `pad_to=R` pads the query rows with -1 rows to R
+        (their results are dropped), `width_floor` pins the analyzed
+        width, `rung_ladder` pads the MaxScore groups to ladder rungs,
+        and `slot_meta[i]` is query i's per-slot record (service level,
+        queue wait, occupancy), checked for length; the query log that
+        would keep it is not ported. `explain_k`/`explain_ks` other than
+        0 raise (explain is a later slice)."""
         unsupported = {"prox": prox, "phrase_slop": phrase_slop,
-                       "deadline_s": deadline_s, "force_host": force_host,
-                       "hot_only": hot_only, "explain_k": explain_k}
+                       "explain_k": explain_k,
+                       "explain_ks": any(explain_ks or ())}
         for name, value in unsupported.items():
             if value:
                 raise ValueError(f"search_batch({name}=...) {_LATER}")
@@ -654,14 +981,28 @@ class Scorer:
         for t in texts:
             if '"' in t:
                 raise ValueError(f"phrase queries {_LATER}: {t!r}")
-        q = self.analyze_queries(texts)
+        for name, per_slot in (("explain_ks", explain_ks),
+                               ("slot_meta", slot_meta)):
+            if per_slot is not None and len(per_slot) != len(texts):
+                raise ValueError(f"{name} has {len(per_slot)} entries for "
+                                 f"{len(texts)} queries")
+        q = self.analyze_queries(texts, width_floor=width_floor)
+        if pad_to is not None and pad_to > len(q):
+            q = np.vstack([q, np.full((pad_to - len(q), q.shape[1]), -1,
+                                      np.int32)])
         if rerank:
-            scores, docnos = self.rerank_topk(q, k=k, candidates=rerank)
+            scores, docnos, degraded = self.rerank_topk_tagged(
+                q, k=k, candidates=rerank, deadline_s=deadline_s,
+                force_host=force_host)
         else:
-            scores, docnos = self.topk(q, k=k, scoring=scoring)
+            scores, docnos, degraded = self.topk_tagged(
+                q, k=k, scoring=scoring, deadline_s=deadline_s,
+                hot_only=hot_only, force_host=force_host,
+                uniform=rung_ladder if pad_to is not None else None)
         out = []
         for qi in range(len(texts)):
             res = SearchResult()
+            res.degraded = degraded
             for s, dn in zip(scores[qi], docnos[qi]):
                 if dn <= 0:
                     continue
