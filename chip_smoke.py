@@ -81,7 +81,8 @@ of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
 17. frontend  on each: a ServingFrontend search at level full bitwise
               search_batch's; 16 texts of 1 to 8 terms in rung-padded
               batches (1, 3 and 16 texts at width floor 8, the
-              coalescer's dispatch) bitwise their solo dispatch, for
+              coalescer's dispatch, and the 16 once more with every
+              kernel's plain twin) bitwise their solo dispatch, for
               TF-IDF, BM25 and the rerank, and on wiki100k also hot_only
               and prune off; on wiki100k hot_only through the frontend
               (its ladder stepped down), which launches hot_stage and
@@ -94,9 +95,11 @@ of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
 19. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              BM25 and TF-IDF: solo round trip, p50/p95/p99 ms, q/s, mean
-              occupancy and `unwarmed` (must be 0); then one request's
-              latency past a 0.25 s deadline beside the open breaker's.
+              2,000 requests a level, BM25 and TF-IDF, three times each:
+              solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
+              `unwarmed` (must be 0), and the repeats' spread; then one
+              request's latency past a 0.25 s deadline beside the open
+              breaker's.
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
@@ -107,6 +110,7 @@ pure-Python analysis on the host.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -530,6 +534,9 @@ def profile_call(fn) -> dict:
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue                       # host ops: their kernels count
+        if getattr(evt, "is_user_annotation", False) \
+                or evt.key.startswith("tpu_ir_torch."):
+            continue                       # a named region spans kernels
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
@@ -1543,7 +1550,8 @@ FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
 SOAK_THREADS = 8
 SOAK_QUERIES = 480
 SWEEP_LEVELS = (1, 4, 16)
-SWEEP_QUERIES = 192              # per level
+SWEEP_QUERIES = 2000             # per level
+SWEEP_REPEATS = 3                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
 
@@ -1577,22 +1585,50 @@ def result_bits(res) -> list:
     return [(d, int(np.float32(s).view(np.int32))) for d, s in res]
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Swap every kernel wrapper the serving path calls for its plain
+    PyTorch twin, for the duration of the block."""
+    from tpu_ir_torch.ops import cold_tier, fused_scoring, hot_stage
+
+    swaps = ((fused_scoring, "dense_scores", fused_scoring.dense_scores_plain),
+             (fused_scoring, "dense_scores_quantized",
+              fused_scoring.dense_scores_quantized_plain),
+             (cold_tier, "cold_stage", cold_tier.cold_stage_plain),
+             (hot_stage, "hot_stage", hot_stage.hot_stage_plain))
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, kernel in kept:
+            setattr(mod, name, kernel)
+
+
 def coalesced_equals_solo(scorer, texts: list[str], **kw) -> int:
     """Hold each text's results in rung-padded batches (1, 3 and all of
     `texts`, padded to rungs 1, 4 and 16 at width floor 8, the MaxScore
     groups padded to rungs: the coalescer's dispatch) against its solo
-    `search_batch`, bitwise. Returns the number of results compared."""
+    `search_batch`, bitwise; then the batch of all of `texts` once more
+    with every kernel swapped for its plain twin (plain_kernels), so a
+    kernel fault at the serving shapes shows even if it is the same in
+    the solo and the coalesced run. Returns the number of results
+    compared."""
     solo = [result_bits(scorer.search_batch([t], **kw)[0]) for t in texts]
     n = 0
-    for size in (1, 3, len(texts)):
+    for size, plain in ((1, False), (3, False), (len(texts), False),
+                        (len(texts), True)):
         rung = next(r for r in COALESCE_LADDER if r >= size)
-        batched = scorer.search_batch(
-            texts[:size], pad_to=rung, width_floor=COALESCE_WIDTH,
-            rung_ladder=COALESCE_LADDER, **kw)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            batched = scorer.search_batch(
+                texts[:size], pad_to=rung, width_floor=COALESCE_WIDTH,
+                rung_ladder=COALESCE_LADDER, **kw)
         for text, got, want in zip(texts, batched, solo):
             if result_bits(got) != want:
-                raise AssertionError(f"coalesced != solo for {text!r} in a "
-                                     f"batch of {size} ({kw})")
+                twin = " with the plain twins" if plain else ""
+                raise AssertionError(f"coalesced{twin} != solo for "
+                                     f"{text!r} in a batch of {size} ({kw})")
             n += 1
     return n
 
@@ -1606,7 +1642,6 @@ def phase_frontend(card: str, scorer, *, config: str, device: str,
     hot_stage and never cold_tier and give the bits of the same path with
     hot_stage's plain twin."""
     import tpu_ir_torch
-    from tpu_ir_torch.ops import hot_stage as hot_mod
     from tpu_ir_torch.serving import ServingConfig, ServingFrontend
 
     texts = serving_texts(scorer, FRONTEND_TEXTS)
@@ -1658,14 +1693,10 @@ def phase_frontend(card: str, scorer, *, config: str, device: str,
                              or launches["cold_tier"] != 0):
         raise AssertionError(f"hot_only must launch hot_stage and never "
                              f"cold_tier: {launches}")
-    kernel = hot_mod.hot_stage
-    hot_mod.hot_stage = hot_mod.hot_stage_plain
-    try:
+    with plain_kernels():
         plain = {s: [scorer.search_batch([t], k=k, scoring=s,
                                          hot_only=True)[0]
                      for t in hot_texts] for s in ("tfidf", "bm25")}
-    finally:
-        hot_mod.hot_stage = kernel
     for s in ("tfidf", "bm25"):
         for text, g, w in zip(hot_texts, got[s], plain[s]):
             if g.level != "hot_only" or result_bits(g) != result_bits(w):
@@ -1786,8 +1817,10 @@ def closed_loop(fe, texts: list[str], clients: int, *, scoring: str,
 def phase_sweep(card: str, scorer, *, config: str, device: str,
                 k: int = 10) -> dict:
     """run_concurrency_sweep at SWEEP_LEVELS through a coalescing frontend,
-    BM25 and TF-IDF: solo round trip, p50/p95/p99 ms, q/s, mean occupancy
-    and `unwarmed` (must be 0) per level; on the card the device time and
+    BM25 and TF-IDF, SWEEP_REPEATS times each (seeds 0, 1, ...): per
+    repeat the solo round trip and per level p50/p95/p99 ms, q/s, mean
+    occupancy and `unwarmed` (must be 0), and per level the least, median
+    and greatest q/s and p99 of the repeats; on the card the device time and
     idle share of the top level's BM25 traffic (closed_loop, profiled);
     then one request's latency when its dispatch hangs past a 0.25 s
     deadline beside the median latency of BREAKER_PROBES requests once
@@ -1802,21 +1835,32 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
 
     out = {"phase": "sweep", "card": card, "config": config,
            "layout": scorer.layout, "levels": list(SWEEP_LEVELS),
-           "queries_per_level": SWEEP_QUERIES}
+           "queries_per_level": SWEEP_QUERIES, "repeats": SWEEP_REPEATS}
     for scoring in ("bm25", "tfidf"):
-        rep = run_concurrency_sweep(scorer, levels=SWEEP_LEVELS,
-                                    queries_per_level=SWEEP_QUERIES,
-                                    scoring=scoring, k=k)
-        for lv in rep["levels"]:
-            if lv["errors"] or lv["unwarmed"] or lv["served"] == 0:
-                raise AssertionError(f"{config} {scoring} sweep level "
-                                     f"{lv['concurrency']}: {lv}")
-        out[scoring] = {
-            "solo_rtt_ms": rep["solo_rtt_ms"],
-            "levels": [{n: lv[n] for n in (
-                "concurrency", "served", "shed", "qps", "p50_ms", "p95_ms",
-                "p99_ms", "occupancy_mean", "unwarmed", "coalesced",
-                "solo_flush")} for lv in rep["levels"]]}
+        runs = []
+        for seed in range(SWEEP_REPEATS):
+            rep = run_concurrency_sweep(scorer, levels=SWEEP_LEVELS,
+                                        queries_per_level=SWEEP_QUERIES,
+                                        seed=seed, scoring=scoring, k=k)
+            for lv in rep["levels"]:
+                if lv["errors"] or lv["unwarmed"] or lv["served"] == 0:
+                    raise AssertionError(f"{config} {scoring} sweep level "
+                                         f"{lv['concurrency']}: {lv}")
+            runs.append({
+                "solo_rtt_ms": rep["solo_rtt_ms"],
+                "levels": [{n: lv[n] for n in (
+                    "concurrency", "served", "shed", "qps", "p50_ms",
+                    "p95_ms", "p99_ms", "occupancy_mean", "unwarmed",
+                    "coalesced", "solo_flush")} for lv in rep["levels"]]})
+        spread = []
+        for i, level in enumerate(SWEEP_LEVELS):
+            row = {"concurrency": level}
+            for metric in ("qps", "p50_ms", "p99_ms"):
+                vals = sorted(r["levels"][i][metric] for r in runs)
+                row[metric] = {"min": vals[0], "median": vals[len(vals) // 2],
+                               "max": vals[-1]}
+            spread.append(row)
+        out[scoring] = {"repeats": runs, "spread": spread}
     if device == "cuda":
         top = max(SWEEP_LEVELS)
         fe = ServingFrontend(scorer, ServingConfig(

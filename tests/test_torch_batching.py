@@ -162,7 +162,7 @@ def test_hot_batch_skips_the_pad_only_dispatch(scorers):
 
 def test_batch_ladder_env(monkeypatch):
     monkeypatch.delenv("TPU_IR_BATCH_LADDER", raising=False)
-    assert batch_ladder() == (1, 4, 16)          # rungs above 16 dropped
+    assert batch_ladder() == (1, 4, 16)          # the port's default
     monkeypatch.setenv("TPU_IR_BATCH_LADDER", "64,4,4,1")
     assert batch_ladder() == (1, 4, 64)          # an explicit ladder wins
     monkeypatch.setenv("TPU_IR_BATCH_LADDER", "1,x")
@@ -236,7 +236,7 @@ def test_incompatible_keys_do_not_share_a_batch(scorers):
         barrier.wait(10)
         results[scoring] = sched.submit(
             QUERIES[0], k=10, scoring=scoring, rerank=None,
-            hot_only=False, force_host=False, level="full")
+            hot_only=False, force_host=False)
 
     threads = [threading.Thread(target=go, args=(sc,), daemon=True)
                for sc in ("tfidf", "bm25")]
@@ -266,7 +266,7 @@ def test_batch_error_reaches_every_caller(scorers, monkeypatch):
         barrier.wait(10)
         try:
             sched.submit(QUERIES[i], k=5, scoring="tfidf", rerank=None,
-                         hot_only=False, force_host=False, level="full")
+                         hot_only=False, force_host=False)
             outcomes.append("ok")
         except RuntimeError as e:
             outcomes.append(str(e))
@@ -287,8 +287,7 @@ def test_phrase_text_raises(scorers):
                                 width=WIDTH)
     with pytest.raises(ValueError, match="phrase"):
         sched.submit('"salmon fishing"', k=5, scoring="tfidf",
-                     rerank=None, hot_only=False, force_host=False,
-                     level="full")
+                     rerank=None, hot_only=False, force_host=False)
 
 
 # ---------------------------------------------------------------------------

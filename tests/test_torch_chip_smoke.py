@@ -291,6 +291,7 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "SOAK_QUERIES", 64)
     monkeypatch.setattr(chip_smoke, "SWEEP_LEVELS", (1, 4))
     monkeypatch.setattr(chip_smoke, "SWEEP_QUERIES", 16)
+    monkeypatch.setattr(chip_smoke, "SWEEP_REPEATS", 2)
     monkeypatch.setattr(chip_smoke, "BREAKER_PROBES", 3)
     _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
                                     config="wiki100k")
@@ -320,9 +321,14 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
                            k=10)
     assert fe.stats()["served_full"] == 16
     for scoring in ("bm25", "tfidf"):
-        assert [lv["concurrency"] for lv in sweep[scoring]["levels"]] == \
-            [1, 4]
-        assert all(lv["unwarmed"] == 0 for lv in sweep[scoring]["levels"])
+        runs = sweep[scoring]["repeats"]
+        assert len(runs) == 2
+        for run in runs:
+            assert [lv["concurrency"] for lv in run["levels"]] == [1, 4]
+            assert all(lv["unwarmed"] == 0 for lv in run["levels"])
+        for row in sweep[scoring]["spread"]:
+            q = row["qps"]
+            assert 0 < q["min"] <= q["median"] <= q["max"]
     assert sweep["deadline_expiry_ms"] >= 200.0
     assert sweep["breaker_open_ms"] < sweep["deadline_expiry_ms"]
     json.dumps([fr, fd, soak, sweep])

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import tpu_ir_torch
+from tpu_ir_torch import faults
 from tpu_ir_torch.corpus import make_corpus
 from tpu_ir_torch.index import build_index
 from tpu_ir_torch.index.migrate import migrate_index
@@ -682,3 +683,17 @@ def test_hot_only_equals_plain_twin(serving_index, scoring_name,
     assert np.array_equal(got[1], want[1])
     assert got[0].tobytes() == want[0].tobytes()
     assert (got[1] > 0).any()
+
+
+@pytest.mark.parametrize("name", sorted(faults._CUDA_LOST))
+def test_device_loss_texts_are_the_runtimes(cuda, name):
+    """Each lost-device error is known by the text the CUDA runtime gives
+    its code (torch.cuda.CudaError asks cudaGetErrorString), so a torch
+    runtime error for it degrades, while the kernel wrappers' own report
+    of the same code raises."""
+    code, text = faults._CUDA_LOST[name]
+    err = torch.cuda.CudaError(code)
+    assert text in str(err)
+    assert faults.is_device_loss(err)
+    assert not faults.is_device_loss(
+        RuntimeError(f"hot_stage kernel launch failed: CUDA error {code}"))

@@ -238,10 +238,13 @@ def test_fault_plan_grammar_and_device_loss_tags(monkeypatch):
     assert faults.active().specs["score.hang"][0].mode == "always"
     assert faults.is_device_loss(faults.DeviceLoss("x"))
     assert faults.is_device_loss(RuntimeError("DEVICE_LOST: gone"))
-    assert faults.is_device_loss(
-        RuntimeError("hot_stage kernel launch failed: CUDA error 46"))
     assert faults.is_device_loss(RuntimeError("cudaErrorNoDevice"))
+    assert faults.is_device_loss(RuntimeError(
+        "CUDA error: CUDA-capable device(s) is/are busy or unavailable"))
     for program_fault in ("cold_tier kernel launch failed: CUDA error 719",
+                          "hot_stage kernel launch failed: CUDA error 46",
+                          "dense_score kernel launch failed: CUDA error "
+                          "100",
                           "CUDA error: an illegal memory access was "
                           "encountered (cudaErrorIllegalAddress, 700)",
                           "nvcc failed on csrc/hot_stage.cu (exit 1)",
@@ -434,14 +437,19 @@ def test_force_host_and_injected_loss_are_tagged(scorer):
 
 def test_program_errors_raise_not_degrade(scorer, monkeypatch):
     """A launch failure is a program fault: it raises under a deadline
-    and a fault plan too, and nothing is counted as degraded."""
-    def launch_failure(*a, **kw):
-        raise RuntimeError("hot_stage kernel launch failed: CUDA error 719")
-
-    monkeypatch.setattr(scorer, "_topk_device", launch_failure)
+    and a fault plan too, and nothing is counted as degraded; so does a
+    wrapper's report of a lost-device code (46: another process holds
+    the card in exclusive mode), which only the CUDA runtime's own error
+    text may turn into a degraded answer."""
     faults.install(faults.FaultPlan())
-    with pytest.raises(RuntimeError, match="719"):
-        scorer.search_batch(["salmon"], deadline_s=1.0)
+    for code in (719, 46, 100, 214, 220, 802):
+        def launch_failure(*a, code=code, **kw):
+            raise RuntimeError(f"hot_stage kernel launch failed: CUDA "
+                               f"error {code}")
+
+        monkeypatch.setattr(scorer, "_topk_device", launch_failure)
+        with pytest.raises(RuntimeError, match=f"CUDA error {code}$"):
+            scorer.search_batch(["salmon"], deadline_s=1.0)
     assert recovery_counters().get("degraded_batches") == 0
 
 
@@ -451,8 +459,8 @@ def test_explain_and_phrase_still_raise(scorer):
             scorer.search_batch(["salmon"], **kw)
     with pytest.raises(ValueError, match="phrase"):
         scorer.search_batch(['"salmon fishing"'])
-    with pytest.raises(ValueError, match="slot_meta"):
-        scorer.search_batch(["salmon", "river"], slot_meta=[{}])
+    with pytest.raises(ValueError, match="explain_ks has 1 entries"):
+        scorer.search_batch(["salmon", "river"], explain_ks=[0])
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,13 @@ a choice outside its set raises.
     TPU_IR_TRACE             0 turns spans and every latency histogram off
                              (default 1; counters stay on)
     TPU_IR_BATCH_LADDER      the coalescer's batch-size rungs (default
-                             1,4,16,64; when unset, rungs above 16 are
-                             dropped, see serving/batching.py)
+                             1,4,16: the JAX package's 1,4,16,64 less the
+                             64 rung, which pays off only where a padded
+                             row rides free, as on a TPU's matrix unit; on
+                             the card a padded row costs a full top-k row
+                             over D+1 columns, and the top-k is most of
+                             the tiered path's device time. Results are
+                             bitwise the same at any ladder)
     TPU_IR_BATCH_WAIT_MS     how long a promoted batch leader may wait for
                              its batch to fill (default 0)
     TPU_IR_BATCH_WIDTH       the query-width floor of a coalesced batch
@@ -43,7 +48,7 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
-         "TPU_IR_BATCH_LADDER": "1,4,16,64"}
+         "TPU_IR_BATCH_LADDER": "1,4,16"}
 _BOOLS = {"TPU_IR_TRACE": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1"))}
@@ -105,12 +110,3 @@ def get_choice(name: str) -> str:
     if v not in choices:
         raise ValueError(f"{name}={v!r}: expected one of {choices}")
     return v
-
-
-def is_set(name: str) -> bool:
-    """Whether the variable is set to a non-empty value: an adaptive
-    default yields to an explicit setting."""
-    if not any(name in d for d in (_INTS, _FLOATS, _STRS, _BOOLS,
-                                   _CHOICES)):
-        raise KeyError(f"undeclared environment variable {name!r}")
-    return _raw(name) is not None

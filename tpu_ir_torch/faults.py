@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import logging
 import random
-import re
 import threading
 import time
 from dataclasses import dataclass, field
@@ -52,31 +51,35 @@ class ScoreDeadlineExceeded(RuntimeError):
 _JAX_TAGS = ("device_lost", "device lost", "data_loss", "device halted",
              "device unavailable")
 # CUDA's errors (enum cudaError, CUDA 12.8 headers) for a device that is
-# gone or cannot be used, by name and by the code the port's kernel
-# wrappers report ("CUDA error 46"); a launch failure (719), an illegal
-# address (700) or a failed build is a program fault: it raises, never
-# degrades
-_CUDA_LOST = {"cudaErrorDevicesUnavailable": 46, "cudaErrorNoDevice": 100,
-              "cudaErrorECCUncorrectable": 214,
-              "cudaErrorNvlinkUncorrectable": 220,
-              "cudaErrorSystemNotReady": 802}
-_CUDA_CODE_RE = re.compile(r"cuda error (\d+)")
+# gone or cannot be used: name -> (code, cudaGetErrorString's text, which
+# torch's runtime puts in its "CUDA error: ..." messages). Only the
+# runtime's own wording counts: the port's kernel wrappers report a failed
+# launch by its code alone ("kernel launch failed: CUDA error 46"), and a
+# failed launch, an illegal address or a failed build is a program fault,
+# so it raises, never degrades
+_CUDA_LOST = {
+    "cudaErrorDevicesUnavailable":
+        (46, "CUDA-capable device(s) is/are busy or unavailable"),
+    "cudaErrorNoDevice": (100, "no CUDA-capable device is detected"),
+    "cudaErrorECCUncorrectable": (214, "uncorrectable ECC error encountered"),
+    "cudaErrorNvlinkUncorrectable":
+        (220, "uncorrectable NVLink error detected during the execution"),
+    "cudaErrorSystemNotReady": (802, "system not yet initialized"),
+}
 
 
 def is_device_loss(exc: BaseException) -> bool:
     """Whether an exception from a device dispatch means the device is
     gone (degrade) rather than the program is wrong (raise). Only the
-    injected marker and errors that name a lost or unavailable device
+    injected marker, the JAX package's tags and the CUDA runtime's own
+    errors for a lost or unavailable device (by name or by its text)
     qualify."""
     if isinstance(exc, DeviceLoss):
         return True
     msg = str(exc).lower()
-    if any(tag in msg for tag in _JAX_TAGS):
-        return True
-    if any(name.lower() in msg for name in _CUDA_LOST):
-        return True
-    codes = {int(c) for c in _CUDA_CODE_RE.findall(msg)}
-    return bool(codes & set(_CUDA_LOST.values()))
+    return any(tag in msg for tag in _JAX_TAGS) or any(
+        name.lower() in msg or text.lower() in msg
+        for name, (_, text) in _CUDA_LOST.items())
 
 
 @dataclass

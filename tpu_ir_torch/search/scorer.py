@@ -150,18 +150,6 @@ def compute_doc_norms(pair_term, pair_doc, pair_tf, df,
     return np.sqrt(sq[: num_docs + 1]).astype(np.float32)
 
 
-def _rtt_dominated_backend() -> bool:
-    """Whether a fixed per-dispatch round trip dominates the per-row cost
-    of a dispatch (the JAX package's TPU regime, where a padded row rides
-    free on the MXU). Not on CUDA, as not on the CPU: a padded row costs
-    a full top-k row over D+1 columns on the card, and the top-k is most
-    of the tiered path's device time. So the coalescer's default ladder
-    drops rungs above 16 and `_topk_uniform` never folds a small hot-free
-    group into the full dispatch. Results are bitwise the same either
-    way."""
-    return False
-
-
 class SearchResult(list):
     """List of (docid, score) or (docno, score) tuples for one query,
     best first, with the JAX package's serving tags:
@@ -548,15 +536,17 @@ class Scorer:
         group padded to the smallest ladder rung that holds it, so the
         shapes are rungs x {skip, full} per scoring and k, the set the
         coalescer warms. A batch whose only hot-free rows are all -1
-        goes whole through one full dispatch."""
+        goes whole through one full dispatch. Unlike the JAX package on a
+        TPU, a small hot-free group is never folded into the full
+        dispatch: on the card a padded row costs a full top-k row over
+        D+1 columns. Results are bitwise the same either way."""
         block = self._block_size()
         has_hot = self._has_hot(q)
         n_free = int((~has_hot).sum())
         if n_free == len(q):
             return self._rung_dispatch(q, block, rungs, skip)
         real_free = int((~has_hot & ~(q < 0).all(axis=1)).sum())
-        if real_free == 0 or (real_free < self.MIN_SKIP_GROUP
-                              and _rtt_dominated_backend()):
+        if real_free == 0:
             return self._rung_dispatch(q, block, rungs, full)
         order = self._schedule_order(has_hot)
         inv = np.argsort(order, kind="stable")
@@ -953,7 +943,6 @@ class Scorer:
         explain_ks: Sequence[int] | None = None,
         pad_to: int | None = None, width_floor: int | None = None,
         rung_ladder: tuple | None = None,
-        slot_meta: Sequence[dict] | None = None,
     ) -> list[SearchResult]:
         """Ranked retrieval for plain query texts: one SearchResult of
         (docid or docno, score) per text, best first, each tagged with
@@ -966,11 +955,9 @@ class Scorer:
         dispatch, `hot_only` scores the tiered hot strip alone. The
         coalescer's: `pad_to=R` pads the query rows with -1 rows to R
         (their results are dropped), `width_floor` pins the analyzed
-        width, `rung_ladder` pads the MaxScore groups to ladder rungs,
-        and `slot_meta[i]` is query i's per-slot record (service level,
-        queue wait, occupancy), checked for length; the query log that
-        would keep it is not ported. `explain_k`/`explain_ks` other than
-        0 raise (explain is a later slice)."""
+        width, and `rung_ladder` pads the MaxScore groups to ladder
+        rungs. `explain_k`/`explain_ks` other than 0 raise (explain is a
+        later slice)."""
         unsupported = {"prox": prox, "phrase_slop": phrase_slop,
                        "explain_k": explain_k,
                        "explain_ks": any(explain_ks or ())}
@@ -981,11 +968,9 @@ class Scorer:
         for t in texts:
             if '"' in t:
                 raise ValueError(f"phrase queries {_LATER}: {t!r}")
-        for name, per_slot in (("explain_ks", explain_ks),
-                               ("slot_meta", slot_meta)):
-            if per_slot is not None and len(per_slot) != len(texts):
-                raise ValueError(f"{name} has {len(per_slot)} entries for "
-                                 f"{len(texts)} queries")
+        if explain_ks is not None and len(explain_ks) != len(texts):
+            raise ValueError(f"explain_ks has {len(explain_ks)} entries for "
+                             f"{len(texts)} queries")
         q = self.analyze_queries(texts, width_floor=width_floor)
         if pad_to is not None and pad_to > len(q):
             q = np.vstack([q, np.full((pad_to - len(q), q.shape[1]), -1,

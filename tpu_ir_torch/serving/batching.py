@@ -40,10 +40,6 @@ import numpy as np
 from .. import envvars, obs
 from ..obs import get_registry
 
-# rungs above this are dropped from the default ladder where a padded row
-# costs real work (see search/scorer.py::_rtt_dominated_backend)
-_MAX_RUNG = 16
-
 
 class BatchKey(NamedTuple):
     """What must match for two requests to share one dispatch: k and
@@ -64,16 +60,13 @@ class _Slot:
     "done" / "error"; or None -> "abandoned" (timed out while queued).
     The leader writes the result before it sets the event."""
 
-    __slots__ = ("text", "key", "explain_k", "level", "queue_depth",
-                 "t_enqueue", "event", "state", "result", "error")
+    __slots__ = ("text", "key", "explain_k", "t_enqueue", "event", "state",
+                 "result", "error")
 
-    def __init__(self, text: str, key: BatchKey, explain_k: int,
-                 level: str, queue_depth: int):
+    def __init__(self, text: str, key: BatchKey, explain_k: int):
         self.text = text
         self.key = key
         self.explain_k = explain_k
-        self.level = level
-        self.queue_depth = queue_depth
         self.t_enqueue = time.perf_counter()
         self.event = threading.Event()
         self.state = None
@@ -83,12 +76,8 @@ class _Slot:
 
 def batch_ladder() -> tuple:
     """The batch-size rungs from TPU_IR_BATCH_LADDER (sorted, deduplicated,
-    all >= 1); a malformed spec raises. When the variable is unset, rungs
-    above 16 are dropped: a padded row costs a full top-k row on the card
-    (search/scorer.py::_rtt_dominated_backend). An explicit setting always
-    wins."""
-    from ..search.scorer import _rtt_dominated_backend
-
+    all >= 1; the default 1,4,16 is explained in envvars.py); a malformed
+    spec raises."""
     spec = envvars.get_str("TPU_IR_BATCH_LADDER")
     try:
         rungs = sorted({max(1, int(p)) for p in spec.split(",") if p.strip()})
@@ -98,9 +87,6 @@ def batch_ladder() -> tuple:
             "integers like '1,4,16,64'") from None
     if not rungs:
         raise ValueError("TPU_IR_BATCH_LADDER is empty")
-    if not envvars.is_set("TPU_IR_BATCH_LADDER") \
-            and not _rtt_dominated_backend():
-        rungs = [r for r in rungs if r <= _MAX_RUNG] or rungs[:1]
     return tuple(rungs)
 
 
@@ -140,7 +126,7 @@ class CoalescingScheduler:
 
     def submit(self, text: str, *, k: int, scoring: str,
                rerank: int | None, hot_only: bool, force_host: bool,
-               level: str, queue_depth: int = 0, explain_k: int = 0):
+               explain_k: int = 0):
         """Serve one query through the coalescer; returns its
         SearchResult (tagged per slot) or raises what the shared dispatch
         raised. Blocks the calling thread."""
@@ -149,7 +135,7 @@ class CoalescingScheduler:
                              "batch; route them solo")
         slot = _Slot(text, BatchKey(k, scoring, rerank, bool(hot_only),
                                     bool(force_host)),
-                     explain_k, level, queue_depth)
+                     explain_k)
         with self._lock:
             self._queue.append(slot)
             lead = not self._dispatching
@@ -258,17 +244,13 @@ class CoalescingScheduler:
         t0 = time.perf_counter()
         b = len(slots)
         key = slots[0].key
-        meta = [{"level": s.level,
-                 "queue_depth": s.queue_depth,
-                 "queue_wait_ms": round((t0 - s.t_enqueue) * 1e3, 3),
-                 "batch_occupancy": b} for s in slots]
         reg = get_registry()
         reg.incr("batch.coalesced" if b > 1 else "batch.solo_flush")
         if obs.enabled():
             # occupancy is a count on the histogram's bucket scale
             reg.observe("batch.occupancy", float(b))
-            for m in meta:
-                reg.observe("batch.wait", m["queue_wait_ms"] / 1e3)
+            for s in slots:
+                reg.observe("batch.wait", t0 - s.t_enqueue)
         try:
             results = self._scorer.search_batch(
                 [s.text for s in slots], k=key.k, scoring=key.scoring,
@@ -276,7 +258,7 @@ class CoalescingScheduler:
                 force_host=key.force_host, hot_only=key.hot_only,
                 explain_ks=[s.explain_k for s in slots],
                 pad_to=self._rung(b), width_floor=self._width,
-                rung_ladder=self._ladder, slot_meta=meta)
+                rung_ladder=self._ladder)
         except BaseException as e:  # delivered, not swallowed: every
             for s in slots:         # slot's caller re-raises it
                 s.error = e

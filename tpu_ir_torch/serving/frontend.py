@@ -383,14 +383,11 @@ class ServingFrontend:
         use_rerank = rerank if level == LEVEL_FULL else None
         try:
             if batcher is not None and '"' not in text and return_docids:
-                # this request may share a batch-mate's dispatch; its
-                # level and wait are tagged per slot by the coalescer
+                # this request may share a batch-mate's dispatch
                 res = batcher.submit(
                     text, k=k, scoring=scoring, rerank=use_rerank,
                     hot_only=(level == LEVEL_HOT_ONLY),
-                    force_host=force_host, level=level,
-                    queue_depth=self.admission.queue_depth(),
-                    explain_k=explain_k)
+                    force_host=force_host, explain_k=explain_k)
             else:
                 res = scorer.search_batch(
                     [text], k=k, scoring=scoring, rerank=use_rerank,
