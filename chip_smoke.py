@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 
 It builds every kernel of the port from csrc/ (one nvcc per source, all
 started together; the build line reports each kernel's registers, spills
-and shared memory from ptxas), then runs these phases in order, printing
+and shared memory from ptxas) and the native tokenizer from
+native/analyzer.cpp (g++), then runs these phases in order, printing
 one JSON line per phase; any failure ends the run with a nonzero exit
 code:
 
@@ -25,8 +26,14 @@ code:
               synthetic tfs, and bitwise against dense_score over their
               float32 (1 + ln tf) matrix, there and at the edge shapes;
 4. build      the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
-              make_corpus, copied into the port) indexed into 10 shards on
-              the card;
+              make_corpus, copied into the port) indexed one-shot into 10
+              shards on the card with build_index's defaults (the native
+              C++ tokenizer, char-grams k = 2, 3), the analysis timed
+              alone through the Python and the native analyzer; then
+              `crash_resume`: the ref corpus through the streaming radix
+              build (16 buckets) with `crash.pass2` injected at its third
+              bucket, built again: pass 1 must not run again and every
+              artifact must equal the one-shot build's;
 5. serve      Scorer.load on the card (dense layout), search_batch under
               TF-IDF and BM25, then topk over 10,000 two-term queries with
               k = 10, checked against an exhaustive numpy oracle (recall@10
@@ -42,8 +49,16 @@ code:
               matrix, TF-IDF through dequant_score, and top-10 bitwise
               equal to the raw index's for both scorings; its rerank
               bitwise the raw index's;
-10. build     the `wiki100k` corpus (100,000 docs, 270 MB target, 200,000
-              word shapes) indexed into 10 shards on the card;
+10. build_streaming  the `wiki100k` corpus (100,000 docs, 270 MB
+              target, 200,000 word shapes) indexed into 10 shards three
+              ways on the card: the streaming radix build (16 buckets,
+              batch_docs 50,000, the document store, char-grams 2, 3;
+              pass 2's device time and idle share from torch.profiler),
+              the legacy streaming build and the one-shot build; every
+              artifact they share has one sha256, verify_index passes on
+              the radix build, and each build's wall s, docs/s, phase
+              timings, spill bytes, peak host RSS and peak device memory
+              are printed. The phases below serve the radix build's index;
 11. serve     as 5, on wiki100k, where layout "auto" picks the tiered
               sparse layout and topk runs the MaxScore schedule and
               block-max (prune, the default): cold_tier launched once per
@@ -103,9 +118,7 @@ of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
-repository, the script exits nonzero before printing any result. On an
-H100 the run takes about ten minutes, most of it the wiki100k build's
-pure-Python analysis on the host.
+repository, the script exits nonzero before printing any result.
 """
 
 from __future__ import annotations
@@ -474,10 +487,14 @@ def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
 
 def phase_build(card: str, work: str, *, device: str,
                 config: str = "ref") -> tuple[dict, str]:
-    """A configuration's corpus, generated from seed 0, indexed into 10
-    shards. The CPU test shrinks the corpora through REF_CORPUS and
-    WIKI_CORPUS, test hooks only. At ref the host analysis is timed once
-    more on its own; at wiki100k that would add some 90 s, so it is not."""
+    """A configuration's corpus, generated from seed 0, indexed one-shot
+    into 10 shards with build_index's defaults (the native tokenizer,
+    char-grams k = 2, 3). The CPU test shrinks the corpora through
+    REF_CORPUS and WIKI_CORPUS, test hooks only. At ref the host analysis
+    is timed once more on its own, through the pure-Python analyzer
+    (`analyze_alone_s`) and through the native C++ pass
+    (`native_analyze_alone_s`); at wiki100k the corpus stays for
+    phase_build_streaming."""
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.index import build_index
 
@@ -501,17 +518,257 @@ def phase_build(card: str, work: str, *, device: str,
            "build_s": wall, "docs_per_s": meta.num_docs / wall,
            "num_docs": meta.num_docs, "vocab_size": meta.vocab_size,
            "num_pairs": meta.num_pairs, "num_shards": meta.num_shards,
-           "part_bytes": part_bytes}
+           "chargram_ks": meta.chargram_ks, "part_bytes": part_bytes,
+           "timings_s": job_timings(idx)}
     if config == "ref":
         # the host analysis alone, timed apart: the rest of build_s is the
-        # vocab sort, the device group-by and the artifact writes
+        # vocab sort, the device group-by, the char-grams and the writes
+        from tpu_ir_torch.analysis.native import tokenize_corpus_native
         from tpu_ir_torch.index.builder import analyze_corpus
 
         t0 = time.perf_counter()
         analyze_corpus([corpus])
         out["analyze_alone_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tokenize_corpus_native([corpus])
+        out["native_analyze_alone_s"] = time.perf_counter() - t0
     os.unlink(corpus)
     return out, idx
+
+
+def job_timings(idx: str) -> dict:
+    """The build job's phase timings (jobs/TermKGramDocIndexer.json)."""
+    with open(os.path.join(idx, "jobs", "TermKGramDocIndexer.json")) as f:
+        return json.load(f)["timings_s"]
+
+
+def artifact_digests(idx: str) -> dict:
+    """sha256 of every artifact of an index dir but the job reports."""
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(idx)):
+        path = os.path.join(idx, name)
+        if name == "jobs" or name.startswith(".") or not os.path.isfile(
+                path):
+            continue
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 22), b""):
+                h.update(chunk)
+        out[name] = h.hexdigest()
+    return out
+
+
+class PeakRss:
+    """The process's resident set at the start of a window and its peak
+    over the window, sampled from /proc/self/statm every 20 ms on a
+    thread (ru_maxrss cannot be reset between builds)."""
+
+    def __enter__(self):
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def pass2_device(prof) -> dict:
+    """Device time inside the build's pass-2 window of a profiled build:
+    the CUDA kernels that start inside the `tpu_ir_torch.build.
+    pass2_combine` region (JobReport.phase), and the device's idle share
+    of that window."""
+    import torch
+
+    events = prof.events()
+    window = [e for e in events
+              if e.name == "tpu_ir_torch.build.pass2_combine"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(window) != 1:
+        return {"device_ms": None, "note": f"{len(window)} pass-2 regions "
+                                            "in the trace"}
+    lo, hi = window[0].time_range.start, window[0].time_range.end
+    # the region's own device-side row spans its kernels: skip it (and
+    # any other named region), or the device time counts twice
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("tpu_ir_torch.")
+               and lo <= e.time_range.start <= hi]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    wall_us = hi - lo
+    return {"device_ms": device_us / 1e3, "window_ms": wall_us / 1e3,
+            "kernels": len(kernels),
+            "idle_share": 1 - device_us / wall_us if wall_us else None}
+
+
+def phase_build_streaming(card: str, work: str, *, device: str,
+                          config: str = "wiki100k") -> tuple[dict, str]:
+    """The configuration's corpus (seed 0, WIKI_CORPUS) built three ways
+    into 10 shards: the streaming radix build (16 buckets, batch_docs
+    50,000, store, char-grams 2, 3; under torch.profiler for pass 2's
+    device time), the legacy streaming build (radix 0) and the one-shot
+    build (no store). Every artifact the three share must have one
+    sha256, and verify_index must pass on the radix build, whose index
+    dir is returned. For each build: wall s, docs/s, the phase timings
+    of its job report, the radix spill bytes, peak host RSS and
+    torch.cuda.max_memory_allocated."""
+    import torch
+
+    from tpu_ir_torch.corpus import make_corpus
+    from tpu_ir_torch.index import build_index, build_index_streaming
+    from tpu_ir_torch.index.verify import verify_index
+
+    corpus = os.path.join(work, f"{config}.trec")
+    t0 = time.perf_counter()
+    corpus_bytes = make_corpus(corpus, seed=0, **WIKI_CORPUS)
+    out = {"phase": "build_streaming", "card": card, "config": config,
+           "corpus_bytes": corpus_bytes,
+           "corpus_gen_s": time.perf_counter() - t0, "builds": {}}
+    on_card = device == "cuda"
+    builds = {
+        "radix": lambda d: build_index_streaming(
+            corpus, d, num_shards=10, batch_docs=50_000, radix_buckets=16,
+            store=True, device=device),
+        "legacy": lambda d: build_index_streaming(
+            corpus, d, num_shards=10, batch_docs=50_000, radix_buckets=0,
+            device=device),
+        "oneshot": lambda d: build_index(corpus, d, num_shards=10,
+                                         device=device)}
+    dirs, digests = {}, {}
+    for name, build in builds.items():
+        d = dirs[name] = os.path.join(work, f"{config}-{name}")
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        prof = None
+        with PeakRss() as rss, contextlib.ExitStack() as stack:
+            if on_card and name == "radix":
+                from torch.profiler import ProfilerActivity, profile
+
+                prof = stack.enter_context(profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            meta = build(d)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with open(os.path.join(d, "jobs", "TermKGramDocIndexer.json")) as f:
+            job = json.load(f)
+        row = {"wall_s": wall, "docs_per_s": meta.num_docs / wall,
+               "num_docs": meta.num_docs, "vocab_size": meta.vocab_size,
+               "num_pairs": meta.num_pairs,
+               "timings_s": job["timings_s"],
+               "radix_spill_bytes": job["counters"].get("radix_spill_bytes"),
+               "host_rss_start_bytes": rss.start,
+               "peak_host_rss_bytes": rss.peak,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                        if on_card else None)}
+        if prof is not None:
+            row["pass2"] = pass2_device(prof)
+        out["builds"][name] = row
+        digests[name] = artifact_digests(d)
+    os.unlink(corpus)
+    shared = sorted(set(digests["radix"]) & set(digests["legacy"])
+                    & set(digests["oneshot"]))
+    store_only = sorted(set(digests["radix"]) - set(digests["oneshot"]))
+    if store_only != ["docstore-idx.npz", "docstore.bin"] or set(
+            digests["legacy"]) != set(digests["oneshot"]):
+        raise AssertionError(f"the builds' artifact sets differ: "
+                             f"{ {k: sorted(v) for k, v in digests.items()} }")
+    differ = [n for n in shared
+              if len({digests[b][n] for b in digests}) != 1]
+    if differ:
+        raise AssertionError(f"radix, legacy and one-shot artifacts differ "
+                             f"in {differ}")
+    out["identical_artifacts"] = len(shared)
+    out["sha256"] = {n: digests["radix"][n][:16] for n in shared}
+    t0 = time.perf_counter()
+    report = verify_index(dirs["radix"])
+    out["verify_s"] = time.perf_counter() - t0
+    if not report["ok"] or report["bucket_segmented_shards"]:
+        raise AssertionError(f"verify_index on the radix build: {report}")
+    out["verify"] = report
+    for name in ("legacy", "oneshot"):
+        shutil.rmtree(dirs[name])
+    return out, dirs["radix"]
+
+
+def phase_crash_resume(card: str, idx: str, work: str, *,
+                       device: str) -> dict:
+    """The ref corpus built by the streaming radix build (16 buckets)
+    with `crash.pass2` injected at its third bucket; the InjectedCrash is
+    caught, the build run again with the tokenizer counted: pass 1 must
+    not run again, and every artifact must equal the one-shot build's at
+    `idx`. An injected crash is the only exception this phase catches."""
+    from tpu_ir_torch import faults
+    from tpu_ir_torch.corpus import make_corpus
+    from tpu_ir_torch.index import streaming
+
+    corpus = os.path.join(work, "ref-resume.trec")
+    make_corpus(corpus, seed=0, **REF_CORPUS)
+    out_dir = os.path.join(work, "ref-resume-idx")
+    kw = dict(num_shards=10, radix_buckets=16, device=device)
+    faults.install(faults.parse_plan("crash.pass2:once@3"))
+    crashed = False
+    try:
+        streaming.build_index_streaming(corpus, out_dir, **kw)
+    except faults.InjectedCrash:
+        crashed = True
+    finally:
+        faults.install(None)
+    if not crashed:
+        raise AssertionError("crash.pass2:once@3 never fired")
+    spills = sorted(os.listdir(os.path.join(out_dir, streaming.SPILL_DIR)))
+    tokenized = []
+    real = streaming.make_chunked_tokenizer
+
+    def counting(*a, **k):
+        tokenized.append(1)
+        return real(*a, **k)
+
+    streaming.make_chunked_tokenizer = counting
+    try:
+        t0 = time.perf_counter()
+        streaming.build_index_streaming(corpus, out_dir, **kw)
+        resume_s = time.perf_counter() - t0
+    finally:
+        streaming.make_chunked_tokenizer = real
+    os.unlink(corpus)
+    got, want = artifact_digests(out_dir), artifact_digests(idx)
+    if tokenized:
+        raise AssertionError("the resumed build tokenized the corpus again")
+    if got != want:
+        raise AssertionError(f"the resumed build differs from the one-shot "
+                             f"build in "
+                             f"{sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))}")
+    with open(os.path.join(out_dir, "jobs", "TermKGramDocIndexer.json")) as f:
+        counters = json.load(f)["counters"]
+    shutil.rmtree(out_dir)
+    return {"phase": "crash_resume", "card": card, "config": "ref",
+            "crash": "crash.pass2:once@3",
+            "pair_spills_at_crash": sum(n.startswith("pairs-")
+                                        for n in spills),
+            "resume_s": resume_s, "tokenized_again": False,
+            "pass2_resumed_buckets": counters.get("pass2_resumed_buckets"),
+            "identical_to_oneshot": len(got)}
 
 
 PORT_KERNELS = ("dense_score", "dequant_score", "cold_tier", "hot_stage")
@@ -1933,13 +2190,20 @@ def build_kernels(card: str) -> dict:
     report of each kernel built here."""
     from tpu_ir_torch.ops import _build
 
+    from tpu_ir_torch.analysis import native
+
     names = _build.kernel_sources()
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name in names:
         _build.load(name)
-    return {"phase": "build_kernels", "card": card,
-            "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    # the native tokenizer (g++), so no build phase pays its compile
+    t0 = time.perf_counter()
+    native.load_native()
+    return {"phase": "build_kernels", "card": card, "seconds": seconds,
+            "native_analyzer_s": time.perf_counter() - t0,
+            "native_analyzer": _build.host_lib_path(native.SOURCE).name,
             "libraries": {n: _build.lib_path(n).name for n in names},
             "ptxas": {n: ptxas_report(log) for n, log in logs.items()}}
 
@@ -1994,6 +2258,7 @@ def main() -> int:
     try:
         build, idx = phase_build(card, work, device="cuda")
         emit(build)
+        emit(phase_crash_resume(card, idx, work, device="cuda"))
         serve, scorer, q_ids, dense = phase_serve(card, idx, device="cuda")
         emit(serve)
         rerank, ref_rerank = phase_rerank(card, scorer, q_ids, config="ref",
@@ -2018,8 +2283,7 @@ def main() -> int:
         shutil.rmtree(v3)
         torch.cuda.empty_cache()
 
-        wbuild, widx = phase_build(card, work, device="cuda",
-                                   config="wiki100k")
+        wbuild, widx = phase_build_streaming(card, work, device="cuda")
         emit(wbuild)
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")

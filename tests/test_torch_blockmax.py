@@ -49,7 +49,8 @@ def stdlib_dirs(tmp_path_factory):
     d = tmp_path_factory.mktemp("bounds")
     jax_dir, port_dir = str(d / "jax"), str(d / "port")
     jax_build_index(STDLIB, jax_dir, num_shards=2, compute_chargrams=False)
-    build_index(STDLIB, port_dir, num_shards=2, device="cpu")
+    build_index(STDLIB, port_dir, num_shards=2, device="cpu",
+                compute_chargrams=False)
     return jax_dir, port_dir
 
 

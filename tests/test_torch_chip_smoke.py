@@ -69,6 +69,39 @@ def test_build_and_serve_phases_on_cpu(tmp_path, monkeypatch):
     json.dumps(check)
 
 
+def test_build_streaming_and_crash_resume_phases_on_cpu(tmp_path,
+                                                        monkeypatch):
+    """The ref build with both analysis timings, the crash-resume check
+    against it, and the three-way wiki100k build (radix, legacy,
+    one-shot) whose shared artifacts have one sha256."""
+    small = dict(n_docs=200, target_bytes=200_000, vocab_size=2_000)
+    monkeypatch.setattr(chip_smoke, "REF_CORPUS", small)
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=300, target_bytes=300_000, vocab_size=3_000))
+    work = str(tmp_path)
+    build, idx = chip_smoke.phase_build("cpu", work, device="cpu")
+    assert build["analyze_alone_s"] > 0 and build["native_analyze_alone_s"] > 0
+    assert build["chargram_ks"] == [2, 3]
+    assert set(build["timings_s"]) >= {"tokenize", "postings_device",
+                                       "chargrams", "write_shards"}
+    resume = chip_smoke.phase_crash_resume("cpu", idx, work, device="cpu")
+    assert resume["tokenized_again"] is False
+    assert resume["pair_spills_at_crash"] == 3 * 10   # buckets 0-2
+    assert resume["pass2_resumed_buckets"] == 3
+    assert resume["identical_to_oneshot"] == len(os.listdir(idx)) - 1
+    out, ridx = chip_smoke.phase_build_streaming("cpu", work, device="cpu")
+    assert set(out["builds"]) == {"radix", "legacy", "oneshot"}
+    radix = out["builds"]["radix"]
+    assert radix["radix_spill_bytes"] > 0 and radix["peak_host_rss_bytes"] > 0
+    assert out["builds"]["legacy"]["radix_spill_bytes"] == 0
+    assert {"pass1_tokenize", "pass2_combine", "pass3_reduce", "docstore",
+            "chargrams"} <= set(radix["timings_s"])
+    assert out["verify"]["ok"] and out["identical_artifacts"] >= 10
+    assert sorted(os.listdir(work)) == ["ref-idx", "wiki100k-radix"]
+    assert ridx == os.path.join(work, "wiki100k-radix")
+    json.dumps(out)
+
+
 def test_wiki100k_phases_on_cpu(tmp_path, monkeypatch):
     from tpu_ir_torch.search import scorer as scorer_mod
 

@@ -297,6 +297,67 @@ def test_topk_on_cuda_equals_cpu(cuda):
     assert torch.equal(gs.cpu(), ws) and torch.equal(gd.cpu(), wd)
 
 
+def _assert_same_artifacts(got_dir, want_dir):
+    """Every artifact but the job reports (which hold timings) byte for
+    byte."""
+    names = sorted(n for n in os.listdir(want_dir) if n != "jobs")
+    assert sorted(n for n in os.listdir(got_dir) if n != "jobs") == names
+    for name in names:
+        with open(os.path.join(want_dir, name), "rb") as a, \
+                open(os.path.join(got_dir, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+@pytest.mark.parametrize("buckets", [0, 3, 16])
+def test_streaming_build_on_cuda_equals_cpu(cuda, tmp_path, buckets):
+    """The streaming build's pass 2 and char-grams on the card: the same
+    bytes as the CPU run and as the one-shot build, store included."""
+    from tpu_ir_torch.index import build_index_streaming
+
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=5, n_docs=300, target_bytes=300_000,
+                vocab_size=3_000)
+    kw = dict(num_shards=4, batch_docs=60, radix_buckets=buckets,
+              store=True)
+    gpu_idx, cpu_idx = str(tmp_path / "gpu"), str(tmp_path / "cpu")
+    build_index_streaming(corpus, gpu_idx, device=cuda, **kw)
+    build_index_streaming(corpus, cpu_idx, device="cpu", **kw)
+    _assert_same_artifacts(gpu_idx, cpu_idx)
+    one = str(tmp_path / "one")
+    build_index(corpus, one, num_shards=4, device=cuda)
+    for name in os.listdir(one):
+        if name != "jobs":
+            with open(os.path.join(one, name), "rb") as a, \
+                    open(os.path.join(gpu_idx, name), "rb") as b:
+                assert a.read() == b.read(), name
+
+
+def test_chargram_index_on_cuda_equals_cpu(cuda):
+    from tpu_ir_torch.ops import chargram
+
+    terms = sorted({"a", "heap", "heapq", "queue", "über", "naïve", "中文",
+                    "aaaaaaaa"} | {f"t{i:05d}x" for i in range(5_000)})
+    for k in (1, 2, 3):
+        tb, tl = chargram.pack_term_bytes(terms, k)
+        want = chargram.build_chargram_index(torch.from_numpy(tb),
+                                             torch.from_numpy(tl), k=k)
+        got = chargram.build_chargram_index(torch.from_numpy(tb).to(cuda),
+                                            torch.from_numpy(tl).to(cuda),
+                                            k=k)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), k
+
+
+def test_fetch_narrow_on_cuda_keeps_uint16_values(cuda):
+    from tpu_ir_torch.utils.transfer import fetch_narrow
+
+    values = torch.tensor([0, 1, 32_767, 32_768, 40_000, 65_535, 7],
+                          dtype=torch.int32)
+    got = fetch_narrow(values.to(cuda), 6, np.uint16)
+    assert got.dtype == np.uint16
+    assert got.tolist() == [0, 1, 32_767, 32_768, 40_000, 65_535]
+
+
 def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
     corpus = str(tmp_path / "c.trec")
     make_corpus(corpus, seed=2, n_docs=150, target_bytes=150_000,
@@ -304,10 +365,7 @@ def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
     gpu_idx, cpu_idx = str(tmp_path / "gpu"), str(tmp_path / "cpu")
     build_index(corpus, gpu_idx, num_shards=4, device=cuda)
     build_index(corpus, cpu_idx, num_shards=4, device="cpu")
-    for name in sorted(os.listdir(cpu_idx)):
-        with open(os.path.join(cpu_idx, name), "rb") as a, \
-                open(os.path.join(gpu_idx, name), "rb") as b:
-            assert a.read() == b.read(), name
+    _assert_same_artifacts(gpu_idx, cpu_idx)
     g, c = Scorer.load(gpu_idx), Scorer.load(cpu_idx, device="cpu")
     q = np.random.default_rng(3).integers(
         0, c.meta.vocab_size, (500, 2)).astype(np.int32)

@@ -41,7 +41,8 @@ def built(tmp_path_factory):
     jax_dir, port_dir = str(d / "jax"), str(d / "port")
     jax_build_index(corpus, jax_dir, num_shards=SHARDS,
                     compute_chargrams=False)
-    build_index(corpus, port_dir, num_shards=SHARDS, device="cpu")
+    build_index(corpus, port_dir, num_shards=SHARDS, device="cpu",
+                compute_chargrams=False)
     return jax_dir, port_dir
 
 
@@ -181,7 +182,7 @@ def test_stdlib_bm25_quality_equals_jax(tmp_path):
     """BM25 MRR / NDCG@10 over the 80 hand-judged stdlib topics."""
     idx = str(tmp_path / "stdlib-idx")
     build_index(os.path.join(STDLIB, "corpus.trec"), idx, num_shards=2,
-                device="cpu")
+                device="cpu", compute_chargrams=False)
     jidx = str(tmp_path / "stdlib-jax")
     jax_build_index(os.path.join(STDLIB, "corpus.trec"), jidx,
                     num_shards=2, compute_chargrams=False)
@@ -257,9 +258,21 @@ def test_later_slices_raise(built, tmp_path, case):
         with pytest.raises(ValueError, match="later slice"):
             s.search_batch(["a"], hot_only=True, explain_k=1)
         return
-    if case in ("k2", "chargrams", "positions"):
-        kw = {"k2": {"k": 2}, "chargrams": {"compute_chargrams": True},
-              "positions": {"positions": True}}[case]
+    if case == "chargrams":
+        # char-gram indexes are built now, by default, byte-identical to
+        # the JAX package's
+        corpus = os.path.join(STDLIB, "corpus.trec")
+        got, want = str(tmp_path / "port"), str(tmp_path / "jax")
+        build_index(corpus, got, num_shards=2, device="cpu")
+        jax_build_index(corpus, want, num_shards=2)
+        for ck in (2, 3):
+            name = f"chargram-k{ck}.npz"
+            with open(os.path.join(got, name), "rb") as g, \
+                    open(os.path.join(want, name), "rb") as w:
+                assert g.read() == w.read(), name
+        return
+    if case in ("k2", "positions"):
+        kw = {"k2": {"k": 2}, "positions": {"positions": True}}[case]
         with pytest.raises(ValueError, match="later slice"):
             build_index(os.path.join(STDLIB, "corpus.trec"),
                         str(tmp_path / "x"), device="cpu", **kw)

@@ -39,6 +39,10 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.serving.admission, tpu_ir_torch.serving.breaker, "
             "tpu_ir_torch.serving.batching, tpu_ir_torch.serving.frontend, "
             "tpu_ir_torch.serving.result_cache, tpu_ir_torch.serving.soak, "
+            "tpu_ir_torch.analysis.native, tpu_ir_torch.analysis.pool, "
+            "tpu_ir_torch.ops.chargram, tpu_ir_torch.index.streaming, "
+            "tpu_ir_torch.index.docstore, tpu_ir_torch.index.dictionary, "
+            "tpu_ir_torch.index.verify, tpu_ir_torch.utils.transfer, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"

@@ -166,7 +166,7 @@ def test_stdlib_rerank_quality_equals_jax(tmp_path, layout):
     topics, abs 1e-12 against the JAX package's."""
     idx = str(tmp_path / "stdlib-idx")
     build_index(os.path.join(STDLIB, "corpus.trec"), idx, num_shards=2,
-                device="cpu")
+                device="cpu", compute_chargrams=False)
     jidx = str(tmp_path / "stdlib-jax")
     jax_build_index(os.path.join(STDLIB, "corpus.trec"), jidx,
                     num_shards=2, compute_chargrams=False)

@@ -1,7 +1,12 @@
-"""Command line of the port: `index`, `search`, `migrate-index` and
-`serve-bench`, with tpu_ir's flag names.
+"""Command line of the port: `index`, `search`, `inspect --term`, `verify`,
+`migrate-index` and `serve-bench`, with tpu_ir's flag names and defaults.
 
-    python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--device cuda|cpu]
+    python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
+        [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
+        [--batch-docs N] [--radix-buckets B] [--tokenize-procs N]] [--store]
+        [--device cuda|cpu]
+    python -m tpu_ir_torch.cli inspect IDX --term TEXT [--postings N]
+    python -m tpu_ir_torch.cli verify IDX
     python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
         [--rerank N] [--layout auto|dense|sparse|sharded]
     python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
@@ -12,7 +17,8 @@
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
 
 `index`, `search` and `serve-bench` run on CUDA unless `--device cpu` is
-given; `migrate-index` runs on the host. Each prints its JSON report last.
+given; `inspect`, `verify` and `migrate-index` run on the host. Each
+prints its JSON report last (`inspect --term` prints one line per hit).
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
 exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
@@ -27,16 +33,62 @@ import sys
 
 
 def cmd_index(args) -> int:
-    from .index import build_index
+    from .index import build_index, build_index_streaming
 
     missing = [p for p in args.corpus if not os.path.exists(p)]
     if missing:
         print(f"error: corpus path(s) not found: {', '.join(missing)}",
               file=sys.stderr)
         return 1
-    meta = build_index(args.corpus, args.index_dir, num_shards=args.shards,
-                       device=args.device)
-    print(json.dumps(meta.__dict__))
+    kw = dict(k=args.k, chargram_ks=args.chargram_k, num_shards=args.shards,
+              overwrite=args.overwrite,
+              compute_chargrams=not args.no_chargrams, device=args.device)
+    if args.streaming:
+        meta = build_index_streaming(
+            args.corpus, args.index_dir, batch_docs=args.batch_docs,
+            store=args.store, radix_buckets=args.radix_buckets,
+            tokenize_procs=args.tokenize_procs, **kw)
+    else:
+        meta = build_index(args.corpus, args.index_dir, **kw)
+    out = dict(meta.__dict__)
+    if args.store:
+        from .index import docstore as ds
+
+        # the streaming build wrote the store from its pass-1 text spills;
+        # the one-shot build, or a store a crash left inconsistent, pays
+        # one corpus pass
+        out["docstore"] = (ds.stats(args.index_dir)
+                           if ds.consistent(args.index_dir)
+                           else ds.build_docstore(args.corpus,
+                                                  args.index_dir))
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    """One term's postings through the dictionary (the reference's
+    getValue seek); the input is analyzed like a query."""
+    from .index.dictionary import lookup_term
+
+    if args.term is None:
+        print("error: only `inspect --term` is ported (a later slice of "
+              "the port dumps records and artifacts)", file=sys.stderr)
+        return 2
+    hits = lookup_term(args.index_dir, args.term)
+    if not hits:
+        print(f"term {args.term!r} not in dictionary", file=sys.stderr)
+        return 1
+    for tp in hits:
+        posts = [tuple(p) for p in tp.postings[: args.postings].tolist()]
+        print(f"part-{tp.shard:05d}@{tp.offset}\t{tp.term}\tdf={tp.df}"
+              f"\t{posts}")
+    return 0
+
+
+def cmd_verify(args) -> int:
+    from .index.verify import verify_index
+
+    print(json.dumps(verify_index(args.index_dir)))
     return 0
 
 
@@ -146,10 +198,44 @@ def main(argv: list[str] | None = None) -> int:
                                       "TREC corpus")
     pi.add_argument("corpus", nargs="+", help="TREC files or directories")
     pi.add_argument("index_dir")
+    pi.add_argument("--k", type=int, default=1, help="term-k-gram size")
+    pi.add_argument("--chargram-k", type=int, nargs="*", default=[2, 3])
     pi.add_argument("--shards", type=int, default=10,
                     help="term shards (reference used 10 reducers)")
+    pi.add_argument("--overwrite", action="store_true")
+    pi.add_argument("--no-chargrams", action="store_true")
+    pi.add_argument("--streaming", action="store_true",
+                    help="out-of-core spill/merge build for corpora larger "
+                         "than memory")
+    pi.add_argument("--batch-docs", type=int, default=50000,
+                    help="streaming: documents per tokenize batch")
+    pi.add_argument("--radix-buckets", type=int, default=None, metavar="B",
+                    help="streaming: radix-partition pass-1 pair spills "
+                         "into B buckets so pass 2 runs as per-bucket "
+                         "local device reduces (default: "
+                         "$TPU_IR_RADIX_BUCKETS, 16; 0 = per-batch combine; "
+                         "artifacts are bit-identical either way)")
+    pi.add_argument("--tokenize-procs", type=int, default=None, metavar="N",
+                    help="worker processes for the pure-Python tokenizer "
+                         "path (default: $TPU_IR_TOKENIZE_PROCS; the "
+                         "native tokenizer is one C++ pass)")
+    pi.add_argument("--store", action="store_true",
+                    help="also build the compressed document-text store")
     pi.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pi.set_defaults(fn=cmd_index)
+
+    pn = sub.add_parser("inspect", help="print one term's postings via the "
+                                        "dictionary")
+    pn.add_argument("index_dir")
+    pn.add_argument("--postings", type=int, default=10,
+                    help="max postings per term")
+    pn.add_argument("--term", default=None,
+                    help="the term, analyzed like a query")
+    pn.set_defaults(fn=cmd_inspect)
+
+    pv = sub.add_parser("verify", help="validate index structural invariants")
+    pv.add_argument("index_dir")
+    pv.set_defaults(fn=cmd_verify)
 
     ps = sub.add_parser("search", help="query an index")
     ps.add_argument("index_dir")

@@ -33,6 +33,22 @@ a choice outside its set raises.
                              (default 8, at least 1)
     TPU_IR_CACHE_RESULTS     entries of the serving frontend's exact-hit
                              result cache (default 0: off)
+    TPU_IR_COMPRESS          0 | 1: 1 rewrites a finished build's parts as
+                             compressed (v3) arenas before the bounds and
+                             the checksums are recorded (default 0)
+    TPU_IR_RADIX_BUCKETS     radix buckets of the streaming build's pass-1
+                             pair spills (default 16; 0 is the per-batch
+                             pass-2 combine; the artifacts are the same
+                             bytes either way)
+    TPU_IR_TOKENIZE_PROCS    worker processes of the pure-Python tokenizer
+                             (default 1: in-process; its spills are the
+                             same bytes at any count)
+    TPU_IR_PIPE_DEPTH        items the host prepares ahead of the device in
+                             the streaming build (default 2; 1: lockstep)
+    TPU_IR_RADIX_PARTS       1 writes bucket-segmented parts straight from
+                             the pass-2 buckets (skips pass 3's sort; the
+                             parts' bytes differ from the canonical layout,
+                             every reader accepts both; default 0)
 """
 
 from __future__ import annotations
@@ -44,14 +60,18 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_BLOCKMAX_BLOCKS": (0, 0),
          "TPU_IR_QUARANTINE_KEEP": (8, 0),
          "TPU_IR_BATCH_WIDTH": (8, 1),
-         "TPU_IR_CACHE_RESULTS": (0, 0)}
+         "TPU_IR_CACHE_RESULTS": (0, 0),
+         "TPU_IR_RADIX_BUCKETS": (16, 0),
+         "TPU_IR_TOKENIZE_PROCS": (1, 1),
+         "TPU_IR_PIPE_DEPTH": (2, 1)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
          "TPU_IR_BATCH_LADDER": "1,4,16"}
-_BOOLS = {"TPU_IR_TRACE": True}
+_BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False}
 # name: (default, choices)
-_CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1"))}
+_CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
+            "TPU_IR_COMPRESS": ("0", ("0", "1"))}
 
 
 def _raw(name: str) -> str | None:

@@ -1,5 +1,6 @@
-"""The serving half of `tpu_ir/faults.py`: deterministic fault injection,
-the degraded-serving triggers and the per-batch deadline.
+"""The serving and build halves of `tpu_ir/faults.py`: deterministic fault
+injection, the degraded-serving triggers, the per-batch deadline, the
+build's integrity errors and injected crashes, and supervised retry.
 
 - **FaultPlan**: a process-wide, seeded, deterministic plan mapping named
   injection sites (the score dispatch's `score.hang` and
@@ -11,6 +12,11 @@ the degraded-serving triggers and the per-batch deadline.
   device (degrade) from a wrong program (raise).
 - **run_with_deadline**: runs a device dispatch on a thread and abandons
   it past its deadline, so the caller falls back instead of hanging.
+- **IntegrityError**, **InjectedCrash** and **maybe_crash**: a corrupt
+  artifact, and a simulated process death at the streaming build's
+  `crash.pass1/2/3` sites (what its resume is tested against).
+- **run_with_retry** with **SPILL_RETRY**: the build's atomic spill and
+  part writes retry an OSError a few times, then raise BuildError.
 
 Spec grammar (the JAX package's): comma-separated `site[@match]:rule`
 entries, plus an optional `seed=N`. Rules:
@@ -37,6 +43,38 @@ logger = logging.getLogger(__name__)
 
 class DeviceLoss(RuntimeError):
     """Simulated (or detected) loss of the scoring device mid-dispatch."""
+
+
+class IntegrityError(AssertionError):
+    """An artifact failed its integrity check (a checksum mismatch, a
+    truncated or unreadable file), naming the offending path. An
+    AssertionError, as in the JAX package: it is the byte-level sibling of
+    verify_index's structural asserts."""
+
+    def __init__(self, path: str, detail: str):
+        self.path = path
+        self.detail = detail
+        super().__init__(f"artifact integrity failure: {path}: {detail}")
+        from .utils.report import recovery_counters
+
+        recovery_counters().incr("integrity_failures")
+
+
+class BuildError(RuntimeError):
+    """A build stage failed for good after its supervised retries."""
+
+    def __init__(self, stage: str, attempts: int, cause: BaseException | str):
+        self.stage = stage
+        self.attempts = attempts
+        self.cause = cause
+        super().__init__(f"build stage {stage!r} failed after {attempts} "
+                         f"attempt(s): {cause}")
+
+
+class InjectedCrash(BaseException):
+    """A simulated process death in the middle of a pass. Not an
+    Exception, so no `except Exception` swallows it: resume is tested
+    against what a real SIGKILL leaves."""
 
 
 class ScoreDeadlineExceeded(RuntimeError):
@@ -221,12 +259,61 @@ def should_fire(site: str, key: str | None = None) -> FaultSpec | None:
     return plan.should_fire(site, key)
 
 
+def maybe_crash(site: str, key: str | None = None) -> None:
+    """Injection point for a simulated death in the middle of a pass."""
+    if should_fire(site, key) is not None:
+        raise InjectedCrash(f"injected crash at {site}")
+
+
 def maybe_hang(site: str, key: str | None = None) -> None:
     """Injection point for slow or hung dispatches: sleeps the spec's
     `sleep_s` (default 30 s, past any sane deadline)."""
     spec = should_fire(site, key)
     if spec is not None:
         time.sleep(spec.sleep_s or 30.0)
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Attempt-capped exponential backoff with seeded jitter."""
+
+    max_attempts: int = 4
+    base_delay_s: float = 0.05
+    multiplier: float = 2.0
+    jitter: float = 0.25      # +/- fraction of the delay
+    seed: int = 0
+
+    def delay_s(self, attempt: int, rng: random.Random) -> float:
+        d = self.base_delay_s * (self.multiplier ** (attempt - 1))
+        return max(0.0, d * (1.0 + self.jitter * (2 * rng.random() - 1)))
+
+
+# transient host-filesystem writes (spill and part files)
+SPILL_RETRY = RetryPolicy(max_attempts=4, base_delay_s=0.02)
+
+
+def run_with_retry(fn, *, stage: str, policy: RetryPolicy = SPILL_RETRY):
+    """Run `fn()` under the policy and return its value. Only an OSError
+    is retried (an InjectedCrash always propagates); each retry counts
+    `recovery.retries`, and exhaustion raises BuildError naming the stage
+    and the last cause."""
+    from .utils.report import recovery_counters
+
+    rng = random.Random(policy.seed)
+    last: BaseException | None = None
+    for attempt in range(1, policy.max_attempts + 1):
+        try:
+            return fn()
+        except OSError as e:
+            last = e
+            if attempt == policy.max_attempts:
+                break
+            recovery_counters().incr("retries")
+            logger.warning("stage %r attempt %d/%d failed (%s); retrying",
+                           stage, attempt, policy.max_attempts, e)
+            time.sleep(policy.delay_s(attempt, rng))
+    recovery_counters().incr("retry_exhausted")
+    raise BuildError(stage, policy.max_attempts, last) from last
 
 
 # abandoned dispatch threads still inside a slow or hung dispatch; capped

@@ -1,5 +1,7 @@
-"""Index build and on-disk format (format v2 raw arenas)."""
+"""Index build (one-shot and streaming) and on-disk format (format v2 raw
+and v3 compressed arenas)."""
 
 from .builder import build_index
+from .streaming import build_index_streaming
 
-__all__ = ["build_index"]
+__all__ = ["build_index", "build_index_streaming"]

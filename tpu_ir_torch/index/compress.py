@@ -28,9 +28,12 @@ decode shifts the 16 bits back up. The doc-range decode and the
 
 from __future__ import annotations
 
+import logging
 from typing import Mapping
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 CODEC_VERSION = 1
 
@@ -421,13 +424,14 @@ def resolve_tf_dtype(index_dir: str, meta, tf_dtype: str = "auto") -> str:
     return "int8"
 
 
-def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto") -> dict:
+def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto",
+                   verify: bool = True) -> dict:
     """Rewrite every raw part of the index as a v3 compressed arena
-    (verify-while-read from the raw copy, atomic write, raw twin
-    unlinked) and stamp meta.format_version / tf_dtype / tf_lossy in
-    memory; the caller records the checksums with one final metadata
-    write. Parts already compressed are skipped, so a half-done run
-    completes when run again. Positional indexes are not read by the
+    (verify-while-read from the raw copy unless `verify=False`, atomic
+    write, raw twin unlinked) and stamp meta.format_version / tf_dtype /
+    tf_lossy in memory; the caller records the checksums with one final
+    metadata write. Parts already compressed are skipped, so a half-done
+    run completes when run again. Positional indexes are not read by the
     port, so the JAX package's lossy-int8 positions probe has nothing to
     guard here."""
     from . import format as fmt
@@ -441,7 +445,8 @@ def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto") -> dict:
             lossy = lossy or shard_info(raw)["tf_lossy"]
             skipped += 1
             continue
-        raw = fmt.load_shard_verified(index_dir, s, meta)
+        if verify:
+            raw = fmt.load_shard_verified(index_dir, s, meta)
         fmt.save_shard(index_dir, s, term_ids=raw["term_ids"],
                        indptr=raw["indptr"], pair_doc=raw["pair_doc"],
                        pair_tf=raw["pair_tf"], df=raw["df"],
@@ -457,3 +462,22 @@ def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto") -> dict:
     meta.tf_lossy = bool(lossy)
     return {"migrated": migrated, "skipped": skipped, "tf_dtype": mode,
             "tf_lossy": bool(lossy)}
+
+
+def ensure_compressed(index_dir: str, meta) -> None:
+    """The save_with_checksums hook: with TPU_IR_COMPRESS=1, compress the
+    parts a build just wrote before the bounds and the checksums are
+    recorded. A failure degrades loudly (a warning) to a raw or mixed dir,
+    which every reader accepts, rather than failing a finished build;
+    `migrate-index --compress` completes it later."""
+    from .. import envvars
+
+    if envvars.get_choice("TPU_IR_COMPRESS") != "1":
+        return
+    try:
+        compress_index(index_dir, meta, verify=False)
+    except Exception as e:  # noqa: BLE001 — compression is optional
+        logger.warning(
+            "index compression incomplete for %s (%s); the dir stays "
+            "readable (mixed raw/compressed parts are accepted); finish "
+            "with `migrate-index --compress`", index_dir, e)

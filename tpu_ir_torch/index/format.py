@@ -11,7 +11,10 @@ compatible with it:
       part-00000.arena  per term-shard CSR postings (format v2 arenas), or
       part-00000.carena the same shard compressed (format v3, compress.py)
       dictionary.tsv    term -> (shard, offset) forward index
+      chargram-k<k>.npz char-k-gram -> sorted term-id lists
       blockmax.arena    per-(hot term, doc block) max tf (index/blockmax.py)
+      docstore.bin      the compressed document store (index/docstore.py)
+      jobs/*.json       job reports (phase timings and counters)
 
 Term shard assignment is term_id % num_shards. Formats v2 (raw
 page-aligned arenas) and v3 (compressed arenas, decoded on load) are read
@@ -24,12 +27,20 @@ from __future__ import annotations
 import json
 import os
 import struct
+import zipfile
 import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import faults
+from ..faults import IntegrityError
 from . import compress
+
+# what an unreadable or corrupt npz or arena artifact raises on a full
+# read (zip entry CRCs, arena section CRCs, IO)
+CORRUPT_NPZ = (OSError, ValueError, KeyError, zipfile.BadZipFile,
+               zlib.error)
 
 FORMAT_VERSION = 1
 ARENA_FORMAT_VERSION = 2
@@ -39,21 +50,13 @@ DOCNOS = "docnos.txt"
 VOCAB = "vocab.txt"
 DOCLEN = "doclen.npy"
 DICTIONARY = "dictionary.tsv"
+JOBS_DIR = "jobs"
 QUARANTINE_DIR = ".quarantine"
 ARENA_SUFFIX = ".arena"
 COMPRESSED_SUFFIX = ".carena"
 
 _LATER = ("is not supported by tpu_ir_torch yet (a later slice of the "
           "port); only format v2 raw and v3 compressed arenas are")
-
-
-class IntegrityError(RuntimeError):
-    """An index artifact failed its recorded checksum (or is missing)."""
-
-    def __init__(self, path: str, reason: str):
-        super().__init__(f"{path}: {reason}")
-        self.path = path
-        self.reason = reason
 
 
 def require_arena_format(format_version: int) -> None:
@@ -88,6 +91,14 @@ def part_path(index_dir: str, shard: int) -> str:
     return os.path.join(index_dir, part_name(shard))
 
 
+def chargram_name(k: int) -> str:
+    return f"chargram-k{k}.npz"
+
+
+def artifact_exists(index_dir: str, name: str) -> bool:
+    return os.path.exists(os.path.join(index_dir, name))
+
+
 @dataclass
 class IndexMetadata:
     num_docs: int
@@ -112,14 +123,21 @@ class IndexMetadata:
             json.dump(self.__dict__, f, indent=2, sort_keys=True)
 
     def save_with_checksums(self, index_dir: str,
-                            block_bounds: bool = True) -> None:
+                            block_bounds: bool = True,
+                            compress: bool = True) -> None:
         """Checksum every integrity-covered artifact on disk, record the
         digests, then save: metadata existence certifies the index and
         pins its bytes. Every build and migration ends here, so this is
-        also where the block-max bounds artifact (index/blockmax.py) is
-        written, before the checksum pass records it;
-        `block_bounds=False` skips that (migrate --add-bounds writes the
-        bounds itself first)."""
+        also where, with TPU_IR_COMPRESS=1, the parts just written become
+        compressed (v3) arenas (`compress=False` opts out: a migration
+        has converted already), and then where the block-max bounds
+        artifact (index/blockmax.py) is written, before the checksum
+        pass records it; `block_bounds=False` skips that (migrate
+        --add-bounds writes the bounds itself first)."""
+        if compress:
+            from .compress import ensure_compressed
+
+            ensure_compressed(index_dir, self)
         if block_bounds:
             from .blockmax import ensure_block_bounds
 
@@ -231,14 +249,51 @@ def write_arena(path: str, arrays: dict[str, np.ndarray]) -> None:
             pos += pad
 
 
+def _write_atomic(path: str, tmp_suffix: str, write_tmp) -> str:
+    """Temp file + rename under the spill retry policy, so a file's
+    existence implies it is complete (what the streaming build's resume
+    trusts), with the `spill_write` fault site (an OSError before the
+    write). Returns the CRC ('crc32:XXXXXXXX') of the temp file, taken
+    before the rename: corruption after the write never matches it."""
+    name = os.path.basename(path)
+    tmp = path + tmp_suffix
+
+    def write() -> str:
+        if faults.should_fire("spill_write", name) is not None:
+            raise OSError(f"injected spill write failure: {path}")
+        write_tmp(tmp)
+        crc = file_checksum(tmp)
+        os.replace(tmp, path)
+        return crc
+
+    return faults.run_with_retry(write, stage=f"write:{name}")
+
+
 def write_arena_atomic(path: str, **arrays) -> str:
-    """Temp file + rename, so a part's existence implies it is complete.
-    Returns the file's CRC ('crc32:XXXXXXXX')."""
-    tmp = path + ".tmp.arena"
-    write_arena(tmp, arrays)
-    crc = file_checksum(tmp)
-    os.replace(tmp, path)
-    return crc
+    """One arena, written atomically (_write_atomic); returns its CRC."""
+    return _write_atomic(path, ".tmp.arena",
+                         lambda tmp: write_arena(tmp, arrays))
+
+
+def savez_atomic(path: str, **arrays) -> str:
+    """np.savez, written atomically (_write_atomic); returns its CRC."""
+    return _write_atomic(path, ".tmp.npz",
+                         lambda tmp: np.savez(tmp, **arrays))
+
+
+def readable_npz(path: str) -> bool:
+    """Whether every array of an npz or arena artifact reads in full (the
+    zip entry CRCs or arena section CRCs are checked on a full read)."""
+    try:
+        if path.endswith((ARENA_SUFFIX, COMPRESSED_SUFFIX)):
+            load_arena(path)
+            return True
+        with np.load(path, allow_pickle=False) as z:
+            for name in z.files:
+                z[name]
+        return True
+    except CORRUPT_NPZ:
+        return False
 
 
 def read_arena_header(buf) -> tuple[dict, int]:
@@ -445,12 +500,30 @@ def load_shard_verified(index_dir: str, shard: int,
     return compress.decode_shard(z) if compress.is_compressed(z) else z
 
 
+def save_chargram(index_dir: str, k: int, *, gram_codes: np.ndarray,
+                  indptr: np.ndarray, term_ids: np.ndarray) -> None:
+    savez_atomic(os.path.join(index_dir, chargram_name(k)),
+                 gram_codes=gram_codes.astype(np.int64),
+                 indptr=indptr.astype(np.int64),
+                 term_ids=term_ids.astype(np.int32))
+
+
+def load_chargram(index_dir: str, k: int) -> dict[str, np.ndarray]:
+    with np.load(os.path.join(index_dir, chargram_name(k))) as z:
+        return {name: z[name] for name in z.files}
+
+
+def shard_assignment(vocab_size: int, num_shards: int) -> np.ndarray:
+    """shard_of [V] = term_id % num_shards: the term-routing rule."""
+    return np.arange(vocab_size, dtype=np.int32) % num_shards
+
+
 def shard_local_offsets(df: np.ndarray, num_shards: int
                         ) -> tuple[np.ndarray, np.ndarray]:
     """(shard_of [V], offset_of [V]): each term's shard (term_id % shards)
     and its postings start within that shard's pair columns."""
     v = len(df)
-    shard_of = np.arange(v, dtype=np.int32) % num_shards
+    shard_of = shard_assignment(v, num_shards)
     offset_of = np.zeros(v, np.int64)
     for s in range(num_shards):
         tids = np.nonzero(shard_of == s)[0]

@@ -47,7 +47,7 @@ def migrate_index(index_dir: str,
                 "checksums_recorded": len(meta.checksums), "ok": True}
     if to_version == fmt.COMPRESSED_FORMAT_VERSION:
         info = compress.compress_index(index_dir, meta, tf_dtype=tf_dtype)
-        meta.save_with_checksums(index_dir)
+        meta.save_with_checksums(index_dir, compress=False)
         return {"index_dir": index_dir, "format_version": to_version,
                 "num_shards": meta.num_shards, **info,
                 "checksums_recorded": len(meta.checksums), "ok": True}
@@ -69,7 +69,8 @@ def migrate_index(index_dir: str,
     # raw parts hold exact int32 tfs again, but tf_lossy stays: a lossy
     # index decompresses to its floor-quantized values
     meta.tf_dtype = "int32"
-    meta.save_with_checksums(index_dir)
+    # a TPU_IR_COMPRESS=1 left in the environment must not undo this walk
+    meta.save_with_checksums(index_dir, compress=False)
     return {"index_dir": index_dir, "format_version": to_version,
             "num_shards": meta.num_shards, "migrated": migrated,
             "skipped": skipped, "checksums_recorded": len(meta.checksums),

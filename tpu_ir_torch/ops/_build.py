@@ -1,12 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native libraries: its hand-written CUDA
+kernels, and the host-side C++ analyzer.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled on first use
 by `nvcc` into its own shared library, which `ctypes` loads; `csrc/*.cuh`
-holds code that several of them include. The libraries
-go into `build/tpu_ir_torch/` beside the package (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import: the
-CPU test suite imports every module on a machine without `nvcc`.
+holds code that several of them include. A host C++ source (the native
+analyzer, `native/analyzer.cpp`) is compiled by `g++` the same way
+(`load_host`). The libraries go into `build/tpu_ir_torch/` beside the
+package (listed in .gitignore), named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused. Each
+is compiled into a per-process temporary file and renamed into place, so
+processes that build at once never load a half-written library. Nothing
+here runs at import: the CPU test suite imports every module on a machine
+without `nvcc`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ BUILD_DIR = _PKG.parent / "build" / "tpu_ir_torch"
 # -Xptxas -v only reports each kernel's registers, spills and shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's flags for the same analyzer source
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -117,6 +124,63 @@ def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return fn
+
+
+def host_lib_path(src: Path) -> Path:
+    """Where the g++ library of the C++ source `src` goes, named by a
+    hash of the source and the flags."""
+    digest = hashlib.sha256(Path(src).read_bytes()
+                            + " ".join(GXX_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{Path(src).stem}-{digest[:16]}.so"
+
+
+def _compile_host(src: Path, out: Path) -> None:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: it is needed to build "
+                           f"{src}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {src} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """The loaded g++ library of the C++ source `src`, built on first use
+    under the load lock (a cached library another host's toolchain built,
+    which does not load here, is built again). A missing compiler, a
+    failed compile or a failed dlopen raises RuntimeError with the
+    compiler's output: there is no fallback."""
+    key = str(src)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        out = host_lib_path(src)
+        if out.exists():
+            try:
+                lib = ctypes.CDLL(str(out))
+            except OSError:
+                out.unlink(missing_ok=True)
+        if lib is None:
+            _compile_host(src, out)
+            try:
+                lib = ctypes.CDLL(str(out))
+            except OSError as e:
+                raise RuntimeError(f"cannot load {out} (built from {src}): "
+                                   f"{e}") from e
+        _libs[key] = lib
+        return lib
 
 
 class LaunchCounter:
