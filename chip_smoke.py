@@ -21,10 +21,12 @@ code:
               of its bytes bound that reaches, the twin's time and one
               library call's time (CUDA events, median of 20 runs after
               warm-up); then bitwise against the twin at edge shapes (odd
-              and tiny widths, B = 1, L = 1 to 9, ids V-1, int64 ids);
+              and tiny widths, B = 1, L = 1 to 9 and 33, 64, 128, ids V-1,
+              int64 ids);
 3. kernels    dequant_score likewise, on a bf16 raw-tf matrix of the same
               synthetic tfs, and bitwise against dense_score over their
-              float32 (1 + ln tf) matrix, there and at the edge shapes;
+              float32 (1 + ln tf) matrix, there and at the edge shapes
+              (both kernels' edge shapes include L = 33, 64 and 128);
 4. build      the `ref` corpus (8,761 TREC docs, 23.95 MB; bench.py's
               make_corpus, copied into the port) indexed one-shot into 10
               shards on the card with build_index's defaults (the native
@@ -70,30 +72,51 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. kernels   hot_stage against its plain twin over one 2,499-query block
+14. wildcard  three mixes of 2,000 texts on wiki100k (a literal term and
+              a prefix glob; a literal term and a fuzzy token; the three
+              questions that once raised, then two-token texts ending in
+              '?'): 200 patterns of each held against a glob and a
+              Levenshtein oracle over the vocabulary; the expansion's host
+              seconds (first call and warm), the rows' widths; the rows
+              through phase 12's checks (prune on == off bitwise, recall@10
+              = 1.0, q/s, launches, block-max, the hot-free share, device
+              time) and search_batch end to end (q/s, device time and idle
+              share); cold_tier and hot_stage must launch in this phase;
+15. kernels   hot_stage against its plain twin over one 2,499-query block
               of hot-term traffic, on the whole (1 + ln tf) strip and on
               a block-max column set (which must give the whole strip's
               bits), with the same timings (the kernel alone in a child
               process) beside torch.matmul(w_hot, strip); then bitwise at
               edge cases (B = 1, 2,499 and 70,000 by L = 1, 2, 3, 9 and
-              40; N = 1, 4,097 and 100,001; repeated terms, slots outside
-              the strip, a query with no hot slot);
-15. kernels   cold_tier against its plain twin over the whole cold stage
+              40, and the wide L = 33, 64 and 128 of wildcard traffic;
+              N = 1, 4,097 and 100,001; repeated terms, slots outside the
+              strip, a query with no hot slot);
+16. kernels   cold_tier against its plain twin over the whole cold stage
               of one 2,499-query block of the wiki100k traffic (one
               launch for every tier), TF-IDF and BM25, with the same
               timings (the kernel alone in a child process, each launch
               on a freshly zeroed accumulator as in serving) and the
-              score cells' 32-byte sectors beside the bound; then bitwise against the twin at edge cases (B = 1,
-              2,499 and 70,000 by L = 1, 2, 3 and 9; caps 1 to 4,096, empty
-              tiers, wide tiers before narrow ones, zero and 16 tiers);
-16. compress  and serve `wiki100k-v3` as 8 and 9: a bf16 hot strip, top-10
-              bitwise equal to the raw wiki100k index's.
+              score cells' 32-byte sectors beside the bound; then bitwise
+              against the twin at edge cases (B = 1, 2,499 and 70,000 by
+              L = 1, 2, 3 and 9, and 33, 64 and 128, where the term loop
+              turns more than once; caps 1 to 4,096, empty tiers, wide
+              tiers before narrow ones, zero and 16 tiers);
+17. compress  and serve `wiki100k-v3` as 8 and 9: a bf16 hot strip, top-10
+              bitwise equal to the raw wiki100k index's;
+18. kgram     the ref corpus as a k = 2 term-k-gram index, one-shot (with
+              char-grams over tokens.txt) and streaming (the Python
+              tokenizer in 4 processes): every artifact both write has
+              one sha256, verify passes; the one-shot index served with
+              layout "auto" (2,000 two- and three-token texts, recall@10
+              = 1.0 against the oracle; 200 globs composed over
+              tokens.txt): build wall s and docs/s, V, the layout, q/s,
+              device time and launches.
 
 Then the serving tier (tpu_ir_torch.serving) over `ref` and `wiki100k`,
-loaded again, with the kernels' launches counted from phase 17 to the end
-of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
+loaded again, with the kernels' launches counted from phase 19 to the end
+of phase 21 (each of dense_score, cold_tier and hot_stage must launch):
 
-17. frontend  on each: a ServingFrontend search at level full bitwise
+19. frontend  on each: a ServingFrontend search at level full bitwise
               search_batch's; 16 texts of 1 to 8 terms in rung-padded
               batches (1, 3 and 16 texts at width floor 8, the
               coalescer's dispatch, and the 16 once more with every
@@ -103,13 +126,13 @@ of phase 19 (each of dense_score, cold_tier and hot_stage must launch):
               (its ladder stepped down), which launches hot_stage and
               never cold_tier and gives the bits of hot_stage's plain
               twin on the same path;
-18. soak      wiki100k, 8 threads x 480 requests of make_queries through a
+20. soak      wiki100k, 8 threads x 480 requests of make_queries through a
               coalescing frontend: a clean run (served + shed ==
               submitted, no error, deadlock, untagged mismatch or
               degraded response, no forced host batch, kernels launched),
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
-19. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
+21. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
               2,000 requests a level, BM25 and TF-IDF, three times each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
@@ -158,6 +181,9 @@ HOT_SMALL_BATCH = 64
 TIMED_RUNS = 20
 PROFILER_SETTLE_S = 0.05       # idle time at each end of a profiler session
 MIN_TRACED = 0.9               # least share of the launches a trace must hold
+# query widths of wildcard and fuzzy traffic: one term past a warp, and
+# the power-of-two buckets of rows an expansion of up to 64 terms gives
+WIDE_TERMS = (33, 64, 128)
 
 
 def emit(obj: dict) -> None:
@@ -233,9 +259,10 @@ def bandwidth(bound: dict, alone: dict) -> dict:
 def edge_checks(name: str) -> dict:
     """The dense kernel `name` (dense_score or dequant_score) bitwise
     against its plain twin at edge shapes on the card: odd and tiny widths,
-    B = 1, L = 1, 3 and 9, ids V-1 (the allocation's last row), -1 and past
-    V, an int64 batch; dequant_score also against dense_score on the same
-    tfs. Its launches here are comparisons, not the main path's."""
+    B = 1, L = 1, 3 and 9 and the wide queries of WIDE_TERMS, ids V-1 (the
+    allocation's last row), -1 and past V, an int64 batch; dequant_score
+    also against dense_score on the same tfs. Its launches here are
+    comparisons, not the main path's."""
     import torch
 
     from tpu_ir_torch.ops import fused_scoring
@@ -244,7 +271,8 @@ def edge_checks(name: str) -> dict:
     dev = torch.device("cuda")
     cases = 0
     for width in (1, 7, 8_761, 8_763, 8_769):
-        for batch, terms in ((1, 2), (257, 1), (257, 3), (64, 9)):
+        for batch, terms in ((1, 2), (257, 1), (257, 3), (64, 9)) + tuple(
+                (64 if terms % 2 else 257, terms) for terms in WIDE_TERMS):
             rng = np.random.default_rng(width * 100 + terms)
             vocab = 40
             q = rng.integers(-1, vocab + 2, (batch, terms))
@@ -1223,10 +1251,11 @@ def cold_edge_case(seed: int, batch: int, terms: int, device, *,
 def cold_edge_checks() -> dict:
     """The cold-tier kernel bitwise against its whole-stage plain twin on
     the card from random starting scores, TF-IDF and BM25: B = 1, 2,499
-    and 70,000 by L = 1, 2, 3 and 9 over COLD_EDGE_CAPS, the
-    COLD_EDGE_ORDERS, a layout of zero tiers and one of MAX_TIERS tiers;
-    one tier more must raise. Its launches here are comparisons, not the
-    main path's."""
+    and 70,000 by L = 1, 2, 3 and 9 over COLD_EDGE_CAPS, B = 1 and 2,499
+    by the wide L of WIDE_TERMS (its term loop turns more than once) and
+    B = 70,000 by the widest, the COLD_EDGE_ORDERS, a layout of zero tiers
+    and one of MAX_TIERS tiers; one tier more must raise. Its launches
+    here are comparisons, not the main path's."""
     import torch
 
     from tpu_ir_torch.ops import cold_tier
@@ -1234,6 +1263,8 @@ def cold_edge_checks() -> dict:
     dev = torch.device("cuda")
     cases = [dict(batch=b, terms=l) for b in (1, 2_499, 70_000)
              for l in (1, 2, 3, 9)]
+    cases += [dict(batch=b, terms=l) for b in (1, 2_499) for l in WIDE_TERMS]
+    cases += [dict(batch=70_000, terms=WIDE_TERMS[-1])]
     cases += [dict(batch=2_499, terms=3, caps=c) for c in COLD_EDGE_ORDERS]
     cases += [dict(batch=2_499, terms=3, caps=()),
               dict(batch=2_499, terms=9,
@@ -1649,8 +1680,10 @@ def hot_edge_checks() -> dict:
     """The hot-stage kernel bitwise against its twin on the card at the
     edge cases (hot_edge_case): B = 1, 2,499 and 70,000 by L = 1, 2, 3, 9
     and 40 at N = 1 and 4,097, and B = 1 and 2,499 at the wiki100k width
-    N = 100,001. Its launches here are comparisons, not the main
-    path's."""
+    N = 100,001; then the wide L of WIDE_TERMS (repeated hot terms folded
+    into their first slot) at B = 1 and 2,499 by N = 4,097 and 100,001,
+    and B = 70,000 by the widest at N = 4,097. Its launches here are
+    comparisons, not the main path's."""
     import torch
 
     from tpu_ir_torch.ops import hot_stage
@@ -1659,6 +1692,9 @@ def hot_edge_checks() -> dict:
     cases = [(b, l, n) for b in (1, 2_499, 70_000) for l in (1, 2, 3, 9, 40)
              for n in (1, 4_097)]
     cases += [(b, l, 100_001) for b in (1, 2_499) for l in (1, 2, 3, 9, 40)]
+    cases += [(b, l, n) for b in (1, 2_499) for l in WIDE_TERMS
+              for n in (4_097, 100_001)]
+    cases += [(70_000, WIDE_TERMS[-1], 4_097)]
     for i, (b, l, n) in enumerate(cases):
         start, rows, w, strip = hot_edge_case(i, b, l, n, dev)
         got, want = start.clone(), start.clone()
@@ -1798,6 +1834,409 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     out["edge_checks"] = hot_edge_checks()
     out["launches_while_comparing"] = (hot_stage.hot_stage_launches()
                                        - launches_before)
+    return out
+
+
+WILDCARD_QUERIES = 2_000        # query texts of each wildcard mix
+EXPANSION_SAMPLE = 200         # patterns of a mix held against the oracles
+# the questions that raised on a char-gram index before wildcard search
+QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
+KGRAM_QUERIES = 2_000          # two- and three-token texts on the k = 2 index
+KGRAM_GLOBS = 200              # glob texts composed over its tokens.txt
+KGRAM_PROCS = 4                # tokenizer processes, streaming k = 2 build
+
+
+def one_edit(rng, word: str) -> str:
+    """`word` with one random substitution, insertion or deletion."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    i = int(rng.integers(0, len(word)))
+    c = letters[int(rng.integers(0, 26))]
+    op = int(rng.integers(0, 3))
+    if op == 0:
+        return word[:i] + c + word[i + 1:]
+    if op == 1:
+        return word[:i] + c + word[i:]
+    return word[:i] + word[i + 1:]
+
+
+def wildcard_mixes(terms: list[str], n: int, seed: int = 11) -> dict:
+    """The wildcard phase's three traffic mixes over a vocabulary, each
+    {"texts": [n texts], "patterns": [(kind, pattern) of each text's
+    glob or fuzzy token]}:
+    glob: a literal term and a prefix glob (the first 3-5 characters of a
+        term, then '*');
+    fuzzy: a literal term and a fuzzy token (a term of 4 or more
+        characters with one random edit, then '~');
+    question: the QUEUE3_QUESTIONS, then two-token texts ending in '?'
+        (a question mark, not a glob) whose first token is a literal
+        term, a prefix glob or a fuzzy token."""
+    rng = np.random.default_rng(seed)
+    vocab = np.asarray(terms, dtype=object)
+    long_terms = vocab[np.fromiter((len(t) >= 4 for t in terms), bool,
+                                   len(terms))]
+
+    def glob():
+        t = str(rng.choice(vocab))
+        return "glob", t[: int(rng.integers(3, 6))] + "*"
+
+    def fuzzy():
+        return "fuzzy", one_edit(rng, str(rng.choice(long_terms)))
+
+    def token(kind_pat):
+        kind, pat = kind_pat
+        return pat + "~" if kind == "fuzzy" else pat
+
+    out = {}
+    for mix, make in (("glob", glob), ("fuzzy", fuzzy)):
+        pats = [make() for _ in range(n)]
+        out[mix] = {"texts": [f"{rng.choice(vocab)} {token(p)}"
+                              for p in pats], "patterns": pats}
+    texts, pats = list(QUEUE3_QUESTIONS), []
+    for _ in range(n - len(texts)):
+        pick = int(rng.integers(0, 3))
+        first = (glob() if pick == 0 else fuzzy() if pick == 1 else None)
+        if first is not None:
+            pats.append(first)
+        texts.append(f"{token(first) if first else rng.choice(vocab)} "
+                     f"{rng.choice(vocab)}?")
+    out["question"] = {"texts": texts, "patterns": pats}
+    return out
+
+
+def glob_oracle(joined: str, pattern: str) -> list[str]:
+    """The vocabulary terms (one a line of `joined`, in term order) that
+    the glob `pattern` matches as a whole: '*' any run of characters, '?'
+    one character, anything else itself."""
+    import fnmatch
+    import re
+
+    body = "".join("[^\n]*" if c == "*" else "[^\n]" if c == "?"
+                   else re.escape(c) for c in pattern)
+    got = re.findall(f"(?m)^{body}$", joined)
+    if not all(fnmatch.fnmatchcase(t, pattern) for t in got):
+        raise AssertionError(f"the glob oracle disagrees with fnmatch on "
+                             f"{pattern!r}")
+    return got
+
+
+def terms_by_length(terms: list[str]) -> dict:
+    """{length: (terms array, int32 [N, length] code points)}."""
+    groups: dict = {}
+    for t in terms:
+        groups.setdefault(len(t), []).append(t)
+    return {n: (np.array(g, dtype=object),
+                np.array([[ord(c) for c in t] for t in g],
+                         np.int32).reshape(len(g), n))
+            for n, g in groups.items()}
+
+
+def fuzzy_oracle(by_len: dict, word: str, max_edits: int
+                 ) -> list[tuple[str, int]]:
+    """Every vocabulary term within `max_edits` Levenshtein edits of
+    `word`, as (term, distance) in (distance, term) order: the full
+    dynamic program against every term whose length is within
+    `max_edits` of the word's (any other is farther), vectorized over
+    the terms of one length."""
+    w = np.array([ord(c) for c in word], np.int32)
+    out = []
+    for m in range(max(len(word) - max_edits, 0), len(word) + max_edits + 1):
+        if m not in by_len:
+            continue
+        group, codes = by_len[m]
+        prev = np.tile(np.arange(m + 1, dtype=np.int32), (len(group), 1))
+        for i in range(1, len(w) + 1):
+            cur = np.empty_like(prev)
+            cur[:, 0] = i
+            sub = prev[:, :-1] + (codes != w[i - 1])
+            for j in range(1, m + 1):
+                cur[:, j] = np.minimum(np.minimum(prev[:, j] + 1,
+                                                  cur[:, j - 1] + 1),
+                                       sub[:, j - 1])
+            prev = cur
+        dist = prev[:, m]
+        out += [(str(t), int(d)) for t, d in zip(group, dist)
+                if d <= max_edits]
+    return sorted(out, key=lambda td: (td[1], td[0]))
+
+
+def expansion_check(scorer, patterns: list, sample: int, seed: int) -> dict:
+    """`sample` of the patterns held against the oracles over the token
+    vocabulary: a glob's whole expansion through the char-gram k the
+    Scorer picks for it, in term order; a fuzzy token's (one edit),
+    through the k the Scorer picks, in (distance, term) order. Returns
+    the counts and the expansions' sizes."""
+    lookups = scorer._wildcard_lookups()
+    terms = lookups[0].vocab.terms
+    joined = "\n".join(terms)
+    by_len = None
+    rng = np.random.default_rng(seed)
+    picked = [patterns[i] for i in rng.choice(
+        len(patterns), min(sample, len(patterns)), replace=False)]
+    sizes = {"glob": [], "fuzzy": []}
+    for kind, pat in picked:
+        if kind == "glob":
+            lookup = next(lk for lk in lookups if lk.pattern_grams(pat))
+            got, want = lookup.expand(pat), glob_oracle(joined, pat)
+        else:
+            if by_len is None:
+                by_len = terms_by_length(terms)
+            got = scorer._fuzzy_lookup_for(pat, 1).fuzzy(pat, max_edits=1)
+            want = fuzzy_oracle(by_len, pat, 1)
+        if got != want:
+            raise AssertionError(f"{kind} {pat!r}: expansion {got[:8]} "
+                                 f"({len(got)}) != oracle {want[:8]} "
+                                 f"({len(want)})")
+        sizes[kind].append(len(got))
+    return {"checked": len(picked),
+            **{f"{k}_checked": len(v) for k, v in sizes.items()},
+            **{f"{k}_mean_matches": (float(np.mean(v)) if v else None)
+               for k, v in sizes.items()}}
+
+
+def row_widths(q: np.ndarray) -> dict:
+    """Ids a row (mean, max) and the histogram of rows by the power-of-two
+    bucket of their id count, beside the batch's padded width L."""
+    n = (q >= 0).sum(axis=1)
+    buckets = np.where(n > 0, 1 << np.ceil(np.log2(np.maximum(n, 1))
+                                           ).astype(np.int64), 0)
+    vals, counts = np.unique(buckets, return_counts=True)
+    return {"width": int(q.shape[1]), "mean_ids": float(n.mean()),
+            "max_ids": int(n.max(initial=0)),
+            "empty_rows": int((n == 0).sum()),
+            "hist": {str(int(v)): int(c) for v, c in zip(vals, counts)}}
+
+
+def phase_wildcard(card: str, scorer, idx: str, *, device: str,
+                   k: int = 10):
+    """Wildcard and fuzzy traffic on the wiki100k index (tiered, char-grams
+    2 and 3): the three mixes of wildcard_mixes, WILDCARD_QUERIES texts
+    each. For each: EXPANSION_SAMPLE patterns held against the glob and
+    Levenshtein oracles; the expansion's host seconds (analyze_queries,
+    the first call loading the char-gram artifacts, then again warm);
+    the rows' widths; then the expanded rows through phase_prune (topk
+    q/s, launches, block-max, the MaxScore hot-free share, device time
+    and idle share, prune on == off bitwise, recall@10 = 1.0 against the
+    float64 oracle), search_batch end to end over the texts (q/s, and on
+    the card its device time and idle share under the profiler), and the
+    expansion's share of one pass of analyze_queries then topk. Yields
+    one report a mix."""
+    mixes = wildcard_mixes(scorer.vocab.terms, WILDCARD_QUERIES)
+    on_cuda = device == "cuda"
+    for i, (mix, traffic) in enumerate(mixes.items()):
+        texts = traffic["texts"]
+        row = {"phase": "wildcard", "card": card, "config": "wiki100k",
+               "mix": mix, "queries": len(texts), "k": k,
+               "examples": texts[:4]}
+        with counted_truncations() as truncated:
+            t0 = time.perf_counter()
+            q = scorer.analyze_queries(texts)
+            row["expand_s" if i else "expand_first_s"] = \
+                time.perf_counter() - t0
+        row["truncated_expansions"] = truncated[0]
+        if i == 0:
+            t0 = time.perf_counter()
+            with counted_truncations():
+                q2 = scorer.analyze_queries(texts)
+            row["expand_s"] = time.perf_counter() - t0
+            if not np.array_equal(q, q2):
+                raise AssertionError("a second expansion gave other rows")
+        row["rows"] = row_widths(q)
+        row["oracle_expansions"] = expansion_check(
+            scorer, traffic["patterns"], EXPANSION_SAMPLE, seed=i)
+        row["topk"] = phase_prune(card, scorer, idx, q, traffic=mix,
+                                  device=device, k=k)
+        e2e = {}
+        with counted_truncations():
+            for scoring in ("tfidf", "bm25"):
+                scorer.search_batch(texts[:64], k=k, scoring=scoring)
+                t0 = time.perf_counter()
+                res = scorer.search_batch(texts, k=k, scoring=scoring)
+                wall = time.perf_counter() - t0
+                for r in res:
+                    s = [x[1] for x in r]
+                    if not all(np.isfinite(s)) or \
+                            s != sorted(s, reverse=True):
+                        raise AssertionError(f"{mix} {scoring}: {r!r}")
+                e2e[scoring] = {"s": wall, "qps": len(texts) / wall,
+                                "answered": sum(1 for r in res if r)}
+                if on_cuda:
+                    e2e[scoring]["profile"] = profile_call(
+                        lambda: scorer.search_batch(texts, k=k,
+                                                    scoring=scoring))
+            # the host share within one pass: the expansion, then the
+            # dispatch of its rows
+            t0 = time.perf_counter()
+            q = scorer.analyze_queries(texts)
+            t1 = time.perf_counter()
+            scorer.topk(q, k=k)
+            t2 = time.perf_counter()
+        e2e["split"] = {"expand_s": t1 - t0, "topk_s": t2 - t1,
+                        "expand_share": (t1 - t0) / (t2 - t0)}
+        row["search_batch"] = e2e
+        yield row
+
+
+@contextlib.contextmanager
+def counted_truncations():
+    """Count, and keep off the log, the Scorer's warnings that an
+    expansion was cut to WILDCARD_LIMIT terms (thousands a wildcard mix);
+    yields a one-element list holding the count."""
+    import logging
+
+    count = [0]
+
+    def drop(record):
+        if "truncated" in record.getMessage():
+            count[0] += 1
+            return False
+        return True
+
+    log = logging.getLogger("tpu_ir_torch.search.scorer")
+    log.addFilter(drop)
+    try:
+        yield count
+    finally:
+        log.removeFilter(drop)
+
+
+def phase_kgram(card: str, work: str, *, device: str, k: int = 10) -> dict:
+    """The ref corpus (seed 0) as a k = 2 term-k-gram index, built one-shot
+    (char-grams 2, 3 over the token vocabulary, tokens.txt) and streaming
+    (the Python tokenizer in KGRAM_PROCS processes; no char-grams, as in
+    the JAX package): every artifact both write has one sha256 and the
+    metadata differs only in the char-grams; verify_index passes. Then the
+    one-shot index served with layout "auto": KGRAM_QUERIES two- and
+    three-token texts through topk (q/s, launches, device time), recall@10
+    = 1.0 against the float64 oracle, and KGRAM_GLOBS glob texts composed
+    over tokens.txt through search_batch."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch.corpus import make_corpus
+    from tpu_ir_torch.index import build_index, build_index_streaming
+    from tpu_ir_torch.index.verify import verify_index
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search.scorer import _assemble_csr
+
+    on_cuda = device == "cuda"
+    corpus = os.path.join(work, "ref-k2.trec")
+    make_corpus(corpus, seed=0, **REF_CORPUS)
+    out = {"phase": "kgram", "card": card, "config": "ref", "k": 2,
+           "builds": {}}
+    builds = {
+        "oneshot": lambda d: build_index(corpus, d, k=2, num_shards=10,
+                                         device=device),
+        "streaming": lambda d: build_index_streaming(
+            corpus, d, k=2, num_shards=10, tokenize_procs=KGRAM_PROCS,
+            device=device)}
+    dirs, digests = {}, {}
+    for name, build in builds.items():
+        d = dirs[name] = os.path.join(work, f"ref-k2-{name}")
+        t0 = time.perf_counter()
+        meta = build(d)
+        if on_cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["builds"][name] = {"wall_s": wall,
+                               "docs_per_s": meta.num_docs / wall,
+                               "vocab_size": meta.vocab_size,
+                               "num_pairs": meta.num_pairs,
+                               "chargram_ks": meta.chargram_ks,
+                               "timings_s": job_timings(d)}
+        digests[name] = artifact_digests(d)
+    os.unlink(corpus)
+    only_oneshot = sorted(set(digests["oneshot"]) - set(digests["streaming"]))
+    if only_oneshot != ["chargram-k2.npz", "chargram-k3.npz", "tokens.txt"] \
+            or set(digests["streaming"]) - set(digests["oneshot"]):
+        raise AssertionError(f"the k = 2 builds' artifact sets differ: "
+                             f"{ {n: sorted(v) for n, v in digests.items()} }")
+    shared = sorted(set(digests["streaming"]) - {"metadata.json"})
+    differ = [n for n in shared
+              if digests["oneshot"][n] != digests["streaming"][n]]
+    metas = []
+    for name in ("oneshot", "streaming"):
+        with open(os.path.join(dirs[name], "metadata.json")) as f:
+            m = json.load(f)
+        m.pop("chargram_ks")
+        m["checksums"] = {n: c for n, c in m["checksums"].items()
+                          if n not in only_oneshot}
+        metas.append(m)
+    if differ or metas[0] != metas[1]:
+        raise AssertionError(f"one-shot and streaming k = 2 artifacts "
+                             f"differ in {differ or 'metadata.json'}")
+    out["identical_artifacts"] = len(shared) + 1
+    report = verify_index(dirs["oneshot"])
+    if not report["ok"]:
+        raise AssertionError(f"verify_index on the k = 2 index: {report}")
+    out["verify_ok"] = True
+    shutil.rmtree(dirs["streaming"])
+
+    idx = dirs["oneshot"]
+    tpu_ir_torch.reset_kernel_launches()
+    t0 = time.perf_counter()
+    scorer = Scorer.load(idx, device=device)
+    out["load_s"] = time.perf_counter() - t0
+    out["layout"] = scorer.layout
+    out["vocab_size"] = scorer.meta.vocab_size
+    out["dense_cells"] = scorer.meta.vocab_size * (scorer.meta.num_docs + 1)
+    rng = np.random.default_rng(7)
+    terms = scorer.vocab.terms
+    pick = lambda: terms[int(rng.integers(0, len(terms)))]  # noqa: E731
+    texts = [pick() if i % 2 else f"{pick()} {pick().split()[0]}"
+             for i in range(KGRAM_QUERIES)]
+    q = scorer.analyze_queries(texts)
+    out["rows"] = row_widths(q)
+    results, serve = {}, {}
+    for scoring in ("tfidf", "bm25"):
+        scorer.topk(q, k=k, scoring=scoring)
+        before = tpu_ir_torch.kernel_launches()
+        t0 = time.perf_counter()
+        results[scoring] = scorer.topk(q, k=k, scoring=scoring)
+        wall = time.perf_counter() - t0
+        after = tpu_ir_torch.kernel_launches()
+        serve[scoring] = {"s": wall, "qps": len(q) / wall,
+                          "launches": {n: after[n] - before[n]
+                                       for n in after}}
+        if on_cuda:
+            serve[scoring]["profile"] = profile_topk(scorer, q, k, scoring)
+    postings = _assemble_csr(idx, scorer.meta)
+    oracle = {s: oracle_check(scorer, postings, q, *results[s], scoring=s,
+                              k=k) for s in ("tfidf", "bm25")}
+    out["serve"] = serve
+    out["recall_at_10"] = min(o["recall_at_10"] for o in oracle.values())
+    out["oracle"] = oracle
+
+    # globs composed over the token vocabulary: a bigram's first token
+    # and its second token's first three characters, then '*'
+    pairs = [t.split() for t in terms if len(t.split()[1]) >= 3]
+    globs = [f"{a} {b[:3]}*" for a, b in (
+        pairs[int(i)] for i in rng.integers(0, len(pairs), KGRAM_GLOBS))]
+    with counted_truncations() as truncated:
+        t0 = time.perf_counter()
+        qg = scorer.analyze_queries(globs)
+        out["glob_expand_s"] = time.perf_counter() - t0
+    out["glob_truncated_expansions"] = truncated[0]
+    out["glob_rows"] = row_widths(qg)
+    with counted_truncations():
+        t0 = time.perf_counter()
+        res = scorer.search_batch(globs, k=k, scoring="bm25")
+        out["glob_search_s"] = time.perf_counter() - t0
+    out["glob_answered"] = sum(1 for r in res if r)
+    if out["glob_answered"] < len(globs) // 2:
+        raise AssertionError(f"only {out['glob_answered']} of {len(globs)} "
+                             "composed globs matched")
+    gs, gd = scorer.topk(qg, k=k, scoring="bm25")
+    out["glob_oracle"] = oracle_check(scorer, postings, qg, gs, gd,
+                                      scoring="bm25", k=k)
+    del postings
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    kernels = (("cold_tier",) if scorer.layout == "sparse"
+               else ("dense_score",))
+    for kernel in kernels:
+        if on_cuda and out["launches"][kernel] == 0:
+            raise AssertionError(f"the kgram phase never launched {kernel}")
+    del scorer
+    shutil.rmtree(idx)
     return out
 
 
@@ -2209,10 +2648,14 @@ def build_kernels(card: str) -> dict:
 
 
 def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
+               wildcard_launches: int, kgram_launches: int,
                **fields) -> dict:
     """One kernel's entry of the summary line: `launches` in its serve
-    window, `serving_launches` in the serving tier's phases (17-19)."""
+    window, then in the wildcard phase, the kgram phase and the serving
+    tier's phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
+            "wildcard_launches": wildcard_launches,
+            "kgram_launches": kgram_launches,
             "serving_launches": serving_launches,
             "max_abs_err": kern["max_abs_diff"], "ms": kern["ms"],
             "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
@@ -2299,6 +2742,16 @@ def main() -> int:
         emit(phase_rerank(card, scorer, q_ids, config="wiki100k",
                           device="cuda")[0])
         torch.cuda.empty_cache()
+        # wildcard and fuzzy traffic, its launches counted on their own
+        tpu_ir_torch.reset_kernel_launches()
+        for row in phase_wildcard(card, scorer, widx, device="cuda"):
+            emit(row)
+        wildcard_launches = tpu_ir_torch.kernel_launches()
+        for kernel in ("cold_tier", "hot_stage"):
+            if wildcard_launches[kernel] == 0:
+                raise AssertionError(f"the wildcard phase never launched "
+                                     f"{kernel}: {wildcard_launches}")
+        torch.cuda.empty_cache()
         hot = phase_hot_stage(card, scorer, widx,
                               hot_q[:scorer._block_size()])
         hot["kernel_per_10k_topk"] = {
@@ -2323,6 +2776,9 @@ def main() -> int:
         emit(wserve_v3)
         del scorer
         shutil.rmtree(wv3)
+        torch.cuda.empty_cache()
+        kgram = phase_kgram(card, work, device="cuda")
+        emit(kgram)
         torch.cuda.empty_cache()
 
         # the serving tier over both layouts, its launches counted from
@@ -2354,19 +2810,27 @@ def main() -> int:
     emit({"kernels": [
         kernel_row("dense_score", kern, serve["launches"]["dense_score"],
                    serving_launches["dense_score"],
+                   wildcard_launches["dense_score"],
+                   kgram["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
         kernel_row("dequant_score", dequant,
                    serve_v3["launches"]["dequant_score"],
                    serving_launches["dequant_score"],
+                   wildcard_launches["dequant_score"],
+                   kgram["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
                    serving_launches["cold_tier"],
+                   wildcard_launches["cold_tier"],
+                   kgram["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
         kernel_row("hot_stage", hot["full"], wserve["launches"]["hot_stage"],
                    serving_launches["hot_stage"],
+                   wildcard_launches["hot_stage"],
+                   kgram["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})
     print(card, flush=True)

@@ -366,3 +366,62 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     assert sweep["breaker_open_ms"] < sweep["deadline_expiry_ms"]
     json.dumps([fr, fd, soak, sweep])
     obs.reset_all()
+
+
+def test_wildcard_and_kgram_phases_on_cpu(tmp_path, monkeypatch):
+    """The wildcard phase's three mixes on a small tiered index with
+    char-grams (the oracles, prune on == off, recall@10 = 1.0, rows at
+    least 64 wide for the glob mix) and the kgram phase (one-shot and
+    streaming k = 2 builds equal, the composed globs answered), at a
+    small size on the CPU; the oracles themselves against brute force."""
+    import fnmatch
+
+    import numpy as np
+
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search import scorer as scorer_mod
+    from tpu_ir_torch.search.wildcard import _levenshtein_capped
+
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=300, target_bytes=300_000, vocab_size=3_000))
+    monkeypatch.setattr(chip_smoke, "REF_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    monkeypatch.setattr(chip_smoke, "ORACLE_QUERIES", 16)
+    monkeypatch.setattr(chip_smoke, "WILDCARD_QUERIES", 120)
+    monkeypatch.setattr(chip_smoke, "EXPANSION_SAMPLE", 40)
+    monkeypatch.setattr(chip_smoke, "KGRAM_QUERIES", 100)
+    monkeypatch.setattr(chip_smoke, "KGRAM_GLOBS", 40)
+    monkeypatch.setattr(chip_smoke, "KGRAM_PROCS", 1)
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 10_000)
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    scorer = Scorer.load(idx, device="cpu")
+    assert scorer.layout == "sparse"
+    terms = scorer.vocab.terms
+    by_len = chip_smoke.terms_by_length(terms)
+    joined = "\n".join(terms)
+    for pat in ("ab*", "a?c*", "*ing", "q*z"):
+        assert chip_smoke.glob_oracle(joined, pat) == [
+            t for t in terms if fnmatch.fnmatchcase(t, pat)]
+    for word in ("abcd", terms[17], chip_smoke.one_edit(
+            np.random.default_rng(0), terms[40])):
+        want = sorted(((t, d) for t in terms
+                       if (d := _levenshtein_capped(word, t, 1)) is not None),
+                      key=lambda td: (td[1], td[0]))
+        assert chip_smoke.fuzzy_oracle(by_len, word, 1) == want
+    rows = list(chip_smoke.phase_wildcard("cpu", scorer, idx, device="cpu"))
+    assert [r["mix"] for r in rows] == ["glob", "fuzzy", "question"]
+    assert rows[0]["rows"]["width"] >= 64
+    assert rows[2]["examples"][:3] == list(chip_smoke.QUEUE3_QUESTIONS)
+    for r in rows:
+        assert r["oracle_expansions"]["checked"] == 40
+        assert r["topk"]["recall_at_10"] == 1.0
+        assert r["topk"]["bitwise_on_equals_off"] == {"tfidf": True,
+                                                      "bm25": True}
+        assert r["search_batch"]["bm25"]["answered"] > 0
+    json.dumps(rows)
+    kg = chip_smoke.phase_kgram("cpu", str(tmp_path), device="cpu")
+    assert kg["identical_artifacts"] >= 10 and kg["verify_ok"]
+    assert kg["builds"]["streaming"]["chargram_ks"] == []
+    assert kg["recall_at_10"] == 1.0 and kg["glob_answered"] >= 20
+    json.dumps(kg)

@@ -576,6 +576,59 @@ def test_hot_stage_wide_and_long(cuda, shape):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("terms", chip_smoke.WIDE_TERMS)
+@pytest.mark.parametrize("kernel", ["dense", "cold_tier", "hot_stage"])
+def test_kernels_bitwise_at_wide_queries(cuda, kernel, terms):
+    """The widths a wildcard or fuzzy expansion gives (L = 33, 64, 128:
+    one term past a warp, and the power-of-two buckets of up to 64 terms
+    an expansion adds) for B = 1 and 2,499: the dense kernels (both, and
+    against each other), the cold stage's second turn of its 32-lane term
+    loop (TF-IDF and BM25), and the hot stage with repeated hot terms
+    folded into their first slot."""
+    for batch in (1, 2_499):
+        seed = terms * 10 + batch
+        if kernel == "dense":
+            _both_kernels_bitwise(*_edge_inputs(seed, 300, 8_763, batch,
+                                                terms, cuda))
+        elif kernel == "cold_tier":
+            for bm25 in (False, True):
+                _cold_edge(cuda, seed, bm25, batch=batch, terms=terms)
+        else:
+            start, rows, w, strip = chip_smoke.hot_edge_case(
+                seed, batch, terms, 4_097, cuda)
+            got, want = start.clone(), start.clone()
+            hot_stage.hot_stage(got, rows, w, strip)
+            hot_stage.hot_stage_plain(want, rows, w, strip)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_wildcard_search_on_cuda_equals_cpu(cuda, tmp_path, layout):
+    """Glob and fuzzy queries (rows up to 128 ids wide) through the
+    Scorer on the card against the same Scorer on the CPU: the same
+    expanded rows, the same top-10, scores within rtol 1e-5."""
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=5, n_docs=400, target_bytes=300_000,
+                vocab_size=2_000)
+    idx = str(tmp_path / "idx")
+    build_index(corpus, idx, num_shards=3, device=cuda)
+    g = Scorer.load(idx, layout=layout)
+    c = Scorer.load(idx, layout=layout, device="cpu")
+    terms = c.vocab.terms
+    texts = [f"{t[:3]}* {terms[i]}" for i, t in enumerate(terms[:: 97])]
+    texts += [f"{t}~ {t[:2]}*" for t in terms[5::131]]
+    texts += ["a* b* c*", "how do I sort a list?"]
+    q = c.analyze_queries(texts)
+    assert q.shape[1] >= 64 and np.array_equal(g.analyze_queries(texts), q)
+    for scoring_name in ("tfidf", "bm25"):
+        gs, gd = g.topk(q, scoring=scoring_name)
+        cs, cd = c.topk(q, scoring=scoring_name)
+        np.testing.assert_allclose(gs, cs, rtol=1e-5, atol=1e-6)
+        assert (gd == cd).mean() > 0.99
+
+
 def test_hot_stage_matches_cpu_twin(cuda):
     start, rows, w, strip = chip_smoke.hot_edge_case(5, 64, 4, 300, "cpu")
     want = start.clone()

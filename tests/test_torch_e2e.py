@@ -16,7 +16,7 @@ import pytest
 
 from tpu_ir.index import build_index as jax_build_index
 from tpu_ir.search import Scorer as JaxScorer
-from tpu_ir.search.evaluate import evaluate_run, read_qrels
+from tpu_ir.search import evaluate as jax_evaluate
 
 from tpu_ir_torch.cli import main as cli_main
 from tpu_ir_torch.convert import scorer_from_numpy
@@ -24,6 +24,7 @@ from tpu_ir_torch.corpus import make_corpus
 from tpu_ir_torch.index import build_index
 from tpu_ir_torch.index import format as fmt
 from tpu_ir_torch.search import Scorer
+from tpu_ir_torch.search.evaluate import evaluate_run, read_qrels
 
 RTOL = 1e-5
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -179,7 +180,8 @@ def _topics():
 
 
 def test_stdlib_bm25_quality_equals_jax(tmp_path):
-    """BM25 MRR / NDCG@10 over the 80 hand-judged stdlib topics."""
+    """BM25 MRR / NDCG@10 over the 80 hand-judged stdlib topics, by the
+    port's evaluate, which gives the JAX package's evaluate's numbers."""
     idx = str(tmp_path / "stdlib-idx")
     build_index(os.path.join(STDLIB, "corpus.trec"), idx, num_shards=2,
                 device="cpu", compute_chargrams=False)
@@ -188,6 +190,8 @@ def test_stdlib_bm25_quality_equals_jax(tmp_path):
                     num_shards=2, compute_chargrams=False)
     qids, titles = _topics()
     qrels = read_qrels(os.path.join(STDLIB, "qrels.txt"))
+    assert qrels == jax_evaluate.read_qrels(os.path.join(STDLIB,
+                                                         "qrels.txt"))
     evals = []
     for scorer in (JaxScorer.load(jidx, layout="dense"),
                    Scorer.load(idx, device="cpu")):
@@ -195,6 +199,11 @@ def test_stdlib_bm25_quality_equals_jax(tmp_path):
         run = {q: [d for d, _ in r] for q, r in zip(qids, res) if r}
         evals.append(evaluate_run(run, qrels, complete=True,
                                   exp_gains=True))
+        for complete in (False, True):
+            for exp_gains in (False, True):
+                assert evaluate_run(run, qrels, complete, exp_gains) == \
+                    jax_evaluate.evaluate_run(run, qrels, complete,
+                                              exp_gains)
     assert evals[0]["queries"] == 80
     for key in ("mrr", "ndcg_at_10", "map"):
         assert evals[1][key] == pytest.approx(evals[0][key], abs=1e-12), key
@@ -217,7 +226,7 @@ def test_load_rejects_a_corrupt_part(built, tmp_path):
 
 @pytest.mark.parametrize("case", ["npz", "carena", "sparse", "sharded",
                                   "rerank", "phrase", "explain", "deadline",
-                                  "k2", "chargrams", "positions"])
+                                  "k2", "chargrams", "positions", "prox"])
 def test_later_slices_raise(built, tmp_path, case):
     import json
 
@@ -271,11 +280,31 @@ def test_later_slices_raise(built, tmp_path, case):
                     open(os.path.join(want, name), "rb") as w:
                 assert g.read() == w.read(), name
         return
-    if case in ("k2", "positions"):
-        kw = {"k2": {"k": 2}, "positions": {"positions": True}}[case]
+    if case == "k2":
+        # k = 2 term-k-gram indexes are built now, byte-identical to the
+        # JAX package's, the tokens.txt sidecar included
+        corpus = os.path.join(STDLIB, "corpus.trec")
+        got, want = str(tmp_path / "port"), str(tmp_path / "jax")
+        build_index(corpus, got, k=2, num_shards=2, device="cpu")
+        jax_build_index(corpus, want, k=2, num_shards=2)
+        names = sorted(n for n in os.listdir(want) if n != "jobs")
+        assert "tokens.txt" in names
+        assert names == sorted(n for n in os.listdir(got) if n != "jobs")
+        for n in names:
+            assert filecmp.cmp(os.path.join(got, n), os.path.join(want, n),
+                               shallow=False), n
+        return
+    if case == "positions":
         with pytest.raises(ValueError, match="later slice"):
             build_index(os.path.join(STDLIB, "corpus.trec"),
-                        str(tmp_path / "x"), device="cpu", **kw)
+                        str(tmp_path / "x"), device="cpu", positions=True)
+        return
+    if case == "prox":
+        # the search flags of positions, phrases and snippets exit 2
+        for flag in (["--prox"], ["--slop", "1"], ["--show-matches"],
+                     ["--snippets"]):
+            assert cli_main(["search", port_dir, "-q", "a", "--device",
+                             "cpu"] + flag) == 2, flag
         return
     s = Scorer.load(port_dir, device="cpu")
     if case == "rerank":
@@ -315,7 +344,7 @@ def test_auto_layout_above_dense_budget_raises(built, monkeypatch):
         Scorer.load(port_dir, layout="sharded", device="cpu")
 
 
-def test_cli_index_and_search(tmp_path, capsys):
+def test_cli_index_and_search(tmp_path, capsys, monkeypatch):
     idx = str(tmp_path / "idx")
     corpus = os.path.join(STDLIB, "corpus.trec")
     assert cli_main(["index", corpus, idx, "--shards", "2",
@@ -328,5 +357,12 @@ def test_cli_index_and_search(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "query: heap queue priority"
     assert len(out) == 4 and "PY-heapq" in "\n".join(out[1:])
-    with pytest.raises(SystemExit):
-        cli_main(["search", idx, "--device", "cpu"])      # -q is required
+    # without -q (or a queries file) search is the REPL over stdin
+    import io
+
+    monkeypatch.setattr("sys.stdin",
+                        io.StringIO("heap queue priority\nexit\n"))
+    assert cli_main(["search", idx, "--scoring", "bm25", "--k", "3",
+                     "--device", "cpu"]) == 0
+    repl = capsys.readouterr().out.splitlines()
+    assert repl[0].startswith("tpu-ir: 144 docs") and repl[1:] == out

@@ -43,6 +43,7 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.ops.chargram, tpu_ir_torch.index.streaming, "
             "tpu_ir_torch.index.docstore, tpu_ir_torch.index.dictionary, "
             "tpu_ir_torch.index.verify, tpu_ir_torch.utils.transfer, "
+            "tpu_ir_torch.search.wildcard, tpu_ir_torch.search.evaluate, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"

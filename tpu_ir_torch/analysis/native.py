@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from ..collection.trec import TrecDocument, read_trec_corpus, read_trec_file
+from ..collection.vocab import kgram_terms
 from .analyzer import Analyzer
 from .stopwords import TERRIER_STOPWORDS
 
@@ -381,15 +382,18 @@ class PyChunkedTokenizer:
     chunks in a process pool (analysis/pool.py): the parent still reads
     the records, decides the chunk boundaries and interns the terms in
     submission order, so the deltas, and every spill made from them, are
-    the serial path's bytes."""
+    the serial path's bytes. With k > 1 each document's terms are its
+    k-token windows (the k > 1 streaming build's tokenizer, as in the
+    JAX package)."""
 
     #: docs per delta at most (the JAX package's default)
     BATCH_DOCS = 5_000
 
-    def __init__(self, paths, with_text: bool = False,
+    def __init__(self, paths, k: int = 1, with_text: bool = False,
                  chunk_bytes: int = 8 << 20, procs: int | None = None):
         self._paths = ([paths] if isinstance(paths, (str, os.PathLike))
                        else list(paths))
+        self._k = k
         self._chunk_bytes = chunk_bytes
         self._an = Analyzer()
         self._vocab: dict[str, int] = {}
@@ -442,7 +446,12 @@ class PyChunkedTokenizer:
             return
         for docids, contents in self._iter_raw_chunks():
             yield self._chunk_delta(docids, contents,
-                                    (self._an.analyze(c) for c in contents))
+                                    self._analyze_docs(contents))
+
+    def _analyze_docs(self, contents):
+        for content in contents:
+            toks = self._an.analyze(content)
+            yield kgram_terms(toks, self._k) if self._k > 1 else toks
 
     def _deltas_pooled(self):
         import collections
@@ -450,7 +459,8 @@ class PyChunkedTokenizer:
         from ..utils.transfer import pipeline_depth
         from .pool import AnalysisPool
 
-        pool = AnalysisPool(self._procs, ahead=self._procs + pipeline_depth())
+        pool = AnalysisPool(self._procs, k=self._k,
+                            ahead=self._procs + pipeline_depth())
         raw: collections.deque = collections.deque()
         try:
             def drain_one():
@@ -474,18 +484,19 @@ class PyChunkedTokenizer:
         pass
 
 
-def make_chunked_tokenizer(paths, chunk_bytes: int = 8 << 20,
+def make_chunked_tokenizer(paths, k: int = 1, chunk_bytes: int = 8 << 20,
                            with_text: bool = False,
                            procs: int | None = None, *,
                            native: bool = True):
-    """The native chunked tokenizer, or with `native=False` the Python
-    one (`procs` reaches only the Python path: the C++ scanner already
-    runs at memory speed on one core). Both yield temp ids in first-seen
-    order; `with_text` adds each document's raw record bytes."""
-    if native:
+    """The native chunked tokenizer, or with `native=False` or k > 1 (the
+    native scanner emits single tokens) the Python one (`procs` reaches
+    only the Python path: the C++ scanner already runs at memory speed on
+    one core). Both yield temp ids in first-seen order; `with_text` adds
+    each document's raw record bytes."""
+    if native and k == 1:
         return NativeChunkedTokenizer(paths, chunk_bytes=chunk_bytes,
                                       with_text=with_text)
-    return PyChunkedTokenizer(paths, with_text=with_text,
+    return PyChunkedTokenizer(paths, k=k, with_text=with_text,
                               chunk_bytes=chunk_bytes, procs=procs)
 
 

@@ -45,18 +45,25 @@ def _pool_init(faults_spec: str | None) -> None:
 
 
 def _analyze_chunk(payload) -> list[list[str]]:
-    """Each document's term list for one chunk (runs in a worker)."""
-    chunk_idx, contents = payload
+    """Each document's term list for one chunk, its k-token windows when
+    k > 1 (runs in a worker)."""
+    chunk_idx, k, contents = payload
     if faults.should_fire("tokenize.pool", f"chunk={chunk_idx}") is not None:
         raise OSError(f"injected tokenizer pool failure (chunk={chunk_idx})")
-    return [_WORKER_ANALYZER.analyze(c) for c in contents]
+    toks = [_WORKER_ANALYZER.analyze(c) for c in contents]
+    if k > 1:
+        from ..collection import kgram_terms
+
+        toks = [kgram_terms(t, k) for t in toks]
+    return toks
 
 
 class AnalysisPool:
     """A bounded, order-keeping chunk pipeline over a process pool:
     submit() queues a chunk, collect() returns the oldest one's result."""
 
-    def __init__(self, procs: int, *, ahead: int | None = None):
+    def __init__(self, procs: int, *, k: int = 1, ahead: int | None = None):
+        self._k = k
         self._ahead = ahead if ahead is not None else procs + 2
         methods = multiprocessing.get_all_start_methods()
         ctx = multiprocessing.get_context(
@@ -68,8 +75,8 @@ class AnalysisPool:
         self._next_idx = 0
 
     def submit(self, contents: list[str]) -> None:
-        r = self._pool.apply_async(_analyze_chunk,
-                                   ((self._next_idx, list(contents)),))
+        r = self._pool.apply_async(
+            _analyze_chunk, ((self._next_idx, self._k, list(contents)),))
         self._next_idx += 1
         self._pending.append(r)
         from ..obs import get_registry

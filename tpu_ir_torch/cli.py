@@ -1,5 +1,6 @@
-"""Command line of the port: `index`, `search`, `inspect --term`, `verify`,
-`migrate-index` and `serve-bench`, with tpu_ir's flag names and defaults.
+"""Command line of the port: `index`, `search`, `expand`, `eval`,
+`inspect --term`, `verify`, `migrate-index` and `serve-bench`, with
+tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -7,8 +8,12 @@
         [--device cuda|cpu]
     python -m tpu_ir_torch.cli inspect IDX --term TEXT [--postings N]
     python -m tpu_ir_torch.cli verify IDX
-    python -m tpu_ir_torch.cli search IDX -q TEXT [--scoring tfidf|bm25] [--k K]
-        [--rerank N] [--layout auto|dense|sparse|sharded]
+    python -m tpu_ir_torch.cli search IDX [-q TEXT | --queries-file F |
+        --topics F] [--scoring tfidf|bm25] [--k K] [--rerank N]
+        [--layout auto|dense|sparse|sharded] [--docnos] [--compat]
+        [--trec-run TAG]
+    python -m tpu_ir_torch.cli expand IDX PATTERN [--chargram-k 3] [-n 50]
+    python -m tpu_ir_torch.cli eval RUN QRELS [--complete]
     python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
         [--tf-dtype auto|int8|bf16] [--add-bounds]
     python -m tpu_ir_torch.cli serve-bench IDX [--threads N] [--queries N]
@@ -17,8 +22,12 @@
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
 
 `index`, `search` and `serve-bench` run on CUDA unless `--device cpu` is
-given; `inspect`, `verify` and `migrate-index` run on the host. Each
-prints its JSON report last (`inspect --term` prints one line per hit).
+given; `inspect`, `verify`, `migrate-index`, `expand` and `eval` run on
+the host. Each prints its JSON report last (`inspect --term` prints one
+line per hit, `expand` one term per line). `search` with none of `-q`,
+`--queries-file` and `--topics` reads queries from standard input, one a
+line, until `exit`; its `--prox`, `--slop`, `--show-matches` and
+`--snippets` belong to a later slice and exit 2.
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
 exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 
@@ -92,23 +102,145 @@ def cmd_verify(args) -> int:
     return 0
 
 
+# search flags whose machinery (positions, phrases, the document store's
+# snippets) a later slice of the port brings
+_LATER_SEARCH_FLAGS = (("prox", "--prox"), ("slop", "--slop"),
+                       ("show_matches", "--show-matches"),
+                       ("snippets", "--snippets"))
+
+
 def cmd_search(args) -> int:
     from .search import Scorer
 
+    for attr, flag in _LATER_SEARCH_FLAGS:
+        if getattr(args, attr) not in (None, False):
+            print(f"error: {flag} is not supported by tpu_ir_torch yet (a "
+                  "later slice of the port: positions, phrase and "
+                  "proximity queries, snippets)", file=sys.stderr)
+            return 2
     try:
         scorer = Scorer.load(args.index_dir, layout=args.layout,
-                             device=args.device)
+                             compat_int_idf=args.compat, device=args.device)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    (res,) = scorer.search_batch([args.query], k=args.k,
-                                 scoring=args.scoring, rerank=args.rerank)
-    print(f"query: {args.query}")
-    if not res:
-        print("  (no matching documents)")
-    for rank, (key, score) in enumerate(res, 1):
-        print(f"  {rank:2d}. {key}\t{score:.6f}")
+    show_docids = not args.docnos
+
+    def run_batch(queries: list[str], qids: list | None = None) -> None:
+        # the reference's guard: 1-2 word queries only
+        # (IntDocVectorsForwardIndex.java:292,297)
+        skipped = ({q for q in queries if len(q.split()) > 2}
+                   if args.compat else set())
+        kept = [q for q in queries if q not in skipped]
+        results = iter(scorer.search_batch(
+            kept, k=args.k, scoring=args.scoring,
+            return_docids=show_docids, rerank=args.rerank) if kept else [])
+        if qids is None:
+            qids = list(range(1, len(queries) + 1))
+        for qid, q in zip(qids, queries):
+            if args.trec_run is None:
+                print(f"query: {q}")
+            if q in skipped:
+                if args.trec_run is None:
+                    print("  (compat mode: queries are limited to 1-2 "
+                          "words)")
+                continue
+            res = next(results)
+            if args.trec_run is not None:
+                # trec_eval's run format: qid Q0 docid rank score tag
+                for rank, (key, score) in enumerate(res, 1):
+                    print(f"{qid} Q0 {key} {rank} {score:.6f} "
+                          f"{args.trec_run}")
+                continue
+            if not res:
+                print("  (no matching documents)")
+            for rank, (key, score) in enumerate(res, 1):
+                print(f"  {rank:2d}. {key}\t{score:.6f}")
+
+    if args.query:
+        run_batch([args.query])
+    elif args.topics:
+        qids, queries = _read_trec_topics(args.topics)
+        run_batch(queries, qids=qids)
+    elif args.queries_file:
+        with open(args.queries_file, encoding="utf-8") as f:
+            queries = [line.strip() for line in f if line.strip()]
+        run_batch(queries)
+    else:
+        # the REPL; 'exit' quits, as the reference's main loop does
+        # (IntDocVectorsForwardIndex.java:289)
+        print(f"tpu-ir: {scorer.meta.num_docs} docs, "
+              f"{scorer.meta.vocab_size} terms, k={scorer.meta.k}, "
+              f"layout={scorer.layout}. Type a query, or 'exit'.",
+              file=sys.stderr if args.trec_run is not None else sys.stdout)
+        next_qid = 1            # a running qid keeps --trec-run lines apart
+        # input()'s prompt goes to stdout: only at a terminal, so piped
+        # output (run files) stays clean
+        prompt = ("query> " if sys.stdin.isatty() and sys.stdout.isatty()
+                  and args.trec_run is None else "")
+        while True:
+            try:
+                line = input(prompt).strip()
+            except EOFError:
+                break
+            if not line:
+                continue
+            if line == "exit":
+                break
+            run_batch([line], qids=[next_qid])
+            next_qid += 1
     return 0
+
+
+def _read_trec_topics(path: str) -> tuple[list[str], list[str]]:
+    """A TREC topics file's (qids, title queries): <top> records with a
+    <num> Number: NNN line and a <title>, whose text runs on the next
+    lines to the next tag or sits on one line as <title>text</title>."""
+    with open(path, encoding="utf-8", errors="replace") as f:
+        text = f.read()
+    qids: list[str] = []
+    queries: list[str] = []
+    for top in re.split(r"(?i)<top>", text)[1:]:
+        num = re.search(r"(?i)<num>\s*(?:Number:)?\s*([^<\s][^<\n]*)", top)
+        title = re.search(
+            r"(?i)<title>\s*(?:Topic:)?\s*(.*?)\s*(?=<|\Z)", top, re.S)
+        if not num or not title:
+            continue
+        q = " ".join(title.group(1).split())
+        if q:
+            qids.append(num.group(1).strip())
+            queries.append(q)
+    return qids, queries
+
+
+def cmd_expand(args) -> int:
+    """A glob pattern's vocabulary terms, one a line, or a fuzzy token's
+    ('term~', 'term~0', 'term~2') as term and distance."""
+    from .search.wildcard import MAX_FUZZY_EDITS, WildcardLookup
+
+    lookup = WildcardLookup.load(args.index_dir, args.chargram_k)
+    m = re.fullmatch(r"(.+?)~(\d?)", args.pattern)
+    if m:
+        d = min(int(m.group(2)) if m.group(2) else 1, MAX_FUZZY_EDITS)
+        for term, dist in lookup.fuzzy(m.group(1), max_edits=d,
+                                       limit=args.n):
+            print(f"{term}\t{dist}")
+        return 0
+    for term in lookup.expand(args.pattern, limit=args.n):
+        print(term)
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """A trec_eval-format run scored against qrels: MAP, MRR, NDCG@10,
+    P@5, P@10 and recall@100 as one JSON line; exit 1 when no query was
+    judged."""
+    from .search.evaluate import evaluate_run, read_qrels, read_run
+
+    out = evaluate_run(read_run(args.run), read_qrels(args.qrels),
+                       complete=args.complete)
+    print(json.dumps(out))
+    return 0 if out.get("queries") else 1
 
 
 def cmd_migrate_index(args) -> int:
@@ -237,23 +369,67 @@ def main(argv: list[str] | None = None) -> int:
     pv.add_argument("index_dir")
     pv.set_defaults(fn=cmd_verify)
 
-    ps = sub.add_parser("search", help="query an index")
+    ps = sub.add_parser(
+        "search",
+        help="query an index (REPL or batch); glob tokens like te* and "
+             "fuzzy tokens like tem~ expand over the char-k-gram index "
+             "(OR of up to 64 matching terms)")
     ps.add_argument("index_dir")
-    ps.add_argument("--query", "-q", required=True)
+    ps.add_argument("--query", "-q")
+    ps.add_argument("--queries-file")
+    ps.add_argument("--topics", metavar="FILE", default=None,
+                    help="TREC topics file (<top>/<num>/<title> records); "
+                         "titles become the queries, topic numbers the "
+                         "qids for --trec-run")
     ps.add_argument("--k", "-k", type=int, default=10,
                     help="results per query")
     ps.add_argument("--scoring", choices=["tfidf", "bm25"], default="tfidf")
     ps.add_argument("--rerank", type=int, default=None, metavar="N",
                     help="two-stage retrieval: BM25 top-N candidates, then "
                          "cosine TF-IDF rerank")
+    ps.add_argument("--prox", action="store_true",
+                    help="the proximity boost (a later slice: exits 2)")
+    ps.add_argument("--slop", type=int, default=None, metavar="S",
+                    help="phrase slop (a later slice: exits 2)")
+    ps.add_argument("--show-matches", action="store_true",
+                    help="match positions (a later slice: exits 2)")
+    ps.add_argument("--snippets", action="store_true",
+                    help="text snippets (a later slice: exits 2)")
     ps.add_argument("--layout",
                     choices=["auto", "dense", "sparse", "sharded"],
                     default="auto",
                     help="'auto' serves the dense matrix up to "
                          "DENSE_BUDGET elements and the tiered sparse "
                          "layout above it; 'sharded' is a later slice")
+    ps.add_argument("--docnos", action="store_true",
+                    help="print docnos instead of docids")
+    ps.add_argument("--compat", action="store_true",
+                    help="reproduce reference quirks (int-division idf, "
+                         "1-2 word query cap)")
+    ps.add_argument("--trec-run", metavar="TAG", default=None,
+                    help="emit standard trec_eval run lines "
+                         "('qid Q0 docid rank score TAG'; qids are "
+                         "1-based query positions) instead of the "
+                         "human-readable listing")
     ps.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ps.set_defaults(fn=cmd_search)
+
+    px = sub.add_parser("expand", help="wildcard term lookup (char-k-grams)")
+    px.add_argument("index_dir")
+    px.add_argument("pattern", help="glob pattern, e.g. 'te*' or '*tion'; "
+                                    "or a fuzzy token, e.g. 'tem~'")
+    px.add_argument("--chargram-k", type=int, default=3)
+    px.add_argument("-n", type=int, default=50)
+    px.set_defaults(fn=cmd_expand)
+
+    pe = sub.add_parser("eval", help="score a trec_eval-format run file "
+                                     "against qrels (MAP/MRR/NDCG@10/...)")
+    pe.add_argument("run", help="run file (qid Q0 docid rank score tag)")
+    pe.add_argument("qrels", help="qrels file (qid 0 docid rel)")
+    pe.add_argument("--complete", action="store_true",
+                    help="average over every qrels qid, scoring qids "
+                         "missing from the run as zero (trec_eval -c)")
+    pe.set_defaults(fn=cmd_eval)
 
     pm = sub.add_parser(
         "migrate-index",

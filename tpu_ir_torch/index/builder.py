@@ -12,9 +12,16 @@ are byte-identical to the JAX package's for the same corpus and settings,
 its defaults included (char-grams on), the block-max bounds artifact,
 `metadata.json` and, under TPU_IR_COMPRESS=1, the v3 parts too.
 
+A k > 1 term-k-gram index is analyzed document by document (the
+JAX package's path for k > 1, where the native corpus pass does not
+apply): each document's tokens become k-token windows, and one np.unique
+builds the vocabulary and the term ids. Its char-gram indexes cover the
+token vocabulary, which goes to the `tokens.txt` sidecar, so wildcard and
+fuzzy queries expand over tokens and compose k-gram terms.
+
 The streaming build for corpora larger than memory is
-index/streaming.py. k > 1 term-k-gram indexes, positions and the SPMD
-mesh build raise ValueError (later slices of the port).
+index/streaming.py. Positions and the SPMD mesh build raise ValueError
+(later slices of the port).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from .. import faults, resolve_device
 from ..analysis import Analyzer
-from ..collection import DocnoMapping, Vocab, read_trec_corpus
+from ..collection import DocnoMapping, Vocab, kgram_terms, read_trec_corpus
 from ..ops.postings import PAD_TERM_U16, build_postings_packed
 from ..utils.report import JobReport
 from ..utils.transfer import fetch_narrow, narrow_uint, shrink_pairs
@@ -35,23 +42,27 @@ from . import format as fmt
 
 _LATER = "is not supported by tpu_ir_torch yet (a later slice of the port)"
 
+TOKENS_VOCAB = "tokens.txt"  # the token vocabulary of a k > 1 index
+
 
 def check_build_args(k: int, positions: bool, spmd_devices) -> None:
-    """Raise ValueError for the build options a later slice ports."""
-    if k != 1:
-        raise ValueError(f"k={k} term-k-gram indexes {_LATER}")
+    """Raise ValueError for the build options a later slice ports, and
+    for a k below 1."""
+    if k < 1:
+        raise ValueError(f"k={k}: a term-k-gram index needs k >= 1")
     if positions:
         raise ValueError(f"position runs (format v2 positions) {_LATER}")
     if spmd_devices:
         raise ValueError(f"the SPMD mesh build {_LATER}")
 
 
-def analyze_corpus(corpus_paths: Sequence[str]
+def analyze_corpus(corpus_paths: Sequence[str], analyzer=None
                    ) -> tuple[list[str], list[list[str]]]:
-    """Every document through the pure-Python analyzer: (docids, per-doc
-    token lists). The build does not call it; it is the Python twin of
-    the native pass, kept to time and test that pass against."""
-    analyzer = Analyzer()
+    """Every document through `analyzer` (the pure-Python Analyzer by
+    default): (docids, per-doc token lists). A k > 1 build calls it with
+    the native analyzer; with the Python one it is the twin of the native
+    corpus pass, kept to time and test that pass against."""
+    analyzer = analyzer or Analyzer()
     docids: list[str] = []
     doc_tokens: list[list[str]] = []
     for doc in read_trec_corpus(corpus_paths):
@@ -102,23 +113,42 @@ def build_index(
     report = JobReport("TermKGramDocIndexer", config={
         "k": k, "num_shards": num_shards, "chargram_ks": chargram_ks})
 
-    # --- the corpus pass in C++, temp ids remapped to sorted ids ---
-    with report.phase("tokenize"):
-        from ..analysis.native import tokenize_corpus_native
+    doc_tokens: list[list[str]] = []
+    if k == 1:
+        # the corpus pass in C++, temp ids remapped to sorted ids
+        with report.phase("tokenize"):
+            from ..analysis.native import tokenize_corpus_native
 
-        docids, temp_ids, lengths, vocab_list = tokenize_corpus_native(
-            corpus_paths)
+            docids, temp_ids, lengths, vocab_list = tokenize_corpus_native(
+                corpus_paths)
+        _require_docs(docids, corpus_paths)
+        with report.phase("vocab"):
+            vocab_arr = np.array(vocab_list, dtype=np.str_)
+            order = np.argsort(vocab_arr)
+            rank = np.empty(len(order), np.int64)
+            rank[order] = np.arange(len(order))
+            vocab = Vocab(vocab_arr[order].tolist())
+            inverse = rank[temp_ids]
+    else:
+        # each document analyzed, then its k-token windows; one np.unique
+        # is both the vocabulary and the term-id assignment
+        with report.phase("tokenize"):
+            from ..analysis.native import make_analyzer
+
+            docids, doc_tokens = analyze_corpus(corpus_paths,
+                                                make_analyzer())
+        _require_docs(docids, corpus_paths)
+        with report.phase("vocab"):
+            doc_kgrams = [kgram_terms(toks, k) for toks in doc_tokens]
+            lengths = np.fromiter((len(g) for g in doc_kgrams), np.int64,
+                                  len(doc_kgrams))
+            flat_terms = np.array(
+                [t for grams in doc_kgrams for t in grams], dtype=np.str_)
+            del doc_kgrams
+            uniques, inverse = np.unique(flat_terms, return_inverse=True)
+            vocab = Vocab(uniques.tolist())
     num_docs = len(docids)
-    if num_docs == 0:
-        raise ValueError(f"no <DOC> records found in {corpus_paths}")
     report.set_counter("Count.DOCS", num_docs)
-    with report.phase("vocab"):
-        vocab_arr = np.array(vocab_list, dtype=np.str_)
-        order = np.argsort(vocab_arr)
-        rank = np.empty(len(order), np.int64)
-        rank[order] = np.arange(len(order))
-        vocab = Vocab(vocab_arr[order].tolist())
-        inverse = rank[temp_ids]
     vocab.save(os.path.join(index_dir, fmt.VOCAB))
     v = len(vocab)
     report.set_counter("map_output_records", len(inverse))
@@ -158,8 +188,15 @@ def build_index(
     built_chargrams = bool(compute_chargrams and chargram_ks)
     if built_chargrams:
         with report.phase("chargrams"):
-            build_chargram_artifacts(index_dir, vocab.terms, chargram_ks,
-                                     device=dev)
+            if k == 1:
+                token_vocab = vocab
+            else:
+                token_vocab = Vocab.build(
+                    t for toks in doc_tokens for t in toks)
+                token_vocab.save(os.path.join(index_dir, TOKENS_VOCAB))
+            build_chargram_artifacts(index_dir, token_vocab.terms,
+                                     chargram_ks, device=dev)
+    del doc_tokens
 
     # --- shard + persist (part-NNNNN layout), dictionary, metadata ---
     with report.phase("write_shards"):
@@ -174,7 +211,7 @@ def build_index(
 
     faults.maybe_crash("crash.builder", "pre-metadata")
     meta = fmt.IndexMetadata(
-        num_docs=num_docs, vocab_size=v, k=1, num_shards=num_shards,
+        num_docs=num_docs, vocab_size=v, k=k, num_shards=num_shards,
         num_pairs=num_pairs,
         chargram_ks=chargram_ks if built_chargrams else [],
         version=fmt.FORMAT_VERSION, has_positions=False,
@@ -184,6 +221,11 @@ def build_index(
     report.record_peaks(dev)
     report.save(os.path.join(index_dir, fmt.JOBS_DIR))
     return meta
+
+
+def _require_docs(docids: list[str], corpus_paths) -> None:
+    if not docids:
+        raise ValueError(f"no <DOC> records found in {corpus_paths}")
 
 
 def build_chargram_artifacts(index_dir: str, terms: list[str],

@@ -38,9 +38,16 @@ pass-1 spill that fails its manifest CRC discards pass 1; a corrupt
 pass-2 spill recomputes only its batch or bucket. `crash.pass1/2/3` are
 the fault sites the resume is tested against.
 
-The SPMD pass 2 (`spmd_devices`), positions and k > 1 raise ValueError
-(later slices of the port), as does a build without CUDA unless
-device="cpu" is asked for.
+A k > 1 build tokenizes through the Python chunked tokenizer, whose
+terms are each document's k-token windows (the native scanner emits
+single tokens); pass 2 and 3 are unchanged, k only widens the
+vocabulary. As in the JAX package, a streaming k > 1 build writes no
+char-gram indexes (they need the token vocabulary, which the k-gram
+spills do not keep).
+
+The SPMD pass 2 (`spmd_devices`) and positions raise ValueError (later
+slices of the port), as does a build without CUDA unless device="cpu"
+is asked for.
 """
 
 from __future__ import annotations
@@ -390,10 +397,10 @@ def build_index_streaming(
     JAX package's parameters and defaults (`radix_buckets` from
     TPU_IR_RADIX_BUCKETS, 16; 0 is the per-batch combine). Pass 2's
     group-by and the char-gram builds run on `device` (CUDA by default).
-    `tokenize_procs` reaches only the Python tokenizer
-    (`make_chunked_tokenizer(native=False)`); the native one is a single
-    C++ pass. The job's phase timings and counters are saved as
-    `jobs/TermKGramDocIndexer.json`."""
+    `tokenize_procs` reaches only the Python tokenizer (k > 1, or
+    `make_chunked_tokenizer(native=False)`); the native one is a single
+    C++ pass. k > 1 writes no char-gram indexes. The job's phase timings
+    and counters are saved as `jobs/TermKGramDocIndexer.json`."""
     check_build_args(k, positions, spmd_devices)
     dev = resolve_device(device)
     if isinstance(corpus_paths, (str, os.PathLike)):
@@ -443,7 +450,7 @@ def build_index_streaming(
         report.incr("Count.DOCS", len(all_docids))
         report.set_counter("pass1_resumed_batches", n_batches)
     else:
-        tok = make_chunked_tokenizer(corpus_paths, with_text=store,
+        tok = make_chunked_tokenizer(corpus_paths, k=k, with_text=store,
                                      procs=tokenize_procs)
         with report.phase("pass1_tokenize"):
             (all_docids, vocab_list, n_batches, occ_per_batch, spill_crcs,
@@ -659,7 +666,7 @@ def build_index_streaming(
             report.set_counter("docstore_stored_bytes",
                                stats["stored_bytes"])
 
-    built_chargrams = bool(compute_chargrams and chargram_ks)
+    built_chargrams = bool(compute_chargrams and chargram_ks and k == 1)
     if built_chargrams:
         with report.phase("chargrams"):
             build_chargram_artifacts(index_dir, vocab.terms, chargram_ks,

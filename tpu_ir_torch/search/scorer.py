@@ -47,16 +47,25 @@ hot strip alone (the ladder's cheapest level; a no-op on the dense
 layout). `pad_to`, `width_floor` and `rung_ladder` are the coalescer's
 closed set of batch shapes; a query keeps its bits in any padded batch.
 
+Query analysis is the JAX package's, k-gram composition for a k > 1
+index included. On an index with char-gram artifacts a glob token ('te*',
+'ho?se') or a fuzzy token ('salmn~', 'color~2') expands on the host to an
+OR over at most WILDCARD_LIMIT vocabulary terms (search/wildcard.py); on
+a k > 1 index the expansions come from the token vocabulary (tokens.txt)
+and compose k-gram terms window by window. The expanded id row is the
+JAX package's, id for id and slot for slot, and goes down the same
+dispatch as any other row.
+
 Not in this slice (each raises ValueError naming a later slice): the
-sharded layout, the proximity boost, phrase queries, wildcard and fuzzy
-expansion over char-gram indexes, explain, and the query log. The JAX
-package's donated-query twins (`donate`, `TPU_IR_BATCH_DONATE`) have no
-counterpart: torch frees a batch's query tensor when its last reference
-goes, so there is nothing to donate.
+sharded layout, the proximity boost, phrase queries, explain, and the
+query log. The JAX package's donated-query twins (`donate`,
+`TPU_IR_BATCH_DONATE`) have no counterpart: torch frees a batch's query
+tensor when its last reference goes, so there is nothing to donate.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import re
@@ -68,7 +77,7 @@ import torch
 
 from .. import envvars, faults, resolve_device
 from ..analysis import Analyzer
-from ..collection import DocnoMapping, Vocab, kgram_terms
+from ..collection import KGRAM_SEP, DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
 from ..index.blockmax import load_block_bounds
 from ..index.compress import bf16_exact
@@ -113,9 +122,21 @@ K1, B = 0.9, 0.4
 _LATER = "is not supported by tpu_ir_torch yet (a later slice of the port)"
 
 # a whitespace-delimited token holding a glob metacharacter, and a fuzzy
-# token ('salmn~', 'color~2'): the same patterns the JAX package expands
+# token ('salmn~', 'color~2'; the '~' follows a token, and the distance is
+# one digit, so '5~10' keeps the literal '10'): the JAX package's patterns
 _WILDCARD_RE = re.compile(r"\S*[*?]\S*")
 _FUZZY_RE = re.compile(r"(\S+?)~(\d?)(?=[\s.,;:!)\]}]|$)")
+
+# punctuation the analyzer strips from a literal token, stripped from a
+# glob token's edges too ('fish*,' is the pattern 'fish*')
+_EDGE_PUNCT = "".join(c for c in
+                      r"""!"#$%&'()+,-./:;<=>@[\]^_`{|}~""" if c not in "*?")
+
+# interior punctuation splits a glob token as the analyzer splits a
+# literal one ('salmon,fish*' is the literal 'salmon' and the pattern
+# 'fish*'); '.' and "'" stay inside parts for acronyms and apostrophes
+_GLOB_SPLIT_RE = re.compile(
+    "[" + re.escape("".join(c for c in _EDGE_PUNCT if c not in ".'")) + "]+")
 
 
 def compute_doc_norms(pair_term, pair_doc, pair_tf, df,
@@ -178,6 +199,8 @@ class Scorer:
     # least number of hot-free queries worth a block of their own (that
     # skips the hot stage) when a batch also holds hot queries
     MIN_SKIP_GROUP = 32
+    # most vocabulary terms one wildcard or fuzzy token expands to
+    WILDCARD_LIMIT = 64
 
     def __init__(
         self,
@@ -197,6 +220,7 @@ class Scorer:
         prune: bool = True,
         pairs_loader=None,
         deadline_s: float | None = None,
+        index_dir: str | None = None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
@@ -205,7 +229,10 @@ class Scorer:
         same results). The rerank's doc norms and the host fallback read
         the postings columns, or `pairs_loader()` (which returns df,
         pair_doc, pair_tf) once, on first use. `deadline_s` bounds every
-        score dispatch that names no deadline of its own.
+        score dispatch that names no deadline of its own. `index_dir`,
+        where the index was loaded from, is where wildcard and fuzzy
+        expansion read the char-gram artifacts (without it, glob and
+        fuzzy tokens are literal text, as in the JAX package).
 
         Lazy state (the weighted strips, block-max's bound tables, the
         BM25 tf matrix, the doc norms, the host postings) is built outside
@@ -224,6 +251,12 @@ class Scorer:
         # one analyzer a thread: the tag tokenizer keeps each call's
         # state on the instance, so concurrent callers must not share one
         self._analyzers = threading.local()
+        # the char-gram lookups, loaded on the first query that needs
+        # them, under the lock
+        self._index_dir = index_dir
+        self._lazy_lock = threading.Lock()
+        self._wildcard: list | None = None
+        self._wildcard_tried = False
         self._norms_np: np.ndarray | None = None
         self._norms: torch.Tensor | None = None
         self._host_pairs: tuple | None = None
@@ -340,39 +373,293 @@ class Scorer:
                        meta=meta, layout=layout,
                        compat_int_idf=compat_int_idf, device=dev,
                        tiers=tiers, prune=prune, pairs_loader=loader,
-                       deadline_s=deadline_s)
+                       deadline_s=deadline_s, index_dir=index_dir)
         # the term column is read by the dense scatter only
         return cls(vocab=vocab, mapping=mapping,
                    pair_term=pair_term_from_df(df), pair_doc=pair_doc,
                    pair_tf=pair_tf, df=df, doc_len=doc_len, meta=meta,
                    layout=layout, compat_int_idf=compat_int_idf, device=dev,
-                   prune=prune, pairs_loader=loader, deadline_s=deadline_s)
+                   prune=prune, pairs_loader=loader, deadline_s=deadline_s,
+                   index_dir=index_dir)
 
     # -- query pipeline ----------------------------------------------------
+
+    def _analyzer(self) -> Analyzer:
+        analyzer = getattr(self._analyzers, "analyzer", None)
+        if analyzer is None:
+            analyzer = self._analyzers.analyzer = Analyzer()
+        return analyzer
+
+    def _wildcard_lookups(self) -> list:
+        """The char-gram lookups, largest k first, loaded once; [] when
+        the index has no char-gram artifacts or no directory. They cover
+        the token vocabulary: a k = 1 index's own vocabulary (shared), a
+        k > 1 index's tokens.txt."""
+        if not self._wildcard_tried:
+            with self._lazy_lock:
+                if not self._wildcard_tried:
+                    self._load_wildcard_lookups()
+        return self._wildcard or []
+
+    def _load_wildcard_lookups(self) -> None:
+        """Under _lazy_lock; sets _wildcard_tried last, so no reader sees
+        it set with the lookups unloaded."""
+        try:
+            if self._index_dir and self.meta.chargram_ks:
+                from ..index.builder import TOKENS_VOCAB
+                from .wildcard import WildcardLookup
+
+                if self.meta.k == 1:
+                    shared = self.vocab
+                else:
+                    # one read of tokens.txt for every k
+                    tok = os.path.join(self._index_dir, TOKENS_VOCAB)
+                    shared = Vocab.load(tok) if os.path.exists(tok) \
+                        else None
+                self._wildcard = [
+                    WildcardLookup.load(self._index_dir, ck, vocab=shared)
+                    for ck in sorted(self.meta.chargram_ks, reverse=True)]
+        finally:
+            self._wildcard_tried = True
+
+    def _pattern_tokens(self, pattern: str) -> list[str] | None:
+        """The token-vocabulary expansion of one glob pattern through the
+        largest char-gram k whose grams cover it; None when none does
+        (a pattern too short for every k, such as '*')."""
+        for lookup in self._wildcard_lookups():
+            if lookup.pattern_grams(pattern):
+                # k > 1 keeps the lexicographically first LIMIT matches,
+                # the prefix a limited expand returns; k = 1 ranks every
+                # match by df
+                limit = (None if self.meta.k == 1
+                         else self.WILDCARD_LIMIT + 1)
+                terms = lookup.expand(pattern, limit=limit)
+                if len(terms) > self.WILDCARD_LIMIT:
+                    terms = self._truncate_expansion(pattern, terms)
+                return terms
+        return None
+
+    def _truncate_expansion(self, pattern: str, terms: list[str]
+                            ) -> list[str]:
+        """An over-limit expansion cut to WILDCARD_LIMIT terms. k = 1: the
+        highest-df matches, ties to the lower term id, in (df desc, id
+        asc) order. k > 1 (the token vocabulary has no df): the
+        lexicographically first ones. Both are the JAX package's pinned
+        rules."""
+        if self.meta.k != 1:
+            logger.warning(
+                "pattern %r matches more than %d terms; expansion "
+                "truncated to the lexicographically-first %d",
+                pattern, self.WILDCARD_LIMIT, self.WILDCARD_LIMIT)
+            return terms[: self.WILDCARD_LIMIT]
+        logger.warning(
+            "pattern %r matches %d terms; expansion truncated to %d",
+            pattern, len(terms), self.WILDCARD_LIMIT)
+        df = self._df_host
+        ids = np.array([self.vocab.id_or(t) for t in terms])
+        order = np.lexsort((ids, -df[ids]))[: self.WILDCARD_LIMIT]
+        return [terms[i] for i in order.tolist()]
+
+    def _fuzzy_lookup_for(self, token: str, max_edits: int):
+        """The lookup fuzzy expansion consults: the largest k whose count
+        bound stays positive for this token (else the smallest k), so a
+        short term keeps its one-edit neighbours that share no large
+        gram ('cat'/'cut' at k = 3)."""
+        lookups = self._wildcard_lookups()
+        return next(
+            (lk for lk in lookups
+             if len(token) + 3 - lk.k - max_edits * lk.k >= 1),
+            lookups[-1])
+
+    def _fuzzy_terms(self, token: str, max_edits: int) -> list[str]:
+        """The fuzzy expansion of one token over a k = 1 index's
+        vocabulary: at most WILDCARD_LIMIT matches, in (distance asc, df
+        desc, term id asc) order."""
+        lookup = self._fuzzy_lookup_for(token, max_edits)
+        matches = lookup.fuzzy(token, max_edits=max_edits)
+        if not matches:
+            return []
+        ids = np.array([self.vocab.id_or(t) for t, _ in matches])
+        dist = np.array([d for _, d in matches])
+        df = self._df_host
+        order = np.lexsort((ids, -df[ids], dist))[: self.WILDCARD_LIMIT]
+        if len(matches) > self.WILDCARD_LIMIT:
+            logger.warning(
+                "fuzzy token %r~%d matches %d terms; expansion truncated "
+                "to %d", token, max_edits, len(matches),
+                self.WILDCARD_LIMIT)
+        return [matches[i][0] for i in order.tolist()]
+
+    def _expand_fuzzy(self, text: str) -> tuple[str, list[int]]:
+        """The text without its fuzzy tokens, and the term ids of their
+        expansions (an OR, as for wildcards); k = 1."""
+        from .wildcard import MAX_FUZZY_EDITS
+
+        extra: list[int] = []
+
+        def repl(m: re.Match) -> str:
+            tok = m.group(1).strip(_EDGE_PUNCT).lower()
+            if not tok or "*" in tok or "?" in tok:
+                return m.group(0)   # glob and fuzzy: the glob path's
+            # '~0' probes for the exact term, '~' alone is one edit
+            d = min(int(m.group(2)) if m.group(2) else 1, MAX_FUZZY_EDITS)
+            for t in self._fuzzy_terms(tok, d):
+                tid = self.vocab.id_or(t)
+                if tid >= 0:
+                    extra.append(tid)
+            return " "
+
+        return _FUZZY_RE.sub(repl, text), extra
+
+    def _expand_wildcards(self, text: str) -> tuple[str, list[int]]:
+        """The text without its glob tokens, and the term ids of their
+        vocabulary expansions (an OR over the matches); k = 1."""
+        extra: list[int] = []
+
+        def repl(m: re.Match) -> str:
+            token = m.group(0).strip(_EDGE_PUNCT)
+            literals = []
+            for part in _GLOB_SPLIT_RE.split(token):
+                # a trailing '?' is a question mark, not a glob: 'river?'
+                # is the literal term 'river'
+                part = part.rstrip("?")
+                if not part:
+                    continue
+                if ("*" not in part and "?" not in part
+                        # without char-grams the analyzer reads the part
+                        or not self._wildcard_lookups()):
+                    literals.append(part)
+                else:
+                    # a pattern no k covers ('*') expands to nothing,
+                    # never to a scan of the vocabulary
+                    for t in self._pattern_tokens(part.lower()) or []:
+                        tid = self.vocab.id_or(t)
+                        if tid >= 0:
+                            extra.append(tid)
+            return " ".join(literals) if literals else " "
+
+        return _WILDCARD_RE.sub(repl, text), extra
+
+    def _fuzzy_tokens(self, token: str, max_edits: int) -> list[str]:
+        """The fuzzy expansion of one token over a k > 1 index's token
+        vocabulary (no df there): at most WILDCARD_LIMIT matches in
+        (distance asc, term asc) order, WildcardLookup.fuzzy's own."""
+        lookup = self._fuzzy_lookup_for(token, max_edits)
+        matches = lookup.fuzzy(token, max_edits=max_edits,
+                               limit=self.WILDCARD_LIMIT + 1)
+        if len(matches) > self.WILDCARD_LIMIT:
+            logger.warning(
+                "fuzzy token %r~%d matches more than %d terms; expansion "
+                "truncated", token, max_edits, self.WILDCARD_LIMIT)
+            matches = matches[: self.WILDCARD_LIMIT]
+        return [t for t, _ in matches]
+
+    def _analyze_expansion_kgram(self, text: str) -> list[int]:
+        """A k > 1 query with glob or fuzzy tokens: each such token
+        expands over the token vocabulary to one slot of candidates, each
+        literal token is a slot of one, and every window of k slots
+        composes its k-gram terms (the cartesian product, at most
+        WILDCARD_LIMIT a window); each window is an OR over the composed
+        terms the vocabulary holds."""
+        from .wildcard import MAX_FUZZY_EDITS
+
+        analyzer = self._analyzer()
+        slots: list[list[str]] = []
+        for raw in text.split():
+            fm = (None if "*" in raw or "?" in raw
+                  else _FUZZY_RE.search(raw))
+            if fm is not None:
+                tok = fm.group(1).strip(_EDGE_PUNCT).lower()
+                if tok:
+                    d = min(int(fm.group(2)) if fm.group(2) else 1,
+                            MAX_FUZZY_EDITS)
+                    slots.append(self._fuzzy_tokens(tok, d))
+                    continue
+                # nothing left after the punctuation: a literal token
+            if "*" in raw or "?" in raw:
+                token = raw.strip(_EDGE_PUNCT)
+                for part in _GLOB_SPLIT_RE.split(token):
+                    part = part.rstrip("?")
+                    if not part:
+                        continue
+                    if "*" not in part and "?" not in part:
+                        for t in analyzer.analyze(part):
+                            slots.append([t])
+                    else:
+                        # no expansion: a slot no window matches through
+                        slots.append(self._pattern_tokens(part.lower())
+                                     or [])
+            else:
+                for t in analyzer.analyze(raw):
+                    slots.append([t])
+        k = self.meta.k
+        row: list[int] = []
+        seen: set[int] = set()
+        for i in range(max(len(slots) - k + 1, 0)):
+            window = slots[i : i + k]
+            if any(not s for s in window):
+                continue
+            # each multi-candidate slot gets the same share of the
+            # window's WILDCARD_LIMIT combinations (itertools.product
+            # varies the last slot fastest, so a plain cut would spend
+            # the budget on the first candidate of a leading glob); the
+            # share is the exact integer root, not a truncated float one
+            n_multi = sum(1 for s in window if len(s) > 1)
+            if n_multi:
+                per_slot = max(
+                    int(self.WILDCARD_LIMIT ** (1.0 / n_multi)), 1)
+                while (per_slot + 1) ** n_multi <= self.WILDCARD_LIMIT:
+                    per_slot += 1
+                window = [s[:per_slot] if len(s) > 1 else s
+                          for s in window]
+            for combo in itertools.islice(
+                    itertools.product(*window), self.WILDCARD_LIMIT):
+                tid = self.vocab.id_or(KGRAM_SEP.join(combo))
+                if tid >= 0 and tid not in seen:
+                    seen.add(tid)
+                    row.append(tid)
+        return row
 
     def analyze_queries(self, texts: Sequence[str],
                         width_floor: int | None = None) -> np.ndarray:
         """Analyze query texts into an int32 [B, L] id array (pad -1).
 
         Unknown terms are dropped (the reference's dictionary-miss path).
-        L is the longest row, raised to `width_floor` when one is given
-        (the coalescer pins every batch to one width; a -1 slot adds an
-        exact 0), then bucketed up to a power of two, as in the JAX
-        package."""
-        analyzer = getattr(self._analyzers, "analyzer", None)
-        if analyzer is None:
-            analyzer = self._analyzers.analyzer = Analyzer()
+        Glob and fuzzy tokens expand to an OR over vocabulary terms
+        through the char-gram index, as in the JAX package; ids an
+        expansion shares with the literal terms, or with another
+        expansion, are kept once. L is the longest row, raised to
+        `width_floor` when one is given (the coalescer pins every batch
+        to one width and never cuts a wider row; a -1 slot adds an exact
+        0), then bucketed up to a power of two, as in the JAX package."""
+        analyzer = self._analyzer()
         rows = []
         for text in texts:
-            # without char-gram artifacts the JAX package, too, reads glob
-            # and fuzzy tokens as literal text; with them it expands them
-            if self.meta.chargram_ks and (_WILDCARD_RE.search(text) or (
-                    "~" in text and _FUZZY_RE.search(text))):
-                raise ValueError(f"wildcard and fuzzy expansion {_LATER}:"
-                                 f" {text!r}")
+            extra: list[int] = []
+            has_fuzzy = "~" in text and _FUZZY_RE.search(text) is not None
+            lookups = (self._wildcard_lookups()
+                       if has_fuzzy or "*" in text or "?" in text else [])
+            if has_fuzzy and not lookups:
+                logger.warning(
+                    "query %r contains a fuzzy token but the index has "
+                    "no char-gram artifacts; '~' is treated as "
+                    "punctuation (rebuild with chargrams for fuzzy)",
+                    text)
+            if has_fuzzy and self.meta.k == 1 and lookups:
+                text, extra = self._expand_fuzzy(text)
+            has_glob = "*" in text or "?" in text
+            if (has_glob or has_fuzzy) and self.meta.k > 1 and lookups:
+                rows.append(self._analyze_expansion_kgram(text))
+                continue
+            if has_glob:
+                text, wc_extra = self._expand_wildcards(text)
+                extra += wc_extra
             grams = kgram_terms(analyzer.analyze(text), self.meta.k)
-            rows.append([i for i in (self.vocab.id_or(g) for g in grams)
-                         if i >= 0])
+            row = [i for i in (self.vocab.id_or(g) for g in grams)
+                   if i >= 0]
+            seen = set(row)
+            row += [i for i in dict.fromkeys(extra) if i not in seen]
+            rows.append(row)
         cap = max(max((len(r) for r in rows), default=1), 1)
         if width_floor:
             cap = max(cap, int(width_floor))
