@@ -41,7 +41,17 @@ code:
               k = 10, checked against an exhaustive numpy oracle (recall@10
               on 64 queries, both scorings) and the kernels' launch counts;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
-              over the same queries: q/s, device time, launches;
+              over the same queries: q/s, device time, launches; then
+              `explain`: 256 of the queries as texts through search_batch
+              with explain_k = 10 (TF-IDF, BM25 and the rerank): every
+              entry's float64 sum of contributions equals its score, and
+              its score the returned one, as float32 bits, and the same
+              call with every kernel swapped for its plain twin gives the
+              same bits; explain ms a query. Explain runs again after 9
+              (ref-v3, TF-IDF and BM25) and 13 (wiki100k, uniform and
+              hot-term traffic, TF-IDF, BM25 and the rerank); over those
+              runs each of dense_score, dequant_score, cold_tier and
+              hot_stage must launch (`explain_launches`);
 7. sparse     the same index and queries on the tiered sparse layout,
               held against the dense layout's top-10 row by row; then its
               rerank against the dense layout's (same docs, rtol 1e-6);
@@ -110,13 +120,33 @@ code:
               layout "auto" (2,000 two- and three-token texts, recall@10
               = 1.0 against the oracle; 200 globs composed over
               tokens.txt): build wall s and docs/s, V, the layout, q/s,
-              device time and launches.
+              device time and launches;
+19. positions format v2 position runs: ref one-shot, legacy streaming
+              and a radix request (which falls back to the per-batch pass
+              2 with its warning), every artifact with one sha256;
+              wiki100k streaming with the store (a radix request) and
+              one-shot, their shared artifacts with one sha256; verify
+              on each; wall s, docs/s, positions bytes, peak host RSS;
+20. prox      ref and wiki100k (their positions indexes): the 10,000
+              uniform queries as texts through search_batch(rerank=1,000,
+              prox=True): q/s and the launches of stage 1 and of the
+              cosine stage; 64 queries (32 uniform, 32 pairs of common
+              terms) held bitwise against the boost recomputed in numpy
+              from the position files;
+21. phrase    wiki100k: 2,000 quoted windows of 2-3 analyzed tokens of
+              random docs (default_rng(12)), half with a free term, at
+              slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
+              100 phrases a slop held against a scan of the token streams
+              of the document store;
+22. snippets  wiki100k: 200 hits through a ServingFrontend with
+              snippets=True, every marked word one of the query's
+              analyzed tokens; ms a snippet.
 
 Then the serving tier (tpu_ir_torch.serving) over `ref` and `wiki100k`,
-loaded again, with the kernels' launches counted from phase 19 to the end
-of phase 21 (each of dense_score, cold_tier and hot_stage must launch):
+loaded again, with the kernels' launches counted from phase 23 to the end
+of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
 
-19. frontend  on each: a ServingFrontend search at level full bitwise
+23. frontend  on each: a ServingFrontend search at level full bitwise
               search_batch's; 16 texts of 1 to 8 terms in rung-padded
               batches (1, 3 and 16 texts at width floor 8, the
               coalescer's dispatch, and the 16 once more with every
@@ -126,14 +156,14 @@ of phase 21 (each of dense_score, cold_tier and hot_stage must launch):
               (its ladder stepped down), which launches hot_stage and
               never cold_tier and gives the bits of hot_stage's plain
               twin on the same path;
-20. soak      wiki100k, 8 threads x 480 requests of make_queries through a
+24. soak      wiki100k, 8 threads x 480 requests of make_queries through a
               coalescing frontend: a clean run (served + shed ==
               submitted, no error, deadlock, untagged mismatch or
               degraded response, no forced host batch, kernels launched),
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
-21. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              2,000 requests a level, BM25 and TF-IDF, three times each:
+25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
+              2,000 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
@@ -148,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -514,15 +545,16 @@ def phase_dequant_score(card: str, *, vocab_rows: int, width: int,
 
 
 def phase_build(card: str, work: str, *, device: str,
-                config: str = "ref") -> tuple[dict, str]:
+                config: str = "ref", keep_corpus: bool = False
+                ) -> tuple[dict, str]:
     """A configuration's corpus, generated from seed 0, indexed one-shot
     into 10 shards with build_index's defaults (the native tokenizer,
     char-grams k = 2, 3). The CPU test shrinks the corpora through
     REF_CORPUS and WIKI_CORPUS, test hooks only. At ref the host analysis
     is timed once more on its own, through the pure-Python analyzer
     (`analyze_alone_s`) and through the native C++ pass
-    (`native_analyze_alone_s`); at wiki100k the corpus stays for
-    phase_build_streaming."""
+    (`native_analyze_alone_s`). With `keep_corpus` the corpus stays at
+    work/<config>.trec (for phase_positions)."""
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.index import build_index
 
@@ -560,7 +592,8 @@ def phase_build(card: str, work: str, *, device: str,
         t0 = time.perf_counter()
         tokenize_corpus_native([corpus])
         out["native_analyze_alone_s"] = time.perf_counter() - t0
-    os.unlink(corpus)
+    if not keep_corpus:
+        os.unlink(corpus)
     return out, idx
 
 
@@ -648,7 +681,8 @@ def pass2_device(prof) -> dict:
 
 
 def phase_build_streaming(card: str, work: str, *, device: str,
-                          config: str = "wiki100k") -> tuple[dict, str]:
+                          config: str = "wiki100k",
+                          keep_corpus: bool = False) -> tuple[dict, str]:
     """The configuration's corpus (seed 0, WIKI_CORPUS) built three ways
     into 10 shards: the streaming radix build (16 buckets, batch_docs
     50,000, store, char-grams 2, 3; under torch.profiler for pass 2's
@@ -657,7 +691,8 @@ def phase_build_streaming(card: str, work: str, *, device: str,
     sha256, and verify_index must pass on the radix build, whose index
     dir is returned. For each build: wall s, docs/s, the phase timings
     of its job report, the radix spill bytes, peak host RSS and
-    torch.cuda.max_memory_allocated."""
+    torch.cuda.max_memory_allocated. With `keep_corpus` the corpus stays
+    at work/<config>.trec (for phase_positions)."""
     import torch
 
     from tpu_ir_torch.corpus import make_corpus
@@ -713,7 +748,8 @@ def phase_build_streaming(card: str, work: str, *, device: str,
             row["pass2"] = pass2_device(prof)
         out["builds"][name] = row
         digests[name] = artifact_digests(d)
-    os.unlink(corpus)
+    if not keep_corpus:
+        os.unlink(corpus)
     shared = sorted(set(digests["radix"]) & set(digests["legacy"])
                     & set(digests["oneshot"]))
     store_only = sorted(set(digests["radix"]) - set(digests["oneshot"]))
@@ -2247,7 +2283,7 @@ SOAK_THREADS = 8
 SOAK_QUERIES = 480
 SWEEP_LEVELS = (1, 4, 16)
 SWEEP_QUERIES = 2000             # per level
-SWEEP_REPEATS = 3                # sweeps per scoring, for the spread
+SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
 
@@ -2594,6 +2630,530 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
     return out
 
 
+# -- positions, phrase, proximity, explain, snippets --------------------------
+
+POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
+PHRASE_TEXTS = 2_000            # phrase texts of the wiki100k phrase phase
+PHRASE_SLOPS = (0, 2)
+PHRASE_ORACLE = 100             # phrases a slop held against a stream scan
+PROX_QUERIES = 10_000           # uniform queries through the prox rerank
+PROX_CANDIDATES = 1_000
+PROX_ORACLE = 64                # queries whose boost numpy recomputes
+EXPLAIN_QUERIES = 256           # queries of each explain traffic
+EXPLAIN_K = 10
+SNIPPET_HITS = 200              # hits rendered through the frontend
+
+
+class CapturedLog(logging.Handler):
+    """The messages one logger emits inside a `with` block."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.WARNING)
+        self.messages: list[str] = []
+        self._logger = logging.getLogger(name)
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        return False
+
+
+def positions_bytes(idx: str) -> int:
+    return sum(os.path.getsize(os.path.join(idx, f))
+               for f in os.listdir(idx) if f.startswith("positions-"))
+
+
+def timed_build(build, d: str, device: str) -> dict:
+    """One build into `d`: wall s, docs/s, peak host RSS, the positions
+    bytes, the job's phase timings, the streaming build's radix fallback
+    warning."""
+    import torch
+
+    on_card = device == "cuda"
+    with PeakRss() as rss, CapturedLog("tpu_ir_torch.index.streaming") as log:
+        t0 = time.perf_counter()
+        meta = build(d)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not meta.has_positions or meta.version != 2:
+        raise AssertionError(f"{d}: metadata {meta.__dict__}")
+    return {"wall_s": wall, "docs_per_s": meta.num_docs / wall,
+            "num_docs": meta.num_docs, "num_pairs": meta.num_pairs,
+            "positions_bytes": positions_bytes(d),
+            "peak_host_rss_bytes": rss.peak,
+            "host_rss_start_bytes": rss.start,
+            "timings_s": job_timings(d),
+            "radix_fallback_warning": any("radix partitioning is "
+                                          "unavailable" in m
+                                          for m in log.messages)}
+
+
+def phase_positions(card: str, work: str, *, device: str
+                    ) -> tuple[dict, dict]:
+    """Format v2 position runs in both builds at full scale. `ref`:
+    one-shot, legacy streaming (batches of POSITIONS_REF_BATCH docs) and
+    a radix request (16 buckets), which must fall back to the per-batch
+    pass 2 with its warning; every artifact of the three has one sha256.
+    `wiki100k`: streaming with the store and a radix request (the same
+    fallback) and one-shot (no store); the artifacts they share, the
+    position runs included, have one sha256. verify_index passes on each.
+    The corpora are the ones phase_build and phase_build_streaming kept
+    in `work`, deleted here. Returns (report, {"ref": the one-shot
+    index, "wiki100k": the streaming index with the store})."""
+    from tpu_ir_torch.index import build_index, build_index_streaming
+    from tpu_ir_torch.index.verify import verify_index
+
+    out = {"phase": "positions", "card": card, "configs": {}}
+    keep = {}
+    for config, builds in (
+            ("ref", {
+                "oneshot": lambda c, d: build_index(
+                    c, d, num_shards=10, positions=True, device=device),
+                "legacy": lambda c, d: build_index_streaming(
+                    c, d, num_shards=10, batch_docs=POSITIONS_REF_BATCH,
+                    radix_buckets=0, positions=True, device=device),
+                "radix": lambda c, d: build_index_streaming(
+                    c, d, num_shards=10, batch_docs=POSITIONS_REF_BATCH,
+                    radix_buckets=16, positions=True, device=device)}),
+            ("wiki100k", {
+                "streaming": lambda c, d: build_index_streaming(
+                    c, d, num_shards=10, batch_docs=50_000,
+                    radix_buckets=16, store=True, positions=True,
+                    device=device),
+                "oneshot": lambda c, d: build_index(
+                    c, d, num_shards=10, positions=True, device=device)})):
+        corpus = os.path.join(work, f"{config}.trec")
+        row = {"builds": {}}
+        digests, dirs = {}, {}
+        for name, build in builds.items():
+            d = dirs[name] = os.path.join(work, f"{config}-pos-{name}")
+            row["builds"][name] = timed_build(
+                lambda p: build(corpus, p), d, device)
+            digests[name] = artifact_digests(d)
+            warned = row["builds"][name]["radix_fallback_warning"]
+            if name != "oneshot" and warned != (name != "legacy"):
+                raise AssertionError(f"{config} {name}: radix fallback "
+                                     f"warning {warned}")
+        os.unlink(corpus)
+        names = [set(v) for v in digests.values()]
+        shared = sorted(set.intersection(*names))
+        extra = sorted(set.union(*names) - set(shared))
+        if extra not in ([], ["docstore-idx.npz", "docstore.bin"]) or \
+                "positions-00009.npz" not in shared:
+            raise AssertionError(f"{config}: artifact sets differ: {extra}")
+        differ = [n for n in shared
+                  if len({digests[b][n] for b in digests}) != 1]
+        if differ:
+            raise AssertionError(f"{config}: the positions builds differ "
+                                 f"in {differ}")
+        row["identical_artifacts"] = len(shared)
+        row["sha256"] = {n: digests["oneshot"][n][:16] for n in shared
+                         if n.startswith("positions-0000")}
+        row["verify_s"] = {}
+        for name in ("oneshot", "streaming" if config == "wiki100k"
+                     else "legacy"):
+            t0 = time.perf_counter()
+            report = verify_index(dirs[name])
+            row["verify_s"][name] = time.perf_counter() - t0
+            if not report["ok"] or not report["has_positions"]:
+                raise AssertionError(f"{config} {name}: verify {report}")
+        keep[config] = dirs["oneshot" if config == "ref" else "streaming"]
+        for name, d in dirs.items():
+            if d != keep[config]:
+                shutil.rmtree(d)
+        out["configs"][config] = row
+    return out, keep
+
+
+def store_streams(idx: str, work: str):
+    """Every document's analyzed token stream, from the document store:
+    the stored records written to one TREC file and run through the
+    native corpus pass. Returns (flat token ids int32, doc of each token
+    int32 (docno), {token: id})."""
+    from tpu_ir_torch.analysis.native import tokenize_corpus_native
+    from tpu_ir_torch.collection import DocnoMapping
+    from tpu_ir_torch.index import format as fmt
+    from tpu_ir_torch.index.docstore import DocStore
+
+    mapping = DocnoMapping.load(os.path.join(idx, fmt.DOCNOS))
+    store = DocStore(idx)
+    path = os.path.join(work, "store-records.trec")
+    with open(path, "w", encoding="utf-8") as f:
+        for docno in range(1, len(mapping) + 1):
+            f.write(store.get(docno))
+            f.write("\n")
+    store.close()
+    docids, ids, lengths, vocab = tokenize_corpus_native([path])
+    os.unlink(path)
+    docnos = np.array([mapping.get_docno(d) for d in docids], np.int32)
+    doc_of = np.repeat(docnos, lengths)
+    return ids, doc_of, {t: i for i, t in enumerate(vocab)}
+
+
+def window_scan(flat: np.ndarray, doc_of: np.ndarray, ids: list[int],
+                slop: int) -> list[int]:
+    """Docnos whose token stream holds `ids` in order within a span of
+    len(ids) - 1 + slop: every start of the first id, and each later id
+    looked for in the rest of the start's window, one column at a time
+    (a numpy scan of the stream, apart from the position runs)."""
+    span = len(ids) - 1 + slop
+    starts = np.flatnonzero(flat == ids[0])
+    if not len(starts):
+        return []
+    offs = starts[:, None] + np.arange(1, span + 1)[None, :]
+    inside = offs < len(flat)
+    offs = np.minimum(offs, len(flat) - 1)
+    win = np.where(inside & (doc_of[offs] == doc_of[starts][:, None]),
+                   flat[offs], -1)
+    cursor = np.full(len(starts), -1)
+    alive = np.ones(len(starts), bool)
+    for t in ids[1:]:
+        # the first occurrence of t after the cursor, in each window
+        hit = (win == t) & (np.arange(span)[None, :] > cursor[:, None])
+        found = hit.any(axis=1)
+        alive &= found
+        cursor = np.where(found, hit.argmax(axis=1), span)
+    return sorted(set(doc_of[starts[alive]].tolist()))
+
+
+def phrase_texts(flat: np.ndarray, doc_of: np.ndarray, vocab: list[str],
+                 analyzer, n: int, seed: int = 12) -> list[tuple]:
+    """`n` (text, window tokens) pairs: a quoted window of 2-3 consecutive
+    analyzed tokens of a random doc (so that doc matches), every second
+    one with one more token of the same doc after the quotes. Windows
+    whose tokens would not analyze back to themselves as query text are
+    drawn again."""
+    rng = np.random.default_rng(seed)
+    bounds = np.flatnonzero(np.diff(doc_of)) + 1
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [len(flat)]])
+    out = []
+    while len(out) < n:
+        d = int(rng.integers(len(starts)))
+        lo, hi = int(starts[d]), int(ends[d])
+        m = int(rng.integers(2, 4))
+        if hi - lo < m:
+            continue
+        i = lo + int(rng.integers(hi - lo - m + 1))
+        window = [vocab[t] for t in flat[i:i + m]]
+        text = '"' + " ".join(window) + '"'
+        extra = []
+        if len(out) % 2:
+            extra = [vocab[int(flat[lo + int(rng.integers(hi - lo))])]]
+            text += " " + extra[0]
+        if analyzer.analyze(text.replace('"', " ")) != window + extra:
+            continue
+        out.append((text, window))
+    return out
+
+
+def phase_phrase(card: str, scorer, idx: str, work: str, *, device: str,
+                 k: int = 10) -> dict:
+    """Phrase queries on the wiki100k positions index: PHRASE_TEXTS texts
+    (phrase_texts, default_rng(12)) through search_batch at each slop of
+    PHRASE_SLOPS, TF-IDF and BM25: every text answers (its source doc
+    matches), scores finite and ranked; q/s, and on the card the device's
+    idle share of a call over the first 200 texts (phrase queries run on
+    the host). Then
+    PHRASE_ORACLE phrases a slop: match_window against a scan of the
+    documents' analyzed token streams from the store (window_scan)."""
+    from tpu_ir_torch.analysis import Analyzer
+
+    t0 = time.perf_counter()
+    flat, doc_of, vocab_ids = store_streams(idx, work)
+    vocab = [None] * len(vocab_ids)
+    for t, i in vocab_ids.items():
+        vocab[i] = t
+    streams_s = time.perf_counter() - t0
+    pairs = phrase_texts(flat, doc_of, vocab, Analyzer(), PHRASE_TEXTS)
+    texts = [t for t, _ in pairs]
+    out = {"phase": "phrase", "card": card, "config": "wiki100k",
+           "texts": len(texts), "k": k, "examples": texts[:4],
+           "store_streams_s": streams_s, "runs": {}}
+    t0 = time.perf_counter()
+    scorer.search_batch(texts[:8], k=k)             # loads the runs
+    out["first_load_s"] = time.perf_counter() - t0
+    for slop in PHRASE_SLOPS:
+        for scoring in ("tfidf", "bm25"):
+            t0 = time.perf_counter()
+            res = scorer.search_batch(texts, k=k, scoring=scoring,
+                                      phrase_slop=slop)
+            wall = time.perf_counter() - t0
+            for t, r in zip(texts, res):
+                s = [x[1] for x in r]
+                if not r or not all(np.isfinite(s)) or \
+                        s != sorted(s, reverse=True):
+                    raise AssertionError(f"{t!r} slop {slop} {scoring}: "
+                                         f"{r!r}")
+            row = {"s": wall, "qps": len(texts) / wall,
+                   "mean_hits": float(np.mean([len(r) for r in res]))}
+            if device == "cuda" and slop == 0 and scoring == "tfidf":
+                # the first 200 texts under the profiler: phrase queries
+                # dispatch nothing to the card
+                row["profile"] = profile_call(lambda: scorer.search_batch(
+                    texts[:200], k=k, scoring=scoring, phrase_slop=slop))
+                row["host_share"] = row["profile"]["idle_share"]
+            out["runs"][f"slop{slop}-{scoring}"] = row
+    pidx = scorer._phrase_index()
+    t0 = time.perf_counter()
+    checked = matched = 0
+    for slop in PHRASE_SLOPS:
+        for _, window in pairs[:PHRASE_ORACLE]:
+            want = window_scan(flat, doc_of, [vocab_ids[t] for t in window],
+                               slop)
+            got = pidx.match_window(window, slop=slop)
+            if got != want:
+                raise AssertionError(f"match_window({window}, {slop}): "
+                                     f"{len(got)} docs, the stream scan "
+                                     f"{len(want)}")
+            checked += 1
+            matched += len(got)
+    out["oracle"] = {"phrases": checked, "matched_docs": matched,
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def plain_min_gap(reader, dictionary, a: str, b: str, docno: int):
+    """Smallest |pos_a - pos_b| in a doc by an outer difference of the
+    two runs read from the position files, or None."""
+    runs = []
+    for t in (a, b):
+        tp = dictionary.get_value(t)
+        if tp is None:
+            return None
+        hit = np.flatnonzero(tp.postings[:, 0] == docno)
+        if not len(hit):
+            return None
+        runs.append(reader.run(tp.shard, tp.offset + int(hit[0])))
+    return int(np.abs(runs[0][:, None] - runs[1][None, :]).min())
+
+
+def phase_prox(card: str, scorer, q_ids: np.ndarray, *, config: str,
+               device: str, k: int = 10) -> dict:
+    """The proximity-boosted rerank (search_batch(rerank=PROX_CANDIDATES,
+    prox=True)) over the first PROX_QUERIES uniform queries as texts:
+    q/s, the kernels' launches by stage 1 (the BM25 candidates) and by
+    the cosine stage; then for PROX_ORACLE queries (half of them uniform,
+    half pairs of the 200 largest-df terms, which co-occur, so the boost
+    engages) the boost recomputed in numpy from the rerank's own
+    candidates (plain_min_gap over the position files, the float64
+    product, the (score desc, docno asc) order): the final order and
+    scores must equal search_batch's bitwise."""
+    import tpu_ir_torch
+    from tpu_ir_torch.index.dictionary import Dictionary
+    from tpu_ir_torch.index.positions import PositionsReader
+    from tpu_ir_torch.search.phrase import PROX_ALPHA, PROX_DEPTH
+
+    terms = scorer.vocab.terms
+    texts = [" ".join(terms[int(t)] for t in row)
+             for row in q_ids[:PROX_QUERIES]]
+    scorer.search_batch(texts[:64], k=k, rerank=PROX_CANDIDATES, prox=True)
+    stage1 = {n: 0 for n in tpu_ir_torch.kernel_launches()}
+    real = scorer._topk_device
+
+    def counted(*a, **kw):
+        before = tpu_ir_torch.kernel_launches()
+        try:
+            return real(*a, **kw)
+        finally:
+            for n, v in launch_delta(before).items():
+                stage1[n] += v
+
+    before = tpu_ir_torch.kernel_launches()
+    scorer._topk_device = counted
+    try:
+        t0 = time.perf_counter()
+        res = scorer.search_batch(texts, k=k, rerank=PROX_CANDIDATES,
+                                  prox=True, return_docids=False)
+        wall = time.perf_counter() - t0
+    finally:
+        del scorer._topk_device
+    total = launch_delta(before)
+    for r in res:
+        s = [x[1] for x in r]
+        if not all(np.isfinite(s)) or s != sorted(s, reverse=True):
+            raise AssertionError(f"{config} prox: {r!r}")
+    out = {"phase": "prox", "card": card, "config": config,
+           "layout": scorer.layout, "queries": len(texts), "k": k,
+           "candidates": PROX_CANDIDATES, "s": wall,
+           "qps": len(texts) / wall,
+           "answered": sum(1 for r in res if r),
+           "launches_stage1": stage1,
+           "launches_cosine": {n: total[n] - stage1[n] for n in total}}
+    # the oracle: the same rerank without the boost, then numpy
+    idx = scorer._index_dir
+    dictionary, reader = Dictionary(idx), PositionsReader(idx)
+    common = np.argsort(-scorer._df_host, kind="stable")[:200]
+    pairs = np.random.default_rng(13).choice(
+        common, (PROX_ORACLE - PROX_ORACLE // 2, 2))
+    sub = texts[:PROX_ORACLE // 2] + [" ".join(terms[int(t)] for t in p)
+                                      for p in pairs]
+    res = (res[:PROX_ORACLE // 2]
+           + scorer.search_batch(sub[PROX_ORACLE // 2:], k=k,
+                                 rerank=PROX_CANDIDATES, prox=True,
+                                 return_docids=False))
+    q = scorer.analyze_queries(sub)
+    kk = max(k, min(PROX_DEPTH, PROX_CANDIDATES))
+    sc, dn = scorer.rerank_topk(q, k=kk, candidates=PROX_CANDIDATES)
+    boosted = 0
+    for qi, text in enumerate(sub):
+        seq = scorer._query_term_sequence(text)
+        row = sc[qi].astype(np.float64)
+        for j in range(kk):
+            if dn[qi, j] > 0 and row[j] > 0 and len(seq) > 1:
+                bonus = 0.0
+                for a, b in zip(seq, seq[1:]):
+                    if a == b:
+                        continue
+                    g = plain_min_gap(reader, dictionary, a, b,
+                                      int(dn[qi, j]))
+                    if g is not None:
+                        bonus += 1.0 / (1.0 + g)
+                boosted += bonus > 0
+                row[j] *= 1.0 + PROX_ALPHA * bonus
+        order = np.lexsort((dn[qi], -row))[:k]
+        order = order[row[order] > 0]
+        want = [(int(dn[qi, j]), np.float32(row[j]).tobytes())
+                for j in order]
+        got = [(d, np.float32(s).tobytes()) for d, s in res[qi]]
+        if got != want:
+            raise AssertionError(f"{config} prox {text!r}: {res[qi]!r}")
+    if not boosted:
+        raise AssertionError(f"{config} prox: the boost never engaged")
+    out["oracle"] = {"queries": len(sub), "boosted_candidates": int(boosted)}
+    return out
+
+
+def explain_rows(results) -> list:
+    """Every explained hit as (docno, score bits, contributions), after
+    holding contribution_sum == score == the returned score bitwise."""
+    rows = []
+    for res in results:
+        for (docno, score), e in zip(res, res.explain or []):
+            bits = np.float32(score).tobytes()
+            if (e["docno"] != docno or e["contribution_sum"] != e["score"]
+                    or np.float32(e["score"]).tobytes() != bits):
+                raise AssertionError(
+                    f"explain of {e['query']!r} doc {docno}: score "
+                    f"{e['score']!r}, sum {e['contribution_sum']!r}, the "
+                    f"result's {score!r}")
+            rows.append((docno, bits, [t["contribution"]
+                                       for t in e["terms"]]))
+    return rows
+
+
+def phase_explain(card: str, scorer, texts: list[str], *, config: str,
+                  traffic: str, runs: tuple) -> dict:
+    """Explain on a loaded scorer: each of `runs` ("tfidf", "bm25",
+    "rerank") over EXPLAIN_QUERIES texts with explain_k=EXPLAIN_K: every
+    entry's contribution_sum equals its score, and its score the one
+    search_batch returned, as float32 bits; then the same with every
+    kernel swapped for its plain twin (plain_kernels), whose entries must
+    be the same bits. Explain ms a query is the call's wall time less
+    the same call's without explain. The caller counts the launches."""
+    texts = texts[:EXPLAIN_QUERIES]
+    out = {"phase": "explain", "card": card, "config": config,
+           "layout": scorer.layout, "traffic": traffic,
+           "queries": len(texts), "explain_k": EXPLAIN_K, "runs": {}}
+    for run in runs:
+        kw = ({"rerank": PROX_CANDIDATES} if run == "rerank"
+              else {"scoring": run})
+        scorer.search_batch(texts[:4], explain_k=EXPLAIN_K,
+                            return_docids=False, **kw)
+        t0 = time.perf_counter()
+        scorer.search_batch(texts, return_docids=False, **kw)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = scorer.search_batch(texts, explain_k=EXPLAIN_K,
+                                  return_docids=False, **kw)
+        wall = time.perf_counter() - t0
+        got = explain_rows(res)
+        with plain_kernels():
+            want = explain_rows(scorer.search_batch(
+                texts, explain_k=EXPLAIN_K, return_docids=False, **kw))
+        if got != want:
+            raise AssertionError(f"{config} {traffic} {run}: explain "
+                                 "through the kernels differs from the "
+                                 "plain twins'")
+        skips = [e["dispatch"]["skip_hot"] for r in res
+                 for e in (r.explain or [])[:1]]
+        out["runs"][run] = {
+            "entries": len(got), "s": wall, "search_s": plain_s,
+            "explain_ms_per_query": (wall - plain_s) * 1e3 / len(texts),
+            "skip_hot_queries": int(sum(skips)),
+            "bitwise_plain_twins": True}
+        if not got:
+            raise AssertionError(f"{config} {traffic} {run}: nothing was "
+                                 "explained")
+    return out
+
+
+def phase_snippets(card: str, scorer, q_ids: np.ndarray, *,
+                   config: str = "wiki100k", k: int = 10) -> dict:
+    """SNIPPET_HITS hits through a ServingFrontend with snippets=True (the
+    uniform queries as texts, until that many hits): one snippet a hit,
+    every marked word analyzing to one of the query's tokens, and a
+    snippet with no mark only where no word of the doc's display text
+    does (the query matched the docno, which is not displayed); ms a
+    snippet from the request's wall time less the same request's
+    without snippets."""
+    import re
+
+    from tpu_ir_torch.search.snippets import display_text
+    from tpu_ir_torch.serving import ServingFrontend
+
+    fe = ServingFrontend(scorer)
+    analyzer = scorer._analyzer()
+    terms = scorer.vocab.terms
+    hits = marked = unmarked = 0
+    snip_s = plain_s = 0.0
+    queries = 0
+    for row in q_ids:
+        if hits >= SNIPPET_HITS:
+            break
+        text = " ".join(terms[int(t)] for t in row)
+        t0 = time.perf_counter()
+        base = fe.search(text, k=k, return_docids=False)
+        t1 = time.perf_counter()
+        res = fe.search(text, k=k, snippets=True, return_docids=False)
+        t2 = time.perf_counter()
+        if not res:
+            continue
+        queries += 1
+        plain_s += t1 - t0
+        snip_s += t2 - t1
+        if list(res) != list(base) or len(res.snippets) != len(res):
+            raise AssertionError(f"snippets of {text!r}: {res.snippets!r}")
+        toks = set(analyzer.analyze(text))
+        for (docno, _), snip in zip(res, res.snippets):
+            words = re.findall(r"\*\*(.+?)\*\*", snip)
+            if any(not toks & set(analyzer.analyze(w)) for w in words):
+                raise AssertionError(f"snippet of {text!r} marks {words}")
+            if not words:
+                shown = display_text(scorer._docstore().get(docno))
+                if any(toks & set(analyzer.analyze(w))
+                       for w in shown.split(" ")):
+                    raise AssertionError(f"snippet of {text!r} in doc "
+                                         f"{docno} marks nothing")
+                unmarked += 1
+            marked += len(words)
+        hits += len(res)
+    if hits < SNIPPET_HITS:
+        raise AssertionError(f"only {hits} hits for the snippets phase")
+    return {"phase": "snippets", "card": card, "config": config,
+            "queries": queries, "hits": hits, "marked_words": marked,
+            "docno_only_hits": unmarked,
+            "ms_per_snippet": (snip_s - plain_s) * 1e3 / hits,
+            "request_ms": snip_s * 1e3 / queries}
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel in nvcc's
     `-Xptxas -v` output."""
@@ -2649,13 +3209,14 @@ def build_kernels(card: str) -> dict:
 
 def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
                wildcard_launches: int, kgram_launches: int,
-               **fields) -> dict:
+               explain_launches: int, **fields) -> dict:
     """One kernel's entry of the summary line: `launches` in its serve
-    window, then in the wildcard phase, the kgram phase and the serving
-    tier's phases."""
+    window, then in the wildcard phase, the kgram phase, the explain
+    phases and the serving tier's phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
+            "explain_launches": explain_launches,
             "serving_launches": serving_launches,
             "max_abs_err": kern["max_abs_diff"], "ms": kern["ms"],
             "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
@@ -2699,14 +3260,28 @@ def main() -> int:
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(dir=scratch)
     try:
-        build, idx = phase_build(card, work, device="cuda")
+        build, idx = phase_build(card, work, device="cuda", keep_corpus=True)
         emit(build)
         emit(phase_crash_resume(card, idx, work, device="cuda"))
         serve, scorer, q_ids, dense = phase_serve(card, idx, device="cuda")
         emit(serve)
+        ref_q_ids = q_ids
         rerank, ref_rerank = phase_rerank(card, scorer, q_ids, config="ref",
                                           device="cuda")
         emit(rerank)
+        # explain, its launches counted over its own runs only
+        explain_launches = {n: 0 for n in PORT_KERNELS}
+
+        def explain(*args, **kw):
+            tpu_ir_torch.reset_kernel_launches()
+            emit(phase_explain(card, *args, **kw))
+            for n, v in tpu_ir_torch.kernel_launches().items():
+                explain_launches[n] += v
+
+        ref_texts = [" ".join(scorer.vocab.terms[int(t)] for t in row)
+                     for row in q_ids[:EXPLAIN_QUERIES]]
+        explain(scorer, ref_texts, config="ref", traffic="uniform",
+                runs=("tfidf", "bm25", "rerank"))
         del scorer
         torch.cuda.empty_cache()
         emit(phase_sparse_check(card, idx, q_ids, dense, device="cuda"))
@@ -2722,11 +3297,14 @@ def main() -> int:
         emit(serve_v3)
         emit(phase_rerank(card, scorer, q_ids, config="ref-v3",
                           device="cuda", want=ref_rerank, bitwise=True)[0])
+        explain(scorer, ref_texts, config="ref-v3", traffic="uniform",
+                runs=("tfidf", "bm25"))
         del scorer
         shutil.rmtree(v3)
         torch.cuda.empty_cache()
 
-        wbuild, widx = phase_build_streaming(card, work, device="cuda")
+        wbuild, widx = phase_build_streaming(card, work, device="cuda",
+                                             keep_corpus=True)
         emit(wbuild)
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")
@@ -2741,6 +3319,16 @@ def main() -> int:
                          batch=HOT_SMALL_BATCH))
         emit(phase_rerank(card, scorer, q_ids, config="wiki100k",
                           device="cuda")[0])
+        for traffic, rows in (("uniform", q_ids), ("hot", hot_q)):
+            explain(scorer, [" ".join(scorer.vocab.terms[int(t)]
+                                      for t in row)
+                             for row in rows[:EXPLAIN_QUERIES]],
+                    config="wiki100k", traffic=traffic,
+                    runs=("tfidf", "bm25", "rerank"))
+        for kernel, n in explain_launches.items():
+            if n == 0:
+                raise AssertionError(f"the explain phases never launched "
+                                     f"{kernel}: {explain_launches}")
         torch.cuda.empty_cache()
         # wildcard and fuzzy traffic, its launches counted on their own
         tpu_ir_torch.reset_kernel_launches()
@@ -2781,6 +3369,26 @@ def main() -> int:
         emit(kgram)
         torch.cuda.empty_cache()
 
+        # positions: both builds at ref and wiki100k, then the positional
+        # queries over them
+        positions, pos_dirs = phase_positions(card, work, device="cuda")
+        emit(positions)
+        scorer = Scorer.load(pos_dirs["ref"], device="cuda")
+        emit(phase_prox(card, scorer, ref_q_ids, config="ref",
+                        device="cuda"))
+        del scorer
+        shutil.rmtree(pos_dirs["ref"])
+        torch.cuda.empty_cache()
+        scorer = Scorer.load(pos_dirs["wiki100k"], device="cuda")
+        emit(phase_prox(card, scorer, q_ids, config="wiki100k",
+                        device="cuda"))
+        emit(phase_phrase(card, scorer, pos_dirs["wiki100k"], work,
+                          device="cuda"))
+        emit(phase_snippets(card, scorer, q_ids))
+        del scorer
+        shutil.rmtree(pos_dirs["wiki100k"])
+        torch.cuda.empty_cache()
+
         # the serving tier over both layouts, its launches counted from
         # here to the end of the sweep
         serving = {"ref": Scorer.load(idx, device="cuda"),
@@ -2812,6 +3420,7 @@ def main() -> int:
                    serving_launches["dense_score"],
                    wildcard_launches["dense_score"],
                    kgram["launches"]["dense_score"],
+                   explain_launches["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
         kernel_row("dequant_score", dequant,
@@ -2819,18 +3428,21 @@ def main() -> int:
                    serving_launches["dequant_score"],
                    wildcard_launches["dequant_score"],
                    kgram["launches"]["dequant_score"],
+                   explain_launches["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
                    serving_launches["cold_tier"],
                    wildcard_launches["cold_tier"],
                    kgram["launches"]["cold_tier"],
+                   explain_launches["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
         kernel_row("hot_stage", hot["full"], wserve["launches"]["hot_stage"],
                    serving_launches["hot_stage"],
                    wildcard_launches["hot_stage"],
                    kgram["launches"]["hot_stage"],
+                   explain_launches["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})
     print(card, flush=True)

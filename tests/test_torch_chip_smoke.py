@@ -425,3 +425,89 @@ def test_wildcard_and_kgram_phases_on_cpu(tmp_path, monkeypatch):
     assert kg["builds"]["streaming"]["chargram_ks"] == []
     assert kg["recall_at_10"] == 1.0 and kg["glob_answered"] >= 20
     json.dumps(kg)
+
+
+def test_positions_phrase_prox_explain_snippet_phases_on_cpu(tmp_path,
+                                                             monkeypatch):
+    """The positions phase (ref: one-shot, legacy and radix-requested
+    streaming; wiki100k: streaming with the store and one-shot, all with
+    one sha256 a shared artifact), then prox on both, phrase with its
+    stream-scan oracle, snippets through the frontend and explain with its
+    plain-twin rerun, at a small size on the CPU."""
+    import numpy as np
+
+    from tpu_ir_torch.corpus import make_corpus
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    small = dict(n_docs=200, target_bytes=200_000, vocab_size=2_000)
+    monkeypatch.setattr(chip_smoke, "REF_CORPUS", small)
+    monkeypatch.setattr(chip_smoke, "POSITIONS_REF_BATCH", 50)
+    for name, n in (("PHRASE_TEXTS", 60), ("PHRASE_ORACLE", 20),
+                    ("PROX_QUERIES", 100), ("PROX_ORACLE", 16),
+                    ("EXPLAIN_QUERIES", 24), ("SNIPPET_HITS", 30)):
+        monkeypatch.setattr(chip_smoke, name, n)
+    # ref (~2,200 terms x 201) dense, wiki100k (~3,300 x 301) tiered
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 600_000)
+    work = str(tmp_path)
+    chip_smoke.phase_build("cpu", work, device="cpu", keep_corpus=True)
+    make_corpus(os.path.join(work, "wiki100k.trec"), seed=0, n_docs=300,
+                target_bytes=300_000, vocab_size=3_000)
+    pos, dirs = chip_smoke.phase_positions("cpu", work, device="cpu")
+    for config, extra in (("ref", 0), ("wiki100k", 2)):
+        row = pos["configs"][config]
+        assert row["identical_artifacts"] >= 16
+        assert len(row["sha256"]) == 10
+    builds = pos["configs"]["wiki100k"]["builds"]
+    assert builds["streaming"]["radix_fallback_warning"]
+    assert not pos["configs"]["ref"]["builds"]["legacy"][
+        "radix_fallback_warning"]
+    assert builds["oneshot"]["positions_bytes"] > 0
+    assert not os.path.exists(os.path.join(work, "wiki100k.trec"))
+    json.dumps(pos)
+
+    rng = np.random.default_rng(1)
+    ref = Scorer.load(dirs["ref"], device="cpu")
+    assert ref.layout == "dense"
+    ref_q = rng.integers(0, ref.meta.vocab_size, (200, 2)).astype(np.int32)
+    prox = chip_smoke.phase_prox("cpu", ref, ref_q, config="ref",
+                                 device="cpu")
+    assert prox["answered"] > 20 and prox["oracle"]["queries"] == 16
+    texts = [" ".join(ref.vocab.terms[int(t)] for t in row)
+             for row in ref_q]
+    ex = chip_smoke.phase_explain("cpu", ref, texts, config="ref",
+                                  traffic="uniform",
+                                  runs=("tfidf", "bm25", "rerank"))
+    assert all(r["entries"] > 20 and r["bitwise_plain_twins"]
+               for r in ex["runs"].values())
+
+    wiki = Scorer.load(dirs["wiki100k"], device="cpu")
+    assert wiki.layout == "sparse"
+    wq = rng.integers(0, wiki.meta.vocab_size, (400, 2)).astype(np.int32)
+    prox = chip_smoke.phase_prox("cpu", wiki, wq, config="wiki100k",
+                                 device="cpu")
+    assert prox["oracle"]["boosted_candidates"] > 0
+    phrase = chip_smoke.phase_phrase("cpu", wiki, dirs["wiki100k"], work,
+                                     device="cpu")
+    assert phrase["oracle"]["phrases"] == 40
+    assert phrase["oracle"]["matched_docs"] >= 40
+    assert set(phrase["runs"]) == {"slop0-tfidf", "slop0-bm25",
+                                   "slop2-tfidf", "slop2-bm25"}
+    snip = chip_smoke.phase_snippets("cpu", wiki, wq)
+    assert snip["hits"] >= 30 and snip["marked_words"] >= 30
+    hot = np.nonzero(wiki._hot_rank_host >= 0)[0]
+    texts = [f"{wiki.vocab.terms[int(h)]} {wiki.vocab.terms[int(t)]}"
+             for h, t in zip(rng.choice(hot, 24), wq[:24, 0])]
+    ex = chip_smoke.phase_explain("cpu", wiki, texts, config="wiki100k",
+                                  traffic="hot",
+                                  runs=("tfidf", "bm25", "rerank"))
+    assert all(r["entries"] > 20 for r in ex["runs"].values())
+    json.dumps([prox, phrase, snip, ex])
+    # the stream scan itself against a hand-made stream: docs 1 and 2
+    flat = np.array([5, 6, 7, 5, 9, 6, 5, 6], np.int32)
+    doc_of = np.array([1, 1, 1, 1, 1, 1, 2, 2], np.int32)
+    assert chip_smoke.window_scan(flat, doc_of, [5, 6], 0) == [1, 2]
+    assert chip_smoke.window_scan(flat, doc_of, [5, 7], 0) == []
+    assert chip_smoke.window_scan(flat, doc_of, [5, 7], 1) == [1]
+    assert chip_smoke.window_scan(flat, doc_of, [6, 5, 6], 0) == []
+    assert chip_smoke.window_scan(flat, doc_of, [7, 6], 2) == [1]

@@ -796,6 +796,69 @@ def test_hot_only_equals_plain_twin(serving_index, scoring_name,
     assert (got[1] > 0).any()
 
 
+def _explain_texts(scorer, n_terms, n, seed):
+    """`n` texts of `n_terms` distinct vocabulary terms; on the tiered
+    layout the first term of each is a hot one, so hot_stage runs."""
+    rng = np.random.default_rng(seed)
+    terms = scorer.vocab.terms
+    hot = (np.nonzero(scorer._hot_rank_host >= 0)[0]
+           if scorer.layout == "sparse" else np.zeros(0, np.int64))
+    out = []
+    for i in range(n):
+        ids = rng.choice(len(terms), n_terms, replace=False)
+        if len(hot) and i % 2 == 0:
+            ids[0] = hot[i % len(hot)]
+        out.append(" ".join(terms[int(t)] for t in dict.fromkeys(ids)))
+    return out
+
+
+def _explained(results):
+    out = []
+    for res in results:
+        for (_, score), e in zip(res, res.explain or []):
+            assert e["contribution_sum"] == e["score"] == score
+            out.append((e["docno"], np.float32(e["score"]).tobytes(),
+                        [t["contribution"] for t in e["terms"]]))
+    return out
+
+
+@pytest.mark.parametrize("variant", ["dense", "dense-v3", "sparse",
+                                     "sparse-v3"])
+@pytest.mark.parametrize("scoring_name", ["tfidf", "bm25", "rerank"])
+@pytest.mark.parametrize("terms", [1, 33, 128])
+def test_explain_bitwise_on_card(serving_index, tmp_path, variant,
+                                 scoring_name, terms):
+    """Explain on the card: each hit's prefix batch (B = 2, 64, 256 rows
+    for L = 1, 33, 128) read out of the production kernels sums to the
+    score search_batch returned, bit for bit, and equals the same explain
+    with every kernel swapped for its plain twin."""
+    layout, _, v3 = variant.partition("-")
+    idx = serving_index
+    if v3:
+        import shutil
+
+        idx = str(tmp_path / "v3")
+        shutil.copytree(serving_index, idx)
+        migrate_index(idx, to_version=3)
+    g = Scorer.load(idx, layout=layout)
+    texts = _explain_texts(g, terms, 6, seed=terms)
+    kw = ({"rerank": 100} if scoring_name == "rerank"
+          else {"scoring": scoring_name})
+    res = g.search_batch(texts, k=5, **kw)
+    tpu_ir_torch.reset_kernel_launches()
+    res = g.search_batch(texts, k=5, explain_k=5, **kw)
+    launches = tpu_ir_torch.kernel_launches()
+    got = _explained(res)
+    assert len(got) >= 10
+    if layout == "sparse":
+        assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
+    elif scoring_name == "tfidf":
+        assert launches["dequant_score" if v3 else "dense_score"] >= 1
+    with chip_smoke.plain_kernels():
+        want = _explained(g.search_batch(texts, k=5, explain_k=5, **kw))
+    assert got == want
+
+
 @pytest.mark.parametrize("name", sorted(faults._CUDA_LOST))
 def test_device_loss_texts_are_the_runtimes(cuda, name):
     """Each lost-device error is known by the text the CUDA runtime gives

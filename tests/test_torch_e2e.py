@@ -227,7 +227,7 @@ def test_load_rejects_a_corrupt_part(built, tmp_path):
 @pytest.mark.parametrize("case", ["npz", "carena", "sparse", "sharded",
                                   "rerank", "phrase", "explain", "deadline",
                                   "k2", "chargrams", "positions", "prox"])
-def test_later_slices_raise(built, tmp_path, case):
+def test_later_slices_raise(built, tmp_path, capsys, case):
     import json
 
     jax_dir, port_dir = built
@@ -260,12 +260,15 @@ def test_later_slices_raise(built, tmp_path, case):
         return
     if case == "sparse":
         # the tiered layout serves, its hot_only knob too (the serving
-        # tier); explain is still a later slice
+        # tier), and explains its hot_only scores
         s = Scorer.load(port_dir, layout="sparse", device="cpu")
         assert s.layout == "sparse" and s.search_batch(["a"]) is not None
         assert s.search_batch(["a"], hot_only=True) is not None
-        with pytest.raises(ValueError, match="later slice"):
-            s.search_batch(["a"], hot_only=True, explain_k=1)
+        hot = [s.vocab.terms[i] for i in np.flatnonzero(
+            s._hot_rank_host >= 0)[:8]]
+        _assert_explained(s.search_batch(
+            [f"{t} {u}" for t, u in zip(hot, _queries(s, seed=15))],
+            hot_only=True, explain_k=2), least=len(hot))
         return
     if case == "chargrams":
         # char-gram indexes are built now, by default, byte-identical to
@@ -294,17 +297,49 @@ def test_later_slices_raise(built, tmp_path, case):
             assert filecmp.cmp(os.path.join(got, n), os.path.join(want, n),
                                shallow=False), n
         return
-    if case == "positions":
-        with pytest.raises(ValueError, match="later slice"):
-            build_index(os.path.join(STDLIB, "corpus.trec"),
-                        str(tmp_path / "x"), device="cpu", positions=True)
+    if case in ("positions", "phrase"):
+        # position runs are built now, byte-identical to the JAX
+        # package's, and phrase queries answer over them with its results
+        corpus = os.path.join(os.path.dirname(jax_dir), "corpus.trec")
+        got, want = str(tmp_path / "port"), str(tmp_path / "jax")
+        build_index(corpus, got, num_shards=SHARDS, device="cpu",
+                    positions=True, compute_chargrams=False)
+        jax_build_index(corpus, want, num_shards=SHARDS, positions=True,
+                        compute_chargrams=False)
+        names = sorted(n for n in os.listdir(want) if n != "jobs")
+        assert "positions-00002.npz" in names
+        for n in names:
+            assert filecmp.cmp(os.path.join(got, n), os.path.join(want, n),
+                               shallow=False), n
+        if case == "phrase":
+            s, js = Scorer.load(got, device="cpu"), JaxScorer.load(got)
+            terms = js.vocab.terms
+            qs = [f'"{terms[i]} {terms[i + 1]}" {terms[i + 7]}'
+                  for i in range(0, 400, 20)]
+            qs += [" ".join(f'"{t}"' for t in terms[i:i + 2])
+                   for i in range(5, 400, 40)]
+            for slop in (0, 3):
+                assert [list(r) for r in s.search_batch(
+                    qs, phrase_slop=slop)] == [list(r) for r in
+                                                js.search_batch(
+                                                    qs, phrase_slop=slop)]
         return
     if case == "prox":
-        # the search flags of positions, phrases and snippets exit 2
-        for flag in (["--prox"], ["--slop", "1"], ["--show-matches"],
-                     ["--snippets"]):
-            assert cli_main(["search", port_dir, "-q", "a", "--device",
-                             "cpu"] + flag) == 2, flag
+        # the search flags of positions, phrases and snippets answer now;
+        # on an index without positions or a store they fail as the JAX
+        # package's command line does: the same exit code and message
+        from tpu_ir.cli import main as jax_cli_main
+
+        terms = Scorer.load(port_dir, device="cpu").vocab.terms
+        for flag, rc in ((["--rerank", "20", "--prox"], 1),
+                         (["--slop", "1"], 0), (["--show-matches"], 1),
+                         (["--snippets"], 1)):
+            argv = ["search", port_dir, "-q", " ".join(terms[7:10])] + flag
+            assert cli_main(argv + ["--device", "cpu"]) == rc, flag
+            got = capsys.readouterr()
+            assert jax_cli_main(argv) == rc, flag
+            want = capsys.readouterr()
+            assert got.err.splitlines()[-1:] == want.err.splitlines()[-1:]
         return
     s = Scorer.load(port_dir, device="cpu")
     if case == "rerank":
@@ -326,10 +361,21 @@ def test_later_slices_raise(built, tmp_path, case):
         assert got == s.search_batch(qs)
         assert not any(r.degraded for r in got)
         return
-    call = {"phrase": lambda: s.search_batch(['"a b"']),
-            "explain": lambda: s.search_batch(["a"], explain_k=3)}[case]
-    with pytest.raises(ValueError, match="later slice"):
-        call()
+    # explain answers now: each decomposition sums to its hit's score
+    assert case == "explain"
+    for scoring in ("tfidf", "bm25"):
+        _assert_explained(s.search_batch(_queries(s, seed=16), k=5,
+                                         scoring=scoring, explain_k=3))
+
+
+def _assert_explained(results, least: int = 10) -> None:
+    n = 0
+    for res in results:
+        for (key, score), e in zip(res, res.explain or []):
+            assert e["docid"] == key
+            assert e["contribution_sum"] == e["score"] == score
+            n += 1
+    assert n >= least
 
 
 def test_auto_layout_above_dense_budget_raises(built, monkeypatch):

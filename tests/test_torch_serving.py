@@ -454,10 +454,27 @@ def test_program_errors_raise_not_degrade(scorer, monkeypatch):
 
 
 def test_explain_and_phrase_still_raise(scorer):
+    """explain_k and explain_ks answer now, also through the coalescing
+    frontend, where explain_k rides per slot: each explained hit's
+    decomposition sums to its score bit for bit. What still raises, as
+    in tpu_ir: a phrase query in a coalesced batch, a phrase query on an
+    index without positions, and an explain_ks of the wrong length."""
     for kw in ({"explain_k": 2}, {"explain_ks": [1]}):
-        with pytest.raises(ValueError, match="later slice"):
-            scorer.search_batch(["salmon"], **kw)
-    with pytest.raises(ValueError, match="phrase"):
+        (res,) = scorer.search_batch(["salmon common"], **kw)
+        assert len(res.explain) == kw.get("explain_k", 1)
+        for (_, score), e in zip(res, res.explain):
+            assert e["contribution_sum"] == e["score"] == score
+    fe = ServingFrontend(scorer, ServingConfig(coalesce=True))
+    res = fe.search("salmon common", k=5, explain_k=3)
+    assert len(res.explain) == 3 and fe.batcher.snapshot()["batches"] == 1
+    for (_, score), e in zip(res, res.explain):
+        assert e["contribution_sum"] == e["score"] == score
+    with pytest.raises(ValueError, match="coalesced"):
+        fe.batcher.submit('"salmon fishing"', k=5, scoring="tfidf",
+                          rerank=None, hot_only=False, force_host=False)
+    with pytest.raises(ValueError, match="coalesced batch"):
+        scorer.search_batch(['"salmon fishing"', "river"], pad_to=4)
+    with pytest.raises(ValueError, match="no position runs"):
         scorer.search_batch(['"salmon fishing"'])
     with pytest.raises(ValueError, match="explain_ks has 1 entries"):
         scorer.search_batch(["salmon", "river"], explain_ks=[0])

@@ -245,12 +245,33 @@ def test_tiered_scorer_from_numpy_matches(scorers, scoring):
 
 
 def test_serving_knobs_raise_on_sparse(scorers):
-    """explain still raises (a later slice); hot_only, ported with the
-    serving tier, answers as `tpu_ir`'s hot-only path does."""
+    """explain answers on the tiered layout as `tpu_ir`'s does (the same
+    terms, tfs, dfs and placements; contributions within RTOL), each
+    decomposition summing to the port's own score bit for bit; hot_only,
+    ported with the serving tier, answers as `tpu_ir`'s hot-only path
+    does."""
     js, ts = scorers
-    with pytest.raises(ValueError, match="later slice"):
-        ts.search_batch(["a"], explain_k=2)
-    qs = _queries(js, seed=9)
+    qs = _queries(js, seed=9)[:12]
+    got = ts.search_batch(qs, explain_k=2)
+    want = js.search_batch(qs, explain_k=2)
+    n = 0
+    for g, w in zip(got, want):
+        for (key, score), ge in zip(g, g.explain or []):
+            assert ge["contribution_sum"] == ge["score"] == score
+            we = next((e for e in w.explain or [] if e["docid"] == key),
+                      None)
+            if we is None:
+                continue
+            assert [(t["term"], t["tf"], t["df"], t["placement"])
+                    for t in ge["terms"]] == \
+                [(t["term"], t["tf"], t["df"], t["placement"])
+                 for t in we["terms"]]
+            np.testing.assert_allclose(
+                [t["contribution"] for t in ge["terms"]],
+                [t["contribution"] for t in we["terms"]], rtol=RTOL,
+                atol=1e-6)
+            n += 1
+    assert n >= 10
     for scoring in ("tfidf", "bm25"):
         _assert_same_results(
             js.search_batch(qs, scoring=scoring, hot_only=True),

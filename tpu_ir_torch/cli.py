@@ -1,17 +1,17 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
-`inspect --term`, `verify`, `migrate-index` and `serve-bench`, with
-tpu_ir's flag names and defaults.
+`inspect --term`, `verify`, `migrate-index`, `serve-bench`, `pack`,
+`count` and `docno`, with tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
         [--batch-docs N] [--radix-buckets B] [--tokenize-procs N]] [--store]
-        [--device cuda|cpu]
+        [--positions] [--device cuda|cpu]
     python -m tpu_ir_torch.cli inspect IDX --term TEXT [--postings N]
     python -m tpu_ir_torch.cli verify IDX
     python -m tpu_ir_torch.cli search IDX [-q TEXT | --queries-file F |
         --topics F] [--scoring tfidf|bm25] [--k K] [--rerank N]
         [--layout auto|dense|sparse|sharded] [--docnos] [--compat]
-        [--trec-run TAG]
+        [--trec-run TAG] [--prox] [--slop S] [--show-matches] [--snippets]
     python -m tpu_ir_torch.cli expand IDX PATTERN [--chargram-k 3] [-n 50]
     python -m tpu_ir_torch.cli eval RUN QRELS [--complete]
     python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
@@ -20,14 +20,22 @@ tpu_ir's flag names and defaults.
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
+    python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
+        [--format lines|trectext|trecweb]
+    python -m tpu_ir_torch.cli count CORPUS...
+    python -m tpu_ir_torch.cli docno IDX list|getDocno DOCID|getDocid DOCNO
 
 `index`, `search` and `serve-bench` run on CUDA unless `--device cpu` is
-given; `inspect`, `verify`, `migrate-index`, `expand` and `eval` run on
-the host. Each prints its JSON report last (`inspect --term` prints one
-line per hit, `expand` one term per line). `search` with none of `-q`,
+given; the others run on the host. Each prints its JSON report last
+(`inspect --term` prints one line per hit, `expand` one term per line,
+`docno` the mapping's lines). `search` with none of `-q`,
 `--queries-file` and `--topics` reads queries from standard input, one a
-line, until `exit`; its `--prox`, `--slop`, `--show-matches` and
-`--snippets` belong to a later slice and exit 2.
+line, until `exit`. Quoted spans are phrase queries and `--prox` the
+proximity boost of a `--rerank` (both need `index --positions`);
+`--show-matches` prints each hit's term positions, `--snippets` a
+highlighted text window (needs `index --store`). A ValueError of the
+library (a phrase query on an index without positions, a bad option)
+prints one `error:` line and exits 1, as tpu_ir's command line does.
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
 exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
@@ -52,7 +60,8 @@ def cmd_index(args) -> int:
         return 1
     kw = dict(k=args.k, chargram_ks=args.chargram_k, num_shards=args.shards,
               overwrite=args.overwrite,
-              compute_chargrams=not args.no_chargrams, device=args.device)
+              compute_chargrams=not args.no_chargrams,
+              positions=args.positions, device=args.device)
     if args.streaming:
         meta = build_index_streaming(
             args.corpus, args.index_dir, batch_docs=args.batch_docs,
@@ -102,28 +111,21 @@ def cmd_verify(args) -> int:
     return 0
 
 
-# search flags whose machinery (positions, phrases, the document store's
-# snippets) a later slice of the port brings
-_LATER_SEARCH_FLAGS = (("prox", "--prox"), ("slop", "--slop"),
-                       ("show_matches", "--show-matches"),
-                       ("snippets", "--snippets"))
-
-
 def cmd_search(args) -> int:
     from .search import Scorer
 
-    for attr, flag in _LATER_SEARCH_FLAGS:
-        if getattr(args, attr) not in (None, False):
-            print(f"error: {flag} is not supported by tpu_ir_torch yet (a "
-                  "later slice of the port: positions, phrase and "
-                  "proximity queries, snippets)", file=sys.stderr)
-            return 2
-    try:
-        scorer = Scorer.load(args.index_dir, layout=args.layout,
-                             compat_int_idf=args.compat, device=args.device)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    if args.snippets:
+        # fail before anything is printed: without a usable store every
+        # result row would die on the DocStore's error mid-listing
+        from .index import docstore as ds
+
+        if not ds.consistent(args.index_dir):
+            print("error: index has no usable document store; rebuild "
+                  "with `tpu-ir index --store` to render snippets",
+                  file=sys.stderr)
+            return 1
+    scorer = Scorer.load(args.index_dir, layout=args.layout,
+                         compat_int_idf=args.compat, device=args.device)
     show_docids = not args.docnos
 
     def run_batch(queries: list[str], qids: list | None = None) -> None:
@@ -134,7 +136,8 @@ def cmd_search(args) -> int:
         kept = [q for q in queries if q not in skipped]
         results = iter(scorer.search_batch(
             kept, k=args.k, scoring=args.scoring,
-            return_docids=show_docids, rerank=args.rerank) if kept else [])
+            return_docids=show_docids, rerank=args.rerank,
+            prox=args.prox, phrase_slop=args.slop) if kept else [])
         if qids is None:
             qids = list(range(1, len(queries) + 1))
         for qid, q in zip(qids, queries):
@@ -156,6 +159,12 @@ def cmd_search(args) -> int:
                 print("  (no matching documents)")
             for rank, (key, score) in enumerate(res, 1):
                 print(f"  {rank:2d}. {key}\t{score:.6f}")
+                if args.show_matches:
+                    print("      "
+                          + _format_matches(scorer, q, key, show_docids))
+                if args.snippets:
+                    print("      "
+                          + scorer.snippet(q, key, is_docid=show_docids))
 
     if args.query:
         run_batch([args.query])
@@ -192,6 +201,20 @@ def cmd_search(args) -> int:
     return 0
 
 
+def _format_matches(scorer, query: str, key, key_is_docid: bool) -> str:
+    """One hit's match coordinates from the position runs: each distinct
+    analyzed query term with its token positions in the document."""
+    docno = scorer.mapping.get_docno(key) if key_is_docid else int(key)
+    pidx = scorer._phrase_index()
+    parts = []
+    for t in dict.fromkeys(
+            scorer._query_term_sequence(query.replace('"', ' '))):
+        pos = pidx.positions(t, docno)
+        if pos is not None:
+            parts.append(f"{t}@{','.join(str(int(p)) for p in pos)}")
+    return " ".join(parts) if parts else "(no positional matches)"
+
+
 def _read_trec_topics(path: str) -> tuple[list[str], list[str]]:
     """A TREC topics file's (qids, title queries): <top> records with a
     <num> Number: NNN line and a <title>, whose text runs on the next
@@ -211,6 +234,87 @@ def _read_trec_topics(path: str) -> tuple[list[str], list[str]]:
             qids.append(num.group(1).strip())
             queries.append(q)
     return qids, queries
+
+
+def cmd_pack(args) -> int:
+    """Each line of a plain text file as one TREC <DOC> with the docid
+    PREFIX-NNNNNNN; `--format trectext|trecweb` instead parses the input
+    with that stream parser and writes each document as the indexers'
+    TREC record."""
+    from .collection.parsers import (
+        Document,
+        TrecTextParser,
+        TrecWebParser,
+        to_trec,
+    )
+
+    with open(args.text_file, encoding="utf-8") as fin, \
+            open(args.output, "w", encoding="utf-8") as fout:
+        if args.format == "lines":
+            docs = (Document(f"{args.prefix}-{i:07d}", line.rstrip("\n"))
+                    for i, line in enumerate(fin))
+        else:
+            cls = (TrecTextParser if args.format == "trectext"
+                   else TrecWebParser)
+            docs = iter(cls(fin))
+        n = 0
+        for doc in docs:
+            fout.write(to_trec(doc))
+            n += 1
+    print(json.dumps({"docs_packed": n, "output": args.output,
+                      "format": args.format}))
+    return 0
+
+
+def cmd_count(args) -> int:
+    """A corpus's document count and its least and greatest docid."""
+    from .collection import read_trec_corpus
+
+    n = 0
+    first = last = None
+    for doc in read_trec_corpus(args.corpus):
+        d = doc.docid
+        first = d if first is None or d < first else first
+        last = d if last is None or d > last else last
+        n += 1
+    print(json.dumps({"Count.DOCS": n, "min_docid": first,
+                      "max_docid": last}))
+    return 0
+
+
+def cmd_docno(args) -> int:
+    """The docno mapping: `list` (docno TAB docid a line), `getDocno
+    DOCID` or `getDocid DOCNO`."""
+    from .collection import DocnoMapping
+    from .index import format as fmt
+
+    mapping = DocnoMapping.load(os.path.join(args.index_dir, fmt.DOCNOS))
+    if args.op != "list" and args.arg is None:
+        print(f"usage: tpu-ir docno INDEX_DIR {args.op} "
+              f"{'DOCID' if args.op == 'getDocno' else 'DOCNO'}",
+              file=sys.stderr)
+        return 1
+    if args.op == "list":
+        for docno in range(1, len(mapping) + 1):
+            print(f"{docno}\t{mapping.get_docid(docno)}")
+    elif args.op == "getDocno":
+        try:
+            print(mapping.get_docno(args.arg))
+        except KeyError:
+            print(f"docid {args.arg!r} not found", file=sys.stderr)
+            return 1
+    else:
+        try:
+            docno = int(args.arg)
+        except ValueError:
+            print(f"invalid docno {args.arg!r}", file=sys.stderr)
+            return 1
+        if not 1 <= docno <= len(mapping):
+            print(f"docno {docno} out of range 1..{len(mapping)}",
+                  file=sys.stderr)
+            return 1
+        print(mapping.get_docid(docno))
+    return 0
 
 
 def cmd_expand(args) -> int:
@@ -281,12 +385,8 @@ def cmd_serve_bench(args) -> int:
         return 2
     if not levels:
         levels = [4]
-    try:
-        scorer = Scorer.load(args.index_dir, layout=args.layout,
-                             device=args.device)
-    except ValueError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    scorer = Scorer.load(args.index_dir, layout=args.layout,
+                         device=args.device)
     if len(levels) > 1:
         report = run_concurrency_sweep(
             scorer, levels=tuple(levels), queries_per_level=args.queries,
@@ -352,7 +452,11 @@ def main(argv: list[str] | None = None) -> int:
                          "path (default: $TPU_IR_TOKENIZE_PROCS; the "
                          "native tokenizer is one C++ pass)")
     pi.add_argument("--store", action="store_true",
-                    help="also build the compressed document-text store")
+                    help="also build the compressed document-text store "
+                         "(enables search --snippets)")
+    pi.add_argument("--positions", action="store_true",
+                    help="format v2: also write per-posting position runs "
+                         "(enables \"quoted phrase\" and --prox queries)")
     pi.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pi.set_defaults(fn=cmd_index)
 
@@ -388,13 +492,17 @@ def main(argv: list[str] | None = None) -> int:
                     help="two-stage retrieval: BM25 top-N candidates, then "
                          "cosine TF-IDF rerank")
     ps.add_argument("--prox", action="store_true",
-                    help="the proximity boost (a later slice: exits 2)")
-    ps.add_argument("--slop", type=int, default=None, metavar="S",
-                    help="phrase slop (a later slice: exits 2)")
+                    help="add the positions-based proximity boost to the "
+                         "rerank (needs an index built with --positions)")
+    ps.add_argument("--slop", type=int, default=0, metavar="S",
+                    help="\"quoted phrase\" matching tolerates S extra "
+                         "token gaps (0 = exact adjacency)")
     ps.add_argument("--show-matches", action="store_true",
-                    help="match positions (a later slice: exits 2)")
+                    help="print each hit's query-term token positions "
+                         "(needs an index built with --positions)")
     ps.add_argument("--snippets", action="store_true",
-                    help="text snippets (a later slice: exits 2)")
+                    help="print a query-highlighted text window per hit "
+                         "(needs an index built with --store)")
     ps.add_argument("--layout",
                     choices=["auto", "dense", "sparse", "sharded"],
                     default="auto",
@@ -497,8 +605,39 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_serve_bench)
 
+    pp = sub.add_parser("pack", help="pack plain text into TREC format "
+                                     "(one <DOC> per input line), or "
+                                     "canonicalize trectext/trecweb corpora")
+    pp.add_argument("text_file")
+    pp.add_argument("output", help="TREC file to write")
+    pp.add_argument("--prefix", default="LINE", help="docid prefix")
+    pp.add_argument("--format", choices=["lines", "trectext", "trecweb"],
+                    default="lines",
+                    help="'trectext' keeps only the known section tags' "
+                         "content; 'trecweb' parses <DOCHDR> records and "
+                         "scrubs the URL")
+    pp.set_defaults(fn=cmd_pack)
+
+    pc = sub.add_parser("count", help="count documents in a corpus")
+    pc.add_argument("corpus", nargs="+")
+    pc.set_defaults(fn=cmd_count)
+
+    pd = sub.add_parser(
+        "docno", help="docid <-> docno mapping (TrecDocnoMapping CLI)")
+    pd.add_argument("index_dir")
+    pd.add_argument("op", choices=["list", "getDocno", "getDocid"])
+    pd.add_argument("arg", nargs="?", default=None,
+                    help="docid for getDocno, docno for getDocid")
+    pd.set_defaults(fn=cmd_docno)
+
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except ValueError as e:
+        # a capability or usage error of the library (a phrase query on
+        # an index without positions, prox without rerank) is one line
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

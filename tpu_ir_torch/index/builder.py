@@ -19,9 +19,14 @@ builds the vocabulary and the term ids. Its char-gram indexes cover the
 token vocabulary, which goes to the `tokens.txt` sidecar, so wildcard and
 fuzzy queries expand over tokens and compose k-gram terms.
 
+With `positions=True` the build also writes format v2 position runs
+(index/positions.py), from the same flat term stream and the document
+lengths, on the host: the token stream for k = 1, the k-gram windows for
+k > 1.
+
 The streaming build for corpora larger than memory is
-index/streaming.py. Positions and the SPMD mesh build raise ValueError
-(later slices of the port).
+index/streaming.py. The SPMD mesh build raises ValueError (a later slice
+of the port).
 """
 
 from __future__ import annotations
@@ -45,13 +50,11 @@ _LATER = "is not supported by tpu_ir_torch yet (a later slice of the port)"
 TOKENS_VOCAB = "tokens.txt"  # the token vocabulary of a k > 1 index
 
 
-def check_build_args(k: int, positions: bool, spmd_devices) -> None:
+def check_build_args(k: int, spmd_devices) -> None:
     """Raise ValueError for the build options a later slice ports, and
     for a k below 1."""
     if k < 1:
         raise ValueError(f"k={k}: a term-k-gram index needs k >= 1")
-    if positions:
-        raise ValueError(f"position runs (format v2 positions) {_LATER}")
     if spmd_devices:
         raise ValueError(f"the SPMD mesh build {_LATER}")
 
@@ -99,8 +102,8 @@ def build_index(
     An existing index (its metadata.json) is returned as it is unless
     `overwrite=True`. The postings group-by and the char-gram builds run
     on `device` (CUDA by default; pass device="cpu" to build on the
-    CPU)."""
-    check_build_args(k, positions, spmd_devices)
+    CPU). `positions` adds the format v2 position runs."""
+    check_build_args(k, spmd_devices)
     dev = resolve_device(device)
     if isinstance(corpus_paths, (str, os.PathLike)):
         corpus_paths = [corpus_paths]
@@ -203,6 +206,13 @@ def build_index(
         np.save(os.path.join(index_dir, fmt.DOCLEN), doc_len)
         shard_of, offset_of = fmt.write_pair_shards(index_dir, df, pair_doc,
                                                     pair_tf, num_shards)
+    if positions:
+        # format v2: per-posting position runs, on the host
+        with report.phase("positions"):
+            from .positions import build_and_write_positions
+
+            build_and_write_positions(index_dir, inverse.astype(np.int32),
+                                      docnos, lengths, num_shards)
     with report.phase("dictionary"):
         fmt.write_dictionary(index_dir, vocab.terms, shard_of, offset_of)
         dict_report = JobReport("BuildIntDocVectorsForwardIndex")
@@ -214,7 +224,8 @@ def build_index(
         num_docs=num_docs, vocab_size=v, k=k, num_shards=num_shards,
         num_pairs=num_pairs,
         chargram_ks=chargram_ks if built_chargrams else [],
-        version=fmt.FORMAT_VERSION, has_positions=False,
+        version=2 if positions else fmt.FORMAT_VERSION,
+        has_positions=bool(positions),
         format_version=fmt.ARENA_FORMAT_VERSION)
     with report.phase("finalize"):
         meta.save_with_checksums(index_dir)

@@ -431,12 +431,23 @@ def compress_index(index_dir: str, meta, *, tf_dtype: str = "auto",
     write, raw twin unlinked) and stamp meta.format_version / tf_dtype /
     tf_lossy in memory; the caller records the checksums with one final
     metadata write. Parts already compressed are skipped, so a half-done
-    run completes when run again. Positional indexes are not read by the
-    port, so the JAX package's lossy-int8 positions probe has nothing to
-    guard here."""
+    run completes when run again. On a positions index a lossy int8 is
+    refused before any shard is touched: each position run's length must
+    equal its tf."""
     from . import format as fmt
 
     mode = resolve_tf_dtype(index_dir, meta, tf_dtype)
+    if mode == "int8" and meta.has_positions:
+        for s in range(meta.num_shards):
+            z = fmt.load_shard(index_dir, s)
+            if is_compressed(z):
+                continue
+            if len(np.unique(np.asarray(z["pair_tf"]))) > 256:
+                raise CompressError(
+                    "int8 tf quantization would be LOSSY here (shard "
+                    f"{s} has >256 distinct tfs) and this index has "
+                    "positions, whose run lengths must equal tf — use "
+                    "--tf-dtype bf16 (lossless) instead")
     migrated = skipped = 0
     lossy = False
     for s in range(meta.num_shards):

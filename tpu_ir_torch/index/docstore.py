@@ -22,6 +22,7 @@ for an index built otherwise.
 from __future__ import annotations
 
 import os
+import threading
 import zlib
 
 import numpy as np
@@ -179,7 +180,8 @@ class DocStore:
     """Random access to stored document text by docno. Decompresses one
     block per miss; a small LRU keeps recently-touched blocks hot (result
     pages cluster arrivals, so snippet rendering for one query usually
-    costs a handful of block decompressions)."""
+    costs a handful of block decompressions). Safe to share between
+    threads: the serving frontend renders snippets from many."""
 
     CACHE_BLOCKS = 8
 
@@ -213,21 +215,24 @@ class DocStore:
                 np.cumsum(seg) - seg)
         self._bin = open(os.path.join(index_dir, STORE_BIN), "rb")
         self._cache: dict[int, bytes] = {}
+        # one reader at a time: the file position and the LRU are shared
+        self._lock = threading.Lock()
 
     def close(self) -> None:
         self._bin.close()
 
     def _block(self, b: int) -> bytes:
-        hit = self._cache.pop(b, None)
-        if hit is None:
-            self._bin.seek(int(self._block_starts[b]))
-            raw = self._bin.read(int(self._block_starts[b + 1]
-                                     - self._block_starts[b]))
-            hit = zlib.decompress(raw)
-        self._cache[b] = hit
-        while len(self._cache) > self.CACHE_BLOCKS:
-            self._cache.pop(next(iter(self._cache)))
-        return hit
+        with self._lock:
+            hit = self._cache.pop(b, None)
+            if hit is None:
+                self._bin.seek(int(self._block_starts[b]))
+                raw = self._bin.read(int(self._block_starts[b + 1]
+                                         - self._block_starts[b]))
+                hit = zlib.decompress(raw)
+            self._cache[b] = hit
+            while len(self._cache) > self.CACHE_BLOCKS:
+                self._cache.pop(next(iter(self._cache)))
+            return hit
 
     def get_bytes(self, docno: int) -> bytes:
         """The stored content of one document, exact raw bytes (a decode

@@ -45,9 +45,17 @@ vocabulary. As in the JAX package, a streaming k > 1 build writes no
 char-gram indexes (they need the token vocabulary, which the k-gram
 spills do not keep).
 
-The SPMD pass 2 (`spmd_devices`) and positions raise ValueError (later
-slices of the port), as does a build without CUDA unless device="cpu"
-is asked for.
+With `positions=True` pass 2 also spills each batch's position runs by
+term shard (`pos-RRR-BBBBB.npz`, on the host, aligned with the batch's
+pair spill rows), and pass 3 carries them through the part's sort into
+`positions-NNNNN.npz`, written before the part file, so an existing part
+proves its positions on resume. Position runs need each document's
+token order, which the radix partition does not keep: a radix request
+with positions falls back to the per-batch pass 2, with the JAX
+package's warning.
+
+The SPMD pass 2 (`spmd_devices`) raises ValueError (a later slice of the
+port), as does a build without CUDA unless device="cpu" is asked for.
 """
 
 from __future__ import annotations
@@ -70,6 +78,12 @@ from ..utils.report import JobReport, recovery_counters
 from ..utils.transfer import prefetch_iter, shrink_pairs
 from . import format as fmt
 from .builder import build_chargram_artifacts, check_build_args, clear_index_dir
+from .positions import (
+    batch_position_runs,
+    positions_name,
+    realign_runs,
+    split_runs_by_shard,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -107,6 +121,11 @@ def radix_spill_name(bucket: int, batch: int) -> str:
 def pair_spill_name(shard: int, unit: int) -> str:
     """Pass-2 pair spill of (term shard, batch or bucket)."""
     return f"pairs-{shard:03d}-{unit:05d}.npz"
+
+
+def pos_spill_name(shard: int, batch: int) -> str:
+    """Pass-2 position-run spill of (term shard, batch)."""
+    return f"pos-{shard:03d}-{batch:05d}.npz"
 
 
 class _ResumeState:
@@ -165,18 +184,23 @@ def _load_resume_state(spill_dir: str, sig: np.ndarray):
 
 
 def _batch_pairs_done(spill_dir: str, b: int, num_shards: int,
+                      positions: bool = False,
                       validate: bool = False) -> bool:
-    """Whether batch (or bucket) b's per-shard pair spills all exist. With
-    `validate` (the resume path) each is read in full, and a corrupt one
-    deletes the unit's spills so only that unit is reduced again."""
+    """Whether batch (or bucket) b's per-shard pair (and position) spills
+    all exist. With `validate` (the resume path) each is read in full, and
+    a corrupt one deletes the unit's spills so only that unit is reduced
+    again."""
     paths = [os.path.join(spill_dir, pair_spill_name(s, b))
              for s in range(num_shards)]
+    if positions:
+        paths += [os.path.join(spill_dir, pos_spill_name(s, b))
+                  for s in range(num_shards)]
     if not all(os.path.exists(p) for p in paths):
         return False
     if validate and not all(fmt.readable_npz(p) for p in paths):
         recovery_counters().incr("spill_integrity_discards")
-        logger.warning("unit %d has a corrupt pair spill; reducing it again",
-                       b)
+        logger.warning("unit %d has a corrupt pair/position spill; reducing "
+                       "it again", b)
         for p in paths:
             if os.path.exists(p):
                 os.unlink(p)
@@ -186,18 +210,28 @@ def _batch_pairs_done(spill_dir: str, b: int, num_shards: int,
 
 def reduce_shard_spills(spill_dir: str, index_dir: str, row: int,
                         n_units: int, vocab_size: int,
-                        shard_of: np.ndarray) -> tuple[np.ndarray, int]:
+                        shard_of: np.ndarray,
+                        positions: bool = False) -> tuple[np.ndarray, int]:
     """Pass 3 for one term shard: concatenate its pair spills, sort them
     into the posting order (term asc, tf desc, doc asc) on the host and
     write the part. A sort, not a merge: a (term, doc) pair lives in one
     spill only (batches partition documents, buckets partition terms).
-    Returns (rdf int32 [V], num_pairs)."""
+    With `positions` each batch's position spill (runs aligned with its
+    pair spill rows) rides the same permutation, and the shard's
+    positions file is written before the part: the part's existence is
+    the resume marker. Returns (rdf int32 [V], num_pairs)."""
     terms, docs, tfs = [], [], []
+    deltas, rlens = [], []
     for b in range(n_units):
         with np.load(os.path.join(spill_dir, pair_spill_name(row, b))) as z:
             terms.append(z["term"])
             docs.append(z["doc"])
             tfs.append(z["tf"])
+        if positions:
+            with np.load(os.path.join(spill_dir,
+                                      pos_spill_name(row, b))) as pz:
+                deltas.append(pz["pos_delta"])
+                rlens.append(np.diff(pz["pos_indptr"]))
     t = np.concatenate(terms) if terms else np.zeros(0, np.int32)
     d = np.concatenate(docs) if docs else np.zeros(0, np.int32)
     w = np.concatenate(tfs) if tfs else np.zeros(0, np.int32)
@@ -207,6 +241,16 @@ def reduce_shard_spills(spill_dir: str, index_dir: str, row: int,
     rdf = np.bincount(t, minlength=vocab_size).astype(np.int32)
     tids = np.nonzero(shard_of == row)[0].astype(np.int32)
     local_indptr = np.concatenate([[0], np.cumsum(rdf[tids].astype(np.int64))])
+    if positions:
+        all_delta = (np.concatenate(deltas) if deltas
+                     else np.zeros(0, np.int32))
+        all_len = (np.concatenate(rlens).astype(np.int64) if rlens
+                   else np.zeros(0, np.int64))
+        starts = np.concatenate([[0], np.cumsum(all_len)])[:-1]
+        out_indptr, gather = realign_runs(starts[order], all_len[order])
+        fmt.savez_atomic(os.path.join(index_dir, positions_name(row)),
+                         pos_indptr=out_indptr.astype(np.int64),
+                         pos_delta=all_delta[gather].astype(np.int32))
     fmt.save_shard(index_dir, row, term_ids=tids, indptr=local_indptr,
                    pair_doc=d, pair_tf=w, df=rdf[tids])
     return rdf, len(t)
@@ -399,9 +443,11 @@ def build_index_streaming(
     group-by and the char-gram builds run on `device` (CUDA by default).
     `tokenize_procs` reaches only the Python tokenizer (k > 1, or
     `make_chunked_tokenizer(native=False)`); the native one is a single
-    C++ pass. k > 1 writes no char-gram indexes. The job's phase timings
-    and counters are saved as `jobs/TermKGramDocIndexer.json`."""
-    check_build_args(k, positions, spmd_devices)
+    C++ pass. k > 1 writes no char-gram indexes. `positions` adds the
+    format v2 position runs and runs the per-batch pass 2 whatever
+    `radix_buckets` says. The job's phase timings and counters are saved
+    as `jobs/TermKGramDocIndexer.json`."""
+    check_build_args(k, spmd_devices)
     dev = resolve_device(device)
     if isinstance(corpus_paths, (str, os.PathLike)):
         corpus_paths = [corpus_paths]
@@ -409,6 +455,12 @@ def build_index_streaming(
     if radix_buckets is None:
         radix_buckets = envvars.get_int("TPU_IR_RADIX_BUCKETS")
     radix_buckets = int(radix_buckets or 0)
+    if radix_buckets and positions:
+        # position runs need each doc's token order, which the radix
+        # partition does not keep; the per-batch combine keeps it
+        logger.warning("radix partitioning is unavailable with "
+                       "positions=True; using the per-batch pass 2")
+        radix_buckets = 0
     if radix_parts is None:
         radix_parts = envvars.get_bool("TPU_IR_RADIX_PARTS")
     radix_parts = bool(radix_parts) and radix_buckets > 0
@@ -436,7 +488,8 @@ def build_index_streaming(
     report = JobReport("TermKGramDocIndexer", config={
         "k": k, "num_shards": num_shards, "streaming": True,
         "batch_docs": batch_docs, "spmd_devices": spmd_devices,
-        "store": store, "radix_buckets": radix_buckets,
+        "store": store, "positions": positions,
+        "radix_buckets": radix_buckets,
         "radix_parts": radix_parts, "resumed": resuming,
         "device": str(dev)})
 
@@ -537,7 +590,7 @@ def build_index_streaming(
                 with np.load(spill) as z:
                     lengths = z["lengths"]
                     done = resuming and _batch_pairs_done(
-                        spill_dir, b, num_shards, validate=True)
+                        spill_dir, b, num_shards, positions, validate=True)
                     flat = None if done else z["ids"]
             except fmt.CORRUPT_NPZ as e:
                 raise faults.IntegrityError(
@@ -552,7 +605,17 @@ def build_index_streaming(
             if done:
                 report.incr("pass2_resumed_batches", 1)
                 continue
-            yield b, rank[flat], docnos, lengths
+            term_ids = rank[flat]
+            if positions:
+                # the batch's position runs, on the host, in the pair
+                # order of its pair spills (term asc, tf desc, doc asc)
+                rt, pi_, pd_ = batch_position_runs(term_ids, docnos, lengths)
+                for s_, indptr_, delta_ in split_runs_by_shard(
+                        rt, pi_, pd_, num_shards):
+                    fmt.savez_atomic(
+                        os.path.join(spill_dir, pos_spill_name(s_, b)),
+                        pos_indptr=indptr_, pos_delta=delta_)
+            yield b, term_ids, docnos, lengths
 
     use16 = v < PAD_TERM_U16
 
@@ -602,8 +665,23 @@ def build_index_streaming(
     with report.phase("pass3_reduce"):
         for s in range(num_shards):
             part = fmt.part_path(index_dir, s)
+            if positions:
+                # positions are written before the part, so a part
+                # implies them; a missing positions file rebuilds both,
+                # and an unreadable one is quarantined first (its bytes
+                # would otherwise go into the checksums)
+                ppath = os.path.join(index_dir, positions_name(s))
+                if not os.path.exists(ppath):
+                    part = ""
+                elif not fmt.readable_npz(ppath):
+                    qpath = fmt.quarantine(index_dir, positions_name(s))
+                    logger.warning(
+                        "corrupt positions file quarantined to %s; "
+                        "rebuilding shard %d from its spills", qpath, s)
+                    report.incr("Fault.QUARANTINED_PARTS", 1)
+                    part = ""
             z = None
-            if resuming and os.path.exists(part):
+            if resuming and part and os.path.exists(part):
                 # parts are written atomically after every pass-2 spill
                 # exists: an existing part is this shard's output. One
                 # that fails its full read is quarantined and rebuilt
@@ -633,7 +711,8 @@ def build_index_streaming(
                     offset_of=offset_of_parts)
             else:
                 rdf, npairs = reduce_shard_spills(
-                    spill_dir, index_dir, s, n_units, v, shard_of)
+                    spill_dir, index_dir, s, n_units, v, shard_of,
+                    positions=positions)
             faults.maybe_crash("crash.pass3", f"s={s}")
             num_pairs_total += npairs
             df += rdf
@@ -679,7 +758,8 @@ def build_index_streaming(
         num_docs=num_docs, vocab_size=v, k=k, num_shards=num_shards,
         num_pairs=num_pairs_total,
         chargram_ks=chargram_ks if built_chargrams else [],
-        version=fmt.FORMAT_VERSION, has_positions=False,
+        version=2 if positions else fmt.FORMAT_VERSION,
+        has_positions=bool(positions),
         format_version=fmt.ARENA_FORMAT_VERSION)
     with report.phase("finalize"):
         meta.save_with_checksums(index_dir)

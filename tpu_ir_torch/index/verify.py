@@ -4,8 +4,9 @@ The reference's scattered sanity asserts (the record reader's byte
 position check, the dictionary build's one-position-per-term check, the
 term-match check after each query seek) as one structural verification
 of a built index, after its recorded checksums: `verify` on the command
-line. The report equals the JAX package's on the same index. Position
-runs and live index dirs are later slices of the port and raise.
+line. The report equals the JAX package's on the same index, format v2
+position runs included. Live index dirs are a later slice of the port
+and raise.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from ..collection import DocnoMapping, Vocab
 from . import format as fmt
+from .positions import positions_name
 
 
 def verify_index(index_dir: str) -> dict:
@@ -23,9 +25,6 @@ def verify_index(index_dir: str) -> dict:
     a specific message on violation, returns a summary dict on success."""
     meta = fmt.IndexMetadata.load(index_dir)
     fmt.require_arena_format(meta.format_version)
-    if meta.has_positions:
-        raise ValueError("verifying position runs is not supported by "
-                         "tpu_ir_torch yet (a later slice of the port)")
     # integrity first: recorded checksums must match the bytes on disk
     # (a corrupt artifact should surface as ONE structured IntegrityError
     # naming the file, before any structural assert trips on its content)
@@ -116,6 +115,10 @@ def verify_index(index_dir: str) -> dict:
             key.sort()
             assert not (np.diff(key) == 0).any(), \
                 f"shard {s}: duplicate docno"
+        # format v2: each pair row's position run must exist, be exactly
+        # tf long, strictly ascend, and stay inside the doc's token count
+        if meta.has_positions:
+            _verify_positions(index_dir, s, pd, ptf, doc_len)
         df_global[tids] = df
         total_pairs += int(indptr[-1])
         total_tf += int(ptf.sum())
@@ -191,6 +194,29 @@ def verify_index(index_dir: str) -> dict:
                 "tf-mass conservation was NOT checked and rankings may "
                 "differ from the raw index")
     return out
+
+
+def _verify_positions(index_dir: str, s: int, pd: np.ndarray,
+                      ptf: np.ndarray, doc_len: np.ndarray) -> None:
+    """Shard s's position runs against its pair rows (`tpu_ir/index/
+    verify.py:114-132`)."""
+    ppath = os.path.join(index_dir, positions_name(s))
+    assert os.path.exists(ppath), f"shard {s}: positions file missing"
+    with np.load(ppath) as pz:
+        p_indptr, p_delta = pz["pos_indptr"], pz["pos_delta"]
+    assert len(p_indptr) == len(pd) + 1, f"shard {s}: positions indptr length"
+    assert (np.diff(p_indptr) == ptf).all(), \
+        f"shard {s}: position run length != tf"
+    if len(p_delta):
+        firsts = p_indptr[:-1].astype(np.int64)
+        mask = np.ones(len(p_delta), bool)
+        mask[firsts] = False   # the first delta is the absolute position
+        assert (p_delta[firsts] >= 0).all(), f"shard {s}: negative position"
+        assert (p_delta[mask] >= 1).all(), \
+            f"shard {s}: positions not strictly ascending"
+        last_pos = np.add.reduceat(p_delta.astype(np.int64), firsts)
+        assert (last_pos < doc_len[pd]).all(), \
+            f"shard {s}: position beyond document length"
 
 
 def verify_live(live_dir: str) -> dict:

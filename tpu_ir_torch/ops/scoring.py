@@ -22,6 +22,10 @@ Everything runs in float32.
   it over the surviving doc blocks' columns only, bitwise the same.
 - rerank: cosine-normalised TF-IDF over BM25's candidates, on either
   layout.
+- explain: each top-k has a `*_scores_at_*` twin that calls the same
+  score function and gathers the scores at requested docnos instead of
+  selecting the top k, so a gathered score is bitwise the score the
+  top-k ranked by (search/explain.py).
 
 Quirk policy as in the JAX package: `compat_int_idf=True` reproduces the
 reference's Java int division N/df; documents whose total score is
@@ -170,6 +174,34 @@ def tfidf_topk_dense_quantized(q_terms: torch.Tensor,
     return _topk_from_scores(scores, k)
 
 
+def _gather_at(scores: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """[B, C] scores at the docnos `cand` int [B, C]."""
+    return torch.gather(scores, 1, cand.to(scores.device).long())
+
+
+def tfidf_scores_at_dense(q_terms, doc_matrix, df, num_docs: int, cand, *,
+                          compat_int_idf: bool = False) -> torch.Tensor:
+    """Explain's twin of tfidf_topk_dense: the same kernel's scores,
+    gathered at `cand` int [B, C] (`tpu_ir/ops/scoring.py::
+    tfidf_scores_at_dense`)."""
+    from .fused_scoring import tfidf_scores
+
+    return _gather_at(tfidf_scores(q_terms, doc_matrix, df, num_docs,
+                                   compat_int_idf=compat_int_idf), cand)
+
+
+def tfidf_scores_at_dense_quantized(q_terms, tf_matrix, df, num_docs: int,
+                                    cand, *, compat_int_idf: bool = False
+                                    ) -> torch.Tensor:
+    """Explain's twin of tfidf_topk_dense_quantized (the bf16 raw-tf
+    matrix through the quantized kernel), gathered at `cand`."""
+    from .fused_scoring import tfidf_scores_quantized
+
+    return _gather_at(tfidf_scores_quantized(
+        q_terms, tf_matrix, df, num_docs, compat_int_idf=compat_int_idf),
+        cand)
+
+
 def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
                        k1: float, b: float) -> torch.Tensor:
     """[B, D+1] BM25 scores on the dense layout (plain torch, as the JAX
@@ -205,6 +237,14 @@ def bm25_topk_dense(q_terms: torch.Tensor, tf_matrix: torch.Tensor,
     scores = _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs,
                                 k1, b)
     return _topk_from_scores(scores, k)
+
+
+def bm25_scores_at_dense(q_terms, tf_matrix, df, doc_len, num_docs: int,
+                         cand, *, k1: float = 0.9, b: float = 0.4
+                         ) -> torch.Tensor:
+    """Explain's twin of bm25_topk_dense, gathered at `cand`."""
+    return _gather_at(_bm25_dense_scores(q_terms, tf_matrix, df, doc_len,
+                                         num_docs, k1, b), cand)
 
 
 def _order_key(scores: torch.Tensor) -> torch.Tensor:
@@ -437,6 +477,21 @@ def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     return _topk_from_scores(scores, k)
 
 
+def tfidf_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                           tiers, df, num_docs: int, cand, *,
+                           compat_int_idf: bool = False,
+                           hot_preweighted: bool = False,
+                           skip_hot: bool = False,
+                           hot_only: bool = False) -> torch.Tensor:
+    """Explain's twin of tfidf_topk_tiered (the same cold-tier and
+    hot-stage launches, the same flags), gathered at `cand`. Block-max
+    has no twin: its scores are bitwise the exact path's."""
+    return _gather_at(_tfidf_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, df, num_docs,
+        compat_int_idf=compat_int_idf, hot_preweighted=hot_preweighted,
+        skip_hot=skip_hot, hot_only=hot_only), cand)
+
+
 def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                         tiers, df, doc_len, num_docs: int, *,
                         k1: float, b: float, hot_preweighted: bool = False,
@@ -467,6 +522,19 @@ def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         df, doc_len, num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted,
         skip_hot=skip_hot, hot_only=hot_only)
     return _topk_from_scores(scores, k)
+
+
+def bm25_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                          tiers, df, doc_len, num_docs: int, cand, *,
+                          k1: float = 0.9, b: float = 0.4,
+                          hot_preweighted: bool = False,
+                          skip_hot: bool = False,
+                          hot_only: bool = False) -> torch.Tensor:
+    """Explain's twin of bm25_topk_tiered, gathered at `cand`."""
+    return _gather_at(_bm25_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, df, doc_len,
+        num_docs, k1=k1, b=b, hot_preweighted=hot_preweighted,
+        skip_hot=skip_hot, hot_only=hot_only), cand)
 
 
 # -- block-max pruning -------------------------------------------------------
@@ -661,6 +729,15 @@ def cosine_rerank_dense(q_terms, matrix, df, doc_norm, cand_docnos,
     return _topk_over_candidates(scores, cand_docnos, k)
 
 
+def cosine_scores_at_dense(q_terms, matrix, df, doc_norm, cand_docnos,
+                           num_docs: int) -> torch.Tensor:
+    """Explain's twin of cosine_rerank_dense: the candidates' cosine
+    scores in candidate order, no top-k. Pass the candidate matrix shape
+    the rerank used."""
+    return _cosine_dense_scores(q_terms, matrix, df, doc_norm, cand_docnos,
+                                num_docs)
+
+
 def _cosine_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                           tiers, df, doc_norm, num_docs: int, cand_docnos,
                           *, hot_preweighted: bool = False) -> torch.Tensor:
@@ -688,3 +765,13 @@ def cosine_rerank_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, df, doc_norm,
         num_docs, cand_docnos, hot_preweighted=hot_preweighted)
     return _topk_over_candidates(scores, cand_docnos, k)
+
+
+def cosine_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
+                            tiers, df, doc_norm, num_docs: int, cand_docnos,
+                            *, hot_preweighted: bool = False
+                            ) -> torch.Tensor:
+    """Explain's twin of cosine_rerank_tiered, in candidate order."""
+    return _cosine_tiered_scores(
+        q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers, df, doc_norm,
+        num_docs, cand_docnos, hot_preweighted=hot_preweighted)

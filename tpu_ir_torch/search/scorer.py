@@ -56,11 +56,20 @@ and compose k-gram terms window by window. The expanded id row is the
 JAX package's, id for id and slot for slot, and goes down the same
 dispatch as any other row.
 
+On an index built with positions (format v2) a text holding a quoted
+span is a phrase query: its spans must match as ordered windows
+(`phrase_slop` extra gaps), found and scored on the host in numpy as in
+the JAX package (search/phrase.py); `prox=True` adds the positional
+proximity boost as stage 3 of the rerank. `explain_k` / `explain_ks`
+attach the exact per-term decomposition of the top hits, read out of
+the same kernels the top-k ran (search/explain.py), and `snippet`
+renders a highlighted window from the document store.
+
 Not in this slice (each raises ValueError naming a later slice): the
-sharded layout, the proximity boost, phrase queries, explain, and the
-query log. The JAX package's donated-query twins (`donate`,
-`TPU_IR_BATCH_DONATE`) have no counterpart: torch frees a batch's query
-tensor when its last reference goes, so there is nothing to donate.
+sharded layout and the query log. The JAX package's donated-query twins
+(`donate`, `TPU_IR_BATCH_DONATE`) have no counterpart: torch frees a
+batch's query tensor when its last reference goes, so there is nothing
+to donate.
 """
 
 from __future__ import annotations
@@ -182,11 +191,17 @@ class SearchResult(list):
     its ladder down). `breaker_vote`: in a coalesced batch exactly one
     result carries True, so the breaker gets one verdict per dispatch.
     `generation`: the index generation that answered (0: a batch-built
-    index). `partial` and `trace_id` belong to the scatter-gather tier
+    index). `explain`: the per-term decompositions of the top hits when
+    `search_batch(explain_k=N)` asked for them (search/explain.py), None
+    otherwise and on a degraded or proximity-boosted result. `snippets`:
+    one highlighted text window a hit when the serving frontend was asked
+    for them. `partial` and `trace_id` belong to the scatter-gather tier
     and distributed tracing, not ported: always False and None."""
 
     degraded: bool = False
     level: str = "full"
+    explain: list | None = None
+    snippets: list | None = None
     breaker_vote: bool = True
     generation: int = 0
     partial: bool = False
@@ -257,6 +272,8 @@ class Scorer:
         self._lazy_lock = threading.Lock()
         self._wildcard: list | None = None
         self._wildcard_tried = False
+        self._phrase = None
+        self._store = None
         self._norms_np: np.ndarray | None = None
         self._norms: torch.Tensor | None = None
         self._host_pairs: tuple | None = None
@@ -1231,41 +1248,78 @@ class Scorer:
         pad_to: int | None = None, width_floor: int | None = None,
         rung_ladder: tuple | None = None,
     ) -> list[SearchResult]:
-        """Ranked retrieval for plain query texts: one SearchResult of
-        (docid or docno, score) per text, best first, each tagged with
-        this request's `degraded` flag. `rerank=N` is the two-stage
-        rerank over BM25's top N (`scoring` then does not apply).
+        """Ranked retrieval for query texts: one SearchResult of (docid or
+        docno, score) per text, best first, each tagged with this
+        request's `degraded` flag (`tpu_ir/search/scorer.py::
+        search_batch`). `rerank=N` is the two-stage rerank over BM25's
+        top N (`scoring` then does not apply); `prox=True` adds the
+        positional proximity boost to it. A text holding a double-quoted
+        span is a phrase query (ordered windows, `phrase_slop` extra
+        gaps), scored on the host; phrases and `prox` need an index built
+        with positions.
 
-        Serving knobs (`tpu_ir/search/scorer.py::search_batch`; the
-        ServingFrontend is the intended caller): `deadline_s` bounds this
-        batch's dispatch, `force_host` answers from the host with no
-        dispatch, `hot_only` scores the tiered hot strip alone. The
+        Serving knobs (the ServingFrontend is the intended caller):
+        `deadline_s` bounds this batch's dispatch, `force_host` answers
+        from the host with no dispatch, `hot_only` scores the tiered hot
+        strip alone; phrase queries ignore them. `explain_k=N` attaches
+        the exact decomposition of each query's top N hits
+        (`SearchResult.explain`), `explain_ks` one depth a query; a
+        degraded or proximity-boosted result carries None. The
         coalescer's: `pad_to=R` pads the query rows with -1 rows to R
         (their results are dropped), `width_floor` pins the analyzed
         width, and `rung_ladder` pads the MaxScore groups to ladder
-        rungs. `explain_k`/`explain_ks` other than 0 raise (explain is a
-        later slice)."""
-        unsupported = {"prox": prox, "phrase_slop": phrase_slop,
-                       "explain_k": explain_k,
-                       "explain_ks": any(explain_ks or ())}
-        for name, value in unsupported.items():
-            if value:
-                raise ValueError(f"search_batch({name}=...) {_LATER}")
+        rungs; such a batch cannot hold a phrase query."""
+        if prox and not rerank:
+            raise ValueError("the proximity boost is stage 3 of the "
+                             "two-stage rerank; pass rerank=N (--rerank) "
+                             "together with prox (--prox)")
         texts = list(texts)
-        for t in texts:
-            if '"' in t:
-                raise ValueError(f"phrase queries {_LATER}: {t!r}")
         if explain_ks is not None and len(explain_ks) != len(texts):
             raise ValueError(f"explain_ks has {len(explain_ks)} entries for "
                              f"{len(texts)} queries")
+        plain = [t for t in texts if '"' not in t]
+        if len(plain) != len(texts) and (pad_to is not None
+                                         or explain_ks is not None):
+            # the per-slot lists index the plain batch: a phrase query in
+            # it would shift every later slot's explain depth
+            raise ValueError("a coalesced batch (pad_to / explain_ks) "
+                             "cannot contain phrase queries — the "
+                             "coalescing frontend routes them solo")
+        plain_iter = iter(self._search_batch_plain(
+            plain, k=k, scoring=scoring, return_docids=return_docids,
+            rerank=rerank, prox=prox, deadline_s=deadline_s,
+            force_host=force_host, hot_only=hot_only, explain_k=explain_k,
+            explain_ks=explain_ks, pad_to=pad_to, width_floor=width_floor,
+            rung_ladder=rung_ladder) if plain else [])
+        return [self._search_phrase(t, k=k, scoring=scoring,
+                                    slop=phrase_slop,
+                                    return_docids=return_docids,
+                                    rerank=rerank, prox=prox)
+                if '"' in t else next(plain_iter) for t in texts]
+
+    def _search_batch_plain(
+        self, texts: Sequence[str], *, k: int, scoring: str,
+        return_docids: bool, rerank: int | None, prox: bool,
+        deadline_s: float | None = None, force_host: bool = False,
+        hot_only: bool = False, explain_k: int = 0,
+        explain_ks: Sequence[int] | None = None,
+        pad_to: int | None = None, width_floor: int | None = None,
+        rung_ladder: tuple | None = None,
+    ) -> list[SearchResult]:
         q = self.analyze_queries(texts, width_floor=width_floor)
         if pad_to is not None and pad_to > len(q):
             q = np.vstack([q, np.full((pad_to - len(q), q.shape[1]), -1,
                                       np.int32)])
         if rerank:
+            from .phrase import PROX_DEPTH
+
+            kk = max(k, min(PROX_DEPTH, rerank)) if prox else k
             scores, docnos, degraded = self.rerank_topk_tagged(
-                q, k=k, candidates=rerank, deadline_s=deadline_s,
+                q, k=kk, candidates=rerank, deadline_s=deadline_s,
                 force_host=force_host)
+            if prox:
+                scores, docnos = self._apply_proximity(
+                    texts, scores[: len(texts)], docnos[: len(texts)], k)
         else:
             scores, docnos, degraded = self.topk_tagged(
                 q, k=k, scoring=scoring, deadline_s=deadline_s,
@@ -1282,7 +1336,177 @@ class Scorer:
                        else int(dn))
                 res.append((key, float(s)))
             out.append(res)
+        if (explain_k or explain_ks) and not degraded and not prox:
+            # the boosted scores come from the host after the kernels:
+            # they are not a kernel decomposition
+            from .explain import explain_hits
+
+            for qi, text in enumerate(texts):
+                ek = explain_ks[qi] if explain_ks is not None else explain_k
+                top = [int(dn) for dn in docnos[qi][:ek] if dn > 0]
+                if top:
+                    out[qi].explain = explain_hits(
+                        self, text, top, scoring=scoring, rerank=rerank,
+                        hot_only=hot_only)
         return out
+
+    def explain(self, text: str, key, *, is_docid: bool = True,
+                scoring: str = "tfidf", rerank: int | None = None,
+                hot_only: bool = False) -> dict:
+        """The exact per-term decomposition of one (query, doc) score:
+        tf, df, idf, length norm and tier placement a term, the skip
+        decision, and marginal per-slot contributions whose float64 sum
+        is the kernel's score bit for bit; with `rerank`, of the cosine
+        stage (search/explain.py)."""
+        from .explain import explain_hits
+
+        docno = self.mapping.get_docno(key) if is_docid else int(key)
+        return explain_hits(self, text, [docno], scoring=scoring,
+                            rerank=rerank, hot_only=hot_only)[0]
+
+    # -- positions-backed retrieval (format v2) ----------------------------
+
+    def _phrase_index(self):
+        """The PhraseIndex over this index dir's position runs, made once
+        (a racing thread may make a second one, which is dropped)."""
+        pidx = self._phrase
+        if pidx is None:
+            if self._index_dir is None:
+                raise ValueError("phrase/proximity queries need an index "
+                                 "directory (Scorer built from arrays)")
+            from .phrase import PhraseIndex
+
+            pidx = PhraseIndex(self._index_dir, meta=self.meta)
+            self._phrase = pidx
+        return pidx
+
+    def _query_term_sequence(self, text: str) -> list[str]:
+        """The query's analyzed index-term sequence, k-grams composed:
+        the coordinates the position runs are stored in."""
+        return kgram_terms(self._analyzer().analyze(text), self.meta.k)
+
+    def _search_phrase(self, text: str, *, k: int, scoring: str, slop: int,
+                       return_docids: bool, rerank: int | None = None,
+                       prox: bool = False) -> SearchResult:
+        """One phrase query (`tpu_ir/search/scorer.py::_search_phrase`):
+        every quoted span must match as an ordered window; the matching
+        docs are ranked by the scoring model over all the query's terms,
+        on the host. `rerank`/`prox` compose as on the plain path: BM25
+        picks the top N matched docs, cosine TF-IDF rescores them, and
+        the proximity boost goes over the top of that."""
+        from .phrase import (
+            PROX_ALPHA,
+            PROX_DEPTH,
+            cosine_score_host,
+            score_docs_host,
+            split_phrases,
+        )
+
+        # a stray or empty quote ('19" rack') is a plain query on any
+        # index: only a real phrase needs the position runs
+        _, phrases = split_phrases(text)
+        analyzed = [toks for toks in (self._query_term_sequence(p)
+                                      for p in phrases) if toks]
+        if not analyzed:
+            return self._search_batch_plain(
+                [text.replace('"', ' ')], k=k, scoring=scoring,
+                return_docids=return_docids, rerank=rerank, prox=prox)[0]
+        pidx = self._phrase_index()
+        matched: set[int] | None = None
+        for toks in analyzed:
+            docs = set(pidx.match_window(toks, slop=slop))
+            matched = docs if matched is None else matched & docs
+            if not matched:
+                return SearchResult()
+        all_terms = self._query_term_sequence(text.replace('"', ' '))
+        if rerank:
+            # stage 1: BM25 over the matched docs, the top `rerank` kept
+            docnos, scores = score_docs_host(
+                all_terms, sorted(matched), dictionary=pidx._dict,
+                num_docs=self.meta.num_docs, doc_len=self._doc_len_host,
+                scoring="bm25", term_lookup=pidx._term)
+            keep = np.lexsort((docnos, -scores))[:rerank]
+            # stage 2: cosine TF-IDF over the candidates
+            docnos, scores = cosine_score_host(
+                all_terms, docnos[keep], dictionary=pidx._dict,
+                num_docs=self.meta.num_docs,
+                doc_norms=self._doc_norms_host(), term_lookup=pidx._term)
+            if prox and len(all_terms) > 1:
+                # stage 3: the proximity boost over the top PROX_DEPTH
+                scores = scores.astype(np.float64)
+                for i in np.lexsort((docnos, -scores))[:PROX_DEPTH]:
+                    if scores[i] > 0:
+                        scores[i] *= 1.0 + PROX_ALPHA * pidx.proximity_bonus(
+                            all_terms, int(docnos[i]))
+        else:
+            docnos, scores = score_docs_host(
+                all_terms, sorted(matched), dictionary=pidx._dict,
+                num_docs=self.meta.num_docs, doc_len=self._doc_len_host,
+                scoring=scoring, compat_int_idf=self.compat_int_idf,
+                term_lookup=pidx._term)
+        res = SearchResult()
+        for i in np.lexsort((docnos, -scores))[:k]:
+            # zero-score docs are kept, unlike the plain path: each one
+            # meets the phrase the user asked for, and a query whose terms
+            # all have idf 0 must still return its matches (ranked after
+            # the positive scores, docno ascending)
+            dn = int(docnos[i])
+            key = self.mapping.get_docid(dn) if return_docids else dn
+            res.append((key, float(scores[i])))
+        return res
+
+    def _apply_proximity(self, texts, scores, docnos, k: int):
+        """Stage 3 of the rerank: each candidate's score times (1 +
+        PROX_ALPHA * bonus), bonus = the sum over adjacent query-term
+        pairs of 1 / (1 + min_gap), in float64; then the lexsort order
+        (score desc, docno asc), cast back to float32. Host work, bounded
+        by the rerank's kk candidates (at most PROX_DEPTH past k)."""
+        from .phrase import PROX_ALPHA
+
+        pidx = self._phrase_index()
+        b, kk = scores.shape
+        out_s = np.zeros((b, k), np.float32)
+        out_d = np.zeros((b, k), np.int32)
+        for qi, text in enumerate(texts):
+            terms = self._query_term_sequence(text)
+            row_s = scores[qi].astype(np.float64).copy()
+            for j in range(kk):
+                dn = int(docnos[qi, j])
+                if dn > 0 and row_s[j] > 0 and len(terms) > 1:
+                    row_s[j] *= 1.0 + PROX_ALPHA * pidx.proximity_bonus(
+                        terms, dn)
+            order = np.lexsort((docnos[qi], -row_s))[:k]
+            valid = row_s[order] > 0
+            out_s[qi, : valid.sum()] = row_s[order][valid]
+            out_d[qi, : valid.sum()] = docnos[qi][order][valid]
+        return out_s, out_d
+
+    # -- snippets (the document store) -------------------------------------
+
+    def _docstore(self):
+        store = self._store
+        if store is None:
+            if self._index_dir is None:
+                raise ValueError("snippets need an index directory "
+                                 "(Scorer built from arrays)")
+            from ..index.docstore import DocStore
+
+            store = DocStore(self._index_dir)
+            self._store = store
+        return store
+
+    def snippet(self, query_text: str, key, *, is_docid: bool = True,
+                width: int | None = None) -> str:
+        """A highlighted text window of one result (search/snippets.py):
+        matching goes token by token through the indexing analyzer, so a
+        k-gram or quoted query highlights its component words."""
+        from .snippets import SNIPPET_WORDS, make_snippet
+
+        docno = self.mapping.get_docno(key) if is_docid else int(key)
+        analyzer = self._analyzer()
+        toks = set(analyzer.analyze(query_text.replace('"', ' ')))
+        return make_snippet(self._docstore().get(docno), toks, analyzer,
+                            width=width or SNIPPET_WORDS)
 
 
 def _strip_dtype(meta: fmt.IndexMetadata, tfs: np.ndarray) -> torch.dtype:

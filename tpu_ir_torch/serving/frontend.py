@@ -269,13 +269,16 @@ class ServingFrontend:
     # -- the request path --------------------------------------------------
 
     def search(self, text: str, *, k: int = 10, scoring: str = "tfidf",
-               rerank: int | None = None, explain_k: int = 0,
-               return_docids: bool = True):
+               rerank: int | None = None, snippets: bool = False,
+               explain_k: int = 0, return_docids: bool = True):
         """Serve one query. Returns a SearchResult tagged with the
         service level (`level`) and fallback flag (`degraded`) that
         produced it, or raises Overloaded (a structured shed: the request
-        was not executed). `rerank` is what the caller wants; the ladder
-        decides what it gets. The whole call is one "request" span, and
+        was not executed). `rerank`, `snippets` and `explain_k` are what
+        the caller wants; the ladder decides what it gets: snippets
+        (`SearchResult.snippets`, one a hit) come only at level full and
+        on a result that is not degraded, and explain_k rides per slot in
+        a coalesced batch. The whole call is one "request" span, and
         its latency lands in the `request.<level>` histogram, sheds
         included (`request.shed` is the time to reject)."""
         t0 = time.perf_counter()
@@ -300,7 +303,8 @@ class ServingFrontend:
                                  level=level)
             cache_key = self._cache_key(scorer, text, k=k,
                                         scoring=scoring, rerank=rerank,
-                                        level=level, explain_k=explain_k,
+                                        level=level, snippets=snippets,
+                                        explain_k=explain_k,
                                         return_docids=return_docids)
             if cache_key is not None:
                 t_lookup = time.perf_counter()
@@ -327,8 +331,8 @@ class ServingFrontend:
                     admit_cm.__enter__()
                 try:
                     res = self._serve(text, k=k, scoring=scoring,
-                                      rerank=rerank, level=level,
-                                      explain_k=explain_k,
+                                      rerank=rerank, snippets=snippets,
+                                      level=level, explain_k=explain_k,
                                       return_docids=return_docids,
                                       scorer=scorer, batcher=batcher)
                 finally:
@@ -352,17 +356,18 @@ class ServingFrontend:
                 raise
 
     def _cache_key(self, scorer, text: str, *, k: int, scoring: str,
-                   rerank: int | None, level: str, explain_k: int,
-                   return_docids: bool) -> tuple | None:
+                   rerank: int | None, level: str, snippets: bool,
+                   explain_k: int, return_docids: bool) -> tuple | None:
         """The exact-hit key of one request, or None when it is not
-        cacheable (cache off; phrase, glob or fuzzy text; an explain
-        request; raw docnos). The terms are the analyzed id sequence,
+        cacheable (cache off; phrase, glob or fuzzy text; an explain or
+        snippet request, which attaches per-request output; raw docnos).
+        The terms are the analyzed id sequence,
         order and repeats kept: the sums follow slot order, so a
         reordered query may have other bits."""
         from .result_cache import cacheable_text
 
-        if (self.cache is None or explain_k or not return_docids
-                or not cacheable_text(text)):
+        if (self.cache is None or snippets or explain_k
+                or not return_docids or not cacheable_text(text)):
             return None
         row = scorer.analyze_queries([text])[0]
         terms = tuple(int(t) for t in row if t >= 0)
@@ -371,8 +376,8 @@ class ServingFrontend:
                 level == LEVEL_HOT_ONLY, int(scorer.generation))
 
     def _serve(self, text: str, *, k: int, scoring: str,
-               rerank: int | None, level: str, explain_k: int,
-               return_docids: bool, scorer, batcher):
+               rerank: int | None, snippets: bool, level: str,
+               explain_k: int, return_docids: bool, scorer, batcher):
         with obs_trace("breaker") as bsp:
             allowed, is_probe = self.breaker.allow_device()
             bsp.set("allowed", allowed)
@@ -424,6 +429,10 @@ class ServingFrontend:
         if res.degraded:
             self._count("degraded")
         self._count(f"served_{level}")
+        if snippets and level == LEVEL_FULL and not res.degraded:
+            res.snippets = [scorer.snippet(text, key,
+                                           is_docid=return_docids)
+                            for key, _ in res]
         self.ladder.observe(pressure=self.admission.pressure(),
                             failed=dispatch_failed)
         return res
