@@ -42,7 +42,7 @@ code:
               on 64 queries, both scorings) and the kernels' launch counts;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
               over the same queries: q/s, device time, launches; then
-              `explain`: 256 of the queries as texts through search_batch
+              `explain`: 128 of the queries as texts through search_batch
               with explain_k = 10 (TF-IDF, BM25 and the rerank): every
               entry's float64 sum of contributions equals its score, and
               its score the returned one, as float32 bits, and the same
@@ -61,6 +61,10 @@ code:
               matrix, TF-IDF through dequant_score, and top-10 bitwise
               equal to the raw index's for both scorings; its rerank
               bitwise the raw index's;
+9a. v1        the ref corpus built one-shot under TPU_IR_FORMAT_VERSION=1
+              (npz parts) and served dense: top-10 bitwise the v2 index's,
+              dense_score launched; migrated to v2, every artifact has the
+              v2 build's sha256; verify_index on both;
 10. build_streaming  the `wiki100k` corpus (100,000 docs, 270 MB
               target, 200,000 word shapes) indexed into 10 shards three
               ways on the card: the streaming radix build (16 buckets,
@@ -82,10 +86,10 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 2,000 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 1,000 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
-              '?'): 200 patterns of each held against a glob and a
+              '?'): 80 patterns of each held against a glob and a
               Levenshtein oracle over the vocabulary; the expansion's host
               seconds (first call and warm), the rows' widths; the rows
               through phase 12's checks (prune on == off bitwise, recall@10
@@ -117,7 +121,7 @@ code:
               char-grams over tokens.txt) and streaming (the Python
               tokenizer in 4 processes): every artifact both write has
               one sha256, verify passes; the one-shot index served with
-              layout "auto" (2,000 two- and three-token texts, recall@10
+              layout "auto" (1,000 two- and three-token texts, recall@10
               = 1.0 against the oracle; 200 globs composed over
               tokens.txt): build wall s and docs/s, V, the layout, q/s,
               device time and launches;
@@ -127,16 +131,37 @@ code:
               wiki100k streaming with the store (a radix request) and
               one-shot, their shared artifacts with one sha256; verify
               on each; wall s, docs/s, positions bytes, peak host RSS;
-20. prox      ref and wiki100k (their positions indexes): the 10,000
+19a. merge    each kept corpus split at a document boundary into two
+              files whose concatenation is the whole, each half built
+              one-shot into 10 shards (wiki100k with the store through one
+              corpus pass, ref with positions) and the halves merged on the
+              card: every merged artifact has the sha256 of the radix
+              build's (wiki100k, the store included) or the ref positions
+              build's artifact of that name; the halves' and the merge's
+              seconds, the merge's phase timings and peak host RSS; the
+              merged wiki100k index served (the uniform queries, TF-IDF
+              and BM25) bitwise as the radix index, cold_tier and hot_stage
+              launched;
+19b. warm     the wiki100k serving cache removed, a load that misses and
+              writes it (cold_load_s), one that hits (warm_load_s) and opens
+              no part file (counted); the hit scorer serves the uniform and
+              hot-term traffic, TF-IDF and BM25, the rerank of 1,000 and an
+              explain batch of 64 texts bitwise as the miss scorer,
+              launching cold_tier and hot_stage; the cache's bytes; then
+              `tpu-ir-torch warm` through the command line;
+19c. doctor   doctor_report on the wiki100k index: its seconds, the block
+              bounds ok and exact, serving-tiered among the caches, the
+              warnings;
+20. prox      ref and wiki100k (their positions indexes): the first 2,000
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
               cosine stage; 64 queries (32 uniform, 32 pairs of common
               terms) held bitwise against the boost recomputed in numpy
               from the position files;
-21. phrase    wiki100k: 2,000 quoted windows of 2-3 analyzed tokens of
+21. phrase    wiki100k: 400 quoted windows of 2-3 analyzed tokens of
               random docs (default_rng(12)), half with a free term, at
               slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
-              100 phrases a slop held against a scan of the token streams
+              40 phrases a slop held against a scan of the token streams
               of the document store;
 22. snippets  wiki100k: 200 hits through a ServingFrontend with
               snippets=True, every marked word one of the query's
@@ -156,14 +181,14 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               (its ladder stepped down), which launches hot_stage and
               never cold_tier and gives the bits of hot_stage's plain
               twin on the same path;
-24. soak      wiki100k, 8 threads x 480 requests of make_queries through a
+24. soak      wiki100k, 8 threads x 240 requests of make_queries through a
               coalescing frontend: a clean run (served + shed ==
               submitted, no error, deadlock, untagged mismatch or
               degraded response, no forced host batch, kernels launched),
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              2,000 requests a level, BM25 and TF-IDF, twice each:
+              500 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
@@ -217,7 +242,14 @@ MIN_TRACED = 0.9               # least share of the launches a trace must hold
 WIDE_TERMS = (33, 64, 128)
 
 
+_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended, in seconds
+    since the script started (`elapsed_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1873,11 +1905,14 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
-WILDCARD_QUERIES = 2_000        # query texts of each wildcard mix
-EXPANSION_SAMPLE = 200         # patterns of a mix held against the oracles
+WILDCARD_QUERIES = 1_000        # query texts of each wildcard mix (2,000
+                                # before the run outgrew its time)
+EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
+                               # (200 before the run outgrew its time)
 # the questions that raised on a char-gram index before wildcard search
 QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
-KGRAM_QUERIES = 2_000          # two- and three-token texts on the k = 2 index
+KGRAM_QUERIES = 1_000          # two- and three-token texts on the k = 2
+                               # index (2,000 before the run outgrew its time)
 KGRAM_GLOBS = 200              # glob texts composed over its tokens.txt
 KGRAM_PROCS = 4                # tokenizer processes, streaming k = 2 build
 
@@ -2280,9 +2315,10 @@ COALESCE_LADDER = (1, 4, 16)     # the default ladder's rungs on the card
 COALESCE_WIDTH = 8               # TPU_IR_BATCH_WIDTH's default
 FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
 SOAK_THREADS = 8
-SOAK_QUERIES = 480
+SOAK_QUERIES = 240               # (480 before the run outgrew its time)
 SWEEP_LEVELS = (1, 4, 16)
-SWEEP_QUERIES = 2000             # per level
+SWEEP_QUERIES = 500              # per level (2,000 before the merge, warm
+                                 # and doctor phases paid for their time)
 SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
@@ -2633,13 +2669,17 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
 # -- positions, phrase, proximity, explain, snippets --------------------------
 
 POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
-PHRASE_TEXTS = 2_000            # phrase texts of the wiki100k phrase phase
+PHRASE_TEXTS = 400              # phrase texts of the wiki100k phrase phase
+                                # (2,000 before the run outgrew its time)
 PHRASE_SLOPS = (0, 2)
-PHRASE_ORACLE = 100             # phrases a slop held against a stream scan
-PROX_QUERIES = 10_000           # uniform queries through the prox rerank
+PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
+                                # (100 before the run outgrew its time)
+PROX_QUERIES = 2_000            # uniform queries through the prox rerank
+                                # (10,000 before the run outgrew its time)
 PROX_CANDIDATES = 1_000
 PROX_ORACLE = 64                # queries whose boost numpy recomputes
-EXPLAIN_QUERIES = 256           # queries of each explain traffic
+EXPLAIN_QUERIES = 128           # queries of each explain traffic (256 before
+                                # the merge, warm and doctor phases)
 EXPLAIN_K = 10
 SNIPPET_HITS = 200              # hits rendered through the frontend
 
@@ -2695,8 +2735,8 @@ def timed_build(build, d: str, device: str) -> dict:
                                           for m in log.messages)}
 
 
-def phase_positions(card: str, work: str, *, device: str
-                    ) -> tuple[dict, dict]:
+def phase_positions(card: str, work: str, *, device: str,
+                    keep_corpora: bool = False) -> tuple[dict, dict]:
     """Format v2 position runs in both builds at full scale. `ref`:
     one-shot, legacy streaming (batches of POSITIONS_REF_BATCH docs) and
     a radix request (16 buckets), which must fall back to the per-batch
@@ -2705,7 +2745,7 @@ def phase_positions(card: str, work: str, *, device: str
     fallback) and one-shot (no store); the artifacts they share, the
     position runs included, have one sha256. verify_index passes on each.
     The corpora are the ones phase_build and phase_build_streaming kept
-    in `work`, deleted here. Returns (report, {"ref": the one-shot
+    in `work`, deleted here unless `keep_corpora`. Returns (report, {"ref": the one-shot
     index, "wiki100k": the streaming index with the store})."""
     from tpu_ir_torch.index import build_index, build_index_streaming
     from tpu_ir_torch.index.verify import verify_index
@@ -2741,7 +2781,8 @@ def phase_positions(card: str, work: str, *, device: str
             if name != "oneshot" and warned != (name != "legacy"):
                 raise AssertionError(f"{config} {name}: radix fallback "
                                      f"warning {warned}")
-        os.unlink(corpus)
+        if not keep_corpora:
+            os.unlink(corpus)
         names = [set(v) for v in digests.values()]
         shared = sorted(set.intersection(*names))
         extra = sorted(set.union(*names) - set(shared))
@@ -3154,6 +3195,357 @@ def phase_snippets(card: str, scorer, q_ids: np.ndarray, *,
             "request_ms": snip_s * 1e3 / queries}
 
 
+# -- merge, the serving cache, doctor, format v1 ------------------------------
+
+WARM_EXPLAIN_QUERIES = 64       # texts of the warm phase's explain batch
+WARM_RERANK = 1_000             # candidates of the warm phase's rerank
+
+
+def split_corpus(corpus: str, work: str, config: str) -> list[str]:
+    """Two TREC files cut at the document boundary nearest the middle,
+    whose concatenation is `corpus` byte for byte."""
+    with open(corpus, "rb") as f:
+        data = f.read()
+    cut = data.index(b"<DOC>", len(data) // 2)
+    halves = []
+    for name, part in (("a", data[:cut]), ("b", data[cut:])):
+        path = os.path.join(work, f"{config}-half-{name}.trec")
+        with open(path, "wb") as f:
+            f.write(part)
+        halves.append(path)
+    return halves
+
+
+def merge_check(card: str, corpus: str, work: str, want: dict, *,
+                config: str, device: str, positions: bool = False,
+                store: bool = False) -> tuple[dict, str]:
+    """`corpus` split at a document boundary, each half built one-shot
+    into 10 shards (char-grams 2, 3; with the store through one corpus
+    pass, the quickest way that carries one; with positions if asked),
+    then merged on `device` into 10 shards: every artifact of the merged
+    index must have the sha256 in `want` (the full build's digests),
+    under the same names. Returns (report, the merged index dir)."""
+    import torch
+
+    from tpu_ir_torch.index import build_index, merge_indexes
+    from tpu_ir_torch.index.docstore import build_docstore
+
+    on_card = device == "cuda"
+    halves = split_corpus(corpus, work, config)
+    out = {"halves": {}}
+    dirs = []
+    for path in halves:
+        d = path[: -len(".trec")] + "-idx"
+        t0 = time.perf_counter()
+        meta = build_index(path, d, num_shards=10, positions=positions,
+                           device=device)
+        if store:
+            build_docstore([path], d)
+        if on_card:
+            torch.cuda.synchronize()
+        out["halves"][os.path.basename(d)] = {
+            "wall_s": time.perf_counter() - t0, "num_docs": meta.num_docs}
+        dirs.append(d)
+        os.unlink(path)
+    merged = os.path.join(work, f"{config}-merged")
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        meta = merge_indexes(dirs, merged, num_shards=10, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for d in dirs:
+        shutil.rmtree(d)
+    with open(os.path.join(merged, "jobs", "MergeIndexes.json")) as f:
+        job = json.load(f)
+    got = artifact_digests(merged)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{config}: merged artifacts {sorted(got)}, "
+                             f"the full build's {sorted(want)}")
+    differ = [n for n in got if got[n] != want[n]]
+    if differ:
+        raise AssertionError(f"{config}: the merge differs from the full "
+                             f"build in {differ}")
+    out.update({"merge_s": wall, "docs_per_s": meta.num_docs / wall,
+                "num_docs": meta.num_docs, "num_pairs": meta.num_pairs,
+                "timings_s": job["timings_s"],
+                "peak_host_rss_bytes": rss.peak,
+                "host_rss_start_bytes": rss.start,
+                "identical_artifacts": len(got),
+                "has_positions": meta.has_positions,
+                "store": "docstore.bin" in got})
+    return out, merged
+
+
+def phase_merge(card: str, work: str, *, widx: str, wdigests: dict,
+                ref_pos: str, q_ids: np.ndarray, want: dict,
+                device: str, k: int = 10) -> dict:
+    """The wiki100k corpus kept in `work` merged from its halves (with
+    the store and char-grams) against the radix build's digests
+    (`wdigests`), and the ref corpus merged with positions against the
+    ref positions build (`ref_pos`); then the merged wiki100k index
+    loaded and the uniform queries `q_ids` served (TF-IDF and BM25): its
+    top-k must be the radix index's (`want`) bitwise, and cold_tier and
+    hot_stage must launch. Deletes both corpora."""
+    import tpu_ir_torch
+    from tpu_ir_torch.search import Scorer
+
+    out = {"phase": "merge", "card": card, "configs": {}}
+    wiki, merged = merge_check(
+        card, os.path.join(work, "wiki100k.trec"), work, wdigests,
+        config="wiki100k", device=device, store=True)
+    out["configs"]["wiki100k"] = wiki
+    ref, ref_merged = merge_check(
+        card, os.path.join(work, "ref.trec"), work,
+        artifact_digests(ref_pos), config="ref-pos", device=device,
+        positions=True)
+    shutil.rmtree(ref_merged)
+    out["configs"]["ref-pos"] = ref
+    for name in ("wiki100k.trec", "ref.trec"):
+        os.unlink(os.path.join(work, name))
+
+    tpu_ir_torch.reset_kernel_launches()
+    t0 = time.perf_counter()
+    scorer = Scorer.load(merged, device=device)
+    out["load_s"] = time.perf_counter() - t0
+    if scorer.layout != "sparse":
+        raise AssertionError(f"merged wiki100k: layout {scorer.layout!r}")
+    for scoring in ("tfidf", "bm25"):
+        t0 = time.perf_counter()
+        got = scorer.topk(q_ids, k=k, scoring=scoring)
+        out[f"{scoring}_qps"] = len(q_ids) / (time.perf_counter() - t0)
+        if not same_bits(got, want[scoring]):
+            raise AssertionError(f"merged wiki100k {scoring}: top-{k} "
+                                 "differs from the radix index's")
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    if device == "cuda" and not (out["launches"]["cold_tier"]
+                                 and out["launches"]["hot_stage"]):
+        raise AssertionError(f"the merged index's serve never launched "
+                             f"cold_tier and hot_stage: {out['launches']}")
+    out["topk_bitwise_radix"] = True
+    del scorer
+    shutil.rmtree(merged)
+    return out
+
+
+class PartOpens:
+    """Counts the calls that open a part file (format.load_shard,
+    load_shard_verified, read_part, and the verified whole-file read of
+    a part) while the `with` block runs."""
+
+    NAMES = ("load_shard", "load_shard_verified", "read_part",
+             "_read_file_verified")
+
+    def __enter__(self):
+        from tpu_ir_torch.index import format as fmt
+
+        self.n = 0
+        self._fmt = fmt
+        self._kept = {n: getattr(fmt, n) for n in self.NAMES}
+        for name, real in self._kept.items():
+            setattr(fmt, name, self._counted(name, real))
+        return self
+
+    def _counted(self, name, real):
+        def counted(*a, **kw):
+            if name != "_read_file_verified" or os.path.basename(
+                    str(a[0])).startswith("part-"):
+                self.n += 1
+            return real(*a, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, real in self._kept.items():
+            setattr(self._fmt, name, real)
+        return False
+
+
+def phase_warm(card: str, idx: str, q_ids: np.ndarray, hot_q: np.ndarray,
+               *, device: str, k: int = 10) -> dict:
+    """The serving cache at wiki100k: the cache removed, a load that
+    misses (builds the layout, computes the norms, writes the cache),
+    then one that hits, counting the part files it opens (none may be
+    opened). The hit scorer serves the uniform and hot-term traffic
+    (TF-IDF and BM25), the rerank of WARM_RERANK and one explain batch
+    of WARM_EXPLAIN_QUERIES texts bitwise as the miss scorer does, and
+    must launch cold_tier and hot_stage. Then `tpu-ir-torch warm` once
+    through the command line, its JSON recorded."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search.layout import CACHE_NAME
+
+    on_card = device == "cuda"
+    cache = os.path.join(idx, CACHE_NAME)
+    shutil.rmtree(cache, ignore_errors=True)
+
+    def timed_load():
+        t0 = time.perf_counter()
+        s = Scorer.load(idx, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        return s, time.perf_counter() - t0
+
+    miss, cold_s = timed_load()
+    if not os.path.isdir(cache):
+        raise AssertionError("the missing load wrote no serving cache")
+    with PartOpens() as opens:
+        hit, warm_s = timed_load()
+    out = {"phase": "warm", "card": card, "config": "wiki100k",
+           "cold_load_s": cold_s, "warm_load_s": warm_s,
+           "cache_bytes": sum(os.path.getsize(os.path.join(cache, f))
+                              for f in os.listdir(cache)),
+           "hit_part_opens": opens.n}
+    if opens.n or hit._host_pairs is not None:
+        raise AssertionError(f"the cache hit opened {opens.n} part files")
+
+    def serve(s):
+        res = {}
+        for traffic, q in (("uniform", q_ids), ("hot", hot_q)):
+            for scoring in ("tfidf", "bm25"):
+                res[traffic, scoring] = s.topk(q, k=k, scoring=scoring)
+        res["rerank"] = s.rerank_topk(q_ids, k=k, candidates=WARM_RERANK)
+        return res
+
+    want = serve(miss)
+    tpu_ir_torch.reset_kernel_launches()
+    with PartOpens() as opens:
+        t0 = time.perf_counter()
+        got = serve(hit)
+        out["hit_serve_s"] = time.perf_counter() - t0
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    out["serve_part_opens"] = opens.n
+    differ = [key for key in want if not same_bits(want[key], got[key])]
+    if differ:
+        raise AssertionError(f"the cache hit differs from the miss in "
+                             f"{differ}")
+    if on_card and not (out["launches"]["cold_tier"]
+                        and out["launches"]["hot_stage"]):
+        raise AssertionError(f"the hit scorer never launched cold_tier and "
+                             f"hot_stage: {out['launches']}")
+    if opens.n:
+        raise AssertionError(f"the hit scorer's serve opened {opens.n} "
+                             "part files (the rerank's norms are cached)")
+    terms = hit.vocab.terms
+    texts = [" ".join(terms[int(t)] for t in row)
+             for row in q_ids[:WARM_EXPLAIN_QUERIES]]
+    rows = [explain_rows(s.search_batch(texts, explain_k=EXPLAIN_K,
+                                        return_docids=False))
+            for s in (miss, hit)]
+    if rows[0] != rows[1] or not rows[0]:
+        raise AssertionError("explain on the cache hit differs from the "
+                             "miss")
+    out["explain_entries"] = len(rows[0])
+    out["bitwise_miss"] = [key if isinstance(key, str) else "-".join(key)
+                           for key in want] + ["explain"]
+    del miss, hit
+    if on_card:
+        torch.cuda.empty_cache()
+    # the command line, from a cache-less dir: one miss, one hit
+    shutil.rmtree(cache)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tpu_ir_torch.cli", "warm",
+                        idx, "--device", device], capture_output=True,
+                       text=True, cwd=os.path.dirname(os.path.abspath(
+                           __file__)), timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"tpu-ir-torch warm: {r.stderr[-2000:]}")
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli"] = json.loads(r.stdout.strip().splitlines()[-1])
+    if not (out["cli"]["cache_written"] and out["cli"]["warm_skips_shards"]):
+        raise AssertionError(f"tpu-ir-torch warm: {out['cli']}")
+    return out
+
+
+def phase_doctor(card: str, idx: str) -> dict:
+    """doctor_report on the wiki100k index after `warm`: its wall s, the
+    block bounds' health (ok and exact), the serving caches it lists
+    (serving-tiered among them) and the warnings it raised."""
+    from tpu_ir_torch.index.doctor import doctor_report
+
+    t0 = time.perf_counter()
+    report = doctor_report(idx)
+    wall = time.perf_counter() - t0
+    bb = report["block_bounds"]
+    caches = [c["cache"] for c in report["serving_caches"]]
+    if not (bb.get("ok") and bb.get("bounds_exact")):
+        raise AssertionError(f"doctor: block bounds {bb}")
+    if "serving-tiered" not in caches:
+        raise AssertionError(f"doctor: serving caches {caches}")
+    return {"phase": "doctor", "card": card, "config": "wiki100k",
+            "doctor_s": wall, "block_bounds": bb, "serving_caches": caches,
+            "tiers": report["tiers"], "skew": report["df"]["skew"],
+            "shards_balance": {k: v for k, v in report["shards"].items()
+                               if k != "per_shard"},
+            "warnings": report["warnings"]}
+
+
+def phase_v1(card: str, work: str, idx: str, q_ids: np.ndarray,
+             want: dict, *, device: str, k: int = 10) -> dict:
+    """The ref corpus kept in `work` built one-shot under
+    TPU_IR_FORMAT_VERSION=1 (npz parts) and served dense: its top-k over
+    `q_ids` must be the v2 ref index's (`want`) bitwise, with
+    dense_score launched; then migrated to v2, when every artifact must
+    have the v2 build's (`idx`) sha256; verify_index passes on both."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch.index import build_index
+    from tpu_ir_torch.index.migrate import migrate_index
+    from tpu_ir_torch.index.verify import verify_index
+    from tpu_ir_torch.search import Scorer
+
+    v1 = os.path.join(work, "ref-v1")
+    kept = os.environ.get("TPU_IR_FORMAT_VERSION")
+    os.environ["TPU_IR_FORMAT_VERSION"] = "1"
+    try:
+        t0 = time.perf_counter()
+        meta = build_index(os.path.join(work, "ref.trec"), v1,
+                           num_shards=10, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        if kept is None:
+            del os.environ["TPU_IR_FORMAT_VERSION"]
+        else:
+            os.environ["TPU_IR_FORMAT_VERSION"] = kept
+    if meta.format_version != 1 or not os.path.exists(
+            os.path.join(v1, "part-00000.npz")):
+        raise AssertionError(f"the v1 build wrote {sorted(os.listdir(v1))}")
+    out = {"phase": "v1", "card": card, "config": "ref", "build_s": build_s,
+           "verify_v1": verify_index(v1)["ok"]}
+    tpu_ir_torch.reset_kernel_launches()
+    t0 = time.perf_counter()
+    scorer = Scorer.load(v1, device=device)
+    out["load_s"] = time.perf_counter() - t0
+    if scorer.layout != "dense":
+        raise AssertionError(f"ref-v1: layout {scorer.layout!r}")
+    for scoring in ("tfidf", "bm25"):
+        if not same_bits(scorer.topk(q_ids, k=k, scoring=scoring),
+                         want[scoring]):
+            raise AssertionError(f"ref-v1 {scoring}: top-{k} differs from "
+                                 "the v2 index's")
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    if device == "cuda" and not out["launches"]["dense_score"]:
+        raise AssertionError(f"ref-v1 never launched dense_score: "
+                             f"{out['launches']}")
+    del scorer
+    t0 = time.perf_counter()
+    out["migrate"] = migrate_index(v1, to_version=2)
+    out["migrate_s"] = time.perf_counter() - t0
+    got, full = artifact_digests(v1), artifact_digests(idx)
+    if sorted(got) != sorted(full) or any(got[n] != full[n] for n in got):
+        raise AssertionError(f"ref-v1 migrated to v2 differs from the v2 "
+                             f"build in {[n for n in got if got[n] != full.get(n)]}")
+    out["identical_artifacts_after_migrate"] = len(got)
+    out["verify_v2"] = verify_index(v1)["ok"]
+    out["topk_bitwise_v2"] = True
+    shutil.rmtree(v1)
+    return out
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel in nvcc's
     `-Xptxas -v` output."""
@@ -3212,7 +3604,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
                explain_launches: int, **fields) -> dict:
     """One kernel's entry of the summary line: `launches` in its serve
     window, then in the wildcard phase, the kgram phase, the explain
-    phases and the serving tier's phases."""
+    phases and the serving tier's phases; `fields` adds its source, what
+    it replaces and its launches in the merge, warm and v1 phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -3302,6 +3695,9 @@ def main() -> int:
         del scorer
         shutil.rmtree(v3)
         torch.cuda.empty_cache()
+        v1 = phase_v1(card, work, idx, ref_q_ids, dense, device="cuda")
+        emit(v1)
+        torch.cuda.empty_cache()
 
         wbuild, widx = phase_build_streaming(card, work, device="cuda",
                                              keep_corpus=True)
@@ -3371,8 +3767,21 @@ def main() -> int:
 
         # positions: both builds at ref and wiki100k, then the positional
         # queries over them
-        positions, pos_dirs = phase_positions(card, work, device="cuda")
+        positions, pos_dirs = phase_positions(card, work, device="cuda",
+                                              keep_corpora=True)
         emit(positions)
+        # merge (both corpora, deleted there), then the serving cache and
+        # doctor on the wiki100k index
+        merge = phase_merge(card, work, widx=widx,
+                            wdigests=artifact_digests(widx),
+                            ref_pos=pos_dirs["ref"], q_ids=q_ids,
+                            want=wraw, device="cuda")
+        emit(merge)
+        torch.cuda.empty_cache()
+        warm = phase_warm(card, widx, q_ids, hot_q, device="cuda")
+        emit(warm)
+        torch.cuda.empty_cache()
+        emit(phase_doctor(card, widx))
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
                         device="cuda"))
@@ -3421,6 +3830,9 @@ def main() -> int:
                    wildcard_launches["dense_score"],
                    kgram["launches"]["dense_score"],
                    explain_launches["dense_score"],
+                   merge_launches=merge["launches"]["dense_score"],
+                   warm_launches=warm["launches"]["dense_score"],
+                   v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
         kernel_row("dequant_score", dequant,
@@ -3429,6 +3841,9 @@ def main() -> int:
                    wildcard_launches["dequant_score"],
                    kgram["launches"]["dequant_score"],
                    explain_launches["dequant_score"],
+                   merge_launches=merge["launches"]["dequant_score"],
+                   warm_launches=warm["launches"]["dequant_score"],
+                   v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
         kernel_row("cold_tier", cold_row, wserve["launches"]["cold_tier"],
@@ -3436,6 +3851,9 @@ def main() -> int:
                    wildcard_launches["cold_tier"],
                    kgram["launches"]["cold_tier"],
                    explain_launches["cold_tier"],
+                   merge_launches=merge["launches"]["cold_tier"],
+                   warm_launches=warm["launches"]["cold_tier"],
+                   v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
         kernel_row("hot_stage", hot["full"], wserve["launches"]["hot_stage"],
@@ -3443,6 +3861,9 @@ def main() -> int:
                    wildcard_launches["hot_stage"],
                    kgram["launches"]["hot_stage"],
                    explain_launches["hot_stage"],
+                   merge_launches=merge["launches"]["hot_stage"],
+                   warm_launches=warm["launches"]["hot_stage"],
+                   v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})
     print(card, flush=True)

@@ -135,7 +135,10 @@ def test_layout_bounds_match_jax(stdlib_dirs, source):
 def test_corrupt_bounds_quarantined_and_served(stdlib_dirs, tmp_path):
     _, port_dir = stdlib_dirs
     idx = str(tmp_path / "corrupt")
-    shutil.copytree(port_dir, idx)
+    # without the serving cache an earlier load wrote: a cache hit reads
+    # no bounds, and the load under test must build the layout
+    shutil.copytree(port_dir, idx,
+                    ignore=shutil.ignore_patterns("serving-*"))
     path = os.path.join(idx, bmx.BLOCKMAX_ARENA)
     raw = bytearray(open(path, "rb").read())
     raw[len(raw) // 2] ^= 0xFF

@@ -511,3 +511,73 @@ def test_positions_phrase_prox_explain_snippet_phases_on_cpu(tmp_path,
     assert chip_smoke.window_scan(flat, doc_of, [5, 7], 1) == [1]
     assert chip_smoke.window_scan(flat, doc_of, [6, 5, 6], 0) == []
     assert chip_smoke.window_scan(flat, doc_of, [7, 6], 2) == [1]
+
+
+def test_v1_merge_warm_doctor_phases_on_cpu(tmp_path, monkeypatch):
+    """The v1 phase (a v1 ref build served bitwise as the v2 one, then
+    migrated to its bytes), the merge phase (wiki100k from halves with
+    the store against the radix build's digests, ref with positions
+    against the positions build's; the merged index served bitwise as
+    the radix one), the warm phase (a hit opens no part and serves the
+    miss's bits; the CLI) and doctor, at a small size on the CPU."""
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    monkeypatch.setattr(chip_smoke, "REF_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=300, target_bytes=300_000, vocab_size=3_000))
+    monkeypatch.setattr(chip_smoke, "POSITIONS_REF_BATCH", 50)
+    monkeypatch.setattr(chip_smoke, "REF_QUERIES", 300)
+    monkeypatch.setattr(chip_smoke, "ORACLE_QUERIES", 16)
+    monkeypatch.setattr(chip_smoke, "WARM_RERANK", 50)
+    monkeypatch.setattr(chip_smoke, "WARM_EXPLAIN_QUERIES", 16)
+    # ref (~2,200 terms x 201) dense, wiki100k (~3,300 x 301) tiered
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 600_000)
+    work = str(tmp_path)
+    _, idx = chip_smoke.phase_build("cpu", work, device="cpu",
+                                    keep_corpus=True)
+    _, ref, ref_q, dense = chip_smoke.phase_serve("cpu", idx, device="cpu")
+    del ref
+    v1 = chip_smoke.phase_v1("cpu", work, idx, ref_q, dense, device="cpu")
+    assert v1["verify_v1"] and v1["verify_v2"] and v1["topk_bitwise_v2"]
+    assert v1["identical_artifacts_after_migrate"] >= 15
+    assert v1["migrate"]["migrated"] == 10
+    assert not os.path.exists(os.path.join(work, "ref-v1"))
+
+    _, widx = chip_smoke.phase_build_streaming("cpu", work, device="cpu",
+                                               keep_corpus=True)
+    _, wiki, q_ids, wraw = chip_smoke.phase_serve("cpu", widx, device="cpu",
+                                                  config="wiki100k")
+    hot_q = chip_smoke.hot_traffic(wiki, 200)
+    del wiki
+    _, pos_dirs = chip_smoke.phase_positions("cpu", work, device="cpu",
+                                             keep_corpora=True)
+    merge = chip_smoke.phase_merge(
+        "cpu", work, widx=widx, wdigests=chip_smoke.artifact_digests(widx),
+        ref_pos=pos_dirs["ref"], q_ids=q_ids, want=wraw, device="cpu")
+    wrow, rrow = merge["configs"]["wiki100k"], merge["configs"]["ref-pos"]
+    assert wrow["store"] and not wrow["has_positions"]
+    assert rrow["has_positions"] and not rrow["store"]
+    assert wrow["identical_artifacts"] >= 18 and len(wrow["halves"]) == 2
+    assert {"merge_postings", "docstore", "chargrams"} <= set(
+        wrow["timings_s"])
+    assert merge["topk_bitwise_radix"]
+    assert not os.path.exists(os.path.join(work, "wiki100k.trec"))
+    assert not os.path.exists(os.path.join(work, "wiki100k-merged"))
+
+    warm = chip_smoke.phase_warm("cpu", widx, q_ids, hot_q, device="cpu")
+    assert warm["hit_part_opens"] == 0 and warm["serve_part_opens"] == 0
+    assert warm["cache_bytes"] > 0 and warm["explain_entries"] > 16
+    assert len(warm["bitwise_miss"]) == 6
+    assert warm["cli"]["cache_written"] and warm["cli"]["warm_skips_shards"]
+    doc = chip_smoke.phase_doctor("cpu", widx)
+    assert doc["block_bounds"]["bounds_exact"]
+    assert doc["serving_caches"] == ["serving-tiered"]
+    json.dumps([v1, merge, warm, doc])
+    # the split: two files whose concatenation is the whole corpus
+    c = os.path.join(work, "c.trec")
+    with open(c, "w") as f:
+        f.write("<DOC>\n<DOCNO> A </DOCNO>\nx\n</DOC>\n" * 5)
+    a, b = chip_smoke.split_corpus(c, work, "c")
+    assert open(a).read() + open(b).read() == open(c).read()
+    assert open(b).read().startswith("<DOC>")

@@ -871,3 +871,93 @@ def test_device_loss_texts_are_the_runtimes(cuda, name):
     assert faults.is_device_loss(err)
     assert not faults.is_device_loss(
         RuntimeError(f"hot_stage kernel launch failed: CUDA error {code}"))
+
+
+def _all_bits(s, texts):
+    """TF-IDF, BM25 and the rerank of `texts`, and the rerank's explain,
+    as docids and float32 bits."""
+    out = [[_bits(r) for r in s.search_batch(texts, scoring=sc)]
+           for sc in ("tfidf", "bm25")]
+    out.append([_bits(r) for r in s.search_batch(texts, rerank=100)])
+    out.append(_explained(s.search_batch(texts, rerank=100, explain_k=5)))
+    return out
+
+
+def test_cache_hit_equals_miss_on_card(serving_index, monkeypatch):
+    """A serving-cache hit on the card serves bitwise what the miss
+    served, through cold_tier and hot_stage, and reads no part for the
+    top-k and the rerank; the kernels equal their plain twins on it."""
+    from tpu_ir_torch.index import format as fmt
+
+    miss = Scorer.load(serving_index, layout="sparse")
+    assert os.path.isdir(os.path.join(serving_index, "serving-tiered"))
+    texts = _texts(miss, 3, 300, seed=21)
+    want = _all_bits(miss, texts)
+    reads = []
+    real = fmt.load_shard_verified
+    monkeypatch.setattr(fmt, "load_shard_verified",
+                        lambda *a, **kw: reads.append(a) or real(*a, **kw))
+    hit = Scorer.load(serving_index, layout="sparse")
+    tpu_ir_torch.reset_kernel_launches()
+    top = [[_bits(r) for r in hit.search_batch(texts, scoring=sc)]
+           for sc in ("tfidf", "bm25")]
+    top.append([_bits(r) for r in hit.search_batch(texts, rerank=100)])
+    launches = tpu_ir_torch.kernel_launches()
+    assert reads == [] and hit._host_pairs is None
+    assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
+    assert top == want[:3]
+    assert _all_bits(hit, texts) == want
+    with chip_smoke.plain_kernels():
+        assert _all_bits(hit, texts) == want
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_merged_index_serves_its_one_shot_twin(cuda, tmp_path, layout):
+    """Halves built and merged on the card: the merged index serves, on
+    the card, bitwise what the one-shot build of the whole corpus serves,
+    through the dense or the tiered kernels."""
+    from tpu_ir_torch.index import merge_indexes
+
+    whole = str(tmp_path / "all.trec")
+    make_corpus(whole, seed=13, n_docs=400, target_bytes=300_000,
+                vocab_size=3_000)
+    text = open(whole).read()
+    cut = text.index("<DOC>", len(text) // 2)
+    halves = [str(tmp_path / "a.trec"), str(tmp_path / "b.trec")]
+    for path, part in zip(halves, (text[:cut], text[cut:])):
+        open(path, "w").write(part)
+    dirs = [str(tmp_path / n) for n in ("a", "b")]
+    for corpus, d in zip(halves, dirs):
+        build_index(corpus, d, num_shards=3, device=cuda)
+    merged, direct = str(tmp_path / "merged"), str(tmp_path / "direct")
+    merge_indexes(dirs, merged, num_shards=4, device=cuda)
+    build_index(whole, direct, num_shards=4, device=cuda)
+    m = Scorer.load(merged, layout=layout)
+    d = Scorer.load(direct, layout=layout)
+    texts = _texts(d, 2, 300, seed=22)
+    tpu_ir_torch.reset_kernel_launches()
+    got = _all_bits(m, texts)
+    launches = tpu_ir_torch.kernel_launches()
+    assert got == _all_bits(d, texts)
+    if layout == "sparse":
+        assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
+    else:
+        assert launches["dense_score"] >= 1
+
+
+def test_v1_index_serves_its_v2_twin_on_card(serving_index, tmp_path):
+    """A v1 index (npz parts, here by the rollback walk) serves on the
+    card bitwise what its v2 twin serves, through dense_score."""
+    import shutil
+
+    v1 = str(tmp_path / "v1")
+    shutil.copytree(serving_index, v1)
+    migrate_index(v1, to_version=1)
+    assert os.path.exists(os.path.join(v1, "part-00000.npz"))
+    a = Scorer.load(v1, layout="dense")
+    b = Scorer.load(serving_index, layout="dense")
+    texts = _texts(b, 2, 200, seed=23)
+    tpu_ir_torch.reset_kernel_launches()
+    got = _all_bits(a, texts)
+    assert tpu_ir_torch.kernel_launches()["dense_score"] >= 1
+    assert got == _all_bits(b, texts)

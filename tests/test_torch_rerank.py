@@ -123,10 +123,15 @@ def test_dense_rerank_equals_tiered(index_dir):
 
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 def test_compressed_rerank_is_bitwise_raw(index_dir, tmp_path, layout):
-    v3 = str(tmp_path / "v3")
-    shutil.copytree(index_dir, v3)
+    # both copies without the serving cache the JAX package's loads write
+    # into the shared fixture dir: a hit there would bring its doc norms,
+    # which are the JAX package's, not the port's
+    raw_dir, v3 = str(tmp_path / "raw"), str(tmp_path / "v3")
+    for d in (raw_dir, v3):
+        shutil.copytree(index_dir, d,
+                        ignore=shutil.ignore_patterns("serving-*"))
     migrate_index(v3, to_version=3)
-    raw = Scorer.load(index_dir, layout=layout, device="cpu")
+    raw = Scorer.load(raw_dir, layout=layout, device="cpu")
     comp = Scorer.load(v3, layout=layout, device="cpu")
     assert comp.tf_dtype == torch.bfloat16
     q = _id_queries(raw, seed=3)

@@ -1,12 +1,14 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
-`inspect --term`, `verify`, `migrate-index`, `serve-bench`, `pack`,
-`count` and `docno`, with tpu_ir's flag names and defaults.
+`inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
+`serve-bench`, `pack`, `count` and `docno`, with tpu_ir's flag names and
+defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
         [--batch-docs N] [--radix-buckets B] [--tokenize-procs N]] [--store]
         [--positions] [--device cuda|cpu]
-    python -m tpu_ir_torch.cli inspect IDX --term TEXT [--postings N]
+    python -m tpu_ir_torch.cli inspect PATH [-n N] [--postings N]
+        [--term TEXT]
     python -m tpu_ir_torch.cli verify IDX
     python -m tpu_ir_torch.cli search IDX [-q TEXT | --queries-file F |
         --topics F] [--scoring tfidf|bm25] [--k K] [--rerank N]
@@ -14,8 +16,14 @@
         [--trec-run TAG] [--prox] [--slop S] [--show-matches] [--snippets]
     python -m tpu_ir_torch.cli expand IDX PATTERN [--chargram-k 3] [-n 50]
     python -m tpu_ir_torch.cli eval RUN QRELS [--complete]
-    python -m tpu_ir_torch.cli migrate-index IDX [--compress | --decompress]
-        [--tf-dtype auto|int8|bf16] [--add-bounds]
+    python -m tpu_ir_torch.cli migrate-index IDX [--to 1|2|3]
+        [--compress | --decompress] [--tf-dtype auto|int8|bf16]
+        [--add-bounds]
+    python -m tpu_ir_torch.cli merge SRC... OUT [--shards N]
+        [--no-chargrams] [--overwrite] [--device cuda|cpu]
+    python -m tpu_ir_torch.cli warm IDX [--layout sparse|...]
+        [--device cuda|cpu]
+    python -m tpu_ir_torch.cli doctor IDX [--top N]
     python -m tpu_ir_torch.cli serve-bench IDX [--threads N] [--queries N]
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
@@ -25,10 +33,12 @@
     python -m tpu_ir_torch.cli count CORPUS...
     python -m tpu_ir_torch.cli docno IDX list|getDocno DOCID|getDocid DOCNO
 
-`index`, `search` and `serve-bench` run on CUDA unless `--device cpu` is
-given; the others run on the host. Each prints its JSON report last
-(`inspect --term` prints one line per hit, `expand` one term per line,
-`docno` the mapping's lines). `search` with none of `-q`,
+`index`, `search`, `merge`, `warm` and `serve-bench` run on CUDA unless
+`--device cpu` is given; the others run on the host. Each prints its JSON
+report last (`inspect` prints an index dir's metadata and its first
+records, one line per hit with `--term`, or the dump of any other
+artifact file or dir; `expand` one term per line, `docno` the mapping's
+lines; `doctor` its warnings on standard error). `search` with none of `-q`,
 `--queries-file` and `--topics` reads queries from standard input, one a
 line, until `exit`. Quoted spans are phrase queries and `--prox` the
 proximity boost of a `--rerank` (both need `index --positions`);
@@ -85,14 +95,27 @@ def cmd_index(args) -> int:
 
 
 def cmd_inspect(args) -> int:
-    """One term's postings through the dictionary (the reference's
-    getValue seek); the input is analyzed like a query."""
+    """An index dir's metadata and first `-n` records (with `--term`, one
+    term's postings through the dictionary, the reference's getValue
+    seek; the input is analyzed like a query), or the dump of any other
+    artifact file or dir (index/artifacts.py)."""
+    from .index import format as fmt
+
+    if not (os.path.isdir(args.index_dir)
+            and fmt.artifact_exists(args.index_dir, fmt.METADATA)):
+        from .index.artifacts import inspect_path
+
+        try:
+            for line in inspect_path(args.index_dir, n=args.n):
+                print(line)
+        except FileNotFoundError:
+            print(f"no such artifact: {args.index_dir}", file=sys.stderr)
+            return 1
+        return 0
+    if args.term is None:
+        return _dump_index(args)
     from .index.dictionary import lookup_term
 
-    if args.term is None:
-        print("error: only `inspect --term` is ported (a later slice of "
-              "the port dumps records and artifacts)", file=sys.stderr)
-        return 2
     hits = lookup_term(args.index_dir, args.term)
     if not hits:
         print(f"term {args.term!r} not in dictionary", file=sys.stderr)
@@ -101,6 +124,32 @@ def cmd_inspect(args) -> int:
         posts = [tuple(p) for p in tp.postings[: args.postings].tolist()]
         print(f"part-{tp.shard:05d}@{tp.offset}\t{tp.term}\tdf={tp.df}"
               f"\t{posts}")
+    return 0
+
+
+def _dump_index(args) -> int:
+    """metadata.json as one JSON line, then the first `-n` terms of the
+    parts in shard order with up to `--postings` postings each."""
+    from .collection import Vocab
+    from .index import format as fmt
+
+    meta = fmt.IndexMetadata.load(args.index_dir)
+    print(json.dumps(meta.__dict__))
+    vocab = Vocab.load(os.path.join(args.index_dir, fmt.VOCAB))
+    shown = 0
+    for s in range(meta.num_shards):
+        if shown >= args.n:
+            break
+        z = fmt.load_shard(args.index_dir, s, decode=True)
+        for i, tid in enumerate(z["term_ids"]):
+            if shown >= args.n:
+                break
+            lo, hi = z["indptr"][i], z["indptr"][i + 1]
+            posts = list(zip(z["pair_doc"][lo:hi].tolist(),
+                             z["pair_tf"][lo:hi].tolist()))
+            print(f"part-{s:05d}\t{vocab.term(int(tid))}"
+                  f"\tdf={int(z['df'][i])}\t{posts[: args.postings]}")
+            shown += 1
     return 0
 
 
@@ -354,10 +403,69 @@ def cmd_migrate_index(args) -> int:
         print(json.dumps({"error": "--compress and --decompress are "
                                    "mutually exclusive"}))
         return 2
-    to = 3 if args.compress else 2
+    to = 3 if args.compress else 2 if args.decompress else args.to
     print(json.dumps(migrate_index(args.index_dir, to_version=to,
                                    tf_dtype=args.tf_dtype,
                                    add_bounds=args.add_bounds)))
+    return 0
+
+
+def cmd_merge(args) -> int:
+    """Merge built indexes into one, byte-identical to one build over the
+    concatenated corpus (index/merge.py); prints the metadata."""
+    from .index.merge import merge_indexes
+
+    meta = merge_indexes(args.sources, args.out_dir, num_shards=args.shards,
+                         compute_chargrams=not args.no_chargrams,
+                         overwrite=args.overwrite, device=args.device)
+    print(json.dumps(meta.__dict__))
+    return 0
+
+
+def cmd_warm(args) -> int:
+    """Write the serving cache at deploy time instead of on the first
+    load: one load that builds the layout and writes the cache (a miss,
+    unless a cache is there already), then one that maps it; prints both
+    loads' seconds."""
+    import time
+
+    from .search import Scorer
+    from .search.layout import CACHE_NAME
+
+    start_wall = time.time()
+    t0 = time.perf_counter()
+    scorer = Scorer.load(args.index_dir, layout=args.layout,
+                         device=args.device)
+    cold_s = time.perf_counter() - t0
+    cache_dir = os.path.join(args.index_dir, CACHE_NAME)
+    mtime = os.path.getmtime(cache_dir) if os.path.isdir(cache_dir) else 0
+    t0 = time.perf_counter()
+    warm = Scorer.load(args.index_dir, layout=args.layout,
+                       device=args.device)
+    warm_s = time.perf_counter() - t0
+    print(json.dumps({
+        "layout": scorer.layout,
+        "cache_dir": CACHE_NAME,
+        # written by this run (the dir's mtime), not left by an earlier one
+        "cache_written": mtime >= start_wall - 1.0,
+        "cold_load_s": round(cold_s, 2),
+        "warm_load_s": round(warm_s, 2),
+        "warm_skips_shards": (warm._pairs is None
+                              and warm._host_pairs is None),
+    }))
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """The index health report (index/doctor.py) as one JSON object, its
+    warnings on standard error; exits 0 on a readable index (a report,
+    not a gate)."""
+    from .index.doctor import doctor_report
+
+    report = doctor_report(args.index_dir, top_terms=args.top)
+    print(json.dumps(report, sort_keys=True))
+    for w in report["warnings"]:
+        print(f"doctor: warning: {w}", file=sys.stderr)
     return 0
 
 
@@ -460,9 +568,15 @@ def main(argv: list[str] | None = None) -> int:
     pi.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pi.set_defaults(fn=cmd_index)
 
-    pn = sub.add_parser("inspect", help="print one term's postings via the "
-                                        "dictionary")
-    pn.add_argument("index_dir")
+    pn = sub.add_parser(
+        "inspect",
+        help="dump index records, or any framework artifact: part and "
+             "positions shards, build spills, pass-1 manifests, serving "
+             "caches, the document store, npy/json/tsv side files")
+    pn.add_argument("index_dir", metavar="path",
+                    help="index dir, artifact file, or artifact dir")
+    pn.add_argument("-n", type=int, default=20,
+                    help="max terms / records to print")
     pn.add_argument("--postings", type=int, default=10,
                     help="max postings per term")
     pn.add_argument("--term", default=None,
@@ -541,9 +655,13 @@ def main(argv: list[str] | None = None) -> int:
 
     pm = sub.add_parser(
         "migrate-index",
-        help="convert part shards between raw (v2) and compressed (v3) "
-             "arenas in place (atomic per shard, checksums re-recorded)")
+        help="convert part shards between artifact formats in place "
+             "(npz v1 <-> arena v2 <-> compressed v3; atomic per shard, "
+             "checksums re-recorded, idempotent)")
     pm.add_argument("index_dir")
+    pm.add_argument("--to", type=int, choices=[1, 2, 3], default=2,
+                    help="target format_version (3 = compressed arenas, "
+                         "2 = raw arenas, 1 = npz rollback)")
     pm.add_argument("--compress", action="store_true",
                     help="rewrite the parts as compressed arenas (v3)")
     pm.add_argument("--decompress", action="store_true",
@@ -558,6 +676,38 @@ def main(argv: list[str] | None = None) -> int:
                          "(blockmax.arena) from the postings in place — "
                          "no part rewrite, idempotent, verify-clean")
     pm.set_defaults(fn=cmd_migrate_index)
+
+    pg = sub.add_parser("merge", help="merge built indexes into one "
+                                      "(same artifacts as one build over "
+                                      "the concatenated corpus)")
+    pg.add_argument("sources", nargs="+", help="source index dirs")
+    pg.add_argument("out_dir", help="output index dir")
+    pg.add_argument("--shards", type=int, default=10)
+    pg.add_argument("--no-chargrams", action="store_true")
+    pg.add_argument("--overwrite", action="store_true",
+                    help="delete an existing output index first")
+    pg.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pg.set_defaults(fn=cmd_merge)
+
+    pw = sub.add_parser("warm", help="write the serving cache (tiered "
+                                     "layout, df and rerank norms) so later "
+                                     "process starts take the fast path")
+    pw.add_argument("index_dir")
+    pw.add_argument("--layout", choices=["auto", "dense", "sparse",
+                                         "sharded"],
+                    default="sparse")
+    pw.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pw.set_defaults(fn=cmd_warm)
+
+    pdr = sub.add_parser(
+        "doctor", help="index health report: df skew, per-shard "
+                       "term/doc balance, tier occupancy, arena section "
+                       "sizes, serving caches, block-max bounds, heuristic "
+                       "warnings")
+    pdr.add_argument("index_dir")
+    pdr.add_argument("--top", type=int, default=10,
+                     help="top-N terms by df to list")
+    pdr.set_defaults(fn=cmd_doctor)
 
     pb = sub.add_parser(
         "serve-bench",

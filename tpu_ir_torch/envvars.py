@@ -45,6 +45,13 @@ a choice outside its set raises.
                              same bytes at any count)
     TPU_IR_PIPE_DEPTH        items the host prepares ahead of the device in
                              the streaming build (default 2; 1: lockstep)
+    TPU_IR_FORMAT_VERSION    1 | 2: the part format both builds and the
+                             merge write (default 2, raw arenas; 1 is the npz
+                             rollback pin; anything else raises)
+    TPU_IR_CACHE_REVALIDATE  stat | crc: how a serving-cache hit is
+                             revalidated (default stat: unchanged part
+                             names, sizes and mtimes; crc streams every
+                             part's CRC on each load)
     TPU_IR_RADIX_PARTS       1 writes bucket-segmented parts straight from
                              the pass-2 buckets (skips pass 3's sort; the
                              parts' bytes differ from the canonical layout,
@@ -63,7 +70,10 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_CACHE_RESULTS": (0, 0),
          "TPU_IR_RADIX_BUCKETS": (16, 0),
          "TPU_IR_TOKENIZE_PROCS": (1, 1),
-         "TPU_IR_PIPE_DEPTH": (2, 1)}
+         "TPU_IR_PIPE_DEPTH": (2, 1),
+         "TPU_IR_FORMAT_VERSION": (2, 1)}
+# name: the only values an int knob may take
+_INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
@@ -71,7 +81,8 @@ _STRS = {"TPU_IR_FAULTS": None,
 _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
-            "TPU_IR_COMPRESS": ("0", ("0", "1"))}
+            "TPU_IR_COMPRESS": ("0", ("0", "1")),
+            "TPU_IR_CACHE_REVALIDATE": ("stat", ("stat", "crc"))}
 
 
 def _raw(name: str) -> str | None:
@@ -88,6 +99,9 @@ def get_int(name: str) -> int:
         out = int(v)
     except ValueError:
         raise ValueError(f"{name}={v!r}: expected an integer") from None
+    if name in _INT_CHOICES and out not in _INT_CHOICES[name]:
+        raise ValueError(f"{name}={v!r}: expected one of "
+                         f"{_INT_CHOICES[name]}")
     return max(out, minimum)
 
 

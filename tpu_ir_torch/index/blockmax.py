@@ -12,7 +12,8 @@ Every build and migration writes the artifact through one hook in
 IndexMetadata.save_with_checksums; `migrate-index --add-bounds` writes it
 for an existing index in place. A missing or corrupt artifact never stops
 an index from serving: the layout then computes the bounds from the
-postings, with the same values.
+postings, with the same values. `bounds_report` is doctor's view of the
+artifact's health.
 """
 
 from __future__ import annotations
@@ -220,3 +221,62 @@ def load_block_bounds(index_dir: str, meta=None, *,
                        path, e)
         fmt.quarantine(index_dir, BLOCKMAX_ARENA)
         return None
+
+
+def bounds_report(index_dir: str, meta) -> dict:
+    """doctor's block-bound section (`tpu_ir/index/blockmax.py::
+    bounds_report`): presence, staleness (the stored term set against the
+    hot set the current dfs promote), exactness and tightness (the stored
+    bound against the actual per-block max), and the expected share of
+    block lanes a threshold at a bound-weight percentile would mask."""
+    try:
+        stored = load_block_bounds(index_dir, meta)
+    except (fmt.IntegrityError, *fmt.CORRUPT_NPZ) as e:
+        return {"present": True, "ok": False, "error": str(e)}
+    if stored is None:
+        return {"present": False,
+                "hint": "backfill with `tpu-ir migrate-index "
+                        "--add-bounds`"}
+    tids, max_tf, width = stored
+    _, actual, df = _sharded_bounds(index_dir, meta, int(width),
+                                    want_tids=tids)
+    want_tids = hot_candidate_tids(df, meta.num_docs)
+    stale = not np.array_equal(np.asarray(tids), want_tids)
+    out = {
+        "present": True, "ok": not stale, "stale": stale,
+        "terms": int(len(tids)), "width": int(width),
+        "blocks": int(max_tf.shape[1]) if max_tf.ndim == 2 else 0,
+    }
+    if stale:
+        out["hint"] = ("stored bounds cover a different hot-term set "
+                       "than the current dfs promote — re-run "
+                       "`tpu-ir migrate-index --add-bounds`")
+        return out
+    if len(tids):
+        occupied = actual > 0
+        exact = bool(np.array_equal(max_tf, actual))
+        out["bounds_exact"] = exact
+        if not exact:
+            out["ok"] = False
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ratio = np.where(occupied, max_tf / np.maximum(actual, 1),
+                                 np.nan)
+            out["tightness"] = {
+                "p50": float(np.nanpercentile(ratio, 50)),
+                "p99": float(np.nanpercentile(ratio, 99)),
+            }
+            out["hint"] = ("stored bounds diverge from the postings — "
+                           "the artifact is stale; re-run "
+                           "`tpu-ir migrate-index --add-bounds`")
+        # a block lane is maskable at threshold t when its bound weight
+        # (1 + ln max_tf) is below t: the share of occupied lanes under
+        # each weight percentile
+        w = np.where(occupied, 1.0 + np.log(np.maximum(max_tf, 1)), 0.0)
+        occ_w = w[occupied]
+        out["block_occupancy"] = round(float(occupied.mean()), 4)
+        if len(occ_w):
+            out["expected_skip_fraction"] = {
+                f"p{q}": round(float((occ_w < np.percentile(occ_w, q))
+                                     .mean()), 4)
+                for q in (50, 90, 99)}
+    return out

@@ -226,7 +226,7 @@ def build_index(
         chargram_ks=chargram_ks if built_chargrams else [],
         version=2 if positions else fmt.FORMAT_VERSION,
         has_positions=bool(positions),
-        format_version=fmt.ARENA_FORMAT_VERSION)
+        format_version=fmt.resolve_format_version())
     with report.phase("finalize"):
         meta.save_with_checksums(index_dir)
     report.record_peaks(dev)

@@ -2,8 +2,8 @@
 `tpu_ir/index/docstore.py`, byte-identical in what it writes).
 
 The reference pipes every document's raw content through indexing and
-then throws it away; the store keeps it next to the index (for snippets,
-a later slice of the port).
+then throws it away; the store keeps it next to the index, for snippets
+(search/snippets.py) and for a merge to re-stream (`iter_arrival`).
 
 Layout (both files written atomically):
     docstore.bin        zlib blocks (level 6), BLOCK_DOCS docs each
@@ -247,3 +247,25 @@ class DocStore:
     def get(self, docno: int) -> str:
         """The stored content of one document (raw record text)."""
         return self.get_bytes(docno).decode("utf-8", errors="replace")
+
+
+def iter_arrival(index_dir: str):
+    """Yield (docno, raw bytes) over an existing store in arrival order,
+    the order write_docstore takes, so a store can be streamed into
+    another (the index merge). Each zlib block is decompressed once and
+    its rows sliced off the lengths column."""
+    store = DocStore(index_dir)
+    try:
+        n = len(store._lengths)
+        inv = np.empty(n, np.int64)          # arrival row -> docno
+        inv[store._perm[1:]] = np.arange(1, n + 1)
+        bd = store._block_docs
+        for b0 in range(0, n, bd):
+            blk = store._block(b0 // bd)
+            ofs = 0
+            for dn, ln in zip(inv[b0 : b0 + bd].tolist(),
+                              store._lengths[b0 : b0 + bd].tolist()):
+                yield dn, blk[ofs : ofs + ln]
+                ofs += ln
+    finally:
+        store.close()

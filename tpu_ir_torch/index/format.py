@@ -9,21 +9,24 @@ compatible with it:
       vocab.txt         term list, sorted; term id = 0-based position
       doclen.npy        int32 [N+1] total occurrences per docno (BM25)
       part-00000.arena  per term-shard CSR postings (format v2 arenas), or
-      part-00000.carena the same shard compressed (format v3, compress.py)
+      part-00000.carena the same shard compressed (format v3, compress.py),
+      part-00000.npz    or the same five arrays as an npz zip (format v1)
       dictionary.tsv    term -> (shard, offset) forward index
       chargram-k<k>.npz char-k-gram -> sorted term-id lists
       blockmax.arena    per-(hot term, doc block) max tf (index/blockmax.py)
       docstore.bin      the compressed document store (index/docstore.py)
       jobs/*.json       job reports (phase timings and counters)
 
-Term shard assignment is term_id % num_shards. Formats v2 (raw
-page-aligned arenas) and v3 (compressed arenas, decoded on load) are read
-and written here; v1 npz parts belong to a later slice of the port and
-raise ValueError.
+Term shard assignment is term_id % num_shards. Every format is read and
+written here: v1 npz parts (the TPU_IR_FORMAT_VERSION=1 rollback pin), v2
+raw page-aligned arenas (the default) and v3 compressed arenas, decoded
+on load. A full read verifies every byte in each format: the zip entry
+CRCs of an npz, the section CRCs of an arena.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import struct
@@ -45,6 +48,8 @@ CORRUPT_NPZ = (OSError, ValueError, KeyError, zipfile.BadZipFile,
 FORMAT_VERSION = 1
 ARENA_FORMAT_VERSION = 2
 COMPRESSED_FORMAT_VERSION = 3
+KNOWN_FORMAT_VERSIONS = (FORMAT_VERSION, ARENA_FORMAT_VERSION,
+                         COMPRESSED_FORMAT_VERSION)
 METADATA = "metadata.json"
 DOCNOS = "docnos.txt"
 VOCAB = "vocab.txt"
@@ -54,24 +59,32 @@ JOBS_DIR = "jobs"
 QUARANTINE_DIR = ".quarantine"
 ARENA_SUFFIX = ".arena"
 COMPRESSED_SUFFIX = ".carena"
-
-_LATER = ("is not supported by tpu_ir_torch yet (a later slice of the "
-          "port); only format v2 raw and v3 compressed arenas are")
+ARENA_SUFFIXES = (ARENA_SUFFIX, COMPRESSED_SUFFIX)
 
 
-def require_arena_format(format_version: int) -> None:
-    """Raise ValueError unless the index is format v2 (raw arenas) or v3
-    (compressed arenas)."""
-    if format_version not in (ARENA_FORMAT_VERSION,
-                              COMPRESSED_FORMAT_VERSION):
-        kind = ("v1 npz parts" if format_version < ARENA_FORMAT_VERSION
-                else "an unknown format")
-        raise ValueError(f"index format {format_version} ({kind}) {_LATER}")
+def require_known_format(format_version: int) -> None:
+    """Raise ValueError unless the format is v1 (npz parts), v2 (raw
+    arenas) or v3 (compressed arenas)."""
+    if format_version not in KNOWN_FORMAT_VERSIONS:
+        raise ValueError(f"unknown artifact format version: "
+                         f"{format_version}")
 
 
-def part_name(shard: int, format_version: int = ARENA_FORMAT_VERSION) -> str:
+def resolve_format_version(format_version: int | None = None) -> int:
+    """The format a writer emits: an explicit argument, else the
+    TPU_IR_FORMAT_VERSION pin (1 or 2), else v2. Both builds and the
+    merge resolve here, so one pin covers every write path."""
+    if format_version is not None:
+        return int(format_version)
+    from .. import envvars
+
+    return envvars.get_int("TPU_IR_FORMAT_VERSION")
+
+
+def part_name(shard: int, format_version: int | None = None) -> str:
     """A shard's part file name; the extension carries the format (npz
-    v1, arena v2, compressed arena v3)."""
+    v1, arena v2, compressed arena v3; None: the resolved default)."""
+    format_version = resolve_format_version(format_version)
     if format_version >= COMPRESSED_FORMAT_VERSION:
         return f"part-{shard:05d}{COMPRESSED_SUFFIX}"
     if format_version >= ARENA_FORMAT_VERSION:
@@ -82,7 +95,7 @@ def part_name(shard: int, format_version: int = ARENA_FORMAT_VERSION) -> str:
 def part_path(index_dir: str, shard: int) -> str:
     """The shard's part file, whichever format is present, newest first
     (a mid-migration dir holds two copies and the newer ones are the
-    complete set); the v2 name when none exists."""
+    complete set); the resolved default's name when none exists."""
     for fv in (COMPRESSED_FORMAT_VERSION, ARENA_FORMAT_VERSION,
                FORMAT_VERSION):
         p = os.path.join(index_dir, part_name(shard, fv))
@@ -224,12 +237,26 @@ def _arena_header(arrays: dict[str, np.ndarray]) -> tuple[bytes, list]:
     return header, contig
 
 
-def load_arena(path: str) -> dict[str, np.ndarray]:
-    """Read one arena whole and check every section's CRC: {name: array},
-    read-only views of the buffer. A damaged file raises ValueError."""
-    buf, _ = _read_file_verified(path)
-    header, data_start = read_arena_header(buf)
-    return _arena_views(buf, header, data_start, path, verify=True)
+def load_arena(path: str, *, mmap: bool = False) -> dict[str, np.ndarray]:
+    """Read one arena: {name: read-only array}. The default reads it whole
+    and checks every section's CRC (a damaged file raises ValueError);
+    `mmap=True` maps each section zero-copy from the file instead, with no
+    read and no check (the serving cache's warm load)."""
+    if not mmap:
+        buf, _ = _read_file_verified(path)
+        header, data_start = read_arena_header(buf)
+        return _arena_views(buf, header, data_start, path, verify=True)
+    header, data_start = arena_file_header(path)
+    out = {}
+    for sec in header["sections"]:
+        dt = np.dtype(sec["dtype"])
+        if sec["nbytes"] == 0:
+            out[sec["name"]] = np.zeros(sec["shape"], dt)
+            continue
+        out[sec["name"]] = np.memmap(path, dtype=dt, mode="r",
+                                     offset=data_start + sec["offset"],
+                                     shape=tuple(sec["shape"]))
+    return out
 
 
 def write_arena(path: str, arrays: dict[str, np.ndarray]) -> None:
@@ -285,7 +312,7 @@ def readable_npz(path: str) -> bool:
     """Whether every array of an npz or arena artifact reads in full (the
     zip entry CRCs or arena section CRCs are checked on a full read)."""
     try:
-        if path.endswith((ARENA_SUFFIX, COMPRESSED_SUFFIX)):
+        if path.endswith(ARENA_SUFFIXES):
             load_arena(path)
             return True
         with np.load(path, allow_pickle=False) as z:
@@ -307,6 +334,17 @@ def read_arena_header(buf) -> tuple[dict, int]:
         raise ValueError("truncated arena header")
     header = json.loads(raw.decode("utf-8"))
     return header, _align_up(16 + hlen, header.get("align", ARENA_ALIGN))
+
+
+def arena_file_header(path: str) -> tuple[dict, int]:
+    """(header dict, absolute data start) of an arena file, reading only
+    its header."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+        hlen = struct.unpack("<Q", head[8:16])[0] if len(head) == 16 else 0
+        if hlen > (1 << 31):
+            raise ValueError(f"{path}: implausible arena header length")
+        return read_arena_header(head + f.read(hlen))
 
 
 def _arena_views(buf, header: dict, data_start: int, path: str,
@@ -371,17 +409,47 @@ def quarantine(index_dir: str, name: str, *, keep: int | None = None) -> str:
     return dest
 
 
+def _part_twin(index_dir: str, name: str) -> str | None:
+    """The same shard's part file under another format's extension, if one
+    exists: what a migration leaves for a shard it has converted (the
+    source unlinked, the metadata written last)."""
+    suffixes = (".npz",) + ARENA_SUFFIXES
+    for old in suffixes:
+        if name.startswith("part-") and name.endswith(old):
+            for new in suffixes:
+                twin = os.path.join(index_dir, name[: -len(old)] + new)
+                if new != old and os.path.exists(twin):
+                    return twin
+    return None
+
+
+def _self_verify_part(path: str) -> None:
+    """Verify a part against its own CRCs (arena sections, npz zip
+    entries) by a full read; any damage raises IntegrityError."""
+    if not readable_npz(path):
+        raise IntegrityError(
+            path, "corrupt part file; quarantine it and rebuild the shard "
+            "(or restore from a good copy)")
+
+
 def verify_checksums(index_dir: str, meta: IndexMetadata,
                      names: list[str] | None = None) -> int:
     """Verify recorded artifact checksums; raises IntegrityError naming
     the first corrupt or missing file, returns the number of files
-    checked. `names` restricts the check."""
+    checked. `names` restricts the check. A part the metadata names but
+    a migration has already rewritten in another format is verified by
+    its twin's own CRCs, so a half-migrated dir verifies."""
     checked = 0
     for name, want in meta.checksums.items():
         if names is not None and name not in names:
             continue
         path = os.path.join(index_dir, name)
         if not os.path.exists(path):
+            twin = _part_twin(index_dir, name)
+            if twin is not None:
+                _self_verify_part(twin)
+                checked += 1
+                continue
             raise IntegrityError(
                 path, "file recorded in metadata checksums is missing")
         got = file_checksum(path)
@@ -397,14 +465,16 @@ def verify_checksums(index_dir: str, meta: IndexMetadata,
 def save_shard(index_dir: str, shard: int, *, term_ids: np.ndarray,
                indptr: np.ndarray, pair_doc: np.ndarray,
                pair_tf: np.ndarray, df: np.ndarray,
-               format_version: int = ARENA_FORMAT_VERSION,
+               format_version: int | None = None,
                num_docs: int | None = None,
                tf_dtype: str = "auto") -> str:
-    """Write one part file (v2, or v3 encoded by compress.encode_shard)
-    and unlink the same shard's part of any other format. Returns the
-    new file's CRC. v3 needs the index's num_docs: it sizes the
-    block-index column, as in the JAX package's parts."""
-    require_arena_format(format_version)
+    """Write one part file (v1 npz, v2 arena, or v3 encoded by
+    compress.encode_shard; None: the resolved default) and unlink the
+    same shard's part of any other format. Returns the new file's CRC.
+    v3 needs the index's num_docs: it sizes the block-index column, as in
+    the JAX package's parts."""
+    format_version = resolve_format_version(format_version)
+    require_known_format(format_version)
     arrays = dict(
         term_ids=term_ids.astype(np.int32),
         indptr=indptr.astype(np.int64),
@@ -417,8 +487,9 @@ def save_shard(index_dir: str, shard: int, *, term_ids: np.ndarray,
             raise ValueError("a v3 part needs the index's num_docs")
         arrays = compress.encode_shard(arrays, num_docs=num_docs,
                                        tf_dtype=tf_dtype)
-    crc = write_arena_atomic(
-        os.path.join(index_dir, part_name(shard, format_version)), **arrays)
+    path = os.path.join(index_dir, part_name(shard, format_version))
+    crc = (savez_atomic(path, **arrays) if format_version == FORMAT_VERSION
+           else write_arena_atomic(path, **arrays))
     # a stale part of another format would be read and checksummed too
     for other in (FORMAT_VERSION, ARENA_FORMAT_VERSION,
                   COMPRESSED_FORMAT_VERSION):
@@ -432,7 +503,8 @@ def write_pair_shards(index_dir: str, df: np.ndarray, pair_doc: np.ndarray,
                       pair_tf: np.ndarray, num_shards: int):
     """Write term-sharded part files from CSR-ordered pair columns (sorted
     by term id with per-term runs of length df). Returns (shard_of,
-    offset_of) for the dictionary."""
+    offset_of) for the dictionary. build_index and the merge both write
+    through here, so a merge's parts are a one-shot build's bytes."""
     shard_of, offset_of = shard_local_offsets(df, num_shards)
     pair_shard = np.repeat(shard_of, df.astype(np.int64))
     for s in range(num_shards):
@@ -447,23 +519,38 @@ def write_pair_shards(index_dir: str, df: np.ndarray, pair_doc: np.ndarray,
 
 
 def _shard_arrays(buf, path: str, *, verify: bool) -> dict[str, np.ndarray]:
-    """The sections of an in-memory part, as they are on disk."""
-    if not path.endswith((ARENA_SUFFIX, COMPRESSED_SUFFIX)):
-        raise ValueError(f"{path}: v1 npz parts {_LATER}")
+    """The sections of an in-memory part, as they are on disk. An npz
+    part is read whole, which checks its zip entry CRCs."""
+    if not path.endswith(ARENA_SUFFIXES):
+        with np.load(io.BytesIO(buf), allow_pickle=False) as z:
+            return {name: z[name] for name in z.files}
     header, data_start = read_arena_header(buf)
     return _arena_views(buf, header, data_start, path, verify=verify)
 
 
 def load_shard(index_dir: str, shard: int, *,
                decode: bool = False) -> dict[str, np.ndarray]:
-    """Map one part, whichever format is on disk, without verifying it. A
-    compressed part's sections come back as they are, or decoded to the
-    five raw arrays with `decode`."""
+    """Map one part, whichever format is on disk, without verifying it (an
+    npz part cannot be mapped and is read whole). A compressed part's
+    sections come back as they are, or decoded to the five raw arrays
+    with `decode`."""
     path = part_path(index_dir, shard)
+    if not path.endswith(ARENA_SUFFIXES):
+        with np.load(path, allow_pickle=False) as npz:
+            return {name: npz[name] for name in npz.files}
     z = _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
                       verify=False)
     return compress.decode_shard(z) if decode and compress.is_compressed(
         z) else z
+
+
+def read_part(path: str) -> dict[str, np.ndarray]:
+    """One part file read whole, every CRC of its format checked (a
+    damaged file raises a CORRUPT_NPZ member), a compressed part
+    decoded: what the streaming build's resume trusts."""
+    buf, _ = _read_file_verified(path)
+    z = _shard_arrays(buf, path, verify=True)
+    return compress.decode_shard(z) if compress.is_compressed(z) else z
 
 
 def load_shard_verified(index_dir: str, shard: int,
@@ -475,8 +562,9 @@ def load_shard_verified(index_dir: str, shard: int,
 
     In a mid-migration dir the part metadata names may be gone, already
     rewritten in the other format; that twin is read instead, with its
-    recorded digest if metadata has one, else its section CRCs."""
-    require_arena_format(meta.format_version)
+    recorded digest if metadata has one, else its section CRCs (or zip
+    entry CRCs)."""
+    require_known_format(meta.format_version)
     name = part_name(shard, meta.format_version)
     path = os.path.join(index_dir, name)
     want = meta.checksums.get(name) if meta.checksums else None

@@ -1,22 +1,24 @@
-"""In-place part format migration between v2 raw arenas and v3 compressed
-arenas: the v2 <-> v3 part of `tpu_ir/index/migrate.py::migrate_index`.
+"""In-place part format migration between v1 npz parts, v2 raw arenas and
+v3 compressed arenas (`tpu_ir/index/migrate.py::migrate_index`).
 
 `migrate_index(dir, to_version=3)` (`migrate-index --compress`) rewrites
 every part through compress.compress_index; `to_version=2`
-(`--decompress`) decodes each compressed part back to a raw arena, byte
-for byte the original whenever the tf mode was lossless (the encoder
-proves the restoration when it compresses). Each part is read
-verify-while-read, written atomically (temp file + rename) and its other
-format's twin unlinked; the checksums and the format stamp are recorded
-in one final metadata write, which also writes the block-max bounds
-artifact anew from the postings serving will decode. An interrupted run
-leaves a mixed dir that every reader tolerates, and running it again
-completes it.
+(`--decompress`, the default) writes each part as a raw arena, byte for
+byte the original whenever a compressed index's tf mode was lossless
+(the encoder proves the restoration when it compresses), and
+`to_version=1` (`--to 1`) as an npz part, the rollback pin's format.
+Each part is read verify-while-read, written atomically (temp file +
+rename) and its other format's twin unlinked; the checksums and the
+format stamp are recorded in one final metadata write, which also writes
+the block-max bounds artifact anew from the postings serving will
+decode. An interrupted run leaves a mixed dir that every reader
+tolerates, and running it again completes it: a shard already in the
+target format whose source twin a crash left behind has the twin
+dropped once the kept target verifies against its own CRCs.
 
 `add_bounds=True` (`migrate-index --add-bounds`) rewrites no part: it
 computes `blockmax.arena` from the parts on disk, each read
-verify-while-read, and records the checksums again. The v1 npz walk is a
-later slice.
+verify-while-read, and records the checksums again.
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ from . import format as fmt
 def migrate_index(index_dir: str,
                   to_version: int = fmt.ARENA_FORMAT_VERSION,
                   tf_dtype: str = "auto", add_bounds: bool = False) -> dict:
-    """Convert every part of the index at `index_dir` to `to_version` (2 =
-    raw arenas, 3 = compressed arenas with `tf_dtype` auto|int8|bf16).
+    """Convert every part of the index at `index_dir` to `to_version` (1 =
+    npz parts, 2 = raw arenas, 3 = compressed arenas with `tf_dtype`
+    auto|int8|bf16).
     Returns a summary; parts already in the target format count as
     skipped. With `add_bounds` only the block-max bounds artifact is
     (re)written, the same bytes on every run for the same postings."""
-    fmt.require_arena_format(to_version)
+    fmt.require_known_format(to_version)
     meta = fmt.IndexMetadata.load(index_dir)
     if add_bounds:
         from .blockmax import BLOCKMAX_ARENA, write_block_bounds
@@ -57,6 +60,13 @@ def migrate_index(index_dir: str,
         if not os.path.exists(src):
             raise FileNotFoundError(src)
         if os.path.basename(src) == fmt.part_name(s, to_version):
+            # a crash between save_shard's rename and its twin unlink
+            # leaves the source copy: drop it once the kept target
+            # verifies, never before
+            twin = fmt._part_twin(index_dir, os.path.basename(src))
+            if twin is not None:
+                fmt._self_verify_part(src)
+                os.remove(twin)
             skipped += 1
             continue
         z = fmt.load_shard_verified(index_dir, s, meta)

@@ -687,9 +687,7 @@ def build_index_streaming(
                 # that fails its full read is quarantined and rebuilt
                 # from its spills
                 try:
-                    z = fmt.load_arena(part)
-                    if fmt.compress.is_compressed(z):
-                        z = fmt.compress.decode_shard(z)
+                    z = fmt.read_part(part)
                 except fmt.CORRUPT_NPZ:
                     qpath = fmt.quarantine(index_dir, os.path.basename(part))
                     logger.warning("corrupt part file quarantined to %s; "
@@ -760,7 +758,7 @@ def build_index_streaming(
         chargram_ks=chargram_ks if built_chargrams else [],
         version=2 if positions else fmt.FORMAT_VERSION,
         has_positions=bool(positions),
-        format_version=fmt.ARENA_FORMAT_VERSION)
+        format_version=fmt.resolve_format_version())
     with report.phase("finalize"):
         meta.save_with_checksums(index_dir)
     report.record_peaks(dev)

@@ -24,7 +24,7 @@ def verify_index(index_dir: str) -> dict:
     """Check every invariant of the on-disk index; raises AssertionError with
     a specific message on violation, returns a summary dict on success."""
     meta = fmt.IndexMetadata.load(index_dir)
-    fmt.require_arena_format(meta.format_version)
+    fmt.require_known_format(meta.format_version)
     # integrity first: recorded checksums must match the bytes on disk
     # (a corrupt artifact should surface as ONE structured IntegrityError
     # naming the file, before any structural assert trips on its content)

@@ -13,10 +13,16 @@ The host arrays are element- and dtype-exact against the JAX package's
 (slim uint16 columns included), the block-max bounds of the hot rows
 (`hot_blk_max`, the largest tf per doc block of width `blockmax_width`)
 with them.
+
+The serving cache (`serving-tiered/`, at the end of this module) keeps
+the layout, df and the rerank's doc norms next to the index, in the JAX
+package's format, so a restart maps them instead of reading the parts.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -35,11 +41,13 @@ def upload_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     uint16 columns cross the link at two bytes a value and are widened on
     the device (torch has few uint16 operations, so they travel as int16
     bits and are masked back to 0..65535); other columns are cast to int32
-    on the host, and copied there only where they are read-only or not
-    contiguous (as loaded arena views are)."""
+    on the host. A column is copied on the host only where it is read-only
+    or not contiguous (as loaded arena views and mapped cache sections
+    are)."""
     a = np.asarray(a)
     if a.dtype == np.uint16:
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        a = np.require(a, None, ["C_CONTIGUOUS", "WRITEABLE"])
+        t = torch.from_numpy(a.view(np.int16))
         return t.to(device).to(torch.int32) & 0xFFFF
     a = np.require(a, np.int32, ["C_CONTIGUOUS", "WRITEABLE"])
     return torch.from_numpy(a).to(device)
@@ -232,3 +240,227 @@ def build_tiered_layout(
                           num_hot, d + 1, tier_of, row_of,
                           tuple(tier_docs), tuple(tier_tfs),
                           hot_blk_max, width)
+
+
+# ---------------------------------------------------------------------------
+# the serving cache (`tpu_ir/search/layout.py:326-635`)
+# ---------------------------------------------------------------------------
+#
+# A sparse Scorer.load that misses writes the tiered layout, df and the
+# rerank's doc norms into index_dir/serving-tiered/ (one cache.arena and
+# manifest.json); a later load that hits maps them and reads no part. The
+# directory, the arena's sections and the manifest's keys are the JAX
+# package's, so a cache written by either package is read by the other.
+
+#: the JAX package's serving-cache version: v7 keys the part files by
+#: their tagged CRC (format.file_checksum), sizes and stats, and the
+#: index's serving interpretation (format version, tf dtype, lossiness,
+#: each part's section dtypes)
+_CACHE_VERSION = 7
+CACHE_NAME = "serving-tiered"
+
+
+def _part_stat(index_dir: str, meta) -> list:
+    """[name, size, mtime_ns] per part file: the cheap revalidation stamp.
+    Any write through the filesystem lands a new mtime_ns, so a stat match
+    means the parts are the ones the key certified when the cache was
+    written. Rot below the filesystem that keeps size and mtime shows only
+    when the parts stream (the lazy verified pairs loader), or on every
+    load with TPU_IR_CACHE_REVALIDATE=crc."""
+    from ..index import format as fmt
+
+    out = []
+    for s in range(meta.num_shards):
+        path = fmt.part_path(index_dir, s)
+        st = os.stat(path)
+        out.append([os.path.basename(path), st.st_size, st.st_mtime_ns])
+    return out
+
+
+def _section_signature(index_dir: str, meta) -> list:
+    """Per part, its arena header's (section name, dtype) pairs ("npz" for
+    a v1 part): how its bytes are decoded, which a stat or even a
+    whole-file CRC of a byte-identical re-migration cannot tell. Header
+    reads only."""
+    from ..index import format as fmt
+
+    out = []
+    for s in range(meta.num_shards):
+        path = fmt.part_path(index_dir, s)
+        if path.endswith(".npz"):
+            out.append([os.path.basename(path), "npz"])
+            continue
+        header, _ = fmt.arena_file_header(path)
+        out.append([os.path.basename(path),
+                    [[sec["name"], sec["dtype"]]
+                     for sec in header["sections"]]])
+    return out
+
+
+def _serving_cache_key(index_dir: str, meta, hot_budget: int, base_cap: int,
+                       growth: int, part_crcs: dict | None = None) -> dict:
+    """The content-addressed key, field for field the JAX package's: each
+    part's name, size and format.file_checksum digest (from `part_crcs`
+    where a digest is already known, else streamed), the index counts,
+    its serving interpretation and the layout parameters."""
+    from ..index import format as fmt
+
+    files = []
+    for s in range(meta.num_shards):
+        path = fmt.part_path(index_dir, s)
+        name = os.path.basename(path)
+        crc = (part_crcs or {}).get(name) or fmt.file_checksum(path)
+        files.append([name, os.path.getsize(path), crc])
+    return {
+        "version": _CACHE_VERSION,
+        "num_docs": meta.num_docs,
+        "vocab_size": meta.vocab_size,
+        "num_pairs": meta.num_pairs,
+        "part_files": files,
+        "format_version": meta.format_version,
+        "tf_dtype": getattr(meta, "tf_dtype", "int32"),
+        "tf_lossy": bool(getattr(meta, "tf_lossy", False)),
+        "section_dtypes": _section_signature(index_dir, meta),
+        "hot_budget": hot_budget,
+        "base_cap": base_cap,
+        "growth": growth,
+    }
+
+
+def serving_cache_writable(index_dir: str) -> bool:
+    """Whether a cache write can succeed: on a read-only index dir the
+    load skips the cache-only work (the norms pass)."""
+    return os.access(index_dir, os.W_OK)
+
+
+def cache_revalidate_mode() -> str:
+    """TPU_IR_CACHE_REVALIDATE: 'stat' (the default: trust unchanged part
+    names, sizes and mtimes) or 'crc' (stream every part's CRC and prove
+    each hit). A bogus value raises: an integrity knob must not fall back
+    to the weaker check."""
+    from .. import envvars
+
+    return envvars.get_choice("TPU_IR_CACHE_REVALIDATE")
+
+
+def read_cache_manifest(index_dir: str, cache_name: str, key,
+                        part_stat=None):
+    """(manifest, section getter) when the cache's key matches, else None.
+
+    `key` may be a callable (taking an optional {name: digest}), computed
+    only when needed: when the manifest's recorded part stats equal
+    `part_stat`'s, the key is rebuilt from the manifest's own digests (no
+    part read) and still compared, so a change of any other key field
+    misses; otherwise (or under TPU_IR_CACHE_REVALIDATE=crc) the key is
+    computed by streaming every part's CRC. The sections are mapped from
+    cache.arena zero-copy."""
+    from ..index import format as fmt
+
+    cache_dir = os.path.join(index_dir, cache_name)
+    manifest = os.path.join(cache_dir, "manifest.json")
+    if not os.path.exists(manifest):
+        return None
+    with open(manifest) as f:
+        m = json.load(f)
+    if cache_revalidate_mode() == "crc":
+        part_stat = None
+    stat_now = part_stat() if callable(part_stat) else part_stat
+    if (callable(key) and stat_now is not None
+            and m.get("part_stat") == stat_now):
+        recorded = {f[0]: f[2]
+                    for f in m.get("key", {}).get("part_files", [])}
+        if m["key"] != key(recorded):
+            return None
+    elif m["key"] != (key() if callable(key) else key):
+        return None
+    sections = fmt.load_arena(os.path.join(cache_dir, "cache.arena"),
+                              mmap=True)
+    return m, sections.__getitem__
+
+
+def write_cache_atomic(index_dir: str, cache_name: str, arrays: dict,
+                       manifest) -> None:
+    """Write cache.arena and manifest.json into a temp dir and rename it
+    into place. Any OSError (the key's part reads included, when
+    `manifest` is a callable) leaves no cache, never an exception."""
+    import shutil
+    import tempfile
+
+    from ..index import format as fmt
+
+    cache_dir = os.path.join(index_dir, cache_name)
+    tmp = None
+    try:
+        if callable(manifest):
+            manifest = manifest()
+        tmp = tempfile.mkdtemp(dir=index_dir, prefix=f".{cache_name}-")
+        fmt.write_arena(os.path.join(tmp, "cache.arena"),
+                        {n: np.asarray(a) for n, a in arrays.items()})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        os.replace(tmp, cache_dir)
+    except OSError:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_serving_cache(index_dir: str, *, meta, hot_budget: int = HOT_BUDGET,
+                       base_cap: int = BASE_CAP, growth: int = GROWTH):
+    """A cache hit: (TieredPostings, df, doc_norms), every array mapped
+    from the one arena with no part read; None on a miss or an unreadable
+    cache (the caller then builds the layout from the parts)."""
+    cache_revalidate_mode()  # a bogus knob raises here, not into except
+    try:
+        hit = read_cache_manifest(
+            index_dir, CACHE_NAME,
+            lambda part_crcs=None: _serving_cache_key(
+                index_dir, meta, hot_budget, base_cap, growth,
+                part_crcs=part_crcs),
+            part_stat=lambda: _part_stat(index_dir, meta))
+        if hit is None:
+            return None
+        m, arr = hit
+        tiers = TieredPostings(
+            arr("hot_rank"), arr("hot_rows"), arr("hot_docs"),
+            arr("hot_vals"), m["num_hot"], m["hot_width"],
+            arr("tier_of"), arr("row_of"),
+            tuple(arr(f"tier_docs_{i}") for i in range(m["num_tiers"])),
+            tuple(arr(f"tier_tfs_{i}") for i in range(m["num_tiers"])),
+            arr("hot_blk_max"), m["blockmax_width"])
+        return tiers, arr("df"), arr("doc_norms")
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+def save_serving_cache(index_dir: str, tiers: TieredPostings, df: np.ndarray,
+                       doc_norms: np.ndarray, *, meta,
+                       hot_budget: int = HOT_BUDGET,
+                       base_cap: int = BASE_CAP,
+                       growth: int = GROWTH) -> None:
+    """Write the serving arrays to index_dir/serving-tiered/; the key
+    reuses the metadata's recorded part digests where it has them."""
+    arrays = {
+        "hot_rank": tiers.hot_rank, "hot_rows": tiers.hot_rows,
+        "hot_docs": tiers.hot_docs, "hot_vals": tiers.hot_vals,
+        "tier_of": tiers.tier_of, "row_of": tiers.row_of,
+        "df": np.asarray(df, np.int32),
+        "doc_norms": np.asarray(doc_norms, np.float32),
+        # an all-zero [1, 1] row when the layout has no hot term
+        "hot_blk_max": np.asarray(
+            tiers.hot_blk_max if tiers.hot_blk_max is not None
+            else np.zeros((1, 1), np.int32), np.int32),
+    }
+    for i, (d, t) in enumerate(zip(tiers.tier_docs, tiers.tier_tfs)):
+        arrays[f"tier_docs_{i}"] = d
+        arrays[f"tier_tfs_{i}"] = t
+    write_cache_atomic(
+        index_dir, CACHE_NAME, arrays,
+        lambda: {"key": _serving_cache_key(
+                     index_dir, meta, hot_budget, base_cap, growth,
+                     part_crcs=getattr(meta, "checksums", None)),
+                 "part_stat": _part_stat(index_dir, meta),
+                 "num_tiers": len(tiers.tier_docs),
+                 "num_hot": tiers.num_hot,
+                 "hot_width": tiers.hot_width,
+                 "blockmax_width": int(tiers.blockmax_width)})

@@ -116,6 +116,9 @@ from .layout import (
     HOT_BUDGET,
     TieredPostings,
     build_tiered_layout,
+    load_serving_cache,
+    save_serving_cache,
+    serving_cache_writable,
     upload_index,
 )
 
@@ -236,6 +239,7 @@ class Scorer:
         pairs_loader=None,
         deadline_s: float | None = None,
         index_dir: str | None = None,
+        doc_norms: np.ndarray | None = None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
@@ -247,7 +251,9 @@ class Scorer:
         score dispatch that names no deadline of its own. `index_dir`,
         where the index was loaded from, is where wildcard and fuzzy
         expansion read the char-gram artifacts (without it, glob and
-        fuzzy tokens are literal text, as in the JAX package).
+        fuzzy tokens are literal text, as in the JAX package). `doc_norms`
+        are the rerank's norms where they are known already (the serving
+        cache holds them).
 
         Lazy state (the weighted strips, block-max's bound tables, the
         BM25 tf matrix, the doc norms, the host postings) is built outside
@@ -274,7 +280,8 @@ class Scorer:
         self._wildcard_tried = False
         self._phrase = None
         self._store = None
-        self._norms_np: np.ndarray | None = None
+        self._norms_np: np.ndarray | None = (
+            None if doc_norms is None else np.array(doc_norms, np.float32))
         self._norms: torch.Tensor | None = None
         self._host_pairs: tuple | None = None
         self._pairs_loader = pairs_loader
@@ -358,39 +365,64 @@ class Scorer:
              device: str | torch.device | None = None,
              prune: bool = True,
              deadline_s: float | None = None) -> "Scorer":
-        """Load an index dir (built by either package, raw or compressed)
-        onto the device (`deadline_s`: as the constructor's). Side files
-        are verified against their recorded
-        checksums, and each part file is verified by the one streamed
-        read that loads it (a compressed part is then decoded). The
-        tiered layout takes its block-max bounds from blockmax.arena; a
-        corrupt artifact is quarantined and the bounds are computed from
-        the postings instead."""
+        """Load an index dir (built by either package, any format) onto
+        the device (`deadline_s`: as the constructor's). Side files are
+        verified against their recorded checksums, and each part file is
+        verified by the one streamed read that loads it (a compressed
+        part is then decoded). The tiered layout takes its block-max
+        bounds from blockmax.arena; a corrupt artifact is quarantined and
+        the bounds are computed from the postings instead.
+
+        The tiered layout goes through the serving cache (search/
+        layout.py): a hit maps the tiers, df and the rerank's doc norms
+        from `serving-tiered/` and reads no part (the host postings stay
+        lazy, verified as they stream); a miss builds the layout from the
+        parts and, when the dir is writable, computes the norms and writes
+        the cache. The dense layout has no cache."""
         dev = resolve_device(device)
         meta = fmt.IndexMetadata.load(index_dir)
         resolved = _resolve_layout(layout, meta)  # fail before any reads
-        fmt.require_arena_format(meta.format_version)
+        fmt.require_known_format(meta.format_version)
         fmt.verify_checksums(index_dir, meta,
                              names=[fmt.DOCLEN, fmt.DOCNOS, fmt.VOCAB])
         vocab = Vocab.load(os.path.join(index_dir, fmt.VOCAB))
         mapping = DocnoMapping.load(os.path.join(index_dir, fmt.DOCNOS))
         doc_len = np.load(os.path.join(index_dir, fmt.DOCLEN))
-        df, pair_doc, pair_tf = _assemble_csr(index_dir, meta)
-        # the rerank's norms re-read the postings on first use: the
-        # tiered layout keeps no host copy of them
+        # the rerank's norms and the host fallback re-read the postings on
+        # first use: the tiered layout keeps no host copy of them
         loader = lambda: _assemble_csr(index_dir, meta)  # noqa: E731
+        if resolved == "sparse":
+            cached = load_serving_cache(index_dir, meta=meta)
+            if cached is not None:
+                tiers, df, norms = cached
+                return cls(vocab=vocab, mapping=mapping, pair_term=None,
+                           pair_doc=None, pair_tf=None, df=np.asarray(df),
+                           doc_len=doc_len, meta=meta, layout=layout,
+                           compat_int_idf=compat_int_idf, device=dev,
+                           tiers=tiers, prune=prune, pairs_loader=loader,
+                           deadline_s=deadline_s, index_dir=index_dir,
+                           doc_norms=norms)
+        df, pair_doc, pair_tf = _assemble_csr(index_dir, meta)
         if resolved == "sparse":
             bounds = load_block_bounds(index_dir, meta,
                                        quarantine_corrupt=True)
             tiers = build_tiered_layout(pair_doc, pair_tf, df,
                                         num_docs=meta.num_docs,
                                         block_bounds=bounds)
+            norms = None
+            if serving_cache_writable(index_dir):
+                # the norms pass is paid here only for the cache; on a
+                # read-only dir they stay lazy (rerank only)
+                norms = compute_doc_norms(None, pair_doc, pair_tf, df,
+                                          meta.num_docs)
+                save_serving_cache(index_dir, tiers, df, norms, meta=meta)
             return cls(vocab=vocab, mapping=mapping, pair_term=None,
                        pair_doc=None, pair_tf=None, df=df, doc_len=doc_len,
                        meta=meta, layout=layout,
                        compat_int_idf=compat_int_idf, device=dev,
                        tiers=tiers, prune=prune, pairs_loader=loader,
-                       deadline_s=deadline_s, index_dir=index_dir)
+                       deadline_s=deadline_s, index_dir=index_dir,
+                       doc_norms=norms)
         # the term column is read by the dense scatter only
         return cls(vocab=vocab, mapping=mapping,
                    pair_term=pair_term_from_df(df), pair_doc=pair_doc,
