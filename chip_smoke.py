@@ -42,7 +42,7 @@ code:
               on 64 queries, both scorings) and the kernels' launch counts;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
               over the same queries: q/s, device time, launches; then
-              `explain`: 128 of the queries as texts through search_batch
+              `explain`: 64 of the queries as texts through search_batch
               with explain_k = 10 (TF-IDF, BM25 and the rerank): every
               entry's float64 sum of contributions equals its score, and
               its score the returned one, as float32 bits, and the same
@@ -86,7 +86,7 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 1,000 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 500 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
               '?'): 80 patterns of each held against a glob and a
@@ -152,6 +152,51 @@ code:
 19c. doctor   doctor_report on the wiki100k index: its seconds, the block
               bounds ok and exact, serving-tiered among the caches, the
               warnings;
+19d. live     the live index at wiki100k (`wiki100k-live`: k = 1, 10
+              shards, char-grams 2, 3): the corpus's first 95,000 docs
+              through `tpu-ir-torch ingest LIVE --init --add ...
+              --compact` (one flush; generation A; docs/s, WAL appends,
+              bytes and fsyncs, the flush's seconds); A loaded by
+              Scorer.load_generation and served through a coalesced
+              ServingFrontend (512 texts, q/s); the delta with the
+              writer's defaults (flushes of 1,000, auto-merge on): the
+              held-back 5,000 docs added, 500 of A's docs updated with
+              another doc's text and 500 others deleted (ops/s, the
+              flushes' and merge steps' seconds, at least one merge step);
+              compact_all gives generation B (99,500 docs; seconds), whose
+              every artifact must have the sha256 of a one-shot build
+              over the surviving docs (its seconds); 4 probe threads send
+              BM25 texts while `frontend.reload_generation(generation=B)`
+              loads B and warms its coalescer before the publish: the
+              reload's wall, the widest gap between successful responses
+              across it (where in the reload it opened, and which
+              generation's response closed it) beside the widest before
+              it and a thread's that only wakes every 0.5 ms, the probes,
+              the generations seen, no error, shed, degraded response or
+              unwarmed dispatch, and 64 A-tagged and 64 B-tagged
+              responses bitwise their generation's solo answer; then the
+              swap back to A's scorer, loaded already, under the same
+              probes (its gaps: the swap without a load); B as the
+              swap loaded it serves 10,000 uniform queries bitwise as the
+              one-shot index, TF-IDF and BM25 (q/s), its own timed run
+              launching cold_tier and hot_stage; verify_live (seconds),
+              then doctor, generations and compact --gc through the
+              command line (seconds each);
+19e. live_crash  the same at ref scale (`ref-live`: the first 8,261 ref
+              docs as A; a delta of 500 adds, 100 updates and 100
+              deletes in flushes of 100): A backed up (segments
+              hardlinked, the WAL copied) and restored into a new dir
+              (restore_live runs verify_live); the delta fed into A with
+              no crash and compacted (the control); a spawned child feeds
+              the same delta into the restore under
+              TPU_IR_FAULTS=ingest.flush_build:once@3, acknowledging each
+              op, and SIGKILLs itself (rc -9); the parent recovers (lease
+              takeover, the WAL replayed, the unacknowledged ops fed
+              again, compact_all): no acknowledged op lost, the control's
+              live docs, every artifact the control's sha256 and the
+              one-shot build's; that generation served dense on the card,
+              10,000 uniform queries bitwise as the one-shot index,
+              TF-IDF and BM25, launching dense_score;
 20. prox      ref and wiki100k (their positions indexes): the first 2,000
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
@@ -1905,8 +1950,9 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
-WILDCARD_QUERIES = 1_000        # query texts of each wildcard mix (2,000
-                                # before the run outgrew its time)
+WILDCARD_QUERIES = 500          # query texts of each wildcard mix (2,000
+                                # before the run outgrew its time, 1,000
+                                # before the live phases)
 EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
                                # (200 before the run outgrew its time)
 # the questions that raised on a char-gram index before wildcard search
@@ -2678,8 +2724,9 @@ PROX_QUERIES = 2_000            # uniform queries through the prox rerank
                                 # (10,000 before the run outgrew its time)
 PROX_CANDIDATES = 1_000
 PROX_ORACLE = 64                # queries whose boost numpy recomputes
-EXPLAIN_QUERIES = 128           # queries of each explain traffic (256 before
-                                # the merge, warm and doctor phases)
+EXPLAIN_QUERIES = 64            # queries of each explain traffic (256 before
+                                # the merge, warm and doctor phases, 128
+                                # before the live phases)
 EXPLAIN_K = 10
 SNIPPET_HITS = 200              # hits rendered through the frontend
 
@@ -3286,7 +3333,7 @@ def phase_merge(card: str, work: str, *, widx: str, wdigests: dict,
     ref positions build (`ref_pos`); then the merged wiki100k index
     loaded and the uniform queries `q_ids` served (TF-IDF and BM25): its
     top-k must be the radix index's (`want`) bitwise, and cold_tier and
-    hot_stage must launch. Deletes both corpora."""
+    hot_stage must launch. Both corpora stay for the live phases."""
     import tpu_ir_torch
     from tpu_ir_torch.search import Scorer
 
@@ -3301,8 +3348,6 @@ def phase_merge(card: str, work: str, *, widx: str, wdigests: dict,
         positions=True)
     shutil.rmtree(ref_merged)
     out["configs"]["ref-pos"] = ref
-    for name in ("wiki100k.trec", "ref.trec"):
-        os.unlink(os.path.join(work, name))
 
     tpu_ir_torch.reset_kernel_launches()
     t0 = time.perf_counter()
@@ -3546,6 +3591,729 @@ def phase_v1(card: str, work: str, idx: str, q_ids: np.ndarray,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the live index: wiki100k (19d) and its crash recovery at ref scale (19e)
+# ---------------------------------------------------------------------------
+
+# the seed is a corpus's first `seed_docs` docs and the rest are the delta's
+# adds; `updates` of the seed's docs get another seed doc's text and
+# `deletes` others go. buffer_docs None is the writer's default
+# (TPU_IR_INGEST_BUFFER_DOCS, 1,000). The CPU test shrinks both.
+LIVE = dict(seed_docs=95_000, updates=500, deletes=500, buffer_docs=None)
+# ref has 8,761 docs: a delta of 500 adds, 100 updates and 100 deletes in
+# flushes of 100, so the feeder dies at its third flush mid-stream
+LIVE_CRASH = dict(seed_docs=8_261, updates=100, deletes=100,
+                  buffer_docs=100)
+LIVE_CRASH_PLAN = "ingest.flush_build:once@3"   # the feeder's third flush
+SWAP_PROBE_THREADS = 4          # probe threads across the swap
+SWAP_PROBE_S = 1.0              # probing before the swap, and after it
+SWAP_SAMPLE = 64                # A- and B-tagged responses held bitwise
+LIVE_SERVE_TEXTS = 512          # texts A serves through the frontend
+
+
+def run_cli(argv: list[str]) -> tuple[dict, float]:
+    """One tpu-ir-torch command through the command line's entry point in
+    this process: its last JSON line and its wall seconds."""
+    import io
+
+    from tpu_ir_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"tpu-ir-torch {' '.join(argv)}: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def corpus_docs(path: str) -> list[tuple[str, str]]:
+    """(docid, text) of every record of a TREC file in file order, the text
+    as the writer ingests it."""
+    from tpu_ir_torch.collection import read_trec_corpus
+    from tpu_ir_torch.index.ingest import trec_payload
+
+    return [(d.docid, trec_payload(d.content))
+            for d in read_trec_corpus([path])]
+
+
+def head_records(corpus: str, n: int, out: str) -> None:
+    """The first `n` records of a TREC file, byte for byte, into `out`."""
+    with open(corpus, "rb") as f:
+        data = f.read()
+    pos = 0
+    for _ in range(n):
+        pos = data.index(b"<DOC>", pos) + 1
+    cut = data.find(b"<DOC>", pos)
+    with open(out, "wb") as f:
+        f.write(data[:len(data) if cut < 0 else cut])
+
+
+def live_ops(seed_docs: list, held_back: list, *, updates: int,
+             deletes: int, seed: int = 21) -> list:
+    """The delta, in one seeded interleaving: an add of each held-back doc,
+    `updates` of the seed's docs given another seed doc's text, and
+    `deletes` of other seed docs ([op, docid(, text)] lists)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(seed_docs), updates + deletes, replace=False)
+    donors = rng.choice(len(seed_docs), updates)
+    ops = [["add", d, t] for d, t in held_back]
+    ops += [["update", seed_docs[i][0], seed_docs[j][1]]
+            for i, j in zip(pick[:updates], donors)]
+    ops += [["delete", seed_docs[i][0]] for i in pick[updates:]]
+    return [ops[i] for i in rng.permutation(len(ops))]
+
+
+def apply_op(w, op: list, *, refeed: bool = False) -> None:
+    """One delta op through an IngestWriter. A re-fed add is an upsert, so
+    an op the WAL already replayed is not an error."""
+    if op[0] == "delete":
+        w.delete(op[1])
+    elif op[0] == "add" and not refeed:
+        w.add(op[1], op[2])
+    else:
+        w.update(op[1], op[2])
+
+
+def survivors(seed_docs: list, ops: list) -> dict:
+    """{docid: text} the delta leaves live: the seed's docs in corpus order
+    (an update's text in place), then the adds in feed order."""
+    live = dict(seed_docs)
+    for op in ops:
+        if op[0] == "delete":
+            del live[op[1]]
+        else:
+            live[op[1]] = op[2]
+    return live
+
+
+def write_docs(path: str, docs: dict) -> None:
+    """`docs` as TREC records in the writer's own framing."""
+    with open(path, "w", encoding="utf-8") as f:
+        for d, t in docs.items():
+            f.write(f"<DOC>\n<DOCNO> {d} </DOCNO>\n<TEXT>\n{t}\n"
+                    f"</TEXT>\n</DOC>\n")
+
+
+def segment_of(live: str) -> str:
+    """The one segment dir of a live dir's current (compacted) generation."""
+    from tpu_ir_torch.index.segments import LiveIndex
+
+    li = LiveIndex.open(live)
+    m = li.manifest()
+    if len(m["segments"]) != 1 or m["tombstones"]:
+        raise AssertionError(f"{live}: generation {m['gen']} is not "
+                             f"compacted: {m['segments']}")
+    return li.segment_path(m["segments"][0])
+
+
+def digest_diff(got: dict, want: dict) -> list[str]:
+    return sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+
+
+def seed_live(live: str, corpus: str, n_seed: int, *, device: str) -> dict:
+    """A live dir created and seeded with the first `n_seed` records of
+    `corpus` through `tpu-ir-torch ingest --init --add --compact` (one
+    flush: the buffer holds the whole seed): generation A, one segment.
+    Its wall, docs/s, WAL appends, bytes and fsyncs, and the flush's
+    seconds."""
+    from tpu_ir_torch import obs
+
+    reg = obs.get_registry()
+    seed_path = os.path.join(os.path.dirname(live), "seed.trec")
+    head_records(corpus, n_seed, seed_path)
+    wal0 = {n: reg.get(f"ingest.{n}")
+            for n in ("wal_appends", "wal_bytes", "wal_fsyncs")}
+    hist0 = reg.hist_state()
+    seed_json, seed_s = run_cli(
+        ["ingest", live, "--init", "--add", seed_path, "--buffer-docs",
+         str(n_seed + 1), "--compact", "--device", device])
+    os.unlink(seed_path)
+    flush = reg.delta_summary(hist0, always=("ingest.flush",))
+    out = {"wall_s": seed_s, "docs_per_s": n_seed / seed_s,
+           **{n: reg.get(f"ingest.{n}") - v for n, v in wal0.items()},
+           "flush_s": flush["ingest.flush"]["sum_ms"] / 1e3,
+           "generation": seed_json["generation"],
+           "segments": seed_json["segments"], "live": seed_json["live"]}
+    if seed_json["live"] != n_seed or len(seed_json["segments"]) != 1:
+        raise AssertionError(f"the seed: {seed_json}")
+    return out
+
+
+LIVE_TIMED_RUNS = 3             # timed topk runs of a live serve (median)
+
+
+def live_topk(scorer, q: np.ndarray, *, k: int, scoring: str,
+              device: str) -> tuple[tuple, dict, float]:
+    """One warmed scorer's topk of `q`: the first timed run's result and
+    kernel launches, and q/s over the median of LIVE_TIMED_RUNS runs
+    (synchronized on the card)."""
+    import torch
+
+    import tpu_ir_torch
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    scorer.topk(q[:64], k=k, scoring=scoring)     # warm-up
+    sync()
+    walls = []
+    for run in range(LIVE_TIMED_RUNS):
+        if run == 0:
+            tpu_ir_torch.reset_kernel_launches()
+        t0 = time.perf_counter()
+        got = scorer.topk(q, k=k, scoring=scoring)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            first, launches = got, tpu_ir_torch.kernel_launches()
+    return first, launches, len(q) / float(np.median(walls))
+
+
+def swap_probes(frontend, texts: list[str], *, generation: int | None = None,
+                scorer=None, k: int = 10) -> dict:
+    """SWAP_PROBE_THREADS probe threads send `texts` (BM25, k) through
+    `frontend` for SWAP_PROBE_S, then while it swaps (reload_generation
+    of `scorer`, loaded already, or of `generation`, loaded inside;
+    timed), then SWAP_PROBE_S more, while one more thread does nothing
+    but wake every 0.5 ms. Returns the responses (completion time,
+    generation, text index, bits, degraded), the errors and sheds, the
+    reload's wall, the widest gap between successive successful responses
+    across the reload (from the last one completed before it began to the
+    first completed after it ended), where that gap opened (seconds from
+    the reload's start) and the generation of the response that closed
+    it, the widest gap in the probing before the reload, and the waking
+    thread's widest gap across the reload (what a thread that needs only
+    the interpreter lock waited)."""
+    import threading
+
+    from tpu_ir_torch.serving import Overloaded
+
+    stop = threading.Event()
+    lock = threading.Lock()
+    events, errors = [], []
+    sheds = [0]
+    wakes = []
+
+    def wake() -> None:
+        while not stop.is_set():
+            wakes.append(time.perf_counter())
+            time.sleep(0.0005)
+
+    def probe(tid: int) -> None:
+        i = tid
+        while not stop.is_set():
+            try:
+                res = frontend.search(texts[i % len(texts)], k=k,
+                                      scoring="bm25")
+                done = time.perf_counter()
+                with lock:
+                    events.append((done, res.generation, i % len(texts),
+                                   result_bits(res), res.degraded))
+            except Overloaded:
+                with lock:
+                    sheds[0] += 1
+            except Exception as e:  # noqa: BLE001 — counted, must be none
+                with lock:
+                    errors.append(repr(e))
+            i += SWAP_PROBE_THREADS
+
+    threads = [threading.Thread(target=probe, args=(t,), daemon=True)
+               for t in range(SWAP_PROBE_THREADS)]
+    threads.append(threading.Thread(target=wake, daemon=True))
+    start = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        time.sleep(SWAP_PROBE_S)
+        t0 = time.perf_counter()
+        frontend.reload_generation(scorer, generation=generation)
+        t1 = time.perf_counter()
+        time.sleep(SWAP_PROBE_S)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60.0)
+    done = sorted(e[0] for e in events)
+    before = [t for t in done if t < t0]
+    after = [t for t in done if t > t1]
+    if not before or not after:
+        raise AssertionError(f"the swap: {len(before)} responses before it, "
+                             f"{len(after)} after it")
+    span = np.array([t for t in done if before[-1] <= t <= after[0]])
+    widest = int(np.argmax(np.diff(span)))
+    closed_by = next(e[1] for e in events if e[0] == span[widest + 1])
+    baseline = [start] + before
+    woke = [t for t in wakes if t < t0][-1:] + [t for t in wakes
+                                                if t0 <= t <= t1]
+    woke += [t for t in wakes if t > t1][:1]
+    return {"events": events, "errors": errors, "sheds": sheds[0],
+            "wake_gap_ms": 1e3 * float(np.diff(woke).max()),
+            "reload_wall_s": t1 - t0,
+            "swap_gap_ms": 1e3 * float(span[widest + 1] - span[widest]),
+            "gap_opened_s": float(span[widest] - t0),
+            "gap_closed_by": closed_by,
+            "baseline_gap_ms": 1e3 * float(np.diff(baseline).max())
+            if len(baseline) > 1 else 0.0}
+
+
+def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
+    """The live index at wiki100k (config `wiki100k-live`), from the corpus
+    kept in `work`: generation A seeded through the command line, served
+    through a coalesced ServingFrontend from Scorer.load_generation; the
+    delta fed with the writer's defaults (flushes of 1,000, auto-merge),
+    then compact_all into generation B, whose every artifact must have the
+    sha256 of a one-shot build over the surviving docs; the frontend swaps
+    to B (reload_generation) under probe threads: no error, shed,
+    degraded response or unwarmed dispatch, and each sampled response
+    bitwise the solo answer of the one generation it names; B, as the
+    swap loaded it, serves the uniform queries bitwise as the one-shot
+    index does, TF-IDF and BM25, its own timed run launching cold_tier
+    and hot_stage; then verify_live, and doctor, generations, compact --gc
+    and verify through the command line. The flush, merge, swap and
+    warm-up seconds are the registry's histograms. Deletes the corpus and
+    the live dir."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.index import build_index
+    from tpu_ir_torch.index.ingest import IngestWriter
+    from tpu_ir_torch.index.segments import LiveIndex
+    from tpu_ir_torch.index.verify import verify_live
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    reg = obs.get_registry()
+    corpus = os.path.join(work, "wiki100k.trec")
+    live = os.path.join(work, "live")
+    n_seed = LIVE["seed_docs"]
+    out = {"phase": "live", "card": card, "config": "wiki100k-live",
+           "seed_docs": n_seed}
+    out["seed"] = seed_live(live, corpus, n_seed, device=device)
+    docs = corpus_docs(corpus)
+    os.unlink(corpus)
+    seed_docs, held = docs[:n_seed], docs[n_seed:]
+    gen_a = out["seed"]["generation"]
+
+    # A through the coalesced frontend; A's launches count from its load
+    # to the end of its serve
+    tpu_ir_torch.reset_kernel_launches()
+    t0 = time.perf_counter()
+    scorer_a = Scorer.load_generation(live, device=device)
+    sync()
+    out["load_a_s"] = time.perf_counter() - t0
+    if (scorer_a.generation != gen_a or scorer_a.layout != "sparse"
+            or scorer_a.device.type != device):
+        raise AssertionError(f"A: generation {scorer_a.generation}, "
+                             f"layout {scorer_a.layout!r}, device "
+                             f"{scorer_a.device}")
+    t0 = time.perf_counter()
+    frontend = ServingFrontend(scorer_a, ServingConfig(
+        max_concurrency=SWAP_PROBE_THREADS, max_queue=16, coalesce=True))
+    out["frontend_warm_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    terms_a = scorer_a.vocab.terms
+    texts = [" ".join(terms_a[int(t)] for t in row) for row in rng.integers(
+        0, len(terms_a), (LIVE_SERVE_TEXTS, REF_QUERY_TERMS))]
+    t0 = time.perf_counter()
+    for text in texts:
+        if frontend.search(text, k=k, scoring="bm25").generation != gen_a:
+            raise AssertionError("A's frontend answered from another "
+                                 "generation")
+    out["a_frontend_qps"] = len(texts) / (time.perf_counter() - t0)
+    out["launches_a"] = tpu_ir_torch.kernel_launches()
+
+    # the delta, with the writer's defaults, then generation B
+    ops = live_ops(seed_docs, held, updates=LIVE["updates"],
+                   deletes=LIVE["deletes"])
+    wal0 = {n: reg.get(f"ingest.{n}")
+            for n in ("wal_appends", "wal_bytes", "wal_fsyncs")}
+    w = IngestWriter(live, buffer_docs=LIVE["buffer_docs"], device=device)
+    hist0 = reg.hist_state()
+    t0 = time.perf_counter()
+    for op in ops:
+        apply_op(w, op)
+    w.flush()
+    delta_s = time.perf_counter() - t0
+    steps = reg.delta_summary(hist0, always=("ingest.flush", "merge.run"))
+    t0 = time.perf_counter()
+    m_b = w.compact_all()
+    out["compact_s"] = time.perf_counter() - t0
+    w.close()
+    gen_b = m_b["gen"]
+    out["delta"] = {
+        "ops": len(ops), "adds": len(held), "updates": LIVE["updates"],
+        "deletes": LIVE["deletes"], "wall_s": delta_s,
+        "ops_per_s": len(ops) / delta_s,
+        **{n: reg.get(f"ingest.{n}") - v for n, v in wal0.items()},
+        "flushes": steps["ingest.flush"], "merge_steps": steps["merge.run"]}
+    out["generation_a"], out["generation_b"] = gen_a, gen_b
+    if not steps["merge.run"]["count"]:
+        raise AssertionError("the delta ran no tiered merge")
+    seg_b = segment_of(live)
+    want = survivors(seed_docs, ops)
+    if set(LiveIndex.open(live).live_doc_map()) != set(want):
+        raise AssertionError("B's live docs are not the survivors")
+
+    # the one-shot build over the survivors
+    control_corpus = os.path.join(work, "live-control.trec")
+    write_docs(control_corpus, want)
+    del docs, seed_docs, held
+    control = os.path.join(work, "live-control")
+    t0 = time.perf_counter()
+    build_index(control_corpus, control, num_shards=10, device=device)
+    sync()
+    out["control_build_s"] = time.perf_counter() - t0
+    os.unlink(control_corpus)
+    digests_b, digests_c = artifact_digests(seg_b), artifact_digests(control)
+    if digests_b != digests_c:
+        raise AssertionError("B differs from the one-shot build in "
+                             f"{digest_diff(digests_b, digests_c)}")
+    out["identical_artifacts"] = len(digests_b)
+    out["num_docs_b"] = len(want)
+
+    # the swap under probe traffic; B's load and its coalescer's warm-up
+    # are read from the histograms the swap observes
+    hist0 = reg.hist_state()
+    unwarmed0 = reg.get("dispatch.unwarmed")
+    swap = swap_probes(frontend, texts, generation=gen_b, k=k)
+    scorer_b = frontend.scorer
+    steps = reg.delta_summary(hist0, always=("generation.swap",
+                                             "batch.precompile"))
+    out["warm_b_s"] = steps["batch.precompile"]["sum_ms"] / 1e3
+    out["load_b_s"] = (steps["generation.swap"]["sum_ms"] / 1e3
+                       - out["warm_b_s"])
+    events = swap["events"]
+    gens = sorted({e[1] for e in events})
+    out["swap"] = {
+        "reload_wall_s": swap["reload_wall_s"],
+        "swap_gap_ms": swap["swap_gap_ms"],
+        "gap_opened_s": swap["gap_opened_s"],
+        "gap_closed_by": swap["gap_closed_by"],
+        "baseline_gap_ms": swap["baseline_gap_ms"],
+        "wake_gap_ms": swap["wake_gap_ms"],
+        "errors": len(swap["errors"]), "sheds": swap["sheds"],
+        "probes": len(events), "generations_seen": gens,
+        "degraded": sum(1 for e in events if e[4]),
+        "unwarmed": reg.get("dispatch.unwarmed") - unwarmed0}
+    if (swap["errors"] or swap["sheds"] or gens != [gen_a, gen_b]
+            or out["swap"]["degraded"] or out["swap"]["unwarmed"]
+            or steps["batch.precompile"]["count"] != 1):
+        raise AssertionError(f"the swap: {out['swap']} "
+                             f"{swap['errors'][:3]}")
+    if (scorer_b.generation != gen_b or scorer_b.device.type != device
+            or frontend.batcher is None):
+        raise AssertionError(f"after the swap: generation "
+                             f"{scorer_b.generation} on {scorer_b.device}")
+    sampled = 0
+    for gen, scorer in ((gen_a, scorer_a), (gen_b, scorer_b)):
+        for e in [e for e in events if e[1] == gen][:SWAP_SAMPLE]:
+            solo = scorer.search_batch([texts[e[2]]], k=k, scoring="bm25")
+            if result_bits(solo[0]) != e[3]:
+                raise AssertionError(f"a generation-{gen} response differs "
+                                     "from that generation's solo answer")
+            sampled += 1
+    out["swap"]["bitwise_sampled"] = sampled
+    # the swap back to A, whose scorer is loaded already: what the swap
+    # costs without a load in its window
+    back = swap_probes(frontend, texts, scorer=scorer_a, k=k)
+    out["swap_preloaded"] = {
+        key: back[key] for key in ("reload_wall_s", "swap_gap_ms",
+                                   "baseline_gap_ms", "wake_gap_ms",
+                                   "sheds")}
+    out["swap_preloaded"]["errors"] = len(back["errors"])
+    if (back["errors"] or back["sheds"]
+            or sorted({e[1] for e in back["events"]}) != [gen_a, gen_b]):
+        raise AssertionError(f"the swap back to A: {back['errors'][:3]}, "
+                             f"{back['sheds']} shed")
+    del scorer_a, events, swap, back
+
+    # B, loaded by the swap, serves the uniform queries as the one-shot
+    # index does; its own timed run's launches are the phase's
+    q_b = np.random.default_rng(1).integers(
+        0, scorer_b.meta.vocab_size,
+        size=(REF_QUERIES, REF_QUERY_TERMS)).astype(np.int32)
+    got = {}
+    launches = dict.fromkeys(tpu_ir_torch.kernel_launches(), 0)
+    for scoring in ("tfidf", "bm25"):
+        got[scoring], ran, out[f"b_{scoring}_qps"] = live_topk(
+            scorer_b, q_b, k=k, scoring=scoring, device=device)
+        for n, v in ran.items():
+            launches[n] += v
+    out["launches"] = launches
+    if on_card and not (launches["cold_tier"] and launches["hot_stage"]):
+        raise AssertionError(f"B's serve never launched cold_tier and "
+                             f"hot_stage: {launches}")
+    one_shot = Scorer.load(control, device=device)
+    for scoring in ("tfidf", "bm25"):
+        if not same_bits(got[scoring], one_shot.topk(q_b, k=k,
+                                                     scoring=scoring)):
+            raise AssertionError(f"B's {scoring} top-{k} differs from the "
+                                 "one-shot index's")
+    out["b_bitwise_one_shot"] = True
+    del one_shot, scorer_b, frontend
+    shutil.rmtree(control)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the operator's checks
+    t0 = time.perf_counter()
+    vl = verify_live(live)
+    out["verify_live_s"] = time.perf_counter() - t0
+    doctor, out["doctor_s"] = run_cli(["doctor", live])
+    gens_json, out["generations_s"] = run_cli(["generations", live])
+    comp, out["compact_gc_s"] = run_cli(["compact", live, "--gc",
+                                         "--device", device])
+    if not (vl["ok"] and vl["num_docs"] == len(want)
+            and vl["num_segments"] == 1
+            and doctor["segment_count"] == 1
+            and gens_json["generations"][-1]["servable"]
+            and gens_json["current"] == gen_b
+            and comp["steps"] == 0 and comp["segments"] == [
+                os.path.basename(seg_b)]):
+        raise AssertionError(f"the operator checks: {vl} {doctor} {comp}")
+    out["doctor_warnings"] = doctor["warnings"]
+    out["generations_listed"] = len(gens_json["generations"])
+    out["gc_dropped_segments"] = len(comp["gc"]["dropped_segments"])
+    out["gc_dropped_generations"] = len(comp["gc"]["dropped_generations"])
+    shutil.rmtree(live)
+    return out
+
+
+def feed_child(argv=None) -> int:
+    """phase_live_crash's feeder, run in a spawned child: feed the ops
+    file's delta through an IngestWriter on `--device`, appending each op's
+    index to `--ack` after the writer acknowledged it. The fault plan in
+    TPU_IR_FAULTS kills it: an InjectedCrash becomes a SIGKILL of itself."""
+    import argparse
+    import signal
+
+    from tpu_ir_torch import faults
+    from tpu_ir_torch.index.ingest import IngestWriter
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--live-dir", required=True)
+    p.add_argument("--ops", required=True)
+    p.add_argument("--ack", required=True)
+    p.add_argument("--buffer-docs", type=int, required=True)
+    p.add_argument("--device", required=True)
+    a = p.parse_args(argv if argv is not None else sys.argv[1:])
+    with open(a.ops, encoding="utf-8") as f:
+        ops = json.load(f)
+    ack = open(a.ack, "a", buffering=1)
+    try:
+        w = IngestWriter(a.live_dir, buffer_docs=a.buffer_docs,
+                         device=a.device)
+        for i, op in enumerate(ops):
+            apply_op(w, op)
+            ack.write(f"{i}\n")
+        w.close()
+        return 0
+    except faults.InjectedCrash:
+        os.kill(os.getpid(), signal.SIGKILL)
+        return 1   # unreachable
+    finally:
+        ack.close()
+
+
+def phase_live_crash(card: str, work: str, *, device: str,
+                     k: int = 10) -> dict:
+    """The live index's durability at ref scale (config `ref-live`), from
+    the ref corpus kept in `work`: generation A seeded through the command
+    line, backed up (segments hardlinked, the WAL copied) and restored
+    into a new dir (restore_live runs verify_live); the delta fed into the
+    original with no crash and compacted: the control; the same delta fed
+    into the restore by a spawned child under LIVE_CRASH_PLAN, which
+    SIGKILLs itself (rc -9); an IngestWriter opened on the restore takes
+    the lease over and replays the WAL, the unacknowledged ops are fed
+    again and compact_all runs: no acknowledged op lost, the control's
+    live docs, and every artifact the control's sha256 and the one-shot
+    build's over the survivors; that generation, loaded by
+    Scorer.load_generation on the card (dense), serves the uniform
+    queries bitwise as the one-shot index does, TF-IDF and BM25, its
+    own timed run launching dense_score. Deletes the corpus and the
+    dirs."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.index import build_index
+    from tpu_ir_torch.index.backup import backup_live, restore_live
+    from tpu_ir_torch.index.ingest import IngestWriter
+    from tpu_ir_torch.index.segments import LiveIndex
+    from tpu_ir_torch.search import Scorer
+
+    on_card = device == "cuda"
+    reg = obs.get_registry()
+    corpus = os.path.join(work, "ref.trec")
+    live = os.path.join(work, "crash-live")
+    n_seed = LIVE_CRASH["seed_docs"]
+    out = {"phase": "live_crash", "card": card, "config": "ref-live",
+           "seed_docs": n_seed}
+    out["seed"] = seed_live(live, corpus, n_seed, device=device)
+    docs = corpus_docs(corpus)
+    os.unlink(corpus)
+    seed_docs, held = docs[:n_seed], docs[n_seed:]
+    ops = live_ops(seed_docs, held, updates=LIVE_CRASH["updates"],
+                   deletes=LIVE_CRASH["deletes"])
+    want = survivors(seed_docs, ops)
+    buffer_docs = LIVE_CRASH["buffer_docs"]
+
+    # A backed up and restored
+    backup = os.path.join(work, "crash-backup")
+    restored = os.path.join(work, "crash-restored")
+    t0 = time.perf_counter()
+    summary = backup_live(live, backup)
+    out["backup_s"] = time.perf_counter() - t0
+    linked = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _d, fs in os.walk(backup) for f in fs
+                 if os.stat(os.path.join(r, f)).st_nlink > 1)
+    out["backup"] = {"files": summary["files"], "bytes": summary["bytes"],
+                     "bytes_linked": linked,
+                     "wal_segments": summary["wal_segments"]}
+    t0 = time.perf_counter()
+    rep = restore_live(backup, restored)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restore_verified"] = bool(rep["ok"])
+    if not (rep["ok"] and rep["num_docs"] == n_seed and linked):
+        raise AssertionError(f"the restore: {rep}, {linked} bytes linked")
+    shutil.rmtree(backup)
+
+    # the control: the delta with no crash
+    t0 = time.perf_counter()
+    with IngestWriter(live, buffer_docs=buffer_docs, device=device) as w:
+        for op in ops:
+            apply_op(w, op)
+        w.compact_all()
+    out["control_s"] = time.perf_counter() - t0
+    digests_c = artifact_digests(segment_of(live))
+    docs_c = set(LiveIndex.open(live).live_doc_map())
+    if docs_c != set(want):
+        raise AssertionError("the control's live docs are not the "
+                             "survivors")
+
+    # the feeder, killed mid-stream
+    ops_path = os.path.join(work, "crash-ops.json")
+    with open(ops_path, "w", encoding="utf-8") as f:
+        json.dump(ops, f)
+    ack = os.path.join(work, "crash.ack")
+    open(ack, "w").close()
+    env = {**os.environ, "TPU_IR_FAULTS": LIVE_CRASH_PLAN}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(ack + ".err", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "raise SystemExit(chip_smoke.feed_child())",
+             "--live-dir", restored, "--ops", ops_path, "--ack", ack,
+             "--buffer-docs", str(buffer_docs), "--device", device],
+            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            rc = child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    out["child_s"] = time.perf_counter() - t0
+    out["child_rc"] = rc
+    if rc != -9:
+        with open(ack + ".err") as f:
+            raise AssertionError(f"the feeder exited {rc}, not by SIGKILL: "
+                                 f"{f.read()[-2000:]}")
+    with open(ack) as f:
+        acked = [int(ln) for ln in f if ln.strip()]
+    if acked != list(range(len(acked))) or not 0 < len(acked) < len(ops):
+        raise AssertionError(f"the ack file holds {len(acked)} ops, not a "
+                             "proper prefix of the delta")
+    out["acked_ops"] = len(acked)
+
+    # the recovery: lease takeover, replay, the rest fed again, compaction
+    takeovers0 = reg.get("ingest.lease_takeovers")
+    t0 = time.perf_counter()
+    w = IngestWriter(restored, buffer_docs=buffer_docs, device=device)
+    out["open_replay_s"] = time.perf_counter() - t0
+    out["replayed"] = w.replayed
+    out["lease"] = w.lease_info
+    for op in ops[len(acked):]:
+        apply_op(w, op, refeed=True)
+    w.compact_all()
+    w.close()
+    out["recovery_s"] = time.perf_counter() - t0
+    if not (w.replayed and out["lease"]["taken_over"]
+            and reg.get("ingest.lease_takeovers") > takeovers0):
+        raise AssertionError(f"the recovery: replayed {w.replayed}, lease "
+                             f"{out['lease']}")
+    docs_r = set(LiveIndex.open(restored).live_doc_map())
+    lost = [ops[i][1] for i in acked
+            if (ops[i][0] == "delete") == (ops[i][1] in docs_r)]
+    out["lost_acked"] = len(lost)
+    if lost:
+        raise AssertionError(f"acknowledged ops lost: {lost[:5]}")
+    if docs_r != docs_c:
+        raise AssertionError("the recovered live docs are not the "
+                             "control's")
+    seg_r = segment_of(restored)
+    digests_r = artifact_digests(seg_r)
+    if digests_r != digests_c:
+        raise AssertionError("the recovered segment differs from the "
+                             f"control in {digest_diff(digests_r, digests_c)}")
+    out["identical_artifacts"] = len(digests_r)
+
+    # the one-shot build over the survivors, and the recovered generation
+    # served dense beside it
+    control_corpus = os.path.join(work, "crash-control.trec")
+    write_docs(control_corpus, want)
+    one_shot_dir = os.path.join(work, "crash-one-shot")
+    build_index(control_corpus, one_shot_dir, num_shards=10, device=device)
+    os.unlink(control_corpus)
+    digests_o = artifact_digests(one_shot_dir)
+    if digests_o != digests_r:
+        raise AssertionError("the recovered segment differs from the "
+                             f"one-shot build in "
+                             f"{digest_diff(digests_r, digests_o)}")
+    gen = Scorer.load_generation(restored, device=device)
+    one_shot = Scorer.load(one_shot_dir, device=device)
+    if gen.layout != "dense" or gen.generation != LiveIndex.open(
+            restored).current_gen():
+        raise AssertionError(f"the recovered generation: layout "
+                             f"{gen.layout!r}, generation {gen.generation}")
+    q = np.random.default_rng(1).integers(
+        0, gen.meta.vocab_size,
+        size=(REF_QUERIES, REF_QUERY_TERMS)).astype(np.int32)
+    launches = dict.fromkeys(tpu_ir_torch.kernel_launches(), 0)
+    for scoring in ("tfidf", "bm25"):
+        got, ran, out[f"{scoring}_qps"] = live_topk(
+            gen, q, k=k, scoring=scoring, device=device)
+        for n, v in ran.items():
+            launches[n] += v
+        if not same_bits(got, one_shot.topk(q, k=k, scoring=scoring)):
+            raise AssertionError(f"the recovered generation's {scoring} "
+                                 f"top-{k} differs from the one-shot "
+                                 "index's")
+    out["launches"] = launches
+    if on_card and not launches["dense_score"]:
+        raise AssertionError(f"the recovered generation's serve never "
+                             f"launched dense_score: {launches}")
+    out["bitwise_one_shot"] = True
+    del gen, one_shot
+    for path in (restored, live, one_shot_dir):
+        shutil.rmtree(path)
+    for path in (ops_path, ack, ack + ".err"):
+        os.unlink(path)
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def ptxas_report(log: str) -> list[dict]:
     """Registers, spills and shared memory of each kernel in nvcc's
     `-Xptxas -v` output."""
@@ -3605,7 +4373,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     """One kernel's entry of the summary line: `launches` in its serve
     window, then in the wildcard phase, the kgram phase, the explain
     phases and the serving tier's phases; `fields` adds its source, what
-    it replaces and its launches in the merge, warm and v1 phases."""
+    it replaces and its launches in the merge, warm, live (19d and 19e
+    together) and v1 phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -3770,8 +4539,8 @@ def main() -> int:
         positions, pos_dirs = phase_positions(card, work, device="cuda",
                                               keep_corpora=True)
         emit(positions)
-        # merge (both corpora, deleted there), then the serving cache and
-        # doctor on the wiki100k index
+        # merge (both corpora, kept for the live phases), then the serving
+        # cache and doctor on the wiki100k index
         merge = phase_merge(card, work, widx=widx,
                             wdigests=artifact_digests(widx),
                             ref_pos=pos_dirs["ref"], q_ids=q_ids,
@@ -3782,6 +4551,15 @@ def main() -> int:
         emit(warm)
         torch.cuda.empty_cache()
         emit(phase_doctor(card, widx))
+        # the live index: wiki100k, then the crash at ref scale (each
+        # deletes its corpus)
+        live = phase_live(card, work, device="cuda")
+        emit(live)
+        torch.cuda.empty_cache()
+        live_crash = phase_live_crash(card, work, device="cuda")
+        emit(live_crash)
+        live_launches = {n: live["launches"][n] + live_crash["launches"][n]
+                         for n in PORT_KERNELS}
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
                         device="cuda"))
@@ -3832,6 +4610,7 @@ def main() -> int:
                    explain_launches["dense_score"],
                    merge_launches=merge["launches"]["dense_score"],
                    warm_launches=warm["launches"]["dense_score"],
+                   live_launches=live_launches["dense_score"],
                    v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
@@ -3843,6 +4622,7 @@ def main() -> int:
                    explain_launches["dequant_score"],
                    merge_launches=merge["launches"]["dequant_score"],
                    warm_launches=warm["launches"]["dequant_score"],
+                   live_launches=live_launches["dequant_score"],
                    v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
@@ -3853,6 +4633,7 @@ def main() -> int:
                    explain_launches["cold_tier"],
                    merge_launches=merge["launches"]["cold_tier"],
                    warm_launches=warm["launches"]["cold_tier"],
+                   live_launches=live_launches["cold_tier"],
                    v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
@@ -3863,6 +4644,7 @@ def main() -> int:
                    explain_launches["hot_stage"],
                    merge_launches=merge["launches"]["hot_stage"],
                    warm_launches=warm["launches"]["hot_stage"],
+                   live_launches=live_launches["hot_stage"],
                    v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})

@@ -562,7 +562,9 @@ def test_v1_merge_warm_doctor_phases_on_cpu(tmp_path, monkeypatch):
     assert {"merge_postings", "docstore", "chargrams"} <= set(
         wrow["timings_s"])
     assert merge["topk_bitwise_radix"]
-    assert not os.path.exists(os.path.join(work, "wiki100k.trec"))
+    # both corpora stay for the live phases (19d, 19e), which delete them
+    assert os.path.exists(os.path.join(work, "wiki100k.trec"))
+    assert os.path.exists(os.path.join(work, "ref.trec"))
     assert not os.path.exists(os.path.join(work, "wiki100k-merged"))
 
     warm = chip_smoke.phase_warm("cpu", widx, q_ids, hot_q, device="cpu")
@@ -581,3 +583,69 @@ def test_v1_merge_warm_doctor_phases_on_cpu(tmp_path, monkeypatch):
     a, b = chip_smoke.split_corpus(c, work, "c")
     assert open(a).read() + open(b).read() == open(c).read()
     assert open(b).read().startswith("<DOC>")
+
+
+def test_live_phases_are_listed():
+    """Phases 19d and 19e exist and the docstring lists each by name."""
+    for num, name in (("19d", "live"), ("19e", "live_crash")):
+        assert callable(getattr(chip_smoke, f"phase_{name}"))
+        assert f"\n{num}. {name} " in chip_smoke.__doc__
+
+
+def test_live_phases_on_cpu(tmp_path, monkeypatch):
+    """19d and 19e at a small size on the CPU: the seed through the
+    command line, the delta with flushes and a merge, B == the one-shot
+    build, the swap under probes with its gap, B bitwise the one-shot
+    index, the operator checks; the backup and restore, the crash child
+    SIGKILLed at its third flush, the recovery to the control's bytes
+    and the dense serve of the recovered generation."""
+    from tpu_ir_torch.corpus import make_corpus
+    from tpu_ir_torch.search import scorer as scorer_mod
+
+    monkeypatch.setattr(chip_smoke, "LIVE", dict(
+        seed_docs=260, updates=12, deletes=12, buffer_docs=10))
+    monkeypatch.setattr(chip_smoke, "LIVE_CRASH", dict(
+        seed_docs=160, updates=10, deletes=10, buffer_docs=10))
+    monkeypatch.setattr(chip_smoke, "REF_QUERIES", 300)
+    monkeypatch.setattr(chip_smoke, "SWAP_PROBE_S", 0.3)
+    monkeypatch.setattr(chip_smoke, "SWAP_SAMPLE", 8)
+    monkeypatch.setattr(chip_smoke, "LIVE_SERVE_TEXTS", 32)
+    # ref (~2,200 terms x 201) dense, wiki100k (~3,300 x 301) tiered
+    monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 600_000)
+    work = str(tmp_path)
+    make_corpus(os.path.join(work, "wiki100k.trec"), seed=0, n_docs=300,
+                target_bytes=300_000, vocab_size=3_000)
+    make_corpus(os.path.join(work, "ref.trec"), seed=0, n_docs=200,
+                target_bytes=200_000, vocab_size=2_000)
+    live = chip_smoke.phase_live("cpu", work, device="cpu")
+    assert live["seed"]["wal_appends"] == 260 and live["seed"]["wal_bytes"]
+    assert live["seed"]["segments"] == ["seg-000001"]
+    assert live["delta"]["ops"] == 40 + 24
+    assert live["delta"]["merge_steps"]["count"] >= 1
+    assert live["delta"]["flushes"]["count"] >= 6
+    assert live["identical_artifacts"] >= 15 and live["b_bitwise_one_shot"]
+    assert live["num_docs_b"] == 300 - 12
+    swap = live["swap"]
+    assert swap["errors"] == 0 and swap["sheds"] == 0
+    assert swap["generations_seen"] == [live["generation_a"],
+                                        live["generation_b"]]
+    assert swap["bitwise_sampled"] == 16 and swap["unwarmed"] == 0
+    assert swap["swap_gap_ms"] > 0 and swap["baseline_gap_ms"] > 0
+    assert swap["reload_wall_s"] > 0
+    assert swap["gap_closed_by"] in swap["generations_seen"]
+    assert swap["gap_opened_s"] < swap["reload_wall_s"]
+    assert swap["wake_gap_ms"] > 0
+    back = live["swap_preloaded"]
+    assert back["errors"] == 0 and back["sheds"] == 0
+    assert back["swap_gap_ms"] > 0 and back["reload_wall_s"] > 0
+    assert live["warm_b_s"] > 0 and live["load_b_s"] > 0
+    crash = chip_smoke.phase_live_crash("cpu", work, device="cpu")
+    assert crash["restore_verified"] and crash["backup"]["bytes_linked"]
+    assert crash["backup"]["wal_segments"] == 1
+    assert crash["child_rc"] == -9 and crash["replayed"] >= 1
+    assert crash["lease"]["taken_over"] and crash["lost_acked"] == 0
+    assert 0 < crash["acked_ops"] < 60
+    assert crash["identical_artifacts"] == live["identical_artifacts"]
+    assert crash["bitwise_one_shot"]
+    assert os.listdir(work) == []
+    json.dumps([live, crash])

@@ -961,3 +961,82 @@ def test_v1_index_serves_its_v2_twin_on_card(serving_index, tmp_path):
     got = _all_bits(a, texts)
     assert tpu_ir_torch.kernel_launches()["dense_score"] >= 1
     assert got == _all_bits(b, texts)
+
+
+def _live_feed(live_dir, device, docs):
+    """A live dir fed `docs` (flushes of 25, auto-merge on), a quarter of
+    them updated with another doc's text and a tenth deleted, then fully
+    compacted on `device`: {doc id: text} of the survivors."""
+    from tpu_ir_torch.index.ingest import IngestWriter
+    from tpu_ir_torch.index.segments import LiveIndex
+
+    LiveIndex.create(live_dir, num_shards=3)
+    live = dict(docs)
+    with IngestWriter(live_dir, buffer_docs=25, device=device) as w:
+        for d, t in docs:
+            w.add(d, t)
+        for i in range(0, len(docs), 4):
+            w.update(docs[i][0], docs[-1 - i][1])
+            live[docs[i][0]] = docs[-1 - i][1]
+        for i in range(1, len(docs), 10):
+            w.delete(docs[i][0])
+            del live[docs[i][0]]
+        w.compact_all()
+    return live
+
+
+def _live_docs(tmp_path, seed, n_docs):
+    from tpu_ir_torch.collection import read_trec_corpus
+    from tpu_ir_torch.index.ingest import trec_payload
+
+    corpus = str(tmp_path / f"c{seed}.trec")
+    make_corpus(corpus, seed=seed, n_docs=n_docs,
+                target_bytes=n_docs * 750, vocab_size=3_000)
+    return [(d.docid, trec_payload(d.content))
+            for d in read_trec_corpus([corpus])]
+
+
+def test_live_flush_and_compaction_on_card(cuda, tmp_path):
+    """Delta segments flushed, tombstones dropped and merges run on the
+    card hold the CPU run's bytes (sha256 of every artifact), the first
+    delta segment and the compacted one alike."""
+    from tpu_ir_torch.index.segments import resolve_serving
+
+    docs = _live_docs(tmp_path, 12, 300)
+    card, cpu = str(tmp_path / "card"), str(tmp_path / "cpu")
+    _live_feed(card, cuda, docs)
+    _live_feed(cpu, "cpu", docs)
+    for seg in ("seg-000001", None):
+        a, b = ((os.path.join(d, "segments", seg) if seg
+                 else resolve_serving(d)[0]) for d in (card, cpu))
+        want = chip_smoke.artifact_digests(b)
+        assert len(want) >= 9 and chip_smoke.artifact_digests(a) == want
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_live_generation_serves_its_one_shot_twin_on_card(cuda, tmp_path,
+                                                          layout):
+    """A generation compacted on the card and loaded by
+    Scorer.load_generation serves, on the card, bitwise what the
+    one-shot build of its surviving docs serves through Scorer.load, by
+    the dense or the tiered kernels; reload_generation replays the
+    device."""
+    live = str(tmp_path / "live")
+    survivors = _live_feed(live, cuda, _live_docs(tmp_path, 13, 400))
+    corpus = str(tmp_path / "survivors.trec")
+    chip_smoke.write_docs(corpus, survivors)
+    direct = str(tmp_path / "direct")
+    build_index(corpus, direct, num_shards=3, device=cuda)
+    g = Scorer.load_generation(live, layout=layout)
+    assert g.device.type == "cuda" and g.generation > 0
+    assert g.reload_generation().device.type == "cuda"
+    d = Scorer.load(direct, layout=layout)
+    texts = _texts(d, 2, 300, seed=24)
+    tpu_ir_torch.reset_kernel_launches()
+    got = _all_bits(g, texts)
+    launches = tpu_ir_torch.kernel_launches()
+    assert got == _all_bits(d, texts)
+    if layout == "sparse":
+        assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
+    else:
+        assert launches["dense_score"] >= 1

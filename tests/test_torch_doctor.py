@@ -167,8 +167,32 @@ def test_doctor_cli_and_live_dir(dirs, tmp_path):
                           for w in report["warnings"])
     assert out == _cli(jax_cli_main, ["doctor", dirs["raw"],
                                       "--top", "4"])[1]
+    # a live dir is routed to the live report: this malformed one (an
+    # empty live.json, no CURRENT) fails as tpu_ir's doctor fails on it,
+    # through the library and the command line
     live = tmp_path / "live"
     (live / "generations").mkdir(parents=True)
     (live / "live.json").write_text("{}")
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(FileNotFoundError) as got:
         doctor_report(str(live))
+    with pytest.raises(FileNotFoundError) as want:
+        jax_doctor_report(str(live))
+    assert str(got.value) == str(want.value)
+    assert got.value.filename == str(live / "CURRENT")
+    rc, out, err = _cli(cli_main, ["doctor", str(live)])
+    assert (rc, out, err) == _cli(jax_cli_main, ["doctor", str(live)])
+    assert rc == 1 and "missing artifact" in err
+    # a live dir with a generation gets tpu_ir's topology report
+    from tpu_ir_torch.index.ingest import IngestWriter
+    from tpu_ir_torch.index.segments import LiveIndex
+
+    live = str(tmp_path / "live2")
+    LiveIndex.create(live, num_shards=SHARDS, chargram_ks=())
+    with IngestWriter(live, device="cpu") as w:
+        w.add("D-1", "heap queue")
+        w.add("D-2", "priority queue")
+    report = doctor_report(live)
+    assert report["live"] is True and report["segment_count"] == 1
+    assert report == jax_doctor_report(live)
+    rc, out, _ = _cli(cli_main, ["doctor", live])
+    assert rc == 0 and json.loads(out) == report

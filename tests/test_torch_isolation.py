@@ -44,6 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.index.docstore, tpu_ir_torch.index.dictionary, "
             "tpu_ir_torch.index.verify, tpu_ir_torch.utils.transfer, "
             "tpu_ir_torch.search.wildcard, tpu_ir_torch.search.evaluate, "
+            "tpu_ir_torch.index.segments, tpu_ir_torch.index.wal, "
+            "tpu_ir_torch.index.ingest, tpu_ir_torch.index.backup, "
+            "tpu_ir_torch.index.doctor, tpu_ir_torch.serving.soak, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
@@ -70,3 +73,30 @@ def test_kernel_sources_are_listed():
     assert _build.BUILD_DIR.parts[-2:] == ("build", "tpu_ir_torch")
     ignored = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert "build/" in ignored
+
+
+def test_feeder_child_loads_no_jax(tmp_path):
+    """The ingest feeder child of the crash matrix, run on the CPU over a
+    small feed as `_spawn_feeder` runs it: it imports neither JAX nor the
+    JAX package."""
+    from tpu_ir_torch.index.segments import LiveIndex
+
+    live = str(tmp_path / "live")
+    LiveIndex.create(live, num_shards=2, chargram_ks=())
+    ack = str(tmp_path / "ack")
+    check = ("import atexit, sys\n"
+             "def _check():\n"
+             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
+             "    print('loaded:', bad)\n"
+             "atexit.register(_check)\n"
+             "from tpu_ir_torch.serving.soak import ingest_feed_main\n"
+             "raise SystemExit(ingest_feed_main())\n")
+    r = subprocess.run([sys.executable, "-c", check, "--live-dir", live,
+                        "--ack", ack, "--start", "0", "--end", "3",
+                        "--buffer-docs", "2", "--device", "cpu"],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "loaded: []"
+    assert open(ack).read().split() == [f"FEED-{i:06d}" for i in range(3)]

@@ -597,8 +597,15 @@ def test_result_cache_hit_is_the_miss(scorer, index_dir):
     assert obs.get_registry().get("cache.hit") == 1
     assert fe.search("fishing salmon", k=5, scoring="bm25") is not None
     assert obs.get_registry().get("cache.miss") == 2   # order is in the key
-    with pytest.raises(ValueError, match="live index"):
+    # with no scorer, a reload loads the newest servable generation of
+    # the serving scorer's live dir (test_torch_live_serving.py); this
+    # scorer was loaded from a plain index dir, so it raises
+    with pytest.raises(ValueError, match="not loaded from a live index"):
         fe.reload_generation()
+    with pytest.raises(ValueError, match="not loaded from a live index"):
+        fe.reload_generation(generation=1)
+    assert fe.scorer is scorer
+    assert fe.stats().get("generation_swap", 0) == 0
     nxt = Scorer.load(index_dir, layout="sparse", device="cpu")
     nxt.generation = 1
     assert fe.reload_generation(nxt) is nxt

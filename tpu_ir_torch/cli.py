@@ -1,7 +1,7 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
-`serve-bench`, `pack`, `count` and `docno`, with tpu_ir's flag names and
-defaults.
+`serve-bench`, `ingest`, `compact`, `generations`, `backup`, `pack`,
+`count` and `docno`, with tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -9,7 +9,7 @@ defaults.
         [--positions] [--device cuda|cpu]
     python -m tpu_ir_torch.cli inspect PATH [-n N] [--postings N]
         [--term TEXT]
-    python -m tpu_ir_torch.cli verify IDX
+    python -m tpu_ir_torch.cli verify IDX|LIVE
     python -m tpu_ir_torch.cli search IDX [-q TEXT | --queries-file F |
         --topics F] [--scoring tfidf|bm25] [--k K] [--rerank N]
         [--layout auto|dense|sparse|sharded] [--docnos] [--compat]
@@ -23,18 +23,29 @@ defaults.
         [--no-chargrams] [--overwrite] [--device cuda|cpu]
     python -m tpu_ir_torch.cli warm IDX [--layout sparse|...]
         [--device cuda|cpu]
-    python -m tpu_ir_torch.cli doctor IDX [--top N]
+    python -m tpu_ir_torch.cli doctor IDX|LIVE [--top N]
     python -m tpu_ir_torch.cli serve-bench IDX [--threads N] [--queries N]
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
+    python -m tpu_ir_torch.cli ingest LIVE [--init [--shards N]
+        [--chargram-k 2 3]] [--add TREC...] [--update TREC...]
+        [--delete DOCID...] [--merge | --compact] [--gc]
+        [--buffer-docs N] [--no-auto-merge] [--swap-bench | --soak-bench]
+        [--device cuda|cpu]
+    python -m tpu_ir_torch.cli compact LIVE [--all] [--max-steps N] [--gc]
+        [--device cuda|cpu]
+    python -m tpu_ir_torch.cli generations LIVE [-n N] [--gc]
+    python -m tpu_ir_torch.cli backup SRC DEST [--restore]
     python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
         [--format lines|trectext|trecweb]
     python -m tpu_ir_torch.cli count CORPUS...
     python -m tpu_ir_torch.cli docno IDX list|getDocno DOCID|getDocid DOCNO
 
-`index`, `search`, `merge`, `warm` and `serve-bench` run on CUDA unless
-`--device cpu` is given; the others run on the host. Each prints its JSON
+`index`, `search`, `merge`, `warm`, `serve-bench`, `ingest` and `compact`
+run on CUDA unless `--device cpu` is given; the others run on the host.
+`verify` and `doctor` take a live index dir too (its verify_live and
+live topology reports). Each prints its JSON
 report last (`inspect` prints an index dir's metadata and its first
 records, one line per hit with `--term`, or the dump of any other
 artifact file or dir; `expand` one term per line, `docno` the mapping's
@@ -49,6 +60,8 @@ prints one `error:` line and exits 1, as tpu_ir's command line does.
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
 exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
+`ingest --swap-bench` and `--soak-bench` exit 1 with an error naming the
+later slice (the routed serving tier) that brings them.
 """
 
 from __future__ import annotations
@@ -154,9 +167,154 @@ def _dump_index(args) -> int:
 
 
 def cmd_verify(args) -> int:
-    from .index.verify import verify_index
+    from .index import segments as seg
+    from .index.verify import verify_index, verify_live
 
-    print(json.dumps(verify_index(args.index_dir)))
+    if seg.is_live(args.index_dir):
+        print(json.dumps(verify_live(args.index_dir)))
+    else:
+        print(json.dumps(verify_index(args.index_dir)))
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """The live index's write surface (index/ingest.py): `--init` creates
+    a live dir; `--add`/`--update` feed TREC corpora through the
+    IngestWriter, `--delete` tombstones docids, `--merge` runs one tiered
+    merge step, `--compact` folds everything into one servable segment,
+    `--gc` prunes old generations. One JSON summary on stdout.
+    `--swap-bench` and `--soak-bench` raise ValueError: they come with
+    the routed serving tier, a later slice."""
+    from .index import segments as seg
+    from .index.ingest import IngestWriter, ingest_corpus
+
+    if args.swap_bench or args.soak_bench:
+        bench = "--swap-bench" if args.swap_bench else "--soak-bench"
+        raise ValueError(
+            f"ingest {bench} is not ported yet: the swap under traffic "
+            "comes with the routed serving tier, a later slice of the "
+            "port (ROADMAP item 6b)")
+    if args.init and not seg.is_live(args.live_dir):
+        seg.LiveIndex.create(args.live_dir, k=args.k,
+                             num_shards=args.shards,
+                             chargram_ks=args.chargram_k)
+    missing = [p for p in args.add + args.update
+               if not os.path.exists(p)]
+    if missing:
+        print(f"error: corpus path(s) not found: {', '.join(missing)}",
+              file=sys.stderr)
+        return 1
+    writer = IngestWriter(args.live_dir, buffer_docs=args.buffer_docs,
+                          auto_merge=not args.no_auto_merge,
+                          device=args.device)
+    added = sum(ingest_corpus(writer, p) for p in args.add)
+    updated = sum(ingest_corpus(writer, p, update=True)
+                  for p in args.update)
+    deleted = sum(bool(writer.delete(d)) for d in args.delete)
+    # compact or merge before close: close releases the WAL and the
+    # lease, and a merge commit belongs inside the owned window
+    if args.compact:
+        writer.compact_all()
+    elif args.merge:
+        writer.flush()
+        writer.maybe_merge()
+    writer.close()
+    live = writer.live
+    out = {
+        "live_dir": os.path.abspath(args.live_dir),
+        "generation": live.current_gen(),
+        "added": added, "updated": updated, "deleted": deleted,
+        **live.doc_counts(),
+        "segments": live.manifest()["segments"],
+    }
+    if args.gc:
+        out["gc"] = live.gc()
+    print(json.dumps(out, sort_keys=True))
+    return 0
+
+
+def cmd_compact(args) -> int:
+    """Drive a live index's merges explicitly: drain the tiered policy's
+    merge debt (plan_merges steps, what auto-merge would run), or with
+    `--all` fold everything into one servable segment. Readers keep their
+    generation until the final atomic rename publishes the next."""
+    from .index import segments as seg
+    from .index.ingest import IngestWriter
+
+    if not seg.is_live(args.live_dir):
+        print(f"error: {args.live_dir} is not a live index dir "
+              "(`tpu-ir ingest DIR --init` creates one)", file=sys.stderr)
+        return 1
+    writer = IngestWriter(args.live_dir, auto_merge=False,
+                          device=args.device)
+    before = writer.live.manifest()
+    if args.all:
+        m = writer.compact_all()
+        steps = 1
+    else:
+        drained = writer.drain_merges(max_steps=args.max_steps)
+        m, steps = drained["manifest"], drained["steps"]
+    out = {
+        "live_dir": os.path.abspath(args.live_dir),
+        "mode": "all" if args.all else "drain",
+        "steps": steps,
+        "segments_before": len(before["segments"]),
+        "segments": m["segments"],
+        "generation": writer.live.current_gen(),
+        **writer.live.doc_counts(),
+    }
+    if args.gc:
+        out["gc"] = writer.live.gc()
+    print(json.dumps(out, sort_keys=True))
+    return 0
+
+
+def cmd_backup(args) -> int:
+    """Snapshot a live dir's current generation (index/backup.py),
+    hardlinked where the filesystem allows, with the WAL tail; with
+    `--restore`, materialize a snapshot into a new dir and prove it with
+    verify_live."""
+    from .index.backup import backup_live, restore_live
+
+    if args.restore:
+        out = restore_live(args.src, args.dest)
+    else:
+        out = backup_live(args.src, args.dest)
+    print(json.dumps(out, sort_keys=True))
+    return 0
+
+
+def cmd_generations(args) -> int:
+    """A live index's generation chain: each generation's segments, live
+    docs, tombstones and whether it is servable. `--gc` prunes manifests
+    and segments past TPU_IR_INGEST_KEEP_GENERATIONS."""
+    from .index import segments as seg
+
+    live = seg.LiveIndex.open(args.live_dir)
+    gens = live.generations()
+    if args.n:
+        gens = gens[-args.n:]
+    entries = []
+    for g in gens:
+        m = live.manifest(g)
+        tombs = sum(len(t) for t in m.get("tombstones", {}).values())
+        entries.append({
+            "gen": g,
+            "parent": m.get("parent"),
+            "segments": m["segments"],
+            "docs": sum(m.get("docs", {}).values()) - tombs,
+            "tombstones": tombs,
+            "servable": len(m["segments"]) == 1
+            and not m.get("tombstones"),
+            "note": m.get("note", ""),
+            "created": m.get("created"),
+        })
+    out = {"live_dir": os.path.abspath(args.live_dir),
+           "current": live.current_gen(),
+           "generations": entries}
+    if args.gc:
+        out["gc"] = live.gc()
+    print(json.dumps(out, sort_keys=True))
     return 0
 
 
@@ -530,6 +688,17 @@ def cmd_serve_bench(args) -> int:
     return 0 if ok else 1
 
 
+# commands whose whole job is loading artifacts the user named: only for
+# these does a FileNotFoundError mean a wrong path (one `error:` line, as
+# tpu_ir's command line prints); elsewhere it keeps its traceback
+_ARTIFACT_ENTRY_CMDS = frozenset({
+    "cmd_search", "cmd_inspect", "cmd_verify", "cmd_warm", "cmd_docno",
+    "cmd_expand", "cmd_eval", "cmd_count", "cmd_pack", "cmd_merge",
+    "cmd_serve_bench", "cmd_migrate_index", "cmd_doctor",
+    "cmd_generations", "cmd_backup",
+})
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tpu-ir-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -755,6 +924,100 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_serve_bench)
 
+    pin = sub.add_parser(
+        "ingest",
+        help="live index writes: buffered add/update/delete flushed to "
+             "delta segments and tombstones, tiered merges, compaction")
+    pin.add_argument("live_dir", help="live index dir (see --init)")
+    pin.add_argument("--init", action="store_true",
+                     help="create the live dir first if it is not one "
+                          "yet (pins k/shards/chargrams for every "
+                          "future segment)")
+    pin.add_argument("--add", nargs="*", default=[], metavar="TREC",
+                     help="TREC corpus file(s) to ADD (a docid that "
+                          "already exists is an error — use --update)")
+    pin.add_argument("--update", nargs="*", default=[], metavar="TREC",
+                     help="TREC corpus file(s) to UPSERT (existing "
+                          "copies are tombstoned)")
+    pin.add_argument("--delete", nargs="*", default=[], metavar="DOCID",
+                     help="docids to tombstone (unknown ids are ignored)")
+    pin.add_argument("--merge", action="store_true",
+                     help="run one tiered-merge step if any size tier "
+                          "carries merge debt")
+    pin.add_argument("--compact", action="store_true",
+                     help="full compaction: one segment, no tombstones — "
+                          "the generation serving swaps to (the "
+                          "checksums of a one-shot build of the "
+                          "surviving docs)")
+    pin.add_argument("--gc", action="store_true",
+                     help="prune generations past "
+                          "TPU_IR_INGEST_KEEP_GENERATIONS and delete "
+                          "unreferenced segment dirs")
+    pin.add_argument("--buffer-docs", type=int, default=None,
+                     help="auto-flush threshold (default: "
+                          "TPU_IR_INGEST_BUFFER_DOCS)")
+    pin.add_argument("--no-auto-merge", action="store_true",
+                     help="skip the post-flush tiered-merge check")
+    pin.add_argument("--k", type=int, default=1,
+                     help="--init: term-k-gram size (live indexes "
+                          "support k=1 only)")
+    pin.add_argument("--shards", type=int, default=10,
+                     help="--init: term shards per segment")
+    pin.add_argument("--chargram-k", type=int, nargs="*",
+                     default=[2, 3], help="--init: char-gram sizes")
+    pin.add_argument("--swap-bench", action="store_true",
+                     help="the ingest->compact->swap micro-bench: not "
+                          "ported yet (the routed serving tier's slice)")
+    pin.add_argument("--soak-bench", action="store_true",
+                     help="the durable ingest+serve soak: not ported yet "
+                          "(the routed serving tier's slice)")
+    pin.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pin.set_defaults(fn=cmd_ingest)
+
+    pco = sub.add_parser(
+        "compact",
+        help="drive live-index merges explicitly (the TPU_IR_MERGE_AUTO"
+             "=0 companion): drain the tiered merge policy's debt, or "
+             "--all for full compaction into one segment")
+    pco.add_argument("live_dir")
+    pco.add_argument("--all", action="store_true",
+                     help="full compaction (every segment and tombstone "
+                          "folded into one servable segment)")
+    pco.add_argument("--max-steps", type=int, default=64,
+                     help="bound on tiered merge steps when draining")
+    pco.add_argument("--gc", action="store_true",
+                     help="prune old generation manifests and "
+                          "unreferenced segment dirs afterwards")
+    pco.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pco.set_defaults(fn=cmd_compact)
+
+    pgen = sub.add_parser(
+        "generations",
+        help="list a live index's generation chain: segments, doc "
+             "counts, tombstones, servability")
+    pgen.add_argument("live_dir")
+    pgen.add_argument("-n", type=int, default=None,
+                      help="newest N generations only")
+    pgen.add_argument("--gc", action="store_true",
+                      help="prune old generations and unreferenced "
+                           "segments after listing")
+    pgen.set_defaults(fn=cmd_generations)
+
+    pbk = sub.add_parser(
+        "backup",
+        help="generation-pinned hardlink snapshot of a live dir "
+             "(current manifest, referenced segments, WAL tail) — or, "
+             "with --restore, materialize and verify a snapshot into a "
+             "new dir")
+    pbk.add_argument("src", help="live dir to snapshot (or, with "
+                                 "--restore, the backup to restore)")
+    pbk.add_argument("dest", help="destination dir (must not exist or "
+                                  "be empty)")
+    pbk.add_argument("--restore", action="store_true",
+                     help="treat src as a backup: link/copy it into "
+                          "dest and run verify_live on the result")
+    pbk.set_defaults(fn=cmd_backup)
+
     pp = sub.add_parser("pack", help="pack plain text into TREC format "
                                      "(one <DOC> per input line), or "
                                      "canonicalize trectext/trecweb corpora")
@@ -787,6 +1050,14 @@ def main(argv: list[str] | None = None) -> int:
         # a capability or usage error of the library (a phrase query on
         # an index without positions, prox without rerank) is one line
         print(f"error: {e}", file=sys.stderr)
+        return 1
+    except FileNotFoundError as e:
+        if getattr(args.fn, "__name__", "") not in _ARTIFACT_ENTRY_CMDS:
+            raise
+        path = e.filename if e.filename else str(e)
+        print(f"error: missing artifact: {path} (if this path is not an "
+              "artifact you asked for, it is a bug — please report)",
+              file=sys.stderr)
         return 1
 
 

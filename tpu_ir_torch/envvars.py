@@ -56,6 +56,30 @@ a choice outside its set raises.
                              the pass-2 buckets (skips pass 3's sort; the
                              parts' bytes differ from the canonical layout,
                              every reader accepts both; default 0)
+    TPU_IR_INGEST_BUFFER_DOCS  buffered documents (and pending tombstones)
+                             that auto-flush the IngestWriter into one
+                             delta segment (default 1000, at least 1)
+    TPU_IR_INGEST_KEEP_GENERATIONS  generation manifests gc() keeps;
+                             segment dirs no kept manifest names are
+                             deleted (default 8, at least 1)
+    TPU_IR_MERGE_FACTOR      segments in one size tier that make a tiered
+                             merge step due (default 4, at least 2)
+    TPU_IR_MERGE_TIER_RATIO  doc-count ratio between merge tiers (default
+                             8.0, at least 2.0)
+    TPU_IR_MERGE_AUTO        0 stops the IngestWriter from running the
+                             tiered merge policy after each flush; merges
+                             then wait for `compact` (default 1)
+    TPU_IR_WAL               0 turns off the ingest write-ahead log and
+                             the writer lease: a crash loses every
+                             buffered write (default 1)
+    TPU_IR_WAL_FSYNC_DOCS    appended WAL records between fsyncs (default
+                             32, at least 1)
+    TPU_IR_WAL_FSYNC_MS      most milliseconds an appended record waits for
+                             its fsync (default 50.0, at least 0)
+    TPU_IR_WAL_LEASE_TTL_S   writer-lease heartbeat TTL: an older
+                             heartbeat, or a dead holder, is taken over at
+                             the next writer open (default 10.0, at least
+                             0.5)
 """
 
 from __future__ import annotations
@@ -71,14 +95,22 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_RADIX_BUCKETS": (16, 0),
          "TPU_IR_TOKENIZE_PROCS": (1, 1),
          "TPU_IR_PIPE_DEPTH": (2, 1),
-         "TPU_IR_FORMAT_VERSION": (2, 1)}
+         "TPU_IR_FORMAT_VERSION": (2, 1),
+         "TPU_IR_INGEST_BUFFER_DOCS": (1000, 1),
+         "TPU_IR_INGEST_KEEP_GENERATIONS": (8, 1),
+         "TPU_IR_MERGE_FACTOR": (4, 2),
+         "TPU_IR_WAL_FSYNC_DOCS": (32, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
-_FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0)}
+_FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
+           "TPU_IR_MERGE_TIER_RATIO": (8.0, 2.0),
+           "TPU_IR_WAL_FSYNC_MS": (50.0, 0.0),
+           "TPU_IR_WAL_LEASE_TTL_S": (10.0, 0.5)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
          "TPU_IR_BATCH_LADDER": "1,4,16"}
-_BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False}
+_BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
+          "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

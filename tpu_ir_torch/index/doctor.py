@@ -13,13 +13,16 @@ with no Scorer load and no device, as in the JAX package:
 - doc-length stats and a short list of heuristic warnings.
 
 The report equals the JAX package's dict on the same index, `index_dir`
-aside. A live index dir (segments, generations) is a later slice of the
-port and raises ValueError.
+aside. A live index dir (segments, generations) gets the topology report
+instead (`live_doctor_report`): per-segment docs, pairs and bytes with
+the base/delta split, tombstones, the live-doc fraction, the merge debt,
+unreferenced segment dirs, the WAL's health and the writer lease.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -31,17 +34,6 @@ from . import format as fmt
 BALANCE_WARN = 1.5
 # cold-tier padding-waste fraction above this lands in `warnings`
 WASTE_WARN = 0.6
-
-# what marks a live index dir (`tpu_ir/index/segments.py::is_live`)
-_LIVE_CONFIG = "live.json"
-_GENERATIONS_DIR = "generations"
-
-
-def is_live(path: str) -> bool:
-    """Whether `path` is a live index dir rather than a built index."""
-    return (os.path.isdir(path)
-            and os.path.exists(os.path.join(path, _LIVE_CONFIG))
-            and os.path.isdir(os.path.join(path, _GENERATIONS_DIR)))
 
 
 def _pct(a, qs=(50, 90, 99)) -> dict:
@@ -179,12 +171,158 @@ def _serving_caches(index_dir: str) -> list:
     return out
 
 
+def _dir_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(root, f))
+            except OSError:
+                continue
+    return total
+
+
+def live_doctor_report(live_dir: str) -> dict:
+    """The live-index topology report: per-segment docs, pairs and bytes
+    with the base-vs-delta split, tombstones, the live-doc fraction, the
+    merge-debt readout (what the tiered policy would do now), segment
+    dirs no manifest names, the WAL's replay backlog and tail, and the
+    writer lease. `doctor_report` routes live dirs here."""
+    from . import segments as seg
+    from .wal import lease_holder, verify_wal
+
+    live = seg.LiveIndex.open(live_dir)
+    gen = live.current_gen()
+    manifest = live.manifest(gen)
+    tombs = manifest.get("tombstones", {})
+    segments = []
+    for name in manifest["segments"]:
+        p = live.segment_path(name)
+        meta = fmt.IndexMetadata.load(p)
+        segments.append({
+            "segment": name,
+            "docs": meta.num_docs,
+            "num_pairs": meta.num_pairs,
+            "bytes": _dir_bytes(p),
+            "format_version": meta.format_version,
+            "compressed": bool(getattr(meta, "compressed", False)),
+            "tf_lossy": bool(getattr(meta, "tf_lossy", False)),
+            "tombstones": len(tombs.get(name, [])),
+            "block_bounds": os.path.exists(
+                os.path.join(p, "blockmax.arena")),
+        })
+    base = max(segments, key=lambda s: s["docs"], default=None)
+    for s in segments:
+        s["kind"] = "base" if base is not None and s is base else "delta"
+    base_bytes = base["bytes"] if base else 0
+    debt = seg.merge_debt(manifest)
+    counts = live.doc_counts(gen)
+    # segment dirs no manifest on disk names: crashed half-builds or
+    # pre-gc leftovers, dead bytes either way
+    referenced: set = set()
+    for g in live.generations():
+        referenced.update(live.manifest(g).get("segments", []))
+    unreferenced = []
+    now = time.time()
+    seg_root = os.path.join(live.live_dir, seg.SEGMENTS_DIR)
+    for name in sorted(os.listdir(seg_root)):
+        if name.startswith(".") or name in referenced:
+            continue
+        try:
+            age_s = now - os.path.getmtime(os.path.join(seg_root, name))
+        except OSError:
+            continue
+        unreferenced.append({"segment": name, "age_s": round(age_s, 1),
+                             "bytes": _dir_bytes(
+                                 os.path.join(seg_root, name))})
+    try:
+        wal_info = verify_wal(
+            live_dir, watermark=manifest.get("wal", {}).get("seq", 0))
+    except AssertionError as e:   # IntegrityError: the doctor reports
+        wal_info = {"error": str(e)}  # it, verify raises
+    report = {
+        "live_dir": os.path.abspath(live_dir),
+        "live": True,
+        "generation": gen,
+        "generations_on_disk": live.generations(),
+        "config": live.config,
+        "docs": counts,
+        "live_doc_fraction": debt["live_doc_fraction"],
+        "segments": segments,
+        "segment_count": len(segments),
+        "base_bytes": base_bytes,
+        "delta_bytes": sum(s["bytes"] for s in segments) - base_bytes,
+        "merge_debt": debt,
+        "unreferenced_segments": unreferenced,
+        "wal": wal_info,
+        "lease": lease_holder(live_dir),
+    }
+    warnings = []
+    if unreferenced:
+        oldest = max(u["age_s"] for u in unreferenced)
+        warnings.append(
+            f"{len(unreferenced)} unreferenced segment dir(s) "
+            f"(oldest {oldest:.0f}s, "
+            f"{sum(u['bytes'] for u in unreferenced)} bytes): crashed "
+            "half-builds or pre-gc leftovers — the next IngestWriter "
+            "open (or `tpu-ir ingest --gc`) reclaims them")
+    if wal_info.get("torn_tail"):
+        warnings.append(
+            "the WAL tail is torn (a writer died mid-append): the next "
+            "writer open truncates it loudly — only unacknowledged "
+            "bytes are lost")
+    if wal_info.get("error"):
+        warnings.append(
+            f"WAL integrity: {wal_info['error']} — acknowledged history "
+            "is damaged; restore the live dir from a `tpu-ir backup` "
+            "snapshot")
+    missing_bounds = [s["segment"] for s in segments
+                      if not s["block_bounds"]]
+    if missing_bounds:
+        warnings.append(
+            f"generation {gen} has segment(s) without block-max bounds "
+            f"({', '.join(missing_bounds)}): deep-k serving falls back "
+            "to recomputing bounds at load — backfill with `tpu-ir "
+            "migrate-index <segment> --add-bounds` or compact")
+    if debt["pending_merge_groups"]:
+        warnings.append(
+            f"merge debt: {len(debt['pending_merge_groups'])} tier(s) "
+            f"over TPU_IR_MERGE_FACTOR — run `tpu-ir ingest "
+            f"{live_dir} --merge` (or let auto-merge catch up) before "
+            "delta count bounds swap freshness")
+    frac = debt["live_doc_fraction"]
+    if frac is not None and frac < 0.8:
+        warnings.append(
+            f"only {frac:.0%} of indexed documents are live — "
+            "tombstone debt is paying index bytes and merge time for "
+            "dead docs; compact (`tpu-ir ingest --compact`)")
+    if len(segments) > 1 or tombs:
+        warnings.append(
+            f"generation {gen} is not directly servable "
+            f"({len(segments)} segments, "
+            f"{counts['tombstoned']} tombstones); serving follows the "
+            "latest COMPACTED generation until the next compaction")
+    comp_segs = [s["segment"] for s in segments if s["compressed"]]
+    if comp_segs and len(comp_segs) < len(segments):
+        warnings.append(
+            f"mixed segment formats in generation {gen}: "
+            f"{len(comp_segs)} compressed, "
+            f"{len(segments) - len(comp_segs)} raw — per-worker HBM "
+            "projections are the raw segments' until every segment is "
+            "migrated (`tpu-ir migrate-index <segment> --compress`) or "
+            "the next compaction rewrites them uniformly")
+    report["warnings"] = warnings
+    return report
+
+
 def doctor_report(index_dir: str, top_terms: int = 10) -> dict:
     """The full health report (see the module docstring). A non-index dir
-    raises FileNotFoundError; a live index dir raises ValueError."""
+    raises FileNotFoundError; a live index dir gets the topology report
+    (`live_doctor_report`)."""
+    from .segments import is_live
+
     if is_live(index_dir):
-        raise ValueError("live index dirs are not supported by "
-                         "tpu_ir_torch yet (a later slice of the port)")
+        return live_doctor_report(index_dir)
     meta = fmt.IndexMetadata.load(index_dir)
     df, shards, sections = _shard_scan(index_dir, meta)
     nz = df[df > 0]

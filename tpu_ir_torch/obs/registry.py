@@ -2,8 +2,9 @@
 latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
-`fault.*`, `batch.*`, `cache.*`, `dispatch.*`), every latency histogram
-under its span or stage name. The declared names are registered at zero,
+`fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
+`generation.*`), every latency histogram under its span or stage name.
+The declared names (gauges too) are registered at zero,
 so a report always shows them, observed or not. `hist_state()` and
 `delta_summary()` give one run's percentiles without a reset of the
 process's state; `reset()` zeroes everything (the tests' isolation hook).
@@ -15,8 +16,20 @@ import threading
 
 from .histogram import LatencyHistogram, summary_from_counts
 
-# fault-injection sites threaded through the port's serving path
-FAULT_SITES = ("score.hang", "score.device_loss")
+# fault-injection sites threaded through the port: the score dispatch,
+# and every declared death point of the live index's write path (the
+# SIGKILL crash matrix kills a child at each ingest.* site)
+FAULT_SITES = (
+    "score.hang",             # search/scorer.py: hung device dispatch
+    "score.device_loss",      # search/scorer.py: device lost mid-dispatch
+    "ingest.wal_append",      # index/wal.py: death before a record is framed
+    "ingest.wal_torn",        # index/wal.py: death mid-append (torn tail)
+    "ingest.wal_retire",      # index/wal.py: death mid WAL-segment retirement
+    "ingest.flush_build",     # index/ingest.py: death mid delta-segment build
+    "ingest.commit_between",  # index/segments.py: between the manifest
+    #                           write and the CURRENT rename
+    "ingest.merge",           # index/segments.py: death mid-merge
+)
 
 # serving-stage span names: request -> (ladder, admission_wait, breaker,
 # dispatch -> kernel*, fallback)
@@ -51,15 +64,48 @@ CACHE_COUNTER_NAMES = ("cache.hit", "cache.miss", "cache.evict",
 # the kernels' first load)
 DISPATCH_COUNTER_NAMES = ("dispatch.unwarmed",)
 
+# the live index (index/segments.py, wal.py, ingest.py), the JAX names:
+# docs_* count API mutations; flushes/segments_built the delta commits;
+# merge.runs one compaction step, merge.segments_merged its inputs,
+# merge.docs_dropped the tombstones applied; generation.commits every
+# manifest + CURRENT flip; wal_appends one per acknowledged mutation,
+# wal_fsyncs the batched fsyncs paid, wal_torn_tail_truncated the torn
+# tails cut on reopen, wal_segments_retired the log segments a watermark
+# covered; replayed the records re-applied on a writer open;
+# lease_acquired / lease_takeovers / lease_conflicts the single-writer
+# lease's verdicts; wal_bytes (the port's own) the framed bytes appended
+INGEST_COUNTER_NAMES = (
+    "ingest.docs_added", "ingest.docs_updated", "ingest.docs_deleted",
+    "ingest.flushes", "ingest.segments_built",
+    "merge.runs", "merge.segments_merged", "merge.docs_dropped",
+    "generation.commits",
+    "ingest.wal_appends", "ingest.wal_fsyncs",
+    "ingest.wal_torn_tail_truncated", "ingest.wal_segments_retired",
+    "ingest.replayed",
+    "ingest.lease_acquired", "ingest.lease_takeovers",
+    "ingest.lease_conflicts", "ingest.wal_bytes",
+)
+
+# the live index's gauges: the generation a commit or a swap made
+# current, its segment count and its tombstones
+DECLARED_GAUGES = ("generation.current", "generation.segments",
+                   "generation.tombstones")
+
 DECLARED_COUNTERS = (
     tuple(f"fault.{s}" for s in FAULT_SITES)
     + tuple(f"recovery.{n}" for n in RECOVERY_COUNTER_NAMES)
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
-    + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES)
-# "request" (every level pooled) beside the per-level request.<level>
+    + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
+    + INGEST_COUNTER_NAMES)
+# "request" (every level pooled) beside the per-level request.<level>;
+# batch.precompile is one coalescer's rung-ladder warm-up, at the
+# frontend's start and inside each generation swap
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
-                       + ("batch.occupancy", "batch.wait", "cache.lookup"))
+                       + ("batch.occupancy", "batch.wait",
+                          "batch.precompile", "cache.lookup",
+                          "ingest.flush", "ingest.replay", "merge.run",
+                          "generation.swap"))
 
 
 class TelemetryRegistry:
@@ -69,7 +115,7 @@ class TelemetryRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[str, int] = {n: 0 for n in DECLARED_COUNTERS}
-        self._gauges: dict[str, float] = {}
+        self._gauges: dict[str, float] = {n: 0.0 for n in DECLARED_GAUGES}
         self._hists: dict[str, LatencyHistogram] = {
             n: LatencyHistogram() for n in DECLARED_HISTOGRAMS}
 
@@ -141,7 +187,7 @@ class TelemetryRegistry:
                     self._counters[k] = 0
                 else:
                     del self._counters[k]
-            self._gauges.clear()
+            self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
             hists = list(self._hists.values())
         for h in hists:
             h.reset()

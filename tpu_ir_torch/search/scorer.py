@@ -64,6 +64,8 @@ proximity boost as stage 3 of the rerank. `explain_k` / `explain_ks`
 attach the exact per-term decomposition of the top hits, read out of
 the same kernels the top-k ran (search/explain.py), and `snippet`
 renders a highlighted window from the document store.
+`load_generation` / `reload_generation` serve a live index's compacted
+generations (index/segments.py).
 
 Not in this slice (each raises ValueError naming a later slice): the
 sharded layout and the query log. The JAX package's donated-query twins
@@ -267,8 +269,12 @@ class Scorer:
         self.layout = _resolve_layout(layout, meta)
         self.prune = prune
         self.deadline_s = deadline_s
-        # the index generation (a batch-built index is generation 0)
+        # the index generation (a batch-built index is generation 0) and,
+        # for a scorer of a live index, its dir and load kwargs
+        # (load_generation), which reload_generation replays
         self.generation = 0
+        self._live_dir: str | None = None
+        self._load_kwargs: dict = {}
         # one analyzer a thread: the tag tokenizer keeps each call's
         # state on the instance, so concurrent callers must not share one
         self._analyzers = threading.local()
@@ -430,6 +436,42 @@ class Scorer:
                    layout=layout, compat_int_idf=compat_int_idf, device=dev,
                    prune=prune, pairs_loader=loader, deadline_s=deadline_s,
                    index_dir=index_dir)
+
+    @classmethod
+    def load_generation(cls, live_dir: str, generation: int | None = None,
+                        **load_kwargs) -> "Scorer":
+        """Load one generation of a live index (index/segments.py), or a
+        plain index dir as generation 0. The generation must be servable
+        (one segment, no tombstones: `ingest --compact` makes one); None
+        follows the newest servable one. The scorer is stamped with its
+        generation and remembers the live dir and `load_kwargs` (passed
+        to Scorer.load, `device` included), which reload_generation
+        replays."""
+        from ..index import segments as seg
+
+        index_dir, gen = seg.resolve_serving(live_dir, generation)
+        scorer = cls.load(index_dir, **load_kwargs)
+        scorer.generation = int(gen)
+        scorer._live_dir = (os.path.abspath(live_dir)
+                            if seg.is_live(live_dir) else None)
+        scorer._load_kwargs = dict(load_kwargs)
+        return scorer
+
+    def reload_generation(self, generation: int | None = None,
+                          **override_kwargs) -> "Scorer":
+        """A new Scorer over the given (or newest servable) generation of
+        this scorer's live dir, loaded with the same kwargs (overridable).
+        A functional swap, never an in-place change: the query path reads
+        many attributes per request, and changing them under a running
+        request would tear it. This scorer stays valid (in-flight requests
+        finish on the arrays they hold); the publish is the caller's one
+        reference assignment (ServingFrontend.reload_generation)."""
+        if self._live_dir is None:
+            raise ValueError("this scorer was not loaded from a live "
+                             "index dir (use Scorer.load_generation)")
+        kwargs = {**self._load_kwargs, **override_kwargs}
+        return type(self).load_generation(self._live_dir, generation,
+                                          **kwargs)
 
     # -- query pipeline ----------------------------------------------------
 

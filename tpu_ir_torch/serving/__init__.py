@@ -1,9 +1,12 @@
 """The serving tier over one loaded Scorer (the port of `tpu_ir.serving`'s
 single-process half): admission control, the degradation ladder, the
 circuit breaker, the coalescing scheduler, the exact-hit result cache,
-and the soak and sweep that drive them (see frontend.py). Not ported: the
-scatter-gather router and its shard workers, the autoscaler, generation
-swaps of a live index, hot-residency prewarm and the Zipf workload."""
+the swap to another generation of a live index in one process
+(`ServingFrontend.reload_generation`), and the soak and sweep that drive
+them (see frontend.py). Not ported: the scatter-gather router and its
+shard workers, the generation swap orchestration across them
+(serving/generation.py) and the ingest soak, the autoscaler,
+hot-residency prewarm and the Zipf workload."""
 
 from .admission import AdmissionController, Overloaded
 from .batching import BatchKey, CoalescingScheduler, batch_ladder

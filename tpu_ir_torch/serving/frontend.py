@@ -194,7 +194,10 @@ class ServingFrontend:
             wait_ms=cfg.coalesce_wait_ms, ladder=cfg.batch_ladder,
             width=cfg.batch_width)
         if cfg.precompile:
+            t0 = time.perf_counter()
             batcher.precompile(ks=cfg.precompile_ks)
+            obs.get_registry().observe("batch.precompile",
+                                       time.perf_counter() - t0)
         return batcher
 
     @property
@@ -205,18 +208,20 @@ class ServingFrontend:
     def batcher(self):
         return self._serving[1]
 
-    def reload_generation(self, scorer=None):
-        """Swap serving to `scorer` (a new index generation) with no
-        downtime: build and warm its coalescer, then publish both by one
-        assignment. Requests in flight finish on the scorer they entered
-        with; later ones are tagged with the new generation. Without a
-        scorer this raises: loading a generation of a live index is a
-        later slice."""
-        if scorer is None:
-            raise ValueError("reload_generation needs the new generation's "
-                             "scorer: the live index that would load it "
-                             "is not ported yet")
+    def reload_generation(self, scorer=None, *,
+                          generation: int | None = None):
+        """Swap serving to a new index generation: take `scorer`, or load
+        `generation` (None: the newest servable one) of the serving
+        scorer's live dir with its load kwargs, build and warm its
+        coalescer, then publish both by one assignment. The load and the
+        warm-up run before the publish, outside any lock. Requests in
+        flight finish on the scorer they entered with; later ones are
+        tagged with the new generation. The result cache is purged of
+        the old generation's entries. A scorer not loaded from a live
+        dir raises ValueError (Scorer.reload_generation)."""
         t0 = time.perf_counter()
+        if scorer is None:
+            scorer = self.scorer.reload_generation(generation)
         batcher = self._make_batcher(scorer)
         self._serving = (scorer, batcher)   # the publish
         if self.cache is not None:

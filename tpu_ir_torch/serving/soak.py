@@ -18,8 +18,13 @@ single request cannot show:
 level through the coalescing frontend: latency percentiles, q/s, batch
 occupancy and the shapes dispatched outside the warmed set.
 
-Not ported: the routed, distributed and ingest soaks, and the Zipf
-workload (`workload=` other than None or "uniform" raises).
+`ingest_feed_main` is the ingest child that the live index's SIGKILL
+crash matrix spawns (`_spawn_feeder`): it feeds `_feed_doc`s through an
+IngestWriter and dies by SIGKILL at a fault site.
+
+Not ported: the routed, distributed and ingest soaks (`run_ingest_soak`
+comes with the routed tier), and the Zipf workload (`workload=` other
+than None or "uniform" raises).
 """
 
 from __future__ import annotations
@@ -362,3 +367,118 @@ def run_concurrency_sweep(scorer, *, levels=(1, 4, 16),
         "seed": seed,
         "levels": out_levels,
     }
+
+
+# ---------------------------------------------------------------------------
+# the ingest child of the crash matrix
+# ---------------------------------------------------------------------------
+
+# the feed's deterministic vocabulary
+_FEED_WORDS = ("harbor lantern orchid tundra velvet quartz meadow "
+               "cinder falcon ripple anchor summit juniper marble "
+               "ember willow".split())
+
+
+def _feed_doc(i: int) -> tuple[str, str]:
+    """Document i of the ingest feed: a child and the recovering parent
+    must make the same text for the byte-identity check to mean
+    anything."""
+    text = " ".join(_FEED_WORDS[(i * 7 + j) % len(_FEED_WORDS)]
+                    for j in range(5 + i % 7))
+    return f"FEED-{i:06d}", text
+
+
+def ingest_feed_main(argv=None) -> int:
+    """The ingest child of the SIGKILL crash matrix: open an IngestWriter
+    on `--live-dir` on `--device`, upsert `_feed_doc(i)` for i in
+    [--start, --end), append each docid to `--ack` after the writer
+    acknowledged it, flush and compact every `--compact-every` docs and
+    at the end. An InjectedCrash from the TPU_IR_FAULTS plan becomes a
+    raw SIGKILL of this process: no atexit, no unwind, no lease release.
+    Run as `python -c "from tpu_ir_torch.serving.soak import
+    ingest_feed_main; raise SystemExit(ingest_feed_main())" ...`."""
+    import argparse
+    import json
+    import os
+    import signal
+    import sys
+
+    from ..index.ingest import IngestWriter
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--live-dir", required=True)
+    p.add_argument("--ack", required=True)
+    p.add_argument("--start", type=int, required=True)
+    p.add_argument("--end", type=int, required=True)
+    p.add_argument("--buffer-docs", type=int, default=8)
+    p.add_argument("--compact-every", type=int, default=0)
+    p.add_argument("--pause-s", type=float, default=0.0)
+    p.add_argument("--device", required=True, choices=["cuda", "cpu"])
+    a = p.parse_args(argv if argv is not None else sys.argv[1:])
+
+    ack = open(a.ack, "a", buffering=1)
+    try:
+        w = IngestWriter(a.live_dir, buffer_docs=a.buffer_docs,
+                         auto_merge=False, device=a.device)
+        for i in range(a.start, a.end):
+            docid, text = _feed_doc(i)
+            w.update(docid, text)
+            # acknowledged after the writer returned: everything in this
+            # file must survive any crash (the WAL holds it)
+            ack.write(docid + "\n")
+            if a.compact_every and (i + 1 - a.start) % a.compact_every == 0:
+                w.flush()
+                w.compact_all()
+            if a.pause_s:
+                time.sleep(a.pause_s)
+        w.flush()
+        w.compact_all()
+        summary = {"acked": a.end - a.start, "replayed": w.replayed,
+                   "lease": getattr(w, "lease_info", None),
+                   "generation": w.live.current_gen()}
+        w.close()
+        print(json.dumps(summary))
+        return 0
+    except faults.InjectedCrash:
+        os.kill(os.getpid(), signal.SIGKILL)
+        return 1   # unreachable
+    finally:
+        ack.close()
+
+
+def _spawn_feeder(live_dir: str, ack_path: str, start: int, end: int, *,
+                  device: str, buffer_docs: int = 8, compact_every: int = 0,
+                  pause_s: float = 0.0, fault_plan: str | None = None):
+    """Popen an ingest_feed_main child on `device` (the parent's: the
+    child never picks one itself) in a fresh interpreter, never forked
+    from a parent that may hold a CUDA context, with this package's
+    parent dir on its PYTHONPATH so it imports the same port from any
+    working dir. Its output goes to files, not pipes: the parent polls,
+    and a full pipe would wedge the child. Returns (the Popen, the
+    stdout path, the stderr path)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    if fault_plan is not None:
+        env["TPU_IR_FAULTS"] = fault_plan
+    else:
+        env.pop("TPU_IR_FAULTS", None)
+    cmd = [sys.executable, "-c",
+           "from tpu_ir_torch.serving.soak import ingest_feed_main; "
+           "raise SystemExit(ingest_feed_main())",
+           "--live-dir", live_dir, "--ack", ack_path,
+           "--start", str(start), "--end", str(end),
+           "--buffer-docs", str(buffer_docs),
+           "--compact-every", str(compact_every),
+           "--pause-s", str(pause_s), "--device", device]
+    out_path = ack_path + f".{start}.out"
+    err_path = ack_path + f".{start}.err"
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err)
+    return proc, out_path, err_path
