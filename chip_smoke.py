@@ -176,7 +176,12 @@ code:
               unwarmed dispatch, and 64 A-tagged and 64 B-tagged
               responses bitwise their generation's solo answer; then the
               swap back to A's scorer, loaded already, under the same
-              probes (its gaps: the swap without a load); B as the
+              probes (its gaps: the swap without a load); then what
+              holds the gap, each under the same probes: B loaded again
+              from the serving cache its first load wrote (no part file
+              opened), that cache hit and the preloaded swap through a
+              frontend without a coalescer (no warm-up), and no swap but
+              one pageable host-to-card copy of B's resident bytes; B as the
               swap loaded it serves 10,000 uniform queries bitwise as the
               one-shot index, TF-IDF and BM25 (q/s), its own timed run
               launching cold_tier and hot_stage; verify_live (seconds),
@@ -187,8 +192,9 @@ code:
               deletes in flushes of 100): A backed up (segments
               hardlinked, the WAL copied) and restored into a new dir
               (restore_live runs verify_live); the delta fed into A with
-              no crash and compacted (the control); a spawned child feeds
-              the same delta into the restore under
+              no crash and compacted (the control); a spawned child
+              (`serving.soak.ingest_feed_main --ops`) feeds the same
+              delta into the restore under
               TPU_IR_FAULTS=ingest.flush_build:once@3, acknowledging each
               op, and SIGKILLs itself (rc -9); the parent recovers (lease
               takeover, the WAL replayed, the unacknowledged ops fed
@@ -3772,11 +3778,10 @@ def live_topk(scorer, q: np.ndarray, *, k: int, scoring: str,
     return first, launches, len(q) / float(np.median(walls))
 
 
-def swap_probes(frontend, texts: list[str], *, generation: int | None = None,
-                scorer=None, k: int = 10) -> dict:
+def swap_probes(frontend, texts: list[str], swap, *, k: int = 10) -> dict:
     """SWAP_PROBE_THREADS probe threads send `texts` (BM25, k) through
-    `frontend` for SWAP_PROBE_S, then while it swaps (reload_generation
-    of `scorer`, loaded already, or of `generation`, loaded inside;
+    `frontend` for SWAP_PROBE_S, then while `swap()` runs (a
+    reload_generation of the frontend, or other work in its place;
     timed), then SWAP_PROBE_S more, while one more thread does nothing
     but wake every 0.5 ms. Returns the responses (completion time,
     generation, text index, bits, degraded), the errors and sheds, the
@@ -3829,7 +3834,7 @@ def swap_probes(frontend, texts: list[str], *, generation: int | None = None,
     try:
         time.sleep(SWAP_PROBE_S)
         t0 = time.perf_counter()
-        frontend.reload_generation(scorer, generation=generation)
+        swap()
         t1 = time.perf_counter()
         time.sleep(SWAP_PROBE_S)
     finally:
@@ -3857,6 +3862,66 @@ def swap_probes(frontend, texts: list[str], *, generation: int | None = None,
             "gap_closed_by": closed_by,
             "baseline_gap_ms": 1e3 * float(np.diff(baseline).max())
             if len(baseline) > 1 else 0.0}
+
+
+def gap_trial(probed: dict, part_opens: int | None = None) -> dict:
+    """One swap_probes run's numbers, without its responses; it must have
+    no error and no shed."""
+    if probed["errors"] or probed["sheds"]:
+        raise AssertionError(f"a gap trial: {probed['errors'][:3]}, "
+                             f"{probed['sheds']} shed")
+    out = {key: probed[key] for key in (
+        "reload_wall_s", "swap_gap_ms", "gap_opened_s", "baseline_gap_ms",
+        "wake_gap_ms")}
+    out["probes"] = len(probed["events"])
+    if part_opens is not None:
+        out["part_opens"] = part_opens
+    return out
+
+
+def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
+               b_bytes: int, *, k: int, device: str, done: dict) -> dict:
+    """What holds the swap's gap, beside the two swaps `done` already
+    measured (B loaded cold, A preloaded; through `frontend`, which
+    coalesces and serves A): B loaded again from the serving cache its
+    first load wrote (no part file opened); the same cache hit and the
+    preloaded swap through a frontend with no coalescer, so no warm-up;
+    and, with no swap at all, one pageable host-to-card copy of `b_bytes`
+    (B's growth of the card's allocated memory on its first load) under
+    the same probes. Each trial's gaps as swap_probes gives them."""
+    import torch
+
+    from tpu_ir_torch.search.layout import CACHE_NAME
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
+        raise AssertionError("B's first load wrote no serving cache")
+    trials = {name: gap_trial(probed) for name, probed in done.items()}
+    with PartOpens() as opens:
+        probed = swap_probes(
+            frontend, texts,
+            lambda: frontend.reload_generation(generation=gen_b), k=k)
+    trials["cache_hit_coalesced"] = gap_trial(probed, opens.n)
+    plain = ServingFrontend(scorer_a, ServingConfig(
+        max_concurrency=SWAP_PROBE_THREADS, max_queue=16))
+    with PartOpens() as opens:
+        probed = swap_probes(
+            plain, texts, lambda: plain.reload_generation(generation=gen_b),
+            k=k)
+    trials["cache_hit_plain"] = gap_trial(probed, opens.n)
+    trials["preloaded_plain"] = gap_trial(swap_probes(
+        plain, texts, lambda: plain.reload_generation(scorer_a), k=k))
+    host = torch.ones(b_bytes, dtype=torch.uint8)
+    copies = []
+    trials["upload_coalesced"] = gap_trial(swap_probes(
+        frontend, texts,
+        lambda: copies.append(host.to(device, copy=True)), k=k))
+    trials["upload_coalesced"]["bytes"] = b_bytes
+    for name in ("cache_hit_coalesced", "cache_hit_plain"):
+        if trials[name]["part_opens"]:
+            raise AssertionError(f"{name}: B's cached load opened "
+                                 f"{trials[name]['part_opens']} part files")
+    return trials
 
 
 def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
@@ -3985,7 +4050,15 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
     # are read from the histograms the swap observes
     hist0 = reg.hist_state()
     unwarmed0 = reg.get("dispatch.unwarmed")
-    swap = swap_probes(frontend, texts, generation=gen_b, k=k)
+    grew = []
+
+    def load_b():
+        before = torch.cuda.memory_allocated() if on_card else 0
+        frontend.reload_generation(generation=gen_b)
+        grew.append(torch.cuda.memory_allocated() - before if on_card
+                    else part_bytes(seg_b))
+
+    swap = swap_probes(frontend, texts, load_b, k=k)
     scorer_b = frontend.scorer
     steps = reg.delta_summary(hist0, always=("generation.swap",
                                              "batch.precompile"))
@@ -4025,7 +4098,8 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
     out["swap"]["bitwise_sampled"] = sampled
     # the swap back to A, whose scorer is loaded already: what the swap
     # costs without a load in its window
-    back = swap_probes(frontend, texts, scorer=scorer_a, k=k)
+    back = swap_probes(frontend, texts,
+                       lambda: frontend.reload_generation(scorer_a), k=k)
     out["swap_preloaded"] = {
         key: back[key] for key in ("reload_wall_s", "swap_gap_ms",
                                    "baseline_gap_ms", "wake_gap_ms",
@@ -4035,6 +4109,10 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
             or sorted({e[1] for e in back["events"]}) != [gen_a, gen_b]):
         raise AssertionError(f"the swap back to A: {back['errors'][:3]}, "
                              f"{back['sheds']} shed")
+    out["gap_trials"] = gap_trials(
+        frontend, texts, scorer_a, gen_b, seg_b, grew[0], k=k,
+        device=device, done={"cold_load_coalesced": swap,
+                             "preloaded_coalesced": back})
     del scorer_a, events, swap, back
 
     # B, loaded by the swap, serves the uniform queries as the one-shot
@@ -4089,42 +4167,6 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
     return out
 
 
-def feed_child(argv=None) -> int:
-    """phase_live_crash's feeder, run in a spawned child: feed the ops
-    file's delta through an IngestWriter on `--device`, appending each op's
-    index to `--ack` after the writer acknowledged it. The fault plan in
-    TPU_IR_FAULTS kills it: an InjectedCrash becomes a SIGKILL of itself."""
-    import argparse
-    import signal
-
-    from tpu_ir_torch import faults
-    from tpu_ir_torch.index.ingest import IngestWriter
-
-    p = argparse.ArgumentParser()
-    p.add_argument("--live-dir", required=True)
-    p.add_argument("--ops", required=True)
-    p.add_argument("--ack", required=True)
-    p.add_argument("--buffer-docs", type=int, required=True)
-    p.add_argument("--device", required=True)
-    a = p.parse_args(argv if argv is not None else sys.argv[1:])
-    with open(a.ops, encoding="utf-8") as f:
-        ops = json.load(f)
-    ack = open(a.ack, "a", buffering=1)
-    try:
-        w = IngestWriter(a.live_dir, buffer_docs=a.buffer_docs,
-                         device=a.device)
-        for i, op in enumerate(ops):
-            apply_op(w, op)
-            ack.write(f"{i}\n")
-        w.close()
-        return 0
-    except faults.InjectedCrash:
-        os.kill(os.getpid(), signal.SIGKILL)
-        return 1   # unreachable
-    finally:
-        ack.close()
-
-
 def phase_live_crash(card: str, work: str, *, device: str,
                      k: int = 10) -> dict:
     """The live index's durability at ref scale (config `ref-live`), from
@@ -4151,6 +4193,7 @@ def phase_live_crash(card: str, work: str, *, device: str,
     from tpu_ir_torch.index.ingest import IngestWriter
     from tpu_ir_torch.index.segments import LiveIndex
     from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.serving.soak import _spawn_feeder
 
     on_card = device == "cuda"
     reg = obs.get_registry()
@@ -4207,31 +4250,26 @@ def phase_live_crash(card: str, work: str, *, device: str,
         json.dump(ops, f)
     ack = os.path.join(work, "crash.ack")
     open(ack, "w").close()
-    env = {**os.environ, "TPU_IR_FAULTS": LIVE_CRASH_PLAN}
-    root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    with open(ack + ".err", "w") as err:
-        child = subprocess.Popen(
-            [sys.executable, "-c", "import chip_smoke; "
-             "raise SystemExit(chip_smoke.feed_child())",
-             "--live-dir", restored, "--ops", ops_path, "--ack", ack,
-             "--buffer-docs", str(buffer_docs), "--device", device],
-            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err)
-        try:
-            rc = child.wait(timeout=600)
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+    child, child_out, child_err = _spawn_feeder(
+        restored, ack, ops_path=ops_path, device=device,
+        buffer_docs=buffer_docs, fault_plan=LIVE_CRASH_PLAN)
+    try:
+        rc = child.wait(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
     out["child_s"] = time.perf_counter() - t0
     out["child_rc"] = rc
     if rc != -9:
-        with open(ack + ".err") as f:
+        with open(child_err) as f:
             raise AssertionError(f"the feeder exited {rc}, not by SIGKILL: "
                                  f"{f.read()[-2000:]}")
     with open(ack) as f:
-        acked = [int(ln) for ln in f if ln.strip()]
-    if acked != list(range(len(acked))) or not 0 < len(acked) < len(ops):
+        acked = [ln.strip() for ln in f if ln.strip()]
+    if (acked != [op[1] for op in ops[:len(acked)]]
+            or not 0 < len(acked) < len(ops)):
         raise AssertionError(f"the ack file holds {len(acked)} ops, not a "
                              "proper prefix of the delta")
     out["acked_ops"] = len(acked)
@@ -4253,8 +4291,8 @@ def phase_live_crash(card: str, work: str, *, device: str,
         raise AssertionError(f"the recovery: replayed {w.replayed}, lease "
                              f"{out['lease']}")
     docs_r = set(LiveIndex.open(restored).live_doc_map())
-    lost = [ops[i][1] for i in acked
-            if (ops[i][0] == "delete") == (ops[i][1] in docs_r)]
+    lost = [op[1] for op in ops[:len(acked)]
+            if (op[0] == "delete") == (op[1] in docs_r)]
     out["lost_acked"] = len(lost)
     if lost:
         raise AssertionError(f"acknowledged ops lost: {lost[:5]}")
@@ -4307,7 +4345,7 @@ def phase_live_crash(card: str, work: str, *, device: str,
     del gen, one_shot
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
-    for path in (ops_path, ack, ack + ".err"):
+    for path in (ops_path, ack, child_out, child_err):
         os.unlink(path)
     if on_card:
         torch.cuda.empty_cache()

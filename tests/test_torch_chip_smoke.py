@@ -639,6 +639,16 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert back["errors"] == 0 and back["sheds"] == 0
     assert back["swap_gap_ms"] > 0 and back["reload_wall_s"] > 0
     assert live["warm_b_s"] > 0 and live["load_b_s"] > 0
+    trials = live["gap_trials"]
+    assert sorted(trials) == sorted([
+        "cold_load_coalesced", "preloaded_coalesced", "cache_hit_coalesced",
+        "cache_hit_plain", "preloaded_plain", "upload_coalesced"])
+    for name, trial in trials.items():
+        assert trial["probes"] > 0 and trial["swap_gap_ms"] > 0, name
+        assert trial["wake_gap_ms"] > 0 and trial["reload_wall_s"] > 0, name
+    assert trials["cache_hit_coalesced"]["part_opens"] == 0
+    assert trials["cache_hit_plain"]["part_opens"] == 0
+    assert trials["upload_coalesced"]["bytes"] > 0
     crash = chip_smoke.phase_live_crash("cpu", work, device="cpu")
     assert crash["restore_verified"] and crash["backup"]["bytes_linked"]
     assert crash["backup"]["wal_segments"] == 1

@@ -384,29 +384,14 @@ class IngestWriter:
             self._shutdown()
 
 
-_TEXT_OPEN = re.compile(r"<TEXT>", re.I)
-_TEXT_CLOSE = re.compile(r"</TEXT>", re.I)
+_TEXT_RE = re.compile(r"<TEXT>\s*(.*?)\s*</TEXT>", re.S | re.I)
 
 
 def trec_payload(content: str) -> str:
     """The ingestable text of one raw TREC record: its <TEXT> section(s),
     framing stripped. The flush frames it again the canonical way, so a
-    canonical record round-trips byte for byte.
-
-    The sections are the JAX package's `<TEXT>\\s*(.*?)\\s*</TEXT>`
-    matches (re.S | re.I): each runs from an opening tag to the first
-    closing tag after it, whitespace stripped at both ends (`str.strip`
-    and the pattern's `\\s` are one set). Two literal searches find them
-    far faster than the lazy pattern, which tries the closing tag at
-    every character of the text."""
-    sections = []
-    pos = 0
-    while (m := _TEXT_OPEN.search(content, pos)) is not None:
-        close = _TEXT_CLOSE.search(content, m.end())
-        if close is None:
-            break
-        sections.append(content[m.end():close.start()].strip())
-        pos = close.end()
+    canonical record round-trips byte for byte."""
+    sections = _TEXT_RE.findall(content)
     if sections:
         return "\n".join(sections)
     # no TEXT section: strip the DOC/DOCNO framing, keep the rest

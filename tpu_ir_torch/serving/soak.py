@@ -19,8 +19,9 @@ level through the coalescing frontend: latency percentiles, q/s, batch
 occupancy and the shapes dispatched outside the warmed set.
 
 `ingest_feed_main` is the ingest child that the live index's SIGKILL
-crash matrix spawns (`_spawn_feeder`): it feeds `_feed_doc`s through an
-IngestWriter and dies by SIGKILL at a fault site.
+crash matrix spawns (`_spawn_feeder`): it feeds `_feed_doc`s, or an ops
+file's adds, updates and deletes, through an IngestWriter and dies by
+SIGKILL at a fault site.
 
 Not ported: the routed, distributed and ingest soaks (`run_ingest_soak`
 comes with the routed tier), and the Zipf workload (`workload=` other
@@ -390,13 +391,16 @@ def _feed_doc(i: int) -> tuple[str, str]:
 
 def ingest_feed_main(argv=None) -> int:
     """The ingest child of the SIGKILL crash matrix: open an IngestWriter
-    on `--live-dir` on `--device`, upsert `_feed_doc(i)` for i in
-    [--start, --end), append each docid to `--ack` after the writer
-    acknowledged it, flush and compact every `--compact-every` docs and
-    at the end. An InjectedCrash from the TPU_IR_FAULTS plan becomes a
-    raw SIGKILL of this process: no atexit, no unwind, no lease release.
-    Run as `python -c "from tpu_ir_torch.serving.soak import
-    ingest_feed_main; raise SystemExit(ingest_feed_main())" ...`."""
+    on `--live-dir` on `--device` and feed it ops: those of the `--ops`
+    JSON file ([op, docid(, text)] lists, op add, update or delete) when
+    it is given, else upserts of `_feed_doc(i)` for i in [--start,
+    --end). Each op's docid is appended to `--ack` after the writer
+    acknowledged it; the writer flushes and compacts every
+    `--compact-every` ops and at the end. An InjectedCrash from the
+    TPU_IR_FAULTS plan becomes a raw SIGKILL of this process: no atexit,
+    no unwind, no lease release. Run as `python -c "from
+    tpu_ir_torch.serving.soak import ingest_feed_main; raise
+    SystemExit(ingest_feed_main())" ...`."""
     import argparse
     import json
     import os
@@ -408,32 +412,42 @@ def ingest_feed_main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--live-dir", required=True)
     p.add_argument("--ack", required=True)
-    p.add_argument("--start", type=int, required=True)
-    p.add_argument("--end", type=int, required=True)
+    p.add_argument("--ops", default=None)
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("--end", type=int, default=0)
     p.add_argument("--buffer-docs", type=int, default=8)
     p.add_argument("--compact-every", type=int, default=0)
     p.add_argument("--pause-s", type=float, default=0.0)
     p.add_argument("--device", required=True, choices=["cuda", "cpu"])
     a = p.parse_args(argv if argv is not None else sys.argv[1:])
+    if a.ops is not None:
+        with open(a.ops, encoding="utf-8") as f:
+            ops = json.load(f)
+    else:
+        ops = [["update", *_feed_doc(i)] for i in range(a.start, a.end)]
 
     ack = open(a.ack, "a", buffering=1)
     try:
         w = IngestWriter(a.live_dir, buffer_docs=a.buffer_docs,
                          auto_merge=False, device=a.device)
-        for i in range(a.start, a.end):
-            docid, text = _feed_doc(i)
-            w.update(docid, text)
+        for n, op in enumerate(ops, 1):
+            if op[0] == "delete":
+                w.delete(op[1])
+            elif op[0] == "add":
+                w.add(op[1], op[2])
+            else:
+                w.update(op[1], op[2])
             # acknowledged after the writer returned: everything in this
             # file must survive any crash (the WAL holds it)
-            ack.write(docid + "\n")
-            if a.compact_every and (i + 1 - a.start) % a.compact_every == 0:
+            ack.write(op[1] + "\n")
+            if a.compact_every and n % a.compact_every == 0:
                 w.flush()
                 w.compact_all()
             if a.pause_s:
                 time.sleep(a.pause_s)
         w.flush()
         w.compact_all()
-        summary = {"acked": a.end - a.start, "replayed": w.replayed,
+        summary = {"acked": len(ops), "replayed": w.replayed,
                    "lease": getattr(w, "lease_info", None),
                    "generation": w.live.current_gen()}
         w.close()
@@ -446,10 +460,12 @@ def ingest_feed_main(argv=None) -> int:
         ack.close()
 
 
-def _spawn_feeder(live_dir: str, ack_path: str, start: int, end: int, *,
-                  device: str, buffer_docs: int = 8, compact_every: int = 0,
+def _spawn_feeder(live_dir: str, ack_path: str, start: int = 0,
+                  end: int = 0, *, device: str, ops_path: str | None = None,
+                  buffer_docs: int = 8, compact_every: int = 0,
                   pause_s: float = 0.0, fault_plan: str | None = None):
-    """Popen an ingest_feed_main child on `device` (the parent's: the
+    """Popen an ingest_feed_main child (fed `_feed_doc(i)` for i in
+    [start, end), or the ops file `ops_path`) on `device` (the parent's: the
     child never picks one itself) in a fresh interpreter, never forked
     from a parent that may hold a CUDA context, with this package's
     parent dir on its PYTHONPATH so it imports the same port from any
@@ -477,6 +493,8 @@ def _spawn_feeder(live_dir: str, ack_path: str, start: int, end: int, *,
            "--buffer-docs", str(buffer_docs),
            "--compact-every", str(compact_every),
            "--pause-s", str(pause_s), "--device", device]
+    if ops_path is not None:
+        cmd += ["--ops", ops_path]
     out_path = ack_path + f".{start}.out"
     err_path = ack_path + f".{start}.err"
     with open(out_path, "w") as out, open(err_path, "w") as err:
