@@ -42,7 +42,7 @@ code:
               on 64 queries, both scorings) and the kernels' launch counts;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
               over the same queries: q/s, device time, launches; then
-              `explain`: 64 of the queries as texts through search_batch
+              `explain`: 32 of the queries as texts through search_batch
               with explain_k = 10 (TF-IDF, BM25 and the rerank): every
               entry's float64 sum of contributions equals its score, and
               its score the returned one, as float32 bits, and the same
@@ -86,7 +86,7 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 500 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 250 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
               '?'): 80 patterns of each held against a glob and a
@@ -121,8 +121,8 @@ code:
               char-grams over tokens.txt) and streaming (the Python
               tokenizer in 4 processes): every artifact both write has
               one sha256, verify passes; the one-shot index served with
-              layout "auto" (1,000 two- and three-token texts, recall@10
-              = 1.0 against the oracle; 200 globs composed over
+              layout "auto" (500 two- and three-token texts, recall@10
+              = 1.0 against the oracle; 100 globs composed over
               tokens.txt): build wall s and docs/s, V, the layout, q/s,
               device time and launches;
 19. positions format v2 position runs: ref one-shot, legacy streaming
@@ -167,26 +167,52 @@ code:
               every artifact must have the sha256 of a one-shot build
               over the surviving docs (its seconds); 4 probe threads send
               BM25 texts while `frontend.reload_generation(generation=B)`
-              loads B and warms its coalescer before the publish: the
+              loads B (every upload streamed: pinned chunks on a side
+              stream) and warms its coalescer before the publish: the
               reload's wall, the widest gap between successful responses
-              across it (where in the reload it opened, and which
-              generation's response closed it) beside the widest before
-              it and a thread's that only wakes every 0.5 ms, the probes,
-              the generations seen, no error, shed, degraded response or
+              across it (where in the reload it opened, which
+              generation's response closed it, and which of the reload's
+              spans it overlaps) beside the widest before it and a
+              thread's that only wakes every 0.5 ms, the probes, the
+              generations seen, no error, shed, degraded response or
               unwarmed dispatch, and 64 A-tagged and 64 B-tagged
-              responses bitwise their generation's solo answer; then the
-              swap back to A's scorer, loaded already, under the same
-              probes (its gaps: the swap without a load); then what
-              holds the gap, each under the same probes: B loaded again
-              from the serving cache its first load wrote (no part file
-              opened), that cache hit and the preloaded swap through a
-              frontend without a coalescer (no warm-up), and no swap but
-              one pageable host-to-card copy of B's resident bytes; B as the
-              swap loaded it serves 10,000 uniform queries bitwise as the
-              one-shot index, TF-IDF and BM25 (q/s), its own timed run
-              launching cold_tier and hot_stage; verify_live (seconds),
-              then doctor, generations and compact --gc through the
-              command line (seconds each);
+              responses bitwise their generation's solo answer; the
+              bytes B's load moved across the link, its uploads' seconds
+              and GB/s, and the timeline of its spans (the part reads,
+              the layout, the norms, the cache write, the strip build,
+              each upload, the warm-up); then the swap back to A's
+              scorer, loaded already, under the same probes (its gaps:
+              the swap without a load); then what holds the gap, each
+              under the same probes: B loaded again from the serving
+              cache its first load wrote (no part file opened), that
+              cache hit and the preloaded swap through a frontend
+              without a coalescer (no warm-up); no swap but one pageable
+              host-to-card copy of B's resident bytes, one streamed copy
+              of the bytes B's load moved and one pageable copy of as
+              many (bytes, wall, GB/s each); and B loaded cold again
+              through the streamed uploads (its serving cache removed);
+              B as the last swap loaded it serves 10,000 uniform queries
+              bitwise as the one-shot index, TF-IDF and BM25 (q/s), its
+              own timed run launching cold_tier and hot_stage; then
+              `shards`, its own line, printed before live's: on the live
+              dir, a ShardSet of 2 doc shards x 1 replica, subprocesses
+              on the card serving A (spawn to ready seconds, what the
+              workers add to the card's used memory in nvidia-smi); 32
+              texts from one client alone (the round trip's p50); 512
+              TF-IDF and 512 BM25 texts from 8 client threads through
+              both workers' /rpc/search, merged by merge_shard_topk
+              bitwise A's top-10 in this process (routed q/s, the round
+              trips' p50 and p99); 64 texts through the rerank's two phases
+              (cosine_at, merge_candidate_scores) bitwise this process's
+              rerank of 100; rolling_swap to B under 4 probe threads:
+              every answer one generation's and bitwise that
+              generation's for its shard, every worker on B, the merged
+              B answers bitwise B's here (each worker's widest gap, the
+              walk's wall, the staleness); one worker SIGKILLed and
+              respawned comes back on B; cold_tier and hot_stage launched
+              in each worker (its /healthz); stop() leaves no worker
+              pid; then verify_live (seconds), and doctor, generations
+              and compact --gc through the command line (seconds each);
 19e. live_crash  the same at ref scale (`ref-live`: the first 8,261 ref
               docs as A; a delta of 500 adds, 100 updates and 100
               deletes in flushes of 100): A backed up (segments
@@ -202,14 +228,17 @@ code:
               live docs, every artifact the control's sha256 and the
               one-shot build's; that generation served dense on the card,
               10,000 uniform queries bitwise as the one-shot index,
-              TF-IDF and BM25, launching dense_score;
-20. prox      ref and wiki100k (their positions indexes): the first 2,000
+              TF-IDF and BM25, launching dense_score; then through 3
+              in-process dense workers (serve_worker) over HTTP, 128
+              TF-IDF and 128 BM25 texts merged bitwise the scorer's
+              top-10, the workers launching dense_score;
+20. prox      ref and wiki100k (their positions indexes): the first 1,000
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
               cosine stage; 64 queries (32 uniform, 32 pairs of common
               terms) held bitwise against the boost recomputed in numpy
               from the position files;
-21. phrase    wiki100k: 400 quoted windows of 2-3 analyzed tokens of
+21. phrase    wiki100k: 200 quoted windows of 2-3 analyzed tokens of
               random docs (default_rng(12)), half with a free term, at
               slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
               40 phrases a slop held against a scan of the token streams
@@ -239,7 +268,7 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              500 requests a level, BM25 and TF-IDF, twice each:
+              250 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
@@ -1956,16 +1985,19 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
-WILDCARD_QUERIES = 500          # query texts of each wildcard mix (2,000
+WILDCARD_QUERIES = 250          # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
-                                # before the live phases)
+                                # before the live phases, 500 before the
+                                # shard workers)
 EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
                                # (200 before the run outgrew its time)
 # the questions that raised on a char-gram index before wildcard search
 QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
-KGRAM_QUERIES = 1_000          # two- and three-token texts on the k = 2
-                               # index (2,000 before the run outgrew its time)
-KGRAM_GLOBS = 200              # glob texts composed over its tokens.txt
+KGRAM_QUERIES = 500            # two- and three-token texts on the k = 2
+                               # index (2,000 before the run outgrew its time,
+                               # 1,000 before the shard workers)
+KGRAM_GLOBS = 100              # glob texts composed over its tokens.txt
+                               # (200 before the shard workers)
 KGRAM_PROCS = 4                # tokenizer processes, streaming k = 2 build
 
 
@@ -2369,8 +2401,9 @@ FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
 SOAK_THREADS = 8
 SOAK_QUERIES = 240               # (480 before the run outgrew its time)
 SWEEP_LEVELS = (1, 4, 16)
-SWEEP_QUERIES = 500              # per level (2,000 before the merge, warm
-                                 # and doctor phases paid for their time)
+SWEEP_QUERIES = 250              # per level (2,000 before the merge, warm
+                                 # and doctor phases paid for their time,
+                                 # 500 before the shard workers)
 SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
@@ -2721,18 +2754,21 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
 # -- positions, phrase, proximity, explain, snippets --------------------------
 
 POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
-PHRASE_TEXTS = 400              # phrase texts of the wiki100k phrase phase
-                                # (2,000 before the run outgrew its time)
+PHRASE_TEXTS = 200              # phrase texts of the wiki100k phrase phase
+                                # (2,000 before the run outgrew its time,
+                                # 400 before the shard workers)
 PHRASE_SLOPS = (0, 2)
 PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
                                 # (100 before the run outgrew its time)
-PROX_QUERIES = 2_000            # uniform queries through the prox rerank
-                                # (10,000 before the run outgrew its time)
+PROX_QUERIES = 1_000            # uniform queries through the prox rerank
+                                # (10,000 before the run outgrew its time,
+                                # 2,000 before the shard workers)
 PROX_CANDIDATES = 1_000
 PROX_ORACLE = 64                # queries whose boost numpy recomputes
-EXPLAIN_QUERIES = 64            # queries of each explain traffic (256 before
+EXPLAIN_QUERIES = 32            # queries of each explain traffic (256 before
                                 # the merge, warm and doctor phases, 128
-                                # before the live phases)
+                                # before the live phases, 64 before the
+                                # shard workers)
 EXPLAIN_K = 10
 SNIPPET_HITS = 200              # hits rendered through the frontend
 
@@ -3612,7 +3648,8 @@ LIVE_CRASH = dict(seed_docs=8_261, updates=100, deletes=100,
                   buffer_docs=100)
 LIVE_CRASH_PLAN = "ingest.flush_build:once@3"   # the feeder's third flush
 SWAP_PROBE_THREADS = 4          # probe threads across the swap
-SWAP_PROBE_S = 1.0              # probing before the swap, and after it
+SWAP_PROBE_S = 0.5              # probing before the swap, and after it
+                                # (1.0 before the shard workers)
 SWAP_SAMPLE = 64                # A- and B-tagged responses held bitwise
 LIVE_SERVE_TEXTS = 512          # texts A serves through the frontend
 
@@ -3879,20 +3916,99 @@ def gap_trial(probed: dict, part_opens: int | None = None) -> dict:
     return out
 
 
+def copy_trial(frontend, texts: list[str], n_bytes: int, copy, *,
+               k: int) -> dict:
+    """One gap trial with no swap: `copy()` (a host-to-card copy of
+    `n_bytes`, synchronized) under the probes, with its bytes, wall and
+    GB/s."""
+    trial = gap_trial(swap_probes(frontend, texts, copy, k=k))
+    trial["bytes"] = n_bytes
+    trial["copy_wall_s"] = trial["reload_wall_s"]
+    trial["gb_per_s"] = n_bytes / trial["copy_wall_s"] / 1e9
+    return trial
+
+
+def span_timeline(root, prefix: str = "load.") -> list:
+    """[name, start ms, duration ms] of every span under `root` whose name
+    starts with `prefix`, at any depth, in start order, the start counted
+    from `root`'s."""
+    rows = []
+
+    def walk(span):
+        for c in span.children:
+            if c.name.startswith(prefix):
+                rows.append([c.name, (c.start_ns - root.start_ns) / 1e6,
+                             c.dur_ns / 1e6])
+            walk(c)
+
+    walk(root)
+    return sorted(rows, key=lambda r: r[1])
+
+
+def gap_within(timeline: list, opened_s: float, gap_ms: float) -> list:
+    """The names of the timeline's spans that overlap the gap."""
+    lo, hi = 1e3 * opened_s, 1e3 * opened_s + gap_ms
+    return sorted({name for name, start, dur in timeline
+                   if start < hi and start + dur > lo})
+
+
+def traced_reload(frontend, gen: int, device: str) -> dict:
+    """`frontend.reload_generation(generation=gen)` inside one span: its
+    load.* spans' timeline, the warm-up's interval (the coalescer's
+    precompile, the reload's last step), the bytes its uploads moved
+    across the link, their seconds (the load.h2d spans) and GB/s, and the
+    card's allocated memory's growth."""
+    import torch
+
+    from tpu_ir_torch import obs
+
+    reg = obs.get_registry()
+    h2d0 = reg.get("load.h2d_bytes")
+    hist0 = reg.hist_state()
+    before = torch.cuda.memory_allocated() if device == "cuda" else 0
+    with obs.trace("swap.reload") as root:
+        frontend.reload_generation(generation=gen)
+    grew = (torch.cuda.memory_allocated() - before if device == "cuda"
+            else 0)
+    stages = ("load.meta", "load.vocab", "load.read", "load.layout",
+              "load.norms", "load.cache_write", "load.strip", "load.h2d",
+              "batch.precompile")
+    steps = reg.delta_summary(hist0, always=stages)
+    timeline = span_timeline(root)
+    wall_ms = root.dur_ns / 1e6
+    warm_ms = steps["batch.precompile"]["sum_ms"]
+    timeline.append(["warm_up", wall_ms - warm_ms, warm_ms])
+    crossed = reg.get("load.h2d_bytes") - h2d0
+    h2d_s = steps["load.h2d"]["sum_ms"] / 1e3
+    return {"bytes": crossed, "copy_wall_s": h2d_s,
+            "gb_per_s": crossed / h2d_s / 1e9 if h2d_s else None,
+            "uploads": steps["load.h2d"]["count"],
+            "allocated_growth": grew,
+            "stages_ms": {name: steps[name]["sum_ms"] for name in stages},
+            "timeline": timeline}
+
+
 def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
-               b_bytes: int, *, k: int, device: str, done: dict) -> dict:
+               b_bytes: int, crossing: int, *, k: int, device: str,
+               done: dict) -> dict:
     """What holds the swap's gap, beside the two swaps `done` already
     measured (B loaded cold, A preloaded; through `frontend`, which
     coalesces and serves A): B loaded again from the serving cache its
     first load wrote (no part file opened); the same cache hit and the
     preloaded swap through a frontend with no coalescer, so no warm-up;
-    and, with no swap at all, one pageable host-to-card copy of `b_bytes`
-    (B's growth of the card's allocated memory on its first load) under
-    the same probes. Each trial's gaps as swap_probes gives them."""
+    with no swap at all, one pageable host-to-card copy of `b_bytes` (B's
+    growth of the card's allocated memory on its first load), one
+    streamed copy (utils/transfer.py::stream_to_device: pinned chunks on
+    a side stream) of `crossing` bytes (what B's first load moved across
+    the link) and one pageable copy of as many; and B loaded cold again
+    (its serving cache removed) through the streamed uploads. Each
+    trial's gaps as swap_probes gives them; the copies' and the cold
+    load's bytes, copy wall and GB/s."""
     import torch
 
     from tpu_ir_torch.search.layout import CACHE_NAME
     from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+    from tpu_ir_torch.utils.transfer import stream_to_device
 
     if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
         raise AssertionError("B's first load wrote no serving cache")
@@ -3911,20 +4027,417 @@ def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
     trials["cache_hit_plain"] = gap_trial(probed, opens.n)
     trials["preloaded_plain"] = gap_trial(swap_probes(
         plain, texts, lambda: plain.reload_generation(scorer_a), k=k))
-    host = torch.ones(b_bytes, dtype=torch.uint8)
-    copies = []
-    trials["upload_coalesced"] = gap_trial(swap_probes(
-        frontend, texts,
-        lambda: copies.append(host.to(device, copy=True)), k=k))
-    trials["upload_coalesced"]["bytes"] = b_bytes
+    del plain
     for name in ("cache_hit_coalesced", "cache_hit_plain"):
         if trials[name]["part_opens"]:
             raise AssertionError(f"{name}: B's cached load opened "
                                  f"{trials[name]['part_opens']} part files")
+
+    def copied(fn):
+        def run():
+            copies.append(fn())
+            if device == "cuda":
+                torch.cuda.synchronize()
+        return run
+
+    copies = []
+    host = torch.ones(b_bytes, dtype=torch.uint8)
+    trials["upload_coalesced"] = copy_trial(
+        frontend, texts, b_bytes,
+        copied(lambda: host.to(device, copy=True)), k=k)
+    del host
+    cross = np.ones(crossing, np.uint8)
+    trials["stream_crossing"] = copy_trial(
+        frontend, texts, crossing,
+        copied(lambda: stream_to_device(cross, device=device)), k=k)
+    trials["pageable_crossing"] = copy_trial(
+        frontend, texts, crossing,
+        copied(lambda: torch.from_numpy(cross).to(device)), k=k)
+    copies.clear()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    shutil.rmtree(os.path.join(seg_b, CACHE_NAME))
+    reloads = []
+    probed = swap_probes(frontend, texts, lambda: reloads.append(
+        traced_reload(frontend, gen_b, device)), k=k)
+    trial = gap_trial(probed)
+    trial.update(reloads[0])
+    trial["gap_within"] = gap_within(trial["timeline"],
+                                     trial["gap_opened_s"],
+                                     trial["swap_gap_ms"])
+    trials["cold_streamed"] = trial
+    if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
+        raise AssertionError("B's cold load wrote no serving cache")
     return trials
 
 
-def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
+SHARD_WORKERS = 2               # doc shards of the shards phase, 1 replica
+SHARD_CLIENTS = 8               # client threads of its routed traffic
+SHARD_TEXTS = 512               # routed texts a scoring
+SHARD_RERANK_TEXTS = 64         # texts through the rerank's two phases
+SHARD_RERANK = 100              # the rerank's candidates
+SHARD_PROBE_TEXTS = 64          # BM25 texts the probes send across the walk
+SHARD_SOLO_RPCS = 32            # one-term texts sent by one client alone
+
+
+def nvidia_smi_apps() -> dict:
+    """{pid: used MiB} of the processes on the card, as nvidia-smi's
+    compute-apps query gives them (pids as the card's host sees them,
+    which in a container need not be this namespace's)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    apps = {}
+    for line in r.stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            apps[int(parts[0])] = int(parts[1])
+    return apps
+
+
+def card_used_mib() -> int:
+    """The card's used memory in MiB, as nvidia-smi gives it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True)
+    return int(r.stdout.split()[0])
+
+
+def routed_search(addrs: list, text: str, *, k: int, scoring: str,
+                  rtts: list) -> tuple[list, list]:
+    """One text through every worker's /rpc/search, in shard order: the
+    merged top-k and each worker's answer (its generation and hits);
+    each round trip's seconds go to `rtts`."""
+    from tpu_ir_torch.serving import merge_shard_topk, rpc_post
+
+    answers = []
+    for addr in addrs:
+        t0 = time.perf_counter()
+        answers.append(rpc_post(addr, "search", {"text": text, "k": k,
+                                                 "scoring": scoring}, 120))
+        rtts.append(time.perf_counter() - t0)
+    merged = merge_shard_topk([[tuple(h) for h in a["hits"]]
+                               for a in answers], k)
+    return merged, answers
+
+
+def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
+                 *, device: str, k: int = 10) -> dict:
+    """The shard worker tier on the live dir of phase 19d (`wiki100k-live`,
+    generations A and B, full width): a ShardSet of SHARD_WORKERS doc
+    shards x 1 replica, each a subprocess on the one card serving A,
+    loaded from A's serving cache (spawn to ready seconds a worker, what
+    they added to the card's used memory as nvidia-smi gives it); the
+    round trip of SHARD_SOLO_RPCS texts from one client alone; SHARD_TEXTS
+    TF-IDF and as many BM25
+    texts from SHARD_CLIENTS client threads through /rpc/search of both
+    workers, merged by merge_shard_topk and bitwise the top-10 of A
+    loaded in this process (routed q/s, the round trips' p50 and p99);
+    SHARD_RERANK_TEXTS texts through the rerank's two phases (stage 1 on
+    each worker, cosine_at at the merged candidates,
+    merge_candidate_scores) bitwise this process's rerank; then
+    rolling_swap to B under 4 probe threads: no error, every answer one
+    generation's and bitwise that generation's answer for its shard,
+    every worker's /healthz on B, the merged B answers bitwise B loaded
+    here (each worker's widest gap across the walk, the walk's wall and
+    the staleness); one worker SIGKILLed and respawned comes back on B;
+    the workers' cold_tier and hot_stage launches (their /healthz) must
+    be above 0; stop() leaves no worker pid alive."""
+    import threading
+
+    import torch
+
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search.layout import shard_doc_ranges
+    from tpu_ir_torch.serving import (
+        ShardSet,
+        get_worker_health,
+        merge_candidate_scores,
+        merge_shard_topk,
+        rolling_swap,
+        rpc_post,
+    )
+
+    out = {"phase": "shards", "card": card, "config": "wiki100k-live",
+           "shards": SHARD_WORKERS, "replicas": 1, "generation_a": gen_a,
+           "generation_b": gen_b}
+    ss = ShardSet(live, shards=SHARD_WORKERS, index_generation=gen_a,
+                  device=device, rundir=tempfile.mkdtemp(dir=work),
+                  spawn_timeout_s=600.0)
+    pids = set()
+    on_card = device == "cuda"
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            used0 = card_used_mib()
+        t_spawn = time.time()
+        t0 = time.perf_counter()
+        ss.start()
+        out["start_s"] = time.perf_counter() - t0
+        out["ready_s"] = [
+            os.stat(ss._cfg_paths(s, 0, 0)[1]).st_mtime - t_spawn
+            for s in range(SHARD_WORKERS)]
+        addrs = [row[0] for row in ss.addresses()]
+        pids |= {row[0].pid for row in ss.handles()}
+        if on_card:
+            # what the workers added to the card's used memory (the
+            # compute-apps rows need not carry this namespace's pids)
+            out["workers_mib"] = card_used_mib() - used0
+            out["worker_mib_each"] = out["workers_mib"] / SHARD_WORKERS
+            apps = nvidia_smi_apps()
+            out["nvidia_smi_apps_mib"] = {str(p): m for p, m in apps.items()}
+            out["worker_pid_rows"] = {str(h[0].pid): apps.get(h[0].pid)
+                                      for h in ss.handles()}
+        health = [get_worker_health(a, 60)["worker"] for a in addrs]
+        out["residency"] = [h["residency"] for h in health]
+        scorer_a = Scorer.load_generation(live, gen_a, device=device)
+        ranges = shard_doc_ranges(scorer_a.meta.num_docs, SHARD_WORKERS)
+        if ([tuple(h["doc_range"]) for h in health] != ranges
+                or {h["index_generation"] for h in health} != {gen_a}):
+            raise AssertionError(f"the workers' identities: {health}")
+
+        # one client alone first: the round trip without queueing
+        solo = []
+        for text in scorer_a.vocab.terms[:SHARD_SOLO_RPCS]:
+            routed_search(addrs, text, k=k, scoring="bm25", rtts=solo)
+        out["solo_rtt_p50_ms"] = float(np.percentile(np.array(solo) * 1e3,
+                                                     50))
+
+        # routed traffic on A
+        rng = np.random.default_rng(7)
+        terms = scorer_a.vocab.terms
+        texts = [" ".join(terms[int(t)] for t in row) for row in
+                 rng.integers(0, len(terms), (2 * SHARD_TEXTS, 2))]
+        jobs = [("tfidf", i) for i in range(SHARD_TEXTS)] + [
+            ("bm25", SHARD_TEXTS + i) for i in range(SHARD_TEXTS)]
+        want = {}
+        for scoring in ("tfidf", "bm25"):
+            idx = [i for sc, i in jobs if sc == scoring]
+            for i, res in zip(idx, scorer_a.search_batch(
+                    [texts[i] for i in idx], k=k, scoring=scoring,
+                    return_docids=False)):
+                want[i] = result_bits(res)
+        lock = threading.Lock()
+        rtts, errors, bad = [], [], []
+        answers_a = {}
+        cursor = iter(jobs)
+
+        def client() -> None:
+            while True:
+                with lock:
+                    job = next(cursor, None)
+                if job is None:
+                    return
+                scoring, i = job
+                try:
+                    got, per = routed_search(addrs, texts[i], k=k,
+                                             scoring=scoring, rtts=rtts)
+                except Exception as e:  # noqa: BLE001 — counted, none
+                    with lock:
+                        errors.append(repr(e))
+                    continue
+                with lock:
+                    if result_bits(got) != want[i] or {
+                            a["generation"] for a in per} != {gen_a}:
+                        bad.append(i)
+                    if scoring == "bm25":
+                        for s, a in enumerate(per):
+                            answers_a[(s, i)] = result_bits(
+                                [tuple(h) for h in a["hits"]])
+
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(SHARD_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        ms = np.array(rtts) * 1e3
+        out["routed"] = {"texts": len(jobs), "errors": len(errors),
+                         "mismatches": len(bad), "wall_s": wall,
+                         "routed_qps": len(jobs) / wall,
+                         "rpcs": len(rtts),
+                         "rtt_p50_ms": float(np.percentile(ms, 50)),
+                         "rtt_p99_ms": float(np.percentile(ms, 99))}
+        if errors or bad or len(rtts) != SHARD_WORKERS * len(jobs):
+            raise AssertionError(f"routed traffic: {out['routed']} "
+                                 f"{errors[:3]}")
+
+        # the rerank's two phases
+        rerank_texts = texts[:SHARD_RERANK_TEXTS]
+        t0 = time.perf_counter()
+        for text in rerank_texts:
+            hits, _ = routed_search(addrs, text, k=SHARD_RERANK,
+                                    scoring="bm25", rtts=[])
+            cand = [d for d, _ in hits]
+            cand += [0] * (SHARD_RERANK - len(cand))
+            scores = {s: rpc_post(a, "cosine_at", {"text": text,
+                                                   "cand": cand},
+                                  120)["scores"]
+                      for s, a in enumerate(addrs)}
+            got = merge_candidate_scores(cand, scores, ranges, k)
+            solo = scorer_a.search_batch([text], k=k, rerank=SHARD_RERANK,
+                                         return_docids=False)[0]
+            if result_bits(got) != result_bits(solo):
+                raise AssertionError(f"the routed rerank of {text!r} "
+                                     "differs from the rerank in one "
+                                     "process")
+        out["rerank"] = {"texts": len(rerank_texts),
+                         "candidates": SHARD_RERANK, "bitwise": True,
+                         "wall_s": time.perf_counter() - t0}
+        del scorer_a
+
+        # the rolling swap to B under probes
+        probe_idx = [SHARD_TEXTS + i for i in range(SHARD_PROBE_TEXTS)]
+        stop = threading.Event()
+        events, probe_errors = [], []
+
+        def probe(tid: int) -> None:
+            n = tid
+            while not stop.is_set():
+                s, i = n % SHARD_WORKERS, probe_idx[
+                    (n // SHARD_WORKERS) % len(probe_idx)]
+                try:
+                    a = rpc_post(addrs[s], "search", {
+                        "text": texts[i], "k": k, "scoring": "bm25"}, 120)
+                    with lock:
+                        events.append((time.perf_counter(), s, i,
+                                       a["generation"], result_bits(
+                                           [tuple(h) for h in a["hits"]])))
+                except Exception as e:  # noqa: BLE001 — counted, none
+                    with lock:
+                        probe_errors.append(repr(e))
+                n += SWAP_PROBE_THREADS
+
+        probes = [threading.Thread(target=probe, args=(t,), daemon=True)
+                  for t in range(SWAP_PROBE_THREADS)]
+        t_probe = time.perf_counter()
+        for th in probes:
+            th.start()
+        time.sleep(SWAP_PROBE_S)
+        t_w0 = time.perf_counter()
+        report = rolling_swap(ss, gen_b)
+        t_w1 = time.perf_counter()
+        time.sleep(SWAP_PROBE_S)
+        stop.set()
+        for th in probes:
+            th.join(timeout=600)
+        health = [get_worker_health(a, 60)["worker"] for a in addrs]
+        if (report["failed"] or len(report["swapped"]) != SHARD_WORKERS
+                or {h["index_generation"] for h in health} != {gen_b}
+                or probe_errors):
+            raise AssertionError(f"the rolling swap: {report} {health} "
+                                 f"{probe_errors[:3]}")
+        # B's answers, each worker's and merged against B loaded here
+        scorer_b = Scorer.load_generation(live, gen_b, device=device)
+        answers_b = {}
+        solo_b = scorer_b.search_batch([texts[i] for i in probe_idx], k=k,
+                                       scoring="bm25", return_docids=False)
+        for i, res in zip(probe_idx, solo_b):
+            got, per = routed_search(addrs, texts[i], k=k, scoring="bm25",
+                                     rtts=[])
+            if result_bits(got) != result_bits(res) or {
+                    a["generation"] for a in per} != {gen_b}:
+                raise AssertionError(f"B's routed answer of {texts[i]!r} "
+                                     "differs from B's in one process")
+            for s, a in enumerate(per):
+                answers_b[(s, i)] = result_bits([tuple(h)
+                                                 for h in a["hits"]])
+        del scorer_b
+        answers = {gen_a: answers_a, gen_b: answers_b}
+        tagged = {gen_a: 0, gen_b: 0}
+        for _t, s, i, gen, bits in events:
+            if gen not in answers or bits != answers[gen][(s, i)]:
+                raise AssertionError(f"a probe answer tagged {gen} of shard "
+                                     f"{s} is not that generation's")
+            tagged[gen] += 1
+        walk = {"wall_s": t_w1 - t_w0, "rounds": report["rounds"],
+                "probes": len(events), "answers_a": tagged[gen_a],
+                "answers_b": tagged[gen_b], "workers": []}
+        for s in range(SHARD_WORKERS):
+            times = sorted(t for t, ws, *_ in events if ws == s)
+            before = [t for t in times if t < t_w0]
+            after = [t for t in times if t > t_w1]
+            span = [before[-1]] + [t for t in times
+                                   if t_w0 <= t <= t_w1] + [after[0]]
+            first_b = min(t for t, ws, _i, g, _b in events
+                          if ws == s and g == gen_b)
+            walk["workers"].append({
+                "widest_gap_ms": 1e3 * float(np.diff(span).max()),
+                "baseline_gap_ms": 1e3 * float(np.diff(
+                    [t_probe] + before).max()),
+                "staleness_s": first_b - t_w0})
+        out["rolling_swap"] = walk
+        if not (tagged[gen_a] and tagged[gen_b]):
+            raise AssertionError(f"the probes saw {tagged}")
+
+        # a worker killed and respawned comes back on B
+        launches = {n: 0 for n in PORT_KERNELS}
+        for n, v in health[0]["kernel_launches"].items():
+            launches[n] += v
+        killed = ss.kill(0, 0)
+        t0 = time.perf_counter()
+        handle = ss.respawn(0, 0)
+        out["respawn_s"] = time.perf_counter() - t0
+        pids.add(handle.pid)
+        addrs = [row[0] for row in ss.addresses()]
+        back = get_worker_health(addrs[0], 60)["worker"]
+        i = probe_idx[0]
+        again = rpc_post(addrs[0], "search", {"text": texts[i], "k": k,
+                                              "scoring": "bm25"}, 120)
+        if (back["index_generation"] != gen_b or back["generation"] != 1
+                or result_bits([tuple(h) for h in again["hits"]])
+                != answers_b[(0, i)]):
+            raise AssertionError(f"the respawned worker: {back}")
+        out["respawned"] = {"killed_pid": killed, "pid": handle.pid,
+                            "index_generation": back["index_generation"],
+                            "spawn_generation": back["generation"]}
+        for h in (get_worker_health(a, 60)["worker"] for a in addrs):
+            for n, v in h["kernel_launches"].items():
+                launches[n] += v
+        out["launches"] = launches
+        out["launches_by_worker"] = [health[0]["kernel_launches"],
+                                     health[1]["kernel_launches"]]
+        if device == "cuda" and not all(
+                w["cold_tier"] and w["hot_stage"]
+                for w in out["launches_by_worker"]):
+            raise AssertionError(f"a worker never launched cold_tier and "
+                                 f"hot_stage: {out['launches_by_worker']}")
+    except BaseException:
+        for s in range(SHARD_WORKERS):
+            with contextlib.suppress(OSError):
+                with open(ss.log_path(s, 0)) as f:
+                    print(f"worker {s} log:\n{f.read()[-3000:]}",
+                          file=sys.stderr)
+        raise
+    finally:
+        ss.stop()
+        shutil.rmtree(ss.rundir, ignore_errors=True)
+    alive = [p for p in pids if pid_alive(p)]
+    codes = [h.proc.returncode for row in ss.handles() for h in row]
+    out["stopped"] = {"pids": len(pids), "alive": alive,
+                      "returncodes": codes}
+    if alive or codes != [0] * SHARD_WORKERS:
+        raise AssertionError(f"after stop(): {out['stopped']}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_live(card: str, work: str, *, device: str, k: int = 10,
+               before_checks=None) -> dict:
     """The live index at wiki100k (config `wiki100k-live`), from the corpus
     kept in `work`: generation A seeded through the command line, served
     through a coalesced ServingFrontend from Scorer.load_generation; the
@@ -4050,15 +4563,12 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
     # are read from the histograms the swap observes
     hist0 = reg.hist_state()
     unwarmed0 = reg.get("dispatch.unwarmed")
-    grew = []
-
-    def load_b():
-        before = torch.cuda.memory_allocated() if on_card else 0
-        frontend.reload_generation(generation=gen_b)
-        grew.append(torch.cuda.memory_allocated() - before if on_card
-                    else part_bytes(seg_b))
-
-    swap = swap_probes(frontend, texts, load_b, k=k)
+    reloads = []
+    swap = swap_probes(frontend, texts, lambda: reloads.append(
+        traced_reload(frontend, gen_b, device)), k=k)
+    reload_b = reloads[0]
+    if not on_card:
+        reload_b["allocated_growth"] = part_bytes(seg_b)
     scorer_b = frontend.scorer
     steps = reg.delta_summary(hist0, always=("generation.swap",
                                              "batch.precompile"))
@@ -4077,7 +4587,13 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
         "errors": len(swap["errors"]), "sheds": swap["sheds"],
         "probes": len(events), "generations_seen": gens,
         "degraded": sum(1 for e in events if e[4]),
-        "unwarmed": reg.get("dispatch.unwarmed") - unwarmed0}
+        "unwarmed": reg.get("dispatch.unwarmed") - unwarmed0,
+        "gap_within": gap_within(reload_b["timeline"],
+                                 swap["gap_opened_s"], swap["swap_gap_ms"])}
+    # what B's load moved across the link, and the reload's spans
+    out["reload_b"] = reload_b
+    if reload_b["bytes"] <= 0 or not reload_b["uploads"]:
+        raise AssertionError(f"B's load streamed nothing: {reload_b}")
     if (swap["errors"] or swap["sheds"] or gens != [gen_a, gen_b]
             or out["swap"]["degraded"] or out["swap"]["unwarmed"]
             or steps["batch.precompile"]["count"] != 1):
@@ -4110,9 +4626,11 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
         raise AssertionError(f"the swap back to A: {back['errors'][:3]}, "
                              f"{back['sheds']} shed")
     out["gap_trials"] = gap_trials(
-        frontend, texts, scorer_a, gen_b, seg_b, grew[0], k=k,
+        frontend, texts, scorer_a, gen_b, seg_b,
+        reload_b["allocated_growth"], reload_b["bytes"], k=k,
         device=device, done={"cold_load_coalesced": swap,
                              "preloaded_coalesced": back})
+    scorer_b = frontend.scorer
     del scorer_a, events, swap, back
 
     # B, loaded by the swap, serves the uniform queries as the one-shot
@@ -4142,6 +4660,9 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10) -> dict:
     shutil.rmtree(control)
     if on_card:
         torch.cuda.empty_cache()
+    if before_checks is not None:
+        # generations A and B are both still in the live dir here
+        before_checks(live, gen_a, gen_b)
 
     # the operator's checks
     t0 = time.perf_counter()
@@ -4342,13 +4863,71 @@ def phase_live_crash(card: str, work: str, *, device: str,
         raise AssertionError(f"the recovered generation's serve never "
                              f"launched dense_score: {launches}")
     out["bitwise_one_shot"] = True
-    del gen, one_shot
+    del one_shot
+    out["workers"] = http_workers(gen, restored, device=device, k=k)
+    del gen
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
     for path in (ops_path, ack, child_out, child_err):
         os.unlink(path)
     if on_card:
         torch.cuda.empty_cache()
+    return out
+
+
+CRASH_WORKERS = 3               # in-process dense workers of live_crash
+CRASH_WORKER_TEXTS = 128        # texts a scoring through them
+
+
+def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
+    """CRASH_WORKERS in-process workers (serve_worker, dense, warmed) on
+    the live dir's newest generation, over HTTP: CRASH_WORKER_TEXTS
+    TF-IDF and as many BM25 texts through every worker's /rpc/search,
+    merged by merge_shard_topk, bitwise `scorer`'s top-k; the kernels'
+    launches from the workers' start to the last answer (dense_score must
+    launch on the card)."""
+    import tpu_ir_torch
+    from tpu_ir_torch.serving import serve_worker
+
+    tpu_ir_torch.reset_kernel_launches()
+    t0 = time.perf_counter()
+    started = [serve_worker(live, s, CRASH_WORKERS, layout="dense",
+                            device=device)
+               for s in range(CRASH_WORKERS)]
+    out = {"workers": CRASH_WORKERS, "start_s": time.perf_counter() - t0}
+    try:
+        addrs = [f"127.0.0.1:{srv.port}" for srv, _, _ in started]
+        if any(sc.generation != scorer.generation or sc.layout != "dense"
+               for _, _, sc in started):
+            raise AssertionError("a worker serves another generation or "
+                                 "layout")
+        rng = np.random.default_rng(8)
+        terms = scorer.vocab.terms
+        rtts = []
+        t0 = time.perf_counter()
+        for scoring in ("tfidf", "bm25"):
+            texts = [" ".join(terms[int(t)] for t in row) for row in
+                     rng.integers(0, len(terms), (CRASH_WORKER_TEXTS, 2))]
+            want = scorer.search_batch(texts, k=k, scoring=scoring,
+                                       return_docids=False)
+            for text, res in zip(texts, want):
+                got, _ = routed_search(addrs, text, k=k, scoring=scoring,
+                                       rtts=rtts)
+                if result_bits(got) != result_bits(res):
+                    raise AssertionError(f"the dense workers' {scoring} "
+                                         f"answer of {text!r} differs from "
+                                         "the scorer's")
+        out["texts"] = 2 * CRASH_WORKER_TEXTS
+        out["wall_s"] = time.perf_counter() - t0
+        out["rtt_p50_ms"] = float(np.percentile(np.array(rtts) * 1e3, 50))
+        out["bitwise"] = True
+    finally:
+        for srv, _, _ in started:
+            srv.stop()
+    out["launches"] = tpu_ir_torch.kernel_launches()
+    if device == "cuda" and not out["launches"]["dense_score"]:
+        raise AssertionError(f"the dense workers never launched "
+                             f"dense_score: {out['launches']}")
     return out
 
 
@@ -4412,7 +4991,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     window, then in the wildcard phase, the kgram phase, the explain
     phases and the serving tier's phases; `fields` adds its source, what
     it replaces and its launches in the merge, warm, live (19d and 19e
-    together) and v1 phases."""
+    together), shard worker (the shards phase's workers and live_crash's
+    in-process ones) and v1 phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -4591,13 +5171,24 @@ def main() -> int:
         emit(phase_doctor(card, widx))
         # the live index: wiki100k, then the crash at ref scale (each
         # deletes its corpus)
-        live = phase_live(card, work, device="cuda")
+        shards = {}
+
+        def run_shards(live_dir, gen_a, gen_b):
+            shards.update(phase_shards(card, work, live_dir, gen_a, gen_b,
+                                       device="cuda"))
+            emit(shards)
+
+        live = phase_live(card, work, device="cuda",
+                          before_checks=run_shards)
         emit(live)
         torch.cuda.empty_cache()
         live_crash = phase_live_crash(card, work, device="cuda")
         emit(live_crash)
         live_launches = {n: live["launches"][n] + live_crash["launches"][n]
                          for n in PORT_KERNELS}
+        shard_launches = {
+            n: shards["launches"][n] + live_crash["workers"]["launches"][n]
+            for n in PORT_KERNELS}
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
                         device="cuda"))
@@ -4649,6 +5240,7 @@ def main() -> int:
                    merge_launches=merge["launches"]["dense_score"],
                    warm_launches=warm["launches"]["dense_score"],
                    live_launches=live_launches["dense_score"],
+                   shard_launches=shard_launches["dense_score"],
                    v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
@@ -4661,6 +5253,7 @@ def main() -> int:
                    merge_launches=merge["launches"]["dequant_score"],
                    warm_launches=warm["launches"]["dequant_score"],
                    live_launches=live_launches["dequant_score"],
+                   shard_launches=shard_launches["dequant_score"],
                    v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
@@ -4672,6 +5265,7 @@ def main() -> int:
                    merge_launches=merge["launches"]["cold_tier"],
                    warm_launches=warm["launches"]["cold_tier"],
                    live_launches=live_launches["cold_tier"],
+                   shard_launches=shard_launches["cold_tier"],
                    v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
@@ -4683,6 +5277,7 @@ def main() -> int:
                    merge_launches=merge["launches"]["hot_stage"],
                    warm_launches=warm["launches"]["hot_stage"],
                    live_launches=live_launches["hot_stage"],
+                   shard_launches=shard_launches["hot_stage"],
                    v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})

@@ -586,19 +586,24 @@ def test_v1_merge_warm_doctor_phases_on_cpu(tmp_path, monkeypatch):
 
 
 def test_live_phases_are_listed():
-    """Phases 19d and 19e exist and the docstring lists each by name."""
+    """Phases 19d and 19e exist and the docstring lists each by name, and
+    19d's text the shards phase it runs before its operator checks."""
     for num, name in (("19d", "live"), ("19e", "live_crash")):
         assert callable(getattr(chip_smoke, f"phase_{name}"))
         assert f"\n{num}. {name} " in chip_smoke.__doc__
+    assert callable(chip_smoke.phase_shards)
+    assert "`shards`" in chip_smoke.__doc__
 
 
 def test_live_phases_on_cpu(tmp_path, monkeypatch):
     """19d and 19e at a small size on the CPU: the seed through the
     command line, the delta with flushes and a merge, B == the one-shot
-    build, the swap under probes with its gap, B bitwise the one-shot
-    index, the operator checks; the backup and restore, the crash child
-    SIGKILLed at its third flush, the recovery to the control's bytes
-    and the dense serve of the recovered generation."""
+    build, the swap under probes with its gap and the streamed load's
+    spans, the gap trials, B bitwise the one-shot index, the shards phase
+    (subprocess workers on A, the rolling swap to B, the respawn), the
+    operator checks; the backup and restore, the crash child SIGKILLed at
+    its third flush, the recovery to the control's bytes, the dense serve
+    of the recovered generation and its in-process HTTP workers."""
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.search import scorer as scorer_mod
 
@@ -610,6 +615,11 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "SWAP_PROBE_S", 0.3)
     monkeypatch.setattr(chip_smoke, "SWAP_SAMPLE", 8)
     monkeypatch.setattr(chip_smoke, "LIVE_SERVE_TEXTS", 32)
+    monkeypatch.setattr(chip_smoke, "SHARD_TEXTS", 24)
+    monkeypatch.setattr(chip_smoke, "SHARD_CLIENTS", 4)
+    monkeypatch.setattr(chip_smoke, "SHARD_RERANK_TEXTS", 6)
+    monkeypatch.setattr(chip_smoke, "SHARD_PROBE_TEXTS", 6)
+    monkeypatch.setattr(chip_smoke, "CRASH_WORKER_TEXTS", 12)
     # ref (~2,200 terms x 201) dense, wiki100k (~3,300 x 301) tiered
     monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 600_000)
     work = str(tmp_path)
@@ -617,7 +627,14 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
                 target_bytes=300_000, vocab_size=3_000)
     make_corpus(os.path.join(work, "ref.trec"), seed=0, n_docs=200,
                 target_bytes=200_000, vocab_size=2_000)
-    live = chip_smoke.phase_live("cpu", work, device="cpu")
+    shards = {}
+
+    def run_shards(live_dir, gen_a, gen_b):
+        shards.update(chip_smoke.phase_shards("cpu", work, live_dir, gen_a,
+                                              gen_b, device="cpu"))
+
+    live = chip_smoke.phase_live("cpu", work, device="cpu",
+                                 before_checks=run_shards)
     assert live["seed"]["wal_appends"] == 260 and live["seed"]["wal_bytes"]
     assert live["seed"]["segments"] == ["seg-000001"]
     assert live["delta"]["ops"] == 40 + 24
@@ -642,13 +659,35 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     trials = live["gap_trials"]
     assert sorted(trials) == sorted([
         "cold_load_coalesced", "preloaded_coalesced", "cache_hit_coalesced",
-        "cache_hit_plain", "preloaded_plain", "upload_coalesced"])
+        "cache_hit_plain", "preloaded_plain", "upload_coalesced",
+        "stream_crossing", "pageable_crossing", "cold_streamed"])
     for name, trial in trials.items():
         assert trial["probes"] > 0 and trial["swap_gap_ms"] > 0, name
         assert trial["wake_gap_ms"] > 0 and trial["reload_wall_s"] > 0, name
     assert trials["cache_hit_coalesced"]["part_opens"] == 0
     assert trials["cache_hit_plain"]["part_opens"] == 0
     assert trials["upload_coalesced"]["bytes"] > 0
+    # the streamed uploads: what crossed, the copies of as many bytes,
+    # the cold streamed load's timeline
+    reload_b = live["reload_b"]
+    assert reload_b["bytes"] > 0 and reload_b["uploads"] >= 10
+    names = {row[0] for row in reload_b["timeline"]}
+    assert {"load.meta", "load.vocab", "load.read", "load.layout",
+            "load.strip", "load.h2d", "load.norms", "warm_up"} <= names
+    for name in ("stream_crossing", "pageable_crossing"):
+        assert trials[name]["bytes"] == reload_b["bytes"]
+        assert trials[name]["gb_per_s"] > 0
+    assert trials["cold_streamed"]["bytes"] == reload_b["bytes"]
+    assert set(swap["gap_within"]) <= names
+    # the shard workers on A, the rolling swap to B, the respawn
+    assert shards["routed"]["mismatches"] == 0
+    assert shards["routed"]["rpcs"] == 2 * 2 * 24
+    assert shards["rerank"]["bitwise"]
+    walk = shards["rolling_swap"]
+    assert walk["answers_a"] and walk["answers_b"]
+    assert len(walk["workers"]) == 2
+    assert shards["respawned"]["index_generation"] == live["generation_b"]
+    assert shards["stopped"]["alive"] == []
     crash = chip_smoke.phase_live_crash("cpu", work, device="cpu")
     assert crash["restore_verified"] and crash["backup"]["bytes_linked"]
     assert crash["backup"]["wal_segments"] == 1
@@ -657,5 +696,6 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert 0 < crash["acked_ops"] < 60
     assert crash["identical_artifacts"] == live["identical_artifacts"]
     assert crash["bitwise_one_shot"]
+    assert crash["workers"]["bitwise"] and crash["workers"]["texts"] == 24
     assert os.listdir(work) == []
-    json.dumps([live, crash])
+    json.dumps([live, crash, shards])

@@ -1040,3 +1040,148 @@ def test_live_generation_serves_its_one_shot_twin_on_card(cuda, tmp_path,
         assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
     else:
         assert launches["dense_score"] >= 1
+
+
+# -- the streamed upload (utils/transfer.py::stream_to_device) ---------------
+
+_CHUNK = 4096
+
+
+def _upload_case(kind: str, dtype, tmp_path) -> np.ndarray:
+    """A host array of one size class: 0-d, empty, one element, exactly
+    one chunk, one chunk plus one element, or a memory-mapped file of
+    several chunks."""
+    rng = np.random.default_rng(7)
+    item = np.dtype(dtype).itemsize
+    n = {"scalar": 1, "empty": 0, "one": 1, "chunk": _CHUNK // item,
+         "chunk_plus_one": _CHUNK // item + 1,
+         "mmap": 5 * _CHUNK // item + 3}[kind]
+    a = rng.integers(-2**15, 2**15, n).astype(dtype) if dtype != np.float32 \
+        else rng.standard_normal(n).astype(np.float32)
+    if kind == "scalar":
+        return a.reshape(())
+    if kind == "mmap":
+        path = str(tmp_path / "a.bin")
+        a.tofile(path)
+        return np.memmap(path, dtype=dtype, mode="r", shape=(n,))
+    return a
+
+
+@pytest.mark.parametrize("kind", ["scalar", "empty", "one", "chunk",
+                                  "chunk_plus_one", "mmap"])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint16, np.float32,
+                                   np.int16])
+def test_stream_to_device_bitwise_on_card(cuda, tmp_path, kind, dtype):
+    """Each size class and dtype comes back bit for bit (uint16 as int16
+    bits, a bf16 column as the int16 bits it travels in), with the
+    counter grown by its bytes."""
+    from tpu_ir_torch.obs import get_registry
+    from tpu_ir_torch.utils.transfer import stream_to_device
+
+    a = _upload_case(kind, dtype, tmp_path)
+    before = get_registry().get("load.h2d_bytes")
+    t = stream_to_device(a, device=cuda, chunk_bytes=_CHUNK, label="case")
+    assert t.device.type == "cuda" and tuple(t.shape) == a.shape
+    host = t.cpu().numpy()
+    assert host.tobytes() == np.ascontiguousarray(a).tobytes()
+    assert get_registry().get("load.h2d_bytes") - before == a.nbytes
+    if dtype == np.int16:
+        bf = t.view(torch.bfloat16).cpu().view(torch.int16).numpy()
+        assert bf.tobytes() == np.ascontiguousarray(a).tobytes()
+
+
+def _busy(cycles: int = 500_000_000) -> None:
+    """Keep the current stream busy for a while (~0.25 s on the card)."""
+    torch.cuda._sleep(cycles)
+
+
+def test_stream_refills_no_staging_buffer_in_flight(cuda):
+    """Hazard (i): with the caller's stream busy, none of the copies can
+    start (the side stream waits for it), so the host reaches each
+    staging buffer again while its copy is still queued; it must wait,
+    or later chunks would overwrite earlier ones' bytes."""
+    from tpu_ir_torch.utils.transfer import stream_to_device
+
+    a = np.arange(64 * 1024 * 1024 // 4, dtype=np.int32)   # 64 chunks
+    _busy()
+    t = stream_to_device(a, device=cuda, chunk_bytes=1 << 20)
+    assert np.array_equal(t.cpu().numpy(), a)
+
+
+def test_stream_keeps_off_a_freed_block_still_read(cuda):
+    """Hazard (ii): a block freed on the caller's stream while a queued
+    kernel still reads it is handed to the upload's destination; the
+    side stream waits for the caller's stream, so the queued read sees
+    the old bytes and the upload the new ones."""
+    from tpu_ir_torch.utils.transfer import stream_to_device
+
+    n = 16 * 1024 * 1024
+    x = torch.full((n,), 3, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    _busy()
+    y = x * 2                       # queued behind the busy kernel
+    ptr = x.data_ptr()
+    del x                           # free while y's kernel is queued
+    a = np.full(n, 7, np.int32)
+    t = stream_to_device(a, device=cuda, chunk_bytes=1 << 20)
+    reused = t.data_ptr() == ptr
+    assert torch.equal(y, torch.full_like(y, 6))
+    assert np.array_equal(t.cpu().numpy(), a)
+    assert reused, "the allocator did not reuse the freed block"
+
+
+def test_stream_result_is_ready_on_the_callers_stream(cuda):
+    """Hazard (iii): work queued on the caller's stream right after the
+    return reads the whole upload, although the copies started late."""
+    from tpu_ir_torch.utils.transfer import stream_to_device
+
+    a = np.random.default_rng(3).integers(0, 1 << 30, 64 << 20,
+                                          dtype=np.int32)   # 256 MiB
+    _busy()
+    t = stream_to_device(a, device=cuda, chunk_bytes=8 << 20)
+    read = t.clone()                # queued at once on the caller's stream
+    total = int(read.to(torch.int64).sum())
+    assert total == int(a.astype(np.int64).sum())
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_doc_range_tiered_worker_bitwise_on_card(serving_index, shards):
+    """Tiered doc-range scorers on the card: the exact merge of their
+    top-10 is the unrestricted scorer's, bit for bit, TF-IDF and BM25,
+    and the rerank's stage 2 through cosine_scores_at; the restricted
+    scorers run cold_tier and hot_stage."""
+    from tpu_ir_torch.search.layout import shard_doc_ranges
+    from tpu_ir_torch.serving.router import (
+        merge_candidate_scores,
+        merge_shard_topk,
+    )
+
+    full = Scorer.load(serving_index, layout="sparse")
+    ranges = shard_doc_ranges(full.meta.num_docs, shards)
+    workers = [Scorer.load(serving_index, layout="sparse", doc_range=rg)
+               for rg in ranges]
+    texts = _texts(full, 2, 40, seed=31)
+    tpu_ir_torch.reset_kernel_launches()
+    for scoring in ("tfidf", "bm25"):
+        want = full.search_batch(texts, k=10, scoring=scoring,
+                                 return_docids=False)
+        per = [w.search_batch(texts, k=10, scoring=scoring,
+                              return_docids=False) for w in workers]
+        for i, res in enumerate(want):
+            got = merge_shard_topk([list(p[i]) for p in per], 10)
+            assert _bits(got) == _bits(res)
+    launches = tpu_ir_torch.kernel_launches()
+    assert launches["cold_tier"] >= 1 and launches["hot_stage"] >= 1
+    c = 25
+    for text in texts[:10]:
+        want = full.search_batch([text], k=10, rerank=c,
+                                 return_docids=False)[0]
+        hits = merge_shard_topk(
+            [list(w.search_batch([text], k=c, scoring="bm25",
+                                 return_docids=False)[0])
+             for w in workers], c)
+        cand = [d for d, _ in hits] + [0] * (c - len(hits))
+        scores = {s: w.cosine_scores_at([text], cand)[0]
+                  for s, w in enumerate(workers)}
+        got = merge_candidate_scores(cand, scores, ranges, 10)
+        assert _bits(got) == _bits(want)

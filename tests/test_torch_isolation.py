@@ -2,10 +2,12 @@
 package (nor ml_dtypes), and no file of it (nor chip_smoke.py) imports
 any of them — the card's host has none."""
 
+import json
 import os
 import re
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -47,6 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.index.segments, tpu_ir_torch.index.wal, "
             "tpu_ir_torch.index.ingest, tpu_ir_torch.index.backup, "
             "tpu_ir_torch.index.doctor, tpu_ir_torch.serving.soak, "
+            "tpu_ir_torch.obs.server, tpu_ir_torch.obs.disttrace, "
+            "tpu_ir_torch.serving.shardset, tpu_ir_torch.serving.router, "
+            "tpu_ir_torch.serving.generation, "
+            "tpu_ir_torch.serving.residency, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
@@ -100,3 +106,57 @@ def test_feeder_child_loads_no_jax(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "loaded: []"
     assert open(ack).read().split() == [f"FEED-{i:06d}" for i in range(3)]
+
+
+def test_worker_subprocess_loads_no_jax(tmp_path):
+    """A shard worker as ShardSet spawns it (`python -m
+    tpu_ir_torch.serving.shardset <config>`), on the CPU over a small
+    index, warmed: it imports neither JAX nor the JAX package, and exits
+    0 on SIGTERM."""
+    from tpu_ir_torch.index import build_index
+    from tpu_ir_torch.serving import get_worker_health
+
+    corpus = str(tmp_path / "c.trec")
+    with open(corpus, "w") as f:
+        for i in range(30):
+            f.write(f"<DOC>\n<DOCNO> D-{i:03d} </DOCNO>\n<TEXT>\n"
+                    f"salmon river w{i % 7} fox w{i % 3}\n</TEXT>\n</DOC>\n")
+    index_dir = str(tmp_path / "idx")
+    build_index(corpus, index_dir, num_shards=2, device="cpu")
+    ready = str(tmp_path / "w.ready")
+    cfg = str(tmp_path / "w.json")
+    with open(cfg, "w") as f:
+        json.dump({"index_dir": index_dir, "shard": 0, "num_shards": 2,
+                   "ready_path": ready, "device": "cpu", "warm": True}, f)
+    check = ("import atexit, runpy, sys\n"
+             "def _check():\n"
+             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
+             "    print('loaded:', bad, flush=True)\n"
+             "atexit.register(_check)\n"
+             "runpy.run_module('tpu_ir_torch.serving.shardset', "
+             "run_name='__main__')\n")
+    out_path, err_path = str(tmp_path / "out"), str(tmp_path / "err")
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        # stdin stays open: the worker exits at once when it closes
+        proc = subprocess.Popen([sys.executable, "-c", check, cfg],
+                                cwd=ROOT, stdin=subprocess.PIPE,
+                                stdout=out, stderr=err, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not os.path.exists(ready) and time.monotonic() < deadline:
+            assert proc.poll() is None, open(err_path).read()[-2000:]
+            time.sleep(0.05)
+        with open(ready) as f:
+            port = json.load(f)["port"]
+        assert get_worker_health(f"127.0.0.1:{port}", 10)["worker"][
+            "residency"]["mode"] == "auto"
+        proc.terminate()
+        assert proc.wait(timeout=60) == 0, open(err_path).read()[-2000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdin.close()
+    lines = open(out_path).read().strip().splitlines()
+    assert lines[-1] == "loaded: []"

@@ -1,7 +1,8 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
-`serve-bench`, `ingest`, `compact`, `generations`, `backup`, `pack`,
-`count` and `docno`, with tpu_ir's flag names and defaults.
+`serve-bench`, `serve-worker`, `ingest`, `compact`, `generations`,
+`backup`, `pack`, `count` and `docno`, with tpu_ir's flag names and
+defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -28,6 +29,10 @@
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
+    python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
+        [--host H] [--replica R] [--layout auto|dense|sparse]
+        [--deadline S] [--concurrency N] [--queue-depth N] [--no-warm]
+        [--run-for S] [--device cuda|cpu]
     python -m tpu_ir_torch.cli ingest LIVE [--init [--shards N]
         [--chargram-k 2 3]] [--add TREC...] [--update TREC...]
         [--delete DOCID...] [--merge | --compact] [--gc]
@@ -42,8 +47,9 @@
     python -m tpu_ir_torch.cli count CORPUS...
     python -m tpu_ir_torch.cli docno IDX list|getDocno DOCID|getDocid DOCNO
 
-`index`, `search`, `merge`, `warm`, `serve-bench`, `ingest` and `compact`
-run on CUDA unless `--device cpu` is given; the others run on the host.
+`index`, `search`, `merge`, `warm`, `serve-bench`, `serve-worker`,
+`ingest` and `compact` run on CUDA unless `--device cpu` is given; the
+others run on the host.
 `verify` and `doctor` take a live index dir too (its verify_live and
 live topology reports). Each prints its JSON
 report last (`inspect` prints an index dir's metadata and its first
@@ -60,8 +66,13 @@ prints one `error:` line and exits 1, as tpu_ir's command line does.
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
 exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
-`ingest --swap-bench` and `--soak-bench` exit 1 with an error naming the
-later slice (the routed serving tier) that brings them.
+`serve-worker` serves one doc shard's RPC surface (serving/shardset.py)
+and prints one ready JSON line; `--run-for S` stops it after S seconds.
+`ingest --swap-bench` runs the ingest -> compact -> swap micro-bench and
+prints its report with the row the JAX package would append to
+BENCH_HISTORY.jsonl (`history` is null: the port writes no row).
+`ingest --soak-bench` exits 1 with an error naming the later slice (the
+router, ROADMAP 6b-2) that brings it.
 """
 
 from __future__ import annotations
@@ -177,23 +188,76 @@ def cmd_verify(args) -> int:
     return 0
 
 
+def cmd_serve_worker(args) -> int:
+    """One shard worker (serving/shardset.py::serve_worker) in this
+    process: prints one ready JSON line (addr, port, shard, num_shards,
+    replica, pid, index_generation, doc_range), then serves until SIGTERM,
+    Ctrl-C or `--run-for` seconds."""
+    from . import faults
+    from .serving.shardset import serve_worker, sigterm_flag, wait_until
+
+    try:
+        shard_s, _, total_s = args.shard.partition("/")
+        shard, num_shards = int(shard_s), int(total_s)
+    except ValueError:
+        print(f"--shard {args.shard!r}: expected i/S (e.g. 0/4)",
+              file=sys.stderr)
+        return 2
+    if not 0 <= shard < num_shards:
+        print(f"--shard {args.shard!r}: shard index out of range",
+              file=sys.stderr)
+        return 2
+    layout = "sparse" if args.layout == "auto" else args.layout
+    stopped = sigterm_flag()
+    server, _frontend, scorer = serve_worker(
+        args.index_dir, shard, num_shards, layout=layout, port=args.port,
+        host=args.host, replica=args.replica, deadline_s=args.deadline,
+        max_concurrency=args.concurrency, max_queue=args.queue_depth,
+        warm=not args.no_warm, device=args.device)
+    print(json.dumps({
+        "addr": f"{args.host}:{server.port}", "port": server.port,
+        "shard": shard, "num_shards": num_shards, "replica": args.replica,
+        "pid": os.getpid(), "index_generation": scorer.generation,
+        "doc_range": list(scorer.doc_range or ()),
+    }, sort_keys=True), flush=True)
+    try:
+        wait_until(stopped, args.run_for or None)
+    finally:
+        server.stop()
+        faults.drain_abandoned(timeout_s=5.0)
+    return 0
+
+
 def cmd_ingest(args) -> int:
     """The live index's write surface (index/ingest.py): `--init` creates
     a live dir; `--add`/`--update` feed TREC corpora through the
     IngestWriter, `--delete` tombstones docids, `--merge` runs one tiered
     merge step, `--compact` folds everything into one servable segment,
     `--gc` prunes old generations. One JSON summary on stdout.
-    `--swap-bench` and `--soak-bench` raise ValueError: they come with
-    the routed serving tier, a later slice."""
+    `--swap-bench` runs serving/generation.py::swap_microbench on the
+    live dir (created if missing); `--soak-bench` raises ValueError: it
+    comes with the router, a later slice."""
     from .index import segments as seg
     from .index.ingest import IngestWriter, ingest_corpus
 
-    if args.swap_bench or args.soak_bench:
-        bench = "--swap-bench" if args.swap_bench else "--soak-bench"
+    if args.swap_bench:
+        from .serving.generation import swap_microbench
+
+        report = swap_microbench(args.live_dir, device=args.device)
+        row = {"config": "ingest_swap", "backend": args.device,
+               "num_docs": report["num_docs_b"],
+               "swap_gap_ms": report["swap_gap_ms"],
+               "swap_staleness_ms": report["swap_staleness_ms"],
+               "swap_wall_s": report["swap_wall_s"]}
+        report["history"] = None
+        report["history_row"] = row
+        print(json.dumps(report, sort_keys=True))
+        return 0
+    if args.soak_bench:
         raise ValueError(
-            f"ingest {bench} is not ported yet: the swap under traffic "
-            "comes with the routed serving tier, a later slice of the "
-            "port (ROADMAP item 6b)")
+            "ingest --soak-bench is not ported yet: the durable ingest and "
+            "serve soak comes with the router of the routed serving tier, "
+            "a later slice of the port (ROADMAP item 6b-2)")
     if args.init and not seg.is_live(args.live_dir):
         seg.LiveIndex.create(args.live_dir, k=args.k,
                              num_shards=args.shards,
@@ -924,6 +988,40 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_serve_bench)
 
+    psw = sub.add_parser(
+        "serve-worker",
+        help="a shard worker: serve one doc shard's /rpc surface on a "
+             "port until SIGTERM (or --run-for)")
+    psw.add_argument("index_dir")
+    psw.add_argument("--shard", required=True, metavar="i/S",
+                     help="this worker's shard index and the shard count, "
+                          "e.g. 0/4 (every worker derives the same doc "
+                          "partition)")
+    psw.add_argument("--port", type=int, default=0,
+                     help="listen port (0 = a free one, given in the "
+                          "ready JSON)")
+    psw.add_argument("--host", default="127.0.0.1",
+                     help="bind address (the default is reachable from "
+                          "this machine only)")
+    psw.add_argument("--replica", type=int, default=0,
+                     help="replica index within the shard (identity only; "
+                          "shown in /healthz)")
+    psw.add_argument("--layout", choices=["auto", "dense", "sparse"],
+                     default="auto")
+    psw.add_argument("--deadline", type=float, default=None,
+                     help="per-request device dispatch deadline (s)")
+    psw.add_argument("--concurrency", type=int, default=4,
+                     help="admission: requests executing at once")
+    psw.add_argument("--queue-depth", type=int, default=16,
+                     help="admission: requests waiting for a slot")
+    psw.add_argument("--no-warm", action="store_true",
+                     help="skip the shape warm-up and the residency hint")
+    psw.add_argument("--run-for", type=float, default=None, metavar="S",
+                     help="serve for S seconds, then exit (default: until "
+                          "SIGTERM or Ctrl-C)")
+    psw.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    psw.set_defaults(fn=cmd_serve_worker)
+
     pin = sub.add_parser(
         "ingest",
         help="live index writes: buffered add/update/delete flushed to "
@@ -966,11 +1064,12 @@ def main(argv: list[str] | None = None) -> int:
     pin.add_argument("--chargram-k", type=int, nargs="*",
                      default=[2, 3], help="--init: char-gram sizes")
     pin.add_argument("--swap-bench", action="store_true",
-                     help="the ingest->compact->swap micro-bench: not "
-                          "ported yet (the routed serving tier's slice)")
+                     help="run the ingest->compact->swap micro-bench "
+                          "against live_dir (created if missing) and "
+                          "print swap_gap_ms (no history row is written)")
     pin.add_argument("--soak-bench", action="store_true",
                      help="the durable ingest+serve soak: not ported yet "
-                          "(the routed serving tier's slice)")
+                          "(the router's slice, ROADMAP 6b-2)")
     pin.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pin.set_defaults(fn=cmd_ingest)
 

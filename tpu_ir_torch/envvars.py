@@ -80,6 +80,15 @@ a choice outside its set raises.
                              heartbeat, or a dead holder, is taken over at
                              the next writer open (default 10.0, at least
                              0.5)
+    TPU_IR_H2D_CHUNK_BYTES   bytes of one chunk of a host-to-device upload
+                             (utils/transfer.py::stream_to_device; default
+                             64 MiB, at least 1); on the card each of the
+                             two pinned staging buffers has this size
+    TPU_IR_HOT_RESIDENCY     auto | 0 | 1: pre-build a shard worker's
+                             hot-postings state (the weighted strips and
+                             block-max tables, or the dense tf matrix) at
+                             load; auto engages when the top-df decile
+                             holds at least half the postings
 """
 
 from __future__ import annotations
@@ -99,7 +108,8 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_INGEST_BUFFER_DOCS": (1000, 1),
          "TPU_IR_INGEST_KEEP_GENERATIONS": (8, 1),
          "TPU_IR_MERGE_FACTOR": (4, 2),
-         "TPU_IR_WAL_FSYNC_DOCS": (32, 1)}
+         "TPU_IR_WAL_FSYNC_DOCS": (32, 1),
+         "TPU_IR_H2D_CHUNK_BYTES": (64 << 20, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
@@ -114,7 +124,8 @@ _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),
-            "TPU_IR_CACHE_REVALIDATE": ("stat", ("stat", "crc"))}
+            "TPU_IR_CACHE_REVALIDATE": ("stat", ("stat", "crc")),
+            "TPU_IR_HOT_RESIDENCY": ("auto", ("auto", "0", "1"))}
 
 
 def _raw(name: str) -> str | None:

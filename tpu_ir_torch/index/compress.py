@@ -328,9 +328,16 @@ def encode_shard(z: Mapping[str, np.ndarray], *, num_docs: int,
     }
 
 
-def decode_shard(sections: Mapping[str, np.ndarray]) -> dict:
+def decode_shard(sections: Mapping[str, np.ndarray], *,
+                 doc_range: tuple[int, int] | None = None) -> dict:
     """Decode compressed sections back to the raw shard dict, in the
-    builders' canonical impact order."""
+    builders' canonical impact order.
+
+    With `doc_range=(lo, hi)` (half-open), grid groups whose doc block
+    lies wholly outside [lo, hi) are not decoded: their postings come
+    back as the (doc=0, tf=0) dead slot, an exact additive zero for every
+    scoring path, and their payload bits are never unpacked. Flat groups
+    (the sparse tail the encoder kept out of the grid) always decode."""
     info = np.asarray(sections[COMPRESS_INFO], np.int64)
     if info[_I_VERSION] != CODEC_VERSION:
         raise ValueError(f"unknown compressed codec version "
@@ -356,18 +363,24 @@ def decode_shard(sections: Mapping[str, np.ndarray]) -> dict:
     grp_nbytes = (f_count * f_w + 7) >> 3
     grp_byte0 = np.concatenate([[0], np.cumsum(grp_nbytes)])[:-1] \
         if G else np.zeros(0, np.int64)
+    live = np.ones(G, bool)
+    if doc_range is not None and G:
+        lo, hi = int(doc_range[0]), int(doc_range[1])
+        live = grp_is_flat | (((f_blk + 1) * width > lo)
+                              & (f_blk * width < hi))
 
     docs = np.zeros(P, np.int64)
     tfs = np.zeros(P, np.int64)
     if P:
         post_grp = np.repeat(np.arange(G, dtype=np.int64), f_count)
-        w_post = f_w[post_grp]
-        idx_in_grp = np.arange(P, dtype=np.int64) - _segment_starts(
-            f_count)[post_grp]
-        bit_start = grp_byte0[post_grp] * 8 + idx_in_grp * w_post
-        base = np.where(grp_is_flat[post_grp], 0, f_blk[post_grp] * width)
-        docs = _unpack_bits(payload, bit_start, w_post) + base
-        tfs = _decode_tf(sections, int(info[_I_TF_MODE])).astype(np.int64)
+        sel = np.flatnonzero(live[post_grp])
+        g = post_grp[sel]
+        w_sel = f_w[g]
+        idx_in_grp = sel - _segment_starts(f_count)[g]
+        bit_start = grp_byte0[g] * 8 + idx_in_grp * w_sel
+        base = np.where(grp_is_flat[g], 0, f_blk[g] * width)
+        docs[sel] = _unpack_bits(payload, bit_start, w_sel) + base
+        tfs[sel] = _decode_tf(sections, int(info[_I_TF_MODE]))[sel]
 
     term_idx = np.repeat(np.arange(T, dtype=np.int64), df.astype(np.int64))
     restore = _canonical_perm(term_idx, docs, tfs)

@@ -528,20 +528,22 @@ def _shard_arrays(buf, path: str, *, verify: bool) -> dict[str, np.ndarray]:
     return _arena_views(buf, header, data_start, path, verify=verify)
 
 
-def load_shard(index_dir: str, shard: int, *,
-               decode: bool = False) -> dict[str, np.ndarray]:
+def load_shard(index_dir: str, shard: int, *, decode: bool = False,
+               doc_range: tuple[int, int] | None = None
+               ) -> dict[str, np.ndarray]:
     """Map one part, whichever format is on disk, without verifying it (an
     npz part cannot be mapped and is read whole). A compressed part's
     sections come back as they are, or decoded to the five raw arrays
-    with `decode`."""
+    with `decode`, the doc blocks wholly outside the half-open
+    `doc_range` left as (doc 0, tf 0) slots (compress.decode_shard)."""
     path = part_path(index_dir, shard)
     if not path.endswith(ARENA_SUFFIXES):
         with np.load(path, allow_pickle=False) as npz:
             return {name: npz[name] for name in npz.files}
     z = _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
                       verify=False)
-    return compress.decode_shard(z) if decode and compress.is_compressed(
-        z) else z
+    return (compress.decode_shard(z, doc_range=doc_range)
+            if decode and compress.is_compressed(z) else z)
 
 
 def read_part(path: str) -> dict[str, np.ndarray]:
@@ -553,11 +555,13 @@ def read_part(path: str) -> dict[str, np.ndarray]:
     return compress.decode_shard(z) if compress.is_compressed(z) else z
 
 
-def load_shard_verified(index_dir: str, shard: int,
-                        meta: IndexMetadata) -> dict[str, np.ndarray]:
+def load_shard_verified(index_dir: str, shard: int, meta: IndexMetadata,
+                        *, doc_range: tuple[int, int] | None = None
+                        ) -> dict[str, np.ndarray]:
     """Verify-while-read shard load: one streamed pass folds the file's
     CRC32 and compares it with the metadata digest, then the arrays are
-    viewed from the in-memory buffer (a compressed part's decoded).
+    viewed from the in-memory buffer (a compressed part's decoded, with
+    `doc_range` as in load_shard).
     Raises IntegrityError on a mismatch or a missing part.
 
     In a mid-migration dir the part metadata names may be gone, already
@@ -585,7 +589,8 @@ def load_shard_verified(index_dir: str, shard: int,
     # the whole-file digest matched, so section CRCs only need checking
     # when metadata recorded nothing to pin the bytes
     z = _shard_arrays(buf, path, verify=want is None)
-    return compress.decode_shard(z) if compress.is_compressed(z) else z
+    return (compress.decode_shard(z, doc_range=doc_range)
+            if compress.is_compressed(z) else z)
 
 
 def save_chargram(index_dir: str, k: int, *, gram_codes: np.ndarray,

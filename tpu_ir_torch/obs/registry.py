@@ -3,9 +3,9 @@ latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
 `fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
-`generation.*`), every latency histogram under its span or stage name.
-The declared names (gauges too) are registered at zero,
-so a report always shows them, observed or not. `hist_state()` and
+`generation.*`, `load.*`, `router.*`), every latency histogram under its
+span or stage name. The declared names (gauges too) are registered at
+zero, so a report always shows them, observed or not. `hist_state()` and
 `delta_summary()` give one run's percentiles without a reset of the
 process's state; `reset()` zeroes everything (the tests' isolation hook).
 """
@@ -86,6 +86,14 @@ INGEST_COUNTER_NAMES = (
     "ingest.lease_conflicts", "ingest.wal_bytes",
 )
 
+# load-time uploads (utils/transfer.py::stream_to_device): the bytes
+# that crossed the host-to-device link
+LOAD_COUNTER_NAMES = ("load.h2d_bytes",)
+
+# the shard worker tier (serving/shardset.py): workers brought back by
+# ShardSet.respawn
+SHARD_COUNTER_NAMES = ("router.worker_respawn",)
+
 # the live index's gauges: the generation a commit or a swap made
 # current, its segment count and its tombstones
 DECLARED_GAUGES = ("generation.current", "generation.segments",
@@ -96,16 +104,21 @@ DECLARED_COUNTERS = (
     + tuple(f"recovery.{n}" for n in RECOVERY_COUNTER_NAMES)
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
-    + INGEST_COUNTER_NAMES)
+    + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + SHARD_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
-# frontend's start and inside each generation swap
+# frontend's start and inside each generation swap; load.* are
+# Scorer.load's stages (the metadata and side-file checks, the vocabulary
+# and docnos, the part reads, the layout, the doc norms, the cache write,
+# the strip build on the device) and load.h2d one streamed upload
+LOAD_STAGES = ("load.meta", "load.vocab", "load.read", "load.layout",
+               "load.norms", "load.cache_write", "load.strip", "load.h2d")
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
                           "batch.precompile", "cache.lookup",
                           "ingest.flush", "ingest.replay", "merge.run",
-                          "generation.swap"))
+                          "generation.swap") + LOAD_STAGES)
 
 
 class TelemetryRegistry:
@@ -118,6 +131,14 @@ class TelemetryRegistry:
         self._gauges: dict[str, float] = {n: 0.0 for n in DECLARED_GAUGES}
         self._hists: dict[str, LatencyHistogram] = {
             n: LatencyHistogram() for n in DECLARED_HISTOGRAMS}
+        self._seq = 0
+
+    @property
+    def seq(self) -> int:
+        """How many times this registry was reset (never zeroed): two
+        reads with the same seq saw no reset between them."""
+        with self._lock:
+            return self._seq
 
     # -- counters ----------------------------------------------------------
 
@@ -188,6 +209,7 @@ class TelemetryRegistry:
                 else:
                     del self._counters[k]
             self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
+            self._seq += 1
             hists = list(self._hists.values())
         for h in hists:
             h.reset()

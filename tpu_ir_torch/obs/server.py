@@ -1,0 +1,246 @@
+"""The embedded HTTP server of a serving process: the half of
+`tpu_ir/obs/server.py` a shard worker needs.
+
+One stdlib `ThreadingHTTPServer` (daemon request threads, port 0 picks a
+free one) serves:
+
+  POST /rpc/<name>   the instance's RPC handlers (`rpc_handlers`): a JSON
+                     body in, the handler's JSON out. 503 with `reason`
+                     and `level` when the handler sheds (Overloaded), 500
+                     with the repr of any other error, 404 for another
+                     route or an unknown handler, 400 for a malformed body.
+  GET  /healthz      liveness and the serving control plane: the newest
+                     live frontend's breaker, ladder and queue depth, every
+                     live frontend's stats, the ingest counters, and the
+                     instance's `extra_health` (a worker's identity).
+
+`/metrics`, the telemetry spool, the timeseries sampler, the HTML pages
+and trace-context adoption are not ported yet. The health keys are
+`tpu_ir`'s; those whose source the port lacks (`jobs_running`,
+`recompiles_last_60s`, `slow_queries_last_60s`) read None, the JAX
+package's own value when a source fails.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+import weakref
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import urlparse
+
+from .registry import get_registry
+
+logger = logging.getLogger(__name__)
+
+_health_lock = threading.Lock()
+_frontends: list = []  # weakrefs to live ServingFrontends, oldest first
+
+_PROCESS_START = time.time()
+_PROCESS_START_ISO = time.strftime("%Y-%m-%dT%H:%M:%S",
+                                   time.localtime(_PROCESS_START))
+_BUILD_SHA: list = []
+
+
+def register_health_source(frontend) -> None:
+    """Called by ServingFrontend.__init__: /healthz reports the state of
+    every frontend still alive (weakrefs: the server never keeps a dead
+    frontend's scorer on the card)."""
+    with _health_lock:
+        _frontends.append(weakref.ref(frontend))
+
+
+def _live_frontends() -> list:
+    with _health_lock:
+        alive = [(r, r()) for r in _frontends]
+        _frontends[:] = [r for r, f in alive if f is not None]
+        return [f for _, f in alive if f is not None]
+
+
+def _build_sha() -> str | None:
+    """The checkout's short commit, asked once (None outside a git
+    checkout)."""
+    if not _BUILD_SHA:
+        try:
+            import subprocess
+
+            sha = subprocess.run(
+                ["git", "rev-parse", "--short", "HEAD"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=10).stdout.strip()
+        except Exception:  # noqa: BLE001 — health must not 500
+            sha = ""
+        _BUILD_SHA.append(sha or None)
+    return _BUILD_SHA[0]
+
+
+def health_snapshot() -> dict:
+    """The /healthz payload: the newest live frontend's breaker, ladder
+    and queue depth at the top level (what an alerting rule matches),
+    every live frontend under `frontends`, and this process's ingest
+    counters."""
+    reg = get_registry()
+    out = {
+        "status": "ok",
+        "breaker": None,
+        "ladder": None,
+        "queue_depth": None,
+        "frontends": [],
+        "jobs_running": None,
+        "registry_seq": reg.seq,
+        "uptime_s": round(time.time() - _PROCESS_START, 3),
+        "started_at": _PROCESS_START_ISO,
+        "build_sha": _build_sha(),
+        "recompiles_last_60s": None,
+        "slow_queries_last_60s": None,
+        "ingest": {
+            "wal_appends": reg.get("ingest.wal_appends"),
+            "wal_fsyncs": reg.get("ingest.wal_fsyncs"),
+            "wal_torn_tail_truncated": reg.get(
+                "ingest.wal_torn_tail_truncated"),
+            "wal_segments_retired": reg.get("ingest.wal_segments_retired"),
+            "replayed": reg.get("ingest.replayed"),
+            "lease_takeovers": reg.get("ingest.lease_takeovers"),
+            "lease_conflicts": reg.get("ingest.lease_conflicts"),
+            "flushes": reg.get("ingest.flushes"),
+            "freshness_lag_ms": reg.gauges().get("ingest.freshness_lag_ms"),
+        },
+    }
+    for fe in _live_frontends():
+        try:
+            st = fe.stats()
+        except Exception as e:  # noqa: BLE001 — health must not 500
+            st = {"error": repr(e)}
+        out["frontends"].append(st)
+    if out["frontends"]:
+        latest = out["frontends"][-1]
+        for key in ("breaker", "ladder", "queue_depth", "cache",
+                    "generation", "batching"):
+            out[key] = latest.get(key)
+    return out
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # the default prints to stderr
+        logger.debug("obs-http: " + fmt, *args)
+
+    def _json(self, obj, code: int = 200) -> None:
+        body = json.dumps(obj, default=repr).encode("utf-8")
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self) -> None:  # noqa: N802 — the stdlib handler contract
+        """/rpc/<name>: the server instance's handler of that name (two
+        workers in one process keep separate tables)."""
+        try:
+            route = urlparse(self.path).path.rstrip("/")
+            if not route.startswith("/rpc/"):
+                self._json({"error": "unknown endpoint"}, code=404)
+                return
+            name = route[len("/rpc/"):]
+            fn = self.server.rpc_handlers.get(name)
+            if fn is None:
+                self._json({"error": f"no rpc handler {name!r}"}, code=404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                length = 0
+            try:
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except ValueError:
+                self._json({"error": "malformed JSON body"}, code=400)
+                return
+            try:
+                out = fn(payload)
+            except Exception as e:  # noqa: BLE001 — classified below
+                # a shed is structure (retry elsewhere), anything else a
+                # replica failure
+                from ..serving.admission import Overloaded
+
+                if isinstance(e, Overloaded):
+                    self._json({"error": "overloaded", "reason": e.reason,
+                                "level": e.level}, code=503)
+                else:
+                    self._json({"error": repr(e)}, code=500)
+                return
+            self._json(out)
+        except BrokenPipeError:
+            pass  # the caller hung up mid-response
+        except Exception as e:  # noqa: BLE001 — an RPC never kills the
+            try:                # process it runs in
+                self._json({"error": repr(e)}, code=500)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def do_GET(self) -> None:  # noqa: N802 — the stdlib handler contract
+        try:
+            route = urlparse(self.path).path.rstrip("/") or "/"
+            if route != "/healthz":
+                self._json({"error": "unknown endpoint"}, code=404)
+                return
+            payload = health_snapshot()
+            extra = self.server.extra_health
+            if extra is not None:
+                payload.update(extra() if callable(extra) else extra)
+            self._json(payload)
+        except BrokenPipeError:
+            pass
+        except Exception as e:  # noqa: BLE001 — a scrape never kills the
+            try:                # process it observes
+                self._json({"error": repr(e)}, code=500)
+            except Exception:  # noqa: BLE001
+                pass
+
+
+class MetricsServer:
+    """Bind, serve on a named daemon thread, stop cleanly. `rpc_handlers`
+    (name -> fn(payload) -> dict) and `extra_health` (a dict, or a
+    callable returning one, merged into /healthz) belong to this
+    instance."""
+
+    def __init__(self, port: int = 0, host: str = "127.0.0.1",
+                 rpc_handlers: dict | None = None, extra_health=None):
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.rpc_handlers = dict(rpc_handlers or {})
+        self._httpd.extra_health = extra_health
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread: threading.Thread | None = None
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> "MetricsServer":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                kwargs={"poll_interval": 0.1},
+                name=f"tpu-ir-obs-http-{self.port}", daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop accepting, close the socket, join the serve thread;
+        idempotent."""
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self._httpd.server_close()
+
+    def __enter__(self) -> "MetricsServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

@@ -24,6 +24,7 @@ import time
 import torch
 
 from .. import envvars
+from . import disttrace
 from .registry import get_registry
 
 _tls = threading.local()
@@ -44,11 +45,14 @@ def enabled() -> bool:
 class Span:
     """One timed region; also the context manager that records it."""
 
-    __slots__ = ("name", "attrs", "start_ns", "dur_ns", "children", "error")
+    __slots__ = ("name", "attrs", "start_ns", "dur_ns", "children", "error",
+                 "service")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
         self.attrs = attrs
+        # the process's service identity (disttrace.set_service)
+        self.service = disttrace.service()
         self.start_ns = 0
         self.dur_ns = 0
         self.children: list[Span] = []

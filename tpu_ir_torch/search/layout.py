@@ -14,6 +14,9 @@ The host arrays are element- and dtype-exact against the JAX package's
 (`hot_blk_max`, the largest tf per doc block of width `blockmax_width`)
 with them.
 
+`shard_doc_ranges` and `restrict_tiers` are the shard worker tier's doc
+partition and its doc-range restriction of the layout.
+
 The serving cache (`serving-tiered/`, at the end of this module) keeps
 the layout, df and the rerank's doc norms next to the index, in the JAX
 package's format, so a restart maps them instead of reading the parts.
@@ -35,22 +38,23 @@ BASE_CAP = 2
 GROWTH = 4
 
 
-def upload_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An integer host column on `device` as int32.
+def upload_index(a: np.ndarray, device: torch.device, *,
+                 label: str | None = None) -> torch.Tensor:
+    """An integer host column on `device` as int32, streamed through
+    utils/transfer.py::stream_to_device (one `load.h2d` span, `label`).
 
     uint16 columns cross the link at two bytes a value and are widened on
     the device (torch has few uint16 operations, so they travel as int16
     bits and are masked back to 0..65535); other columns are cast to int32
-    on the host. A column is copied on the host only where it is read-only
-    or not contiguous (as loaded arena views and mapped cache sections
-    are)."""
+    on the host where they are not int32 already."""
+    from ..utils.transfer import stream_to_device
+
     a = np.asarray(a)
     if a.dtype == np.uint16:
-        a = np.require(a, None, ["C_CONTIGUOUS", "WRITEABLE"])
-        t = torch.from_numpy(a.view(np.int16))
-        return t.to(device).to(torch.int32) & 0xFFFF
-    a = np.require(a, np.int32, ["C_CONTIGUOUS", "WRITEABLE"])
-    return torch.from_numpy(a).to(device)
+        bits = stream_to_device(a, device=device, label=label)
+        return bits.to(torch.int32) & 0xFFFF
+    return stream_to_device(np.asarray(a, np.int32), device=device,
+                            label=label)
 
 
 class TieredPostings(NamedTuple):
@@ -86,9 +90,9 @@ class TieredPostings(NamedTuple):
         postings: only the postings cross the link, not the strip. Each
         (row, doc) pair appears once, so the store is exact."""
         device = torch.device(device)
-        rows = upload_index(self.hot_rows, device).long()
-        docs = upload_index(self.hot_docs, device).long()
-        vals = upload_index(self.hot_vals, device)
+        rows = upload_index(self.hot_rows, device, label="hot_rows").long()
+        docs = upload_index(self.hot_docs, device, label="hot_docs").long()
+        vals = upload_index(self.hot_vals, device, label="hot_vals")
         strip = torch.zeros((self.num_hot, self.hot_width), dtype=dtype,
                             device=device)
         strip.index_put_((rows, docs), vals.to(dtype))
@@ -240,6 +244,48 @@ def build_tiered_layout(
                           num_hot, d + 1, tier_of, row_of,
                           tuple(tier_docs), tuple(tier_tfs),
                           hot_blk_max, width)
+
+
+def shard_doc_ranges(num_docs: int, num_shards: int) -> list:
+    """The shard worker tier's doc partition: contiguous 1-based inclusive
+    [lo, hi] docid ranges, one per shard, ceil(D / S) docs each, so a
+    trailing shard past num_docs owns an empty range (hi < lo). Docid 0,
+    the dead slot, belongs to no shard."""
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    dblk = -(-num_docs // num_shards)
+    return [(s * dblk + 1, min((s + 1) * dblk, num_docs))
+            for s in range(num_shards)]
+
+
+def restrict_tiers(tiers: TieredPostings, lo: int, hi: int) -> TieredPostings:
+    """A copy of a tiered layout restricted to docids [lo, hi]: postings
+    outside the range have their tf zeroed and everything else (hot_rank,
+    the tier geometry, the shapes, each posting's position) is left as it
+    is, so the kernels run the same shapes and a doc inside the range
+    scores bitwise as under the whole layout (a zero tf adds an exact
+    0.0), while a doc outside scores 0.0 and falls out of the top-k. The
+    hot rows' block-max bounds of blocks wholly outside the range drop to
+    0; a block that straddles an edge keeps its bound, which still
+    dominates. Only the tf columns are copied (the inputs may be
+    read-only mapped cache sections)."""
+    hot_docs = np.asarray(tiers.hot_docs).astype(np.int64)
+    hot_vals = np.array(tiers.hot_vals)
+    hot_vals[(hot_docs < lo) | (hot_docs > hi)] = 0
+    tier_tfs = []
+    for td, tt in zip(tiers.tier_docs, tiers.tier_tfs):
+        td64 = np.asarray(td).astype(np.int64)
+        tf = np.array(tt)
+        tf[(td64 < lo) | (td64 > hi)] = 0
+        tier_tfs.append(tf)
+    hot_blk_max = tiers.hot_blk_max
+    if hot_blk_max is not None and tiers.blockmax_width:
+        w = int(tiers.blockmax_width)
+        starts = np.arange(hot_blk_max.shape[1], dtype=np.int64) * w
+        hot_blk_max = np.array(hot_blk_max)
+        hot_blk_max[:, (starts + w - 1 < lo) | (starts > hi)] = 0
+    return tiers._replace(hot_vals=hot_vals, tier_tfs=tuple(tier_tfs),
+                          hot_blk_max=hot_blk_max)
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,13 @@ attach the exact per-term decomposition of the top hits, read out of
 the same kernels the top-k ran (search/explain.py), and `snippet`
 renders a highlighted window from the document store.
 `load_generation` / `reload_generation` serve a live index's compacted
-generations (index/segments.py).
+generations (index/segments.py). `doc_range=(lo, hi)` restricts a scorer
+to one shard's docs for the shard worker tier (serving/shardset.py),
+bitwise the unrestricted scores inside the range, and `cosine_scores_at`
+is that tier's rerank stage 2.
+
+Every load-time upload streams through utils/transfer.py::
+stream_to_device (pinned chunks on a side stream on the card).
 
 Not in this slice (each raises ValueError naming a later slice): the
 sharded layout and the query log. The JAX package's donated-query twins
@@ -114,11 +120,13 @@ from ..ops.scoring import (
     tfidf_topk_tiered,
 )
 from ..utils.report import recovery_counters
+from ..utils.transfer import stream_to_device
 from .layout import (
     HOT_BUDGET,
     TieredPostings,
     build_tiered_layout,
     load_serving_cache,
+    restrict_tiers,
     save_serving_cache,
     serving_cache_writable,
     upload_index,
@@ -221,6 +229,8 @@ class Scorer:
     MIN_SKIP_GROUP = 32
     # most vocabulary terms one wildcard or fuzzy token expands to
     WILDCARD_LIMIT = 64
+    # a shard worker's (lo, hi) docids; None serves every doc
+    doc_range: tuple | None = None
 
     def __init__(
         self,
@@ -242,6 +252,7 @@ class Scorer:
         deadline_s: float | None = None,
         index_dir: str | None = None,
         doc_norms: np.ndarray | None = None,
+        doc_range: tuple | None = None,
     ):
         """Build the layout on `device` from the host postings columns
         (global CSR order). The sparse layout may come prebuilt as
@@ -256,6 +267,15 @@ class Scorer:
         fuzzy tokens are literal text, as in the JAX package). `doc_norms`
         are the rerank's norms where they are known already (the serving
         cache holds them).
+
+        `doc_range=(lo, hi)` (1-based inclusive global docids) makes this
+        a shard worker's scorer (serving/shardset.py): the layout keeps
+        its whole geometry, but every posting outside the range has its
+        tf zeroed (layout.restrict_tiers on the tiered layout, the pair tf
+        column on the dense one), so a doc inside the range scores bitwise
+        as under the unrestricted scorer and a doc outside scores 0.0 and
+        never surfaces. df, N, the doc lengths and the rerank's norms
+        stay global.
 
         Lazy state (the weighted strips, block-max's bound tables, the
         BM25 tf matrix, the doc norms, the host postings) is built outside
@@ -309,6 +329,20 @@ class Scorer:
                 self._pairs is None and tiers is None):
             raise ValueError(f"layout {self.layout!r} needs the postings "
                              "columns or a prebuilt tiered layout")
+        self.doc_range = None
+        if doc_range is not None:
+            lo, hi = int(doc_range[0]), int(doc_range[1])
+            if lo < 1 or hi > meta.num_docs:
+                raise ValueError(f"doc_range {doc_range!r} outside the "
+                                 f"index's 1..{meta.num_docs} docid space")
+            self.doc_range = (lo, hi)
+            if self.layout == "dense":
+                # one mask of the tf column restricts every dense path:
+                # the doc matrix, the BM25 tf matrix and the host fallback
+                pdoc = self._pairs[1].astype(np.int64)
+                ptf = np.array(self._pairs[2])
+                ptf[(pdoc < lo) | (pdoc > hi)] = 0
+                self._pairs = (self._pairs[0], self._pairs[1], ptf)
         self._df_host = np.asarray(df)
         if self._pairs is not None and self._pairs_loader is None:
             # the rerank's norms come from these columns when first asked,
@@ -317,12 +351,12 @@ class Scorer:
             self._pairs_loader = lambda: cols
         # the host fallback reads these, never the device
         self._doc_len_host = np.asarray(doc_len)
-        self.df = upload_index(df, self.device)
-        self.doc_len = upload_index(doc_len, self.device)
+        self.df = upload_index(df, self.device, label="df")
+        self.doc_len = upload_index(doc_len, self.device, label="doc_len")
         if self.layout == "dense":
             self.tf_dtype = _strip_dtype(meta, self._pairs[2])
-            pt, pd, ptf = (upload_index(a, self.device)
-                           for a in self._pairs)
+            pt, pd, ptf = (upload_index(a, self.device, label=name)
+                           for a, name in zip(self._pairs, _PAIR_LABELS))
             self._tf_matrix: torch.Tensor | None = None  # first BM25 call
             if self.tf_dtype == torch.bfloat16:
                 # the only resident matrix: raw tf in bf16, weighted by
@@ -345,18 +379,25 @@ class Scorer:
                                         self._df_host,
                                         num_docs=meta.num_docs)
         self._pairs = None               # the tiers hold every posting
+        if self.doc_range is not None:
+            tiers = restrict_tiers(tiers, *self.doc_range)
         self._hot_rank_host = np.asarray(tiers.hot_rank)
-        self.hot_rank = upload_index(tiers.hot_rank, self.device)
+        self.hot_rank = upload_index(tiers.hot_rank, self.device,
+                                     label="hot_rank")
         # densified on the device: only the COO postings cross the link
         self.tf_dtype = _strip_dtype(meta, tiers.hot_vals)
-        self.hot_tfs = tiers.hot_device(self.device, dtype=self.tf_dtype)
-        self.tier_of = upload_index(tiers.tier_of, self.device)
-        self.row_of = upload_index(tiers.row_of, self.device)
+        with obs_trace("load.strip", rows=int(tiers.num_hot)):
+            self.hot_tfs = tiers.hot_device(self.device, dtype=self.tf_dtype)
+        self.tier_of = upload_index(tiers.tier_of, self.device,
+                                    label="tier_of")
+        self.row_of = upload_index(tiers.row_of, self.device, label="row_of")
         # slim uint16 host columns are widened to int32 at upload; the
         # kernel's tier table is built once here, not per query block
         self.cold_tiers = TierTable(
-            [upload_index(a, self.device) for a in tiers.tier_docs],
-            [upload_index(a, self.device) for a in tiers.tier_tfs])
+            [upload_index(a, self.device, label=f"tier_docs_{i}")
+             for i, a in enumerate(tiers.tier_docs)],
+            [upload_index(a, self.device, label=f"tier_tfs_{i}")
+             for i, a in enumerate(tiers.tier_tfs)])
         self._wstrip_cache: dict[str, torch.Tensor] = {}
         # block-max bounds: the hot rows' largest tf per doc block
         self._hot_blk_max = tiers.hot_blk_max
@@ -370,12 +411,13 @@ class Scorer:
              compat_int_idf: bool = False,
              device: str | torch.device | None = None,
              prune: bool = True,
-             deadline_s: float | None = None) -> "Scorer":
+             deadline_s: float | None = None,
+             doc_range: tuple | None = None) -> "Scorer":
         """Load an index dir (built by either package, any format) onto
-        the device (`deadline_s`: as the constructor's). Side files are
-        verified against their recorded checksums, and each part file is
-        verified by the one streamed read that loads it (a compressed
-        part is then decoded). The tiered layout takes its block-max
+        the device (`deadline_s`, `doc_range`: as the constructor's).
+        Side files are verified against their recorded checksums, and each
+        part file is verified by the one streamed read that loads it (a
+        compressed part is then decoded). The tiered layout takes its block-max
         bounds from blockmax.arena; a corrupt artifact is quarantined and
         the bounds are computed from the postings instead.
 
@@ -384,21 +426,34 @@ class Scorer:
         from `serving-tiered/` and reads no part (the host postings stay
         lazy, verified as they stream); a miss builds the layout from the
         parts and, when the dir is writable, computes the norms and writes
-        the cache. The dense layout has no cache."""
+        the cache. The dense layout has no cache.
+
+        With a `doc_range` on a compressed index the range goes into the
+        parts' decode, so posting blocks wholly outside it are never
+        decoded (they come back as (doc 0, tf 0) slots); such a partial
+        read writes no cache. A raw index is read whole and restricted
+        after. The stages are spans: `load.meta` (the metadata and the
+        side files' checksums), `load.vocab` (the vocabulary, the docnos
+        and the doc lengths), `load.read` (the parts, or a cache hit),
+        `load.layout`, `load.norms`, `load.cache_write`, and in the
+        constructor `load.strip` and each upload's `load.h2d`."""
         dev = resolve_device(device)
-        meta = fmt.IndexMetadata.load(index_dir)
-        resolved = _resolve_layout(layout, meta)  # fail before any reads
-        fmt.require_known_format(meta.format_version)
-        fmt.verify_checksums(index_dir, meta,
-                             names=[fmt.DOCLEN, fmt.DOCNOS, fmt.VOCAB])
-        vocab = Vocab.load(os.path.join(index_dir, fmt.VOCAB))
-        mapping = DocnoMapping.load(os.path.join(index_dir, fmt.DOCNOS))
-        doc_len = np.load(os.path.join(index_dir, fmt.DOCLEN))
+        with obs_trace("load.meta"):
+            meta = fmt.IndexMetadata.load(index_dir)
+            resolved = _resolve_layout(layout, meta)  # fail before reads
+            fmt.require_known_format(meta.format_version)
+            fmt.verify_checksums(index_dir, meta,
+                                 names=[fmt.DOCLEN, fmt.DOCNOS, fmt.VOCAB])
+        with obs_trace("load.vocab"):
+            vocab = Vocab.load(os.path.join(index_dir, fmt.VOCAB))
+            mapping = DocnoMapping.load(os.path.join(index_dir, fmt.DOCNOS))
+            doc_len = np.load(os.path.join(index_dir, fmt.DOCLEN))
         # the rerank's norms and the host fallback re-read the postings on
         # first use: the tiered layout keeps no host copy of them
         loader = lambda: _assemble_csr(index_dir, meta)  # noqa: E731
         if resolved == "sparse":
-            cached = load_serving_cache(index_dir, meta=meta)
+            with obs_trace("load.read", cache=True):
+                cached = load_serving_cache(index_dir, meta=meta)
             if cached is not None:
                 tiers, df, norms = cached
                 return cls(vocab=vocab, mapping=mapping, pair_term=None,
@@ -407,35 +462,43 @@ class Scorer:
                            compat_int_idf=compat_int_idf, device=dev,
                            tiers=tiers, prune=prune, pairs_loader=loader,
                            deadline_s=deadline_s, index_dir=index_dir,
-                           doc_norms=norms)
-        df, pair_doc, pair_tf = _assemble_csr(index_dir, meta)
+                           doc_norms=norms, doc_range=doc_range)
+        lean = doc_range if meta.compressed else None
+        with obs_trace("load.read", shards=meta.num_shards):
+            df, pair_doc, pair_tf = _assemble_csr(index_dir, meta,
+                                                  doc_range=lean)
         if resolved == "sparse":
             bounds = load_block_bounds(index_dir, meta,
                                        quarantine_corrupt=True)
-            tiers = build_tiered_layout(pair_doc, pair_tf, df,
-                                        num_docs=meta.num_docs,
-                                        block_bounds=bounds)
+            with obs_trace("load.layout"):
+                tiers = build_tiered_layout(pair_doc, pair_tf, df,
+                                            num_docs=meta.num_docs,
+                                            block_bounds=bounds)
             norms = None
-            if serving_cache_writable(index_dir):
-                # the norms pass is paid here only for the cache; on a
-                # read-only dir they stay lazy (rerank only)
-                norms = compute_doc_norms(None, pair_doc, pair_tf, df,
-                                          meta.num_docs)
-                save_serving_cache(index_dir, tiers, df, norms, meta=meta)
+            # the norms pass is paid here only for the cache; on a
+            # read-only dir, or from a range-restricted read (whose dead
+            # slots would poison every later full load), they stay lazy
+            if lean is None and serving_cache_writable(index_dir):
+                with obs_trace("load.norms"):
+                    norms = compute_doc_norms(None, pair_doc, pair_tf, df,
+                                              meta.num_docs)
+                with obs_trace("load.cache_write"):
+                    save_serving_cache(index_dir, tiers, df, norms,
+                                       meta=meta)
             return cls(vocab=vocab, mapping=mapping, pair_term=None,
                        pair_doc=None, pair_tf=None, df=df, doc_len=doc_len,
                        meta=meta, layout=layout,
                        compat_int_idf=compat_int_idf, device=dev,
                        tiers=tiers, prune=prune, pairs_loader=loader,
                        deadline_s=deadline_s, index_dir=index_dir,
-                       doc_norms=norms)
+                       doc_norms=norms, doc_range=doc_range)
         # the term column is read by the dense scatter only
         return cls(vocab=vocab, mapping=mapping,
                    pair_term=pair_term_from_df(df), pair_doc=pair_doc,
                    pair_tf=pair_tf, df=df, doc_len=doc_len, meta=meta,
                    layout=layout, compat_int_idf=compat_int_idf, device=dev,
                    prune=prune, pairs_loader=loader, deadline_s=deadline_s,
-                   index_dir=index_dir)
+                   index_dir=index_dir, doc_range=doc_range)
 
     @classmethod
     def load_generation(cls, live_dir: str, generation: int | None = None,
@@ -445,8 +508,8 @@ class Scorer:
         (one segment, no tombstones: `ingest --compact` makes one); None
         follows the newest servable one. The scorer is stamped with its
         generation and remembers the live dir and `load_kwargs` (passed
-        to Scorer.load, `device` included), which reload_generation
-        replays."""
+        to Scorer.load, `device` and `doc_range` included), which
+        reload_generation replays."""
         from ..index import segments as seg
 
         index_dir, gen = seg.resolve_serving(live_dir, generation)
@@ -460,7 +523,9 @@ class Scorer:
     def reload_generation(self, generation: int | None = None,
                           **override_kwargs) -> "Scorer":
         """A new Scorer over the given (or newest servable) generation of
-        this scorer's live dir, loaded with the same kwargs (overridable).
+        this scorer's live dir, loaded with the same kwargs (overridable: a
+        shard worker passes the doc_range it recomputed for the new
+        generation's doc count).
         A functional swap, never an in-place change: the query path reads
         many attributes per request, and changing them under a running
         request would tear it. This scorer stays valid (in-flight requests
@@ -991,6 +1056,13 @@ class Scorer:
                 # docnos are unique within one term's run, so fancy-index
                 # += accumulates correctly across terms
                 scores[pd[sl]] += w
+            if self.doc_range is not None:
+                # the host postings are global (only the device layout is
+                # restricted): without this a degraded batch would leak
+                # another shard's docs into this worker's results
+                lo, hi = self.doc_range
+                scores[:lo] = 0.0
+                scores[hi + 1:] = 0.0
             top = np.argsort(-scores[1:], kind="stable")[:k] + 1
             keep = scores[top] > 0.0
             m = int(keep.sum())  # desc order => positives are a prefix
@@ -1172,8 +1244,9 @@ class Scorer:
             sat = max_tf * (K1 + 1.0) / np.maximum(
                 max_tf + K1 * dl_min[None, :], 1e-9)
             bound = np.where(max_tf > 0, sat, 0.0)
-        table = torch.from_numpy(
-            np.ascontiguousarray(bound, np.float32)).to(self.device)
+        table = stream_to_device(np.ascontiguousarray(bound, np.float32),
+                                 device=self.device,
+                                 label=f"blockmax_bounds_{scoring}")
         self._blockmax_tables[scoring] = table
         return table
 
@@ -1212,8 +1285,8 @@ class Scorer:
         (float32), or the resident bf16 one."""
         matrix = self._tf_matrix
         if matrix is None:
-            pt, pd, ptf = (upload_index(a, self.device)
-                           for a in self._pairs)
+            pt, pd, ptf = (upload_index(a, self.device, label=name)
+                           for a, name in zip(self._pairs, _PAIR_LABELS))
             matrix = dense_tf_matrix(
                 pt, pd, ptf, vocab_size=self.meta.vocab_size,
                 num_docs=self.meta.num_docs)
@@ -1253,8 +1326,9 @@ class Scorer:
         """The rerank's doc norms on the device."""
         norms = self._norms
         if norms is None:
-            norms = torch.from_numpy(
-                np.ascontiguousarray(self._doc_norms_host())).to(self.device)
+            norms = stream_to_device(
+                np.ascontiguousarray(self._doc_norms_host(), np.float32),
+                device=self.device, label="doc_norms")
             self._norms = norms
         return norms
 
@@ -1424,6 +1498,24 @@ class Scorer:
                         hot_only=hot_only)
         return out
 
+    def cosine_scores_at(self, texts: Sequence[str],
+                         cand: np.ndarray) -> np.ndarray:
+        """float32 [B, C] cosine rerank-stage scores at the global docids
+        `cand` ([C] for every text, or [B, C]): the shard worker tier's
+        stage-2 RPC (serving/shardset.py). The same accumulation the
+        rerank runs at the same candidate width (search/explain.py::
+        _cosine_scores_at), so each value is bitwise what a rerank in one
+        process saw. On a doc-range scorer candidates outside the range
+        score 0.0; the merge takes each candidate from its owning shard."""
+        from .explain import _cosine_scores_at
+
+        texts = list(texts)
+        q = self.analyze_queries(texts)
+        cand = np.asarray(cand, np.int32)
+        if cand.ndim == 1:
+            cand = np.repeat(cand[None, :], len(texts), axis=0)
+        return _cosine_scores_at(self, q, cand)
+
     def explain(self, text: str, key, *, is_docid: bool = True,
                 scoring: str = "tfidf", rerank: int | None = None,
                 hot_only: bool = False) -> dict:
@@ -1583,6 +1675,10 @@ class Scorer:
                             width=width or SNIPPET_WORDS)
 
 
+# the labels of the dense layout's three postings columns' uploads
+_PAIR_LABELS = ("pair_term", "pair_doc", "pair_tf")
+
+
 def _strip_dtype(meta: fmt.IndexMetadata, tfs: np.ndarray) -> torch.dtype:
     """The dtype of the resident raw-tf matrix or hot strip: bf16 when the
     index is compressed and every tf it holds round-trips bf16 exactly
@@ -1614,17 +1710,23 @@ def _resolve_layout(layout: str, meta: fmt.IndexMetadata) -> str:
     return layout
 
 
-def _assemble_csr(index_dir: str, meta: fmt.IndexMetadata):
+def _assemble_csr(index_dir: str, meta: fmt.IndexMetadata,
+                  doc_range: tuple | None = None):
     """Part files -> (df, pair_doc, pair_tf) in global CSR order, each
     part verified by the streamed read that loads it. A part holds
     contiguous per-term runs, so each run goes to the global indptr
-    slice of its term id; no sort is needed."""
+    slice of its term id; no sort is needed. `doc_range=(lo, hi)`
+    (1-based inclusive) goes to a compressed part's decode as the
+    half-open [lo, hi + 1); a raw part ignores it."""
     from concurrent.futures import ThreadPoolExecutor
 
+    dr = (None if doc_range is None
+          else (int(doc_range[0]), int(doc_range[1]) + 1))
     n_threads = max(1, min(8, os.cpu_count() or 1, meta.num_shards))
     with ThreadPoolExecutor(max_workers=n_threads) as ex:
         shards = list(ex.map(
-            lambda s: fmt.load_shard_verified(index_dir, s, meta),
+            lambda s: fmt.load_shard_verified(index_dir, s, meta,
+                                              doc_range=dr),
             range(meta.num_shards)))
 
     df = np.zeros(meta.vocab_size, np.int32)

@@ -1,12 +1,14 @@
-"""The serving tier over one loaded Scorer (the port of `tpu_ir.serving`'s
-single-process half): admission control, the degradation ladder, the
-circuit breaker, the coalescing scheduler, the exact-hit result cache,
-the swap to another generation of a live index in one process
+"""The serving tier (the port of `tpu_ir.serving`): over one loaded
+Scorer, admission control, the degradation ladder, the circuit breaker,
+the coalescing scheduler, the exact-hit result cache, the swap to another
+generation of a live index in one process
 (`ServingFrontend.reload_generation`), and the soak and sweep that drive
-them (see frontend.py). Not ported: the scatter-gather router and its
-shard workers, the generation swap orchestration across them
-(serving/generation.py) and the ingest soak, the autoscaler,
-hot-residency prewarm and the Zipf workload."""
+them (see frontend.py); across processes, the doc-range shard workers and
+their ShardSet (shardset.py), the exact merges of their answers
+(router.py), the rolling generation swap and the swap micro-bench
+(generation.py) and the hot-residency hint (residency.py). Not ported:
+the router itself, the autoscaler, the Zipf workload and the distributed
+and ingest soaks."""
 
 from .admission import AdmissionController, Overloaded
 from .batching import BatchKey, CoalescingScheduler, batch_ladder
@@ -20,7 +22,17 @@ from .frontend import (
     ServingConfig,
     ServingFrontend,
 )
+from .generation import rolling_swap, swap_microbench
+from .residency import prewarm_hot_residency, residency_hint
 from .result_cache import ResultCache, cache_counters
+from .router import merge_candidate_scores, merge_shard_topk
+from .shardset import (
+    ShardSet,
+    WorkerHandle,
+    get_worker_health,
+    rpc_post,
+    serve_worker,
+)
 from .soak import (
     DEFAULT_CHAOS_PLAN,
     make_queries,
@@ -37,4 +49,8 @@ __all__ = [
     "ResultCache", "cache_counters",
     "run_soak", "make_queries", "run_concurrency_sweep",
     "DEFAULT_CHAOS_PLAN",
+    "ShardSet", "WorkerHandle", "serve_worker", "rpc_post",
+    "get_worker_health", "merge_shard_topk", "merge_candidate_scores",
+    "rolling_swap", "swap_microbench", "residency_hint",
+    "prewarm_hot_residency",
 ]

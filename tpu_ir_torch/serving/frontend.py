@@ -180,6 +180,11 @@ class ServingFrontend:
         if self.cache is not None:
             self.cache.bump_generation(scorer.generation)
         self._counters = RecoveryCounters()
+        # /healthz reports this frontend while it lives (a weakref: the
+        # registration never keeps its scorer on the card)
+        from ..obs.server import register_health_source
+
+        register_health_source(self)
 
     def _make_batcher(self, scorer):
         """The coalescer of one scorer, its rung ladder warmed here, so
