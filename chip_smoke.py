@@ -190,7 +190,10 @@ code:
               host-to-card copy of B's resident bytes, one streamed copy
               of the bytes B's load moved and one pageable copy of as
               many (bytes, wall, GB/s each); and B loaded cold again
-              through the streamed uploads (its serving cache removed);
+              (its serving cache removed) through the streamed uploads,
+              then once more with each upload one pageable copy on the
+              serving stream, as before the streamed path (the control);
+              the cache hit's and both cold loads' span timelines;
               B as the last swap loaded it serves 10,000 uniform queries
               bitwise as the one-shot index, TF-IDF and BM25 (q/s), its
               own timed run launching cold_tier and hot_stage; then
@@ -4001,9 +4004,11 @@ def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
     streamed copy (utils/transfer.py::stream_to_device: pinned chunks on
     a side stream) of `crossing` bytes (what B's first load moved across
     the link) and one pageable copy of as many; and B loaded cold again
-    (its serving cache removed) through the streamed uploads. Each
-    trial's gaps as swap_probes gives them; the copies' and the cold
-    load's bytes, copy wall and GB/s."""
+    (its serving cache removed) through the streamed uploads, then once
+    more through pageable_uploads (the control). Each trial's gaps as
+    swap_probes gives them; the copies' bytes, copy wall and GB/s; the
+    cache hit's and the cold loads' as traced_reload gives them, with the
+    spans that overlap the gap."""
     import torch
 
     from tpu_ir_torch.search.layout import CACHE_NAME
@@ -4013,11 +4018,20 @@ def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
     if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
         raise AssertionError("B's first load wrote no serving cache")
     trials = {name: gap_trial(probed) for name, probed in done.items()}
+
+    def traced(name: str, probed: dict, reloads: list, **kw) -> None:
+        trial = gap_trial(probed, **kw)
+        trial.update(reloads[0])
+        trial["gap_within"] = gap_within(trial["timeline"],
+                                         trial["gap_opened_s"],
+                                         trial["swap_gap_ms"])
+        trials[name] = trial
+
+    reloads = []
     with PartOpens() as opens:
-        probed = swap_probes(
-            frontend, texts,
-            lambda: frontend.reload_generation(generation=gen_b), k=k)
-    trials["cache_hit_coalesced"] = gap_trial(probed, opens.n)
+        probed = swap_probes(frontend, texts, lambda: reloads.append(
+            traced_reload(frontend, gen_b, device)), k=k)
+    traced("cache_hit_coalesced", probed, reloads, part_opens=opens.n)
     plain = ServingFrontend(scorer_a, ServingConfig(
         max_concurrency=SWAP_PROBE_THREADS, max_queue=16))
     with PartOpens() as opens:
@@ -4057,19 +4071,48 @@ def gap_trials(frontend, texts: list[str], scorer_a, gen_b: int, seg_b: str,
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    shutil.rmtree(os.path.join(seg_b, CACHE_NAME))
-    reloads = []
-    probed = swap_probes(frontend, texts, lambda: reloads.append(
-        traced_reload(frontend, gen_b, device)), k=k)
-    trial = gap_trial(probed)
-    trial.update(reloads[0])
-    trial["gap_within"] = gap_within(trial["timeline"],
-                                     trial["gap_opened_s"],
-                                     trial["swap_gap_ms"])
-    trials["cold_streamed"] = trial
-    if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
-        raise AssertionError("B's cold load wrote no serving cache")
+    # the same cold load twice: streamed, then with the uploads as they
+    # were before the streamed path (the control)
+    for name, uploads in (("cold_streamed", contextlib.nullcontext),
+                          ("cold_pageable", pageable_uploads)):
+        shutil.rmtree(os.path.join(seg_b, CACHE_NAME))
+        reloads = []
+        with uploads():
+            probed = swap_probes(frontend, texts, lambda: reloads.append(
+                traced_reload(frontend, gen_b, device)), k=k)
+        traced(name, probed, reloads)
+        if not os.path.isdir(os.path.join(seg_b, CACHE_NAME)):
+            raise AssertionError(f"B's load of {name} wrote no serving "
+                                 "cache")
     return trials
+
+
+@contextlib.contextmanager
+def pageable_uploads():
+    """While the block runs, stream_to_device's card path is what every
+    upload of the port was before it: one pageable copy of the whole
+    array on the caller's stream (no staging, no side stream); the CRC
+    is folded over the whole array after it. The control of the gap
+    trials' cold load."""
+    import warnings
+    import zlib
+
+    import torch
+
+    from tpu_ir_torch.utils import transfer
+
+    def pageable(src, dst, step, fold):
+        with warnings.catch_warnings():   # a read-only memory map
+            warnings.simplefilter("ignore", UserWarning)
+            dst.copy_(torch.from_numpy(src))
+        return zlib.crc32(src) if fold else 0
+
+    real = transfer._chunks_cuda
+    transfer._chunks_cuda = pageable
+    try:
+        yield
+    finally:
+        transfer._chunks_cuda = real
 
 
 SHARD_WORKERS = 2               # doc shards of the shards phase, 1 replica
@@ -4883,13 +4926,22 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
     """CRASH_WORKERS in-process workers (serve_worker, dense, warmed) on
     the live dir's newest generation, over HTTP: CRASH_WORKER_TEXTS
     TF-IDF and as many BM25 texts through every worker's /rpc/search,
-    merged by merge_shard_topk, bitwise `scorer`'s top-k; the kernels'
-    launches from the workers' start to the last answer (dense_score must
-    launch on the card)."""
+    merged by merge_shard_topk, bitwise `scorer`'s top-k. `scorer`'s
+    answers are computed before the workers start, so the kernels'
+    launches, counted from 0 after the workers' warm-up to the last
+    answer, are the routed RPCs' alone (dense_score must launch on the
+    card)."""
     import tpu_ir_torch
     from tpu_ir_torch.serving import serve_worker
 
-    tpu_ir_torch.reset_kernel_launches()
+    rng = np.random.default_rng(8)
+    terms = scorer.vocab.terms
+    wants = []
+    for scoring in ("tfidf", "bm25"):
+        texts = [" ".join(terms[int(t)] for t in row) for row in
+                 rng.integers(0, len(terms), (CRASH_WORKER_TEXTS, 2))]
+        wants.append((scoring, texts, scorer.search_batch(
+            texts, k=k, scoring=scoring, return_docids=False)))
     t0 = time.perf_counter()
     started = [serve_worker(live, s, CRASH_WORKERS, layout="dense",
                             device=device)
@@ -4901,15 +4953,10 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
                for _, _, sc in started):
             raise AssertionError("a worker serves another generation or "
                                  "layout")
-        rng = np.random.default_rng(8)
-        terms = scorer.vocab.terms
         rtts = []
+        tpu_ir_torch.reset_kernel_launches()
         t0 = time.perf_counter()
-        for scoring in ("tfidf", "bm25"):
-            texts = [" ".join(terms[int(t)] for t in row) for row in
-                     rng.integers(0, len(terms), (CRASH_WORKER_TEXTS, 2))]
-            want = scorer.search_batch(texts, k=k, scoring=scoring,
-                                       return_docids=False)
+        for scoring, texts, want in wants:
             for text, res in zip(texts, want):
                 got, _ = routed_search(addrs, text, k=k, scoring=scoring,
                                        rtts=rtts)
@@ -4917,14 +4964,14 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
                     raise AssertionError(f"the dense workers' {scoring} "
                                          f"answer of {text!r} differs from "
                                          "the scorer's")
-        out["texts"] = 2 * CRASH_WORKER_TEXTS
         out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = tpu_ir_torch.kernel_launches()
+        out["texts"] = 2 * CRASH_WORKER_TEXTS
         out["rtt_p50_ms"] = float(np.percentile(np.array(rtts) * 1e3, 50))
         out["bitwise"] = True
     finally:
         for srv, _, _ in started:
             srv.stop()
-    out["launches"] = tpu_ir_torch.kernel_launches()
     if device == "cuda" and not out["launches"]["dense_score"]:
         raise AssertionError(f"the dense workers never launched "
                              f"dense_score: {out['launches']}")

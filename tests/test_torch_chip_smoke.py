@@ -16,6 +16,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+import tpu_ir_torch  # noqa: E402
 
 
 def _run(cwd):
@@ -660,7 +661,8 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert sorted(trials) == sorted([
         "cold_load_coalesced", "preloaded_coalesced", "cache_hit_coalesced",
         "cache_hit_plain", "preloaded_plain", "upload_coalesced",
-        "stream_crossing", "pageable_crossing", "cold_streamed"])
+        "stream_crossing", "pageable_crossing", "cold_streamed",
+        "cold_pageable"])
     for name, trial in trials.items():
         assert trial["probes"] > 0 and trial["swap_gap_ms"] > 0, name
         assert trial["wake_gap_ms"] > 0 and trial["reload_wall_s"] > 0, name
@@ -677,7 +679,11 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     for name in ("stream_crossing", "pageable_crossing"):
         assert trials[name]["bytes"] == reload_b["bytes"]
         assert trials[name]["gb_per_s"] > 0
-    assert trials["cold_streamed"]["bytes"] == reload_b["bytes"]
+    for name in ("cold_streamed", "cold_pageable", "cache_hit_coalesced"):
+        assert trials[name]["bytes"] == reload_b["bytes"], name
+        assert {row[0] for row in trials[name]["timeline"]} >= {
+            "load.h2d", "warm_up"}, name
+        assert set(trials[name]["gap_within"]) <= names, name
     assert set(swap["gap_within"]) <= names
     # the shard workers on A, the rolling swap to B, the respawn
     assert shards["routed"]["mismatches"] == 0
@@ -688,7 +694,34 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert len(walk["workers"]) == 2
     assert shards["respawned"]["index_generation"] == live["generation_b"]
     assert shards["stopped"]["alive"] == []
+    # the dense workers' launch count opens after the reference's answers
+    counting = []
+    real_http_workers = chip_smoke.http_workers
+
+    def http_workers(scorer, live_dir, **kw):
+        real_search = scorer.search_batch
+        real_reset = tpu_ir_torch.reset_kernel_launches
+
+        def search_batch(*a, **kw):
+            assert not counting, "the reference scored in the counted window"
+            return real_search(*a, **kw)
+
+        def reset_kernel_launches():
+            counting.append(True)
+            real_reset()
+
+        monkeypatch.setattr(scorer, "search_batch", search_batch)
+        monkeypatch.setattr(tpu_ir_torch, "reset_kernel_launches",
+                            reset_kernel_launches)
+        try:
+            return real_http_workers(scorer, live_dir, **kw)
+        finally:
+            monkeypatch.setattr(tpu_ir_torch, "reset_kernel_launches",
+                                real_reset)
+
+    monkeypatch.setattr(chip_smoke, "http_workers", http_workers)
     crash = chip_smoke.phase_live_crash("cpu", work, device="cpu")
+    assert counting == [True]
     assert crash["restore_verified"] and crash["backup"]["bytes_linked"]
     assert crash["backup"]["wal_segments"] == 1
     assert crash["child_rc"] == -9 and crash["replayed"] >= 1

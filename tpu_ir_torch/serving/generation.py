@@ -24,86 +24,63 @@ from .shardset import get_worker_health, rpc_post
 logger = logging.getLogger(__name__)
 
 
-def rolling_swap(topology, generation: int | None = None, *,
-                 reload_timeout_s: float = 300.0,
-                 confirm: bool = True) -> dict:
-    """Roll the worker fleet onto index generation `generation` (None:
-    each worker's newest servable one), one replica at a time.
-    `topology` is a ShardSet, a callable returning the address grid, or
-    a static [shard][replica] grid. Each worker loads and warms the new
-    generation while it still serves the old one (its reload RPC returns
-    after the publish); `confirm` re-reads its /healthz and requires the
-    new generation there before the next replica starts.
+def rolling_swap(shardset, generation: int | None = None, *,
+                 reload_timeout_s: float = 300.0) -> dict:
+    """Roll a ShardSet's workers onto index generation `generation`
+    (None: each worker's newest servable one), one replica at a time.
+    Each worker loads and warms the new generation while it still serves
+    the old one (its reload RPC returns after the publish); its /healthz
+    is read back and must name the new generation before the next
+    replica starts.
 
     A replica that cannot be reached is skipped and reported (`failed`):
-    a respawn brings it back on the new generation, which is pinned on a
-    ShardSet before the walk and again after it. When the grid's
+    a respawn brings it back on the new generation, which is pinned on
+    the ShardSet before the walk and again after it. When the grid's
     membership epoch moves during a pass, the grid is walked again
     (confirmed addresses skipped) until a pass sees it unchanged.
     Returns the generation, the (shard, replica, addr) swapped and
     failed, the passes and the wall seconds."""
-    def read_grid():
-        if callable(topology):
-            return topology()
-        if hasattr(topology, "addresses"):
-            return topology.addresses()
-        return [list(row) for row in topology]
-
-    epoch_fn = getattr(topology, "epoch", None)
-    lifecycle_fn = getattr(topology, "lifecycle", None)
     t0 = time.perf_counter()
     swapped, failed = [], []
     confirmed: set = set()
     result_gen = generation
-    if generation is not None and hasattr(topology,
-                                          "set_index_generation"):
+    if generation is not None:
         # pinned first: a replica spawned during the walk loads the new
         # generation
-        topology.set_index_generation(int(generation))
+        shardset.set_index_generation(int(generation))
     rounds = 0
     while True:
         rounds += 1
-        epoch_before = epoch_fn() if epoch_fn else None
-        grid = read_grid()
-        life = lifecycle_fn() if lifecycle_fn else None
-        for shard, row in enumerate(grid):
+        epoch_before = shardset.epoch()
+        for shard, row in enumerate(shardset.addresses()):
             for replica, addr in enumerate(row):
                 if not addr or addr in confirmed:
                     continue
-                if life is not None:
-                    st = (life[shard][replica]
-                          if shard < len(life)
-                          and replica < len(life[shard]) else None)
-                    if st in ("draining", "retired"):
-                        continue   # a replica leaving the fleet
                 payload = ({} if generation is None
                            else {"generation": int(generation)})
                 try:
                     out = rpc_post(addr, "reload", payload,
                                    reload_timeout_s)
                     result_gen = out.get("generation", result_gen)
-                    if confirm:
-                        h = get_worker_health(addr, 10.0)
-                        got = (h.get("worker") or {}).get(
-                            "index_generation")
-                        if result_gen is not None and got != result_gen:
-                            raise RuntimeError(
-                                f"worker {addr} reports index_generation "
-                                f"{got!r} after reload to {result_gen}")
+                    h = get_worker_health(addr, 10.0)
+                    got = (h.get("worker") or {}).get("index_generation")
+                    if result_gen is not None and got != result_gen:
+                        raise RuntimeError(
+                            f"worker {addr} reports index_generation "
+                            f"{got!r} after reload to {result_gen}")
                     swapped.append((shard, replica, addr))
                     confirmed.add(addr)
                 except Exception as e:  # noqa: BLE001 — a dead replica
                     # must not wedge the walk; it respawns on the new one
                     logger.warning("rolling swap: %s failed: %r", addr, e)
                     failed.append((shard, replica, addr, repr(e)))
-        if epoch_fn is None or epoch_fn() == epoch_before:
+        if shardset.epoch() == epoch_before:
             break
         if rounds >= 8:
             logger.warning("rolling swap: membership still changing after "
                            "%d passes; stopping", rounds)
             break
-    if hasattr(topology, "set_index_generation"):
-        topology.set_index_generation(result_gen)
+    shardset.set_index_generation(result_gen)
     return {"generation": result_gen, "swapped": swapped, "failed": failed,
             "rounds": rounds, "wall_s": round(time.perf_counter() - t0, 3)}
 

@@ -419,9 +419,6 @@ class ShardSet:
         self._state: list[list[str]] = [
             ["warming"] * replicas for _ in range(shards)]
         self._epoch = 0
-        # ("up" | "down", shard, replica, epoch) for each replica that
-        # joined or left the grid by a scale step (none in this slice)
-        self._events: list[tuple] = []
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -558,11 +555,6 @@ class ShardSet:
         """[shard][replica] -> lifecycle state."""
         with self._lock:
             return [list(row) for row in self._state]
-
-    def events(self) -> list:
-        """("up" | "down", shard, replica, epoch) for each scale step."""
-        with self._lock:
-            return list(self._events)
 
     def dispatchable(self) -> list:
         """addresses() with every slot that is not active set to None."""
