@@ -42,7 +42,7 @@ code:
               on 64 queries, both scorings) and the kernels' launch counts;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
               over the same queries: q/s, device time, launches; then
-              `explain`: 32 of the queries as texts through search_batch
+              `explain`: 16 of the queries as texts through search_batch
               with explain_k = 10 (TF-IDF, BM25 and the rerank): every
               entry's float64 sum of contributions equals its score, and
               its score the returned one, as float32 bits, and the same
@@ -86,10 +86,10 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 250 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 125 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
-              '?'): 80 patterns of each held against a glob and a
+              '?'): 40 patterns of each held against a glob and a
               Levenshtein oracle over the vocabulary; the expansion's host
               seconds (first call and warm), the rows' widths; the rows
               through phase 12's checks (prune on == off bitwise, recall@10
@@ -121,8 +121,8 @@ code:
               char-grams over tokens.txt) and streaming (the Python
               tokenizer in 4 processes): every artifact both write has
               one sha256, verify passes; the one-shot index served with
-              layout "auto" (500 two- and three-token texts, recall@10
-              = 1.0 against the oracle; 100 globs composed over
+              layout "auto" (250 two- and three-token texts, recall@10
+              = 1.0 against the oracle; 64 globs composed over
               tokens.txt): build wall s and docs/s, V, the layout, q/s,
               device time and launches;
 19. positions format v2 position runs: ref one-shot, legacy streaming
@@ -198,24 +198,28 @@ code:
               bitwise as the one-shot index, TF-IDF and BM25 (q/s), its
               own timed run launching cold_tier and hot_stage; then
               `shards`, its own line, printed before live's: on the live
-              dir, a ShardSet of 2 doc shards x 1 replica, subprocesses
+              dir, a ShardSet of 2 doc shards x 2 replicas, subprocesses
               on the card serving A (spawn to ready seconds, what the
-              workers add to the card's used memory in nvidia-smi); 32
-              texts from one client alone (the round trip's p50); 512
-              TF-IDF and 512 BM25 texts from 8 client threads through
-              both workers' /rpc/search, merged by merge_shard_topk
-              bitwise A's top-10 in this process (routed q/s, the round
-              trips' p50 and p99); 64 texts through the rerank's two phases
-              (cosine_at, merge_candidate_scores) bitwise this process's
-              rerank of 100; rolling_swap to B under 4 probe threads:
-              every answer one generation's and bitwise that
-              generation's for its shard, every worker on B, the merged
-              B answers bitwise B's here (each worker's widest gap, the
-              walk's wall, the staleness); one worker SIGKILLed and
-              respawned comes back on B; cold_tier and hot_stage launched
-              in each worker (its /healthz); stop() leaves no worker
-              pid; then verify_live (seconds), and doctor, generations
-              and compact --gc through the command line (seconds each);
+              workers add to the card's used memory in nvidia-smi), behind
+              a Router (serving/router.py: hedging, failover, breakers);
+              through Router.search 32 texts from one client alone, then
+              512 TF-IDF and 512 BM25 texts from 8 client threads with
+              replica 0/1 SIGKILLed after 30% of them: every answer full
+              and bitwise A's top-10 in this process (routed q/s, the
+              request's p50 and p99, the router.request, router.shard_rtt
+              and router.merge histograms, hedges fired and won a
+              request); 64 texts through the router's two-phase rerank
+              bitwise this process's rerank of 100; rolling_swap to B
+              under 4 threads probing through the Router: every answer
+              one generation's, full ones bitwise its top-10, partial
+              ones (the mixed window) its exact merge of their shards
+              (the walk's widest gap, its wall, the staleness); the
+              killed replica respawned comes back on B and answers as its
+              sibling; cold_tier and hot_stage launched in the workers
+              over the routed traffic (their /healthz); stop() leaves no
+              worker pid; then verify_live (seconds), and doctor,
+              generations and compact --gc through the command line
+              (seconds each);
 19e. live_crash  the same at ref scale (`ref-live`: the first 8,261 ref
               docs as A; a delta of 500 adds, 100 updates and 100
               deletes in flushes of 100): A backed up (segments
@@ -232,19 +236,28 @@ code:
               one-shot build's; that generation served dense on the card,
               10,000 uniform queries bitwise as the one-shot index,
               TF-IDF and BM25, launching dense_score; then through 3
-              in-process dense workers (serve_worker) over HTTP, 128
-              TF-IDF and 128 BM25 texts merged bitwise the scorer's
-              top-10, the workers launching dense_score;
-20. prox      ref and wiki100k (their positions indexes): the first 1,000
+              in-process dense workers (serve_worker) behind a Router,
+              64 TF-IDF and 64 BM25 texts bitwise the scorer's top-10,
+              the workers launching dense_score; then `routed_soak`, its
+              own line: run_distributed_soak on that dir, 2 x 2 dense
+              subprocess workers behind a Router, 160 requests from 8
+              threads under its chaos schedule (a replica SIGKILLed, then
+              a whole shard, then the respawn) and a rolling swap to a
+              generation B at 60% of the answers: conservation, no error
+              or deadlock, partial answers none mismatched, no full
+              mismatch, 3 respawns, every recovery probe full on B, the
+              workers' dense_score launches (read from this process's
+              /healthz, the router's fleet block) above 0;
+20. prox      ref and wiki100k (their positions indexes): the first 500
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
               cosine stage; 64 queries (32 uniform, 32 pairs of common
               terms) held bitwise against the boost recomputed in numpy
               from the position files;
-21. phrase    wiki100k: 200 quoted windows of 2-3 analyzed tokens of
+21. phrase    wiki100k: 100 quoted windows of 2-3 analyzed tokens of
               random docs (default_rng(12)), half with a free term, at
               slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
-              40 phrases a slop held against a scan of the token streams
+              20 phrases a slop held against a scan of the token streams
               of the document store;
 22. snippets  wiki100k: 200 hits through a ServingFrontend with
               snippets=True, every marked word one of the query's
@@ -271,7 +284,7 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              250 requests a level, BM25 and TF-IDF, twice each:
+              150 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
@@ -1988,19 +2001,23 @@ def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
     return out
 
 
-WILDCARD_QUERIES = 250          # query texts of each wildcard mix (2,000
+WILDCARD_QUERIES = 125          # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
                                 # before the live phases, 500 before the
-                                # shard workers)
-EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
-                               # (200 before the run outgrew its time)
+                                # shard workers, 250 before the router)
+EXPANSION_SAMPLE = 40          # patterns of a mix held against the oracles
+                               # (200 before the run outgrew its time, 80
+                               # before the router)
 # the questions that raised on a char-gram index before wildcard search
 QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
-KGRAM_QUERIES = 500            # two- and three-token texts on the k = 2
+KGRAM_QUERIES = 250            # two- and three-token texts on the k = 2
                                # index (2,000 before the run outgrew its time,
-                               # 1,000 before the shard workers)
-KGRAM_GLOBS = 100              # glob texts composed over its tokens.txt
-                               # (200 before the shard workers)
+                               # 1,000 before the shard workers, 500 before
+                               # the router)
+KGRAM_GLOBS = 64               # glob texts composed over its tokens.txt
+                               # (200 before the shard workers, 100 before
+                               # the router; the oracle samples
+                               # ORACLE_QUERIES of them)
 KGRAM_PROCS = 4                # tokenizer processes, streaming k = 2 build
 
 
@@ -2404,9 +2421,10 @@ FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
 SOAK_THREADS = 8
 SOAK_QUERIES = 240               # (480 before the run outgrew its time)
 SWEEP_LEVELS = (1, 4, 16)
-SWEEP_QUERIES = 250              # per level (2,000 before the merge, warm
+SWEEP_QUERIES = 150              # per level (2,000 before the merge, warm
                                  # and doctor phases paid for their time,
-                                 # 500 before the shard workers)
+                                 # 500 before the shard workers, 250 before
+                                 # the router)
 SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
@@ -2757,21 +2775,24 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
 # -- positions, phrase, proximity, explain, snippets --------------------------
 
 POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
-PHRASE_TEXTS = 200              # phrase texts of the wiki100k phrase phase
+PHRASE_TEXTS = 100              # phrase texts of the wiki100k phrase phase
                                 # (2,000 before the run outgrew its time,
-                                # 400 before the shard workers)
+                                # 400 before the shard workers, 200 before
+                                # the router)
 PHRASE_SLOPS = (0, 2)
-PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
-                                # (100 before the run outgrew its time)
-PROX_QUERIES = 1_000            # uniform queries through the prox rerank
+PHRASE_ORACLE = 20              # phrases a slop held against a stream scan
+                                # (100 before the run outgrew its time, 40
+                                # before the router)
+PROX_QUERIES = 500              # uniform queries through the prox rerank
                                 # (10,000 before the run outgrew its time,
-                                # 2,000 before the shard workers)
+                                # 2,000 before the shard workers, 1,000
+                                # before the router)
 PROX_CANDIDATES = 1_000
 PROX_ORACLE = 64                # queries whose boost numpy recomputes
-EXPLAIN_QUERIES = 32            # queries of each explain traffic (256 before
+EXPLAIN_QUERIES = 16            # queries of each explain traffic (256 before
                                 # the merge, warm and doctor phases, 128
                                 # before the live phases, 64 before the
-                                # shard workers)
+                                # shard workers, 32 before the router)
 EXPLAIN_K = 10
 SNIPPET_HITS = 200              # hits rendered through the frontend
 
@@ -3651,8 +3672,9 @@ LIVE_CRASH = dict(seed_docs=8_261, updates=100, deletes=100,
                   buffer_docs=100)
 LIVE_CRASH_PLAN = "ingest.flush_build:once@3"   # the feeder's third flush
 SWAP_PROBE_THREADS = 4          # probe threads across the swap
-SWAP_PROBE_S = 0.5              # probing before the swap, and after it
-                                # (1.0 before the shard workers)
+SWAP_PROBE_S = 0.3              # probing before the swap, and after it
+                                # (1.0 before the shard workers, 0.5 before
+                                # the router)
 SWAP_SAMPLE = 64                # A- and B-tagged responses held bitwise
 LIVE_SERVE_TEXTS = 512          # texts A serves through the frontend
 
@@ -4115,13 +4137,19 @@ def pageable_uploads():
         transfer._chunks_cuda = real
 
 
-SHARD_WORKERS = 2               # doc shards of the shards phase, 1 replica
+SHARD_WORKERS = 2               # doc shards of the shards phase
+SHARD_REPLICAS = 2              # replicas a shard (failover and hedging)
 SHARD_CLIENTS = 8               # client threads of its routed traffic
 SHARD_TEXTS = 512               # routed texts a scoring
+SHARD_KILL_AT = 0.3             # share of the routed texts answered when
+#                                 replica (0, 1) is SIGKILLed
 SHARD_RERANK_TEXTS = 64         # texts through the rerank's two phases
 SHARD_RERANK = 100              # the rerank's candidates
 SHARD_PROBE_TEXTS = 64          # BM25 texts the probes send across the walk
 SHARD_SOLO_RPCS = 32            # one-term texts sent by one client alone
+SHARD_DEADLINE_MS = 5_000.0     # the router's per-shard deadline there
+ORACLE_K = 1_000                # depth of a partial answer's oracle ranking
+ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
 
 
 def nvidia_smi_apps() -> dict:
@@ -4148,69 +4176,94 @@ def card_used_mib() -> int:
     return int(r.stdout.split()[0])
 
 
-def routed_search(addrs: list, text: str, *, k: int, scoring: str,
-                  rtts: list) -> tuple[list, list]:
-    """One text through every worker's /rpc/search, in shard order: the
-    merged top-k and each worker's answer (its generation and hits);
-    each round trip's seconds go to `rtts`."""
-    from tpu_ir_torch.serving import merge_shard_topk, rpc_post
+def router_window(reg, hist_before: dict, counters_before: dict,
+                  requests: int) -> dict:
+    """The router's histograms (p50 / p99 ms, log-bucket estimates) and
+    counters over one window of `requests` routed requests, hedges fired
+    and won a request among them."""
+    lat = reg.delta_summary(hist_before, always=ROUTER_STAGES)
+    counters = {n: reg.get(n) - counters_before.get(n, 0)
+                for n in reg.counter_names() if n.startswith("router.")}
+    out = {stage: {k: lat[stage][k] for k in ("count", "p50_ms", "p99_ms")}
+           for stage in ROUTER_STAGES}
+    out["counters"] = counters
+    out["hedge_fired_per_request"] = (
+        counters["router.hedge_fired"] / requests)
+    out["hedge_won_per_request"] = counters["router.hedge_won"] / requests
+    return out
 
-    answers = []
-    for addr in addrs:
-        t0 = time.perf_counter()
-        answers.append(rpc_post(addr, "search", {"text": text, "k": k,
-                                                 "scoring": scoring}, 120))
-        rtts.append(time.perf_counter() - t0)
-    merged = merge_shard_topk([[tuple(h) for h in a["hits"]]
-                               for a in answers], k)
-    return merged, answers
+
+def router_counters(reg) -> dict:
+    return {n: reg.get(n) for n in reg.counter_names()
+            if n.startswith("router.")}
+
+
+def partial_oracle(rank: list, ranges: list, shards_ok: tuple,
+                   k: int) -> list | None:
+    """The exact merge of the answering shards' ranges: the whole ranking
+    (`rank`, by docno, ORACLE_K deep) filtered to them; None when the
+    filtered list runs out before k while the ranking was cut at ORACLE_K
+    (the oracle cannot tell)."""
+    keep = [(d, s) for d, s in rank
+            if any(ranges[s_][0] <= d <= ranges[s_][1] for s_ in shards_ok)]
+    if len(keep) < k and len(rank) >= ORACLE_K:
+        return None
+    return keep[:k]
 
 
 def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
-                 *, device: str, k: int = 10) -> dict:
-    """The shard worker tier on the live dir of phase 19d (`wiki100k-live`,
-    generations A and B, full width): a ShardSet of SHARD_WORKERS doc
-    shards x 1 replica, each a subprocess on the one card serving A,
-    loaded from A's serving cache (spawn to ready seconds a worker, what
-    they added to the card's used memory as nvidia-smi gives it); the
-    round trip of SHARD_SOLO_RPCS texts from one client alone; SHARD_TEXTS
-    TF-IDF and as many BM25
-    texts from SHARD_CLIENTS client threads through /rpc/search of both
-    workers, merged by merge_shard_topk and bitwise the top-10 of A
-    loaded in this process (routed q/s, the round trips' p50 and p99);
-    SHARD_RERANK_TEXTS texts through the rerank's two phases (stage 1 on
-    each worker, cosine_at at the merged candidates,
-    merge_candidate_scores) bitwise this process's rerank; then
-    rolling_swap to B under 4 probe threads: no error, every answer one
-    generation's and bitwise that generation's answer for its shard,
-    every worker's /healthz on B, the merged B answers bitwise B loaded
-    here (each worker's widest gap across the walk, the walk's wall and
-    the staleness); one worker SIGKILLed and respawned comes back on B;
-    the workers' cold_tier and hot_stage launches (their /healthz) must
-    be above 0; stop() leaves no worker pid alive."""
+                 scorers: dict, *, device: str, k: int = 10) -> dict:
+    """The routed serving tier on the live dir of phase 19d
+    (`wiki100k-live`, generations A and B, full width): a ShardSet of
+    SHARD_WORKERS doc shards x SHARD_REPLICAS replicas, each a subprocess
+    on the one card serving A, loaded from A's serving cache (spawn to
+    ready seconds a worker, what they added to the card's used memory as
+    nvidia-smi gives it), behind a Router (tpu_ir's hedge floor, a
+    SHARD_DEADLINE_MS deadline). Through Router.search: SHARD_SOLO_RPCS
+    texts from one client alone; SHARD_TEXTS TF-IDF and as many BM25 texts
+    from SHARD_CLIENTS client threads, replica (0, 1) SIGKILLed once
+    SHARD_KILL_AT of them are answered: no request lost, every answer
+    full and bitwise the top-10 of A loaded in this process (routed q/s;
+    the client's p50 and p99 beside the router's `router.request`,
+    `router.shard_rtt` and `router.merge` histograms; hedges fired and
+    won a request); SHARD_RERANK_TEXTS texts through the router's
+    two-phase rerank bitwise this process's rerank of SHARD_RERANK; then
+    rolling_swap to B under 4 threads probing through the Router: every
+    answer one generation's, full ones bitwise that generation's top-10
+    and partial ones (the mixed window) that generation's exact merge of
+    their shards, the walk's widest gap and the staleness; the killed
+    replica respawned comes back on B and answers as its sibling does;
+    the workers' cold_tier and hot_stage launches over the routed
+    traffic (their /healthz) must be above 0; stop() leaves no worker
+    pid alive. `scorers` holds A and B loaded in this process, by
+    generation."""
     import threading
 
     import torch
 
-    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch import obs
     from tpu_ir_torch.search.layout import shard_doc_ranges
     from tpu_ir_torch.serving import (
+        Router,
+        RouterConfig,
         ShardSet,
         get_worker_health,
-        merge_candidate_scores,
-        merge_shard_topk,
         rolling_swap,
         rpc_post,
     )
 
+    reg = obs.get_registry()
     out = {"phase": "shards", "card": card, "config": "wiki100k-live",
-           "shards": SHARD_WORKERS, "replicas": 1, "generation_a": gen_a,
-           "generation_b": gen_b}
-    ss = ShardSet(live, shards=SHARD_WORKERS, index_generation=gen_a,
-                  device=device, rundir=tempfile.mkdtemp(dir=work),
-                  spawn_timeout_s=600.0)
+           "shards": SHARD_WORKERS, "replicas": SHARD_REPLICAS,
+           "generation_a": gen_a, "generation_b": gen_b}
+    ss = ShardSet(live, shards=SHARD_WORKERS, replicas=SHARD_REPLICAS,
+                  index_generation=gen_a, device=device,
+                  rundir=tempfile.mkdtemp(dir=work), spawn_timeout_s=600.0)
+    slots = [(s, r) for s in range(SHARD_WORKERS)
+             for r in range(SHARD_REPLICAS)]
     pids = set()
     on_card = device == "cuda"
+    router = None
     try:
         if on_card:
             torch.cuda.synchronize()
@@ -4220,42 +4273,49 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         t0 = time.perf_counter()
         ss.start()
         out["start_s"] = time.perf_counter() - t0
-        out["ready_s"] = [
-            os.stat(ss._cfg_paths(s, 0, 0)[1]).st_mtime - t_spawn
-            for s in range(SHARD_WORKERS)]
-        addrs = [row[0] for row in ss.addresses()]
-        pids |= {row[0].pid for row in ss.handles()}
+        out["ready_s"] = [os.stat(ss._cfg_paths(s, r, 0)[1]).st_mtime
+                          - t_spawn for s, r in slots]
+        grid = ss.addresses()
+        pids |= {h.pid for row in ss.handles() for h in row}
         if on_card:
             # what the workers added to the card's used memory (the
             # compute-apps rows need not carry this namespace's pids)
             out["workers_mib"] = card_used_mib() - used0
-            out["worker_mib_each"] = out["workers_mib"] / SHARD_WORKERS
+            out["worker_mib_each"] = out["workers_mib"] / len(slots)
             apps = nvidia_smi_apps()
             out["nvidia_smi_apps_mib"] = {str(p): m for p, m in apps.items()}
-            out["worker_pid_rows"] = {str(h[0].pid): apps.get(h[0].pid)
-                                      for h in ss.handles()}
-        health = [get_worker_health(a, 60)["worker"] for a in addrs]
-        out["residency"] = [h["residency"] for h in health]
-        scorer_a = Scorer.load_generation(live, gen_a, device=device)
-        ranges = shard_doc_ranges(scorer_a.meta.num_docs, SHARD_WORKERS)
-        if ([tuple(h["doc_range"]) for h in health] != ranges
-                or {h["index_generation"] for h in health} != {gen_a}):
+        health = {(s, r): get_worker_health(grid[s][r], 60)["worker"]
+                  for s, r in slots}
+        out["residency"] = [health[sl]["residency"] for sl in slots]
+        scorer_a, scorer_b = scorers[gen_a], scorers[gen_b]
+        ranges_a = shard_doc_ranges(scorer_a.meta.num_docs, SHARD_WORKERS)
+        if ([tuple(health[(s, r)]["doc_range"]) for s, r in slots]
+                != [ranges_a[s] for s, _ in slots]
+                or {h["index_generation"] for h in health.values()}
+                != {gen_a}):
             raise AssertionError(f"the workers' identities: {health}")
+        router = Router(live, ss, RouterConfig(deadline_ms=SHARD_DEADLINE_MS))
 
         # one client alone first: the round trip without queueing
+        c0, h0 = router_counters(reg), reg.hist_state()
         solo = []
         for text in scorer_a.vocab.terms[:SHARD_SOLO_RPCS]:
-            routed_search(addrs, text, k=k, scoring="bm25", rtts=solo)
-        out["solo_rtt_p50_ms"] = float(np.percentile(np.array(solo) * 1e3,
-                                                     50))
+            t0 = time.perf_counter()
+            router.search(text, k=k, scoring="bm25", return_docids=False)
+            solo.append(time.perf_counter() - t0)
+        out["solo"] = router_window(reg, h0, c0, SHARD_SOLO_RPCS)
+        out["solo"]["request_p50_ms"] = float(np.percentile(
+            np.array(solo) * 1e3, 50))
 
-        # routed traffic on A
+        # routed traffic on A, a replica SIGKILLed in the middle of it
         rng = np.random.default_rng(7)
         terms = scorer_a.vocab.terms
         texts = [" ".join(terms[int(t)] for t in row) for row in
                  rng.integers(0, len(terms), (2 * SHARD_TEXTS, 2))]
         jobs = [("tfidf", i) for i in range(SHARD_TEXTS)] + [
             ("bm25", SHARD_TEXTS + i) for i in range(SHARD_TEXTS)]
+        random_order = np.random.default_rng(9).permutation(len(jobs))
+        jobs = [jobs[int(j)] for j in random_order]
         want = {}
         for scoring in ("tfidf", "bm25"):
             idx = [i for sc, i in jobs if sc == scoring]
@@ -4263,34 +4323,50 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                     [texts[i] for i in idx], k=k, scoring=scoring,
                     return_docids=False)):
                 want[i] = result_bits(res)
+        before = {sl: dict(health[sl]["kernel_launches"]) for sl in slots}
         lock = threading.Lock()
-        rtts, errors, bad = [], [], []
-        answers_a = {}
+        lat, errors, bad = [], [], []
+        done = [0]
+        killed = {}
         cursor = iter(jobs)
+        kill_at = int(SHARD_KILL_AT * len(jobs))
+
+        def kill_replica() -> None:
+            # its launches up to the kill, then SIGKILL under traffic
+            killed["health"] = get_worker_health(grid[0][1], 60)["worker"]
+            killed["pid"] = ss.kill(0, 1)
+            killed["at"] = done[0]
 
         def client() -> None:
             while True:
                 with lock:
                     job = next(cursor, None)
+                    fire = done[0] >= kill_at and not killed
+                    if fire:
+                        killed["firing"] = True
+                if fire:
+                    kill_replica()
                 if job is None:
                     return
                 scoring, i = job
+                t_req = time.perf_counter()
                 try:
-                    got, per = routed_search(addrs, texts[i], k=k,
-                                             scoring=scoring, rtts=rtts)
+                    res = router.search(texts[i], k=k, scoring=scoring,
+                                        return_docids=False)
                 except Exception as e:  # noqa: BLE001 — counted, none
                     with lock:
                         errors.append(repr(e))
+                        done[0] += 1
                     continue
                 with lock:
-                    if result_bits(got) != want[i] or {
-                            a["generation"] for a in per} != {gen_a}:
+                    lat.append(time.perf_counter() - t_req)
+                    done[0] += 1
+                    if (Router.classify(res) != "full"
+                            or res.generation != gen_a
+                            or result_bits(res) != want[i]):
                         bad.append(i)
-                    if scoring == "bm25":
-                        for s, a in enumerate(per):
-                            answers_a[(s, i)] = result_bits(
-                                [tuple(h) for h in a["hits"]])
 
+        c0, h0 = router_counters(reg), reg.hist_state()
         threads = [threading.Thread(target=client, daemon=True)
                    for _ in range(SHARD_CLIENTS)]
         t0 = time.perf_counter()
@@ -4299,63 +4375,71 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         for th in threads:
             th.join(timeout=600)
         wall = time.perf_counter() - t0
-        ms = np.array(rtts) * 1e3
-        out["routed"] = {"texts": len(jobs), "errors": len(errors),
-                         "mismatches": len(bad), "wall_s": wall,
-                         "routed_qps": len(jobs) / wall,
-                         "rpcs": len(rtts),
-                         "rtt_p50_ms": float(np.percentile(ms, 50)),
-                         "rtt_p99_ms": float(np.percentile(ms, 99))}
-        if errors or bad or len(rtts) != SHARD_WORKERS * len(jobs):
-            raise AssertionError(f"routed traffic: {out['routed']} "
-                                 f"{errors[:3]}")
+        ms = np.array(lat) * 1e3
+        routed = router_window(reg, h0, c0, len(jobs))
+        routed.update({
+            "texts": len(jobs), "errors": len(errors),
+            "mismatches": len(bad), "wall_s": wall,
+            "routed_qps": len(jobs) / wall,
+            "request_p50_ms": float(np.percentile(ms, 50)),
+            "request_p99_ms": float(np.percentile(ms, 99)),
+            "killed": {"replica": [0, 1], "pid": killed.get("pid"),
+                       "after_answers": killed.get("at")}})
+        out["routed"] = routed
+        if (errors or bad or len(lat) != len(jobs) or "pid" not in killed
+                or routed["counters"]["router.served_full"] != len(jobs)):
+            raise AssertionError(f"routed traffic: {routed} {errors[:3]}")
 
-        # the rerank's two phases
-        rerank_texts = texts[:SHARD_RERANK_TEXTS]
+        # the rerank's two phases through the router
         t0 = time.perf_counter()
-        for text in rerank_texts:
-            hits, _ = routed_search(addrs, text, k=SHARD_RERANK,
-                                    scoring="bm25", rtts=[])
-            cand = [d for d, _ in hits]
-            cand += [0] * (SHARD_RERANK - len(cand))
-            scores = {s: rpc_post(a, "cosine_at", {"text": text,
-                                                   "cand": cand},
-                                  120)["scores"]
-                      for s, a in enumerate(addrs)}
-            got = merge_candidate_scores(cand, scores, ranges, k)
-            solo = scorer_a.search_batch([text], k=k, rerank=SHARD_RERANK,
-                                         return_docids=False)[0]
-            if result_bits(got) != result_bits(solo):
+        for text in texts[:SHARD_RERANK_TEXTS]:
+            got = router.search(text, k=k, rerank=SHARD_RERANK,
+                                return_docids=False)
+            solo_r = scorer_a.search_batch([text], k=k, rerank=SHARD_RERANK,
+                                           return_docids=False)[0]
+            if (Router.classify(got) != "full"
+                    or result_bits(got) != result_bits(solo_r)):
                 raise AssertionError(f"the routed rerank of {text!r} "
                                      "differs from the rerank in one "
                                      "process")
-        out["rerank"] = {"texts": len(rerank_texts),
+        out["rerank"] = {"texts": SHARD_RERANK_TEXTS,
                          "candidates": SHARD_RERANK, "bitwise": True,
                          "wall_s": time.perf_counter() - t0}
-        del scorer_a
-
-        # the rolling swap to B under probes
+        # the workers' launches over the routed traffic (the killed one's
+        # up to its kill)
+        traffic = dict.fromkeys(PORT_KERNELS, 0)
+        for sl in slots:
+            h = (killed["health"] if sl == (0, 1)
+                 else get_worker_health(grid[sl[0]][sl[1]], 60)["worker"])
+            for n in PORT_KERNELS:
+                traffic[n] += h["kernel_launches"][n] - before[sl][n]
+        out["traffic_launches"] = traffic
         probe_idx = [SHARD_TEXTS + i for i in range(SHARD_PROBE_TEXTS)]
+        probe_rank_a = scorer_a.search_batch(
+            [texts[i] for i in probe_idx], k=ORACLE_K, scoring="bm25",
+            return_docids=False)
+
+        # the rolling swap to B under probes through the router
         stop = threading.Event()
         events, probe_errors = [], []
 
         def probe(tid: int) -> None:
             n = tid
             while not stop.is_set():
-                s, i = n % SHARD_WORKERS, probe_idx[
-                    (n // SHARD_WORKERS) % len(probe_idx)]
+                i = probe_idx[n % len(probe_idx)]
                 try:
-                    a = rpc_post(addrs[s], "search", {
-                        "text": texts[i], "k": k, "scoring": "bm25"}, 120)
+                    res = router.search(texts[i], k=k, scoring="bm25",
+                                        return_docids=False)
                     with lock:
-                        events.append((time.perf_counter(), s, i,
-                                       a["generation"], result_bits(
-                                           [tuple(h) for h in a["hits"]])))
+                        events.append((time.perf_counter(), i,
+                                       res.generation, Router.classify(res),
+                                       res.shards_ok, result_bits(res)))
                 except Exception as e:  # noqa: BLE001 — counted, none
                     with lock:
                         probe_errors.append(repr(e))
                 n += SWAP_PROBE_THREADS
 
+        c0, h0 = router_counters(reg), reg.hist_state()
         probes = [threading.Thread(target=probe, args=(t,), daemon=True)
                   for t in range(SWAP_PROBE_THREADS)]
         t_probe = time.perf_counter()
@@ -4364,107 +4448,124 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         time.sleep(SWAP_PROBE_S)
         t_w0 = time.perf_counter()
         report = rolling_swap(ss, gen_b)
+        router.note_generation(gen_b)
         t_w1 = time.perf_counter()
         time.sleep(SWAP_PROBE_S)
         stop.set()
         for th in probes:
             th.join(timeout=600)
-        health = [get_worker_health(a, 60)["worker"] for a in addrs]
-        if (report["failed"] or len(report["swapped"]) != SHARD_WORKERS
-                or {h["index_generation"] for h in health} != {gen_b}
-                or probe_errors):
+        swap_window = router_window(reg, h0, c0, max(len(events), 1))
+        live_slots = [sl for sl in slots if sl != (0, 1)]
+        health = {sl: get_worker_health(grid[sl[0]][sl[1]], 60)["worker"]
+                  for sl in live_slots}
+        if ({(s, r) for s, r, _ in report["swapped"]} != set(live_slots)
+                or [tuple(f[:2]) for f in report["failed"]] != [(0, 1)]
+                or {h["index_generation"] for h in health.values()}
+                != {gen_b} or probe_errors):
             raise AssertionError(f"the rolling swap: {report} {health} "
                                  f"{probe_errors[:3]}")
-        # B's answers, each worker's and merged against B loaded here
-        scorer_b = Scorer.load_generation(live, gen_b, device=device)
-        answers_b = {}
-        solo_b = scorer_b.search_batch([texts[i] for i in probe_idx], k=k,
-                                       scoring="bm25", return_docids=False)
-        for i, res in zip(probe_idx, solo_b):
-            got, per = routed_search(addrs, texts[i], k=k, scoring="bm25",
-                                     rtts=[])
-            if result_bits(got) != result_bits(res) or {
-                    a["generation"] for a in per} != {gen_b}:
-                raise AssertionError(f"B's routed answer of {texts[i]!r} "
-                                     "differs from B's in one process")
-            for s, a in enumerate(per):
-                answers_b[(s, i)] = result_bits([tuple(h)
-                                                 for h in a["hits"]])
-        del scorer_b
-        answers = {gen_a: answers_a, gen_b: answers_b}
+        ranges_b = shard_doc_ranges(scorer_b.meta.num_docs, SHARD_WORKERS)
+        want_b = dict(zip(probe_idx, (result_bits(r) for r in
+                                      scorer_b.search_batch(
+                                          [texts[i] for i in probe_idx],
+                                          k=k, scoring="bm25",
+                                          return_docids=False))))
+        rank_b = dict(zip(probe_idx, (list(r) for r in scorer_b.search_batch(
+            [texts[i] for i in probe_idx], k=ORACLE_K, scoring="bm25",
+            return_docids=False))))
+        rank_a = dict(zip(probe_idx, (list(r) for r in probe_rank_a)))
+        want_a = {i: want[i] for i in probe_idx}
+        full_of = {gen_a: want_a, gen_b: want_b}
+        rank_of = {gen_a: (rank_a, ranges_a), gen_b: (rank_b, ranges_b)}
         tagged = {gen_a: 0, gen_b: 0}
-        for _t, s, i, gen, bits in events:
-            if gen not in answers or bits != answers[gen][(s, i)]:
-                raise AssertionError(f"a probe answer tagged {gen} of shard "
-                                     f"{s} is not that generation's")
+        partial = unjudged = 0
+        for _t, i, gen, cls, shards_ok, bits in events:
+            if gen not in full_of:
+                raise AssertionError(f"a probe answer tagged {gen}")
+            if cls == "full":
+                ok = bits == full_of[gen][i]
+            else:
+                rank, ranges = rank_of[gen]
+                expect = partial_oracle(rank[i], ranges, shards_ok, k)
+                partial += 1
+                unjudged += expect is None
+                ok = cls == "partial" and (expect is None
+                                           or bits == result_bits(expect))
+            if not ok:
+                raise AssertionError(f"a {cls} probe answer tagged {gen} "
+                                     f"of {texts[i]!r} is not that "
+                                     "generation's")
             tagged[gen] += 1
-        walk = {"wall_s": t_w1 - t_w0, "rounds": report["rounds"],
-                "probes": len(events), "answers_a": tagged[gen_a],
-                "answers_b": tagged[gen_b], "workers": []}
-        for s in range(SHARD_WORKERS):
-            times = sorted(t for t, ws, *_ in events if ws == s)
-            before = [t for t in times if t < t_w0]
-            after = [t for t in times if t > t_w1]
-            span = [before[-1]] + [t for t in times
-                                   if t_w0 <= t <= t_w1] + [after[0]]
-            first_b = min(t for t, ws, _i, g, _b in events
-                          if ws == s and g == gen_b)
-            walk["workers"].append({
-                "widest_gap_ms": 1e3 * float(np.diff(span).max()),
-                "baseline_gap_ms": 1e3 * float(np.diff(
-                    [t_probe] + before).max()),
-                "staleness_s": first_b - t_w0})
-        out["rolling_swap"] = walk
+        times = sorted(t for t, *_ in events)
+        before_w = [t for t in times if t < t_w0]
+        after_w = [t for t in times if t > t_w1]
+        span = [before_w[-1]] + [t for t in times
+                                 if t_w0 <= t <= t_w1] + [after_w[0]]
+        first_b = min(t for t, _i, g, *_ in events if g == gen_b)
+        out["rolling_swap"] = {
+            "wall_s": t_w1 - t_w0, "rounds": report["rounds"],
+            "swapped": len(report["swapped"]),
+            "failed": len(report["failed"]),
+            "probes": len(events), "answers_a": tagged[gen_a],
+            "answers_b": tagged[gen_b], "partial": partial,
+            "partial_unjudged": unjudged,
+            "widest_gap_ms": 1e3 * float(np.diff(span).max()),
+            "baseline_gap_ms": 1e3 * float(np.diff(
+                [t_probe] + before_w).max()),
+            "staleness_s": first_b - t_w0, "router": swap_window}
         if not (tagged[gen_a] and tagged[gen_b]):
             raise AssertionError(f"the probes saw {tagged}")
 
-        # a worker killed and respawned comes back on B
-        launches = {n: 0 for n in PORT_KERNELS}
-        for n, v in health[0]["kernel_launches"].items():
-            launches[n] += v
-        killed = ss.kill(0, 0)
+        # the killed replica comes back on B and answers as its sibling
         t0 = time.perf_counter()
-        handle = ss.respawn(0, 0)
+        handle = ss.respawn(0, 1)
         out["respawn_s"] = time.perf_counter() - t0
         pids.add(handle.pid)
-        addrs = [row[0] for row in ss.addresses()]
-        back = get_worker_health(addrs[0], 60)["worker"]
-        i = probe_idx[0]
-        again = rpc_post(addrs[0], "search", {"text": texts[i], "k": k,
-                                              "scoring": "bm25"}, 120)
-        if (back["index_generation"] != gen_b or back["generation"] != 1
-                or result_bits([tuple(h) for h in again["hits"]])
-                != answers_b[(0, i)]):
-            raise AssertionError(f"the respawned worker: {back}")
-        out["respawned"] = {"killed_pid": killed, "pid": handle.pid,
+        grid = ss.addresses()
+        back = get_worker_health(grid[0][1], 60)["worker"]
+        for i in probe_idx[:8]:
+            pay = {"text": texts[i], "k": k, "scoring": "bm25"}
+            mine = rpc_post(grid[0][1], "search", pay, 120)
+            sibling = rpc_post(grid[0][0], "search", pay, 120)
+            if (back["index_generation"] != gen_b or back["generation"] != 1
+                    or mine["generation"] != gen_b
+                    or result_bits([tuple(h) for h in mine["hits"]])
+                    != result_bits([tuple(h) for h in sibling["hits"]])):
+                raise AssertionError(f"the respawned worker: {back}")
+        out["respawned"] = {"killed_pid": killed["pid"], "pid": handle.pid,
                             "index_generation": back["index_generation"],
                             "spawn_generation": back["generation"]}
-        for h in (get_worker_health(a, 60)["worker"] for a in addrs):
-            for n, v in h["kernel_launches"].items():
-                launches[n] += v
+        launches = {n: killed["health"]["kernel_launches"][n]
+                    for n in PORT_KERNELS}
+        by_worker = {"0/1 (killed)": killed["health"]["kernel_launches"]}
+        for s, r in slots:
+            h = get_worker_health(grid[s][r], 60)["worker"]
+            by_worker[f"{s}/{r}"] = h["kernel_launches"]
+            for n in PORT_KERNELS:
+                launches[n] += h["kernel_launches"][n]
         out["launches"] = launches
-        out["launches_by_worker"] = [health[0]["kernel_launches"],
-                                     health[1]["kernel_launches"]]
-        if device == "cuda" and not all(
-                w["cold_tier"] and w["hot_stage"]
-                for w in out["launches_by_worker"]):
-            raise AssertionError(f"a worker never launched cold_tier and "
-                                 f"hot_stage: {out['launches_by_worker']}")
+        out["launches_by_worker"] = by_worker
+        if device == "cuda" and not (traffic["cold_tier"]
+                                     and traffic["hot_stage"]):
+            raise AssertionError(f"the routed traffic never launched "
+                                 f"cold_tier and hot_stage: {traffic}")
     except BaseException:
-        for s in range(SHARD_WORKERS):
+        for s, r in slots:
             with contextlib.suppress(OSError):
-                with open(ss.log_path(s, 0)) as f:
-                    print(f"worker {s} log:\n{f.read()[-3000:]}",
+                with open(ss.log_path(s, r)) as f:
+                    print(f"worker {s}/{r} log:\n{f.read()[-3000:]}",
                           file=sys.stderr)
         raise
     finally:
+        if router is not None:
+            router.close()
         ss.stop()
         shutil.rmtree(ss.rundir, ignore_errors=True)
     alive = [p for p in pids if pid_alive(p)]
     codes = [h.proc.returncode for row in ss.handles() for h in row]
     out["stopped"] = {"pids": len(pids), "alive": alive,
                       "returncodes": codes}
-    if alive or codes != [0] * SHARD_WORKERS:
+    if alive or codes != [0] * len(slots):
         raise AssertionError(f"after stop(): {out['stopped']}")
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4674,7 +4775,7 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10,
         device=device, done={"cold_load_coalesced": swap,
                              "preloaded_coalesced": back})
     scorer_b = frontend.scorer
-    del scorer_a, events, swap, back
+    del events, swap, back
 
     # B, loaded by the swap, serves the uniform queries as the one-shot
     # index does; its own timed run's launches are the phase's
@@ -4699,13 +4800,15 @@ def phase_live(card: str, work: str, *, device: str, k: int = 10,
             raise AssertionError(f"B's {scoring} top-{k} differs from the "
                                  "one-shot index's")
     out["b_bitwise_one_shot"] = True
-    del one_shot, scorer_b, frontend
+    del one_shot, frontend
     shutil.rmtree(control)
     if on_card:
         torch.cuda.empty_cache()
     if before_checks is not None:
-        # generations A and B are both still in the live dir here
-        before_checks(live, gen_a, gen_b)
+        # generations A and B are both still in the live dir here, and
+        # both loaded: the checks hold their answers against these
+        before_checks(live, gen_a, gen_b, {gen_a: scorer_a, gen_b: scorer_b})
+    del scorer_a, scorer_b
 
     # the operator's checks
     t0 = time.perf_counter()
@@ -4909,6 +5012,11 @@ def phase_live_crash(card: str, work: str, *, device: str,
     del one_shot
     out["workers"] = http_workers(gen, restored, device=device, k=k)
     del gen
+    if on_card:
+        torch.cuda.empty_cache()
+    soak = phase_routed_soak(card, restored, work, device=device)
+    emit(soak)
+    out["routed_soak_launches"] = soak["launches"]
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
     for path in (ops_path, ack, child_out, child_err):
@@ -4919,20 +5027,26 @@ def phase_live_crash(card: str, work: str, *, device: str,
 
 
 CRASH_WORKERS = 3               # in-process dense workers of live_crash
-CRASH_WORKER_TEXTS = 128        # texts a scoring through them
+CRASH_WORKER_TEXTS = 64         # texts a scoring through them (128 before
+                                # the routed soak)
+ROUTED_SOAK_SHARDS = 2          # the routed soak's fleet: doc shards
+ROUTED_SOAK_REPLICAS = 2        # and replicas a shard
+ROUTED_SOAK_UPGRADE_AT = 0.6    # share of its requests answered at the roll
+ROUTED_SOAK_POLL_S = 1.0        # how often its /healthz is read
+ROUTED_SOAK_THREADS = 8         # its client threads (tpu_ir's default)
+ROUTED_SOAK_QUERIES = 160       # its requests (tpu_ir's default)
 
 
 def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
     """CRASH_WORKERS in-process workers (serve_worker, dense, warmed) on
-    the live dir's newest generation, over HTTP: CRASH_WORKER_TEXTS
-    TF-IDF and as many BM25 texts through every worker's /rpc/search,
-    merged by merge_shard_topk, bitwise `scorer`'s top-k. `scorer`'s
-    answers are computed before the workers start, so the kernels'
-    launches, counted from 0 after the workers' warm-up to the last
-    answer, are the routed RPCs' alone (dense_score must launch on the
-    card)."""
+    the live dir's newest generation behind a Router on their static
+    address grid: CRASH_WORKER_TEXTS TF-IDF and as many BM25 texts, each
+    answer full and bitwise `scorer`'s top-k. `scorer`'s answers are
+    computed before the workers start, so the kernels' launches, counted
+    from 0 after the workers' warm-up to the last answer, are the routed
+    requests' alone (dense_score must launch on the card)."""
     import tpu_ir_torch
-    from tpu_ir_torch.serving import serve_worker
+    from tpu_ir_torch.serving import Router, RouterConfig, serve_worker
 
     rng = np.random.default_rng(8)
     terms = scorer.vocab.terms
@@ -4948,26 +5062,32 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
                for s in range(CRASH_WORKERS)]
     out = {"workers": CRASH_WORKERS, "start_s": time.perf_counter() - t0}
     try:
-        addrs = [f"127.0.0.1:{srv.port}" for srv, _, _ in started]
+        grid = [[f"127.0.0.1:{srv.port}"] for srv, _, _ in started]
         if any(sc.generation != scorer.generation or sc.layout != "dense"
                for _, _, sc in started):
             raise AssertionError("a worker serves another generation or "
                                  "layout")
-        rtts = []
-        tpu_ir_torch.reset_kernel_launches()
-        t0 = time.perf_counter()
-        for scoring, texts, want in wants:
-            for text, res in zip(texts, want):
-                got, _ = routed_search(addrs, text, k=k, scoring=scoring,
-                                       rtts=rtts)
-                if result_bits(got) != result_bits(res):
-                    raise AssertionError(f"the dense workers' {scoring} "
-                                         f"answer of {text!r} differs from "
-                                         "the scorer's")
-        out["wall_s"] = time.perf_counter() - t0
-        out["launches"] = tpu_ir_torch.kernel_launches()
+        lat = []
+        with Router(live, grid, RouterConfig(
+                deadline_ms=SHARD_DEADLINE_MS)) as router:
+            tpu_ir_torch.reset_kernel_launches()
+            t0 = time.perf_counter()
+            for scoring, texts, want in wants:
+                for text, res in zip(texts, want):
+                    t_req = time.perf_counter()
+                    got = router.search(text, k=k, scoring=scoring,
+                                        return_docids=False)
+                    lat.append(time.perf_counter() - t_req)
+                    if (Router.classify(got) != "full"
+                            or result_bits(got) != result_bits(res)):
+                        raise AssertionError(
+                            f"the dense workers' {scoring} answer of "
+                            f"{text!r} differs from the scorer's")
+            out["wall_s"] = time.perf_counter() - t0
+            out["launches"] = tpu_ir_torch.kernel_launches()
         out["texts"] = 2 * CRASH_WORKER_TEXTS
-        out["rtt_p50_ms"] = float(np.percentile(np.array(rtts) * 1e3, 50))
+        out["request_p50_ms"] = float(np.percentile(np.array(lat) * 1e3,
+                                                    50))
         out["bitwise"] = True
     finally:
         for srv, _, _ in started:
@@ -4975,6 +5095,102 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
     if device == "cuda" and not out["launches"]["dense_score"]:
         raise AssertionError(f"the dense workers never launched "
                              f"dense_score: {out['launches']}")
+    return out
+
+
+def phase_routed_soak(card: str, live: str, work: str, *,
+                      device: str) -> dict:
+    """run_distributed_soak on the recovered ref-live dir (`ref-live`,
+    dense): ROUTED_SOAK_SHARDS x ROUTED_SOAK_REPLICAS subprocess workers
+    on the card behind a Router, tpu_ir's defaults (ROUTED_SOAK_THREADS
+    threads, ROUTED_SOAK_QUERIES requests of the uniform workload, its
+    chaos schedule: replica (0, 1) SIGKILLed at 30%
+    of the answers, the last shard's every replica at 55%, the respawn at
+    75%), the fleet rolled onto a generation B (A and 8 seeded docs) at
+    ROUTED_SOAK_UPGRADE_AT. Held as tpu_ir's test holds it: conservation, no
+    error or deadlock, partial answers and none mismatched, no full
+    mismatch, at least 3 respawns, every recovery probe full (and on B),
+    no answer from A late after the roll. Meanwhile this process's
+    /healthz (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the
+    router's fleet block names each worker's pid and kernel launches, and
+    the workers' dense_score launches must be above 0."""
+    import threading
+
+    from tpu_ir_torch.obs.server import MetricsServer
+    from tpu_ir_torch.serving import run_distributed_soak
+    from tpu_ir_torch.serving.shardset import get_worker_health
+
+    seen: dict = {}            # worker pid -> its newest kernel launches
+    polls = {"n": 0, "with_router": 0, "errors": 0}
+    stop = threading.Event()
+
+    def poll(addr: str) -> None:
+        while not stop.wait(ROUTED_SOAK_POLL_S):
+            try:
+                fleet = get_worker_health(addr, 30).get("shards")
+            except Exception:  # noqa: BLE001 — counted
+                polls["errors"] += 1
+                continue
+            polls["n"] += 1
+            if not fleet or "shards" not in fleet:
+                continue
+            polls["with_router"] += 1
+            for shard in fleet["shards"]:
+                for rep in shard["replicas"]:
+                    w = rep.get("worker") or {}
+                    if rep.get("up") and w.get("pid"):
+                        seen[w["pid"]] = w["kernel_launches"]
+
+    server = MetricsServer().start()
+    poller = threading.Thread(target=poll, args=(f"127.0.0.1:{server.port}",),
+                              daemon=True)
+    poller.start()
+    rundir = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    try:
+        report = run_distributed_soak(
+            live, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
+            threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
+            layout="dense", upgrade_at=ROUTED_SOAK_UPGRADE_AT, device=device,
+            rundir=rundir)
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+        server.stop()
+        shutil.rmtree(rundir, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    launches = dict.fromkeys(PORT_KERNELS, 0)
+    for per in seen.values():
+        for n in PORT_KERNELS:
+            launches[n] += per.get(n, 0)
+    up = report["upgrade"]
+    out = {"phase": "routed_soak", "card": card, "config": "ref-live",
+           "shards": ROUTED_SOAK_SHARDS, "replicas": ROUTED_SOAK_REPLICAS,
+           "upgrade_at": ROUTED_SOAK_UPGRADE_AT, "phase_s": phase_s,
+           "report": report,
+           "healthz_polls": polls, "workers_seen": len(seen),
+           "launches": launches}
+    checks = {
+        "conservation": report["served"] + report["shed"]
+        == report["submitted"],
+        "no_error": report["errors"] == 0,
+        "no_deadlock": report["deadlocked"] == 0,
+        "taxonomy": sum(report["classes"].values()) == report["served"],
+        "partial": report["classes"]["partial"] > 0
+        and report["partial_checked"] > 0,
+        "no_partial_mismatch": report["partial_mismatches"] == 0,
+        "full": report["classes"]["full"] > 0,
+        "no_full_mismatch": report["full_mismatches"] == 0,
+        "respawns": report["router"]["router.worker_respawn"] >= 3,
+        "recovery": report["recovery_full"] == report["recovery_probes"],
+        "rolled": bool(up["swap"] and up["swap"]["swapped"]),
+        "no_late_a": up["late_old_generation"] == 0
+        and report["unknown_generation"] == 0,
+        "dense_score": device != "cuda" or launches["dense_score"] > 0,
+    }
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"the routed soak: {checks} {report}")
     return out
 
 
@@ -5039,7 +5255,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     phases and the serving tier's phases; `fields` adds its source, what
     it replaces and its launches in the merge, warm, live (19d and 19e
     together), shard worker (the shards phase's workers and live_crash's
-    in-process ones) and v1 phases."""
+    in-process ones), routed soak (its workers' /healthz) and v1
+    phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -5220,9 +5437,9 @@ def main() -> int:
         # deletes its corpus)
         shards = {}
 
-        def run_shards(live_dir, gen_a, gen_b):
+        def run_shards(live_dir, gen_a, gen_b, scorers):
             shards.update(phase_shards(card, work, live_dir, gen_a, gen_b,
-                                       device="cuda"))
+                                       scorers, device="cuda"))
             emit(shards)
 
         live = phase_live(card, work, device="cuda",
@@ -5236,6 +5453,7 @@ def main() -> int:
         shard_launches = {
             n: shards["launches"][n] + live_crash["workers"]["launches"][n]
             for n in PORT_KERNELS}
+        soak_launches = live_crash["routed_soak_launches"]
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
                         device="cuda"))
@@ -5288,6 +5506,7 @@ def main() -> int:
                    warm_launches=warm["launches"]["dense_score"],
                    live_launches=live_launches["dense_score"],
                    shard_launches=shard_launches["dense_score"],
+                   soak_launches=soak_launches["dense_score"],
                    v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
@@ -5301,6 +5520,7 @@ def main() -> int:
                    warm_launches=warm["launches"]["dequant_score"],
                    live_launches=live_launches["dequant_score"],
                    shard_launches=shard_launches["dequant_score"],
+                   soak_launches=soak_launches["dequant_score"],
                    v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
@@ -5313,6 +5533,7 @@ def main() -> int:
                    warm_launches=warm["launches"]["cold_tier"],
                    live_launches=live_launches["cold_tier"],
                    shard_launches=shard_launches["cold_tier"],
+                   soak_launches=soak_launches["cold_tier"],
                    v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
@@ -5325,6 +5546,7 @@ def main() -> int:
                    warm_launches=warm["launches"]["hot_stage"],
                    live_launches=live_launches["hot_stage"],
                    shard_launches=shard_launches["hot_stage"],
+                   soak_launches=soak_launches["hot_stage"],
                    v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})

@@ -596,15 +596,33 @@ def test_live_phases_are_listed():
     assert "`shards`" in chip_smoke.__doc__
 
 
+def test_depth_constants_cover_their_samples():
+    """Every traffic the numpy oracle samples ORACLE_QUERIES rows of holds
+    at least that many (the CPU tests below shrink both), and the other
+    samples fit their populations."""
+    c = chip_smoke
+    for n in (c.KGRAM_QUERIES, c.KGRAM_GLOBS, c.WILDCARD_QUERIES,
+              c.REF_QUERIES):
+        assert n >= c.ORACLE_QUERIES
+    assert c.PROX_QUERIES >= c.PROX_ORACLE // 2
+    assert c.PHRASE_TEXTS >= c.PHRASE_ORACLE
+    assert c.SWEEP_QUERIES >= max(c.SWEEP_LEVELS)
+    assert c.SHARD_TEXTS >= c.SHARD_PROBE_TEXTS >= 8
+    assert c.SHARD_TEXTS >= c.SHARD_RERANK_TEXTS
+    assert 0 < c.SHARD_KILL_AT < 1 and 0 < c.ROUTED_SOAK_UPGRADE_AT < 1
+
+
 def test_live_phases_on_cpu(tmp_path, monkeypatch):
     """19d and 19e at a small size on the CPU: the seed through the
     command line, the delta with flushes and a merge, B == the one-shot
     build, the swap under probes with its gap and the streamed load's
     spans, the gap trials, B bitwise the one-shot index, the shards phase
-    (subprocess workers on A, the rolling swap to B, the respawn), the
-    operator checks; the backup and restore, the crash child SIGKILLed at
-    its third flush, the recovery to the control's bytes, the dense serve
-    of the recovered generation and its in-process HTTP workers."""
+    (2 x 2 subprocess workers on A behind the Router, a replica killed
+    under its traffic, the rolling swap to B under routed probes, the
+    respawn), the operator checks; the backup and restore, the crash
+    child SIGKILLed at its third flush, the recovery to the control's
+    bytes, the dense serve of the recovered generation, its in-process
+    workers behind the Router and the routed chaos soak."""
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.search import scorer as scorer_mod
 
@@ -621,6 +639,8 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "SHARD_RERANK_TEXTS", 6)
     monkeypatch.setattr(chip_smoke, "SHARD_PROBE_TEXTS", 6)
     monkeypatch.setattr(chip_smoke, "CRASH_WORKER_TEXTS", 12)
+    monkeypatch.setattr(chip_smoke, "ROUTED_SOAK_THREADS", 6)
+    monkeypatch.setattr(chip_smoke, "ROUTED_SOAK_QUERIES", 100)
     # ref (~2,200 terms x 201) dense, wiki100k (~3,300 x 301) tiered
     monkeypatch.setattr(scorer_mod, "DENSE_BUDGET", 600_000)
     work = str(tmp_path)
@@ -630,9 +650,9 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
                 target_bytes=200_000, vocab_size=2_000)
     shards = {}
 
-    def run_shards(live_dir, gen_a, gen_b):
+    def run_shards(live_dir, gen_a, gen_b, scorers):
         shards.update(chip_smoke.phase_shards("cpu", work, live_dir, gen_a,
-                                              gen_b, device="cpu"))
+                                              gen_b, scorers, device="cpu"))
 
     live = chip_smoke.phase_live("cpu", work, device="cpu",
                                  before_checks=run_shards)
@@ -685,14 +705,21 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
             "load.h2d", "warm_up"}, name
         assert set(trials[name]["gap_within"]) <= names, name
     assert set(swap["gap_within"]) <= names
-    # the shard workers on A, the rolling swap to B, the respawn
-    assert shards["routed"]["mismatches"] == 0
-    assert shards["routed"]["rpcs"] == 2 * 2 * 24
+    # the workers on A behind the Router, a replica killed under the
+    # traffic, the rolling swap to B, the respawn
+    routed = shards["routed"]
+    assert routed["mismatches"] == routed["errors"] == 0
+    assert routed["texts"] == routed["counters"]["router.served_full"] \
+        == 2 * 24
+    assert routed["router.shard_rtt"]["count"] >= 2 * 2 * 24
+    assert routed["killed"]["pid"] and routed["killed"]["after_answers"]
     assert shards["rerank"]["bitwise"]
     walk = shards["rolling_swap"]
     assert walk["answers_a"] and walk["answers_b"]
-    assert len(walk["workers"]) == 2
+    assert walk["swapped"] == 3 and walk["failed"] == 1
     assert shards["respawned"]["index_generation"] == live["generation_b"]
+    assert shards["respawned"]["spawn_generation"] == 1
+    assert len(shards["launches_by_worker"]) == 5
     assert shards["stopped"]["alive"] == []
     # the dense workers' launch count opens after the reference's answers
     counting = []
@@ -720,6 +747,8 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
                                 real_reset)
 
     monkeypatch.setattr(chip_smoke, "http_workers", http_workers)
+    soaks = []
+    monkeypatch.setattr(chip_smoke, "emit", soaks.append)
     crash = chip_smoke.phase_live_crash("cpu", work, device="cpu")
     assert counting == [True]
     assert crash["restore_verified"] and crash["backup"]["bytes_linked"]
@@ -730,5 +759,9 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert crash["identical_artifacts"] == live["identical_artifacts"]
     assert crash["bitwise_one_shot"]
     assert crash["workers"]["bitwise"] and crash["workers"]["texts"] == 24
+    soak = soaks[0]
+    assert all(soak["checks"].values()) and soak["healthz_polls"]["n"]
+    assert soak["report"]["submitted"] == 100
+    assert crash["routed_soak_launches"] == soak["launches"]
     assert os.listdir(work) == []
-    json.dumps([live, crash, shards])
+    json.dumps([live, crash, shards, soak])

@@ -1185,3 +1185,47 @@ def test_doc_range_tiered_worker_bitwise_on_card(serving_index, shards):
                   for s, w in enumerate(workers)}
         got = merge_candidate_scores(cand, scores, ranges, 10)
         assert _bits(got) == _bits(want)
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_router_over_cuda_workers_bitwise_on_card(serving_index, layout):
+    """A Router over two in-process workers on the card: its top-10s
+    (TF-IDF and BM25) and its two-phase rerank are bitwise the scorer's
+    in one process, and the workers launch the layout's kernels."""
+    from tpu_ir_torch.serving import Router, RouterConfig, serve_worker
+
+    full = Scorer.load(serving_index, layout=layout)
+    texts = _texts(full, 2, 40, seed=37)
+    started = [serve_worker(serving_index, s, 2, layout=layout, warm=False)
+               for s in range(2)]
+    try:
+        grid = [[f"127.0.0.1:{srv.port}"] for srv, _, _ in started]
+        # the answers in one process first: the launches counted below
+        # are the workers' alone
+        wants = {scoring: full.search_batch(texts, k=10, scoring=scoring,
+                                            return_docids=False)
+                 for scoring in ("tfidf", "bm25")}
+        with Router(serving_index, grid,
+                    RouterConfig(deadline_ms=60_000)) as router:
+            tpu_ir_torch.reset_kernel_launches()
+            for scoring, want in wants.items():
+                for text, res in zip(texts, want):
+                    got = router.search(text, k=10, scoring=scoring,
+                                        return_docids=False)
+                    assert Router.classify(got) == "full"
+                    assert _bits(got) == _bits(res)
+            launches = tpu_ir_torch.kernel_launches()
+            for text in texts[:10]:
+                want = full.search_batch([text], k=10, rerank=25,
+                                         return_docids=False)[0]
+                got = router.search(text, k=10, rerank=25,
+                                    return_docids=False)
+                assert Router.classify(got) == "full"
+                assert _bits(got) == _bits(want)
+    finally:
+        for srv, _, _ in started:
+            srv.stop()
+    if layout == "dense":
+        assert launches["dense_score"] >= 1
+    else:
+        assert launches["cold_tier"] >= 1

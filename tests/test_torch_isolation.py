@@ -52,7 +52,7 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.obs.server, tpu_ir_torch.obs.disttrace, "
             "tpu_ir_torch.serving.shardset, tpu_ir_torch.serving.router, "
             "tpu_ir_torch.serving.generation, "
-            "tpu_ir_torch.serving.residency, "
+            "tpu_ir_torch.serving.residency, tpu_ir_torch.serving.workload, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"

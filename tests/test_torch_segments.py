@@ -849,9 +849,9 @@ def test_cli_ingest_compact_generations_equal_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--swap-bench", "--soak-bench"])
 def test_cli_benches_name_the_later_slice(tmp_path, flag):
-    """--soak-bench names the router's slice (ROADMAP 6b-2) and touches
-    nothing; --swap-bench, which came with the shard workers, runs the
-    micro-bench on a live dir it creates."""
+    """--soak-bench names its slice (the elastic shard fleet, ROADMAP
+    6b-3) and touches nothing; --swap-bench, which came with the shard
+    workers, runs the micro-bench on a live dir it creates."""
     rc, out, err = _cli(cli_main, ["ingest", str(tmp_path / "live"), flag,
                                    "--device", "cpu"])
     if flag == "--swap-bench":
@@ -862,5 +862,5 @@ def test_cli_benches_name_the_later_slice(tmp_path, flag):
         return
     assert rc == 1 and out == ""
     assert err.startswith(f"error: ingest {flag} is not ported yet")
-    assert "routed serving tier" in err and "6b-2" in err
+    assert "elastic shard fleet" in err and "6b-3" in err
     assert not os.path.exists(tmp_path / "live")

@@ -17,7 +17,7 @@ worker killed and respawned comes back on B.
 Also the exact merge over HTTP (in-process workers, the dense and the
 tiered layout, the rerank's two phases) against the single scorer, and
 the command line: `ingest --swap-bench`, `serve-worker --run-for`, and
-`ingest --soak-bench` refused with an error naming the router's slice."""
+`ingest --soak-bench` refused with an error naming its slice (6b-3)."""
 
 import contextlib
 import http.client
@@ -420,7 +420,7 @@ def test_ingest_swap_bench_and_soak_bench(tmp_path, capsys):
     assert report["history_row"]["backend"] == "cpu"
     assert report["num_docs_b"] == 80
     assert cli_main(["ingest", live, "--soak-bench", "--device", "cpu"]) == 1
-    assert "6b-2" in capsys.readouterr().err
+    assert "6b-3" in capsys.readouterr().err
 
 
 def test_serve_worker_cli_json_equals_jax(index_dir, tmp_path):

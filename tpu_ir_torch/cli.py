@@ -29,6 +29,8 @@ defaults.
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
+        [--shards N [--replicas R]] [--workload uniform|zipf]
+        [--skew S[,S...]] [--burst B]
     python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
         [--host H] [--replica R] [--layout auto|dense|sparse]
         [--deadline S] [--concurrency N] [--queue-depth N] [--no-warm]
@@ -65,14 +67,18 @@ library (a phrase query on an index without positions, a bad option)
 prints one `error:` line and exits 1, as tpu_ir's command line does.
 `serve-bench` runs the soak through the serving frontend (one
 `--concurrency` value), or the concurrency sweep (a comma list), and
-exits 1 when an invariant fails. It writes no BENCH_HISTORY.jsonl row.
+exits 1 when an invariant fails; `--shards N` runs the distributed chaos
+soak instead (S x R worker processes behind the Router, one soak a
+`--skew` level) and prints its report with the row the JAX package would
+append to BENCH_HISTORY.jsonl (`history` is null: the port writes no
+row).
 `serve-worker` serves one doc shard's RPC surface (serving/shardset.py)
 and prints one ready JSON line; `--run-for S` stops it after S seconds.
 `ingest --swap-bench` runs the ingest -> compact -> swap micro-bench and
 prints its report with the row the JAX package would append to
 BENCH_HISTORY.jsonl (`history` is null: the port writes no row).
-`ingest --soak-bench` exits 1 with an error naming the later slice (the
-router, ROADMAP 6b-2) that brings it.
+`ingest --soak-bench` exits 1 with an error naming the later slice
+(ROADMAP 6b-3) that brings it.
 """
 
 from __future__ import annotations
@@ -236,7 +242,7 @@ def cmd_ingest(args) -> int:
     `--gc` prunes old generations. One JSON summary on stdout.
     `--swap-bench` runs serving/generation.py::swap_microbench on the
     live dir (created if missing); `--soak-bench` raises ValueError: it
-    comes with the router, a later slice."""
+    comes with the elastic fleet, a later slice."""
     from .index import segments as seg
     from .index.ingest import IngestWriter, ingest_corpus
 
@@ -256,8 +262,8 @@ def cmd_ingest(args) -> int:
     if args.soak_bench:
         raise ValueError(
             "ingest --soak-bench is not ported yet: the durable ingest and "
-            "serve soak comes with the router of the routed serving tier, "
-            "a later slice of the port (ROADMAP item 6b-2)")
+            "serve soak comes with the autoscaler and the elastic shard "
+            "fleet, a later slice of the port (ROADMAP item 6b-3)")
     if args.init and not seg.is_live(args.live_dir):
         seg.LiveIndex.create(args.live_dir, k=args.k,
                              num_shards=args.shards,
@@ -691,10 +697,105 @@ def cmd_doctor(args) -> int:
     return 0
 
 
+def _workload_specs(args) -> list:
+    """serve-bench's workload plan, one (label, spec) a run: the uniform
+    workload is one run (spec None); `--workload zipf --skew S[,S...]`
+    one run a skew level (skew 0 draws uniformly through the same
+    model, so the levels' rows compare)."""
+    from . import envvars
+
+    kind = args.workload or envvars.get_choice("TPU_IR_WORKLOAD")
+    if kind == "uniform":
+        return [("uniform", None)]
+    if args.skew is None:
+        skews = [envvars.get_float("TPU_IR_WORKLOAD_SKEW")]
+    else:
+        skews = [float(p) for p in str(args.skew).split(",") if p.strip()]
+        if not skews or any(s < 0 for s in skews):
+            raise ValueError(
+                f"--skew {args.skew!r}: expected a non-negative number "
+                "or comma list like 0,0.7,1.1")
+    return [(f"zipf{s:g}", {"kind": "zipf", "skew": s,
+                            "burst": args.burst})
+            for s in skews]
+
+
+def _serve_routed(args) -> int:
+    """serve-bench's scatter-gather mode: the distributed chaos soak
+    (serving/soak.py::run_distributed_soak) over S x R worker processes
+    behind the Router, once a workload skew level; prints the report (a
+    `runs` list for several levels) with the row the JAX package would
+    append to BENCH_HISTORY.jsonl (`history` null: no row is written)."""
+    from .serving import run_distributed_soak
+    from .serving.result_cache import resolve_capacity
+
+    if args.shards < 1 or args.replicas < 1:
+        print("--shards and --replicas must be >= 1", file=sys.stderr)
+        return 2
+    layout = "sparse" if args.layout == "auto" else args.layout
+    if layout == "sharded":
+        print("--shards mode runs one single-device scorer per worker; "
+              "use --layout sparse or dense", file=sys.stderr)
+        return 2
+    try:
+        specs = _workload_specs(args)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    cache_n = resolve_capacity(args.cache)
+    reports = []
+    ok = True
+    for label, spec in specs:
+        report = run_distributed_soak(
+            args.index_dir, shards=args.shards, replicas=args.replicas,
+            threads=args.threads, queries=args.queries, seed=args.seed,
+            layout=layout, chaos=args.chaos,
+            worker_deadline_s=(1.0 if args.deadline is None
+                               else args.deadline),
+            timeout_s=args.timeout, workload=spec,
+            cache_entries=args.cache, device=args.device)
+        p99 = (report["latency"].get("router.request") or {}).get("p99_ms")
+        row = {
+            # chaos, each workload and cache on or off are separate
+            # comparability groups
+            "config": (f"serve_routed-{report['submitted']}q-"
+                       f"s{args.shards}r{args.replicas}"
+                       + ("-chaos" if args.chaos else "")
+                       + ("" if label == "uniform" else f"-{label}")
+                       + (f"-c{cache_n}" if cache_n else "")),
+            "backend": args.device,
+            "shards": args.shards,
+            "replicas": args.replicas,
+            "workload": label,
+            "cache_entries": cache_n,
+            "routed_qps": (round(report["served"] / report["wall_s"], 1)
+                           if report["wall_s"] else -1.0),
+            "routed_p99_ms": -1.0 if p99 is None else p99,
+            "cache_hit_fraction": report["cache"]["hit_fraction"],
+            "partial_fraction": report["partial_fraction"],
+            "hedge_fired": report["router"].get("router.hedge_fired", 0),
+            "recovery_full": report["recovery_full"],
+        }
+        report["history"] = None
+        report["history_row"] = row
+        reports.append(report)
+        ok = ok and (
+            report["errors"] == 0 and report["deadlocked"] == 0
+            and report["full_mismatches"] == 0
+            and report["partial_mismatches"] == 0
+            and report["served"] + report["shed"] == report["submitted"])
+    out = reports[0] if len(reports) == 1 else {
+        "runs": reports,
+        "levels": [r["history_row"]["workload"] for r in reports]}
+    print(json.dumps(out, sort_keys=True, default=repr))
+    return 0 if ok else 1
+
+
 def cmd_serve_bench(args) -> int:
     """The soak (`serving/soak.py::run_soak`) through a ServingFrontend,
     optionally under the chaos plan, or with `--concurrency N,N,...` the
-    concurrency sweep; prints the JSON report."""
+    concurrency sweep; `--shards N` runs the distributed chaos soak
+    (`_serve_routed`). Prints the JSON report."""
     from . import faults
     from .search import Scorer
     from .serving import (
@@ -704,6 +805,8 @@ def cmd_serve_bench(args) -> int:
         run_soak,
     )
 
+    if args.shards is not None:
+        return _serve_routed(args)
     try:
         levels = [int(p) for p in str(args.concurrency).split(",")
                   if p.strip()]
@@ -715,6 +818,24 @@ def cmd_serve_bench(args) -> int:
         return 2
     if not levels:
         levels = [4]
+    try:
+        wl_specs = _workload_specs(args)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if len(wl_specs) > 1:
+        print("a multi-skew sweep records per-skew ROUTED rows; use "
+              "--shards N with --skew 0,0.7,1.1 (the single-process "
+              "soak takes one skew)", file=sys.stderr)
+        return 2
+    workload = wl_specs[0][1]
+    if len(levels) > 1 and workload is not None:
+        # the sweep draws its own fixed query set
+        print("--concurrency sweep and --workload zipf are exclusive: "
+              "the sweep measures coalescing under a fixed query set; "
+              "use the soak (single --concurrency) for traffic shapes",
+              file=sys.stderr)
+        return 2
     scorer = Scorer.load(args.index_dir, layout=args.layout,
                          device=args.device)
     if len(levels) > 1:
@@ -744,7 +865,7 @@ def cmd_serve_bench(args) -> int:
             breaker_threshold=args.breaker_threshold,
             coalesce=(args.coalesce == "on"),
             cache_entries=args.cache),
-        timeout_s=args.timeout)
+        timeout_s=args.timeout, workload=workload)
     print(json.dumps(report, sort_keys=True, default=repr))
     ok = (report["errors"] == 0 and report["deadlocked"] == 0
           and report["untagged_mismatches"] == 0
@@ -982,8 +1103,31 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--chaos", action="store_true",
                     help="inject the default chaos plan (hangs and device "
                          "losses at the score dispatch); TPU_IR_FAULTS "
-                         "overrides it")
-    pb.add_argument("--layout", choices=["auto", "dense", "sparse"],
+                         "overrides it. With --shards the chaos is process "
+                         "kills: a replica, then a whole shard, then the "
+                         "respawn")
+    pb.add_argument("--shards", type=int, default=None, metavar="N",
+                    help="scatter-gather mode (serving/router.py): N "
+                         "doc-shard worker processes behind the Router, "
+                         "the distributed soak instead of the "
+                         "single-process one")
+    pb.add_argument("--replicas", type=int, default=1, metavar="R",
+                    help="replicas a shard in --shards mode (failover "
+                         "and hedging need R >= 2)")
+    pb.add_argument("--workload", choices=["uniform", "zipf"],
+                    default=None,
+                    help="traffic (serving/workload.py): uniform, or zipf "
+                         "(rank-skewed over the df-ordered vocabulary); "
+                         "default TPU_IR_WORKLOAD")
+    pb.add_argument("--skew", default=None, metavar="S[,S...]",
+                    help="Zipf exponent(s) of --workload zipf; a comma "
+                         "list in --shards mode runs one soak a level "
+                         "(default TPU_IR_WORKLOAD_SKEW)")
+    pb.add_argument("--burst", type=float, default=None,
+                    help="diurnal burst amplitude of the arrival pacing "
+                         "(default TPU_IR_WORKLOAD_BURST)")
+    pb.add_argument("--layout",
+                    choices=["auto", "dense", "sparse", "sharded"],
                     default="auto")
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pb.set_defaults(fn=cmd_serve_bench)
@@ -1069,7 +1213,7 @@ def main(argv: list[str] | None = None) -> int:
                           "print swap_gap_ms (no history row is written)")
     pin.add_argument("--soak-bench", action="store_true",
                      help="the durable ingest+serve soak: not ported yet "
-                          "(the router's slice, ROADMAP 6b-2)")
+                          "(ROADMAP 6b-3)")
     pin.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pin.set_defaults(fn=cmd_ingest)
 

@@ -89,6 +89,25 @@ a choice outside its set raises.
                              block-max tables, or the dense tf matrix) at
                              load; auto engages when the top-df decile
                              holds at least half the postings
+    TPU_IR_ROUTER_DEADLINE_MS  a routed request's per-shard deadline: a
+                             shard no replica answers within it ships the
+                             answer partial (default 500.0, at least 1.0)
+    TPU_IR_ROUTER_HEDGE_MS   the hedge delay's floor: a second replica is
+                             asked once the first has taken max(this, the
+                             shard's trailing p99); 0 turns hedging off
+                             (default 25.0)
+    TPU_IR_ROUTER_CONNECT_MS the TCP connect timeout of one worker RPC
+                             attempt and of a health poll (default 250.0,
+                             at least 1.0)
+    TPU_IR_ROUTER_HEALTH_TTL_S  most seconds the router's aggregated
+                             /healthz reuses its workers' polled payloads
+                             (default 2.0)
+    TPU_IR_WORKLOAD          uniform | zipf: the soaks' and serve-bench's
+                             traffic (serving/workload.py; default uniform)
+    TPU_IR_WORKLOAD_SKEW     the Zipf exponent of --workload zipf (default
+                             1.1; 0 draws uniformly)
+    TPU_IR_WORKLOAD_BURST    the diurnal amplitude of the arrival pacing
+                             (default 0: flat)
 """
 
 from __future__ import annotations
@@ -115,7 +134,13 @@ _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
            "TPU_IR_MERGE_TIER_RATIO": (8.0, 2.0),
            "TPU_IR_WAL_FSYNC_MS": (50.0, 0.0),
-           "TPU_IR_WAL_LEASE_TTL_S": (10.0, 0.5)}
+           "TPU_IR_WAL_LEASE_TTL_S": (10.0, 0.5),
+           "TPU_IR_ROUTER_DEADLINE_MS": (500.0, 1.0),
+           "TPU_IR_ROUTER_HEDGE_MS": (25.0, 0.0),
+           "TPU_IR_ROUTER_CONNECT_MS": (250.0, 1.0),
+           "TPU_IR_ROUTER_HEALTH_TTL_S": (2.0, 0.0),
+           "TPU_IR_WORKLOAD_SKEW": (1.1, 0.0),
+           "TPU_IR_WORKLOAD_BURST": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
          "TPU_IR_BATCH_LADDER": "1,4,16"}
@@ -125,7 +150,8 @@ _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),
             "TPU_IR_CACHE_REVALIDATE": ("stat", ("stat", "crc")),
-            "TPU_IR_HOT_RESIDENCY": ("auto", ("auto", "0", "1"))}
+            "TPU_IR_HOT_RESIDENCY": ("auto", ("auto", "0", "1")),
+            "TPU_IR_WORKLOAD": ("uniform", ("uniform", "zipf"))}
 
 
 def _raw(name: str) -> str | None:

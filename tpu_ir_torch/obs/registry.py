@@ -90,21 +90,37 @@ INGEST_COUNTER_NAMES = (
 # that crossed the host-to-device link
 LOAD_COUNTER_NAMES = ("load.h2d_bytes",)
 
-# the shard worker tier (serving/shardset.py): workers brought back by
-# ShardSet.respawn
-SHARD_COUNTER_NAMES = ("router.worker_respawn",)
+# the scatter-gather router (serving/router.py), the JAX names: requests
+# and served_* / shed follow the frontend's taxonomy at the router's
+# scope (a routed answer is full, degraded or partial, or it is shed);
+# hedge_fired / hedge_won count the hedged attempts and those that
+# answered first; replica_failed one failed replica attempt, shard_lost
+# a shard missing from an answer; breaker_opened a per-replica breaker's
+# opening; worker_respawn a worker ShardSet.respawn brought back;
+# mixed_generation a fan-out whose answers named more than one index
+# generation (only the winning generation's are merged)
+ROUTER_COUNTER_NAMES = (
+    "router.requests", "router.served_full", "router.served_degraded",
+    "router.served_partial", "router.shed",
+    "router.hedge_fired", "router.hedge_won",
+    "router.replica_failed", "router.shard_lost",
+    "router.breaker_opened", "router.worker_respawn",
+    "router.mixed_generation",
+)
 
 # the live index's gauges: the generation a commit or a swap made
-# current, its segment count and its tombstones
+# current, its segment count and its tombstones; router.occupancy is the
+# routed tier's admission occupancy under the JAX name (its setter, the
+# autoscaler, is not ported yet)
 DECLARED_GAUGES = ("generation.current", "generation.segments",
-                   "generation.tombstones")
+                   "generation.tombstones", "router.occupancy")
 
 DECLARED_COUNTERS = (
     tuple(f"fault.{s}" for s in FAULT_SITES)
     + tuple(f"recovery.{n}" for n in RECOVERY_COUNTER_NAMES)
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
-    + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + SHARD_COUNTER_NAMES)
+    + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
 # frontend's start and inside each generation swap; load.* are
@@ -113,12 +129,15 @@ DECLARED_COUNTERS = (
 # the strip build on the device) and load.h2d one streamed upload
 LOAD_STAGES = ("load.meta", "load.vocab", "load.read", "load.layout",
                "load.norms", "load.cache_write", "load.strip", "load.h2d")
+# the router's: a routed request end to end, one replica attempt's
+# round trip (hedges too), and the host's exact merge
+ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
                           "batch.precompile", "cache.lookup",
                           "ingest.flush", "ingest.replay", "merge.run",
-                          "generation.swap") + LOAD_STAGES)
+                          "generation.swap") + LOAD_STAGES + ROUTER_STAGES)
 
 
 class TelemetryRegistry:
@@ -149,6 +168,10 @@ class TelemetryRegistry:
     def get(self, name: str) -> int:
         with self._lock:
             return self._counters.get(name, 0)
+
+    def counter_names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._counters)
 
     def counters(self, prefix: str = "") -> dict[str, int]:
         """Counter snapshot; with a prefix, only the counters under it,

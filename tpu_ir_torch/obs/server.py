@@ -11,8 +11,11 @@ free one) serves:
                      route or an unknown handler, 400 for a malformed body.
   GET  /healthz      liveness and the serving control plane: the newest
                      live frontend's breaker, ladder and queue depth, every
-                     live frontend's stats, the ingest counters, and the
-                     instance's `extra_health` (a worker's identity).
+                     live frontend's stats, the ingest counters, the newest
+                     live router's fleet view under `shards` (shard ->
+                     replica liveness, breaker, worker identity and
+                     generation, trailing latency), and the instance's
+                     `extra_health` (a worker's identity).
 
 `/metrics`, the telemetry spool, the timeseries sampler, the HTML pages
 and trace-context adoption are not ported yet. The health keys are
@@ -38,6 +41,7 @@ logger = logging.getLogger(__name__)
 
 _health_lock = threading.Lock()
 _frontends: list = []  # weakrefs to live ServingFrontends, oldest first
+_routers: list = []    # weakrefs to live routers (serving/router.py)
 
 _PROCESS_START = time.time()
 _PROCESS_START_ISO = time.strftime("%Y-%m-%dT%H:%M:%S",
@@ -53,10 +57,25 @@ def register_health_source(frontend) -> None:
         _frontends.append(weakref.ref(frontend))
 
 
+def register_router(router) -> None:
+    """Called by Router.__init__: /healthz aggregates the router's fleet
+    (Router.health_summary). A weakref, as for the frontends: the server
+    keeps no closed router alive."""
+    with _health_lock:
+        _routers.append(weakref.ref(router))
+
+
 def _live_frontends() -> list:
     with _health_lock:
         alive = [(r, r()) for r in _frontends]
         _frontends[:] = [r for r, f in alive if f is not None]
+        return [f for _, f in alive if f is not None]
+
+
+def _live_routers() -> list:
+    with _health_lock:
+        alive = [(r, r()) for r in _routers]
+        _routers[:] = [r for r, f in alive if f is not None]
         return [f for _, f in alive if f is not None]
 
 
@@ -80,8 +99,8 @@ def _build_sha() -> str | None:
 def health_snapshot() -> dict:
     """The /healthz payload: the newest live frontend's breaker, ladder
     and queue depth at the top level (what an alerting rule matches),
-    every live frontend under `frontends`, and this process's ingest
-    counters."""
+    every live frontend under `frontends`, this process's ingest
+    counters, and the newest live router's fleet under `shards`."""
     reg = get_registry()
     out = {
         "status": "ok",
@@ -115,6 +134,13 @@ def health_snapshot() -> dict:
         except Exception as e:  # noqa: BLE001 — health must not 500
             st = {"error": repr(e)}
         out["frontends"].append(st)
+    routers = _live_routers()
+    if routers:
+        # the newest live router's fleet (its worker polls TTL-cached)
+        try:
+            out["shards"] = routers[-1].health_summary()
+        except Exception as e:  # noqa: BLE001 — health must not 500
+            out["shards"] = {"error": repr(e)}
     if out["frontends"]:
         latest = out["frontends"][-1]
         for key in ("breaker", "ladder", "queue_depth", "cache",

@@ -208,8 +208,10 @@ class SearchResult(list):
     `search_batch(explain_k=N)` asked for them (search/explain.py), None
     otherwise and on a degraded or proximity-boosted result. `snippets`:
     one highlighted text window a hit when the serving frontend was asked
-    for them. `partial` and `trace_id` belong to the scatter-gather tier
-    and distributed tracing, not ported: always False and None."""
+    for them. A routed answer (serving/router.py) also carries `partial`
+    (a shard is missing from it), `shards_ok` and `missing_shards` (shard
+    ids) and `hedges` (hedged attempts it took); `trace_id` belongs to
+    distributed tracing, not ported: always None."""
 
     degraded: bool = False
     level: str = "full"
@@ -218,6 +220,9 @@ class SearchResult(list):
     breaker_vote: bool = True
     generation: int = 0
     partial: bool = False
+    shards_ok: tuple = ()
+    missing_shards: tuple = ()
+    hedges: int = 0
     trace_id: str | None = None
 
 

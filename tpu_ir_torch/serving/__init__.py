@@ -4,11 +4,12 @@ the coalescing scheduler, the exact-hit result cache, the swap to another
 generation of a live index in one process
 (`ServingFrontend.reload_generation`), and the soak and sweep that drive
 them (see frontend.py); across processes, the doc-range shard workers and
-their ShardSet (shardset.py), the exact merges of their answers
-(router.py), the rolling generation swap and the swap micro-bench
-(generation.py) and the hot-residency hint (residency.py). Not ported:
-the router itself, the autoscaler, the Zipf workload and the distributed
-and ingest soaks."""
+their ShardSet (shardset.py), the scatter-gather Router with its exact
+merges (router.py), the rolling generation swap and the swap micro-bench
+(generation.py), the hot-residency hint (residency.py), the Zipf
+workload (workload.py) and the distributed chaos soak. Not ported: the
+autoscaler with the elastic ShardSet, and the ingest soak (ROADMAP
+6b-3)."""
 
 from .admission import AdmissionController, Overloaded
 from .batching import BatchKey, CoalescingScheduler, batch_ladder
@@ -25,7 +26,12 @@ from .frontend import (
 from .generation import rolling_swap, swap_microbench
 from .residency import prewarm_hot_residency, residency_hint
 from .result_cache import ResultCache, cache_counters
-from .router import merge_candidate_scores, merge_shard_topk
+from .router import (
+    Router,
+    RouterConfig,
+    merge_candidate_scores,
+    merge_shard_topk,
+)
 from .shardset import (
     ShardSet,
     WorkerHandle,
@@ -37,8 +43,10 @@ from .soak import (
     DEFAULT_CHAOS_PLAN,
     make_queries,
     run_concurrency_sweep,
+    run_distributed_soak,
     run_soak,
 )
+from .workload import Workload, resolve_workload
 
 __all__ = [
     "AdmissionController", "Overloaded",
@@ -48,6 +56,8 @@ __all__ = [
     "LEVEL_FULL", "LEVEL_NO_RERANK", "LEVEL_HOT_ONLY", "LEVEL_SHED",
     "ResultCache", "cache_counters",
     "run_soak", "make_queries", "run_concurrency_sweep",
+    "run_distributed_soak", "Workload", "resolve_workload",
+    "Router", "RouterConfig",
     "DEFAULT_CHAOS_PLAN",
     "ShardSet", "WorkerHandle", "serve_worker", "rpc_post",
     "get_worker_health", "merge_shard_topk", "merge_candidate_scores",

@@ -1,16 +1,18 @@
-"""Generation-keyed exact-hit result cache (the frontend's half of
-`tpu_ir/serving/result_cache.py`).
+"""Generation-keyed exact-hit result cache (the port of
+`tpu_ir/serving/result_cache.py`, less its registry of live caches).
 
 A bounded LRU from an exact request identity to its full-level response.
-The key is
+The frontend's key is
 
     (analyzed term ids, k, scoring, rerank, hot_only, generation)
 
 every field that selects the dispatch or the serving route, plus the
-index generation that would answer a miss: a generation swap moves the
-key space, so a stale entry can never be reached. Only clean (not
-degraded, not partial) responses are stored, and a hit replays one
-verbatim: the same docids, float bits and tie order as the miss path.
+index generation that would answer a miss; the router's (it has no
+analyzer) is (whitespace-split terms, generation, k, scoring, rerank).
+A generation swap moves the key space, so a stale entry can never be
+reached. Only clean (not degraded, not partial) responses are stored,
+and a hit replays one verbatim: the same docids, float bits and tie
+order as the miss path.
 
 Counters: cache.hit, cache.miss, cache.evict, cache.stale_generation in
 the registry; the frontend observes the cache.lookup histogram.
@@ -24,6 +26,14 @@ from collections import OrderedDict
 from .. import envvars
 from ..obs import get_registry
 from ..obs.registry import CACHE_COUNTER_NAMES
+
+
+def normalize_terms(text: str) -> tuple:
+    """The router's key normalization: whitespace only. The workers
+    analyze, and their analyzer ignores whitespace, so two texts with
+    equal splits get equal answers; a weaker key than the frontend's
+    costs missed hits, never a wrong one."""
+    return tuple(text.split())
 
 
 def cacheable_text(text: str) -> bool:
@@ -48,6 +58,10 @@ class ResultCache:
     @property
     def enabled(self) -> bool:
         return self.capacity > 0
+
+    def generation(self) -> int:
+        with self._lock:
+            return self._generation
 
     def bump_generation(self, gen: int) -> int:
         """Advance the cache's generation (never backwards) and purge the

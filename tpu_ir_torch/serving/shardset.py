@@ -51,24 +51,75 @@ _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def rpc_post(addr: str, path: str, payload: dict, timeout_s: float) -> dict:
+class RPCError(RuntimeError):
+    """A worker RPC that failed. Subclasses say how, which is what a
+    caller that fails over tells apart: the worker could not be reached
+    (RPCConnectError), it shed the request (RPCShedError: its 503 with a
+    reason and a level), or it answered another status (RPCStatusError).
+    A connection that breaks or times out after the request went out
+    raises the socket's own error."""
+
+
+class RPCConnectError(RPCError):
+    """The connection was refused, reset or timed out before the request
+    was sent: no worker listens at the address (a killed or a lost one)."""
+
+
+class RPCStatusError(RPCError):
+    """The worker answered a status other than 200 (`status`, `body`)."""
+
+    def __init__(self, addr: str, path: str, status: int, body: bytes):
+        self.status = int(status)
+        self.body = body
+        super().__init__(f"worker {addr} /rpc/{path} -> {status}: "
+                         f"{body[:200]!r}")
+
+
+class RPCShedError(RPCStatusError):
+    """The worker shed the request (503 Overloaded): `reason` and
+    `level` are its Overloaded's."""
+
+    def __init__(self, addr: str, path: str, status: int, body: bytes):
+        super().__init__(addr, path, status, body)
+        try:
+            info = json.loads(body)
+        except ValueError:
+            info = {}
+        self.reason = info.get("reason")
+        self.level = info.get("level")
+
+
+def rpc_post(addr: str, path: str, payload: dict, timeout_s: float, *,
+             connect_timeout_s: float | None = None) -> dict:
     """One worker RPC: POST `payload` as JSON to http://addr/rpc/<path>
-    and return the JSON answer. Raises on any failure (refused, reset,
-    timed out, a status other than 200); the caller decides what that
-    means. The timeout bounds the connect and the read."""
+    and return the JSON answer. The one client of the worker surface
+    (the router's fan-out, rolling swaps, tests). `connect_timeout_s`
+    (None: `timeout_s`) bounds the TCP connect, `timeout_s` each read
+    after it. Raises RPCConnectError when the connect fails,
+    RPCShedError on a 503 shed, RPCStatusError on another status, and
+    the socket's error when the exchange breaks after the connect; the
+    caller decides what a failure means."""
     import http.client
 
     host, port = addr.rsplit(":", 1)
-    conn = http.client.HTTPConnection(host, int(port),
-                                      timeout=max(timeout_s, 1e-3))
+    timeout_s = max(timeout_s, 1e-3)
+    connect_s = (timeout_s if connect_timeout_s is None
+                 else max(min(connect_timeout_s, timeout_s), 1e-3))
+    conn = http.client.HTTPConnection(host, int(port), timeout=connect_s)
     try:
+        try:
+            conn.connect()
+        except OSError as e:
+            raise RPCConnectError(f"worker {addr} unreachable: {e!r}") from e
+        conn.sock.settimeout(timeout_s)
         conn.request("POST", f"/rpc/{path}", body=json.dumps(payload),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
         body = resp.read()
+        if resp.status == 503:
+            raise RPCShedError(addr, path, resp.status, body)
         if resp.status != 200:
-            raise RuntimeError(f"worker {addr} /rpc/{path} -> "
-                               f"{resp.status}: {body[:200]!r}")
+            raise RPCStatusError(addr, path, resp.status, body)
         return json.loads(body)
     finally:
         conn.close()
