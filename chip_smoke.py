@@ -808,10 +808,24 @@ def pass2_device(prof) -> dict:
             "idle_share": 1 - device_us / wall_us if wall_us else None}
 
 
+def make_wiki_corpus(path: str) -> tuple[int, float]:
+    """The wiki100k corpus (seed 0, WIKI_CORPUS) written to `path`, in a
+    child process while the ref phases run: (its bytes, the seconds it
+    took)."""
+    from tpu_ir_torch.corpus import make_corpus
+
+    t0 = time.perf_counter()
+    n = make_corpus(path, seed=0, **WIKI_CORPUS)
+    return n, time.perf_counter() - t0
+
+
 def phase_build_streaming(card: str, work: str, *, device: str,
                           config: str = "wiki100k",
-                          keep_corpus: bool = False) -> tuple[dict, str]:
-    """The configuration's corpus (seed 0, WIKI_CORPUS) built three ways
+                          keep_corpus: bool = False,
+                          corpus_made=None) -> tuple[dict, str]:
+    """The configuration's corpus (seed 0, WIKI_CORPUS; `corpus_made`, a
+    future of make_wiki_corpus's answer, when a child made it) built
+    three ways
     into 10 shards: the streaming radix build (16 buckets, batch_docs
     50,000, store, char-grams 2, 3; under torch.profiler for pass 2's
     device time), the legacy streaming build (radix 0) and the one-shot
@@ -829,10 +843,14 @@ def phase_build_streaming(card: str, work: str, *, device: str,
 
     corpus = os.path.join(work, f"{config}.trec")
     t0 = time.perf_counter()
-    corpus_bytes = make_corpus(corpus, seed=0, **WIKI_CORPUS)
+    if corpus_made is None:
+        corpus_bytes = make_corpus(corpus, seed=0, **WIKI_CORPUS)
+        gen_s = time.perf_counter() - t0
+    else:
+        corpus_bytes, gen_s = corpus_made.result()
     out = {"phase": "build_streaming", "card": card, "config": config,
-           "corpus_bytes": corpus_bytes,
-           "corpus_gen_s": time.perf_counter() - t0, "builds": {}}
+           "corpus_bytes": corpus_bytes, "corpus_gen_s": gen_s,
+           "corpus_wait_s": time.perf_counter() - t0, "builds": {}}
     on_card = device == "cuda"
     builds = {
         "radix": lambda d: build_index_streaming(
@@ -1519,22 +1537,20 @@ def cold_inputs(scorer, q, scoring_name: str):
                                 scorer.row_of, weights), dl_norm
 
 
-def cold_tier_alone(idx: str, q_block: np.ndarray) -> dict:
+def cold_tier_alone(scorer, q_block: np.ndarray) -> dict:
     """Kernel 3 alone (kernel_alone) over the cold stage of `q_block` on
-    the index `idx`, TF-IDF and BM25, each launch one whole stage onto a
+    `scorer`, TF-IDF and BM25, each launch one whole stage onto a
     freshly zeroed [B, D+1] accumulator, as serving launches it: the 1 GB
     memset leaves no row or score sector of the last launch in L2 (the
-    memset is another kernel, not counted). Run in a fresh process: late
-    in this script's own process (some ten minutes and nine profiler
-    sessions in) a session holding only these launches twice traced no
-    device event at all, with or without CPU activity, while a fresh
-    process's sessions traced every launch."""
+    memset is another kernel, not counted). Run in a fresh process
+    (AloneChild): late in this script's own process (some ten minutes
+    and nine profiler sessions in) a session holding only these launches
+    twice traced no device event at all, with or without CPU activity,
+    while a fresh process's sessions traced every launch."""
     import torch
 
     from tpu_ir_torch.ops import cold_tier
-    from tpu_ir_torch.search import Scorer
 
-    scorer = Scorer.load(idx, device="cuda")
     q = torch.from_numpy(q_block).to(scorer.device)
     out = {}
     for name in ("tfidf", "bm25"):
@@ -1548,27 +1564,93 @@ def cold_tier_alone(idx: str, q_block: np.ndarray) -> dict:
                                  scorer.cold_tiers, dl_norm=dl_norm, k1=K1)
 
         out[name] = kernel_alone(stage, "cold_tier")
+        del acc
     return out
 
 
-def phase_cold_tier(card: str, scorer, idx: str, q_block: np.ndarray
-                    ) -> dict:
-    """Kernel 3 (cold_tier) against its plain twin over the whole cold
-    stage (every tier, in order, one launch) of one query block of the
-    index `idx` loaded as `scorer`, TF-IDF and BM25, with the wrapper's
-    time, the kernel's time alone (cold_tier_alone, in a child process),
-    the twin's and one library yardstick's; then at the edge cases
-    (cold_edge_checks)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def alone_child_main(idx: str, hot_block: np.ndarray,
+                     cold_block: np.ndarray, conn) -> None:
+    """AloneChild's process: load `idx` on the card, say "loaded", wait
+    for "go", then send ("ok", {"hot_stage": hot_stage_alone's,
+    "cold_tier": cold_tier_alone's}) or ("error", the traceback)."""
+    import traceback
 
+    try:
+        from tpu_ir_torch.search import Scorer
+
+        scorer = Scorer.load(idx, device="cuda")
+        conn.send("loaded")
+        if conn.recv() != "go":
+            return
+        conn.send(("ok", {"hot_stage": hot_stage_alone(scorer, hot_block),
+                          "cold_tier": cold_tier_alone(scorer,
+                                                       cold_block)}))
+    except BaseException:  # noqa: BLE001 — sent to the parent, which raises
+        with contextlib.suppress(OSError):
+            conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class AloneChild:
+    """The kernels' times alone (hot_stage_alone, cold_tier_alone), taken
+    in one fresh process. It starts, and loads the index, while the
+    wildcard phase (host work) runs; `results()` lets it measure, with
+    this process idle on the card, and returns what it measured. `stop()`
+    ends it in any case."""
+
+    def __init__(self, idx: str, hot_block: np.ndarray,
+                 cold_block: np.ndarray):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child_conn = ctx.Pipe()
+        self._proc = ctx.Process(target=alone_child_main,
+                                 args=(idx, hot_block, cold_block,
+                                       child_conn), daemon=True)
+        self._proc.start()
+        child_conn.close()
+        self._results = None
+
+    def _recv(self, timeout_s: float):
+        if not self._conn.poll(timeout_s):
+            raise AssertionError(f"the alone child said nothing in "
+                                 f"{timeout_s} s")
+        return self._conn.recv()
+
+    def results(self) -> dict:
+        if self._results is None:
+            said = self._recv(600)
+            if said != "loaded":
+                raise AssertionError(f"the alone child: {said}")
+            self._conn.send("go")
+            state, payload = self._recv(600)
+            if state != "ok":
+                raise AssertionError(f"the alone child failed:\n{payload}")
+            self._results = payload
+        return self._results
+
+    def stop(self) -> None:
+        with contextlib.suppress(OSError):
+            self._conn.close()
+        self._proc.join(timeout=60)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(timeout=30)
+
+
+def phase_cold_tier(card: str, scorer, q_block: np.ndarray,
+                    alone_by_scoring: dict) -> dict:
+    """Kernel 3 (cold_tier) against its plain twin over the whole cold
+    stage (every tier, in order, one launch) of one query block on
+    `scorer`, TF-IDF and BM25, with the wrapper's time, the kernel's time
+    alone (`alone_by_scoring`: cold_tier_alone's, from AloneChild), the
+    twin's and one library yardstick's; then at the edge cases
+    (cold_edge_checks)."""
     import torch
 
     from tpu_ir_torch.ops import cold_tier, scoring
 
-    with ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as ex:
-        alone_by_scoring = ex.submit(cold_tier_alone, idx, q_block).result()
     dev = scorer.device
     n = scorer.meta.num_docs
     width = n + 1
@@ -1821,15 +1903,13 @@ def hot_inputs(scorer, q_block: np.ndarray):
     return base, rows, w, scoring._lntf(scorer.hot_tfs)
 
 
-def hot_stage_alone(idx: str, q_block: np.ndarray) -> dict:
+def hot_stage_alone(scorer, q_block: np.ndarray) -> dict:
     """The hot-stage kernel alone (kernel_alone) on `q_block`'s inputs
     (hot_inputs) over the whole strip, each launch onto a fresh copy of
     the cold partial, as serving adds to a partial the cold stage just
-    wrote; run in a fresh process, as cold_tier_alone is."""
+    wrote; run in a fresh process (AloneChild), as cold_tier_alone is."""
     from tpu_ir_torch.ops import hot_stage
-    from tpu_ir_torch.search import Scorer
 
-    scorer = Scorer.load(idx, device="cuda")
     base, rows, w, strip = hot_inputs(scorer, q_block)
     acc = base.clone()
 
@@ -1837,7 +1917,9 @@ def hot_stage_alone(idx: str, q_block: np.ndarray) -> dict:
         acc.copy_(base)
         hot_stage.hot_stage(acc, rows, w, strip)
 
-    return kernel_alone(stage, "hot_stage")
+    out = kernel_alone(stage, "hot_stage")
+    del base, acc, strip
+    return out
 
 
 def hot_edge_checks() -> dict:
@@ -1902,27 +1984,21 @@ def hot_bound(rows, strip, width: int) -> dict:
             "active_queries": active}
 
 
-def phase_hot_stage(card: str, scorer, idx: str, q_block: np.ndarray
-                    ) -> dict:
+def phase_hot_stage(card: str, scorer, q_block: np.ndarray,
+                    alone: dict) -> dict:
     """The hot-stage kernel against its plain twin at wiki100k shapes: one
     block of hot-term queries (every query holds a hot term) over the
     whole (1 + ln tf) strip, N = D+1, and over a block-max column set
     (the budget's blocks, every fourth), where it must also give the
     whole strip's bits at those columns; with the wrapper's time, the
-    kernel's time alone (hot_stage_alone, in a child process), the twin's,
-    the yardstick torch.matmul(w_hot, strip) at the same shapes, and the
+    kernel's time alone (`alone`: hot_stage_alone's, from AloneChild),
+    the twin's, the yardstick torch.matmul(w_hot, strip) at the same shapes, and the
     bound (hot_bound); then the edge cases (hot_edge_checks)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import torch
 
     from tpu_ir_torch.ops import hot_stage
     from tpu_ir_torch.ops.scoring import blockmax_cand_blocks
 
-    with ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as ex:
-        alone = ex.submit(hot_stage_alone, idx, q_block).result()
     launches_before = hot_stage.hot_stage_launches()
     base, rows, w, strip = hot_inputs(scorer, q_block)
     b, width = base.shape
@@ -2005,9 +2081,8 @@ WILDCARD_QUERIES = 125          # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
                                 # before the live phases, 500 before the
                                 # shard workers, 250 before the router)
-EXPANSION_SAMPLE = 40          # patterns of a mix held against the oracles
-                               # (200 before the run outgrew its time, 80
-                               # before the router)
+EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
+                               # (200 before the run outgrew its time)
 # the questions that raised on a char-gram index before wildcard search
 QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
 KGRAM_QUERIES = 250            # two- and three-token texts on the k = 2
@@ -2780,9 +2855,8 @@ PHRASE_TEXTS = 100              # phrase texts of the wiki100k phrase phase
                                 # 400 before the shard workers, 200 before
                                 # the router)
 PHRASE_SLOPS = (0, 2)
-PHRASE_ORACLE = 20              # phrases a slop held against a stream scan
-                                # (100 before the run outgrew its time, 40
-                                # before the router)
+PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
+                                # (100 before the run outgrew its time)
 PROX_QUERIES = 500              # uniform queries through the prox rerank
                                 # (10,000 before the run outgrew its time,
                                 # 2,000 before the shard workers, 1,000
@@ -4176,14 +4250,14 @@ def card_used_mib() -> int:
     return int(r.stdout.split()[0])
 
 
-def router_window(reg, hist_before: dict, counters_before: dict,
+def router_window(router, reg, hist_before: dict, counters_before: dict,
                   requests: int) -> dict:
     """The router's histograms (p50 / p99 ms, log-bucket estimates) and
-    counters over one window of `requests` routed requests, hedges fired
-    and won a request among them."""
+    counters (`router.stats()`) over one window of `requests` routed
+    requests, hedges fired and won a request among them."""
     lat = reg.delta_summary(hist_before, always=ROUTER_STAGES)
-    counters = {n: reg.get(n) - counters_before.get(n, 0)
-                for n in reg.counter_names() if n.startswith("router.")}
+    counters = {n: v - counters_before.get(n, 0)
+                for n, v in router.stats().items()}
     out = {stage: {k: lat[stage][k] for k in ("count", "p50_ms", "p99_ms")}
            for stage in ROUTER_STAGES}
     out["counters"] = counters
@@ -4191,11 +4265,6 @@ def router_window(reg, hist_before: dict, counters_before: dict,
         counters["router.hedge_fired"] / requests)
     out["hedge_won_per_request"] = counters["router.hedge_won"] / requests
     return out
-
-
-def router_counters(reg) -> dict:
-    return {n: reg.get(n) for n in reg.counter_names()
-            if n.startswith("router.")}
 
 
 def partial_oracle(rank: list, ranges: list, shards_ok: tuple,
@@ -4231,7 +4300,10 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
     rolling_swap to B under 4 threads probing through the Router: every
     answer one generation's, full ones bitwise that generation's top-10
     and partial ones (the mixed window) that generation's exact merge of
-    their shards, the walk's widest gap and the staleness; the killed
+    their shards; the walk's widest gap between answers (partial ones
+    too), between full answers, and per shard between the answers it
+    contributed to, and the staleness, the fleet's and each shard's;
+    the killed
     replica respawned comes back on B and answers as its sibling does;
     the workers' cold_tier and hot_stage launches over the routed
     traffic (their /healthz) must be above 0; stop() leaves no worker
@@ -4297,13 +4369,13 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         router = Router(live, ss, RouterConfig(deadline_ms=SHARD_DEADLINE_MS))
 
         # one client alone first: the round trip without queueing
-        c0, h0 = router_counters(reg), reg.hist_state()
+        c0, h0 = router.stats(), reg.hist_state()
         solo = []
         for text in scorer_a.vocab.terms[:SHARD_SOLO_RPCS]:
             t0 = time.perf_counter()
             router.search(text, k=k, scoring="bm25", return_docids=False)
             solo.append(time.perf_counter() - t0)
-        out["solo"] = router_window(reg, h0, c0, SHARD_SOLO_RPCS)
+        out["solo"] = router_window(router, reg, h0, c0, SHARD_SOLO_RPCS)
         out["solo"]["request_p50_ms"] = float(np.percentile(
             np.array(solo) * 1e3, 50))
 
@@ -4366,7 +4438,7 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                             or result_bits(res) != want[i]):
                         bad.append(i)
 
-        c0, h0 = router_counters(reg), reg.hist_state()
+        c0, h0 = router.stats(), reg.hist_state()
         threads = [threading.Thread(target=client, daemon=True)
                    for _ in range(SHARD_CLIENTS)]
         t0 = time.perf_counter()
@@ -4376,7 +4448,7 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
             th.join(timeout=600)
         wall = time.perf_counter() - t0
         ms = np.array(lat) * 1e3
-        routed = router_window(reg, h0, c0, len(jobs))
+        routed = router_window(router, reg, h0, c0, len(jobs))
         routed.update({
             "texts": len(jobs), "errors": len(errors),
             "mismatches": len(bad), "wall_s": wall,
@@ -4439,7 +4511,7 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                         probe_errors.append(repr(e))
                 n += SWAP_PROBE_THREADS
 
-        c0, h0 = router_counters(reg), reg.hist_state()
+        c0, h0 = router.stats(), reg.hist_state()
         probes = [threading.Thread(target=probe, args=(t,), daemon=True)
                   for t in range(SWAP_PROBE_THREADS)]
         t_probe = time.perf_counter()
@@ -4454,7 +4526,8 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         stop.set()
         for th in probes:
             th.join(timeout=600)
-        swap_window = router_window(reg, h0, c0, max(len(events), 1))
+        swap_window = router_window(router, reg, h0, c0,
+                                    max(len(events), 1))
         live_slots = [sl for sl in slots if sl != (0, 1)]
         health = {sl: get_worker_health(grid[sl[0]][sl[1]], 60)["worker"]
                   for sl in live_slots}
@@ -4496,12 +4569,31 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                                      f"of {texts[i]!r} is not that "
                                      "generation's")
             tagged[gen] += 1
-        times = sorted(t for t, *_ in events)
-        before_w = [t for t in times if t < t_w0]
-        after_w = [t for t in times if t > t_w1]
-        span = [before_w[-1]] + [t for t in times
-                                 if t_w0 <= t <= t_w1] + [after_w[0]]
-        first_b = min(t for t, _i, g, *_ in events if g == gen_b)
+        def gaps(times: list) -> dict:
+            # the widest gap between successive answers across the walk
+            # (from the last before it to the first after it), beside the
+            # widest in the probing before it
+            times = sorted(times)
+            before_w = [t for t in times if t < t_w0]
+            after_w = [t for t in times if t > t_w1]
+            span = [before_w[-1]] + [t for t in times
+                                     if t_w0 <= t <= t_w1] + [after_w[0]]
+            return {"widest_gap_ms": 1e3 * float(np.diff(span).max()),
+                    "baseline_gap_ms": 1e3 * float(np.diff(
+                        [t_probe] + before_w).max())}
+
+        # the fleet as a caller sees it: any answer (a partial one too),
+        # then full answers only; and per shard, as PR 16 measured each
+        # worker: the answers that shard contributed to, and its first
+        # answer on B
+        per_shard = []
+        for s in range(SHARD_WORKERS):
+            mine = [(t, g) for t, _i, g, _c, ok, _b in events if s in ok]
+            per_shard.append({
+                "shard": s, "answers": len(mine),
+                **gaps([t for t, _g in mine]),
+                "staleness_s": min(t for t, g in mine if g == gen_b)
+                - t_w0})
         out["rolling_swap"] = {
             "wall_s": t_w1 - t_w0, "rounds": report["rounds"],
             "swapped": len(report["swapped"]),
@@ -4509,10 +4601,12 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
             "probes": len(events), "answers_a": tagged[gen_a],
             "answers_b": tagged[gen_b], "partial": partial,
             "partial_unjudged": unjudged,
-            "widest_gap_ms": 1e3 * float(np.diff(span).max()),
-            "baseline_gap_ms": 1e3 * float(np.diff(
-                [t_probe] + before_w).max()),
-            "staleness_s": first_b - t_w0, "router": swap_window}
+            **gaps([t for t, *_ in events]),
+            "full_gap_ms": gaps([t for t, _i, _g, c, *_ in events
+                                 if c == "full"])["widest_gap_ms"],
+            "staleness_s": min(t for t, _i, g, *_ in events if g == gen_b)
+            - t_w0,
+            "shards": per_shard, "router": swap_window}
         if not (tagged[gen_a] and tagged[gen_b]):
             raise AssertionError(f"the probes saw {tagged}")
 
@@ -5112,15 +5206,19 @@ def phase_routed_soak(card: str, live: str, work: str, *,
     mismatch, at least 3 respawns, every recovery probe full (and on B),
     no answer from A late after the roll. Meanwhile this process's
     /healthz (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the
-    router's fleet block names each worker's pid and kernel launches, and
-    the workers' dense_score launches must be above 0."""
+    router's fleet block names each worker's pid, its kernel launches and
+    those of its warm-ups (its start's and each reload's). The launches
+    less the warm-ups' are the routed requests' (a lower bound: a request
+    served while a reload warms counts as the warm-up's); summed over the
+    workers seen, the dense_score ones must be above 0."""
     import threading
 
     from tpu_ir_torch.obs.server import MetricsServer
     from tpu_ir_torch.serving import run_distributed_soak
     from tpu_ir_torch.serving.shardset import get_worker_health
 
-    seen: dict = {}            # worker pid -> its newest kernel launches
+    seen: dict = {}            # worker pid -> its newest launches, and
+    routed: dict = {}          # those less its warm-ups
     polls = {"n": 0, "with_router": 0, "errors": 0}
     stop = threading.Event()
 
@@ -5140,6 +5238,9 @@ def phase_routed_soak(card: str, live: str, work: str, *,
                     w = rep.get("worker") or {}
                     if rep.get("up") and w.get("pid"):
                         seen[w["pid"]] = w["kernel_launches"]
+                        routed[w["pid"]] = {
+                            n: v - w["warm_launches"][n]
+                            for n, v in w["kernel_launches"].items()}
 
     server = MetricsServer().start()
     poller = threading.Thread(target=poll, args=(f"127.0.0.1:{server.port}",),
@@ -5160,16 +5261,18 @@ def phase_routed_soak(card: str, live: str, work: str, *,
         shutil.rmtree(rundir, ignore_errors=True)
     phase_s = time.perf_counter() - t0
     launches = dict.fromkeys(PORT_KERNELS, 0)
-    for per in seen.values():
+    with_warm_ups = dict.fromkeys(PORT_KERNELS, 0)
+    for pid, per in routed.items():
         for n in PORT_KERNELS:
             launches[n] += per.get(n, 0)
+            with_warm_ups[n] += seen[pid].get(n, 0)
     up = report["upgrade"]
     out = {"phase": "routed_soak", "card": card, "config": "ref-live",
            "shards": ROUTED_SOAK_SHARDS, "replicas": ROUTED_SOAK_REPLICAS,
            "upgrade_at": ROUTED_SOAK_UPGRADE_AT, "phase_s": phase_s,
            "report": report,
            "healthz_polls": polls, "workers_seen": len(seen),
-           "launches": launches}
+           "launches": launches, "launches_with_warm_ups": with_warm_ups}
     checks = {
         "conservation": report["served"] + report["shed"]
         == report["submitted"],
@@ -5255,8 +5358,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     phases and the serving tier's phases; `fields` adds its source, what
     it replaces and its launches in the merge, warm, live (19d and 19e
     together), shard worker (the shards phase's workers and live_crash's
-    in-process ones), routed soak (its workers' /healthz) and v1
-    phases."""
+    in-process ones), routed soak (its workers' /healthz, their warm-ups'
+    launches left out) and v1 phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -5278,17 +5381,42 @@ def main() -> int:
               "on a GPU and has nothing to do here", file=sys.stderr)
         return 2
     try:
-        import tpu_ir_torch
+        import tpu_ir_torch  # noqa: F401 — the check only
     except ImportError as e:
         print(f"chip_smoke: cannot import tpu_ir_torch ({e}); run from the "
               "repository root", file=sys.stderr)
         return 2
-
-    from tpu_ir_torch import faults
-    from tpu_ir_torch.search import Scorer
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     card = card_line()
     emit(build_kernels(card))
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, "build", "chip_smoke")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(dir=scratch)
+    # the wiki100k corpus is host work: a child writes it while the
+    # kernel and ref phases run
+    corpus_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    corpus_made = corpus_pool.submit(
+        make_wiki_corpus, os.path.join(work, "wiki100k.trec"))
+    try:
+        return run_phases(card, work, corpus_made)
+    finally:
+        corpus_pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(card: str, work: str, corpus_made) -> int:
+    """Every phase after the kernels' build, in order, then the summary
+    line and the last line."""
+    import torch
+
+    import tpu_ir_torch
+    from tpu_ir_torch import faults
+    from tpu_ir_torch.search import Scorer
+
     emit(phase_env(card))
     shapes = dict(vocab_rows=REF_VOCAB_ROWS, width=8_761 + 1,
                   batch=REF_QUERIES, terms=REF_QUERY_TERMS)
@@ -5299,10 +5427,6 @@ def main() -> int:
     emit(dequant)
     torch.cuda.empty_cache()
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    scratch = os.path.join(root, "build", "chip_smoke")
-    os.makedirs(scratch, exist_ok=True)
-    work = tempfile.mkdtemp(dir=scratch)
     try:
         build, idx = phase_build(card, work, device="cuda", keep_corpus=True)
         emit(build)
@@ -5351,7 +5475,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         wbuild, widx = phase_build_streaming(card, work, device="cuda",
-                                             keep_corpus=True)
+                                             keep_corpus=True,
+                                             corpus_made=corpus_made)
         emit(wbuild)
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")
@@ -5377,25 +5502,33 @@ def main() -> int:
                 raise AssertionError(f"the explain phases never launched "
                                      f"{kernel}: {explain_launches}")
         torch.cuda.empty_cache()
-        # wildcard and fuzzy traffic, its launches counted on their own
-        tpu_ir_torch.reset_kernel_launches()
-        for row in phase_wildcard(card, scorer, widx, device="cuda"):
-            emit(row)
+        # the kernels' times alone: a fresh process loads the index while
+        # the wildcard phase's host work runs, and measures after it
+        block = scorer._block_size()
+        alone = AloneChild(widx, hot_q[:block], q_ids[:block])
+        try:
+            # wildcard and fuzzy traffic, its launches counted on their own
+            tpu_ir_torch.reset_kernel_launches()
+            for row in phase_wildcard(card, scorer, widx, device="cuda"):
+                emit(row)
+            alone_ms = alone.results()
+        finally:
+            alone.stop()
         wildcard_launches = tpu_ir_torch.kernel_launches()
         for kernel in ("cold_tier", "hot_stage"):
             if wildcard_launches[kernel] == 0:
                 raise AssertionError(f"the wildcard phase never launched "
                                      f"{kernel}: {wildcard_launches}")
         torch.cuda.empty_cache()
-        hot = phase_hot_stage(card, scorer, widx,
-                              hot_q[:scorer._block_size()])
+        hot = phase_hot_stage(card, scorer, hot_q[:block],
+                              alone_ms["hot_stage"])
         hot["kernel_per_10k_topk"] = {
             s: wserve["profile"][s]["port_kernels"].get("hot_stage")
             for s in ("tfidf", "bm25")}
         emit(hot)
         torch.cuda.empty_cache()
-        cold = phase_cold_tier(card, scorer, widx,
-                               q_ids[:scorer._block_size()])
+        cold = phase_cold_tier(card, scorer, q_ids[:block],
+                               alone_ms["cold_tier"])
         cold["launches_per_10k_topk"] = wserve["launches_per_topk"]
         # the kernel's device time in one profiled 10k topk (serve phase)
         cold["kernel_per_10k_topk"] = {
@@ -5490,7 +5623,6 @@ def main() -> int:
         del serving, scorer
     finally:
         faults.drain_abandoned(timeout_s=10.0)
-        shutil.rmtree(work, ignore_errors=True)
 
     # cold_tier's times are the TF-IDF stage's (the default scoring); its
     # error is the larger of the two scorings'

@@ -103,6 +103,54 @@ def test_build_streaming_and_crash_resume_phases_on_cpu(tmp_path,
     json.dumps(out)
 
 
+def test_build_streaming_takes_the_corpus_a_child_made(tmp_path,
+                                                      monkeypatch):
+    """The wiki100k corpus may be written beside the ref phases
+    (make_wiki_corpus in a child): phase_build_streaming then waits for
+    it, reports the child's seconds, and builds from its bytes, the same
+    as the corpus it would write itself."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_ir_torch.corpus import make_corpus
+
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=120, target_bytes=120_000, vocab_size=1_500))
+    work = str(tmp_path / "work")
+    os.makedirs(work)
+    with ThreadPoolExecutor(1) as ex:
+        made = ex.submit(chip_smoke.make_wiki_corpus,
+                         os.path.join(work, "wiki100k.trec"))
+        out, ridx = chip_smoke.phase_build_streaming(
+            "cpu", work, device="cpu", keep_corpus=True, corpus_made=made)
+    n_bytes, gen_s = made.result()
+    assert out["corpus_bytes"] == n_bytes and out["corpus_gen_s"] == gen_s
+    assert out["corpus_wait_s"] >= 0 and out["verify"]["ok"]
+    assert out["builds"]["radix"]["num_docs"] == 120
+    own = str(tmp_path / "own.trec")
+    make_corpus(own, seed=0, **chip_smoke.WIKI_CORPUS)
+    with open(own, "rb") as f, open(os.path.join(work, "wiki100k.trec"),
+                                     "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_alone_child_reports_its_failure_and_stops():
+    """AloneChild: a child that cannot load its index on the card sends
+    its traceback, results() raises with it, and stop() leaves no child
+    process."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    block = np.zeros((2, 2), np.int32)
+    child = chip_smoke.AloneChild("/nonexistent-index", block, block)
+    try:
+        with pytest.raises(AssertionError, match="alone child"):
+            child.results()
+    finally:
+        child.stop()
+    assert not child._proc.is_alive()
+
+
 def test_wiki100k_phases_on_cpu(tmp_path, monkeypatch):
     from tpu_ir_torch.search import scorer as scorer_mod
 
@@ -717,6 +765,10 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     walk = shards["rolling_swap"]
     assert walk["answers_a"] and walk["answers_b"]
     assert walk["swapped"] == 3 and walk["failed"] == 1
+    assert [sh["shard"] for sh in walk["shards"]] == [0, 1]
+    assert all(sh["answers"] and sh["widest_gap_ms"] > 0
+               for sh in walk["shards"])
+    assert walk["full_gap_ms"] >= walk["widest_gap_ms"] > 0
     assert shards["respawned"]["index_generation"] == live["generation_b"]
     assert shards["respawned"]["spawn_generation"] == 1
     assert len(shards["launches_by_worker"]) == 5
@@ -763,5 +815,6 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert all(soak["checks"].values()) and soak["healthz_polls"]["n"]
     assert soak["report"]["submitted"] == 100
     assert crash["routed_soak_launches"] == soak["launches"]
+    assert set(soak["launches_with_warm_ups"]) == set(soak["launches"])
     assert os.listdir(work) == []
     json.dumps([live, crash, shards, soak])

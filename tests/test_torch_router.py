@@ -588,7 +588,8 @@ def _keys(d: dict) -> set:
 def test_health_keys_equal_jax(index_dir, twin_dir):
     """The router's health_summary, its shard and replica entries, and
     /healthz with a router live, against `tpu_ir`'s over its own workers
-    (the worker identity adds the port's kernel_launches)."""
+    (the worker identity adds the port's kernel_launches and
+    warm_launches)."""
     port_w = _Workers(index_dir, "sparse", shards=2)
     jax_started = [jax_serve_worker(twin_dir, s, 2, layout="sparse",
                                     warm=False) for s in range(2)]
@@ -617,7 +618,7 @@ def test_health_keys_equal_jax(index_dir, twin_dir):
                     assert gr["up"] is wr["up"] is True
                     assert _keys(gr["breaker"]) == _keys(wr["breaker"])
                     assert _keys(gr["worker"]) == _keys(wr["worker"]) | {
-                        "kernel_launches"}
+                        "kernel_launches", "warm_launches"}
             snap, jsnap = health_snapshot(), jax_health_snapshot()
             assert "shards" in snap and "shards" in jsnap
             assert _keys(snap["shards"]) == _keys(jsnap["shards"])

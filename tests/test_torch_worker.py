@@ -3,7 +3,7 @@
 (d) The worker surface equals `tpu_ir`'s: the RPC routes and their
 status codes (200, 400, 404, 500, 503 with reason and level), the
 /healthz keys and the worker identity's (plus the port's
-`kernel_launches`), the ready file's and `serve-worker`'s JSON keys, and
+`kernel_launches` and `warm_launches`), the ready file's and `serve-worker`'s JSON keys, and
 `swap_microbench`'s report keys. A ShardSet of two subprocess workers
 starts, is killed and respawned, and leaves no worker pid alive after
 `stop()`; a worker whose stdin closes exits. (That the worker process
@@ -154,7 +154,7 @@ _CASES = [
 def test_worker_surface_equals_jax(index_dir, tmp_path):
     """Each route's status and JSON keys equal the JAX worker's on a copy
     of the same index; the worker identity holds the JAX keys and the
-    port's kernel_launches."""
+    port's kernel_launches and warm_launches."""
     twin = str(tmp_path / "twin")
     shutil.copytree(index_dir, twin,
                     ignore=shutil.ignore_patterns("serving-*"))
@@ -169,7 +169,8 @@ def test_worker_surface_equals_jax(index_dir, tmp_path):
             assert sorted(got[1]) == sorted(want[1]), (method, path)
             if path == "/healthz":
                 worker, jworker = got[1]["worker"], want[1]["worker"]
-                assert set(worker) == set(jworker) | {"kernel_launches"}
+                assert set(worker) == set(jworker) | {"kernel_launches",
+                                                      "warm_launches"}
                 for key in ("shard", "replica", "num_shards", "doc_range",
                             "generation", "index_generation", "live",
                             "layout", "in_flight", "queued"):
@@ -211,6 +212,41 @@ def test_worker_spans_carry_its_service_name(index_dir, tmp_path):
         jax_srv.stop()
         disttrace.set_service("proc")
         jax_disttrace.set_service("proc")
+
+
+def test_warm_launches_split_the_warm_ups_from_the_traffic(monkeypatch):
+    """/healthz's `kernel_launches` less `warm_launches` counts the
+    launches outside the warm-ups; a warm-up under way counts every
+    launch since it began, so a read in the middle of one never credits
+    its launches to the traffic."""
+    import tpu_ir_torch
+    from tpu_ir_torch.serving.shardset import WarmLaunches
+
+    counts = {"dense_score": 0, "cold_tier": 0}
+    monkeypatch.setattr(tpu_ir_torch, "kernel_launches",
+                        lambda: dict(counts))
+
+    def traffic(split):
+        snap = split.snapshot()
+        return {n: snap["kernel_launches"][n] - snap["warm_launches"][n]
+                for n in counts}
+
+    split = WarmLaunches()
+    with split.counting():
+        counts["dense_score"] += 3
+    counts["dense_score"] += 5              # routed requests
+    counts["cold_tier"] += 2
+    assert traffic(split) == {"dense_score": 5, "cold_tier": 2}
+    with split.counting():                 # a reload's warm-up
+        counts["dense_score"] += 3
+        assert traffic(split) == {"dense_score": 5, "cold_tier": 2}
+        with split.counting():             # another, overlapping it
+            counts["cold_tier"] += 4
+        assert traffic(split) == {"dense_score": 5, "cold_tier": 2}
+    counts["dense_score"] += 1
+    assert traffic(split) == {"dense_score": 6, "cold_tier": 2}
+    assert split.snapshot()["warm_launches"] == {"dense_score": 6,
+                                                 "cold_tier": 4}
 
 
 def test_overloaded_is_503_with_reason_and_level():

@@ -156,8 +156,8 @@ class Router:
 
     `topology` is a ShardSet (the router dials its `dispatchable()`
     grid, re-read each request, so a respawned worker's new port is
-    picked up), a callable returning a [shard][replica] address grid, or
-    such a grid itself; a None slot has no worker."""
+    picked up) or a static [shard][replica] address grid; a None slot
+    has no worker."""
 
     def __init__(self, index_dir: str, topology,
                  config: RouterConfig | None = None):
@@ -190,10 +190,7 @@ class Router:
         # the router dials the dispatchable grid; health reads every slot
         self._lifecycle_fn = getattr(topology, "lifecycle", None)
         self._epoch_fn = getattr(topology, "epoch", None)
-        if callable(topology):
-            self._topology = topology
-            self._full_topology = topology
-        elif hasattr(topology, "addresses"):
+        if hasattr(topology, "addresses"):
             self._topology = getattr(topology, "dispatchable",
                                      topology.addresses)
             self._full_topology = topology.addresses

@@ -19,7 +19,8 @@ worker serves over obs/server.py:
                        publish another generation (serving/generation.py)
   GET  /healthz        the health payload and the worker's identity
                        (shard, replica, doc range, spawn and index
-                       generation, its kernel launches)
+                       generation, its kernel launches, and those of
+                       its warm-ups)
 
 Two forms share this code: `serve_worker()` runs a worker in the calling
 process, and `ShardSet` runs each (shard, replica) as `python -m
@@ -33,6 +34,7 @@ sharing it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -191,8 +193,6 @@ def serve_worker(index_dir: str, shard: int, num_shards: int, *,
     generation (ShardSet.respawn bumps it), another axis; /healthz shows
     both. `warm` runs the shape warm-up and the residency hint before
     this returns."""
-    import tpu_ir_torch
-
     from ..index import format as fmt
     from ..index import segments as seg
     from ..obs import disttrace
@@ -215,6 +215,7 @@ def serve_worker(index_dir: str, shard: int, num_shards: int, *,
                                       device=device)
 
     scorer = load_for(index_generation)
+    warm_launches = WarmLaunches()
     disttrace.set_service(f"worker-s{shard}r{replica}")
     frontend = ServingFrontend(scorer, ServingConfig(
         max_concurrency=max_concurrency, max_queue=max_queue,
@@ -235,7 +236,7 @@ def serve_worker(index_dir: str, shard: int, num_shards: int, *,
             # nothing compiles per shape in the port; its launches of
             # each hand-written kernel stand beside the JAX keys
             "compiles": {"count": None, "recompiles": None},
-            "kernel_launches": tpu_ir_torch.kernel_launches(),
+            **warm_launches.snapshot(),
             "pid": os.getpid(), "layout": sc.layout,
         }}
 
@@ -246,9 +247,10 @@ def serve_worker(index_dir: str, shard: int, num_shards: int, *,
             if warm:
                 # warmed before the publish: the first request after the
                 # swap pays no first-dispatch cost
-                _warm_worker(new)
-                residency.clear()
-                residency.update(prewarm_hot_residency(new))
+                with warm_launches.counting():
+                    _warm_worker(new)
+                    residency.clear()
+                    residency.update(prewarm_hot_residency(new))
             frontend.reload_generation(new)
             return {"generation": new.generation,
                     "num_docs": new.meta.num_docs,
@@ -259,9 +261,59 @@ def serve_worker(index_dir: str, shard: int, num_shards: int, *,
         rpc_handlers=worker_rpc_handlers(frontend, reload_fn=reload_fn),
         extra_health=info).start()
     if warm:
-        _warm_worker(scorer)
-        residency.update(prewarm_hot_residency(scorer))
+        with warm_launches.counting():
+            _warm_worker(scorer)
+            residency.update(prewarm_hot_residency(scorer))
     return server, frontend, scorer
+
+
+class WarmLaunches:
+    """A worker's kernel launches split for /healthz: `kernel_launches`,
+    every launch of the process, and `warm_launches`, those of its
+    warm-ups (at the start and at each reload). The counters are the
+    process's, so a request served while a reload warms counts as the
+    warm-up's: the difference of the two is a lower bound of the
+    launches the served requests made, never more."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._done: dict = {}
+        self._base: dict | None = None  # the counts a running warm-up began at
+        self._running = 0
+
+    @contextlib.contextmanager
+    def counting(self):
+        """The launches inside this block are a warm-up's."""
+        import tpu_ir_torch
+
+        with self._lock:
+            if not self._running:
+                self._base = tpu_ir_torch.kernel_launches()
+            self._running += 1
+        try:
+            yield
+        finally:
+            now = tpu_ir_torch.kernel_launches()
+            with self._lock:
+                self._running -= 1
+                if not self._running:
+                    for n, v in now.items():
+                        self._done[n] = (self._done.get(n, 0) + v
+                                         - self._base.get(n, 0))
+                    self._base = None
+
+    def snapshot(self) -> dict:
+        """{"kernel_launches", "warm_launches"}, read at one instant: a
+        warm-up under way counts every launch since it began."""
+        import tpu_ir_torch
+
+        with self._lock:
+            now = tpu_ir_torch.kernel_launches()
+            warm = {n: self._done.get(n, 0) for n in now}
+            if self._base is not None:
+                for n in now:
+                    warm[n] += now[n] - self._base.get(n, 0)
+        return {"kernel_launches": now, "warm_launches": warm}
 
 
 def shard_doc_ranges_for(index_dir: str, shard: int,

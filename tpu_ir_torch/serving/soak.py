@@ -326,9 +326,8 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
     The schedule is in fractions of completed requests: `kill_replica_at`
     SIGKILLs replica 1 of shard 0 (failover hides it), `kill_shard_at`
     every replica of the last shard (answers go partial), `respawn_at`
-    brings every one back (all at once; `tpu_ir`'s controller brings
-    them back one after another). The report carries the counts and the
-    checks; the caller asserts.
+    brings them back one after another. The report carries the counts
+    and the checks; the caller asserts.
 
     `upgrade_at` (a live `index_dir`): generation B, A plus
     `upgrade_docs` seeded docs, is compacted before the fleet spawns on
@@ -411,8 +410,6 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                     return_docids=False)[0])
 
     reg = get_registry()
-    counters_before = {n: reg.get(n) for n in reg.counter_names()
-                       if n.startswith("router.")}
     hist_before = reg.hist_state()
     cache_before = _cache_counters_now()
     results: list = [None] * len(reqs)
@@ -439,23 +436,12 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
 
             cfg_r = _replace(cfg_r, cache_entries=cache_entries)
         router = Router(index_dir, shardset, cfg_r)
+        counters_before = router.stats()
         try:
             # -- the chaos and upgrade controller --------------------------
             killed: list = []
             swap_state = {"done_at": None, "result": None}
             swap_complete = threading.Event()
-
-            def respawn_all(slots: list) -> None:
-                # every killed slot at once: a respawn waits out a whole
-                # worker start (the interpreter, torch, the device, the
-                # load, the warm-up), and the slots need not wait for
-                # each other
-                with ThreadPoolExecutor(
-                        max_workers=max(len(slots), 1),
-                        thread_name_prefix="soak-respawn") as ex:
-                    for f in [ex.submit(shardset.respawn, s_, r_)
-                              for s_, r_ in slots]:
-                        f.result()
 
             def chaos_controller():
                 fired = {"replica": False, "shard": False,
@@ -480,7 +466,8 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                         if chaos and not fired["respawn"] \
                                 and frac >= respawn_at:
                             fired["respawn"] = True
-                            respawn_all(list(killed))
+                            for s_, r_ in list(killed):
+                                shardset.respawn(s_, r_)
                             killed.clear()
                         if upgrade_at is not None \
                                 and not fired["upgrade"] \
@@ -508,10 +495,11 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                         logger.exception("chaos controller")  # kill it
                     completed.wait(0.02)
                 # whatever is still dead comes back for the recovery
-                try:
-                    respawn_all(list(killed))
-                except Exception:  # noqa: BLE001
-                    logger.exception("post-soak respawn")
+                for s_, r_ in list(killed):
+                    try:
+                        shardset.respawn(s_, r_)
+                    except Exception:  # noqa: BLE001
+                        logger.exception("post-soak respawn")
 
             ctrl = threading.Thread(target=chaos_controller,
                                     name="soak-chaos", daemon=True)
@@ -665,9 +653,8 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
         elif list(res) != reference[gen][key]:
             tagged_divergent += 1
 
-    router_delta = {
-        n: reg.get(n) - counters_before.get(n, 0)
-        for n in reg.counter_names() if n.startswith("router.")}
+    router_delta = {n: v - counters_before.get(n, 0)
+                    for n, v in router.stats().items()}
     report = {
         "submitted": len(reqs),
         "served": served,
