@@ -4583,9 +4583,9 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                         [t_probe] + before_w).max())}
 
         # the fleet as a caller sees it: any answer (a partial one too),
-        # then full answers only; and per shard, as PR 16 measured each
-        # worker: the answers that shard contributed to, and its first
-        # answer on B
+        # then full answers only; and per shard (what a fleet of one
+        # replica a shard measured per worker): the answers that shard
+        # contributed to, and its first answer on B
         per_shard = []
         for s in range(SHARD_WORKERS):
             mine = [(t, g) for t, _i, g, _c, ok, _b in events if s in ok]
