@@ -116,7 +116,8 @@ code:
               turns more than once; caps 1 to 4,096, empty tiers, wide
               tiers before narrow ones, zero and 16 tiers);
 17. compress  and serve `wiki100k-v3` as 8 and 9: a bf16 hot strip, top-10
-              bitwise equal to the raw wiki100k index's;
+              bitwise equal to the raw wiki100k index's (the compressing
+              copy is made by a child process from phase 11 on);
 18. kgram     the ref corpus as a k = 2 term-k-gram index, one-shot (with
               char-grams over tokens.txt) and streaming (the Python
               tokenizer in 4 processes): every artifact both write has
@@ -216,8 +217,29 @@ code:
               (the walk's widest gap, its wall, the staleness); the
               killed replica respawned comes back on B and answers as its
               sibling; cold_tier and hot_stage launched in the workers
-              over the routed traffic (their /healthz); stop() leaves no
-              worker pid; then verify_live (seconds), and doctor,
+              over the routed traffic (their /healthz); then `elastic`,
+              its own line, on that fleet (on B): 512 TF-IDF texts from 8
+              clients through the Router at 2 x 2; an Autoscaler in
+              thread mode (run_distributed_soak's defaults: 2 to 3
+              replicas, cooldown 0.5 s, up at 0.6, down at 0.15, 3 and
+              25 ticks) behind a Router narrowed to 2 requests at once,
+              the 8 clients cycling the texts through it until the
+              autoscaler has grown one warm replica a shard (ticks to
+              the decision, the grow's seconds, each worker's nice, the
+              grown workers' warm-up launches); the same 512 texts at
+              2 x 3 through the first Router (q/s, the client's and
+              `router.request`'s p50 and p99 at 2 x 2 and 2 x 3); idle
+              ticks with one probe a 0.1 s until a second autoscaler
+              drains the highest replica of each shard (drain-not-drop:
+              the drains' seconds and admitted peak), the card's used
+              memory back within 0.5 GB of before the grow; a scripted
+              retire of replica 0/1 SIGKILLed during its drain under 4
+              clients (killed_mid_drain, the answers full through 0/0);
+              `scale --url` against this process's /healthz; every
+              answer full and bitwise B's top-10, no breaker opened, the
+              grown replicas' routed cold_tier and hot_stage launches
+              above 0; stop() leaves no worker pid; then verify_live
+              (seconds), and doctor,
               generations and compact --gc through the command line
               (seconds each);
 19e. live_crash  the same at ref scale (`ref-live`: the first 8,261 ref
@@ -247,7 +269,23 @@ code:
               or deadlock, partial answers none mismatched, no full
               mismatch, 3 respawns, every recovery probe full on B, the
               workers' dense_score launches (read from this process's
-              /healthz, the router's fleet block) above 0;
+              /healthz, the router's fleet block) above 0; then
+              `elastic_soak`, its own line: run_distributed_soak on that
+              dir again, 2 x 2 dense workers, no chaos, a rolling swap to
+              another generation at 25% and the scale plan: a grow at
+              30%, a drain of each shard's highest replica at 60% with
+              that replica SIGKILLed during its drain (tpu_ir's
+              zero-stale-swap-during-scale and conservation-across-
+              membership-changes tests in one schedule): their asserts,
+              and the workers' routed dense_score launches above 0;
+19f. ingest_soak  `ingest --soak-bench` through the command line in
+              this process on a fresh live dir at run_ingest_soak's
+              defaults (48 docs after 12, flushes of 6, compaction every
+              12, the feeder child SIGKILLed at half, its successor
+              replaying the WAL): no acknowledged write lost, no stale
+              answer, a replayed successor; docs/s, the freshness lag,
+              and the in-process frontend's kernel launches over its
+              probes, its load's, warm-up's and reloads' left out;
 20. prox      ref and wiki100k (their positions indexes): the first 500
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
@@ -289,6 +327,12 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
               breaker's.
+
+Host work that no phase times on the card runs in one spawned child
+beside the main path: the wiki100k corpus (during phases 2-9), the
+wiki100k compressing copy (17, during 12-16) and the phrase oracle's
+token streams (21, during 19a-19f); each phase reports the child's
+seconds and its own wait.
 
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
@@ -3025,6 +3069,12 @@ def store_streams(idx: str, work: str):
     return ids, doc_of, {t: i for i, t in enumerate(vocab)}
 
 
+def store_streams_timed(idx: str, work: str) -> tuple:
+    """store_streams and its seconds (what a child process returns)."""
+    t0 = time.perf_counter()
+    return (*store_streams(idx, work), time.perf_counter() - t0)
+
+
 def window_scan(flat: np.ndarray, doc_of: np.ndarray, ids: list[int],
                 slop: int) -> list[int]:
     """Docnos whose token stream holds `ids` in order within a span of
@@ -3083,7 +3133,7 @@ def phrase_texts(flat: np.ndarray, doc_of: np.ndarray, vocab: list[str],
 
 
 def phase_phrase(card: str, scorer, idx: str, work: str, *, device: str,
-                 k: int = 10) -> dict:
+                 k: int = 10, streams=None) -> dict:
     """Phrase queries on the wiki100k positions index: PHRASE_TEXTS texts
     (phrase_texts, default_rng(12)) through search_batch at each slop of
     PHRASE_SLOPS, TF-IDF and BM25: every text answers (its source doc
@@ -3091,20 +3141,26 @@ def phase_phrase(card: str, scorer, idx: str, work: str, *, device: str,
     idle share of a call over the first 200 texts (phrase queries run on
     the host). Then
     PHRASE_ORACLE phrases a slop: match_window against a scan of the
-    documents' analyzed token streams from the store (window_scan)."""
+    documents' analyzed token streams from the store (window_scan).
+    `streams` is a future of store_streams_timed(idx, work) a child began
+    earlier (None: read them here)."""
     from tpu_ir_torch.analysis import Analyzer
 
     t0 = time.perf_counter()
-    flat, doc_of, vocab_ids = store_streams(idx, work)
+    if streams is None:
+        flat, doc_of, vocab_ids, streams_s = store_streams_timed(idx, work)
+    else:
+        flat, doc_of, vocab_ids, streams_s = streams.result(timeout=1800)
+    wait_s = time.perf_counter() - t0
     vocab = [None] * len(vocab_ids)
     for t, i in vocab_ids.items():
         vocab[i] = t
-    streams_s = time.perf_counter() - t0
     pairs = phrase_texts(flat, doc_of, vocab, Analyzer(), PHRASE_TEXTS)
     texts = [t for t, _ in pairs]
     out = {"phase": "phrase", "card": card, "config": "wiki100k",
            "texts": len(texts), "k": k, "examples": texts[:4],
-           "store_streams_s": streams_s, "runs": {}}
+           "store_streams_s": streams_s, "store_streams_wait_s": wait_s,
+           "runs": {}}
     t0 = time.perf_counter()
     scorer.search_batch(texts[:8], k=k)             # loads the runs
     out["first_load_s"] = time.perf_counter() - t0
@@ -4224,6 +4280,13 @@ SHARD_SOLO_RPCS = 32            # one-term texts sent by one client alone
 SHARD_DEADLINE_MS = 5_000.0     # the router's per-shard deadline there
 ORACLE_K = 1_000                # depth of a partial answer's oracle ranking
 ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
+ELASTIC_NARROW = 2              # requests at once through the router the
+#                                 autoscaler reads (tpu_ir's closed-loop test)
+ELASTIC_PROBE_S = 0.1           # one probe this often while the fleet idles
+ELASTIC_KILL_CLIENTS = 4        # client threads across the scripted kill
+ELASTIC_MEMORY_SLACK = 0.5e9    # bytes the card may hold past its memory
+#                                 before the grow once the retires are done
+ELASTIC_TIMEOUT_S = 300.0       # the burst's and the idle's bound
 
 
 def nvidia_smi_apps() -> dict:
@@ -4278,6 +4341,382 @@ def partial_oracle(rank: list, ranges: list, shards_ok: tuple,
     if len(keep) < k and len(rank) >= ORACLE_K:
         return None
     return keep[:k]
+
+
+def elastic_config():
+    """run_distributed_soak's autoscaler defaults over SHARD_REPLICAS."""
+    from tpu_ir_torch.serving import AutoscaleConfig
+
+    return AutoscaleConfig(
+        min_replicas=SHARD_REPLICAS, max_replicas=SHARD_REPLICAS + 1,
+        cooldown_s=0.5, up_occupancy=0.6, down_occupancy=0.15,
+        sustain_up=3, sustain_down=25, drain_timeout_s=15.0)
+
+
+def recording_autoscaler(ss, router):
+    """An Autoscaler (elastic_config) that keeps each decision that acted,
+    with the wall times its tick began and ended, in `decisions`."""
+    from tpu_ir_torch.serving import Autoscaler
+
+    class Recording(Autoscaler):
+        def tick(self, now=None):
+            t0 = time.perf_counter()
+            d = super().tick(now)
+            if d["action"] is not None:
+                self.decisions.append((t0, time.perf_counter(), d))
+            return d
+
+    scaler = Recording(ss, router, elastic_config())
+    scaler.decisions = []
+    return scaler
+
+
+def nice_of(pid: int) -> int:
+    """A process's nice value (field 19 of /proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[16])
+
+
+def routed_traffic(router, reg, texts: list, idx: list, want: dict,
+                   gen: int, *, clients: int, k: int, until=None,
+                   timeout_s: float = 600.0, shed_ok: bool = False) -> dict:
+    """TF-IDF texts `idx` through router.search from `clients` threads,
+    each once, or (with `until`) cycled until until() holds: every answer
+    must be full, of generation `gen` and bitwise want[i], and answers
+    plus sheds (Overloaded, allowed with `shed_ok`) must be every request
+    sent. Returns the answers, sheds, errors and mismatches, wall s, q/s
+    (answers), the client's p50 and p99 ms over the answers and the
+    router's histograms (sheds included) and counters."""
+    import threading
+
+    from tpu_ir_torch.serving import Overloaded, Router
+
+    lock = threading.Lock()
+    lat, errors, bad, shed = [], [], [], []
+    cursor = [0]
+    deadline = time.monotonic() + timeout_s
+
+    def client() -> None:
+        while time.monotonic() < deadline:
+            with lock:
+                n = cursor[0]
+                cursor[0] += 1
+            if until is None and n >= len(idx):
+                return
+            if until is not None and until():
+                return
+            i = idx[n % len(idx)]
+            t_req = time.perf_counter()
+            try:
+                res = router.search(texts[i], k=k, scoring="tfidf",
+                                    return_docids=False)
+            except Overloaded as e:
+                with lock:
+                    shed.append(e.reason)
+                continue
+            except Exception as e:  # noqa: BLE001 — counted, none
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                lat.append(time.perf_counter() - t_req)
+                if (Router.classify(res) != "full" or res.generation != gen
+                        or result_bits(res) != want[i]):
+                    bad.append(i)
+
+    c0, h0 = router.stats(), reg.hist_state()
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout_s + 60)
+    wall = time.perf_counter() - t0
+    sent = len(lat) + len(shed) + len(errors)
+    out = router_window(router, reg, h0, c0, max(sent, 1))
+    ms = np.array(lat) * 1e3 if lat else np.zeros(1)
+    out.update({"texts": sent, "answers": len(lat), "shed": len(shed),
+                "shed_reasons": sorted(set(shed)), "errors": len(errors),
+                "error_samples": errors[:3], "mismatches": len(bad),
+                "wall_s": wall, "routed_qps": len(lat) / wall,
+                "request_p50_ms": float(np.percentile(ms, 50)),
+                "request_p99_ms": float(np.percentile(ms, 99))})
+    if (errors or bad or not lat or any(th.is_alive() for th in threads)
+            or (shed and not shed_ok)
+            or out["counters"]["router.served_full"] != len(lat)
+            or out["counters"]["router.shed"] != len(shed)):
+        raise AssertionError(f"routed traffic: {out}")
+    return out
+
+
+def worker_launches(ss) -> dict:
+    """{pid: (kernel launches, those of its warm-ups)} of every live
+    worker, from its /healthz."""
+    from tpu_ir_torch.serving import get_worker_health
+
+    out = {}
+    for row in ss.handles():
+        for h in row:
+            if h is not None and h.alive:
+                w = get_worker_health(h.addr, 60)["worker"]
+                out[h.pid] = (w["kernel_launches"], w["warm_launches"])
+    return out
+
+
+def phase_elastic(card: str, ss, router, live: str, scorer_b, gen_b: int,
+                  texts: list, *, device: str, k: int = 10):
+    """The elastic fleet on the `shards` phase's ShardSet (2 x 2 on B,
+    pinned to B) and Router. Returns (its line, the pids it SIGKILLed)."""
+    import threading
+
+    import torch
+
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import disttrace
+    from tpu_ir_torch.obs.server import MetricsServer
+    from tpu_ir_torch.serving import Router, RouterConfig, get_worker_health
+
+    reg = obs.get_registry()
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    # the SLO windows start empty: the shards phase's mixed-window partial
+    # answers would otherwise keep the fast window's burn past the
+    # autoscaler's 2.0 for its 60 s, and a burning autoscaler at its
+    # ceiling drains nothing (on an H100 it waited 750 ticks, 38 s)
+    disttrace.reset()
+    out = {"phase": "elastic", "card": card, "config": "wiki100k-live",
+           "shards": SHARD_WORKERS,
+           "replicas": [SHARD_REPLICAS, SHARD_REPLICAS + 1],
+           "clients": SHARD_CLIENTS, "narrow_concurrency": ELASTIC_NARROW}
+    idx = list(range(SHARD_TEXTS))   # the shards phase's TF-IDF texts
+    want = dict(zip(idx, (result_bits(r) for r in scorer_b.search_batch(
+        [texts[i] for i in idx], k=k, scoring="tfidf",
+        return_docids=False))))
+    c0 = {n: reg.get(n) for n in ("scale.up", "scale.down",
+                                  "router.breaker_opened")}
+    h0 = reg.hist_state()
+    base = worker_launches(ss)
+
+    def drive(r, **kw) -> dict:
+        return routed_traffic(r, reg, texts, idx, want, gen_b,
+                              clients=SHARD_CLIENTS, k=k, **kw)
+
+    out["fleet_2x2"] = drive(router)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["used_before_grow_mib"] = card_used_mib()
+
+    # the burst through the narrow router until the autoscaler has grown
+    narrow = Router(live, ss, RouterConfig(
+        deadline_ms=SHARD_DEADLINE_MS, max_concurrency=ELASTIC_NARROW,
+        max_queue=128))
+    sigkilled = set()
+    try:
+        scaler = recording_autoscaler(ss, narrow)
+        t0 = time.perf_counter()
+        scaler.run_in_thread()
+        try:
+            # two requests at once: the queue behind them is the
+            # pressure, and a waiter that newer arrivals keep beating to
+            # a slot may shed after the deadline (counted, answered
+            # requests + sheds == requests)
+            burst = drive(narrow, until=lambda: reg.get("scale.up")
+                          - c0["scale.up"] >= SHARD_WORKERS,
+                          timeout_s=ELASTIC_TIMEOUT_S, shed_ok=True)
+        finally:
+            scaler.stop()
+        ups = [(a, b, d) for a, b, d in scaler.decisions
+               if d["action"] == "up"]
+        grown = [(s, SHARD_REPLICAS) for s in range(SHARD_WORKERS)]
+        if not ups or ups[0][2]["slots"] != grown:
+            raise AssertionError(f"the autoscaler's grow: "
+                                 f"{scaler.decisions}")
+        t_dec, t_done, dec = ups[0]
+        handles = ss.handles()
+        grid = ss.addresses()
+        burst.update({"ticks_to_up": dec["tick"],
+                      "decision_s": t_dec - t0, "grow_s": t_done - t_dec,
+                      "reason": dec["reason"],
+                      "occupancy_at_up": dec["occupancy"]})
+        out["burst"] = burst
+        if on_card:
+            out["used_after_grow_mib"] = card_used_mib()
+        out["nice"] = {f"{s}/{r}": nice_of(handles[s][r].pid)
+                       for s in range(SHARD_WORKERS)
+                       for r in range(SHARD_REPLICAS + 1)}
+        grown_health = {sl: get_worker_health(grid[sl[0]][sl[1]], 60)[
+            "worker"] for sl in grown}
+        for sl, w in grown_health.items():
+            if (w["index_generation"] != gen_b or w["generation"] != 0
+                    or ss.lifecycle()[sl[0]][sl[1]] != "active"):
+                raise AssertionError(f"the grown worker {sl}: {w}")
+        out["grown_warm_launches"] = {
+            f"{s}/{r}": w["warm_launches"]
+            for (s, r), w in grown_health.items()}
+        if on_card and not all(sum(w["warm_launches"].values())
+                               for w in grown_health.values()):
+            raise AssertionError("a grown worker entered the grid before "
+                                 "its warm-up launched a kernel")
+
+        # the same texts at 2 x 3 through the wide router
+        out["fleet_2x3"] = drive(router)
+        after = worker_launches(ss)
+        launches = dict.fromkeys(PORT_KERNELS, 0)
+        for pid, (kl, wl) in after.items():
+            kb, wb = base.get(pid, (dict.fromkeys(kl, 0),
+                                    dict.fromkeys(kl, 0)))
+            for n in PORT_KERNELS:
+                launches[n] += (kl[n] - wl[n]) - (kb[n] - wb[n])
+        out["launches"] = launches
+        grown_routed = dict.fromkeys(PORT_KERNELS, 0)
+        for s, r in grown:
+            kl, wl = after[handles[s][r].pid]
+            for n in PORT_KERNELS:
+                grown_routed[n] += kl[n] - wl[n]
+        out["grown_routed_launches"] = grown_routed
+        if on_card and not (grown_routed["cold_tier"]
+                            and grown_routed["hot_stage"]):
+            raise AssertionError(f"the grown workers' routed traffic never "
+                                 f"launched cold_tier and hot_stage: "
+                                 f"{grown_routed}")
+
+        # idle: a trickle of probes until the autoscaler drained one
+        # replica a shard
+        stop = threading.Event()
+        probes = {"n": 0, "bad": []}
+
+        def trickle() -> None:
+            n = 0
+            while not stop.wait(ELASTIC_PROBE_S):
+                i = idx[n % len(idx)]
+                n += 1
+                try:
+                    res = router.search(texts[i], k=k, scoring="tfidf",
+                                        return_docids=False)
+                    ok = (Router.classify(res) == "full"
+                          and result_bits(res) == want[i])
+                except Exception as e:  # noqa: BLE001 — must be none
+                    ok = repr(e)
+                probes["n"] += 1
+                if ok is not True:
+                    probes["bad"].append(ok)
+
+        idler = recording_autoscaler(ss, narrow)
+        th = threading.Thread(target=trickle, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        idler.run_in_thread()
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while (reg.get("scale.down") - c0["scale.down"] < SHARD_WORKERS
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        idler.stop()
+        stop.set()
+        th.join(timeout=60)
+        downs = [(a, b, d) for a, b, d in idler.decisions
+                 if d["action"] == "down"]
+        if (not downs or probes["bad"] or not probes["n"]
+                or [(d["shard"], d["replica"]) for d in downs[0][2]["drains"]]
+                != grown
+                or not all(d["drained_clean"] for d in downs[0][2]["drains"])
+                or any(ss.lifecycle()[s][r] != "retired" for s, r in grown)):
+            raise AssertionError(f"the idle drain: {idler.decisions} "
+                                 f"{probes}")
+        t_dec, t_done, dec = downs[0]
+        out["idle"] = {"ticks_to_down": dec["tick"],
+                       "decision_s": t_dec - t0, "drain_s": t_done - t_dec,
+                       "drains": dec["drains"], "probes": probes["n"]}
+        # the grow, the 2 x 3 traffic and the drains opened no breaker
+        # (the scripted kill below may: its in-flight attempts fail over)
+        out["counters"] = {n: reg.get(n) - v for n, v in c0.items()}
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["used_after_retire_mib"] = card_used_mib()
+            back = out["used_after_retire_mib"] - out["used_before_grow_mib"]
+            out["memory_not_returned_mib"] = back
+            if abs(back) * 2**20 > ELASTIC_MEMORY_SLACK:
+                raise AssertionError(f"the retired workers' memory: "
+                                     f"{back} MiB beside before the grow")
+        out["retired_alive"] = [handles[s][r].pid for s, r in grown
+                                if pid_alive(handles[s][r].pid)]
+        if out["retired_alive"]:
+            raise AssertionError(f"retired workers alive: "
+                                 f"{out['retired_alive']}")
+
+        # a scripted retire of 0/1, SIGKILLed during its drain, under
+        # traffic that fails over to 0/0
+        drain_out = {}
+
+        def retire() -> None:
+            drain_out.update(ss.retire_replica(0, 1, drain_timeout_s=15.0))
+
+        stop_kill = threading.Event()
+        kill_pass = {}
+
+        def kill_traffic() -> None:
+            kill_pass.update(routed_traffic(
+                router, reg, texts, idx, want, gen_b,
+                clients=ELASTIC_KILL_CLIENTS, k=k,
+                until=stop_kill.is_set, timeout_s=ELASTIC_TIMEOUT_S))
+
+        traffic = threading.Thread(target=kill_traffic, daemon=True)
+        traffic.start()
+        time.sleep(0.2)
+        victim = ss.handles()[0][1]
+        rt = threading.Thread(target=retire, daemon=True)
+        rt.start()
+        for _ in range(400):
+            if ss.lifecycle()[0][1] == "draining":
+                break
+            time.sleep(0.005)
+        # inside the poll's first sleep: its first read is done
+        time.sleep(0.03)
+        ss.kill(0, 1)
+        sigkilled.add(victim.pid)
+        rt.join(timeout=60)
+        time.sleep(0.2)
+        stop_kill.set()
+        traffic.join(timeout=120)
+        if not (drain_out.get("killed_mid_drain")
+                and kill_pass.get("answers")):
+            raise AssertionError(f"the kill during the drain: {drain_out} "
+                                 f"{kill_pass}")
+        out["kill_during_drain"] = {"drain": drain_out,
+                                    "traffic": kill_pass}
+        out["lifecycle"] = ss.lifecycle()
+        out["events"] = ss.events()
+
+        # the autoscaler section of this process's /healthz, through the
+        # command line
+        with MetricsServer() as server:
+            scale, _ = run_cli(["scale", "--url", server.url])
+        live_sec = scale.get("live") or {}
+        if (live_sec.get("lifecycle") != ss.lifecycle()
+                or "reason" not in live_sec.get("last_decision", {})):
+            raise AssertionError(f"scale --url: {scale}")
+        out["scale_cli"] = {"epoch": live_sec["epoch"],
+                            "events": live_sec["events"],
+                            "last_decision": live_sec["last_decision"],
+                            "lifecycle": live_sec["lifecycle"]}
+    finally:
+        narrow.close()
+    lat = reg.delta_summary(h0, always=("scale.warmup_ms", "scale.drain_ms"))
+    out["scale_warmup"] = lat["scale.warmup_ms"]
+    out["scale_drain"] = lat["scale.drain_ms"]
+    out["inflight_peak"] = max(d["inflight_peak"] for d in
+                               out["idle"]["drains"]
+                               + [out["kill_during_drain"]["drain"]])
+    out["scale_down"] = reg.get("scale.down") - c0["scale.down"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    if (out["counters"]["scale.up"] != SHARD_WORKERS
+            or out["counters"]["scale.down"] != SHARD_WORKERS
+            or out["scale_down"] != SHARD_WORKERS + 1
+            or out["counters"]["router.breaker_opened"]):
+        raise AssertionError(f"the elastic counters: {out['counters']}")
+    return out, sigkilled
 
 
 def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
@@ -4643,8 +5082,13 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                                      and traffic["hot_stage"]):
             raise AssertionError(f"the routed traffic never launched "
                                  f"cold_tier and hot_stage: {traffic}")
+        out["elastic"], sigkilled = phase_elastic(
+            card, ss, router, live, scorer_b, gen_b, texts, device=device,
+            k=k)
+        pids |= {h.pid for row in ss.handles() for h in row}
     except BaseException:
-        for s, r in slots:
+        for s, r in [(s, r) for s, row in enumerate(ss.handles())
+                     for r in range(len(row))]:
             with contextlib.suppress(OSError):
                 with open(ss.log_path(s, r)) as f:
                     print(f"worker {s}/{r} log:\n{f.read()[-3000:]}",
@@ -4656,10 +5100,11 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
         ss.stop()
         shutil.rmtree(ss.rundir, ignore_errors=True)
     alive = [p for p in pids if pid_alive(p)]
-    codes = [h.proc.returncode for row in ss.handles() for h in row]
+    # the SIGKILLed worker exits -9, every other one 0 (SIGTERM)
+    codes = {h.pid: h.proc.returncode for row in ss.handles() for h in row}
     out["stopped"] = {"pids": len(pids), "alive": alive,
-                      "returncodes": codes}
-    if alive or codes != [0] * len(slots):
+                      "returncodes": list(codes.values())}
+    if alive or codes != {p: -9 if p in sigkilled else 0 for p in codes}:
         raise AssertionError(f"after stop(): {out['stopped']}")
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -5111,6 +5556,9 @@ def phase_live_crash(card: str, work: str, *, device: str,
     soak = phase_routed_soak(card, restored, work, device=device)
     emit(soak)
     out["routed_soak_launches"] = soak["launches"]
+    elastic = phase_elastic_soak(card, restored, work, device=device)
+    emit(elastic)
+    out["elastic_soak_launches"] = elastic["launches"]
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
     for path in (ops_path, ack, child_out, child_err):
@@ -5129,6 +5577,14 @@ ROUTED_SOAK_UPGRADE_AT = 0.6    # share of its requests answered at the roll
 ROUTED_SOAK_POLL_S = 1.0        # how often its /healthz is read
 ROUTED_SOAK_THREADS = 8         # its client threads (tpu_ir's default)
 ROUTED_SOAK_QUERIES = 160       # its requests (tpu_ir's default)
+ELASTIC_SOAK_SHARDS = 2         # the elastic soak's fleet: doc shards
+ELASTIC_SOAK_REPLICAS = 2       # and replicas a shard (tpu_ir's zero-stale
+#                                 test runs 1, its membership test 2: at 1
+#                                 the drain at 60% needs the grown replica,
+#                                 and a grow's start outlasts the traffic
+#                                 from 30% to 60%, so it would drain none)
+ELASTIC_SOAK_UPGRADE_AT = 0.25  # share of its requests answered at the roll
+ELASTIC_SOAK_PLAN = {"up_at": 0.3, "down_at": 0.6, "kill_during_drain": True}
 
 
 def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
@@ -5192,25 +5648,15 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
     return out
 
 
-def phase_routed_soak(card: str, live: str, work: str, *,
-                      device: str) -> dict:
-    """run_distributed_soak on the recovered ref-live dir (`ref-live`,
-    dense): ROUTED_SOAK_SHARDS x ROUTED_SOAK_REPLICAS subprocess workers
-    on the card behind a Router, tpu_ir's defaults (ROUTED_SOAK_THREADS
-    threads, ROUTED_SOAK_QUERIES requests of the uniform workload, its
-    chaos schedule: replica (0, 1) SIGKILLed at 30%
-    of the answers, the last shard's every replica at 55%, the respawn at
-    75%), the fleet rolled onto a generation B (A and 8 seeded docs) at
-    ROUTED_SOAK_UPGRADE_AT. Held as tpu_ir's test holds it: conservation, no
-    error or deadlock, partial answers and none mismatched, no full
-    mismatch, at least 3 respawns, every recovery probe full (and on B),
-    no answer from A late after the roll. Meanwhile this process's
-    /healthz (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the
-    router's fleet block names each worker's pid, its kernel launches and
-    those of its warm-ups (its start's and each reload's). The launches
-    less the warm-ups' are the routed requests' (a lower bound: a request
-    served while a reload warms counts as the warm-up's); summed over the
-    workers seen, the dense_score ones must be above 0."""
+def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
+    """run_distributed_soak(live, **soak_kw) while this process's /healthz
+    (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the router's
+    fleet block names each worker's pid, its kernel launches and those of
+    its warm-ups (its start's and each reload's). Returns (the report,
+    the polls: the workers seen, their launches less the warm-ups' (the
+    routed requests', a lower bound: a request served while a reload
+    warms counts as the warm-up's) summed, and with them, the phase's
+    seconds)."""
     import threading
 
     from tpu_ir_torch.obs.server import MetricsServer
@@ -5249,30 +5695,47 @@ def phase_routed_soak(card: str, live: str, work: str, *,
     rundir = tempfile.mkdtemp(dir=work)
     t0 = time.perf_counter()
     try:
-        report = run_distributed_soak(
-            live, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
-            threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
-            layout="dense", upgrade_at=ROUTED_SOAK_UPGRADE_AT, device=device,
-            rundir=rundir)
+        report = run_distributed_soak(live, rundir=rundir, **soak_kw)
     finally:
         stop.set()
         poller.join(timeout=60)
         server.stop()
         shutil.rmtree(rundir, ignore_errors=True)
-    phase_s = time.perf_counter() - t0
     launches = dict.fromkeys(PORT_KERNELS, 0)
     with_warm_ups = dict.fromkeys(PORT_KERNELS, 0)
     for pid, per in routed.items():
         for n in PORT_KERNELS:
             launches[n] += per.get(n, 0)
             with_warm_ups[n] += seen[pid].get(n, 0)
+    return report, {"phase_s": time.perf_counter() - t0,
+                    "healthz_polls": polls, "workers_seen": len(seen),
+                    "launches": launches,
+                    "launches_with_warm_ups": with_warm_ups}
+
+
+def phase_routed_soak(card: str, live: str, work: str, *,
+                      device: str) -> dict:
+    """run_distributed_soak on the recovered ref-live dir (`ref-live`,
+    dense): ROUTED_SOAK_SHARDS x ROUTED_SOAK_REPLICAS subprocess workers
+    on the card behind a Router, tpu_ir's defaults (ROUTED_SOAK_THREADS
+    threads, ROUTED_SOAK_QUERIES requests of the uniform workload, its
+    chaos schedule: replica (0, 1) SIGKILLed at 30%
+    of the answers, the last shard's every replica at 55%, the respawn at
+    75%), the fleet rolled onto a generation B (A and 8 seeded docs) at
+    ROUTED_SOAK_UPGRADE_AT. Held as tpu_ir's test holds it: conservation, no
+    error or deadlock, partial answers and none mismatched, no full
+    mismatch, at least 3 respawns, every recovery probe full (and on B),
+    no answer from A late after the roll. The workers' routed launches
+    (polled_soak) of dense_score must be above 0."""
+    report, polled = polled_soak(
+        live, work, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
+        threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
+        layout="dense", upgrade_at=ROUTED_SOAK_UPGRADE_AT, device=device)
     up = report["upgrade"]
     out = {"phase": "routed_soak", "card": card, "config": "ref-live",
            "shards": ROUTED_SOAK_SHARDS, "replicas": ROUTED_SOAK_REPLICAS,
-           "upgrade_at": ROUTED_SOAK_UPGRADE_AT, "phase_s": phase_s,
-           "report": report,
-           "healthz_polls": polls, "workers_seen": len(seen),
-           "launches": launches, "launches_with_warm_ups": with_warm_ups}
+           "upgrade_at": ROUTED_SOAK_UPGRADE_AT, "report": report,
+           **polled}
     checks = {
         "conservation": report["served"] + report["shed"]
         == report["submitted"],
@@ -5289,11 +5752,106 @@ def phase_routed_soak(card: str, live: str, work: str, *,
         "rolled": bool(up["swap"] and up["swap"]["swapped"]),
         "no_late_a": up["late_old_generation"] == 0
         and report["unknown_generation"] == 0,
-        "dense_score": device != "cuda" or launches["dense_score"] > 0,
+        "dense_score": device != "cuda"
+        or polled["launches"]["dense_score"] > 0,
     }
     out["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"the routed soak: {checks} {report}")
+    return out
+
+
+def phase_elastic_soak(card: str, live: str, work: str, *,
+                       device: str) -> dict:
+    """run_distributed_soak on the recovered ref-live dir again (dense),
+    ELASTIC_SOAK_SHARDS x ELASTIC_SOAK_REPLICAS workers, no chaos, the
+    fleet rolled onto another generation at ELASTIC_SOAK_UPGRADE_AT and
+    ELASTIC_SOAK_PLAN: a grow at 30% (while the roll's pin holds the new
+    generation), a drain of each shard's highest active replica at 60%,
+    SIGKILLed during its drain. tpu_ir's zero-stale-swap-during-scale and
+    conservation-across-membership-changes asserts: conservation, no
+    error, deadlock or mismatch, the roll done with none failed, no
+    answer from the old generation late after it and none unknown, the
+    new one served, the grow and both drains in the membership log,
+    every drain clean or killed, every recovery probe full on the new
+    generation; the workers' routed dense_score launches above 0."""
+    report, polled = polled_soak(
+        live, work, shards=ELASTIC_SOAK_SHARDS,
+        replicas=ELASTIC_SOAK_REPLICAS, threads=ROUTED_SOAK_THREADS,
+        queries=ROUTED_SOAK_QUERIES, layout="dense", chaos=False,
+        upgrade_at=ELASTIC_SOAK_UPGRADE_AT,
+        scale_plan=dict(ELASTIC_SOAK_PLAN), device=device)
+    up, sc = report["upgrade"], report["scale"]
+    out = {"phase": "elastic_soak", "card": card, "config": "ref-live",
+           "shards": ELASTIC_SOAK_SHARDS, "replicas": ELASTIC_SOAK_REPLICAS,
+           "upgrade_at": ELASTIC_SOAK_UPGRADE_AT,
+           "scale_plan": ELASTIC_SOAK_PLAN, "report": report, **polled}
+    checks = {
+        "conservation": report["served"] + report["shed"]
+        == report["submitted"],
+        "no_error": report["errors"] == 0,
+        "no_deadlock": report["deadlocked"] == 0,
+        "no_full_mismatch": report["full_mismatches"] == 0,
+        "no_partial_mismatch": report["partial_mismatches"] == 0,
+        "rolled": bool(up["swap"] and up["swap"]["swapped"]
+                       and not up["swap"]["failed"]),
+        "no_late_old": up["late_old_generation"] == 0
+        and report["unknown_generation"] == 0,
+        "new_served": report["generations_served"].get(
+            str(up["generation_b"]), 0) > 0,
+        "events": sc["events"] >= 2 * ELASTIC_SOAK_SHARDS,
+        "drains": len(sc["drains"]) == ELASTIC_SOAK_SHARDS
+        and sc["killed_mid_drain"] + sc["drained_clean"]
+        == ELASTIC_SOAK_SHARDS,
+        "epoch": sc["epoch"] > 0 and sc["mean_replicas"] > 0
+        and 0.0 <= sc["overprovision_fraction"] <= 1.0,
+        "recovery": report["recovery_full"] == report["recovery_probes"],
+        "dense_score": device != "cuda"
+        or polled["launches"]["dense_score"] > 0,
+    }
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"the elastic soak: {checks} {report}")
+    return out
+
+
+def phase_ingest_soak(card: str, work: str, *, device: str) -> dict:
+    """`ingest --soak-bench` through the command line's entry point in this
+    process on a fresh live dir, at run_ingest_soak's defaults: the
+    report (docs/s, the freshness lag, swaps, lost and stale answers, the
+    successor's replay) and the kernel launches of the soak's in-process
+    frontend over its probes: the report's `kernel_launches` less its
+    `warm_launches` (the load, the warm-up searches and each reload),
+    with the warm-ups beside them (the feeder children's launches are
+    their own). The soak raises on a breach; the phase holds its
+    invariants again, and on the card the probes must launch the tiered
+    pair."""
+    live = os.path.join(work, "ingest-soak-live")
+    report, wall = run_cli(["ingest", live, "--soak-bench",
+                            "--device", device])
+    shutil.rmtree(live)
+    total, warm = report["kernel_launches"], report["warm_launches"]
+    launches = {n: total[n] - warm[n] for n in PORT_KERNELS}
+    out = {"phase": "ingest_soak", "card": card, "config": "feed-48",
+           "wall_s": wall, "report": report, "launches": launches,
+           "launches_with_warm_ups": {n: total[n] for n in PORT_KERNELS}}
+    checks = {
+        "no_lost_ack": report["lost_acked"] == 0
+        and not report["unexpected_docs"],
+        "no_stale": report["stale"] == 0,
+        "no_error": report["errors"] == 0,
+        "conservation": report["served"] + report["shed"]
+        + report["errors"] == report["submitted"] > 0,
+        "killed": report["kills"] == 1,
+        "replayed": (report["child_replayed"] or 0) >= 1
+        and report["lease_takeover"],
+        "swapped": report["swaps"] >= 1 and report["freshness_samples"] >= 1,
+        "tiered_pair": device != "cuda"
+        or launches["cold_tier"] + launches["hot_stage"] > 0,
+    }
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"the ingest soak: {checks} {report}")
     return out
 
 
@@ -5359,7 +5917,10 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     it replaces and its launches in the merge, warm, live (19d and 19e
     together), shard worker (the shards phase's workers and live_crash's
     in-process ones), routed soak (its workers' /healthz, their warm-ups'
-    launches left out) and v1 phases."""
+    launches left out), elastic (the fleet's workers over its traffic,
+    warm-ups left out), elastic soak (as the routed soak), ingest soak
+    (its in-process frontend over its probes, warm-ups left out) and v1
+    phases."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -5395,22 +5956,26 @@ def main() -> int:
     scratch = os.path.join(root, "build", "chip_smoke")
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(dir=scratch)
-    # the wiki100k corpus is host work: a child writes it while the
-    # kernel and ref phases run
-    corpus_pool = ProcessPoolExecutor(
+    # host work runs in one child beside the main path: it writes the
+    # wiki100k corpus while the kernel and ref phases run, compresses a
+    # copy of the wiki100k index while the wildcard and kernel phases run,
+    # and reads the phrase oracle's token streams while the merge and live
+    # phases run
+    side = ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
-    corpus_made = corpus_pool.submit(
+    corpus_made = side.submit(
         make_wiki_corpus, os.path.join(work, "wiki100k.trec"))
     try:
-        return run_phases(card, work, corpus_made)
+        return run_phases(card, work, side, corpus_made)
     finally:
-        corpus_pool.shutdown(wait=True, cancel_futures=True)
+        side.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_phases(card: str, work: str, corpus_made) -> int:
+def run_phases(card: str, work: str, side, corpus_made) -> int:
     """Every phase after the kernels' build, in order, then the summary
-    line and the last line."""
+    line and the last line. `side` is the executor of the host work that
+    runs beside the main path."""
     import torch
 
     import tpu_ir_torch
@@ -5481,6 +6046,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
         wserve, scorer, q_ids, wraw = phase_serve(card, widx, device="cuda",
                                                   config="wiki100k")
         emit(wserve)
+        # the serve wrote the index's serving cache: a copy from here on is
+        # the one the compress phase always took
+        wcomp_made = side.submit(phase_compress, card, widx, work,
+                                 config="wiki100k")
         emit(phase_prune(card, scorer, widx, q_ids, traffic="uniform",
                          device="cuda"))
         hot_q = hot_traffic(scorer, REF_QUERIES)
@@ -5537,7 +6106,9 @@ def run_phases(card: str, work: str, corpus_made) -> int:
         emit(cold)
         del scorer
         torch.cuda.empty_cache()
-        wcomp, wv3 = phase_compress(card, widx, work, config="wiki100k")
+        t0 = time.perf_counter()
+        wcomp, wv3 = wcomp_made.result(timeout=1800)
+        wcomp["wait_s"] = time.perf_counter() - t0
         emit(wcomp)
         wserve_v3, scorer = phase_serve_v3(card, wv3, wraw, device="cuda",
                                            config="wiki100k-v3")
@@ -5554,6 +6125,8 @@ def run_phases(card: str, work: str, corpus_made) -> int:
         positions, pos_dirs = phase_positions(card, work, device="cuda",
                                               keep_corpora=True)
         emit(positions)
+        streams = side.submit(store_streams_timed, pos_dirs["wiki100k"],
+                              work)
         # merge (both corpora, kept for the live phases), then the serving
         # cache and doctor on the wiki100k index
         merge = phase_merge(card, work, widx=widx,
@@ -5573,7 +6146,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
         def run_shards(live_dir, gen_a, gen_b, scorers):
             shards.update(phase_shards(card, work, live_dir, gen_a, gen_b,
                                        scorers, device="cuda"))
+            elastic = shards.pop("elastic")
             emit(shards)
+            emit(elastic)
+            shards["elastic_launches"] = elastic["launches"]
 
         live = phase_live(card, work, device="cuda",
                           before_checks=run_shards)
@@ -5587,6 +6163,9 @@ def run_phases(card: str, work: str, corpus_made) -> int:
             n: shards["launches"][n] + live_crash["workers"]["launches"][n]
             for n in PORT_KERNELS}
         soak_launches = live_crash["routed_soak_launches"]
+        ingest_soak = phase_ingest_soak(card, work, device="cuda")
+        emit(ingest_soak)
+        torch.cuda.empty_cache()
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
                         device="cuda"))
@@ -5597,6 +6176,7 @@ def run_phases(card: str, work: str, corpus_made) -> int:
         emit(phase_prox(card, scorer, q_ids, config="wiki100k",
                         device="cuda"))
         emit(phase_phrase(card, scorer, pos_dirs["wiki100k"], work,
+                          streams=streams,
                           device="cuda"))
         emit(phase_snippets(card, scorer, q_ids))
         del scorer
@@ -5639,6 +6219,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
                    live_launches=live_launches["dense_score"],
                    shard_launches=shard_launches["dense_score"],
                    soak_launches=soak_launches["dense_score"],
+                   elastic_launches=shards["elastic_launches"]["dense_score"],
+                   elastic_soak_launches=live_crash[
+                       "elastic_soak_launches"]["dense_score"],
+                   ingest_soak_launches=ingest_soak["launches"]["dense_score"],
                    v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
@@ -5653,6 +6237,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
                    live_launches=live_launches["dequant_score"],
                    shard_launches=shard_launches["dequant_score"],
                    soak_launches=soak_launches["dequant_score"],
+                   elastic_launches=shards["elastic_launches"]["dequant_score"],
+                   elastic_soak_launches=live_crash[
+                       "elastic_soak_launches"]["dequant_score"],
+                   ingest_soak_launches=ingest_soak["launches"]["dequant_score"],
                    v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
@@ -5666,6 +6254,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
                    live_launches=live_launches["cold_tier"],
                    shard_launches=shard_launches["cold_tier"],
                    soak_launches=soak_launches["cold_tier"],
+                   elastic_launches=shards["elastic_launches"]["cold_tier"],
+                   elastic_soak_launches=live_crash[
+                       "elastic_soak_launches"]["cold_tier"],
+                   ingest_soak_launches=ingest_soak["launches"]["cold_tier"],
                    v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
@@ -5679,6 +6271,10 @@ def run_phases(card: str, work: str, corpus_made) -> int:
                    live_launches=live_launches["hot_stage"],
                    shard_launches=shard_launches["hot_stage"],
                    soak_launches=soak_launches["hot_stage"],
+                   elastic_launches=shards["elastic_launches"]["hot_stage"],
+                   elastic_soak_launches=live_crash[
+                       "elastic_soak_launches"]["hot_stage"],
+                   ingest_soak_launches=ingest_soak["launches"]["hot_stage"],
                    v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})

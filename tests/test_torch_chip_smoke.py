@@ -214,7 +214,16 @@ def test_compress_and_v3_serve_phases_on_cpu(tmp_path, monkeypatch):
                                      config="wiki100k")
     _, _, _, wraw = chip_smoke.phase_serve("cpu", widx, device="cpu",
                                            config="wiki100k")
-    _, wv3 = chip_smoke.phase_compress("cpu", widx, work, config="wiki100k")
+    # run_phases compresses the wiki100k copy in a spawned child
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as side:
+        wcomp, wv3 = side.submit(chip_smoke.phase_compress, "cpu", widx,
+                                 work, config="wiki100k").result()
+    assert wcomp["config"] == "wiki100k" and wcomp["migrated"] == 10
+    assert wcomp["part_bytes_after"] == chip_smoke.part_bytes(wv3)
     wserve, scorer = chip_smoke.phase_serve_v3(
         "cpu", wv3, wraw, device="cpu", config="wiki100k-v3")
     assert wserve["layout"] == "sparse"
@@ -539,6 +548,21 @@ def test_positions_phrase_prox_explain_snippet_phases_on_cpu(tmp_path,
     phrase = chip_smoke.phase_phrase("cpu", wiki, dirs["wiki100k"], work,
                                      device="cpu")
     assert phrase["oracle"]["phrases"] == 40
+    # the streams read beforehand (run_phases gives them to a child): the
+    # same texts and oracle, the reader's seconds and the wait reported
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as ex:
+        streams = ex.submit(chip_smoke.store_streams_timed,
+                            dirs["wiki100k"], work)
+        again = chip_smoke.phase_phrase("cpu", wiki, dirs["wiki100k"], work,
+                                        device="cpu", streams=streams)
+    assert {k: v for k, v in again["oracle"].items()
+            if k != "s"} == {
+        k: v for k, v in phrase["oracle"].items() if k != "s"}
+    assert again["examples"] == phrase["examples"]
+    assert again["store_streams_s"] == streams.result()[3]
+    assert again["store_streams_wait_s"] >= 0
     assert phrase["oracle"]["matched_docs"] >= 40
     assert set(phrase["runs"]) == {"slop0-tfidf", "slop0-bm25",
                                    "slop2-tfidf", "slop2-bm25"}
@@ -635,13 +659,16 @@ def test_v1_merge_warm_doctor_phases_on_cpu(tmp_path, monkeypatch):
 
 
 def test_live_phases_are_listed():
-    """Phases 19d and 19e exist and the docstring lists each by name, and
-    19d's text the shards phase it runs before its operator checks."""
-    for num, name in (("19d", "live"), ("19e", "live_crash")):
+    """Phases 19d, 19e and 19f exist and the docstring lists each by name,
+    19d's text the shards and elastic phases it runs before its operator
+    checks, and 19e's the routed and elastic soaks."""
+    for num, name in (("19d", "live"), ("19e", "live_crash"),
+                      ("19f", "ingest_soak")):
         assert callable(getattr(chip_smoke, f"phase_{name}"))
         assert f"\n{num}. {name} " in chip_smoke.__doc__
-    assert callable(chip_smoke.phase_shards)
-    assert "`shards`" in chip_smoke.__doc__
+    for name in ("shards", "elastic", "routed_soak", "elastic_soak"):
+        assert callable(getattr(chip_smoke, f"phase_{name}"))
+        assert f"`{name}`" in chip_smoke.__doc__
 
 
 def test_depth_constants_cover_their_samples():
@@ -658,6 +685,14 @@ def test_depth_constants_cover_their_samples():
     assert c.SHARD_TEXTS >= c.SHARD_PROBE_TEXTS >= 8
     assert c.SHARD_TEXTS >= c.SHARD_RERANK_TEXTS
     assert 0 < c.SHARD_KILL_AT < 1 and 0 < c.ROUTED_SOAK_UPGRADE_AT < 1
+    # the elastic phase: the narrow router queues under the clients (its
+    # occupancy reaches the 0.6 that arms a grow), and the soak's plan
+    # rolls, grows and drains in that order with a replica to drain
+    assert c.SHARD_CLIENTS / c.ELASTIC_NARROW >= 0.6 * 2
+    assert c.ELASTIC_KILL_CLIENTS >= 1 and c.ELASTIC_MEMORY_SLACK <= 0.5e9
+    plan = c.ELASTIC_SOAK_PLAN
+    assert 0 < c.ELASTIC_SOAK_UPGRADE_AT < plan["up_at"] < plan["down_at"] < 1
+    assert plan["kill_during_drain"] and c.ELASTIC_SOAK_REPLICAS >= 2
 
 
 def test_live_phases_on_cpu(tmp_path, monkeypatch):
@@ -773,6 +808,35 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert shards["respawned"]["spawn_generation"] == 1
     assert len(shards["launches_by_worker"]) == 5
     assert shards["stopped"]["alive"] == []
+    # the elastic phase on that fleet: the autoscaler's grow under the
+    # narrow router's burst, 2 x 3, its drains when idle, the kill during
+    # a scripted drain, `scale --url`
+    el = shards["elastic"]
+    for name in ("fleet_2x2", "fleet_2x3"):
+        assert el[name]["texts"] == el[name]["answers"] == 24
+        assert el[name]["mismatches"] == el[name]["errors"] == 0
+    assert el["burst"]["answers"] > 0 and el["burst"]["mismatches"] == 0
+    assert el["burst"]["ticks_to_up"] >= 3
+    assert el["burst"]["reason"] in ("sustained_pressure", "slo_burn")
+    assert el["counters"] == {"scale.up": 2, "scale.down": 2,
+                              "router.breaker_opened": 0}
+    assert el["scale_down"] == 3
+    assert [(d["shard"], d["replica"]) for d in el["idle"]["drains"]] == [
+        (0, 2), (1, 2)]
+    assert el["idle"]["ticks_to_down"] >= 25 and el["idle"]["probes"] > 0
+    assert el["kill_during_drain"]["drain"]["killed_mid_drain"]
+    assert el["kill_during_drain"]["traffic"]["mismatches"] == 0
+    assert el["lifecycle"] == [["active", "retired", "retired"],
+                               ["active", "active", "retired"]]
+    assert [e[0] for e in el["events"]] == ["up", "up", "down", "down",
+                                            "down"]
+    assert el["scale_cli"]["lifecycle"] == el["lifecycle"]
+    assert el["scale_warmup"]["count"] == 1
+    assert el["scale_drain"]["count"] == 3
+    assert set(el["nice"]) == {"0/0", "0/1", "0/2", "1/0", "1/1", "1/2"}
+    assert set(el["grown_warm_launches"]) == {"0/2", "1/2"}
+    assert el["retired_alive"] == []
+    assert len(shards["stopped"]["returncodes"]) == 6
     # the dense workers' launch count opens after the reference's answers
     counting = []
     real_http_workers = chip_smoke.http_workers
@@ -811,10 +875,31 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert crash["identical_artifacts"] == live["identical_artifacts"]
     assert crash["bitwise_one_shot"]
     assert crash["workers"]["bitwise"] and crash["workers"]["texts"] == 24
-    soak = soaks[0]
+    soak, elastic = soaks
     assert all(soak["checks"].values()) and soak["healthz_polls"]["n"]
     assert soak["report"]["submitted"] == 100
     assert crash["routed_soak_launches"] == soak["launches"]
     assert set(soak["launches_with_warm_ups"]) == set(soak["launches"])
+    # the elastic soak: rolled, grown and drained with a kill mid-drain
+    assert elastic["phase"] == "elastic_soak"
+    assert all(elastic["checks"].values()), elastic["checks"]
+    assert elastic["report"]["submitted"] == 100
+    assert len(elastic["report"]["scale"]["drains"]) == 2
+    assert crash["elastic_soak_launches"] == elastic["launches"]
     assert os.listdir(work) == []
-    json.dumps([live, crash, shards, soak])
+    json.dumps([live, crash, shards, soak, elastic])
+
+
+def test_ingest_soak_phase_on_cpu(tmp_path):
+    """19f on the CPU: `ingest --soak-bench` through the command line in
+    this process, its invariants held again, its live dir removed."""
+    out = chip_smoke.phase_ingest_soak("cpu", str(tmp_path), device="cpu")
+    assert all(out["checks"].values()), out["checks"]
+    rep = out["report"]
+    assert rep["docs"] == 48 and rep["base_docs"] == 12
+    assert rep["history_row"]["config"] == "ingest_soak"
+    assert rep["ingest_docs_per_s"] > 0 and rep["freshness_lag_ms"] > 0
+    assert set(out["launches"]) == set(chip_smoke.PORT_KERNELS)
+    assert set(out["launches_with_warm_ups"]) == set(chip_smoke.PORT_KERNELS)
+    assert os.listdir(tmp_path) == []
+    json.dumps(out)

@@ -1229,3 +1229,75 @@ def test_router_over_cuda_workers_bitwise_on_card(serving_index, layout):
         assert launches["dense_score"] >= 1
     else:
         assert launches["cold_tier"] >= 1
+
+
+@pytest.fixture(scope="module")
+def ref_index(tmp_path_factory):
+    """The ref corpus (bench.py's make_corpus at its defaults) built on the
+    card, dense at serve time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    tmp = tmp_path_factory.mktemp("ref")
+    corpus = str(tmp / "ref.trec")
+    make_corpus(corpus, seed=0, **chip_smoke.REF_CORPUS)
+    idx = str(tmp / "idx")
+    build_index(corpus, idx, num_shards=10, device="cuda")
+    return idx
+
+
+def _card_mib() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return chip_smoke.card_used_mib()
+
+
+def test_grow_and_retire_on_card(ref_index, tmp_path):
+    """ShardSet.grow on the card at ref size: the grown worker is ready
+    after its warm-up launched dense_score, answers bitwise its sibling
+    (TF-IDF and BM25) with routed launches of its own, and retiring it
+    drains clean, exits 0 on SIGTERM and gives its memory back (the
+    card's used memory within 0.5 GB of before the grow)."""
+    from tpu_ir_torch.serving import ShardSet, get_worker_health, rpc_post
+
+    ss = ShardSet(ref_index, shards=1, replicas=1, layout="dense",
+                  rundir=str(tmp_path / "run"), spawn_timeout_s=300.0)
+    try:
+        ss.start()
+        before = _card_mib()
+        assert ss.grow() == [(0, 1)]
+        grown_mib = _card_mib()
+        assert grown_mib - before > 256   # a worker holds the index
+        sib, new = ss.addresses()[0]
+        w = get_worker_health(new, 30)["worker"]
+        assert w["generation"] == 0 and w["warm_launches"]["dense_score"] > 0
+        # the texts from the vocabulary alone: a scorer here would hold
+        # card memory across the reads
+        from tpu_ir_torch.collection import Vocab
+        from tpu_ir_torch.index import format as fmt
+
+        terms = Vocab.load(os.path.join(ref_index, fmt.VOCAB)).terms
+        rng = np.random.default_rng(41)
+        texts = [" ".join(terms[int(t)] for t in rng.integers(
+            0, len(terms), 2)) for _ in range(16)]
+        for scoring in ("tfidf", "bm25"):
+            for text in texts:
+                pay = {"text": text, "k": 10, "scoring": scoring}
+                got = rpc_post(new, "search", pay, 120)
+                want = rpc_post(sib, "search", pay, 120)
+                assert got["level"] == "full" and not got["degraded"]
+                assert _bits(tuple(h) for h in got["hits"]) == _bits(
+                    tuple(h) for h in want["hits"])
+        w = get_worker_health(new, 30)["worker"]
+        assert w["kernel_launches"]["dense_score"] \
+            > w["warm_launches"]["dense_score"]
+        handle = ss.handles()[0][1]
+        drain = ss.retire_replica(0, 1, drain_timeout_s=30.0)
+        assert drain["drained_clean"] and not drain["killed_mid_drain"]
+        assert handle.proc.returncode == 0
+        assert ss.lifecycle() == [["active", "retired"]]
+        after = _card_mib()
+        assert abs(after - before) * 2**20 <= 0.5e9, (before, grown_mib,
+                                                      after)
+    finally:
+        ss.stop()

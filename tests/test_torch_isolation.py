@@ -53,7 +53,7 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.serving.shardset, tpu_ir_torch.serving.router, "
             "tpu_ir_torch.serving.generation, "
             "tpu_ir_torch.serving.residency, tpu_ir_torch.serving.workload, "
-            "chip_smoke\n"
+            "tpu_ir_torch.serving.autoscale, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
             "assert not bad, bad\n"
@@ -160,3 +160,44 @@ def test_worker_subprocess_loads_no_jax(tmp_path):
         proc.stdin.close()
     lines = open(out_path).read().strip().splitlines()
     assert lines[-1] == "loaded: []"
+
+
+def _mapped_files(pid: int) -> set:
+    """The files a process has mapped (its loaded shared objects)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return {line.split()[-1] for line in f
+                if len(line.split()) >= 6 and line.split()[-1][:1] == "/"}
+
+
+def test_grown_worker_loads_no_jax(tmp_path):
+    """A worker ShardSet.grow spawns (niced, on the CPU over a small
+    index) maps no JAX library (jaxlib's extension, XLA) and imports no
+    module of the JAX package: its /healthz names the port's worker and
+    its mapped files hold none of them."""
+    from tpu_ir_torch.index import build_index
+    from tpu_ir_torch.serving import ShardSet, get_worker_health
+
+    corpus = str(tmp_path / "c.trec")
+    with open(corpus, "w") as f:
+        for i in range(30):
+            f.write(f"<DOC>\n<DOCNO> D-{i:03d} </DOCNO>\n<TEXT>\n"
+                    f"salmon river w{i % 7} fox w{i % 3}\n</TEXT>\n</DOC>\n")
+    index_dir = str(tmp_path / "idx")
+    build_index(corpus, index_dir, num_shards=2, device="cpu")
+    ss = ShardSet(index_dir, shards=1, replicas=1, device="cpu",
+                  rundir=str(tmp_path / "run"))
+    try:
+        ss.start()
+        assert ss.grow() == [(0, 1)]
+        h = ss.handles()[0][1]
+        w = get_worker_health(h.addr, 10)["worker"]
+        assert (w["shard"], w["replica"], w["pid"]) == (0, 1, h.pid)
+        maps = _mapped_files(h.pid)
+        assert any("torch" in m for m in maps)   # the check can see
+        bad = sorted(m for m in maps
+                     if re.search(r"jaxlib|xla_extension|/jax/|tpu_ir/", m))
+        assert not bad, bad
+        with open(f"/proc/{h.pid}/cmdline") as f:
+            assert "tpu_ir_torch.serving.shardset" in f.read()
+    finally:
+        ss.stop()

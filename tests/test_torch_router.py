@@ -19,8 +19,9 @@ MetricsServer) on a static address grid:
 
 Then the distributed chaos soak over 2 x 2 subprocess workers with a
 rolling upgrade (`tpu_ir`'s asserts but the distributed-trace and SLO
-ones), `autoscale=` refused naming ROADMAP 6b-3, and `serve-bench
---shards`: its validation and its JSON keys against `tpu_ir`'s."""
+ones), and `serve-bench --shards`: its validation and its JSON keys
+against `tpu_ir`'s. The elastic soak (`autoscale=`, `scale_plan=`) is
+tests/test_torch_autoscale.py's."""
 
 import gc
 import json
@@ -587,9 +588,12 @@ def _keys(d: dict) -> set:
 
 def test_health_keys_equal_jax(index_dir, twin_dir):
     """The router's health_summary, its shard and replica entries, and
-    /healthz with a router live, against `tpu_ir`'s over its own workers
-    (the worker identity adds the port's kernel_launches and
-    warm_launches)."""
+    /healthz with a router and an autoscaler live, against `tpu_ir`'s
+    over its own workers (the worker identity adds the port's
+    kernel_launches and warm_launches)."""
+    from tpu_ir.serving import Autoscaler as JaxAutoscaler
+    from tpu_ir_torch.serving import Autoscaler
+
     port_w = _Workers(index_dir, "sparse", shards=2)
     jax_started = [jax_serve_worker(twin_dir, s, 2, layout="sparse",
                                     warm=False) for s in range(2)]
@@ -619,15 +623,52 @@ def test_health_keys_equal_jax(index_dir, twin_dir):
                     assert _keys(gr["breaker"]) == _keys(wr["breaker"])
                     assert _keys(gr["worker"]) == _keys(wr["worker"]) | {
                         "kernel_launches", "warm_launches"}
+            # an autoscaler over each router's static grid (no fleet to
+            # grow: the section is what /healthz shows of one)
+            fleet = _StaticFleet(port_w.grid)
+            jfleet = _StaticFleet(jax_grid)
+            scaler = Autoscaler(fleet, router)
+            jscaler = JaxAutoscaler(jfleet, jrouter)
+            scaler.tick()
+            jscaler.tick()
             snap, jsnap = health_snapshot(), jax_health_snapshot()
             assert "shards" in snap and "shards" in jsnap
             assert _keys(snap["shards"]) == _keys(jsnap["shards"])
             assert _keys(snap) == _keys(jsnap)
+            assert "autoscaler" in snap and "autoscaler" in jsnap
+            assert _keys(snap["autoscaler"]) == _keys(jsnap["autoscaler"])
+            assert _keys(snap["autoscaler"]["last_decision"]) == _keys(
+                jsnap["autoscaler"]["last_decision"])
+            assert snap["autoscaler"]["lifecycle"] == jsnap["autoscaler"][
+                "lifecycle"] == [["active"], ["active"]]
+            del scaler, jscaler
             assert set(router.stats()) == set(jrouter.stats())
     finally:
         port_w.stop()
         for srv, _, _ in jax_started:
             srv.stop()
+
+
+class _StaticFleet:
+    """A static grid's membership views, as an Autoscaler reads them."""
+
+    max_concurrency = 4
+
+    def __init__(self, grid):
+        self._grid = grid
+
+    def lifecycle(self):
+        return [["active"] * len(row) for row in self._grid]
+
+    def epoch(self):
+        return 0
+
+    def events(self):
+        return []
+
+    def active_replicas(self, shard=None):
+        counts = [len(row) for row in self._grid]
+        return counts[shard] if shard is not None else min(counts)
 
 
 # -- the distributed chaos soak ----------------------------------------------
@@ -684,13 +725,6 @@ def test_distributed_chaos_soak(soak_live, tmp_path):
     assert set(report["generations_served"]) <= {str(gen_a),
                                                  str(up["generation_b"])}
     assert report["generations_served"].get(str(up["generation_b"]), 0) > 0
-
-
-@pytest.mark.parametrize("kw", [{"autoscale": True},
-                                {"scale_plan": {"up_at": 0.3}}])
-def test_the_elastic_soak_is_refused(soak_live, kw):
-    with pytest.raises(ValueError, match="6b-3"):
-        run_distributed_soak(soak_live, device="cpu", **kw)
 
 
 # -- serve-bench --shards -----------------------------------------------------
@@ -774,5 +808,5 @@ def test_serve_bench_shards_json_equals_jax(index_dir, twin_dir, capsys,
         for pc, jc in zip(port_calls, jax_calls):
             assert pc.pop("device") == "cpu"
             jc.pop("flight_dir")
-            jc.pop("autoscale")
+            assert pc["autoscale"] is jc["autoscale"] is False
             assert pc == jc

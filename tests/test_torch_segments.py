@@ -847,20 +847,14 @@ def test_cli_ingest_compact_generations_equal_jax(tmp_path):
     assert rc == 1 and "not a live index" in err
 
 
-@pytest.mark.parametrize("flag", ["--swap-bench", "--soak-bench"])
+@pytest.mark.parametrize("flag", ["--swap-bench"])
 def test_cli_benches_name_the_later_slice(tmp_path, flag):
-    """--soak-bench names its slice (the elastic shard fleet, ROADMAP
-    6b-3) and touches nothing; --swap-bench, which came with the shard
-    workers, runs the micro-bench on a live dir it creates."""
+    """--swap-bench, which came with the shard workers, runs the
+    micro-bench on a live dir it creates (--soak-bench, which came with
+    the elastic fleet, runs in tests/test_torch_worker.py)."""
     rc, out, err = _cli(cli_main, ["ingest", str(tmp_path / "live"), flag,
                                    "--device", "cpu"])
-    if flag == "--swap-bench":
-        report = json.loads(out.strip().splitlines()[-1])
-        assert rc == 0 and report["generations_seen"] == [
-            report["generation_a"], report["generation_b"]]
-        assert os.path.exists(tmp_path / "live")
-        return
-    assert rc == 1 and out == ""
-    assert err.startswith(f"error: ingest {flag} is not ported yet")
-    assert "elastic shard fleet" in err and "6b-3" in err
-    assert not os.path.exists(tmp_path / "live")
+    report = json.loads(out.strip().splitlines()[-1])
+    assert rc == 0 and report["generations_seen"] == [
+        report["generation_a"], report["generation_b"]]
+    assert os.path.exists(tmp_path / "live")

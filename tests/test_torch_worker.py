@@ -455,8 +455,20 @@ def test_ingest_swap_bench_and_soak_bench(tmp_path, capsys):
     assert report["history_row"]["config"] == "ingest_swap"
     assert report["history_row"]["backend"] == "cpu"
     assert report["num_docs_b"] == 80
-    assert cli_main(["ingest", live, "--soak-bench", "--device", "cpu"]) == 1
-    assert "6b-3" in capsys.readouterr().err
+    # the ingest soak at its defaults on a live dir of its own
+    soak_live = str(tmp_path / "soak")
+    assert cli_main(["ingest", soak_live, "--soak-bench",
+                     "--device", "cpu"]) == 0
+    soak = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert soak["history"] is None
+    assert soak["history_row"] == {
+        "config": "ingest_soak", "backend": "cpu", "docs": 48, "kills": 1,
+        "swaps": soak["swaps"], "ingest_docs_per_s":
+        soak["ingest_docs_per_s"], "freshness_lag_ms":
+        soak["freshness_lag_ms"]}
+    assert soak["lost_acked"] == soak["stale"] == soak["errors"] == 0
+    assert soak["child_replayed"] >= 1 and soak["swaps"] >= 1
+    assert soak["recovered_docs"] == 12 + 48
 
 
 def test_serve_worker_cli_json_equals_jax(index_dir, tmp_path):

@@ -1,8 +1,8 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
-`serve-bench`, `serve-worker`, `ingest`, `compact`, `generations`,
-`backup`, `pack`, `count` and `docno`, with tpu_ir's flag names and
-defaults.
+`serve-bench`, `serve-worker`, `scale`, `ingest`, `compact`,
+`generations`, `backup`, `pack`, `count` and `docno`, with tpu_ir's flag
+names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -29,12 +29,13 @@ defaults.
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
-        [--shards N [--replicas R]] [--workload uniform|zipf]
-        [--skew S[,S...]] [--burst B]
+        [--shards N [--replicas R] [--autoscale] [--pacing S]]
+        [--workload uniform|zipf] [--skew S[,S...]] [--burst B]
     python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
         [--host H] [--replica R] [--layout auto|dense|sparse]
         [--deadline S] [--concurrency N] [--queue-depth N] [--no-warm]
         [--run-for S] [--device cuda|cpu]
+    python -m tpu_ir_torch.cli scale [--url http://HOST:PORT]
     python -m tpu_ir_torch.cli ingest LIVE [--init [--shards N]
         [--chargram-k 2 3]] [--add TREC...] [--update TREC...]
         [--delete DOCID...] [--merge | --compact] [--gc]
@@ -71,14 +72,19 @@ exits 1 when an invariant fails; `--shards N` runs the distributed chaos
 soak instead (S x R worker processes behind the Router, one soak a
 `--skew` level) and prints its report with the row the JAX package would
 append to BENCH_HISTORY.jsonl (`history` is null: the port writes no
-row).
+row); `--autoscale` runs that soak under the autoscaler, then a static
+control at its mean replica count (the JAX package's forecast arm and
+its `--lead` wait for the telemetry time machine: `--lead` exits 2).
+`scale` prints the autoscaler's resolved configuration and, with
+`--url`, a serving process's /healthz autoscaler section.
 `serve-worker` serves one doc shard's RPC surface (serving/shardset.py)
 and prints one ready JSON line; `--run-for S` stops it after S seconds.
 `ingest --swap-bench` runs the ingest -> compact -> swap micro-bench and
 prints its report with the row the JAX package would append to
 BENCH_HISTORY.jsonl (`history` is null: the port writes no row).
-`ingest --soak-bench` exits 1 with an error naming the later slice
-(ROADMAP 6b-3) that brings it.
+`ingest --soak-bench` runs the ingest and serve soak (a feeder child
+SIGKILLed mid-feed, its successor's recovery) and prints its report the
+same way.
 """
 
 from __future__ import annotations
@@ -241,8 +247,9 @@ def cmd_ingest(args) -> int:
     merge step, `--compact` folds everything into one servable segment,
     `--gc` prunes old generations. One JSON summary on stdout.
     `--swap-bench` runs serving/generation.py::swap_microbench on the
-    live dir (created if missing); `--soak-bench` raises ValueError: it
-    comes with the elastic fleet, a later slice."""
+    live dir (created if missing), `--soak-bench` serving/soak.py::
+    run_ingest_soak; each prints its report with the row the JAX package
+    would append to BENCH_HISTORY.jsonl (`history` null)."""
     from .index import segments as seg
     from .index.ingest import IngestWriter, ingest_corpus
 
@@ -260,10 +267,18 @@ def cmd_ingest(args) -> int:
         print(json.dumps(report, sort_keys=True))
         return 0
     if args.soak_bench:
-        raise ValueError(
-            "ingest --soak-bench is not ported yet: the durable ingest and "
-            "serve soak comes with the autoscaler and the elastic shard "
-            "fleet, a later slice of the port (ROADMAP item 6b-3)")
+        from .serving.soak import run_ingest_soak
+
+        report = run_ingest_soak(args.live_dir, device=args.device)
+        row = {"config": "ingest_soak", "backend": args.device,
+               "docs": report["docs"], "kills": report["kills"],
+               "swaps": report["swaps"],
+               "ingest_docs_per_s": report["ingest_docs_per_s"],
+               "freshness_lag_ms": report["freshness_lag_ms"]}
+        report["history"] = None
+        report["history_row"] = row
+        print(json.dumps(report, sort_keys=True))
+        return 0
     if args.init and not seg.is_live(args.live_dir):
         seg.LiveIndex.create(args.live_dir, k=args.k,
                              num_shards=args.shards,
@@ -725,7 +740,15 @@ def _serve_routed(args) -> int:
     (serving/soak.py::run_distributed_soak) over S x R worker processes
     behind the Router, once a workload skew level; prints the report (a
     `runs` list for several levels) with the row the JAX package would
-    append to BENCH_HISTORY.jsonl (`history` null: no row is written)."""
+    append to BENCH_HISTORY.jsonl (`history` null: no row is written).
+
+    `--autoscale` runs each soak under the autoscaler (from R to R + 1
+    replicas a shard: a warm grow on sustained pressure, a drain on
+    sustained idleness), then a static control at the autoscaled run's
+    mean replica count, same workload and seed; the row adds the scale
+    events, burst p99 and overprovisioned share beside the control's
+    burst p99. The elastic run must conserve and its burst p99 stay
+    within 1.5x + 250 ms of the control's."""
     from .serving import run_distributed_soak
     from .serving.result_cache import resolve_capacity
 
@@ -745,15 +768,41 @@ def _serve_routed(args) -> int:
     cache_n = resolve_capacity(args.cache)
     reports = []
     ok = True
-    for label, spec in specs:
-        report = run_distributed_soak(
-            args.index_dir, shards=args.shards, replicas=args.replicas,
+    re_cfg = None
+    if args.autoscale:
+        from .serving.autoscale import AutoscaleConfig
+
+        re_cfg = AutoscaleConfig(
+            min_replicas=args.replicas, max_replicas=args.replicas + 1,
+            cooldown_s=0.5, up_occupancy=0.45, down_occupancy=0.1,
+            sustain_up=5, sustain_down=50, drain_timeout_s=15.0)
+
+    def soak(spec, replicas, autoscale=False):
+        return run_distributed_soak(
+            args.index_dir, shards=args.shards, replicas=replicas,
             threads=args.threads, queries=args.queries, seed=args.seed,
             layout=layout, chaos=args.chaos,
             worker_deadline_s=(1.0 if args.deadline is None
                                else args.deadline),
             timeout_s=args.timeout, workload=spec,
-            cache_entries=args.cache, device=args.device)
+            cache_entries=args.cache, device=args.device,
+            autoscale=autoscale,
+            **({} if args.pacing is None else {"pacing_s": args.pacing}))
+
+    for label, spec in specs:
+        report = soak(spec, args.replicas, autoscale=re_cfg or False)
+        static = None
+        if args.autoscale:
+            # the control: a static fleet at the elastic run's mean
+            # replica count, the same workload and seed
+            ctrl_replicas = max(1, int(round(
+                report["scale"]["mean_replicas"])))
+            static = soak(spec, ctrl_replicas)
+            report["static_control"] = {
+                "replicas": ctrl_replicas,
+                "burst_p99_ms": static["burst_p99_ms"],
+                "served": static["served"], "shed": static["shed"],
+                "errors": static["errors"]}
         p99 = (report["latency"].get("router.request") or {}).get("p99_ms")
         row = {
             # chaos, each workload and cache on or off are separate
@@ -762,6 +811,7 @@ def _serve_routed(args) -> int:
                        f"s{args.shards}r{args.replicas}"
                        + ("-chaos" if args.chaos else "")
                        + ("" if label == "uniform" else f"-{label}")
+                       + ("-autoscale" if args.autoscale else "")
                        + (f"-c{cache_n}" if cache_n else "")),
             "backend": args.device,
             "shards": args.shards,
@@ -776,6 +826,16 @@ def _serve_routed(args) -> int:
             "hedge_fired": report["router"].get("router.hedge_fired", 0),
             "recovery_full": report["recovery_full"],
         }
+        if static is not None:
+            row["scale_events"] = report["scale"]["events"]
+            row["burst_p99_ms"] = report["burst_p99_ms"]
+            row["overprovision_fraction"] = (
+                report["scale"]["overprovision_fraction"])
+            row["mean_replicas"] = report["scale"]["mean_replicas"]
+            row["static_replicas"] = report["static_control"]["replicas"]
+            row["static_burst_p99_ms"] = static["burst_p99_ms"]
+            row["reactive_lead_s"] = report["scale"].get(
+                "forecast_lead_s", -1.0)
         report["history"] = None
         report["history_row"] = row
         reports.append(report)
@@ -784,6 +844,15 @@ def _serve_routed(args) -> int:
             and report["full_mismatches"] == 0
             and report["partial_mismatches"] == 0
             and report["served"] + report["shed"] == report["submitted"])
+        if static is not None:
+            # the control conserves too, and elasticity must not lose to
+            # equal static spend at the burst (a loose smoke bound)
+            ok = ok and (
+                static["errors"] == 0 and static["deadlocked"] == 0
+                and static["served"] + static["shed"] == static["submitted"])
+            if static["burst_p99_ms"] > 0:
+                ok = ok and (report["burst_p99_ms"]
+                             <= static["burst_p99_ms"] * 1.5 + 250.0)
     out = reports[0] if len(reports) == 1 else {
         "runs": reports,
         "levels": [r["history_row"]["workload"] for r in reports]}
@@ -805,6 +874,15 @@ def cmd_serve_bench(args) -> int:
         run_soak,
     )
 
+    if args.lead is not None:
+        print("--lead is the forecast arm's horizon, which comes with the "
+              "telemetry time machine (ROADMAP item 8): not ported yet",
+              file=sys.stderr)
+        return 2
+    if args.autoscale and args.shards is None:
+        print("--autoscale needs --shards N: the elastic topology is "
+              "the routed worker fleet", file=sys.stderr)
+        return 2
     if args.shards is not None:
         return _serve_routed(args)
     try:
@@ -871,6 +949,45 @@ def cmd_serve_bench(args) -> int:
           and report["untagged_mismatches"] == 0
           and report["served"] + report["shed"] == report["submitted"])
     return 0 if ok else 1
+
+
+def cmd_scale(args) -> int:
+    """The autoscaler's configuration as an Autoscaler would resolve it
+    (TPU_IR_AUTOSCALE and the TPU_IR_SCALE_* knobs) and, with `--url`, a
+    serving process's /healthz autoscaler section: the epoch, each
+    replica's lifecycle, the hysteresis counters and the last decision
+    with its reason. One JSON object on stdout."""
+    from .serving.autoscale import AutoscaleConfig, autoscale_enabled
+
+    cfg = AutoscaleConfig().resolved()
+    out = {
+        "enabled": autoscale_enabled(),
+        "config": {
+            "min_replicas": cfg.min_replicas,
+            "max_replicas": cfg.max_replicas,
+            "cooldown_s": cfg.cooldown_s,
+            "up_occupancy": cfg.up_occupancy,
+            "down_occupancy": cfg.down_occupancy,
+            "sustain_up": cfg.sustain_up,
+            "sustain_down": cfg.sustain_down,
+            "drain_timeout_s": cfg.drain_timeout_s,
+        },
+    }
+    if args.url:
+        import urllib.request
+
+        url = args.url.rstrip("/") + "/healthz"
+        try:
+            with urllib.request.urlopen(url, timeout=10.0) as r:
+                payload = json.loads(r.read().decode("utf-8"))
+        except Exception as e:  # noqa: BLE001 — a dead server is the
+            # answer here, not a traceback
+            print(f"error: cannot read {url}: {e!r}", file=sys.stderr)
+            return 1
+        out["live"] = payload.get("autoscaler") or {
+            "error": "no autoscaler registered in that process"}
+    print(json.dumps(out, sort_keys=True))
+    return 0
 
 
 # commands whose whole job is loading artifacts the user named: only for
@@ -1114,6 +1231,20 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--replicas", type=int, default=1, metavar="R",
                     help="replicas a shard in --shards mode (failover "
                          "and hedging need R >= 2)")
+    pb.add_argument("--autoscale", action="store_true",
+                    help="elastic --shards mode (serving/autoscale.py): "
+                         "the routed soak under the autoscaler (a warm "
+                         "grow on sustained pressure, a drain on "
+                         "sustained idleness), then a static control at "
+                         "its mean replica count")
+    pb.add_argument("--lead", type=float, default=None, metavar="S",
+                    help="the forecast arm's horizon: not ported yet "
+                         "(exits 2)")
+    pb.add_argument("--pacing", type=float, default=None, metavar="S",
+                    help="mean inter-arrival pacing unit (s) of the routed "
+                         "soak; raise it so arrivals, not service time, "
+                         "set the occupancy wave (default: the soak's "
+                         "0.002)")
     pb.add_argument("--workload", choices=["uniform", "zipf"],
                     default=None,
                     help="traffic (serving/workload.py): uniform, or zipf "
@@ -1166,6 +1297,15 @@ def main(argv: list[str] | None = None) -> int:
     psw.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     psw.set_defaults(fn=cmd_serve_worker)
 
+    psc = sub.add_parser(
+        "scale",
+        help="the autoscaler's resolved configuration and, with --url, a "
+             "serving process's /healthz autoscaler section")
+    psc.add_argument("--url", default=None, metavar="URL",
+                     help="base URL of a live serving process's metrics "
+                          "server (e.g. http://127.0.0.1:8123)")
+    psc.set_defaults(fn=cmd_scale)
+
     pin = sub.add_parser(
         "ingest",
         help="live index writes: buffered add/update/delete flushed to "
@@ -1212,8 +1352,11 @@ def main(argv: list[str] | None = None) -> int:
                           "against live_dir (created if missing) and "
                           "print swap_gap_ms (no history row is written)")
     pin.add_argument("--soak-bench", action="store_true",
-                     help="the durable ingest+serve soak: not ported yet "
-                          "(ROADMAP 6b-3)")
+                     help="the durable ingest+serve soak against live_dir "
+                          "(created if missing): a feeder child SIGKILLed "
+                          "mid-feed, its successor's recovery; prints "
+                          "ingest_docs_per_s and freshness_lag_ms (no "
+                          "history row is written)")
     pin.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pin.set_defaults(fn=cmd_ingest)
 

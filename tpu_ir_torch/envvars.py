@@ -108,6 +108,25 @@ a choice outside its set raises.
                              1.1; 0 draws uniformly)
     TPU_IR_WORKLOAD_BURST    the diurnal amplitude of the arrival pacing
                              (default 0: flat)
+    TPU_IR_AUTOSCALE         1 runs the autoscaler over the shard fleet
+                             (serving/autoscale.py): sustained admission
+                             pressure adds a warm replica a shard,
+                             sustained idleness drains one away, its
+                             in-flight requests finished first (default 0)
+    TPU_IR_SCALE_MIN_REPLICAS  replicas a shard the autoscaler never
+                             drains below (default 1, at least 1)
+    TPU_IR_SCALE_MAX_REPLICAS  replicas a shard the autoscaler never grows
+                             past (default 4, at least 1)
+    TPU_IR_SCALE_COOLDOWN_S  least seconds between two membership changes
+                             of the autoscaler; decisions inside it count
+                             scale.cooldown_skipped (default 5.0)
+    TPU_IR_SCALE_LEAD_S      the forecast horizon of the autoscaler's third
+                             signal (default 30.0; nothing publishes the
+                             forecast in the port yet)
+    TPU_IR_SLO_P99_MS        the latency SLO: a served request slower than
+                             this is a bad one for the burn-rate windows
+                             (obs/disttrace.py; default 250.0, at least
+                             1.0)
 """
 
 from __future__ import annotations
@@ -128,7 +147,9 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_INGEST_KEEP_GENERATIONS": (8, 1),
          "TPU_IR_MERGE_FACTOR": (4, 2),
          "TPU_IR_WAL_FSYNC_DOCS": (32, 1),
-         "TPU_IR_H2D_CHUNK_BYTES": (64 << 20, 1)}
+         "TPU_IR_H2D_CHUNK_BYTES": (64 << 20, 1),
+         "TPU_IR_SCALE_MIN_REPLICAS": (1, 1),
+         "TPU_IR_SCALE_MAX_REPLICAS": (4, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
@@ -140,12 +161,16 @@ _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
            "TPU_IR_ROUTER_CONNECT_MS": (250.0, 1.0),
            "TPU_IR_ROUTER_HEALTH_TTL_S": (2.0, 0.0),
            "TPU_IR_WORKLOAD_SKEW": (1.1, 0.0),
-           "TPU_IR_WORKLOAD_BURST": (0.0, 0.0)}
+           "TPU_IR_WORKLOAD_BURST": (0.0, 0.0),
+           "TPU_IR_SCALE_COOLDOWN_S": (5.0, 0.0),
+           "TPU_IR_SCALE_LEAD_S": (30.0, 0.0),
+           "TPU_IR_SLO_P99_MS": (250.0, 1.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
          "TPU_IR_BATCH_LADDER": "1,4,16"}
 _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
-          "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True}
+          "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True,
+          "TPU_IR_AUTOSCALE": False}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

@@ -3,7 +3,8 @@ latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
 `fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
-`generation.*`, `load.*`, `router.*`), every latency histogram under its
+`generation.*`, `load.*`, `router.*`, `scale.*`, `slo.*`, `forecast.*`),
+every latency histogram under its
 span or stage name. The declared names (gauges too) are registered at
 zero, so a report always shows them, observed or not. `hist_state()` and
 `delta_summary()` give one run's percentiles without a reset of the
@@ -108,19 +109,41 @@ ROUTER_COUNTER_NAMES = (
     "router.mixed_generation",
 )
 
-# the live index's gauges: the generation a commit or a swap made
-# current, its segment count and its tombstones; router.occupancy is the
-# routed tier's admission occupancy under the JAX name (its setter, the
-# autoscaler, is not ported yet)
+# the elastic fleet (serving/autoscale.py, shardset.py), the JAX names:
+# scale.up / scale.down one replica that entered / left the dispatch grid
+# (a grow over S shards counts S); scale.drain_inflight the peak admitted
+# requests a draining replica was seen finishing; scale.cooldown_skipped
+# a decision the autoscaler wanted and held back inside its cooldown
+SCALE_COUNTER_NAMES = ("scale.up", "scale.down", "scale.drain_inflight",
+                       "scale.cooldown_skipped")
+
+# the SLO burn-rate windows (obs/disttrace.py): every finished routed
+# request is good or bad; slo.burn_breach counts the trips of the
+# two-window breach rule
+SLO_COUNTER_NAMES = ("slo.good", "slo.bad", "slo.burn_breach")
+
+# the autoscaler's scale-ups whose deciding signal was the forecast (the
+# JAX name; nothing publishes the forecast in the port, so it stays 0)
+FORECAST_COUNTER_NAMES = ("forecast.scaleups",)
+
+# the gauges, the JAX names: the generation a commit or a swap made
+# current, its segment count and its tombstones; the ingest soak's
+# median flush-to-first-query lag; the SLO windows' burn multiples; the
+# admission occupancy the autoscaler read on its last tick, and the
+# forecast occupancy it reads beside it (nothing sets that one yet: it
+# reads 0.0, and the third signal stays off)
 DECLARED_GAUGES = ("generation.current", "generation.segments",
-                   "generation.tombstones", "router.occupancy")
+                   "generation.tombstones", "ingest.freshness_lag_ms",
+                   "slo.burn_fast", "slo.burn_slow", "router.occupancy",
+                   "forecast_occupancy")
 
 DECLARED_COUNTERS = (
     tuple(f"fault.{s}" for s in FAULT_SITES)
     + tuple(f"recovery.{n}" for n in RECOVERY_COUNTER_NAMES)
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
-    + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES)
+    + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES
+    + SCALE_COUNTER_NAMES + SLO_COUNTER_NAMES + FORECAST_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
 # frontend's start and inside each generation swap; load.* are
@@ -132,12 +155,16 @@ LOAD_STAGES = ("load.meta", "load.vocab", "load.read", "load.layout",
 # the router's: a routed request end to end, one replica attempt's
 # round trip (hedges too), and the host's exact merge
 ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
+# the elastic fleet's: one drain (draining to the process's exit) and
+# one grow (spawn, warm-up and publish), in seconds like every histogram
+SCALE_STAGES = ("scale.drain_ms", "scale.warmup_ms")
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
                           "batch.precompile", "cache.lookup",
                           "ingest.flush", "ingest.replay", "merge.run",
-                          "generation.swap") + LOAD_STAGES + ROUTER_STAGES)
+                          "generation.swap", "ingest.freshness")
+                       + LOAD_STAGES + ROUTER_STAGES + SCALE_STAGES)
 
 
 class TelemetryRegistry:

@@ -14,8 +14,10 @@ free one) serves:
                      live frontend's stats, the ingest counters, the newest
                      live router's fleet view under `shards` (shard ->
                      replica liveness, breaker, worker identity and
-                     generation, trailing latency), and the instance's
-                     `extra_health` (a worker's identity).
+                     generation, trailing latency), the newest live
+                     autoscaler's section under `autoscaler` (epoch,
+                     lifecycle, hysteresis, its last decision), and the
+                     instance's `extra_health` (a worker's identity).
 
 `/metrics`, the telemetry spool, the timeseries sampler, the HTML pages
 and trace-context adoption are not ported yet. The health keys are
@@ -42,6 +44,7 @@ logger = logging.getLogger(__name__)
 _health_lock = threading.Lock()
 _frontends: list = []  # weakrefs to live ServingFrontends, oldest first
 _routers: list = []    # weakrefs to live routers (serving/router.py)
+_autoscalers: list = []  # weakrefs to live Autoscalers (serving/autoscale.py)
 
 _PROCESS_START = time.time()
 _PROCESS_START_ISO = time.strftime("%Y-%m-%dT%H:%M:%S",
@@ -65,17 +68,21 @@ def register_router(router) -> None:
         _routers.append(weakref.ref(router))
 
 
-def _live_frontends() -> list:
+def register_autoscaler(autoscaler) -> None:
+    """Called by Autoscaler.__init__: /healthz reports the newest live
+    one's control loop (its epoch, each replica's lifecycle, the
+    hysteresis counters, the last decision and its reason). A weakref,
+    as for the routers."""
     with _health_lock:
-        alive = [(r, r()) for r in _frontends]
-        _frontends[:] = [r for r, f in alive if f is not None]
-        return [f for _, f in alive if f is not None]
+        _autoscalers.append(weakref.ref(autoscaler))
 
 
-def _live_routers() -> list:
+def _live(refs: list) -> list:
+    """The objects of `refs` still alive, oldest first; the dead refs
+    are dropped."""
     with _health_lock:
-        alive = [(r, r()) for r in _routers]
-        _routers[:] = [r for r, f in alive if f is not None]
+        alive = [(r, r()) for r in refs]
+        refs[:] = [r for r, f in alive if f is not None]
         return [f for _, f in alive if f is not None]
 
 
@@ -100,7 +107,8 @@ def health_snapshot() -> dict:
     """The /healthz payload: the newest live frontend's breaker, ladder
     and queue depth at the top level (what an alerting rule matches),
     every live frontend under `frontends`, this process's ingest
-    counters, and the newest live router's fleet under `shards`."""
+    counters, the newest live router's fleet under `shards` and the
+    newest live autoscaler under `autoscaler`."""
     reg = get_registry()
     out = {
         "status": "ok",
@@ -128,19 +136,25 @@ def health_snapshot() -> dict:
             "freshness_lag_ms": reg.gauges().get("ingest.freshness_lag_ms"),
         },
     }
-    for fe in _live_frontends():
+    for fe in _live(_frontends):
         try:
             st = fe.stats()
         except Exception as e:  # noqa: BLE001 — health must not 500
             st = {"error": repr(e)}
         out["frontends"].append(st)
-    routers = _live_routers()
+    routers = _live(_routers)
     if routers:
         # the newest live router's fleet (its worker polls TTL-cached)
         try:
             out["shards"] = routers[-1].health_summary()
         except Exception as e:  # noqa: BLE001 — health must not 500
             out["shards"] = {"error": repr(e)}
+    scalers = _live(_autoscalers)
+    if scalers:
+        try:
+            out["autoscaler"] = scalers[-1].snapshot()
+        except Exception as e:  # noqa: BLE001 — health must not 500
+            out["autoscaler"] = {"error": repr(e)}
     if out["frontends"]:
         latest = out["frontends"][-1]
         for key in ("breaker", "ladder", "queue_depth", "cache",

@@ -4,14 +4,15 @@ the coalescing scheduler, the exact-hit result cache, the swap to another
 generation of a live index in one process
 (`ServingFrontend.reload_generation`), and the soak and sweep that drive
 them (see frontend.py); across processes, the doc-range shard workers and
-their ShardSet (shardset.py), the scatter-gather Router with its exact
+their elastic ShardSet (shardset.py), the autoscaler that grows and
+drains it (autoscale.py), the scatter-gather Router with its exact
 merges (router.py), the rolling generation swap and the swap micro-bench
 (generation.py), the hot-residency hint (residency.py), the Zipf
-workload (workload.py) and the distributed chaos soak. Not ported: the
-autoscaler with the elastic ShardSet, and the ingest soak (ROADMAP
-6b-3)."""
+workload (workload.py), the distributed chaos soak and the ingest and
+serve soak."""
 
 from .admission import AdmissionController, Overloaded
+from .autoscale import AutoscaleConfig, Autoscaler, autoscale_enabled
 from .batching import BatchKey, CoalescingScheduler, batch_ladder
 from .breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
 from .frontend import (
@@ -44,6 +45,7 @@ from .soak import (
     make_queries,
     run_concurrency_sweep,
     run_distributed_soak,
+    run_ingest_soak,
     run_soak,
 )
 from .workload import Workload, resolve_workload
@@ -56,7 +58,9 @@ __all__ = [
     "LEVEL_FULL", "LEVEL_NO_RERANK", "LEVEL_HOT_ONLY", "LEVEL_SHED",
     "ResultCache", "cache_counters",
     "run_soak", "make_queries", "run_concurrency_sweep",
-    "run_distributed_soak", "Workload", "resolve_workload",
+    "run_distributed_soak", "run_ingest_soak", "Workload",
+    "resolve_workload",
+    "Autoscaler", "AutoscaleConfig", "autoscale_enabled",
     "Router", "RouterConfig",
     "DEFAULT_CHAOS_PLAN",
     "ShardSet", "WorkerHandle", "serve_worker", "rpc_post",

@@ -129,6 +129,19 @@ class CircuitBreaker:
                 self._state = OPEN
                 self._opened_at = self._clock()
 
+    def reset(self) -> None:
+        """Back to a pristine CLOSED: the hook a grow that reuses a
+        retired slot calls, since the slot's new worker is another
+        process on another port and must not inherit its predecessor's
+        open state, failure run or probe slot. In place, so a request
+        that resolved this breaker before the change still records its
+        verdict where later requests read it; the opened and probe counts
+        stay (they tell the slot's history)."""
+        with self._lock:
+            self._state = CLOSED
+            self._consecutive = 0
+            self._probe_inflight = False
+
     def snapshot(self) -> dict:
         with self._lock:
             return {

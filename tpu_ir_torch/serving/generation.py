@@ -37,7 +37,9 @@ def rolling_swap(shardset, generation: int | None = None, *,
     a respawn brings it back on the new generation, which is pinned on
     the ShardSet before the walk and again after it. When the grid's
     membership epoch moves during a pass, the grid is walked again
-    (confirmed addresses skipped) until a pass sees it unchanged.
+    (confirmed addresses skipped) until a pass sees it unchanged, so a
+    replica that grew into the grid mid-walk is swapped too. A draining
+    or retired replica is not walked: it is leaving the fleet.
     Returns the generation, the (shard, replica, addr) swapped and
     failed, the passes and the wall seconds."""
     t0 = time.perf_counter()
@@ -52,9 +54,19 @@ def rolling_swap(shardset, generation: int | None = None, *,
     while True:
         rounds += 1
         epoch_before = shardset.epoch()
-        for shard, row in enumerate(shardset.addresses()):
+        grid = shardset.addresses()
+        life = shardset.lifecycle()
+        for shard, row in enumerate(grid):
             for replica, addr in enumerate(row):
                 if not addr or addr in confirmed:
+                    continue
+                # the two views are read apart: a slot grown in between
+                # has no state yet, and is walked
+                st = (life[shard][replica] if shard < len(life)
+                      and replica < len(life[shard]) else None)
+                if st in ("draining", "retired"):
+                    # a draining worker only finishes what it holds; a
+                    # retired slot has no process
                     continue
                 payload = ({} if generation is None
                            else {"generation": int(generation)})

@@ -35,11 +35,18 @@ cosine score from the shard that owns it. A request goes
 - **The result cache.** An exact-hit cache in front of admission: a hit
   dials no worker and arms no hedge timer.
 
+- **Membership.** On a ShardSet the router dials `dispatchable()`, so a
+  replica that is warming, draining or retired gets no new attempt; an
+  answer from one that went draining mid-call is still used, but its
+  round trip feeds no hedge estimate (a drain is a membership change,
+  not a slow peer). `reset_breaker` clears a reused slot's breaker.
+
 Telemetry: the `router.*` counters, the `router.request`,
-`router.shard_rtt` and `router.merge` histograms (obs/registry.py), and
-the aggregated /healthz (obs/server.py::register_router). Not ported
-(ROADMAP item 8): the distributed trace each request mints, the SLO
-records and the query log.
+`router.shard_rtt` and `router.merge` histograms (obs/registry.py), one
+SLO record a finished request (obs/disttrace.py::slo_record: a cache hit,
+either shed, a served answer), and the aggregated /healthz
+(obs/server.py::register_router). Not ported (ROADMAP item 8): the
+distributed trace each request mints, and the query log.
 """
 
 from __future__ import annotations
@@ -312,10 +319,31 @@ class Router:
             return False, repr(e)
         rtt = time.perf_counter() - t0
         breaker.record_success(is_probe=is_probe)
-        self._stats[shard].observe(rtt)
+        # a replica that went draining while this call was in flight still
+        # answers (drain-not-drop), but its round trip must not feed the
+        # hedge estimate
+        if not self._replica_draining(shard, replica):
+            self._stats[shard].observe(rtt)
         if obs.enabled():
             get_registry().observe("router.shard_rtt", rtt)
         return True, data
+
+    def _replica_draining(self, shard: int, replica: int) -> bool:
+        if self._lifecycle_fn is None:
+            return False
+        try:
+            return self._lifecycle_fn()[shard][replica] == "draining"
+        except (IndexError, TypeError):
+            return False
+
+    def reset_breaker(self, shard: int, replica: int) -> None:
+        """Forget one replica's breaker history: a grow that reuses a
+        retired slot calls this, so the fresh worker does not inherit its
+        predecessor's state (CircuitBreaker.reset, in place)."""
+        with self._breakers_lock:
+            b = self._breakers.get((shard, replica))
+        if b is not None:
+            b.reset()
 
     def _replica_order(self, shard: int, avail: list) -> list:
         """The try order over the addressed replicas (`avail`, grid
@@ -485,6 +513,9 @@ class Router:
                 res = self._from_cache(entry, return_docids=return_docids)
                 self._observe("router.request", t0)
                 self._count_served(res)
+                disttrace.slo_record(
+                    res.level, (time.perf_counter() - t0) * 1e3,
+                    classification=self.classify(res))
                 return res
         with obs_trace("request", scoring=scoring, router=True) as root:
             try:
@@ -496,6 +527,9 @@ class Router:
                 get_registry().incr("router.shed")
                 self._observe("router.request", t0)
                 root.set("shed", True)
+                disttrace.slo_record(
+                    "shed", (time.perf_counter() - t0) * 1e3,
+                    ok=False, classification="shed")
                 raise
             try:
                 res = self._route(text, k=k, scoring=scoring,
@@ -506,6 +540,9 @@ class Router:
                 get_registry().incr("router.shed")
                 self._observe("router.request", t0)
                 root.set("shed", True)
+                disttrace.slo_record(
+                    "shed", (time.perf_counter() - t0) * 1e3,
+                    ok=False, classification="shed")
                 raise
             finally:
                 admit.__exit__(None, None, None)
@@ -532,6 +569,8 @@ class Router:
             res[:] = [(mapping.get_docid(int(d)), s) for d, s in res]
         self._observe("router.request", t0)
         self._count_served(res)
+        disttrace.slo_record(res.level, (time.perf_counter() - t0) * 1e3,
+                             classification=self.classify(res))
         return res
 
     def _cache_key(self, text: str, *, k: int, scoring: str,
@@ -707,8 +746,10 @@ class Router:
     def health_summary(self) -> dict:
         """The fleet view /healthz serves, polled at most once every
         TPU_IR_ROUTER_HEALTH_TTL_S: per shard, each replica's address,
-        breaker, lifecycle state and its worker's own /healthz identity
-        (shard, replica, generations, doc range, kernel launches)."""
+        breaker, lifecycle state (warming, active, draining or retired)
+        and its worker's own /healthz identity (shard, replica,
+        generations, doc range, kernel launches; a retired replica reads
+        down)."""
         with self._health_lock:
             cached = self._health_cache
             if (cached is not None

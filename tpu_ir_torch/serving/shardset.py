@@ -1,6 +1,5 @@
-"""Shard workers of the scatter-gather serving tier (the port of
-`tpu_ir/serving/shardset.py`, less the elastic membership that comes with
-the autoscaler).
+"""Shard workers of the scatter-gather serving tier and their elastic
+membership (the port of `tpu_ir/serving/shardset.py`).
 
 One index, S doc shards, R replicas a shard: every worker is a whole
 serving process (a Scorer and a ServingFrontend with admission, the
@@ -29,7 +28,9 @@ after the warm-up, SIGKILL-able and respawned with a bumped spawn
 generation. A worker exits when its stdin closes, so a parent that dies
 leaves no worker serving. Every worker runs on its config's `device`
 (the card unless it says "cpu"); on one card the workers are processes
-sharing it.
+sharing it. The grid is elastic: `ShardSet.grow` adds one warm replica a
+shard and `retire_replica` drains one away (serving/autoscale.py drives
+both).
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ import time
 logger = logging.getLogger(__name__)
 
 READY_POLL_S = 0.05
+# a grown worker warms up at this nice level, so its start steals less of
+# the host from the serving it is meant to relieve; full priority comes
+# back once its ready file lands (that needs CAP_SYS_NICE: without it the
+# worker serves niced, still warm)
+GROW_NICE = 5
 # the directory that holds the tpu_ir_torch package: a worker imports it
 # from there whatever the parent's working directory
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -479,17 +485,29 @@ class WorkerHandle:
 
 
 class ShardSet:
-    """Spawn and manage the S x R grid of worker subprocesses.
+    """Spawn and manage the S x R grid of worker subprocesses, whose
+    membership changes under traffic.
 
     The grid changes under one lock: `kill` SIGKILLs a replica (its slot
     keeps the stale address, as a lost host looks to a caller) and
     `respawn` brings it back with a bumped spawn generation. Every slot
-    has a lifecycle state (warming, then active once its ready file
-    landed) and every transition bumps the membership `epoch`, which
-    rolling_swap re-reads to walk a grid that changed under it again.
-    `addresses()` is every slot's address, `dispatchable()` only the
-    active ones'. Adding and retiring replicas (the autoscaler's) is not
-    ported yet."""
+    has a lifecycle state (warming, active, draining, retired) and every
+    transition bumps the membership `epoch`, which rolling_swap re-reads
+    to walk a grid that changed under it again. `addresses()` is every
+    slot's address, `dispatchable()` only the active ones': the router
+    dials those, which gives the two contracts of the elastic fleet:
+
+    - **warm start**: a grown replica is `warming` until its ready file
+      lands, and the worker writes that file only after its shape
+      warm-up and the residency pre-warm, so no routed request reaches a
+      cold process;
+    - **drain-not-drop**: a retiring replica goes `draining` (new
+      fan-outs leave it out at once) but keeps serving; retire polls its
+      admitted requests to zero before SIGTERM, so requests already sent
+      to it complete. An attempt from a grid read before the drain that
+      lands after the poll fails over at the router and is answered or
+      shed, never lost: shed + served == submitted holds across every
+      membership change."""
 
     def __init__(self, index_dir: str, *, shards: int, replicas: int = 1,
                  layout: str = "sparse", deadline_s: float | None = None,
@@ -522,6 +540,9 @@ class ShardSet:
         self._state: list[list[str]] = [
             ["warming"] * replicas for _ in range(shards)]
         self._epoch = 0
+        # ("up" | "down", shard, replica, epoch): a replica that entered
+        # or left the dispatch grid
+        self._events: list[tuple] = []
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -560,7 +581,8 @@ class ShardSet:
         """The worker's stdout and stderr, every incarnation appended."""
         return os.path.join(self.rundir, f"worker-{shard}-{replica}.log")
 
-    def _spawn(self, shard: int, replica: int, *, generation: int):
+    def _spawn(self, shard: int, replica: int, *, generation: int,
+               nice: int = 0):
         cfg_path, ready_path = self._cfg_paths(shard, replica, generation)
         # a reused slot never reads an earlier incarnation's ready file
         if os.path.exists(ready_path):
@@ -588,6 +610,13 @@ class ShardSet:
                 env=env)
         finally:
             log.close()   # the child holds its own descriptor
+        if nice:
+            # set from here, not in a pre-exec hook (a fork of a threaded
+            # parent); the child's first instants run at the parent's
+            try:
+                os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
+            except OSError:
+                pass
         return proc, ready_path
 
     def _wait_ready(self, shard: int, replica: int, generation: int,
@@ -647,17 +676,210 @@ class ShardSet:
         with self._lock:
             self.index_generation = generation
 
+    # -- elastic membership --------------------------------------------------
+
+    def grow(self) -> list:
+        """Add one warm replica to every shard: spawn them at once (at
+        GROW_NICE), wait for every ready file (written after the
+        worker's warm-up and residency pre-warm), and only then publish
+        each handle into the dispatch grid. Returns the [(shard, replica)]
+        slots added. A shard's lowest retired slot is reused, its spawn
+        generation bumped past the retiree's, so a breathing workload does
+        not widen the grid without bound. If the index generation pinned
+        for spawns moved while a worker loaded (a rolling swap during the
+        grow), the worker reloads onto it before it is published. A spawn
+        that fails stops this grow's other workers, marks their slots
+        retired and raises."""
+        from ..obs import get_registry
+
+        t0 = time.perf_counter()
+        slots: list = []
+        with self._lock:
+            for s in range(self.shards):
+                row, states = self._grid[s], self._state[s]
+                for r, st in enumerate(states):
+                    if st == "retired":
+                        gen = (row[r].generation + 1) if row[r] else 0
+                        break
+                else:
+                    r, gen = len(row), 0
+                    row.append(None)
+                    states.append("warming")
+                states[r] = "warming"
+                self._epoch += 1
+                slots.append((s, r, gen))
+        procs = [(s, r, g, self._spawn(s, r, generation=g,
+                                       nice=GROW_NICE))
+                 for s, r, g in slots]
+        deadline = time.monotonic() + self.spawn_timeout_s
+        added = []
+        try:
+            for s, r, g, (proc, ready_path) in procs:
+                handle = self._wait_ready(s, r, g, proc, ready_path,
+                                          deadline)
+                try:  # full priority before it takes traffic
+                    os.setpriority(os.PRIO_PROCESS, handle.pid, 0)
+                except (OSError, AttributeError):
+                    pass  # no CAP_SYS_NICE: it serves niced
+                with self._lock:
+                    pinned = self.index_generation
+                # the swap-during-scale gate: a worker that loaded the old
+                # pin while a rolling swap moved it reloads before it can
+                # serve one routed request
+                if pinned is not None \
+                        and pinned != self._worker_index_gen(handle):
+                    rpc_post(handle.addr, "reload", {"generation": pinned},
+                             timeout_s=self.spawn_timeout_s)
+                with self._lock:
+                    self._grid[s][r] = handle
+                    self._state[s][r] = "active"
+                    self._epoch += 1
+                    self._events.append(("up", s, r, self._epoch))
+                added.append((s, r))
+        except BaseException:
+            published = set(added)
+            for s, r, _g, (proc, _) in procs:
+                if (s, r) in published:
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=30.0)
+                with self._lock:
+                    self._state[s][r] = "retired"
+                    self._epoch += 1
+            raise
+        finally:
+            reg = get_registry()
+            reg.incr("scale.up", len(added))
+        reg.observe("scale.warmup_ms", time.perf_counter() - t0)
+        return added
+
+    def _worker_index_gen(self, handle) -> int | None:
+        """The index generation a just-readied worker loaded (None when
+        its /healthz cannot be read: the gate then reloads it)."""
+        try:
+            w = get_worker_health(handle.addr, 2.0).get("worker") or {}
+            g = w.get("index_generation")
+            return None if g is None else int(g)
+        except Exception:  # noqa: BLE001 — unreadable: reload to be sure
+            return None
+
+    def begin_drain(self, shard: int, replica: int) -> WorkerHandle:
+        """Turn one active replica `draining`: it leaves dispatchable()
+        (the router stops dialing it) but serves what it already holds.
+        Returns its handle."""
+        with self._lock:
+            h = self._grid[shard][replica]
+            st = self._state[shard][replica]
+            if h is None or st != "active":
+                raise RuntimeError(
+                    f"cannot drain {shard}/{replica}: state={st}")
+            self._state[shard][replica] = "draining"
+            self._epoch += 1
+        return h
+
+    def retire_replica(self, shard: int, replica: int, *,
+                       drain_timeout_s: float = 30.0) -> dict:
+        """Drain-not-drop retirement: begin_drain (dispatch stops at once),
+        poll the worker's admitted requests (`in_flight` + `queued` of its
+        /healthz) until two reads in a row find none, then SIGTERM it and
+        mark the slot retired. A replica SIGKILLed during the drain ends
+        the poll early (`killed_mid_drain`): its in-flight requests fail
+        over at the router and are still answered or shed (a health read
+        that fails is a kill when the process exits within 2 s, else an
+        unreachable worker with nothing left to watch). Returns the drain
+        report."""
+        from ..obs import get_registry
+
+        t0 = time.perf_counter()
+        with self._lock:
+            already_draining = self._state[shard][replica] == "draining"
+            h = self._grid[shard][replica] if already_draining else None
+        if h is None:
+            h = self.begin_drain(shard, replica)
+        inflight_peak = 0
+        zeros = 0
+        deadline = time.monotonic() + max(drain_timeout_s, 0.1)
+        killed_mid_drain = False
+        settled = False
+        while time.monotonic() < deadline:
+            if not h.alive:
+                killed_mid_drain = True
+                break
+            try:
+                w = get_worker_health(h.addr, 1.0).get("worker") or {}
+                admitted = (int(w.get("in_flight", 0))
+                            + int(w.get("queued", 0)))
+            except Exception:  # noqa: BLE001
+                # a read that fails while the worker dies: give its exit a
+                # moment (a killer's wait() holds the Popen lock, and
+                # poll() reads a dying process as alive until then)
+                try:
+                    h.proc.wait(timeout=2.0)
+                    killed_mid_drain = True
+                except subprocess.TimeoutExpired:
+                    settled = True  # unreachable: nothing left to watch
+                break
+            inflight_peak = max(inflight_peak, admitted)
+            if admitted == 0:
+                zeros += 1
+                if zeros >= 2:
+                    settled = True
+                    break
+            else:
+                zeros = 0
+            time.sleep(0.05)
+        drained_clean = settled and not killed_mid_drain
+        if h.proc is not None and h.proc.poll() is None:
+            h.proc.terminate()
+            try:
+                h.proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                h.proc.kill()
+                h.proc.wait(timeout=10.0)
+        with self._lock:
+            self._state[shard][replica] = "retired"
+            self._epoch += 1
+            self._events.append(("down", shard, replica, self._epoch))
+        reg = get_registry()
+        reg.incr("scale.down")
+        reg.incr("scale.drain_inflight", inflight_peak)
+        drain_s = time.perf_counter() - t0
+        reg.observe("scale.drain_ms", drain_s)
+        return {"shard": shard, "replica": replica,
+                "drain_s": round(drain_s, 3),
+                "inflight_peak": inflight_peak,
+                "drained_clean": drained_clean,
+                "killed_mid_drain": killed_mid_drain}
+
+    def active_replicas(self, shard: int | None = None) -> int:
+        """Active replicas of one shard, or the least over the shards
+        (the fleet's replication, the autoscaler's clamp) when None."""
+        with self._lock:
+            counts = [sum(1 for st in states if st == "active")
+                      for states in self._state]
+        if shard is not None:
+            return counts[shard]
+        return min(counts) if counts else 0
+
     # -- membership views ----------------------------------------------------
 
     def epoch(self) -> int:
-        """Bumped on every grid or state change."""
+        """Bumped on every grid or state change (a publish, a respawn, a
+        drain's start, a retirement)."""
         with self._lock:
             return self._epoch
 
     def lifecycle(self) -> list:
-        """[shard][replica] -> lifecycle state."""
+        """[shard][replica] -> warming, active, draining or retired."""
         with self._lock:
             return [list(row) for row in self._state]
+
+    def events(self) -> list:
+        """The membership log: ("up" | "down", shard, replica, epoch) for
+        every replica that entered or left the dispatch grid."""
+        with self._lock:
+            return list(self._events)
 
     def dispatchable(self) -> list:
         """addresses() with every slot that is not active set to None."""
@@ -667,7 +889,8 @@ class ShardSet:
                     for row, states in zip(self._grid, self._state)]
 
     def addresses(self) -> list:
-        """[shard][replica] -> "host:port", killed slots included."""
+        """[shard][replica] -> "host:port", killed, draining and retired
+        slots included (the router dials dispatchable())."""
         with self._lock:
             return [[h.addr if h else None for h in row]
                     for row in self._grid]

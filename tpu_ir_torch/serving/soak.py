@@ -17,8 +17,9 @@ the serving invariants a single request cannot show:
 `run_distributed_soak` drives the same kind of traffic through a Router
 over S x R shard worker subprocesses while a chaos controller SIGKILLs a
 replica, then a whole shard, then respawns them (and, with `upgrade_at`,
-rolls the fleet onto a new generation): the invariants then hold across
-processes, partial answers included.
+rolls the fleet onto a new generation; with `autoscale` or `scale_plan`,
+grows and drains it): the invariants then hold across processes and
+membership changes, partial answers included.
 
 `run_concurrency_sweep` measures closed-loop clients at each concurrency
 level through the coalescing frontend: latency percentiles, q/s, batch
@@ -27,18 +28,22 @@ occupancy and the shapes dispatched outside the warmed set.
 The traffic is `make_queries`' uniform draw or a serving/workload.py
 model (`workload=`: "zipf", a spec dict or a Workload).
 
-`ingest_feed_main` is the ingest child that the live index's SIGKILL
-crash matrix spawns (`_spawn_feeder`): it feeds `_feed_doc`s, or an ops
-file's adds, updates and deletes, through an IngestWriter and dies by
-SIGKILL at a fault site.
+`run_ingest_soak` serves a live index while a child feeds it, SIGKILLs
+the child mid-feed and lets a successor recover: no acknowledged write
+lost, no stale answer. `ingest_feed_main` is that child (and the one the
+live index's SIGKILL crash matrix spawns, `_spawn_feeder`): it feeds
+`_feed_doc`s, or an ops file's adds, updates and deletes, through an
+IngestWriter and dies by SIGKILL at a fault site.
 
-Not ported: `run_ingest_soak` (ROADMAP 6b-3), and the soaks' progress
-jobs, flight records, distributed traces and SLO records (item 8).
+Not ported (ROADMAP item 8): the soaks' progress jobs and flight records,
+the distributed soak's trace join and its `slo` section, and the
+forecaster the JAX soak drives for a forecast-armed autoscaler.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import random
 import threading
 import time
@@ -50,6 +55,11 @@ from .admission import Overloaded
 from .frontend import ServingConfig, ServingFrontend
 
 logger = logging.getLogger(__name__)
+
+# the share of the requests answered before the soak's autoscaler ticks:
+# the first requests pay first-dispatch costs that inflate occupancy for a
+# moment, which is not the pressure it should grow on
+_SCALE_WARMUP_FRAC = 0.05
 
 # the chaos plan: hangs long enough to trip any sane deadline, and
 # sporadic device losses, both at the per-block score dispatch, so
@@ -337,8 +347,18 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
     later than one wave of in-flight requests after the walk, and the
     recovery probes must all be on B.
 
-    `autoscale` and `scale_plan` (the elastic fleet) are not ported yet
-    (ROADMAP 6b-3) and raise."""
+    `autoscale` (True, or an AutoscaleConfig) runs an Autoscaler over the
+    fleet from its own loop (True: from `replicas` to `replicas + 1`,
+    cooldown 0.5 s, up at 0.6, down at 0.15, 3 and 25 ticks in a row,
+    15 s drains), after `_SCALE_WARMUP_FRAC` of the traffic. `scale_plan`
+    scripts it: {"up_at": f} grows one replica a shard (in a thread: the
+    controller keeps ticking), {"down_at": f} retires each shard's
+    highest active replica (never its last), with "kill_during_drain"
+    SIGKILLing it while its drain runs. The report's `scale` section
+    holds the membership log's length, the epoch, the lifecycle, the
+    drains, the replicas provisioned against the demand seen, and with
+    an autoscaler its snapshot and the first scale-up's time, reason and
+    lead on the workload's first crest."""
     from ..index import segments as seg
     from ..obs import get_registry
     from ..search.layout import shard_doc_ranges
@@ -347,9 +367,6 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
     from .shardset import ShardSet
     from .workload import resolve_workload
 
-    if autoscale or scale_plan:
-        raise ValueError("autoscale= and scale_plan= (the elastic fleet) "
-                         "are not ported yet: ROADMAP item 6b-3")
     if faults.active() is not None:
         raise RuntimeError("a fault plan is already installed")
     if upgrade_at is not None and not seg.is_live(index_dir):
@@ -437,15 +454,89 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
             cfg_r = _replace(cfg_r, cache_entries=cache_entries)
         router = Router(index_dir, shardset, cfg_r)
         counters_before = router.stats()
+        scaler = None
+        if autoscale:
+            from .autoscale import AutoscaleConfig, Autoscaler
+
+            a_cfg = (autoscale if isinstance(autoscale, AutoscaleConfig)
+                     else AutoscaleConfig(
+                         min_replicas=replicas, max_replicas=replicas + 1,
+                         cooldown_s=0.5, up_occupancy=0.6,
+                         down_occupancy=0.15, sustain_up=3, sustain_down=25,
+                         drain_timeout_s=15.0))
+            scaler = Autoscaler(shardset, router, a_cfg)
         try:
-            # -- the chaos and upgrade controller --------------------------
+            # -- the chaos, upgrade and scale controller -------------------
             killed: list = []
             swap_state = {"done_at": None, "result": None}
             swap_complete = threading.Event()
+            scale_state: dict = {"drains": [], "samples": [], "peaks": {}}
+            side_threads: list = []
+            # the pacing wave's crests (arrivals densest), as fractions of
+            # the requests: where the trough-phased wave peaks
+            crest_fracs: list = []
+            if wl is not None and getattr(wl, "burst", 0.0) > 0:
+                from .workload import BURST_CYCLES
+
+                crest_fracs = [(k + 0.5) / BURST_CYCLES
+                               for k in range(int(BURST_CYCLES))]
+
+            def retire(s_: int, r_: int) -> None:
+                try:
+                    scale_state["drains"].append(shardset.retire_replica(
+                        s_, r_, drain_timeout_s=15.0))
+                except Exception:  # noqa: BLE001 — a kill racing the
+                    logger.exception("scale-down retire")  # retire
+
+            def grow() -> None:
+                try:
+                    for s_, r_ in shardset.grow():
+                        # a reused slot starts with a clean breaker
+                        router.reset_breaker(s_, r_)
+                except Exception:  # noqa: BLE001
+                    logger.exception("scale-up grow")
+
+            def scripted_scale(frac: float, fired: dict) -> None:
+                up_at = scale_plan.get("up_at")
+                down_at = scale_plan.get("down_at")
+                if up_at is not None and not fired["scale_up"] \
+                        and frac >= up_at:
+                    fired["scale_up"] = True
+                    # a grow blocks on whole worker starts: in a thread,
+                    # so down_at still fires while the traffic runs
+                    th = threading.Thread(target=grow, name="soak-grow",
+                                          daemon=True)
+                    th.start()
+                    side_threads.append(th)
+                if down_at is not None and not fired["scale_down"] \
+                        and frac >= down_at:
+                    fired["scale_down"] = True
+                    for s_, states in enumerate(shardset.lifecycle()):
+                        active_rs = [r for r, st in enumerate(states)
+                                     if st == "active"]
+                        if len(active_rs) < 2:
+                            continue  # never drain a shard dark
+                        r_ = active_rs[-1]
+                        if not scale_plan.get("kill_during_drain"):
+                            retire(s_, r_)
+                            continue
+                        # the worst race, scripted: SIGKILL the replica
+                        # while its drain handshake runs
+                        th = threading.Thread(target=retire, args=(s_, r_),
+                                              name="soak-drain",
+                                              daemon=True)
+                        th.start()
+                        side_threads.append(th)
+                        for _ in range(200):
+                            if shardset.lifecycle()[s_][r_] == "draining":
+                                break
+                            time.sleep(0.005)
+                        shardset.kill(s_, r_)
 
             def chaos_controller():
                 fired = {"replica": False, "shard": False,
-                         "respawn": False, "upgrade": False}
+                         "respawn": False, "upgrade": False,
+                         "scale_up": False, "scale_down": False}
                 while not completed.is_set():
                     with progress_lock:
                         frac = progress[0] / max(len(reqs), 1)
@@ -491,8 +582,20 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                                 # even a failed walk releases the traffic
                                 # held back for after it
                                 swap_complete.set()
+                        if scale_plan:
+                            scripted_scale(frac, fired)
+                        # the wall time each pacing crest was reached:
+                        # what a scale-up's lead is measured against
+                        for pf in crest_fracs:
+                            if frac >= pf and pf not in scale_state["peaks"]:
+                                scale_state["peaks"][pf] = time.perf_counter()
                     except Exception:  # noqa: BLE001 — chaos must not
                         logger.exception("chaos controller")  # kill it
+                    # the provisioned-against-demand series behind
+                    # mean_replicas and overprovision_fraction
+                    scale_state["samples"].append(
+                        (shardset.active_replicas(),
+                         router.admission.in_flight()))
                     completed.wait(0.02)
                 # whatever is still dead comes back for the recovery
                 for s_, r_ in list(killed):
@@ -501,9 +604,35 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                     except Exception:  # noqa: BLE001
                         logger.exception("post-soak respawn")
 
+            def scaler_loop():
+                # its own loop: a scale-up blocks in grow() for whole
+                # worker starts, which must not stall the controller; the
+                # first up is stamped at the decision, not after the grow
+                while not completed.is_set():
+                    with progress_lock:
+                        frac = progress[0] / max(len(reqs), 1)
+                    if frac < _SCALE_WARMUP_FRAC:
+                        completed.wait(0.02)
+                        continue
+                    t_dec = time.perf_counter()
+                    try:
+                        dec = scaler.tick()
+                        if dec["action"] == "up" \
+                                and "first_up" not in scale_state:
+                            scale_state["first_up"] = (t_dec, dec["reason"],
+                                                       frac)
+                    except Exception:  # noqa: BLE001 — a failed spawn
+                        logger.exception("scaler tick")  # ends no loop
+                    completed.wait(0.02)
+
             ctrl = threading.Thread(target=chaos_controller,
                                     name="soak-chaos", daemon=True)
             ctrl.start()
+            if scaler is not None:
+                sctl = threading.Thread(target=scaler_loop,
+                                        name="soak-scaler", daemon=True)
+                sctl.start()
+                side_threads.append(sctl)
 
             def worker(i: int, r: dict) -> None:
                 if pacing_s:
@@ -558,6 +687,10 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                     [o for o in results if o is not None]),
                     cancel_futures=True)
                 ctrl.join(timeout=120.0)
+                for th in side_threads:
+                    # a drain must settle (clean or killed) before the
+                    # invariants are judged
+                    th.join(timeout=60.0)
             wall_s = time.perf_counter() - t0
 
             # -- the recovery probes (the fleet whole again): breakers
@@ -696,6 +829,8 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                 if latencies[i] is not None and wl is not None
                 and wl.is_peak(i / len(reqs))]
     report["burst_p99_ms"] = _p99_ms(peak_lat or served_lat)
+    if autoscale or scale_plan:
+        report["scale"] = _scale_section(shardset, scaler, scale_state, t0)
     if upgrade_at is not None:
         report["upgrade"] = {
             "generation_a": gen_a,
@@ -707,6 +842,44 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                 "router.mixed_generation", 0),
         }
     return report
+
+
+def _scale_section(shardset, scaler, state: dict, t0: float) -> dict:
+    """The distributed soak's `scale` report: the membership log's length,
+    the epoch and lifecycle, the drains, the controller's samples through
+    autoscale.utilization (a worker serves max_concurrency requests),
+    and with an autoscaler its snapshot and the first scale-up's time,
+    reason and request fraction, with its lead on the first pacing crest
+    (> 0: the fleet grew before the crest)."""
+    from .autoscale import utilization
+
+    samples = state["samples"]
+    mean_repl, over = utilization(samples, shardset.max_concurrency)
+    drains = state["drains"]
+    out = {
+        "events": len(shardset.events()),
+        "epoch": shardset.epoch(),
+        "lifecycle": shardset.lifecycle(),
+        "drains": drains,
+        "drained_clean": sum(1 for d in drains if d.get("drained_clean")),
+        "killed_mid_drain": sum(
+            1 for d in drains if d.get("killed_mid_drain")),
+        "mean_replicas": round(mean_repl, 3),
+        "overprovision_fraction": round(over, 4),
+        "ticks": len(samples),
+    }
+    if scaler is not None:
+        out["autoscaler"] = scaler.snapshot()
+    if state.get("first_up"):
+        t_up, reason, frac = state["first_up"]
+        out["first_up_s"] = round(t_up - t0, 3)
+        out["first_up_reason"] = reason
+        out["first_up_frac"] = round(frac, 4)
+        if state["peaks"]:
+            first_peak = min(state["peaks"].values())
+            out["first_peak_s"] = round(first_peak - t0, 3)
+            out["forecast_lead_s"] = round(first_peak - t_up, 3)
+    return out
 
 
 def _sweep_queries(scorer, n: int, seed: int) -> list[str]:
@@ -876,7 +1049,6 @@ def ingest_feed_main(argv=None) -> int:
     SystemExit(ingest_feed_main())" ...`."""
     import argparse
     import json
-    import os
     import signal
     import sys
 
@@ -945,7 +1117,6 @@ def _spawn_feeder(live_dir: str, ack_path: str, start: int = 0,
     working dir. Its output goes to files, not pipes: the parent polls,
     and a full pipe would wedge the child. Returns (the Popen, the
     stdout path, the stderr path)."""
-    import os
     import subprocess
     import sys
 
@@ -973,3 +1144,293 @@ def _spawn_feeder(live_dir: str, ack_path: str, start: int = 0,
     with open(out_path, "w") as out, open(err_path, "w") as err:
         proc = subprocess.Popen(cmd, env=env, stdout=out, stderr=err)
     return proc, out_path, err_path
+
+
+# ---------------------------------------------------------------------------
+# the ingest and serve soak
+# ---------------------------------------------------------------------------
+
+
+def _flush_ancestor(live, gen: int) -> dict | None:
+    """The nearest ancestor manifest of `gen` (itself included) whose
+    commit carried mutations (note flush or close): its `created` stamp is
+    when the docs a compacted generation serves became durable, the start
+    of the freshness clock."""
+    g = gen
+    while g is not None:
+        try:
+            m = live.manifest(g)
+        except (OSError, ValueError):
+            return None
+        if m.get("note") in ("flush", "close"):
+            return m
+        g = m.get("parent")
+    return None
+
+
+def run_ingest_soak(live_dir: str, *, docs: int = 48, base_docs: int = 12,
+                    buffer_docs: int = 6, compact_every: int = 12,
+                    kill_fraction: float = 0.5, num_shards: int = 2,
+                    probe_threads: int = 2, timeout_s: float = 300.0,
+                    device=None) -> dict:
+    """Ingest and serve at once, with a SIGKILL of the ingest process in
+    the middle of its feed and exactly-once recovery, on `device` (the
+    card unless "cpu"; the feeder children run on it too).
+
+    The parent seeds `base_docs` and compacts, then serves the live dir
+    through a ServingFrontend (`probe_threads` threads of real queries,
+    reloading onto each servable generation the children land) while a
+    child feeds `docs` documents through an IngestWriter, flushing and
+    compacting every `compact_every`, and appends each docid to an ack
+    file after the writer acknowledged it. At `kill_fraction` of the feed
+    (moved off a flush boundary, so the WAL holds a suffix) the parent
+    SIGKILLs the child; a successor takes over the stale lease, replays
+    the WAL and resumes after the last acknowledged doc (upserts make
+    the overlap idempotent).
+
+    Raises AssertionError on a breach of: no acknowledged write lost (each
+    acked docid live in the final generation); conservation (shed +
+    served + errors == submitted, errors 0); no stale answer (none from
+    a generation older than the one adopted before the request began);
+    the successor replayed (the kill landed mid-work). Reports
+    `ingest_docs_per_s` (acked docs over the feed's wall, recovery
+    included) and `freshness_lag_ms` (the median from a flush's commit to
+    the first answer from a generation holding it; it also sets the
+    `ingest.freshness_lag_ms` gauge /healthz reads). Beside `tpu_ir`'s
+    keys, the frontend's kernel launches as a worker's /healthz gives
+    them: `kernel_launches` from its load on, `warm_launches` those of
+    its load and warm-up and of each reload (a probe served while a
+    reload runs counts as the reload's, so the difference is a lower
+    bound of the probes' launches)."""
+    import json
+    import signal
+
+    import tpu_ir_torch
+
+    from ..index.ingest import IngestWriter
+    from ..index.segments import LiveIndex, is_live, latest_servable
+    from ..search.scorer import Scorer
+    from .shardset import WarmLaunches
+
+    device = "cuda" if device is None else str(device)
+    reg = obs.get_registry()
+    t_start = time.time()
+    if not is_live(live_dir):
+        # word-only: the soak measures durability and freshness, and
+        # cheap compactions keep the kill inside the feed
+        LiveIndex.create(live_dir, num_shards=num_shards, chargram_ks=())
+    with IngestWriter(live_dir, auto_merge=False, device=device) as w:
+        existing = w._docs()
+        for i in range(base_docs):
+            docid, text = _feed_doc(i)
+            if docid not in existing:
+                w.update(docid, text)
+        w.compact_all(note="ingest-soak base")
+    live = LiveIndex.open(live_dir)
+
+    warm = WarmLaunches()
+    launches0 = tpu_ir_torch.kernel_launches()
+    texts = [" ".join(_FEED_WORDS[j % len(_FEED_WORDS)]
+                      for j in range(q, q + 2)) for q in range(6)]
+    with warm.counting():
+        scorer = Scorer.load_generation(live_dir, layout="sparse",
+                                        device=device)
+        frontend = ServingFrontend(scorer, ServingConfig(
+            max_concurrency=4, max_queue=16))
+        for t in texts:   # the probes' shapes warm before the clock runs
+            frontend.search(t, k=5, scoring="bm25")
+    served_gen = scorer.generation
+
+    stop = threading.Event()
+    lock = threading.Lock()
+    counts = {"submitted": 0, "served": 0, "shed": 0, "errors": 0,
+              "stale": 0}
+    gen_seen: set = {served_gen}
+    adoptions: list[dict] = []   # {gen, flush_created, first_query}
+    adopted = {"gen": served_gen}
+    error_samples: list[str] = []
+
+    def probe(tid: int) -> None:
+        i = tid
+        while not stop.is_set():
+            with lock:
+                counts["submitted"] += 1
+                gen_before = adopted["gen"]
+            try:
+                res = frontend.search(texts[i % len(texts)], k=5,
+                                      scoring="bm25")
+                now = time.time()
+                with lock:
+                    counts["served"] += 1
+                    gen_seen.add(res.generation)
+                    if res.generation < gen_before:
+                        # older than the generation published before this
+                        # request began
+                        counts["stale"] += 1
+                    for a in adoptions:
+                        if (a["first_query"] is None
+                                and res.generation >= a["gen"]):
+                            a["first_query"] = now
+            except Overloaded:
+                with lock:
+                    counts["shed"] += 1
+            except Exception as e:  # noqa: BLE001 — counted
+                with lock:
+                    counts["errors"] += 1
+                    if len(error_samples) < 5:
+                        error_samples.append(repr(e))
+            i += probe_threads
+
+    def adopt_new_generations() -> None:
+        try:
+            _path, g = latest_servable(live_dir)
+        except (ValueError, OSError):
+            return
+        if g <= adopted["gen"]:
+            return
+        flush_m = _flush_ancestor(live, g)
+        with lock:
+            adoptions.append({
+                "gen": g, "flush_created": (flush_m or {}).get("created"),
+                "first_query": None})
+        with warm.counting():
+            frontend.reload_generation(generation=g)
+        with lock:
+            adopted["gen"] = g
+
+    ack_path = os.path.join(live_dir, "ingest-soak.ack")
+    open(ack_path, "w").close()
+
+    def acked_now() -> list:
+        with open(ack_path, encoding="utf-8") as f:
+            return [ln.strip() for ln in f if ln.strip()]
+
+    probes = [threading.Thread(target=probe, args=(t,),
+                               name=f"tpu-ir-ingest-soak-probe-{t}",
+                               daemon=True)
+              for t in range(probe_threads)]
+    kills = 0
+    child_summary = None
+    feed_deadline = time.time() + timeout_s
+    t_feed0 = time.time()
+    try:
+        for th in probes:
+            th.start()
+        kill_off = max(1, int(docs * kill_fraction))
+        # at an exact flush boundary the WAL suffix is empty and the
+        # recovery has nothing to replay
+        if buffer_docs > 1 and kill_off % buffer_docs == 0:
+            kill_off += 1
+        child, _out1, _err1 = _spawn_feeder(
+            live_dir, ack_path, base_docs, base_docs + docs, device=device,
+            buffer_docs=buffer_docs, compact_every=compact_every,
+            pause_s=0.02)
+        while child.poll() is None:
+            # polled much faster than the child feeds (pause_s), so the
+            # kill lands at most about one doc past kill_off
+            if len(acked_now()) >= kill_off and kills == 0:
+                os.kill(child.pid, signal.SIGKILL)
+                child.wait(timeout=30.0)
+                kills += 1
+                break
+            if time.time() > feed_deadline:
+                child.kill()
+                raise AssertionError("ingest soak: the feeder child "
+                                     "outran the soak's timeout")
+            adopt_new_generations()
+            time.sleep(0.005)
+
+        acked_mid = acked_now()
+        if kills:
+            # resume after the last acked doc; a doc the WAL held past it
+            # is upserted again, which changes nothing
+            resume_from = base_docs + len(acked_mid)
+            child2, out2, err2 = _spawn_feeder(
+                live_dir, ack_path, resume_from, base_docs + docs,
+                device=device, buffer_docs=buffer_docs,
+                compact_every=compact_every)
+            while child2.poll() is None:
+                if time.time() > feed_deadline:
+                    child2.kill()
+                    raise AssertionError("ingest soak: the recovery child "
+                                         "outran the soak's timeout")
+                adopt_new_generations()
+                time.sleep(0.02)
+            child2.wait()
+            with open(err2, encoding="utf-8") as f:
+                err_text = f.read()
+            assert child2.returncode == 0, (
+                f"recovery child failed rc={child2.returncode}: "
+                f"{err_text[-2000:]}")
+            with open(out2, encoding="utf-8") as f:
+                child_summary = json.loads(f.read().strip().splitlines()[-1])
+        t_feed1 = time.time()
+        # let the probes answer from the last generation
+        for _ in range(100):
+            adopt_new_generations()
+            with lock:
+                last = adoptions[-1] if adoptions else None
+            if last is None or last["first_query"] is not None:
+                break
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        for th in probes:
+            th.join(timeout=30.0)
+
+    acked = acked_now()
+    recovered = set(LiveIndex.open(live_dir).live_doc_map())
+    lost = [d for d in acked if d not in recovered]
+    expected = {_feed_doc(i)[0] for i in range(base_docs + docs)}
+    unexpected = sorted(recovered - expected)
+    with lock:
+        snap = dict(counts)
+        adopts = [dict(a) for a in adoptions]
+        gens = sorted(gen_seen)
+    lags = [(a["first_query"] - a["flush_created"]) * 1e3 for a in adopts
+            if a["first_query"] is not None
+            and a["flush_created"] is not None]
+    for lag in lags:
+        reg.observe("ingest.freshness", lag / 1e3)
+    lags.sort()
+    freshness_ms = lags[len(lags) // 2] if lags else -1.0
+    if lags:
+        reg.set_gauge("ingest.freshness_lag_ms", round(freshness_ms, 3))
+    feed_wall = max(t_feed1 - t_feed0, 1e-9)
+    split = warm.snapshot()
+    report = {
+        "docs": docs,
+        "base_docs": base_docs,
+        "acked": len(acked),
+        "recovered_docs": len(recovered),
+        "lost_acked": len(lost),
+        "unexpected_docs": unexpected[:5],
+        "kills": kills,
+        "child_replayed": (child_summary or {}).get("replayed"),
+        "lease_takeover": bool(((child_summary or {}).get("lease")
+                                or {}).get("taken_over")),
+        "feed_wall_s": round(feed_wall, 3),
+        "ingest_docs_per_s": round(len(acked) / feed_wall, 2),
+        "freshness_lag_ms": round(freshness_ms, 3),
+        "freshness_samples": len(lags),
+        "swaps": len(adopts),
+        "generations_seen": gens,
+        **snap,
+        "error_samples": error_samples,
+        "wall_s": round(time.time() - t_start, 3),
+        "kernel_launches": {n: v - launches0.get(n, 0) for n, v
+                            in split["kernel_launches"].items()},
+        "warm_launches": split["warm_launches"],
+    }
+    conserved = (snap["served"] + snap["shed"] + snap["errors"]
+                 == snap["submitted"])
+    if (lost or unexpected or not conserved or snap["errors"]
+            or snap["stale"]
+            or (kills and not (child_summary or {}).get("replayed"))):
+        raise AssertionError(
+            f"ingest soak invariant breach: lost_acked={len(lost)} "
+            f"unexpected={unexpected[:5]} conserved={conserved} "
+            f"errors={snap['errors']} stale={snap['stale']} "
+            f"replayed={(child_summary or {}).get('replayed')} "
+            f"samples={error_samples}")
+    return report
