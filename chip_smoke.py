@@ -209,7 +209,19 @@ code:
               and bitwise A's top-10 in this process (routed q/s, the
               request's p50 and p99, the router.request, router.shard_rtt
               and router.merge histograms, hedges fired and won a
-              request); 64 texts through the router's two-phase rerank
+              request), every answer's distributed trace stitched whole
+              (one root, a verdict on every attempt, each contributing
+              shard's worker request and kernel spans); before that pass
+              the 512 TF-IDF texts from 8 clients six times on the
+              whole fleet, traced and with this process's tracing off
+              (the control; the workers keep tracing) in turns (q/s and
+              router.request p50 of each, their medians, every answer
+              bitwise A's top-10), the routed request's time attributed
+              from the traced answers' stitched traces (the root, its
+              admission wait, the critical attempt, the worker's request
+              and its admission wait, dispatch and kernel spans, the
+              wire, the router's remainder; p50, p99 and share of the
+              root; every span nested in its parent within 1 ms); 32 texts through the router's two-phase rerank
               bitwise this process's rerank of 100; rolling_swap to B
               under 4 threads probing through the Router: every answer
               one generation's, full ones bitwise its top-10, partial
@@ -267,9 +279,14 @@ code:
               a whole shard, then the respawn) and a rolling swap to a
               generation B at 60% of the answers: conservation, no error
               or deadlock, partial answers none mismatched, no full
-              mismatch, 3 respawns, every recovery probe full on B, the
-              workers' dense_score launches (read from this process's
-              /healthz, the router's fleet block) above 0; then
+              mismatch, 3 respawns, every recovery probe full on B, every
+              served answer's trace stitched in the right shape and none
+              of the tail's missing, the trace bookkeeping within 5% of a
+              mean request (1% with tracing off), every served request in
+              the SLO windows, the workers' dense_score launches (read
+              from this process's /healthz, the router's fleet block, a
+              lower bound: a request served while a reload warms counts
+              as the warm-up's) above 0; then
               `elastic_soak`, its own line: run_distributed_soak on that
               dir again, 2 x 2 dense workers, no chaos, a rolling swap to
               another generation at 25% and the scale plan: a grow at
@@ -285,7 +302,9 @@ code:
               replaying the WAL): no acknowledged write lost, no stale
               answer, a replayed successor; docs/s, the freshness lag,
               and the in-process frontend's kernel launches over its
-              probes, its load's, warm-up's and reloads' left out;
+              probes, its load's, warm-up's and reloads' left out (a
+              lower bound: a probe served while a reload warms counts as
+              the reload's);
 20. prox      ref and wiki100k (their positions indexes): the first 500
               uniform queries as texts through search_batch(rerank=1,000,
               prox=True): q/s and the launches of stage 1 and of the
@@ -322,7 +341,7 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
               `degraded`, and one degraded verdict in each shared batch);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
-              150 requests a level, BM25 and TF-IDF, twice each:
+              100 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
               `unwarmed` (must be 0), and the repeats' spread; then one
               request's latency past a 0.25 s deadline beside the open
@@ -2125,8 +2144,9 @@ WILDCARD_QUERIES = 125          # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
                                 # before the live phases, 500 before the
                                 # shard workers, 250 before the router)
-EXPANSION_SAMPLE = 80          # patterns of a mix held against the oracles
-                               # (200 before the run outgrew its time)
+EXPANSION_SAMPLE = 40          # patterns of a mix held against the oracles
+                               # (200 before the run outgrew its time, 80
+                               # before the routed attribution passes)
 # the questions that raised on a char-gram index before wildcard search
 QUEUE3_QUESTIONS = ("how do I sort a list?", "thread*", "pythn~")
 KGRAM_QUERIES = 250            # two- and three-token texts on the k = 2
@@ -2540,10 +2560,11 @@ FRONTEND_TEXTS = 16              # query texts of the coalesced == solo check
 SOAK_THREADS = 8
 SOAK_QUERIES = 240               # (480 before the run outgrew its time)
 SWEEP_LEVELS = (1, 4, 16)
-SWEEP_QUERIES = 150              # per level (2,000 before the merge, warm
+SWEEP_QUERIES = 100              # per level (2,000 before the merge, warm
                                  # and doctor phases paid for their time,
                                  # 500 before the shard workers, 250 before
-                                 # the router)
+                                 # the router, 150 before the routed
+                                 # attribution passes)
 SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
 
@@ -4271,9 +4292,12 @@ SHARD_WORKERS = 2               # doc shards of the shards phase
 SHARD_REPLICAS = 2              # replicas a shard (failover and hedging)
 SHARD_CLIENTS = 8               # client threads of its routed traffic
 SHARD_TEXTS = 512               # routed texts a scoring
+SHARD_TRACE_PASSES = 3          # traced and untraced passes of the TF-IDF
+                                # texts each, alternating (medians)
 SHARD_KILL_AT = 0.3             # share of the routed texts answered when
 #                                 replica (0, 1) is SIGKILLed
-SHARD_RERANK_TEXTS = 64         # texts through the rerank's two phases
+SHARD_RERANK_TEXTS = 32         # texts through the rerank's two phases (64
+#                                 before the routed attribution passes)
 SHARD_RERANK = 100              # the rerank's candidates
 SHARD_PROBE_TEXTS = 64          # BM25 texts the probes send across the walk
 SHARD_SOLO_RPCS = 32            # one-term texts sent by one client alone
@@ -4377,16 +4401,168 @@ def nice_of(pid: int) -> int:
         return int(f.read().rsplit(")", 1)[1].split()[16])
 
 
+# the parts of a routed request's time, from its stitched trace
+ATTRIBUTION_PARTS = ("request", "admission_wait", "attempt",
+                     "worker_request", "worker_admission_wait", "dispatch",
+                     "kernel", "wire", "remainder")
+ATTRIBUTION_SLACK_MS = 1.0      # how far a nested span may pass its parent
+# attempts the harvest waited for: their duration ends inside the root
+ATTEMPT_HARVESTED = ("won", "lost", "failed")
+
+
+def trace_attribution(st: dict, res) -> dict:
+    """One routed request's time from its stitched trace (disttrace.stitch)
+    and its answer `res` (shards_ok, hedges), in ms: the root `request`;
+    its `admission_wait`; the critical attempt, the longest winning
+    `rpc.search` over the shards in `res.shards_ok` (a hedge when the
+    hedge won; a failed or lost attempt is never it); inside it the
+    worker's own `request` span and the `admission_wait`, `dispatch` and
+    `kernel` spans under that (each summed); the wire, the attempt less
+    the worker's request (HTTP, JSON, the pool and the socket); the
+    router's remainder, the root less the admission wait and the critical
+    attempt (the merge, the waits in the pool, the failed attempts before
+    a failover). With the attempts counted, the failed ones, whether the
+    critical one was a hedge, and the shards that were tried but did not
+    answer. `problems` lists what makes the answer unsound, and the parts
+    are filled only when it is empty: the routed soak's shape rule
+    (soak._trace_shape_ok) broken, a root that is not the router's
+    `request`, a contributing shard's winning attempt without exactly
+    one worker `request` span under it or without a `kernel` span in
+    that, and spans that do not nest within ATTRIBUTION_SLACK_MS: every
+    attempt starting inside the root and, once harvested, ending inside
+    it; the worker's admission wait and dispatch inside its request, the
+    kernels inside the dispatch, the worker's request inside the attempt
+    and the admission wait and attempt inside the root (the wire and the
+    remainder not below zero). A wrong stitch or a skewed clock breaks
+    one of these."""
+    from tpu_ir_torch.serving.soak import _trace_shape_ok, _walk_spans
+
+    ok, why = _trace_shape_ok(st, res)
+    if not ok:
+        return {"problems": [why]}
+    root = st["roots"][0]
+    if root.get("name") != "request":
+        return {"problems": [f"root {root.get('name')!r}"]}
+    slack = ATTRIBUTION_SLACK_MS
+    r0, r1 = root["start_ms"], root["start_ms"] + root["dur_ms"]
+    attempts = [n for n in _walk_spans([root])
+                if n["name"].startswith("rpc.")]
+    problems = []
+    for a in attempts:
+        end = a["start_ms"] + a["dur_ms"]
+        if not r0 - slack <= a["start_ms"] <= r1 + slack or (
+                a["attrs"]["outcome"] in ATTEMPT_HARVESTED
+                and end > r1 + slack):
+            problems.append(f"attempt outside the root: {a['attrs']}")
+    won = {a["attrs"]["shard"]: a for a in attempts
+           if a["name"] == "rpc.search" and a["attrs"]["outcome"] == "won"}
+    per_shard = {}
+    for s in res.shards_ok:
+        a = won[s]
+        reqs = [c for c in a.get("children", ())
+                if c["name"] == "request"
+                and c.get("service", "").startswith("worker-")]
+        if len(reqs) != 1:
+            problems.append(f"shard {s}: {len(reqs)} worker request spans")
+            continue
+        req = reqs[0]
+        spans = list(_walk_spans([req]))
+
+        def total(name, spans=spans):
+            return sum(n["dur_ms"] for n in spans if n["name"] == name)
+
+        parts = {"worker_request": req["dur_ms"],
+                 "worker_admission_wait": total("admission_wait"),
+                 "dispatch": total("dispatch"), "kernel": total("kernel")}
+        if not any(n["name"] == "kernel" for n in spans):
+            problems.append(f"shard {s}: no kernel span")
+        if (parts["worker_admission_wait"] + parts["dispatch"]
+                > parts["worker_request"] + slack):
+            problems.append(f"shard {s}: admission wait and dispatch "
+                            f"outside the worker's request")
+        if parts["kernel"] > parts["dispatch"] + slack:
+            problems.append(f"shard {s}: kernel outside the dispatch")
+        per_shard[s] = (a, parts)
+    if problems:
+        return {"problems": problems}
+    shard = max(per_shard, key=lambda s_: per_shard[s_][0]["dur_ms"])
+    a, parts = per_shard[shard]
+    admission = sum(c["dur_ms"] for c in root.get("children", ())
+                    if c["name"] == "admission_wait")
+    out = {
+        "request": root["dur_ms"],
+        "admission_wait": admission,
+        "attempt": a["dur_ms"],
+        **parts,
+        "wire": a["dur_ms"] - parts["worker_request"],
+        "remainder": root["dur_ms"] - admission - a["dur_ms"],
+        "critical_shard": shard,
+        "critical_hedge": bool(a["attrs"].get("hedge")),
+        "attempts": len(attempts),
+        "failed": sum(1 for x in attempts
+                      if x["attrs"]["outcome"] == "failed"),
+        "missing_shards": sorted({x["attrs"]["shard"] for x in attempts}
+                                 - set(res.shards_ok)),
+        "problems": [],
+    }
+    # the worker's request inside the attempt, the admission wait and the
+    # attempt inside the root
+    for part in ("wire", "remainder"):
+        if out[part] < -slack:
+            out["problems"].append(f"{part} {out[part]:.3f} ms")
+    return out
+
+
+def attribute_traces(seen: list) -> dict:
+    """Stitch the trace of every answer in `seen` ((trace id, answer)
+    pairs, the id None when the answer carries none) and attribute each
+    (trace_attribution): the answers, the traces stitched, those with a
+    problem (and a few of them), how often each shard's attempt was the
+    critical one and how often a hedge, the failed attempts, and p50, p99
+    (ms) and share of the summed roots of each part."""
+    from tpu_ir_torch.obs import disttrace
+
+    rows, bad, untraced = [], [], 0
+    for tid, res in seen:
+        st = disttrace.stitch(tid, include_spool=False) if tid else None
+        if st is None:
+            untraced += 1
+            continue
+        att = trace_attribution(st, res)
+        if att["problems"]:
+            bad.append({"trace_id": tid, "problems": att["problems"][:3]})
+        else:
+            rows.append(att)
+    out = {"answers": len(seen), "stitched": len(seen) - untraced,
+           "problems": len(bad), "problem_samples": bad[:3]}
+    if not rows:
+        return out
+    total = sum(r["request"] for r in rows) or 1.0
+    out["parts"] = {
+        p: {"p50_ms": float(np.percentile([r[p] for r in rows], 50)),
+            "p99_ms": float(np.percentile([r[p] for r in rows], 99)),
+            "share": sum(r[p] for r in rows) / total}
+        for p in ATTRIBUTION_PARTS}
+    out["critical_shards"] = {
+        str(s): sum(r["critical_shard"] == s for r in rows)
+        for s in sorted({r["critical_shard"] for r in rows})}
+    out["critical_hedges"] = sum(r["critical_hedge"] for r in rows)
+    out["failed_attempts"] = sum(r["failed"] for r in rows)
+    return out
+
+
 def routed_traffic(router, reg, texts: list, idx: list, want: dict,
                    gen: int, *, clients: int, k: int, until=None,
-                   timeout_s: float = 600.0, shed_ok: bool = False) -> dict:
+                   timeout_s: float = 600.0, shed_ok: bool = False,
+                   seen: list | None = None) -> dict:
     """TF-IDF texts `idx` through router.search from `clients` threads,
     each once, or (with `until`) cycled until until() holds: every answer
     must be full, of generation `gen` and bitwise want[i], and answers
     plus sheds (Overloaded, allowed with `shed_ok`) must be every request
     sent. Returns the answers, sheds, errors and mismatches, wall s, q/s
     (answers), the client's p50 and p99 ms over the answers and the
-    router's histograms (sheds included) and counters."""
+    router's histograms (sheds included) and counters. `seen` gets each
+    answer's (trace id, shards_ok)."""
     import threading
 
     from tpu_ir_torch.serving import Overloaded, Router
@@ -4420,6 +4596,8 @@ def routed_traffic(router, reg, texts: list, idx: list, want: dict,
                 continue
             with lock:
                 lat.append(time.perf_counter() - t_req)
+                if seen is not None:
+                    seen.append((res.trace_id, res))
                 if (Router.classify(res) != "full" or res.generation != gen
                         or result_bits(res) != want[i]):
                     bad.append(i)
@@ -4746,13 +4924,19 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
     replica respawned comes back on B and answers as its sibling does;
     the workers' cold_tier and hot_stage launches over the routed
     traffic (their /healthz) must be above 0; stop() leaves no worker
-    pid alive. `scorers` holds A and B loaded in this process, by
-    generation."""
+    pid alive. Before the killed pass the SHARD_TEXTS TF-IDF texts go
+    through the whole fleet SHARD_TRACE_PASSES times traced and as many
+    with this process's tracing off (the control), in turns, each answer
+    bitwise A's top-10, the traced answers' time attributed from their
+    stitched traces (attribute_traces); every answer of the killed pass
+    stitches to a sound trace. `scorers` holds A and B loaded in this
+    process, by generation."""
     import threading
 
     import torch
 
     from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import disttrace
     from tpu_ir_torch.search.layout import shard_doc_ranges
     from tpu_ir_torch.serving import (
         Router,
@@ -4806,6 +4990,10 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                 != {gen_a}):
             raise AssertionError(f"the workers' identities: {health}")
         router = Router(live, ss, RouterConfig(deadline_ms=SHARD_DEADLINE_MS))
+        # keep every trace, and hold the traced passes' (or the killed
+        # pass's, both scorings) until stitched
+        disttrace.configure(sample=1, max_traces=max(
+            SHARD_TRACE_PASSES, 2) * SHARD_TEXTS + 256)
 
         # one client alone first: the round trip without queueing
         c0, h0 = router.stats(), reg.hist_state()
@@ -4835,8 +5023,52 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                     return_docids=False)):
                 want[i] = result_bits(res)
         before = {sl: dict(health[sl]["kernel_launches"]) for sl in slots}
+        # the TF-IDF texts on the whole 2 x 2 fleet in turns, traced and
+        # untraced, SHARD_TRACE_PASSES times each: untraced is this
+        # process's tracing off (the workers keep theirs, and mint traces
+        # of their own), so the gap is the router's share of the cost.
+        # Each traced answer's time attributed from its stitched trace
+        tfidf = list(range(SHARD_TEXTS))
+        was = disttrace.enabled()
+        seen_t, passes = [], []
+        for traced in (True, False) * SHARD_TRACE_PASSES:
+            seen = seen_t if traced else []
+            disttrace.configure(enabled=traced)
+            try:
+                run = routed_traffic(router, reg, texts, tfidf, want, gen_a,
+                                     clients=SHARD_CLIENTS, k=k, seen=seen)
+            finally:
+                disttrace.configure(enabled=was)
+            run["traced"] = traced
+            if not traced:
+                run["untraced_answers"] = sum(t is None for t, _ in seen)
+            passes.append(run)
+        att = attribute_traces(seen_t)
+        out["attribution"] = {
+            "texts": len(tfidf), "clients": SHARD_CLIENTS,
+            "control_scope": "router_process", "passes": passes,
+            "attribution": att}
+        for traced, name in ((True, "traced"), (False, "control")):
+            qps = [r["routed_qps"] for r in passes if r["traced"] is traced]
+            med = float(np.median(qps))
+            out["attribution"][name] = {
+                "routed_qps_median": med,
+                "routed_qps_spread": (max(qps) - min(qps)) / med,
+                "router_request_p50_ms_median": float(np.median(
+                    [r["router.request"]["p50_ms"] for r in passes
+                     if r["traced"] is traced]))}
+        out["attribution"]["qps_traced_over_control"] = (
+            out["attribution"]["traced"]["routed_qps_median"]
+            / out["attribution"]["control"]["routed_qps_median"])
+        if (att["stitched"] != SHARD_TRACE_PASSES * len(tfidf)
+                or att["problems"]
+                or any(r["untraced_answers"] != len(tfidf)
+                       for r in passes if not r["traced"])):
+            raise AssertionError(f"the attribution: {out['attribution']}")
+
+        # both scorings' texts, replica 0/1 SIGKILLed in the middle of them
         lock = threading.Lock()
-        lat, errors, bad = [], [], []
+        lat, errors, bad, seen = [], [], [], []
         done = [0]
         killed = {}
         cursor = iter(jobs)
@@ -4872,6 +5104,7 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
                 with lock:
                     lat.append(time.perf_counter() - t_req)
                     done[0] += 1
+                    seen.append((res.trace_id, res))
                     if (Router.classify(res) != "full"
                             or res.generation != gen_a
                             or result_bits(res) != want[i]):
@@ -4896,10 +5129,15 @@ def phase_shards(card: str, work: str, live: str, gen_a: int, gen_b: int,
             "request_p99_ms": float(np.percentile(ms, 99)),
             "killed": {"replica": [0, 1], "pid": killed.get("pid"),
                        "after_answers": killed.get("at")}})
+        routed["trace"] = attribute_traces(seen)
         out["routed"] = routed
         if (errors or bad or len(lat) != len(jobs) or "pid" not in killed
                 or routed["counters"]["router.served_full"] != len(jobs)):
             raise AssertionError(f"routed traffic: {routed} {errors[:3]}")
+        if (routed["trace"]["stitched"] != len(jobs)
+                or routed["trace"]["problems"]):
+            raise AssertionError(f"the killed pass's traces: "
+                                 f"{routed['trace']}")
 
         # the rerank's two phases through the router
         t0 = time.perf_counter()
@@ -5555,10 +5793,11 @@ def phase_live_crash(card: str, work: str, *, device: str,
         torch.cuda.empty_cache()
     soak = phase_routed_soak(card, restored, work, device=device)
     emit(soak)
-    out["routed_soak_launches"] = soak["launches"]
+    out["routed_soak_launches_lower_bound"] = soak["launches_lower_bound"]
     elastic = phase_elastic_soak(card, restored, work, device=device)
     emit(elastic)
-    out["elastic_soak_launches"] = elastic["launches"]
+    out["elastic_soak_launches_lower_bound"] = elastic[
+        "launches_lower_bound"]
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
     for path in (ops_path, ack, child_out, child_err):
@@ -5653,10 +5892,10 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the router's
     fleet block names each worker's pid, its kernel launches and those of
     its warm-ups (its start's and each reload's). Returns (the report,
-    the polls: the workers seen, their launches less the warm-ups' (the
-    routed requests', a lower bound: a request served while a reload
-    warms counts as the warm-up's) summed, and with them, the phase's
-    seconds)."""
+    the polls: the workers seen, their launches less the warm-ups' summed
+    (`launches_lower_bound`: the routed requests' launches, less any
+    request served while a reload warmed, which counts as the warm-up's),
+    and with them, the phase's seconds)."""
     import threading
 
     from tpu_ir_torch.obs.server import MetricsServer
@@ -5709,7 +5948,7 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
             with_warm_ups[n] += seen[pid].get(n, 0)
     return report, {"phase_s": time.perf_counter() - t0,
                     "healthz_polls": polls, "workers_seen": len(seen),
-                    "launches": launches,
+                    "launches_lower_bound": launches,
                     "launches_with_warm_ups": with_warm_ups}
 
 
@@ -5725,8 +5964,12 @@ def phase_routed_soak(card: str, live: str, work: str, *,
     ROUTED_SOAK_UPGRADE_AT. Held as tpu_ir's test holds it: conservation, no
     error or deadlock, partial answers and none mismatched, no full
     mismatch, at least 3 respawns, every recovery probe full (and on B),
-    no answer from A late after the roll. The workers' routed launches
-    (polled_soak) of dense_score must be above 0."""
+    no answer from A late after the roll; the report's `disttrace` and
+    `slo` sections as tpu_ir's test holds them: answers traced, no trace
+    violation and none of the tail's missing, at least 3 spans a trace,
+    the bookkeeping at most 5% of a mean request with tracing on and 1%
+    with it off, every served request in the SLO windows. The workers'
+    routed launches (polled_soak) of dense_score must be above 0."""
     report, polled = polled_soak(
         live, work, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
         threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
@@ -5752,8 +5995,18 @@ def phase_routed_soak(card: str, live: str, work: str, *,
         "rolled": bool(up["swap"] and up["swap"]["swapped"]),
         "no_late_a": up["late_old_generation"] == 0
         and report["unknown_generation"] == 0,
+        "traced": report["disttrace"]["traced"] > 0,
+        "no_trace_violation": report["disttrace"]["violations"] == 0,
+        "no_tail_missing": report["disttrace"]["tail_missing"] == 0,
+        "spans": report["disttrace"]["mean_spans"] >= 3,
+        "trace_overhead": report["disttrace"]["overhead"][
+            "enabled_overhead_fraction"] <= 0.05
+        and report["disttrace"]["overhead"][
+            "disabled_overhead_fraction"] <= 0.01,
+        "slo_counted": report["slo"]["good"] + report["slo"]["bad"]
+        >= report["served"],
         "dense_score": device != "cuda"
-        or polled["launches"]["dense_score"] > 0,
+        or polled["launches_lower_bound"]["dense_score"] > 0,
     }
     out["checks"] = checks
     if not all(checks.values()):
@@ -5807,7 +6060,7 @@ def phase_elastic_soak(card: str, live: str, work: str, *,
         and 0.0 <= sc["overprovision_fraction"] <= 1.0,
         "recovery": report["recovery_full"] == report["recovery_probes"],
         "dense_score": device != "cuda"
-        or polled["launches"]["dense_score"] > 0,
+        or polled["launches_lower_bound"]["dense_score"] > 0,
     }
     out["checks"] = checks
     if not all(checks.values()):
@@ -5821,11 +6074,12 @@ def phase_ingest_soak(card: str, work: str, *, device: str) -> dict:
     report (docs/s, the freshness lag, swaps, lost and stale answers, the
     successor's replay) and the kernel launches of the soak's in-process
     frontend over its probes: the report's `kernel_launches` less its
-    `warm_launches` (the load, the warm-up searches and each reload),
-    with the warm-ups beside them (the feeder children's launches are
-    their own). The soak raises on a breach; the phase holds its
-    invariants again, and on the card the probes must launch the tiered
-    pair."""
+    `warm_launches` (the load, the warm-up searches and each reload), a
+    lower bound (a probe served while a reload warmed counts as the
+    reload's), with the warm-ups beside them (the feeder children's
+    launches are their own). The soak raises on a breach; the phase holds
+    its invariants again, and on the card the probes must launch the
+    tiered pair."""
     live = os.path.join(work, "ingest-soak-live")
     report, wall = run_cli(["ingest", live, "--soak-bench",
                             "--device", device])
@@ -5833,7 +6087,8 @@ def phase_ingest_soak(card: str, work: str, *, device: str) -> dict:
     total, warm = report["kernel_launches"], report["warm_launches"]
     launches = {n: total[n] - warm[n] for n in PORT_KERNELS}
     out = {"phase": "ingest_soak", "card": card, "config": "feed-48",
-           "wall_s": wall, "report": report, "launches": launches,
+           "wall_s": wall, "report": report,
+           "launches_lower_bound": launches,
            "launches_with_warm_ups": {n: total[n] for n in PORT_KERNELS}}
     checks = {
         "no_lost_ack": report["lost_acked"] == 0
@@ -5920,7 +6175,8 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     launches left out), elastic (the fleet's workers over its traffic,
     warm-ups left out), elastic soak (as the routed soak), ingest soak
     (its in-process frontend over its probes, warm-ups left out) and v1
-    phases."""
+    phases. The three soaks' counts are lower bounds (`*_lower_bound`): a
+    request served while a reload warmed counts as the warm-up's."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -6162,9 +6418,16 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
         shard_launches = {
             n: shards["launches"][n] + live_crash["workers"]["launches"][n]
             for n in PORT_KERNELS}
-        soak_launches = live_crash["routed_soak_launches"]
         ingest_soak = phase_ingest_soak(card, work, device="cuda")
         emit(ingest_soak)
+        # the soaks' routed launches, each a lower bound (kernel_row)
+        lower_bounds = {n: {
+            "soak_launches_lower_bound": live_crash[
+                "routed_soak_launches_lower_bound"][n],
+            "elastic_soak_launches_lower_bound": live_crash[
+                "elastic_soak_launches_lower_bound"][n],
+            "ingest_soak_launches_lower_bound": ingest_soak[
+                "launches_lower_bound"][n]} for n in PORT_KERNELS}
         torch.cuda.empty_cache()
         scorer = Scorer.load(pos_dirs["ref"], device="cuda")
         emit(phase_prox(card, scorer, ref_q_ids, config="ref",
@@ -6218,11 +6481,8 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
                    warm_launches=warm["launches"]["dense_score"],
                    live_launches=live_launches["dense_score"],
                    shard_launches=shard_launches["dense_score"],
-                   soak_launches=soak_launches["dense_score"],
                    elastic_launches=shards["elastic_launches"]["dense_score"],
-                   elastic_soak_launches=live_crash[
-                       "elastic_soak_launches"]["dense_score"],
-                   ingest_soak_launches=ingest_soak["launches"]["dense_score"],
+                   **lower_bounds["dense_score"],
                    v1_launches=v1["launches"]["dense_score"],
                    source="tpu_ir_torch/csrc/dense_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:52"),
@@ -6236,11 +6496,8 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
                    warm_launches=warm["launches"]["dequant_score"],
                    live_launches=live_launches["dequant_score"],
                    shard_launches=shard_launches["dequant_score"],
-                   soak_launches=soak_launches["dequant_score"],
                    elastic_launches=shards["elastic_launches"]["dequant_score"],
-                   elastic_soak_launches=live_crash[
-                       "elastic_soak_launches"]["dequant_score"],
-                   ingest_soak_launches=ingest_soak["launches"]["dequant_score"],
+                   **lower_bounds["dequant_score"],
                    v1_launches=v1["launches"]["dequant_score"],
                    source="tpu_ir_torch/csrc/dequant_score.cu",
                    replaces="tpu_ir/ops/pallas_scoring.py:129"),
@@ -6253,11 +6510,8 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
                    warm_launches=warm["launches"]["cold_tier"],
                    live_launches=live_launches["cold_tier"],
                    shard_launches=shard_launches["cold_tier"],
-                   soak_launches=soak_launches["cold_tier"],
                    elastic_launches=shards["elastic_launches"]["cold_tier"],
-                   elastic_soak_launches=live_crash[
-                       "elastic_soak_launches"]["cold_tier"],
-                   ingest_soak_launches=ingest_soak["launches"]["cold_tier"],
+                   **lower_bounds["cold_tier"],
                    v1_launches=v1["launches"]["cold_tier"],
                    source="tpu_ir_torch/csrc/cold_tier.cu",
                    replaces="experiments/cold_tier_bench.py:42"),
@@ -6270,11 +6524,8 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
                    warm_launches=warm["launches"]["hot_stage"],
                    live_launches=live_launches["hot_stage"],
                    shard_launches=shard_launches["hot_stage"],
-                   soak_launches=soak_launches["hot_stage"],
                    elastic_launches=shards["elastic_launches"]["hot_stage"],
-                   elastic_soak_launches=live_crash[
-                       "elastic_soak_launches"]["hot_stage"],
-                   ingest_soak_launches=ingest_soak["launches"]["hot_stage"],
+                   **lower_bounds["hot_stage"],
                    v1_launches=v1["launches"]["hot_stage"],
                    source="tpu_ir_torch/csrc/hot_stage.cu",
                    replaces="tpu_ir/ops/scoring.py:290")]})

@@ -600,6 +600,107 @@ def test_failed_grow_leaves_no_worker(index_dir, tmp_path, monkeypatch):
         ss.stop()
 
 
+def _sleeper(seconds: float, **kw):
+    import subprocess
+    import sys
+
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import time; time.sleep({seconds})"], **kw)
+
+
+@pytest.mark.parametrize("exits", [True, False], ids=["exits", "stays"])
+def test_retire_reads_a_failed_health_poll_by_the_exit(tmp_path,
+                                                       monkeypatch, exits):
+    """A failed /healthz read during a drain is a kill when the process
+    exits within 2 s (`killed_mid_drain`), else the drain settles and the
+    worker is stopped: the read is forced to fail while the process is
+    still alive, so `h.alive` cannot decide it first."""
+    from tpu_ir_torch.serving import shardset as shardset_mod
+    from tpu_ir_torch.serving.shardset import WorkerHandle
+
+    ss = ShardSet(str(tmp_path / "unused"), shards=1, replicas=1,
+                  rundir=str(tmp_path / "run"), device="cpu")
+    proc = _sleeper(0.5 if exits else 60)
+    reads = []
+
+    def failing_health(addr, timeout_s):
+        reads.append(proc.poll())
+        raise ConnectionRefusedError(addr)
+
+    monkeypatch.setattr(shardset_mod, "get_worker_health", failing_health)
+    ss._grid[0][0] = WorkerHandle(0, 0, 0, proc, "127.0.0.1", 9, proc.pid)
+    ss._state[0][0] = "active"
+    try:
+        d = ss.retire_replica(0, 0, drain_timeout_s=10.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=10)
+    assert reads == [None]         # one read, the process alive at it
+    assert d["killed_mid_drain"] is exits
+    assert d["drained_clean"] is (not exits)
+    assert proc.returncode == (0 if exits else -15)   # else SIGTERMed
+    assert ss.lifecycle() == [["retired"]]
+    assert obs.get_registry().get("scale.down") == 1
+
+
+def test_grown_worker_is_reniced_after_spawn_with_the_checkout_on_its_path(
+        tmp_path, monkeypatch):
+    """A grow's spawn runs at GROW_NICE, set by the parent after Popen (no
+    pre-exec hook), and every worker's PYTHONPATH leads with the
+    checkout, so a parent may run from any directory."""
+    import subprocess
+
+    from tpu_ir_torch.serving import shardset as shardset_mod
+
+    popen_kw = []
+    real_popen = subprocess.Popen
+
+    def fake_popen(argv, **kw):
+        popen_kw.append(kw)
+        # the worker's place: a bare interpreter started elsewhere that
+        # finds the package through the PYTHONPATH it was given (without
+        # importing it, so torch stays out) and writes where to its log
+        return real_popen(
+            [argv[0], "-c",
+             "import importlib.util as u, time; "
+             "s = u.find_spec('tpu_ir_torch'); "
+             "print(s and s.origin, flush=True); time.sleep(30)"],
+            env=kw["env"], cwd=str(tmp_path), stdin=subprocess.DEVNULL,
+            stdout=kw["stdout"], stderr=kw["stderr"])
+
+    monkeypatch.setattr(shardset_mod.subprocess, "Popen", fake_popen)
+    monkeypatch.setenv("PYTHONPATH", "/elsewhere")
+    ss = ShardSet(str(tmp_path / "unused"), shards=1, replicas=1,
+                  rundir=str(tmp_path / "run"), device="cpu")
+    procs = []
+    try:
+        for nice in (shardset_mod.GROW_NICE, 0):
+            proc, _ = ss._spawn(0, 0, generation=len(procs), nice=nice)
+            procs.append(proc)
+            base = os.getpriority(os.PRIO_PROCESS, 0)
+            assert os.getpriority(os.PRIO_PROCESS, proc.pid) == max(
+                nice, base)
+        for kw in popen_kw:
+            assert "preexec_fn" not in kw
+            path = kw["env"]["PYTHONPATH"].split(os.pathsep)
+            assert path == [shardset_mod._PKG_PARENT, "/elsewhere"]
+        log = ss.log_path(0, 0)
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            with open(log, encoding="utf-8") as f:
+                found = f.read().split()
+            if len(found) == len(procs):
+                break
+            time.sleep(0.05)
+        assert found == [os.path.join(shardset_mod._PKG_PARENT,
+                                      "tpu_ir_torch", "__init__.py")] * 2
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=10)
+
+
 def _scale_checks(report: dict) -> dict:
     sc = report["scale"]
     assert set(sc) - {"autoscaler"} - FIRST_UP_KEYS == SCALE_KEYS

@@ -8,6 +8,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -695,6 +696,167 @@ def test_depth_constants_cover_their_samples():
     assert plan["kill_during_drain"] and c.ELASTIC_SOAK_REPLICAS >= 2
 
 
+def _span(sid, parent, name, start, dur, service="router", children=(),
+          **attrs):
+    return {"span_id": sid, "parent_id": parent, "name": name,
+            "service": service, "start_ms": start, "dur_ms": dur,
+            "attrs": attrs, "children": list(children)}
+
+
+def _worker(sid, parent, shard, start, dur, kernel_ms=(1.0,)):
+    """A worker's request span under an attempt: dispatch and kernels."""
+    svc = f"worker-s{shard}r0"
+    kernels = [_span(f"{sid}k{i}", f"{sid}d", "kernel", start + 2, ms, svc)
+               for i, ms in enumerate(kernel_ms)]
+    return _span(sid, parent, "request", start, dur, svc, [
+        _span(f"{sid}l", sid, "ladder", start, 0.1, svc),
+        _span(f"{sid}a", sid, "admission_wait", start, 0.5, svc),
+        _span(f"{sid}d", sid, "dispatch", start + 1, dur - 2, svc,
+              kernels)])
+
+
+def _stitched(attempts, admission=2.0, root_ms=50.0):
+    return {"roots": [_span("r", None, "request", 0.0, root_ms, "router", [
+        _span("aw", "r", "admission_wait", 0.0, admission), *attempts])]}
+
+
+def _answer(shards_ok, hedges=0):
+    return types.SimpleNamespace(shards_ok=tuple(shards_ok), hedges=hedges)
+
+
+def test_trace_attribution_of_a_hand_built_trace():
+    """The parts of one routed request: they sum to the root; a winning
+    hedge is the critical attempt, not the slow primary it beat; a failed
+    attempt is never critical, its time falls to the router's remainder;
+    a shard that did not answer is named and leaves the others' parts;
+    spans that do not nest (a wrong stitch, a skewed clock) are
+    problems."""
+    c = chip_smoke
+    # shard 0: the primary lost to a hedge; shard 1: a failover after a
+    # failed attempt; the critical attempt is shard 0's hedge (30 ms)
+    trace = _stitched([
+        _span("a0", "r", "rpc.search", 3.0, 40.0, shard=0, replica=0,
+              hedge=False, outcome="lost",
+              children=[_worker("w0", "a0", 0, 4.0, 38.0)]),
+        _span("a1", "r", "rpc.search", 10.0, 30.0, shard=0, replica=1,
+              hedge=True, outcome="won",
+              children=[_worker("w1", "a1", 0, 12.0, 24.0, (3.0, 1.5))]),
+        _span("a2", "r", "rpc.search", 3.0, 1.0, shard=1, replica=1,
+              hedge=False, outcome="failed"),
+        _span("a3", "r", "rpc.search", 5.0, 20.0, shard=1, replica=0,
+              hedge=False, outcome="won",
+              children=[_worker("w3", "a3", 1, 6.0, 15.0)]),
+    ])
+    att = c.trace_attribution(trace, _answer((0, 1), hedges=1))
+    assert att["problems"] == []
+    assert att["critical_shard"] == 0 and att["critical_hedge"]
+    assert (att["request"], att["admission_wait"], att["attempt"],
+            att["worker_request"]) == (50.0, 2.0, 30.0, 24.0)
+    assert att["dispatch"] == 22.0 and att["kernel"] == 4.5
+    assert att["worker_admission_wait"] == 0.5
+    assert att["wire"] == 6.0 and att["remainder"] == 18.0
+    assert att["admission_wait"] + att["wire"] + att["worker_request"] \
+        + att["remainder"] == att["request"]
+    assert att["attempts"] == 4 and att["failed"] == 1
+    assert att["missing_shards"] == []
+    # a missing shard (its only attempt ran into the deadline): the
+    # answer's shards_ok leaves it out, the parts are the other shard's
+    partial = _stitched([
+        _span("a0", "r", "rpc.search", 3.0, 12.0, shard=0, hedge=False,
+              outcome="won", children=[_worker("w0", "a0", 0, 4.0, 9.0)]),
+        _span("a1", "r", "rpc.search", 3.0, 45.0, shard=1, hedge=False,
+              outcome="deadline")])
+    att = c.trace_attribution(partial, _answer((0,)))
+    assert att["problems"] == [] and att["missing_shards"] == [1]
+    assert att["critical_shard"] == 0 and att["remainder"] == 36.0
+    # what a sound full answer's trace must hold
+    assert c.trace_attribution(partial, _answer((0, 1)))["problems"] == [
+        "contributing_shard_without_winning_attempt"]
+    assert c.trace_attribution(trace, _answer((0, 1), hedges=2))[
+        "problems"] == ["hedge_spans=1<res.hedges=2"]
+    no_kernel = _stitched([_span(
+        "a0", "r", "rpc.search", 3.0, 12.0, shard=0, outcome="won",
+        children=[_worker("w0", "a0", 0, 4.0, 9.0, kernel_ms=())])])
+    assert c.trace_attribution(no_kernel, _answer((0,)))["problems"] == [
+        "shard 0: no kernel span"]
+    no_worker = _stitched([_span("a0", "r", "rpc.search", 3.0, 12.0,
+                                 shard=0, outcome="won")])
+    assert c.trace_attribution(no_worker, _answer((0,)))["problems"] == [
+        "contributing_shard_without_worker_spans"]
+    unjudged = _stitched([_span("a0", "r", "rpc.search", 3.0, 12.0,
+                                shard=0, children=[_worker(
+                                    "w0", "a0", 0, 4.0, 9.0)])])
+    assert c.trace_attribution(unjudged, _answer((0,)))["problems"] == [
+        "attempt_without_outcome"]
+    two_roots = {"roots": trace["roots"] * 2}
+    assert c.trace_attribution(two_roots, _answer((0,)))["problems"] == [
+        "multi_root"]
+    # a worker request longer than its attempt cannot nest
+    skewed = _stitched([_span(
+        "a0", "r", "rpc.search", 3.0, 8.0, shard=0, outcome="won",
+        children=[_worker("w0", "a0", 0, 4.0, 12.0)])])
+    assert c.trace_attribution(skewed, _answer((0,)))["problems"] == [
+        "wire -4.000 ms"]
+    # the worker's dispatch longer than its request, its kernels longer
+    # than its dispatch: both stitched from the wrong spans
+    w = _worker("w0", "a0", 0, 4.0, 9.0, kernel_ms=(9.0,))
+    bad_nest = _stitched([_span("a0", "r", "rpc.search", 3.0, 12.0,
+                                shard=0, outcome="won", children=[w])])
+    assert c.trace_attribution(bad_nest, _answer((0,)))["problems"] == [
+        "shard 0: kernel outside the dispatch"]
+    w["children"][2]["dur_ms"] = 10.0
+    w["children"][2]["children"] = []
+    w["children"].append(_span("w0k", "w0d", "kernel", 6.0, 1.0,
+                               w["service"]))
+    assert c.trace_attribution(bad_nest, _answer((0,)))["problems"] == [
+        "shard 0: admission wait and dispatch outside the worker's request"]
+    # an attempt the harvest waited for cannot end after the root; one
+    # cancelled in flight may, but none starts outside it
+    late = _stitched([
+        _span("a0", "r", "rpc.search", 3.0, 12.0, shard=0, outcome="won",
+              children=[_worker("w0", "a0", 0, 4.0, 9.0)]),
+        _span("a1", "r", "rpc.search", 30.0, 40.0, shard=0, replica=1,
+              hedge=True, outcome="cancelled")])
+    assert c.trace_attribution(late, _answer((0,), hedges=1))[
+        "problems"] == []
+    late["roots"][0]["children"][2]["attrs"]["outcome"] = "lost"
+    assert c.trace_attribution(late, _answer((0,), hedges=1))[
+        "problems"][0].startswith("attempt outside the root")
+    early = _stitched([_span(
+        "a0", "r", "rpc.search", -5.0, 12.0, shard=0, outcome="won",
+        children=[_worker("w0", "a0", 0, 4.0, 9.0)])])
+    assert c.trace_attribution(early, _answer((0,)))["problems"][
+        0].startswith("attempt outside the root")
+
+
+def test_attribute_traces_sums_and_shares(monkeypatch):
+    """attribute_traces over stitched traces: untraced answers counted
+    apart, a problem trace left out of the parts, the shares of the
+    summed roots, p50 and p99 of each part."""
+    from tpu_ir_torch.obs import disttrace
+
+    c = chip_smoke
+    traces = {}
+    for i, root_ms in enumerate((40.0, 60.0)):
+        traces[f"t{i}"] = _stitched([_span(
+            "a0", "r", "rpc.search", 3.0, 20.0, shard=0, outcome="won",
+            children=[_worker("w0", "a0", 0, 4.0, 16.0)])],
+            root_ms=root_ms)
+    traces["bad"] = _stitched([])
+    monkeypatch.setattr(disttrace, "stitch",
+                        lambda tid, include_spool=True: traces.get(tid))
+    out = c.attribute_traces([(tid, _answer((0,))) for tid in
+                              ("t0", "t1", "bad", None, "gone")])
+    assert (out["answers"], out["stitched"], out["problems"]) == (5, 3, 1)
+    parts = out["parts"]
+    assert parts["request"]["share"] == 1.0
+    assert parts["attempt"]["share"] == 40.0 / 100.0
+    assert parts["remainder"]["p50_ms"] == 48.0 - 20.0
+    assert parts["wire"]["p99_ms"] == 4.0
+    assert out["critical_hedges"] == 0 and out["failed_attempts"] == 0
+    assert out["critical_shards"] == {"0": 2}
+
+
 def test_live_phases_on_cpu(tmp_path, monkeypatch):
     """19d and 19e at a small size on the CPU: the seed through the
     command line, the delta with flushes and a merge, B == the one-shot
@@ -796,6 +958,29 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
         == 2 * 24
     assert routed["router.shard_rtt"]["count"] >= 2 * 2 * 24
     assert routed["killed"]["pid"] and routed["killed"]["after_answers"]
+    assert routed["trace"]["stitched"] == 2 * 24
+    assert routed["trace"]["problems"] == 0
+    # the TF-IDF texts traced and with tracing off in turns; attributed
+    att = shards["attribution"]
+    assert att["texts"] == 24 and att["control_scope"] == "router_process"
+    assert [r["traced"] for r in att["passes"]] == [
+        True, False] * chip_smoke.SHARD_TRACE_PASSES
+    for r in att["passes"]:
+        assert r["answers"] == 24 and r["mismatches"] == 0
+        assert r["router.request"]["count"] == 24
+        assert r.get("untraced_answers", 24) == 24
+    for name in ("traced", "control"):
+        assert att[name]["routed_qps_median"] > 0
+        assert att[name]["routed_qps_spread"] >= 0
+        assert att[name]["router_request_p50_ms_median"] > 0
+    assert att["qps_traced_over_control"] > 0
+    parts = att["attribution"]["parts"]
+    assert set(parts) == set(chip_smoke.ATTRIBUTION_PARTS)
+    assert att["attribution"]["stitched"] == \
+        chip_smoke.SHARD_TRACE_PASSES * 24
+    assert att["attribution"]["problems"] == 0
+    assert parts["request"]["share"] == 1.0
+    assert 0 < parts["kernel"]["p50_ms"] <= parts["dispatch"]["p50_ms"]
     assert shards["rerank"]["bitwise"]
     walk = shards["rolling_swap"]
     assert walk["answers_a"] and walk["answers_b"]
@@ -878,14 +1063,18 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     soak, elastic = soaks
     assert all(soak["checks"].values()) and soak["healthz_polls"]["n"]
     assert soak["report"]["submitted"] == 100
-    assert crash["routed_soak_launches"] == soak["launches"]
-    assert set(soak["launches_with_warm_ups"]) == set(soak["launches"])
+    assert crash["routed_soak_launches_lower_bound"] == soak[
+        "launches_lower_bound"]
+    assert set(soak["launches_with_warm_ups"]) == set(
+        soak["launches_lower_bound"])
+    assert soak["report"]["disttrace"]["traced"] > 0
     # the elastic soak: rolled, grown and drained with a kill mid-drain
     assert elastic["phase"] == "elastic_soak"
     assert all(elastic["checks"].values()), elastic["checks"]
     assert elastic["report"]["submitted"] == 100
     assert len(elastic["report"]["scale"]["drains"]) == 2
-    assert crash["elastic_soak_launches"] == elastic["launches"]
+    assert crash["elastic_soak_launches_lower_bound"] == elastic[
+        "launches_lower_bound"]
     assert os.listdir(work) == []
     json.dumps([live, crash, shards, soak, elastic])
 
@@ -899,7 +1088,7 @@ def test_ingest_soak_phase_on_cpu(tmp_path):
     assert rep["docs"] == 48 and rep["base_docs"] == 12
     assert rep["history_row"]["config"] == "ingest_soak"
     assert rep["ingest_docs_per_s"] > 0 and rep["freshness_lag_ms"] > 0
-    assert set(out["launches"]) == set(chip_smoke.PORT_KERNELS)
+    assert set(out["launches_lower_bound"]) == set(chip_smoke.PORT_KERNELS)
     assert set(out["launches_with_warm_ups"]) == set(chip_smoke.PORT_KERNELS)
     assert os.listdir(tmp_path) == []
     json.dumps(out)

@@ -18,8 +18,8 @@ MetricsServer) on a static address grid:
 - `health_summary()` and /healthz's router block have `tpu_ir`'s keys.
 
 Then the distributed chaos soak over 2 x 2 subprocess workers with a
-rolling upgrade (`tpu_ir`'s asserts but the distributed-trace and SLO
-ones), and `serve-bench --shards`: its validation and its JSON keys
+rolling upgrade (`tpu_ir`'s asserts, the distributed-trace and SLO ones
+included), and `serve-bench --shards`: its validation and its JSON keys
 against `tpu_ir`'s. The elastic soak (`autoscale=`, `scale_plan=`) is
 tests/test_torch_autoscale.py's."""
 
@@ -65,15 +65,14 @@ QUERIES = ["salmon fishing", "bears honey market", "quick",
 N_DOCS = 600
 N_SHARDS = 3
 RERANK = 25
-# tpu_ir's run_distributed_soak report without autoscaling, less its
-# distributed-trace and SLO sections (ROADMAP item 8)
+# tpu_ir's run_distributed_soak report without autoscaling, tracing on
 SOAK_KEYS = {
     "submitted", "served", "shed", "errors", "error_samples", "deadlocked",
     "classes", "partial_fraction", "full_mismatches", "partial_checked",
     "partial_mismatches", "tagged_divergent", "hedged_requests",
     "recovery_probes", "recovery_full", "wall_s", "shards", "replicas",
     "chaos", "generations_served", "unknown_generation", "router",
-    "latency", "cache", "burst_p99_ms"}
+    "latency", "cache", "burst_p99_ms", "disttrace", "slo"}
 
 
 @pytest.fixture(autouse=True)
@@ -693,7 +692,10 @@ def test_distributed_chaos_soak(soak_live, tmp_path):
     shard is down (the walk skips the dead replicas, which respawn on
     B): conservation, the taxonomy, partial answers with no mismatch, no
     full mismatch, the kills respawned, every recovery probe full and on
-    B, no answer from A late after the walk."""
+    B, no answer from A late after the walk; every served answer's trace
+    stitched in the right shape, none of the tail's missing, the trace
+    bookkeeping within 5% of a mean request (1% with tracing off), and
+    every served request in the SLO windows."""
     gen_a = LiveIndex.open(soak_live).current_gen()
     report = run_distributed_soak(
         soak_live, shards=2, replicas=2, threads=6, queries=100, seed=0,
@@ -725,6 +727,15 @@ def test_distributed_chaos_soak(soak_live, tmp_path):
     assert set(report["generations_served"]) <= {str(gen_a),
                                                  str(up["generation_b"])}
     assert report["generations_served"].get(str(up["generation_b"]), 0) > 0
+    dt = report["disttrace"]
+    assert dt["traced"] > 0
+    assert dt["violations"] == 0, dt["violation_samples"]
+    assert dt["tail_missing"] == 0
+    assert dt["mean_spans"] >= 3  # the root and an attempt a shard at least
+    assert dt["overhead"]["enabled_overhead_fraction"] <= 0.05
+    assert dt["overhead"]["disabled_overhead_fraction"] <= 0.01
+    slo = report["slo"]
+    assert slo["good"] + slo["bad"] >= report["served"]
 
 
 # -- serve-bench --shards -----------------------------------------------------

@@ -186,8 +186,9 @@ def test_worker_surface_equals_jax(index_dir, tmp_path):
 
 
 def test_worker_spans_carry_its_service_name(index_dir, tmp_path):
-    """A worker names its process as the JAX worker does, and every span
-    the process opens after that carries the name."""
+    """A worker names its process as the JAX worker does, and the record
+    of every span the process opens after that, under a trace, carries
+    the name."""
     from tpu_ir.obs import disttrace as jax_disttrace
     from tpu_ir_torch.obs import disttrace
 
@@ -201,11 +202,14 @@ def test_worker_spans_carry_its_service_name(index_dir, tmp_path):
     was = obs.enabled()
     obs.configure(enabled=True)
     try:
-        with obs.trace("probe") as span:
-            with obs.trace("child") as child:
+        ctx = disttrace.mint()
+        with disttrace.use(ctx), obs.trace("probe"):
+            with obs.trace("child"):
                 pass
-        assert span.service == child.service == "worker-s2r1"
-        assert span.service == jax_disttrace._SERVICE
+        recs = disttrace.spans_for(ctx.trace_id)
+        assert [r["name"] for r in recs] == ["probe", "child"]
+        assert {r["service"] for r in recs} == {jax_disttrace._SERVICE}
+        assert jax_disttrace._SERVICE == "worker-s2r1"
     finally:
         obs.configure(enabled=was)
         port_srv.stop()
@@ -441,6 +445,48 @@ def test_swap_microbench_keys_equal_jax(tmp_path):
     assert got["generations_seen"] == [got["generation_a"],
                                        got["generation_b"]]
     assert got["probes"] > 0 and got["swap_staleness_ms"] >= 0
+
+
+@pytest.mark.parametrize("fault", ["shed", "error"])
+def test_swap_microbench_counts_a_shed_as_gap_and_raises_an_error(
+        tmp_path, monkeypatch, fault):
+    """A probe shed inside the swap is part of the gap the bench reports;
+    any other probe error fails the bench (`tpu_ir` swallows both)."""
+    from tpu_ir_torch.serving import frontend as frontend_mod
+
+    real_search = frontend_mod.ServingFrontend.search
+    real_reload = frontend_mod.ServingFrontend.reload_generation
+    swapping = threading.Event()
+    faulted = []
+
+    def search(self, *a, **kw):
+        if swapping.is_set():
+            faulted.append(fault)
+            if fault == "shed":
+                raise Overloaded("queue_full", queue_depth=1, level="full")
+            raise RuntimeError("a probe's own fault")
+        return real_search(self, *a, **kw)
+
+    def reload_generation(self, *a, **kw):
+        swapping.set()
+        try:
+            time.sleep(0.3)
+            return real_reload(self, *a, **kw)
+        finally:
+            swapping.clear()
+
+    monkeypatch.setattr(frontend_mod.ServingFrontend, "search", search)
+    monkeypatch.setattr(frontend_mod.ServingFrontend, "reload_generation",
+                        reload_generation)
+    kw = dict(base_docs=16, delta_docs=4, probe_s=0.4, num_shards=2,
+              device="cpu")
+    if fault == "error":
+        with pytest.raises(RuntimeError, match="a probe's own fault"):
+            swap_microbench(str(tmp_path / "live"), **kw)
+        return
+    got = swap_microbench(str(tmp_path / "live"), **kw)
+    assert faulted and got["probes"] > 0
+    assert got["swap_gap_ms"] >= 300.0
 
 
 def test_ingest_swap_bench_and_soak_bench(tmp_path, capsys):

@@ -1,8 +1,8 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
 `serve-bench`, `serve-worker`, `scale`, `ingest`, `compact`,
-`generations`, `backup`, `pack`, `count` and `docno`, with tpu_ir's flag
-names and defaults.
+`generations`, `backup`, `trace`, `pack`, `count` and `docno`, with
+tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -45,6 +45,7 @@ names and defaults.
         [--device cuda|cpu]
     python -m tpu_ir_torch.cli generations LIVE [-n N] [--gc]
     python -m tpu_ir_torch.cli backup SRC DEST [--restore]
+    python -m tpu_ir_torch.cli trace [TRACE_ID] [--json]
     python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
         [--format lines|trectext|trecweb]
     python -m tpu_ir_torch.cli count CORPUS...
@@ -85,6 +86,10 @@ BENCH_HISTORY.jsonl (`history` is null: the port writes no row).
 `ingest --soak-bench` runs the ingest and serve soak (a feeder child
 SIGKILLed mid-feed, its successor's recovery) and prints its report the
 same way.
+`trace` lists the distributed trace ids this process stores and the span
+spool under TPU_IR_TELEMETRY_DIR holds; with an id it stitches that
+trace and prints its waterfall, each attempt with its verdict (`--json`:
+the stitched tree), and exits 1 for an unknown id.
 """
 
 from __future__ import annotations
@@ -697,6 +702,69 @@ def cmd_warm(args) -> int:
                               and warm._host_pairs is None),
     }))
     return 0
+
+
+def cmd_trace(args) -> int:
+    """The distributed traces (obs/disttrace.py): with no id, the ids in
+    this process's store and in the span spool (TPU_IR_TELEMETRY_DIR,
+    where every process spools the traces it keeps); with an id, that
+    trace stitched across processes, as a waterfall of indented spans on
+    one timeline, each attempt marked with its verdict (won, lost,
+    failed, cancelled, deadline), or with `--json` as the stitched
+    structure."""
+    from .obs import disttrace
+    from .obs.aggregate import read_span_spool
+
+    if not args.trace_id:
+        ids = set(disttrace.trace_ids())
+        for rec in read_span_spool():
+            tid = rec.get("trace_id")
+            if tid:
+                ids.add(tid)
+        print(json.dumps({"traces": sorted(ids)}))
+        return 0
+    st = disttrace.stitch(args.trace_id)
+    if st is None:
+        print(json.dumps({"error": "unknown_trace",
+                          "trace_id": args.trace_id}))
+        return 1
+    if args.json:
+        print(json.dumps(st, sort_keys=True, default=repr))
+        return 0
+    _print_trace_waterfall(st)
+    return 0
+
+
+def _print_trace_waterfall(st: dict) -> None:
+    """One stitched trace as text: a line a span, indented by depth, its
+    bar on the trace's timeline, its offset and duration, its service and
+    the attempt's verdict."""
+    t0 = st["start_ms"]
+    total = max(st["dur_ms"], 1e-9)
+    width = 40
+    print(f"trace {st['trace_id']}  spans={st['span_count']}  "
+          f"dur={st['dur_ms']}ms  services={','.join(st['services'])}")
+
+    def walk(node: dict, depth: int) -> None:
+        off = max(node.get("start_ms", t0) - t0, 0.0)
+        dur = node.get("dur_ms", 0.0)
+        lo = min(int(width * off / total), width - 1)
+        ln = max(1, min(int(round(width * dur / total)), width - lo))
+        bar = " " * lo + "#" * ln
+        a = node.get("attrs", {})
+        mark = ""
+        if a.get("outcome"):
+            mark = f" [{a['outcome']}{'+hedge' if a.get('hedge') else ''}]"
+        if node.get("error"):
+            mark += " [error]"
+        label = "  " * depth + node.get("name", "?")
+        print(f"{label:<34.34} |{bar:<{width}}| {off:9.2f}ms "
+              f"{dur:8.2f}ms  {node.get('service', '?')}{mark}")
+        for c in node.get("children", ()):
+            walk(c, depth + 1)
+
+    for r in st["roots"]:
+        walk(r, 0)
 
 
 def cmd_doctor(args) -> int:
@@ -1420,6 +1488,17 @@ def main(argv: list[str] | None = None) -> int:
     pc = sub.add_parser("count", help="count documents in a corpus")
     pc.add_argument("corpus", nargs="+")
     pc.set_defaults(fn=cmd_count)
+
+    ptr = sub.add_parser(
+        "trace", help="distributed request traces: list known trace ids "
+                      "(store + TPU_IR_TELEMETRY_DIR span spool), or "
+                      "stitch one id's cross-process waterfall")
+    ptr.add_argument("trace_id", nargs="?", default=None,
+                     help="trace id to stitch (omit to list)")
+    ptr.add_argument("--json", action="store_true",
+                     help="print the stitched span tree as JSON instead "
+                          "of the ASCII waterfall")
+    ptr.set_defaults(fn=cmd_trace)
 
     pd = sub.add_parser(
         "docno", help="docid <-> docno mapping (TrecDocnoMapping CLI)")

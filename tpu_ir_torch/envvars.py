@@ -19,6 +19,22 @@ a choice outside its set raises.
                              injects nothing
     TPU_IR_TRACE             0 turns spans and every latency histogram off
                              (default 1; counters stay on)
+    TPU_IR_TRACE_SAMPLE      keep every N-th finished root span in the
+                             recent-traces ring, and every N-th minted trace
+                             the tail rule does not keep (default 1)
+    TPU_IR_TRACE_RING        capacity of the recent-traces ring (default 64)
+    TPU_IR_DISTTRACE         0 turns distributed request tracing off: no
+                             trace context is minted, adopted or sent, no
+                             span record is stored, exported or stitched
+                             (obs/disttrace.py; default 1)
+    TPU_IR_TRACE_TAIL        0 stops force-keeping slow, partial, degraded,
+                             hedged, shed and failed traces: they fall to
+                             the 1-in-TPU_IR_TRACE_SAMPLE dice as well
+                             (default 1)
+    TPU_IR_TELEMETRY_DIR     the telemetry spool directory: kept traces
+                             spool there as span batches, which `trace`
+                             stitches after the processes are gone (unset:
+                             no spool)
     TPU_IR_BATCH_LADDER      the coalescer's batch-size rungs (default
                              1,4,16: the JAX package's 1,4,16,64 less the
                              64 rung, which pays off only where a padded
@@ -149,7 +165,9 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_WAL_FSYNC_DOCS": (32, 1),
          "TPU_IR_H2D_CHUNK_BYTES": (64 << 20, 1),
          "TPU_IR_SCALE_MIN_REPLICAS": (1, 1),
-         "TPU_IR_SCALE_MAX_REPLICAS": (4, 1)}
+         "TPU_IR_SCALE_MAX_REPLICAS": (4, 1),
+         "TPU_IR_TRACE_SAMPLE": (1, 1),
+         "TPU_IR_TRACE_RING": (64, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
@@ -167,10 +185,12 @@ _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
            "TPU_IR_SLO_P99_MS": (250.0, 1.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
-         "TPU_IR_BATCH_LADDER": "1,4,16"}
+         "TPU_IR_BATCH_LADDER": "1,4,16",
+         "TPU_IR_TELEMETRY_DIR": None}
 _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
           "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True,
-          "TPU_IR_AUTOSCALE": False}
+          "TPU_IR_AUTOSCALE": False, "TPU_IR_DISTTRACE": True,
+          "TPU_IR_TRACE_TAIL": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

@@ -3,7 +3,8 @@ latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
 `fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
-`generation.*`, `load.*`, `router.*`, `scale.*`, `slo.*`, `forecast.*`),
+`generation.*`, `load.*`, `router.*`, `scale.*`, `disttrace.*`, `slo.*`,
+`forecast.*`),
 every latency histogram under its
 span or stage name. The declared names (gauges too) are registered at
 zero, so a report always shows them, observed or not. `hist_state()` and
@@ -122,6 +123,21 @@ SCALE_COUNTER_NAMES = ("scale.up", "scale.down", "scale.drain_inflight",
 # two-window breach rule
 SLO_COUNTER_NAMES = ("slo.good", "slo.bad", "slo.burn_breach")
 
+# distributed request tracing (obs/disttrace.py), the JAX names: minted
+# the trace contexts born here (router admission, or a frontend that is
+# its own edge); adopted those read off an incoming traceparent (a
+# worker: an adopted trace always exports, the minter keeps or drops);
+# spans_exported span records shipped off the process (an RPC answer's
+# piggyback or the spool); spans_dropped records a full trace could not
+# hold; kept_tail roots the tail rule kept (slow, partial, degraded,
+# hedged, shed, failed), kept_sampled those the 1-in-N dice kept,
+# dropped_sampled those it dropped; stitched whole traces assembled
+DISTTRACE_COUNTER_NAMES = (
+    "disttrace.minted", "disttrace.adopted", "disttrace.spans_exported",
+    "disttrace.spans_dropped", "disttrace.kept_tail",
+    "disttrace.kept_sampled", "disttrace.dropped_sampled",
+    "disttrace.stitched")
+
 # the autoscaler's scale-ups whose deciding signal was the forecast (the
 # JAX name; nothing publishes the forecast in the port, so it stays 0)
 FORECAST_COUNTER_NAMES = ("forecast.scaleups",)
@@ -143,7 +159,8 @@ DECLARED_COUNTERS = (
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
     + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES
-    + SCALE_COUNTER_NAMES + SLO_COUNTER_NAMES + FORECAST_COUNTER_NAMES)
+    + SCALE_COUNTER_NAMES + DISTTRACE_COUNTER_NAMES + SLO_COUNTER_NAMES
+    + FORECAST_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
 # frontend's start and inside each generation swap; load.* are
@@ -158,13 +175,16 @@ ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
 # the elastic fleet's: one drain (draining to the process's exit) and
 # one grow (spawn, warm-up and publish), in seconds like every histogram
 SCALE_STAGES = ("scale.drain_ms", "scale.warmup_ms")
+# one whole-trace stitch (the live store, the spool walk, the tree)
+DISTTRACE_STAGES = ("disttrace.stitch",)
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
                           "batch.precompile", "cache.lookup",
                           "ingest.flush", "ingest.replay", "merge.run",
                           "generation.swap", "ingest.freshness")
-                       + LOAD_STAGES + ROUTER_STAGES + SCALE_STAGES)
+                       + LOAD_STAGES + ROUTER_STAGES + SCALE_STAGES
+                       + DISTTRACE_STAGES)
 
 
 class TelemetryRegistry:

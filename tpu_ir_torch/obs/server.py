@@ -5,10 +5,13 @@ One stdlib `ThreadingHTTPServer` (daemon request threads, port 0 picks a
 free one) serves:
 
   POST /rpc/<name>   the instance's RPC handlers (`rpc_handlers`): a JSON
-                     body in, the handler's JSON out. 503 with `reason`
-                     and `level` when the handler sheds (Overloaded), 500
-                     with the repr of any other error, 404 for another
-                     route or an unknown handler, 400 for a malformed body.
+                     body in, the handler's JSON out. The caller's
+                     `traceparent` is adopted around the handler, and the
+                     answer carries this process's span records of that
+                     trace under `_trace`. 503 with `reason` and `level`
+                     when the handler sheds (Overloaded), 500 with the
+                     repr of any other error, 404 for another route or an
+                     unknown handler, 400 for a malformed body.
   GET  /healthz      liveness and the serving control plane: the newest
                      live frontend's breaker, ladder and queue depth, every
                      live frontend's stats, the ingest counters, the newest
@@ -18,16 +21,22 @@ free one) serves:
                      autoscaler's section under `autoscaler` (epoch,
                      lifecycle, hysteresis, its last decision), and the
                      instance's `extra_health` (a worker's identity).
+  GET  /slo          the SLO burn-rate windows (disttrace.slo_snapshot);
+                     `?format=html` a page of the same JSON.
+  GET  /trace        the trace ids this process stores.
+  GET  /trace/<id>   one trace stitched from the store and the spool;
+                     `?format=html` its waterfall; 404 for an unknown id.
 
-`/metrics`, the telemetry spool, the timeseries sampler, the HTML pages
-and trace-context adoption are not ported yet. The health keys are
-`tpu_ir`'s; those whose source the port lacks (`jobs_running`,
+`/metrics`, the cumulative telemetry spool, the timeseries sampler and
+the other HTML pages are not ported yet. The health keys are `tpu_ir`'s;
+those whose source the port lacks (`jobs_running`,
 `recompiles_last_60s`, `slow_queries_last_60s`) read None, the JAX
 package's own value when a source fails.
 """
 
 from __future__ import annotations
 
+import html
 import json
 import logging
 import os
@@ -35,8 +44,9 @@ import threading
 import time
 import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
+from . import disttrace
 from .registry import get_registry
 
 logger = logging.getLogger(__name__)
@@ -163,23 +173,104 @@ def health_snapshot() -> dict:
     return out
 
 
+# -- the HTML pages ----------------------------------------------------------
+
+_NAV_ROUTES = ("/healthz", "/slo?format=html", "/trace")
+
+_STYLE = ("<style>body{font-family:sans-serif;margin:1em}"
+          "table{border-collapse:collapse;margin:0 0 1.5em}"
+          "td,th{border:1px solid #999;padding:2px 8px;text-align:left}"
+          "th{background:#ddd}.pct{font-weight:bold}"
+          "pre{background:#f4f4f4;padding:8px;overflow-x:auto}"
+          ".nav{margin:0 0 1em}</style>")
+
+
+def _nav_html() -> str:
+    links = " &middot; ".join(
+        f"<a href='{r}'>{html.escape(r.split('?')[0])}</a>"
+        for r in _NAV_ROUTES)
+    return f"<p class='nav'>{links}</p>"
+
+
+def _json_page_html(title: str, obj) -> str:
+    """A JSON payload as a page: the nav row and the indented JSON."""
+    body = html.escape(json.dumps(obj, indent=2, default=repr))
+    return ("<!DOCTYPE html><html><head><meta charset='utf-8'>"
+            f"<title>{html.escape(title)}</title>{_STYLE}</head><body>"
+            f"<h1>{html.escape(title)}</h1>{_nav_html()}"
+            f"<pre>{body}</pre></body></html>")
+
+
+def _trace_waterfall_html(st: dict) -> str:
+    """/trace/<id>'s page: one row a span, indented by depth, with its bar
+    on the trace's shared timeline."""
+    total = max(float(st.get("dur_ms") or 0.0), 1e-9)
+    start0 = float(st.get("start_ms") or 0.0)
+    rows = []
+
+    def walk(node: dict, depth: int) -> None:
+        off = max(0.0, float(node.get("start_ms") or start0) - start0)
+        dur = float(node.get("dur_ms") or 0.0)
+        left = round(100.0 * off / total, 2)
+        width = max(round(100.0 * dur / total, 2), 0.3)
+        label = ("&nbsp;" * (depth * 3)) + html.escape(
+            str(node.get("name", "?")))
+        attrs = node.get("attrs") or {}
+        att = html.escape(", ".join(f"{k}={v}"
+                                    for k, v in sorted(attrs.items())))
+        err = " style='color:#b00'" if node.get("error") else ""
+        rows.append(
+            f"<tr><td{err}>{label}</td>"
+            f"<td>{html.escape(str(node.get('service', '?')))}</td>"
+            f"<td>{node.get('dur_ms', 0.0)}</td>"
+            f"<td><div style='position:relative;height:12px;"
+            f"background:#eee'><div style='position:absolute;"
+            f"left:{left}%;width:{width}%;height:12px;background:#69c'>"
+            f"</div></div></td><td>{att}</td></tr>")
+        for c in node.get("children", ()):
+            walk(c, depth + 1)
+
+    for r in st.get("roots", ()):
+        walk(r, 0)
+    tid = html.escape(str(st.get("trace_id", "?")))
+    services = html.escape(", ".join(st.get("services", ())))
+    return ("<!DOCTYPE html><html><head><meta charset='utf-8'>"
+            f"<title>trace {tid}</title>{_STYLE}</head><body>"
+            f"<h1>trace {tid}</h1>{_nav_html()}"
+            f"<p>{st.get('span_count', 0)} spans &middot; "
+            f"{st.get('dur_ms', 0.0)} ms &middot; services: {services}</p>"
+            "<table style='width:100%'><tr><th>span</th><th>service</th>"
+            "<th>ms</th><th style='width:45%'>waterfall</th>"
+            "<th>attrs</th></tr>" + "".join(rows)
+            + "</table></body></html>")
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):  # the default prints to stderr
         logger.debug("obs-http: " + fmt, *args)
 
-    def _json(self, obj, code: int = 200) -> None:
-        body = json.dumps(obj, default=repr).encode("utf-8")
+    def _send(self, code: int, body: bytes, ctype: str) -> None:
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
 
+    def _json(self, obj, code: int = 200) -> None:
+        self._send(code, json.dumps(obj, default=repr).encode("utf-8"),
+                   "application/json")
+
+    def _html(self, page: str) -> None:
+        self._send(200, page.encode("utf-8"), "text/html; charset=utf-8")
+
     def do_POST(self) -> None:  # noqa: N802 — the stdlib handler contract
         """/rpc/<name>: the server instance's handler of that name (two
-        workers in one process keep separate tables)."""
+        workers in one process keep separate tables), run under the
+        caller's adopted trace context; its span records of that trace
+        ride back on the answer (`_trace`), so the router stitches with no
+        second round trip."""
         try:
             route = urlparse(self.path).path.rstrip("/")
             if not route.startswith("/rpc/"):
@@ -199,8 +290,14 @@ class _Handler(BaseHTTPRequestHandler):
             except ValueError:
                 self._json({"error": "malformed JSON body"}, code=400)
                 return
+            ctx = disttrace.adopt(self.headers.get("traceparent"))
             try:
-                out = fn(payload)
+                with disttrace.use(ctx):
+                    out = fn(payload)
+                if ctx is not None and isinstance(out, dict):
+                    batch = disttrace.piggyback(ctx.trace_id)
+                    if batch:
+                        out["_trace"] = batch
             except Exception as e:  # noqa: BLE001 — classified below
                 # a shed is structure (retry elsewhere), anything else a
                 # replica failure
@@ -223,15 +320,34 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self) -> None:  # noqa: N802 — the stdlib handler contract
         try:
-            route = urlparse(self.path).path.rstrip("/") or "/"
-            if route != "/healthz":
+            url = urlparse(self.path)
+            route = url.path.rstrip("/") or "/"
+            as_html = parse_qs(url.query).get("format", [""])[0] == "html"
+            if route == "/healthz":
+                payload = health_snapshot()
+                extra = self.server.extra_health
+                if extra is not None:
+                    payload.update(extra() if callable(extra) else extra)
+                self._json(payload)
+            elif route == "/slo":
+                slo = disttrace.slo_snapshot()
+                if as_html:
+                    self._html(_json_page_html("tpu-ir slo", slo))
+                else:
+                    self._json(slo)
+            elif route == "/trace":
+                self._json({"traces": disttrace.trace_ids()})
+            elif route.startswith("/trace/"):
+                tid = route.split("/", 2)[2]
+                st = disttrace.stitch(tid)
+                if st is None:
+                    self._json({"error": f"no trace {tid!r}"}, code=404)
+                elif as_html:
+                    self._html(_trace_waterfall_html(st))
+                else:
+                    self._json(st)
+            else:
                 self._json({"error": "unknown endpoint"}, code=404)
-                return
-            payload = health_snapshot()
-            extra = self.server.extra_health
-            if extra is not None:
-                payload.update(extra() if callable(extra) else extra)
-            self._json(payload)
         except BrokenPipeError:
             pass
         except Exception as e:  # noqa: BLE001 — a scrape never kills the

@@ -27,6 +27,12 @@ with an equal BatchKey (k, scoring, rerank, hot_only, force_host), while
 service level, queue wait and occupancy are tagged per slot, and exactly
 one slot of a batch carries the breaker's vote. A query's results in any
 padded batch are the bits of its solo dispatch.
+
+**Traces.** Each slot keeps its caller's trace context (the leader runs
+the batch on its own thread). After the dispatch, the shared dispatch is
+recorded once in every traced member's trace under one span id, the
+`batch_id` join, parented under that member's own context, with a
+`batch.slot` child holding the member's queue wait and the occupancy.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 
 from .. import envvars, obs
-from ..obs import get_registry
+from ..obs import disttrace, get_registry
 
 
 class BatchKey(NamedTuple):
@@ -61,7 +67,7 @@ class _Slot:
     The leader writes the result before it sets the event."""
 
     __slots__ = ("text", "key", "explain_k", "t_enqueue", "event", "state",
-                 "result", "error")
+                 "result", "error", "ctx")
 
     def __init__(self, text: str, key: BatchKey, explain_k: int):
         self.text = text
@@ -72,6 +78,9 @@ class _Slot:
         self.state = None
         self.result = None
         self.error = None
+        # the submitter's trace context, read on its own thread: the leader
+        # runs the batch on another, whose context is its own request's
+        self.ctx = disttrace.current()
 
 
 def batch_ladder() -> tuple:
@@ -251,6 +260,7 @@ class CoalescingScheduler:
             reg.observe("batch.occupancy", float(b))
             for s in slots:
                 reg.observe("batch.wait", t0 - s.t_enqueue)
+        t_dispatch = time.perf_counter()
         try:
             results = self._scorer.search_batch(
                 [s.text for s in slots], k=key.k, scoring=key.scoring,
@@ -260,11 +270,13 @@ class CoalescingScheduler:
                 pad_to=self._rung(b), width_floor=self._width,
                 rung_ladder=self._ladder)
         except BaseException as e:  # delivered, not swallowed: every
+            self._trace_batch(slots, t0, t_dispatch, error=repr(e))
             for s in slots:         # slot's caller re-raises it
                 s.error = e
                 s.state = "error"
                 s.event.set()
             return
+        self._trace_batch(slots, t0, t_dispatch)
         with self._lock:
             self._batches += 1
             if b > 1:
@@ -280,6 +292,37 @@ class CoalescingScheduler:
             s.result = res
             s.state = "done"
             s.event.set()
+
+    def _trace_batch(self, slots: list[_Slot], t0: float,
+                     t_dispatch: float, error: str | None = None) -> None:
+        """Record the shared dispatch in every traced member's trace under
+        one span id (the batch_id join), parented under that member's own
+        context, with a `batch.slot` child holding its queue wait (from
+        its enqueue to the batch's start, `t0`) and the occupancy. Nothing
+        when no member is traced."""
+        traced = [(i, s) for i, s in enumerate(slots) if s.ctx is not None]
+        if not traced:
+            return
+        b = len(slots)
+        dispatch_ms = (time.perf_counter() - t_dispatch) * 1e3
+        start_ms = time.time() * 1e3 - dispatch_ms
+        batch_id = disttrace.new_span_id()
+        leader_trace = (slots[0].ctx.trace_id
+                        if slots[0].ctx is not None else None)
+        for i, s in traced:
+            disttrace.add_span(
+                s.ctx.trace_id, "batch.dispatch", span_id=batch_id,
+                parent_id=s.ctx.span_id, start_ms=start_ms,
+                dur_ms=dispatch_ms,
+                attrs={"batch_id": batch_id, "occupancy": b,
+                       "leader_trace": leader_trace, "leader": i == 0},
+                error=error)
+            disttrace.add_span(
+                s.ctx.trace_id, "batch.slot", parent_id=batch_id,
+                start_ms=start_ms, dur_ms=dispatch_ms,
+                attrs={"slot": i,
+                       "queue_wait_ms": round((t0 - s.t_enqueue) * 1e3, 3),
+                       "batch_occupancy": b})
 
     # -- warm-up and introspection -----------------------------------------
 

@@ -24,9 +24,13 @@ degradation ladder and a circuit breaker around one Scorer (the port of
   ahead of admission.
 
 Thread-safe: one frontend is shared by many request threads, and owns
-no threads of its own. Not ported here: the health-source registration
-of the metrics server, the query log's request context and distributed
-tracing (a response's `trace_id` stays None).
+no threads of its own. A request under no trace context (no router, no
+worker RPC) mints one when distributed tracing is on (obs/disttrace.py):
+the frontend is then its own edge, stamps the answer's `trace_id` and
+records the request in the SLO windows; under an adopted context (a
+worker's RPC) it joins the caller's trace and mints none. Not ported
+here: the health-source registration of the metrics server and the query
+log's request context.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import time
 from dataclasses import dataclass
 
 from .. import obs
+from ..obs import disttrace
 from ..obs import trace as obs_trace
 from ..utils.report import RecoveryCounters, serving_counters
 from .admission import AdmissionController, Overloaded
@@ -295,7 +300,14 @@ class ServingFrontend:
         self._count("submitted")
         # one read of the (scorer, batcher) pair for the whole request
         scorer, batcher = self._serving
-        with obs_trace("request", scoring=scoring) as root:
+        # the trace: the caller's (a worker's adopted RPC context), or one
+        # minted here when this frontend is the request's edge
+        ctx = disttrace.current()
+        minted = ctx is None and disttrace.enabled()
+        if minted:
+            ctx = disttrace.mint()
+        with disttrace.use(ctx if minted else None), \
+                obs_trace("request", scoring=scoring) as root:
             with obs_trace("ladder") as lsp:
                 level = self.ladder.level()
                 lsp.set("level", level)
@@ -308,6 +320,10 @@ class ServingFrontend:
                                     failed=False)
                 self._observe_latency("request.shed", t0)
                 root.set("shed", True)
+                if minted:
+                    disttrace.slo_record(
+                        "shed", (time.perf_counter() - t0) * 1e3,
+                        ok=False, classification="shed")
                 raise Overloaded("shed_level",
                                  queue_depth=self.admission.queue_depth(),
                                  level=level)
@@ -326,9 +342,14 @@ class ServingFrontend:
                     res = SearchResult(hit)
                     res.level = level
                     res.generation = scorer.generation
+                    res.trace_id = ctx.trace_id if ctx is not None else None
                     root.set("cached", True)
                     self._count("served_cache")
                     self._observe_latency(f"request.{level}", t0)
+                    if minted:
+                        disttrace.slo_record(
+                            level, (time.perf_counter() - t0) * 1e3,
+                            classification="full")
                     return res
             timeout = (self.config.queue_timeout_s
                        if self.config.queue_timeout_s is not None
@@ -353,8 +374,19 @@ class ServingFrontend:
                     # already limit an entry to requests routed the same
                     self.cache.put(cache_key, tuple(res),
                                    generation=res.generation)
+                res.trace_id = ctx.trace_id if ctx is not None else None
+                # degraded and partial roots are the tail rule's: their
+                # traces survive the sampling
                 root.set("degraded", bool(res.degraded))
+                if res.partial:
+                    root.set("partial", True)
                 self._observe_latency(f"request.{level}", t0)
+                if minted:
+                    cls = ("degraded" if res.degraded
+                           else "partial" if res.partial else "full")
+                    disttrace.slo_record(
+                        res.level, (time.perf_counter() - t0) * 1e3,
+                        classification=cls)
                 return res
             except Overloaded as e:
                 # only admission sheds reach here (queue_full or
@@ -363,6 +395,10 @@ class ServingFrontend:
                 self.ladder.observe(pressure=1.0, failed=False)
                 self._observe_latency("request.shed", t0)
                 root.set("shed", True)
+                if minted:
+                    disttrace.slo_record(
+                        "shed", (time.perf_counter() - t0) * 1e3,
+                        ok=False, classification="shed")
                 raise
 
     def _cache_key(self, scorer, text: str, *, k: int, scoring: str,

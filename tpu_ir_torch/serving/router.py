@@ -45,8 +45,15 @@ Telemetry: the `router.*` counters, the `router.request`,
 `router.shard_rtt` and `router.merge` histograms (obs/registry.py), one
 SLO record a finished request (obs/disttrace.py::slo_record: a cache hit,
 either shed, a served answer), and the aggregated /healthz
-(obs/server.py::register_router). Not ported (ROADMAP item 8): the
-distributed trace each request mints, and the query log.
+(obs/server.py::register_router). Every request past the cache mints a
+distributed trace at admission (obs/disttrace.py): its `request` root
+holds `admission_wait`; each replica attempt is an `rpc.<path>` record
+(shard, replica, addr, hedge) made at submit, which carries its own
+context to the worker as `traceparent`, gets its true duration and ok or
+error when the call returns, the worker's piggybacked records folded in
+beside it, and one verdict at harvest: won, lost, failed, cancelled or
+deadline. The answer's `trace_id` names the trace. Not ported (ROADMAP
+item 8b): the query log.
 """
 
 from __future__ import annotations
@@ -298,26 +305,48 @@ class Router:
         return info["mapping"]
 
     def _call_replica(self, shard: int, replica: int, addr: str,
-                      path: str, payload: dict, timeout_s: float):
+                      path: str, payload: dict, timeout_s: float,
+                      ctx=None):
         """One replica attempt through shardset.rpc_post, with its breaker
-        verdict and round-trip sample. Returns (ok, answer or error)."""
+        verdict and round-trip sample. Returns (ok, answer or error).
+        `ctx` is the attempt's trace context: it goes out as
+        `traceparent`, the attempt's record (made at submit) gets the true
+        duration and ok or error, and the worker's records on the answer
+        (`_trace`) go into this process's store."""
         from .shardset import rpc_post
 
         breaker = self._breaker(shard, replica)
         allowed, is_probe = breaker.allow_device()
         if not allowed:
+            if ctx is not None:
+                disttrace.annotate(ctx.trace_id, ctx.span_id,
+                                   ok=False, error="breaker_open")
             return False, "breaker_open"
+        headers = ({"traceparent": ctx.to_header()}
+                   if ctx is not None else None)
         t0 = time.perf_counter()
         try:
             data = rpc_post(addr, path, payload, timeout_s,
-                            connect_timeout_s=self._connect_s)
+                            connect_timeout_s=self._connect_s,
+                            headers=headers)
         except BaseException as e:  # noqa: BLE001 — every failure is the
             # replica's verdict (refused, reset, timeout, 5xx, shed)
             if breaker.record_failure(is_probe=is_probe):
                 get_registry().incr("router.breaker_opened")
             get_registry().incr("router.replica_failed")
+            if ctx is not None:
+                disttrace.annotate(
+                    ctx.trace_id, ctx.span_id,
+                    dur_ms=(time.perf_counter() - t0) * 1e3,
+                    ok=False, error=repr(e))
             return False, repr(e)
         rtt = time.perf_counter() - t0
+        if ctx is not None:
+            disttrace.annotate(ctx.trace_id, ctx.span_id,
+                               dur_ms=rtt * 1e3, ok=True)
+            if isinstance(data, dict):
+                # live stitching: the worker's records join the store
+                disttrace.ingest_remote(data.pop("_trace", None))
         breaker.record_success(is_probe=is_probe)
         # a replica that went draining while this call was in flight still
         # answers (drain-not-drop), but its round trip must not feed the
@@ -384,6 +413,11 @@ class Router:
         grid = self._topology()
         deadline = time.monotonic() + self._deadline_s
         hedge_delay = {s: self._hedge_delay_s(s) for s in shards}
+        # the request's trace, read on this (the caller's) thread: the
+        # pool's threads never see it, so each attempt's context derives
+        # from this handle
+        ctx = disttrace.current()
+        tid = ctx.trace_id if ctx is not None else None
 
         class _ShardJob:
             __slots__ = ("order", "next_i", "futs", "t0", "hedged",
@@ -392,7 +426,8 @@ class Router:
             def __init__(self):
                 self.order: list = []
                 self.next_i = 0
-                self.futs: list = []   # (replica, future, is_hedge)
+                # (replica, future, is_hedge, attempt span id)
+                self.futs: list = []
                 self.t0 = time.monotonic()
                 self.hedged = False
                 self.result = None
@@ -409,7 +444,7 @@ class Router:
             job.order = self._replica_order(s, avail)
             jobs[s] = job
             self._submit_next(s, job, grid, path, payload_of(s),
-                              deadline, is_hedge=False)
+                              deadline, is_hedge=False, ctx=ctx)
 
         while True:
             now = time.monotonic()
@@ -420,22 +455,31 @@ class Router:
                 # harvest: the first success wins; a failure moves on to
                 # the next replica at once (failover, not the timed hedge)
                 still = []
-                for replica, fut, is_hedge in job.futs:
+                for replica, fut, is_hedge, sid in job.futs:
                     if not fut.done():
-                        still.append((replica, fut, is_hedge))
+                        still.append((replica, fut, is_hedge, sid))
                         continue
                     ok, data = fut.result()
                     if ok and job.result is None:
                         job.result = data
                         if is_hedge:
                             get_registry().incr("router.hedge_won")
+                        disttrace.annotate(tid, sid, outcome="won",
+                                           hedge=is_hedge)
+                    elif ok:
+                        # a correct answer after another attempt won
+                        disttrace.annotate(tid, sid, outcome="lost",
+                                           hedge=is_hedge)
+                    else:
+                        disttrace.annotate(tid, sid, outcome="failed",
+                                           hedge=is_hedge)
                 job.futs = still
                 if job.result is not None:
                     continue
                 if not job.futs and job.next_i < len(job.order):
                     # every attempt in flight failed: fail over now
                     self._submit_next(s, job, grid, path, payload_of(s),
-                                      deadline, is_hedge=False)
+                                      deadline, is_hedge=False, ctx=ctx)
                 elif (not job.hedged and job.futs
                         and now - job.t0 >= hedge_delay[s]
                         and job.next_i < len(job.order)):
@@ -445,8 +489,8 @@ class Router:
                     job.hedges += 1
                     get_registry().incr("router.hedge_fired")
                     self._submit_next(s, job, grid, path, payload_of(s),
-                                      deadline, is_hedge=True)
-                pending.extend(f for _, f, _ in job.futs)
+                                      deadline, is_hedge=True, ctx=ctx)
+                pending.extend(f for _, f, _, _ in job.futs)
             unresolved = [s for s, j in jobs.items() if j.result is None]
             if not unresolved or now >= deadline:
                 break
@@ -466,12 +510,21 @@ class Router:
             wait(pending, timeout=max(
                 0.001, min(next_hedge, deadline) - time.monotonic()),
                 return_when=FIRST_COMPLETED)
+        if tid is not None:
+            # attempts still in flight: a winner made them moot, or the
+            # deadline passed under them (why the answer went partial)
+            for s, job in jobs.items():
+                for _, _, is_hedge, sid in job.futs:
+                    disttrace.annotate(
+                        tid, sid, hedge=is_hedge,
+                        outcome=("cancelled" if job.result is not None
+                                 else "deadline"))
         return {s: (j.result, j.hedges) for s, j in jobs.items()
                 if j.result is not None}
 
     def _submit_next(self, shard: int, job, grid, path: str,
                      payload: dict, deadline: float, *,
-                     is_hedge: bool) -> None:
+                     is_hedge: bool, ctx=None) -> None:
         if job.next_i >= len(job.order):
             return
         replica = job.order[job.next_i]
@@ -480,9 +533,19 @@ class Router:
         # the attempt's read budget: what is left of the deadline
         timeout_s = min(max(deadline - time.monotonic(), 1e-3),
                         self._deadline_s)
+        # the attempt's record is made at submit (its duration and verdict
+        # come later), so an attempt cancelled in flight still shows
+        actx = disttrace.child(ctx)
+        sid = None
+        if actx is not None:
+            sid = disttrace.add_span(
+                actx.trace_id, f"rpc.{path}", span_id=actx.span_id,
+                parent_id=actx.parent_id,
+                attrs={"shard": shard, "replica": replica,
+                       "addr": addr, "hedge": is_hedge})
         fut = self._pool.submit(self._call_replica, shard, replica,
-                                addr, path, payload, timeout_s)
-        job.futs.append((replica, fut, is_hedge))
+                                addr, path, payload, timeout_s, actx)
+        job.futs.append((replica, fut, is_hedge, sid))
 
     # -- the request path --------------------------------------------------
 
@@ -517,7 +580,12 @@ class Router:
                     res.level, (time.perf_counter() - t0) * 1e3,
                     classification=self.classify(res))
                 return res
-        with obs_trace("request", scoring=scoring, router=True) as root:
+        # the trace is minted here, at admission, the one process that
+        # sees the whole request; installed on this thread, the attempts'
+        # contexts and the root's keep-or-drop key off it
+        ctx = disttrace.mint()
+        with disttrace.use(ctx), \
+                obs_trace("request", scoring=scoring, router=True) as root:
             try:
                 admit = self.admission.admit(
                     queue_timeout_s=self._deadline_s)
@@ -550,6 +618,7 @@ class Router:
             root.set("level", res.level)
             root.set("degraded", bool(res.degraded))
             root.set("hedges", int(res.hedges))
+        res.trace_id = ctx.trace_id if ctx is not None else None
         if self.cache is not None:
             # the newest generation to win a merge moves the key space
             self.cache.bump_generation(int(res.generation))

@@ -98,12 +98,14 @@ class RPCShedError(RPCStatusError):
 
 
 def rpc_post(addr: str, path: str, payload: dict, timeout_s: float, *,
-             connect_timeout_s: float | None = None) -> dict:
+             connect_timeout_s: float | None = None,
+             headers: dict | None = None) -> dict:
     """One worker RPC: POST `payload` as JSON to http://addr/rpc/<path>
     and return the JSON answer. The one client of the worker surface
     (the router's fan-out, rolling swaps, tests). `connect_timeout_s`
     (None: `timeout_s`) bounds the TCP connect, `timeout_s` each read
-    after it. Raises RPCConnectError when the connect fails,
+    after it; `headers` go beside Content-Type (the router's
+    `traceparent`). Raises RPCConnectError when the connect fails,
     RPCShedError on a 503 shed, RPCStatusError on another status, and
     the socket's error when the exchange breaks after the connect; the
     caller decides what a failure means."""
@@ -121,7 +123,8 @@ def rpc_post(addr: str, path: str, payload: dict, timeout_s: float, *,
             raise RPCConnectError(f"worker {addr} unreachable: {e!r}") from e
         conn.sock.settimeout(timeout_s)
         conn.request("POST", f"/rpc/{path}", body=json.dumps(payload),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         body = resp.read()
         if resp.status == 503:

@@ -35,9 +35,10 @@ live index's SIGKILL crash matrix spawns, `_spawn_feeder`): it feeds
 `_feed_doc`s, or an ops file's adds, updates and deletes, through an
 IngestWriter and dies by SIGKILL at a fault site.
 
-Not ported (ROADMAP item 8): the soaks' progress jobs and flight records,
-the distributed soak's trace join and its `slo` section, and the
-forecaster the JAX soak drives for a forecast-armed autoscaler.
+Not ported (ROADMAP item 8): the soaks' progress jobs and flight records
+(an invariant breach of the distributed soak logs a warning where
+`tpu_ir` writes one), and the forecaster the JAX soak drives for a
+forecast-armed autoscaler.
 """
 
 from __future__ import annotations
@@ -126,6 +127,136 @@ def _cache_delta(before: dict) -> dict:
     out["hit_fraction"] = (round(out["hit"] / looked, 4)
                            if looked else 0.0)
     return out
+
+
+def _walk_spans(nodes):
+    """Depth first over a stitched trace's span trees."""
+    for n in nodes:
+        yield n
+        yield from _walk_spans(n.get("children", ()))
+
+
+def _trace_shape_ok(st: dict, res) -> tuple[bool, str]:
+    """Does one stitched trace explain the answer it belongs to? One root
+    (the router's admission span); a verdict on every RPC attempt; at
+    least as many hedged attempts as the answer counts (a hedge on a
+    shard that then missed the deadline counts in the trace, not in the
+    answer); for every shard that contributed, a winning `rpc.search`
+    and that worker's own `request` span. Returns (ok, why not)."""
+    if len(st["roots"]) != 1:
+        return False, "multi_root"
+    spans = list(_walk_spans(st["roots"]))
+    rpc = [s for s in spans if s["name"].startswith("rpc.")]
+    if any(not s.get("attrs", {}).get("outcome") for s in rpc):
+        return False, "attempt_without_outcome"
+    hedged = sum(1 for s in rpc if s.get("attrs", {}).get("hedge"))
+    if hedged < int(res.hedges):
+        return False, f"hedge_spans={hedged}<res.hedges={res.hedges}"
+    won = {s["attrs"].get("shard") for s in rpc
+           if s["name"] == "rpc.search"
+           and s["attrs"].get("outcome") == "won"}
+    if not set(res.shards_ok) <= won:
+        return False, "contributing_shard_without_winning_attempt"
+    worker_shards = set()
+    for s in spans:
+        svc = s.get("service", "")
+        if s["name"] == "request" and svc.startswith("worker-s"):
+            try:
+                worker_shards.add(int(svc[8:].split("r", 1)[0]))
+            except ValueError:
+                pass
+    if not set(res.shards_ok) <= worker_shards:
+        return False, "contributing_shard_without_worker_spans"
+    return True, ""
+
+
+def _disttrace_eval(outcomes: list) -> dict:
+    """The routed soak's trace join: every served answer with a trace id
+    stitches to one trace of the right shape (`_trace_shape_ok`), and no
+    partial, degraded or hedged answer's trace is missing. `violations`
+    above 0 is a breach."""
+    from ..obs import disttrace
+
+    traced = untraced = stitch_missing = tail_missing = 0
+    shape_bad = 0
+    span_counts: list = []
+    samples: list = []
+    for out in outcomes:
+        if out is None or out[0] != "ok":
+            continue
+        res = out[1]
+        tid = getattr(res, "trace_id", None)
+        if tid is None:
+            # a cache hit answers ahead of admission: nothing minted
+            untraced += 1
+            continue
+        traced += 1
+        st = disttrace.stitch(tid)
+        interesting = bool(res.partial or res.degraded or res.hedges)
+        if st is None:
+            stitch_missing += 1
+            tail_missing += interesting
+            if len(samples) < 5:
+                samples.append({"trace_id": tid, "why": "no_stitch"})
+            continue
+        span_counts.append(st["span_count"])
+        ok, why = _trace_shape_ok(st, res)
+        if not ok:
+            shape_bad += 1
+            if len(samples) < 5:
+                samples.append({"trace_id": tid, "why": why})
+    return {
+        "traced": traced,
+        "untraced_served": untraced,
+        "stitch_missing": stitch_missing,
+        "tail_missing": tail_missing,
+        "shape_violations": shape_bad,
+        "violations": stitch_missing + shape_bad,
+        "mean_spans": round(sum(span_counts) / len(span_counts), 2)
+        if span_counts else 0.0,
+        "violation_samples": samples,
+    }
+
+
+def _disttrace_overhead(mean_request_ms: float, n: int = 512) -> dict:
+    """What a request's trace bookkeeping costs (a mint, its install, one
+    attempt record and its verdict, an SLO record, the store's churn),
+    timed over `n` rounds with tracing on and off, beside this run's mean
+    served request."""
+    from ..obs import disttrace
+
+    def per_req_ms() -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ctx = disttrace.mint()
+            with disttrace.use(ctx):
+                if ctx is not None:
+                    c = disttrace.child(ctx)
+                    sid = disttrace.add_span(
+                        c.trace_id, "rpc.search", span_id=c.span_id,
+                        parent_id=c.parent_id, attrs={"shard": 0})
+                    disttrace.annotate(c.trace_id, sid, dur_ms=1.0,
+                                       outcome="won")
+                disttrace.slo_record("full", 1.0)
+                if ctx is not None:
+                    disttrace.drop(ctx.trace_id)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    was = disttrace.enabled()
+    try:
+        disttrace.configure(enabled=True)
+        enabled_ms = per_req_ms()
+        disttrace.configure(enabled=False)
+        disabled_ms = per_req_ms()
+    finally:
+        disttrace.configure(enabled=was)
+    base = max(mean_request_ms, 1e-6)
+    return {
+        "per_request_ms": round(enabled_ms, 6),
+        "per_request_disabled_ms": round(disabled_ms, 6),
+        "enabled_overhead_fraction": round(enabled_ms / base, 6),
+        "disabled_overhead_fraction": round(disabled_ms / base, 6),
+    }
 
 
 def _serial_reference(scorer, reqs: list[dict]) -> dict:
@@ -331,7 +462,15 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
       oracle (the whole positive ranking, filtered), not from the
       workers;
     - with a whole shard dead partial answers appear, and after the
-      respawn the recovery probes come back full.
+      respawn the recovery probes come back full;
+    - distributed traces (when on): every served answer that carries a
+      `trace_id` stitches to one trace whose shape explains it (one root,
+      a verdict on every attempt, at least as many hedged attempts as the
+      answer counts, a winning attempt and the worker's `request` span
+      for every shard that contributed), and no partial, degraded or
+      hedged answer's trace is missing; the `disttrace` section holds the
+      counts and the bookkeeping's cost beside a mean request, the `slo`
+      section the SLO windows after the run.
 
     The schedule is in fractions of completed requests: `kill_replica_at`
     SIGKILLs replica 1 of shard 0 (failover hides it), `kill_shard_at`
@@ -360,7 +499,7 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
     an autoscaler its snapshot and the first scale-up's time, reason and
     lead on the workload's first crest."""
     from ..index import segments as seg
-    from ..obs import get_registry
+    from ..obs import disttrace, get_registry
     from ..search.layout import shard_doc_ranges
     from ..search.scorer import Scorer
     from .router import Router, RouterConfig
@@ -427,6 +566,11 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                     return_docids=False)[0])
 
     reg = get_registry()
+    # keep every trace of this run and hold them all: the join below
+    # stitches each served answer's, which the 1-in-N dice and the store's
+    # default 256 traces would make racy (obs.reset_all restores both)
+    if disttrace.enabled():
+        disttrace.configure(sample=1, max_traces=len(reqs) + 64)
     hist_before = reg.hist_state()
     cache_before = _cache_counters_now()
     results: list = [None] * len(reqs)
@@ -820,6 +964,15 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                                  "router.merge")),
         "cache": _cache_delta(cache_before),
     }
+    # the trace join, the SLO windows as the run left them (read before
+    # the overhead rounds, whose SLO records would pollute them), and the
+    # bookkeeping's cost beside a mean served request
+    if disttrace.enabled():
+        report["disttrace"] = _disttrace_eval(outcomes)
+        report["slo"] = disttrace.slo_snapshot()
+        served_ms = [v for v in latencies if v is not None]
+        report["disttrace"]["overhead"] = _disttrace_overhead(
+            sum(served_ms) / len(served_ms) if served_ms else 0.0)
     if wl is not None:
         report["workload"] = wl.describe()
     # served latency in the workload's peak window (the whole run without
@@ -841,6 +994,16 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
             "mixed_generation_requests": router_delta.get(
                 "router.mixed_generation", 0),
         }
+    if (errors or deadlocked or full_mismatches or partial_mismatches
+            or unknown_generation or late_old_generation
+            or served + shed != len(reqs)
+            or report.get("disttrace", {}).get("violations", 0)):
+        # tpu_ir writes a flight record here; the port has no recorder
+        logger.warning("routed soak invariant breach: %s", {
+            k: report.get(k) for k in (
+                "submitted", "served", "shed", "errors", "deadlocked",
+                "full_mismatches", "partial_mismatches", "error_samples",
+                "disttrace")})
     return report
 
 
