@@ -86,7 +86,7 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 125 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 100 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
               '?'): 40 patterns of each held against a glob and a
@@ -311,7 +311,7 @@ code:
               cosine stage; 64 queries (32 uniform, 32 pairs of common
               terms) held bitwise against the boost recomputed in numpy
               from the position files;
-21. phrase    wiki100k: 100 quoted windows of 2-3 analyzed tokens of
+21. phrase    wiki100k: 80 quoted windows of 2-3 analyzed tokens of
               random docs (default_rng(12)), half with a free term, at
               slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
               20 phrases a slop held against a scan of the token streams
@@ -339,13 +339,42 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               submitted, no error, deadlock, untagged mismatch or
               degraded response, no forced host batch, kernels launched),
               then the same under DEFAULT_CHAOS_PLAN (every invariant but
-              `degraded`, and one degraded verdict in each shared batch);
+              `degraded`, and one degraded verdict in each shared batch,
+              seen by the scheduler and in the query log:
+              `batch_mixed_degraded` 0 over `batches_observed` > 0);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
               100 requests a level, BM25 and TF-IDF, twice each:
               solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
-              `unwarmed` (must be 0), and the repeats' spread; then one
-              request's latency past a 0.25 s deadline beside the open
-              breaker's.
+              `unwarmed` (must be 0), and the repeats' spread; on ref
+              `querylog_cost`: 400 BM25 requests from 16 clients, three
+              passes with the query log on and three off in turns (q/s
+              medians and spreads, the host cost of one entry; the ring
+              holds min(256, entries) and `querylog.recorded` counts
+              them); then one request's latency past a 0.25 s deadline
+              beside the open breaker's, and the `breaker_open` flight
+              record the opening wrote (header, trace and telemetry
+              lines, newest in the flight dir);
+26. querylog  on wiki100k one search_batch of 2,048 texts timed three
+              times with the query log on and three off, in turns; then
+              the slow-query trap on ref and wiki100k with every request
+              slow, through a ServingFrontend and through a plain
+              search_batch of 8 texts: the capture's span tree holds a
+              kernel span (the open request's, or the ring's), its
+              explain sums to the top score bit for bit, one `slow_query`
+              record whose header lists the offender (and the answer's
+              trace id through the frontend), a second probe within the
+              rate limit records but writes and explains nothing and
+              launches only the search's kernels; the explain's launches
+              (dense_score on ref, cold_tier and hot_stage on wiki100k)
+              and `querylog.slow_capture`'s p50.
+
+Every flight record of the run goes to a folder of its work dir
+(TPU_IR_FLIGHT_DIR). Phase 10's radix build is read through its progress
+job every 0.5 s (its percent never falls; it ends succeeded at 100 with
+its phases' tasks done), and `routed_soak` checks the query log: a router
+entry with a trace id for each served request, a worker's /querylog
+(over HTTP) holding some of those traces, and /jobs showing the soak's
+job succeeded at 100%.
 
 Host work that no phase times on the card runs in one spawned child
 beside the main path: the wiki100k corpus (during phases 2-9), the
@@ -897,12 +926,18 @@ def phase_build_streaming(card: str, work: str, *, device: str,
     dir is returned. For each build: wall s, docs/s, the phase timings
     of its job report, the radix spill bytes, peak host RSS and
     torch.cuda.max_memory_allocated. With `keep_corpus` the corpus stays
-    at work/<config>.trec (for phase_positions)."""
+    at work/<config>.trec (for phase_positions). The radix build's job
+    (obs/progress.py) is read every JOB_POLL_S while it runs: its percent
+    never falls, and it ends succeeded at 100 in finalize, with tasks done
+    in pass1_tokenize, pass2_combine and pass3_reduce and every phase that
+    declares a task count done with all of them (check_job_done); its
+    phases are printed."""
     import torch
 
     from tpu_ir_torch.corpus import make_corpus
     from tpu_ir_torch.index import build_index, build_index_streaming
     from tpu_ir_torch.index.verify import verify_index
+    from tpu_ir_torch.obs import progress
 
     corpus = os.path.join(work, f"{config}.trec")
     t0 = time.perf_counter()
@@ -930,8 +965,10 @@ def phase_build_streaming(card: str, work: str, *, device: str,
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        prof = None
+        prof = poll = None
         with PeakRss() as rss, contextlib.ExitStack() as stack:
+            if name == "radix":
+                poll = stack.enter_context(JobPoll())
             if on_card and name == "radix":
                 from torch.profiler import ProfilerActivity, profile
 
@@ -955,6 +992,18 @@ def phase_build_streaming(card: str, work: str, *, device: str,
                                         if on_card else None)}
         if prof is not None:
             row["pass2"] = pass2_device(prof)
+        if poll is not None:
+            job = [j for j in progress.jobs()
+                   if j.name == f"streaming:{os.path.basename(d)}"][-1]
+            job = job.to_dict()
+            check_percent_series(poll.percents + [job["percent"]])
+            check_job_done(job, ("pass1_tokenize", "pass2_combine",
+                                 "pass3_reduce", "finalize"))
+            row["job"] = {"polls": len(poll.percents),
+                          "percents": poll.percents,
+                          "state": job["state"],
+                          "percent": job["percent"],
+                          "phases": job["phases"]}
         out["builds"][name] = row
         digests[name] = artifact_digests(d)
     if not keep_corpus:
@@ -2140,10 +2189,11 @@ def phase_hot_stage(card: str, scorer, q_block: np.ndarray,
     return out
 
 
-WILDCARD_QUERIES = 125          # query texts of each wildcard mix (2,000
+WILDCARD_QUERIES = 100          # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
                                 # before the live phases, 500 before the
-                                # shard workers, 250 before the router)
+                                # shard workers, 250 before the router,
+                                # 125 before the query log's checks)
 EXPANSION_SAMPLE = 40          # patterns of a mix held against the oracles
                                # (200 before the run outgrew its time, 80
                                # before the routed attribution passes)
@@ -2567,6 +2617,13 @@ SWEEP_QUERIES = 100              # per level (2,000 before the merge, warm
                                  # attribution passes)
 SWEEP_REPEATS = 2                # sweeps per scoring, for the spread
 BREAKER_PROBES = 10              # breaker-open requests timed
+QUERYLOG_PASSES = 3              # passes with the query log on, and off, in
+                                 # turns, of each of its cost checks
+QUERYLOG_PASS_TEXTS = 400        # requests of one such pass of the ref sweep
+                                 # at its top concurrency
+QUERYLOG_BATCH = 2_048           # texts of the wiki100k search_batch timed
+SLOW_PROBE_TEXTS = 8             # texts of the trap's plain search_batch
+JOB_POLL_S = 0.5                 # how often the build's job is read
 
 
 def launch_delta(before: dict) -> dict:
@@ -2730,7 +2787,9 @@ def phase_soak(card: str, scorer, *, config: str, device: str) -> dict:
     forced host batch, the layout's kernels launched), then the same
     under DEFAULT_CHAOS_PLAN, where every invariant but `degraded` holds
     and the slots of every shared batch carry one degraded verdict
-    (recorded by wrapping the scheduler's batch execution)."""
+    (recorded by wrapping the scheduler's batch execution, and from the
+    query log by the soak: `batch_mixed_degraded` 0 in both runs, over
+    `batches_observed` > 0 shared batches under the chaos)."""
     import tpu_ir_torch
     from tpu_ir_torch import faults
     from tpu_ir_torch.serving import (
@@ -2751,7 +2810,8 @@ def phase_soak(card: str, scorer, *, config: str, device: str) -> dict:
     summary = ("submitted", "served", "shed", "errors", "deadlocked",
                "degraded", "levels", "full_bitidentical",
                "tagged_divergent", "untagged_mismatches", "wall_s",
-               "recovery_delta", "latency", "batching")
+               "recovery_delta", "latency", "batching",
+               "batch_mixed_degraded", "batches_observed")
     out = {"phase": "soak", "card": card, "config": config,
            "threads": SOAK_THREADS, "queries": SOAK_QUERIES}
     cfg = dict(max_concurrency=4, max_queue=8, breaker_threshold=4,
@@ -2792,6 +2852,13 @@ def phase_soak(card: str, scorer, *, config: str, device: str) -> dict:
     invariants(chaos, "chaos")
     if not chaos["degraded"]:
         raise AssertionError("the chaos plan never bit")
+    if clean["batch_mixed_degraded"] or chaos["batch_mixed_degraded"] \
+            or not chaos["batches_observed"]:
+        raise AssertionError(
+            f"the query log's shared batches: clean "
+            f"{clean['batch_mixed_degraded']} mixed, chaos "
+            f"{chaos['batch_mixed_degraded']} mixed of "
+            f"{chaos['batches_observed']}")
     mixed = sum(1 for flags in shared if len(flags) > 1)
     if mixed:
         raise AssertionError(f"{mixed} shared batches mixed degraded and "
@@ -2828,6 +2895,164 @@ def closed_loop(fe, texts: list[str], clients: int, *, scoring: str,
         raise errors[0]
 
 
+# -- the query log, the slow-query trap, flight records and jobs -------------
+
+def span_names(tree: dict) -> set:
+    """The names of a span tree's spans (`Span.to_dict()` nesting)."""
+    out = {tree.get("name")}
+    for child in tree.get("children", ()):
+        out |= span_names(child)
+    return out
+
+
+def check_slow_capture(capture: dict, top_score: float, *,
+                       source: str | None) -> dict:
+    """A slow-query capture as the trap must leave it: a span tree holding
+    a `kernel` span, read from `source` (None: the request still open;
+    "ring": the trace ring's newest tree), and an explain of the top hit
+    whose float64 sum of contributions is its score, which is the
+    returned top score as float32 bits. Returns the explain entry."""
+    tree = capture.get("span_tree")
+    if not tree or "kernel" not in span_names(tree):
+        raise AssertionError(f"the capture's span tree holds no kernel "
+                             f"span: {tree}")
+    if capture.get("span_tree_source") != source:
+        raise AssertionError(f"the span tree came from "
+                             f"{capture.get('span_tree_source')!r}, "
+                             f"expected {source!r}")
+    explained = capture.get("explain")
+    if not explained:
+        raise AssertionError(f"the capture has no explain: "
+                             f"{capture.get('explain_error')}")
+    e = explained[0]
+    if not (e["contribution_sum"] == e["score"] == top_score
+            and np.float32(e["score"]).tobytes()
+            == np.float32(top_score).tobytes()):
+        raise AssertionError(f"the explain sums to {e['contribution_sum']} "
+                             f"for a score of {e['score']}, the search "
+                             f"returned {top_score}")
+    return e
+
+
+def read_flight_artifact(path: str, reason: str) -> dict:
+    """A flight record's lines checked: the header first (its reason
+    `reason`), at least one trace line, and exactly one telemetry line,
+    the last. Returns the header with the lines' counts."""
+    with open(path) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    if not lines or lines[0].get("record") != "header" \
+            or lines[0].get("reason") != reason:
+        raise AssertionError(f"{path}: no {reason!r} header line")
+    kinds = [line.get("record") for line in lines[1:]]
+    traces = kinds.count("trace")
+    if traces < 1 or kinds.count("telemetry") != 1 \
+            or kinds[-1] != "telemetry" \
+            or traces + 1 != len(kinds):
+        raise AssertionError(f"{path}: {traces} trace lines and "
+                             f"{kinds.count('telemetry')} telemetry lines "
+                             f"in {len(kinds)}")
+    return {**lines[0], "trace_lines": traces}
+
+
+def check_percent_series(series: list) -> None:
+    """A job's percent as its poller read it: never falling."""
+    for a, b in zip(series, series[1:]):
+        if b < a:
+            raise AssertionError(f"the job's percent fell from {a} to {b}: "
+                                 f"{series}")
+
+
+def check_job_done(job: dict, phases: tuple) -> None:
+    """A finished job: succeeded at 100% in its last phase of `phases`,
+    each earlier one with tasks done, and each phase that declared a
+    task count done with all of them (`tpu_ir`'s builds declare none for
+    pass 1 of a fresh build and for finalize)."""
+    if job["state"] != "succeeded" or job["percent"] != 100.0 \
+            or job["current_phase"] != phases[-1]:
+        raise AssertionError(f"the job ended {job['state']} at "
+                             f"{job['percent']}% in "
+                             f"{job['current_phase']!r}: {job}")
+    rows = {p["phase"]: p for p in job["phases"]}
+    idle = [p for p in phases[:-1] if rows.get(p, {}).get("done", 0) == 0]
+    short = [p["phase"] for p in job["phases"]
+             if p["total"] is not None and p["done"] != p["total"]]
+    if idle or short:
+        raise AssertionError(f"the job's phases: no task done in {idle}, "
+                             f"unfinished {short}: {job['phases']}")
+
+
+class JobPoll:
+    """Read the newest running job (obs/progress.py) every JOB_POLL_S on
+    a thread, keeping each read's percent."""
+
+    def __init__(self):
+        import threading
+
+        self.percents: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        from tpu_ir_torch.obs import progress
+
+        while not self._stop.wait(JOB_POLL_S):
+            job = progress.current_job()
+            if job is not None:
+                self.percents.append(job.to_dict()["percent"])
+
+    def __enter__(self) -> "JobPoll":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def flight_files(d: str) -> set:
+    try:
+        return {n for n in os.listdir(d) if n.startswith("flight-")}
+    except OSError:
+        return set()
+
+
+def querylog_passes(run, entries: int) -> dict:
+    """`run()` timed QUERYLOG_PASSES times with the query log on and as
+    often off, in turns (on first), each pass on an empty ring. After an
+    `on` pass the ring must hold min(its capacity, `entries`) and
+    `querylog.recorded` must have counted `entries` kept entries; after
+    an `off` pass none. Returns each arm's seconds, their medians and
+    spreads (greatest less least), and the host cost of one entry,
+    (on - off) / entries, from the medians, in µs."""
+    from tpu_ir_torch.obs import get_registry, querylog
+
+    reg = get_registry()
+    cap = querylog.summary()["ring"]["capacity"]
+    walls = {"on": [], "off": []}
+    try:
+        for i in range(2 * QUERYLOG_PASSES):
+            arm = "on" if i % 2 == 0 else "off"
+            querylog.configure(enabled=arm == "on")
+            querylog.clear()
+            kept0 = reg.get("querylog.recorded")
+            t0 = time.perf_counter()
+            run()
+            walls[arm].append(time.perf_counter() - t0)
+            kept = reg.get("querylog.recorded") - kept0
+            ring = len(querylog.recent())
+            want = (entries, min(cap, entries)) if arm == "on" else (0, 0)
+            if (kept, ring) != want:
+                raise AssertionError(f"query log {arm}: {kept} kept, {ring} "
+                                     f"in the ring, expected {want}")
+    finally:
+        querylog.configure(enabled=True)
+    med = {a: float(np.median(w)) for a, w in walls.items()}
+    return {"entries": entries, "ring_capacity": cap, "walls_s": walls,
+            "median_s": med,
+            "spread_s": {a: max(w) - min(w) for a, w in walls.items()},
+            "entry_cost_us": (med["on"] - med["off"]) / entries * 1e6}
+
+
 def phase_sweep(card: str, scorer, *, config: str, device: str,
                 k: int = 10) -> dict:
     """run_concurrency_sweep at SWEEP_LEVELS through a coalescing frontend,
@@ -2838,8 +3063,16 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
     idle share of the top level's BM25 traffic (closed_loop, profiled);
     then one request's latency when its dispatch hangs past a 0.25 s
     deadline beside the median latency of BREAKER_PROBES requests once
-    the breaker is open (the host answers without a dispatch)."""
-    from tpu_ir_torch import faults
+    the breaker is open (the host answers without a dispatch), and the
+    `breaker_open` flight record the opening writes (the rate limit reset
+    first): its header, trace and telemetry lines, and first in
+    recent_headers of the flight dir. On ref, the query log's cost at the
+    top level first: QUERYLOG_PASS_TEXTS BM25 requests through a
+    coalescing frontend by as many clients, QUERYLOG_PASSES passes with
+    the log on and off in turns (querylog_passes: q/s medians, spreads,
+    the host cost of an entry)."""
+    from tpu_ir_torch import faults, obs
+    from tpu_ir_torch.obs.recorder import flight_dir, recent_headers
     from tpu_ir_torch.serving import (
         ServingConfig,
         ServingFrontend,
@@ -2882,11 +3115,28 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
         texts = _sweep_queries(scorer, SWEEP_QUERIES, seed=0)
         out["profile_top_level"] = profile_call(
             lambda: closed_loop(fe, texts, top, scoring="bm25", k=k))
+    if config == "ref":
+        top = max(SWEEP_LEVELS)
+        fe = ServingFrontend(scorer, ServingConfig(
+            max_concurrency=top, max_queue=2 * top, coalesce=True))
+        texts = _sweep_queries(scorer, QUERYLOG_PASS_TEXTS, seed=2)
+        closed_loop(fe, texts, top, scoring="bm25", k=k)   # warm
+        cost = querylog_passes(
+            lambda: closed_loop(fe, texts, top, scoring="bm25", k=k),
+            len(texts))
+        cost["qps"] = {a: [len(texts) / w for w in cost["walls_s"][a]]
+                       for a in ("on", "off")}
+        cost["qps_median"] = {a: float(np.median(v))
+                              for a, v in cost["qps"].items()}
+        cost["concurrency"] = top
+        out["querylog_cost"] = cost
     deadline = 0.25
     fe = ServingFrontend(scorer, ServingConfig(
         deadline_s=deadline, breaker_threshold=1, breaker_cooldown_s=300.0,
         fail_threshold=1 << 30))
     texts = serving_texts(scorer, BREAKER_PROBES + 1, seed=9)
+    obs.reset_rate_limit()
+    records = flight_files(flight_dir())
     faults.install(faults.FaultPlan().add("score.hang", "always",
                                           sleep_s=1.0))
     try:
@@ -2896,6 +3146,15 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
         if not first.degraded or fe.breaker.state != "open":
             raise AssertionError("a hung dispatch must expire its deadline "
                                  "and open the breaker")
+        new = flight_files(flight_dir()) - records
+        newest = recent_headers(flight_dir())
+        if len(new) != 1 or not newest \
+                or os.path.basename(newest[0]["path"]) not in new:
+            raise AssertionError(f"the breaker's opening wrote {sorted(new)}"
+                                 f"; newest {newest[:1]}")
+        header = read_flight_artifact(newest[0]["path"], "breaker_open")
+        if header["extra"]["breaker"]["state"] != "open":
+            raise AssertionError(f"the breaker record: {header['extra']}")
         lat = []
         for text in texts[1:]:
             t0 = time.perf_counter()
@@ -2909,16 +3168,175 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
     out["deadline_expiry_ms"] = expiry_ms
     out["breaker_open_ms"] = float(np.median(lat))
     out["breaker_open_requests"] = len(lat)
+    out["breaker_flight_record"] = {
+        "path": newest[0]["path"],
+        **{n: header[n] for n in ("reason", "seq", "trace_lines")}}
+    return out
+
+
+def trap_probe(search, *, admitted: bool, captures: int) -> dict:
+    """One search with the slow-query trap armed for every request: the
+    result, its wall ms, the kernel launches it made, the `captures` slow
+    captures it left (oldest first) and the flight records it wrote.
+    `admitted` resets the flight recorder's rate limit first."""
+    import tpu_ir_torch
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import querylog
+    from tpu_ir_torch.obs.recorder import flight_dir
+
+    if admitted:
+        obs.reset_rate_limit()
+    seq0 = max((c["seq"] for c in querylog.slow_recent()), default=0)
+    records = flight_files(flight_dir())
+    before = tpu_ir_torch.kernel_launches()
+    t0 = time.perf_counter()
+    res = search()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_delta(before)
+    caps = [c for c in querylog.slow_recent() if c["seq"] > seq0]
+    if len(caps) != captures:
+        raise AssertionError(f"{len(caps)} slow captures, expected "
+                             f"{captures}")
+    return {"result": res, "wall_ms": wall_ms, "launches": launches,
+            "captures": caps,
+            "records": sorted(flight_files(flight_dir()) - records)}
+
+
+def slow_trap(scorer, *, config: str, path: str, k: int = 10) -> dict:
+    """The slow-query trap on one path: (a) "frontend", one
+    ServingFrontend.search, whose capture reads the open request's tree;
+    (b) "search_batch", one plain call of SLOW_PROBE_TEXTS texts, whose
+    capture reads the ring's newest tree. The same search runs first with
+    the trap off (its own launches); then the trap trips with the rate
+    limit reset: one `slow_query` record (its header carries the
+    offender's query_hash, on (a) the answer's trace id; a telemetry line
+    and trace lines), the explain bitwise the top score, and the
+    explain's launches the probe's less the search's own; then once more
+    within TPU_IR_FLIGHT_INTERVAL: the entries recorded and captured, no
+    record, no explain and no launch beyond the search's own. Both
+    probes' wall ms are reported: their difference is what the admitted
+    capture (span tree, explain, record) cost."""
+    import tpu_ir_torch
+    from tpu_ir_torch.obs import querylog
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    # from the fifth text on: the first explained one holds five terms,
+    # led by a hot-strip term on the tiered layout (both stages explained)
+    texts = serving_texts(scorer, SLOW_PROBE_TEXTS + 5, seed=17)[
+        4:4 + SLOW_PROBE_TEXTS]
+    if path == "frontend":
+        fe = ServingFrontend(scorer, ServingConfig(deadline_s=None))
+        texts = texts[:1]
+
+        def search():
+            return [fe.search(texts[0], k=k)]
+    else:
+        def search():
+            return scorer.search_batch(texts, k=k)
+    search()                                 # warm, the trap off
+    before = tpu_ir_torch.kernel_launches()
+    plain = search()
+    base = launch_delta(before)              # the search's own launches
+    querylog.configure(slow_ms=1e-3)
+    try:
+        first = trap_probe(search, admitted=True, captures=len(texts))
+        second = trap_probe(search, admitted=False, captures=len(texts))
+    finally:
+        querylog.configure(slow_ms=0.0)
+    res = first["result"]
+    if [result_bits(r) for r in res] != [result_bits(r) for r in plain]:
+        raise AssertionError(f"{config} {path}: the trapped search's "
+                             "results differ from the same search's")
+    cap = first["captures"][0]
+    explained = check_slow_capture(
+        cap, res[0][0][1], source=None if path == "frontend" else "ring")
+    if len(first["records"]) != 1 or not cap["flight_record"] \
+            or os.path.basename(cap["flight_record"]) != first["records"][0]:
+        raise AssertionError(f"{config} {path}: the trap wrote "
+                             f"{first['records']}, the capture names "
+                             f"{cap['flight_record']}")
+    header = read_flight_artifact(cap["flight_record"], "slow_query")
+    stamped = [s for s in header["slow_queries"]
+               if s.get("query_hash") == cap["query_hash"]]
+    if not stamped:
+        raise AssertionError(f"{config} {path}: the header's slow_queries "
+                             f"lack {cap['query_hash']}")
+    if path == "frontend" and not (
+            res[0].trace_id and header.get("trace_id") == res[0].trace_id
+            == cap.get("trace_id") == stamped[-1].get("trace_id")):
+        raise AssertionError(f"{config}: the record's trace id "
+                             f"{header.get('trace_id')} is not the answer's "
+                             f"{res[0].trace_id}")
+    if header["extra"]["slow_query"]["query_hash"] != cap["query_hash"]:
+        raise AssertionError(f"{config} {path}: the record's capture is "
+                             "another query's")
+    explain_launches = {n: first["launches"][n] - base[n] for n in base}
+    if second["records"] or second["launches"] != base or any(
+            c.get("flight_record") or "explain" in c
+            for c in second["captures"]):
+        raise AssertionError(f"{config} {path}: the rate-limited probe "
+                             f"wrote {second['records']} and launched "
+                             f"{second['launches']} against the search's "
+                             f"{base}")
+    return {"texts": len(texts), "search_launches": base,
+            "explain_launches": explain_launches,
+            "top_score": res[0][0][1], "contribution_sum":
+            explained["contribution_sum"], "span_tree_source":
+            cap.get("span_tree_source"), "trace_id": header.get("trace_id"),
+            "record": {"path": cap["flight_record"],
+                       "seq": header["seq"],
+                       "trace_lines": header["trace_lines"],
+                       "slow_queries": len(header["slow_queries"])},
+            "rate_limited": {"captures": len(second["captures"]),
+                             "launches": second["launches"]},
+            # the admitted capture's cost (span tree, explain, record)
+            # beside a rate-limited one's, on the same search
+            "wall_ms": {"admitted": first["wall_ms"],
+                        "rate_limited": second["wall_ms"]}}
+
+
+def phase_querylog(card: str, serving: dict, *, device: str) -> dict:
+    """The query log and its slow-query trap on the card. On wiki100k the
+    cost of the log on one search_batch of QUERYLOG_BATCH texts
+    (querylog_passes: QUERYLOG_PASSES timed calls with the log on and as
+    many off, in turns); then on ref (dense) and wiki100k (tiered) the
+    trap on both paths (slow_trap), with the explain's launches:
+    dense_score on ref, cold_tier and hot_stage on wiki100k, and the
+    `querylog.slow_capture` histogram's p50 over the phase."""
+    from tpu_ir_torch.obs import get_registry
+
+    reg = get_registry()
+    hist0 = reg.hist_state()
+    out = {"phase": "querylog", "card": card}
+    wiki = serving["wiki100k"]
+    texts = serving_texts(wiki, QUERYLOG_BATCH, seed=13)
+    wiki.search_batch(texts, k=10)           # warm
+    out["batch_cost"] = dict(
+        querylog_passes(lambda: wiki.search_batch(texts, k=10), len(texts)),
+        config="wiki100k")
+    want = {"ref": ("dense_score",), "wiki100k": ("cold_tier", "hot_stage")}
+    out["trap"] = {}
+    for config, scorer in serving.items():
+        for path in ("frontend", "search_batch"):
+            row = slow_trap(scorer, config=config, path=path)
+            if device == "cuda" and not all(
+                    row["explain_launches"][n] for n in want[config]):
+                raise AssertionError(f"{config} {path}: the explain launched "
+                                     f"{row['explain_launches']}")
+            out["trap"][f"{config}/{path}"] = row
+    out["slow_capture"] = reg.delta_summary(
+        hist0, always=("querylog.slow_capture",))["querylog.slow_capture"]
     return out
 
 
 # -- positions, phrase, proximity, explain, snippets --------------------------
 
 POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
-PHRASE_TEXTS = 100              # phrase texts of the wiki100k phrase phase
+PHRASE_TEXTS = 80               # phrase texts of the wiki100k phrase phase
                                 # (2,000 before the run outgrew its time,
                                 # 400 before the shard workers, 200 before
-                                # the router)
+                                # the router, 100 before the query log's
+                                # checks)
 PHRASE_SLOPS = (0, 2)
 PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
                                 # (100 before the run outgrew its time)
@@ -5895,8 +6313,11 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     the polls: the workers seen, their launches less the warm-ups' summed
     (`launches_lower_bound`: the routed requests' launches, less any
     request served while a reload warmed, which counts as the warm-up's),
-    and with them, the phase's seconds)."""
+    and with them, the phase's seconds; the newest non-empty `/querylog`
+    of one live worker, read over HTTP at each poll (`worker_querylog`);
+    this process's `/jobs` read after the soak (`jobs`))."""
     import threading
+    import urllib.request
 
     from tpu_ir_torch.obs.server import MetricsServer
     from tpu_ir_torch.serving import run_distributed_soak
@@ -5905,7 +6326,12 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     seen: dict = {}            # worker pid -> its newest launches, and
     routed: dict = {}          # those less its warm-ups
     polls = {"n": 0, "with_router": 0, "errors": 0}
+    worker_log: dict = {}
     stop = threading.Event()
+
+    def get_json(url: str) -> dict:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return json.loads(r.read())
 
     def poll(addr: str) -> None:
         while not stop.wait(ROUTED_SOAK_POLL_S):
@@ -5926,6 +6352,19 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
                         routed[w["pid"]] = {
                             n: v - w["warm_launches"][n]
                             for n, v in w["kernel_launches"].items()}
+            up = [rep["addr"] for shard in fleet["shards"]
+                  for rep in shard["replicas"] if rep.get("up")]
+            if up:
+                try:
+                    log = get_json(f"http://{up[0]}/querylog")
+                except Exception:  # noqa: BLE001 — counted
+                    polls["errors"] += 1
+                    continue
+                if log.get("entries"):
+                    worker_log.update(
+                        addr=up[0], entries=len(log["entries"]),
+                        trace_ids=[en.get("trace_id")
+                                   for en in log["entries"]])
 
     server = MetricsServer().start()
     poller = threading.Thread(target=poll, args=(f"127.0.0.1:{server.port}",),
@@ -5935,6 +6374,11 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     try:
         report = run_distributed_soak(live, rundir=rundir, **soak_kw)
+        stop.set()
+        poller.join(timeout=60)
+        jobs = [{n: j[n] for n in ("job_id", "kind", "name", "state",
+                                    "percent")}
+                for j in get_json(f"{server.url}/jobs")["jobs"]]
     finally:
         stop.set()
         poller.join(timeout=60)
@@ -5949,7 +6393,8 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     return report, {"phase_s": time.perf_counter() - t0,
                     "healthz_polls": polls, "workers_seen": len(seen),
                     "launches_lower_bound": launches,
-                    "launches_with_warm_ups": with_warm_ups}
+                    "launches_with_warm_ups": with_warm_ups,
+                    "worker_querylog": worker_log, "jobs": jobs}
 
 
 def phase_routed_soak(card: str, live: str, work: str, *,
@@ -5969,7 +6414,15 @@ def phase_routed_soak(card: str, live: str, work: str, *,
     violation and none of the tail's missing, at least 3 spans a trace,
     the bookkeeping at most 5% of a mean request with tracing on and 1%
     with it off, every served request in the SLO windows. The workers'
-    routed launches (polled_soak) of dense_score must be above 0."""
+    routed launches (polled_soak) of dense_score must be above 0. The
+    query log: this process's ring (emptied first) holds a router entry
+    for each served request, up to its capacity, each with a distinct
+    trace id; a worker's `/querylog`, read over HTTP during the soak,
+    holds entries of some of those traces; `/jobs` shows the soak's job
+    succeeded at 100%."""
+    from tpu_ir_torch.obs import querylog
+
+    querylog.clear()
     report, polled = polled_soak(
         live, work, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
         threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
@@ -6008,6 +6461,28 @@ def phase_routed_soak(card: str, live: str, work: str, *,
         "dense_score": device != "cuda"
         or polled["launches_lower_bound"]["dense_score"] > 0,
     }
+    ring = querylog.recent()
+    routed = [en for en in ring if en.get("router")]
+    tids = [en.get("trace_id") for en in routed]
+    cap = querylog.summary()["ring"]["capacity"]
+    worker_tids = set(polled["worker_querylog"].get("trace_ids", ()))
+    soak_jobs = [j for j in polled["jobs"]
+                 if j["name"].startswith("routed-soak-")]
+    out["querylog"] = {"ring": len(ring), "capacity": cap,
+                       "router_entries": len(routed),
+                       "traced": sum(1 for t in tids if t),
+                       "worker_entries": polled["worker_querylog"].get(
+                           "entries", 0),
+                       "worker_traces_in_router_ring": len(
+                           worker_tids & set(tids))}
+    checks.update({
+        "querylog_router_entries": len(routed)
+        >= min(cap, report["served"]),
+        "querylog_trace_ids": all(tids) and len(set(tids)) == len(tids),
+        "querylog_worker_traces": len(worker_tids & set(tids)) > 0,
+        "soak_job": bool(soak_jobs) and soak_jobs[0]["state"]
+        == "succeeded" and soak_jobs[0]["percent"] == 100.0,
+    })
     out["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"the routed soak: {checks} {report}")
@@ -6225,6 +6700,11 @@ def main() -> int:
         return run_phases(card, work, side, corpus_made)
     finally:
         side.shutdown(wait=True, cancel_futures=True)
+        # the spawn context's semaphores started multiprocessing's resource
+        # tracker, a child that would outlive this process for a moment
+        from multiprocessing import resource_tracker
+
+        resource_tracker._resource_tracker._stop()
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -6238,6 +6718,9 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
     from tpu_ir_torch import faults
     from tpu_ir_torch.search import Scorer
 
+    # every flight record of the run (and of the worker processes it
+    # spawns) lands in the work dir
+    os.environ["TPU_IR_FLIGHT_DIR"] = os.path.join(work, "flight")
     emit(phase_env(card))
     shapes = dict(vocab_rows=REF_VOCAB_ROWS, width=8_761 + 1,
                   batch=REF_QUERIES, terms=REF_QUERY_TERMS)
@@ -6463,6 +6946,7 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
             if serving_launches[kernel] == 0:
                 raise AssertionError(f"the serving phases never launched "
                                      f"{kernel}: {serving_launches}")
+        emit(phase_querylog(card, serving, device="cuda"))
         del serving, scorer
     finally:
         faults.drain_abandoned(timeout_s=10.0)

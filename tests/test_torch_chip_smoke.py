@@ -94,6 +94,9 @@ def test_build_streaming_and_crash_resume_phases_on_cpu(tmp_path,
     out, ridx = chip_smoke.phase_build_streaming("cpu", work, device="cpu")
     assert set(out["builds"]) == {"radix", "legacy", "oneshot"}
     radix = out["builds"]["radix"]
+    assert radix["job"]["state"] == "succeeded"
+    assert [p["phase"] for p in radix["job"]["phases"]] == [
+        "pass1_tokenize", "pass2_combine", "pass3_reduce", "finalize"]
     assert radix["radix_spill_bytes"] > 0 and radix["peak_host_rss_bytes"] > 0
     assert out["builds"]["legacy"]["radix_spill_bytes"] == 0
     assert {"pass1_tokenize", "pass2_combine", "pass3_reduce", "docstore",
@@ -385,6 +388,8 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke, "SWEEP_QUERIES", 16)
     monkeypatch.setattr(chip_smoke, "SWEEP_REPEATS", 2)
     monkeypatch.setattr(chip_smoke, "BREAKER_PROBES", 3)
+    monkeypatch.setattr(chip_smoke, "QUERYLOG_PASS_TEXTS", 24)
+    monkeypatch.setenv("TPU_IR_FLIGHT_DIR", str(tmp_path / "flight"))
     _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
                                     config="wiki100k")
     tiered = Scorer.load(idx, layout="sparse", device="cpu")
@@ -405,7 +410,13 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     assert soak["clean"]["served"] + soak["clean"]["shed"] == 64
     assert soak["chaos"]["degraded"] > 0
     assert soak["chaos"]["batch_mixed_degraded"] == 0
+    assert soak["chaos"]["batches_observed"] > 0
     sweep = chip_smoke.phase_sweep("cpu", dense, config="ref", device="cpu")
+    cost = sweep["querylog_cost"]
+    assert [len(cost["walls_s"][a]) for a in ("on", "off")] == [3, 3]
+    assert cost["entries"] == 24 and cost["ring_capacity"] == 256
+    assert sweep["breaker_flight_record"]["reason"] == "breaker_open"
+    assert sweep["breaker_flight_record"]["trace_lines"] >= 1
     from tpu_ir_torch.serving import ServingConfig, ServingFrontend
 
     fe = ServingFrontend(tiered, ServingConfig(coalesce=True))
@@ -425,6 +436,119 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     assert sweep["breaker_open_ms"] < sweep["deadline_expiry_ms"]
     json.dumps([fr, fd, soak, sweep])
     obs.reset_all()
+
+
+def test_querylog_phase_on_cpu(tmp_path, monkeypatch):
+    """The querylog phase at a small size on the CPU: the batch's log
+    on/off passes, and the slow-query trap on both layouts and both
+    paths (the kernels' launches are the card's to check)."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.search import Scorer
+
+    obs.reset_all()
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    monkeypatch.setattr(chip_smoke, "QUERYLOG_BATCH", 300)
+    monkeypatch.setenv("TPU_IR_FLIGHT_DIR", str(tmp_path / "flight"))
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    serving = {"ref": Scorer.load(idx, layout="dense", device="cpu"),
+               "wiki100k": Scorer.load(idx, layout="sparse", device="cpu")}
+    out = chip_smoke.phase_querylog("cpu", serving, device="cpu")
+    cost = out["batch_cost"]
+    assert cost["entries"] == 300 and cost["config"] == "wiki100k"
+    assert set(out["trap"]) == {"ref/frontend", "ref/search_batch",
+                                "wiki100k/frontend",
+                                "wiki100k/search_batch"}
+    for name, row in out["trap"].items():
+        assert row["contribution_sum"] == row["top_score"]
+        assert row["record"]["trace_lines"] >= 1
+        assert row["span_tree_source"] == (
+            None if name.endswith("frontend") else "ring")
+        assert (row["trace_id"] is not None) == name.endswith("frontend")
+        assert row["rate_limited"]["captures"] == row["texts"]
+    assert out["trap"]["ref/search_batch"]["texts"] == \
+        chip_smoke.SLOW_PROBE_TEXTS
+    assert out["slow_capture"]["count"] == 2 * sum(
+        r["texts"] for r in out["trap"].values())
+    assert obs.querylog.slow_query_ms() == 0.0 and obs.querylog.enabled()
+    json.dumps(out)
+    obs.reset_all()
+
+
+def _capture(score=1.5, parts=(1.0, 0.5), source=None, kernel=True):
+    tree = {"name": "request", "children": [
+        {"name": "dispatch",
+         "children": [{"name": "kernel"}] if kernel else []}]}
+    cap = {"span_tree": tree, "explain": [
+        {"score": score, "contribution_sum": sum(parts)}]}
+    if source:
+        cap["span_tree_source"] = source
+    return cap
+
+
+def test_check_slow_capture_holds_the_explain_to_the_score():
+    e = chip_smoke.check_slow_capture(_capture(), 1.5, source=None)
+    assert e["contribution_sum"] == 1.5
+    chip_smoke.check_slow_capture(_capture(source="ring"), 1.5,
+                                  source="ring")
+    for cap, score, source in (
+            (_capture(parts=(1.0, 0.25)), 1.5, None),    # sum != score
+            (_capture(), 1.25, None),                    # != the result
+            (_capture(score=1.5 + 1e-9, parts=(1.0, 0.5 + 1e-9)), 1.5,
+             None),                                      # float32 bits
+            (_capture(kernel=False), 1.5, None),         # no kernel span
+            (_capture(), 1.5, "ring"),                   # the wrong source
+            ({**_capture(), "explain": None}, 1.5, None)):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_slow_capture(cap, score, source=source)
+
+
+def _artifact(path, records):
+    path.write_text("".join(json.dumps(r) + "\n" for r in records))
+    return str(path)
+
+
+def test_read_flight_artifact_needs_its_lines(tmp_path):
+    head = {"record": "header", "reason": "breaker_open", "seq": 3}
+    trace = {"record": "trace", "trace": {"name": "request"}}
+    tele = {"record": "telemetry", "telemetry": {}}
+    ok = _artifact(tmp_path / "ok.jsonl", [head, trace, trace, tele])
+    assert chip_smoke.read_flight_artifact(ok, "breaker_open")[
+        "trace_lines"] == 2
+    for name, records, reason in (
+            ("no_telemetry", [head, trace], "breaker_open"),
+            ("two_telemetry", [head, trace, tele, tele], "breaker_open"),
+            ("no_trace", [head, tele], "breaker_open"),
+            ("telemetry_first", [head, tele, trace], "breaker_open"),
+            ("no_header", [trace, tele], "breaker_open"),
+            ("other_reason", [head, trace, tele], "slow_query")):
+        path = _artifact(tmp_path / f"{name}.jsonl", records)
+        with pytest.raises(AssertionError):
+            chip_smoke.read_flight_artifact(path, reason)
+
+
+def test_percent_series_and_finished_job_checks():
+    chip_smoke.check_percent_series([0.0, 12.5, 12.5, 60.0, 100.0])
+    chip_smoke.check_percent_series([])
+    with pytest.raises(AssertionError, match="fell"):
+        chip_smoke.check_percent_series([0.0, 40.0, 39.99, 100.0])
+    phases = ("pass1_tokenize", "pass2_combine", "pass3_reduce", "finalize")
+    job = {"state": "succeeded", "percent": 100.0,
+           "current_phase": "finalize", "phases": [
+               {"phase": "pass1_tokenize", "done": 2, "total": None},
+               {"phase": "pass2_combine", "done": 16, "total": 16},
+               {"phase": "pass3_reduce", "done": 10, "total": 10},
+               {"phase": "finalize", "done": 0, "total": None}]}
+    chip_smoke.check_job_done(job, phases)
+    for bad in ({"state": "failed"}, {"percent": 99.0},
+                {"current_phase": "pass3_reduce"},
+                {"phases": [dict(p, done=9) if p["phase"] == "pass3_reduce"
+                            else p for p in job["phases"]]},
+                {"phases": [dict(p, done=0) if p["phase"] == "pass1_tokenize"
+                            else p for p in job["phases"]]}):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_job_done({**job, **bad}, phases)
 
 
 def test_wildcard_and_kgram_phases_on_cpu(tmp_path, monkeypatch):

@@ -53,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.serving.shardset, tpu_ir_torch.serving.router, "
             "tpu_ir_torch.serving.generation, "
             "tpu_ir_torch.serving.residency, tpu_ir_torch.serving.workload, "
-            "tpu_ir_torch.serving.autoscale, chip_smoke\n"
+            "tpu_ir_torch.serving.autoscale, tpu_ir_torch.obs.recorder, "
+            "tpu_ir_torch.obs.progress, tpu_ir_torch.obs.querylog, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
             "assert not bad, bad\n"
@@ -69,6 +71,27 @@ def test_importing_the_port_loads_no_jax():
 def test_no_jax_or_tpu_ir_import_in_source(path):
     src = open(path, encoding="utf-8").read()
     assert not _IMPORT_RE.search(src), path
+
+
+@pytest.mark.parametrize("argv", [["querylog", "--slow"], ["trace-dump"]],
+                         ids=lambda a: a[0])
+def test_querylog_and_trace_dump_load_no_jax(argv):
+    """The query-log and flight-record commands run and load no JAX."""
+    code = ("import contextlib, io, json, sys\n"
+            "from tpu_ir_torch import cli\n"
+            "buf = io.StringIO()\n"
+            "with contextlib.redirect_stdout(buf):\n"
+            f"    assert cli.main({argv!r}) == 0\n"
+            "lines = [json.loads(x) for x in buf.getvalue().splitlines()]\n"
+            "assert lines\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
+            "assert not bad, bad\n"
+            "print('clean')")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "clean"
 
 
 def test_kernel_sources_are_listed():

@@ -694,8 +694,10 @@ def test_distributed_chaos_soak(soak_live, tmp_path):
     full mismatch, the kills respawned, every recovery probe full and on
     B, no answer from A late after the walk; every served answer's trace
     stitched in the right shape, none of the tail's missing, the trace
-    bookkeeping within 5% of a mean request (1% with tracing off), and
-    every served request in the SLO windows."""
+    bookkeeping within 5% of a mean request (1% with tracing off),
+    every served request in the SLO windows; the router's query log an
+    entry a served request with its answer's trace id, and the soak's
+    job succeeded at 100%."""
     gen_a = LiveIndex.open(soak_live).current_gen()
     report = run_distributed_soak(
         soak_live, shards=2, replicas=2, threads=6, queries=100, seed=0,
@@ -736,6 +738,18 @@ def test_distributed_chaos_soak(soak_live, tmp_path):
     assert dt["overhead"]["disabled_overhead_fraction"] <= 0.01
     slo = report["slo"]
     assert slo["good"] + slo["bad"] >= report["served"]
+    # the routed requests' entries come last, the recovery probes' too:
+    # the ring (256) holds them all at this size
+    routed = [e for e in obs.querylog.recent() if e.get("router")]
+    assert len(routed) >= report["served"]
+    tids = [e.get("trace_id") for e in routed]
+    assert all(tids) and len(set(tids)) == len(tids)
+    assert {e["level"] for e in routed} <= {"full", "no_rerank", "hot_only"}
+    (job,) = [j.to_dict() for j in obs.progress.jobs() if j.kind == "soak"]
+    assert job["name"] == "routed-soak-100q-2s2r"
+    assert job["state"] == "succeeded" and job["percent"] == 100.0
+    assert [p["phase"] for p in job["phases"]] == ["reference", "serve",
+                                                   "recovery"]
 
 
 # -- serve-bench --shards -----------------------------------------------------
@@ -818,6 +832,6 @@ def test_serve_bench_shards_json_equals_jax(index_dir, twin_dir, capsys,
         # each soak was asked for the same run, the port's on its device
         for pc, jc in zip(port_calls, jax_calls):
             assert pc.pop("device") == "cpu"
-            jc.pop("flight_dir")
+            assert pc["flight_dir"] is jc["flight_dir"] is None
             assert pc["autoscale"] is jc["autoscale"] is False
             assert pc == jc

@@ -1,13 +1,13 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
 `serve-bench`, `serve-worker`, `scale`, `ingest`, `compact`,
-`generations`, `backup`, `trace`, `pack`, `count` and `docno`, with
-tpu_ir's flag names and defaults.
+`generations`, `backup`, `trace`, `querylog`, `trace-dump`, `pack`,
+`count` and `docno`, with tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
         [--batch-docs N] [--radix-buckets B] [--tokenize-procs N]] [--store]
-        [--positions] [--device cuda|cpu]
+        [--positions] [--track PORT] [--device cuda|cpu]
     python -m tpu_ir_torch.cli inspect PATH [-n N] [--postings N]
         [--term TEXT]
     python -m tpu_ir_torch.cli verify IDX|LIVE
@@ -31,6 +31,7 @@ tpu_ir's flag names and defaults.
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
         [--shards N [--replicas R] [--autoscale] [--pacing S]]
         [--workload uniform|zipf] [--skew S[,S...]] [--burst B]
+        [--flight-dir DIR]
     python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
         [--host H] [--replica R] [--layout auto|dense|sparse]
         [--deadline S] [--concurrency N] [--queue-depth N] [--no-warm]
@@ -46,6 +47,8 @@ tpu_ir's flag names and defaults.
     python -m tpu_ir_torch.cli generations LIVE [-n N] [--gc]
     python -m tpu_ir_torch.cli backup SRC DEST [--restore]
     python -m tpu_ir_torch.cli trace [TRACE_ID] [--json]
+    python -m tpu_ir_torch.cli querylog [-n N] [--slow] [--trace ID]
+    python -m tpu_ir_torch.cli trace-dump [--out FILE]
     python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
         [--format lines|trectext|trecweb]
     python -m tpu_ir_torch.cli count CORPUS...
@@ -90,6 +93,18 @@ same way.
 spool under TPU_IR_TELEMETRY_DIR holds; with an id it stitches that
 trace and prints its waterfall, each attempt with its verdict (`--json`:
 the stitched tree), and exits 1 for an unknown id.
+`index --track PORT` serves the build's progress job over HTTP while it
+runs (`/jobs`, `/healthz`, `/flight`; 0 picks a free port), announces the
+URL on standard error and stops the server when the build returns.
+`querylog` prints this process's query log and slow-query captures (one
+JSON object; empty from a fresh command, the shape is the contract; a
+serving process shows its own on `/querylog`), `--trace ID` only the
+entries of one distributed trace. `trace-dump` prints the flight
+recorder's artifact on demand (JSONL: header, the ring's traces, the
+telemetry), or writes it to `--out FILE`. `serve-bench` reports the
+query log's counts and last slow entries under `querylog`, and an
+invariant breach writes its flight record to `--flight-dir` (default:
+TPU_IR_FLIGHT_DIR, else the system temp dir).
 """
 
 from __future__ import annotations
@@ -101,7 +116,37 @@ import re
 import sys
 
 
+class _MaybeTrack:
+    """Serve this process's telemetry (obs/server.py: /jobs, /healthz,
+    /flight) for the length of a command when a port is given (0 picks a
+    free one), announcing the URL on standard error; the server stops
+    with the command."""
+
+    def __init__(self, port: int | None):
+        self._port = port
+        self.server = None
+
+    def __enter__(self):
+        if self._port is not None:
+            from .obs.server import MetricsServer
+
+            self.server = MetricsServer(port=self._port).start()
+            print(f"tpu-ir: serving live telemetry on {self.server.url} "
+                  "(/healthz /jobs /flight)", file=sys.stderr)
+        return self
+
+    def __exit__(self, *exc):
+        if self.server is not None:
+            self.server.stop()
+        return False
+
+
 def cmd_index(args) -> int:
+    with _MaybeTrack(args.track):
+        return _run_index(args)
+
+
+def _run_index(args) -> int:
     from .index import build_index, build_index_streaming
 
     missing = [p for p in args.corpus if not os.path.exists(p)]
@@ -735,6 +780,45 @@ def cmd_trace(args) -> int:
     return 0
 
 
+def cmd_querylog(args) -> int:
+    """This process's query log (obs/querylog.py): its settings and
+    counts, the ring's entries and the slow captures (span tree and
+    explain of each trapped query), as one JSON object; `--trace` keeps
+    the entries of one distributed trace."""
+    from .obs import querylog
+
+    out = dict(querylog.summary())
+    if not args.slow:
+        out["entries"] = querylog.recent(args.n)
+    out["slow_entries"] = querylog.slow_recent(args.n)
+    if args.trace:
+        out["trace_filter"] = args.trace
+        for key in ("entries", "slow_entries"):
+            if key in out:
+                out[key] = [e for e in out[key]
+                            if e.get("trace_id") == args.trace]
+    print(json.dumps(out, sort_keys=True, default=repr))
+    return 0
+
+
+def cmd_trace_dump(args) -> int:
+    """The flight recorder's artifact on demand (obs/recorder.py: the
+    header, a line a trace of the ring, the telemetry snapshot), the
+    shape a failure writes, as JSONL on standard output or in `--out`."""
+    from .obs.recorder import artifact_lines
+
+    lines = artifact_lines("manual_trace_dump")
+    text = "\n".join(lines) + "\n"
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        # less the header and the telemetry line: the traces
+        print(json.dumps({"traces": len(lines) - 2, "out": args.out}))
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
 def _print_trace_waterfall(st: dict) -> None:
     """One stitched trace as text: a line a span, indented by depth, its
     bar on the trace's timeline, its offset and duration, its service and
@@ -854,7 +938,7 @@ def _serve_routed(args) -> int:
                                else args.deadline),
             timeout_s=args.timeout, workload=spec,
             cache_entries=args.cache, device=args.device,
-            autoscale=autoscale,
+            autoscale=autoscale, flight_dir=args.flight_dir,
             **({} if args.pacing is None else {"pacing_s": args.pacing}))
 
     for label, spec in specs:
@@ -1011,7 +1095,13 @@ def cmd_serve_bench(args) -> int:
             breaker_threshold=args.breaker_threshold,
             coalesce=(args.coalesce == "on"),
             cache_entries=args.cache),
-        timeout_s=args.timeout, workload=workload)
+        timeout_s=args.timeout, flight_dir=args.flight_dir,
+        workload=workload)
+    # the soak's query-log view: its counts and the last slow captures
+    from .obs import querylog
+
+    report["querylog"] = {**querylog.summary(),
+                          "slow_entries": querylog.slow_header_entries()}
     print(json.dumps(report, sort_keys=True, default=repr))
     ok = (report["errors"] == 0 and report["deadlocked"] == 0
           and report["untagged_mismatches"] == 0
@@ -1104,6 +1194,10 @@ def main(argv: list[str] | None = None) -> int:
     pi.add_argument("--positions", action="store_true",
                     help="format v2: also write per-posting position runs "
                          "(enables \"quoted phrase\" and --prox queries)")
+    pi.add_argument("--track", type=int, default=None, metavar="PORT",
+                    help="serve live build progress over HTTP for the "
+                         "duration of the build (/jobs /healthz /flight; "
+                         "0 = ephemeral port, announced on stderr)")
     pi.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     pi.set_defaults(fn=cmd_index)
 
@@ -1282,6 +1376,10 @@ def main(argv: list[str] | None = None) -> int:
     pb.add_argument("--cache", type=int, default=None, metavar="N",
                     help="exact-hit result cache entries (0 disables; "
                          "default: TPU_IR_CACHE_RESULTS)")
+    pb.add_argument("--flight-dir", default=None,
+                    help="where an invariant breach writes its "
+                         "flight-recorder JSONL (default: "
+                         "TPU_IR_FLIGHT_DIR or the system temp dir)")
     pb.add_argument("--timeout", type=float, default=300.0,
                     help="the soak's wall-clock bound (s); requests still "
                          "pending past it count as deadlocked")
@@ -1499,6 +1597,28 @@ def main(argv: list[str] | None = None) -> int:
                      help="print the stitched span tree as JSON instead "
                           "of the ASCII waterfall")
     ptr.set_defaults(fn=cmd_trace)
+
+    pql = sub.add_parser(
+        "querylog", help="dump the sampled query log: per-request "
+                         "entries (terms/hash, level, stage split, "
+                         "top-k, prune decision) + slow-query captures")
+    pql.add_argument("-n", type=int, default=None,
+                     help="newest N entries only (default: the whole "
+                          "ring)")
+    pql.add_argument("--slow", action="store_true",
+                     help="slow-query captures only (span tree + "
+                          "explain of trapped offenders)")
+    pql.add_argument("--trace", default=None, metavar="TRACE_ID",
+                     help="only entries recorded under this distributed "
+                          "trace id (the `trace` join key)")
+    pql.set_defaults(fn=cmd_querylog)
+
+    ptd = sub.add_parser(
+        "trace-dump", help="dump the flight-recorder ring (recent span "
+                           "trees) + a telemetry snapshot as JSONL")
+    ptd.add_argument("--out", default=None,
+                     help="write the JSONL here instead of stdout")
+    ptd.set_defaults(fn=cmd_trace_dump)
 
     pd = sub.add_parser(
         "docno", help="docid <-> docno mapping (TrecDocnoMapping CLI)")

@@ -143,6 +143,27 @@ a choice outside its set raises.
                              this is a bad one for the burn-rate windows
                              (obs/disttrace.py; default 250.0, at least
                              1.0)
+    TPU_IR_FLIGHT_DIR        where flight records are written (obs/
+                             recorder.py; unset: tpu_ir_flight under the
+                             system temp dir)
+    TPU_IR_FLIGHT_INTERVAL   least seconds between two flight records of
+                             one reason, unless forced (default 30.0)
+    TPU_IR_JOB_HISTORY       jobs kept for /jobs, running or finished
+                             (obs/progress.py; default 16, at least 1)
+    TPU_IR_QUERYLOG          0 turns the query log and the slow-query trap
+                             off (obs/querylog.py; default 1)
+    TPU_IR_QUERYLOG_RING     entries the query log's ring holds (default
+                             256, at least 1)
+    TPU_IR_QUERYLOG_SAMPLE   keep every N-th entry in the ring; a slow one
+                             is always kept (default 1)
+    TPU_IR_QUERYLOG_REDACT   1 keeps only the hash of a query's analyzed
+                             terms, not the terms (default 0)
+    TPU_IR_QUERYLOG_SLOW_KEEP  slow-query captures kept (default 16, at
+                             least 1)
+    TPU_IR_SLOW_QUERY_MS     a query at or above this many ms is captured
+                             with its span tree, an explain of its top hit
+                             and a flight record; 0 turns the trap off
+                             (default 0.0)
 """
 
 from __future__ import annotations
@@ -167,7 +188,11 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_SCALE_MIN_REPLICAS": (1, 1),
          "TPU_IR_SCALE_MAX_REPLICAS": (4, 1),
          "TPU_IR_TRACE_SAMPLE": (1, 1),
-         "TPU_IR_TRACE_RING": (64, 1)}
+         "TPU_IR_TRACE_RING": (64, 1),
+         "TPU_IR_JOB_HISTORY": (16, 1),
+         "TPU_IR_QUERYLOG_RING": (256, 1),
+         "TPU_IR_QUERYLOG_SAMPLE": (1, 1),
+         "TPU_IR_QUERYLOG_SLOW_KEEP": (16, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
@@ -182,15 +207,19 @@ _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
            "TPU_IR_WORKLOAD_BURST": (0.0, 0.0),
            "TPU_IR_SCALE_COOLDOWN_S": (5.0, 0.0),
            "TPU_IR_SCALE_LEAD_S": (30.0, 0.0),
-           "TPU_IR_SLO_P99_MS": (250.0, 1.0)}
+           "TPU_IR_SLO_P99_MS": (250.0, 1.0),
+           "TPU_IR_FLIGHT_INTERVAL": (30.0, 0.0),
+           "TPU_IR_SLOW_QUERY_MS": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
          "TPU_IR_BATCH_LADDER": "1,4,16",
-         "TPU_IR_TELEMETRY_DIR": None}
+         "TPU_IR_TELEMETRY_DIR": None,
+         "TPU_IR_FLIGHT_DIR": None}
 _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
           "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True,
           "TPU_IR_AUTOSCALE": False, "TPU_IR_DISTTRACE": True,
-          "TPU_IR_TRACE_TAIL": True}
+          "TPU_IR_TRACE_TAIL": True, "TPU_IR_QUERYLOG": True,
+          "TPU_IR_QUERYLOG_REDACT": False}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

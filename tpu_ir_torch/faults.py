@@ -295,8 +295,10 @@ SPILL_RETRY = RetryPolicy(max_attempts=4, base_delay_s=0.02)
 def run_with_retry(fn, *, stage: str, policy: RetryPolicy = SPILL_RETRY):
     """Run `fn()` under the policy and return its value. Only an OSError
     is retried (an InjectedCrash always propagates); each retry counts
-    `recovery.retries`, and exhaustion raises BuildError naming the stage
-    and the last cause."""
+    `recovery.retries`, and exhaustion writes a `build_error` flight
+    record (rate-limited) and raises BuildError naming the stage and the
+    last cause."""
+    from .obs.recorder import flight_dump
     from .utils.report import recovery_counters
 
     rng = random.Random(policy.seed)
@@ -313,6 +315,9 @@ def run_with_retry(fn, *, stage: str, policy: RetryPolicy = SPILL_RETRY):
                            stage, attempt, policy.max_attempts, e)
             time.sleep(policy.delay_s(attempt, rng))
     recovery_counters().incr("retry_exhausted")
+    flight_dump("build_error", extra={
+        "stage": stage, "attempts": policy.max_attempts,
+        "cause": repr(last)})
     raise BuildError(stage, policy.max_attempts, last) from last
 
 

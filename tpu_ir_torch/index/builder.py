@@ -24,9 +24,11 @@ With `positions=True` the build also writes format v2 position runs
 lengths, on the host: the token stream for k = 1, the k-gram windows for
 k > 1.
 
-The streaming build for corpora larger than memory is
-index/streaming.py. The SPMD mesh build raises ValueError (a later slice
-of the port).
+Each build runs as a progress job (obs/progress.py, `tpu_ir`'s phases
+and counters), so `/jobs` and `index --track` show it live and a build
+that dies marks its job failed. The streaming build for corpora larger
+than memory is index/streaming.py. The SPMD mesh build raises ValueError
+(a later slice of the port).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from .. import faults, resolve_device
 from ..analysis import Analyzer
 from ..collection import DocnoMapping, Vocab, kgram_terms, read_trec_corpus
+from ..obs.progress import report_progress, tracked
 from ..ops.postings import PAD_TERM_U16, build_postings_packed
 from ..utils.report import JobReport
 from ..utils.transfer import fetch_narrow, narrow_uint, shrink_pairs
@@ -102,7 +105,24 @@ def build_index(
     An existing index (its metadata.json) is returned as it is unless
     `overwrite=True`. The postings group-by and the char-gram builds run
     on `device` (CUDA by default; pass device="cpu" to build on the
-    CPU). `positions` adds the format v2 position runs."""
+    CPU). `positions` adds the format v2 position runs. Runs as a `build`
+    job named `index:<dir name>`."""
+    name = os.path.basename(os.path.normpath(os.fspath(index_dir)))
+    with tracked("build", f"index:{name}",
+                 phases=("tokenize", "docno_mapping", "postings",
+                         "write_shards", "dictionary"),
+                 config={"k": k, "num_shards": num_shards,
+                         "spmd_devices": spmd_devices}):
+        return _build_index(
+            corpus_paths, index_dir, k=k, chargram_ks=chargram_ks,
+            num_shards=num_shards, overwrite=overwrite,
+            compute_chargrams=compute_chargrams, spmd_devices=spmd_devices,
+            positions=positions, device=device)
+
+
+def _build_index(corpus_paths, index_dir: str, *, k: int, chargram_ks,
+                 num_shards: int, overwrite: bool, compute_chargrams: bool,
+                 spmd_devices, positions: bool, device) -> fmt.IndexMetadata:
     check_build_args(k, spmd_devices)
     dev = resolve_device(device)
     if isinstance(corpus_paths, (str, os.PathLike)):
@@ -124,6 +144,8 @@ def build_index(
 
             docids, temp_ids, lengths, vocab_list = tokenize_corpus_native(
                 corpus_paths)
+        report_progress("tokenize", advance=1, total=1,
+                        docs_parsed=len(docids), occurrences=len(temp_ids))
         _require_docs(docids, corpus_paths)
         with report.phase("vocab"):
             vocab_arr = np.array(vocab_list, dtype=np.str_)
@@ -138,8 +160,14 @@ def build_index(
         with report.phase("tokenize"):
             from ..analysis.native import make_analyzer
 
-            docids, doc_tokens = analyze_corpus(corpus_paths,
-                                                make_analyzer())
+            analyzer = make_analyzer()
+            docids = []
+            for path in corpus_paths:
+                ids, toks = analyze_corpus([path], analyzer)
+                docids += ids
+                doc_tokens += toks
+                report_progress("tokenize", advance=1,
+                                docs_parsed=len(ids))
         _require_docs(docids, corpus_paths)
         with report.phase("vocab"):
             doc_kgrams = [kgram_terms(toks, k) for toks in doc_tokens]
@@ -158,6 +186,7 @@ def build_index(
     report.set_counter("reduce_output_groups", v)
 
     # --- docno mapping (NumberTrecDocuments equivalent) ---
+    report_progress("docno_mapping", docs=num_docs)
     with report.phase("docno_mapping"):
         mapping = DocnoMapping.build(docids)
         if len(mapping) != num_docs:
@@ -169,6 +198,7 @@ def build_index(
                   + 1).astype(np.int32)
 
     # --- postings group-by on the device ---
+    report_progress("postings", occurrences=int(len(inverse)))
     with report.phase("postings_device"):
         # term ids ride as uint16 when the vocab fits below the pad value
         use16 = v < PAD_TERM_U16
@@ -202,6 +232,7 @@ def build_index(
     del doc_tokens
 
     # --- shard + persist (part-NNNNN layout), dictionary, metadata ---
+    report_progress("write_shards", pairs=num_pairs)
     with report.phase("write_shards"):
         np.save(os.path.join(index_dir, fmt.DOCLEN), doc_len)
         shard_of, offset_of = fmt.write_pair_shards(index_dir, df, pair_doc,
@@ -213,6 +244,7 @@ def build_index(
 
             build_and_write_positions(index_dir, inverse.astype(np.int32),
                                       docnos, lengths, num_shards)
+    report_progress("dictionary", terms=v)
     with report.phase("dictionary"):
         fmt.write_dictionary(index_dir, vocab.terms, shard_of, offset_of)
         dict_report = JobReport("BuildIntDocVectorsForwardIndex")

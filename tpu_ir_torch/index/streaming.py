@@ -73,6 +73,7 @@ from .. import envvars, faults, resolve_device
 from ..analysis.native import make_chunked_tokenizer
 from ..collection import DocnoMapping, Vocab
 from ..obs import get_registry
+from ..obs.progress import report_progress, tracked
 from ..ops.postings import PAD_TERM_U16, build_postings_packed, pair_term_from_df
 from ..utils.report import JobReport, recovery_counters
 from ..utils.transfer import prefetch_iter, shrink_pairs
@@ -365,6 +366,10 @@ def run_pass1_spills(tok, spill_dir: str, batch_docs: int, store: bool,
             spill_crcs.append(fmt.savez_atomic(
                 os.path.join(spill_dir, f"tokens-{b:05d}.npz"),
                 ids=ids, lengths=lengths))
+        report_progress("pass1_tokenize", advance=1,
+                        docs_parsed=len(lengths),
+                        spills_written=max(radix_buckets, 1) + int(store),
+                        occurrences=len(ids))
         n_written = b + 1
         faults.maybe_crash("crash.pass1", f"b={b + 1}")
 
@@ -446,7 +451,33 @@ def build_index_streaming(
     C++ pass. k > 1 writes no char-gram indexes. `positions` adds the
     format v2 position runs and runs the per-batch pass 2 whatever
     `radix_buckets` says. The job's phase timings and counters are saved
-    as `jobs/TermKGramDocIndexer.json`."""
+    as `jobs/TermKGramDocIndexer.json`. Runs as a `build` job named
+    `streaming:<dir name>` (pass1_tokenize, pass2_combine, pass3_reduce,
+    finalize, with `tpu_ir`'s counters)."""
+    name = os.path.basename(os.path.normpath(os.fspath(index_dir)))
+    with tracked("build", f"streaming:{name}",
+                 phases=("pass1_tokenize", "pass2_combine",
+                         "pass3_reduce", "finalize"),
+                 config={"k": k, "spmd_devices": spmd_devices,
+                         "num_shards": num_shards,
+                         "radix_buckets": radix_buckets,
+                         "streaming": True}):
+        return _build_index_streaming(
+            corpus_paths, index_dir, k=k, chargram_ks=chargram_ks,
+            num_shards=num_shards, batch_docs=batch_docs,
+            compute_chargrams=compute_chargrams, keep_spills=keep_spills,
+            spmd_devices=spmd_devices, overwrite=overwrite,
+            positions=positions, store=store, radix_buckets=radix_buckets,
+            radix_parts=radix_parts, tokenize_procs=tokenize_procs,
+            device=device)
+
+
+def _build_index_streaming(
+        corpus_paths, index_dir: str, *, k: int, chargram_ks,
+        num_shards: int, batch_docs: int, compute_chargrams: bool,
+        keep_spills: bool, spmd_devices, overwrite: bool, positions: bool,
+        store: bool, radix_buckets, radix_parts, tokenize_procs,
+        device) -> fmt.IndexMetadata:
     check_build_args(k, spmd_devices)
     dev = resolve_device(device)
     if isinstance(corpus_paths, (str, os.PathLike)):
@@ -502,6 +533,9 @@ def build_index_streaming(
         all_doc_lens = resume_state.doc_lens
         report.incr("Count.DOCS", len(all_docids))
         report.set_counter("pass1_resumed_batches", n_batches)
+        report_progress("pass1_tokenize", advance=n_batches,
+                        total=n_batches, docs_parsed=len(all_docids),
+                        resumed_batches=n_batches)
     else:
         tok = make_chunked_tokenizer(corpus_paths, k=k, with_text=store,
                                      procs=tokenize_procs)
@@ -561,6 +595,8 @@ def build_index_streaming(
             if resuming and _batch_pairs_done(spill_dir, r, num_shards,
                                               validate=True):
                 report.incr("pass2_resumed_buckets", 1)
+                report_progress("pass2_combine", advance=1,
+                                resumed_buckets=1)
                 continue
             terms, rdocs, rlens = [], [], []
             for b in range(n_batches):
@@ -604,6 +640,8 @@ def build_index_streaming(
             doc_len[docnos] = lengths
             if done:
                 report.incr("pass2_resumed_batches", 1)
+                report_progress("pass2_combine", advance=1,
+                                resumed_batches=1)
                 continue
             term_ids = rank[flat]
             if positions:
@@ -641,11 +679,15 @@ def build_index_streaming(
             sel = shard == s
             fmt.savez_atomic(os.path.join(spill_dir, pair_spill_name(s, b)),
                              term=pt[sel], doc=pd[sel], tf=ptf[sel])
+        report_progress("pass2_combine", advance=1,
+                        spills_written=num_shards, pairs=npairs)
         if radix_buckets:
             reg.observe("build.radix.bucket_pairs", float(npairs))
             reg.observe("build.radix.bucket_s", time.perf_counter() - t0)
         faults.maybe_crash("crash.pass2", f"b={b}")
 
+    report_progress("pass2_combine", total=radix_buckets or n_batches,
+                    unit="buckets" if radix_buckets else "batches")
     with report.phase("pass2_combine"):
         units = (prefetch_iter(iter_buckets(), name="bucket-read")
                  if radix_buckets else iter_batches())
@@ -662,6 +704,7 @@ def build_index_streaming(
     num_pairs_total = 0
     shard_of = fmt.shard_assignment(v, num_shards)
     offset_of_parts = np.zeros(v, np.int64) if radix_parts else None
+    report_progress("pass3_reduce", total=num_shards)
     with report.phase("pass3_reduce"):
         for s in range(num_shards):
             part = fmt.part_path(index_dir, s)
@@ -703,19 +746,25 @@ def build_index_streaming(
                     offset_of_parts[z["term_ids"]] = np.asarray(
                         z["indptr"][:-1], np.int64)
                 report.incr("pass3_resumed_shards", 1)
-            elif radix_parts:
-                rdf, npairs = write_bucketed_shard(
-                    spill_dir, index_dir, s, radix_buckets, v,
-                    offset_of=offset_of_parts)
+                report_progress("pass3_reduce", advance=1,
+                                resumed_shards=1)
             else:
-                rdf, npairs = reduce_shard_spills(
-                    spill_dir, index_dir, s, n_units, v, shard_of,
-                    positions=positions)
+                if radix_parts:
+                    rdf, npairs = write_bucketed_shard(
+                        spill_dir, index_dir, s, radix_buckets, v,
+                        offset_of=offset_of_parts)
+                else:
+                    rdf, npairs = reduce_shard_spills(
+                        spill_dir, index_dir, s, n_units, v, shard_of,
+                        positions=positions)
+                report_progress("pass3_reduce", advance=1,
+                                shards_reduced=1, pairs=npairs)
             faults.maybe_crash("crash.pass3", f"s={s}")
             num_pairs_total += npairs
             df += rdf
     report.set_counter("num_pairs", num_pairs_total)
 
+    report_progress("finalize")
     with report.phase("dictionary"):
         np.save(os.path.join(index_dir, fmt.DOCLEN), doc_len.astype(np.int32))
         if offset_of_parts is not None:

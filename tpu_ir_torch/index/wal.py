@@ -17,7 +17,8 @@ covers length, seq and payload, so torn and rotten records differ:
 
 - a record whose bytes run out at end-of-file is a torn tail (the writer
   died mid-append): it is truncated loudly (the counter
-  `ingest.wal_torn_tail_truncated` and a warning in the log) and ingest
+  `ingest.wal_torn_tail_truncated`, a warning in the log and a
+  `wal_torn_tail` flight record) and ingest
   goes on, since an unacknowledged suffix may be lost;
 - a bad CRC with more records after it is bit-rot: an IntegrityError
   naming the sequence range, since skipping the middle of an
@@ -53,7 +54,7 @@ import time
 import zlib
 
 from .. import faults
-from ..obs import get_registry
+from ..obs import flight_dump, get_registry
 from ..obs import trace as obs_trace
 
 logger = logging.getLogger(__name__)
@@ -171,14 +172,14 @@ def read_records(live_dir: str, after_seq: int = 0, *,
                 with open(path, "r+b") as f:
                     f.truncate(good)
                 get_registry().incr("ingest.wal_torn_tail_truncated")
-                # the JAX package writes a flight record here; the port
-                # has no recorder yet, so the same fields go to the log
-                logger.warning(
-                    "wal_torn_tail: %s", json.dumps({
-                        "path": path, "detail": torn,
-                        "truncated_bytes": size - good,
-                        "last_good_seq": records[-1][0] if records
-                        else start_seq - 1}, sort_keys=True))
+                # the same fields go to the log and to a flight record
+                torn_info = {"path": path, "detail": torn,
+                             "truncated_bytes": size - good,
+                             "last_good_seq": records[-1][0] if records
+                             else start_seq - 1}
+                logger.warning("wal_torn_tail: %s",
+                               json.dumps(torn_info, sort_keys=True))
+                flight_dump("wal_torn_tail", extra=torn_info)
         for seq, rec in records:
             info["records"] += 1
             if seq > after_seq:

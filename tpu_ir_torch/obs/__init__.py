@@ -1,15 +1,19 @@
-"""The port's telemetry (the part of `tpu_ir/obs` the serving tier
-needs): spans and the ring of finished request trees (trace.py), whose
-durations feed latency histograms (histogram.py), the process-wide
-registry of counters and histograms (registry.py), distributed request
-tracing and the SLO burn-rate windows (disttrace.py), the span spool
-(aggregate.py), and the embedded server's `/rpc`, `/healthz`, `/slo` and
-`/trace` (server.py). `TPU_IR_TRACE=0` turns spans and every latency
-histogram off; counters stay on. Not ported: Prometheus text, flight
-dumps, the query log, progress jobs, the cumulative telemetry spool and
-the rest of the metrics server."""
+"""The port's telemetry (`tpu_ir/obs` less profiling, Prometheus text and
+the time series): spans and the ring of finished request trees
+(trace.py), whose durations feed latency histograms (histogram.py), the
+process-wide registry of counters and histograms (registry.py), the
+flight recorder's failure artifacts (recorder.py), progress jobs
+(progress.py), the query log and the slow-query trap (querylog.py),
+distributed request tracing and the SLO burn-rate windows (disttrace.py),
+the span spool (aggregate.py), and the embedded server's `/rpc`,
+`/healthz`, `/jobs`, `/querylog`, `/flight`, `/slo` and `/trace`
+(server.py). `TPU_IR_TRACE=0` turns spans and every latency histogram
+off; counters stay on."""
 
+from . import progress
 from .histogram import LatencyHistogram
+from .progress import current_job, report_progress, start_job
+from .recorder import flight_dir, flight_dump, reset_rate_limit
 from .registry import TelemetryRegistry, get_registry
 from .trace import (
     Span,
@@ -24,18 +28,26 @@ from .trace import (
     record_span,
     trace,
 )
+from . import querylog  # noqa: E402 — after recorder, which it imports
 from . import disttrace  # noqa: E402 — registers the root-close hook
 
 
 def reset_all() -> None:
-    """Zero the registry, empty the trace ring, drop the distributed-trace
+    """Zero the registry, empty the trace ring, forget the jobs, the query
+    log and the flight recorder's rate limit, drop the distributed-trace
     store and the SLO windows (the tests' isolation hook)."""
     get_registry().reset()
     clear_traces()
+    progress.clear_jobs()
+    reset_rate_limit()
+    querylog.clear()
     disttrace.reset()
 
 
 __all__ = ["LatencyHistogram", "TelemetryRegistry", "get_registry",
+           "flight_dir", "flight_dump", "reset_rate_limit", "progress",
+           "start_job", "report_progress", "current_job",
+           "querylog",
            "Span", "attach", "clear_traces", "configure", "current_root",
            "current_span", "enabled", "kernel_annotation", "recent_traces",
            "record_span", "trace", "disttrace", "reset_all"]

@@ -36,9 +36,8 @@ dispatch it in another request's batch. Each hop builds its own span tree
   error budget (1 - the 0.99 target). The fast window's burn is the
   autoscaler's second scale-up signal (`slo_burn_signal`), and a breach
   (both windows at 10x, the fast one holding at least 20 requests) counts
-  `slo.burn_breach` once a trip and logs one warning with the record's
-  fields (`tpu_ir` writes a flight record there; the port has no flight
-  recorder yet).
+  `slo.burn_breach` once a trip and writes one `slo_burn_breach` flight
+  record holding the SLO snapshot (obs/recorder.py).
 
 TPU_IR_DISTTRACE=0 turns the tracing half into flag tests that return
 None or do nothing. Trace and span ids come from os.urandom.
@@ -47,17 +46,16 @@ None or do nothing. Trace and span ids come from os.urandom.
 from __future__ import annotations
 
 import collections
-import logging
 import os
 import socket
 import threading
 import time
 
 from .. import envvars
+from .recorder import flight_dump
 from .registry import get_registry
 from .trace import add_root_hook as _add_root_hook
 
-logger = logging.getLogger(__name__)
 
 _lock = threading.Lock()
 _tls = threading.local()
@@ -555,7 +553,8 @@ def slo_record(level: str, total_ms: float, ok: bool = True,
     quality within TPU_IR_SLO_P99_MS (a shed, errored, partial or
     degraded answer burns budget however fast it was). Returns the
     verdict. On the not-breached -> breached transition (both windows
-    past the threshold) counts `slo.burn_breach` and logs the snapshot."""
+    past the threshold) counts `slo.burn_breach` and writes a flight
+    record of the snapshot."""
     good = (bool(ok) and classification == "full"
             and float(total_ms) <= _SLO_MS)
     reg = get_registry()
@@ -582,7 +581,8 @@ def slo_record(level: str, total_ms: float, ok: bool = True,
     reg.set_gauge("slo.burn_slow", round(burn_slow, 4))
     if fire:
         reg.incr("slo.burn_breach")
-        logger.warning("slo burn breach: %s", slo_snapshot())
+        flight_dump("slo_burn_breach",
+                    extra=lambda: {"slo": slo_snapshot()})
     return good
 
 

@@ -4,19 +4,24 @@ latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
 `fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
 `generation.*`, `load.*`, `router.*`, `scale.*`, `disttrace.*`, `slo.*`,
-`forecast.*`),
+`forecast.*`, `querylog.*`),
 every latency histogram under its
 span or stage name. The declared names (gauges too) are registered at
 zero, so a report always shows them, observed or not. `hist_state()` and
 `delta_summary()` give one run's percentiles without a reset of the
-process's state; `reset()` zeroes everything (the tests' isolation hook).
+process's state; `reset()` zeroes everything (the tests' isolation hook);
+`snapshot()` is all of it in `tpu_ir`'s shape.
 """
 
 from __future__ import annotations
 
 import threading
+import uuid
 
 from .histogram import LatencyHistogram, summary_from_counts
+
+# the version of snapshot()'s shape
+SNAPSHOT_SCHEMA = 1
 
 # fault-injection sites threaded through the port: the score dispatch,
 # and every declared death point of the live index's write path (the
@@ -138,6 +143,10 @@ DISTTRACE_COUNTER_NAMES = (
     "disttrace.kept_sampled", "disttrace.dropped_sampled",
     "disttrace.stitched")
 
+# the query log (obs/querylog.py), the JAX names: entries kept in its
+# ring, and the slow ones the trap captured
+QUERYLOG_COUNTER_NAMES = ("querylog.recorded", "querylog.slow")
+
 # the autoscaler's scale-ups whose deciding signal was the forecast (the
 # JAX name; nothing publishes the forecast in the port, so it stays 0)
 FORECAST_COUNTER_NAMES = ("forecast.scaleups",)
@@ -160,7 +169,7 @@ DECLARED_COUNTERS = (
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
     + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES
     + SCALE_COUNTER_NAMES + DISTTRACE_COUNTER_NAMES + SLO_COUNTER_NAMES
-    + FORECAST_COUNTER_NAMES)
+    + FORECAST_COUNTER_NAMES + QUERYLOG_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
 # frontend's start and inside each generation swap; load.* are
@@ -177,6 +186,8 @@ ROUTER_STAGES = ("router.request", "router.shard_rtt", "router.merge")
 SCALE_STAGES = ("scale.drain_ms", "scale.warmup_ms")
 # one whole-trace stitch (the live store, the spool walk, the tree)
 DISTTRACE_STAGES = ("disttrace.stitch",)
+# one slow-query capture (span tree, explain when admitted, flight record)
+QUERYLOG_STAGES = ("querylog.slow_capture",)
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
@@ -184,7 +195,7 @@ DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                           "ingest.flush", "ingest.replay", "merge.run",
                           "generation.swap", "ingest.freshness")
                        + LOAD_STAGES + ROUTER_STAGES + SCALE_STAGES
-                       + DISTTRACE_STAGES)
+                       + DISTTRACE_STAGES + QUERYLOG_STAGES)
 
 
 class TelemetryRegistry:
@@ -198,6 +209,8 @@ class TelemetryRegistry:
         self._hists: dict[str, LatencyHistogram] = {
             n: LatencyHistogram() for n in DECLARED_HISTOGRAMS}
         self._seq = 0
+        self._stamp = 0
+        self.run_id = uuid.uuid4().hex
 
     @property
     def seq(self) -> int:
@@ -269,6 +282,22 @@ class TelemetryRegistry:
                 out[name] = summary_from_counts(d, sum_s - b_sum)
         return out
 
+    def snapshot(self) -> dict:
+        """Everything in one dict, `tpu_ir`'s shape (the flight record's
+        telemetry line): the schema, a stamp bumped by every snapshot and
+        reset, the reset count, this process's run id, the counters, the
+        gauges and each histogram's summary."""
+        with self._lock:
+            self._stamp += 1
+            meta = {"schema": SNAPSHOT_SCHEMA, "seq": self._stamp,
+                    "resets": self._seq, "run_id": self.run_id}
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = dict(self._hists)
+        return {**meta, "counters": counters, "gauges": gauges,
+                "histograms": {n: summary_from_counts(*h.state())
+                               for n, h in hists.items()}}
+
     def reset(self) -> None:
         """Zero every counter, gauge and histogram. Histograms are zeroed
         in place, never dropped: a span may hold one while it closes."""
@@ -280,6 +309,7 @@ class TelemetryRegistry:
                     del self._counters[k]
             self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
             self._seq += 1
+            self._stamp += 1
             hists = list(self._hists.values())
         for h in hists:
             h.reset()

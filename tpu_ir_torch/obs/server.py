@@ -21,17 +21,26 @@ free one) serves:
                      autoscaler's section under `autoscaler` (epoch,
                      lifecycle, hysteresis, its last decision), and the
                      instance's `extra_health` (a worker's identity).
+  GET  /jobs         the job history (obs/progress.py), newest first;
+                     `?format=html` one table a job, a row a phase.
+  GET  /jobs/<id>    one job, JSON or `?format=html`; 404 for an unknown
+                     id.
+  GET  /querylog     the query log (obs/querylog.py): its settings and
+                     counts, the ring's entries and the slow captures
+                     (`?slow=1` the captures only, `?n=N` the newest N);
+                     `?format=html` a page of the same JSON.
+  GET  /flight       the newest flight records' headers, newest first.
   GET  /slo          the SLO burn-rate windows (disttrace.slo_snapshot);
                      `?format=html` a page of the same JSON.
   GET  /trace        the trace ids this process stores.
   GET  /trace/<id>   one trace stitched from the store and the spool;
                      `?format=html` its waterfall; 404 for an unknown id.
 
-`/metrics`, the cumulative telemetry spool, the timeseries sampler and
-the other HTML pages are not ported yet. The health keys are `tpu_ir`'s;
-those whose source the port lacks (`jobs_running`,
-`recompiles_last_60s`, `slow_queries_last_60s`) read None, the JAX
-package's own value when a source fails.
+`/metrics`, `/profile`, `/doctor`, `/cluster`, `/timeseries`, the
+cumulative telemetry spool and the timeseries sampler are not ported yet.
+The health keys are `tpu_ir`'s; `recompiles_last_60s`, whose source (the
+JAX compile profiler) the port lacks, reads None, the JAX package's own
+value when a source fails.
 """
 
 from __future__ import annotations
@@ -46,7 +55,8 @@ import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
-from . import disttrace
+from . import disttrace, progress, querylog
+from .recorder import recent_headers
 from .registry import get_registry
 
 logger = logging.getLogger(__name__)
@@ -126,13 +136,14 @@ def health_snapshot() -> dict:
         "ladder": None,
         "queue_depth": None,
         "frontends": [],
-        "jobs_running": None,
+        "jobs_running": sum(1 for j in progress.jobs()
+                            if j.state == "running"),
         "registry_seq": reg.seq,
         "uptime_s": round(time.time() - _PROCESS_START, 3),
         "started_at": _PROCESS_START_ISO,
         "build_sha": _build_sha(),
         "recompiles_last_60s": None,
-        "slow_queries_last_60s": None,
+        "slow_queries_last_60s": querylog.slow_last_60s(),
         "ingest": {
             "wal_appends": reg.get("ingest.wal_appends"),
             "wal_fsyncs": reg.get("ingest.wal_fsyncs"),
@@ -175,7 +186,8 @@ def health_snapshot() -> dict:
 
 # -- the HTML pages ----------------------------------------------------------
 
-_NAV_ROUTES = ("/healthz", "/slo?format=html", "/trace")
+_NAV_ROUTES = ("/healthz", "/jobs?format=html", "/querylog?format=html",
+               "/slo?format=html", "/trace", "/flight")
 
 _STYLE = ("<style>body{font-family:sans-serif;margin:1em}"
           "table{border-collapse:collapse;margin:0 0 1.5em}"
@@ -199,6 +211,39 @@ def _json_page_html(title: str, obj) -> str:
             f"<title>{html.escape(title)}</title>{_STYLE}</head><body>"
             f"<h1>{html.escape(title)}</h1>{_nav_html()}"
             f"<pre>{body}</pre></body></html>")
+
+
+def _jobs_html(job_dicts: list, title: str) -> str:
+    """/jobs' page: a table a job, its name, state and percent above one
+    row a phase with its task counts and counters."""
+    parts = ["<!DOCTYPE html><html><head><meta charset='utf-8'>",
+             f"<title>{html.escape(title)}</title>", _STYLE,
+             f"</head><body><h1>{html.escape(title)}</h1>", _nav_html()]
+    for d in job_dicts:
+        eta = f" &middot; ETA {d['eta_s']}s" if "eta_s" in d else ""
+        parts.append(
+            f"<h2><a href='/jobs/{d['job_id']}?format=html'>"
+            f"job_{d['job_id']:04d}</a> {html.escape(d['name'])} "
+            f"({html.escape(d['kind'])})</h2>"
+            f"<p>state: <b>{html.escape(d['state'])}</b> &middot; "
+            f"<span class='pct'>{d['percent']}% complete</span> &middot; "
+            f"{d['elapsed_s']}s elapsed{eta}</p>")
+        parts.append("<table><tr><th>phase</th><th>done</th><th>total</th>"
+                     "<th>%</th><th>counters</th></tr>")
+        for ph in d["phases"]:
+            counters = ", ".join(f"{k}={v}"
+                                 for k, v in sorted(ph["counters"].items()))
+            pct = f"{ph['percent']}%" if "percent" in ph else ""
+            parts.append(
+                f"<tr><td>{html.escape(ph['phase'])}</td>"
+                f"<td>{ph['done']}</td>"
+                f"<td>{'' if ph['total'] is None else ph['total']}</td>"
+                f"<td>{pct}</td><td>{html.escape(counters)}</td></tr>")
+        parts.append("</table>")
+    if not job_dicts:
+        parts.append("<p>(no jobs recorded)</p>")
+    parts.append("</body></html>")
+    return "".join(parts)
 
 
 def _trace_waterfall_html(st: dict) -> str:
@@ -322,13 +367,52 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             url = urlparse(self.path)
             route = url.path.rstrip("/") or "/"
-            as_html = parse_qs(url.query).get("format", [""])[0] == "html"
+            q = parse_qs(url.query)
+            as_html = q.get("format", [""])[0] == "html"
             if route == "/healthz":
                 payload = health_snapshot()
                 extra = self.server.extra_health
                 if extra is not None:
                     payload.update(extra() if callable(extra) else extra)
                 self._json(payload)
+            elif route == "/jobs":
+                dicts = [j.to_dict() for j in reversed(progress.jobs())]
+                if as_html:
+                    self._html(_jobs_html(dicts, "tpu-ir jobs"))
+                else:
+                    self._json({"jobs": dicts})
+            elif route.startswith("/jobs/"):
+                try:
+                    job = progress.get_job(int(route.split("/", 2)[2]))
+                except ValueError:
+                    job = None
+                if job is None:
+                    self._json({"error": "no such job"}, code=404)
+                elif as_html:
+                    d = job.to_dict()
+                    self._html(_jobs_html([d],
+                                          f"tpu-ir job_{d['job_id']:04d}"))
+                else:
+                    self._json(job.to_dict())
+            elif route == "/querylog":
+                n = None
+                if q.get("n"):
+                    try:
+                        n = max(int(q["n"][0]), 1)
+                    except ValueError:
+                        self._json({"error": "n must be an integer"},
+                                   code=400)
+                        return
+                payload = {**querylog.summary(),
+                           "slow_entries": querylog.slow_recent(n)}
+                if q.get("slow", ["0"])[0] in ("", "0", "false"):
+                    payload["entries"] = querylog.recent(n)
+                if as_html:
+                    self._html(_json_page_html("tpu-ir querylog", payload))
+                else:
+                    self._json(payload)
+            elif route == "/flight":
+                self._json({"flight_records": recent_headers()})
             elif route == "/slo":
                 slo = disttrace.slo_snapshot()
                 if as_html:

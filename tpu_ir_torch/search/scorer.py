@@ -87,6 +87,7 @@ import logging
 import os
 import re
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -98,7 +99,7 @@ from ..collection import KGRAM_SEP, DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
 from ..index.blockmax import load_block_bounds
 from ..index.compress import bf16_exact
-from ..obs import get_registry, kernel_annotation
+from ..obs import get_registry, kernel_annotation, querylog
 from ..obs import trace as obs_trace
 from ..ops.cold_tier import TierTable
 from ..ops.postings import pair_term_from_df
@@ -210,8 +211,10 @@ class SearchResult(list):
     one highlighted text window a hit when the serving frontend was asked
     for them. A routed answer (serving/router.py) also carries `partial`
     (a shard is missing from it), `shards_ok` and `missing_shards` (shard
-    ids) and `hedges` (hedged attempts it took); `trace_id` belongs to
-    distributed tracing, not ported: always None."""
+    ids) and `hedges` (hedged attempts it took). `trace_id`: the id of the
+    distributed trace that answered, stamped by the ServingFrontend that
+    minted it or by the Router (obs/disttrace.py); None on a plain Scorer
+    call."""
 
     degraded: bool = False
     level: str = "full"
@@ -1400,6 +1403,7 @@ class Scorer:
         explain_ks: Sequence[int] | None = None,
         pad_to: int | None = None, width_floor: int | None = None,
         rung_ladder: tuple | None = None,
+        slot_meta: Sequence[dict] | None = None,
     ) -> list[SearchResult]:
         """Ranked retrieval for query texts: one SearchResult of (docid or
         docno, score) per text, best first, each tagged with this
@@ -1420,8 +1424,11 @@ class Scorer:
         degraded or proximity-boosted result carries None. The
         coalescer's: `pad_to=R` pads the query rows with -1 rows to R
         (their results are dropped), `width_floor` pins the analyzed
-        width, and `rung_ladder` pads the MaxScore groups to ladder
-        rungs; such a batch cannot hold a phrase query."""
+        width, `rung_ladder` pads the MaxScore groups to ladder rungs, and
+        `slot_meta[i]` merges a slot's own fields (service level, queue
+        wait, occupancy, trace id) into query i's query-log entry; such a
+        batch cannot hold a phrase query. Every plain query leaves one
+        query-log entry (obs/querylog.py)."""
         if prox and not rerank:
             raise ValueError("the proximity boost is stage 3 of the "
                              "two-stage rerank; pass rerank=N (--rerank) "
@@ -1431,19 +1438,22 @@ class Scorer:
             raise ValueError(f"explain_ks has {len(explain_ks)} entries for "
                              f"{len(texts)} queries")
         plain = [t for t in texts if '"' not in t]
-        if len(plain) != len(texts) and (pad_to is not None
-                                         or explain_ks is not None):
+        if len(plain) != len(texts) and (
+                pad_to is not None or explain_ks is not None
+                or slot_meta is not None):
             # the per-slot lists index the plain batch: a phrase query in
-            # it would shift every later slot's explain depth
-            raise ValueError("a coalesced batch (pad_to / explain_ks) "
-                             "cannot contain phrase queries — the "
-                             "coalescing frontend routes them solo")
+            # it would shift every later slot's explain depth and query-log
+            # attribution
+            raise ValueError("a coalesced batch (pad_to / explain_ks / "
+                             "slot_meta) cannot contain phrase queries "
+                             "— the coalescing frontend routes them "
+                             "solo")
         plain_iter = iter(self._search_batch_plain(
             plain, k=k, scoring=scoring, return_docids=return_docids,
             rerank=rerank, prox=prox, deadline_s=deadline_s,
             force_host=force_host, hot_only=hot_only, explain_k=explain_k,
             explain_ks=explain_ks, pad_to=pad_to, width_floor=width_floor,
-            rung_ladder=rung_ladder) if plain else [])
+            rung_ladder=rung_ladder, slot_meta=slot_meta) if plain else [])
         return [self._search_phrase(t, k=k, scoring=scoring,
                                     slop=phrase_slop,
                                     return_docids=return_docids,
@@ -1458,11 +1468,14 @@ class Scorer:
         explain_ks: Sequence[int] | None = None,
         pad_to: int | None = None, width_floor: int | None = None,
         rung_ladder: tuple | None = None,
+        slot_meta: Sequence[dict] | None = None,
     ) -> list[SearchResult]:
+        t0 = time.perf_counter()
         q = self.analyze_queries(texts, width_floor=width_floor)
         if pad_to is not None and pad_to > len(q):
             q = np.vstack([q, np.full((pad_to - len(q), q.shape[1]), -1,
                                       np.int32)])
+        t_analyzed = time.perf_counter()
         if rerank:
             from .phrase import PROX_DEPTH
 
@@ -1478,6 +1491,7 @@ class Scorer:
                 q, k=k, scoring=scoring, deadline_s=deadline_s,
                 hot_only=hot_only, force_host=force_host,
                 uniform=rung_ladder if pad_to is not None else None)
+        t_dispatched = time.perf_counter()
         out = []
         for qi in range(len(texts)):
             res = SearchResult()
@@ -1489,6 +1503,10 @@ class Scorer:
                        else int(dn))
                 res.append((key, float(s)))
             out.append(res)
+        # the serving latency, taken before the optional explain: its
+        # debug dispatches must not trip the slow-query trap on a request
+        # that was served fast
+        total_s = time.perf_counter() - t0
         if (explain_k or explain_ks) and not degraded and not prox:
             # the boosted scores come from the host after the kernels:
             # they are not a kernel decomposition
@@ -1501,7 +1519,73 @@ class Scorer:
                     out[qi].explain = explain_hits(
                         self, text, top, scoring=scoring, rerank=rerank,
                         hot_only=hot_only)
+        self._querylog_record(
+            texts, q, docnos, out, k=k, scoring=scoring, rerank=rerank,
+            hot_only=hot_only, force_host=force_host, degraded=degraded,
+            prox=prox, analyze_s=t_analyzed - t0,
+            dispatch_s=t_dispatched - t_analyzed, total_s=total_s,
+            slot_meta=slot_meta)
         return out
+
+    def _querylog_record(self, texts, q, docnos, results, *, k, scoring,
+                         rerank, hot_only, force_host, degraded, prox,
+                         analyze_s, dispatch_s, total_s,
+                         slot_meta=None) -> None:
+        """One query-log entry a query of this batch (`tpu_ir`'s fields):
+        terms (only their hash when redacted), level, the batch's stage
+        split, batch id, the top hits, and the MaxScore skip decision,
+        re-derived on the host from the analyzed rows (`_skip_plan` reads
+        `_hot_rank_host`: no device read-back). `slot_meta[qi]` overrides
+        entry qi's batch-wide fields with the slot's own (the leader's
+        request context is not a follower's). The trap's explain of the
+        first query's top hit is a callable the flight recorder runs only
+        inside an admitted dump."""
+        if not querylog.enabled() or not texts:
+            return
+        batch_id = querylog.next_batch_id()
+        mode = has_hot = None
+        if self.layout == "sparse" and self.prune and not hot_only:
+            has_hot, _, mode = self._skip_plan(q)
+        level = "hot_only" if hot_only else "full"
+        stage = {"analyze_ms": round(analyze_s * 1e3, 3),
+                 "dispatch_ms": round(dispatch_s * 1e3, 3),
+                 "total_ms": round(total_s * 1e3, 3)}
+        for qi, text in enumerate(texts):
+            ids = [int(t) for t in q[qi] if t >= 0]
+            entry = {
+                "query_hash": querylog.query_hash(ids),
+                "n_terms": len(ids),
+                "level": level,
+                "degraded": bool(degraded),
+                "forced_host": bool(force_host),
+                "scoring": scoring,
+                "rerank": rerank,
+                "prox": bool(prox),
+                "k": k,
+                "batch_id": batch_id,
+                "batch_size": len(texts),
+                **stage,
+                "top": [[key, round(float(s), 6)]
+                        for key, s in results[qi][:10]],
+            }
+            if slot_meta is not None:
+                entry.update(slot_meta[qi])
+            if not querylog.redacted():
+                entry["terms"] = [self.vocab.term(t) for t in ids]
+            if mode is not None:
+                entry["prune"] = {"dispatch_mode": mode,
+                                  "has_hot": bool(has_hot[qi])}
+            explain_fn = None
+            top_dn = [int(dn) for dn in docnos[qi][:1] if dn > 0]
+            if qi == 0 and top_dn and not degraded and not prox:
+                # the trap's target: the batch's first query's top hit
+                # (the latency is the batch's, so any member stands for it)
+                def explain_fn(text=text, dn=top_dn):
+                    from .explain import explain_hits
+
+                    return explain_hits(self, text, dn, scoring=scoring,
+                                        rerank=rerank, hot_only=hot_only)
+            querylog.record(entry, explain_fn=explain_fn)
 
     def cosine_scores_at(self, texts: Sequence[str],
                          cand: np.ndarray) -> np.ndarray:
@@ -1582,13 +1666,15 @@ class Scorer:
             return self._search_batch_plain(
                 [text.replace('"', ' ')], k=k, scoring=scoring,
                 return_docids=return_docids, rerank=rerank, prox=prox)[0]
+        t0 = time.perf_counter()
         pidx = self._phrase_index()
         matched: set[int] | None = None
         for toks in analyzed:
             docs = set(pidx.match_window(toks, slop=slop))
             matched = docs if matched is None else matched & docs
             if not matched:
-                return SearchResult()
+                return self._querylog_phrase(text, SearchResult(), t0, k=k,
+                                             scoring=scoring, rerank=rerank)
         all_terms = self._query_term_sequence(text.replace('"', ' '))
         if rerank:
             # stage 1: BM25 over the matched docs, the top `rerank` kept
@@ -1624,6 +1710,35 @@ class Scorer:
             dn = int(docnos[i])
             key = self.mapping.get_docid(dn) if return_docids else dn
             res.append((key, float(scores[i])))
+        return self._querylog_phrase(text, res, t0, k=k, scoring=scoring,
+                                     rerank=rerank)
+
+    def _querylog_phrase(self, text, res, t0, *, k, scoring, rerank):
+        """A phrase query's query-log entry, `tpu_ir`'s slim form: no
+        stage split and no explain target (the phrase pipeline runs on
+        the host, no kernel to decompose)."""
+        if querylog.enabled():
+            total_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            terms = self._query_term_sequence(text.replace('"', ' '))
+            ids = [self.vocab.id_or(t) for t in terms]
+            entry = {
+                "query_hash": querylog.query_hash([i for i in ids
+                                                   if i >= 0]),
+                "n_terms": len(terms),
+                "level": "full",
+                "degraded": False,
+                "phrase": True,
+                "scoring": scoring,
+                "rerank": rerank,
+                "k": k,
+                "batch_id": querylog.next_batch_id(),
+                "batch_size": 1,
+                "total_ms": total_ms,
+                "top": [[key, round(float(s), 6)] for key, s in res[:10]],
+            }
+            if not querylog.redacted():
+                entry["terms"] = terms
+            querylog.record(entry)
         return res
 
     def _apply_proximity(self, texts, scores, docnos, k: int):

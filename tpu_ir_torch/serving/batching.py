@@ -26,7 +26,10 @@ Scorer, and a coalesced dispatch outside them counts `dispatch.unwarmed`.
 with an equal BatchKey (k, scoring, rerank, hot_only, force_host), while
 service level, queue wait and occupancy are tagged per slot, and exactly
 one slot of a batch carries the breaker's vote. A query's results in any
-padded batch are the bits of its solo dispatch.
+padded batch are the bits of its solo dispatch. Each slot's query-log
+entry (obs/querylog.py) carries its own level, queue depth and wait, the
+batch's occupancy and its own trace id (`slot_meta`): the entries are
+recorded on the leader's thread, whose request context is the leader's.
 
 **Traces.** Each slot keeps its caller's trace context (the leader runs
 the batch on its own thread). After the dispatch, the shared dispatch is
@@ -66,13 +69,16 @@ class _Slot:
     "done" / "error"; or None -> "abandoned" (timed out while queued).
     The leader writes the result before it sets the event."""
 
-    __slots__ = ("text", "key", "explain_k", "t_enqueue", "event", "state",
-                 "result", "error", "ctx")
+    __slots__ = ("text", "key", "explain_k", "level", "queue_depth",
+                 "t_enqueue", "event", "state", "result", "error", "ctx")
 
-    def __init__(self, text: str, key: BatchKey, explain_k: int):
+    def __init__(self, text: str, key: BatchKey, explain_k: int,
+                 level: str, queue_depth: int):
         self.text = text
         self.key = key
         self.explain_k = explain_k
+        self.level = level
+        self.queue_depth = queue_depth
         self.t_enqueue = time.perf_counter()
         self.event = threading.Event()
         self.state = None
@@ -135,16 +141,19 @@ class CoalescingScheduler:
 
     def submit(self, text: str, *, k: int, scoring: str,
                rerank: int | None, hot_only: bool, force_host: bool,
+               level: str = "full", queue_depth: int = 0,
                explain_k: int = 0):
         """Serve one query through the coalescer; returns its
         SearchResult (tagged per slot) or raises what the shared dispatch
-        raised. Blocks the calling thread."""
+        raised. `level` and `queue_depth` are the frontend's for this
+        request, stamped on its query-log entry. Blocks the calling
+        thread."""
         if '"' in text:
             raise ValueError("phrase queries cannot ride a coalesced "
                              "batch; route them solo")
         slot = _Slot(text, BatchKey(k, scoring, rerank, bool(hot_only),
                                     bool(force_host)),
-                     explain_k)
+                     explain_k, level, queue_depth)
         with self._lock:
             self._queue.append(slot)
             lead = not self._dispatching
@@ -253,6 +262,13 @@ class CoalescingScheduler:
         t0 = time.perf_counter()
         b = len(slots)
         key = slots[0].key
+        meta = [{"level": s.level,
+                 "queue_depth": s.queue_depth,
+                 "queue_wait_ms": round((t0 - s.t_enqueue) * 1e3, 3),
+                 "batch_occupancy": b} for s in slots]
+        for s, m in zip(slots, meta):
+            if s.ctx is not None:
+                m["trace_id"] = s.ctx.trace_id
         reg = get_registry()
         reg.incr("batch.coalesced" if b > 1 else "batch.solo_flush")
         if obs.enabled():
@@ -268,7 +284,7 @@ class CoalescingScheduler:
                 force_host=key.force_host, hot_only=key.hot_only,
                 explain_ks=[s.explain_k for s in slots],
                 pad_to=self._rung(b), width_floor=self._width,
-                rung_ladder=self._ladder)
+                rung_ladder=self._ladder, slot_meta=meta)
         except BaseException as e:  # delivered, not swallowed: every
             self._trace_batch(slots, t0, t_dispatch, error=repr(e))
             for s in slots:         # slot's caller re-raises it

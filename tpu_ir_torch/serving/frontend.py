@@ -28,9 +28,10 @@ no threads of its own. A request under no trace context (no router, no
 worker RPC) mints one when distributed tracing is on (obs/disttrace.py):
 the frontend is then its own edge, stamps the answer's `trace_id` and
 records the request in the SLO windows; under an adopted context (a
-worker's RPC) it joins the caller's trace and mints none. Not ported
-here: the health-source registration of the metrics server and the query
-log's request context.
+worker's RPC) it joins the caller's trace and mints none. The scorer's
+query-log entry (obs/querylog.py) carries the ladder's service level and
+the queue depth, and a breaker opening writes a `breaker_open` flight
+record (rate-limited).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import time
 from dataclasses import dataclass
 
 from .. import obs
-from ..obs import disttrace
+from ..obs import disttrace, flight_dump, querylog
 from ..obs import trace as obs_trace
 from ..utils.report import RecoveryCounters, serving_counters
 from .admission import AdmissionController, Overloaded
@@ -438,15 +439,22 @@ class ServingFrontend:
                 res = batcher.submit(
                     text, k=k, scoring=scoring, rerank=use_rerank,
                     hot_only=(level == LEVEL_HOT_ONLY),
-                    force_host=force_host, explain_k=explain_k)
+                    force_host=force_host, level=level,
+                    queue_depth=self.admission.queue_depth(),
+                    explain_k=explain_k)
             else:
-                res = scorer.search_batch(
-                    [text], k=k, scoring=scoring, rerank=use_rerank,
-                    deadline_s=self.config.deadline_s,
-                    force_host=force_host,
-                    hot_only=(level == LEVEL_HOT_ONLY),
-                    explain_k=explain_k,
-                    return_docids=return_docids)[0]
+                # the scorer knows only its flags: the context stamps its
+                # query-log entry with the ladder's level and queue depth
+                with querylog.request_context(
+                        level=level,
+                        queue_depth=self.admission.queue_depth()):
+                    res = scorer.search_batch(
+                        [text], k=k, scoring=scoring, rerank=use_rerank,
+                        deadline_s=self.config.deadline_s,
+                        force_host=force_host,
+                        hot_only=(level == LEVEL_HOT_ONLY),
+                        explain_k=explain_k,
+                        return_docids=return_docids)[0]
         except BaseException:
             # not a device verdict (a bad query, a program bug): release
             # any probe slot this request held, so the breaker cannot
@@ -470,6 +478,12 @@ class ServingFrontend:
                 if votes and self.breaker.record_failure(
                         is_probe=is_probe):
                     self._count("breaker_opened")
+                    # an incident boundary: freeze the recent traces and
+                    # the telemetry (rate-limited, so a flapping breaker
+                    # cannot fill a disk)
+                    flight_dump("breaker_open", extra={
+                        "breaker": self.breaker.snapshot(),
+                        "ladder": self.ladder.snapshot()})
             elif votes:
                 self.breaker.record_success(is_probe=is_probe)
         if res.degraded:

@@ -52,8 +52,9 @@ holds `admission_wait`; each replica attempt is an `rpc.<path>` record
 context to the worker as `traceparent`, gets its true duration and ok or
 error when the call returns, the worker's piggybacked records folded in
 beside it, and one verdict at harvest: won, lost, failed, cancelled or
-deadline. The answer's `trace_id` names the trace. Not ported (ROADMAP
-item 8b): the query log.
+deadline. The answer's `trace_id` names the trace. Every finished
+request, a cache hit too, leaves one query-log entry (obs/querylog.py)
+with the routed taxonomy and the answer's `trace_id`.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 
 from .. import envvars, obs
-from ..obs import disttrace, get_registry
+from ..obs import disttrace, get_registry, querylog
 from ..obs import trace as obs_trace
 from .admission import AdmissionController, Overloaded
 from .breaker import CircuitBreaker
@@ -579,6 +580,8 @@ class Router:
                 disttrace.slo_record(
                     res.level, (time.perf_counter() - t0) * 1e3,
                     classification=self.classify(res))
+                self._querylog(text, res, k=k, scoring=scoring,
+                               rerank=rerank, t0=t0, cached=True)
                 return res
         # the trace is minted here, at admission, the one process that
         # sees the whole request; installed on this thread, the attempts'
@@ -640,6 +643,8 @@ class Router:
         self._count_served(res)
         disttrace.slo_record(res.level, (time.perf_counter() - t0) * 1e3,
                              classification=self.classify(res))
+        self._querylog(text, res, k=k, scoring=scoring, rerank=rerank,
+                       t0=t0)
         return res
 
     def _cache_key(self, text: str, *, k: int, scoring: str,
@@ -811,6 +816,32 @@ class Router:
     def _observe(name: str, t0: float) -> None:
         if obs.enabled():
             get_registry().observe(name, time.perf_counter() - t0)
+
+    @staticmethod
+    def _querylog(text: str, res, *, k: int, scoring: str,
+                  rerank: int | None, t0: float,
+                  cached: bool = False) -> None:
+        """The routed request's query-log entry (`tpu_ir`'s fields): the
+        taxonomy, the whole request's latency, and the trace id that
+        joins it to its stitched waterfall."""
+        entry = {
+            "router": True,
+            "cached": cached,
+            "query_hash": querylog.query_hash(text.split()),
+            "k": k, "scoring": scoring, "rerank": rerank,
+            "level": res.level, "degraded": bool(res.degraded),
+            "generation": int(res.generation),
+            "partial": bool(res.partial),
+            "shards_ok": list(res.shards_ok),
+            "missing_shards": list(res.missing_shards),
+            "hedges": int(res.hedges),
+            "total_ms": round((time.perf_counter() - t0) * 1e3, 3),
+        }
+        if res.trace_id:
+            entry["trace_id"] = res.trace_id
+        if not querylog.redacted():
+            entry["text"] = text
+        querylog.record(entry)
 
     def health_summary(self) -> dict:
         """The fleet view /healthz serves, polled at most once every

@@ -3,8 +3,8 @@
 package's counter names.
 
 `JobReport` is one build job's phase timings and counters, saved as
-`jobs/<job>.json` in the index dir (what the JAX package's `tracked`
-progress jobs show live is written here once, at the job's end).
+`jobs/<job>.json` in the index dir (what the build's progress job,
+obs/progress.py, shows live is written here once, at the job's end).
 
 `RecoveryCounters` is a standalone ledger (each ServingFrontend keeps
 one). `recovery_counters()` and `serving_counters()` are the process-wide
