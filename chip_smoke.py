@@ -6,9 +6,11 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the port from csrc/ (one nvcc per source, all
-started together; the build line reports each kernel's registers, spills
-and shared memory from ptxas) and the native tokenizer from
-native/analyzer.cpp (g++), then runs these phases in order, printing
+started together; the build line prints the build ledger of
+ops/_build.py: each library's nvcc and load seconds and ptxas's
+registers, spills, stack and shared memory for each kernel) and the
+native tokenizer from native/analyzer.cpp (g++), then runs these phases
+in order, printing
 one JSON line per phase; any failure ends the run with a nonzero exit
 code:
 
@@ -40,6 +42,12 @@ code:
               TF-IDF and BM25, then topk over 10,000 two-term queries with
               k = 10, checked against an exhaustive numpy oracle (recall@10
               on 64 queries, both scorings) and the kernels' launch counts;
+              and the profiler's view (obs/profiling.py): the labels
+              dispatched, one cold call a signature, none on the timed
+              repeat, one `dispatch.device` a query block, the dense
+              TF-IDF signature's bytes equal to dense_bound's every-row
+              bytes, the memory gauges against torch.cuda.memory_allocated
+              (1 MiB), and each scoring's dispatch split;
 6. rerank     rerank_topk (BM25 top 1,000, then cosine TF-IDF, k = 10)
               over the same queries: q/s, device time, launches; then
               `explain`: 16 of the queries as texts through search_batch
@@ -86,7 +94,7 @@ code:
               30-300) likewise, and its first 640 queries in batches of
               64;
 13. rerank    as 6, on wiki100k;
-14. wildcard  three mixes of 100 texts on wiki100k (a literal term and
+14. wildcard  three mixes of 64 texts on wiki100k (a literal term and
               a prefix glob; a literal term and a fuzzy token; the three
               questions that once raised, then two-token texts ending in
               '?'): 40 patterns of each held against a glob and a
@@ -204,7 +212,7 @@ code:
               workers add to the card's used memory in nvidia-smi), behind
               a Router (serving/router.py: hedging, failover, breakers);
               through Router.search 32 texts from one client alone, then
-              512 TF-IDF and 512 BM25 texts from 8 client threads with
+              256 TF-IDF and 256 BM25 texts from 8 client threads with
               replica 0/1 SIGKILLed after 30% of them: every answer full
               and bitwise A's top-10 in this process (routed q/s, the
               request's p50 and p99, the router.request, router.shard_rtt
@@ -212,7 +220,7 @@ code:
               request), every answer's distributed trace stitched whole
               (one root, a verdict on every attempt, each contributing
               shard's worker request and kernel spans); before that pass
-              the 512 TF-IDF texts from 8 clients six times on the
+              the 256 TF-IDF texts from 8 clients four times on the
               whole fleet, traced and with this process's tracing off
               (the control; the workers keep tracing) in turns (q/s and
               router.request p50 of each, their medians, every answer
@@ -230,7 +238,7 @@ code:
               killed replica respawned comes back on B and answers as its
               sibling; cold_tier and hot_stage launched in the workers
               over the routed traffic (their /healthz); then `elastic`,
-              its own line, on that fleet (on B): 512 TF-IDF texts from 8
+              its own line, on that fleet (on B): 256 TF-IDF texts from 8
               clients through the Router at 2 x 2; an Autoscaler in
               thread mode (run_distributed_soak's defaults: 2 to 3
               replicas, cooldown 0.5 s, up at 0.6, down at 0.15, 3 and
@@ -238,7 +246,7 @@ code:
               the 8 clients cycling the texts through it until the
               autoscaler has grown one warm replica a shard (ticks to
               the decision, the grow's seconds, each worker's nice, the
-              grown workers' warm-up launches); the same 512 texts at
+              grown workers' warm-up launches); the same 256 texts at
               2 x 3 through the first Router (q/s, the client's and
               `router.request`'s p50 and p99 at 2 x 2 and 2 x 3); idle
               ticks with one probe a 0.1 s until a second autoscaler
@@ -311,7 +319,7 @@ code:
               cosine stage; 64 queries (32 uniform, 32 pairs of common
               terms) held bitwise against the boost recomputed in numpy
               from the position files;
-21. phrase    wiki100k: 80 quoted windows of 2-3 analyzed tokens of
+21. phrase    wiki100k: 64 quoted windows of 2-3 analyzed tokens of
               random docs (default_rng(12)), half with a free term, at
               slop 0 and 2, TF-IDF and BM25: q/s and the host's share;
               20 phrases a slop held against a scan of the token streams
@@ -344,18 +352,29 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               `batch_mixed_degraded` 0 over `batches_observed` > 0);
 25. sweep     on each, run_concurrency_sweep at concurrency 1, 4 and 16,
               100 requests a level, BM25 and TF-IDF, twice each:
-              solo round trip, p50/p95/p99 ms, q/s, mean occupancy and
-              `unwarmed` (must be 0), and the repeats' spread; on ref
+              solo round trip, p50/p95/p99 ms, q/s, mean occupancy,
+              `unwarmed` and `compiles` (both 0 after the coalescer's
+              warm-up), and the repeats' spread; on ref
               `querylog_cost`: 400 BM25 requests from 16 clients, three
               passes with the query log on and three off in turns (q/s
               medians and spreads, the host cost of one entry; the ring
               holds min(256, entries) and `querylog.recorded` counts
-              them); then one request's latency past a 0.25 s deadline
+              them) and `profile_cost`: the same passes with the profiler
+              on and off, each after a full collection (medians, spreads,
+              the garbage collector's pauses in each pass and the medians
+              net of them, every pass bitwise the first, the dispatch
+              split at concurrency 16, the profiler's own host cost a
+              call at the arguments the passes gave it); then one request's
+              latency past a 0.25 s deadline
               beside the open breaker's, and the `breaker_open` flight
               record the opening wrote (header, trace and telemetry
-              lines, newest in the flight dir);
+              lines, newest in the flight dir); last `/metrics`,
+              `/metrics.json` and `/profile` scraped from a MetricsServer,
+              `/metrics?reset=1` refused with 403;
 26. querylog  on wiki100k one search_batch of 2,048 texts timed three
-              times with the query log on and three off, in turns; then
+              times with the query log on and three off, in turns, and
+              likewise with the profiler (`profile_cost`, as in the
+              sweep's, with the batch's dispatch split); then
               the slow-query trap on ref and wiki100k with every request
               slow, through a ServingFrontend and through a plain
               search_batch of 8 texts: the capture's span tree holds a
@@ -364,9 +383,11 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               record whose header lists the offender (and the answer's
               trace id through the frontend), a second probe within the
               rate limit records but writes and explains nothing and
-              launches only the search's kernels; the explain's launches
-              (dense_score on ref, cold_tier and hot_stage on wiki100k)
-              and `querylog.slow_capture`'s p50.
+              launches only the search's kernels; each record's header
+              carries the card's memory and the compile cache's cold
+              calls; the explain's launches (dense_score on ref,
+              cold_tier and hot_stage on wiki100k) and
+              `querylog.slow_capture`'s p50.
 
 Every flight record of the run goes to a folder of its work dir
 (TPU_IR_FLIGHT_DIR). Phase 10's radix build is read through its progress
@@ -385,6 +406,23 @@ seconds and its own wait.
 The last three lines are the `kernels` summary, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without CUDA, or outside the
 repository, the script exits nonzero before printing any result.
+
+With `--dispatch-ab INDEX [--root TREE] [--label L]` it runs only the
+serving passes of `profile_cost` on the ref corpus, for an A/B of two
+trees on one card: `--root` imports `tpu_ir_torch` from another checkout
+(a parent commit unpacked beside this one), and INDEX is built from the
+ref corpus on first use. Each pass (DISPATCH_AB_PASSES of each arm, in
+turns; the arms are the profiler on and off where the tree has it, else
+two like arms, `plain` and `plain_b`, so both trees run as many passes in
+the same order) times 400 BM25 requests from 16 clients through a
+coalescing frontend on the dense layout and one search_batch of 2,048
+texts on the tiered layout, each after a full collection, then as many
+passes with no collection first, all with the collector's pauses. It also profiles one batch of each arm (cProfile, the
+functions with the most own time) and times the profiler's own host cost
+a call. It prints one JSON line:
+
+    python3 chip_smoke.py --dispatch-ab build/ab/idx --root build/parent --label parent
+    python3 chip_smoke.py --dispatch-ab build/ab/idx --label change
 """
 
 from __future__ import annotations
@@ -600,6 +638,14 @@ def ref_kernel_inputs(*, vocab_rows: int, width: int, batch: int,
                                                          width - 1)
 
 
+def every_row_bytes(batch: int, terms: int, width: int,
+                    cell_bytes: int) -> int:
+    """A dense score's bytes when every (b, l) reads its matrix row in
+    full and the [B, D+1] float32 scores are written once: what the
+    profiler counts for a dense signature (ops/scoring.py::_dense_cost)."""
+    return batch * terms * width * cell_bytes + batch * width * 4
+
+
 def dense_bound(q_d, idf, width: int, cell_bytes: int,
                 ops_per_cell: int) -> dict:
     """The least time of a dense score kernel on these inputs: the distinct
@@ -623,9 +669,8 @@ def dense_bound(q_d, idf, width: int, cell_bytes: int,
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
             "bound_bytes": bytes_moved, "distinct_rows": n_rows,
-            "bound_ms_every_row_read": (batch * terms * width * cell_bytes
-                                        + batch * width * 4)
-            / HBM_BYTES_PER_S * 1e3}
+            "bound_ms_every_row_read": every_row_bytes(
+                batch, terms, width, cell_bytes) / HBM_BYTES_PER_S * 1e3}
 
 
 def sparse_mm_yardstick(q_d, idf, matrix) -> tuple:
@@ -1154,6 +1199,97 @@ def scheduled_blocks(scorer, q: np.ndarray) -> tuple[int, int]:
     return ceil(n_free), ceil(len(q) - n_free)
 
 
+SPLIT_SPANS = ("kernel", "dispatch.device", "dispatch")
+MEMORY_SLACK_BYTES = 1 << 20   # gauge vs torch.cuda.memory_allocated()
+
+
+def dispatch_split(delta: dict) -> dict:
+    """The dispatch's parts over a run, from a registry delta_summary:
+    the host's launches (`kernel`), the wait on the card
+    (`dispatch.device`) and the whole dispatch, each span's count and its
+    p50 and p99 ms."""
+    return {name: {n: (delta.get(name) or {}).get(n)
+                   for n in ("count", "p50_ms", "p99_ms")}
+            for name in SPLIT_SPANS}
+
+
+def served_labels(scorer, scorings=("tfidf", "bm25")) -> dict:
+    """The profiled labels a topk of each scoring may dispatch on this
+    scorer (the JAX package's function names)."""
+    if scorer.layout == "sparse":
+        return {s: {f"{s}_topk_tiered", f"{s}_topk_blockmax"}
+                for s in scorings}
+    tfidf = ("tfidf_topk_dense" if scorer.doc_matrix is not None
+             else "tfidf_topk_dense_quantized")
+    return {s: {tfidf if s == "tfidf" else "bm25_topk_dense"}
+            for s in scorings}
+
+
+def check_serve_profile(report: dict, labels: dict, split: dict,
+                        blocks: int, dense_sig: str | None,
+                        dense_bytes: int | None) -> dict:
+    """The profiler's view of a serve (profiling.profile_report):
+    every scoring dispatched one of its `labels`, every signature had
+    exactly one cold call, the timed repeat added no compile.count
+    (`split[scoring]["repeat_compiles"]`) and one `dispatch.device` a
+    query block (`blocks`), and on the dense layout the tfidf_topk_dense
+    signature that starts with `dense_sig` counted `dense_bytes`
+    (every_row_bytes). Returns the
+    labels dispatched and the signatures' facts."""
+    functions = {f["name"]: f for f in report["functions"]}
+    for scoring, want in labels.items():
+        if not want & set(functions):
+            raise AssertionError(f"{scoring}: none of {sorted(want)} in "
+                                 f"the profile ({sorted(functions)})")
+    sigs = {name: [{k: sig[k] for k in ("signature", "compiles",
+                                        "bytes_accessed", "flops",
+                                        "last_compile_s")}
+                   for sig in f["signatures"]]
+            for name, f in functions.items()}
+    for name, rows in sigs.items():
+        if any(r["compiles"] != 1 for r in rows):
+            raise AssertionError(f"{name}: a signature with other than "
+                                 f"one cold call: {rows}")
+    for scoring, row in split.items():
+        if row["repeat_compiles"] != 0:
+            raise AssertionError(f"{scoring}: the repeat at the same "
+                                 f"shape added {row['repeat_compiles']} "
+                                 "compiles")
+        if row["dispatch.device"]["count"] != blocks:
+            raise AssertionError(f"{scoring}: {row['dispatch.device']} "
+                                 f"dispatch.device for {blocks} blocks")
+    if dense_sig is not None:
+        got = [r["bytes_accessed"] for r in sigs["tfidf_topk_dense"]
+               if r["signature"].startswith(dense_sig)]
+        if got != [dense_bytes]:
+            raise AssertionError(f"the dense TF-IDF signature {dense_sig}"
+                                 f" counted {got} bytes, expected "
+                                 f"{dense_bytes}")
+    return {"labels": sorted(functions), "signatures": sigs}
+
+
+def check_memory_gauges(resident: int) -> dict:
+    """A forced memory sample against torch.cuda.memory_allocated() at
+    the same point: device.bytes_in_use within MEMORY_SLACK_BYTES of it,
+    device.peak_bytes at least the `resident` bytes."""
+    import torch
+
+    from tpu_ir_torch.obs import get_registry, profiling
+
+    reg = get_registry()
+    profiling.sample_memory(min_interval_s=0)
+    allocated = torch.cuda.memory_allocated()
+    in_use = reg.get_gauge("device.bytes_in_use")
+    peak = reg.get_gauge("device.peak_bytes")
+    if abs(in_use - allocated) > MEMORY_SLACK_BYTES or peak < resident:
+        raise AssertionError(f"memory gauges: in use {in_use}, peak {peak}"
+                             f"; allocated {allocated}, resident "
+                             f"{resident}")
+    return {"bytes_in_use": in_use, "memory_allocated": allocated,
+            "peak_bytes": peak, "host_rss_bytes": reg.get_gauge(
+                "host.rss_bytes")}
+
+
 def oracle_topk(q: np.ndarray, df: np.ndarray, pair_doc: np.ndarray,
                 pair_tf: np.ndarray, num_docs: int, k: int, *,
                 scoring: str = "tfidf", doc_len: np.ndarray | None = None):
@@ -1236,10 +1372,12 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
     import torch
 
     import tpu_ir_torch
+    from tpu_ir_torch.obs import get_registry, profiling
     from tpu_ir_torch.search import Scorer
 
     n_queries = REF_QUERIES
     on_cuda = device == "cuda"
+    reg = get_registry()
 
     def sync():
         if on_cuda:
@@ -1280,11 +1418,13 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
     v = scorer.meta.vocab_size
     q_ids = rng.integers(0, v, size=(n_queries, REF_QUERY_TERMS)).astype(
         np.int32)
-    results, walls, per_topk, blockmax = {}, {}, {}, {}
+    results, walls, per_topk, blockmax, split = {}, {}, {}, {}, {}
     for scoring in ("tfidf", "bm25"):
-        scorer.topk(q_ids, k=k, scoring=scoring)     # warm-up
+        scorer.topk(q_ids, k=k, scoring=scoring)     # warm-up: cold calls
         before = tpu_ir_torch.kernel_launches()
         stats = dict(scorer.blockmax_stats)
+        compiles = reg.get("compile.count")
+        hist0 = reg.hist_state()
         t0 = time.perf_counter()
         results[scoring] = scorer.topk(q_ids, k=k, scoring=scoring)
         walls[scoring] = time.perf_counter() - t0    # host arrays: synced
@@ -1292,6 +1432,9 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
         per_topk[scoring] = {n: after[n] - before[n] for n in after}
         blockmax[scoring] = {n: v - stats[n]
                              for n, v in scorer.blockmax_stats.items()}
+        split[scoring] = {
+            "repeat_compiles": reg.get("compile.count") - compiles,
+            **dispatch_split(reg.delta_summary(hist0))}
     launches = tpu_ir_torch.kernel_launches()
     peak = torch.cuda.max_memory_allocated() if on_cuda else None
     profiles = ({s: profile_topk(scorer, q_ids, k, s)
@@ -1308,6 +1451,19 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
         if on_cuda and launches[kernel] == 0:
             raise AssertionError(f"the serve phase never launched {kernel}")
     skip_blocks, full_blocks = scheduled_blocks(scorer, q_ids)
+    dense_sig = dense_bytes = None
+    if scorer.layout == "dense" and scorer.doc_matrix is not None:
+        dense_sig = f"int32[{n_queries},{REF_QUERY_TERMS}], float32["
+        dense_bytes = every_row_bytes(n_queries, REF_QUERY_TERMS,
+                                      scorer.meta.num_docs + 1,
+                                      scorer.doc_matrix.element_size())
+    prof = check_serve_profile(profiling.profile_report(),
+                               served_labels(scorer), split,
+                               skip_blocks + full_blocks, dense_sig,
+                               dense_bytes)
+    prof["dispatch_split"] = split
+    prof["dense_signature_bytes"] = dense_bytes
+    prof["memory"] = check_memory_gauges(resident) if on_cuda else None
     if on_cuda and scorer.layout == "sparse" and any(
             (c["cold_tier"], c["hot_stage"])
             != (skip_blocks + full_blocks, full_blocks)
@@ -1347,7 +1503,7 @@ def phase_serve(card: str, idx: str, *, device: str, config: str = "ref",
            "recall_at_10": min(o["recall_at_10"] for o in oracle.values()),
            "oracle_max_rel_err": max(o["max_rel_err"]
                                      for o in oracle.values()),
-           "oracle": oracle, "profile": profiles}
+           "oracle": oracle, "profile": profiles, "profiler": prof}
     if scorer.layout == "sparse":
         out["tiers"] = {
             "hot_rows": int(scorer.hot_tfs.shape[0]),
@@ -2189,11 +2345,12 @@ def phase_hot_stage(card: str, scorer, q_block: np.ndarray,
     return out
 
 
-WILDCARD_QUERIES = 100          # query texts of each wildcard mix (2,000
+WILDCARD_QUERIES = 64           # query texts of each wildcard mix (2,000
                                 # before the run outgrew its time, 1,000
                                 # before the live phases, 500 before the
                                 # shard workers, 250 before the router,
-                                # 125 before the query log's checks)
+                                # 125 before the query log's checks, 100
+                                # before the profiler's)
 EXPANSION_SAMPLE = 40          # patterns of a mix held against the oracles
                                # (200 before the run outgrew its time, 80
                                # before the routed attribution passes)
@@ -2870,18 +3027,21 @@ def phase_soak(card: str, scorer, *, config: str, device: str) -> dict:
 
 
 def closed_loop(fe, texts: list[str], clients: int, *, scoring: str,
-                k: int) -> None:
+                k: int) -> list:
     """`clients` threads sending `texts` through the frontend `fe`, each
     thread its share one request after the other (a sweep level's
-    traffic, for the profiler)."""
+    traffic, for the profiler). Returns each text's result_bits, in the
+    texts' order."""
     import threading
 
     errors = []
+    out = [None] * len(texts)
 
     def client(ci):
         try:
-            for text in texts[ci::clients]:
-                fe.search(text, k=k, scoring=scoring)
+            for i in range(ci, len(texts), clients):
+                out[i] = result_bits(fe.search(texts[i], k=k,
+                                               scoring=scoring))
         except Exception as e:  # noqa: BLE001 — raised below
             errors.append(e)
 
@@ -2893,6 +3053,7 @@ def closed_loop(fe, texts: list[str], clients: int, *, scoring: str,
         t.join()
     if errors:
         raise errors[0]
+    return out
 
 
 # -- the query log, the slow-query trap, flight records and jobs -------------
@@ -3053,6 +3214,214 @@ def querylog_passes(run, entries: int) -> dict:
             "entry_cost_us": (med["on"] - med["off"]) / entries * 1e6}
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """The garbage collector's pauses while the block runs (gc.callbacks).
+    Yields a dict that holds, once the block ends, the collections'
+    `count`, how many were `full` (the oldest generation's) and their
+    seconds `s`."""
+    import gc
+
+    out = {"count": 0, "full": 0, "s": 0.0}
+    start = [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            out["count"] += 1
+            out["full"] += info["generation"] == 2
+            out["s"] += time.perf_counter() - start[0]
+
+    gc.callbacks.append(note)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(note)
+
+
+def collected_pass(run, collect: bool = True):
+    """`run()` after a full collection, timed: (its result, wall seconds,
+    gc_pauses' dict). Where a full collection falls depends on what every
+    earlier pass allocated: without the collection first, passes in turns
+    can meet it in one arm again and again. `collect=False` times the
+    pass as it comes, the collector's pauses still counted."""
+    import gc
+
+    if collect:
+        gc.collect()
+    with gc_pauses() as pause:
+        t0 = time.perf_counter()
+        got = run()
+        wall = time.perf_counter() - t0
+    return got, wall, pause
+
+
+def arm_summary(walls: dict, pauses: dict) -> dict:
+    """Passes' walls and collector pauses by arm: the walls, their
+    medians and spreads (greatest less least), each pass's pauses and the
+    median of the walls net of them."""
+    med = {a: float(np.median(w)) for a, w in walls.items()}
+    net = {a: float(np.median([w - p["s"] for w, p in zip(walls[a],
+                                                           pauses[a])]))
+           for a in walls}
+    return {"walls_s": walls, "median_s": med,
+            "spread_s": {a: max(w) - min(w) for a, w in walls.items()},
+            "gc": {a: [{"s": p["s"], "full": p["full"],
+                        "count": p["count"]} for p in ps]
+                   for a, ps in pauses.items()},
+            "net_of_gc_median_s": net}
+
+
+SHIM_REPS = 2_000                # timed calls of each captured signature
+
+
+def profiler_shim_cost(run) -> dict:
+    """The profiler's own host cost at the arguments the serving path
+    really passes: one `run()` with the profiled entry points' outermost
+    calls captured, then, for each distinct signature, its signature key
+    and a profiled no-op (on a signature it has seen, the warm path)
+    timed SHIM_REPS times against the bare no-op; and one memory sample
+    (forced, the card's allocator read). Returns the calls a pass, µs a
+    call of each, and the shim's ms a pass (calls x the wrapper's µs,
+    plus one sample each 50 ms of the pass)."""
+    from tpu_ir_torch.obs import profiling
+
+    calls = []
+    real = profiling.Profiled.__call__
+
+    def capture(self, *args, **kwargs):
+        if getattr(profiling._tls, "acc", None) is None:
+            calls.append((self.label, args, kwargs))
+        return real(self, *args, **kwargs)
+
+    profiling.Profiled.__call__ = capture
+    try:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        profiling.Profiled.__call__ = real
+
+    def noop(*args, **kwargs):
+        return None
+
+    def per_call_us(fn, args, kwargs) -> float:
+        t0 = time.perf_counter()
+        for _ in range(SHIM_REPS):
+            fn(*args, **kwargs)
+        return (time.perf_counter() - t0) / SHIM_REPS * 1e6
+
+    rows = {}
+    for label, args, kwargs in calls:
+        sig = profiling.signature_key(args, kwargs)
+        if (label, sig) in rows:
+            rows[label, sig]["calls"] += 1
+            continue
+        shim = profiling.Profiled(noop, label="shim")
+        shim._seen.add(sig)                  # the warm path: no cold call
+        key_us = per_call_us(profiling.signature_key, (args, kwargs), {})
+        bare_us = per_call_us(noop, args, kwargs)
+        rows[label, sig] = {"label": label,
+                            "signature": profiling.render_signature(sig),
+                            "calls": 1, "key_us": key_us,
+                            "wrapper_us": per_call_us(shim, args, kwargs)
+                            - bare_us}
+    del calls
+    t0 = time.perf_counter()
+    for _ in range(100):
+        profiling.sample_memory(min_interval_s=0)
+    sample_us = (time.perf_counter() - t0) / 100 * 1e6
+    n = sum(r["calls"] for r in rows.values())
+    shim_ms = sum(r["calls"] * r["wrapper_us"] for r in rows.values()) / 1e3
+    return {"calls_a_pass": n, "signatures": list(rows.values()),
+            "sample_memory_us": sample_us,
+            "shim_ms_a_pass": shim_ms
+            + (wall / profiling.SAMPLE_MIN_INTERVAL_S + 1) * sample_us / 1e3,
+            "pass_s": wall}
+
+
+def profiling_passes(run) -> dict:
+    """`run()` timed QUERYLOG_PASSES times with the profiler on and as
+    often off (profiling.configure), in turns, on first, each pass after
+    a full collection (collected_pass); every pass must return what the
+    first returned (the results' bits: profiling changes no result).
+    Returns arm_summary's walls, medians, spreads and collector pauses,
+    the on arm's cost over the off arm's median (of the walls, and net of
+    the pauses), the dispatch split over all the passes (dispatch_split)
+    and the profiler's own cost a call (profiler_shim_cost)."""
+    from tpu_ir_torch.obs import get_registry, profiling
+
+    reg = get_registry()
+    hist0 = reg.hist_state()
+    walls = {"on": [], "off": []}
+    pauses = {"on": [], "off": []}
+    first = None
+    try:
+        for i in range(2 * QUERYLOG_PASSES):
+            arm = "on" if i % 2 == 0 else "off"
+            profiling.configure(enabled=arm == "on")
+            got, wall, pause = collected_pass(run)
+            walls[arm].append(wall)
+            pauses[arm].append(pause)
+            if first is None:
+                first = got
+            elif got != first:
+                raise AssertionError(f"profiler {arm}, pass {i}: the "
+                                     "results differ from the first pass's")
+    finally:
+        profiling.configure(enabled=True)
+    out = arm_summary(walls, pauses)
+    med, net = out["median_s"], out["net_of_gc_median_s"]
+    out["cost_share"] = (med["on"] - med["off"]) / med["off"]
+    out["net_of_gc_cost_share"] = (net["on"] - net["off"]) / net["off"]
+    out["dispatch_split"] = dispatch_split(reg.delta_summary(hist0))
+    out["shim"] = profiler_shim_cost(run)
+    return out
+
+
+def scrape_metrics_server() -> dict:
+    """/metrics, /metrics.json and /profile scraped from a MetricsServer
+    of this process, and `/metrics?reset=1` refused with 403 (the
+    registry's reset count unchanged by it). Returns each body's size
+    and the profile's labels."""
+    import urllib.error
+    import urllib.request
+
+    from tpu_ir_torch.obs import get_registry
+    from tpu_ir_torch.obs.server import MetricsServer
+
+    reg = get_registry()
+    with MetricsServer(port=0) as srv:
+        def get(route: str) -> bytes:
+            with urllib.request.urlopen(srv.url + route, timeout=30) as r:
+                return r.read()
+
+        prom = get("/metrics").decode("utf-8")
+        snap = json.loads(get("/metrics.json"))
+        prof = json.loads(get("/profile"))
+        resets = reg.seq
+        try:
+            get("/metrics?reset=1")
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+    if "# TYPE tpu_ir_events_total counter" not in prom \
+            or 'tpu_ir_events_total{name="compile.count"}' not in prom:
+        raise AssertionError("/metrics lacks the counter family")
+    if snap["counters"]["compile.count"] < 1 or not prof["functions"] \
+            or "builds" not in prof:
+        raise AssertionError(f"/metrics.json {snap['counters']['compile.count']}"
+                             f" cold calls, /profile {len(prof['functions'])}"
+                             " functions")
+    if refused != 403 or reg.seq != resets:
+        raise AssertionError(f"/metrics?reset=1 answered {refused}")
+    return {"metrics_bytes": len(prom), "metrics_json_counters":
+            len(snap["counters"]), "profile_labels":
+            sorted(f["name"] for f in prof["functions"]),
+            "reset_refused": refused}
+
+
 def phase_sweep(card: str, scorer, *, config: str, device: str,
                 k: int = 10) -> dict:
     """run_concurrency_sweep at SWEEP_LEVELS through a coalescing frontend,
@@ -3070,7 +3439,11 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
     top level first: QUERYLOG_PASS_TEXTS BM25 requests through a
     coalescing frontend by as many clients, QUERYLOG_PASSES passes with
     the log on and off in turns (querylog_passes: q/s medians, spreads,
-    the host cost of an entry)."""
+    the host cost of an entry), then the profiler's on the same passes
+    (profiling_passes) with the dispatch split at that level. Every
+    level adds no cold call after the warm-up (`compiles` 0); last the
+    server's /metrics, /metrics.json and /profile are scraped
+    (scrape_metrics_server)."""
     from tpu_ir_torch import faults, obs
     from tpu_ir_torch.obs.recorder import flight_dir, recent_headers
     from tpu_ir_torch.serving import (
@@ -3090,7 +3463,10 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
                                         queries_per_level=SWEEP_QUERIES,
                                         seed=seed, scoring=scoring, k=k)
             for lv in rep["levels"]:
-                if lv["errors"] or lv["unwarmed"] or lv["served"] == 0:
+                # no cold call after the coalescer's warm-up, as no
+                # unwarmed shape
+                if lv["errors"] or lv["unwarmed"] or lv["compiles"] \
+                        or lv["served"] == 0:
                     raise AssertionError(f"{config} {scoring} sweep level "
                                          f"{lv['concurrency']}: {lv}")
             runs.append({
@@ -3098,7 +3474,8 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
                 "levels": [{n: lv[n] for n in (
                     "concurrency", "served", "shed", "qps", "p50_ms",
                     "p95_ms", "p99_ms", "occupancy_mean", "unwarmed",
-                    "coalesced", "solo_flush")} for lv in rep["levels"]]})
+                    "compiles", "coalesced", "solo_flush")}
+                    for lv in rep["levels"]]})
         spread = []
         for i, level in enumerate(SWEEP_LEVELS):
             row = {"concurrency": level}
@@ -3130,6 +3507,15 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
                               for a, v in cost["qps"].items()}
         cost["concurrency"] = top
         out["querylog_cost"] = cost
+        # the profiler's cost on the same passes, and the dispatch split
+        # at the top level
+        prof = profiling_passes(
+            lambda: closed_loop(fe, texts, top, scoring="bm25", k=k))
+        prof["qps_median"] = {a: len(texts) / w
+                              for a, w in prof["median_s"].items()}
+        prof["concurrency"] = top
+        out["profile_cost"] = prof
+    out["scrapes"] = scrape_metrics_server()
     deadline = 0.25
     fe = ServingFrontend(scorer, ServingConfig(
         deadline_s=deadline, breaker_threshold=1, breaker_cooldown_s=300.0,
@@ -3286,7 +3672,9 @@ def slow_trap(scorer, *, config: str, path: str, k: int = 10) -> dict:
             "record": {"path": cap["flight_record"],
                        "seq": header["seq"],
                        "trace_lines": header["trace_lines"],
-                       "slow_queries": len(header["slow_queries"])},
+                       "slow_queries": len(header["slow_queries"]),
+                       "memory": header.get("memory"),
+                       "compile_cache": header.get("compile_cache")},
             "rate_limited": {"captures": len(second["captures"]),
                              "launches": second["launches"]},
             # the admitted capture's cost (span tree, explain, record)
@@ -3299,9 +3687,13 @@ def phase_querylog(card: str, serving: dict, *, device: str) -> dict:
     """The query log and its slow-query trap on the card. On wiki100k the
     cost of the log on one search_batch of QUERYLOG_BATCH texts
     (querylog_passes: QUERYLOG_PASSES timed calls with the log on and as
-    many off, in turns); then on ref (dense) and wiki100k (tiered) the
+    many off, in turns), and the profiler's on the same call
+    (profiling_passes, with its dispatch split); then on ref (dense) and
+    wiki100k (tiered) the
     trap on both paths (slow_trap), with the explain's launches:
-    dense_score on ref, cold_tier and hot_stage on wiki100k, and the
+    dense_score on ref, cold_tier and hot_stage on wiki100k, each
+    record's header with its memory (the card's, on the card) and at
+    least one cold call in its compile cache, and the
     `querylog.slow_capture` histogram's p50 over the phase."""
     from tpu_ir_torch.obs import get_registry
 
@@ -3314,6 +3706,10 @@ def phase_querylog(card: str, serving: dict, *, device: str) -> dict:
     out["batch_cost"] = dict(
         querylog_passes(lambda: wiki.search_batch(texts, k=10), len(texts)),
         config="wiki100k")
+    # the profiler's cost on the same batch, with its dispatch split
+    out["profile_cost"] = dict(profiling_passes(
+        lambda: [result_bits(r) for r in wiki.search_batch(texts, k=10)]),
+        config="wiki100k", texts=len(texts))
     want = {"ref": ("dense_score",), "wiki100k": ("cold_tier", "hot_stage")}
     out["trap"] = {}
     for config, scorer in serving.items():
@@ -3323,6 +3719,14 @@ def phase_querylog(card: str, serving: dict, *, device: str) -> dict:
                     row["explain_launches"][n] for n in want[config]):
                 raise AssertionError(f"{config} {path}: the explain launched "
                                      f"{row['explain_launches']}")
+            # the record's header: the memory (the card's on the card)
+            # and the compile cache's cold calls
+            rec = row["record"]
+            if (rec["compile_cache"] or {}).get("compiles", 0) < 1 or (
+                    device == "cuda" and not rec["memory"]["device"]):
+                raise AssertionError(f"{config} {path}: the record's header"
+                                     f" memory {rec['memory']}, compile "
+                                     f"cache {rec['compile_cache']}")
             out["trap"][f"{config}/{path}"] = row
     out["slow_capture"] = reg.delta_summary(
         hist0, always=("querylog.slow_capture",))["querylog.slow_capture"]
@@ -3332,11 +3736,11 @@ def phase_querylog(card: str, serving: dict, *, device: str) -> dict:
 # -- positions, phrase, proximity, explain, snippets --------------------------
 
 POSITIONS_REF_BATCH = 2_000     # ref docs a streaming batch (several batches)
-PHRASE_TEXTS = 80               # phrase texts of the wiki100k phrase phase
+PHRASE_TEXTS = 64               # phrase texts of the wiki100k phrase phase
                                 # (2,000 before the run outgrew its time,
                                 # 400 before the shard workers, 200 before
                                 # the router, 100 before the query log's
-                                # checks)
+                                # checks, 80 before the profiler's)
 PHRASE_SLOPS = (0, 2)
 PHRASE_ORACLE = 40              # phrases a slop held against a stream scan
                                 # (100 before the run outgrew its time)
@@ -4709,7 +5113,8 @@ def pageable_uploads():
 SHARD_WORKERS = 2               # doc shards of the shards phase
 SHARD_REPLICAS = 2              # replicas a shard (failover and hedging)
 SHARD_CLIENTS = 8               # client threads of its routed traffic
-SHARD_TEXTS = 512               # routed texts a scoring
+SHARD_TEXTS = 256               # routed texts a scoring (512 before the
+#                                 profiler's checks)
 SHARD_TRACE_PASSES = 3          # traced and untraced passes of the TF-IDF
                                 # texts each, alternating (medians)
 SHARD_KILL_AT = 0.3             # share of the routed texts answered when
@@ -6585,57 +6990,56 @@ def phase_ingest_soak(card: str, work: str, *, device: str) -> dict:
     return out
 
 
-def ptxas_report(log: str) -> list[dict]:
-    """Registers, spills and shared memory of each kernel in nvcc's
-    `-Xptxas -v` output."""
-    import re
-
-    kernels = []
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            short = re.search(r"\d([a-z_]+_kernel)(?:IL[bi](\d+)E)?",
-                              m.group(1))
-            kernels.append({"kernel": (
-                short.group(1) + (f"<{short.group(2)}>" if short.group(2)
-                                  else "")) if short else m.group(1)})
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and kernels:
-            kernels[-1].update(stack=int(m.group(1)),
-                               spill_stores=int(m.group(2)),
-                               spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernels:
-            smem = re.search(r"(\d+) bytes smem", line)
-            kernels[-1].update(registers=int(m.group(1)),
-                               smem=int(smem.group(1)) if smem else 0)
-    return kernels
+def check_build_ledger(ledger: list, names: list) -> None:
+    """The build ledger (ops/_build.py::build_ledger) holds every kernel
+    library of `names` once, each with its compiler's and its load's
+    seconds and ptxas's registers, spills, stack and shared memory for
+    each of its kernels."""
+    by_src = {e["source"]: e for e in ledger}
+    for name in names:
+        e = by_src.get(f"tpu_ir_torch/csrc/{name}.cu")
+        if e is None:
+            raise AssertionError(f"the build ledger lacks {name}: {ledger}")
+        if e["compile_s"] is None or e["load_s"] is None \
+                or e["compile_s"] < 0 or e["load_s"] < 0:
+            raise AssertionError(f"{name}: the ledger's seconds {e}")
+        if not e["ptxas"] or not all(
+                {"registers", "spill_stores", "spill_loads", "stack",
+                 "smem"} <= set(k) for k in e["ptxas"]):
+            raise AssertionError(f"{name}: no ptxas report for each "
+                                 f"kernel: {e['ptxas']}")
 
 
 def build_kernels(card: str) -> dict:
     """Build every kernel source at once (one nvcc per source, all
-    started together), then load each library; with ptxas's resource
-    report of each kernel built here."""
+    started together), then load each library and the native analyzer;
+    with the build ledger of each library (ops/_build.py): whether nvcc
+    ran, its seconds and the load's, and ptxas's resource report of each
+    kernel (check_build_ledger)."""
     from tpu_ir_torch.ops import _build
 
     from tpu_ir_torch.analysis import native
 
     names = _build.kernel_sources()
     t0 = time.perf_counter()
-    logs = _build.build(names)
+    _build.build(names)
     for name in names:
         _build.load(name)
     seconds = time.perf_counter() - t0
     # the native tokenizer (g++), so no build phase pays its compile
     t0 = time.perf_counter()
     native.load_native()
+    native_s = time.perf_counter() - t0
+    ledger = _build.build_ledger()
+    check_build_ledger(ledger, names)
+    by_lib = {e["library"]: e for e in ledger}
     return {"phase": "build_kernels", "card": card, "seconds": seconds,
-            "native_analyzer_s": time.perf_counter() - t0,
+            "native_analyzer_s": native_s,
             "native_analyzer": _build.host_lib_path(native.SOURCE).name,
             "libraries": {n: _build.lib_path(n).name for n in names},
-            "ptxas": {n: ptxas_report(log) for n, log in logs.items()}}
+            "ptxas": {n: by_lib[_build.lib_path(n).name]["ptxas"]
+                      for n in names},
+            "ledger": ledger}
 
 
 def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
@@ -6662,7 +7066,166 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
             "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}
 
 
+DISPATCH_AB_PASSES = 10          # passes of each arm of --dispatch-ab (5
+                                 # left the trees' medians inside the noise)
+DISPATCH_AB_CLIENTS = 16         # the closed loop's clients
+CPROFILE_TOP = 15                # functions listed from each arm's profile
+
+
+def dispatch_ab(argv: list[str]) -> int:
+    """`--dispatch-ab INDEX [--root TREE] [--label L]`: the serving passes
+    of profile_cost on the ref corpus, for an A/B of two trees on one card
+    (the module docstring's last paragraph). Prints one JSON line: each
+    arm's walls, medians, spreads and collector pauses for the closed loop
+    (`loop`) and the batch (`batch`), each pass after a full collection,
+    then as many passes as they come (`loop_as_is`, `batch_as_is`), the
+    batch's results as one digest
+    (equal across arms and trees), each arm's cProfile top functions of
+    one batch, each arm's span histograms (count, p50, p99) over its
+    passes, and the profiler's own cost (profiler_shim_cost), where the
+    tree has the profiler."""
+    import argparse
+    import cProfile
+    import hashlib
+    import pstats
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --dispatch-ab")
+    ap.add_argument("index")
+    ap.add_argument("--root", default=None)
+    ap.add_argument("--label", default="tree")
+    args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import tpu_ir_torch
+    from tpu_ir_torch.obs import get_registry
+    from tpu_ir_torch.obs.histogram import summary_from_counts
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+    from tpu_ir_torch.serving.soak import _sweep_queries
+
+    try:
+        from tpu_ir_torch.obs import profiling
+    except ImportError:                      # a tree before the profiler
+        profiling = None
+    card = card_line()
+    if not os.path.exists(os.path.join(args.index, "metadata.json")):
+        from tpu_ir_torch.corpus import make_corpus
+        from tpu_ir_torch.index import build_index
+
+        os.makedirs(os.path.dirname(os.path.abspath(args.index)),
+                    exist_ok=True)
+        corpus = args.index.rstrip("/") + ".trec"
+        make_corpus(corpus, seed=0, **REF_CORPUS)
+        build_index(corpus, args.index, num_shards=10, device="cuda")
+    dense = Scorer.load(args.index, layout="dense", device="cuda")
+    sparse = Scorer.load(args.index, layout="sparse", device="cuda")
+    fe = ServingFrontend(dense, ServingConfig(
+        max_concurrency=DISPATCH_AB_CLIENTS,
+        max_queue=2 * DISPATCH_AB_CLIENTS, coalesce=True))
+    loop_texts = _sweep_queries(dense, QUERYLOG_PASS_TEXTS, seed=2)
+    batch_texts = serving_texts(sparse, QUERYLOG_BATCH, seed=13)
+
+    def loop():
+        return closed_loop(fe, loop_texts, DISPATCH_AB_CLIENTS,
+                           scoring="bm25", k=10)
+
+    def batch():
+        return [result_bits(r)
+                for r in sparse.search_batch(batch_texts, k=10)]
+
+    want = {"loop": loop(), "batch": batch()}          # warm
+    # a tree without the profiler runs two like arms: the same passes in
+    # the same order as the on/off tree, so a pass's place in the process
+    # is matched too
+    arms = ("on", "off") if profiling is not None else ("plain", "plain_b")
+    # the passes after a full collection each, then as many as they come
+    series = [(n, c) for c in (True, False) for n in want]
+    walls = {s: {a: [] for a in arms} for s in series}
+    pauses = {s: {a: [] for a in arms} for s in series}
+    # each arm's span histograms over its collected passes: bucket counts
+    # summed
+    spans = {n: {a: {} for a in arms} for n in want}
+    reg = get_registry()
+    try:
+        for collect in (True, False):
+            for _ in range(DISPATCH_AB_PASSES):
+                for arm in arms:
+                    if profiling is not None:
+                        profiling.configure(enabled=arm == "on")
+                    for name, run in (("loop", loop), ("batch", batch)):
+                        before = reg.hist_state()
+                        got, wall, pause = collected_pass(run, collect)
+                        if got != want[name]:
+                            raise AssertionError(
+                                f"{args.label} {arm} {name}: the results "
+                                "differ")
+                        walls[name, collect][arm].append(wall)
+                        pauses[name, collect][arm].append(pause)
+                        if not collect:
+                            continue
+                        acc = spans[name][arm]
+                        for h, (counts, sum_s) in reg.hist_state().items():
+                            b_counts, b_sum = before.get(
+                                h, ([0] * len(counts), 0.0))
+                            c, t = acc.get(h, ([0] * len(counts), 0.0))
+                            acc[h] = ([x + a - b for x, a, b in
+                                       zip(c, counts, b_counts)],
+                                      t + sum_s - b_sum)
+        top = {}
+        for arm in arms:
+            if profiling is not None:
+                profiling.configure(enabled=arm == "on")
+            prof = cProfile.Profile()
+            prof.runcall(batch)
+            stats = pstats.Stats(prof).stats
+            rows = sorted(stats.items(), key=lambda kv: -kv[1][2])
+            top[arm] = [{"fn": f"{os.path.relpath(f, os.getcwd())}:{ln}"
+                               f"({name})" if f != "~" else name,
+                         "calls": v[1], "own_ms": v[2] * 1e3,
+                         "cum_ms": v[3] * 1e3}
+                        for (f, ln, name), v in rows[:CPROFILE_TOP]]
+    finally:
+        if profiling is not None:
+            profiling.configure(enabled=True)
+    digest = hashlib.sha256(json.dumps(want["batch"]).encode()).hexdigest()
+
+    def span_rows(name: str) -> dict:
+        return {a: {h: {k: v for k, v in summary_from_counts(c, t).items()
+                        if k in ("count", "p50_ms", "p99_ms")}
+                    for h, (c, t) in sorted(spans[name][a].items())
+                    if sum(c)}
+                for a in arms}
+    print(json.dumps({
+        "dispatch_ab": args.label, "card": card, "root": args.root,
+        "package": os.path.dirname(tpu_ir_torch.__file__),
+        "passes": DISPATCH_AB_PASSES,
+        "loop": dict(arm_summary(walls["loop", True],
+                                 pauses["loop", True]),
+                     requests=len(loop_texts),
+                     clients=DISPATCH_AB_CLIENTS, spans=span_rows("loop")),
+        "batch": dict(arm_summary(walls["batch", True],
+                                  pauses["batch", True]),
+                      texts=len(batch_texts), results_sha256=digest,
+                      spans=span_rows("batch")),
+        "loop_as_is": arm_summary(walls["loop", False],
+                                  pauses["loop", False]),
+        "batch_as_is": arm_summary(walls["batch", False],
+                                   pauses["batch", False]),
+        "cprofile_batch": top,
+        "shim": {"loop": profiler_shim_cost(loop),
+                 "batch": profiler_shim_cost(batch)}
+        if profiling is not None else None}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dispatch-ab"]:
+        return dispatch_ab(sys.argv[2:])
     try:
         import torch
     except ImportError:

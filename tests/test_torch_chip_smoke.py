@@ -1216,3 +1216,212 @@ def test_ingest_soak_phase_on_cpu(tmp_path):
     assert set(out["launches_with_warm_ups"]) == set(chip_smoke.PORT_KERNELS)
     assert os.listdir(tmp_path) == []
     json.dumps(out)
+
+
+# -- the profiler's checks (pure helpers, on the CPU) -------------------------
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z16cold_tier_kernelILb1EEvPKiS1_PKfS1_ilPfllff' for 'sm_90a'
+ptxas info    : Function properties for _Z16cold_tier_kernelILb1EEvPKiS1_PKfS1_ilPfllff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 4096 bytes smem, 432 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_moved_into_the_package():
+    """build_kernels reads the ledger, which parses nvcc's -Xptxas -v
+    output with ops/_build.py::ptxas_report (no copy left here)."""
+    from tpu_ir_torch.ops import _build
+
+    assert not hasattr(chip_smoke, "ptxas_report")
+    assert _build.ptxas_report(PTXAS_LOG) == [{
+        "kernel": "cold_tier_kernel<1>", "stack": 0, "spill_stores": 0,
+        "spill_loads": 0, "registers": 32, "smem": 4096}]
+
+
+def _ledger_entry(name, **over):
+    e = {"source": f"tpu_ir_torch/csrc/{name}.cu", "library": f"lib{name}",
+         "compiler": "nvcc", "built": True, "compile_s": 3.0, "load_s": 0.01,
+         "ptxas": [{"kernel": f"{name}_kernel", "registers": 40,
+                    "spill_stores": 0, "spill_loads": 0, "stack": 0,
+                    "smem": 0}]}
+    e.update(over)
+    return e
+
+
+@pytest.mark.parametrize("broken", [None, "missing", "no_ptxas", "unloaded"])
+def test_check_build_ledger(broken):
+    names = ["cold_tier", "dense_score"]
+    ledger = [_ledger_entry(n) for n in names]
+    if broken == "missing":
+        ledger = ledger[:1]
+    elif broken == "no_ptxas":
+        ledger[1]["ptxas"] = None
+    elif broken == "unloaded":
+        ledger[0]["load_s"] = None
+    if broken is None:
+        chip_smoke.check_build_ledger(ledger, names)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_build_ledger(ledger, names)
+
+
+def test_every_row_bytes_is_dense_bounds_count():
+    """The profiler's dense signature bytes are dense_bound's every-row
+    bytes: the same helper prices both."""
+    from tpu_ir_torch.ops.scoring import idf_weights
+
+    q = torch.tensor([[0, 1], [2, -1], [1, 1]], dtype=torch.int32)
+    idf = idf_weights(torch.tensor([1, 2, 3], dtype=torch.int32), 9)
+    bound = chip_smoke.dense_bound(q, idf, 10, cell_bytes=4,
+                                   ops_per_cell=2)
+    want = chip_smoke.every_row_bytes(3, 2, 10, 4)
+    assert want == 3 * 2 * 10 * 4 + 3 * 10 * 4
+    assert bound["bound_ms_every_row_read"] == \
+        want / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+def _report(sigs: dict) -> dict:
+    return {"functions": [{"name": n, "signatures": [
+        {"signature": s, "compiles": c, "bytes_accessed": b, "flops": None,
+         "last_compile_s": 0.001} for s, c, b in rows]}
+        for n, rows in sigs.items()]}
+
+
+def test_check_serve_profile():
+    labels = {"tfidf": {"tfidf_topk_dense"}, "bm25": {"bm25_topk_dense"}}
+    split = {s: {"repeat_compiles": 0, **chip_smoke.dispatch_split(
+        {"dispatch.device": {"count": 2, "p50_ms": 1.0, "p99_ms": 2.0}})}
+        for s in labels}
+    good = {"tfidf_topk_dense": [("int32[10,2], float32[5,9], ...", 1, 80)],
+            "bm25_topk_dense": [("int32[10,2], float32[5,9], ...", 1, 80)]}
+    out = chip_smoke.check_serve_profile(_report(good), labels, split, 2,
+                                         "int32[10,2], float32[", 80)
+    assert out["labels"] == ["bm25_topk_dense", "tfidf_topk_dense"]
+    bad_cases = [
+        (dict(good, tfidf_topk_dense=[("int32[10,2], float32[", 2, 80)]),
+         split, 2, 80),                                  # two cold calls
+        ({"bm25_topk_dense": good["bm25_topk_dense"]}, split, 2, 80),
+        (good, split, 3, 80),                           # a block unseen
+        (good, split, 2, 81),                           # wrong bytes
+        (good, dict(split, bm25=dict(split["bm25"], repeat_compiles=1)),
+         2, 80)]
+    for sigs, sp, blocks, nbytes in bad_cases:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_serve_profile(_report(sigs), labels, sp,
+                                           blocks, "int32[10,2], float32[",
+                                           nbytes)
+
+
+def test_dispatch_split_and_served_labels():
+    split = chip_smoke.dispatch_split(
+        {"kernel": {"count": 3, "p50_ms": 0.5, "p99_ms": 1.0, "sum_ms": 2}})
+    assert split["kernel"] == {"count": 3, "p50_ms": 0.5, "p99_ms": 1.0}
+    assert split["dispatch.device"] == {"count": None, "p50_ms": None,
+                                        "p99_ms": None}
+    tiered = types.SimpleNamespace(layout="sparse")
+    dense = types.SimpleNamespace(layout="dense", doc_matrix=None)
+    assert chip_smoke.served_labels(tiered)["bm25"] == {
+        "bm25_topk_tiered", "bm25_topk_blockmax"}
+    assert chip_smoke.served_labels(dense)["tfidf"] == {
+        "tfidf_topk_dense_quantized"}
+
+
+def test_profiling_passes_and_scrapes_on_cpu():
+    """Three passes on and three off in turns (the profiler restored on
+    after), each with its collector pauses, the dispatch split over them,
+    then one pass with the profiler on for the shim's cost; a pass whose
+    results change caught; and the server's scrapes with
+    /metrics?reset=1 refused."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import profiling
+
+    seen = []
+    fn = profiling.profiled(lambda x, k=1: x, label="passes_fn")
+
+    def run():
+        seen.append(profiling.enabled())
+        with obs.trace("dispatch"):
+            with obs.trace("dispatch.device"):
+                fn(torch.zeros(3), k=2)
+        return [1, 2]
+
+    out = chip_smoke.profiling_passes(run)
+    assert seen == [True, False] * chip_smoke.QUERYLOG_PASSES + [True]
+    assert profiling.enabled()
+    assert len(out["walls_s"]["on"]) == chip_smoke.QUERYLOG_PASSES
+    assert len(out["gc"]["off"]) == chip_smoke.QUERYLOG_PASSES
+    assert set(out["net_of_gc_median_s"]) == {"on", "off"}
+    assert out["dispatch_split"]["dispatch.device"]["count"] >= 6
+    assert out["shim"]["calls_a_pass"] == 1
+    assert out["shim"]["signatures"][0]["signature"] == "float32[3], k=2"
+    flips = iter(range(10))
+    with pytest.raises(AssertionError):
+        chip_smoke.profiling_passes(lambda: next(flips))
+    assert profiling.enabled()
+    profiling.profiled(lambda x: x, label="scrape_fn")(torch.zeros(1))
+    scraped = chip_smoke.scrape_metrics_server()
+    assert scraped["reset_refused"] == 403
+    assert "scrape_fn" in scraped["profile_labels"]
+
+
+def test_gc_pauses_and_collected_pass():
+    """A full collection inside the block is counted with its seconds;
+    collected_pass returns the run's result, its wall and the pauses;
+    arm_summary's medians net of the pauses subtract each pass's own."""
+    import gc
+
+    with chip_smoke.gc_pauses() as pause:
+        gc.collect()
+    assert pause["count"] >= 1 and pause["full"] >= 1 and pause["s"] > 0
+    got, wall, pause = chip_smoke.collected_pass(lambda: [7])
+    assert got == [7] and wall >= 0 and pause["full"] == 0
+    walls = {"a": [1.0, 3.0, 2.0]}
+    pauses = {"a": [{"s": 0.0, "full": 0, "count": 0},
+                    {"s": 2.0, "full": 1, "count": 1},
+                    {"s": 0.5, "full": 0, "count": 2}]}
+    out = chip_smoke.arm_summary(walls, pauses)
+    assert out["median_s"]["a"] == 2.0 and out["spread_s"]["a"] == 2.0
+    assert out["net_of_gc_median_s"]["a"] == 1.0
+    assert out["gc"]["a"][1] == {"s": 2.0, "full": 1, "count": 1}
+
+
+def test_profiler_shim_cost_captures_outermost_calls():
+    """The shim's cost is timed at the captured arguments of the
+    outermost profiled calls only (a nested one is the outer one's), one
+    row a signature with its calls, and the profiler's ledger gains no
+    cold call from the timing."""
+    from tpu_ir_torch.obs import profiling
+
+    inner = profiling.profiled(lambda x: x + 1, label="shim_inner")
+    outer = profiling.profiled(lambda x, n=0: inner(x), label="shim_outer")
+
+    def run():
+        outer(torch.zeros(2), n=1)
+        outer(torch.zeros(2), n=1)
+        outer(torch.zeros(4, dtype=torch.int32))
+
+    run()
+    before = profiling.compile_cache_snapshot()["compiles"]
+    out = chip_smoke.profiler_shim_cost(run)
+    assert out["calls_a_pass"] == 3
+    rows = {r["signature"]: r for r in out["signatures"]}
+    assert set(rows) == {"float32[2], n=1", "int32[4]"}
+    assert rows["float32[2], n=1"]["calls"] == 2
+    assert {r["label"] for r in out["signatures"]} == {"shim_outer"}
+    assert all(r["key_us"] > 0 for r in out["signatures"])
+    assert out["sample_memory_us"] > 0 and out["shim_ms_a_pass"] > 0
+    assert profiling.compile_cache_snapshot()["compiles"] == before
+
+
+def test_dispatch_ab_refuses_without_cuda():
+    """The A/B mode needs the card like the full run: without CUDA it
+    exits nonzero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--dispatch-ab",
+                        os.path.join(ROOT, "build", "no-index")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert r.stdout == ""
+    assert "no CUDA device" in r.stderr

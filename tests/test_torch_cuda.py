@@ -376,6 +376,43 @@ def test_scorer_on_cuda_equals_cpu(cuda, tmp_path):
         assert (gd == cd).mean() > 0.99
 
 
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_memory_gauges_follow_the_allocator_on_cuda(cuda, tmp_path, layout):
+    """The profiler's device gauges read the caching allocator: after a
+    served batch, device.bytes_in_use is within 1 MiB of
+    torch.cuda.memory_allocated() (chip_smoke.check_memory_gauges), the
+    peak is at least the resident index, a dispatch.device span is one a
+    query block, and profiling on and off give the same bits."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import profiling
+
+    corpus = str(tmp_path / "c.trec")
+    make_corpus(corpus, seed=4, n_docs=120, target_bytes=120_000,
+                vocab_size=1_200)
+    idx = str(tmp_path / "idx")
+    build_index(corpus, idx, num_shards=2, device=cuda)
+    obs.reset_all()
+    scorer = Scorer.load(idx, layout=layout)
+    resident = torch.cuda.memory_allocated()
+    q = np.random.default_rng(5).integers(
+        0, scorer.meta.vocab_size, (64, 2)).astype(np.int32)
+    reg = obs.get_registry()
+    before = reg.histogram("dispatch.device").state()[0]
+    on = scorer.topk(q, k=10, scoring="bm25")
+    after = reg.histogram("dispatch.device").state()[0]
+    assert sum(after) - sum(before) == sum(chip_smoke.scheduled_blocks(
+        scorer, q))
+    mem = chip_smoke.check_memory_gauges(resident)
+    assert mem["peak_bytes"] >= resident > 0
+    assert profiling.memory_snapshot()["device"]["bytes_in_use"] > 0
+    profiling.configure(enabled=False)
+    try:
+        off = scorer.topk(q, k=10, scoring="bm25")
+    finally:
+        profiling.configure(enabled=True)
+    assert on[0].tobytes() == off[0].tobytes() and (on[1] == off[1]).all()
+
+
 TIER = 0    # a one-tier table
 
 

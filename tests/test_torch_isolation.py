@@ -55,6 +55,7 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.serving.residency, tpu_ir_torch.serving.workload, "
             "tpu_ir_torch.serving.autoscale, tpu_ir_torch.obs.recorder, "
             "tpu_ir_torch.obs.progress, tpu_ir_torch.obs.querylog, "
+            "tpu_ir_torch.obs.profiling, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"

@@ -5,9 +5,10 @@ tests/test_obs.py and tests/test_disttrace.py.
 Both packages dump the same scripted trace ring and counters; the
 artifacts are compared line for line with the header's time, pid and seq,
 the trees' clock fields and thread ids, the registry's run id and stamps
-and the declared-name tables left out, as are `tpu_ir`'s header fields of
-profiling and the time series (ROADMAP item 8c, 8d). Each package's
-`recent_headers` reads the other's directory."""
+and the declared-name tables left out, as is `tpu_ir`'s header field of
+the time series (ROADMAP item 8d); the memory readings are compared by
+their keys. Each package's `recent_headers` reads the other's
+directory."""
 
 import importlib
 import json
@@ -32,8 +33,8 @@ from tpu_ir_torch.serving import ServingConfig, ServingFrontend, run_soak
 
 PACKAGES = {"port": (port_obs, port_rec, port_dt),
             "jax": (jax_obs, jax_rec, jax_dt)}
-# tpu_ir's header fields of profiling (8c) and the time series (8d)
-LATER_HEADER_KEYS = {"memory", "compile_cache", "timeseries"}
+# tpu_ir's header field of the time series (8d)
+LATER_HEADER_KEYS = {"timeseries"}
 SPAN_CLOCK = {"start_ns", "dur_us", "thread_id", "thread", "time"}
 
 
@@ -82,9 +83,10 @@ def test_artifact_lines_match_tpu_ir():
     assert len(port) == len(jax) == 4
     ph, jh = port[0], jax[0]
     assert set(ph) == set(jh) - LATER_HEADER_KEYS
-    volatile = {"time", "pid", "seq"} | LATER_HEADER_KEYS
+    volatile = {"time", "pid", "seq", "memory"} | LATER_HEADER_KEYS
     assert {k: v for k, v in ph.items() if k not in volatile} == \
         {k: v for k, v in jh.items() if k not in volatile}
+    assert set(ph["memory"]) == set(jh["memory"])
     assert ph["schema"] == port_rec.FLIGHT_SCHEMA == jax_rec.FLIGHT_SCHEMA
     assert [r["record"] for r in port] == [r["record"] for r in jax] == [
         "header", "trace", "trace", "telemetry"]

@@ -1,8 +1,9 @@
 """Command line of the port: `index`, `search`, `expand`, `eval`,
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
 `serve-bench`, `serve-worker`, `scale`, `ingest`, `compact`,
-`generations`, `backup`, `trace`, `querylog`, `trace-dump`, `pack`,
-`count` and `docno`, with tpu_ir's flag names and defaults.
+`generations`, `backup`, `trace`, `querylog`, `trace-dump`, `stats`,
+`metrics`, `profile`, `cache`, `pack`, `count` and `docno`, with tpu_ir's
+flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -31,7 +32,7 @@
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
         [--shards N [--replicas R] [--autoscale] [--pacing S]]
         [--workload uniform|zipf] [--skew S[,S...]] [--burst B]
-        [--flight-dir DIR]
+        [--flight-dir DIR] [--metrics-port PORT]
     python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
         [--host H] [--replica R] [--layout auto|dense|sparse]
         [--deadline S] [--concurrency N] [--queue-depth N] [--no-warm]
@@ -49,6 +50,10 @@
     python -m tpu_ir_torch.cli trace [TRACE_ID] [--json]
     python -m tpu_ir_torch.cli querylog [-n N] [--slow] [--trace ID]
     python -m tpu_ir_torch.cli trace-dump [--out FILE]
+    python -m tpu_ir_torch.cli stats [--reset]
+    python -m tpu_ir_torch.cli metrics [--prom] [--reset]
+    python -m tpu_ir_torch.cli profile
+    python -m tpu_ir_torch.cli cache [stats|clear]
     python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
         [--format lines|trectext|trecweb]
     python -m tpu_ir_torch.cli count CORPUS...
@@ -104,7 +109,17 @@ recorder's artifact on demand (JSONL: header, the ring's traces, the
 telemetry), or writes it to `--out FILE`. `serve-bench` reports the
 query log's counts and last slow entries under `querylog`, and an
 invariant breach writes its flight record to `--flight-dir` (default:
-TPU_IR_FLIGHT_DIR, else the system temp dir).
+TPU_IR_FLIGHT_DIR, else the system temp dir). `serve-bench
+--metrics-port PORT` serves the process's telemetry while the soak, the
+sweep or the routed soak runs (/metrics, /metrics.json, /profile,
+/doctor, /healthz, /jobs, /querylog, /flight; 0 picks a free port).
+`stats`, `metrics` (`--prom`: Prometheus text), `profile` (the
+device-cost profiler's report) and `cache stats|clear` (the live result
+caches) print this process's telemetry in tpu_ir's shapes: empty from a
+fresh command, the shape is the contract; a serving process shows its
+own on its server. `--reset` reads and zeroes in one step. `--cluster`,
+the spooled cluster view, comes with the cumulative telemetry (ROADMAP
+item 8d) and exits 2.
 """
 
 from __future__ import annotations
@@ -117,10 +132,10 @@ import sys
 
 
 class _MaybeTrack:
-    """Serve this process's telemetry (obs/server.py: /jobs, /healthz,
-    /flight) for the length of a command when a port is given (0 picks a
-    free one), announcing the URL on standard error; the server stops
-    with the command."""
+    """Serve this process's telemetry (obs/server.py: /metrics, /profile,
+    /doctor, /jobs, /healthz, /flight, ...) for the length of a command
+    when a port is given (0 picks a free one), announcing the URL on
+    standard error; the server stops with the command."""
 
     def __init__(self, port: int | None):
         self._port = port
@@ -132,7 +147,8 @@ class _MaybeTrack:
 
             self.server = MetricsServer(port=self._port).start()
             print(f"tpu-ir: serving live telemetry on {self.server.url} "
-                  "(/healthz /jobs /flight)", file=sys.stderr)
+                  "(/metrics /healthz /jobs /profile /flight)",
+                  file=sys.stderr)
         return self
 
     def __exit__(self, *exc):
@@ -819,6 +835,85 @@ def cmd_trace_dump(args) -> int:
     return 0
 
 
+def _no_cluster(command: str) -> int:
+    print(f"{command} --cluster merges the spooled per-process telemetry, "
+          "which comes with the cumulative telemetry (ROADMAP item 8d): "
+          "not ported yet", file=sys.stderr)
+    return 2
+
+
+def cmd_stats(args) -> int:
+    """This process's recovery and serving counters, the fault sites that
+    fired, the pruning counters and the latency histograms, one JSON
+    object in tpu_ir's shape, from one snapshot (`--reset` reads and
+    zeroes it in one step)."""
+    from . import obs
+
+    if args.cluster:
+        return _no_cluster("stats")
+    snap = obs.get_registry().snapshot(reset=args.reset)
+
+    def section(prefix: str) -> dict:
+        n = len(prefix)
+        return {k[n:]: v for k, v in snap["counters"].items()
+                if k.startswith(prefix)}
+
+    print(json.dumps({
+        "recovery": section("recovery."),
+        "serving": section("serving."),
+        "fault_injection": {k: v for k, v in section("fault.").items()
+                            if v},
+        "pruning": {k: v for k, v in snap["counters"].items()
+                    if k.startswith(("prune.", "blockmax."))},
+        "histograms": snap["histograms"],
+    }, sort_keys=True))
+    return 0
+
+
+def cmd_metrics(args) -> int:
+    """The whole registry (counters, gauges, histograms) as one JSON
+    object, or with `--prom` as Prometheus text; `--reset` zeroes it in
+    the same step."""
+    from . import obs
+
+    if args.cluster:
+        return _no_cluster("metrics")
+    reg = obs.get_registry()
+    if args.prom:
+        sys.stdout.write(reg.prometheus_text(reset=args.reset))
+    else:
+        print(json.dumps(reg.snapshot(reset=args.reset), sort_keys=True))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """The device-cost profiler's report (obs/profiling.py): cold calls
+    by function and signature with their cost, the dispatch split, the
+    memory gauges, the recompile window and the kernel-build ledger, one
+    JSON object."""
+    from .obs.profiling import profile_report
+
+    print(json.dumps(profile_report(), sort_keys=True, default=repr))
+    return 0
+
+
+def cmd_cache(args) -> int:
+    """The result caches (serving/result_cache.py): `stats` prints the
+    cache.* counters and every live cache's size; `clear` also drops
+    every live cache's entries and zeroes the cache.* counters."""
+    from .obs import get_registry
+    from .serving.result_cache import cache_counters, clear_all, live_caches
+
+    out = {"counters": cache_counters(),
+           "caches": [c.snapshot() for c in live_caches()]}
+    if args.verb == "clear":
+        out["cleared_entries"] = clear_all()
+        get_registry().reset_counters("cache.")
+        out["counters_reset"] = True
+    print(json.dumps(out, sort_keys=True))
+    return 0
+
+
 def _print_trace_waterfall(st: dict) -> None:
     """One stitched trace as text: a line a span, indented by depth, its
     bar on the trace's timeline, its offset and duration, its service and
@@ -1016,16 +1111,8 @@ def cmd_serve_bench(args) -> int:
     """The soak (`serving/soak.py::run_soak`) through a ServingFrontend,
     optionally under the chaos plan, or with `--concurrency N,N,...` the
     concurrency sweep; `--shards N` runs the distributed chaos soak
-    (`_serve_routed`). Prints the JSON report."""
-    from . import faults
-    from .search import Scorer
-    from .serving import (
-        DEFAULT_CHAOS_PLAN,
-        ServingConfig,
-        run_concurrency_sweep,
-        run_soak,
-    )
-
+    (`_serve_routed`). Prints the JSON report. `--metrics-port` serves
+    the process's telemetry while it runs."""
     if args.lead is not None:
         print("--lead is the forecast arm's horizon, which comes with the "
               "telemetry time machine (ROADMAP item 8): not ported yet",
@@ -1036,7 +1123,8 @@ def cmd_serve_bench(args) -> int:
               "the routed worker fleet", file=sys.stderr)
         return 2
     if args.shards is not None:
-        return _serve_routed(args)
+        with _MaybeTrack(args.metrics_port):
+            return _serve_routed(args)
     try:
         levels = [int(p) for p in str(args.concurrency).split(",")
                   if p.strip()]
@@ -1066,6 +1154,22 @@ def cmd_serve_bench(args) -> int:
               "use the soak (single --concurrency) for traffic shapes",
               file=sys.stderr)
         return 2
+    with _MaybeTrack(args.metrics_port):
+        return _serve_one(args, levels, workload)
+
+
+def _serve_one(args, levels: list, workload) -> int:
+    """serve-bench in one process: the concurrency sweep for several
+    levels, else the soak at the one level."""
+    from . import faults
+    from .search import Scorer
+    from .serving import (
+        DEFAULT_CHAOS_PLAN,
+        ServingConfig,
+        run_concurrency_sweep,
+        run_soak,
+    )
+
     scorer = Scorer.load(args.index_dir, layout=args.layout,
                          device=args.device)
     if len(levels) > 1:
@@ -1427,6 +1531,12 @@ def main(argv: list[str] | None = None) -> int:
                     choices=["auto", "dense", "sparse", "sharded"],
                     default="auto")
     pb.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pb.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve live telemetry over HTTP while the soak, "
+                         "the sweep or the routed soak runs (/metrics "
+                         "/profile /doctor /healthz /jobs /flight; 0 = a "
+                         "free port, announced on stderr)")
     pb.set_defaults(fn=cmd_serve_bench)
 
     psw = sub.add_parser(
@@ -1619,6 +1729,48 @@ def main(argv: list[str] | None = None) -> int:
     ptd.add_argument("--out", default=None,
                      help="write the JSONL here instead of stdout")
     ptd.set_defaults(fn=cmd_trace_dump)
+
+    pst = sub.add_parser(
+        "stats", help="dump the process-wide recovery + serving counters, "
+                      "fault-plan fire counts and latency histograms as "
+                      "JSON")
+    pst.add_argument("--reset", action="store_true",
+                     help="zero the telemetry registry after reading "
+                          "(per-interval scrapes instead of lifetime "
+                          "counts)")
+    pst.add_argument("--cluster", action="store_true",
+                     help="the spooled cluster view: not ported yet "
+                          "(exits 2)")
+    pst.set_defaults(fn=cmd_stats)
+
+    pmx = sub.add_parser(
+        "metrics", help="dump the unified TelemetryRegistry (counters, "
+                        "gauges, latency histograms) as JSON, or "
+                        "Prometheus text with --prom")
+    pmx.add_argument("--prom", action="store_true",
+                     help="Prometheus text exposition format")
+    pmx.add_argument("--reset", action="store_true",
+                     help="zero the telemetry registry after reading")
+    pmx.add_argument("--cluster", action="store_true",
+                     help="the spooled cluster view: not ported yet "
+                          "(exits 2)")
+    pmx.set_defaults(fn=cmd_metrics)
+
+    ppr = sub.add_parser(
+        "profile", help="device-cost profiling report: cold calls by "
+                        "signature with bytes/operations, dispatch time "
+                        "split, memory gauges, recompile window, kernel "
+                        "builds")
+    ppr.set_defaults(fn=cmd_profile)
+
+    pca = sub.add_parser(
+        "cache",
+        help="result-cache introspection: cache.* counters + live cache "
+             "snapshots (stats), or drop every live cache's entries and "
+             "reset the counters (clear)")
+    pca.add_argument("verb", nargs="?", choices=["stats", "clear"],
+                     default="stats")
+    pca.set_defaults(fn=cmd_cache)
 
     pd = sub.add_parser(
         "docno", help="docid <-> docno mapping (TrecDocnoMapping CLI)")

@@ -164,6 +164,14 @@ a choice outside its set raises.
                              with its span tree, an explain of its top hit
                              and a flight record; 0 turns the trap off
                              (default 0.0)
+    TPU_IR_PROFILE           0 turns the device-cost profiler off: a
+                             profiled entry point is one flag test and the
+                             raw call (obs/profiling.py; default 1)
+    TPU_IR_PROFILE_COST      0 leaves a signature's bytes and operations
+                             uncounted (default 1)
+    TPU_IR_PROFILE_RECOMPILE_LIMIT  unwarmed dispatches of one shape
+                             before a recompile-storm flight record
+                             (default 3, at least 1)
 """
 
 from __future__ import annotations
@@ -192,7 +200,8 @@ _INTS = {"TPU_IR_BLOCKMAX_WIDTH": (512, 64),
          "TPU_IR_JOB_HISTORY": (16, 1),
          "TPU_IR_QUERYLOG_RING": (256, 1),
          "TPU_IR_QUERYLOG_SAMPLE": (1, 1),
-         "TPU_IR_QUERYLOG_SLOW_KEEP": (16, 1)}
+         "TPU_IR_QUERYLOG_SLOW_KEEP": (16, 1),
+         "TPU_IR_PROFILE_RECOMPILE_LIMIT": (3, 1)}
 # name: the only values an int knob may take
 _INT_CHOICES = {"TPU_IR_FORMAT_VERSION": (1, 2)}
 _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
@@ -219,7 +228,8 @@ _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
           "TPU_IR_MERGE_AUTO": True, "TPU_IR_WAL": True,
           "TPU_IR_AUTOSCALE": False, "TPU_IR_DISTTRACE": True,
           "TPU_IR_TRACE_TAIL": True, "TPU_IR_QUERYLOG": True,
-          "TPU_IR_QUERYLOG_REDACT": False}
+          "TPU_IR_QUERYLOG_REDACT": False, "TPU_IR_PROFILE": True,
+          "TPU_IR_PROFILE_COST": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

@@ -22,8 +22,9 @@ restoration before it writes anything.
 
 bf16 is done with numpy bit operations (the card's host has no
 ml_dtypes): encode rounds float32 to nearest even on the upper 16 bits,
-decode shifts the 16 bits back up. The doc-range decode and the
-`decode.*` counters of the JAX package are not ported yet.
+decode shifts the 16 bits back up. A decode with a `doc_range` skips the
+grid groups outside it; each decode counts the groups and payload bytes
+it unpacked and skipped (`decode.*`, the JAX package's counters).
 """
 
 from __future__ import annotations
@@ -381,6 +382,15 @@ def decode_shard(sections: Mapping[str, np.ndarray], *,
         base = np.where(grp_is_flat[g], 0, f_blk[g] * width)
         docs[sel] = _unpack_bits(payload, bit_start, w_sel) + base
         tfs[sel] = _decode_tf(sections, int(info[_I_TF_MODE]))[sel]
+    from ..obs import get_registry
+
+    reg = get_registry()
+    n_live = int(np.count_nonzero(live))
+    live_bytes = int(grp_nbytes[live].sum()) if G else 0
+    reg.incr("decode.blocks_decoded", n_live)
+    reg.incr("decode.blocks_skipped", G - n_live)
+    reg.incr("decode.bytes", live_bytes)
+    reg.incr("decode.bytes_skipped", int(grp_nbytes.sum()) - live_bytes)
 
     term_idx = np.repeat(np.arange(T, dtype=np.int64), df.astype(np.int64))
     restore = _canonical_perm(term_idx, docs, tfs)

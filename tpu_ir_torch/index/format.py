@@ -528,6 +528,20 @@ def _shard_arrays(buf, path: str, *, verify: bool) -> dict[str, np.ndarray]:
     return _arena_views(buf, header, data_start, path, verify=verify)
 
 
+def _decode_sections(z: dict, doc_range) -> dict:
+    """A compressed part's sections decoded, the decode's wall seconds
+    observed as one `decode.block` (outside load.read, which keeps
+    timing the bytes off the disk)."""
+    import time
+
+    from ..obs import get_registry
+
+    t0 = time.perf_counter()
+    out = compress.decode_shard(z, doc_range=doc_range)
+    get_registry().observe("decode.block", time.perf_counter() - t0)
+    return out
+
+
 def load_shard(index_dir: str, shard: int, *, decode: bool = False,
                doc_range: tuple[int, int] | None = None
                ) -> dict[str, np.ndarray]:
@@ -542,7 +556,7 @@ def load_shard(index_dir: str, shard: int, *, decode: bool = False,
             return {name: npz[name] for name in npz.files}
     z = _shard_arrays(np.memmap(path, dtype=np.uint8, mode="r"), path,
                       verify=False)
-    return (compress.decode_shard(z, doc_range=doc_range)
+    return (_decode_sections(z, doc_range)
             if decode and compress.is_compressed(z) else z)
 
 
@@ -589,7 +603,7 @@ def load_shard_verified(index_dir: str, shard: int, meta: IndexMetadata,
     # the whole-file digest matched, so section CRCs only need checking
     # when metadata recorded nothing to pin the bytes
     z = _shard_arrays(buf, path, verify=want is None)
-    return (compress.decode_shard(z, doc_range=doc_range)
+    return (_decode_sections(z, doc_range)
             if compress.is_compressed(z) else z)
 
 

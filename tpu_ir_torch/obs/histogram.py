@@ -87,6 +87,15 @@ class LatencyHistogram:
         with self._lock:
             return list(self._counts), self._sum_s
 
+    def drain(self) -> tuple[list[int], float]:
+        """Read and zero (counts, total seconds) under one lock hold: an
+        observation lands in exactly one scrape interval."""
+        with self._lock:
+            counts, sum_s = self._counts, self._sum_s
+            self._counts = [0] * NUM_BUCKETS
+            self._sum_s = 0.0
+            return counts, sum_s
+
     def reset(self) -> None:
         with self._lock:
             self._counts = [0] * NUM_BUCKETS

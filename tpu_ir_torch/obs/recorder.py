@@ -5,7 +5,8 @@ On a soak's invariant breach, a breaker opening, an SLO burn breach, a
 build stage out of retries, a WAL's torn tail or a slow query,
 `flight_dump()` writes one JSONL artifact:
 
-  1. a header line: reason, wall time, pid, sequence number, the last
+  1. a header line: reason, wall time, pid, sequence number, the host's
+     and the card's memory, the profiler's compile-cache totals, the last
      slow-query entries, the open request's trace id and root span, and
      the caller's context (`extra`);
   2. one line per finished request tree in the trace ring (obs/trace.py);
@@ -17,9 +18,8 @@ flapping breaker cannot fill a disk; an invariant breach passes
 in TPU_IR_FLIGHT_DIR (unset: `tpu_ir_flight` under the system temp dir)
 unless the caller names a directory. File names and line shapes are
 `tpu_ir`'s, so either package's `recent_headers` reads the other's
-directory. `tpu_ir`'s header also carries the device memory, the compile
-cache and the time series' lead-up window; the port has none of these
-(ROADMAP Queue 3).
+directory. `tpu_ir`'s header also carries the time series' lead-up
+window, which the port lacks (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -95,6 +95,15 @@ def artifact_lines(reason: str, extra=None,
         "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
         "pid": os.getpid(),
     }
+    try:
+        # memory and the compile cache at the moment of failure (profiling
+        # imports this module for its storm records)
+        from .profiling import compile_cache_snapshot, memory_snapshot
+
+        header["memory"] = memory_snapshot()
+        header["compile_cache"] = compile_cache_snapshot()
+    except Exception:  # noqa: BLE001 — the header must always write
+        pass
     try:
         header["slow_queries"] = slow_header_entries()
         header.update(_open_request())

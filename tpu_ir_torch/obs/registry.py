@@ -1,16 +1,21 @@
 """The process-wide home of the serving tier's counters, gauges and
-latency histograms (the part of `tpu_ir/obs/registry.py` serving needs).
+latency histograms (the port of `tpu_ir/obs/registry.py`, less the
+cluster merge's serializable state).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
-`fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `ingest.*`, `merge.*`,
-`generation.*`, `load.*`, `router.*`, `scale.*`, `disttrace.*`, `slo.*`,
-`forecast.*`, `querylog.*`),
-every latency histogram under its
-span or stage name. The declared names (gauges too) are registered at
-zero, so a report always shows them, observed or not. `hist_state()` and
-`delta_summary()` give one run's percentiles without a reset of the
-process's state; `reset()` zeroes everything (the tests' isolation hook);
-`snapshot()` is all of it in `tpu_ir`'s shape.
+`fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `compile.*`, `decode.*`,
+`blockmax.*`, `ingest.*`, `merge.*`, `generation.*`, `load.*`,
+`router.*`, `scale.*`, `disttrace.*`, `slo.*`, `forecast.*`,
+`querylog.*`), every latency histogram under its span or stage name, and
+every gauge (`device.*`, `host.*`, `compile.signatures`, the live
+index's and the fleet's levels) carries `tpu_ir`'s merge policy
+(GAUGE_MERGE). The declared names are registered at zero, so a report
+always shows them, observed or not. `hist_state()` and `delta_summary()`
+give one run's percentiles without a reset of the process's state;
+`reset()` zeroes everything (the tests' isolation hook);
+`reset_counters(prefix)` zeroes one namespace; `snapshot(reset=)` is all
+of it in `tpu_ir`'s shape and `prometheus_text(reset=)` `tpu_ir`'s text
+exposition, each a read-and-zero under one lock hold with `reset=True`.
 """
 
 from __future__ import annotations
@@ -70,6 +75,26 @@ CACHE_COUNTER_NAMES = ("cache.hit", "cache.miss", "cache.evict",
 # per shape here; the first dispatch of a shape pays the allocator and
 # the kernels' first load)
 DISPATCH_COUNTER_NAMES = ("dispatch.unwarmed",)
+
+# the device-cost profiler (obs/profiling.py), the JAX names: compile.count
+# one cold call (the first call of an abstract signature in a process,
+# which pays the lazy library load, the allocator's growth and each op's
+# first use: the port's counterpart of a compile); compile.recompiles one
+# dispatch.unwarmed event seen by the profiler
+COMPILE_COUNTER_NAMES = ("compile.count", "compile.recompiles")
+
+# the compressed codec's shard decodes (index/compress.py), the JAX names:
+# posting groups unpacked and skipped (a doc-range read skips the groups
+# outside its range), and the payload bytes behind each
+DECODE_COUNTER_NAMES = ("decode.blocks_decoded", "decode.blocks_skipped",
+                        "decode.bytes", "decode.bytes_skipped")
+
+# block-max pruning's mask ledger (search/scorer.py), the JAX names: doc
+# block lanes considered and masked, dispatches whose bounds let the
+# pruned hot stage run (saved) and those that fell back to the full stage
+BLOCKMAX_COUNTER_NAMES = (
+    "blockmax.blocks_considered", "blockmax.blocks_masked",
+    "blockmax.saved_dispatches", "blockmax.fallback_dispatches")
 
 # the live index (index/segments.py, wal.py, ingest.py), the JAX names:
 # docs_* count API mutations; flushes/segments_built the delta commits;
@@ -151,22 +176,39 @@ QUERYLOG_COUNTER_NAMES = ("querylog.recorded", "querylog.slow")
 # JAX name; nothing publishes the forecast in the port, so it stays 0)
 FORECAST_COUNTER_NAMES = ("forecast.scaleups",)
 
-# the gauges, the JAX names: the generation a commit or a swap made
-# current, its segment count and its tombstones; the ingest soak's
-# median flush-to-first-query lag; the SLO windows' burn multiples; the
-# admission occupancy the autoscaler read on its last tick, and the
-# forecast occupancy it reads beside it (nothing sets that one yet: it
-# reads 0.0, and the third signal stays off)
-DECLARED_GAUGES = ("generation.current", "generation.segments",
-                   "generation.tombstones", "ingest.freshness_lag_ms",
-                   "slo.burn_fast", "slo.burn_slow", "router.occupancy",
-                   "forecast_occupancy")
+# the gauges with the JAX package's merge policies ("last": the newest
+# process's level wins a cluster merge, "max": the cluster's peak
+# survives; the merge itself comes with the cumulative telemetry): the
+# card's allocated bytes now and at their peak, the host's RSS now and at
+# its peak, the distinct (function, signature) pairs profiled; the
+# generation a commit or a swap made current, its segment count and its
+# tombstones; the ingest soak's median flush-to-first-query lag; the SLO
+# windows' burn multiples; the admission occupancy the autoscaler read on
+# its last tick, and the forecast occupancy it reads beside it (nothing
+# sets that one yet: it reads 0.0, and the third signal stays off)
+GAUGE_MERGE = {
+    "device.bytes_in_use": "last",
+    "device.peak_bytes": "max",
+    "host.rss_bytes": "last",
+    "host.peak_rss_bytes": "max",
+    "compile.signatures": "last",
+    "generation.current": "last",
+    "generation.segments": "last",
+    "generation.tombstones": "last",
+    "ingest.freshness_lag_ms": "last",
+    "slo.burn_fast": "last",
+    "slo.burn_slow": "last",
+    "router.occupancy": "last",
+    "forecast_occupancy": "last",
+}
+DECLARED_GAUGES = tuple(sorted(GAUGE_MERGE))
 
 DECLARED_COUNTERS = (
     tuple(f"fault.{s}" for s in FAULT_SITES)
     + tuple(f"recovery.{n}" for n in RECOVERY_COUNTER_NAMES)
     + tuple(f"serving.{n}" for n in SERVING_COUNTER_NAMES)
     + BATCH_COUNTER_NAMES + CACHE_COUNTER_NAMES + DISPATCH_COUNTER_NAMES
+    + COMPILE_COUNTER_NAMES + DECODE_COUNTER_NAMES + BLOCKMAX_COUNTER_NAMES
     + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES
     + SCALE_COUNTER_NAMES + DISTTRACE_COUNTER_NAMES + SLO_COUNTER_NAMES
     + FORECAST_COUNTER_NAMES + QUERYLOG_COUNTER_NAMES)
@@ -188,6 +230,13 @@ SCALE_STAGES = ("scale.drain_ms", "scale.warmup_ms")
 DISTTRACE_STAGES = ("disttrace.stitch",)
 # one slow-query capture (span tree, explain when admitted, flight record)
 QUERYLOG_STAGES = ("querylog.slow_capture",)
+# the dispatch's parts (obs/profiling.py, search/scorer.py): tracing
+# (declared for the JAX names; nothing traces in the port, so it stays
+# empty), a kernel library's build inside a call or a cold call, and one
+# query block's wait for the card; compile.time one cold call's wall
+DISPATCH_STAGES = ("dispatch.trace", "dispatch.compile", "dispatch.device")
+# one compressed shard's decode (index/format.py), outside load.read
+DECODE_STAGES = ("decode.block",)
 DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                        + tuple(f"request.{lv}" for lv in SERVICE_LEVELS)
                        + ("batch.occupancy", "batch.wait",
@@ -195,7 +244,13 @@ DECLARED_HISTOGRAMS = (("request",) + REQUEST_STAGES
                           "ingest.flush", "ingest.replay", "merge.run",
                           "generation.swap", "ingest.freshness")
                        + LOAD_STAGES + ROUTER_STAGES + SCALE_STAGES
-                       + DISTTRACE_STAGES + QUERYLOG_STAGES)
+                       + DISTTRACE_STAGES + QUERYLOG_STAGES
+                       + DISPATCH_STAGES + ("compile.time",)
+                       + DECODE_STAGES)
+
+
+def _prom_name(name: str) -> str:
+    return name.replace(".", "_").replace("-", "_")
 
 
 class TelemetryRegistry:
@@ -241,11 +296,39 @@ class TelemetryRegistry:
             return {k[n:]: v for k, v in self._counters.items()
                     if k.startswith(prefix)}
 
+    def reset_counters(self, prefix: str = "") -> None:
+        """Zero the counters under `prefix` ('' for all): declared ones
+        stay at 0, the others go. A reset like any other: the stamp and
+        the reset count move in the same lock hold."""
+        with self._lock:
+            self._zero_counters(prefix)
+            self._seq += 1
+            self._stamp += 1
+
+    def _zero_counters(self, prefix: str = "") -> None:
+        for k in list(self._counters):
+            if k.startswith(prefix):
+                if k in DECLARED_COUNTERS:
+                    self._counters[k] = 0
+                else:
+                    del self._counters[k]
+
     # -- gauges ------------------------------------------------------------
 
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = float(value)
+
+    def update_gauge_max(self, name: str, value: float) -> None:
+        """Raise a high-water gauge to `value` when it is higher: a level
+        sample never walks a peak back down."""
+        with self._lock:
+            if float(value) > self._gauges.get(name, 0.0):
+                self._gauges[name] = float(value)
+
+    def get_gauge(self, name: str) -> float:
+        with self._lock:
+            return self._gauges.get(name, 0.0)
 
     def gauges(self) -> dict[str, float]:
         with self._lock:
@@ -282,37 +365,96 @@ class TelemetryRegistry:
                 out[name] = summary_from_counts(d, sum_s - b_sum)
         return out
 
-    def snapshot(self) -> dict:
-        """Everything in one dict, `tpu_ir`'s shape (the flight record's
-        telemetry line): the schema, a stamp bumped by every snapshot and
-        reset, the reset count, this process's run id, the counters, the
-        gauges and each histogram's summary."""
+    def _collect(self, reset: bool):
+        """One read of everything: counters and gauges under one lock
+        hold (zeroed in it with `reset`), histograms by state() or
+        drain(). Returns (counters, gauges, histogram states, meta)."""
         with self._lock:
             self._stamp += 1
+            if reset:
+                self._seq += 1
             meta = {"schema": SNAPSHOT_SCHEMA, "seq": self._stamp,
                     "resets": self._seq, "run_id": self.run_id}
             counters = dict(self._counters)
             gauges = dict(self._gauges)
+            if reset:
+                self._zero_counters()
+                self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
             hists = dict(self._hists)
+        states = {n: (h.drain() if reset else h.state())
+                  for n, h in hists.items()}
+        return counters, gauges, states, meta
+
+    def snapshot(self, reset: bool = False) -> dict:
+        """Everything in one dict, `tpu_ir`'s shape (the flight record's
+        telemetry line, `stats`, `metrics`, /metrics.json): the schema, a
+        stamp bumped by every snapshot and reset, the reset count, this
+        process's run id, the counters, the gauges and each histogram's
+        summary. `reset=True` reads and zeroes in one step, so an event
+        lands in exactly one scrape."""
+        counters, gauges, states, meta = self._collect(reset)
         return {**meta, "counters": counters, "gauges": gauges,
-                "histograms": {n: summary_from_counts(*h.state())
-                               for n, h in hists.items()}}
+                "histograms": {n: summary_from_counts(c, s)
+                               for n, (c, s) in states.items()}}
 
     def reset(self) -> None:
         """Zero every counter, gauge and histogram. Histograms are zeroed
         in place, never dropped: a span may hold one while it closes."""
         with self._lock:
-            for k in list(self._counters):
-                if k in DECLARED_COUNTERS:
-                    self._counters[k] = 0
-                else:
-                    del self._counters[k]
+            self._zero_counters()
             self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
             self._seq += 1
             self._stamp += 1
             hists = list(self._hists.values())
         for h in hists:
             h.reset()
+
+    def prometheus_text(self, reset: bool = False) -> str:
+        """`tpu_ir`'s Prometheus text exposition: the counters as one
+        family labeled by name, the gauges as another, the histograms in
+        cumulative-bucket form labeled by stage, each family with its
+        HELP and TYPE lines. `reset=True` reads and zeroes as snapshot
+        does."""
+        from .histogram import BOUNDS
+
+        counters, gauges, states, _ = self._collect(reset)
+        lines = [
+            "# HELP tpu_ir_events_total Monotonic event counters; one "
+            "series per declared dotted name (label \"name\"), zeroed "
+            "only by an explicit reset.",
+            "# TYPE tpu_ir_events_total counter",
+        ]
+        for name, v in sorted(counters.items()):
+            lines.append(f'tpu_ir_events_total{{name="{name}"}} {v}')
+        lines.append(
+            "# HELP tpu_ir_gauge Point-in-time levels; one series per "
+            "declared dotted name (label \"name\"), merge policy per "
+            "GAUGE_MERGE.")
+        lines.append("# TYPE tpu_ir_gauge gauge")
+        for name, v in sorted(gauges.items()):
+            lines.append(f'tpu_ir_gauge{{name="{name}"}} {v!r}')
+        lines.append(
+            "# HELP tpu_ir_stage_latency_seconds Stage wall time on "
+            "fixed log2 buckets; one series set per declared histogram "
+            "(label \"stage\"), cumulative le buckets.")
+        lines.append("# TYPE tpu_ir_stage_latency_seconds histogram")
+        for name in sorted(states):
+            counts, sum_s = states[name]
+            stage = _prom_name(name)
+            cum = 0
+            for i, c in enumerate(counts):
+                cum += c
+                le = repr(BOUNDS[i]) if i < len(BOUNDS) else "+Inf"
+                lines.append(
+                    f'tpu_ir_stage_latency_seconds_bucket'
+                    f'{{stage="{stage}",le="{le}"}} {cum}')
+            lines.append(
+                f'tpu_ir_stage_latency_seconds_sum{{stage="{stage}"}} '
+                f'{sum_s!r}')
+            lines.append(
+                f'tpu_ir_stage_latency_seconds_count{{stage="{stage}"}} '
+                f'{cum}')
+        return "\n".join(lines) + "\n"
 
 
 _REGISTRY = TelemetryRegistry()

@@ -1,5 +1,5 @@
-"""The embedded HTTP server of a serving process: the half of
-`tpu_ir/obs/server.py` a shard worker needs.
+"""The embedded HTTP server of a serving process (the port of
+`tpu_ir/obs/server.py`, less its time series and cluster views).
 
 One stdlib `ThreadingHTTPServer` (daemon request threads, port 0 picks a
 free one) serves:
@@ -21,6 +21,21 @@ free one) serves:
                      autoscaler's section under `autoscaler` (epoch,
                      lifecycle, hysteresis, its last decision), and the
                      instance's `extra_health` (a worker's identity).
+  GET  /metrics      the registry as Prometheus text (registry.py's
+                     prometheus_text). Read-only: `?reset=1` is refused
+                     with 403, so a scraper never drains the intervals the
+                     process's own readers measure.
+  GET  /metrics.json the registry's snapshot as JSON.
+  GET  /profile      the device-cost profiler's report (obs/profiling.py:
+                     cold calls by signature, the dispatch split, memory,
+                     the recompile window, the kernel-build ledger);
+                     `?format=html` a page of the same JSON.
+  GET  /doctor       a health report (index/doctor.py) of each index dir
+                     this process loaded (the last four Scorer.load
+                     registered), cached until its metadata or serving
+                     caches change; `?index=PATH` one registered dir (an
+                     unregistered path is refused, never read);
+                     `?format=html` a page.
   GET  /jobs         the job history (obs/progress.py), newest first;
                      `?format=html` one table a job, a row a phase.
   GET  /jobs/<id>    one job, JSON or `?format=html`; 404 for an unknown
@@ -35,12 +50,12 @@ free one) serves:
   GET  /trace        the trace ids this process stores.
   GET  /trace/<id>   one trace stitched from the store and the spool;
                      `?format=html` its waterfall; 404 for an unknown id.
+  GET  /             the list of these endpoints.
 
-`/metrics`, `/profile`, `/doctor`, `/cluster`, `/timeseries`, the
-cumulative telemetry spool and the timeseries sampler are not ported yet.
-The health keys are `tpu_ir`'s; `recompiles_last_60s`, whose source (the
-JAX compile profiler) the port lacks, reads None, the JAX package's own
-value when a source fails.
+`/cluster`, `/timeseries`, the cumulative telemetry spool and the
+timeseries sampler are not ported yet. The health keys are `tpu_ir`'s;
+`recompiles_last_60s` counts the profiler's recompile events (unwarmed
+coalesced dispatches) of the last minute.
 """
 
 from __future__ import annotations
@@ -55,7 +70,7 @@ import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
-from . import disttrace, progress, querylog
+from . import disttrace, profiling, progress, querylog
 from .recorder import recent_headers
 from .registry import get_registry
 
@@ -65,6 +80,9 @@ _health_lock = threading.Lock()
 _frontends: list = []  # weakrefs to live ServingFrontends, oldest first
 _routers: list = []    # weakrefs to live routers (serving/router.py)
 _autoscalers: list = []  # weakrefs to live Autoscalers (serving/autoscale.py)
+_index_dirs: list = []  # index dirs this process loaded, oldest first
+_MAX_INDEX_DIRS = 4
+_doctor_cache: dict = {}  # dir -> (its stamp, its report)
 
 _PROCESS_START = time.time()
 _PROCESS_START_ISO = time.strftime("%Y-%m-%dT%H:%M:%S",
@@ -95,6 +113,74 @@ def register_autoscaler(autoscaler) -> None:
     as for the routers."""
     with _health_lock:
         _autoscalers.append(weakref.ref(autoscaler))
+
+
+def register_index_dir(path) -> None:
+    """Called by Scorer.load: /doctor reports the index dirs this process
+    serves (the last _MAX_INDEX_DIRS distinct ones), and never reads a
+    path a caller names."""
+    path = os.path.abspath(path)
+    with _health_lock:
+        if path in _index_dirs:
+            _index_dirs.remove(path)
+        _index_dirs.append(path)
+        del _index_dirs[:-_MAX_INDEX_DIRS]
+        for stale in [d for d in _doctor_cache if d not in _index_dirs]:
+            del _doctor_cache[stale]
+
+
+def registered_index_dirs() -> list:
+    with _health_lock:
+        return list(_index_dirs)
+
+
+def _doctor_stamp(d: str) -> tuple:
+    """What invalidates a cached report: metadata.json's mtime and those
+    of the serving caches (`warm` writes one without touching the
+    metadata)."""
+    stamp = [os.stat(os.path.join(d, "metadata.json")).st_mtime_ns]
+    try:
+        for name in sorted(os.listdir(d)):
+            if name.startswith("serving-"):
+                stamp.append(
+                    (name, os.stat(os.path.join(d, name)).st_mtime_ns))
+    except OSError:
+        pass
+    return tuple(stamp)
+
+
+def _doctor_payload(query: dict) -> dict:
+    """/doctor's body: a report a registered dir, newest first, cached by
+    _doctor_stamp; `?index=PATH` narrows to one registered dir."""
+    from ..index.doctor import doctor_report
+
+    dirs = list(reversed(registered_index_dirs()))
+    want = query.get("index", [None])[0]
+    if want is not None:
+        want = os.path.abspath(want)
+        if want not in dirs:
+            return {"error": f"{want} is not a registered index dir",
+                    "registered": dirs}
+        dirs = [want]
+    if not dirs:
+        return {"error": "no index loaded in this process yet",
+                "indexes": {}}
+    out = {}
+    for d in dirs:
+        try:
+            stamp = _doctor_stamp(d)
+            with _health_lock:
+                cached = _doctor_cache.get(d)
+            if cached is not None and cached[0] == stamp:
+                out[d] = cached[1]
+                continue
+            report = doctor_report(d)
+            with _health_lock:
+                _doctor_cache[d] = (stamp, report)
+            out[d] = report
+        except Exception as e:  # noqa: BLE001 — one sick index must not
+            out[d] = {"error": repr(e)}  # hide the others' reports
+    return {"indexes": out}
 
 
 def _live(refs: list) -> list:
@@ -142,7 +228,7 @@ def health_snapshot() -> dict:
         "uptime_s": round(time.time() - _PROCESS_START, 3),
         "started_at": _PROCESS_START_ISO,
         "build_sha": _build_sha(),
-        "recompiles_last_60s": None,
+        "recompiles_last_60s": profiling.recompiles_last_60s(),
         "slow_queries_last_60s": querylog.slow_last_60s(),
         "ingest": {
             "wal_appends": reg.get("ingest.wal_appends"),
@@ -186,8 +272,13 @@ def health_snapshot() -> dict:
 
 # -- the HTML pages ----------------------------------------------------------
 
-_NAV_ROUTES = ("/healthz", "/jobs?format=html", "/querylog?format=html",
-               "/slo?format=html", "/trace", "/flight")
+_NAV_ROUTES = ("/healthz", "/jobs?format=html", "/profile?format=html",
+               "/querylog?format=html", "/doctor?format=html",
+               "/slo?format=html", "/trace", "/flight", "/metrics")
+
+ENDPOINTS = ("/metrics", "/metrics.json", "/healthz", "/jobs", "/jobs/<id>",
+             "/profile", "/querylog", "/doctor", "/slo", "/trace",
+             "/trace/<id>", "/flight")
 
 _STYLE = ("<style>body{font-family:sans-serif;margin:1em}"
           "table{border-collapse:collapse;margin:0 0 1.5em}"
@@ -369,7 +460,32 @@ class _Handler(BaseHTTPRequestHandler):
             route = url.path.rstrip("/") or "/"
             q = parse_qs(url.query)
             as_html = q.get("format", [""])[0] == "html"
-            if route == "/healthz":
+            if route == "/metrics":
+                if q.get("reset"):
+                    self._json({"error": "scrapes are read-only; reset "
+                                "from the owning process (tpu-ir-torch "
+                                "metrics --reset)"}, code=403)
+                    return
+                self._send(200,
+                           get_registry().prometheus_text().encode("utf-8"),
+                           "text/plain; version=0.0.4")
+            elif route == "/metrics.json":
+                self._json(get_registry().snapshot())
+            elif route == "/profile":
+                report = profiling.profile_report()
+                if as_html:
+                    self._html(_json_page_html("tpu-ir profile", report))
+                else:
+                    self._json(report)
+            elif route == "/doctor":
+                payload = _doctor_payload(q)
+                if as_html:
+                    self._html(_json_page_html("tpu-ir doctor", payload))
+                else:
+                    self._json(payload)
+            elif route == "/":
+                self._json({"endpoints": list(ENDPOINTS)})
+            elif route == "/healthz":
                 payload = health_snapshot()
                 extra = self.server.extra_health
                 if extra is not None:

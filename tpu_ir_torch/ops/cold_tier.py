@@ -87,6 +87,10 @@ class TierTable:
         self.c_table = (ctypes.c_int64 * (4 * len(self.docs)))(*[
             v for d, f in zip(self.docs, self.tfs)
             for v in (d.data_ptr(), f.data_ptr(), d.shape[0], d.shape[1])])
+        # the tiers' place in a profiled call's signature (obs/
+        # profiling.py): the JAX package's tier_docs and tier_tfs tuples
+        self.signature_atom = ("seq", tuple(
+            ("arr", tuple(t.shape), "int32") for t in self.docs + self.tfs))
 
     def __len__(self) -> int:
         return len(self.docs)

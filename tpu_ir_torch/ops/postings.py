@@ -10,7 +10,9 @@ by tf desc) becomes segment sums and a second set of stable sorts.
 significant key first. This is an integer pipeline, so the result equals
 the JAX package's element for element. Padding semantics are the same:
 inputs may be padded with PAD_TERM, outputs have the input's length and
-a `num_pairs` valid prefix.
+a `num_pairs` valid prefix. The three entry points are profiled under the
+JAX package's names (obs/profiling.py); their work follows the data, so
+no cost is counted.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..obs.profiling import profiled
 
 # Padding sentinel: sorts after every real term id.
 PAD_TERM = int(np.iinfo(np.int32).max)
@@ -58,6 +62,7 @@ def _shift_right(x: torch.Tensor, fill: int) -> torch.Tensor:
                       x[:-1]])
 
 
+@profiled()
 def reduce_weighted_postings(term: torch.Tensor, doc: torch.Tensor,
                              tf: torch.Tensor, *, vocab_size: int):
     """Merge (term, doc, tf) triples: sum tf over duplicate (term, doc)
@@ -98,6 +103,7 @@ def reduce_weighted_postings(term: torch.Tensor, doc: torch.Tensor,
     return (p_term[order2], p_doc[order2], p_tf[order2], df, num_pairs)
 
 
+@profiled()
 def build_postings(term_ids: torch.Tensor, doc_ids: torch.Tensor, *,
                    vocab_size: int, num_docs: int) -> Postings:
     """Group (term, doc) occurrence pairs into tf postings on the device.
@@ -127,6 +133,7 @@ def build_postings(term_ids: torch.Tensor, doc_ids: torch.Tensor, *,
                     num_pairs)
 
 
+@profiled()
 def build_postings_packed(term_ids: torch.Tensor, docnos: torch.Tensor,
                           lengths: torch.Tensor, *, vocab_size: int,
                           num_docs: int) -> Postings:

@@ -27,6 +27,12 @@ Everything runs in float32.
   selecting the top k, so a gathered score is bitwise the score the
   top-k ranked by (search/explain.py).
 
+The entry points are profiled (obs/profiling.py) under the JAX package's
+function names: a signature's first call in a process is its cold call,
+and each carries a cost function that counts its bytes and operations
+from the shapes alone (None where the data decides the work: the cold
+tiers, block-max).
+
 Quirk policy as in the JAX package: `compat_int_idf=True` reproduces the
 reference's Java int division N/df; documents whose total score is
 exactly 0 are not returned.
@@ -38,7 +44,68 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.profiling import profiled
+
 _cpu_math_ready = False
+
+
+# -- cost from shapes (obs/profiling.py; TPU_IR_PROFILE_COST) ---------------
+
+
+def _dense_cost(ops_per_cell: int):
+    """A dense score over [B, L] ids and a [V, D+1] matrix: each
+    referenced row read in full for every (b, l) (`chip_smoke.py::
+    dense_bound`'s every-row-read bytes) and the [B, D+1] float32 scores
+    written once; `ops_per_cell` operations a cell of a row."""
+
+    def cost(args, kwargs):
+        q, matrix = args[0], args[1]
+        (b, l), d1 = q.shape, matrix.shape[1]
+        return {"flops": float(ops_per_cell * b * l * d1),
+                "bytes_accessed": float(b * l * d1 * matrix.element_size()
+                                        + b * d1 * 4)}
+
+    return cost
+
+
+def _tiered_cost(args, kwargs):
+    """A tiered score: with `hot_only`, the hot stage alone, the whole
+    [H, D+1] strip read once and the float32 [B, D+1] accumulator
+    written once (its operations follow the queries' hot slots: None);
+    with the cold stage, the data decides the work: None."""
+    if not kwargs.get("hot_only"):
+        return None
+    q, strip = args[0], args[2]
+    d1 = strip.shape[1]
+    return {"flops": None,
+            "bytes_accessed": float(strip.numel() * strip.element_size()
+                                    + q.shape[0] * d1 * 4)}
+
+
+def _strip_cost(ops_per_cell: int):
+    """A strip weighting: the raw-tf strip read once, the float32
+    weights written once (plus the doc lengths for BM25)."""
+
+    def cost(args, kwargs):
+        strip = args[0]
+        extra = args[1].numel() * args[1].element_size() \
+            if len(args) > 1 else 0
+        return {"flops": float(ops_per_cell * strip.numel()),
+                "bytes_accessed": float(strip.numel()
+                                        * (strip.element_size() + 4)
+                                        + extra)}
+
+    return cost
+
+
+def _cosine_dense_cost(args, kwargs):
+    """The dense cosine rerank: B*L*C matrix cells gathered, each
+    candidate's norm and id read, its score written."""
+    q, matrix, cand = args[0], args[1], args[4]
+    (b, l), c = q.shape, cand.shape[1]
+    return {"flops": float(2 * b * l * c + b * c),
+            "bytes_accessed": float(b * l * c * matrix.element_size()
+                                    + b * c * (cand.element_size() + 8))}
 
 
 def _ready_cpu_math(t: torch.Tensor) -> None:
@@ -146,6 +213,7 @@ def dense_tf_matrix(pair_term, pair_doc, pair_tf, *, vocab_size: int,
                           dtype=dtype)
 
 
+@profiled(cost=_dense_cost(2))
 def tfidf_topk_dense(q_terms: torch.Tensor, doc_matrix: torch.Tensor,
                      df: torch.Tensor, num_docs: int, *, k: int = 10,
                      compat_int_idf: bool = False
@@ -160,6 +228,7 @@ def tfidf_topk_dense(q_terms: torch.Tensor, doc_matrix: torch.Tensor,
     return _topk_from_scores(scores, k)
 
 
+@profiled(cost=_dense_cost(6))
 def tfidf_topk_dense_quantized(q_terms: torch.Tensor,
                                tf_matrix: torch.Tensor, df: torch.Tensor,
                                num_docs: int, *, k: int = 10,
@@ -179,6 +248,7 @@ def _gather_at(scores: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     return torch.gather(scores, 1, cand.to(scores.device).long())
 
 
+@profiled(cost=_dense_cost(2))
 def tfidf_scores_at_dense(q_terms, doc_matrix, df, num_docs: int, cand, *,
                           compat_int_idf: bool = False) -> torch.Tensor:
     """Explain's twin of tfidf_topk_dense: the same kernel's scores,
@@ -190,6 +260,7 @@ def tfidf_scores_at_dense(q_terms, doc_matrix, df, num_docs: int, cand, *,
                                    compat_int_idf=compat_int_idf), cand)
 
 
+@profiled(cost=_dense_cost(6))
 def tfidf_scores_at_dense_quantized(q_terms, tf_matrix, df, num_docs: int,
                                     cand, *, compat_int_idf: bool = False
                                     ) -> torch.Tensor:
@@ -229,6 +300,7 @@ def _bm25_dense_scores(q_terms, tf_matrix, df, doc_len, num_docs: int,
     return scores
 
 
+@profiled(cost=_dense_cost(7))
 def bm25_topk_dense(q_terms: torch.Tensor, tf_matrix: torch.Tensor,
                     df: torch.Tensor, doc_len: torch.Tensor, num_docs: int,
                     *, k: int = 10, k1: float = 0.9, b: float = 0.4
@@ -239,6 +311,7 @@ def bm25_topk_dense(q_terms: torch.Tensor, tf_matrix: torch.Tensor,
     return _topk_from_scores(scores, k)
 
 
+@profiled(cost=_dense_cost(7))
 def bm25_scores_at_dense(q_terms, tf_matrix, df, doc_len, num_docs: int,
                          cand, *, k1: float = 0.9, b: float = 0.4
                          ) -> torch.Tensor:
@@ -405,12 +478,14 @@ def _identity_weight(strip: torch.Tensor) -> torch.Tensor:
     return strip
 
 
+@profiled(cost=_strip_cost(2))
 def lntf_strip(hot_tfs: torch.Tensor) -> torch.Tensor:
     """(1 + ln tf) over the raw-tf hot strip: the TF-IDF (and cosine
     rerank) hot weighting, materialized."""
     return _lntf(hot_tfs)
 
 
+@profiled(cost=_strip_cost(5))
 def bm25_strip(hot_tfs: torch.Tensor, doc_len: torch.Tensor,
                num_docs: int, *, k1: float = 0.9,
                b: float = 0.4) -> torch.Tensor:
@@ -456,6 +531,7 @@ def _tfidf_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         skip_hot=skip_hot, hot_only=hot_only)
 
 
+@profiled(cost=_tiered_cost)
 def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                       tiers, df, num_docs: int, *,
                       k: int = 10, compat_int_idf: bool = False,
@@ -477,6 +553,7 @@ def tfidf_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     return _topk_from_scores(scores, k)
 
 
+@profiled(cost=_tiered_cost)
 def tfidf_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                            tiers, df, num_docs: int, cand, *,
                            compat_int_idf: bool = False,
@@ -509,6 +586,7 @@ def _bm25_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
         dl_norm=dl_norm, k1=k1, skip_hot=skip_hot, hot_only=hot_only)
 
 
+@profiled(cost=_tiered_cost)
 def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                      tiers, df, doc_len, num_docs: int, *,
                      k: int = 10, k1: float = 0.9, b: float = 0.4,
@@ -524,6 +602,7 @@ def bm25_topk_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     return _topk_from_scores(scores, k)
 
 
+@profiled(cost=_tiered_cost)
 def bm25_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                           tiers, df, doc_len, num_docs: int, cand, *,
                           k1: float = 0.9, b: float = 0.4,
@@ -653,6 +732,7 @@ def _blockmax_topk(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
     return s, d, BlockmaxStats(considered, considered - n_need, 0)
 
 
+@profiled()
 def tfidf_topk_blockmax(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
                         df, num_docs: int, hot_blk_bound, *, width: int,
                         cand_blocks: int, k: int = 10,
@@ -670,6 +750,7 @@ def tfidf_topk_blockmax(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
         hot_weight_fn=weight_fn, hot_cell_fn=cell_fn)
 
 
+@profiled()
 def bm25_topk_blockmax(q_terms, hot_rank, hot_tfs, tier_of, row_of, tiers,
                        df, doc_len, num_docs: int, hot_blk_bound, *,
                        width: int, cand_blocks: int, k: int = 10,
@@ -716,6 +797,7 @@ def _cosine_dense_scores(q_terms, matrix, df, doc_norm, cand_docnos,
     return scores / torch.clamp(doc_norm[cand], min=1e-30)
 
 
+@profiled(cost=_cosine_dense_cost)
 def cosine_rerank_dense(q_terms, matrix, df, doc_norm, cand_docnos,
                         num_docs: int, *, k: int = 10
                         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -729,6 +811,7 @@ def cosine_rerank_dense(q_terms, matrix, df, doc_norm, cand_docnos,
     return _topk_over_candidates(scores, cand_docnos, k)
 
 
+@profiled(cost=_cosine_dense_cost)
 def cosine_scores_at_dense(q_terms, matrix, df, doc_norm, cand_docnos,
                            num_docs: int) -> torch.Tensor:
     """Explain's twin of cosine_rerank_dense: the candidates' cosine
@@ -755,6 +838,7 @@ def _cosine_tiered_scores(q_terms, hot_rank, hot_tfs, tier_of, row_of,
             / torch.clamp(doc_norm[cand], min=1e-30))
 
 
+@profiled()
 def cosine_rerank_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                          tiers, df, doc_norm, num_docs: int, cand_docnos,
                          *, k: int = 10, hot_preweighted: bool = False
@@ -767,6 +851,7 @@ def cosine_rerank_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
     return _topk_over_candidates(scores, cand_docnos, k)
 
 
+@profiled()
 def cosine_scores_at_tiered(q_terms, hot_rank, hot_tfs, tier_of, row_of,
                             tiers, df, doc_norm, num_docs: int, cand_docnos,
                             *, hot_preweighted: bool = False

@@ -99,7 +99,7 @@ from ..collection import KGRAM_SEP, DocnoMapping, Vocab, kgram_terms
 from ..index import format as fmt
 from ..index.blockmax import load_block_bounds
 from ..index.compress import bf16_exact
-from ..obs import get_registry, kernel_annotation, querylog
+from ..obs import get_registry, kernel_annotation, profiling, querylog
 from ..obs import trace as obs_trace
 from ..ops.cold_tier import TierTable
 from ..ops.postings import pair_term_from_df
@@ -319,8 +319,8 @@ class Scorer:
         self._norms: torch.Tensor | None = None
         self._host_pairs: tuple | None = None
         self._pairs_loader = pairs_loader
-        # what block-max did, summed over dispatches (the JAX package's
-        # blockmax.* registry counters), counted under a lock
+        # what block-max did, summed over this scorer's dispatches under a
+        # lock (the registry's blockmax.* counters sum every scorer's)
         self.blockmax_stats = {"blocks_considered": 0, "blocks_masked": 0,
                                "fallback_dispatches": 0,
                                "saved_dispatches": 0}
@@ -445,7 +445,10 @@ class Scorer:
         and the doc lengths), `load.read` (the parts, or a cache hit),
         `load.layout`, `load.norms`, `load.cache_write`, and in the
         constructor `load.strip` and each upload's `load.h2d`."""
+        from ..obs.server import register_index_dir
+
         dev = resolve_device(device)
+        register_index_dir(index_dir)          # /doctor reports it
         with obs_trace("load.meta"):
             meta = fmt.IndexMetadata.load(index_dir)
             resolved = _resolve_layout(layout, meta)  # fail before reads
@@ -844,14 +847,26 @@ class Scorer:
         copying each block's (scores, docnos) to the host before the
         next. Rows are independent, so the last block runs at its own
         size (unlike the JAX package, nothing is compiled per shape, so
-        nothing is padded)."""
+        nothing is padded).
+
+        The dispatch split: each block's wait for the card is its
+        `dispatch.device` span, the copy of its scores to the host, which
+        waits for the block's work (block x k floats: the copy itself is
+        microseconds). No synchronization point of its own, so no extra
+        release of the interpreter lock a block, which other serving
+        threads would take; on the CPU nothing waits. Beside it the
+        block's `kernel` span (the host's launches); a memory sample
+        follows the dispatch (obs/profiling.py, rate-limited)."""
         b = q.shape[0]
         if b == 0:
             return np.zeros((0, 0), np.float32), np.zeros((0, 0), np.int32)
         parts = []
         for lo in range(0, b, block):
             s, d = dispatch(q[lo : lo + block])
-            parts.append((s.cpu().numpy(), d.cpu().numpy()))
+            with obs_trace("dispatch.device", rows=min(block, b - lo)):
+                s_host = s.cpu()
+            parts.append((s_host.numpy(), d.cpu().numpy()))
+        profiling.sample_memory()
         if len(parts) == 1:
             return parts[0]
         return (np.concatenate([p[0] for p in parts]),
@@ -939,9 +954,10 @@ class Scorer:
               "hot_only": {"hot_only": True}}[variant]
 
         def run(qb):
-            if warm_check and (len(qb), qb.shape[1], variant, scoring,
-                               k) not in self.warmed_shapes:
+            shape = (len(qb), qb.shape[1], variant, scoring, k)
+            if warm_check and shape not in self.warmed_shapes:
                 get_registry().incr("dispatch.unwarmed")
+                profiling.note_unwarmed(shape)     # the port's recompile
             return self._topk_device(qb, k, scoring, **kw)
 
         return run
@@ -1259,12 +1275,18 @@ class Scorer:
         return table
 
     def _note_blockmax_stats(self, stats) -> None:
+        """One block-max dispatch into this scorer's blockmax_stats and
+        the registry's blockmax.* counters (the JAX package's names)."""
         considered, masked, fallback = stats
         key = "fallback_dispatches" if fallback else "saved_dispatches"
         with self._stats_lock:
             self.blockmax_stats["blocks_considered"] += considered
             self.blockmax_stats["blocks_masked"] += masked
             self.blockmax_stats[key] += 1
+        reg = get_registry()
+        reg.incr("blockmax.blocks_considered", considered)
+        reg.incr("blockmax.blocks_masked", masked)
+        reg.incr(f"blockmax.{key}")
 
     def _hot_wstrip(self, scoring: str) -> torch.Tensor | None:
         """The device-cached pre-weighted hot strip of a scoring mode

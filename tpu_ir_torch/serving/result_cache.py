@@ -1,5 +1,5 @@
 """Generation-keyed exact-hit result cache (the port of
-`tpu_ir/serving/result_cache.py`, less its registry of live caches).
+`tpu_ir/serving/result_cache.py`).
 
 A bounded LRU from an exact request identity to its full-level response.
 The frontend's key is
@@ -15,17 +15,47 @@ and a hit replays one verbatim: the same docids, float bits and tie
 order as the miss path.
 
 Counters: cache.hit, cache.miss, cache.evict, cache.stale_generation in
-the registry; the frontend observes the cache.lookup histogram.
+the registry; the frontend observes the cache.lookup histogram. Every
+cache registers itself, by weak reference, with the process's list of
+live caches (`live_caches`), which the `cache` command and /profile read
+and `clear_all` empties.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 
 from .. import envvars
 from ..obs import get_registry
 from ..obs.registry import CACHE_COUNTER_NAMES
+
+
+# the live caches, by weak reference: registering keeps no owner alive
+_live_caches: list = []
+_live_lock = threading.Lock()
+
+
+def _drop_dead_ref(ref) -> None:
+    with _live_lock:
+        try:
+            _live_caches.remove(ref)
+        except ValueError:
+            pass
+
+
+def live_caches() -> list:
+    """This process's live ResultCache instances, oldest first."""
+    with _live_lock:
+        alive = [ref() for ref in _live_caches]
+    return [c for c in alive if c is not None]
+
+
+def clear_all() -> int:
+    """Drop every live cache's entries (`cache clear`); returns how many
+    were dropped."""
+    return sum(c.clear() for c in live_caches())
 
 
 def normalize_terms(text: str) -> tuple:
@@ -54,6 +84,8 @@ class ResultCache:
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()
         self._generation = 0
+        with _live_lock:
+            _live_caches.append(weakref.ref(self, _drop_dead_ref))
 
     @property
     def enabled(self) -> bool:
@@ -111,6 +143,13 @@ class ResultCache:
                 evicted += 1
         if evicted:
             get_registry().incr("cache.evict", evicted)
+
+    def clear(self) -> int:
+        """Drop every entry; returns how many there were."""
+        with self._lock:
+            n = len(self._entries)
+            self._entries.clear()
+        return n
 
     def snapshot(self) -> dict:
         """Size, capacity and generation; never the entries."""

@@ -1142,7 +1142,8 @@ def run_concurrency_sweep(scorer, *, levels=(1, 4, 16),
     occupancy histogram and its exact mean, the per-slot coalescing wait,
     and `unwarmed`, the coalesced dispatches outside the warmed shapes
     (the counterpart of the JAX sweep's recompiles; 0 when the warm-up
-    covers the serving shapes).
+    covers the serving shapes), with the profiler's `recompiles` (the
+    same events) and `compiles` (cold calls: 0 once the warm-up ran).
 
     `solo_rtt_ms` is the median of 20 single-query `search_batch` calls
     after every probe query was dispatched once: the round trip a lone
@@ -1177,7 +1178,8 @@ def run_concurrency_sweep(scorer, *, levels=(1, 4, 16),
             hist_before = reg.hist_state()
             counters_before = {n: reg.get(n) for n in
                                ("batch.coalesced", "batch.solo_flush",
-                                "dispatch.unwarmed")}
+                                "dispatch.unwarmed", "compile.count",
+                                "compile.recompiles")}
             lat_ms: list = []
             shed = errors = 0
             lock = threading.Lock()
@@ -1242,6 +1244,10 @@ def run_concurrency_sweep(scorer, *, levels=(1, 4, 16),
                 - counters_before["batch.solo_flush"],
                 "unwarmed": reg.get("dispatch.unwarmed")
                 - counters_before["dispatch.unwarmed"],
+                "recompiles": reg.get("compile.recompiles")
+                - counters_before["compile.recompiles"],
+                "compiles": reg.get("compile.count")
+                - counters_before["compile.count"],
             }
             batches = row["coalesced"] + row["solo_flush"]
             # the exact mean (served / batches); the histogram's log-2

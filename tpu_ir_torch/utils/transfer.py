@@ -53,9 +53,10 @@ def stream_to_device(a, *, device, chunk_bytes: int | None = None,
 
     `expected_crc` ('crc32:XXXXXXXX') folds a CRC32 over the bytes as
     they stream and raises faults.IntegrityError naming `label` on a
-    mismatch. Each call is one `load.h2d` span and adds its bytes to the
-    `load.h2d_bytes` counter. A pinned buffer that cannot be allocated
-    raises: nothing falls back to a pageable copy."""
+    mismatch. Each call is one `load.h2d` span, adds its bytes to the
+    `load.h2d_bytes` counter and samples the memory gauges. A pinned
+    buffer that cannot be allocated raises: nothing falls back to a
+    pageable copy."""
     from .. import envvars
     from ..obs import get_registry
     from ..obs import trace as obs_trace
@@ -90,6 +91,11 @@ def stream_to_device(a, *, device, chunk_bytes: int | None = None,
                     f"checksum mismatch during device upload (recorded "
                     f"{expected_crc}, found {got}); the artifact is corrupt")
     get_registry().incr("load.h2d_bytes", int(host.nbytes))
+    # a memory sample after each upload: a load's growth on the card
+    # shows in the gauges (obs/profiling.py, rate-limited)
+    from ..obs import profiling
+
+    profiling.sample_memory()
     return out
 
 
