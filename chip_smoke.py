@@ -248,7 +248,10 @@ code:
               the decision, the grow's seconds, each worker's nice, the
               grown workers' warm-up launches); the same 256 texts at
               2 x 3 through the first Router (q/s, the client's and
-              `router.request`'s p50 and p99 at 2 x 2 and 2 x 3); idle
+              `router.request`'s p50 and p99 at 2 x 2 and 2 x 3), then
+              the first 2 of them, each led by a hot term, once a
+              replica from one client (the round robin reaches
+              every replica with a block that runs the hot stage); idle
               ticks with one probe a 0.1 s until a second autoscaler
               drains the highest replica of each shard (drain-not-drop:
               the drains' seconds and admitted peak), the card's used
@@ -256,8 +259,8 @@ code:
               retire of replica 0/1 SIGKILLed during its drain under 4
               clients (killed_mid_drain, the answers full through 0/0);
               `scale --url` against this process's /healthz; every
-              answer full and bitwise B's top-10, no breaker opened, the
-              grown replicas' routed cold_tier and hot_stage launches
+              answer full and bitwise B's top-10, no breaker opened, each
+              grown replica's routed cold_tier and hot_stage launches
               above 0; stop() leaves no worker pid; then verify_live
               (seconds), and doctor,
               generations and compact --gc through the command line
@@ -294,7 +297,10 @@ code:
               the SLO windows, the workers' dense_score launches (read
               from this process's /healthz, the router's fleet block, a
               lower bound: a request served while a reload warms counts
-              as the warm-up's) above 0; then
+              as the warm-up's) above 0, and a forced flight record
+              after it (the breach path's) whose header carries the time
+              series' lead-up, the routed rate above 0 in the soak's
+              windows; then
               `elastic_soak`, its own line: run_distributed_soak on that
               dir again, 2 x 2 dense workers, no chaos, a rolling swap to
               another generation at 25% and the scale plan: a grow at
@@ -302,7 +308,25 @@ code:
               that replica SIGKILLed during its drain (tpu_ir's
               zero-stale-swap-during-scale and conservation-across-
               membership-changes tests in one schedule): their asserts,
-              and the workers' routed dense_score launches above 0;
+              and the workers' routed dense_score launches above 0; then
+              `forecast_soak`, its own line: run_distributed_soak on that
+              dir once more, 2 x 2 dense workers behind a Router of 4
+              requests at once, no chaos, the diurnal burst workload
+              (Zipf 1.1, burst 3, two waves, 16 clients, 600
+              requests) under serve-bench --autoscale's config with the
+              forecast armed (forecast_up = up_occupancy, lead 1 s): the
+              soak refits the Forecaster every 1/8 s over this process's
+              timeseries store; the fleet spools to a fresh
+              TPU_IR_TELEMETRY_DIR and samples every 0.5 s. Conservation,
+              no error, deadlock or mismatch, forecast.fits >= 1 and the
+              forecast_occupancy gauge in the store, the workers' routed
+              dense_score launches above 0, one worker's /timeseries read
+              mid-soak with tier-0 points of submitted_per_s and its
+              rings within ring_limits(), and `stats --cluster
+              --telemetry-dir` counting the workers' submitted and
+              answered requests equal to each worker's own last snapshot,
+              to the request; the arm's forecast_lead_s and burst p99 are
+              recorded, not held;
 19f. ingest_soak  `ingest --soak-bench` through the command line in
               this process on a fresh live dir at run_ingest_soak's
               defaults (48 docs after 12, flushes of 6, compaction every
@@ -364,7 +388,10 @@ of phase 25 (each of dense_score, cold_tier and hot_stage must launch):
               the garbage collector's pauses in each pass and the medians
               net of them, every pass bitwise the first, the dispatch
               split at concurrency 16, the profiler's own host cost a
-              call at the arguments the passes gave it); then one request's
+              call at the arguments the passes gave it) and
+              `sampler_cost`: the same passes with a timeseries sampler
+              running every 0.05 s and without one (medians, spreads,
+              one sample's host µs); then one request's
               latency past a 0.25 s deadline
               beside the open breaker's, and the `breaker_open` flight
               record the opening wrote (header, trace and telemetry
@@ -423,6 +450,17 @@ a call. It prints one JSON line:
 
     python3 chip_smoke.py --dispatch-ab build/ab/idx --root build/parent --label parent
     python3 chip_smoke.py --dispatch-ab build/ab/idx --label change
+
+With `--ablate` it times the closed loop alone, in the arms of
+ABLATION_ARMS: the profiler on and off, then the tree's own serving loop
+with its dispatch.device span, its memory sample, its profiled entry
+points or all three swapped for no-ops (ablation(); a tree without the
+profiler runs as many like arms), each pass with the dispatching
+thread's time off its core inside each dispatch (DispatchMeter).
+`--dispatch-ab-pool FILE...` pools such lines of several processes by
+tree and arm (pool_ablation; no card needed):
+
+    python3 chip_smoke.py --dispatch-ab-pool ab/parent-*.json ab/change-*.json
 """
 
 from __future__ import annotations
@@ -3341,42 +3379,98 @@ def profiler_shim_cost(run) -> dict:
             "pass_s": wall}
 
 
-def profiling_passes(run) -> dict:
-    """`run()` timed QUERYLOG_PASSES times with the profiler on and as
-    often off (profiling.configure), in turns, on first, each pass after
-    a full collection (collected_pass); every pass must return what the
-    first returned (the results' bits: profiling changes no result).
-    Returns arm_summary's walls, medians, spreads and collector pauses,
-    the on arm's cost over the off arm's median (of the walls, and net of
-    the pauses), the dispatch split over all the passes (dispatch_split)
-    and the profiler's own cost a call (profiler_shim_cost)."""
-    from tpu_ir_torch.obs import get_registry, profiling
-
-    reg = get_registry()
-    hist0 = reg.hist_state()
+def on_off_passes(run, arm, what: str) -> dict:
+    """`run()` timed QUERYLOG_PASSES times in each of the arms "on" and
+    "off", in turns, on first, each pass after a full collection
+    (collected_pass) inside the context `arm(name)` gives; every pass
+    must return what the first returned. Returns arm_summary's walls,
+    medians, spreads and collector pauses, with the on arm's cost over
+    the off arm's median (of the walls, and net of the pauses)."""
     walls = {"on": [], "off": []}
     pauses = {"on": [], "off": []}
     first = None
-    try:
-        for i in range(2 * QUERYLOG_PASSES):
-            arm = "on" if i % 2 == 0 else "off"
-            profiling.configure(enabled=arm == "on")
+    for i in range(2 * QUERYLOG_PASSES):
+        name = "on" if i % 2 == 0 else "off"
+        with arm(name):
             got, wall, pause = collected_pass(run)
-            walls[arm].append(wall)
-            pauses[arm].append(pause)
-            if first is None:
-                first = got
-            elif got != first:
-                raise AssertionError(f"profiler {arm}, pass {i}: the "
-                                     "results differ from the first pass's")
-    finally:
-        profiling.configure(enabled=True)
+        walls[name].append(wall)
+        pauses[name].append(pause)
+        if first is None:
+            first = got
+        elif got != first:
+            raise AssertionError(f"{what} {name}, pass {i}: the results "
+                                 "differ from the first pass's")
     out = arm_summary(walls, pauses)
     med, net = out["median_s"], out["net_of_gc_median_s"]
     out["cost_share"] = (med["on"] - med["off"]) / med["off"]
     out["net_of_gc_cost_share"] = (net["on"] - net["off"]) / net["off"]
+    return out
+
+
+def profiling_passes(run) -> dict:
+    """on_off_passes with the profiler on and off (profiling.configure;
+    on again after), with the dispatch split over all the passes
+    (dispatch_split) and the profiler's own cost a call
+    (profiler_shim_cost)."""
+    from tpu_ir_torch.obs import get_registry, profiling
+
+    @contextlib.contextmanager
+    def arm(name):
+        profiling.configure(enabled=name == "on")
+        try:
+            yield
+        finally:
+            profiling.configure(enabled=True)
+
+    reg = get_registry()
+    hist0 = reg.hist_state()
+    out = on_off_passes(run, arm, "profiler")
     out["dispatch_split"] = dispatch_split(reg.delta_summary(hist0))
     out["shim"] = profiler_shim_cost(run)
+    return out
+
+
+SAMPLE_COST_REPS = 200          # timed store.sample() calls (sampler_passes)
+
+
+def sampler_passes(run) -> dict:
+    """on_off_passes with a timeseries sampler running at
+    SAMPLER_COST_INTERVAL_S (the dearest cadence TPU_IR_TS_SAMPLE_S
+    allows) and without one; beside the cost, the arms' spreads over
+    their medians, the samples the on passes took, and one sample's host
+    µs off this process's registry (SAMPLE_COST_REPS calls) with its
+    share of a second at the default cadence."""
+    from tpu_ir_torch import envvars
+    from tpu_ir_torch.obs import get_registry, timeseries
+
+    @contextlib.contextmanager
+    def arm(name):
+        sampler = None
+        if name == "on":
+            sampler = timeseries.TimeseriesSampler(
+                store=timeseries.TimeseriesStore(),
+                interval_s=SAMPLER_COST_INTERVAL_S).start()
+        try:
+            yield
+        finally:
+            if sampler is not None:
+                sampler.stop()
+
+    reg = get_registry()
+    samples0 = reg.get("timeseries.samples")
+    out = on_off_passes(run, arm, "sampler")
+    out["spread_share"] = {a: out["spread_s"][a] / out["median_s"][a]
+                           for a in out["median_s"]}
+    out["interval_s"] = SAMPLER_COST_INTERVAL_S
+    out["samples_on"] = reg.get("timeseries.samples") - samples0
+    store = timeseries.TimeseriesStore()
+    store.sample()
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_COST_REPS):
+        store.sample()
+    out["sample_us"] = (time.perf_counter() - t0) / SAMPLE_COST_REPS * 1e6
+    out["default_interval_s"] = envvars.get_float("TPU_IR_TS_SAMPLE_S")
+    out["default_share"] = out["sample_us"] / 1e6 / out["default_interval_s"]
     return out
 
 
@@ -3515,6 +3609,13 @@ def phase_sweep(card: str, scorer, *, config: str, device: str,
                               for a, w in prof["median_s"].items()}
         prof["concurrency"] = top
         out["profile_cost"] = prof
+        # the timeseries sampler's cost on the same passes
+        samp = sampler_passes(
+            lambda: closed_loop(fe, texts, top, scoring="bm25", k=k))
+        samp["qps_median"] = {a: len(texts) / w
+                              for a, w in samp["median_s"].items()}
+        samp["concurrency"] = top
+        out["sampler_cost"] = samp
     out["scrapes"] = scrape_metrics_server()
     deadline = 0.25
     fe = ServingFrontend(scorer, ServingConfig(
@@ -5134,6 +5235,8 @@ ELASTIC_KILL_CLIENTS = 4        # client threads across the scripted kill
 ELASTIC_MEMORY_SLACK = 0.5e9    # bytes the card may hold past its memory
 #                                 before the grow once the retires are done
 ELASTIC_TIMEOUT_S = 300.0       # the burst's and the idle's bound
+ELASTIC_HOT_TEXTS = 2           # texts led by a hot term sent once a
+#                                 replica at 2 x 3 by one client
 
 
 def nvidia_smi_apps() -> dict:
@@ -5494,6 +5597,31 @@ def phase_elastic(card: str, ss, router, live: str, scorer_b, gen_b: int,
     want = dict(zip(idx, (result_bits(r) for r in scorer_b.search_batch(
         [texts[i] for i in idx], k=k, scoring="tfidf",
         return_docids=False))))
+    # texts whose blocks run the hot stage in every worker (the hot set is
+    # the generation's, the same in each shard's scorer): the first routed
+    # texts, each led by a hot term of the strip's first rows
+    hot_texts, hot_want = [], {}
+    if scorer_b.layout == "sparse":
+        ranks = scorer_b._hot_rank_host
+        out["hot_bearing_texts"] = int(scorer_b._has_hot(
+            scorer_b.analyze_queries([texts[i] for i in idx])).sum())
+        hot_ids = np.flatnonzero(ranks >= 0)
+        hot_ids = hot_ids[np.argsort(ranks[hot_ids], kind="stable")]
+        terms = [scorer_b.vocab.terms[int(t)] for t in hot_ids[:64]]
+        # a stem need not analyze to itself ("aaftsecli" stems to
+        # "aaftsec"): the terms whose own analysis is hot
+        keep = scorer_b._has_hot(scorer_b.analyze_queries(terms))
+        hot_texts = [f"{t} {texts[i]}" for t, i in zip(
+            [t for t, h in zip(terms, keep) if h][:ELASTIC_HOT_TEXTS], idx)]
+        if not (len(hot_texts) == ELASTIC_HOT_TEXTS and scorer_b._has_hot(
+                scorer_b.analyze_queries(hot_texts)).all()):
+            raise AssertionError(f"texts led by a hot term: {hot_texts}")
+        hot_want = dict(enumerate(result_bits(r) for r in
+                                  scorer_b.search_batch(
+                                      hot_texts, k=k, scoring="tfidf",
+                                      return_docids=False)))
+    elif on_card:
+        raise AssertionError("the elastic fleet's layout is not tiered")
     c0 = {n: reg.get(n) for n in ("scale.up", "scale.down",
                                   "router.breaker_opened")}
     h0 = reg.hist_state()
@@ -5563,6 +5691,18 @@ def phase_elastic(card: str, ss, router, live: str, scorer_b, gen_b: int,
 
         # the same texts at 2 x 3 through the wide router
         out["fleet_2x3"] = drive(router)
+        # few of the texts hold a hot term, and where the 8 clients' ones
+        # land is the round robin's interleaving: the grown replicas' share
+        # of them can be none. Each shard's round-robin start turns once a
+        # request, so one client sending a hot-bearing text once a replica
+        # reaches every replica of every shard with a block that runs the
+        # hot stage
+        if hot_texts:
+            out["hot_pass"] = routed_traffic(
+                router, reg, hot_texts,
+                [j for j in range(len(hot_texts))
+                 for _ in range(SHARD_REPLICAS + 1)],
+                hot_want, gen_b, clients=1, k=k)
         after = worker_launches(ss)
         launches = dict.fromkeys(PORT_KERNELS, 0)
         for pid, (kl, wl) in after.items():
@@ -5572,16 +5712,19 @@ def phase_elastic(card: str, ss, router, live: str, scorer_b, gen_b: int,
                 launches[n] += (kl[n] - wl[n]) - (kb[n] - wb[n])
         out["launches"] = launches
         grown_routed = dict.fromkeys(PORT_KERNELS, 0)
+        by_worker = {}
         for s, r in grown:
             kl, wl = after[handles[s][r].pid]
+            by_worker[f"{s}/{r}"] = {n: kl[n] - wl[n] for n in PORT_KERNELS}
             for n in PORT_KERNELS:
                 grown_routed[n] += kl[n] - wl[n]
         out["grown_routed_launches"] = grown_routed
-        if on_card and not (grown_routed["cold_tier"]
-                            and grown_routed["hot_stage"]):
-            raise AssertionError(f"the grown workers' routed traffic never "
+        out["grown_routed_by_worker"] = by_worker
+        if on_card and not all(w["cold_tier"] and w["hot_stage"]
+                               for w in by_worker.values()):
+            raise AssertionError(f"a grown worker's routed traffic never "
                                  f"launched cold_tier and hot_stage: "
-                                 f"{grown_routed}")
+                                 f"{by_worker}")
 
         # idle: a trickle of probes until the autoscaler drained one
         # replica a shard
@@ -6621,6 +6764,12 @@ def phase_live_crash(card: str, work: str, *, device: str,
     emit(elastic)
     out["elastic_soak_launches_lower_bound"] = elastic[
         "launches_lower_bound"]
+    forecast = phase_forecast_soak(card, restored, work, device=device)
+    emit(forecast)
+    if not all(forecast["checks"].values()):
+        raise AssertionError(f"the forecast soak: {forecast['checks']}")
+    out["forecast_soak_launches_lower_bound"] = forecast[
+        "launches_lower_bound"]
     for path in (restored, live, one_shot_dir):
         shutil.rmtree(path)
     for path in (ops_path, ack, child_out, child_err):
@@ -6647,6 +6796,39 @@ ELASTIC_SOAK_REPLICAS = 2       # and replicas a shard (tpu_ir's zero-stale
 #                                 from 30% to 60%, so it would drain none)
 ELASTIC_SOAK_UPGRADE_AT = 0.25  # share of its requests answered at the roll
 ELASTIC_SOAK_PLAN = {"up_at": 0.3, "down_at": 0.6, "kill_during_drain": True}
+FORECAST_SOAK_SHARDS = 2        # the forecast soak's fleet: doc shards
+FORECAST_SOAK_REPLICAS = 2      # and replicas a shard (the autoscaler may
+#                                 grow a third)
+FORECAST_SOAK_LEAD_S = 1.0      # the forecast horizon (serve-bench --lead's
+#                                 default): refits every 1/8 s
+FORECAST_SOAK_THREADS = 16      # its clients (32 in the first card run
+#                                 kept 16 or more requests in flight: the
+#                                 fleet answered 66 q/s, p50 347 ms, the
+#                                 occupancy flat at its ceiling, no fit)
+FORECAST_SOAK_ROUTER_SLOTS = 4  # its Router's requests at once (the
+#                                 occupancy's denominator: a crest queues
+#                                 there, and the occupancy rides the wave)
+FORECAST_SOAK_QUERIES = 600     # its requests: BURST_CYCLES = 2 waves of
+#                                 300, ~10 s at ~60 q/s, the first crest at
+#                                 25%, so the fit (8 points after 5% of the
+#                                 requests, one each 1/8 s) locks on its
+#                                 rising edge (2,400 at Zipf 0.9 in the
+#                                 first card run: 1,566 distinct requests
+#                                 whose oracle took ~230 s)
+FORECAST_SOAK_PACING_S = 0.03   # the soak's pacing unit: the clients ask
+#                                 2 / 0.03 ~ 67 q/s on average (whatever
+#                                 their number), ~27 at a trough and ~107
+#                                 at a crest, past the 2 x 2 fleet's ~66
+#                                 (0.01, serve-bench's, in the first card
+#                                 run: saturated throughout, no wave)
+FORECAST_SOAK_SKEW = 1.1        # Zipf: ~280 distinct requests in 600 (web
+#                                 logs measure 0.7-1.2), so the soak's
+#                                 oracle stays short
+FORECAST_SOAK_BURST = 3.0       # the wave's amplitude: the crest's arrivals
+#                                 ~4x the trough's
+FORECAST_SOAK_SEED = 19
+FORECAST_SOAK_SAMPLE_S = 0.5    # TPU_IR_TS_SAMPLE_S of the fleet: tier-0
+#                                 points inside the soak
 
 
 def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
@@ -6710,17 +6892,23 @@ def http_workers(scorer, live: str, *, device: str, k: int) -> dict:
     return out
 
 
-def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
+def polled_soak(live: str, work: str, *, timeseries: bool = False,
+                **soak_kw) -> tuple[dict, dict]:
     """run_distributed_soak(live, **soak_kw) while this process's /healthz
-    (a MetricsServer here) is read every ROUTED_SOAK_POLL_S: the router's
+    (a MetricsServer here, which spools nothing: the spool, when one is
+    set, holds the workers' snapshots alone) is read every
+    ROUTED_SOAK_POLL_S: the router's
     fleet block names each worker's pid, its kernel launches and those of
     its warm-ups (its start's and each reload's). Returns (the report,
     the polls: the workers seen, their launches less the warm-ups' summed
     (`launches_lower_bound`: the routed requests' launches, less any
     request served while a reload warmed, which counts as the warm-up's),
-    and with them, the phase's seconds; the newest non-empty `/querylog`
-    of one live worker, read over HTTP at each poll (`worker_querylog`);
-    this process's `/jobs` read after the soak (`jobs`))."""
+    and with them, the phase's seconds; every live worker's `/querylog`,
+    read over HTTP at each poll, the trace ids of its entries pooled over
+    the polls (`worker_querylog`);
+    with `timeseries`, the newest `/timeseries` of that worker with
+    tier-0 points of submitted_per_s (`worker_timeseries`); this
+    process's `/jobs` read after the soak (`jobs`))."""
     import threading
     import urllib.request
 
@@ -6732,6 +6920,7 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
     routed: dict = {}          # those less its warm-ups
     polls = {"n": 0, "with_router": 0, "errors": 0}
     worker_log: dict = {}
+    worker_ts: dict = {}
     stop = threading.Event()
 
     def get_json(url: str) -> dict:
@@ -6759,19 +6948,37 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
                             for n, v in w["kernel_launches"].items()}
             up = [rep["addr"] for shard in fleet["shards"]
                   for rep in shard["replicas"] if rep.get("up")]
-            if up:
+            # (`worker`, not `addr`: the next poll reads this process)
+            for worker in up:
                 try:
-                    log = get_json(f"http://{up[0]}/querylog")
+                    log = get_json(f"http://{worker}/querylog")
                 except Exception:  # noqa: BLE001 — counted
                     polls["errors"] += 1
                     continue
                 if log.get("entries"):
-                    worker_log.update(
-                        addr=up[0], entries=len(log["entries"]),
-                        trace_ids=[en.get("trace_id")
-                                   for en in log["entries"]])
+                    # every live worker's log each poll, the trace ids
+                    # pooled: a replica respawned after the last read holds
+                    # its warm-up's entries only
+                    worker_log["addrs"] = sorted(
+                        set(worker_log.get("addrs", ())) | {worker})
+                    worker_log["entries"] = max(worker_log.get("entries", 0),
+                                                len(log["entries"]))
+                    worker_log["trace_ids"] = sorted(
+                        set(worker_log.get("trace_ids", ()))
+                        | {en["trace_id"] for en in log["entries"]
+                           if en.get("trace_id")})
+            if up:
+                if timeseries:
+                    try:
+                        body = get_json(f"http://{up[0]}/timeseries")
+                    except Exception:  # noqa: BLE001 — counted
+                        polls["errors"] += 1
+                        continue
+                    if body.get("enabled") and body["series"][
+                            "submitted_per_s"]["tiers"][0]:
+                        worker_ts.update(addr=up[0], body=body)
 
-    server = MetricsServer().start()
+    server = MetricsServer(spool=False).start()
     poller = threading.Thread(target=poll, args=(f"127.0.0.1:{server.port}",),
                               daemon=True)
     poller.start()
@@ -6795,11 +7002,15 @@ def polled_soak(live: str, work: str, **soak_kw) -> tuple[dict, dict]:
         for n in PORT_KERNELS:
             launches[n] += per.get(n, 0)
             with_warm_ups[n] += seen[pid].get(n, 0)
-    return report, {"phase_s": time.perf_counter() - t0,
-                    "healthz_polls": polls, "workers_seen": len(seen),
-                    "launches_lower_bound": launches,
-                    "launches_with_warm_ups": with_warm_ups,
-                    "worker_querylog": worker_log, "jobs": jobs}
+    out = {"phase_s": time.perf_counter() - t0,
+           "healthz_polls": polls, "workers_seen": len(seen),
+           "worker_pids": sorted(seen),
+           "launches_lower_bound": launches,
+           "launches_with_warm_ups": with_warm_ups,
+           "worker_querylog": worker_log, "jobs": jobs}
+    if timeseries:
+        out["worker_timeseries"] = worker_ts
+    return report, out
 
 
 def phase_routed_soak(card: str, live: str, work: str, *,
@@ -6825,13 +7036,18 @@ def phase_routed_soak(card: str, live: str, work: str, *,
     trace id; a worker's `/querylog`, read over HTTP during the soak,
     holds entries of some of those traces; `/jobs` shows the soak's job
     succeeded at 100%."""
-    from tpu_ir_torch.obs import querylog
+    from tpu_ir_torch.obs import querylog, timeseries
 
     querylog.clear()
+    store = timeseries.get_store()
+    store.sample()                          # the lead-up's baseline
+    since = time.time()
     report, polled = polled_soak(
         live, work, shards=ROUTED_SOAK_SHARDS, replicas=ROUTED_SOAK_REPLICAS,
         threads=ROUTED_SOAK_THREADS, queries=ROUTED_SOAK_QUERIES,
         layout="dense", upgrade_at=ROUTED_SOAK_UPGRADE_AT, device=device)
+    store.sample()
+    lead_up = soak_lead_up_record(report, since)
     up = report["upgrade"]
     out = {"phase": "routed_soak", "card": card, "config": "ref-live",
            "shards": ROUTED_SOAK_SHARDS, "replicas": ROUTED_SOAK_REPLICAS,
@@ -6887,11 +7103,38 @@ def phase_routed_soak(card: str, live: str, work: str, *,
         "querylog_worker_traces": len(worker_tids & set(tids)) > 0,
         "soak_job": bool(soak_jobs) and soak_jobs[0]["state"]
         == "succeeded" and soak_jobs[0]["percent"] == 100.0,
+        "lead_up_record": lead_up["routed_per_s_max"] > 0,
     })
+    out["lead_up_record"] = lead_up
     out["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"the routed soak: {checks} {report}")
     return out
+
+
+def soak_lead_up_record(report: dict, since: float) -> dict:
+    """The forced flight record the routed soak writes on a breach,
+    written here once more after a clean soak (flight_dump with
+    force=True, reason `routed_soak_lead_up`, the soak's counts as its
+    extra): its header must carry the time series' lead-up, tier-0
+    points of at least one curated series, this process's routed rate
+    above 0 in a window that ended after `since` (the soak's start).
+    Returns its path, the series it holds and that rate's highest."""
+    from tpu_ir_torch.obs import flight_dump
+
+    path = flight_dump("routed_soak_lead_up", extra={
+        k: report[k] for k in ("submitted", "served", "shed", "errors",
+                               "deadlocked", "full_mismatches",
+                               "partial_mismatches")}, force=True)
+    header = read_flight_artifact(path, "routed_soak_lead_up")
+    window = header.get("timeseries") or {"series": {}}
+    routed = [v for t, v in window["series"].get("routed_per_s", ())
+              if t >= since]
+    return {"path": os.path.basename(path),
+            "window_s": window.get("window_s"),
+            "series": sorted(window["series"]),
+            "points": {k: len(v) for k, v in window["series"].items()},
+            "routed_per_s_max": max(routed, default=0.0)}
 
 
 def phase_elastic_soak(card: str, live: str, work: str, *,
@@ -6946,6 +7189,259 @@ def phase_elastic_soak(card: str, live: str, work: str, *,
     if not all(checks.values()):
         raise AssertionError(f"the elastic soak: {checks} {report}")
     return out
+
+
+def forecast_config():
+    """serve-bench --autoscale's AutoscaleConfig at ROUTED 2 x 2 with the
+    forecast armed as its forecast arm arms it (forecast_up =
+    up_occupancy, forecast_lead_s = FORECAST_SOAK_LEAD_S, --lead's
+    default)."""
+    from tpu_ir_torch.serving.autoscale import AutoscaleConfig
+
+    return AutoscaleConfig(
+        min_replicas=FORECAST_SOAK_REPLICAS,
+        max_replicas=FORECAST_SOAK_REPLICAS + 1, cooldown_s=0.5,
+        up_occupancy=0.45, down_occupancy=0.1, sustain_up=5,
+        sustain_down=50, drain_timeout_s=15.0, forecast_up=0.45,
+        forecast_lead_s=FORECAST_SOAK_LEAD_S)
+
+
+def worker_spool(spool: str) -> dict:
+    """Each worker process's own last snapshot in the spool, read file by
+    file (the newest seq of each pid): pid -> (its submitted, its
+    answered: the served_* counters of its frontend)."""
+    best: dict = {}
+    for name in sorted(os.listdir(spool)):
+        if not (name.startswith("telemetry-") and name.endswith(".json")):
+            continue
+        with open(os.path.join(spool, name)) as f:
+            snap = json.load(f)
+        if snap["pid"] not in best or snap["seq"] > best[snap["pid"]]["seq"]:
+            best[snap["pid"]] = snap
+    return {pid: (snap["counters"].get("serving.submitted", 0),
+                  sum(v for k, v in snap["counters"].items()
+                      if k.startswith("serving.served_")))
+            for pid, snap in best.items()}
+
+
+@contextlib.contextmanager
+def soak_witness():
+    """What this process's Router and Autoscaler did in the block, seen
+    from their side (Router._call_replica and Autoscaler.tick wrapped,
+    restored after): each replica attempt by its RPC path and verdict
+    (`sent_ok`, `sent_failed`; an attempt the breaker stopped is
+    `unsent`), and each autoscaler tick's forecast and decision. Yields
+    {"attempts": {path: {verdict: n}}, "ticks": [decision, ...]}."""
+    import threading
+
+    from tpu_ir_torch.serving import Autoscaler, Router
+
+    real_call, real_tick = Router._call_replica, Autoscaler.tick
+    seen: dict = {"attempts": {}, "ticks": []}
+    lock = threading.Lock()
+
+    def call(self, shard, replica, addr, path, payload, timeout_s,
+             ctx=None):
+        ok, data = real_call(self, shard, replica, addr, path, payload,
+                             timeout_s, ctx)
+        verdict = ("sent_ok" if ok else "unsent" if data == "breaker_open"
+                   else "sent_failed")
+        with lock:
+            by = seen["attempts"].setdefault(path, {})
+            by[verdict] = by.get(verdict, 0) + 1
+        return ok, data
+
+    def tick(self, now=None):
+        decision = real_tick(self, now)
+        with lock:
+            seen["ticks"].append(dict(decision))
+        return decision
+
+    Router._call_replica, Autoscaler.tick = call, tick
+    try:
+        yield seen
+    finally:
+        Router._call_replica, Autoscaler.tick = real_call, real_tick
+
+
+def forecast_record(ticks: list, forecast_up: float,
+                    up_occupancy: float) -> dict:
+    """The third signal's part in the soak's decisions, recorded, not
+    held: the ticks, those whose forecast reached forecast_up (and of
+    them, those whose occupancy stayed under up_occupancy: the forecast
+    alone armed the tick), the highest forecast a tick read, and every
+    membership change with its tick, action and reason."""
+    live = [d for d in ticks if d["forecast"] >= forecast_up]
+    return {"ticks": len(ticks), "forecast_live_ticks": len(live),
+            "forecast_only_ticks": sum(
+                1 for d in live if d["occupancy"] < up_occupancy),
+            "forecast_max": max((d["forecast"] for d in ticks),
+                                default=None),
+            "scale_events": [{k: d[k] for k in ("tick", "action", "reason",
+                                                "occupancy", "forecast")}
+                             for d in ticks if d["action"] is not None]}
+
+
+def phase_forecast_soak(card: str, live: str, work: str, *,
+                        device: str) -> dict:
+    """The forecast-armed autoscaler on the card: run_distributed_soak on
+    the recovered ref-live dir (dense), FORECAST_SOAK_SHARDS x
+    FORECAST_SOAK_REPLICAS subprocess workers behind a Router of
+    FORECAST_SOAK_ROUTER_SLOTS requests at once, no chaos, the diurnal
+    burst workload (Zipf FORECAST_SOAK_SKEW, burst FORECAST_SOAK_BURST,
+    BURST_CYCLES waves, FORECAST_SOAK_THREADS clients at
+    FORECAST_SOAK_PACING_S), under forecast_config(): the soak's
+    controller samples this process's timeseries store and refits the
+    Forecaster every FORECAST_SOAK_LEAD_S / 8, publishing
+    forecast_occupancy. TPU_IR_TELEMETRY_DIR names a fresh dir and
+    TPU_IR_TS_SAMPLE_S is FORECAST_SOAK_SAMPLE_S, both inherited by the
+    workers. Checks: conservation, no error, deadlock or full or partial
+    mismatch; forecast.fits >= 1 and forecast_occupancy points in this
+    process's store over the soak; the workers' routed dense_score
+    launches above 0; one worker's /timeseries, read mid-soak, with
+    tier-0 points of submitted_per_s and every ring within its
+    ring_limits(); after the fleet stopped, `stats --cluster
+    --telemetry-dir` (run_cli, the spool's merge) counts the workers'
+    answered requests at least the search attempts the Router saw
+    answered and their submitted ones at most those it sent
+    (soak_witness: equal, to the request, when none failed), the merge
+    equal to the spool's files summed one by one, one snapshot a worker
+    process (the polled pids among them), and the answers at least one a
+    shard for each full routed answer. The arm's forecast_lead_s (its
+    first scale-up's lead on the first crest), burst_p99_ms and the
+    forecast's part in the autoscaler's ticks (forecast_record) are
+    recorded, not held."""
+    import dataclasses
+
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import timeseries
+
+    reg = obs.get_registry()
+    # the SLO windows start empty: the burn the autoscaler reads is this
+    # soak's, not the routed soak's kills' (the trace store goes with them)
+    obs.disttrace.reset()
+    spool = os.path.join(work, "forecast-spool")
+    env = {"TPU_IR_TELEMETRY_DIR": spool,
+           "TPU_IR_TS_SAMPLE_S": str(FORECAST_SOAK_SAMPLE_S)}
+    saved = {k: os.environ.get(k) for k in env}
+    fits0 = reg.get("forecast.fits")
+    t_start = time.time()
+    os.environ.update(env)
+    try:
+        with soak_witness() as seen:
+            report, polled = polled_soak(
+                live, work, timeseries=True, shards=FORECAST_SOAK_SHARDS,
+                replicas=FORECAST_SOAK_REPLICAS,
+                threads=FORECAST_SOAK_THREADS,
+                queries=FORECAST_SOAK_QUERIES, layout="dense", chaos=False,
+                autoscale=forecast_config(),
+                pacing_s=FORECAST_SOAK_PACING_S,
+                router_config=forecast_router_config(),
+                workload={"kind": "zipf", "skew": FORECAST_SOAK_SKEW,
+                          "burst": FORECAST_SOAK_BURST},
+                seed=FORECAST_SOAK_SEED, device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fits = reg.get("forecast.fits") - fits0
+    published = timeseries.get_store().points(
+        "gauge", "forecast_occupancy", tier=0, since=t_start)
+    cluster, cluster_s = run_cli(["stats", "--cluster", "--telemetry-dir",
+                                  spool])
+    own = worker_spool(spool)
+    shutil.rmtree(spool)
+    ts_body = polled["worker_timeseries"].get("body") or {}
+    rings_ok = bool(ts_body) and all(
+        t["len"] <= t["capacity"] for t in ts_body["tiers"]) and sum(
+        t["len"] for t in ts_body["tiers"]) <= ts_body["ring_limits"][
+        "max_windows"]
+    merged_answered = sum(v for k, v in cluster["serving"].items()
+                          if k.startswith("served_"))
+    sc = report.get("scale", {})
+    cfg = forecast_config()
+    out = {"phase": "forecast_soak", "card": card, "config": "ref-live",
+           "shards": FORECAST_SOAK_SHARDS,
+           "replicas": FORECAST_SOAK_REPLICAS,
+           "workload": {"kind": "zipf", "skew": FORECAST_SOAK_SKEW,
+                        "burst": FORECAST_SOAK_BURST,
+                        "threads": FORECAST_SOAK_THREADS,
+                        "queries": FORECAST_SOAK_QUERIES,
+                        "pacing_s": FORECAST_SOAK_PACING_S},
+           "router_slots": FORECAST_SOAK_ROUTER_SLOTS,
+           "sample_s": FORECAST_SOAK_SAMPLE_S,
+           "autoscale": dataclasses.asdict(cfg),
+           "forecast_arm": {
+               "forecast_lead_s": sc.get("forecast_lead_s"),
+               "burst_p99_ms": report["burst_p99_ms"],
+               "first_up_reason": sc.get("first_up_reason"),
+               "first_up_s": sc.get("first_up_s"),
+               "first_peak_s": sc.get("first_peak_s"),
+               "events": sc.get("events"),
+               "mean_replicas": sc.get("mean_replicas"),
+               **forecast_record(seen["ticks"], cfg.forecast_up,
+                                 cfg.up_occupancy)},
+           "forecast": {"fits": fits, "published_points": len(published),
+                        "last_fit": timeseries.get_store().last_fit},
+           "worker_timeseries": {
+               "addr": polled["worker_timeseries"].get("addr"),
+               "tiers": ts_body.get("tiers"),
+               "ring_limits": ts_body.get("ring_limits"),
+               "submitted_points": len(ts_body["series"]["submitted_per_s"]
+                                       ["tiers"][0]) if ts_body else 0},
+           "cluster": {"processes": cluster["processes"],
+                       "submitted": cluster["serving"].get("submitted", 0),
+                       "answered": merged_answered, "cli_s": cluster_s,
+                       "own_submitted": sum(v[0] for v in own.values()),
+                       "own_answered": sum(v[1] for v in own.values()),
+                       "worker_pids": sorted(own),
+                       "router_attempts": seen["attempts"]},
+           "report": report,
+           **{k: v for k, v in polled.items() if k != "worker_timeseries"}}
+    c = out["cluster"]
+    searches = seen["attempts"].get("search", {})
+    sent_ok = searches.get("sent_ok", 0)
+    sent = sent_ok + searches.get("sent_failed", 0)
+    out["checks"] = {
+        "conservation": report["served"] + report["shed"]
+        == report["submitted"],
+        "no_error": report["errors"] == 0,
+        "no_deadlock": report["deadlocked"] == 0,
+        "no_full_mismatch": report["full_mismatches"] == 0,
+        "no_partial_mismatch": report["partial_mismatches"] == 0,
+        "forecast_fits": fits >= 1,
+        "forecast_published": len(published) >= 1,
+        "dense_score": device != "cuda"
+        or polled["launches_lower_bound"]["dense_score"] > 0,
+        "worker_timeseries": out["worker_timeseries"][
+            "submitted_points"] > 0 and rings_ok,
+        # the merge itself: the spool's files summed one by one
+        "merge_equals_files": c["submitted"] == c["own_submitted"]
+        and c["answered"] == c["own_answered"] > 0,
+        # the spool against the router's own count of the search attempts
+        # it sent: each answered one is a worker's answered request, and
+        # a worker counts none that was not sent (equal when none failed)
+        "spool_equals_router": 0 < sent_ok <= c["answered"]
+        and c["submitted"] <= sent,
+        "spool_processes": c["processes"] == len(own)
+        and set(polled["worker_pids"]) <= set(own),
+        "spool_covers_answers": c["answered"]
+        >= report["classes"]["full"] * FORECAST_SOAK_SHARDS,
+    }
+    return out
+
+
+def forecast_router_config():
+    """The forecast soak's Router: the soak's generous deadline, and
+    FORECAST_SOAK_ROUTER_SLOTS requests at once, so the occupancy the
+    autoscaler reads rides the arrival wave."""
+    from tpu_ir_torch.serving import RouterConfig
+
+    return RouterConfig(deadline_ms=3000.0,
+                        max_concurrency=FORECAST_SOAK_ROUTER_SLOTS,
+                        max_queue=4 * FORECAST_SOAK_THREADS)
 
 
 def phase_ingest_soak(card: str, work: str, *, device: str) -> dict:
@@ -7052,10 +7548,11 @@ def kernel_row(name: str, kern: dict, launches: int, serving_launches: int,
     together), shard worker (the shards phase's workers and live_crash's
     in-process ones), routed soak (its workers' /healthz, their warm-ups'
     launches left out), elastic (the fleet's workers over its traffic,
-    warm-ups left out), elastic soak (as the routed soak), ingest soak
-    (its in-process frontend over its probes, warm-ups left out) and v1
-    phases. The three soaks' counts are lower bounds (`*_lower_bound`): a
-    request served while a reload warmed counts as the warm-up's."""
+    warm-ups left out), elastic soak and forecast soak (as the routed
+    soak), ingest soak (its in-process frontend over its probes, warm-ups
+    left out) and v1 phases. The four soaks' counts are lower bounds
+    (`*_lower_bound`): a request served while a reload warmed counts as
+    the warm-up's."""
     return {"name": name, "route": "cuda", **fields, "launches": launches,
             "wildcard_launches": wildcard_launches,
             "kgram_launches": kgram_launches,
@@ -7070,6 +7567,127 @@ DISPATCH_AB_PASSES = 10          # passes of each arm of --dispatch-ab (5
                                  # left the trees' medians inside the noise)
 DISPATCH_AB_CLIENTS = 16         # the closed loop's clients
 CPROFILE_TOP = 15                # functions listed from each arm's profile
+# --dispatch-ab --ablate: the arms of a tree with the profiler, each the
+# shipped serving loop less one of its per-dispatch parts (ablation():
+# `on` the profiler on; `off` the profiler off; `no_span` without the
+# dispatch.device span; `no_sample` without the memory sample;
+# `unwrapped` with the profiled entry points unwrapped; `bare` without
+# all three, the parent's code for them)
+ABLATION_ARMS = ("on", "off", "no_span", "no_sample", "unwrapped", "bare")
+SAMPLER_COST_INTERVAL_S = 0.05   # the sampler's dearest cadence: the floor
+                                 # of TPU_IR_TS_SAMPLE_S
+
+
+class DispatchMeter:
+    """The dispatching thread's time inside Scorer._blocked_dispatch, each
+    call: its wall and its own CPU time (time.thread_time_ns). Wall less
+    CPU is the time the thread was off its core inside the dispatch:
+    waits for the interpreter lock (which the other serving threads
+    hold), for the card (a dense block's copy waits 0.06-0.1 ms) and for
+    page faults. `install(scorer_cls)` wraps the shipped static method,
+    `uninstall` puts it back; `take()` returns the sums since the last
+    take and zeroes them."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self._sums = self._zero()
+        self._shipped = None
+
+    @staticmethod
+    def _zero() -> dict:
+        return {"calls": 0, "wall_ns": 0, "cpu_ns": 0}
+
+    def install(self, scorer_cls) -> None:
+        fn = scorer_cls.__dict__["_blocked_dispatch"].__func__
+        self._shipped = fn
+        sums, lock = self, self._lock
+
+        def metered(block, dispatch, q):
+            c0 = time.thread_time_ns()
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(block, dispatch, q)
+            finally:
+                t1 = time.perf_counter_ns()
+                c1 = time.thread_time_ns()
+                with lock:
+                    acc = sums._sums
+                    acc["calls"] += 1
+                    acc["wall_ns"] += t1 - t0
+                    acc["cpu_ns"] += c1 - c0
+
+        scorer_cls._blocked_dispatch = staticmethod(metered)
+
+    def uninstall(self, scorer_cls) -> None:
+        if self._shipped is not None:
+            scorer_cls._blocked_dispatch = staticmethod(self._shipped)
+            self._shipped = None
+
+    def take(self) -> dict:
+        with self._lock:
+            acc, self._sums = self._sums, self._zero()
+        n = max(acc["calls"], 1)
+        return {"dispatches": acc["calls"],
+                "wall_ms": acc["wall_ns"] / 1e6,
+                "cpu_ms": acc["cpu_ns"] / 1e6,
+                "off_cpu_ms": (acc["wall_ns"] - acc["cpu_ns"]) / 1e6,
+                "off_cpu_us_a_dispatch":
+                    (acc["wall_ns"] - acc["cpu_ns"]) / 1e3 / n}
+
+
+@contextlib.contextmanager
+def ablation(arm: str):
+    """The shipped serving path with `arm`'s parts swapped for no-ops for
+    the block, restored after: `no_span` and `bare` the dispatch.device
+    span (search/scorer.py's obs_trace, every other span passed through),
+    `no_sample` and `bare` the memory sample (obs/profiling.py's
+    sample_memory), `unwrapped` and `bare` the profiled entry points
+    (unwrapped_entry_points); any other arm swaps nothing. Yields the
+    number of entry points unwrapped."""
+    import tpu_ir_torch.search.scorer as scorer_mod
+    from tpu_ir_torch.obs import profiling
+
+    real_trace, real_sample = scorer_mod.obs_trace, profiling.sample_memory
+
+    def trace(name, **attrs):
+        if name == "dispatch.device":
+            return contextlib.nullcontext()
+        return real_trace(name, **attrs)
+
+    with contextlib.ExitStack() as stack:
+        unwrapped = 0
+        if arm in ("no_span", "bare"):
+            scorer_mod.obs_trace = trace
+            stack.callback(setattr, scorer_mod, "obs_trace", real_trace)
+        if arm in ("no_sample", "bare"):
+            profiling.sample_memory = lambda *a, **kw: None
+            stack.callback(setattr, profiling, "sample_memory", real_sample)
+        if arm in ("unwrapped", "bare"):
+            unwrapped = stack.enter_context(unwrapped_entry_points())
+        yield unwrapped
+
+
+@contextlib.contextmanager
+def unwrapped_entry_points():
+    """The profiled scoring entry points replaced by the functions they
+    wrap, where the serving path reads them (ops/scoring.py's module and
+    search/scorer.py's imports), for the block; restored after."""
+    import tpu_ir_torch.ops.scoring as ops_scoring
+    import tpu_ir_torch.search.scorer as scorer_mod
+    from tpu_ir_torch.obs.profiling import Profiled
+
+    saved = [(mod, name, obj) for mod in (ops_scoring, scorer_mod)
+             for name, obj in list(vars(mod).items())
+             if isinstance(obj, Profiled)]
+    for mod, name, obj in saved:
+        setattr(mod, name, obj.__wrapped__)
+    try:
+        yield len(saved)
+    finally:
+        for mod, name, obj in saved:
+            setattr(mod, name, obj)
 
 
 def dispatch_ab(argv: list[str]) -> int:
@@ -7093,41 +7711,24 @@ def dispatch_ab(argv: list[str]) -> int:
     ap.add_argument("index")
     ap.add_argument("--root", default=None)
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args(argv)
-    if args.root:
-        sys.path.insert(0, os.path.abspath(args.root))
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
+    if args.ablate:
+        return dispatch_ablation(args)
+    setup = ab_setup(args)
+    if setup is None:
         return 2
+    card, dense, fe, loop_texts = setup
     import tpu_ir_torch
     from tpu_ir_torch.obs import get_registry
     from tpu_ir_torch.obs.histogram import summary_from_counts
     from tpu_ir_torch.search import Scorer
-    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
-    from tpu_ir_torch.serving.soak import _sweep_queries
 
     try:
         from tpu_ir_torch.obs import profiling
     except ImportError:                      # a tree before the profiler
         profiling = None
-    card = card_line()
-    if not os.path.exists(os.path.join(args.index, "metadata.json")):
-        from tpu_ir_torch.corpus import make_corpus
-        from tpu_ir_torch.index import build_index
-
-        os.makedirs(os.path.dirname(os.path.abspath(args.index)),
-                    exist_ok=True)
-        corpus = args.index.rstrip("/") + ".trec"
-        make_corpus(corpus, seed=0, **REF_CORPUS)
-        build_index(corpus, args.index, num_shards=10, device="cuda")
-    dense = Scorer.load(args.index, layout="dense", device="cuda")
     sparse = Scorer.load(args.index, layout="sparse", device="cuda")
-    fe = ServingFrontend(dense, ServingConfig(
-        max_concurrency=DISPATCH_AB_CLIENTS,
-        max_queue=2 * DISPATCH_AB_CLIENTS, coalesce=True))
-    loop_texts = _sweep_queries(dense, QUERYLOG_PASS_TEXTS, seed=2)
     batch_texts = serving_texts(sparse, QUERYLOG_BATCH, seed=13)
 
     def loop():
@@ -7223,7 +7824,166 @@ def dispatch_ab(argv: list[str]) -> int:
     return 0
 
 
+def ab_setup(args):
+    """--dispatch-ab's common start: `--root`'s package first on the
+    path, the card checked, the ref index built on first use; returns
+    (the card line, the dense Scorer, the coalescing frontend over it,
+    the loop's texts) or None without CUDA."""
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return None
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+    from tpu_ir_torch.serving.soak import _sweep_queries
+
+    card = card_line()
+    if not os.path.exists(os.path.join(args.index, "metadata.json")):
+        from tpu_ir_torch.corpus import make_corpus
+        from tpu_ir_torch.index import build_index
+
+        os.makedirs(os.path.dirname(os.path.abspath(args.index)),
+                    exist_ok=True)
+        corpus = args.index.rstrip("/") + ".trec"
+        make_corpus(corpus, seed=0, **REF_CORPUS)
+        build_index(corpus, args.index, num_shards=10, device="cuda")
+    dense = Scorer.load(args.index, layout="dense", device="cuda")
+    fe = ServingFrontend(dense, ServingConfig(
+        max_concurrency=DISPATCH_AB_CLIENTS,
+        max_queue=2 * DISPATCH_AB_CLIENTS, coalesce=True))
+    return card, dense, fe, _sweep_queries(dense, QUERYLOG_PASS_TEXTS,
+                                           seed=2)
+
+
+def dispatch_ablation(args) -> int:
+    """`--dispatch-ab INDEX --ablate [--root TREE] [--label L]`: the
+    serving loop of --dispatch-ab only (QUERYLOG_PASS_TEXTS BM25 requests
+    from DISPATCH_AB_CLIENTS clients through a coalescing frontend on the
+    dense layout), in the arms of ABLATION_ARMS where the tree has the
+    profiler (else as many like arms, `plain_0`, ...), in turns,
+    DISPATCH_AB_PASSES passes of each, each after a full collection;
+    every pass's results bitwise the first's. Every arm runs the tree's
+    own Scorer._blocked_dispatch, with the arm's parts swapped out
+    (ablation()). Each pass also reads the dispatching thread's time
+    inside each dispatch (DispatchMeter: wall, its own CPU, off its
+    core). Prints one JSON line: each arm's arm_summary of the walls and
+    the meter's sums a pass."""
+    import threading
+
+    setup = ab_setup(args)        # puts --root's package first on the path
+    if setup is None:
+        return 2
+    card, dense, fe, texts = setup
+    from tpu_ir_torch.search import Scorer
+
+    try:
+        from tpu_ir_torch.obs import profiling
+    except ImportError:                      # a tree before the profiler
+        profiling = None
+    ablate = profiling is not None
+    arms = (ABLATION_ARMS if ablate
+            else tuple(f"plain_{i}" for i in range(len(ABLATION_ARMS))))
+    meter = DispatchMeter()
+
+    def loop():
+        return closed_loop(fe, texts, DISPATCH_AB_CLIENTS, scoring="bm25",
+                           k=10)
+
+    want = loop()                                       # warm
+    walls = {a: [] for a in arms}
+    pauses = {a: [] for a in arms}
+    meters = {a: [] for a in arms}
+    unwrapped = 0
+    meter.install(Scorer)
+    try:
+        for _ in range(DISPATCH_AB_PASSES):
+            for arm in arms:
+                with contextlib.ExitStack() as stack:
+                    if ablate:
+                        profiling.configure(enabled=arm != "off")
+                        unwrapped = max(unwrapped, stack.enter_context(
+                            ablation(arm)))
+                    meter.take()
+                    got, wall, pause = collected_pass(loop)
+                    if got != want:
+                        raise AssertionError(
+                            f"{args.label} {arm}: the results differ")
+                    walls[arm].append(wall)
+                    pauses[arm].append(pause)
+                    meters[arm].append(meter.take())
+    finally:
+        meter.uninstall(Scorer)
+        if ablate:
+            profiling.configure(enabled=True)
+    print(json.dumps({
+        "dispatch_ab": args.label, "ablate": ablate, "card": card,
+        "root": args.root, "package": os.path.dirname(
+            sys.modules["tpu_ir_torch"].__file__),
+        "passes": DISPATCH_AB_PASSES,
+        "requests": len(texts), "clients": DISPATCH_AB_CLIENTS,
+        "unwrapped_entry_points": unwrapped,
+        "threads_at_end": threading.active_count(),
+        "loop": dict(arm_summary(walls, pauses), meter=meters)}),
+        flush=True)
+    return 0
+
+
+def pool_ablation(paths: list[str]) -> dict:
+    """The --ablate lines of several processes pooled by tree (the
+    `dispatch_ab` label) and arm: every pass's wall, their median and
+    the spread of the processes' medians; the meter's off-core µs a
+    dispatch, its off-core share and CPU ms a pass, pooled medians; each arm's
+    median over the first tree's arm of the same place in its arm
+    order (a tree without the profiler runs like arms in that order)."""
+    trees: dict = {}
+    for path in paths:
+        with open(path) as f:
+            line = json.loads(f.read().strip().splitlines()[-1])
+        tree = trees.setdefault(line["dispatch_ab"], {"processes": 0,
+                                                      "arms": {}})
+        tree["processes"] += 1
+        for arm, walls in line["loop"]["walls_s"].items():
+            acc = tree["arms"].setdefault(arm, {"walls": [], "medians": [],
+                                                "meter": []})
+            acc["walls"] += walls
+            acc["medians"].append(float(np.median(walls)))
+            acc["meter"] += line["loop"]["meter"][arm]
+    out = {}
+    for label, tree in trees.items():
+        rows = {}
+        for arm, acc in tree["arms"].items():
+            m = acc["meter"]
+            rows[arm] = {
+                "passes": len(acc["walls"]),
+                "median_s": float(np.median(acc["walls"])),
+                "process_median_spread_s": max(acc["medians"])
+                - min(acc["medians"]),
+                "off_cpu_us_a_dispatch": float(np.median(
+                    [x["off_cpu_us_a_dispatch"] for x in m])),
+                "off_cpu_share": float(np.median(
+                    [x["off_cpu_ms"] / x["wall_ms"] for x in m
+                     if x["wall_ms"]])),
+                "cpu_ms_a_pass": float(np.median([x["cpu_ms"] for x in m])),
+                "dispatches_a_pass": float(np.median(
+                    [x["dispatches"] for x in m]))}
+        out[label] = {"processes": tree["processes"], "arms": rows}
+    labels = list(out)
+    base = out[labels[0]]["arms"]
+    for label in labels:
+        for (arm, row), base_row in zip(out[label]["arms"].items(),
+                                        base.values()):
+            row[f"over_{labels[0]}"] = (row["median_s"]
+                                        / base_row["median_s"] - 1.0)
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dispatch-ab-pool"]:
+        print(json.dumps(pool_ablation(sys.argv[2:]), indent=1))
+        return 0
     if sys.argv[1:2] == ["--dispatch-ab"]:
         return dispatch_ab(sys.argv[2:])
     try:
@@ -7472,6 +8232,8 @@ def run_phases(card: str, work: str, side, corpus_made) -> int:
                 "routed_soak_launches_lower_bound"][n],
             "elastic_soak_launches_lower_bound": live_crash[
                 "elastic_soak_launches_lower_bound"][n],
+            "forecast_soak_launches_lower_bound": live_crash[
+                "forecast_soak_launches_lower_bound"][n],
             "ingest_soak_launches_lower_bound": ingest_soak[
                 "launches_lower_bound"][n]} for n in PORT_KERNELS}
         torch.cuda.empty_cache()

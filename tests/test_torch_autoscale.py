@@ -340,7 +340,7 @@ def test_scale_names_are_jax_declared():
         == jax_registry.SCALE_COUNTER_NAMES
     for n in (port_registry.SCALE_COUNTER_NAMES
               + port_registry.SLO_COUNTER_NAMES
-              + port_registry.FORECAST_COUNTER_NAMES):
+              + port_registry.TIMESERIES_COUNTER_NAMES):
         assert n in port_registry.DECLARED_COUNTERS
         assert n in jax_registry.DECLARED_COUNTERS
     for n in ("scale.drain_ms", "scale.warmup_ms", "ingest.freshness"):
@@ -843,14 +843,49 @@ def test_serve_bench_autoscale_needs_shards_as_jax(index_dir, capsys):
     assert got.strip() == capsys.readouterr().err.strip()
 
 
-@pytest.mark.parametrize("argv", [["--lead", "1.0"],
-                                  ["--shards", "2", "--autoscale",
-                                   "--lead", "2"]])
-def test_serve_bench_lead_names_item_8(index_dir, argv, capsys):
+@pytest.mark.parametrize("lead", [[], ["--lead", "2.5"]],
+                         ids=["default", "set"])
+def test_serve_bench_lead_runs_the_forecast_arm(index_dir, lead, capsys,
+                                                monkeypatch):
+    """`serve-bench --shards 2 --autoscale [--lead S]` runs the forecast
+    arm between the reactive arm and the static control, in both
+    packages: one AutoscaleConfig, the forecast arm's differing only by
+    `forecast_up` (= `up_occupancy`) and `forecast_lead_s` (= `--lead`,
+    default 1.0), and `forecast_arm` in the report."""
+    import tpu_ir.obs.bench_check as jax_bench_check
+    import tpu_ir.serving as jax_serving
+    import tpu_ir_torch.serving as port_serving
+
+    monkeypatch.setattr(jax_bench_check, "append_history_row",
+                        lambda row: None)
+    cfgs = {"port": [], "jax": []}
+
+    def canned(key):
+        def soak(index_dir, **kw):
+            cfgs[key].append(kw.get("autoscale"))
+            return _canned_report(kw["replicas"])
+        return soak
+
+    monkeypatch.setattr(port_serving, "run_distributed_soak",
+                        canned("port"))
+    monkeypatch.setattr(jax_serving, "run_distributed_soak", canned("jax"))
+    argv = ["--shards", "2", "--autoscale", "--queries", "24", *lead]
     assert port_cli.main(["serve-bench", index_dir, "--device", "cpu",
-                          *argv]) == 2
-    err = capsys.readouterr().err
-    assert "--lead" in err and "item 8" in err
+                          *argv]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_cli.main(["serve-bench", index_dir, "--backend", "cpu",
+                         *argv]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["forecast_arm"] == want["forecast_arm"]
+    assert got["forecast_arm"]["scale"]["forecast_lead_s"] == 0.75
+    reactive, forecast, static = cfgs["port"]
+    assert [dataclasses.asdict(c) for c in (reactive, forecast)] == \
+        [dataclasses.asdict(c) for c in cfgs["jax"][:2]]
+    assert not static and not cfgs["jax"][2]      # the static control
+    assert forecast.forecast_up == reactive.up_occupancy > 0
+    assert forecast.forecast_lead_s == (float(lead[1]) if lead else 1.0)
+    assert dataclasses.replace(forecast, forecast_up=0.0,
+                               forecast_lead_s=None) == reactive
 
 
 def _canned_report(replicas: int) -> dict:
@@ -878,10 +913,10 @@ def _canned_report(replicas: int) -> dict:
 def test_serve_bench_autoscale_json_equals_jax(index_dir, capsys,
                                                monkeypatch):
     """Both packages' `serve-bench --shards 2 --autoscale --pacing` over
-    one canned soak report: the port runs the elastic arm and the static
-    control with the same AutoscaleConfig and soak arguments as
-    `tpu_ir`'s (its forecast arm waits for item 8), and prints the same
-    JSON and history row less the forecast arm's keys."""
+    one canned soak report: the port runs the elastic arm, the forecast
+    arm and the static control with the same AutoscaleConfigs and soak
+    arguments as `tpu_ir`'s, and prints the same JSON and history row
+    (`history` null: the port writes no row)."""
     import tpu_ir.obs.bench_check as jax_bench_check
     import tpu_ir.serving as jax_serving
     import tpu_ir_torch.serving as port_serving
@@ -907,25 +942,26 @@ def test_serve_bench_autoscale_json_equals_jax(index_dir, capsys,
     assert jax_cli.main(["serve-bench", index_dir, "--backend", "cpu",
                          *argv]) == 0
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(got) == set(want) - {"forecast_arm"}
+    assert set(got) == set(want)
     assert got["static_control"] == want["static_control"]
+    assert got["forecast_arm"] == want["forecast_arm"]
     assert got["history"] is None
     row, jrow = got["history_row"], want["history_row"]
-    assert set(row) == set(jrow) - {"forecast_burst_p99_ms",
-                                    "forecast_lead_s"}
+    assert set(row) == set(jrow)
     assert {k: v for k, v in row.items() if k != "backend"} == {
         k: jrow[k] for k in row if k != "backend"}
     assert row["config"].endswith("-autoscale")
-    # the elastic arm, then the control at the mean replica count (2)
+    # the elastic arm, the forecast arm, then the control at the mean
+    # replica count (2)
     port_calls, jax_calls = calls["port"], calls["jax"]
-    assert len(port_calls) == 2 and len(jax_calls) == 3
-    reactive, forecast, static = jax_calls
-    assert dataclasses.asdict(port_calls[0].pop("autoscale")) == \
-        dataclasses.asdict(reactive.pop("autoscale"))
-    assert forecast["autoscale"].forecast_up > 0   # tpu_ir's third arm
+    assert len(port_calls) == len(jax_calls) == 3
+    for c, j in zip(port_calls[:2], jax_calls[:2]):
+        assert dataclasses.asdict(c.pop("autoscale")) == \
+            dataclasses.asdict(j.pop("autoscale"))
     for c in port_calls:
         assert c.pop("device") == "cpu"
-    assert port_calls[1].pop("autoscale") is False
+    reactive, forecast, static = jax_calls
+    assert port_calls[2].pop("autoscale") is False
     # both CLIs thread --flight-dir (None here) into each soak
-    assert port_calls == [reactive, static]
+    assert port_calls == [reactive, forecast, static]
     assert static["replicas"] == 2

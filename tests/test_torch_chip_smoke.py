@@ -8,6 +8,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 import types
 
 import pytest
@@ -415,6 +416,11 @@ def test_serving_phases_on_cpu(tmp_path, monkeypatch):
     cost = sweep["querylog_cost"]
     assert [len(cost["walls_s"][a]) for a in ("on", "off")] == [3, 3]
     assert cost["entries"] == 24 and cost["ring_capacity"] == 256
+    samp = sweep["sampler_cost"]
+    assert [len(samp["walls_s"][a]) for a in ("on", "off")] == [3, 3]
+    assert samp["interval_s"] == chip_smoke.SAMPLER_COST_INTERVAL_S
+    assert samp["sample_us"] > 0 and samp["concurrency"] == 4
+    assert set(samp["spread_share"]) == {"on", "off"}
     assert sweep["breaker_flight_record"]["reason"] == "breaker_open"
     assert sweep["breaker_flight_record"]["trace_lines"] >= 1
     from tpu_ir_torch.serving import ServingConfig, ServingFrontend
@@ -815,9 +821,22 @@ def test_depth_constants_cover_their_samples():
     # rolls, grows and drains in that order with a replica to drain
     assert c.SHARD_CLIENTS / c.ELASTIC_NARROW >= 0.6 * 2
     assert c.ELASTIC_KILL_CLIENTS >= 1 and c.ELASTIC_MEMORY_SLACK <= 0.5e9
+    assert 1 <= c.ELASTIC_HOT_TEXTS <= c.SHARD_TEXTS
     plan = c.ELASTIC_SOAK_PLAN
     assert 0 < c.ELASTIC_SOAK_UPGRADE_AT < plan["up_at"] < plan["down_at"] < 1
     assert plan["kill_during_drain"] and c.ELASTIC_SOAK_REPLICAS >= 2
+    # the forecast soak: its first crest (at 1 / (2 BURST_CYCLES) of the
+    # requests) comes after the warm-up's 5% plus the fit's 8 points a
+    # refit interval apart, and the occupancy can cross the autoscaler's
+    # threshold (more clients than threshold x slots)
+    from tpu_ir_torch.serving import soak as soak_mod
+    from tpu_ir_torch.serving.workload import BURST_CYCLES
+
+    assert c.FORECAST_SOAK_QUERIES / (2 * BURST_CYCLES) > \
+        soak_mod._SCALE_WARMUP_FRAC * c.FORECAST_SOAK_QUERIES + 8
+    assert c.FORECAST_SOAK_THREADS > 0.45 * c.FORECAST_SOAK_ROUTER_SLOTS
+    assert c.FORECAST_SOAK_SAMPLE_S >= 0.05 and c.FORECAST_SOAK_BURST > 0
+    assert c.FORECAST_SOAK_REPLICAS >= 2
 
 
 def _span(sid, parent, name, start, dur, service="router", children=(),
@@ -1144,6 +1163,13 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert el["scale_drain"]["count"] == 3
     assert set(el["nice"]) == {"0/0", "0/1", "0/2", "1/0", "1/1", "1/2"}
     assert set(el["grown_warm_launches"]) == {"0/2", "1/2"}
+    # texts led by a hot term, each once a replica from one client (none
+    # of these 24 texts holds one of the 30 hot terms by itself)
+    hp = el["hot_pass"]
+    assert el["hot_bearing_texts"] == 0
+    assert hp["texts"] == hp["answers"] == 3 * chip_smoke.ELASTIC_HOT_TEXTS
+    assert hp["mismatches"] == hp["errors"] == 0
+    assert set(el["grown_routed_by_worker"]) == {"0/2", "1/2"}
     assert el["retired_alive"] == []
     assert len(shards["stopped"]["returncodes"]) == 6
     # the dense workers' launch count opens after the reference's answers
@@ -1184,7 +1210,7 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert crash["identical_artifacts"] == live["identical_artifacts"]
     assert crash["bitwise_one_shot"]
     assert crash["workers"]["bitwise"] and crash["workers"]["texts"] == 24
-    soak, elastic = soaks
+    soak, elastic, forecast = soaks
     assert all(soak["checks"].values()) and soak["healthz_polls"]["n"]
     assert soak["report"]["submitted"] == 100
     assert crash["routed_soak_launches_lower_bound"] == soak[
@@ -1199,8 +1225,68 @@ def test_live_phases_on_cpu(tmp_path, monkeypatch):
     assert len(elastic["report"]["scale"]["drains"]) == 2
     assert crash["elastic_soak_launches_lower_bound"] == elastic[
         "launches_lower_bound"]
+    # the forecast-armed autoscaler: fits, the workers' time series read
+    # mid-soak, the spool's merge equal to each worker's own last counts
+    assert forecast["phase"] == "forecast_soak"
+    assert all(forecast["checks"].values()), forecast["checks"]
+    assert forecast["report"]["submitted"] == \
+        chip_smoke.FORECAST_SOAK_QUERIES
+    assert forecast["autoscale"]["forecast_up"] == \
+        forecast["autoscale"]["up_occupancy"] == 0.45
+    assert forecast["autoscale"]["forecast_lead_s"] == 1.0
+    assert forecast["forecast"]["fits"] >= 1
+    assert forecast["cluster"]["processes"] >= 4
+    assert forecast["cluster"]["submitted"] == forecast["cluster"][
+        "own_submitted"] > 0
+    # the spool against the router's own count of its search attempts
+    searches = forecast["cluster"]["router_attempts"]["search"]
+    assert {"merge_equals_files", "spool_equals_router"} <= set(
+        forecast["checks"])
+    assert searches["sent_ok"] <= forecast["cluster"]["answered"]
+    assert forecast["cluster"]["submitted"] <= searches["sent_ok"] + \
+        searches.get("sent_failed", 0)
+    arm = forecast["forecast_arm"]
+    assert arm["ticks"] > 0 and arm["forecast_max"] is not None
+    # the poller reads this process's fleet each poll, not once: a worker
+    # read between two polls leaves the next one on this process
+    assert forecast["healthz_polls"]["with_router"] >= 2
+    # each decision grows or drains a replica of every shard
+    assert len(arm["scale_events"]) * chip_smoke.FORECAST_SOAK_SHARDS == \
+        forecast["report"]["scale"]["events"]
+    assert forecast["worker_timeseries"]["tiers"][0]["window_s"] == \
+        chip_smoke.FORECAST_SOAK_SAMPLE_S
+    assert set(forecast["forecast_arm"]) >= {"forecast_lead_s",
+                                             "burst_p99_ms"}
+    assert crash["forecast_soak_launches_lower_bound"] == forecast[
+        "launches_lower_bound"]
+    for name in ("TPU_IR_TELEMETRY_DIR", "TPU_IR_TS_SAMPLE_S"):
+        assert name not in os.environ
     assert os.listdir(work) == []
-    json.dumps([live, crash, shards, soak, elastic])
+    json.dumps([live, crash, shards, soak, elastic, forecast])
+
+
+def test_forecast_record_of_hand_built_ticks():
+    """The forecast's part in the autoscaler's ticks, recorded: the ticks
+    whose forecast reached forecast_up, those the forecast alone armed,
+    the highest forecast, and each membership change with its reason."""
+    def tick(n, occ, fc, action=None, reason="steady"):
+        return {"tick": n, "occupancy": occ, "forecast": fc,
+                "action": action, "reason": reason, "active": 2,
+                "slo_burn": 0.0}
+
+    ticks = [tick(1, 0.1, 0.2), tick(2, 0.3, 0.5),
+             tick(3, 0.6, 0.45), tick(4, 0.2, 0.47, "up", "forecast"),
+             tick(5, 0.05, 0.1, "down", "steady"), tick(6, 0.5, 0.46)]
+    rec = chip_smoke.forecast_record(ticks, 0.45, 0.55)
+    assert rec["ticks"] == 6
+    assert rec["forecast_live_ticks"] == 4 and rec["forecast_only_ticks"] == 3
+    assert rec["forecast_max"] == 0.5
+    assert rec["scale_events"] == [
+        {"tick": 4, "action": "up", "reason": "forecast", "occupancy": 0.2,
+         "forecast": 0.47},
+        {"tick": 5, "action": "down", "reason": "steady", "occupancy": 0.05,
+         "forecast": 0.1}]
+    assert chip_smoke.forecast_record([], 0.45, 0.45)["forecast_max"] is None
 
 
 def test_ingest_soak_phase_on_cpu(tmp_path):
@@ -1365,6 +1451,69 @@ def test_profiling_passes_and_scrapes_on_cpu():
     assert "scrape_fn" in scraped["profile_labels"]
 
 
+def test_sampler_passes_on_cpu():
+    """Three passes with a sampler running and three without, in turns,
+    on first: the sampler samples in the on passes only (none is left
+    running), a pass whose results change is caught, and one sample's
+    cost is timed."""
+    import threading
+
+    from tpu_ir_torch.obs import get_registry
+
+    seen = []
+
+    def run():
+        seen.append(any(t.name == "tpu-ir-obs-timeseries"
+                        for t in threading.enumerate()))
+        time.sleep(0.12)
+        return [3]
+
+    before = get_registry().get("timeseries.samples")
+    out = chip_smoke.sampler_passes(run)
+    assert seen == [True, False] * chip_smoke.QUERYLOG_PASSES
+    assert not any(t.name == "tpu-ir-obs-timeseries"
+                   for t in threading.enumerate())
+    assert out["samples_on"] >= chip_smoke.QUERYLOG_PASSES
+    assert get_registry().get("timeseries.samples") - before >= \
+        out["samples_on"]
+    assert out["sample_us"] > 0 and out["default_interval_s"] == 10.0
+    assert 0 < out["default_share"] < 0.02
+    assert set(out) >= {"cost_share", "net_of_gc_cost_share",
+                        "spread_share", "walls_s", "gc"}
+    flips = iter(range(10))
+    with pytest.raises(AssertionError):
+        chip_smoke.sampler_passes(lambda: next(flips))
+
+
+def test_soak_lead_up_record_carries_the_time_series(tmp_path,
+                                                     monkeypatch):
+    """The routed soak's forced record: its header's timeseries window
+    holds the curated series, the routed rate of a window after the
+    soak's start above 0."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import timeseries
+
+    obs.reset_all()
+    monkeypatch.setenv("TPU_IR_FLIGHT_DIR", str(tmp_path))
+    store = timeseries.get_store()
+    store.sample()
+    since = time.time()
+    with obs.trace("request"):
+        obs.get_registry().incr("router.requests", 5)
+    time.sleep(0.01)
+    store.sample()
+    report = {k: 0 for k in ("submitted", "served", "shed", "errors",
+                             "deadlocked", "full_mismatches",
+                             "partial_mismatches")}
+    out = chip_smoke.soak_lead_up_record(report, since)
+    assert out["routed_per_s_max"] > 0
+    assert "routed_per_s" in out["series"] and out["points"]["routed_per_s"]
+    assert os.path.exists(tmp_path / out["path"])
+    assert chip_smoke.soak_lead_up_record(report, time.time() + 60)[
+        "routed_per_s_max"] == 0.0
+    obs.reset_all()
+
+
 def test_gc_pauses_and_collected_pass():
     """A full collection inside the block is counted with its seconds;
     collected_pass returns the run's result, its wall and the pauses;
@@ -1425,3 +1574,122 @@ def test_dispatch_ab_refuses_without_cuda():
     assert r.returncode != 0
     assert r.stdout == ""
     assert "no CUDA device" in r.stderr
+
+
+def test_dispatch_ablation_arms_on_cpu(tmp_path, monkeypatch):
+    """--ablate's parts on the CPU: each arm of ablation() (span, memory
+    sample and wrappers swapped out or kept) gives the bits of the
+    shipped path through a coalescing frontend; the meter wraps the
+    shipped _blocked_dispatch and counts each dispatch with its wall and
+    its thread's CPU time; the shipped method, the span, the sample and
+    the wrappers come back."""
+    from tpu_ir_torch import obs
+    from tpu_ir_torch.obs import profiling
+    from tpu_ir_torch.ops import scoring as ops_scoring
+    from tpu_ir_torch.search import Scorer
+    from tpu_ir_torch.search import scorer as scorer_mod
+    from tpu_ir_torch.serving import ServingConfig, ServingFrontend
+
+    obs.reset_all()
+    monkeypatch.setattr(chip_smoke, "WIKI_CORPUS", dict(
+        n_docs=200, target_bytes=200_000, vocab_size=2_000))
+    _, idx = chip_smoke.phase_build("cpu", str(tmp_path), device="cpu",
+                                    config="wiki100k")
+    dense = Scorer.load(idx, layout="dense", device="cpu")
+    fe = ServingFrontend(dense, ServingConfig(max_concurrency=4,
+                                              max_queue=8, coalesce=True))
+    texts = [" ".join(dense.vocab.terms[i:i + 2]) for i in range(0, 48, 2)]
+
+    def loop():
+        return chip_smoke.closed_loop(fe, texts, 4, scoring="bm25", k=10)
+
+    want = loop()
+    shipped = Scorer.__dict__["_blocked_dispatch"]
+    wrapped = ops_scoring.bm25_topk_dense
+    real_trace, real_sample = scorer_mod.obs_trace, profiling.sample_memory
+    samples = []
+    monkeypatch.setattr(profiling, "sample_memory",
+                        lambda *a, **kw: samples.append(1))
+    meter = chip_smoke.DispatchMeter()
+    meter.install(Scorer)
+    assert Scorer.__dict__["_blocked_dispatch"] is not shipped
+    try:
+        for arm in chip_smoke.ABLATION_ARMS:
+            span = arm not in ("no_span", "bare")
+            sample = arm not in ("no_sample", "bare")
+            unwrap = arm in ("unwrapped", "bare")
+            with chip_smoke.ablation(arm) as n:
+                assert (n >= 18) == unwrap and (n == 0) != unwrap
+                assert isinstance(ops_scoring.bm25_topk_dense,
+                                  profiling.Profiled) != unwrap
+                assert (scorer_mod.bm25_topk_dense
+                        is wrapped.__wrapped__) == unwrap
+                before = obs.get_registry().histogram(
+                    "dispatch.device").state()[0]
+                del samples[:]
+                assert loop() == want
+                took = meter.take()
+                assert took["dispatches"] >= 1
+                assert took["wall_ms"] >= took["cpu_ms"] >= 0
+                assert took["off_cpu_ms"] == pytest.approx(
+                    took["wall_ms"] - took["cpu_ms"])
+                after = obs.get_registry().histogram(
+                    "dispatch.device").state()[0]
+                assert (sum(after) > sum(before)) == span, arm
+                assert bool(samples) == sample, arm
+                assert meter.take()["dispatches"] == 0
+            assert scorer_mod.obs_trace is real_trace
+            assert ops_scoring.bm25_topk_dense is wrapped
+    finally:
+        meter.uninstall(Scorer)
+    monkeypatch.setattr(profiling, "sample_memory", real_sample)
+    assert Scorer.__dict__["_blocked_dispatch"].__func__ is shipped.__func__
+    assert loop() == want
+    assert set(chip_smoke.ABLATION_ARMS) == {
+        "on", "off", "no_span", "no_sample", "unwrapped", "bare"}
+    assert not hasattr(chip_smoke, "ablated_dispatch")
+    obs.reset_all()
+
+
+def test_dispatch_ablation_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--dispatch-ab",
+                        os.path.join(ROOT, "build", "no-index"),
+                        "--ablate"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "no CUDA device" in r.stderr
+
+
+def test_pool_ablation_pools_processes_by_tree_and_arm(tmp_path):
+    """--dispatch-ab-pool over two processes a tree: passes pooled by
+    arm, the processes' medians' spread, the meter's medians, each arm
+    over the first tree's arm in the same place."""
+    def line(label, arms, walls, off_us):
+        meter = {"dispatches": 10, "wall_ms": 100.0, "cpu_ms": 40.0,
+                 "off_cpu_ms": 60.0, "off_cpu_us_a_dispatch": off_us}
+        return {"dispatch_ab": label, "loop": {
+            "walls_s": {a: list(walls) for a in arms},
+            "meter": {a: [meter] * len(walls) for a in arms}}}
+
+    paths = []
+    for i, (label, arms, walls) in enumerate([
+            ("parent", ("plain_0", "plain_1"), (1.0, 1.0, 1.2)),
+            ("change", ("on", "off"), (1.1, 1.1, 1.3)),
+            ("parent", ("plain_0", "plain_1"), (0.8, 0.8, 1.0)),
+            ("change", ("on", "off"), (0.9, 0.9, 1.1))]):
+        path = tmp_path / f"{i}.json"
+        path.write_text("noise\n" + json.dumps(line(label, arms, walls,
+                                                     6000.0)))
+        paths.append(str(path))
+    out = chip_smoke.pool_ablation(paths)
+    assert list(out) == ["parent", "change"]
+    on = out["change"]["arms"]["on"]
+    assert out["change"]["processes"] == 2 and on["passes"] == 6
+    assert on["median_s"] == pytest.approx(1.1)       # six passes pooled
+    assert on["process_median_spread_s"] == pytest.approx(0.2)
+    assert on["over_parent"] == pytest.approx(0.1)
+    assert out["parent"]["arms"]["plain_1"]["over_parent"] == 0.0
+    assert on["off_cpu_share"] == pytest.approx(0.6)
+    assert on["cpu_ms_a_pass"] == 40.0 and on["dispatches_a_pass"] == 10.0

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 
 import pytest
 
@@ -55,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
             "tpu_ir_torch.serving.residency, tpu_ir_torch.serving.workload, "
             "tpu_ir_torch.serving.autoscale, tpu_ir_torch.obs.recorder, "
             "tpu_ir_torch.obs.progress, tpu_ir_torch.obs.querylog, "
-            "tpu_ir_torch.obs.profiling, "
+            "tpu_ir_torch.obs.profiling, tpu_ir_torch.obs.timeseries, "
+            "tpu_ir_torch.obs.aggregate, "
             "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
@@ -90,6 +92,43 @@ def test_querylog_and_trace_dump_load_no_jax(argv):
             "assert not bad, bad\n"
             "print('clean')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "clean"
+
+
+def test_sampler_and_spool_writer_load_no_jax(tmp_path):
+    """A MetricsServer with TPU_IR_TELEMETRY_DIR set runs the timeseries
+    sampler and a SpoolWriter; both write, `top --json`, `stats
+    --cluster` and `metrics --cluster` read what they wrote, and nothing
+    loads JAX or the JAX package."""
+    spool = str(tmp_path / "spool")
+    code = ("import contextlib, io, json, os, sys, threading, time\n"
+            "from tpu_ir_torch import cli, obs\n"
+            "from tpu_ir_torch.obs.server import MetricsServer\n"
+            "obs.get_registry().incr('serving.submitted', 3)\n"
+            "with MetricsServer(port=0) as srv:\n"
+            "    names = {t.name for t in threading.enumerate()}\n"
+            "    assert {'tpu-ir-obs-timeseries', 'tpu-ir-obs-spool'} <= "
+            "names, names\n"
+            "    time.sleep(0.5)\n"
+            "names = sorted(os.listdir(os.environ['TPU_IR_TELEMETRY_DIR']))\n"
+            "assert [n.split('-')[0] for n in names] == "
+            "['telemetry', 'timeseries'], names\n"
+            "for argv in (['top', '--json'], ['stats', '--cluster'], "
+            "['metrics', '--cluster']):\n"
+            "    buf = io.StringIO()\n"
+            "    with contextlib.redirect_stdout(buf):\n"
+            "        assert cli.main(argv) == 0, argv\n"
+            "    json.loads(buf.getvalue())\n"
+            "assert obs.get_registry().get('timeseries.samples') >= 2\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tpu_ir', 'bench', 'ml_dtypes'))\n"
+            "assert not bad, bad\n"
+            "print('clean')")
+    env = dict(os.environ, TPU_IR_TELEMETRY_DIR=spool,
+               TPU_IR_TS_SAMPLE_S="0.05", TPU_IR_SPOOL_INTERVAL="0.1")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "clean"
@@ -135,8 +174,9 @@ def test_feeder_child_loads_no_jax(tmp_path):
 def test_worker_subprocess_loads_no_jax(tmp_path):
     """A shard worker as ShardSet spawns it (`python -m
     tpu_ir_torch.serving.shardset <config>`), on the CPU over a small
-    index, warmed: it imports neither JAX nor the JAX package, and exits
-    0 on SIGTERM."""
+    index, warmed, with TPU_IR_TELEMETRY_DIR set: it imports neither JAX
+    nor the JAX package, serves /timeseries, exits 0 on SIGTERM and
+    leaves its snapshot and its time-series store in the spool."""
     from tpu_ir_torch.index import build_index
     from tpu_ir_torch.serving import get_worker_health
 
@@ -161,10 +201,13 @@ def test_worker_subprocess_loads_no_jax(tmp_path):
              "runpy.run_module('tpu_ir_torch.serving.shardset', "
              "run_name='__main__')\n")
     out_path, err_path = str(tmp_path / "out"), str(tmp_path / "err")
+    spool = str(tmp_path / "spool")
+    env = dict(os.environ, TPU_IR_TELEMETRY_DIR=spool,
+               TPU_IR_TS_SAMPLE_S="0.05")
     with open(out_path, "w") as out, open(err_path, "w") as err:
         # stdin stays open: the worker exits at once when it closes
         proc = subprocess.Popen([sys.executable, "-c", check, cfg],
-                                cwd=ROOT, stdin=subprocess.PIPE,
+                                cwd=ROOT, stdin=subprocess.PIPE, env=env,
                                 stdout=out, stderr=err, text=True)
     try:
         deadline = time.monotonic() + 120
@@ -175,6 +218,10 @@ def test_worker_subprocess_loads_no_jax(tmp_path):
             port = json.load(f)["port"]
         assert get_worker_health(f"127.0.0.1:{port}", 10)["worker"][
             "residency"]["mode"] == "auto"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/timeseries",
+                                    timeout=10) as r:
+            body = json.loads(r.read())
+        assert body["enabled"] and body["tiers"][0]["window_s"] == 0.05
         proc.terminate()
         assert proc.wait(timeout=60) == 0, open(err_path).read()[-2000:]
     finally:
@@ -184,6 +231,10 @@ def test_worker_subprocess_loads_no_jax(tmp_path):
         proc.stdin.close()
     lines = open(out_path).read().strip().splitlines()
     assert lines[-1] == "loaded: []"
+    names = sorted(os.listdir(spool))
+    assert [n.split("-")[0] for n in names] == ["telemetry", "timeseries"]
+    with open(os.path.join(spool, names[0])) as f:
+        assert json.load(f)["pid"] == proc.pid
 
 
 def _mapped_files(pid: int) -> set:

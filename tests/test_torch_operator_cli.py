@@ -1,7 +1,8 @@
 """The port's operator surfaces held against `tpu_ir`'s on the CPU, after
 tests/test_obs.py, tests/test_serving.py and tests/test_cache_tier.py:
 `stats`, `metrics` (JSON and `--prom`), `cache stats|clear`, read-and-
-zero with `--reset`, `--cluster` (item 8d: exit 2), the server's
+zero with `--reset`, `--cluster` (the spool's merge, either package's
+files), the server's
 `/metrics` (read-only: `?reset=1` is 403), `/metrics.json`, `/doctor` and
 `/`, `serve-bench --metrics-port` on its three arms, and the counters
 this slice adds: `decode.*` equal to `tpu_ir`'s on one v3 fixture with
@@ -178,9 +179,48 @@ def test_metrics_prom_lines_match_for_shared_names(capsys):
 
 
 @pytest.mark.parametrize("command", ["stats", "metrics"])
-def test_cluster_exits_2_naming_item_8d(capsys, command):
-    assert port_cli([command, "--cluster"]) == 2
-    assert "8d" in capsys.readouterr().err
+def test_cluster_merges_the_spool_as_tpu_ir_does(tmp_path, capsys,
+                                                  monkeypatch, command):
+    """`--cluster --telemetry-dir DIR` over a spool one package of each
+    wrote (the same scripted events): both command lines print the same
+    merge, every event counted once a process; with no spool, both exit
+    1."""
+    from tpu_ir.obs import aggregate as jax_agg
+    from tpu_ir_torch.obs import aggregate as port_agg
+
+    for name, agg in (("port", port_agg), ("jax", jax_agg)):
+        _script(name)
+        OBS[name].get_registry().set_gauge("router.occupancy", 0.25)
+        # one spool file a process: each package writes its own dir, and
+        # the files meet under names of two pids
+        path = agg.spool_write(str(tmp_path / name))
+        assert path is not None
+        os.replace(path, tmp_path / os.path.basename(path).replace(
+            f"-{os.getpid()}-", f"-{os.getpid()}{len(name)}-"))
+    outs = {}
+    for name in CLIS:
+        rc, out = _run(capsys, name, [command, "--cluster",
+                                      "--telemetry-dir", str(tmp_path)])
+        assert rc == 0
+        outs[name] = json.loads(out)
+    assert outs["port"] == outs["jax"]
+    merged = outs["port"]
+    assert merged["processes"] == 2
+    assert len(merged["per_process"]) == 2
+    submitted = (merged["serving"]["submitted"] if command == "stats"
+                 else merged["counters"]["serving.submitted"])
+    assert submitted == 10
+    if command == "metrics":
+        assert merged["gauges"]["router.occupancy"] == 0.25
+    monkeypatch.delenv("TPU_IR_TELEMETRY_DIR", raising=False)
+    errs = {}
+    for name, cli in CLIS.items():
+        assert cli([command, "--cluster"]) == 1
+        assert cli([command, "--cluster", "--telemetry-dir",
+                    str(tmp_path / "empty")]) == 1
+        errs[name] = capsys.readouterr().err
+    assert errs["port"] == errs["jax"]
+    assert errs["port"].count("error: ") == 2
 
 
 # -- cache --------------------------------------------------------------------

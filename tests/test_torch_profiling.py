@@ -278,7 +278,7 @@ def test_unwarmed_storm_counts_window_and_writes_one_record(
     assert len(jax_recs) == 1
     ph = json.loads(port_recs[0].read_text().splitlines()[0])
     jh = json.loads(jax_recs[0].read_text().splitlines()[0])
-    assert set(ph) == set(jh) - {"timeseries"}
+    assert set(ph) == set(jh)
     assert set(ph["extra"]) == set(jh["extra"])
     assert ph["extra"]["fn"] == "dispatch" and ph["extra"]["limit"] == 2
     assert ph["extra"]["signature"].startswith("int32[1,")

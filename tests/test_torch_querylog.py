@@ -306,7 +306,7 @@ def test_slow_trap_end_to_end_matches_tpu_ir(scorers, tmp_path,
                  if k not in ("span_tree", "explain", "flight_record")}) == \
         norm({k: v for k, v in caps["jax"].items()
               if k not in ("span_tree", "explain", "flight_record")})
-    assert set(heads["port"]) == set(heads["jax"]) - {"timeseries"}
+    assert set(heads["port"]) == set(heads["jax"])
     for key in ("memory", "compile_cache"):
         assert set(heads["port"][key]) == set(heads["jax"][key])
     # the frontend minted the request's trace: the header's join key

@@ -5,8 +5,8 @@ tests/test_obs.py and tests/test_disttrace.py.
 Both packages dump the same scripted trace ring and counters; the
 artifacts are compared line for line with the header's time, pid and seq,
 the trees' clock fields and thread ids, the registry's run id and stamps
-and the declared-name tables left out, as is `tpu_ir`'s header field of
-the time series (ROADMAP item 8d); the memory readings are compared by
+and the declared-name tables left out; the header's time-series lead-up
+(two samples at fixed times) is compared whole, the memory readings by
 their keys. Each package's `recent_headers` reads the other's
 directory."""
 
@@ -33,8 +33,6 @@ from tpu_ir_torch.serving import ServingConfig, ServingFrontend, run_soak
 
 PACKAGES = {"port": (port_obs, port_rec, port_dt),
             "jax": (jax_obs, jax_rec, jax_dt)}
-# tpu_ir's header field of the time series (8d)
-LATER_HEADER_KEYS = {"timeseries"}
 SPAN_CLOCK = {"start_ns", "dur_us", "thread_id", "thread", "time"}
 
 
@@ -49,7 +47,11 @@ def _clean_state():
 
 
 def _script(o) -> None:
-    """The same ring and counters in one package."""
+    """The same ring, counters and time series in one package."""
+    store = o.timeseries.get_store()
+    store.sample(now=1000.0)
+    o.get_registry().incr("serving.submitted", 4)
+    store.sample(now=1002.0)
     with o.trace("request", scoring="bm25"):
         with o.trace("dispatch", rows=2):
             with o.trace("kernel", layout="sparse"):
@@ -73,7 +75,7 @@ def _lines(lines: list) -> list:
 
 def test_artifact_lines_match_tpu_ir():
     """Header, one trace line a ring entry, the telemetry line last: the
-    same records, the header's keys less the later items'."""
+    same records, the header's keys and its time-series lead-up."""
     got = {}
     for p, (o, rec, _) in PACKAGES.items():
         _script(o)
@@ -82,8 +84,9 @@ def test_artifact_lines_match_tpu_ir():
     port, jax = got["port"], got["jax"]
     assert len(port) == len(jax) == 4
     ph, jh = port[0], jax[0]
-    assert set(ph) == set(jh) - LATER_HEADER_KEYS
-    volatile = {"time", "pid", "seq", "memory"} | LATER_HEADER_KEYS
+    assert set(ph) == set(jh)
+    assert ph["timeseries"]["series"]["submitted_per_s"] == [[1002.0, 2.0]]
+    volatile = {"time", "pid", "seq", "memory"}
     assert {k: v for k, v in ph.items() if k not in volatile} == \
         {k: v for k, v in jh.items() if k not in volatile}
     assert set(ph["memory"]) == set(jh["memory"])
@@ -201,7 +204,7 @@ def test_trace_dump_prints_the_same_shape(tmp_path, capsys):
         lines = [json.loads(ln) for ln in
                  capsys.readouterr().out.strip().splitlines()]
         shapes[p] = ([r["record"] for r in lines],
-                     sorted(set(lines[0]) - LATER_HEADER_KEYS),
+                     sorted(lines[0]),
                      _tree(lines[1]["trace"]))
     assert shapes["port"][0] == shapes["jax"][0]
     assert shapes["port"][1] == shapes["jax"][1]

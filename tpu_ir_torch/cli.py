@@ -2,8 +2,8 @@
 `inspect`, `verify`, `migrate-index`, `merge`, `warm`, `doctor`,
 `serve-bench`, `serve-worker`, `scale`, `ingest`, `compact`,
 `generations`, `backup`, `trace`, `querylog`, `trace-dump`, `stats`,
-`metrics`, `profile`, `cache`, `pack`, `count` and `docno`, with tpu_ir's
-flag names and defaults.
+`metrics`, `top`, `profile`, `cache`, `pack`, `count` and `docno`, with
+tpu_ir's flag names and defaults.
 
     python -m tpu_ir_torch.cli index CORPUS... IDX [--shards N] [--k 1]
         [--chargram-k 2 3] [--no-chargrams] [--overwrite] [--streaming
@@ -30,7 +30,7 @@ flag names and defaults.
         [--seed S] [--concurrency N | N,N,...] [--queue-depth N]
         [--deadline S] [--coalesce auto|on|off] [--breaker-threshold N]
         [--cache N] [--timeout S] [--chaos] [--layout ...] [--device ...]
-        [--shards N [--replicas R] [--autoscale] [--pacing S]]
+        [--shards N [--replicas R] [--autoscale [--lead S]] [--pacing S]]
         [--workload uniform|zipf] [--skew S[,S...]] [--burst B]
         [--flight-dir DIR] [--metrics-port PORT]
     python -m tpu_ir_torch.cli serve-worker IDX|LIVE --shard i/S [--port P]
@@ -50,8 +50,12 @@ flag names and defaults.
     python -m tpu_ir_torch.cli trace [TRACE_ID] [--json]
     python -m tpu_ir_torch.cli querylog [-n N] [--slow] [--trace ID]
     python -m tpu_ir_torch.cli trace-dump [--out FILE]
-    python -m tpu_ir_torch.cli stats [--reset]
-    python -m tpu_ir_torch.cli metrics [--prom] [--reset]
+    python -m tpu_ir_torch.cli stats [--reset | --cluster
+        [--telemetry-dir DIR]]
+    python -m tpu_ir_torch.cli metrics [--prom] [--reset | --cluster
+        [--telemetry-dir DIR]]
+    python -m tpu_ir_torch.cli top [--url URL] [--tier N] [--watch N]
+        [--interval S] [--json]
     python -m tpu_ir_torch.cli profile
     python -m tpu_ir_torch.cli cache [stats|clear]
     python -m tpu_ir_torch.cli pack TEXT_FILE OUT [--prefix LINE]
@@ -81,9 +85,11 @@ exits 1 when an invariant fails; `--shards N` runs the distributed chaos
 soak instead (S x R worker processes behind the Router, one soak a
 `--skew` level) and prints its report with the row the JAX package would
 append to BENCH_HISTORY.jsonl (`history` is null: the port writes no
-row); `--autoscale` runs that soak under the autoscaler, then a static
-control at its mean replica count (the JAX package's forecast arm and
-its `--lead` wait for the telemetry time machine: `--lead` exits 2).
+row); `--autoscale` runs that soak under the autoscaler, then the forecast arm
+(the same soak with the autoscaler's third signal armed: the diurnal fit
+publishes the occupancy predicted `--lead` seconds ahead, default 1.0;
+`forecast_arm` holds its burst p99 and its lead on the first crest), then
+a static control at the reactive arm's mean replica count.
 `scale` prints the autoscaler's resolved configuration and, with
 `--url`, a serving process's /healthz autoscaler section.
 `serve-worker` serves one doc shard's RPC surface (serving/shardset.py)
@@ -117,9 +123,15 @@ sweep or the routed soak runs (/metrics, /metrics.json, /profile,
 device-cost profiler's report) and `cache stats|clear` (the live result
 caches) print this process's telemetry in tpu_ir's shapes: empty from a
 fresh command, the shape is the contract; a serving process shows its
-own on its server. `--reset` reads and zeroes in one step. `--cluster`,
-the spooled cluster view, comes with the cumulative telemetry (ROADMAP
-item 8d) and exits 2.
+own on its server. `--reset` reads and zeroes in one step. `--cluster`
+merges the snapshots the serving processes spooled to
+TPU_IR_TELEMETRY_DIR (or `--telemetry-dir`): counters and histogram
+buckets added, gauges by their merge policy, with `processes` and
+`per_process`; it exits 1 when no spool is set or it is empty. `top` draws
+the telemetry time machine (obs/timeseries.py): this process's store, or
+with `--url` a serving process's /timeseries (`--json`: the payload).
+`serve-bench --metrics-port` also serves /timeseries and, with
+TPU_IR_TELEMETRY_DIR set, /cluster.
 """
 
 from __future__ import annotations
@@ -835,23 +847,50 @@ def cmd_trace_dump(args) -> int:
     return 0
 
 
-def _no_cluster(command: str) -> int:
-    print(f"{command} --cluster merges the spooled per-process telemetry, "
-          "which comes with the cumulative telemetry (ROADMAP item 8d): "
-          "not ported yet", file=sys.stderr)
-    return 2
+def _spooled_snapshots(args, command: str) -> list | None:
+    """The spool's snapshots for `--cluster` (`--telemetry-dir`, else
+    TPU_IR_TELEMETRY_DIR), the newest of each process; None, after
+    tpu_ir's `error:` line for `command`, when no dir is set or it holds
+    none."""
+    from .obs import aggregate
+
+    d = args.telemetry_dir or aggregate.spool_dir()
+    snaps = aggregate.read_spool(d) if d else []
+    if command == "stats" and not snaps:
+        print("error: --cluster needs spooled telemetry "
+              "(TPU_IR_TELEMETRY_DIR / --telemetry-dir)", file=sys.stderr)
+        return None
+    if not d:
+        print("error: --cluster needs TPU_IR_TELEMETRY_DIR or "
+              "--telemetry-dir", file=sys.stderr)
+        return None
+    if not snaps:
+        print(f"error: no spooled telemetry under {d}", file=sys.stderr)
+        return None
+    return snaps
 
 
 def cmd_stats(args) -> int:
     """This process's recovery and serving counters, the fault sites that
     fired, the pruning counters and the latency histograms, one JSON
     object in tpu_ir's shape, from one snapshot (`--reset` reads and
-    zeroes it in one step)."""
+    zeroes it in one step). `--cluster`: the same sections over the
+    spooled processes' merged snapshots, with `processes` and
+    `per_process`."""
     from . import obs
 
     if args.cluster:
-        return _no_cluster("stats")
-    snap = obs.get_registry().snapshot(reset=args.reset)
+        from .obs import aggregate
+
+        snaps = _spooled_snapshots(args, "stats")
+        if snaps is None:
+            return 1
+        snap = aggregate.merge_snapshots(snaps)
+        extra = {"processes": snap["processes"],
+                 "per_process": snap["per_process"]}
+    else:
+        snap = obs.get_registry().snapshot(reset=args.reset)
+        extra = {}
 
     def section(prefix: str) -> dict:
         n = len(prefix)
@@ -866,6 +905,7 @@ def cmd_stats(args) -> int:
         "pruning": {k: v for k, v in snap["counters"].items()
                     if k.startswith(("prune.", "blockmax."))},
         "histograms": snap["histograms"],
+        **extra,
     }, sort_keys=True))
     return 0
 
@@ -873,16 +913,115 @@ def cmd_stats(args) -> int:
 def cmd_metrics(args) -> int:
     """The whole registry (counters, gauges, histograms) as one JSON
     object, or with `--prom` as Prometheus text; `--reset` zeroes it in
-    the same step."""
+    the same step. `--cluster`: the spooled processes' snapshots merged
+    (counters added, buckets added, gauges by their merge policy; this
+    command's own empty registry left out)."""
     from . import obs
 
     if args.cluster:
-        return _no_cluster("metrics")
+        from .obs import aggregate
+
+        snaps = _spooled_snapshots(args, "metrics")
+        if snaps is None:
+            return 1
+        print(json.dumps(aggregate.merge_snapshots(snaps), sort_keys=True))
+        return 0
     reg = obs.get_registry()
     if args.prom:
         sys.stdout.write(reg.prometheus_text(reset=args.reset))
     else:
         print(json.dumps(reg.snapshot(reset=args.reset), sort_keys=True))
+    return 0
+
+
+_SPARK_BLOCKS = "\u2581\u2582\u2583\u2584\u2585\u2586\u2587\u2588"
+
+
+def _sparkline(values, width: int = 48) -> str:
+    """A sparkline of unicode blocks over the last `width` values."""
+    vs = list(values)[-width:]
+    if not vs:
+        return ""
+    lo, hi = min(vs), max(vs)
+    span = hi - lo
+    if span <= 0:
+        return _SPARK_BLOCKS[0] * len(vs)
+    return "".join(
+        _SPARK_BLOCKS[min(len(_SPARK_BLOCKS) - 1,
+                          int((v - lo) / span * len(_SPARK_BLOCKS)))]
+        for v in vs)
+
+
+def cmd_top(args) -> int:
+    """The telemetry time machine's terminal view (obs/timeseries.py): a
+    line a curated series with its newest value, its range over the tier
+    and a sparkline, then the last anomaly and the forecast fit. Reads
+    this process's store, or a serving process's /timeseries with
+    `--url`; `--watch N` draws N times `--interval` seconds apart;
+    `--json` prints the /timeseries payload instead."""
+    import time
+
+    def fetch() -> dict:
+        if args.url:
+            import urllib.request
+
+            url = args.url.rstrip("/") + "/timeseries"
+            with urllib.request.urlopen(url, timeout=10.0) as r:
+                return json.loads(r.read().decode("utf-8"))
+        from .obs import timeseries
+
+        return timeseries.payload()
+
+    try:
+        payload = fetch()
+    except Exception as e:  # noqa: BLE001 — a dead server is the answer
+        print(f"error: cannot read /timeseries: {e!r}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(payload, sort_keys=True))
+        return 0
+    tier = max(0, args.tier)
+    for it in range(max(1, args.watch)):
+        if it:
+            time.sleep(args.interval)
+            try:
+                payload = fetch()
+            except Exception as e:  # noqa: BLE001
+                print(f"error: cannot read /timeseries: {e!r}",
+                      file=sys.stderr)
+                return 1
+            print("\x1b[2J\x1b[H", end="")  # clear and home between draws
+        if not payload.get("enabled"):
+            print("timeseries disabled (TPU_IR_TIMESERIES=0)")
+            return 0
+        tiers = payload.get("tiers", [])
+        if tier >= len(tiers):
+            print(f"error: tier {tier} out of range "
+                  f"(store has {len(tiers)})", file=sys.stderr)
+            return 2
+        t = tiers[tier]
+        print(f"tpu-ir top \u2014 tier {tier} "
+              f"({t['window_s']:g}s x {t['capacity']} windows, "
+              f"{t['len']} held)")
+        for label in sorted(payload.get("series", {})):
+            vals = [v for _, v in payload["series"][label]["tiers"][tier]]
+            if not vals:
+                print(f"  {label:<24} (no data)")
+                continue
+            print(f"  {label:<24} {vals[-1]:>10.3f}  "
+                  f"[{min(vals):.3f}..{max(vals):.3f}]  "
+                  f"{_sparkline(vals)}")
+        anomalies = payload.get("anomalies") or []
+        if anomalies:
+            a = anomalies[-1]
+            print(f"  last anomaly: {a['series']} z={a['z']} "
+                  f"value={a['value']} median={a['median']}")
+        fit = payload.get("forecast")
+        if fit:
+            print(f"  forecast: period={fit['period_s']:g}s "
+                  f"amplitude={fit['amplitude']:g} r2={fit['r2']:g} "
+                  f"-> occupancy {fit.get('forecast', 0.0):g} "
+                  f"in {fit.get('lead_s', 0.0):g}s")
     return 0
 
 
@@ -1016,13 +1155,21 @@ def _serve_routed(args) -> int:
     reports = []
     ok = True
     re_cfg = None
+    fc_cfg = None
     if args.autoscale:
+        import dataclasses
+
         from .serving.autoscale import AutoscaleConfig
 
+        # one config for the reactive and the forecast arms: the forecast
+        # arm differs by the third signal alone
         re_cfg = AutoscaleConfig(
             min_replicas=args.replicas, max_replicas=args.replicas + 1,
             cooldown_s=0.5, up_occupancy=0.45, down_occupancy=0.1,
             sustain_up=5, sustain_down=50, drain_timeout_s=15.0)
+        fc_cfg = dataclasses.replace(
+            re_cfg, forecast_up=re_cfg.up_occupancy,
+            forecast_lead_s=args.lead)
 
     def soak(spec, replicas, autoscale=False):
         return run_distributed_soak(
@@ -1039,7 +1186,23 @@ def _serve_routed(args) -> int:
     for label, spec in specs:
         report = soak(spec, args.replicas, autoscale=re_cfg or False)
         static = None
+        forecast = None
         if args.autoscale:
+            # the forecast arm: the same fleet, workload and seed with the
+            # third signal armed (the soak drives the diurnal fit over the
+            # occupancy series); each arm's lead on the first crest and
+            # its burst p99 are recorded side by side
+            forecast = soak(spec, args.replicas, autoscale=fc_cfg)
+            report["forecast_arm"] = {
+                "burst_p99_ms": forecast["burst_p99_ms"],
+                "served": forecast["served"],
+                "shed": forecast["shed"],
+                "errors": forecast["errors"],
+                "scale": {k: forecast["scale"].get(k)
+                          for k in ("events", "first_up_s",
+                                    "first_up_reason", "first_up_frac",
+                                    "first_peak_s", "forecast_lead_s")},
+            }
             # the control: a static fleet at the elastic run's mean
             # replica count, the same workload and seed
             ctrl_replicas = max(1, int(round(
@@ -1081,6 +1244,9 @@ def _serve_routed(args) -> int:
             row["mean_replicas"] = report["scale"]["mean_replicas"]
             row["static_replicas"] = report["static_control"]["replicas"]
             row["static_burst_p99_ms"] = static["burst_p99_ms"]
+            row["forecast_burst_p99_ms"] = forecast["burst_p99_ms"]
+            row["forecast_lead_s"] = forecast["scale"].get(
+                "forecast_lead_s", -1.0)
             row["reactive_lead_s"] = report["scale"].get(
                 "forecast_lead_s", -1.0)
         report["history"] = None
@@ -1100,6 +1266,16 @@ def _serve_routed(args) -> int:
             if static["burst_p99_ms"] > 0:
                 ok = ok and (report["burst_p99_ms"]
                              <= static["burst_p99_ms"] * 1.5 + 250.0)
+        if forecast is not None:
+            # the forecast arm conserves too, and its burst p99 must not
+            # lose to the reactive arm's (the same loose bound)
+            ok = ok and (
+                forecast["errors"] == 0 and forecast["deadlocked"] == 0
+                and forecast["served"] + forecast["shed"]
+                == forecast["submitted"])
+            if report["burst_p99_ms"] > 0:
+                ok = ok and (forecast["burst_p99_ms"]
+                             <= report["burst_p99_ms"] * 1.5 + 250.0)
     out = reports[0] if len(reports) == 1 else {
         "runs": reports,
         "levels": [r["history_row"]["workload"] for r in reports]}
@@ -1113,11 +1289,6 @@ def cmd_serve_bench(args) -> int:
     concurrency sweep; `--shards N` runs the distributed chaos soak
     (`_serve_routed`). Prints the JSON report. `--metrics-port` serves
     the process's telemetry while it runs."""
-    if args.lead is not None:
-        print("--lead is the forecast arm's horizon, which comes with the "
-              "telemetry time machine (ROADMAP item 8): not ported yet",
-              file=sys.stderr)
-        return 2
     if args.autoscale and args.shards is None:
         print("--autoscale needs --shards N: the elastic topology is "
               "the routed worker fleet", file=sys.stderr)
@@ -1507,9 +1678,12 @@ def main(argv: list[str] | None = None) -> int:
                          "grow on sustained pressure, a drain on "
                          "sustained idleness), then a static control at "
                          "its mean replica count")
-    pb.add_argument("--lead", type=float, default=None, metavar="S",
-                    help="the forecast arm's horizon: not ported yet "
-                         "(exits 2)")
+    pb.add_argument("--lead", type=float, default=1.0, metavar="S",
+                    help="the forecast horizon (s) of --autoscale's "
+                         "forecast arm: the diurnal fit publishes the "
+                         "occupancy predicted this far ahead, so its "
+                         "scale-up leads the burst by about as much "
+                         "(live serving reads TPU_IR_SCALE_LEAD_S)")
     pb.add_argument("--pacing", type=float, default=None, metavar="S",
                     help="mean inter-arrival pacing unit (s) of the routed "
                          "soak; raise it so arrivals, not service time, "
@@ -1739,8 +1913,12 @@ def main(argv: list[str] | None = None) -> int:
                           "(per-interval scrapes instead of lifetime "
                           "counts)")
     pst.add_argument("--cluster", action="store_true",
-                     help="the spooled cluster view: not ported yet "
-                          "(exits 2)")
+                     help="merge the spooled per-process snapshots "
+                          "(TPU_IR_TELEMETRY_DIR) into cluster totals "
+                          "instead of reading this process's registry")
+    pst.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                     help="spool directory for --cluster (default: "
+                          "TPU_IR_TELEMETRY_DIR)")
     pst.set_defaults(fn=cmd_stats)
 
     pmx = sub.add_parser(
@@ -1752,9 +1930,32 @@ def main(argv: list[str] | None = None) -> int:
     pmx.add_argument("--reset", action="store_true",
                      help="zero the telemetry registry after reading")
     pmx.add_argument("--cluster", action="store_true",
-                     help="the spooled cluster view: not ported yet "
-                          "(exits 2)")
+                     help="merge the spooled per-process snapshots "
+                          "(TPU_IR_TELEMETRY_DIR) into cluster totals "
+                          "instead of reading this process's registry")
+    pmx.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                     help="spool directory for --cluster (default: "
+                          "TPU_IR_TELEMETRY_DIR)")
     pmx.set_defaults(fn=cmd_metrics)
+
+    ptp = sub.add_parser(
+        "top",
+        help="terminal view of the telemetry time machine "
+             "(obs/timeseries.py): a sparkline a curated series off this "
+             "process's store or a serving process's /timeseries (--url)")
+    ptp.add_argument("--url", default=None, metavar="URL",
+                     help="base URL of a serving process's telemetry "
+                          "server; default: this process's store")
+    ptp.add_argument("--tier", type=int, default=0,
+                     help="ring tier to draw (0: the finest)")
+    ptp.add_argument("--watch", type=int, default=1, metavar="N",
+                     help="draw N times before exiting (1: once)")
+    ptp.add_argument("--interval", type=float, default=2.0,
+                     help="seconds between --watch draws")
+    ptp.add_argument("--json", action="store_true",
+                     help="print the /timeseries payload instead of the "
+                          "terminal view")
+    ptp.set_defaults(fn=cmd_top)
 
     ppr = sub.add_parser(
         "profile", help="device-cost profiling report: cold calls by "

@@ -33,8 +33,29 @@ a choice outside its set raises.
                              (default 1)
     TPU_IR_TELEMETRY_DIR     the telemetry spool directory: kept traces
                              spool there as span batches, which `trace`
-                             stitches after the processes are gone (unset:
-                             no spool)
+                             stitches after the processes are gone, and a
+                             process serving a MetricsServer refreshes its
+                             cumulative snapshot and its time-series store
+                             there (obs/aggregate.py's SpoolWriter), which
+                             `stats --cluster`, `metrics --cluster`,
+                             `/cluster` and `/timeseries?cluster=1` merge
+                             (unset: no spool)
+    TPU_IR_SPOOL_INTERVAL    seconds between two refreshes of the spool
+                             (default 5.0, at least 0.1)
+    TPU_IR_TIMESERIES        0 turns the telemetry time machine off: no
+                             history store, no background sampler,
+                             /timeseries reports it disabled, the anomaly
+                             detector and the forecast go dark
+                             (obs/timeseries.py; default 1)
+    TPU_IR_TS_SAMPLE_S       seconds between two samples of the registry:
+                             the tier-0 window, and with the tier factors
+                             (x1, x6, x60) the whole retention ladder
+                             (default 10.0: 1 h, 4 h, 24 h; at least 0.05)
+    TPU_IR_TS_ANOMALY_Z      the robust (MAD) z-score above which a curated
+                             series' newest point is an anomaly (the
+                             timeseries.anomaly counter and a rate-limited
+                             `anomaly` flight record); 0 turns the
+                             detector off (default 8.0)
     TPU_IR_BATCH_LADDER      the coalescer's batch-size rungs (default
                              1,4,16: the JAX package's 1,4,16,64 less the
                              64 rung, which pays off only where a padded
@@ -136,9 +157,12 @@ a choice outside its set raises.
     TPU_IR_SCALE_COOLDOWN_S  least seconds between two membership changes
                              of the autoscaler; decisions inside it count
                              scale.cooldown_skipped (default 5.0)
-    TPU_IR_SCALE_LEAD_S      the forecast horizon of the autoscaler's third
-                             signal (default 30.0; nothing publishes the
-                             forecast in the port yet)
+    TPU_IR_SCALE_LEAD_S      the forecast horizon: the diurnal fit
+                             (obs/timeseries.py's Forecaster) publishes the
+                             occupancy it predicts this many seconds ahead
+                             as the forecast_occupancy gauge, the
+                             autoscaler's third scale-up signal, so growth
+                             starts before a burst (default 30.0)
     TPU_IR_SLO_P99_MS        the latency SLO: a served request slower than
                              this is a bad one for the burn-rate windows
                              (obs/disttrace.py; default 250.0, at least
@@ -218,6 +242,9 @@ _FLOATS = {"TPU_IR_BATCH_WAIT_MS": (0.0, 0.0),
            "TPU_IR_SCALE_LEAD_S": (30.0, 0.0),
            "TPU_IR_SLO_P99_MS": (250.0, 1.0),
            "TPU_IR_FLIGHT_INTERVAL": (30.0, 0.0),
+           "TPU_IR_SPOOL_INTERVAL": (5.0, 0.1),
+           "TPU_IR_TS_SAMPLE_S": (10.0, 0.05),
+           "TPU_IR_TS_ANOMALY_Z": (8.0, 0.0),
            "TPU_IR_SLOW_QUERY_MS": (0.0, 0.0)}
 # name: default (None: unset)
 _STRS = {"TPU_IR_FAULTS": None,
@@ -229,7 +256,7 @@ _BOOLS = {"TPU_IR_TRACE": True, "TPU_IR_RADIX_PARTS": False,
           "TPU_IR_AUTOSCALE": False, "TPU_IR_DISTTRACE": True,
           "TPU_IR_TRACE_TAIL": True, "TPU_IR_QUERYLOG": True,
           "TPU_IR_QUERYLOG_REDACT": False, "TPU_IR_PROFILE": True,
-          "TPU_IR_PROFILE_COST": True}
+          "TPU_IR_PROFILE_COST": True, "TPU_IR_TIMESERIES": True}
 # name: (default, choices)
 _CHOICES = {"TPU_IR_BLOCKMAX": ("auto", ("auto", "0", "1")),
             "TPU_IR_COMPRESS": ("0", ("0", "1")),

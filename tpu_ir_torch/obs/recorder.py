@@ -2,13 +2,14 @@
 when something fails (the port of `tpu_ir/obs/recorder.py`).
 
 On a soak's invariant breach, a breaker opening, an SLO burn breach, a
-build stage out of retries, a WAL's torn tail or a slow query,
-`flight_dump()` writes one JSONL artifact:
+build stage out of retries, a WAL's torn tail, a slow query or an
+anomaly in the time series, `flight_dump()` writes one JSONL artifact:
 
   1. a header line: reason, wall time, pid, sequence number, the host's
      and the card's memory, the profiler's compile-cache totals, the last
-     slow-query entries, the open request's trace id and root span, and
-     the caller's context (`extra`);
+     slow-query entries, the open request's trace id and root span, the
+     time series' lead-up (obs/timeseries.py's last tier-0 points of each
+     curated series), and the caller's context (`extra`);
   2. one line per finished request tree in the trace ring (obs/trace.py);
   3. one snapshot of the registry's counters, gauges and histograms.
 
@@ -18,8 +19,7 @@ flapping breaker cannot fill a disk; an invariant breach passes
 in TPU_IR_FLIGHT_DIR (unset: `tpu_ir_flight` under the system temp dir)
 unless the caller names a directory. File names and line shapes are
 `tpu_ir`'s, so either package's `recent_headers` reads the other's
-directory. `tpu_ir`'s header also carries the time series' lead-up
-window, which the port lacks (ROADMAP Queue 3).
+directory.
 """
 
 from __future__ import annotations
@@ -107,6 +107,16 @@ def artifact_lines(reason: str, extra=None,
     try:
         header["slow_queries"] = slow_header_entries()
         header.update(_open_request())
+    except Exception:  # noqa: BLE001 — the header must always write
+        pass
+    try:
+        # the lead-up: the last retained windows of every curated series
+        # (timeseries imports this module for its anomaly records)
+        from .timeseries import header_window
+
+        hw = header_window()
+        if hw is not None:
+            header["timeseries"] = hw
     except Exception:  # noqa: BLE001 — the header must always write
         pass
     if callable(extra):

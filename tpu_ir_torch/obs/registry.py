@@ -1,12 +1,11 @@
 """The process-wide home of the serving tier's counters, gauges and
-latency histograms (the port of `tpu_ir/obs/registry.py`, less the
-cluster merge's serializable state).
+latency histograms (the port of `tpu_ir/obs/registry.py`).
 
 Every counter lives under a dotted namespace (`recovery.*`, `serving.*`,
 `fault.*`, `batch.*`, `cache.*`, `dispatch.*`, `compile.*`, `decode.*`,
 `blockmax.*`, `ingest.*`, `merge.*`, `generation.*`, `load.*`,
-`router.*`, `scale.*`, `disttrace.*`, `slo.*`, `forecast.*`,
-`querylog.*`), every latency histogram under its span or stage name, and
+`router.*`, `scale.*`, `disttrace.*`, `slo.*`, `timeseries.*`,
+`forecast.*`, `querylog.*`), every latency histogram under its span or stage name, and
 every gauge (`device.*`, `host.*`, `compile.signatures`, the live
 index's and the fleet's levels) carries `tpu_ir`'s merge policy
 (GAUGE_MERGE). The declared names are registered at zero, so a report
@@ -14,8 +13,11 @@ always shows them, observed or not. `hist_state()` and `delta_summary()`
 give one run's percentiles without a reset of the process's state;
 `reset()` zeroes everything (the tests' isolation hook);
 `reset_counters(prefix)` zeroes one namespace; `snapshot(reset=)` is all
-of it in `tpu_ir`'s shape and `prometheus_text(reset=)` `tpu_ir`'s text
-exposition, each a read-and-zero under one lock hold with `reset=True`.
+of it in `tpu_ir`'s shape, `collect_state(reset=)` the raw form that
+crosses processes (bucket counts, not summaries, and only the gauges a
+caller set: obs/aggregate.py spools and merges it, obs/timeseries.py
+diffs it) and `prometheus_text(reset=)` `tpu_ir`'s text exposition, each
+a read-and-zero under one lock hold with `reset=True`.
 """
 
 from __future__ import annotations
@@ -172,20 +174,33 @@ DISTTRACE_COUNTER_NAMES = (
 # ring, and the slow ones the trap captured
 QUERYLOG_COUNTER_NAMES = ("querylog.recorded", "querylog.slow")
 
-# the autoscaler's scale-ups whose deciding signal was the forecast (the
-# JAX name; nothing publishes the forecast in the port, so it stays 0)
-FORECAST_COUNTER_NAMES = ("forecast.scaleups",)
+# the telemetry time machine (obs/timeseries.py), the JAX names:
+# timeseries.samples one base-rate window taken off the registry,
+# timeseries.rollups one exact fine-to-coarse tier merge,
+# timeseries.anomaly one MAD z-score detection on a curated series (each
+# also writes a rate-limited "anomaly" flight record); forecast.fits one
+# sinusoid fit that passed the quality gate and published the
+# forecast_occupancy gauge, forecast.scaleups one autoscaler scale-up
+# whose deciding signal was that forecast
+TIMESERIES_COUNTER_NAMES = (
+    "timeseries.samples", "timeseries.rollups", "timeseries.anomaly",
+    "forecast.fits", "forecast.scaleups",
+)
 
 # the gauges with the JAX package's merge policies ("last": the newest
 # process's level wins a cluster merge, "max": the cluster's peak
-# survives; the merge itself comes with the cumulative telemetry): the
+# survives; obs/aggregate.py's merge and obs/timeseries.py's rollups
+# apply them): the
 # card's allocated bytes now and at their peak, the host's RSS now and at
 # its peak, the distinct (function, signature) pairs profiled; the
 # generation a commit or a swap made current, its segment count and its
 # tombstones; the ingest soak's median flush-to-first-query lag; the SLO
 # windows' burn multiples; the admission occupancy the autoscaler read on
-# its last tick, and the forecast occupancy it reads beside it (nothing
-# sets that one yet: it reads 0.0, and the third signal stays off)
+# its last tick (the series the diurnal fit reads), and the forecast
+# occupancy it reads beside it: the Forecaster (obs/timeseries.py)
+# publishes the level it predicts forecast_lead_s ahead, which
+# run_distributed_soak drives when the autoscaler's config arms the third
+# signal
 GAUGE_MERGE = {
     "device.bytes_in_use": "last",
     "device.peak_bytes": "max",
@@ -211,7 +226,7 @@ DECLARED_COUNTERS = (
     + COMPILE_COUNTER_NAMES + DECODE_COUNTER_NAMES + BLOCKMAX_COUNTER_NAMES
     + INGEST_COUNTER_NAMES + LOAD_COUNTER_NAMES + ROUTER_COUNTER_NAMES
     + SCALE_COUNTER_NAMES + DISTTRACE_COUNTER_NAMES + SLO_COUNTER_NAMES
-    + FORECAST_COUNTER_NAMES + QUERYLOG_COUNTER_NAMES)
+    + TIMESERIES_COUNTER_NAMES + QUERYLOG_COUNTER_NAMES)
 # "request" (every level pooled) beside the per-level request.<level>;
 # batch.precompile is one coalescer's rung-ladder warm-up, at the
 # frontend's start and inside each generation swap; load.* are
@@ -261,6 +276,10 @@ class TelemetryRegistry:
         self._lock = threading.Lock()
         self._counters: dict[str, int] = {n: 0 for n in DECLARED_COUNTERS}
         self._gauges: dict[str, float] = {n: 0.0 for n in DECLARED_GAUGES}
+        # the gauges a caller set since the last reset: only these cross
+        # processes (collect_state), so an idle process's declared 0.0
+        # cannot win a "last" merge over the cluster's real level
+        self._gauges_set: set[str] = set()
         self._hists: dict[str, LatencyHistogram] = {
             n: LatencyHistogram() for n in DECLARED_HISTOGRAMS}
         self._seq = 0
@@ -318,11 +337,13 @@ class TelemetryRegistry:
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = float(value)
+            self._gauges_set.add(name)
 
     def update_gauge_max(self, name: str, value: float) -> None:
         """Raise a high-water gauge to `value` when it is higher: a level
         sample never walks a peak back down."""
         with self._lock:
+            self._gauges_set.add(name)
             if float(value) > self._gauges.get(name, 0.0):
                 self._gauges[name] = float(value)
 
@@ -368,7 +389,8 @@ class TelemetryRegistry:
     def _collect(self, reset: bool):
         """One read of everything: counters and gauges under one lock
         hold (zeroed in it with `reset`), histograms by state() or
-        drain(). Returns (counters, gauges, histogram states, meta)."""
+        drain(). Returns (counters, gauges, the gauges set, histogram
+        states, meta)."""
         with self._lock:
             self._stamp += 1
             if reset:
@@ -377,13 +399,30 @@ class TelemetryRegistry:
                     "resets": self._seq, "run_id": self.run_id}
             counters = dict(self._counters)
             gauges = dict(self._gauges)
+            gauges_set = set(self._gauges_set)
             if reset:
                 self._zero_counters()
                 self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
+                self._gauges_set.clear()
             hists = dict(self._hists)
         states = {n: (h.drain() if reset else h.state())
                   for n, h in hists.items()}
-        return counters, gauges, states, meta
+        return counters, gauges, gauges_set, states, meta
+
+    def collect_state(self, reset: bool = False) -> dict:
+        """The raw snapshot that crosses processes (`tpu_ir`'s shape): the
+        meta stamps, the counters, each histogram's bucket counts and
+        seconds (summaries do not merge, bucket counts do), and only the
+        gauges a caller set (an idle process's declared 0.0 must not win
+        a "last" merge). obs/aggregate.py spools it and obs/timeseries.py
+        diffs it."""
+        counters, gauges, gauges_set, states, meta = self._collect(reset)
+        return {**meta,
+                "counters": counters,
+                "gauges": {k: v for k, v in gauges.items()
+                           if k in gauges_set},
+                "histograms": {n: {"counts": list(c), "sum_s": s}
+                               for n, (c, s) in states.items()}}
 
     def snapshot(self, reset: bool = False) -> dict:
         """Everything in one dict, `tpu_ir`'s shape (the flight record's
@@ -392,7 +431,7 @@ class TelemetryRegistry:
         process's run id, the counters, the gauges and each histogram's
         summary. `reset=True` reads and zeroes in one step, so an event
         lands in exactly one scrape."""
-        counters, gauges, states, meta = self._collect(reset)
+        counters, gauges, _set, states, meta = self._collect(reset)
         return {**meta, "counters": counters, "gauges": gauges,
                 "histograms": {n: summary_from_counts(c, s)
                                for n, (c, s) in states.items()}}
@@ -403,6 +442,7 @@ class TelemetryRegistry:
         with self._lock:
             self._zero_counters()
             self._gauges = {n: 0.0 for n in DECLARED_GAUGES}
+            self._gauges_set.clear()
             self._seq += 1
             self._stamp += 1
             hists = list(self._hists.values())
@@ -417,7 +457,7 @@ class TelemetryRegistry:
         does."""
         from .histogram import BOUNDS
 
-        counters, gauges, states, _ = self._collect(reset)
+        counters, gauges, _set, states, _ = self._collect(reset)
         lines = [
             "# HELP tpu_ir_events_total Monotonic event counters; one "
             "series per declared dotted name (label \"name\"), zeroed "

@@ -1,5 +1,5 @@
 """The embedded HTTP server of a serving process (the port of
-`tpu_ir/obs/server.py`, less its time series and cluster views).
+`tpu_ir/obs/server.py`).
 
 One stdlib `ThreadingHTTPServer` (daemon request threads, port 0 picks a
 free one) serves:
@@ -50,12 +50,24 @@ free one) serves:
   GET  /trace        the trace ids this process stores.
   GET  /trace/<id>   one trace stitched from the store and the spool;
                      `?format=html` its waterfall; 404 for an unknown id.
+  GET  /timeseries   the telemetry time machine (obs/timeseries.py): the
+                     tier layout, every curated series as [t, value]
+                     points a tier, the recent anomalies and the newest
+                     forecast fit; `?cluster=1` folds the spooled
+                     processes' stores in (the same wall window's deltas
+                     add); `?format=html` one sparkline a series a tier.
+  GET  /cluster      the spool's cluster view (obs/aggregate.py's
+                     merge_spool, this process counted once); 404 when
+                     TPU_IR_TELEMETRY_DIR is not set; `?format=html` a
+                     page of the same JSON.
   GET  /             the list of these endpoints.
 
-`/cluster`, `/timeseries`, the cumulative telemetry spool and the
-timeseries sampler are not ported yet. The health keys are `tpu_ir`'s;
-`recompiles_last_60s` counts the profiler's recompile events (unwarmed
-coalesced dispatches) of the last minute.
+Each running server holds one reference on the process's timeseries
+sampler (the thread stops when the last server stops), and with
+TPU_IR_TELEMETRY_DIR set runs a SpoolWriter (its snapshot and its store
+spooled every TPU_IR_SPOOL_INTERVAL, the last on stop). The health keys
+are `tpu_ir`'s; `recompiles_last_60s` counts the profiler's recompile
+events (unwarmed coalesced dispatches) of the last minute.
 """
 
 from __future__ import annotations
@@ -272,13 +284,14 @@ def health_snapshot() -> dict:
 
 # -- the HTML pages ----------------------------------------------------------
 
-_NAV_ROUTES = ("/healthz", "/jobs?format=html", "/profile?format=html",
-               "/querylog?format=html", "/doctor?format=html",
-               "/slo?format=html", "/trace", "/flight", "/metrics")
+_NAV_ROUTES = ("/healthz", "/jobs?format=html", "/cluster?format=html",
+               "/profile?format=html", "/querylog?format=html",
+               "/doctor?format=html", "/slo?format=html",
+               "/timeseries?format=html", "/trace", "/flight", "/metrics")
 
 ENDPOINTS = ("/metrics", "/metrics.json", "/healthz", "/jobs", "/jobs/<id>",
              "/profile", "/querylog", "/doctor", "/slo", "/trace",
-             "/trace/<id>", "/flight")
+             "/trace/<id>", "/timeseries", "/flight", "/cluster")
 
 _STYLE = ("<style>body{font-family:sans-serif;margin:1em}"
           "table{border-collapse:collapse;margin:0 0 1.5em}"
@@ -302,6 +315,65 @@ def _json_page_html(title: str, obj) -> str:
             f"<title>{html.escape(title)}</title>{_STYLE}</head><body>"
             f"<h1>{html.escape(title)}</h1>{_nav_html()}"
             f"<pre>{body}</pre></body></html>")
+
+
+def _timeseries_html(payload: dict) -> str:
+    """/timeseries' page: one inline-SVG polyline a curated series a
+    tier, the recent anomalies and the newest forecast fit."""
+    parts = [
+        "<!DOCTYPE html><html><head><meta charset='utf-8'>",
+        f"<title>tpu-ir timeseries</title>{_STYLE}</head><body>",
+        "<h1>tpu-ir timeseries</h1>", _nav_html(),
+    ]
+    if not payload.get("enabled"):
+        parts.append("<p>timeseries disabled (TPU_IR_TIMESERIES=0)</p>"
+                     "</body></html>")
+        return "".join(parts)
+    tiers = payload.get("tiers", [])
+    parts.append("<p>" + " &middot; ".join(
+        f"tier {t['tier']}: {t['window_s']:g}s &times; "
+        f"{t['capacity']} ({t['len']} held)" for t in tiers) + "</p>")
+    w, h = 360, 48
+    for label in sorted(payload.get("series", {})):
+        ent = payload["series"][label]
+        cells = []
+        for tier_pts in ent["tiers"]:
+            vals = [v for _, v in tier_pts]
+            if not vals:
+                cells.append("<td>(no data)</td>")
+                continue
+            lo, hi = min(vals), max(vals)
+            span = (hi - lo) or 1.0
+            n = max(len(vals) - 1, 1)
+            pts = " ".join(
+                f"{i * w / n:.1f},{h - (v - lo) / span * h:.1f}"
+                for i, v in enumerate(vals))
+            cells.append(
+                f"<td><svg width='{w}' height='{h}' "
+                f"viewBox='0 0 {w} {h}'><polyline points='{pts}' "
+                "fill='none' stroke='#36c' stroke-width='1.5'/></svg>"
+                f"<br><small>last {vals[-1]:g} "
+                f"[{lo:g}..{hi:g}]</small></td>")
+        parts.append(f"<h3>{html.escape(label)}</h3>"
+                     f"<table><tr>{''.join(cells)}</tr></table>")
+    anomalies = payload.get("anomalies") or []
+    if anomalies:
+        rows = "".join(
+            f"<tr><td>{html.escape(str(a['series']))}</td>"
+            f"<td>{a['z']}</td><td>{a['value']}</td>"
+            f"<td>{a['median']}</td></tr>" for a in anomalies)
+        parts.append("<h3>anomalies</h3><table><tr><th>series</th>"
+                     "<th>z</th><th>value</th><th>median</th></tr>"
+                     f"{rows}</table>")
+    fit = payload.get("forecast")
+    if fit:
+        parts.append(
+            f"<p>forecast: period {fit['period_s']:g}s, amplitude "
+            f"{fit['amplitude']:g}, r&sup2; {fit['r2']:g} &rarr; "
+            f"occupancy {fit.get('forecast', 0.0):g} in "
+            f"{fit.get('lead_s', 0.0):g}s</p>")
+    parts.append("</body></html>")
+    return "".join(parts)
 
 
 def _jobs_html(job_dicts: list, title: str) -> str:
@@ -546,6 +618,27 @@ class _Handler(BaseHTTPRequestHandler):
                     self._html(_trace_waterfall_html(st))
                 else:
                     self._json(st)
+            elif route == "/timeseries":
+                from . import timeseries
+
+                cluster = q.get("cluster", ["0"])[0] not in ("", "0")
+                payload = timeseries.payload(cluster=cluster)
+                if as_html:
+                    self._html(_timeseries_html(payload))
+                else:
+                    self._json(payload)
+            elif route == "/cluster":
+                from . import aggregate
+
+                if not aggregate.spool_dir():
+                    self._json({"error": "TPU_IR_TELEMETRY_DIR not set"},
+                               code=404)
+                    return
+                merged = aggregate.merge_spool(include_local=True)
+                if as_html:
+                    self._html(_json_page_html("tpu-ir cluster", merged))
+                else:
+                    self._json(merged)
             else:
                 self._json({"error": "unknown endpoint"}, code=404)
         except BrokenPipeError:
@@ -561,10 +654,15 @@ class MetricsServer:
     """Bind, serve on a named daemon thread, stop cleanly. `rpc_handlers`
     (name -> fn(payload) -> dict) and `extra_health` (a dict, or a
     callable returning one, merged into /healthz) belong to this
-    instance."""
+    instance. A running server holds one reference on the timeseries
+    sampler and, when `spool` (default: TPU_IR_TELEMETRY_DIR is set),
+    runs a SpoolWriter."""
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
+                 spool: bool | None = None,
                  rpc_handlers: dict | None = None, extra_health=None):
+        from . import aggregate
+
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
         self._httpd.rpc_handlers = dict(rpc_handlers or {})
@@ -572,6 +670,10 @@ class MetricsServer:
         self.host = host
         self.port = self._httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        want_spool = (spool if spool is not None
+                      else aggregate.spool_dir() is not None)
+        self._spool = aggregate.SpoolWriter() if want_spool else None
+        self._ts_ref = False
 
     @property
     def url(self) -> str:
@@ -579,21 +681,35 @@ class MetricsServer:
 
     def start(self) -> "MetricsServer":
         if self._thread is None:
+            from . import timeseries
+
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever,
                 kwargs={"poll_interval": 0.1},
                 name=f"tpu-ir-obs-http-{self.port}", daemon=True)
             self._thread.start()
+            if self._spool is not None:
+                self._spool.start()
+            self._ts_ref = timeseries.ensure_sampler() is not None
         return self
 
     def stop(self) -> None:
-        """Stop accepting, close the socket, join the serve thread;
-        idempotent."""
+        """Stop accepting, close the socket, join the serve thread, stop
+        the spool writer (it writes its last record) and release the
+        sampler; idempotent."""
         if self._thread is not None:
             self._httpd.shutdown()
             self._thread.join(timeout=10.0)
             self._thread = None
         self._httpd.server_close()
+        if self._spool is not None:
+            self._spool.stop()
+            self._spool = None
+        if self._ts_ref:
+            from . import timeseries
+
+            self._ts_ref = False
+            timeseries.release_sampler()
 
     def __enter__(self) -> "MetricsServer":
         return self.start()

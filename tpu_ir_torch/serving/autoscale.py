@@ -13,9 +13,12 @@ through the ShardSet's membership protocol (serving/shardset.py):
 
 Pressure is the router's admission occupancy (executing + queued over
 its capacity), or the SLO windows' fast burn (obs/disttrace.py), or the
-`forecast_occupancy` gauge. Nothing in the port sets that gauge yet (the
-telemetry time machine is ROADMAP item 8): it reads 0.0, and the third
-signal stays off at the default `forecast_up = 0`.
+`forecast_occupancy` gauge: the occupancy that obs/timeseries.py's
+Forecaster predicts `forecast_lead_s` ahead from a sinusoid fit over the
+`router.occupancy` series each tick publishes. run_distributed_soak
+drives that Forecaster when the config arms the third signal
+(`forecast_up > 0`); it stays off at the default `forecast_up = 0`, and a
+scale-up it alone armed has the reason "forecast".
 
 Two dampers keep a diurnal wave from making the fleet flap:
 

@@ -37,8 +37,10 @@ IngestWriter and dies by SIGKILL at a fault site.
 
 Each soak and the sweep run as progress jobs (obs/progress.py), and an
 invariant breach writes a forced flight record (obs/recorder.py), as in
-`tpu_ir`. Not ported (ROADMAP item 8): the forecaster the JAX soak drives
-for a forecast-armed autoscaler.
+`tpu_ir`. When the distributed soak's autoscaler arms the forecast signal
+(`forecast_up > 0`), its controller also drives the telemetry time
+machine's Forecaster (obs/timeseries.py), which publishes the
+`forecast_occupancy` the autoscaler reads.
 """
 
 from __future__ import annotations
@@ -546,7 +548,12 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
     holds the membership log's length, the epoch, the lifecycle, the
     drains, the replicas provisioned against the demand seen, and with
     an autoscaler its snapshot and the first scale-up's time, reason and
-    lead on the workload's first crest.
+    lead on the workload's first crest (`forecast_lead_s`, > 0: the
+    fleet grew before the crest). An AutoscaleConfig with `forecast_up >
+    0` arms the forecast: the controller then samples this process's
+    timeseries store and refits obs/timeseries.py's Forecaster every
+    `forecast_lead_s / 8` seconds after `_SCALE_WARMUP_FRAC` of the
+    traffic, publishing `forecast_occupancy`.
 
     The run is a `soak` job (reference, serve, recovery). A breach of an
     invariant writes a forced `routed_soak_invariant_breach` flight record
@@ -673,6 +680,22 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                              down_occupancy=0.15, sustain_up=3,
                              sustain_down=25, drain_timeout_s=15.0))
                 scaler = Autoscaler(shardset, router, a_cfg)
+            # with the forecast signal armed, the controller also samples
+            # the occupancy the scaler publishes and refits the diurnal
+            # sinusoid over it, so forecast_occupancy leads the burst
+            forecaster = None
+            if scaler is not None and scaler.config.forecast_up > 0:
+                from ..obs import timeseries
+
+                if timeseries.enabled():
+                    # refit at lead / 8 (live serving refits at lead / 4):
+                    # the scripted wave is seconds long, and the fit must
+                    # lock inside its first rising edge
+                    forecaster = timeseries.Forecaster(
+                        timeseries.get_store(),
+                        lead_s=scaler.config.forecast_lead_s, sample=True)
+                    forecaster.interval_s = max(
+                        0.05, forecaster.lead_s / 8.0)
             try:
                 # -- the chaos, upgrade and scale controller ---------------
                 killed: list = []
@@ -792,6 +815,11 @@ def run_distributed_soak(index_dir: str, *, shards: int = 2,
                                     swap_complete.set()
                             if scale_plan:
                                 scripted_scale(frac, fired)
+                            if forecaster is not None \
+                                    and frac >= _SCALE_WARMUP_FRAC:
+                                # fit over the windows after the opening
+                                # transient only
+                                forecaster.poll()
                             # the wall time each pacing crest was reached:
                             # what a scale-up's lead is measured against
                             peaks = scale_state["peaks"]
